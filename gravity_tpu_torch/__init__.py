@@ -1,0 +1,17 @@
+"""gravity_tpu_torch: the PyTorch and CUDA port of gravity_tpu.
+
+The JAX package ``gravity_tpu`` beside it is the reference. This package
+imports neither it nor JAX. Module names mirror the JAX package's, and
+each module's docstring names its counterpart. Entry points run on the
+GPU unless the caller asks for the CPU (``utils/platform.py``).
+
+This slice ports the reference direct-sum ``run``: the solar and
+random-cube initial conditions, the O(N^2) direct sum with its CUDA
+kernel (``ops/direct_kernel.py``, ``csrc/nbody_direct.cu``), the four
+fixed-dt integrators, the reference log and ``.npy`` trajectories.
+"""
+
+from .config import PRESETS, SimulationConfig
+from .state import ParticleState
+
+__all__ = ["PRESETS", "ParticleState", "SimulationConfig"]

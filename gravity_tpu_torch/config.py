@@ -1,0 +1,204 @@
+"""Configuration layer.
+
+Counterpart of ``gravity_tpu/config.py``. One dataclass whose defaults
+reproduce the reference constants, plus the reference presets. It holds
+only the fields this package honours. A configuration that asks for a
+feature of the JAX package that is not ported yet is refused with an
+error naming its ROADMAP item, never silently ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+
+from . import constants as C
+
+MODELS = ("random", "solar")
+INTEGRATORS = ("euler", "leapfrog", "verlet", "yoshida4")
+DTYPES = ("float32", "float64")
+# "pallas" is the JAX name of the hand-written direct-sum kernel; here it
+# names the CUDA kernel (ops/direct_kernel.py).
+FORCE_BACKENDS = ("auto", "direct", "dense", "chunked", "pallas")
+
+_QUEUE = "ROADMAP.md Queue 1 item"
+
+# Values of honoured fields that belong to a later slice.
+_UNPORTED_VALUES = {
+    "model": (
+        ("plummer", "cold_collapse", "disk", "grf", "hernquist", "merger"),
+        f"{_QUEUE} 4 (remaining models)",
+    ),
+    "integrator": (("multirate",), f"{_QUEUE} 4 (integration modes)"),
+    "dtype": (("bfloat16",), f"{_QUEUE} 4 (bf16 states)"),
+    "force_backend": (
+        ("tree", "fmm", "sfmm", "pm", "p3m"),
+        f"{_QUEUE} 7 (fast full-gravity solvers)",
+    ),
+}
+_UNPORTED_BACKENDS = {
+    "nlist": f"{_QUEUE} 6 (truncated-force family)",
+    "pallas-mxu": "ROADMAP.md Queue 2 item 3 (matmul-form kernel)",
+    "cpp": (
+        "ROADMAP.md Queue 2 (the JAX CPU XLA-FFI kernel has no port; "
+        "use dense or chunked on the CPU)"
+    ),
+}
+
+# Fields of gravity_tpu's SimulationConfig that this package does not
+# carry: (the JAX default, which means "feature off", and the ROADMAP item
+# that ports the feature). A JSON config may name them only at that value.
+_NOT_PORTED = {
+    "multirate_k": (0, f"{_QUEUE} 4"),
+    "multirate_sub": (4, f"{_QUEUE} 4"),
+    "multirate_rungs": (2, f"{_QUEUE} 4"),
+    "autotune": (True, f"{_QUEUE} 8"),
+    "fmm_mode": ("auto", f"{_QUEUE} 7"),
+    "tree_depth": (0, f"{_QUEUE} 7"),
+    "tree_leaf_cap": (32, f"{_QUEUE} 7"),
+    "tree_ws": (1, f"{_QUEUE} 7"),
+    "tree_far": ("direct", f"{_QUEUE} 7"),
+    "pm_grid": (128, f"{_QUEUE} 7"),
+    "p3m_sigma_cells": (1.25, f"{_QUEUE} 7"),
+    "p3m_rcut_sigmas": (4.0, f"{_QUEUE} 7"),
+    "p3m_cap": (128, f"{_QUEUE} 7"),
+    "p3m_short": ("auto", f"{_QUEUE} 7"),
+    "nlist_rcut": (0.0, f"{_QUEUE} 6"),
+    "nlist_side": (0, f"{_QUEUE} 6"),
+    "nlist_cap": (0, f"{_QUEUE} 6"),
+    "nlist_mesh": ("auto", f"{_QUEUE} 6"),
+    "nlist_mig_cap": (0, f"{_QUEUE} 6"),
+    "tree_near": ("gather", f"{_QUEUE} 7"),
+    "fast_chunk": (4096, f"{_QUEUE} 7"),
+    "adaptive": (False, f"{_QUEUE} 4"),
+    "eta": (0.025, f"{_QUEUE} 4"),
+    "timestep_criterion": ("auto", f"{_QUEUE} 4"),
+    "adaptive_max_steps": (1_000_000, f"{_QUEUE} 4"),
+    "periodic_box": (0.0, f"{_QUEUE} 7"),
+    "pm_assignment": ("cic", f"{_QUEUE} 7"),
+    "external": ("", f"{_QUEUE} 4"),
+    "merge_radius": (0.0, f"{_QUEUE} 4"),
+    "merge_k": (16, f"{_QUEUE} 4"),
+    "merge_every": (100, f"{_QUEUE} 4"),
+    "auto_recover": (False, f"{_QUEUE} 2"),
+    "max_retries": (3, f"{_QUEUE} 2"),
+    "on_diverge": ("halve-dt", f"{_QUEUE} 2"),
+    "sharding": ("none", f"{_QUEUE} 5"),
+    "mesh_shape": (None, f"{_QUEUE} 5"),
+    "io_pipeline": ("auto", f"{_QUEUE} 3"),
+    "trajectory_format": ("npy", f"{_QUEUE} 1 (native .gtrj writer)"),
+    "checkpoint_every": (0, f"{_QUEUE} 2"),
+    "checkpoint_dir": ("checkpoints", f"{_QUEUE} 2"),
+    "metrics": (False, f"{_QUEUE} 3"),
+    "metrics_energy": (False, f"{_QUEUE} 3"),
+    "ledger": (False, f"{_QUEUE} 3"),
+    "sentinel_every": (0, f"{_QUEUE} 3"),
+    "sentinel_k": (64, f"{_QUEUE} 3"),
+    "error_budget": (0.0, f"{_QUEUE} 3"),
+    "profile": (False, f"{_QUEUE} 8"),
+    "trace": (False, f"{_QUEUE} 9"),
+    "debug_check": (False, f"{_QUEUE} 3"),
+}
+
+
+class NotPortedError(ValueError):
+    """A configuration asks for a feature that no slice has ported yet."""
+
+
+@dataclasses.dataclass
+class SimulationConfig:
+    # Workload
+    model: str = "random"  # random | solar
+    n: int = 1024
+    steps: int = C.DEFAULT_STEPS
+    dt: float = C.DEFAULT_DT
+    seed: int = 0
+
+    # Physics
+    g: float = C.G
+    cutoff: float = C.CUTOFF_RADIUS
+    eps: float = 0.0  # Plummer softening (0 = reference semantics)
+
+    # Numerics / backend
+    integrator: str = "euler"  # euler | leapfrog | verlet | yoshida4
+    dtype: str = "float32"  # float32 | float64
+    # auto | direct | pallas: the CUDA direct-sum kernel on the card,
+    # dense/chunked plain PyTorch on the CPU (simulation._resolve_backend).
+    # dense | chunked: the plain PyTorch direct sum on any device.
+    force_backend: str = "auto"
+    chunk: int = 1024  # i-chunk of the chunked plain direct sum
+
+    # I/O & observability
+    log_dir: str = "gravity_logs_gpu"
+    record_trajectories: bool = False
+    trajectory_every: int = 1
+    progress_every: int = C.PROGRESS_EVERY
+    # Per-block NaN/Inf state check; raises SimulationDiverged.
+    nan_check: bool = True
+
+    def __post_init__(self) -> None:
+        for name, (values, item) in _UNPORTED_VALUES.items():
+            if getattr(self, name) in values:
+                raise NotPortedError(
+                    f"{name}={getattr(self, name)!r} is not ported to "
+                    f"gravity_tpu_torch yet ({item})"
+                )
+        if self.force_backend in _UNPORTED_BACKENDS:
+            raise NotPortedError(
+                f"force_backend={self.force_backend!r} is not ported to "
+                f"gravity_tpu_torch yet "
+                f"({_UNPORTED_BACKENDS[self.force_backend]})"
+            )
+        for name, choices in (
+            ("model", MODELS), ("integrator", INTEGRATORS),
+            ("dtype", DTYPES), ("force_backend", FORCE_BACKENDS),
+        ):
+            if getattr(self, name) not in choices:
+                raise ValueError(
+                    f"unknown {name} {getattr(self, name)!r}; choose from "
+                    f"{sorted(choices)}"
+                )
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(text: str) -> "SimulationConfig":
+        """Parse a config written by this package or by gravity_tpu.
+
+        A gravity_tpu field that this package does not carry is accepted
+        only at its JAX default (the feature switched off); any other
+        value raises :class:`NotPortedError` naming the ROADMAP item."""
+        data = json.loads(text)
+        own = {f.name for f in dataclasses.fields(SimulationConfig)}
+        kept = {}
+        for name, value in data.items():
+            if name in own:
+                kept[name] = value
+                continue
+            if name not in _NOT_PORTED:
+                raise ValueError(f"unknown config field {name!r}")
+            default, item = _NOT_PORTED[name]
+            if value != default:
+                raise NotPortedError(
+                    f"{name}={value!r} is not ported to gravity_tpu_torch "
+                    f"yet ({item})"
+                )
+        return SimulationConfig(**kept)
+
+
+# Named presets: the three reference workloads and the 1k baseline.
+PRESETS = {
+    "reference-mpi": SimulationConfig(model="random", n=8, integrator="euler"),
+    # Pinned to the exact direct sum: reference parity means pairwise
+    # forces.
+    "reference-cuda": SimulationConfig(
+        model="random", n=50_000, integrator="euler", force_backend="direct"
+    ),
+    "reference-spark": SimulationConfig(
+        model="random", n=1000, integrator="euler", record_trajectories=True
+    ),
+    "baseline-1k": SimulationConfig(
+        model="random", n=1024, integrator="leapfrog", force_backend="dense"
+    ),
+}

@@ -1,0 +1,157 @@
+"""Run logging — the reference's ``log_print`` contract.
+
+Counterpart of ``gravity_tpu/utils/logging.py`` (``RunLogger`` and the
+JSONL spine it writes its sidecar on), with the same sections and
+formats: a timestamped file in a ``gravity_logs_*`` directory, every
+message mirrored to stdout, a start banner, ``Step k/STEPS`` progress
+lines, a ``Performance Statistics:`` section, a ``Final positions:``
+section and a closing ``Simulation completed successfully`` line. The
+banner names the platform the run is on (GPU or CPU) and its device.
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import os
+import time
+from typing import Optional
+
+import numpy as np
+
+
+class JsonlEventLogger:
+    """Append-only JSONL stream of structured events, one JSON object per
+    line: ``{"v": <schema version>, "ts": <unix seconds>, "event": <kind>,
+    ...}``, with ``kind`` restricted to the subclass's ``KINDS``."""
+
+    KINDS: tuple = ()
+    SCHEMA_VERSION = 1
+
+    def __init__(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self.path = path
+
+    def event(self, kind: str, /, **fields) -> None:
+        if kind not in self.KINDS:
+            raise ValueError(
+                f"unknown event kind {kind!r}; one of {self.KINDS}"
+            )
+        record = {
+            "v": self.SCHEMA_VERSION,
+            "ts": round(time.time(), 3), "event": kind, **fields,
+        }
+        with open(self.path, "a") as f:
+            f.write(json.dumps(record, default=str) + "\n")
+
+    def read(self) -> list[dict]:
+        if not os.path.exists(self.path):
+            return []
+        with open(self.path) as f:
+            return [json.loads(line) for line in f if line.strip()]
+
+
+class RunEventLogger(JsonlEventLogger):
+    """The run log's structured sidecar."""
+
+    KINDS = ("banner", "progress", "performance", "completed")
+
+
+class RunLogger:
+    """Mirrors messages to stdout and a timestamped log file, plus a JSONL
+    sidecar (``<prefix>_<ts>.jsonl``) of the structured sections."""
+
+    def __init__(
+        self,
+        log_dir: str = "gravity_logs_gpu",
+        prefix: str = "simulation_log",
+        quiet: bool = False,
+        timestamp: Optional[str] = None,
+        jsonl: bool = True,
+    ):
+        os.makedirs(log_dir, exist_ok=True)
+        self.timestamp = timestamp or datetime.datetime.now().strftime(
+            "%Y%m%d_%H%M%S"
+        )
+        self.path = os.path.join(log_dir, f"{prefix}_{self.timestamp}.txt")
+        self.quiet = quiet
+        self.events: Optional[RunEventLogger] = (
+            RunEventLogger(
+                os.path.join(log_dir, f"{prefix}_{self.timestamp}.jsonl")
+            )
+            if jsonl else None
+        )
+
+    def _emit(self, kind: str, /, **fields) -> None:
+        if self.events is not None:
+            self.events.event(kind, **fields)
+
+    def log_print(self, message: str) -> None:
+        if not self.quiet:
+            print(message)
+        with open(self.path, "a") as f:
+            f.write(message + "\n")
+
+    # --- the reference log sections ---
+
+    def start_banner(
+        self, *, platform: str, device: str, num_devices: int,
+        num_particles: int, steps: int, dt: float, model: str,
+        integrator: str, backend: str, dtype: str,
+    ) -> None:
+        self.log_print(
+            f"Starting {platform} gravity simulation at {self.timestamp}"
+        )
+        self.log_print(f"Device: {device}")
+        self.log_print(f"Number of devices: {num_devices}")
+        self.log_print(f"Number of particles: {num_particles}")
+        self.log_print(f"Steps: {steps}")
+        self.log_print(f"Timestep: {dt:f} seconds")
+        self.log_print(
+            f"Model: {model} | Integrator: {integrator} | "
+            f"Force backend: {backend} | Sharding: none | Dtype: {dtype}"
+        )
+        self.log_print("")
+        self._emit(
+            "banner", platform=platform, device=device,
+            num_devices=num_devices, num_particles=num_particles,
+            steps=steps, dt=dt, model=model, integrator=integrator,
+            backend=backend, sharding="none", dtype=dtype,
+        )
+
+    def progress(self, step: int, total_steps: int) -> None:
+        self.log_print(f"Step {step}/{total_steps}")
+        self._emit("progress", step=step, total_steps=total_steps)
+
+    def performance(self, total_time: float, steps: int,
+                    pairs_per_sec: Optional[float] = None) -> None:
+        self.log_print("\nPerformance Statistics:")
+        self.log_print(f"Total execution time: {total_time:.2f} seconds")
+        self.log_print(
+            f"Average time per step: {total_time / max(steps, 1):.4f} seconds"
+        )
+        if pairs_per_sec is not None:
+            self.log_print(
+                f"Pair interactions per second: {pairs_per_sec:.4e}"
+            )
+        self._emit(
+            "performance", total_time_s=total_time, steps=steps,
+            avg_step_s=total_time / max(steps, 1),
+            pairs_per_sec=pairs_per_sec,
+        )
+
+    def final_positions(self, positions, max_particles: int = 10) -> None:
+        positions = np.asarray(positions)
+        self.log_print("\nFinal positions:")
+        n = min(len(positions), max_particles)
+        for i in range(n):
+            x, y, z = positions[i]
+            self.log_print(f"Particle {i}: ({x:e}, {y:e}, {z:e})")
+        if len(positions) > n:
+            self.log_print(
+                f"... ({len(positions) - n} more particles omitted)"
+            )
+
+    def completed(self) -> None:
+        self.log_print("\nSimulation completed successfully")
+        self._emit("completed")

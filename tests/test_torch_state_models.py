@@ -1,0 +1,168 @@
+"""The port's state, constants, models, config and interop."""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gravity_tpu.constants as jax_constants
+from gravity_tpu.config import PRESETS as JAX_PRESETS
+from gravity_tpu.config import SimulationConfig as JaxConfig
+from gravity_tpu.models import create_random_cube as jax_random_cube
+from gravity_tpu.models import create_solar_system as jax_solar
+from gravity_tpu_torch import constants
+from gravity_tpu_torch.config import (
+    PRESETS,
+    NotPortedError,
+    SimulationConfig,
+)
+from gravity_tpu_torch.interop import state_from_numpy, state_to_numpy
+from gravity_tpu_torch.models import (
+    create_model,
+    create_random_cube,
+    create_solar_system,
+)
+from gravity_tpu_torch.simulation import make_initial_state
+from gravity_tpu_torch.state import ParticleState
+
+
+def _gen(seed):
+    return torch.Generator().manual_seed(seed)
+
+
+def test_constants_equal_the_jax_package():
+    names = [n for n in dir(jax_constants) if n.isupper()]
+    assert names
+    for name in names:
+        assert getattr(constants, name) == getattr(jax_constants, name), name
+
+
+@pytest.mark.parametrize("dtype,jdtype", [
+    (torch.float32, jnp.float32), (torch.float64, jnp.float64),
+])
+def test_solar_system_is_the_reference_seed(x64, dtype, jdtype):
+    got = state_to_numpy(create_solar_system(dtype=dtype))
+    want = jax_solar(dtype=jdtype)
+    for g, w in zip(got, (want.positions, want.velocities, want.masses)):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert got[0].dtype == np.asarray(want.positions).dtype
+
+
+def test_pad_to_contract():
+    rng = np.random.default_rng(0)
+    state = ParticleState.create(
+        rng.uniform(-1, 1, (5, 3)), rng.uniform(-1, 1, (5, 3)),
+        rng.uniform(1, 2, 5), dtype=torch.float32,
+    )
+    padded, mask = state.pad_to(8)
+    assert padded.n == 8 and padded.dtype == torch.float32
+    assert mask.tolist() == [True] * 5 + [False] * 3
+    assert torch.equal(padded.positions[:5], state.positions)
+    assert torch.equal(padded.positions[5:], state.positions[0].expand(3, 3))
+    assert bool((padded.velocities[5:] == 0).all())
+    assert bool((padded.masses[5:] == 0).all())
+    same, full = state.pad_to(5)
+    assert same is state and bool(full.all())
+    with pytest.raises(ValueError, match="cannot pad"):
+        state.pad_to(4)
+
+
+def test_state_create_validates_and_converts():
+    state = ParticleState.create(np.zeros((4, 3)), np.zeros((4, 3)),
+                                 np.ones(4))
+    assert state.astype(torch.float32).dtype == torch.float32
+    both = ParticleState.concatenate([state, state])
+    assert both.n == 8
+    with pytest.raises(ValueError, match=r"\(N, 3\)"):
+        ParticleState.create(np.zeros((4, 2)), np.zeros((4, 2)), np.ones(4))
+    with pytest.raises(ValueError, match="velocities"):
+        ParticleState.create(np.zeros((4, 3)), np.zeros((3, 3)), np.ones(4))
+    with pytest.raises(ValueError, match="masses"):
+        ParticleState.create(np.zeros((4, 3)), np.zeros((4, 3)), np.ones(3))
+
+
+def test_random_cube_bounds_solar_seed_and_determinism():
+    state = create_random_cube(_gen(0), 2000)
+    pos, vel, masses = state_to_numpy(state)
+    solar = state_to_numpy(create_solar_system())
+    for got, want in zip((pos, vel, masses), solar):
+        np.testing.assert_array_equal(got[:3], want)
+    assert np.abs(pos[3:]).max() <= constants.RANDOM_POS_BOUND
+    assert np.abs(vel[3:]).max() <= constants.RANDOM_VEL_BOUND
+    assert masses[3:].min() >= np.float32(constants.RANDOM_MASS_LOW)
+    assert masses[3:].max() <= np.float32(constants.RANDOM_MASS_HIGH)
+    # Spread over the whole cube, like the JAX package's draw.
+    jax_pos = np.asarray(jax_random_cube(jax.random.PRNGKey(0), 2000)
+                         .positions)
+    np.testing.assert_allclose(np.abs(pos[3:]).mean(),
+                               np.abs(jax_pos[3:]).mean(), rtol=0.05)
+    again = state_to_numpy(create_random_cube(_gen(0), 2000))
+    other = state_to_numpy(create_random_cube(_gen(1), 2000))
+    np.testing.assert_array_equal(again[0], pos)
+    assert not np.array_equal(other[0], pos)
+
+
+def test_initial_state_from_config_and_unported_models():
+    cfg = SimulationConfig(n=10, seed=3, dtype="float64")
+    a = make_initial_state(cfg, "cpu")
+    b = make_initial_state(cfg, "cpu")
+    assert a.dtype == torch.float64 and a.n == 10
+    assert torch.equal(a.positions, b.positions)
+    with pytest.raises(ValueError, match="exactly 3 bodies"):
+        create_model("solar", _gen(0), 4, torch.float32)
+    with pytest.raises(NotPortedError, match="Queue 1 item 4"):
+        create_model("plummer", _gen(0), 4, torch.float32)
+
+
+def test_interop_round_trip_with_a_jax_state():
+    jax_state = jax_random_cube(jax.random.PRNGKey(4), 50)
+    arrays = [np.asarray(a) for a in
+              (jax_state.positions, jax_state.velocities, jax_state.masses)]
+    state = state_from_numpy(*arrays, device="cpu")
+    assert state.device.type == "cpu" and state.dtype == torch.float32
+    for got, want in zip(state_to_numpy(state), arrays):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("sharding", "allgather", "Queue 1 item 5"),
+    ("adaptive", True, "Queue 1 item 4"),
+    ("periodic_box", 1e12, "Queue 1 item 7"),
+    ("merge_radius", 1e9, "Queue 1 item 4"),
+    ("external", "pointmass:gm=1e20", "Queue 1 item 4"),
+    ("checkpoint_every", 10, "Queue 1 item 2"),
+    ("nlist_rcut", 1e11, "Queue 1 item 6"),
+    ("trajectory_format", "native", "Queue 1 item 1"),
+    ("integrator", "multirate", "Queue 1 item 4"),
+    ("dtype", "bfloat16", "Queue 1 item 4"),
+    ("model", "plummer", "Queue 1 item 4"),
+    ("force_backend", "tree", "Queue 1 item 7"),
+    ("force_backend", "nlist", "Queue 1 item 6"),
+    ("force_backend", "pallas-mxu", "Queue 2 item 3"),
+])
+def test_unported_features_are_refused(field, value, item):
+    """A JAX config asking for a feature no slice has ported is refused
+    with the ROADMAP item that ports it."""
+    data = json.loads(JaxConfig().to_json())
+    data[field] = value
+    with pytest.raises(NotPortedError, match=item):
+        SimulationConfig.from_json(json.dumps(data))
+
+
+def test_jax_default_config_and_presets_carry_over():
+    cfg = SimulationConfig.from_json(JaxConfig().to_json())
+    assert cfg.n == JaxConfig().n and cfg.force_backend == "auto"
+    assert SimulationConfig.from_json(cfg.to_json()) == cfg
+    for name, preset in PRESETS.items():
+        jax_preset = JAX_PRESETS[name]
+        for field in dataclasses.fields(SimulationConfig):
+            if field.name != "log_dir":
+                assert getattr(preset, field.name) == getattr(
+                    jax_preset, field.name
+                ), (name, field.name)
+    with pytest.raises(ValueError, match="unknown config field"):
+        SimulationConfig.from_json(json.dumps({"warp_drive": True}))
