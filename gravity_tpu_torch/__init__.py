@@ -5,10 +5,14 @@ imports neither it nor JAX. Module names mirror the JAX package's, and
 each module's docstring names its counterpart. Entry points run on the
 GPU unless the caller asks for the CPU (``utils/platform.py``).
 
-This slice ports the reference direct-sum ``run``: the solar and
+Ported so far: the reference direct-sum ``run`` (the solar and
 random-cube initial conditions, the O(N^2) direct sum with its CUDA
-kernel (``ops/direct_kernel.py``, ``csrc/nbody_direct.cu``), the four
-fixed-dt integrators, the reference log and ``.npy`` trajectories.
+kernel ``csrc/nbody_direct.cu``, the four fixed-dt integrators, the
+reference log and ``.npy`` trajectories); the cutoff-radius cell list
+(``--force-backend nlist``: ``ops/cells.py``, ``ops/nlist.py``,
+``csrc/nlist_pair.cu``); and the Gram-form direct sum
+(``--force-backend pallas-mxu``: ``ops/mxu_kernel.py``,
+``csrc/nbody_mxu.cu``). ``ops/cuda_build.py`` builds every kernel.
 """
 
 from .config import PRESETS, SimulationConfig

@@ -8,6 +8,8 @@ Usage:
     python -m gravity_tpu_torch run --preset reference-cuda
     python -m gravity_tpu_torch run --preset reference-spark --steps 100
     python -m gravity_tpu_torch run --device cpu --preset reference-mpi
+    python -m gravity_tpu_torch run --model random --n 262144 \
+        --integrator leapfrog --force-backend nlist --nlist-rcut 5e10 --eps 1e9
 """
 
 from __future__ import annotations
@@ -39,7 +41,18 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--force-backend", dest="force_backend",
                    choices=FORCE_BACKENDS, default=None,
                    help="auto/direct/pallas = the CUDA direct-sum kernel "
-                        "on the GPU; dense/chunked = plain PyTorch")
+                        "on the GPU; pallas-mxu = its Gram-form kernel; "
+                        "nlist = the cutoff-radius cell list (needs "
+                        "--nlist-rcut); dense/chunked = plain PyTorch")
+    p.add_argument("--nlist-rcut", dest="nlist_rcut", type=float,
+                   default=None,
+                   help="declared truncation radius (m): forces truncated "
+                        "at r > rcut (short-range physics)")
+    p.add_argument("--nlist-side", dest="nlist_side", type=int, default=None,
+                   help="cell-list grid side (0 = fit to the initial state)")
+    p.add_argument("--nlist-cap", dest="nlist_cap", type=int, default=None,
+                   help="cell-list slots per cell (0 = fit to the initial "
+                        "state)")
     p.add_argument("--dtype", choices=DTYPES, default=None)
     p.add_argument("--progress-every", dest="progress_every", type=int,
                    default=None, help="steps per progress line and block")

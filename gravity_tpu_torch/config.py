@@ -17,9 +17,11 @@ from . import constants as C
 MODELS = ("random", "solar")
 INTEGRATORS = ("euler", "leapfrog", "verlet", "yoshida4")
 DTYPES = ("float32", "float64")
-# "pallas" is the JAX name of the hand-written direct-sum kernel; here it
-# names the CUDA kernel (ops/direct_kernel.py).
-FORCE_BACKENDS = ("auto", "direct", "dense", "chunked", "pallas")
+# "pallas" and "pallas-mxu" are the JAX names of the hand-written
+# direct-sum kernels; here they name the CUDA kernels (ops/direct_kernel.py,
+# ops/mxu_kernel.py). "nlist" is the cutoff-radius cell list (ops/nlist.py).
+FORCE_BACKENDS = ("auto", "direct", "dense", "chunked", "pallas",
+                  "pallas-mxu", "nlist")
 
 _QUEUE = "ROADMAP.md Queue 1 item"
 
@@ -37,8 +39,6 @@ _UNPORTED_VALUES = {
     ),
 }
 _UNPORTED_BACKENDS = {
-    "nlist": f"{_QUEUE} 6 (truncated-force family)",
-    "pallas-mxu": "ROADMAP.md Queue 2 item 3 (matmul-form kernel)",
     "cpp": (
         "ROADMAP.md Queue 2 (the JAX CPU XLA-FFI kernel has no port; "
         "use dense or chunked on the CPU)"
@@ -63,11 +63,8 @@ _NOT_PORTED = {
     "p3m_rcut_sigmas": (4.0, f"{_QUEUE} 7"),
     "p3m_cap": (128, f"{_QUEUE} 7"),
     "p3m_short": ("auto", f"{_QUEUE} 7"),
-    "nlist_rcut": (0.0, f"{_QUEUE} 6"),
-    "nlist_side": (0, f"{_QUEUE} 6"),
-    "nlist_cap": (0, f"{_QUEUE} 6"),
-    "nlist_mesh": ("auto", f"{_QUEUE} 6"),
-    "nlist_mig_cap": (0, f"{_QUEUE} 6"),
+    "nlist_mesh": ("auto", f"{_QUEUE} 6 (halo)"),
+    "nlist_mig_cap": (0, f"{_QUEUE} 6 (halo)"),
     "tree_near": ("gather", f"{_QUEUE} 7"),
     "fast_chunk": (4096, f"{_QUEUE} 7"),
     "adaptive": (False, f"{_QUEUE} 4"),
@@ -125,8 +122,18 @@ class SimulationConfig:
     # auto | direct | pallas: the CUDA direct-sum kernel on the card,
     # dense/chunked plain PyTorch on the CPU (simulation._resolve_backend).
     # dense | chunked: the plain PyTorch direct sum on any device.
+    # pallas-mxu: the Gram-form CUDA kernel, explicit opt-in only.
+    # nlist: the cutoff-radius cell list; needs nlist_rcut > 0.
     force_backend: str = "auto"
     chunk: int = 1024  # i-chunk of the chunked plain direct sum
+    # Declared truncation radius (m): with nlist_rcut > 0 forces are
+    # truncated at r > nlist_rcut (short-range physics), and auto/direct
+    # take the rcut-masked direct sum. nlist_side/nlist_cap pin the cell
+    # list's static sizing; 0 fits them to the initial state
+    # (ops/nlist.py::resolve_nlist_sizing).
+    nlist_rcut: float = 0.0
+    nlist_side: int = 0
+    nlist_cap: int = 0
 
     # I/O & observability
     log_dir: str = "gravity_logs_gpu"
@@ -158,6 +165,10 @@ class SimulationConfig:
                     f"unknown {name} {getattr(self, name)!r}; choose from "
                     f"{sorted(choices)}"
                 )
+        for name in ("nlist_rcut", "nlist_side", "nlist_cap"):
+            if getattr(self, name) < 0:
+                raise ValueError(f"{name} must be >= 0, got "
+                                 f"{getattr(self, name)}")
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), indent=2)

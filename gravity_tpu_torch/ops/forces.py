@@ -11,22 +11,25 @@ the JAX package, and ``chip_smoke.py`` holds the kernel against them on
 the card. The pair sum is an elementwise product and a reduction, never a
 matrix product, so TF32 settings cannot touch it.
 
-The truncated (``rcut``) and periodic (``box``) forms belong to the
-cell-list slice (ROADMAP Queue 1 item 6).
+``rcut`` > 0 truncates at r > rcut: the declared short-range physics of
+the cell-list backend (``ops/nlist.py``), whose exact reference this
+masked sum is. The periodic (``box``) form is not ported yet.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..config import NotPortedError
 from ..constants import CUTOFF_RADIUS, G
 
 
-def _not_ported(rcut: float, box: float) -> None:
-    if rcut or box:
-        raise NotImplementedError(
-            "rcut/box (truncated and periodic direct sums) are not ported "
-            "to gravity_tpu_torch yet (ROADMAP.md Queue 1 item 6)"
+def _not_ported(box: float) -> None:
+    if box:
+        raise NotPortedError(
+            "box > 0 (the minimum-image periodic direct sum) is not ported "
+            "to gravity_tpu_torch yet (ROADMAP.md Queue 1 item 7, with the "
+            "periodic family)"
         )
 
 
@@ -35,12 +38,16 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
-def _pair_weights(r2, masses_j, g, cutoff, eps):
-    """w_j = G * m_j / r^3 with cutoff/softening semantics, given r^2."""
+def _pair_weights(r2, masses_j, g, cutoff, eps, rcut=0.0):
+    """w_j = G * m_j / r^3 with cutoff/softening semantics, given r^2;
+    ``rcut`` > 0 also zeroes pairs with r > rcut."""
     eps_t = _scalar(eps, r2)
     r2_soft = r2 + eps_t * eps_t
     cutoff_t = _scalar(cutoff, r2)
     ok = r2_soft > cutoff_t * cutoff_t
+    if rcut > 0.0:
+        rcut_t = _scalar(rcut, r2)
+        ok = ok & (r2 <= rcut_t * rcut_t)
     # rsqrt of 1 where the pair is cut keeps the self-pair free of NaN.
     safe_r2 = torch.where(ok, r2_soft, torch.ones_like(r2_soft))
     inv_r = torch.rsqrt(safe_r2)
@@ -65,11 +72,12 @@ def accelerations_vs(
 ) -> torch.Tensor:
     """Accelerations on ``pos_i`` (M, 3) sourced by ``pos_j`` (K, 3) and
     ``masses_j`` (K,). Self-pairs are excluded because r == 0 falls below
-    the cutoff."""
-    _not_ported(rcut, box)
+    the cutoff; ``rcut`` > 0 truncates at r > rcut."""
+    _not_ported(box)
     diff = pos_j[None, :, :] - pos_i[:, None, :]  # (M, K, 3)
     r2 = (diff * diff).sum(dim=-1)  # (M, K)
-    w = _pair_weights(r2, masses_j[None, :], g, cutoff, eps)  # (M, K)
+    w = _pair_weights(r2, masses_j[None, :], g, cutoff, eps,
+                      rcut)  # (M, K)
     return (w[:, :, None] * diff).sum(dim=1)  # (M, 3)
 
 
@@ -80,10 +88,11 @@ def pairwise_accelerations_dense(
     g: float = G,
     cutoff: float = CUTOFF_RADIUS,
     eps: float = 0.0,
+    rcut: float = 0.0,
 ) -> torch.Tensor:
     """All-pairs accelerations, materializing the (N, N) tensors."""
     return accelerations_vs(positions, positions, masses, g=g,
-                            cutoff=cutoff, eps=eps)
+                            cutoff=cutoff, eps=eps, rcut=rcut)
 
 
 def pairwise_accelerations_chunked(
@@ -93,6 +102,7 @@ def pairwise_accelerations_chunked(
     g: float = G,
     cutoff: float = CUTOFF_RADIUS,
     eps: float = 0.0,
+    rcut: float = 0.0,
     chunk: int = 1024,
 ) -> torch.Tensor:
     """All-pairs accelerations with O(N * chunk) peak memory: a loop over
@@ -100,7 +110,7 @@ def pairwise_accelerations_chunked(
     need not divide by ``chunk``: the last chunk is ragged."""
     return torch.cat([
         accelerations_vs(pos_i, positions, masses, g=g, cutoff=cutoff,
-                         eps=eps)
+                         eps=eps, rcut=rcut)
         for pos_i in torch.split(positions, chunk)
     ])
 

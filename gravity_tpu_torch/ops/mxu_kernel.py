@@ -1,0 +1,203 @@
+"""The Gram (matmul) formulation of the direct sum, and its CUDA kernel.
+
+Counterpart of ``gravity_tpu/ops/pallas_forces_mxu.py``. The pair sum
+a_i = sum_j w_ij (x_j - x_i) is recast as
+
+- r_ij^2 = |x_i|^2 + |x_j|^2 - 2 x_i . x_j (the Gram trick), and
+- a_i = sum_j w_ij [x_j | 1] = [S | W], then a_i = S - W x_i, the rank-1
+  correction applied once in the epilogue.
+
+The Gram expansion subtracts O(|x|^2) quantities, so pairs with raw
+r^2 <= ``GRAM_NOISE_TAU`` * (|x_i|^2 + |x_j|^2) cannot be told from
+coincident and get weight 0; that also zeroes self-pairs. Coordinates
+are centred on the source centroid first. Production use is the softened
+large-N regime (eps well above |x| * sqrt(tau)).
+
+The wrapper :func:`accelerations_vs_mxu_kernel` does what the JAX wrapper
+does around its TPU kernel on every device (centering, quantizing to
+bf16 for ``precision="bf16"``, the epilogue). The [S | W] sum in between
+is :func:`gram_acc4`: the hand-written CUDA kernel ``csrc/nbody_mxu.cu``
+(which replaces the TPU kernel ``_nbody_mxu_kernel``) for CUDA tensors,
+the plain version :func:`gram_acc4_plain` for CPU tensors only. The
+plain version is elementwise fp32 and never a matrix product, so TF32
+cannot touch it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..constants import CUTOFF_RADIUS, G
+from . import cuda_build
+
+# Gram-formulation noise floor: pairs with r^2 <= TAU * (|x_i|^2 +
+# |x_j|^2) are below the fp32 cancellation resolution and are treated as
+# coincident. 16 ulp of headroom over 2^-24.
+GRAM_NOISE_TAU = 16.0 * 2.0**-24
+PRECISIONS = ("dtype", "fp32", "bf16")
+
+
+def _norm2(x: torch.Tensor) -> torch.Tensor:
+    return x[:, 0] * x[:, 0] + x[:, 1] * x[:, 1] + x[:, 2] * x[:, 2]
+
+
+def _gram_weights(xi, ni, xj, nj, gmj, *, cutoff: float, eps: float):
+    """(M, K) fp32 weights of targets xi (M, 3) against sources xj (K, 3),
+    given their squared norms and G*m_j. eps^2 and cutoff^2 are squared in
+    double and then rounded to fp32."""
+    cross = (xi[:, None, 0] * xj[None, :, 0]
+             + xi[:, None, 1] * xj[None, :, 1]
+             + xi[:, None, 2] * xj[None, :, 2])
+    s = ni[:, None] + nj[None, :]
+    r2 = torch.clamp_min(s - 2.0 * cross, 0.0)
+    r2_soft = r2 + eps * eps
+    # The noise floor tests the RAW r^2: a softened self-pair would pass
+    # any floor and enter the sums as two large cancelling terms.
+    valid = (r2 > GRAM_NOISE_TAU * s) & (r2_soft > cutoff * cutoff)
+    inv_r = torch.rsqrt(torch.where(valid, r2_soft, 1.0))
+    return torch.where(valid, ((gmj[None, :] * inv_r) * inv_r) * inv_r, 0.0)
+
+
+def gram_acc4_plain(xi: torch.Tensor, xj: torch.Tensor, gmj: torch.Tensor, *,
+                    cutoff: float, eps: float, bf16: bool,
+                    chunk: int = 256) -> torch.Tensor:
+    """(M, 4) fp32 [sum_j w_ij x_j | sum_j w_ij]: the plain version of the
+    kernel. xi (M, 3) and xj (K, 3) are centred operands in fp32 or bf16,
+    gmj (K,) fp32. With ``bf16`` the weights are rounded to bf16 before
+    they are summed; every sum is fp32. Targets go ``chunk`` rows at a
+    time to bound the (chunk, K, 4) transient."""
+    xi, xj = xi.float(), xj.float()
+    ni, nj = _norm2(xi), _norm2(xj)
+    xj4 = torch.cat([xj, torch.ones_like(xj[:, :1])], dim=1)
+    rows = []
+    for lo in range(0, xi.shape[0], chunk):
+        w = _gram_weights(xi[lo:lo + chunk], ni[lo:lo + chunk], xj, nj, gmj,
+                          cutoff=cutoff, eps=eps)
+        if bf16:
+            w = w.to(torch.bfloat16).float()
+        rows.append((w[:, :, None] * xj4[None, :, :]).sum(dim=1))
+    if not rows:
+        return xi.new_zeros((0, 4))
+    return torch.cat(rows)
+
+
+_ENTRY = {torch.float32: "nbody_mxu_f32", torch.bfloat16: "nbody_mxu_bf16"}
+_P = ctypes.c_void_p
+LIBRARY = cuda_build.CudaLibrary("nbody_mxu", {
+    name: ([_P, ctypes.c_int64, _P, _P, ctypes.c_int64, ctypes.c_double,
+            ctypes.c_double, ctypes.c_double, _P, _P], ctypes.c_int)
+    for name in _ENTRY.values()
+})
+
+# Kernel launches so far; a run reads it to show its path went through
+# the kernel. Incremented only where the kernel is launched.
+LAUNCHES = 0
+
+
+def _check(xi, xj, gmj) -> None:
+    device, dtype = xi.device, xi.dtype
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
+    if dtype not in _ENTRY:
+        raise TypeError(f"the CUDA kernel takes float32 or bfloat16 "
+                        f"operands, not {dtype}")
+    k = xj.shape[0]
+    for name, t, shape, want in (("xi", xi, (xi.shape[0], 3), dtype),
+                                 ("xj", xj, (k, 3), dtype),
+                                 ("gmj", gmj, (k,), torch.float32)):
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, xi on {device}")
+        if t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}, not {want}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def gram_acc4(xi: torch.Tensor, xj: torch.Tensor, gmj: torch.Tensor, *,
+              cutoff: float, eps: float) -> torch.Tensor:
+    """:func:`gram_acc4_plain`'s contract, bf16 when the operands are.
+    CPU tensors take the plain version; CUDA tensors launch
+    ``csrc/nbody_mxu.cu`` on the current stream, without synchronising,
+    or raise."""
+    global LAUNCHES
+    bf16 = xi.dtype == torch.bfloat16
+    if all(t.device.type == "cpu" for t in (xi, xj, gmj)):
+        return gram_acc4_plain(xi, xj, gmj, cutoff=cutoff, eps=eps,
+                               bf16=bf16)
+    _check(xi, xj, gmj)
+    device = xi.device
+    out = torch.empty((xi.shape[0], 4), dtype=torch.float32, device=device)
+    if xi.shape[0] == 0:
+        return out
+    lib = LIBRARY.load()
+    with torch.cuda.device(device):
+        status = getattr(lib, _ENTRY[xi.dtype])(
+            xi.data_ptr(), xi.shape[0], xj.data_ptr(), gmj.data_ptr(),
+            xj.shape[0], float(np.float32(eps * eps)),
+            float(np.float32(cutoff * cutoff)), GRAM_NOISE_TAU,
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        )
+    LIBRARY.check(status)
+    LAUNCHES += 1
+    return out
+
+
+def accelerations_vs_mxu_kernel(
+    pos_i: torch.Tensor,
+    pos_j: torch.Tensor,
+    masses_j: torch.Tensor,
+    *,
+    g: float = G,
+    cutoff: float = CUTOFF_RADIUS,
+    eps: float = 0.0,
+    precision: str = "dtype",
+) -> torch.Tensor:
+    """Accelerations on targets ``pos_i`` (M, 3) from sources ``pos_j``
+    (K, 3) and ``masses_j`` (K,), in the Gram formulation: the contract of
+    ``ops.forces.accelerations_vs`` up to the formulation's resolution.
+
+    ``precision``: "fp32" | "bf16" | "dtype" (bf16 for a bf16 input,
+    fp32 otherwise). Computes in fp32 (bf16 operands for "bf16") and
+    returns the input dtype: a float64 input computes in float32."""
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be 'dtype', 'fp32' or 'bf16'; got {precision!r}"
+        )
+    out_dtype = pos_i.dtype
+    bf16 = precision == "bf16" or (precision == "dtype"
+                                   and out_dtype == torch.bfloat16)
+    compute = torch.bfloat16 if bf16 else torch.float32
+    # Centre on the source centroid: the noise floor and the epilogue's
+    # cancellation both scale with |x|^2.
+    center = pos_j.float().mean(dim=0)
+    xi = (pos_i.float() - center).to(compute).contiguous()
+    xj = (pos_j.float() - center).to(compute).contiguous()
+    gmj = (masses_j.float() * g).contiguous()
+    acc4 = gram_acc4(xi, xj, gmj, cutoff=cutoff, eps=eps)
+    # Epilogue in the same centred (and, for bf16, quantized) frame.
+    acc = acc4[:, :3] - acc4[:, 3:4] * xi.float()
+    return acc.to(out_dtype)
+
+
+def pairwise_accelerations_mxu(positions, masses, **kwargs) -> torch.Tensor:
+    """All-pairs accelerations (targets == sources), Gram formulation."""
+    return accelerations_vs_mxu_kernel(positions, positions, masses, **kwargs)
+
+
+def make_mxu_local_kernel(*, g: float = G, cutoff: float = CUTOFF_RADIUS,
+                          eps: float = 0.0, precision: str = "dtype"):
+    """A (targets, sources, masses) -> accelerations closure. Forward only:
+    the backward pass comes with ROADMAP Queue 1 item 9."""
+
+    def kernel(pos_i, pos_j, masses_j):
+        return accelerations_vs_mxu_kernel(
+            pos_i, pos_j, masses_j, g=g, cutoff=cutoff, eps=eps,
+            precision=precision,
+        )
+
+    return kernel

@@ -1,0 +1,520 @@
+"""Cutoff-radius cell-list forces: O(N) truncated short-range pairs.
+
+Counterpart of ``gravity_tpu/ops/pallas_nlist.py`` for the standalone
+``--force-backend nlist`` (truncated-at-``rcut`` softened Newtonian
+forces, declared short-range physics, not an approximation of full
+gravity), with isolated boundaries:
+
+- **Sort by cell** (``ops/cells.py``): bodies land in a dense
+  ``(side^3, cap)`` slot layout over the bounding cube, with the cell
+  edge >= rcut so the 27-neighborhood covers every interacting pair.
+- **Pair tiles**: each cell's ``(t_cap, cap)`` tile against each of its 27
+  neighbors. :func:`pair_cells_kernel` launches the hand-written CUDA
+  kernel ``csrc/nlist_pair.cu`` (which replaces the TPU kernel
+  ``_nlist_kernel``) for CUDA tensors and takes the plain PyTorch
+  version, :func:`pair_cells_plain`, for CPU tensors only.
+- **Degradation contracts**, plain PyTorch on every device as in the JAX
+  package: a cell's sources beyond ``cap`` act as a cell-size-softened
+  monopole at their centre of mass (:func:`_remainder_cells`); targets
+  beyond ``t_cap`` take whole neighbor cells as monopoles
+  (:func:`_overflow_targets`); the effective radius is
+  ``min(rcut, span / side)``, so a shrinking bounding cube degrades the
+  radius instead of dropping rim pairs.
+
+No step of a force evaluation waits for the device: the radius is a
+device scalar that the kernel reads through a pointer, and the overflow
+fallback is computed for every target and selected with ``torch.where``
+(the JAX package gates it with ``lax.cond``).
+
+Not ported yet, and refused with :class:`~..config.NotPortedError`: the
+periodic form (``box`` > 0, ROADMAP Queue 1 item 7), the ``ewald`` pair
+kind (P3M, Queue 1 item 7), the domain-decomposed slab/halo engines
+(Queue 1 item 6) and backward passes (Queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import warnings
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from ..config import NotPortedError
+from ..constants import CUTOFF_RADIUS, G
+from . import cuda_build
+from .cells import (
+    bin_to_cells,
+    bounding_cube,
+    cell_ids,
+    grid_coords,
+    segment_sum,
+)
+
+# Default static per-cell source cap when no occupancy data is available.
+DEFAULT_CAP = 64
+# Joint (side^3 * cap) slot budget for resolve_nlist_sizing: the padded
+# cell arrays are (side^3, cap, 3) floats, 2^23 slots = 96 MiB at fp32.
+SLOT_BUDGET = 1 << 23
+SIDE_MAX = 96
+
+
+def resolve_nlist_sizing(
+    positions,
+    rcut: float,
+    cap: int = 0,
+    *,
+    side: int = 0,
+    side_max: int = SIDE_MAX,
+    slot_budget: int = SLOT_BUDGET,
+):
+    """Host-side static (side, cap) sizing for a cutoff-radius cell list
+    (isolated boundaries), from concrete positions.
+
+    side = floor(span / rcut) (cell edge >= rcut), capped by a mean
+    occupancy of about 2 and clipped to [2, side_max]; cap is the next
+    power of two >= the p95 occupied-cell load. When side^3 * cap
+    exceeds ``slot_budget`` the grid is halved and the cap re-fit. An
+    explicit ``side``/``cap`` pins that knob and fits only the other."""
+    if rcut <= 0.0:
+        raise ValueError(f"nlist rcut must be > 0, got {rcut}")
+    if isinstance(positions, torch.Tensor):
+        positions = positions.detach().cpu().numpy()
+    pos = np.asarray(positions, np.float64)
+    lo, hi = pos.min(axis=0), pos.max(axis=0)
+    span = float((hi - lo).max()) * 1.02 + 1e-30
+    origin = 0.5 * (hi + lo) - 0.5 * span
+    side_forced = bool(side)
+    side_min = 2
+    if not side:
+        # A grid much finer than the particle count pays pure volume:
+        # every cell is 27 tiles of work whether or not anything lives
+        # in it. Coarser-than-rcut cells are always correct.
+        occ_side = max(side_min, int(np.cbrt(2.0 * max(pos.shape[0], 1))))
+        side = int(np.clip(
+            min(int(span / rcut), occ_side), side_min, side_max
+        ))
+    while True:
+        u = np.clip(
+            ((pos - origin[None, :]) / span * side).astype(np.int64),
+            0, side - 1,
+        )
+        ids = (u[:, 0] * side + u[:, 1]) * side + u[:, 2]
+        _, counts = np.unique(ids, return_counts=True)
+        p95 = float(np.percentile(counts, 95))
+        c = cap
+        if not c:
+            c = 8
+            while c < min(1024, max(8, int(np.ceil(p95)))):
+                c *= 2
+        if side**3 * c <= slot_budget or side <= side_min or side_forced:
+            if span / side < rcut:
+                warnings.warn(
+                    f"nlist rcut={rcut:g} exceeds the cell edge "
+                    f"{span / side:g} at side={side}: the effective "
+                    "truncation radius degrades to the cell edge "
+                    "(min(rcut, span/side)). Shrink rcut below "
+                    "span/2 or raise the side for full-radius "
+                    "coverage.",
+                    stacklevel=2,
+                )
+            return side, c
+        side = max(side_min, side // 2)
+
+
+def evaluated_pairs_per_eval(side: int, cap: int, t_cap: int = 0) -> int:
+    """Pair-tile slots of a force evaluation, padding included: side^3
+    cells x 27 neighbors x (t_cap, cap) tiles. The kernel skips padded
+    slots, so the pairs it evaluates are fewer (:func:`real_pairs`)."""
+    return side**3 * 27 * (t_cap or cap) * cap
+
+
+def check_nlist_sizing(n: int, side: int, cap: int) -> str | None:
+    """Warning string when the static cell list looks mis-sized for the
+    data: a cap below twice the mean cell occupancy."""
+    mean_occ = n / side**3
+    if cap < 2.0 * mean_occ:
+        return (
+            f"nlist cap={cap} is below 2x the mean cell occupancy "
+            f"({mean_occ:.1f} at side {side}): dense cells will "
+            "overflow to the monopole remainder on near pairs. Raise "
+            "--nlist-cap (or let resolve_nlist_sizing pick from the "
+            "data)."
+        )
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Pair weights: the plain tile engine's math. The CUDA kernel repeats it
+# with the same roundings (csrc/nlist_pair.cu).
+# ---------------------------------------------------------------------------
+
+
+def _newton_w(r2, gm, rcut_eff2, *, cutoff, eps, use_rcut):
+    """Truncated softened-Newtonian diff-multiplier: w = G m / (r^2 +
+    eps^2)^(3/2) for cutoff^2 < r^2 + eps^2, r^2 <= ``rcut_eff2`` (a
+    device scalar) and r > 0. gm is G*m, zero on padded slots. eps^2 and
+    cutoff^2 are squared in double and then rounded to the dtype (a
+    Python scalar in a tensor op takes the tensor's dtype)."""
+    r2s = r2 + eps * eps
+    valid = (r2s > cutoff * cutoff) & (r2 > 0)
+    if use_rcut:
+        valid = valid & (r2 <= rcut_eff2)
+    inv_r = torch.rsqrt(torch.where(valid, r2s, 1.0))
+    return torch.where(valid, ((gm * inv_r) * inv_r) * inv_r, 0.0)
+
+
+def _monopole_w(r2, w_mass, eps_o2):
+    """Overflow-channel monopole diff-multiplier: the Newtonian pair
+    weight at a cell-size-widened softening, masked only through
+    ``w_mass`` (zero off the overflow set); mass is never dropped."""
+    inv_r = torch.rsqrt(torch.clamp_min(r2 + eps_o2, 1e-30))
+    return ((w_mass * inv_r) * inv_r) * inv_r
+
+
+def _source_overflow_channels(cells_pos, cells_mass, cell_count, cmass_hat,
+                              ccom, m_scale, g, cap: int):
+    """(rem_w, rem_com, over): each cell's beyond-cap remainder weight
+    (G * remainder mass), centre of mass and overflow flag, accumulated
+    in normalized mass (m * x overflows fp32 at astronomical scales)."""
+    pref_mhat = cells_mass.sum(dim=-1) / m_scale
+    over = cell_count > cap
+    rem_mhat = torch.clamp_min(
+        torch.where(over, cmass_hat - pref_mhat, 0.0), 0.0
+    )
+    tot_mw = ccom * cmass_hat[:, None]
+    pref_mw = ((cells_mass / m_scale)[..., None] * cells_pos).sum(dim=-2)
+    rem_com = (tot_mw - pref_mw) / torch.clamp_min(rem_mhat, 1e-37)[:, None]
+    rem_w = g * rem_mhat * m_scale
+    return rem_w, rem_com, over
+
+
+def _offsets(device) -> torch.Tensor:
+    """The 27 stencil offsets in ``cells._near_offsets(1)`` order, made on
+    the device (no host-to-device copy)."""
+    o = torch.arange(27, device=device)
+    return torch.stack([o // 9 - 1, (o // 3) % 3 - 1, o % 3 - 1], dim=-1)
+
+
+def _neighbors(coords: torch.Tensor, side: int):
+    """(ids, inside): the flat ids (clipped into the grid) of the 27
+    neighbors of each cell coordinate (M, 3), and which lie in the grid."""
+    cell = coords[:, None, :] + _offsets(coords.device)[None]
+    inside = ((cell >= 0) & (cell < side)).all(dim=-1)
+    ids = cell_ids(cell.clamp(0, side - 1).reshape(-1, 3), side)
+    return ids.reshape(cell.shape[:2]), inside
+
+
+def _remainder_cells(tcells_pos, rem_w, rem_com, over, side: int, *,
+                     eps: float, cell_h):
+    """Source-cap-overflow remainder: each neighbor cell's beyond-cap mass
+    as a cell-size-softened monopole, (side^3, t_cap, 3), added to the
+    tile engine's output. ``eps`` is widened to max(eps, cell/2): an
+    overflowing cell's centre of mass can sit arbitrarily close to a
+    target. All 27 offsets at once."""
+    c = torch.arange(side**3, device=tcells_pos.device)
+    coords = torch.stack([c // (side * side), (c // side) % side, c % side],
+                         dim=-1)
+    ids, inside = _neighbors(coords, side)  # (S^3, 27)
+    half = 0.5 * cell_h
+    eps_o2 = torch.clamp_min(half * half, eps * eps)
+    w_n = torch.where(inside, rem_w[ids], 0.0)
+    ov_n = inside & over[ids]
+    diff = torch.where(
+        ov_n[:, :, None, None],
+        rem_com[ids][:, :, None, :] - tcells_pos[:, None, :, :],
+        0.0,
+    )  # (S^3, 27, t_cap, 3)
+    r2 = (diff * diff).sum(dim=-1)
+    w = _monopole_w(r2, w_n[:, :, None], eps_o2)
+    return (w[..., None] * diff).sum(dim=1)
+
+
+def _overflow_targets(t_pos, t_coords, cell_w, ccom, side: int, *,
+                      eps: float, cell_h):
+    """Fallback for targets beyond t_cap: the 27 neighbor cells as
+    whole-cell monopoles (cell-size softened), (M, 3)."""
+    ids, inside = _neighbors(t_coords, side)  # (M, 27)
+    half = 0.5 * cell_h
+    eps_o2 = torch.clamp_min(half * half, eps * eps)
+    sw = torch.where(inside, cell_w[ids], 0.0)
+    diff = torch.where(inside[..., None], ccom[ids] - t_pos[:, None, :], 0.0)
+    r2 = (diff * diff).sum(dim=-1)
+    w = _monopole_w(r2, sw, eps_o2)
+    return (w[..., None] * diff).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# The pair-tile engine: plain version and CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
+                     side: int, params, *, cutoff: float, eps: float,
+                     use_rcut: bool = True, absolute: bool = False):
+    """The 27-neighborhood pair-tile sum, (side^3, t_cap, 3), in plain
+    PyTorch: the plain version of :func:`pair_cells_kernel`.
+
+    tcells_pos (side^3, t_cap, 3) targets and cells_pos (side^3, cap, 3)
+    sources in cell-slot layout; cells_gm (side^3, cap) is G*m, zero on
+    padded slots; t_count (side^3,) the targets of each cell; params[0]
+    = rcut_eff^2. Each tile row is summed apart and then added to the
+    accumulator, offset by offset in ``_near_offsets`` order, as the
+    kernel does. Target slots past the cell's count are zero.
+    ``s_count`` is unused: padded sources are exact no-ops here.
+    ``absolute`` sums |terms| instead (the scale a row's rounding is
+    measured in)."""
+    del s_count
+    s = side
+    t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
+    pos_p = cells_pos.new_zeros((s + 2, s + 2, s + 2, cap, 3))
+    pos_p[1:-1, 1:-1, 1:-1] = cells_pos.reshape(s, s, s, cap, 3)
+    gm_p = cells_gm.new_zeros((s + 2, s + 2, s + 2, cap))
+    gm_p[1:-1, 1:-1, 1:-1] = cells_gm.reshape(s, s, s, cap)
+    tpos_g = tcells_pos.reshape(s, s, s, t_cap, 3)
+    rcut_eff2 = params[0]
+    planes = []
+    for x0 in range(s):  # a plane of cells at a time bounds the memory
+        tpos = tpos_g[x0].reshape(s * s, t_cap, 1, 3)
+        acc = tcells_pos.new_zeros((s * s, t_cap, 3))
+        for o in range(27):
+            ox, oy, oz = o // 9, (o // 3) % 3, o % 3
+            spos = pos_p[x0 + ox, oy:oy + s, oz:oz + s].reshape(
+                s * s, 1, cap, 3)
+            sgm = gm_p[x0 + ox, oy:oy + s, oz:oz + s].reshape(s * s, 1, cap)
+            dx = spos[..., 0] - tpos[..., 0]  # (S^2, t_cap, cap)
+            dy = spos[..., 1] - tpos[..., 1]
+            dz = spos[..., 2] - tpos[..., 2]
+            r2 = dx * dx + dy * dy + dz * dz
+            w = _newton_w(r2, sgm, rcut_eff2, cutoff=cutoff, eps=eps,
+                          use_rcut=use_rcut)
+            terms = torch.stack([w * dx, w * dy, w * dz], dim=-1)
+            if absolute:
+                terms = terms.abs()
+            acc = acc + terms.sum(dim=2)
+        planes.append(acc)
+    acc = torch.stack(planes).reshape(s**3, t_cap, 3)
+    real = torch.arange(t_cap, device=acc.device)[None, :] < t_count[:, None]
+    return torch.where(real[..., None], acc, 0.0)
+
+
+_ENTRY = {torch.float32: "nlist_pair_f32", torch.float64: "nlist_pair_f64"}
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+_P = ctypes.c_void_p
+LIBRARY = cuda_build.CudaLibrary("nlist_pair", {
+    name: ([_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            _P, ctypes.c_double, ctypes.c_double, ctypes.c_int, _P, _P],
+           ctypes.c_int)
+    for name in _ENTRY.values()
+})
+
+# Kernel launches so far; a run reads it to show its path went through
+# the kernel. Incremented only where the kernel is launched.
+LAUNCHES = 0
+
+
+def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params):
+    device, dtype = tcells_pos.device, tcells_pos.dtype
+    if device.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
+    if dtype not in _ENTRY:
+        raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
+    n_cells = side**3
+    t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
+    shapes = (
+        ("tcells_pos", tcells_pos, (n_cells, t_cap, 3), dtype),
+        ("t_count", t_count, (n_cells,), torch.int64),
+        ("cells_pos", cells_pos, (n_cells, cap, 3), dtype),
+        ("cells_gm", cells_gm, (n_cells, cap), dtype),
+        ("s_count", s_count, (n_cells,), torch.int64),
+    )
+    for name, t, shape, want in shapes:
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, tcells_pos on {device}")
+        if t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}, not {want}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if params.device != device or params.dtype != dtype or params.numel() < 1:
+        raise ValueError("params must hold rcut_eff^2 as a tensor of the "
+                         "positions' dtype on their device")
+
+
+def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
+                      side: int, params, *, cutoff: float, eps: float,
+                      use_rcut: bool = True):
+    """The 27-neighborhood pair-tile sum: :func:`pair_cells_plain`'s
+    contract (``s_count``, the sources of each cell, bounds the slots the
+    kernel reads). CPU tensors take the plain version; CUDA tensors
+    launch ``csrc/nlist_pair.cu`` on the current stream, without
+    synchronising, or raise."""
+    global LAUNCHES
+    args = (tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params)
+    if all(t.device.type == "cpu" for t in args if isinstance(t, torch.Tensor)):
+        return pair_cells_plain(*args, cutoff=cutoff, eps=eps,
+                                use_rcut=use_rcut)
+    _check(*args)
+    dtype, device = tcells_pos.dtype, tcells_pos.device
+    scalar = _NP_DTYPE[dtype]
+    # Squared in double, then rounded to the element type (_newton_w).
+    eps2 = float(scalar(eps * eps))
+    cutoff2 = float(scalar(cutoff * cutoff))
+    t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
+    out = torch.empty_like(tcells_pos)
+    lib = LIBRARY.load()
+    with torch.cuda.device(device):
+        status = getattr(lib, _ENTRY[dtype])(
+            tcells_pos.data_ptr(), t_count.data_ptr(), cells_pos.data_ptr(),
+            cells_gm.data_ptr(), s_count.data_ptr(), side, t_cap, cap,
+            params.data_ptr(), eps2, cutoff2, int(use_rcut),
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        )
+    LIBRARY.check(status)
+    LAUNCHES += 1
+    return out
+
+
+def real_pairs(t_count, s_count, side: int, t_cap: int, cap: int) -> int:
+    """Pairs the kernel evaluates for these cell counts: over every cell
+    and each of its in-grid neighbors, min(targets, t_cap) x min(sources,
+    cap). Reads the counts on the host."""
+    c = torch.arange(side**3, device=t_count.device)
+    coords = torch.stack([c // (side * side), (c // side) % side, c % side],
+                         dim=-1)
+    ids, inside = _neighbors(coords, side)
+    src = torch.where(inside, s_count.clamp_max(cap)[ids], 0).sum(dim=1)
+    return int((t_count.clamp_max(t_cap) * src).sum())
+
+
+# ---------------------------------------------------------------------------
+# The standalone cutoff-dynamics backend
+# ---------------------------------------------------------------------------
+
+
+def source_cells(positions, masses, *, rcut: float, side: int, cap: int):
+    """The sources' cell list for one force evaluation: (origin, span,
+    params, coords, binned), where params[0] = rcut_eff^2 with the
+    effective radius min(rcut, cell edge) (the 27-neighborhood covers
+    one cell edge only), a device scalar, and ``binned`` is
+    :func:`cells.bin_to_cells`'s tuple."""
+    origin, span = bounding_cube(positions)
+    rcut_eff = torch.clamp_max(span / side, rcut)
+    params = (rcut_eff * rcut_eff).reshape(1)
+    coords = grid_coords(positions, origin, span, side)
+    binned = bin_to_cells(positions, masses, coords, side, cap)
+    return origin, span, params, coords, binned
+
+
+def nlist_accelerations_vs(
+    targets: torch.Tensor,
+    positions: torch.Tensor,
+    masses: torch.Tensor,
+    *,
+    rcut: float,
+    side: int,
+    cap: int = DEFAULT_CAP,
+    t_cap: int = 0,
+    g: float = G,
+    cutoff: float = CUTOFF_RADIUS,
+    eps: float = 0.0,
+    box: float = 0.0,
+    _self: bool = False,
+) -> torch.Tensor:
+    """Truncated softened-Newtonian accelerations at ``targets`` from
+    sources (positions, masses): the exact pair sum over all pairs with
+    r <= min(rcut, cell edge), zero beyond. ``side``/``cap`` are the
+    static cell-list sizing (:func:`resolve_nlist_sizing`), ``t_cap``
+    the target slots per cell (0: ``cap``). Overflow degradations per the
+    module docstring."""
+    if box > 0.0:
+        raise NotPortedError(
+            "periodic nlist (box > 0) is not ported to gravity_tpu_torch "
+            "yet (ROADMAP.md Queue 1 item 7, with the periodic family)"
+        )
+    t_cap = t_cap or cap
+    kt = targets.shape[0]
+    # Profiler ranges name the stages (chip_smoke.py reads them); they
+    # cost nothing measurable when no profiler runs.
+    with record_function("nlist.bin"):
+        origin, span, params, coords, binned = source_cells(
+            positions, masses, rcut=rcut, side=side, cap=cap)
+        cell_h = span / side
+        ids = cell_ids(coords, side)
+        n_cells = side**3
+        (cells_pos, cells_mass, cell_count, cell_start, src_sort,
+         src_sorted_ids) = binned
+        cells_gm = cells_mass * g
+
+        # Per-cell totals for the overflow channels, in normalized mass.
+        m_scale = torch.clamp_min(masses.max(), 1e-37)
+        m_hat = masses / m_scale
+        cmass_hat = segment_sum(m_hat, ids, n_cells)
+        cmw = segment_sum(m_hat[:, None] * positions, ids, n_cells)
+        ccom = cmw / torch.clamp_min(cmass_hat, 1e-37)[:, None]
+
+        t_coords = grid_coords(targets, origin, span, side)
+        if _self and t_cap == cap:
+            # Self form: the target binning is the source binning.
+            tcells_pos, t_count, t_start, t_sort, t_sorted_ids = (
+                cells_pos, cell_count, cell_start, src_sort, src_sorted_ids
+            )
+        else:
+            tcells_pos, _, t_count, t_start, t_sort, t_sorted_ids = (
+                bin_to_cells(targets, torch.ones_like(targets[:, 0]),
+                             t_coords, side, t_cap)
+            )
+
+    with record_function("nlist.pair_tiles"):
+        acc_cell = pair_cells_kernel(
+            tcells_pos, t_count, cells_pos, cells_gm, cell_count, side,
+            params, cutoff=cutoff, eps=eps, use_rcut=True,
+        )
+    with record_function("nlist.remainder"):
+        rem_w, rem_com, over = _source_overflow_channels(
+            cells_pos, cells_mass, cell_count, cmass_hat, ccom, m_scale, g,
+            cap,
+        )
+        acc_cell = acc_cell + _remainder_cells(
+            tcells_pos, rem_w, rem_com, over, side, eps=eps, cell_h=cell_h,
+        )
+
+    # Un-bin to per-target order; targets past t_cap take the whole-cell
+    # monopole fallback, computed for all and selected.
+    with record_function("nlist.unbin_and_overflow_targets"):
+        slot = (torch.arange(kt, device=targets.device)
+                - t_start[t_sorted_ids])
+        over_t = slot >= t_cap
+        acc_sorted = acc_cell[t_sorted_ids, slot.clamp_max(t_cap - 1)]
+        fallback = _overflow_targets(
+            targets[t_sort], t_coords[t_sort], g * cmass_hat * m_scale,
+            ccom, side, eps=eps, cell_h=cell_h,
+        )
+        acc_sorted = torch.where(over_t[:, None], fallback, acc_sorted)
+        acc = torch.empty_like(acc_sorted)
+        acc[t_sort] = acc_sorted
+    return acc
+
+
+def nlist_accelerations(positions, masses, **kwargs) -> torch.Tensor:
+    """Cutoff-truncated accelerations for all particles (targets =
+    sources)."""
+    return nlist_accelerations_vs(positions, positions, masses, _self=True,
+                                  **kwargs)
+
+
+def make_nlist_local_kernel(*, rcut: float, side: int, cap: int = DEFAULT_CAP,
+                            t_cap: int = 0, g: float = G,
+                            cutoff: float = CUTOFF_RADIUS, eps: float = 0.0):
+    """A (targets, sources, masses) -> accelerations closure. Forward only:
+    the backward pass comes with ROADMAP Queue 1 item 9."""
+
+    def kernel(pos_i, pos_j, masses_j):
+        return nlist_accelerations_vs(
+            pos_i, pos_j, masses_j, rcut=rcut, side=side, cap=cap,
+            t_cap=t_cap, g=g, cutoff=cutoff, eps=eps,
+        )
+
+    return kernel

@@ -1,7 +1,8 @@
 """The simulation loop.
 
-Counterpart of ``gravity_tpu/simulation.py`` for the fixed-dt direct-sum
-run: build the initial state, resolve the force backend, then run blocks
+Counterpart of ``gravity_tpu/simulation.py`` for the fixed-dt runs of the
+direct sum, its Gram form and the cutoff-radius cell list: build the
+initial state, resolve the force backend, then run blocks
 of steps, logging and recording between them. The JAX package jits a
 ``lax.scan`` per block; here a block is a Python loop over steps that
 carries the ``(state, acc)`` pair the same way (``_block_fn``), and
@@ -12,15 +13,17 @@ boundaries, where the host waits once.
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Optional
 
 import torch
 
 from .config import SimulationConfig
 from .models import create_model
-from .ops import direct_kernel
+from .ops import direct_kernel, mxu_kernel, nlist
 from .ops.direct_kernel import accelerations_vs_kernel
 from .ops.forces import accelerations_vs, pairwise_accelerations_chunked
+from .ops.mxu_kernel import accelerations_vs_mxu_kernel
 from .ops.integrators import FORCE_EVALS_PER_STEP, init_carry, make_step_fn
 from .state import ParticleState
 from .utils.logging import RunLogger
@@ -34,10 +37,17 @@ from .utils.trajectory import TrajectoryWriter
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
-# The resolved name of the hand-written CUDA direct-sum kernel.
+# The resolved names of the hand-written CUDA direct-sum kernels.
 KERNEL_BACKEND = "nbody_direct"
+MXU_BACKEND = "nbody_mxu"
 # Largest N the CPU runs as one dense (N, N) block.
 DENSE_MAX_N = 4096
+# The module whose LAUNCHES counts each resolved backend's kernel.
+_KERNEL_MODULES = {
+    KERNEL_BACKEND: direct_kernel,
+    MXU_BACKEND: mxu_kernel,
+    "nlist": nlist,
+}
 
 
 def resolve_dtype(name: str) -> torch.dtype:
@@ -49,21 +59,58 @@ def resolve_dtype(name: str) -> torch.dtype:
 def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
     """Resolve ``force_backend`` to the function that computes forces.
 
-    ``auto``, ``direct`` and ``pallas`` take the CUDA kernel on the card,
-    at every N (the JAX package's n >= 1024 threshold is a TPU
-    measurement and is not adopted). On the CPU, ``auto`` and ``direct``
-    take the plain version, dense up to ``DENSE_MAX_N`` and chunked above;
-    an explicit ``pallas`` keeps the kernel's wrapper, which runs the plain
-    version for CPU tensors. ``dense`` and ``chunked`` are the plain
-    version on any device. ``auto`` routes only among exact direct sums
-    until the fast solvers are ported (ROADMAP Queue 1 item 7).
+    ``nlist_rcut`` > 0 declares truncated physics: ``auto`` and ``direct``
+    then take the rcut-masked plain direct sum (dense up to
+    ``DENSE_MAX_N``, chunked above) on any device, never a full-gravity
+    kernel; an explicit full-gravity backend warns, and ``nlist`` is the
+    cell list. Otherwise ``auto``, ``direct`` and ``pallas`` take the
+    CUDA direct-sum kernel on the card, at every N (the JAX package's
+    n >= 1024 threshold is a TPU measurement and is not adopted). On the
+    CPU, ``auto`` and ``direct`` take the plain version, dense or chunked;
+    an explicit ``pallas`` or ``pallas-mxu`` keeps the kernel's wrapper,
+    which runs the plain version for CPU tensors. ``pallas-mxu`` is an
+    explicit opt-in only. ``dense`` and ``chunked`` are the plain version
+    on any device. ``auto`` routes only among the ported backends until
+    the fast solvers are ported (ROADMAP Queue 1 item 7).
     """
     backend = config.force_backend
-    if backend in ("dense", "chunked"):
+    plain = "dense" if config.n <= DENSE_MAX_N else "chunked"
+    if config.nlist_rcut > 0.0:
+        if backend in ("auto", "direct"):
+            return plain
+        if backend not in ("nlist", "dense", "chunked"):
+            warnings.warn(
+                f"nlist_rcut={config.nlist_rcut:g} declares truncated "
+                f"short-range physics, but force_backend={backend!r} "
+                "computes FULL gravity and ignores it (only nlist/"
+                "dense/chunked honor the rcut mask)",
+                stacklevel=3,
+            )
+    if backend in ("dense", "chunked", "nlist"):
         return backend
+    if backend == "pallas-mxu":
+        return MXU_BACKEND
     if backend == "pallas" or device.type == "cuda":
         return KERNEL_BACKEND
-    return "dense" if config.n <= DENSE_MAX_N else "chunked"
+    return plain
+
+
+def _resolve_nlist_config(config: SimulationConfig, positions):
+    """The (side, cap) of the nlist backend: explicit config knobs win;
+    otherwise they are fit to the initial positions
+    (``ops/nlist.py::resolve_nlist_sizing``)."""
+    if config.nlist_rcut <= 0.0:
+        raise ValueError(
+            "force_backend='nlist' needs nlist_rcut > 0 (--nlist-rcut): "
+            "the cell-list kernel computes forces TRUNCATED at rcut — "
+            "declared short-range physics, not an approximation of "
+            "full gravity"
+        )
+    side, cap = config.nlist_side, config.nlist_cap
+    if side and cap:
+        return side, cap
+    return nlist.resolve_nlist_sizing(positions, config.nlist_rcut, cap=cap,
+                                      side=side)
 
 
 def make_initial_state(config: SimulationConfig,
@@ -105,6 +152,16 @@ class Simulator:
         self.state = state
         self.n_real = state.n
         self.backend = _resolve_backend(config, self.device)
+        # As-run cell-list sizing (side, cap, pair-tile slots per force
+        # evaluation), for nlist runs.
+        self.nlist_sizing = None
+        if self.backend == "nlist":
+            side, cap = _resolve_nlist_config(config, state.positions)
+            note = nlist.check_nlist_sizing(state.n, side, cap)
+            if note:
+                warnings.warn(note, stacklevel=2)
+            self.nlist_sizing = (side, cap,
+                                 nlist.evaluated_pairs_per_eval(side, cap))
 
     def accel(self, positions: torch.Tensor,
               masses: torch.Tensor) -> torch.Tensor:
@@ -114,6 +171,18 @@ class Simulator:
         if self.backend == KERNEL_BACKEND:
             return accelerations_vs_kernel(positions, positions, masses,
                                            **common)
+        if self.backend == MXU_BACKEND:
+            return accelerations_vs_mxu_kernel(positions, positions, masses,
+                                               **common)
+        if self.backend == "nlist":
+            side, cap, _ = self.nlist_sizing
+            return nlist.nlist_accelerations(
+                positions, masses, rcut=c.nlist_rcut, side=side, cap=cap,
+                **common,
+            )
+        if c.nlist_rcut > 0.0:
+            # Declared truncated physics: the rcut-masked direct sum.
+            common["rcut"] = c.nlist_rcut
         if self.backend == "dense":
             return accelerations_vs(positions, positions, masses, **common)
         return pairwise_accelerations_chunked(positions, masses,
@@ -156,7 +225,8 @@ class Simulator:
             return self.accel(positions, masses)
 
         step_fn = make_step_fn(config.integrator, accel_fn, config.dt)
-        launches0 = direct_kernel.LAUNCHES
+        kernel_module = _KERNEL_MODULES.get(self.backend)
+        launches0 = kernel_module.LAUNCHES if kernel_module else 0
         # The first force evaluation loads (and, once per source, builds)
         # the kernel; it stays outside the timed loop.
         acc = init_carry(accel_fn, state)
@@ -201,8 +271,8 @@ class Simulator:
             trajectory_writer.close()
 
         n = self.n_real
-        pairs = (n * (n - 1) * total_steps
-                 * FORCE_EVALS_PER_STEP[config.integrator])
+        evals = total_steps * FORCE_EVALS_PER_STEP[config.integrator]
+        pairs = n * (n - 1) * evals
         stats = {
             "n": n,
             "steps": total_steps,
@@ -213,8 +283,20 @@ class Simulator:
             "backend": self.backend,
             "device": device_name(self.device),
             "dtype": config.dtype,
-            "kernel_launches": direct_kernel.LAUNCHES - launches0,
+            "kernel_launches": (kernel_module.LAUNCHES - launches0
+                                if kernel_module else 0),
         }
+        if self.nlist_sizing is not None:
+            # The N(N-1) rate is what a dense sum would have needed;
+            # evaluated_pairs_per_sec counts the pair-tile slots.
+            side, cap, slots = self.nlist_sizing
+            stats.update({
+                "dense_equiv_pairs_per_sec": stats["pairs_per_sec"],
+                "nlist_side": side,
+                "nlist_cap": cap,
+                "evaluated_pairs_per_sec": (slots * evals / total_time
+                                            if total_time > 0 else None),
+            })
         return self._finish(logger, total_time, total_steps, stats)
 
     def _banner(self, logger: Optional[RunLogger], steps: int) -> None:

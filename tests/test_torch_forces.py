@@ -20,6 +20,7 @@ import torch
 import reference_oracle
 from gravity_tpu.ops import forces as jax_forces
 from gravity_tpu.ops.pallas_forces import pallas_accelerations_vs
+from gravity_tpu_torch.config import NotPortedError
 from gravity_tpu_torch.ops import direct_kernel
 from gravity_tpu_torch.ops.forces import (
     accelerations_vs,
@@ -149,11 +150,27 @@ def test_potential_energy_matches_jax(chunk):
     np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-def test_rcut_and_box_are_not_ported():
+@pytest.mark.parametrize("n,rcut", [(64, 2e11), (300, 1e11)])
+def test_rcut_masked_sum_matches_jax(n, rcut):
+    """The truncated direct sum, the exact reference of the cell list:
+    pairs beyond rcut contribute nothing, as in the JAX package."""
+    pos, masses = _system(n, seed=n)
+    tp, tm = _torch(pos, masses)
+    want = np.asarray(jax_forces.accelerations_vs(
+        jnp.asarray(pos), jnp.asarray(pos), jnp.asarray(masses), eps=1e9,
+        rcut=rcut))
+    got = accelerations_vs(tp, tp, tm, eps=1e9, rcut=rcut).numpy()
+    np.testing.assert_allclose(got, want, **FP32)
+    full = accelerations_vs(tp, tp, tm, eps=1e9).numpy()
+    assert np.abs(got - full).max() > 0
+    chunked = pairwise_accelerations_chunked(tp, tm, eps=1e9, rcut=rcut,
+                                             chunk=50)
+    np.testing.assert_allclose(chunked.numpy(), want, **FP32)
+
+
+def test_box_is_not_ported():
     pos, masses = _torch(*_system(8))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        accelerations_vs(pos, pos, masses, rcut=1e11)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotPortedError, match="Queue 1 item 7"):
         accelerations_vs(pos, pos, masses, box=1e12)
 
 

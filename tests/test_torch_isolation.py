@@ -3,7 +3,7 @@
 - No file of gravity_tpu_torch/ or chip_smoke.py imports jax or
   gravity_tpu (an AST scan), and importing the package loads neither.
 - Entry points default to the GPU and raise when there is none.
-- The kernel wrapper takes the plain version only for CPU tensors; for
+- Each kernel wrapper takes the plain version only for CPU tensors; for
   any other device it launches the kernel or raises, and it has no
   ``try`` that could fall back.
 """
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from gravity_tpu_torch.config import SimulationConfig
-from gravity_tpu_torch.ops import direct_kernel
+from gravity_tpu_torch.ops import cuda_build, direct_kernel, mxu_kernel, nlist
 from gravity_tpu_torch.simulation import Simulator
 from gravity_tpu_torch.utils.platform import resolve_device
 
@@ -97,10 +97,39 @@ def test_wrapper_raises_rather_than_falling_back():
     assert direct_kernel.LAUNCHES == before
 
 
+def _meta_nlist_args(device="meta"):
+    cells = torch.empty(8, 4, 3, device=device)
+    count = torch.empty(8, dtype=torch.int64, device=device)
+    gm = torch.empty(8, 4, device=device)
+    return (cells, count, cells, gm, count, 2, torch.empty(1, device=device))
+
+
+def test_new_wrappers_raise_rather_than_falling_back():
+    """The cell-list and Gram-form wrappers, like the direct one, refuse a
+    tensor that is neither on the CPU nor on a CUDA device."""
+    before = (nlist.LAUNCHES, mxu_kernel.LAUNCHES)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        nlist.pair_cells_kernel(*_meta_nlist_args(), cutoff=1e-10, eps=0.0)
+    xi = torch.empty(4, 3, device="meta")
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        mxu_kernel.gram_acc4(xi, xi, torch.empty(4, device="meta"),
+                             cutoff=1e-10, eps=0.0)
+    assert (nlist.LAUNCHES, mxu_kernel.LAUNCHES) == before
+
+
+def _has_try(fn):
+    tree = ast.parse(inspect.getsource(fn).lstrip())
+    return any(isinstance(n, ast.Try) for n in ast.walk(tree))
+
+
 def test_wrapper_has_no_try():
-    source = inspect.getsource(direct_kernel.accelerations_vs_kernel)
-    tree = ast.parse(source.lstrip())
-    assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+    assert not _has_try(direct_kernel.accelerations_vs_kernel)
+
+
+@pytest.mark.parametrize("wrapper", [nlist.pair_cells_kernel,
+                                     mxu_kernel.gram_acc4])
+def test_new_wrappers_have_no_try(wrapper):
+    assert not _has_try(wrapper)
 
 
 def test_kernel_source_is_built_for_hopper_without_fast_math():
@@ -109,3 +138,14 @@ def test_kernel_source_is_built_for_hopper_without_fast_math():
     assert "fast_math" not in flags and "ftz=true" not in flags
     assert os.path.exists(direct_kernel.SOURCE)
     assert direct_kernel.library_path().startswith(direct_kernel.BUILD_DIR)
+
+
+@pytest.mark.parametrize("library", [nlist.LIBRARY, mxu_kernel.LIBRARY])
+def test_new_kernel_sources_build_with_the_shared_flags(library):
+    """Every kernel builds with the one set of nvcc flags, into the one
+    git-ignored build directory."""
+    assert cuda_build.NVCC_FLAGS == direct_kernel.NVCC_FLAGS
+    assert os.path.exists(library.source)
+    path = library.library_path()
+    assert path.startswith(cuda_build.BUILD_DIR)
+    assert os.path.basename(path).startswith(f"lib{library.name}_")

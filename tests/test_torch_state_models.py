@@ -135,14 +135,14 @@ def test_interop_round_trip_with_a_jax_state():
     ("merge_radius", 1e9, "Queue 1 item 4"),
     ("external", "pointmass:gm=1e20", "Queue 1 item 4"),
     ("checkpoint_every", 10, "Queue 1 item 2"),
-    ("nlist_rcut", 1e11, "Queue 1 item 6"),
+    ("pm_grid", 64, "Queue 1 item 7"),
     ("trajectory_format", "native", "Queue 1 item 1"),
     ("integrator", "multirate", "Queue 1 item 4"),
     ("dtype", "bfloat16", "Queue 1 item 4"),
     ("model", "plummer", "Queue 1 item 4"),
     ("force_backend", "tree", "Queue 1 item 7"),
-    ("force_backend", "nlist", "Queue 1 item 6"),
-    ("force_backend", "pallas-mxu", "Queue 2 item 3"),
+    ("force_backend", "p3m", "Queue 1 item 7"),
+    ("nlist_mesh", "halo", "Queue 1 item 6"),
 ])
 def test_unported_features_are_refused(field, value, item):
     """A JAX config asking for a feature no slice has ported is refused
@@ -151,6 +151,21 @@ def test_unported_features_are_refused(field, value, item):
     data[field] = value
     with pytest.raises(NotPortedError, match=item):
         SimulationConfig.from_json(json.dumps(data))
+
+
+@pytest.mark.parametrize("fields", [
+    {"force_backend": "nlist", "nlist_rcut": 5e10, "nlist_side": 12,
+     "nlist_cap": 256},
+    {"force_backend": "pallas-mxu", "eps": 1e9},
+])
+def test_ported_backends_construct(fields):
+    """The cell list and the Gram-form kernel are ported: a JAX config
+    naming them carries over."""
+    data = json.loads(JaxConfig().to_json())
+    data.update(fields)
+    cfg = SimulationConfig.from_json(json.dumps(data))
+    for name, value in fields.items():
+        assert getattr(cfg, name) == value
 
 
 def test_jax_default_config_and_presets_carry_over():
