@@ -10,6 +10,9 @@ Usage:
     python -m gravity_tpu_torch run --device cpu --preset reference-mpi
     python -m gravity_tpu_torch run --model random --n 262144 \
         --integrator leapfrog --force-backend nlist --nlist-rcut 5e10 --eps 1e9
+    python -m gravity_tpu_torch run --model disk --n 1048576 --g 1.0 \
+        --dt 2e-3 --eps 0.05 --force-backend p3m --pm-grid 256 \
+        --p3m-cap 64 --p3m-short nlist --integrator leapfrog
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from .config import (
     FORCE_BACKENDS,
     INTEGRATORS,
     MODELS,
+    P3M_SHORT_MODES,
     PRESETS,
     SimulationConfig,
 )
@@ -36,6 +40,7 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--steps", type=int, default=None)
     p.add_argument("--dt", type=float, default=None)
     p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--g", type=float, default=None)
     p.add_argument("--eps", type=float, default=None)
     p.add_argument("--integrator", choices=INTEGRATORS, default=None)
     p.add_argument("--force-backend", dest="force_backend",
@@ -43,7 +48,8 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                    help="auto/direct/pallas = the CUDA direct-sum kernel "
                         "on the GPU; pallas-mxu = its Gram-form kernel; "
                         "nlist = the cutoff-radius cell list (needs "
-                        "--nlist-rcut); dense/chunked = plain PyTorch")
+                        "--nlist-rcut); p3m = the P3M solver; "
+                        "dense/chunked = plain PyTorch")
     p.add_argument("--nlist-rcut", dest="nlist_rcut", type=float,
                    default=None,
                    help="declared truncation radius (m): forces truncated "
@@ -53,6 +59,20 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--nlist-cap", dest="nlist_cap", type=int, default=None,
                    help="cell-list slots per cell (0 = fit to the initial "
                         "state)")
+    p.add_argument("--pm-grid", dest="pm_grid", type=int, default=None)
+    p.add_argument("--p3m-sigma-cells", dest="p3m_sigma_cells", type=float,
+                   default=None)
+    p.add_argument("--p3m-rcut-sigmas", dest="p3m_rcut_sigmas", type=float,
+                   default=None)
+    p.add_argument("--p3m-cap", dest="p3m_cap", type=int, default=None)
+    p.add_argument("--p3m-short", dest="p3m_short", choices=P3M_SHORT_MODES,
+                   default=None,
+                   help="short-range pass: nlist = the cell-list kernel, "
+                        "gather = per-target block gathers (auto = nlist "
+                        "on the GPU, gather on the CPU; slice is not "
+                        "ported)")
+    p.add_argument("--fast-chunk", dest="fast_chunk", type=int, default=None,
+                   help="target chunk of the p3m gather pass")
     p.add_argument("--dtype", choices=DTYPES, default=None)
     p.add_argument("--progress-every", dest="progress_every", type=int,
                    default=None, help="steps per progress line and block")

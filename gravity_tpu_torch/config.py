@@ -14,28 +14,35 @@ import json
 
 from . import constants as C
 
-MODELS = ("random", "solar")
+MODELS = ("random", "solar", "disk")
 INTEGRATORS = ("euler", "leapfrog", "verlet", "yoshida4")
 DTYPES = ("float32", "float64")
 # "pallas" and "pallas-mxu" are the JAX names of the hand-written
 # direct-sum kernels; here they name the CUDA kernels (ops/direct_kernel.py,
-# ops/mxu_kernel.py). "nlist" is the cutoff-radius cell list (ops/nlist.py).
+# ops/mxu_kernel.py). "nlist" is the cutoff-radius cell list (ops/nlist.py),
+# "p3m" the particle-particle particle-mesh solver (ops/p3m.py).
 FORCE_BACKENDS = ("auto", "direct", "dense", "chunked", "pallas",
-                  "pallas-mxu", "nlist")
+                  "pallas-mxu", "nlist", "p3m")
+P3M_SHORT_MODES = ("auto", "gather", "slice", "nlist")
 
 _QUEUE = "ROADMAP.md Queue 1 item"
 
 # Values of honoured fields that belong to a later slice.
 _UNPORTED_VALUES = {
     "model": (
-        ("plummer", "cold_collapse", "disk", "grf", "hernquist", "merger"),
+        ("plummer", "cold_collapse", "grf", "hernquist", "merger"),
         f"{_QUEUE} 4 (remaining models)",
     ),
     "integrator": (("multirate",), f"{_QUEUE} 4 (integration modes)"),
     "dtype": (("bfloat16",), f"{_QUEUE} 4 (bf16 states)"),
     "force_backend": (
-        ("tree", "fmm", "sfmm", "pm", "p3m"),
+        ("tree", "fmm", "sfmm", "pm"),
         f"{_QUEUE} 7 (fast full-gravity solvers)",
+    ),
+    "p3m_short": (
+        ("slice",),
+        f"{_QUEUE} 7 (the TPU's shifted-slice P3M pass; use nlist or "
+        "gather)",
     ),
 }
 _UNPORTED_BACKENDS = {
@@ -58,15 +65,9 @@ _NOT_PORTED = {
     "tree_leaf_cap": (32, f"{_QUEUE} 7"),
     "tree_ws": (1, f"{_QUEUE} 7"),
     "tree_far": ("direct", f"{_QUEUE} 7"),
-    "pm_grid": (128, f"{_QUEUE} 7"),
-    "p3m_sigma_cells": (1.25, f"{_QUEUE} 7"),
-    "p3m_rcut_sigmas": (4.0, f"{_QUEUE} 7"),
-    "p3m_cap": (128, f"{_QUEUE} 7"),
-    "p3m_short": ("auto", f"{_QUEUE} 7"),
     "nlist_mesh": ("auto", f"{_QUEUE} 6 (halo)"),
     "nlist_mig_cap": (0, f"{_QUEUE} 6 (halo)"),
     "tree_near": ("gather", f"{_QUEUE} 7"),
-    "fast_chunk": (4096, f"{_QUEUE} 7"),
     "adaptive": (False, f"{_QUEUE} 4"),
     "eta": (0.025, f"{_QUEUE} 4"),
     "timestep_criterion": ("auto", f"{_QUEUE} 4"),
@@ -105,7 +106,7 @@ class NotPortedError(ValueError):
 @dataclasses.dataclass
 class SimulationConfig:
     # Workload
-    model: str = "random"  # random | solar
+    model: str = "random"  # random | solar | disk
     n: int = 1024
     steps: int = C.DEFAULT_STEPS
     dt: float = C.DEFAULT_DT
@@ -124,6 +125,7 @@ class SimulationConfig:
     # dense | chunked: the plain PyTorch direct sum on any device.
     # pallas-mxu: the Gram-form CUDA kernel, explicit opt-in only.
     # nlist: the cutoff-radius cell list; needs nlist_rcut > 0.
+    # p3m: the P3M solver (mesh + cell-list near field), explicit only.
     force_backend: str = "auto"
     chunk: int = 1024  # i-chunk of the chunked plain direct sum
     # Declared truncation radius (m): with nlist_rcut > 0 forces are
@@ -134,6 +136,17 @@ class SimulationConfig:
     nlist_rcut: float = 0.0
     nlist_side: int = 0
     nlist_cap: int = 0
+    # P3M (force_backend="p3m", ops/p3m.py): mesh per axis, Ewald split
+    # scale in mesh cells, short-range truncation in sigmas, source slots
+    # per cell of its cell list, the short-range pass (nlist = the
+    # cell-list kernel, gather = per-target block gathers; auto = nlist
+    # on the GPU, gather on the CPU) and the gather pass's target chunk.
+    pm_grid: int = 128
+    p3m_sigma_cells: float = 1.25
+    p3m_rcut_sigmas: float = 4.0
+    p3m_cap: int = 128
+    p3m_short: str = "auto"
+    fast_chunk: int = 4096
 
     # I/O & observability
     log_dir: str = "gravity_logs_gpu"
@@ -159,6 +172,7 @@ class SimulationConfig:
         for name, choices in (
             ("model", MODELS), ("integrator", INTEGRATORS),
             ("dtype", DTYPES), ("force_backend", FORCE_BACKENDS),
+            ("p3m_short", P3M_SHORT_MODES),
         ):
             if getattr(self, name) not in choices:
                 raise ValueError(
@@ -168,6 +182,11 @@ class SimulationConfig:
         for name in ("nlist_rcut", "nlist_side", "nlist_cap"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0, got "
+                                 f"{getattr(self, name)}")
+        for name in ("pm_grid", "p3m_sigma_cells", "p3m_rcut_sigmas",
+                     "p3m_cap", "fast_chunk"):
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name} must be > 0, got "
                                  f"{getattr(self, name)}")
 
     def to_json(self) -> str:
@@ -198,7 +217,8 @@ class SimulationConfig:
         return SimulationConfig(**kept)
 
 
-# Named presets: the three reference workloads and the 1k baseline.
+# Named presets: the three reference workloads, the 1k baseline and the
+# 1M-disk P3M baseline (copied from gravity_tpu/config.py).
 PRESETS = {
     "reference-mpi": SimulationConfig(model="random", n=8, integrator="euler"),
     # Pinned to the exact direct sum: reference parity means pairwise
@@ -211,5 +231,11 @@ PRESETS = {
     ),
     "baseline-1k": SimulationConfig(
         model="random", n=1024, integrator="leapfrog", force_backend="dense"
+    ),
+    # Galactic natural units (G = 1, kpc, 1e10 Msun).
+    "baseline-1m-p3m": SimulationConfig(
+        model="disk", n=1_048_576, integrator="leapfrog",
+        force_backend="p3m", pm_grid=256, p3m_cap=64,
+        g=1.0, dt=2.0e-3, eps=0.05,
     ),
 }

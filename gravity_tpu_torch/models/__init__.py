@@ -1,8 +1,8 @@
 """Initial-condition model families.
 
-Counterpart of ``gravity_tpu/models/__init__.py``. This slice ports the
-two reference models, ``solar`` and ``random``; the others are ROADMAP
-Queue 1 item 4.
+Counterpart of ``gravity_tpu/models/__init__.py``. Ported: the two
+reference models, ``solar`` and ``random``, and the galaxy ``disk`` of
+the P3M run; the others are ROADMAP Queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..config import NotPortedError, _UNPORTED_VALUES
+from .disk import create_disk
 from .random_cube import create_random_cube, generate_random_particles
 from .solar import create_solar_system
 
@@ -29,7 +30,11 @@ def _random(gen, n, dtype, device):
     return create_random_cube(gen, n, dtype=dtype, device=device)
 
 
-MODELS = {"solar": _solar, "random": _random}
+def _disk(gen, n, dtype, device):
+    return create_disk(gen, n, dtype=dtype, device=device)
+
+
+MODELS = {"solar": _solar, "random": _random, "disk": _disk}
 
 
 def create_model(name: str, gen: torch.Generator, n: int, dtype,
@@ -46,6 +51,7 @@ def create_model(name: str, gen: torch.Generator, n: int, dtype,
 
 __all__ = [
     "MODELS",
+    "create_disk",
     "create_model",
     "create_random_cube",
     "create_solar_system",

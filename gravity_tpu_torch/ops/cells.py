@@ -1,10 +1,9 @@
 """Cell-grid binning shared by the cell-list solvers.
 
 Counterpart of ``gravity_tpu/ops/cells.py`` (the parts the cell-list
-force backend uses), plus ``bounding_cube`` from
-``gravity_tpu/ops/pm.py``, kept here until the particle-mesh slice
-brings ``ops/pm.py``. Points are binned into a cube grid over the source
-bounding cube and padded into a dense ``(side^3, cap)`` slot layout.
+force backend and the P3M solver use). Points are binned into a cube grid
+over the source bounding cube (``ops/pm.py::bounding_cube``, re-exported
+here) and padded into a dense ``(side^3, cap)`` slot layout.
 
 Index tensors are int64 (the JAX package's are int32); their values are
 the same. The sort within a cell is stable, as ``jnp.argsort`` is, so the
@@ -15,6 +14,18 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .pm import bounding_cube
+
+__all__ = [
+    "bin_to_cells",
+    "bounding_cube",
+    "build_padded_cells",
+    "cell_ids",
+    "grid_coords",
+    "map_target_chunks",
+    "segment_sum",
+]
 
 
 def _near_offsets(ws: int) -> np.ndarray:
@@ -29,22 +40,6 @@ def _near_offsets(ws: int) -> np.ndarray:
         [(dx, dy, dz) for dx in rng for dy in rng for dz in rng],
         dtype=np.int32,
     )
-
-
-def bounding_cube(positions: torch.Tensor):
-    """(origin, span) of a cube containing all positions, small margin;
-    device tensors of the positions' dtype."""
-    lo = positions.min(dim=0).values
-    hi = positions.max(dim=0).values
-    span = (hi - lo).max() * _scalar(1.02, positions) + _scalar(1e-30,
-                                                               positions)
-    center = 0.5 * (hi + lo)
-    origin = center - 0.5 * span
-    return origin, span
-
-
-def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
 def grid_coords(points, origin, span, side: int) -> torch.Tensor:
@@ -120,3 +115,22 @@ def build_padded_cells(sorted_pos, sorted_mass, sorted_cell_ids,
     cells_pos = _scatter_cells(sorted_pos, slot, n_cells, cap)
     cells_mass = _scatter_cells(sorted_mass, slot, n_cells, cap)
     return cells_pos, cells_mass
+
+
+def map_target_chunks(fn, targets, t_coords, chunk: int) -> torch.Tensor:
+    """Apply ``fn(pos_chunk (C, 3), coord_chunk (C, 3)) -> (C, 3)`` over
+    the targets in chunks of ``chunk`` rows and concatenate. The tail
+    chunk is padded with zero rows, computed and dropped, so every call
+    sees the same shape; the targets are never taken as one whole-N chunk
+    (that would materialise (N, 27 * cap, 3) temporaries at the sizes the
+    fast solvers serve)."""
+    n = targets.shape[0]
+    chunk = max(1, min(chunk, n))
+    n_padded = -(-n // chunk) * chunk
+    pad = n_padded - n
+    if pad:
+        targets = torch.cat([targets, targets.new_zeros((pad, 3))])
+        t_coords = torch.cat([t_coords, t_coords.new_zeros((pad, 3))])
+    out = [fn(targets[lo:lo + chunk], t_coords[lo:lo + chunk])
+           for lo in range(0, n_padded, chunk)]
+    return torch.cat(out)[:n]

@@ -1,9 +1,11 @@
 """Cutoff-radius cell-list forces: O(N) truncated short-range pairs.
 
-Counterpart of ``gravity_tpu/ops/pallas_nlist.py`` for the standalone
-``--force-backend nlist`` (truncated-at-``rcut`` softened Newtonian
-forces, declared short-range physics, not an approximation of full
-gravity), with isolated boundaries:
+Counterpart of ``gravity_tpu/ops/pallas_nlist.py`` for two of its
+consumers, with isolated boundaries: the standalone ``--force-backend
+nlist`` (truncated-at-``rcut`` softened Newtonian forces, declared
+short-range physics, not an approximation of full gravity; pair kind
+``newton``) and the P3M near field (:func:`nlist_short_range_cells`, the
+erfc remainder of the Ewald split; pair kind ``ewald``):
 
 - **Sort by cell** (``ops/cells.py``): bodies land in a dense
   ``(side^3, cap)`` slot layout over the bounding cube, with the cell
@@ -27,14 +29,16 @@ fallback is computed for every target and selected with ``torch.where``
 (the JAX package gates it with ``lax.cond``).
 
 Not ported yet, and refused with :class:`~..config.NotPortedError`: the
-periodic form (``box`` > 0, ROADMAP Queue 1 item 7), the ``ewald`` pair
-kind (P3M, Queue 1 item 7), the domain-decomposed slab/halo engines
-(Queue 1 item 6) and backward passes (Queue 1 item 9).
+periodic form (``box`` > 0, ROADMAP Queue 1 item 7). Not ported either:
+the tree near field (``nlist_near_field``, with the octree, Queue 1 item
+7), the domain-decomposed slab/halo engines (Queue 1 item 6) and backward
+passes (Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 import warnings
 
 import numpy as np
@@ -151,26 +155,91 @@ def check_nlist_sizing(n: int, side: int, cap: int) -> str | None:
 # ---------------------------------------------------------------------------
 
 
-def _newton_w(r2, gm, rcut_eff2, *, cutoff, eps, use_rcut):
+def _newton_w(r2, gm, params, *, cutoff, eps, use_rcut):
     """Truncated softened-Newtonian diff-multiplier: w = G m / (r^2 +
-    eps^2)^(3/2) for cutoff^2 < r^2 + eps^2, r^2 <= ``rcut_eff2`` (a
-    device scalar) and r > 0. gm is G*m, zero on padded slots. eps^2 and
-    cutoff^2 are squared in double and then rounded to the dtype (a
-    Python scalar in a tensor op takes the tensor's dtype)."""
+    eps^2)^(3/2) for cutoff^2 < r^2 + eps^2, r^2 <= params[0] =
+    rcut_eff^2 (a device scalar) and r > 0. gm is G*m, zero on padded
+    slots. eps^2 and cutoff^2 are squared in double and then rounded to
+    the dtype (a Python scalar in a tensor op takes the tensor's dtype)."""
     r2s = r2 + eps * eps
     valid = (r2s > cutoff * cutoff) & (r2 > 0)
     if use_rcut:
-        valid = valid & (r2 <= rcut_eff2)
+        valid = valid & (r2 <= params[0])
     inv_r = torch.rsqrt(torch.where(valid, r2s, 1.0))
     return torch.where(valid, ((gm * inv_r) * inv_r) * inv_r, 0.0)
 
 
-def _monopole_w(r2, w_mass, eps_o2):
-    """Overflow-channel monopole diff-multiplier: the Newtonian pair
-    weight at a cell-size-widened softening, masked only through
-    ``w_mass`` (zero off the overflow set); mass is never dropped."""
-    inv_r = torch.rsqrt(torch.clamp_min(r2 + eps_o2, 1e-30))
-    return ((w_mass * inv_r) * inv_r) * inv_r
+_TWO_OVER_SQRT_PI = 2.0 / math.sqrt(math.pi)
+
+
+def _short_range_terms(r2, alpha, eps2, alpha3):
+    """The two terms of the P3M short-range diff-multiplier (``p3m.py``'s
+    ``_short_range_w`` in the JAX package): the softened Newtonian
+    (r^2 + eps^2)^(-3/2) and the erf correction alpha^3 hfun(u) / u^2
+    with u = alpha r and hfun(u) = (2/sqrt(pi)) exp(-u^2) - erf(u)/u
+    (<= 0: it takes out the mesh's smooth part). hfun/u^2 is taken from
+    its series below u = 0.05, where the exact form is 0/0 at u = 0.
+    Near rcut the two terms almost cancel, so the rounding of their sum
+    is measured against |newt| + |corr|. ``eps2`` may be a tensor (the
+    overflow channels widen it per cell)."""
+    u = alpha * torch.sqrt(torch.clamp_min(r2, 1e-30))
+    newt = torch.rsqrt(torch.clamp_min(r2 + eps2, 1e-30))
+    newt = newt * newt * newt
+    safe_u = torch.clamp_min(u, 1e-20)
+    exact = (
+        _TWO_OVER_SQRT_PI * torch.exp(-u * u)
+        - torch.special.erf(safe_u) / safe_u
+    ) / (safe_u * safe_u)
+    series = _TWO_OVER_SQRT_PI * (-2.0 / 3.0 + (2.0 / 5.0) * u * u)
+    return newt, alpha3 * torch.where(u < 0.05, series, exact)
+
+
+def _short_range_w(r2, alpha, eps2, alpha3):
+    """diff-multiplier of the P3M short-range pair force:
+    (r^2 + eps^2)^(-3/2) + alpha^3 hfun(u) / u^2 (:func:`_short_range_terms`)."""
+    newt, corr = _short_range_terms(r2, alpha, eps2, alpha3)
+    return newt + corr
+
+
+def _ewald_w(r2, gm, params, *, cutoff, eps, absolute=False):
+    """P3M short-range (erfc-remainder) diff-multiplier through the cell
+    list: params = [rcut^2, alpha] (device scalars: both follow the mesh
+    spacing). Masks as the P3M gather pass: r^2 < rcut^2 (strict),
+    cutoff^2 < r^2 + eps^2 and r > 0. ``absolute`` weighs each pair by
+    gm (|newt| + |corr|), the scale its rounding is measured in."""
+    alpha = params[1]
+    eps2 = eps * eps
+    valid = (r2 < params[0]) & (r2 + eps2 > cutoff * cutoff) & (r2 > 0)
+    newt, corr = _short_range_terms(r2, alpha, eps2, alpha * alpha * alpha)
+    w = newt.abs() + corr.abs() if absolute else newt + corr
+    return torch.where(valid, gm * w, 0.0)
+
+
+KINDS = ("newton", "ewald")
+
+
+def _pair_w(kind: str, r2, gm, params, *, cutoff, eps, use_rcut,
+            absolute=False):
+    """The pair weight of ``kind``; ``absolute`` takes the ewald weight's
+    terms before they cancel (the newton weight is >= 0 already)."""
+    if kind == "newton":
+        return _newton_w(r2, gm, params, cutoff=cutoff, eps=eps,
+                         use_rcut=use_rcut)
+    if kind == "ewald":
+        return _ewald_w(r2, gm, params, cutoff=cutoff, eps=eps,
+                        absolute=absolute)
+    raise ValueError(f"unknown nlist pair kind {kind!r}; choose from {KINDS}")
+
+
+def _monopole_w(kind: str, r2, w_mass, params, eps_o2):
+    """Overflow-channel monopole diff-multiplier: the pair kernel at a
+    cell-size-widened softening, masked only through ``w_mass`` (zero off
+    the overflow set); no rcut or cutoff mask, mass is never dropped."""
+    if kind == "newton":
+        inv_r = torch.rsqrt(torch.clamp_min(r2 + eps_o2, 1e-30))
+        return ((w_mass * inv_r) * inv_r) * inv_r
+    alpha = params[1]
+    return w_mass * _short_range_w(r2, alpha, eps_o2, alpha * alpha * alpha)
 
 
 def _source_overflow_channels(cells_pos, cells_mass, cell_count, cmass_hat,
@@ -197,52 +266,87 @@ def _offsets(device) -> torch.Tensor:
     return torch.stack([o // 9 - 1, (o // 3) % 3 - 1, o % 3 - 1], dim=-1)
 
 
-def _neighbors(coords: torch.Tensor, side: int):
-    """(ids, inside): the flat ids (clipped into the grid) of the 27
-    neighbors of each cell coordinate (M, 3), and which lie in the grid."""
-    cell = coords[:, None, :] + _offsets(coords.device)[None]
+def _neighbors(coords: torch.Tensor, side: int, offsets=None):
+    """(ids, inside): the flat ids (clipped into the grid) of the
+    neighbors of each cell coordinate (M, 3) at ``offsets`` (K, 3), all 27
+    by default, and which lie in the grid; (M, K) each."""
+    if offsets is None:
+        offsets = _offsets(coords.device)
+    cell = coords[:, None, :] + offsets[None]
     inside = ((cell >= 0) & (cell < side)).all(dim=-1)
     ids = cell_ids(cell.clamp(0, side - 1).reshape(-1, 3), side)
     return ids.reshape(cell.shape[:2]), inside
 
 
-def _remainder_cells(tcells_pos, rem_w, rem_com, over, side: int, *,
-                     eps: float, cell_h):
+# Bytes of one batch of per-offset terms in the overflow channels. The 27
+# offsets are taken in consecutive groups (in _near_offsets order) whose
+# terms fit in it, and each group's terms are summed at once into the
+# accumulator. P3M's (side^3, t_cap, 3) blocks at side 51 (102 MB in fp32)
+# go two offsets at a time instead of a 2.75 GB (side^3, 27, t_cap, 3)
+# temporary; the README nlist run's (143 MB for all 27) and smaller grids
+# take all 27 in one group, since each launch costs the host more than
+# the device there.
+OFFSET_BATCH_BYTES = 1 << 28
+
+
+def _offset_groups(per_offset_bytes: int):
+    k = int(max(1, min(27, OFFSET_BATCH_BYTES // max(per_offset_bytes, 1))))
+    return [slice(lo, min(lo + k, 27)) for lo in range(0, 27, k)]
+
+
+def _eps_o2(eps: float, cell_h):
+    """The overflow channels' softening^2: max(eps, cell/2)^2."""
+    half = 0.5 * cell_h
+    return torch.clamp_min(half * half, eps * eps)
+
+
+def _remainder_cells(tcells_pos, rem_w, rem_com, over, side: int, params,
+                     *, kind: str, eps: float, cell_h):
     """Source-cap-overflow remainder: each neighbor cell's beyond-cap mass
-    as a cell-size-softened monopole, (side^3, t_cap, 3), added to the
-    tile engine's output. ``eps`` is widened to max(eps, cell/2): an
-    overflowing cell's centre of mass can sit arbitrarily close to a
-    target. All 27 offsets at once."""
+    as a cell-size-softened monopole through the pair kernel,
+    (side^3, t_cap, 3), added to the tile engine's output. ``eps`` is
+    widened to max(eps, cell/2): an overflowing cell's centre of mass can
+    sit arbitrarily close to a target. Offset groups per
+    :data:`OFFSET_BATCH_BYTES`."""
+    eps_o2 = _eps_o2(eps, cell_h)
     c = torch.arange(side**3, device=tcells_pos.device)
     coords = torch.stack([c // (side * side), (c // side) % side, c % side],
                          dim=-1)
-    ids, inside = _neighbors(coords, side)  # (S^3, 27)
-    half = 0.5 * cell_h
-    eps_o2 = torch.clamp_min(half * half, eps * eps)
-    w_n = torch.where(inside, rem_w[ids], 0.0)
-    ov_n = inside & over[ids]
-    diff = torch.where(
-        ov_n[:, :, None, None],
-        rem_com[ids][:, :, None, :] - tcells_pos[:, None, :, :],
-        0.0,
-    )  # (S^3, 27, t_cap, 3)
-    r2 = (diff * diff).sum(dim=-1)
-    w = _monopole_w(r2, w_n[:, :, None], eps_o2)
-    return (w[..., None] * diff).sum(dim=1)
+    offsets = _offsets(tcells_pos.device)
+    acc = torch.zeros_like(tcells_pos)
+    per_offset = tcells_pos.numel() * tcells_pos.element_size()
+    for group in _offset_groups(per_offset):
+        ids, inside = _neighbors(coords, side, offsets[group])  # (S^3, K)
+        w_n = torch.where(inside, rem_w[ids], 0.0)
+        ov_n = inside & over[ids]
+        diff = torch.where(
+            ov_n[:, :, None, None],
+            rem_com[ids][:, :, None, :] - tcells_pos[:, None, :, :],
+            0.0,
+        )  # (S^3, K, t_cap, 3)
+        r2 = (diff * diff).sum(dim=-1)
+        w = _monopole_w(kind, r2, w_n[:, :, None], params, eps_o2)
+        acc.add_((w[..., None] * diff).sum(dim=1))
+    return acc
 
 
-def _overflow_targets(t_pos, t_coords, cell_w, ccom, side: int, *,
-                      eps: float, cell_h):
+def _overflow_targets(t_pos, t_coords, cell_w, ccom, side: int, params, *,
+                      kind: str, eps: float, cell_h):
     """Fallback for targets beyond t_cap: the 27 neighbor cells as
-    whole-cell monopoles (cell-size softened), (M, 3)."""
-    ids, inside = _neighbors(t_coords, side)  # (M, 27)
-    half = 0.5 * cell_h
-    eps_o2 = torch.clamp_min(half * half, eps * eps)
-    sw = torch.where(inside, cell_w[ids], 0.0)
-    diff = torch.where(inside[..., None], ccom[ids] - t_pos[:, None, :], 0.0)
-    r2 = (diff * diff).sum(dim=-1)
-    w = _monopole_w(r2, sw, eps_o2)
-    return (w[..., None] * diff).sum(dim=1)
+    whole-cell monopoles (cell-size softened) through the pair kernel,
+    (M, 3), in offset groups as :func:`_remainder_cells`."""
+    eps_o2 = _eps_o2(eps, cell_h)
+    offsets = _offsets(t_pos.device)
+    acc = torch.zeros_like(t_pos)
+    for group in _offset_groups(t_pos.numel() * t_pos.element_size()):
+        ids, inside = _neighbors(t_coords, side, offsets[group])  # (M, K)
+        sw = torch.where(inside, cell_w[ids], 0.0)
+        diff = torch.where(inside[..., None], ccom[ids] - t_pos[:, None, :],
+                           0.0)
+        r2 = (diff * diff).sum(dim=-1)
+        w = _monopole_w(kind, r2, sw, params, eps_o2)
+        acc.add_((w[..., None] * diff).sum(dim=1))
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -252,19 +356,22 @@ def _overflow_targets(t_pos, t_coords, cell_w, ccom, side: int, *,
 
 def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
                      side: int, params, *, cutoff: float, eps: float,
-                     use_rcut: bool = True, absolute: bool = False):
+                     use_rcut: bool = True, kind: str = "newton",
+                     absolute: bool = False):
     """The 27-neighborhood pair-tile sum, (side^3, t_cap, 3), in plain
     PyTorch: the plain version of :func:`pair_cells_kernel`.
 
     tcells_pos (side^3, t_cap, 3) targets and cells_pos (side^3, cap, 3)
     sources in cell-slot layout; cells_gm (side^3, cap) is G*m, zero on
-    padded slots; t_count (side^3,) the targets of each cell; params[0]
-    = rcut_eff^2. Each tile row is summed apart and then added to the
-    accumulator, offset by offset in ``_near_offsets`` order, as the
-    kernel does. Target slots past the cell's count are zero.
-    ``s_count`` is unused: padded sources are exact no-ops here.
-    ``absolute`` sums |terms| instead (the scale a row's rounding is
-    measured in)."""
+    padded slots; t_count (side^3,) the targets of each cell. ``kind``
+    "newton" takes params[0] = rcut_eff^2 (``use_rcut``); "ewald" takes
+    params = [rcut^2, alpha] and always truncates. Each tile row is
+    summed apart and then added to the accumulator, offset by offset in
+    ``_near_offsets`` order, as the kernel does. Target slots past the
+    cell's count are zero. ``s_count`` is unused: padded sources are
+    exact no-ops here. ``absolute`` sums each pair's terms in absolute
+    value before any cancellation (for ``ewald`` gm (|newt| + |corr|)
+    |d|): the scale a row's rounding is measured in."""
     del s_count
     s = side
     t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
@@ -273,7 +380,6 @@ def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
     gm_p = cells_gm.new_zeros((s + 2, s + 2, s + 2, cap))
     gm_p[1:-1, 1:-1, 1:-1] = cells_gm.reshape(s, s, s, cap)
     tpos_g = tcells_pos.reshape(s, s, s, t_cap, 3)
-    rcut_eff2 = params[0]
     planes = []
     for x0 in range(s):  # a plane of cells at a time bounds the memory
         tpos = tpos_g[x0].reshape(s * s, t_cap, 1, 3)
@@ -287,8 +393,8 @@ def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
             dy = spos[..., 1] - tpos[..., 1]
             dz = spos[..., 2] - tpos[..., 2]
             r2 = dx * dx + dy * dy + dz * dz
-            w = _newton_w(r2, sgm, rcut_eff2, cutoff=cutoff, eps=eps,
-                          use_rcut=use_rcut)
+            w = _pair_w(kind, r2, sgm, params, cutoff=cutoff, eps=eps,
+                        use_rcut=use_rcut, absolute=absolute)
             terms = torch.stack([w * dx, w * dy, w * dz], dim=-1)
             if absolute:
                 terms = terms.abs()
@@ -301,20 +407,30 @@ def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
 
 _ENTRY = {torch.float32: "nlist_pair_f32", torch.float64: "nlist_pair_f64"}
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+# The kernel's pair-kind codes (csrc/nlist_pair.cu) and the params each
+# kind reads.
+_KIND_CODE = {"newton": 0, "ewald": 1}
+_N_PARAMS = {"newton": 1, "ewald": 2}
 _P = ctypes.c_void_p
 LIBRARY = cuda_build.CudaLibrary("nlist_pair", {
     name: ([_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            _P, ctypes.c_double, ctypes.c_double, ctypes.c_int, _P, _P],
+            _P, ctypes.c_double, ctypes.c_double, ctypes.c_int,
+            ctypes.c_int, _P, _P],
            ctypes.c_int)
     for name in _ENTRY.values()
 })
 
-# Kernel launches so far; a run reads it to show its path went through
-# the kernel. Incremented only where the kernel is launched.
-LAUNCHES = 0
+# Kernel launches so far, per pair kind; a run reads its kind's count to
+# show its path went through the kernel. Incremented only where the
+# kernel is launched.
+LAUNCHES = {kind: 0 for kind in KINDS}
 
 
-def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params):
+def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params,
+           kind):
+    if kind not in _KIND_CODE:
+        raise ValueError(f"unknown nlist pair kind {kind!r}; choose from "
+                         f"{KINDS}")
     device, dtype = tcells_pos.device, tcells_pos.dtype
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
@@ -338,28 +454,31 @@ def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params):
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if params.device != device or params.dtype != dtype or params.numel() < 1:
-        raise ValueError("params must hold rcut_eff^2 as a tensor of the "
-                         "positions' dtype on their device")
+    if (params.device != device or params.dtype != dtype
+            or params.numel() < _N_PARAMS[kind]
+            or not params.is_contiguous()):
+        raise ValueError(
+            "params must hold rcut_eff^2 (newton) or [rcut^2, alpha] "
+            "(ewald) as a contiguous tensor of the positions' dtype on "
+            "their device")
 
 
 def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
                       side: int, params, *, cutoff: float, eps: float,
-                      use_rcut: bool = True):
+                      use_rcut: bool = True, kind: str = "newton"):
     """The 27-neighborhood pair-tile sum: :func:`pair_cells_plain`'s
     contract (``s_count``, the sources of each cell, bounds the slots the
     kernel reads). CPU tensors take the plain version; CUDA tensors
     launch ``csrc/nlist_pair.cu`` on the current stream, without
     synchronising, or raise."""
-    global LAUNCHES
     args = (tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params)
     if all(t.device.type == "cpu" for t in args if isinstance(t, torch.Tensor)):
         return pair_cells_plain(*args, cutoff=cutoff, eps=eps,
-                                use_rcut=use_rcut)
-    _check(*args)
+                                use_rcut=use_rcut, kind=kind)
+    _check(*args, kind)
     dtype, device = tcells_pos.dtype, tcells_pos.device
     scalar = _NP_DTYPE[dtype]
-    # Squared in double, then rounded to the element type (_newton_w).
+    # Squared in double, then rounded to the element type (_pair_w).
     eps2 = float(scalar(eps * eps))
     cutoff2 = float(scalar(cutoff * cutoff))
     t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
@@ -370,10 +489,11 @@ def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
             tcells_pos.data_ptr(), t_count.data_ptr(), cells_pos.data_ptr(),
             cells_gm.data_ptr(), s_count.data_ptr(), side, t_cap, cap,
             params.data_ptr(), eps2, cutoff2, int(use_rcut),
-            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+            _KIND_CODE[kind], out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     LIBRARY.check(status)
-    LAUNCHES += 1
+    LAUNCHES[kind] += 1
     return out
 
 
@@ -387,6 +507,45 @@ def real_pairs(t_count, s_count, side: int, t_cap: int, cap: int) -> int:
     ids, inside = _neighbors(coords, side)
     src = torch.where(inside, s_count.clamp_max(cap)[ids], 0).sum(dim=1)
     return int((t_count.clamp_max(t_cap) * src).sum())
+
+
+# ---------------------------------------------------------------------------
+# The P3M near field
+# ---------------------------------------------------------------------------
+
+
+def nlist_short_range_cells(tcells_pos, t_cap, cells_pos, cells_mass,
+                            cell_count, cmass_hat, ccom, m_scale, span,
+                            side: int, cap: int, g: float, cutoff: float,
+                            eps: float, alpha, rcut, dtype=None, *,
+                            t_count):
+    """The P3M short-range pass through the cell list (``ops/p3m.py``,
+    ``short_mode="nlist"``): the erfc pair tiles through
+    :func:`pair_cells_kernel`'s ``ewald`` kind plus the beyond-cap source
+    remainder as cell-size-softened monopoles, (side^3, t_cap, 3) in
+    (cell, slot) layout. The JAX function's arguments, plus ``t_count``
+    (side^3,), the targets of each cell, which the kernel needs to skip
+    padded target slots (they come out zero). ``alpha`` and ``rcut`` are
+    device scalars that follow the bounding cube; ``t_cap`` and ``dtype``
+    ride the tensors' shapes and dtype."""
+    del t_cap, dtype
+    gm = g * cells_mass
+    params = torch.stack([rcut * rcut, alpha])
+    with record_function("p3m.near_tiles"):
+        acc = pair_cells_kernel(
+            tcells_pos, t_count, cells_pos, gm, cell_count, side, params,
+            cutoff=cutoff, eps=eps, use_rcut=True, kind="ewald",
+        )
+    with record_function("p3m.remainder"):
+        rem_w, rem_com, over = _source_overflow_channels(
+            cells_pos, cells_mass, cell_count, cmass_hat, ccom, m_scale, g,
+            cap,
+        )
+        acc = acc + _remainder_cells(
+            tcells_pos, rem_w, rem_com, over, side, params, kind="ewald",
+            eps=eps, cell_h=span / side,
+        )
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +629,7 @@ def nlist_accelerations_vs(
     with record_function("nlist.pair_tiles"):
         acc_cell = pair_cells_kernel(
             tcells_pos, t_count, cells_pos, cells_gm, cell_count, side,
-            params, cutoff=cutoff, eps=eps, use_rcut=True,
+            params, cutoff=cutoff, eps=eps, use_rcut=True, kind="newton",
         )
     with record_function("nlist.remainder"):
         rem_w, rem_com, over = _source_overflow_channels(
@@ -478,7 +637,8 @@ def nlist_accelerations_vs(
             cap,
         )
         acc_cell = acc_cell + _remainder_cells(
-            tcells_pos, rem_w, rem_com, over, side, eps=eps, cell_h=cell_h,
+            tcells_pos, rem_w, rem_com, over, side, params, kind="newton",
+            eps=eps, cell_h=cell_h,
         )
 
     # Un-bin to per-target order; targets past t_cap take the whole-cell
@@ -490,7 +650,7 @@ def nlist_accelerations_vs(
         acc_sorted = acc_cell[t_sorted_ids, slot.clamp_max(t_cap - 1)]
         fallback = _overflow_targets(
             targets[t_sort], t_coords[t_sort], g * cmass_hat * m_scale,
-            ccom, side, eps=eps, cell_h=cell_h,
+            ccom, side, params, kind="newton", eps=eps, cell_h=cell_h,
         )
         acc_sorted = torch.where(over_t[:, None], fallback, acc_sorted)
         acc = torch.empty_like(acc_sorted)

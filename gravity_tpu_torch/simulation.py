@@ -1,8 +1,8 @@
 """The simulation loop.
 
 Counterpart of ``gravity_tpu/simulation.py`` for the fixed-dt runs of the
-direct sum, its Gram form and the cutoff-radius cell list: build the
-initial state, resolve the force backend, then run blocks
+direct sum, its Gram form, the cutoff-radius cell list and the P3M solver:
+build the initial state, resolve the force backend, then run blocks
 of steps, logging and recording between them. The JAX package jits a
 ``lax.scan`` per block; here a block is a Python loop over steps that
 carries the ``(state, acc)`` pair the same way (``_block_fn``), and
@@ -20,7 +20,7 @@ import torch
 
 from .config import SimulationConfig
 from .models import create_model
-from .ops import direct_kernel, mxu_kernel, nlist
+from .ops import direct_kernel, mxu_kernel, nlist, p3m
 from .ops.direct_kernel import accelerations_vs_kernel
 from .ops.forces import accelerations_vs, pairwise_accelerations_chunked
 from .ops.mxu_kernel import accelerations_vs_mxu_kernel
@@ -42,11 +42,13 @@ KERNEL_BACKEND = "nbody_direct"
 MXU_BACKEND = "nbody_mxu"
 # Largest N the CPU runs as one dense (N, N) block.
 DENSE_MAX_N = 4096
-# The module whose LAUNCHES counts each resolved backend's kernel.
-_KERNEL_MODULES = {
-    KERNEL_BACKEND: direct_kernel,
-    MXU_BACKEND: mxu_kernel,
-    "nlist": nlist,
+# The launch count of each resolved backend's kernel (p3m's is the
+# cell-list kernel's ewald kind, which its gather pass does not launch).
+_LAUNCH_COUNTS = {
+    KERNEL_BACKEND: lambda: direct_kernel.LAUNCHES,
+    MXU_BACKEND: lambda: mxu_kernel.LAUNCHES,
+    "nlist": lambda: nlist.LAUNCHES["newton"],
+    "p3m": lambda: nlist.LAUNCHES["ewald"],
 }
 
 
@@ -68,10 +70,10 @@ def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
     n >= 1024 threshold is a TPU measurement and is not adopted). On the
     CPU, ``auto`` and ``direct`` take the plain version, dense or chunked;
     an explicit ``pallas`` or ``pallas-mxu`` keeps the kernel's wrapper,
-    which runs the plain version for CPU tensors. ``pallas-mxu`` is an
-    explicit opt-in only. ``dense`` and ``chunked`` are the plain version
-    on any device. ``auto`` routes only among the ported backends until
-    the fast solvers are ported (ROADMAP Queue 1 item 7).
+    which runs the plain version for CPU tensors. ``pallas-mxu`` and
+    ``p3m`` are explicit opt-ins only. ``dense`` and ``chunked`` are the
+    plain version on any device. ``auto`` does not route to the fast
+    solvers: that is the autotuned router (ROADMAP Queue 1 item 8).
     """
     backend = config.force_backend
     plain = "dense" if config.n <= DENSE_MAX_N else "chunked"
@@ -86,7 +88,7 @@ def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
                 "dense/chunked honor the rcut mask)",
                 stacklevel=3,
             )
-    if backend in ("dense", "chunked", "nlist"):
+    if backend in ("dense", "chunked", "nlist", "p3m"):
         return backend
     if backend == "pallas-mxu":
         return MXU_BACKEND
@@ -162,6 +164,23 @@ class Simulator:
                 warnings.warn(note, stacklevel=2)
             self.nlist_sizing = (side, cap,
                                  nlist.evaluated_pairs_per_eval(side, cap))
+        # As-run P3M sizing (binning side, cap, t_cap) and short-range
+        # mode, and the kernel transform a run builds once (run()).
+        self.p3m_sizing = None
+        self._p3m_khat = None
+        if self.backend == "p3m":
+            note = p3m.check_p3m_sizing(
+                state.n, config.pm_grid, config.p3m_sigma_cells,
+                config.p3m_rcut_sigmas, config.p3m_cap,
+                positions=state.positions,
+            )
+            if note:
+                warnings.warn(note, stacklevel=2)
+            side = p3m.binning_side(config.pm_grid, config.p3m_sigma_cells,
+                                    config.p3m_rcut_sigmas)
+            self.p3m_sizing = (side, config.p3m_cap, config.p3m_cap,
+                               p3m.resolve_short_mode(config.p3m_short,
+                                                      self.device))
 
     def accel(self, positions: torch.Tensor,
               masses: torch.Tensor) -> torch.Tensor:
@@ -179,6 +198,13 @@ class Simulator:
             return nlist.nlist_accelerations(
                 positions, masses, rcut=c.nlist_rcut, side=side, cap=cap,
                 **common,
+            )
+        if self.backend == "p3m":
+            return p3m.p3m_accelerations(
+                positions, masses, grid=c.pm_grid,
+                sigma_cells=c.p3m_sigma_cells, rcut_sigmas=c.p3m_rcut_sigmas,
+                cap=c.p3m_cap, chunk=c.fast_chunk, khat=self._p3m_khat,
+                short_mode=c.p3m_short, **common,
             )
         if c.nlist_rcut > 0.0:
             # Declared truncated physics: the rcut-masked direct sum.
@@ -225,8 +251,14 @@ class Simulator:
             return self.accel(positions, masses)
 
         step_fn = make_step_fn(config.integrator, accel_fn, config.dt)
-        kernel_module = _KERNEL_MODULES.get(self.backend)
-        launches0 = kernel_module.LAUNCHES if kernel_module else 0
+        count = _LAUNCH_COUNTS.get(self.backend, lambda: 0)
+        launches0 = count()
+        if self.backend == "p3m":
+            # Step-invariant: the kernel transform, built once per run
+            # (the JAX Simulator's accel-setup hook).
+            self._p3m_khat = p3m.force_kernel_hat(
+                2 * config.pm_grid, config.p3m_sigma_cells, self.dtype,
+                self.device)
         # The first force evaluation loads (and, once per source, builds)
         # the kernel; it stays outside the timed loop.
         acc = init_carry(accel_fn, state)
@@ -283,8 +315,7 @@ class Simulator:
             "backend": self.backend,
             "device": device_name(self.device),
             "dtype": config.dtype,
-            "kernel_launches": (kernel_module.LAUNCHES - launches0
-                                if kernel_module else 0),
+            "kernel_launches": count() - launches0,
         }
         if self.nlist_sizing is not None:
             # The N(N-1) rate is what a dense sum would have needed;
@@ -297,6 +328,11 @@ class Simulator:
                 "evaluated_pairs_per_sec": (slots * evals / total_time
                                             if total_time > 0 else None),
             })
+        if self.p3m_sizing is not None:
+            side, cap, t_cap, mode = self.p3m_sizing
+            stats.update({"p3m_side": side, "p3m_cap": cap,
+                          "p3m_t_cap": t_cap, "p3m_short": mode,
+                          "pm_grid": config.pm_grid})
         return self._finish(logger, total_time, total_steps, stats)
 
     def _banner(self, logger: Optional[RunLogger], steps: int) -> None:

@@ -10,7 +10,10 @@ Tolerances: the direct sum on each row's acceleration vector, fp32 rtol
 cell-list tiles and the Gram form in units of each row's sum of |terms|,
 fp32 1e-4 and fp64 1e-12, since their kernels form r^2 and the masks
 exactly as the plain versions do and differ only in the order of the
-sums and the rsqrt (chip_smoke.py states the bounds).
+sums and the rsqrt (chip_smoke.py states the bounds). The cell list's
+ewald kind is held to the same numbers in units of each row's sum of
+gm (|newt| + |corr|) |d|, the terms before they cancel near rcut: its
+erff and expf differ from the plain version's by an ulp or two.
 """
 
 import numpy as np
@@ -18,7 +21,7 @@ import pytest
 import torch
 
 from gravity_tpu_torch.config import SimulationConfig
-from gravity_tpu_torch.ops import direct_kernel, mxu_kernel, nlist
+from gravity_tpu_torch.ops import direct_kernel, mxu_kernel, nlist, p3m
 from gravity_tpu_torch.ops.cells import bin_to_cells, bounding_cube, grid_coords
 from gravity_tpu_torch.ops.forces import accelerations_vs
 from gravity_tpu_torch.simulation import Simulator
@@ -109,9 +112,9 @@ def test_nlist_kernel_matches_plain(cuda, side, cap, dtype, tol, use_rcut):
     args = (cells_pos, count, cells_pos, cells_m * 6.6743e-11, count, side,
             params)
     kw = dict(cutoff=1e-10, eps=1e9, use_rcut=use_rcut)
-    before = nlist.LAUNCHES
+    before = nlist.LAUNCHES["newton"]
     got = nlist.pair_cells_kernel(*args, **kw)
-    assert nlist.LAUNCHES == before + 1
+    assert nlist.LAUNCHES["newton"] == before + 1
     want = nlist.pair_cells_plain(*args, **kw)
     scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
     torch.cuda.synchronize()
@@ -142,14 +145,70 @@ def test_mxu_kernel_matches_plain(cuda, m, k, bf16):
 
 
 def test_simulator_runs_the_new_backends_through_their_kernels(cuda):
-    for cfg, module in (
+    for cfg, count in (
         (SimulationConfig(n=2000, steps=5, integrator="leapfrog", eps=1e9,
-                          force_backend="nlist", nlist_rcut=1e11), nlist),
+                          force_backend="nlist", nlist_rcut=1e11),
+         lambda: nlist.LAUNCHES["newton"]),
         (SimulationConfig(n=500, steps=5, integrator="leapfrog", eps=1e9,
-                          force_backend="pallas-mxu"), mxu_kernel),
+                          force_backend="pallas-mxu"),
+         lambda: mxu_kernel.LAUNCHES),
+        (SimulationConfig(model="disk", n=4096, steps=5, g=1.0, dt=2e-3,
+                          eps=0.05, integrator="leapfrog",
+                          force_backend="p3m", pm_grid=32, p3m_cap=16),
+         lambda: nlist.LAUNCHES["ewald"]),
     ):
         sim = Simulator(cfg)
-        before = module.LAUNCHES
+        before = count()
         stats = sim.run()
-        assert module.LAUNCHES - before == stats["kernel_launches"] == 6
+        assert count() - before == stats["kernel_launches"] == 6
         assert bool(torch.isfinite(stats["final_state"].positions).all())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("side,cap", [(6, 64), (3, 16)])
+def test_nlist_ewald_kernel_matches_plain(cuda, side, cap, dtype, tol):
+    """The ewald kind on a thin disk around a point mass, P3M's own
+    sizing at grid 32 (side 6) and an overflowing one (side 3, cap 16)."""
+    rng = np.random.default_rng(side)
+    n = 3000
+    r = torch.from_numpy(rng.exponential(3.0, n))
+    phi = torch.from_numpy(rng.uniform(0.0, 2.0 * np.pi, n))
+    pos = torch.stack([r * torch.cos(phi), r * torch.sin(phi),
+                       torch.from_numpy(0.3 * rng.normal(size=n))], 1)
+    pos[0] = 0.0
+    masses = torch.full((n,), 5.0 / n, dtype=torch.float64)
+    masses[0] = 1.0
+    pos, masses = pos.to(cuda, dtype), masses.to(cuda, dtype)
+    origin, span = bounding_cube(pos)
+    coords = grid_coords(pos, origin, span, side)
+    cells_pos, cells_m, count, *_ = bin_to_cells(pos, masses, coords, side,
+                                                 cap)
+    sigma = 1.25 * span / 31
+    params = torch.stack([(4.0 * sigma) ** 2, 1.0 / (2.0 ** 0.5 * sigma)])
+    args = (cells_pos, count, cells_pos, cells_m, count, side, params)
+    kw = dict(cutoff=1e-10, eps=0.05, kind="ewald")
+    before = dict(nlist.LAUNCHES)
+    got = nlist.pair_cells_kernel(*args, **kw)
+    assert nlist.LAUNCHES == {**before, "ewald": before["ewald"] + 1}
+    want = nlist.pair_cells_plain(*args, **kw)
+    scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
+    torch.cuda.synchronize()
+    _within_term_scale(got, want, scale, tol)
+
+
+def test_p3m_nlist_mode_matches_gather_on_the_card(cuda):
+    """One P3M evaluation through the ewald kernel against the plain
+    gather pass on the same state: the same sum in another order (fp64,
+    rtol 1e-9 of the mean |a|)."""
+    rng = np.random.default_rng(3)
+    pos = torch.from_numpy(rng.uniform(-10.0, 10.0, (4000, 3))).to(cuda)
+    masses = torch.from_numpy(rng.uniform(0.5, 1.5, 4000)).to(cuda)
+    kw = dict(grid=32, cap=32, g=1.0, eps=0.05)
+    before = nlist.LAUNCHES["ewald"]
+    a = p3m.p3m_accelerations(pos, masses, short_mode="nlist", **kw)
+    assert nlist.LAUNCHES["ewald"] == before + 1
+    b = p3m.p3m_accelerations(pos, masses, short_mode="gather", **kw)
+    assert nlist.LAUNCHES["ewald"] == before + 1
+    err = (a - b).abs().max() / b.norm(dim=1).mean()
+    assert float(err) < 1e-9

@@ -53,7 +53,9 @@ def test_no_port_file_imports_jax_or_the_jax_package():
 def test_importing_the_package_loads_no_jax():
     code = (
         "import sys, gravity_tpu_torch, gravity_tpu_torch.cli, "
-        "gravity_tpu_torch.simulation, gravity_tpu_torch.interop\n"
+        "gravity_tpu_torch.simulation, gravity_tpu_torch.interop, "
+        "gravity_tpu_torch.ops.p3m, gravity_tpu_torch.ops.pm, "
+        "gravity_tpu_torch.models.disk\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -107,9 +109,11 @@ def _meta_nlist_args(device="meta"):
 def test_new_wrappers_raise_rather_than_falling_back():
     """The cell-list and Gram-form wrappers, like the direct one, refuse a
     tensor that is neither on the CPU nor on a CUDA device."""
-    before = (nlist.LAUNCHES, mxu_kernel.LAUNCHES)
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        nlist.pair_cells_kernel(*_meta_nlist_args(), cutoff=1e-10, eps=0.0)
+    before = (dict(nlist.LAUNCHES), mxu_kernel.LAUNCHES)
+    for kind in nlist.KINDS:
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            nlist.pair_cells_kernel(*_meta_nlist_args(), cutoff=1e-10,
+                                    eps=0.0, kind=kind)
     xi = torch.empty(4, 3, device="meta")
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         mxu_kernel.gram_acc4(xi, xi, torch.empty(4, device="meta"),

@@ -131,6 +131,23 @@ def test_overflow_channels_match_jax(cap):
     assert _max_over_mean(got, _masked_ref(pos, m, 12.0)) > 1e-3
 
 
+@pytest.mark.parametrize("batch_bytes", [1, 5 * 8 * 8 * 3 * 4])
+def test_overflow_channels_in_offset_groups_match_jax(monkeypatch,
+                                                      batch_bytes):
+    """The overflow channels taken one offset at a time, or the remainder
+    five at a time (8 cells x t_cap 8 x 3 fp32 an offset), agree with all
+    27 at once and with the JAX package."""
+    pos, m = _cloud(256, span=30.0, seed=7)
+    kw = dict(rcut=12.0, side=2, cap=8, **G1)
+    whole = _port(pos, m, **kw)
+    monkeypatch.setattr(nlist, "OFFSET_BATCH_BYTES", batch_bytes)
+    got = _port(pos, m, **kw)
+    want = jax_nlist.nlist_accelerations(
+        jnp.asarray(pos), jnp.asarray(m), impl="jnp", **kw)
+    assert _max_over_mean(got, whole) < 1e-6
+    assert _max_over_mean(got, want) < 1e-5
+
+
 def test_fp64_matches_masked_oracle():
     pos, m = _cloud(256, seed=8, dtype=np.float64)
     rcut = 15.0
@@ -181,7 +198,7 @@ def test_kernel_wrapper_on_cpu_is_the_plain_version():
     cells_pos, cells_m, count, *_ = bin_to_cells(tp, tm, coords, side, cap)
     params = torch.tensor([15.0 * 15.0])
     args = (cells_pos, count, cells_pos, cells_m, count, side, params)
-    before = nlist.LAUNCHES
+    before = dict(nlist.LAUNCHES)
     got = nlist.pair_cells_kernel(*args, cutoff=1e-10, eps=0.5)
     assert nlist.LAUNCHES == before
     want = nlist.pair_cells_plain(*args, cutoff=1e-10, eps=0.5)

@@ -12,6 +12,7 @@ import torch
 import gravity_tpu.constants as jax_constants
 from gravity_tpu.config import PRESETS as JAX_PRESETS
 from gravity_tpu.config import SimulationConfig as JaxConfig
+from gravity_tpu.models import create_disk as jax_disk
 from gravity_tpu.models import create_random_cube as jax_random_cube
 from gravity_tpu.models import create_solar_system as jax_solar
 from gravity_tpu_torch import constants
@@ -22,6 +23,7 @@ from gravity_tpu_torch.config import (
 )
 from gravity_tpu_torch.interop import state_from_numpy, state_to_numpy
 from gravity_tpu_torch.models import (
+    create_disk,
     create_model,
     create_random_cube,
     create_solar_system,
@@ -135,13 +137,14 @@ def test_interop_round_trip_with_a_jax_state():
     ("merge_radius", 1e9, "Queue 1 item 4"),
     ("external", "pointmass:gm=1e20", "Queue 1 item 4"),
     ("checkpoint_every", 10, "Queue 1 item 2"),
-    ("pm_grid", 64, "Queue 1 item 7"),
+    ("pm_assignment", "tsc", "Queue 1 item 7"),
     ("trajectory_format", "native", "Queue 1 item 1"),
     ("integrator", "multirate", "Queue 1 item 4"),
     ("dtype", "bfloat16", "Queue 1 item 4"),
     ("model", "plummer", "Queue 1 item 4"),
     ("force_backend", "tree", "Queue 1 item 7"),
-    ("force_backend", "p3m", "Queue 1 item 7"),
+    ("force_backend", "pm", "Queue 1 item 7"),
+    ("p3m_short", "slice", "Queue 1 item 7"),
     ("nlist_mesh", "halo", "Queue 1 item 6"),
 ])
 def test_unported_features_are_refused(field, value, item):
@@ -157,10 +160,13 @@ def test_unported_features_are_refused(field, value, item):
     {"force_backend": "nlist", "nlist_rcut": 5e10, "nlist_side": 12,
      "nlist_cap": 256},
     {"force_backend": "pallas-mxu", "eps": 1e9},
+    {"force_backend": "p3m", "model": "disk", "pm_grid": 256, "p3m_cap": 64,
+     "p3m_short": "nlist", "p3m_sigma_cells": 1.5, "p3m_rcut_sigmas": 3.5,
+     "fast_chunk": 2048, "g": 1.0},
 ])
 def test_ported_backends_construct(fields):
-    """The cell list and the Gram-form kernel are ported: a JAX config
-    naming them carries over."""
+    """The cell list, the Gram-form kernel and P3M are ported: a JAX
+    config naming them carries over."""
     data = json.loads(JaxConfig().to_json())
     data.update(fields)
     cfg = SimulationConfig.from_json(json.dumps(data))
@@ -181,3 +187,53 @@ def test_jax_default_config_and_presets_carry_over():
                 ), (name, field.name)
     with pytest.raises(ValueError, match="unknown config field"):
         SimulationConfig.from_json(json.dumps({"warp_drive": True}))
+
+
+def test_disk_bulge_masses_and_determinism():
+    state = create_disk(_gen(0), 5000)
+    pos, vel, masses = state_to_numpy(state)
+    assert state.dtype == torch.float32 and state.n == 5000
+    np.testing.assert_array_equal(pos[0], 0.0)  # the bulge, at rest
+    np.testing.assert_array_equal(vel[0], 0.0)
+    assert masses[0] == 1.0
+    np.testing.assert_allclose(masses[1:], np.float32(5.0 / 4999))
+    # Bulge 1.0 plus disk 5.0, within the fp32 rounding of the masses.
+    assert abs(masses.astype(np.float64).sum() - 6.0) < 5000 * 6e-8 * 6.0
+    assert np.isfinite(pos).all() and np.isfinite(vel).all()
+    again = state_to_numpy(create_disk(_gen(0), 5000))
+    other = state_to_numpy(create_disk(_gen(1), 5000))
+    for a, b in zip(again, (pos, vel, masses)):
+        np.testing.assert_array_equal(a, b)
+    assert not np.array_equal(other[0], pos)
+    f64 = create_disk(_gen(0), 100, dtype=torch.float64)
+    assert f64.dtype == torch.float64
+    assert torch.equal(create_model("disk", _gen(0), 5000,
+                                    torch.float32).positions,
+                       state.positions)
+
+
+def test_disk_moments_match_the_jax_disk():
+    """Radial and vertical moments and the rotation speed against the JAX
+    package's disk of the same size: within 5 sampling standard errors
+    (the draws differ; the distributions must not)."""
+    n = 20_000
+    got = state_to_numpy(create_disk(_gen(3), n))
+    jax_state = jax_disk(jax.random.PRNGKey(3), n)
+    want = [np.asarray(a) for a in (jax_state.positions,
+                                    jax_state.velocities, jax_state.masses)]
+
+    def moments(pos, vel):
+        r = np.hypot(pos[1:, 0], pos[1:, 1])
+        vphi = (pos[1:, 0] * vel[1:, 1] - pos[1:, 1] * vel[1:, 0]) / r
+        return {"r": r, "r2": r * r, "|z|": np.abs(pos[1:, 2]),
+                "z2": pos[1:, 2] ** 2, "vphi": vphi, "vz2": vel[1:, 2] ** 2}
+
+    mg, mw = moments(*got[:2]), moments(*want[:2])
+    for key in mg:
+        a, b = mg[key].astype(np.float64), mw[key].astype(np.float64)
+        se = np.sqrt(a.var() / a.size + b.var() / b.size)
+        assert abs(a.mean() - b.mean()) < 5 * se, key
+    # The exponential disk: mean radius 2 Rd = 6 kpc, height rms 0.3 kpc.
+    assert abs(mg["r"].mean() - 6.0) < 0.1
+    assert abs(np.sqrt(mg["z2"].mean()) - 0.3) < 0.01
+    np.testing.assert_allclose(got[2], want[2], rtol=1e-6)
