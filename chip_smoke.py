@@ -20,9 +20,11 @@ set to 0 just before the path and read just after:
   body disk, grid 256, cap 64, leapfrog) with ``--p3m-short nlist``,
   through the ``ewald`` kind of ``nlist_pair``.
 
-It then times each kernel at its path's shapes beside its bound. Each
-phase prints one JSON line; the last two lines are the kernels table and
-``{"ok": true, "device": {...}}``. Any failed check raises, so the script
+It then times each kernel at its path's shapes beside its bound (the
+direct sum masked at N = 50,000 and mask-free at N = 65,536) and beside
+the issue floor of its inner loop's SASS instructions a pair. Each phase
+prints one JSON line (the ``done`` line carries ``wall_s``); the last two
+lines are the kernels table and ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs a CUDA device and the
 package beside it, and imports nothing of JAX.
 """
@@ -56,18 +58,21 @@ SFU_PER_SM_PER_CLOCK = 16
 
 # Tolerances of kernel vs plain version, in units of each row's sum of
 # |terms| (the scale that a row's summation rounds at). The kernel sums
-# each 256-source tile in order and then adds the tile sums, so its
-# worst-case rounding is ~(256 + K/256) ulp of that scale; the plain
-# version's reduction rounds less. fp32: 451 ulp = 2.7e-5 at K = 50,000,
-# plus a few ulp per term from rsqrt; fp64: 451 ulp = 5e-14.
+# each 256-source tile in order, adds the tile sums into one total for
+# each of its S source chunks, and adds the S totals in order, so its
+# worst-case rounding is ~(256 + K/(256 S) + S) ulp of that scale, S <=
+# 64; the plain version's reduction rounds less. fp32: at most 451 + 64
+# ulp = 3.1e-5 at K = 50,000, plus a few ulp per term from rsqrt; fp64:
+# 515 ulp = 5.7e-14.
 TOL = {"float32": 1e-4, "float64": 1e-12}
 DIRECT_REASON = ("in units of the row's sum of |terms|: worst-case "
-                 "rounding of the kernel's two-level sum is "
-                 "~(256 + K/256) ulp")
+                 "rounding of the kernel's three-level sum is "
+                 "~(256 + K/(256 S) + S) ulp, S <= 64 source chunks")
 # The cell-list kernel forms r^2 and its masks with the same roundings as
 # the plain version (so both take the same pairs) and sums each
-# neighbor's tile row apart: ~(cap + 27) ulp of the row's sum of |terms|,
-# 283 ulp = 3.4e-5 in fp32 at cap 256, plus a few ulp a term from rsqrt.
+# neighbor's tile row apart (over 32 / G source lanes, then added by a
+# butterfly): ~(cap + 27) ulp of the row's sum of |terms|, 283 ulp =
+# 3.4e-5 in fp32 at cap 256, plus a few ulp a term from rsqrt.
 NLIST_REASON = ("in units of the row's sum of |terms|: same masks as the "
                 "plain version; the kernel's per-neighbor row sums round "
                 "at ~(cap + 27) ulp")
@@ -234,6 +239,76 @@ def phase_device() -> dict:
     return record
 
 
+def sass_loops(path: str) -> dict:
+    """The innermost loops of each float32 kernel in a built library, read
+    off ``cuobjdump -sass``: for each, its instructions and how many are
+    MUFU (rsqrt and the other special functions) and LDS (shared-memory
+    loads). The pair loops of the direct sum and of the newton kind take
+    one MUFU.RSQ a pair, so instructions / MUFU is their issued
+    instructions a pair."""
+    import re
+
+    from gravity_tpu_torch.ops import cuda_build
+
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {"not measured": f"{tool} not found"}
+    text = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m and name:
+            funcs[name].append((int(m.group(1), 16), m.group(2).strip()))
+    out = {}
+    for name, ins in funcs.items():
+        kernel = re.search(r"([a-z_]+_kernel)I(f\w*?)EEEv", name)
+        if kernel is None:
+            continue
+        ops = [(a, (i.split()[1] if i.startswith("@") else i.split()[0])
+                .split(".")[0]) for a, i in ins]
+        spans = []
+        for a, i in ins:
+            target = re.search(r"BRA.*?0x([0-9a-f]+)", i)
+            if target and int(target.group(1), 16) < a:
+                spans.append((int(target.group(1), 16), a))
+        loops = []
+        for lo, hi in spans:
+            if any(lo < lo2 and hi2 <= hi for lo2, hi2 in spans
+                   if (lo2, hi2) != (lo, hi)):
+                continue  # holds another loop: not innermost
+            body = [o for a, o in ops if lo <= a <= hi]
+            loops.append({"instrs": len(body), "mufu": body.count("MUFU"),
+                          "lds": body.count("LDS")})
+        out[f"{kernel.group(1)}<{kernel.group(2)}>"] = loops
+    return out
+
+
+def per_pair(build: dict, lib: str, kernel: str):
+    """Issued instructions a pair of the innermost rsqrt loop of
+    ``kernel`` (a key of :func:`sass_loops`), or "not measured"."""
+    loops = [x for x in build[lib]["sass"].get(kernel, []) if x["mufu"]]
+    if not loops:
+        return "not measured"
+    best = min(loops, key=lambda x: x["instrs"])
+    return best["instrs"] / best["mufu"]
+
+
+def issue_floor_ms(pairs, instrs_per_pair, device):
+    """Least time to issue ``pairs`` x ``instrs_per_pair`` thread
+    instructions: an SM issues 4 warp instructions (128 thread
+    instructions) a clock, at the card's top SM clock."""
+    if not isinstance(instrs_per_pair, float):
+        return "not measured"
+    rate = device["sm_count"] * 128 * device["max_sm_clock_mhz"] * 1e6
+    return 1e3 * pairs * instrs_per_pair / rate
+
+
 def phase_build() -> dict:
     """All three libraries, one nvcc each, started together."""
     from gravity_tpu_torch.ops import (
@@ -255,7 +330,8 @@ def phase_build() -> dict:
             "nvcc_s": lib.info["seconds"], "total_s": total,
             "ptxas": [line for line in lib.info["ptxas"].splitlines()
                       if "registers" in line or "Compiling" in line
-                      or "smem" in line],
+                      or "smem" in line or "spill" in line],
+            "sass": sass_loops(lib.info["path"]),
         }
         emit(records[lib.name])
     return records
@@ -277,13 +353,18 @@ def phase_kernel_vs_plain() -> float:
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(7)
-    for (m, k) in ((64, 64), (1000, 1000), (100, 384)):
-        base = generate_random_particles(gen, k, dtype=torch.float64,
+    # The last five reach the split of the sources: M << K (many chunks),
+    # K << M with K shorter than one tile, M and K past a multiple of the
+    # block and the tile, one tile exactly, and a grid of targets that
+    # keeps one chunk.
+    for (m, k) in ((64, 64), (1000, 1000), (100, 384), (7, 20_000),
+                   (5_000, 3), (1_001, 4_099), (257, 256), (40_000, 600)):
+        base = generate_random_particles(gen, max(m, k), dtype=torch.float64,
                                          device=dev)
         for dtype in (torch.float32, torch.float64):
-            pos_j = base.positions.to(dtype)
-            m_j = base.masses.to(dtype)
-            pos_i = pos_j[:m].contiguous()
+            pos_j = base.positions[:k].to(dtype).contiguous()
+            m_j = base.masses[:k].to(dtype).contiguous()
+            pos_i = base.positions[:m].to(dtype).contiguous()
             for eps in (0.0, 1e9):
                 kern = accelerations_vs_kernel(pos_i, pos_j, m_j, eps=eps)
                 plain = accelerations_vs(pos_i, pos_j, m_j, eps=eps)
@@ -292,7 +373,7 @@ def phase_kernel_vs_plain() -> float:
                     f"{m}x{k} eps={eps:g}", kern, plain,
                     term_scale(pos_i, pos_j, m_j, eps),
                     str(dtype).removeprefix("torch."),
-                )})
+                ), "source_chunks": direct_chunks(m, k, dtype, eps)})
 
     # 16 coincident 1e30 kg bodies: every pair is below the cutoff.
     pos = torch.zeros(16, 3, device=dev)
@@ -324,17 +405,44 @@ def phase_kernel_vs_plain() -> float:
           "acc_x": acc[:, 0].tolist(), "rel_err_vs_fp64": rel.tolist(),
           "tolerance": [0.25, 1e-5]})
 
-    # The main path's shape: the full reference-cuda random cube.
+    # The main path's shape: the full reference-cuda random cube; run
+    # twice, the kernel must give the same bits (its chunk sums are added
+    # in a fixed order, with no atomics).
     state = make_initial_state(PRESETS["reference-cuda"], dev)
     kern = accelerations_vs_kernel(state.positions, state.positions,
                                    state.masses)
+    again = accelerations_vs_kernel(state.positions, state.positions,
+                                    state.masses)
     plain = pairwise_accelerations_chunked(state.positions, state.masses)
     torch.cuda.synchronize()
+    check(torch.equal(kern, again), "nbody_direct: two runs differ")
     record = compare("reference-cuda N=50000", kern, plain,
                      term_scale(state.positions, state.positions,
                                 state.masses, 0.0), "float32")
-    emit({"phase": "kernel_vs_plain", **record})
+    emit({"phase": "kernel_vs_plain", **record, "bitwise_repeatable": True,
+          "source_chunks": direct_chunks(state.n, state.n, torch.float32,
+                                         0.0)})
     return record["max_abs_err"]
+
+
+def direct_chunks(m: int, k: int, dtype, eps: float) -> int:
+    """The source chunks S that ``accelerations_vs_kernel`` takes for an
+    (M, K) call on this card, as its wrapper plans them."""
+    import numpy as np
+    import torch
+
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS
+    from gravity_tpu_torch.ops import direct_kernel
+
+    lib = direct_kernel.load_library()
+    scalar = np.float64 if dtype == torch.float64 else np.float32
+    eps2 = float(scalar(eps) * scalar(eps))
+    cutoff2 = float(scalar(CUTOFF_RADIUS) * scalar(CUTOFF_RADIUS))
+    slots = direct_kernel._slots(0, dtype == torch.float64,
+                                 eps * eps <= CUTOFF_RADIUS**2, eps2, cutoff2)
+    return direct_kernel.source_chunks(
+        m, k, block_m=lib.nbody_direct_shape(0),
+        tile=lib.nbody_direct_shape(1), slots=slots)
 
 
 def phase_main_path() -> dict:
@@ -452,22 +560,27 @@ def phase_other_entry_points() -> None:
           "ms_per_step": 1e3 * stats["avg_step_s"]})
 
 
-def phase_timing(device: dict) -> dict:
-    """Kernel and plain version at the main path's shape, beside the
-    bound: the larger of the bytes over HBM bandwidth and the operations
-    over their peak rate (fp32 flops; rsqrt on the special function
-    units at 16 per SM per clock)."""
+def phase_timing(device: dict, build: dict) -> dict:
+    """Kernel and plain version at the main path's shape (masked, N =
+    50,000), and the kernel mask-free at README's flagship shape (N =
+    65,536, eps = 1e9 m), each beside its bound: the larger of the bytes
+    over HBM bandwidth and the operations over their peak rate (fp32
+    flops; rsqrt on the special function units at 16 per SM per clock);
+    and beside the issue floor of its inner loop's instructions a pair
+    (read off the SASS, :func:`sass_loops`)."""
     import torch
 
-    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
     from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
     from gravity_tpu_torch.ops.forces import pairwise_accelerations_chunked
     from gravity_tpu_torch.simulation import make_initial_state
 
-    state = make_initial_state(PRESETS["reference-cuda"],
-                               torch.device("cuda", 0))
+    dev = torch.device("cuda", 0)
+    state = make_initial_state(PRESETS["reference-cuda"], dev)
     pos, masses = state.positions, state.masses
     n = pos.shape[0]
+    flagship = make_initial_state(SimulationConfig(**MXU_RUN), dev)
+    eps_f = MXU_RUN["eps"]
 
     def kernel():
         accelerations_vs_kernel(pos, pos, masses)
@@ -475,31 +588,47 @@ def phase_timing(device: dict) -> dict:
     def plain():
         pairwise_accelerations_chunked(pos, masses)
 
+    def mask_free():
+        accelerations_vs_kernel(flagship.positions, flagship.positions,
+                                flagship.masses, eps=eps_f)
+
     cuda_ms(kernel, 3)
     ms = cuda_ms(kernel, 30)
     cuda_ms(plain, 1)
     plain_ms = cuda_ms(plain, 5)
     ms_again = cuda_ms(kernel, 30)
+    cuda_ms(mask_free, 3)
+    free_ms = [cuda_ms(mask_free, 30), cuda_ms(mask_free, 30)]
 
-    pairs = n * n
-    clock_hz = device["max_sm_clock_mhz"] * 1e6
-    flop_ms = 1e3 * pairs * FLOPS_PER_PAIR / PEAK_FP32_FLOPS
-    sfu_ms = 1e3 * pairs / (device["sm_count"] * SFU_PER_SM_PER_CLOCK
-                            * clock_hz)
-    # Each input read once (positions, masses), the output written once.
-    byte_ms = 1e3 * (n * 3 + n + n * 3) * 4 / PEAK_BYTES_PER_S
-    bound_ms = max(flop_ms, sfu_ms, byte_ms)
+    def bounds(n_bodies, loop):
+        # Each input read once (positions, masses), the output written
+        # once.
+        n_bytes = (n_bodies * 3 + n_bodies + n_bodies * 3) * 4
+        record = bound(n_bodies * n_bodies, FLOPS_PER_PAIR, n_bytes, device)
+        instrs = per_pair(build, "nbody_direct", loop)
+        record.update({"sass_instrs_per_pair": instrs,
+                       "issue_floor_ms": issue_floor_ms(n_bodies**2, instrs,
+                                                        device)})
+        return record
+
     record = {
         "phase": "timing", "n": n, "dtype": "float32", "ms": ms,
         "ms_repeat": ms_again, "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if byte_ms == bound_ms else "operations",
-        "fp32_flop_ms": flop_ms, "sfu_rsqrt_ms": sfu_ms,
-        "hbm_bytes_ms": byte_ms, "share_of_bound": bound_ms / ms,
+        **bounds(n, "nbody_direct_kernel<fLi0ELb1>"),
+        "source_chunks": direct_chunks(n, n, torch.float32, 0.0),
         "library_ms": None,
         "library_note": "no single PyTorch call computes this sum",
+        "mask_free": {
+            "n": flagship.n, "eps": eps_f, "ms": free_ms,
+            "source_chunks": direct_chunks(flagship.n, flagship.n,
+                                           torch.float32, eps_f),
+            **bounds(flagship.n, "nbody_direct_kernel<fLi2ELb1>"),
+        },
         "nvidia_smi": device["nvidia_smi"],
     }
+    record["share_of_bound"] = record["bound_ms"] / ms
+    record["mask_free"]["share_of_bound"] = (record["mask_free"]["bound_ms"]
+                                             / free_ms[0])
     emit(record)
     return record
 
@@ -539,6 +668,58 @@ def nlist_compare(name, positions, masses, side, cap, rcut, eps) -> dict:
         "pairs_evaluated": nlist.real_pairs(count, count, side, cap, cap),
     })
     return record
+
+
+# (t_cap, cap) of the count-edge cases: t_cap below 32 and not a
+# multiple of 32 or of a warp's 16 target slots.
+EDGE_CAPS = ((64, 40), (20, 33), (45, 96), (100, 70), (160, 50))
+
+
+def count_edge_cases(kind: str, reason: str) -> None:
+    """The cell-list kernel against its plain version on a side-3 grid
+    whose target and source counts run through 0, 31, 32, 33, the caps
+    and past them, with targets apart from sources; G m is zero on every
+    slot past a cell's count, as the binning leaves it."""
+    import torch
+
+    from gravity_tpu_torch.ops import nlist
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(19)
+    side, n = 3, 27
+    c = torch.arange(n)
+    corner = torch.stack([c // 9, (c // 3) % 3, c % 3], 1).float()
+    for t_cap, cap in EDGE_CAPS:
+        choices = [0, 31, 32, 33, t_cap, t_cap + 5, cap, cap + 7, 1, 15, 16,
+                   17]
+        t_count = torch.tensor([choices[i % 12] for i in range(n)])
+        s_count = torch.tensor([choices[(7 * i + 2) % 12] for i in range(n)])
+        tpos = corner[:, None] + torch.rand(n, t_cap, 3, generator=gen)
+        spos = corner[:, None] + torch.rand(n, cap, 3, generator=gen)
+        gm = (0.5 + torch.rand(n, cap, generator=gen)) / 1000
+        gm = torch.where(torch.arange(cap)[None] < s_count[:, None], gm, 0.0)
+        # newton: rcut_eff = 1 cell; ewald: rcut 1, sigma 1/4.
+        params = torch.tensor([1.0, 1.0 / (math.sqrt(2.0) * 0.25)])
+        args = [t.to(dev) for t in (tpos, t_count, spos, gm, s_count)]
+        args = (*args, side, params.to(dev))
+        for use_rcut in ((True, False) if kind == "newton" else (True,)):
+            kw = dict(cutoff=1e-10, eps=0.05, kind=kind, use_rcut=use_rcut)
+            kern = nlist.pair_cells_kernel(*args, **kw)
+            plain = nlist.pair_cells_plain(*args, **kw)
+            scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
+            torch.cuda.synchronize()
+            record = compare(
+                f"count edges t_cap={t_cap} cap={cap} use_rcut={use_rcut}",
+                kern.reshape(-1, 3), plain.reshape(-1, 3),
+                scale.reshape(-1, 3), "float32", reason=reason)
+            empty = (torch.arange(t_cap, device=dev)[None]
+                     >= args[1].clamp_max(t_cap)[:, None])
+            check(bool((kern[empty] == 0).all()),
+                  f"{kind}: nonzero output past a cell's count")
+            emit({"phase": f"{'nlist' if kind == 'newton' else 'p3m'}"
+                           "_kernel_vs_plain", "kind": kind, **record,
+                  "t_counts": sorted(set(t_count.tolist())),
+                  "s_counts": sorted(set(s_count.tolist()))})
 
 
 def phase_nlist_kernel_vs_plain() -> float:
@@ -598,6 +779,8 @@ def phase_nlist_kernel_vs_plain() -> float:
     emit({"phase": "nlist_kernel_vs_plain", "case": "2 bodies 1e13 m fp32",
           "acc_x": acc[:2, 0].tolist(), "rel_err_vs_fp64": rel.tolist(),
           "tolerance": [0.25, 1e-5]})
+
+    count_edge_cases("newton", NLIST_REASON)
 
     # 16 coincident 1e30 kg bodies: r = 0 for every pair.
     pos = torch.zeros(16, 3, device=dev)
@@ -836,7 +1019,7 @@ def bound(pairs, flops_per_pair, n_bytes, device) -> dict:
             "hbm_bytes_ms": byte_ms}
 
 
-def phase_timing_nlist(device: dict) -> dict:
+def phase_timing_nlist(device: dict, build: dict) -> dict:
     """The cell-list kernel at the README state's tiles, beside its bound
     for the pairs this state needs, its plain version, and a whole force
     evaluation (binning and overflow channels included)."""
@@ -874,6 +1057,7 @@ def phase_timing_nlist(device: dict) -> dict:
     eval_ms = cuda_ms(force_eval, 30)
     pairs = nlist.real_pairs(args[1], args[4], side, cap, cap)
     n_bytes = tile_bytes(args[1], args[4], side, cap, cap, 4, 1)
+    instrs = per_pair(build, "nlist_pair", "nlist_pair_kernel<fLi0ELb1ELb1>")
     record = {
         "phase": "timing_nlist", "kernel": "nlist_pair", "side": side,
         "cap": cap, "n": config.n, "dtype": "float32",
@@ -881,6 +1065,8 @@ def phase_timing_nlist(device: dict) -> dict:
         "tile_slots": nlist.evaluated_pairs_per_eval(side, cap),
         "ms": ms, "ms_repeat": ms_again, "plain_ms": plain_ms,
         **bound(pairs, NLIST_FLOPS_PER_PAIR, n_bytes, device),
+        "sass_instrs_per_pair": instrs,
+        "issue_floor_ms": issue_floor_ms(pairs, instrs, device),
         "force_eval_ms": eval_ms,
         "library_ms": None,
         "library_note": "no single PyTorch call computes a cell-list "
@@ -1176,6 +1362,7 @@ def phase_p3m_kernel_vs_plain() -> float:
     emit({"phase": "p3m_kernel_vs_plain", **p3m_compare(
         "fp64 README disk state", disk.positions.double(),
         disk.masses.double(), cap=64, g=1.0, eps=0.05)})
+    count_edge_cases("ewald", EWALD_REASON)
 
     # 16 coincident 1e30 kg bodies in one cell, rcut and alpha of order
     # one: r = 0 for every pair.
@@ -1442,7 +1629,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     device = phase_device()
-    phase_build()
+    build = phase_build()
     max_abs_err = phase_kernel_vs_plain()
     nlist_err = phase_nlist_kernel_vs_plain()
     mxu_err = phase_mxu_kernel_vs_plain()
@@ -1453,8 +1640,8 @@ def main() -> int:
     p3m_path = phase_p3m_path()
     phase_small_reference()
     phase_other_entry_points()
-    timing = phase_timing(device)
-    t_nlist = phase_timing_nlist(device)
+    timing = phase_timing(device, build)
+    t_nlist = phase_timing_nlist(device, build)
     t_mxu = phase_timing_mxu(device)
     t_p3m = phase_timing_p3m(device)
     phase_profile_nlist()

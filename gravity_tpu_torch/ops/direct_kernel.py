@@ -14,6 +14,7 @@ CPU. For CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -25,15 +26,18 @@ from .forces import accelerations_vs
 
 _ENTRY = {torch.float32: "nbody_direct_f32", torch.float64: "nbody_direct_f64"}
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+_P = ctypes.c_void_p
 _ARGTYPES = [
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-    ctypes.c_int64, ctypes.c_double, ctypes.c_double, ctypes.c_int,
-    ctypes.c_void_p, ctypes.c_void_p,
+    _P, ctypes.c_int64, _P, _P, ctypes.c_int64, ctypes.c_double,
+    ctypes.c_double, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
 ]
-LIBRARY = cuda_build.CudaLibrary(
-    "nbody_direct",
-    {name: (_ARGTYPES, ctypes.c_int) for name in _ENTRY.values()},
-)
+LIBRARY = cuda_build.CudaLibrary("nbody_direct", {
+    **{name: (_ARGTYPES, ctypes.c_int) for name in _ENTRY.values()},
+    "nbody_direct_shape": ([ctypes.c_int], ctypes.c_int),
+    "nbody_direct_blocks_per_sm": (
+        [ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double],
+        ctypes.c_int),
+})
 SOURCE = LIBRARY.source
 # Facts of the build this process loaded (cuda_build.CudaLibrary.info).
 BUILD_INFO = LIBRARY.info
@@ -54,6 +58,50 @@ def build() -> dict:
 
 def load_library() -> ctypes.CDLL:
     return LIBRARY.load()
+
+
+# The most source chunks a launch takes: the chunk sums add at most this
+# many ulp to a row's rounding (csrc/nbody_direct.cu).
+MAX_CHUNKS = 64
+
+
+@functools.lru_cache(maxsize=64)
+def source_chunks(m: int, k: int, *, block_m: int, tile: int,
+                  slots: int) -> int:
+    """How many chunks S to split the K sources into for M targets.
+
+    The grid is ceil(M / block_m) x S blocks of equal work, and the card
+    runs ``slots`` of them at once (SMs x blocks an SM holds). The time
+    is taken as waves x (tiles a chunk + 1), the 1 a block's fixed cost
+    in tiles; S minimises it, the smallest S on a tie, at most
+    :data:`MAX_CHUNKS` and at most one chunk a tile, so no chunk is
+    empty. A grid that already fills whole waves keeps S = 1."""
+    n_tiles = -(-k // tile)
+    i_tiles = -(-m // block_m)
+    if n_tiles <= 1 or i_tiles == 0:
+        return 1
+    best, best_cost = 1, None
+    for s in range(1, min(MAX_CHUNKS, n_tiles) + 1):
+        waves = -(-(i_tiles * s) // slots)
+        cost = waves * (-(-n_tiles // s) + 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+@functools.lru_cache(maxsize=64)
+def _slots(index: int, f64: bool, masked: bool, eps2: float,
+           cutoff2: float) -> int:
+    """Blocks of the kernel a launch takes that the whole card (CUDA
+    device ``index``) holds at once: its SMs times the blocks an SM
+    holds, both read once."""
+    lib = load_library()
+    blocks = lib.nbody_direct_blocks_per_sm(int(f64), int(masked), eps2,
+                                            cutoff2)
+    if blocks <= 0:
+        LIBRARY.check(-blocks or 1)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * blocks
 
 
 def _check(pos_i, pos_j, masses_j) -> None:
@@ -113,11 +161,23 @@ def accelerations_vs_kernel(
     if pos_i.shape[0] == 0:
         return acc
     lib = load_library()
+    m, k = pos_i.shape[0], pos_j.shape[0]
+    block_m, tile = lib.nbody_direct_shape(0), lib.nbody_direct_shape(1)
     with torch.cuda.device(device):
+        slots = _slots(torch.cuda.current_device(), dtype == torch.float64,
+                       masked, eps2, cutoff2)
+        chunks = source_chunks(m, k, block_m=block_m, tile=tile, slots=slots)
+        # Scratch: the sources packed as (x, y, z, G m), padded to whole
+        # tiles, and the chunks' partial sums.
+        packed = torch.empty((-(-k // tile) * tile, 4), dtype=dtype,
+                             device=device)
+        partial = (torch.empty((chunks, m, 3), dtype=dtype, device=device)
+                   if chunks > 1 else acc)
         status = getattr(lib, _ENTRY[dtype])(
-            pos_i.data_ptr(), pos_i.shape[0], pos_j.data_ptr(),
-            gm.data_ptr(), pos_j.shape[0], eps2, cutoff2, int(masked),
-            acc.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+            pos_i.data_ptr(), m, pos_j.data_ptr(), gm.data_ptr(), k, eps2,
+            cutoff2, int(masked), chunks, packed.data_ptr(),
+            partial.data_ptr(), acc.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     LIBRARY.check(status)
     LAUNCHES += 1

@@ -212,3 +212,111 @@ def test_p3m_nlist_mode_matches_gather_on_the_card(cuda):
     assert nlist.LAUNCHES["ewald"] == before + 1
     err = (a - b).abs().max() / b.norm(dim=1).mean()
     assert float(err) < 1e-9
+
+
+def _term_scale(pos_i, pos_j, masses_j, eps):
+    """Each row's sum of |w_ij d_ij| in float64: the scale the kernel's
+    tile, chunk and chunk-total sums round at."""
+    from gravity_tpu_torch.ops.forces import _pair_weights
+
+    pi, pj, mj = (t.double() for t in (pos_i, pos_j, masses_j))
+    diff = pj[None, :, :] - pi[:, None, :]
+    w = _pair_weights((diff * diff).sum(-1), mj[None, :], 6.6743e-11, 1e-10,
+                      eps)
+    return (w[:, :, None] * diff.abs()).sum(dim=1)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1e9])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("m,k", [
+    (7, 20_000),     # M << K: one block of targets, many source chunks
+    (5_000, 3),      # K << M, K shorter than one tile: one chunk
+    (1_001, 4_099),  # M and K past a multiple of the block and the tile
+    (257, 256),      # one tile exactly, M one past the block
+    (40_000, 600),   # enough blocks of targets to keep one chunk
+])
+def test_kernel_edge_shapes_match_plain(cuda, m, k, dtype, tol, eps):
+    pos, masses = _system(max(m, k), dtype, cuda, seed=m + k)
+    pos_i, pos_j, m_j = pos[:m].contiguous(), pos[:k].contiguous(), masses[:k]
+    got = direct_kernel.accelerations_vs_kernel(pos_i, pos_j, m_j, eps=eps)
+    want = accelerations_vs(pos_i, pos_j, m_j, eps=eps)
+    torch.cuda.synchronize()
+    _within_term_scale(got, want, _term_scale(pos_i, pos_j, m_j, eps), tol)
+
+
+def test_kernel_plan_splits_the_sources_where_targets_are_few(cuda):
+    """M << K takes several source chunks; a grid of targets that already
+    fills the card takes one."""
+    lib = direct_kernel.load_library()
+    block_m, tile = lib.nbody_direct_shape(0), lib.nbody_direct_shape(1)
+    slots = direct_kernel._slots(0, False, True, 0.0, 1e-20)
+    assert slots >= 132
+    few = direct_kernel.source_chunks(7, 20_000, block_m=block_m, tile=tile,
+                                      slots=slots)
+    assert few > 1
+    many = direct_kernel.source_chunks(slots * block_m, 20_000,
+                                       block_m=block_m, tile=tile,
+                                       slots=slots)
+    assert many == 1
+
+
+@pytest.mark.parametrize("m,k", [(50_000, 50_000), (7, 20_000)])
+def test_kernel_is_bitwise_deterministic(cuda, m, k):
+    """The chunks' partial sums are added in a fixed order: two runs on the
+    same inputs give the same bits."""
+    pos, masses = _system(max(m, k), torch.float32, cuda, seed=3)
+    pos_i, pos_j, m_j = pos[:m].contiguous(), pos[:k].contiguous(), masses[:k]
+    a = direct_kernel.accelerations_vs_kernel(pos_i, pos_j, m_j)
+    b = direct_kernel.accelerations_vs_kernel(pos_i, pos_j, m_j)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def _nlist_counts_case(t_cap, cap, dtype, device, seed):
+    """Cells of a side-3 grid whose target and source counts run through 0,
+    31, 32, 33, the caps and past them; positions fill a unit-cell grid
+    of edge 1, G m is zero on every slot past a cell's count."""
+    rng = np.random.default_rng(seed)
+    side = 3
+    n = side**3
+    choices = [0, 31, 32, 33, t_cap, t_cap + 5, cap, cap + 7, 1, 15, 16, 17]
+    t_count = torch.tensor([choices[i % len(choices)] for i in range(n)])
+    s_count = torch.tensor([choices[(i * 7 + 2) % len(choices)]
+                            for i in range(n)])
+    c = torch.arange(n)
+    corner = torch.stack([c // 9, (c // 3) % 3, c % 3], 1).double()
+    tpos = corner[:, None, :] + torch.from_numpy(rng.uniform(0, 1,
+                                                             (n, t_cap, 3)))
+    spos = corner[:, None, :] + torch.from_numpy(rng.uniform(0, 1,
+                                                             (n, cap, 3)))
+    gm = torch.from_numpy(rng.uniform(0.5, 1.5, (n, cap))) / 1000
+    gm = torch.where(torch.arange(cap)[None, :] < s_count[:, None], gm, 0.0)
+    return (tpos.to(device, dtype), t_count.to(device), spos.to(device, dtype),
+            gm.to(device, dtype), s_count.to(device), side)
+
+
+@pytest.mark.parametrize("kind,use_rcut", [("newton", True),
+                                           ("newton", False),
+                                           ("ewald", True)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("t_cap,cap", [(64, 40), (20, 33), (45, 96),
+                                       (100, 70), (160, 50)])
+def test_nlist_kernel_count_edges_match_plain(cuda, t_cap, cap, dtype, tol,
+                                              kind, use_rcut):
+    """Counts of 0, 31, 32, 33, t_cap and over it; t_cap below 32 and not a
+    multiple of 32 or of a warp's 16 slots; targets apart from sources."""
+    args = _nlist_counts_case(t_cap, cap, dtype, cuda, seed=t_cap + cap)
+    params = torch.tensor([1.0, 1.0 / (2.0**0.5 * 0.25)], dtype=dtype,
+                          device=cuda)
+    kw = dict(cutoff=1e-10, eps=0.05, use_rcut=use_rcut, kind=kind)
+    got = nlist.pair_cells_kernel(*args, params, **kw)
+    want = nlist.pair_cells_plain(*args, params, **kw)
+    scale = nlist.pair_cells_plain(*args, params, absolute=True, **kw)
+    torch.cuda.synchronize()
+    _within_term_scale(got, want, scale, tol)
+    t_count = args[1].clamp_max(t_cap).cpu()
+    empty = torch.arange(t_cap)[None, :] >= t_count[:, None]
+    assert bool((got.cpu()[empty] == 0).all())
+    assert bool((got.cpu()[~empty] != 0).any())

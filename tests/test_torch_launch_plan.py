@@ -1,0 +1,59 @@
+"""The pure-Python launch plan of the direct-sum CUDA kernel.
+
+``direct_kernel.source_chunks`` splits the source axis into S chunks of
+whole tiles. It runs on the host before each launch, so it is held here
+on the CPU, with the chunks cut as the kernel cuts them: every
+source tile has exactly one chunk, no chunk is empty, and a grid that
+already fills the card is not split. The shapes are those of the kernel
+(256 targets a block, tiles of 256 sources) on a 132-SM card holding 8
+blocks an SM.
+"""
+
+import pytest
+
+from gravity_tpu_torch.ops import direct_kernel
+
+BLOCK_M, TILE, SMS = 256, 256, 132
+SLOTS = SMS * 8
+
+
+@pytest.mark.parametrize("m,k", [
+    (50_000, 50_000), (65_536, 65_536), (7, 20_000), (1, 1_000_000),
+    (5_000, 3), (4_096, 1_048_576), (257, 256), (1_000, 1_000), (0, 10),
+    (10, 0),
+])
+def test_source_chunks_cover_every_tile_once(m, k):
+    s = direct_kernel.source_chunks(m, k, block_m=BLOCK_M, tile=TILE,
+                                    slots=SLOTS)
+    n_tiles = -(-k // TILE)
+    assert 1 <= s <= max(1, min(direct_kernel.MAX_CHUNKS, n_tiles))
+    # Chunk c takes tiles [c n / S, (c + 1) n / S), as the kernel cuts them.
+    bounds = [(c * n_tiles // s, (c + 1) * n_tiles // s) for c in range(s)]
+    owned = [t for lo, hi in bounds for t in range(lo, hi)]
+    assert owned == list(range(n_tiles))
+    if n_tiles:
+        assert all(hi > lo for lo, hi in bounds)
+
+
+@pytest.mark.parametrize("waves", [1, 2, 5])
+def test_source_chunks_keep_one_chunk_where_the_grid_fills_the_card(waves):
+    m = waves * SLOTS * BLOCK_M
+    assert direct_kernel.source_chunks(m, 100_000, block_m=BLOCK_M,
+                                       tile=TILE, slots=SLOTS) == 1
+
+
+@pytest.mark.parametrize("m,k", [(50_000, 50_000), (65_536, 65_536)])
+def test_source_chunks_fill_the_card_at_the_main_path_shapes(m, k):
+    """The reference-cuda and flagship shapes: one block of targets for
+    every 256, so 196 or 256 blocks alone leave most of the 1,056 slots
+    idle; the split takes the grid to within one wave of full."""
+    s = direct_kernel.source_chunks(m, k, block_m=BLOCK_M, tile=TILE,
+                                    slots=SLOTS)
+    blocks = -(-m // BLOCK_M) * s
+    assert s > 1
+    assert 0.9 * SLOTS <= blocks <= SLOTS
+
+
+def test_source_chunks_stay_within_the_rounding_cap():
+    assert direct_kernel.source_chunks(1, 10**7, block_m=BLOCK_M, tile=TILE,
+                                       slots=SLOTS) == direct_kernel.MAX_CHUNKS
