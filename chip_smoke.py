@@ -50,8 +50,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 FLOPS_PER_PAIR = 20
 NLIST_FLOPS_PER_PAIR = 21
 MXU_FLOPS_PER_PAIR = 22
-# H100 SXM published peaks: fp32 outside the tensor cores and HBM3.
+# The Gram form's 22 split by where csrc/nbody_mxu.cu runs them: the
+# accumulation [S | W] += w [x_j | 1] (4 multiply-adds) on the tensor
+# cores, the rest (norms, cross term, r^2, masks, weight) on the FP32 pipe.
+MXU_TC_FLOPS_PER_PAIR = 8
+MXU_FP32_FLOPS_PER_PAIR = MXU_FLOPS_PER_PAIR - MXU_TC_FLOPS_PER_PAIR
+# H100 SXM published peaks: fp32 outside the tensor cores, the dense
+# tensor-core rates (TF32 and bf16) and HBM3.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 # rsqrt issue rate of the special function units, per SM per clock.
 SFU_PER_SM_PER_CLOCK = 16
@@ -76,12 +84,17 @@ DIRECT_REASON = ("in units of the row's sum of |terms|: worst-case "
 NLIST_REASON = ("in units of the row's sum of |terms|: same masks as the "
                 "plain version; the kernel's per-neighbor row sums round "
                 "at ~(cap + 27) ulp")
-# The Gram kernel's output is [sum w x_j | sum w] before the epilogue;
-# its rounding is that of a two-level fp32 sum, ~(256 + K/256) ulp of
-# sum |w| |x_j| (512 ulp = 6.1e-5 at K = 65,536).
+# The Gram kernel's output is [sum w x_j | sum w] before the epilogue.
+# It selects the plain version's pairs and sums on the tensor cores: each
+# 256-source tile in a fresh fragment (32 mma.sync steps of 8 sources, or
+# 16 of 16 in bf16, whose internal adds need not round like FADD), the
+# tile totals into a chunk total, the S chunk totals in order: ~(256/8 +
+# K/(256 S) + S) ulp of sum |w| |x_j|, plus ~2^-21 a term from the TF32
+# split of w (fp32 operands): at most ~(32 + 256 + 64) ulp = 4.2e-5.
 MXU_REASON = ("in units of the row's sum of |w| |[x_j | 1]|: same masks "
-              "as the plain version; the two-level fp32 sum rounds at "
-              "~(256 + K/256) ulp")
+              "as the plain version; tensor-core tile sums, tile and "
+              "chunk totals round at ~(256/8 + K/(256 S) + S) ulp, S <= "
+              "64, plus 2^-21 a term from the TF32 hi/lo split")
 
 # The cell-list run of README.md (the JAX package's command): random cube,
 # N = 262,144, leapfrog, --nlist-rcut 5e10 --eps 1e9, 500 steps.
@@ -240,12 +253,15 @@ def phase_device() -> dict:
 
 
 def sass_loops(path: str) -> dict:
-    """The innermost loops of each float32 kernel in a built library, read
-    off ``cuobjdump -sass``: for each, its instructions and how many are
-    MUFU (rsqrt and the other special functions) and LDS (shared-memory
-    loads). The pair loops of the direct sum and of the newton kind take
-    one MUFU.RSQ a pair, so instructions / MUFU is their issued
-    instructions a pair."""
+    """The innermost loops of each float32 (and bf16) kernel in a built
+    library, read off ``cuobjdump -sass``: for each, its instructions and
+    how many are MUFU (rsqrt and the other special functions), LDS
+    (shared-memory loads) and HMMA (tensor-core products). The pair loops
+    of the direct sums and of the newton kind take one MUFU.RSQ a pair,
+    so instructions / MUFU is their issued instructions a pair. Keys name
+    the kernel and its template arguments as mangled, ``f`` for float and
+    ``bf16`` for __nv_bfloat16 (``nbody_mxu_kernel<fLb0ELb1>``: float,
+    no cutoff test, ftz rsqrt)."""
     import re
 
     from gravity_tpu_torch.ops import cuda_build
@@ -267,7 +283,8 @@ def sass_loops(path: str) -> dict:
             funcs[name].append((int(m.group(1), 16), m.group(2).strip()))
     out = {}
     for name, ins in funcs.items():
-        kernel = re.search(r"([a-z_]+_kernel)I(f\w*?)EEEv", name)
+        kernel = re.search(r"([a-z_]+_kernel)I((?:f|13__nv_bfloat16)\w*?)"
+                           r"EEEv", name)
         if kernel is None:
             continue
         ops = [(a, (i.split()[1] if i.startswith("@") else i.split()[0])
@@ -284,8 +301,10 @@ def sass_loops(path: str) -> dict:
                 continue  # holds another loop: not innermost
             body = [o for a, o in ops if lo <= a <= hi]
             loops.append({"instrs": len(body), "mufu": body.count("MUFU"),
-                          "lds": body.count("LDS")})
-        out[f"{kernel.group(1)}<{kernel.group(2)}>"] = loops
+                          "lds": body.count("LDS"),
+                          "hmma": body.count("HMMA")})
+        args = kernel.group(2).replace("13__nv_bfloat16", "bf16")
+        out[f"{kernel.group(1)}<{args}>"] = loops
     return out
 
 
@@ -817,7 +836,8 @@ def mxu_scale(xi, xj, gmj, eps, bf16, chunk=256):
 
 def mxu_compare(name, pos_i, pos_j, masses, eps, bf16) -> dict:
     """The Gram kernel's [S | W] against the plain version's, and the
-    accelerations after the epilogue."""
+    accelerations after the epilogue; a second launch must give the same
+    bits (the chunk sums are added in a fixed order)."""
     import torch
 
     from gravity_tpu_torch.constants import CUTOFF_RADIUS, G
@@ -829,20 +849,29 @@ def mxu_compare(name, pos_i, pos_j, masses, eps, bf16) -> dict:
     xj = (pos_j.float() - center).to(compute).contiguous()
     gm = (masses.float() * G).contiguous()
     kern = mxu_kernel.gram_acc4(xi, xj, gm, cutoff=CUTOFF_RADIUS, eps=eps)
+    again = mxu_kernel.gram_acc4(xi, xj, gm, cutoff=CUTOFF_RADIUS, eps=eps)
     plain = mxu_kernel.gram_acc4_plain(xi, xj, gm, cutoff=CUTOFF_RADIUS,
                                        eps=eps, bf16=bf16)
     scale = mxu_scale(xi, xj, gm, eps, bf16)
     torch.cuda.synchronize()
+    check(torch.equal(kern, again), f"nbody_mxu {name}: two runs differ")
     record = compare(name, kern, plain, scale, "float32", reason=MXU_REASON)
     acc_k = kern[:, :3] - kern[:, 3:4] * xi.float()
     acc_p = plain[:, :3] - plain[:, 3:4] * xi.float()
     diff = (acc_k.double() - acc_p.double())
-    rel = diff.norm(dim=1) / acc_p.double().norm(dim=1)
+    norm = acc_p.double().norm(dim=1)
+    rel = (diff.norm(dim=1) / norm)[norm > 0]
     record.update({
-        "precision": "bf16" if bf16 else "fp32",
+        "precision": "bf16" if bf16 else "fp32", "m": xi.shape[0],
+        "k": xj.shape[0],
+        "source_chunks": mxu_kernel.chunks_for(
+            xi.shape[0], xj.shape[0], bf16=bf16, cutoff=CUTOFF_RADIUS,
+            eps=eps),
+        "bitwise_repeatable": True,
         "acc_max_abs_err": float(diff.abs().max()),
-        "acc_median_rel_err": float(rel.median()),
-        "acc_p99_rel_err": float(torch.quantile(rel, 0.99)),
+        "acc_median_rel_err": float(rel.median()) if rel.numel() else 0.0,
+        "acc_p99_rel_err": (float(torch.quantile(rel, 0.99))
+                            if rel.numel() else 0.0),
     })
     return record
 
@@ -867,12 +896,23 @@ def phase_mxu_kernel_vs_plain() -> float:
         emit({"phase": "mxu_kernel_vs_plain", **record})
         if not bf16:
             main_err = record["acc_max_abs_err"]
+    # Ragged and chunked shapes: M past a multiple of the block's 128
+    # targets (and M = 1), K past a multiple of 8 (and of 16) and of the
+    # 256-source tile, K below one k-step, and M << K, which the wrapper
+    # splits into many source chunks.
     gen = torch.Generator().manual_seed(13)
-    small = generate_random_particles(gen, 1000, device=dev)
-    for bf16 in (False, True):
-        emit({"phase": "mxu_kernel_vs_plain", **mxu_compare(
-            "ragged 777x1000", small.positions[:777].contiguous(),
-            small.positions, small.masses, 1e9, bf16)})
+    small = generate_random_particles(gen, 20_011, device=dev)
+    chunked = 0
+    for m, k in ((777, 1000), (1, 4099), (1000, 3), (129, 20_011),
+                 (4097, 20_003), (1, 257)):
+        pos_i = small.positions[:m].contiguous()
+        pos_j = small.positions[:k].contiguous()
+        for bf16 in (False, True):
+            record = mxu_compare(f"ragged {m}x{k}", pos_i, pos_j,
+                                 small.masses[:k].contiguous(), 1e9, bf16)
+            chunked += record["source_chunks"] > 1
+            emit({"phase": "mxu_kernel_vs_plain", **record})
+    check(chunked > 0, "no case split its sources into chunks")
     pos = torch.full((16, 3), 2.5e11, device=dev)
     masses = torch.full((16,), 1e30, device=dev)
     for eps in (0.0, 1e9):
@@ -1078,9 +1118,37 @@ def phase_timing_nlist(device: dict, build: dict) -> dict:
     return record
 
 
-def phase_timing_mxu(device: dict) -> dict:
+def mxu_bound(pairs: int, n_bytes: int, device: dict, bf16: bool) -> dict:
+    """The Gram kernel's least time, by where it runs the work: the
+    accumulation's 8 flops a pair at the tensor cores' dense rate (TF32
+    for fp32 operands, bf16), the other 14 at the FP32 pipe's, one rsqrt
+    a pair on the SFUs, and the bytes; the largest binds. The 22-flop
+    fp32 bound of the FFMA design stays beside it for comparison."""
+    clock_hz = device["max_sm_clock_mhz"] * 1e6
+    terms = {
+        "tensor_core_ms": 1e3 * pairs * MXU_TC_FLOPS_PER_PAIR / (
+            PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS),
+        "fp32_pipe_ms": 1e3 * pairs * MXU_FP32_FLOPS_PER_PAIR
+        / PEAK_FP32_FLOPS,
+        "sfu_rsqrt_ms": 1e3 * pairs / (device["sm_count"]
+                                      * SFU_PER_SM_PER_CLOCK * clock_hz),
+        "hbm_bytes_ms": 1e3 * n_bytes / PEAK_BYTES_PER_S,
+    }
+    bound_ms = max(terms.values())
+    return {"bound_ms": bound_ms,
+            "bound_by": ("bytes" if terms["hbm_bytes_ms"] == bound_ms
+                         else "operations"),
+            "binding_term": max(terms, key=terms.get), "terms": terms,
+            "fp32_22flop_bound_ms": 1e3 * pairs * MXU_FLOPS_PER_PAIR
+            / PEAK_FP32_FLOPS}
+
+
+def phase_timing_mxu(device: dict, build: dict) -> dict:
     """The Gram kernel at N = 65,536 (fp32 operands, the path's), its
-    bf16 variant and plain version, and nbody_direct on the same inputs."""
+    bf16 variant and plain version, and nbody_direct on the same inputs;
+    each variant beside its bound (:func:`mxu_bound`) and the issue floor
+    of its pair loop's SASS instructions, with the source chunks S the
+    wrapper takes."""
     import torch
 
     from gravity_tpu_torch.config import SimulationConfig
@@ -1127,20 +1195,39 @@ def phase_timing_mxu(device: dict) -> dict:
     plain_ms = cuda_ms(plain, 3)
     n = pos.shape[0]
     pairs = n * n
-    # Inputs read once (targets, sources, G*m), the (N, 4) output once.
-    n_bytes = (n * 3 + n * 3 + n) * 4 + n * 16
+
+    def loop(bf16):
+        # The instantiation the path takes: no cutoff test (eps^2 >
+        # cutoff^2), ftz rsqrt. Its loops' HMMA, MUFU and LDS counts are
+        # in the build phase's record.
+        key = f"nbody_mxu_kernel<{'bf16' if bf16 else 'f'}Lb0ELb1>"
+        instrs = per_pair(build, "nbody_mxu", key)
+        return {"sass_loop": key, "sass_instrs_per_pair": instrs,
+                "issue_floor_ms": issue_floor_ms(pairs, instrs, device)}
+
     record = {
         "phase": "timing_mxu", "kernel": "nbody_mxu", "n": n,
         "dtype": "float32", "ms": ms, "ms_repeat": ms_again,
         "bf16_ms": bf16_ms, "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
         "nbody_direct_ms_same_inputs": direct_ms,
         "nbody_direct_ms_repeat": direct_again,
-        **bound(pairs, MXU_FLOPS_PER_PAIR, n_bytes, device),
+        "source_chunks": mxu_kernel.chunks_for(n, n, bf16=False, **kw),
+        # Inputs read once (targets, sources, G*m), the (N, 4) output once.
+        **mxu_bound(pairs, (n * 3 + n * 3 + n) * 4 + n * 16, device, False),
+        **loop(False),
+        "bf16": {"ms": bf16_ms,
+                 "source_chunks": mxu_kernel.chunks_for(n, n, bf16=True,
+                                                        **kw),
+                 **mxu_bound(pairs, (n * 3 + n * 3) * 2 + n * 4 + n * 16,
+                             device, True),
+                 **loop(True)},
         "library_ms": None,
         "library_note": "no single PyTorch call computes this sum",
         "nvidia_smi": device["nvidia_smi"],
     }
     record["share_of_bound"] = record["bound_ms"] / ms
+    record["share_of_22flop_bound"] = record["fp32_22flop_bound_ms"] / ms
+    record["bf16"]["share_of_bound"] = record["bf16"]["bound_ms"] / bf16_ms
     emit(record)
     return record
 
@@ -1642,7 +1729,7 @@ def main() -> int:
     phase_other_entry_points()
     timing = phase_timing(device, build)
     t_nlist = phase_timing_nlist(device, build)
-    t_mxu = phase_timing_mxu(device)
+    t_mxu = phase_timing_mxu(device, build)
     t_p3m = phase_timing_p3m(device)
     phase_profile_nlist()
     phase_profile_p3m()

@@ -20,18 +20,22 @@ is :func:`gram_acc4`: the hand-written CUDA kernel ``csrc/nbody_mxu.cu``
 (which replaces the TPU kernel ``_nbody_mxu_kernel``) for CUDA tensors,
 the plain version :func:`gram_acc4_plain` for CPU tensors only. The
 plain version is elementwise fp32 and never a matrix product, so TF32
-cannot touch it.
+cannot touch it. The kernel sums [S | W] on the tensor cores, fp32
+operands in TF32 with a hi/lo split; :func:`tf32_split` is that split
+as plain tensor arithmetic, for the tests that hold its error.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
 from ..constants import CUTOFF_RADIUS, G
 from . import cuda_build
+from .direct_kernel import source_chunks
 
 # Gram-formulation noise floor: pairs with r^2 <= TAU * (|x_i|^2 +
 # |x_j|^2) are below the fp32 cancellation resolution and are treated as
@@ -84,17 +88,74 @@ def gram_acc4_plain(xi: torch.Tensor, xj: torch.Tensor, gmj: torch.Tensor, *,
     return torch.cat(rows)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` on finite values: the low 13 bits of
+    the word cleared after adding half of their range."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+    """fp32 cut to TF32 by clearing the low 13 bits: what a tensor core
+    reads of a TF32 operand that was not rounded first."""
+    bits = x.float().contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x = hi + lo, both TF32: hi = tf32_round(x), lo = tf32_round(x -
+    hi). |x - (hi + lo)| <= 2^-22 |x|. The kernel splits its sources'
+    coordinates so; of a weight w it rounds hi so and hands the tensor
+    core w - hi unrounded, which it reads as tf32_truncate(w - hi)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
 _ENTRY = {torch.float32: "nbody_mxu_f32", torch.bfloat16: "nbody_mxu_bf16"}
 _P = ctypes.c_void_p
 LIBRARY = cuda_build.CudaLibrary("nbody_mxu", {
-    name: ([_P, ctypes.c_int64, _P, _P, ctypes.c_int64, ctypes.c_double,
-            ctypes.c_double, ctypes.c_double, _P, _P], ctypes.c_int)
-    for name in _ENTRY.values()
+    **{name: ([_P, ctypes.c_int64, _P, _P, ctypes.c_int64, ctypes.c_double,
+               ctypes.c_double, ctypes.c_double, ctypes.c_int, _P, _P, _P,
+               _P], ctypes.c_int)
+       for name in _ENTRY.values()},
+    "nbody_mxu_shape": ([ctypes.c_int], ctypes.c_int),
+    "nbody_mxu_blocks_per_sm": (
+        [ctypes.c_int, ctypes.c_double, ctypes.c_double], ctypes.c_int),
 })
 
 # Kernel launches so far; a run reads it to show its path went through
 # the kernel. Incremented only where the kernel is launched.
 LAUNCHES = 0
+
+
+def _squares(eps: float, cutoff: float) -> tuple[float, float]:
+    """eps^2 and cutoff^2 squared in double and rounded to fp32, as the
+    plain version takes them."""
+    return float(np.float32(eps * eps)), float(np.float32(cutoff * cutoff))
+
+
+@functools.lru_cache(maxsize=16)
+def _slots(index: int, bf16: bool, eps2: float, cutoff2: float) -> int:
+    """Blocks of the kernel a launch takes that the whole card (CUDA
+    device ``index``) holds at once: its SMs times the blocks an SM
+    holds, both read once."""
+    lib = LIBRARY.load()
+    blocks = lib.nbody_mxu_blocks_per_sm(int(bf16), eps2, cutoff2)
+    if blocks <= 0:
+        LIBRARY.check(-blocks or 1)
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * blocks
+
+
+def chunks_for(m: int, k: int, *, bf16: bool, cutoff: float,
+               eps: float) -> int:
+    """The source chunks S that :func:`gram_acc4` takes for M targets and
+    K sources on the current CUDA device."""
+    lib = LIBRARY.load()
+    slots = _slots(torch.cuda.current_device(), bf16, *_squares(eps, cutoff))
+    return source_chunks(m, k, block_m=lib.nbody_mxu_shape(0),
+                         tile=lib.nbody_mxu_shape(1), slots=slots)
 
 
 def _check(xi, xj, gmj) -> None:
@@ -131,15 +192,23 @@ def gram_acc4(xi: torch.Tensor, xj: torch.Tensor, gmj: torch.Tensor, *,
                                bf16=bf16)
     _check(xi, xj, gmj)
     device = xi.device
-    out = torch.empty((xi.shape[0], 4), dtype=torch.float32, device=device)
-    if xi.shape[0] == 0:
+    m, k = xi.shape[0], xj.shape[0]
+    out = torch.empty((m, 4), dtype=torch.float32, device=device)
+    if m == 0:
         return out
     lib = LIBRARY.load()
     with torch.cuda.device(device):
+        chunks = chunks_for(m, k, bf16=bf16, cutoff=cutoff, eps=eps)
+        # Scratch: the sources packed a tile at a time in the kernel's
+        # fragment order, and the chunks' partial sums.
+        tile = lib.nbody_mxu_shape(1)
+        packed = torch.empty(-(-k // tile) * lib.nbody_mxu_shape(2 + bf16),
+                             dtype=torch.uint8, device=device)
+        partial = (torch.empty((chunks, m, 4), dtype=torch.float32,
+                               device=device) if chunks > 1 else out)
         status = getattr(lib, _ENTRY[xi.dtype])(
-            xi.data_ptr(), xi.shape[0], xj.data_ptr(), gmj.data_ptr(),
-            xj.shape[0], float(np.float32(eps * eps)),
-            float(np.float32(cutoff * cutoff)), GRAM_NOISE_TAU,
+            xi.data_ptr(), m, xj.data_ptr(), gmj.data_ptr(), k,
+            *_squares(eps, cutoff), GRAM_NOISE_TAU, chunks, packed.data_ptr(), partial.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
     LIBRARY.check(status)

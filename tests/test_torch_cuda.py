@@ -122,8 +122,14 @@ def test_nlist_kernel_matches_plain(cuda, side, cap, dtype, tol, use_rcut):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("m,k", [(1000, 1000), (100, 384), (1, 257)])
+@pytest.mark.parametrize("m,k", [(1000, 1000), (100, 384), (1, 257),
+                                 (1, 4099), (1000, 3), (129, 20_011),
+                                 (4097, 20_003)])
 def test_mxu_kernel_matches_plain(cuda, m, k, bf16):
+    """Ragged M and K (past a multiple of the block's targets, of a
+    k-step and of the 256-source tile, and K below one k-step), and
+    M << K, which the wrapper splits into several source chunks: a
+    second launch gives the same bits."""
     pos, masses = _system(k, torch.float32, cuda, seed=k)
     center = pos.mean(dim=0)
     ops = pos - center
@@ -133,6 +139,7 @@ def test_mxu_kernel_matches_plain(cuda, m, k, bf16):
     before = mxu_kernel.LAUNCHES
     got = mxu_kernel.gram_acc4(xi, ops, gm, cutoff=1e-10, eps=1e9)
     assert mxu_kernel.LAUNCHES == before + 1
+    again = mxu_kernel.gram_acc4(xi, ops, gm, cutoff=1e-10, eps=1e9)
     want = mxu_kernel.gram_acc4_plain(xi, ops, gm, cutoff=1e-10, eps=1e9,
                                       bf16=bf16)
     w = mxu_kernel._gram_weights(
@@ -142,6 +149,10 @@ def test_mxu_kernel_matches_plain(cuda, m, k, bf16):
     torch.cuda.synchronize()
     scale = (w[:, :, None] * xj4[None, :, :]).sum(dim=1)
     _within_term_scale(got, want, scale, 1e-4)
+    assert torch.equal(got, again)
+    if (m, k) == (129, 20_011):
+        assert mxu_kernel.chunks_for(m, k, bf16=bf16, cutoff=1e-10,
+                                     eps=1e9) > 1
 
 
 def test_simulator_runs_the_new_backends_through_their_kernels(cuda):

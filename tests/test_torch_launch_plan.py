@@ -57,3 +57,32 @@ def test_source_chunks_fill_the_card_at_the_main_path_shapes(m, k):
 def test_source_chunks_stay_within_the_rounding_cap():
     assert direct_kernel.source_chunks(1, 10**7, block_m=BLOCK_M, tile=TILE,
                                        slots=SLOTS) == direct_kernel.MAX_CHUNKS
+
+
+# The Gram kernel (csrc/nbody_mxu.cu) plans with the same function at its
+# own block shape: 128 targets a block (4 warps of two 16-row m-tiles),
+# 256-source tiles, 7 blocks an SM.
+MXU_BLOCK_M, MXU_SLOTS = 128, SMS * 7
+
+
+@pytest.mark.parametrize("m,k", [
+    (65_536, 65_536), (65_535, 65_537), (1, 4_099), (129, 20_011),
+    (4_097, 20_003), (1_000, 3), (777, 1_000), (1, 257), (16_384, 1_000_000),
+])
+def test_source_chunks_at_the_mxu_block_shape_cover_every_tile_once(m, k):
+    s = direct_kernel.source_chunks(m, k, block_m=MXU_BLOCK_M, tile=TILE,
+                                    slots=MXU_SLOTS)
+    n_tiles = -(-k // TILE)
+    assert 1 <= s <= max(1, min(direct_kernel.MAX_CHUNKS, n_tiles))
+    owned = [t for c in range(s)
+             for t in range(c * n_tiles // s, (c + 1) * n_tiles // s)]
+    assert owned == list(range(n_tiles))
+
+
+def test_source_chunks_fill_the_card_at_the_mxu_path_shape():
+    """README's flagship N = 65,536: 512 blocks of 128 targets fill 0.55
+    of the 924 slots; the split takes the grid past one wave."""
+    s = direct_kernel.source_chunks(65_536, 65_536, block_m=MXU_BLOCK_M,
+                                    tile=TILE, slots=MXU_SLOTS)
+    assert s > 1
+    assert 512 * s >= MXU_SLOTS
