@@ -5,7 +5,8 @@
 
 Builds the three CUDA kernels from the checkout (one nvcc each, all
 started together), holds each against its plain PyTorch version on the
-card (the cell-list kernel in both of its pair kinds), and drives each
+card (the cell-list kernel in both of its pair kinds, the direct sum in
+fp32, fp64 and bf16), and drives each
 kernel's path at full size through the Simulator, with every launch count
 set to 0 just before the path and read just after:
 
@@ -18,10 +19,19 @@ set to 0 just before the path and read just after:
   through ``nbody_mxu``;
 - the P3M run of README.md (the ``baseline-1m-p3m`` preset: a 1,048,576-
   body disk, grid 256, cap 64, leapfrog) with ``--p3m-short nlist``,
-  through the ``ewald`` kind of ``nlist_pair``.
+  through the ``ewald`` kind of ``nlist_pair``;
+- the ``baseline-16k`` preset (a Plummer sphere, N = 16,384, leapfrog,
+  eps = 1e9 m, 500 steps) through ``nbody_direct`` mask-free, with its
+  energy drift;
+- the ``baseline-2m`` preset (the merger, N = 2,097,152, G = 1, eps =
+  0.05) cut to 3 steps, through ``nbody_direct``, held to the plain
+  version on 4,096 sampled targets;
+- ``baseline-16k`` at bf16, 500 steps through ``nbody_direct``'s bf16
+  form and 500 through ``nbody_mxu``'s, each against fp32.
 
 It then times each kernel at its path's shapes beside its bound (the
-direct sum masked at N = 50,000 and mask-free at N = 65,536) and beside
+direct sum masked at N = 50,000, mask-free at N = 16,384 and 65,536, and
+its bf16 form at both) and beside
 the issue floor of its inner loop's SASS instructions a pair. Each phase
 prints one JSON line (the ``done`` line carries ``wall_s``); the last two
 lines are the kernels table and ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -31,6 +41,7 @@ package beside it, and imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import json
 import math
@@ -61,8 +72,18 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# bf16 outside the tensor cores: packed bf16x2 add, multiply and fma
+# issue 256 results per SM per clock on compute capability 9.0 (the CUDA
+# programming guide's arithmetic throughput table), twice fp32's 128.
+PEAK_BF16X2_FLOPS = 2 * PEAK_FP32_FLOPS
 # rsqrt issue rate of the special function units, per SM per clock.
 SFU_PER_SM_PER_CLOCK = 16
+# fp32-to-bf16 conversions, per SM per clock (the CUDA guide's "all other
+# type conversions" on compute capability 9.0), and the conversions a pair
+# of nbody_direct's bf16 form issues: 15 roundings, two to a
+# cvt.rn.bf16x2.f32 (csrc/nbody_direct.cu).
+CVT_PER_SM_PER_CLOCK = 16
+BF16_CVT_PER_PAIR = 7.5
 
 # Tolerances of kernel vs plain version, in units of each row's sum of
 # |terms| (the scale that a row's summation rounds at). The kernel sums
@@ -136,6 +157,37 @@ EWALD_REASON = ("in units of the row's sum of gm (|newt| + |corr|) |d|: "
                 "round at ~(cap + 27) ulp and erff/expf differ by an ulp "
                 "or two from the plain erf/exp")
 
+# The bf16 form of nbody_direct against the plain version at bf16, in
+# units of each row's sum of |terms|. Both round each op of a term to
+# bf16 alike (the same fp32 op, rounded to nearest), so their terms are
+# the same bits except where the three squares of r^2 add in another
+# order and round r^2 the other way (1.5 x 2^-8 of that term, through
+# r^-3/2 ... r^-3 w d: one bf16 ulp of r^2). Their fp32 sums differ by
+# the fp32 bound (1e-4 of the scale) before each rounds its row to bf16
+# once (2^-8, one ulp). Sum: under 3 x 2^-8.
+BF16_TOL = 3 * 2.0**-8
+BF16_REASON = ("in units of the row's sum of |terms|: terms rounded to "
+               "bf16 op by op as the plain version (one r^2 may round the "
+               "other way: 1.5 x 2^-8), fp32 sums that agree to 1e-4, each "
+               "row rounded to bf16 once (2^-8): under 3 x 2^-8")
+# The two single-card baselines of the JAX package, copied into the
+# port's PRESETS: a Plummer sphere (N = 16,384, leapfrog, eps 1e9 m, 500
+# steps) and the 2M merger (G = 1, eps 0.05), the latter cut to 3 steps
+# as the JAX package's `validate --tpu` runs it.
+BASELINE_2M_STEPS = 3
+# The 2M check: the path's own N x N evaluation against the plain
+# version on this many sampled rows, each against all sources.
+BASELINE_2M_SAMPLE = 4096
+# The bf16 bar of tests/test_bfloat16.py: the median relative error of a
+# bf16 force field against fp32.
+BF16_MEDIAN_BAR = 1e-2
+# At the preset's dt (3,600 s) a bf16 Plummer state barely moves: v dt is
+# below half a bf16 ulp of |x| for almost every body. A run meant to show
+# a bf16 state evolving takes dt past 2^-9 |x| / |v|: 1e6 s, 100 steps
+# (about one crossing time of the sphere), beside fp32 at the same dt.
+BF16_EVOLVE = dict(dt=1e6, steps=100)
+BF16_MOVED_BAR = 0.5
+
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
@@ -169,18 +221,20 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def term_scale(pos_i, pos_j, masses_j, eps, chunk=1024):
+def term_scale(pos_i, pos_j, masses_j, eps, chunk=1024, g=None):
     """Per-component sum over sources of |w_ij * d_ij|, in float64."""
     import torch
 
     from gravity_tpu_torch.constants import CUTOFF_RADIUS, G
     from gravity_tpu_torch.ops.forces import _pair_weights
 
+    g = G if g is None else g
+
     pos_i, pos_j, masses_j = (t.double() for t in (pos_i, pos_j, masses_j))
     rows = []
     for pi in torch.split(pos_i, chunk):
         diff = pos_j[None, :, :] - pi[:, None, :]
-        w = _pair_weights((diff * diff).sum(-1), masses_j[None, :], G,
+        w = _pair_weights((diff * diff).sum(-1), masses_j[None, :], g,
                           CUTOFF_RADIUS, eps)
         rows.append((w[:, :, None] * diff.abs()).sum(dim=1))
     return torch.cat(rows)
@@ -441,27 +495,38 @@ def phase_kernel_vs_plain() -> float:
     emit({"phase": "kernel_vs_plain", **record, "bitwise_repeatable": True,
           "source_chunks": direct_chunks(state.n, state.n, torch.float32,
                                          0.0)})
+
+    # The baseline-16k path's shape and state: a Plummer sphere, N =
+    # 16,384, mask-free (eps 1e9 m); the same bits on a second launch.
+    config = PRESETS["baseline-16k"]
+    p16 = make_initial_state(config, dev)
+    pos, masses = p16.positions, p16.masses
+    kern16 = accelerations_vs_kernel(pos, pos, masses, g=config.g,
+                                     eps=config.eps)
+    again16 = accelerations_vs_kernel(pos, pos, masses, g=config.g,
+                                      eps=config.eps)
+    plain16 = pairwise_accelerations_chunked(pos, masses, g=config.g,
+                                             eps=config.eps)
+    torch.cuda.synchronize()
+    check(torch.equal(kern16, again16), "nbody_direct baseline-16k: two "
+          "runs differ")
+    emit({"phase": "kernel_vs_plain", **compare(
+        "baseline-16k N=16384", kern16, plain16,
+        term_scale(pos, pos, masses, config.eps, g=config.g), "float32"),
+        "bitwise_repeatable": True,
+        "source_chunks": direct_chunks(p16.n, p16.n, torch.float32,
+                                       config.eps)})
     return record["max_abs_err"]
 
 
 def direct_chunks(m: int, k: int, dtype, eps: float) -> int:
     """The source chunks S that ``accelerations_vs_kernel`` takes for an
     (M, K) call on this card, as its wrapper plans them."""
-    import numpy as np
-    import torch
-
     from gravity_tpu_torch.constants import CUTOFF_RADIUS
     from gravity_tpu_torch.ops import direct_kernel
 
-    lib = direct_kernel.load_library()
-    scalar = np.float64 if dtype == torch.float64 else np.float32
-    eps2 = float(scalar(eps) * scalar(eps))
-    cutoff2 = float(scalar(CUTOFF_RADIUS) * scalar(CUTOFF_RADIUS))
-    slots = direct_kernel._slots(0, dtype == torch.float64,
-                                 eps * eps <= CUTOFF_RADIUS**2, eps2, cutoff2)
-    return direct_kernel.source_chunks(
-        m, k, block_m=lib.nbody_direct_shape(0),
-        tile=lib.nbody_direct_shape(1), slots=slots)
+    return direct_kernel.chunks_for(m, k, dtype=dtype, cutoff=CUTOFF_RADIUS,
+                                    eps=eps)
 
 
 def phase_main_path() -> dict:
@@ -581,10 +646,13 @@ def phase_other_entry_points() -> None:
 
 def phase_timing(device: dict, build: dict) -> dict:
     """Kernel and plain version at the main path's shape (masked, N =
-    50,000), and the kernel mask-free at README's flagship shape (N =
-    65,536, eps = 1e9 m), each beside its bound: the larger of the bytes
+    50,000), the kernel mask-free at README's flagship shape (N = 65,536,
+    eps = 1e9 m) and at baseline-16k's (N = 16,384), and the bf16 form
+    with its plain version at baseline-16k's and the flagship's shapes,
+    each beside its bound: the larger of the bytes
     over HBM bandwidth and the operations over their peak rate (fp32
-    flops; rsqrt on the special function units at 16 per SM per clock);
+    flops, bf16x2 for the bf16 form; rsqrt on the special function units
+    at 16 per SM per clock);
     and beside the issue floor of its inner loop's instructions a pair
     (read off the SASS, :func:`sass_loops`)."""
     import torch
@@ -619,15 +687,56 @@ def phase_timing(device: dict, build: dict) -> dict:
     cuda_ms(mask_free, 3)
     free_ms = [cuda_ms(mask_free, 30), cuda_ms(mask_free, 30)]
 
-    def bounds(n_bodies, loop):
+    # The baseline-16k state (mask-free, eps 1e9 m) in fp32, its path, and
+    # in bf16 with README's flagship state at bf16: the bf16 form.
+    base16 = PRESETS["baseline-16k"]
+    p16 = make_initial_state(base16, dev)
+    b16 = make_initial_state(dataclasses.replace(base16, dtype="bfloat16"),
+                             dev)
+    b64 = flagship.astype(torch.bfloat16)
+
+    def fp32_16k():
+        accelerations_vs_kernel(p16.positions, p16.positions, p16.masses,
+                                eps=base16.eps)
+
+    def bf16_16k():
+        accelerations_vs_kernel(b16.positions, b16.positions, b16.masses,
+                                eps=base16.eps)
+
+    def bf16_64k():
+        accelerations_vs_kernel(b64.positions, b64.positions, b64.masses,
+                                eps=eps_f)
+
+    def bf16_plain():
+        pairwise_accelerations_chunked(b16.positions, b16.masses,
+                                       eps=base16.eps)
+
+    cuda_ms(fp32_16k, 3)
+    ms_16k = [cuda_ms(fp32_16k, 30), cuda_ms(fp32_16k, 30)]
+    cuda_ms(bf16_16k, 3)
+    bf16_ms = [cuda_ms(bf16_16k, 30), cuda_ms(bf16_16k, 30)]
+    cuda_ms(bf16_64k, 2)
+    bf16_64k_ms = [cuda_ms(bf16_64k, 10), cuda_ms(bf16_64k, 10)]
+    cuda_ms(bf16_plain, 1)
+    bf16_plain_ms = cuda_ms(bf16_plain, 3)
+
+    def bounds(n_bodies, loop, item=4):
         # Each input read once (positions, masses), the output written
-        # once.
-        n_bytes = (n_bodies * 3 + n_bodies + n_bodies * 3) * 4
-        record = bound(n_bodies * n_bodies, FLOPS_PER_PAIR, n_bytes, device)
+        # once, at ``item`` bytes an element.
+        n_bytes = (n_bodies * 3 + n_bodies + n_bodies * 3) * item
+        record = bound(n_bodies * n_bodies, FLOPS_PER_PAIR, n_bytes, device,
+                       PEAK_BF16X2_FLOPS if item == 2 else PEAK_FP32_FLOPS)
         instrs = per_pair(build, "nbody_direct", loop)
         record.update({"sass_instrs_per_pair": instrs,
                        "issue_floor_ms": issue_floor_ms(n_bodies**2, instrs,
                                                         device)})
+        if item == 2:
+            # The bf16 form's conversions, at their own pipe's rate: a
+            # floor of this design (fp32 registers, rounded op by op),
+            # not of the work.
+            record["conversion_floor_ms"] = 1e3 * n_bodies**2 * (
+                BF16_CVT_PER_PAIR / (device["sm_count"] * CVT_PER_SM_PER_CLOCK
+                                     * device["max_sm_clock_mhz"] * 1e6))
         return record
 
     record = {
@@ -643,11 +752,40 @@ def phase_timing(device: dict, build: dict) -> dict:
                                            torch.float32, eps_f),
             **bounds(flagship.n, "nbody_direct_kernel<fLi2ELb1>"),
         },
+        "baseline16k": {
+            "n": p16.n, "eps": base16.eps, "ms": ms_16k,
+            "source_chunks": direct_chunks(p16.n, p16.n, torch.float32,
+                                           base16.eps),
+            **bounds(p16.n, "nbody_direct_kernel<fLi2ELb1>"),
+        },
+        # The bf16 form's bound takes the pair's 20 flops at the card's
+        # bf16 rate outside the tensor cores (bf16x2, twice fp32's), its
+        # bytes at 2 each; the SFU's rsqrt then binds.
+        "bf16": {
+            "n": b16.n, "eps": base16.eps, "ms": bf16_ms[0],
+            "ms_repeat": bf16_ms[1], "plain_ms": bf16_plain_ms,
+            "bound_pipe": "bf16x2 on the CUDA cores (256 results per SM "
+                          "per clock) and rsqrt on the SFUs",
+            "source_chunks": direct_chunks(b16.n, b16.n, torch.bfloat16,
+                                           base16.eps),
+            **bounds(b16.n, "nbody_direct_kernel<bf16Li2ELb1>", item=2),
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes this sum",
+            "n65536": {
+                "n": b64.n, "eps": eps_f, "ms": bf16_64k_ms,
+                "source_chunks": direct_chunks(b64.n, b64.n, torch.bfloat16,
+                                               eps_f),
+                **bounds(b64.n, "nbody_direct_kernel<bf16Li2ELb1>", item=2),
+            },
+        },
         "nvidia_smi": device["nvidia_smi"],
     }
     record["share_of_bound"] = record["bound_ms"] / ms
-    record["mask_free"]["share_of_bound"] = (record["mask_free"]["bound_ms"]
-                                             / free_ms[0])
+    for sub, sub_ms in ((record["mask_free"], free_ms[0]),
+                        (record["baseline16k"], ms_16k[0]),
+                        (record["bf16"], bf16_ms[0]),
+                        (record["bf16"]["n65536"], bf16_64k_ms[0])):
+        sub["share_of_bound"] = sub["bound_ms"] / sub_ms
     emit(record)
     return record
 
@@ -882,7 +1020,7 @@ def phase_mxu_kernel_vs_plain() -> float:
     fp32)."""
     import torch
 
-    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
     from gravity_tpu_torch.models import generate_random_particles
     from gravity_tpu_torch.ops.mxu_kernel import accelerations_vs_mxu_kernel
     from gravity_tpu_torch.simulation import make_initial_state
@@ -896,6 +1034,13 @@ def phase_mxu_kernel_vs_plain() -> float:
         emit({"phase": "mxu_kernel_vs_plain", **record})
         if not bf16:
             main_err = record["acc_max_abs_err"]
+    # The bf16 path's shape and state: baseline-16k at bf16 (N = 16,384,
+    # eps 1e9 m).
+    config = dataclasses.replace(PRESETS["baseline-16k"], dtype="bfloat16")
+    b16 = make_initial_state(config, dev)
+    emit({"phase": "mxu_kernel_vs_plain", **mxu_compare(
+        "baseline-16k bf16 N=16384", b16.positions, b16.positions,
+        b16.masses, config.eps, True)})
     # Ragged and chunked shapes: M past a multiple of the block's 128
     # targets (and M = 1), K past a multiple of 8 (and of 16) and of the
     # 256-source tile, K below one k-step, and M << K, which the wrapper
@@ -1044,19 +1189,21 @@ def tile_bytes(t_count, s_count, side: int, t_cap: int, cap: int,
             * item + 2 * n_cells * 8)
 
 
-def bound(pairs, flops_per_pair, n_bytes, device) -> dict:
-    """The least time for the work: operations (fp32 flops, and rsqrt on
-    the SFUs at 16 per SM per clock) or bytes, whichever is larger."""
+def bound(pairs, flops_per_pair, n_bytes, device,
+          peak_flops=PEAK_FP32_FLOPS) -> dict:
+    """The least time for the work: operations (flops at ``peak_flops``,
+    fp32's by default, and rsqrt on the SFUs at 16 per SM per clock) or
+    bytes, whichever is larger."""
     clock_hz = device["max_sm_clock_mhz"] * 1e6
-    flop_ms = 1e3 * pairs * flops_per_pair / PEAK_FP32_FLOPS
+    flop_ms = 1e3 * pairs * flops_per_pair / peak_flops
     sfu_ms = 1e3 * pairs / (device["sm_count"] * SFU_PER_SM_PER_CLOCK
                             * clock_hz)
     byte_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
     bound_ms = max(flop_ms, sfu_ms, byte_ms)
     return {"bound_ms": bound_ms,
             "bound_by": "bytes" if byte_ms == bound_ms else "operations",
-            "fp32_flop_ms": flop_ms, "sfu_rsqrt_ms": sfu_ms,
-            "hbm_bytes_ms": byte_ms}
+            "flop_ms": flop_ms, "peak_tflops": peak_flops / 1e12,
+            "sfu_rsqrt_ms": sfu_ms, "hbm_bytes_ms": byte_ms}
 
 
 def phase_timing_nlist(device: dict, build: dict) -> dict:
@@ -1145,13 +1292,14 @@ def mxu_bound(pairs: int, n_bytes: int, device: dict, bf16: bool) -> dict:
 
 def phase_timing_mxu(device: dict, build: dict) -> dict:
     """The Gram kernel at N = 65,536 (fp32 operands, the path's), its
-    bf16 variant and plain version, and nbody_direct on the same inputs;
+    bf16 variant (also at baseline-16k's bf16 state, the bf16 path's
+    shape) and plain version, and nbody_direct on the same inputs;
     each variant beside its bound (:func:`mxu_bound`) and the issue floor
     of its pair loop's SASS instructions, with the source chunks S the
     wrapper takes."""
     import torch
 
-    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
     from gravity_tpu_torch.constants import CUTOFF_RADIUS, G
     from gravity_tpu_torch.ops import mxu_kernel
     from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
@@ -1172,6 +1320,19 @@ def phase_timing_mxu(device: dict, build: dict) -> dict:
     def kernel_bf16():
         mxu_kernel.gram_acc4(xb, xb, gm, **kw)
 
+    # The bf16 form at the shape of its path (baseline-16k at bf16), with
+    # the operands the wrapper hands it there.
+    base16 = PRESETS["baseline-16k"]
+    b16 = make_initial_state(dataclasses.replace(base16, dtype="bfloat16"),
+                             torch.device("cuda", 0))
+    x16 = (b16.positions.float() - b16.positions.float().mean(dim=0)).to(
+        torch.bfloat16).contiguous()
+    gm16 = (b16.masses.float() * G).contiguous()
+    kw16 = dict(cutoff=CUTOFF_RADIUS, eps=base16.eps)
+
+    def kernel_bf16_16k():
+        mxu_kernel.gram_acc4(x16, x16, gm16, **kw16)
+
     def plain():
         mxu_kernel.gram_acc4_plain(xi, xi, gm, bf16=False, **kw)
 
@@ -1190,6 +1351,8 @@ def phase_timing_mxu(device: dict, build: dict) -> dict:
     direct_again = cuda_ms(direct, 30)
     cuda_ms(kernel_bf16, 3)
     bf16_ms = cuda_ms(kernel_bf16, 30)
+    cuda_ms(kernel_bf16_16k, 3)
+    bf16_16k_ms = [cuda_ms(kernel_bf16_16k, 30), cuda_ms(kernel_bf16_16k, 30)]
     wrapper_ms = cuda_ms(wrapper, 30)
     cuda_ms(plain, 1)
     plain_ms = cuda_ms(plain, 3)
@@ -1220,7 +1383,13 @@ def phase_timing_mxu(device: dict, build: dict) -> dict:
                                                         **kw),
                  **mxu_bound(pairs, (n * 3 + n * 3) * 2 + n * 4 + n * 16,
                              device, True),
-                 **loop(True)},
+                 **loop(True),
+                 "n16384": {"ms": bf16_16k_ms,
+                            "source_chunks": mxu_kernel.chunks_for(
+                                b16.n, b16.n, bf16=True, **kw16),
+                            **mxu_bound(b16.n**2, (b16.n * 3 + b16.n * 3) * 2
+                                        + b16.n * 4 + b16.n * 16, device,
+                                        True)}},
         "library_ms": None,
         "library_note": "no single PyTorch call computes this sum",
         "nvidia_smi": device["nvidia_smi"],
@@ -1228,6 +1397,8 @@ def phase_timing_mxu(device: dict, build: dict) -> dict:
     record["share_of_bound"] = record["bound_ms"] / ms
     record["share_of_22flop_bound"] = record["fp32_22flop_bound_ms"] / ms
     record["bf16"]["share_of_bound"] = record["bf16"]["bound_ms"] / bf16_ms
+    sub = record["bf16"]["n16384"]
+    sub["share_of_bound"] = sub["bound_ms"] / bf16_16k_ms[0]
     emit(record)
     return record
 
@@ -1698,6 +1869,265 @@ def phase_profile_p3m() -> dict:
     return record
 
 
+def phase_bf16_kernel_vs_plain() -> float:
+    """nbody_direct's bf16 form against the plain version at bf16 on the
+    card: masked (eps = 0) and mask-free (eps = 1e9 m), ragged M and K,
+    M = 1, many source chunks, and the baseline-16k state at bf16 (the
+    bf16 path's shape); a second launch must give the same bits. Returns
+    the max abs error at the path's shape."""
+    import torch
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.models import generate_random_particles
+    from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
+    from gravity_tpu_torch.ops.forces import (
+        accelerations_vs,
+        pairwise_accelerations_chunked,
+    )
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    dev = torch.device("cuda", 0)
+    bf16 = torch.bfloat16
+
+    def case(name, pos_i, pos_j, m_j, eps, plain):
+        kern = accelerations_vs_kernel(pos_i, pos_j, m_j, eps=eps)
+        again = accelerations_vs_kernel(pos_i, pos_j, m_j, eps=eps)
+        torch.cuda.synchronize()
+        check(kern.dtype == bf16, f"bf16 {name}: output {kern.dtype}")
+        check(torch.equal(kern, again), f"bf16 {name}: two runs differ")
+        record = compare(f"bf16 {name}", kern, plain,
+                         term_scale(pos_i, pos_j, m_j, eps, chunk=256),
+                         "bfloat16", tol=BF16_TOL, reason=BF16_REASON)
+        record.update({
+            "same_bits_as_plain": float((kern == plain).float().mean()),
+            "bitwise_repeatable": True,
+            "source_chunks": direct_chunks(pos_i.shape[0], pos_j.shape[0],
+                                           bf16, eps),
+        })
+        emit({"phase": "bf16_kernel_vs_plain", **record})
+        return record
+
+    gen = torch.Generator().manual_seed(11)
+    base = generate_random_particles(gen, 20_000, dtype=torch.float64,
+                                     device=dev)
+    for (m, k) in ((64, 64), (1000, 1000), (1, 4099), (7, 20_000),
+                   (1_001, 4_099), (5_000, 3), (257, 256)):
+        pos_j = base.positions[:k].to(bf16).contiguous()
+        m_j = base.masses[:k].to(bf16).contiguous()
+        pos_i = base.positions[:m].to(bf16).contiguous()
+        for eps in (0.0, 1e9):
+            case(f"{m}x{k} eps={eps:g}", pos_i, pos_j, m_j, eps,
+                 accelerations_vs(pos_i, pos_j, m_j, eps=eps))
+    config = dataclasses.replace(PRESETS["baseline-16k"], dtype="bfloat16")
+    state = make_initial_state(config, dev)
+    pos, masses = state.positions, state.masses
+    record = case("baseline-16k N=16384", pos, pos, masses, config.eps,
+                  pairwise_accelerations_chunked(pos, masses,
+                                                 eps=config.eps))
+    return record["max_abs_err"]
+
+
+def energy_f64(state, config) -> float:
+    """Total energy of a state in float64 on the card
+    (ops/diagnostics.total_energy on the state cast to float64)."""
+    import torch
+
+    from gravity_tpu_torch.ops import diagnostics
+
+    return float(diagnostics.total_energy(state.astype(torch.float64),
+                                          g=config.g, eps=config.eps))
+
+
+def run_counted(config) -> tuple:
+    """A Simulator run of ``config`` with every launch count set to 0 just
+    before it and read just after; the energy drift of the run in float64
+    (the initial state's energy taken before the counts are reset) and
+    the share of bodies whose position changed at all (a bf16 state
+    stands still where v dt is below half an ulp of x)."""
+    import torch
+
+    from gravity_tpu_torch.ops import diagnostics
+    from gravity_tpu_torch.simulation import Simulator
+
+    sim = Simulator(config)
+    x0 = sim.state.positions
+    e0 = energy_f64(sim.state, config)
+    reset_counts()
+    stats = sim.run()
+    counts = read_counts()
+    final = stats["final_state"]
+    stats["moved_share"] = float(
+        (final.positions != x0).any(dim=1).float().mean())
+    check(bool(torch.isfinite(final.positions).all()
+               & torch.isfinite(final.velocities).all()),
+          f"{config.model} run: final state not finite")
+    check(final.positions.dtype == sim.dtype,
+          f"{config.model} run: state became {final.positions.dtype}")
+    drift = diagnostics.energy_drift(e0, energy_f64(final, config))
+    return sim, stats, counts, drift
+
+
+def phase_baseline16k_path() -> dict:
+    """The baseline-16k preset through the Simulator at full width: a
+    Plummer sphere, N = 16,384, all 500 leapfrog steps, eps = 1e9 m, so
+    nbody_direct's mask-free form; its energy drift in float64."""
+    from gravity_tpu_torch.config import PRESETS
+
+    config = PRESETS["baseline-16k"]
+    sim, stats, counts, drift = run_counted(config)
+    check(sim.backend == "nbody_direct", f"backend {sim.backend}")
+    check(counts["nbody_direct"] == config.steps + 1,
+          f"{counts['nbody_direct']} nbody_direct launches for "
+          f"{config.steps} leapfrog steps")
+    record = {
+        "phase": "baseline16k_path", "preset": "baseline-16k",
+        "model": config.model, "n": config.n, "steps": config.steps,
+        "integrator": config.integrator, "eps": config.eps,
+        "launches": counts["nbody_direct"], "counts": counts,
+        "total_s": stats["total_time_s"],
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "pairs_per_s": stats["pairs_per_sec"], "energy_drift": drift,
+        "moved_share": stats["moved_share"], "device": stats["device"],
+    }
+    emit(record)
+    return record
+
+
+def phase_baseline2m_path(device: dict) -> dict:
+    """The baseline-2m preset at full width (the merger, N = 2,097,152,
+    G = 1, eps = 0.05), cut to 3 leapfrog steps; then one more evaluation
+    of the final state through the path's own force function (the same
+    launch shape as the run's, N x N with its S source chunks), held
+    against the plain version on 4,096 sampled rows against all
+    2,097,152 sources, within the fp32 tolerance."""
+    import torch
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.ops.forces import accelerations_vs
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = dataclasses.replace(PRESETS["baseline-2m"],
+                                 steps=BASELINE_2M_STEPS)
+    sim = Simulator(config)
+    reset_counts()
+    stats = sim.run()
+    counts = read_counts()
+    final = stats["final_state"]
+    check(sim.backend == "nbody_direct", f"backend {sim.backend}")
+    check(counts["nbody_direct"] == config.steps + 1,
+          f"{counts['nbody_direct']} nbody_direct launches for "
+          f"{config.steps} steps")
+    check(bool(torch.isfinite(final.positions).all()
+               & torch.isfinite(final.velocities).all()),
+          "2M run: final state not finite")
+    pos, masses = final.positions, final.masses
+    full = sim.accel(pos, masses)
+    gen = torch.Generator().manual_seed(5)
+    idx = torch.randperm(config.n, generator=gen)[:BASELINE_2M_SAMPLE]
+    idx = idx.to(pos.device)
+    pos_i = pos[idx].contiguous()
+    kern = full[idx]
+    # The plain version, 64 targets at a time against all sources.
+    plain = torch.cat([
+        accelerations_vs(p, pos, masses, g=config.g, eps=config.eps)
+        for p in torch.split(pos_i, 64)])
+    torch.cuda.synchronize()
+    scale = term_scale(pos_i, pos, masses, config.eps, chunk=32,
+                       g=config.g)
+    record = compare("baseline-2m N x N, 4096 rows sampled", kern, plain,
+                     scale, "float32")
+    pairs = config.n * config.n
+    n_bytes = (config.n * 3 + config.n + config.n * 3) * 4
+    record.update({
+        "phase": "baseline2m_path", "preset": "baseline-2m",
+        "model": config.model, "n": config.n, "steps": config.steps,
+        "cut": f"{BASELINE_2M_STEPS} of 500 steps, as `validate --tpu`",
+        "launches": counts["nbody_direct"], "counts": counts,
+        "total_s": stats["total_time_s"],
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "pairs_per_s": stats["pairs_per_sec"],
+        "checked_launch": {"m": config.n, "k": config.n,
+                           "rows_compared": BASELINE_2M_SAMPLE},
+        "source_chunks": direct_chunks(config.n, config.n, torch.float32,
+                                       config.eps),
+        **bound(pairs, FLOPS_PER_PAIR, n_bytes, device),
+        "device": stats["device"],
+    })
+    record["share_of_bound"] = record["bound_ms"] / record["ms_per_step"]
+    emit(record)
+    return record
+
+
+def phase_bf16_paths() -> dict:
+    """baseline-16k at --dtype bfloat16, all 500 steps, once through
+    pallas (nbody_direct's bf16 form) and once through pallas-mxu
+    (nbody_mxu's bf16 form); each final acceleration against fp32
+    nbody_direct on the same state, and each run's energy drift. Then
+    the same state at a dt where a bf16 state moves (BF16_EVOLVE), in
+    bf16 through each kernel and in fp32: drift and share moved."""
+    import torch
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
+
+    records = {}
+    for backend, kernel in (("pallas", "nbody_direct"),
+                            ("pallas-mxu", "nbody_mxu")):
+        config = dataclasses.replace(PRESETS["baseline-16k"],
+                                     dtype="bfloat16", force_backend=backend)
+        sim, stats, counts, drift = run_counted(config)
+        check(sim.backend == kernel, f"bf16 {backend}: backend {sim.backend}")
+        check(counts[kernel] == config.steps + 1,
+              f"bf16 {backend}: {counts[kernel]} {kernel} launches for "
+              f"{config.steps} steps")
+        final = stats["final_state"]
+        acc = sim.accel(final.positions, final.masses)
+        pos32, m32 = final.positions.float(), final.masses.float()
+        ref = accelerations_vs_kernel(pos32, pos32, m32, eps=config.eps)
+        rel = ((acc.double() - ref.double()).norm(dim=1)
+               / ref.double().norm(dim=1))
+        record = {
+            "phase": "bf16_paths", "preset": "baseline-16k",
+            "dtype": "bfloat16", "force_backend": backend, "kernel": kernel,
+            "n": config.n, "steps": config.steps,
+            "launches": counts[kernel], "counts": counts,
+            "total_s": stats["total_time_s"],
+            "ms_per_step": 1e3 * stats["avg_step_s"],
+            "energy_drift": drift, "moved_share": stats["moved_share"],
+            "vs_fp32_nbody_direct_median_rel_err": float(rel.median()),
+            "vs_fp32_nbody_direct_p90_rel_err": float(
+                torch.quantile(rel, 0.9)),
+            "median_bar": BF16_MEDIAN_BAR,
+        }
+        check(record["vs_fp32_nbody_direct_median_rel_err"] < BF16_MEDIAN_BAR,
+              f"bf16 {backend}: median rel err {float(rel.median()):.3e}")
+        emit(record)
+        records[kernel] = record
+    # The same state at a dt where it evolves, through each bf16 kernel
+    # and through fp32 nbody_direct: drift and the share of bodies moved.
+    for dtype, backend, kernel in (("float32", "pallas", "nbody_direct"),
+                                   ("bfloat16", "pallas", "nbody_direct"),
+                                   ("bfloat16", "pallas-mxu", "nbody_mxu")):
+        config = dataclasses.replace(PRESETS["baseline-16k"], dtype=dtype,
+                                     force_backend=backend, **BF16_EVOLVE)
+        sim, stats, counts, drift = run_counted(config)
+        check(counts[kernel] == config.steps + 1,
+              f"{dtype} {backend} at dt {config.dt:g}: {counts[kernel]} "
+              f"{kernel} launches for {config.steps} steps")
+        check(stats["moved_share"] > BF16_MOVED_BAR,
+              f"{dtype} {backend} at dt {config.dt:g}: only "
+              f"{stats['moved_share']:.3f} of the bodies moved")
+        emit({"phase": "bf16_paths", "case": "evolving",
+              "preset": "baseline-16k", "dtype": dtype,
+              "force_backend": backend, "kernel": kernel, "n": config.n,
+              "dt": config.dt, "steps": config.steps,
+              "launches": counts[kernel],
+              "ms_per_step": 1e3 * stats["avg_step_s"],
+              "energy_drift": drift, "moved_share": stats["moved_share"],
+              "moved_bar": BF16_MOVED_BAR})
+    return records
+
+
 def main() -> int:
     try:
         import torch
@@ -1718,6 +2148,7 @@ def main() -> int:
     device = phase_device()
     build = phase_build()
     max_abs_err = phase_kernel_vs_plain()
+    bf16_err = phase_bf16_kernel_vs_plain()
     nlist_err = phase_nlist_kernel_vs_plain()
     mxu_err = phase_mxu_kernel_vs_plain()
     p3m_err = phase_p3m_kernel_vs_plain()
@@ -1725,6 +2156,9 @@ def main() -> int:
     nlist_path = phase_nlist_main_path()
     mxu_path = phase_mxu_path()
     p3m_path = phase_p3m_path()
+    base16k = phase_baseline16k_path()
+    base2m = phase_baseline2m_path(device)
+    bf16_paths = phase_bf16_paths()
     phase_small_reference()
     phase_other_entry_points()
     timing = phase_timing(device, build)
@@ -1740,7 +2174,13 @@ def main() -> int:
               t_nlist["ms"] / nlist_path["ms_per_step"],
           "mxu_kernel_share_of_step": t_mxu["ms"] / mxu_path["ms_per_step"],
           "p3m_ewald_kernel_share_of_step":
-              t_p3m["ms"] / p3m_path["ms_per_step"]})
+              t_p3m["ms"] / p3m_path["ms_per_step"],
+          "baseline16k_kernel_share_of_step":
+              timing["baseline16k"]["ms"][0] / base16k["ms_per_step"],
+          "baseline2m_ms_per_step": base2m["ms_per_step"],
+          "bf16_kernel_share_of_step":
+              timing["bf16"]["ms"]
+              / bf16_paths["nbody_direct"]["ms_per_step"]})
     kernels = [
         ("nbody_direct", "gravity_tpu/ops/pallas_forces.py:45",
          main_path["launches"], max_abs_err, timing),
@@ -1750,6 +2190,8 @@ def main() -> int:
          mxu_path["launches"], mxu_err, t_mxu),
         ("nlist_pair/ewald", "gravity_tpu/ops/pallas_nlist.py:292",
          p3m_path["launches"], p3m_err, t_p3m),
+        ("nbody_direct/bf16", "gravity_tpu/ops/pallas_forces.py:45",
+         bf16_paths["nbody_direct"]["launches"], bf16_err, timing["bf16"]),
     ]
     emit({"kernels": [{
         "name": name, "route": "cuda",

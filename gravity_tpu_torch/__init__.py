@@ -10,9 +10,13 @@ random-cube initial conditions, the O(N^2) direct sum with its CUDA
 kernel ``csrc/nbody_direct.cu``, the four fixed-dt integrators, the
 reference log and ``.npy`` trajectories); the cutoff-radius cell list
 (``--force-backend nlist``: ``ops/cells.py``, ``ops/nlist.py``,
-``csrc/nlist_pair.cu``); and the Gram-form direct sum
+``csrc/nlist_pair.cu``); the Gram-form direct sum
 (``--force-backend pallas-mxu``: ``ops/mxu_kernel.py``,
-``csrc/nbody_mxu.cu``). ``ops/cuda_build.py`` builds every kernel.
+``csrc/nbody_mxu.cu``); P3M (``ops/pm.py``, ``ops/p3m.py``); the
+plummer, cold_collapse, hernquist, disk and merger models with the
+``baseline-16k`` and ``baseline-2m`` presets; bf16 states on the direct
+sums; and the state diagnostics (``ops/diagnostics.py``).
+``ops/cuda_build.py`` builds every kernel.
 """
 
 from .config import PRESETS, SimulationConfig

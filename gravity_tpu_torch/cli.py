@@ -7,6 +7,9 @@ run statistics on stdout. It runs on the GPU unless ``--device cpu``.
 Usage:
     python -m gravity_tpu_torch run --preset reference-cuda
     python -m gravity_tpu_torch run --preset reference-spark --steps 100
+    python -m gravity_tpu_torch run --preset baseline-16k
+    python -m gravity_tpu_torch run --preset baseline-16k --dtype bfloat16
+    python -m gravity_tpu_torch run --preset baseline-2m --steps 3
     python -m gravity_tpu_torch run --device cpu --preset reference-mpi
     python -m gravity_tpu_torch run --model random --n 262144 \
         --integrator leapfrog --force-backend nlist --nlist-rcut 5e10 --eps 1e9

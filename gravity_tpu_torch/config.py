@@ -14,9 +14,10 @@ import json
 
 from . import constants as C
 
-MODELS = ("random", "solar", "disk")
+MODELS = ("random", "solar", "disk", "plummer", "cold_collapse", "hernquist",
+          "merger")
 INTEGRATORS = ("euler", "leapfrog", "verlet", "yoshida4")
-DTYPES = ("float32", "float64")
+DTYPES = ("float32", "float64", "bfloat16")
 # "pallas" and "pallas-mxu" are the JAX names of the hand-written
 # direct-sum kernels; here they name the CUDA kernels (ops/direct_kernel.py,
 # ops/mxu_kernel.py). "nlist" is the cutoff-radius cell list (ops/nlist.py),
@@ -29,12 +30,8 @@ _QUEUE = "ROADMAP.md Queue 1 item"
 
 # Values of honoured fields that belong to a later slice.
 _UNPORTED_VALUES = {
-    "model": (
-        ("plummer", "cold_collapse", "grf", "hernquist", "merger"),
-        f"{_QUEUE} 4 (remaining models)",
-    ),
+    "model": (("grf",), f"{_QUEUE} 7 (grf, with the periodic family)"),
     "integrator": (("multirate",), f"{_QUEUE} 4 (integration modes)"),
-    "dtype": (("bfloat16",), f"{_QUEUE} 4 (bf16 states)"),
     "force_backend": (
         ("tree", "fmm", "sfmm", "pm"),
         f"{_QUEUE} 7 (fast full-gravity solvers)",
@@ -45,6 +42,10 @@ _UNPORTED_VALUES = {
         "gather)",
     ),
 }
+# Backends that do not take a bf16 state yet: the cell-list kernel has no
+# bf16 form.
+_BF16_UNPORTED_BACKENDS = ("nlist", "p3m")
+_BF16_UNPORTED_ITEM = f"{_QUEUE} 4 (bf16 states through the cell-list kernel)"
 _UNPORTED_BACKENDS = {
     "cpp": (
         "ROADMAP.md Queue 2 (the JAX CPU XLA-FFI kernel has no port; "
@@ -65,8 +66,8 @@ _NOT_PORTED = {
     "tree_leaf_cap": (32, f"{_QUEUE} 7"),
     "tree_ws": (1, f"{_QUEUE} 7"),
     "tree_far": ("direct", f"{_QUEUE} 7"),
-    "nlist_mesh": ("auto", f"{_QUEUE} 6 (halo)"),
-    "nlist_mig_cap": (0, f"{_QUEUE} 6 (halo)"),
+    "nlist_mesh": ("auto", f"{_QUEUE} 5 (halo)"),
+    "nlist_mig_cap": (0, f"{_QUEUE} 5 (halo)"),
     "tree_near": ("gather", f"{_QUEUE} 7"),
     "adaptive": (False, f"{_QUEUE} 4"),
     "eta": (0.025, f"{_QUEUE} 4"),
@@ -84,7 +85,7 @@ _NOT_PORTED = {
     "sharding": ("none", f"{_QUEUE} 5"),
     "mesh_shape": (None, f"{_QUEUE} 5"),
     "io_pipeline": ("auto", f"{_QUEUE} 3"),
-    "trajectory_format": ("npy", f"{_QUEUE} 1 (native .gtrj writer)"),
+    "trajectory_format": ("npy", f"{_QUEUE} 3 (native .gtrj writer)"),
     "checkpoint_every": (0, f"{_QUEUE} 2"),
     "checkpoint_dir": ("checkpoints", f"{_QUEUE} 2"),
     "metrics": (False, f"{_QUEUE} 3"),
@@ -106,7 +107,7 @@ class NotPortedError(ValueError):
 @dataclasses.dataclass
 class SimulationConfig:
     # Workload
-    model: str = "random"  # random | solar | disk
+    model: str = "random"  # one of MODELS
     n: int = 1024
     steps: int = C.DEFAULT_STEPS
     dt: float = C.DEFAULT_DT
@@ -119,7 +120,7 @@ class SimulationConfig:
 
     # Numerics / backend
     integrator: str = "euler"  # euler | leapfrog | verlet | yoshida4
-    dtype: str = "float32"  # float32 | float64
+    dtype: str = "float32"  # float32 | float64 | bfloat16
     # auto | direct | pallas: the CUDA direct-sum kernel on the card,
     # dense/chunked plain PyTorch on the CPU (simulation._resolve_backend).
     # dense | chunked: the plain PyTorch direct sum on any device.
@@ -163,6 +164,13 @@ class SimulationConfig:
                     f"{name}={getattr(self, name)!r} is not ported to "
                     f"gravity_tpu_torch yet ({item})"
                 )
+        if (self.dtype == "bfloat16"
+                and self.force_backend in _BF16_UNPORTED_BACKENDS):
+            raise NotPortedError(
+                f"dtype='bfloat16' with force_backend={self.force_backend!r} "
+                f"is not ported to gravity_tpu_torch yet "
+                f"({_BF16_UNPORTED_ITEM})"
+            )
         if self.force_backend in _UNPORTED_BACKENDS:
             raise NotPortedError(
                 f"force_backend={self.force_backend!r} is not ported to "
@@ -217,8 +225,8 @@ class SimulationConfig:
         return SimulationConfig(**kept)
 
 
-# Named presets: the three reference workloads, the 1k baseline and the
-# 1M-disk P3M baseline (copied from gravity_tpu/config.py).
+# Named presets: the three reference workloads and the single-card
+# baselines (copied from gravity_tpu/config.py).
 PRESETS = {
     "reference-mpi": SimulationConfig(model="random", n=8, integrator="euler"),
     # Pinned to the exact direct sum: reference parity means pairwise
@@ -232,10 +240,19 @@ PRESETS = {
     "baseline-1k": SimulationConfig(
         model="random", n=1024, integrator="leapfrog", force_backend="dense"
     ),
+    "baseline-16k": SimulationConfig(
+        model="plummer", n=16_384, integrator="leapfrog",
+        force_backend="pallas", eps=1.0e9,
+    ),
     # Galactic natural units (G = 1, kpc, 1e10 Msun).
     "baseline-1m-p3m": SimulationConfig(
         model="disk", n=1_048_576, integrator="leapfrog",
         force_backend="p3m", pm_grid=256, p3m_cap=64,
         g=1.0, dt=2.0e-3, eps=0.05,
+    ),
+    # The single-card 2M direct sum: 4.4e12 pairs a step.
+    "baseline-2m": SimulationConfig(
+        model="merger", n=2_097_152, integrator="leapfrog",
+        force_backend="pallas", g=1.0, dt=2.0e-3, eps=0.05,
     ),
 }

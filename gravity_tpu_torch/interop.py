@@ -17,22 +17,39 @@ from .state import ParticleState
 from .utils.platform import DeviceLike, resolve_device
 
 
+def _from_array(a) -> torch.Tensor:
+    """An array-like as a CPU tensor. numpy has no bfloat16 of its own: an
+    array of the ``ml_dtypes`` bfloat16 (what ``np.asarray`` of a JAX bf16
+    array gives) goes through float32, which holds every bf16 value
+    exactly."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def state_from_numpy(positions, velocities, masses, *,
                      dtype: torch.dtype = torch.float32,
                      device: DeviceLike = None) -> ParticleState:
     """(N, 3), (N, 3) and (N,) array-likes -> a state on ``device``."""
     dev = resolve_device(device)
     return ParticleState.create(
-        torch.from_numpy(np.array(positions)),
-        torch.from_numpy(np.array(velocities)),
-        torch.from_numpy(np.array(masses)),
+        _from_array(positions), _from_array(velocities), _from_array(masses),
         dtype=dtype, device=dev,
     )
 
 
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; a bf16 tensor as float32 (exact),
+    as the JAX package's trajectory writer stores it."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
 def state_to_numpy(state: ParticleState):
-    """-> (positions, velocities, masses) as host numpy arrays."""
-    return tuple(
-        t.detach().cpu().numpy()
-        for t in (state.positions, state.velocities, state.masses)
-    )
+    """-> (positions, velocities, masses) as host numpy arrays (float32
+    for a bf16 state)."""
+    return tuple(to_numpy(t) for t in
+                 (state.positions, state.velocities, state.masses))

@@ -2,9 +2,11 @@
 
 Counterpart of ``gravity_tpu/ops/pallas_forces.py``: the kernel in
 ``csrc/nbody_direct.cu`` replaces the TPU kernel ``_nbody_kernel`` that
-``pallas_accelerations_vs`` reaches. The source's own note says what
-bounds it and how it is tiled. It is built and bound by
-``ops/cuda_build.py``.
+``pallas_accelerations_vs`` reaches, in three forms: float32, float64 and
+bfloat16 (fp32 registers, rounded to bf16 where the plain version holds
+a bf16 value, summed in fp32 and rounded once a target). The source's
+own note says what bounds it and how it is tiled. It is built and bound
+by ``ops/cuda_build.py``.
 
 :func:`accelerations_vs_kernel` takes the plain PyTorch version
 (``ops/forces.py::accelerations_vs``) only for tensors that lie on the
@@ -16,16 +18,20 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from ..constants import CUTOFF_RADIUS, G
 from . import cuda_build
 from .cuda_build import BUILD_DIR, NVCC_FLAGS  # noqa: F401  (public names)
-from .forces import accelerations_vs
+from .forces import accelerations_vs, rounded
 
-_ENTRY = {torch.float32: "nbody_direct_f32", torch.float64: "nbody_direct_f64"}
-_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+_ENTRY = {torch.float32: "nbody_direct_f32", torch.float64: "nbody_direct_f64",
+          torch.bfloat16: "nbody_direct_bf16"}
+# The type each form computes and sums in (its scratch's dtype), and its
+# code in nbody_direct_blocks_per_sm.
+_COMPUTE = {torch.float32: torch.float32, torch.float64: torch.float64,
+            torch.bfloat16: torch.float32}
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _P = ctypes.c_void_p
 _ARGTYPES = [
     _P, ctypes.c_int64, _P, _P, ctypes.c_int64, ctypes.c_double,
@@ -90,18 +96,31 @@ def source_chunks(m: int, k: int, *, block_m: int, tile: int,
 
 
 @functools.lru_cache(maxsize=64)
-def _slots(index: int, f64: bool, masked: bool, eps2: float,
+def _slots(index: int, dtype: torch.dtype, masked: bool, eps2: float,
            cutoff2: float) -> int:
     """Blocks of the kernel a launch takes that the whole card (CUDA
     device ``index``) holds at once: its SMs times the blocks an SM
     holds, both read once."""
     lib = load_library()
-    blocks = lib.nbody_direct_blocks_per_sm(int(f64), int(masked), eps2,
-                                            cutoff2)
+    blocks = lib.nbody_direct_blocks_per_sm(_DTYPE_CODE[dtype], int(masked),
+                                            eps2, cutoff2)
     if blocks <= 0:
         LIBRARY.check(-blocks or 1)
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     return sms * blocks
+
+
+def chunks_for(m: int, k: int, *, dtype: torch.dtype, cutoff: float,
+               eps: float) -> int:
+    """The source chunks S that :func:`accelerations_vs_kernel` takes for
+    M targets and K sources of ``dtype`` on the current CUDA device."""
+    lib = load_library()
+    slots = _slots(torch.cuda.current_device(), dtype,
+                   eps * eps <= cutoff * cutoff,
+                   rounded(rounded(eps, dtype) ** 2, dtype),
+                   rounded(rounded(cutoff, dtype) ** 2, dtype))
+    return source_chunks(m, k, block_m=lib.nbody_direct_shape(0),
+                         tile=lib.nbody_direct_shape(1), slots=slots)
 
 
 def _check(pos_i, pos_j, masses_j) -> None:
@@ -109,7 +128,8 @@ def _check(pos_i, pos_j, masses_j) -> None:
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
     if dtype not in _ENTRY:
-        raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
+        raise TypeError(f"the CUDA kernel takes float32, float64 or "
+                        f"bfloat16, not {dtype}")
     for name, t in (("pos_i", pos_i), ("pos_j", pos_j),
                     ("masses_j", masses_j)):
         if t.device != device:
@@ -148,31 +168,31 @@ def accelerations_vs_kernel(
                                 eps=eps)
     _check(pos_i, pos_j, masses_j)
     dtype, device = pos_i.dtype, pos_i.device
-    scalar = _NP_DTYPE[dtype]
-    # Rounded to the element type before squaring, as the plain version.
-    eps2 = float(scalar(eps) * scalar(eps))
-    cutoff2 = float(scalar(cutoff) * scalar(cutoff))
+    compute = _COMPUTE[dtype]
+    # Rounded to the element type, then squared in it, as the plain
+    # version (the square of a value of the type is exact in a double).
+    eps2 = rounded(rounded(eps, dtype) ** 2, dtype)
+    cutoff2 = rounded(rounded(cutoff, dtype) ** 2, dtype)
     masked = eps * eps <= cutoff * cutoff
-    # A Python scalar takes the tensor's dtype: f32(G) * m, as the plain
-    # version, with no host-to-device copy (which would wait for the
-    # stream).
-    gm = masses_j * g
+    # G rounded to the element type, times m, rounded: the plain
+    # version's _scalar(g) * m_j, with no host-to-device copy (which
+    # would wait for the stream).
+    gm = masses_j * rounded(g, dtype)
     acc = torch.empty_like(pos_i)
     if pos_i.shape[0] == 0:
         return acc
     lib = load_library()
     m, k = pos_i.shape[0], pos_j.shape[0]
-    block_m, tile = lib.nbody_direct_shape(0), lib.nbody_direct_shape(1)
+    tile = lib.nbody_direct_shape(1)
     with torch.cuda.device(device):
-        slots = _slots(torch.cuda.current_device(), dtype == torch.float64,
-                       masked, eps2, cutoff2)
-        chunks = source_chunks(m, k, block_m=block_m, tile=tile, slots=slots)
-        # Scratch: the sources packed as (x, y, z, G m), padded to whole
-        # tiles, and the chunks' partial sums.
-        packed = torch.empty((-(-k // tile) * tile, 4), dtype=dtype,
+        chunks = chunks_for(m, k, dtype=dtype, cutoff=cutoff, eps=eps)
+        # Scratch in the compute type: the sources packed as (x, y, z,
+        # G m), padded to whole tiles, and the chunks' partial sums (the
+        # bf16 form always sums into them and rounds once).
+        packed = torch.empty((-(-k // tile) * tile, 4), dtype=compute,
                              device=device)
-        partial = (torch.empty((chunks, m, 3), dtype=dtype, device=device)
-                   if chunks > 1 else acc)
+        partial = (torch.empty((chunks, m, 3), dtype=compute, device=device)
+                   if chunks > 1 or compute != dtype else acc)
         status = getattr(lib, _ENTRY[dtype])(
             pos_i.data_ptr(), m, pos_j.data_ptr(), gm.data_ptr(), k, eps2,
             cutoff2, int(masked), chunks, packed.data_ptr(),

@@ -18,6 +18,8 @@ masked sum is. The periodic (``box``) form is not ported yet.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..config import NotPortedError
@@ -36,6 +38,13 @@ def _not_ported(box: float) -> None:
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
     """``value`` rounded to ``like``'s dtype, as ``jnp.asarray(value, dtype)``."""
     return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+@functools.lru_cache(maxsize=64)
+def rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as a Python float: a tensor times it
+    rounds as times :func:`_scalar`, with no host-to-device copy."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 def _pair_weights(r2, masses_j, g, cutoff, eps, rcut=0.0):

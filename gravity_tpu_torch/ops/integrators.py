@@ -6,6 +6,13 @@ reference's integrator and the parity one. Leapfrog KDK, velocity Verlet
 and the 4th-order Yoshida composition are the other three. Each is a
 function ``(state, dt, accel_fn[, acc]) -> state | (state, acc)`` that
 builds new tensors and leaves its inputs alone.
+
+Every scalar step size is rounded to the state's dtype where it is used,
+as JAX rounds a weak-typed Python float: a bf16 state steps with
+bf16(dt), bf16(dt / 2) and bf16(w dt). PyTorch would otherwise multiply
+a bf16 tensor by the unrounded float in fp32 and round once (at dt =
+2e-3 the two step sizes differ by ~5e-4 relative). For float32 and
+float64 the rounding changes nothing.
 """
 
 from __future__ import annotations
@@ -15,14 +22,22 @@ from typing import Callable, Optional
 import torch
 
 from ..state import ParticleState
+from .forces import rounded
 
 # accel_fn(positions (N, 3)) -> accelerations (N, 3). Masses are closed
 # over by the force backend.
 AccelFn = Callable[[torch.Tensor], torch.Tensor]
 
 
+def _step(value: float, state: ParticleState) -> float:
+    """``value`` rounded to the state's dtype, as JAX rounds a weak-typed
+    Python scalar."""
+    return rounded(float(value), state.dtype)
+
+
 def _euler_update(state: ParticleState, acc, dt) -> ParticleState:
     """v += a * dt; x += v_new * dt — the reference's exact update order."""
+    dt = _step(dt, state)
     new_v = state.velocities + acc * dt
     new_x = state.positions + new_v * dt
     return state.replace(positions=new_x, velocities=new_v)
@@ -47,7 +62,8 @@ def leapfrog_kdk(
     opening kick free, so a step costs one force evaluation."""
     if acc is None:
         acc = accel_fn(state.positions)
-    half = 0.5 * dt
+    half = _step(0.5 * dt, state)
+    dt = _step(dt, state)
     v_half = state.velocities + acc * half
     new_x = state.positions + v_half * dt
     new_acc = accel_fn(new_x)
@@ -64,6 +80,7 @@ def velocity_verlet(
     """Velocity Verlet (algebraically equivalent to KDK)."""
     if acc is None:
         acc = accel_fn(state.positions)
+    dt = _step(dt, state)
     new_x = state.positions + state.velocities * dt + 0.5 * acc * dt * dt
     new_acc = accel_fn(new_x)
     new_v = state.velocities + 0.5 * (acc + new_acc) * dt

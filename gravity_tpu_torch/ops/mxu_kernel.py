@@ -30,12 +30,12 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from ..constants import CUTOFF_RADIUS, G
 from . import cuda_build
 from .direct_kernel import source_chunks
+from .forces import rounded
 
 # Gram-formulation noise floor: pairs with r^2 <= TAU * (|x_i|^2 +
 # |x_j|^2) are below the fp32 cancellation resolution and are treated as
@@ -132,7 +132,8 @@ LAUNCHES = 0
 def _squares(eps: float, cutoff: float) -> tuple[float, float]:
     """eps^2 and cutoff^2 squared in double and rounded to fp32, as the
     plain version takes them."""
-    return float(np.float32(eps * eps)), float(np.float32(cutoff * cutoff))
+    return (rounded(eps * eps, torch.float32),
+            rounded(cutoff * cutoff, torch.float32))
 
 
 @functools.lru_cache(maxsize=16)

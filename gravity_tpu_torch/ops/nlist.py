@@ -31,7 +31,7 @@ fallback is computed for every target and selected with ``torch.where``
 Not ported yet, and refused with :class:`~..config.NotPortedError`: the
 periodic form (``box`` > 0, ROADMAP Queue 1 item 7). Not ported either:
 the tree near field (``nlist_near_field``, with the octree, Queue 1 item
-7), the domain-decomposed slab/halo engines (Queue 1 item 6) and backward
+7), the domain-decomposed slab/halo engines (Queue 1 item 5) and backward
 passes (Queue 1 item 9).
 """
 

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from .config import SimulationConfig
+from .interop import to_numpy
 from .models import create_model
 from .ops import direct_kernel, mxu_kernel, nlist, p3m
 from .ops.direct_kernel import accelerations_vs_kernel
@@ -35,7 +36,8 @@ from .utils.platform import (
 )
 from .utils.trajectory import TrajectoryWriter
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
 
 # The resolved names of the hand-written CUDA direct-sum kernels.
 KERNEL_BACKEND = "nbody_direct"
@@ -74,6 +76,8 @@ def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
     ``p3m`` are explicit opt-ins only. ``dense`` and ``chunked`` are the
     plain version on any device. ``auto`` does not route to the fast
     solvers: that is the autotuned router (ROADMAP Queue 1 item 8).
+    A bf16 state takes the same route: the kernels' bf16 forms (the
+    config refuses bf16 with ``nlist`` and ``p3m``).
     """
     backend = config.force_backend
     plain = "dense" if config.n <= DENSE_MAX_N else "chunked"
@@ -292,7 +296,7 @@ class Simulator:
             if logger is not None:
                 logger.progress(step, total_steps)
             if frames:
-                host = torch.stack(frames).cpu().numpy()
+                host = to_numpy(torch.stack(frames))
                 for k in range(host.shape[0]):
                     trajectory_writer.record(
                         prev_step + (k + 1) * every, host[k]
@@ -364,7 +368,7 @@ class Simulator:
             logger.performance(
                 total_time, steps, pairs_per_sec=stats["pairs_per_sec"]
             )
-            logger.final_positions(self.state.positions.cpu().numpy())
+            logger.final_positions(to_numpy(self.state.positions))
             logger.completed()
         stats["final_state"] = self.final_state()
         return stats

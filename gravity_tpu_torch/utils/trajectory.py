@@ -3,8 +3,8 @@
 Counterpart of ``TrajectoryWriter`` and ``TrajectoryReader`` in
 ``gravity_tpu/utils/trajectory.py``, in the same on-disk layout, so
 either package reads what the other wrote. Frames arrive as host numpy
-arrays. The native ``.gtrj`` writer is ROADMAP Queue 1 item 1's deferred
-part.
+arrays, stored as float32 like the JAX writer's (exact for bf16 states).
+The native ``.gtrj`` writer is ROADMAP Queue 1 item 3.
 """
 
 from __future__ import annotations

@@ -74,7 +74,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                               masses)
     with pytest.raises(TypeError, match="float64"):
         direct_kernel.accelerations_vs_kernel(pos, pos.double(), masses)
-    with pytest.raises(TypeError, match="float32 or float64"):
+    with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
         direct_kernel.accelerations_vs_kernel(pos.half(), pos.half(),
                                               masses.half())
     with pytest.raises(ValueError, match="is on cpu"):
@@ -261,7 +261,7 @@ def test_kernel_plan_splits_the_sources_where_targets_are_few(cuda):
     fills the card takes one."""
     lib = direct_kernel.load_library()
     block_m, tile = lib.nbody_direct_shape(0), lib.nbody_direct_shape(1)
-    slots = direct_kernel._slots(0, False, True, 0.0, 1e-20)
+    slots = direct_kernel._slots(0, torch.float32, True, 0.0, 1e-20)
     assert slots >= 132
     few = direct_kernel.source_chunks(7, 20_000, block_m=block_m, tile=tile,
                                       slots=slots)
@@ -331,3 +331,45 @@ def test_nlist_kernel_count_edges_match_plain(cuda, t_cap, cap, dtype, tol,
     empty = torch.arange(t_cap)[None, :] >= t_count[:, None]
     assert bool((got.cpu()[empty] == 0).all())
     assert bool((got.cpu()[~empty] != 0).any())
+
+
+# The bf16 form of nbody_direct against the plain version at bf16, in
+# units of each row's sum of |terms|: both round every op of a term to
+# bf16 alike, and differ by the order of their fp32 sums (< 1e-4 of the
+# scale, as fp32) before each rounds its row once (one bf16 ulp, 2^-8),
+# and where the three squares of r^2 add in another order and round r^2
+# the other way (1.5 x 2^-8 of that term): under 3 x 2^-8.
+BF16_TOL = 3 * 2.0**-8
+
+
+@pytest.mark.parametrize("eps", [0.0, 1e9])
+@pytest.mark.parametrize("m,k", [(64, 64), (1000, 1000), (100, 384),
+                                 (1, 257), (7, 20_000), (1_001, 4_099),
+                                 (5_000, 3)])
+def test_bf16_kernel_matches_plain(cuda, m, k, eps):
+    pos, masses = _system(max(m, k), torch.bfloat16, cuda, seed=m + k)
+    pos_i, pos_j, m_j = pos[:m].contiguous(), pos[:k].contiguous(), masses[:k]
+    before = direct_kernel.LAUNCHES
+    got = direct_kernel.accelerations_vs_kernel(pos_i, pos_j, m_j, eps=eps)
+    again = direct_kernel.accelerations_vs_kernel(pos_i, pos_j, m_j, eps=eps)
+    assert direct_kernel.LAUNCHES == before + 2
+    want = accelerations_vs(pos_i, pos_j, m_j, eps=eps)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    _within_term_scale(got, want, _term_scale(pos_i, pos_j, m_j, eps),
+                       BF16_TOL)
+
+
+def test_simulator_runs_bf16_states_through_the_kernels(cuda):
+    for backend, module in (("pallas", direct_kernel),
+                            ("pallas-mxu", mxu_kernel)):
+        cfg = SimulationConfig(model="plummer", n=3000, steps=10, eps=1e9,
+                               integrator="leapfrog", dtype="bfloat16",
+                               force_backend=backend, progress_every=5)
+        sim = Simulator(cfg)
+        before = module.LAUNCHES
+        stats = sim.run()
+        assert module.LAUNCHES - before == stats["kernel_launches"] == 11
+        final = stats["final_state"]
+        assert final.positions.dtype == torch.bfloat16
+        assert bool(torch.isfinite(final.positions).all())

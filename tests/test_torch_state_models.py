@@ -116,8 +116,8 @@ def test_initial_state_from_config_and_unported_models():
     assert torch.equal(a.positions, b.positions)
     with pytest.raises(ValueError, match="exactly 3 bodies"):
         create_model("solar", _gen(0), 4, torch.float32)
-    with pytest.raises(NotPortedError, match="Queue 1 item 4"):
-        create_model("plummer", _gen(0), 4, torch.float32)
+    with pytest.raises(NotPortedError, match="Queue 1 item 7"):
+        create_model("grf", _gen(0), 4, torch.float32)
 
 
 def test_interop_round_trip_with_a_jax_state():
@@ -130,28 +130,29 @@ def test_interop_round_trip_with_a_jax_state():
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("sharding", "allgather", "Queue 1 item 5"),
-    ("adaptive", True, "Queue 1 item 4"),
-    ("periodic_box", 1e12, "Queue 1 item 7"),
-    ("merge_radius", 1e9, "Queue 1 item 4"),
-    ("external", "pointmass:gm=1e20", "Queue 1 item 4"),
-    ("checkpoint_every", 10, "Queue 1 item 2"),
-    ("pm_assignment", "tsc", "Queue 1 item 7"),
-    ("trajectory_format", "native", "Queue 1 item 1"),
-    ("integrator", "multirate", "Queue 1 item 4"),
-    ("dtype", "bfloat16", "Queue 1 item 4"),
-    ("model", "plummer", "Queue 1 item 4"),
-    ("force_backend", "tree", "Queue 1 item 7"),
-    ("force_backend", "pm", "Queue 1 item 7"),
-    ("p3m_short", "slice", "Queue 1 item 7"),
-    ("nlist_mesh", "halo", "Queue 1 item 6"),
+@pytest.mark.parametrize("fields,item", [
+    ({"sharding": "allgather"}, "Queue 1 item 5"),
+    ({"adaptive": True}, "Queue 1 item 4"),
+    ({"periodic_box": 1e12}, "Queue 1 item 7"),
+    ({"merge_radius": 1e9}, "Queue 1 item 4"),
+    ({"external": "pointmass:gm=1e20"}, "Queue 1 item 4"),
+    ({"checkpoint_every": 10}, "Queue 1 item 2"),
+    ({"pm_assignment": "tsc"}, "Queue 1 item 7"),
+    ({"trajectory_format": "native"}, "Queue 1 item 3"),
+    ({"integrator": "multirate"}, "Queue 1 item 4"),
+    ({"dtype": "bfloat16", "force_backend": "nlist", "nlist_rcut": 5e10},
+     "Queue 1 item 4"),
+    ({"model": "grf"}, "Queue 1 item 7"),
+    ({"force_backend": "tree"}, "Queue 1 item 7"),
+    ({"force_backend": "pm"}, "Queue 1 item 7"),
+    ({"p3m_short": "slice"}, "Queue 1 item 7"),
+    ({"nlist_mesh": "halo"}, "Queue 1 item 5"),
 ])
-def test_unported_features_are_refused(field, value, item):
+def test_unported_features_are_refused(fields, item):
     """A JAX config asking for a feature no slice has ported is refused
     with the ROADMAP item that ports it."""
     data = json.loads(JaxConfig().to_json())
-    data[field] = value
+    data.update(fields)
     with pytest.raises(NotPortedError, match=item):
         SimulationConfig.from_json(json.dumps(data))
 
@@ -163,10 +164,13 @@ def test_unported_features_are_refused(field, value, item):
     {"force_backend": "p3m", "model": "disk", "pm_grid": 256, "p3m_cap": 64,
      "p3m_short": "nlist", "p3m_sigma_cells": 1.5, "p3m_rcut_sigmas": 3.5,
      "fast_chunk": 2048, "g": 1.0},
+    {"model": "plummer", "n": 16_384, "force_backend": "pallas", "eps": 1e9},
+    {"model": "merger", "dtype": "bfloat16", "force_backend": "pallas-mxu",
+     "g": 1.0, "eps": 0.05},
 ])
 def test_ported_backends_construct(fields):
-    """The cell list, the Gram-form kernel and P3M are ported: a JAX
-    config naming them carries over."""
+    """The cell list, the Gram-form kernel, P3M, the remaining models and
+    bf16 states are ported: a JAX config naming them carries over."""
     data = json.loads(JaxConfig().to_json())
     data.update(fields)
     cfg = SimulationConfig.from_json(json.dumps(data))
