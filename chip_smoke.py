@@ -27,7 +27,18 @@ set to 0 just before the path and read just after:
   0.05) cut to 3 steps, through ``nbody_direct``, held to the plain
   version on 4,096 sampled targets;
 - ``baseline-16k`` at bf16, 500 steps through ``nbody_direct``'s bf16
-  form and 500 through ``nbody_mxu``'s, each against fp32.
+  form and 500 through ``nbody_mxu``'s, each against fp32;
+- the integration modes, whose multirate fast kicks launch each kernel
+  at a rectangular shape: ``baseline-16k`` with ``--integrator
+  multirate`` (500 two-rung steps, 100 on the 3-rung ladder), the
+  star-cluster example at full width in fp64 (30 steps each of
+  leapfrog, two rungs and the ladder, then adaptive multirate), the
+  nlist run multirate (cut to 100 steps; ``nlist_pair`` at a ``t_cap``
+  below the cap), the Gram-form run multirate (cut to 20 steps),
+  ``baseline-16k --adaptive``, ``baseline-16k`` under an external
+  Plummer halo, and merging on ``reference-cuda`` (the grid) and
+  ``baseline-16k`` (the chunked scan), each cut to 100 steps; each fast
+  kick shape held to its plain version.
 
 It then times each kernel at its path's shapes beside its bound (the
 direct sum masked at N = 50,000, mask-free at N = 16,384 and 65,536, and
@@ -69,6 +80,9 @@ MXU_FP32_FLOPS_PER_PAIR = MXU_FLOPS_PER_PAIR - MXU_TC_FLOPS_PER_PAIR
 # H100 SXM published peaks: fp32 outside the tensor cores, the dense
 # tensor-core rates (TF32 and bf16) and HBM3.
 PEAK_FP32_FLOPS = 67e12
+# fp64 outside the tensor cores (NVIDIA's H100 SXM data sheet): the rate
+# of nbody_direct's fp64 form, which the star-cluster path runs.
+PEAK_FP64_FLOPS = 34e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -2128,6 +2142,632 @@ def phase_bf16_paths() -> dict:
     return records
 
 
+# ---------------------------------------------------------------------------
+# The integration modes: multirate block timesteps (the three kernels'
+# rectangular fast kicks), adaptive dt, an external field and merging.
+# ---------------------------------------------------------------------------
+
+# The star-cluster example (examples/star_cluster.py) at full width: the
+# port's Plummer N = 16,384 plus a central hard binary, fp64.
+STAR_BINARY_MASS = 5.0e28
+STAR_BINARY_SEP = 2.0e9
+STAR_STEPS = 30
+# Steps kept of each cut path.
+NLIST_MULTIRATE_STEPS = 100
+MXU_MULTIRATE_STEPS = 20
+LADDER_STEPS = 100
+MERGE_STEPS = 100
+MERGE_EVERY = 10
+# The merge radius: the distance of this closest pair of the initial
+# state, so that the first check finds pairs inside it.
+MERGE_RANK = 20
+# An external Plummer halo of the cluster's own G M, scale 1e12 m.
+EXTERNAL_A = 1.0e12
+
+
+def logged_run(sim, name: str, *, fixed_steps=None) -> tuple:
+    """``sim.run`` with a RunLogger, every launch count set to 0 just
+    before and read just after; checks a finite final state of the
+    right shape and the log's sections. Returns (stats, counts)."""
+    import torch
+
+    from gravity_tpu_torch.utils.logging import RunLogger
+
+    log_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(log_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=log_root) as log_dir:
+        logger = RunLogger(log_dir, quiet=True)
+        reset_counts()
+        stats = sim.run(logger)
+        counts = read_counts()
+        with open(logger.path) as f:
+            log = f.read()
+    final = stats["final_state"]
+    check(tuple(final.positions.shape) == (sim.n_real, 3),
+          f"{name}: final shape {tuple(final.positions.shape)}")
+    check(bool(torch.isfinite(final.positions).all()
+               & torch.isfinite(final.velocities).all()),
+          f"{name}: final state not finite")
+    sections = ["gravity simulation at", "Performance Statistics:",
+                "Final positions:", "Simulation completed successfully"]
+    if fixed_steps is not None:
+        sections.append(f"Step {fixed_steps}/")
+    for section in sections:
+        check(section in log, f"{name}: log lacks {section!r}")
+    key = {"nbody_direct": "nbody_direct", "nbody_mxu": "nbody_mxu",
+           "nlist": "nlist_pair"}[sim.backend]
+    check(stats["kernel_launches"] == counts[key],
+          f"{name}: stats count {stats['kernel_launches']}, counts {counts}")
+    return stats, counts
+
+
+def energy_of(state, config, external_phi=None) -> float:
+    """KE + PE (+ the external potential energy) in float64 on the card."""
+    import torch
+
+    from gravity_tpu_torch.ops import diagnostics
+
+    return float(diagnostics.total_energy(
+        state.astype(torch.float64), g=config.g, cutoff=config.cutoff,
+        eps=config.eps, external_phi=external_phi))
+
+
+def fast_targets(sim, state, k: int):
+    """The fast rung of ``state``: the k largest |a| of its full force."""
+    from gravity_tpu_torch.ops.multirate import select_fast
+
+    return select_fast(sim.accel(state.positions, state.masses),
+                       state.masses, k=k)
+
+
+def direct_kick(name, pos, masses, idx, eps, device, reps=30) -> dict:
+    """nbody_direct's fast kick (the rung's targets against all sources)
+    against the plain version at the term-scale limit, the same bits on a
+    repeat; its time by CUDA events, the plain version's, and its bound."""
+    import torch
+
+    from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
+    from gravity_tpu_torch.ops.forces import accelerations_vs
+
+    ti = pos[idx]
+    dtype_name = str(pos.dtype).replace("torch.", "")
+    kern = accelerations_vs_kernel(ti, pos, masses, eps=eps)
+    again = accelerations_vs_kernel(ti, pos, masses, eps=eps)
+    plain = torch.cat([accelerations_vs(t, pos, masses, eps=eps)
+                       for t in torch.split(ti, 256)])
+    scale = term_scale(ti, pos, masses, eps)
+    torch.cuda.synchronize()
+    check(torch.equal(kern, again), f"{name}: two launches differ")
+    record = compare(name, kern, plain, scale, dtype_name)
+    m, k = ti.shape[0], pos.shape[0]
+
+    def kernel():
+        accelerations_vs_kernel(ti, pos, masses, eps=eps)
+
+    def plain_fn():
+        for t in torch.split(ti, 256):
+            accelerations_vs(t, pos, masses, eps=eps)
+
+    cuda_ms(kernel, 3)
+    ms = [cuda_ms(kernel, reps), cuda_ms(kernel, reps)]
+    cuda_ms(plain_fn, 1)
+    plain_ms = cuda_ms(plain_fn, 3)
+    item = pos.element_size()
+    peak = PEAK_FP64_FLOPS if pos.dtype == torch.float64 else PEAK_FP32_FLOPS
+    record.update({
+        "m": m, "k": k, "bitwise_repeatable": True, "ms": ms[0],
+        "ms_repeat": ms[1], "plain_ms": plain_ms,
+        "source_chunks": direct_chunks(m, k, pos.dtype, eps),
+        **bound(m * k, FLOPS_PER_PAIR, (m * 3 + k * 4 + m * 3) * item,
+                device, peak),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this sum",
+    })
+    record["share_of_bound"] = record["bound_ms"] / ms[0]
+    return record
+
+
+def phase_multirate_path(device: dict, base16k: dict) -> dict:
+    """baseline-16k with --integrator multirate (auto k = 2,048, sub 4),
+    all 500 steps: 4 fast kicks and one full evaluation a step; then the
+    3-rung ladder (capacities 2,048 and 256), 100 steps: 6 kicks and one
+    full a step. One fast kick of the final state, M = 2,048 against the
+    16,384 sources, held to the plain version; a profile of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = dataclasses.replace(PRESETS["baseline-16k"],
+                                 integrator="multirate")
+    sim = Simulator(config)
+    stats, counts = logged_run(sim, "multirate_path",
+                               fixed_steps=config.steps)
+    check(stats["multirate_k"] == 2048, f"k {stats['multirate_k']}")
+    check(counts["nbody_direct"] == 1 + 5 * config.steps,
+          f"{counts['nbody_direct']} launches for {config.steps} two-rung "
+          "steps (5 a step and the carry)")
+    ladder_cfg = dataclasses.replace(config, multirate_rungs=3,
+                                     steps=LADDER_STEPS)
+    ladder = Simulator(ladder_cfg)
+    l_stats, l_counts = logged_run(ladder, "multirate_ladder",
+                                   fixed_steps=LADDER_STEPS)
+    check(l_stats["multirate_capacities"] == [2048, 256],
+          f"capacities {l_stats['multirate_capacities']}")
+    check(l_counts["nbody_direct"] == 1 + 7 * LADDER_STEPS,
+          f"{l_counts['nbody_direct']} launches for {LADDER_STEPS} ladder "
+          "steps (7 a step and the carry)")
+    final = stats["final_state"]
+    idx = fast_targets(sim, final, 2048)
+    kick = direct_kick("multirate_kick_2048", final.positions, final.masses,
+                       idx, config.eps, device)
+    # Where a two-rung step's time goes: device time by kernel against
+    # the host's wall time, over 20 steps of the final state.
+    step = sim._step_fn(final.masses)
+    st, acc = final, sim.accel(final.positions, final.masses)
+    for _ in range(3):
+        st, acc = step(st, acc)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(20):
+            st, acc = step(st, acc)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 20
+    step_profile = profile_record(prof, "multirate.", 20, wall_ms)
+    record = {
+        "phase": "multirate_path", "preset": "baseline-16k",
+        "integrator": "multirate", "k": 2048, "sub": config.multirate_sub,
+        "steps": config.steps, "launches": counts["nbody_direct"],
+        "counts": counts, "ms_per_step": 1e3 * stats["avg_step_s"],
+        "fixed_dt_ms_per_step": base16k["ms_per_step"],
+        "ladder": {"rungs": 3, "capacities": [2048, 256],
+                   "steps": LADDER_STEPS, "cut_from": config.steps,
+                   "launches": l_counts["nbody_direct"],
+                   "ms_per_step": 1e3 * l_stats["avg_step_s"]},
+        "kick": kick, "step_profile": step_profile,
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    return record
+
+
+def star_cluster_state(device):
+    """examples/star_cluster.py's state at full width: the port's Plummer
+    sphere (N = 16,384, fp64) with a circular equal-mass binary at its
+    centre; (state, dt = period / 5, eps = separation / 10)."""
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.constants import G
+    from gravity_tpu_torch.simulation import make_initial_state
+    from gravity_tpu_torch.state import ParticleState
+
+    cluster = make_initial_state(
+        SimulationConfig(model="plummer", n=16_384, dtype="float64"), device)
+    m_b, a_b = STAR_BINARY_MASS, STAR_BINARY_SEP
+    v_b = math.sqrt(2 * G * m_b / a_b)
+    period = 2 * math.pi * math.sqrt(a_b**3 / (G * 2 * m_b))
+
+    def rows(values):
+        return torch.tensor(values, dtype=torch.float64, device=device)
+
+    state = ParticleState(
+        torch.cat([rows([[-a_b / 2, 0, 0], [a_b / 2, 0, 0]]),
+                   cluster.positions]),
+        torch.cat([rows([[0, -v_b / 2, 0], [0, v_b / 2, 0]]),
+                   cluster.velocities]),
+        torch.cat([rows([m_b, m_b]), cluster.masses]),
+    )
+    return state, period / 5.0, a_b / 10.0, period
+
+
+def phase_star_cluster_path(device: dict) -> dict:
+    """The star-cluster example at full width in fp64 through
+    nbody_direct's fp64 form, 30 steps each of single-rate leapfrog, the
+    two-rung scheme (k = 2, sub 4) and the ladder (rungs 3, k = 128),
+    each with its energy drift; the M = 2 kick against the plain version;
+    then --adaptive --integrator multirate on the same state."""
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.simulation import Simulator
+
+    dev = torch.device("cuda", 0)
+    state, dt, eps, period = star_cluster_state(dev)
+    base = dict(n=state.n, steps=STAR_STEPS, dt=dt, eps=eps,
+                dtype="float64", force_backend="pallas")
+    e0 = energy_of(state, SimulationConfig(**base))
+    runs = {}
+    for name, extra, per_step in (
+        ("single_rate", dict(integrator="leapfrog"), 1),
+        ("two_rung", dict(integrator="multirate", multirate_k=2,
+                          multirate_sub=4), 5),
+        ("ladder", dict(integrator="multirate", multirate_k=128,
+                        multirate_rungs=3), 7),
+    ):
+        config = SimulationConfig(**base, **extra)
+        sim = Simulator(config, state=state)
+        stats, counts = logged_run(sim, f"star_cluster_{name}",
+                                   fixed_steps=STAR_STEPS)
+        check(counts["nbody_direct"] == 1 + per_step * STAR_STEPS,
+              f"star cluster {name}: {counts['nbody_direct']} launches")
+        runs[name] = {
+            "launches": counts["nbody_direct"],
+            "ms_per_step": 1e3 * stats["avg_step_s"],
+            "energy_drift": abs(energy_of(stats["final_state"], config) - e0)
+            / abs(e0),
+        }
+        if name == "two_rung":
+            two_rung_sim, two_rung_final = sim, stats["final_state"]
+    idx = fast_targets(two_rung_sim, two_rung_final, 2)
+    check(set(idx.tolist()) == {0, 1}, f"star cluster fast set {idx}")
+    kick = direct_kick("star_cluster_kick_2", two_rung_final.positions,
+                       two_rung_final.masses, idx, eps, device)
+    adaptive_cfg = SimulationConfig(**base, integrator="multirate",
+                                    adaptive=True)
+    a_sim = Simulator(adaptive_cfg, state=state)
+    a_stats, a_counts = logged_run(a_sim, "star_cluster_adaptive")
+    drifts = [runs[k]["energy_drift"]
+              for k in ("single_rate", "two_rung", "ladder")]
+    record = {
+        "phase": "star_cluster_path", "n": state.n, "dtype": "float64",
+        "binary_period_s": period, "dt_s": dt, "eps": eps,
+        "steps": STAR_STEPS, "runs": runs,
+        "ordering_holds": drifts[0] > drifts[1] > drifts[2],
+        "kick": kick,
+        "adaptive": {
+            "mode": "adaptive multirate (auto k, sub 4)",
+            "k": a_stats["multirate_k"],
+            "criterion": a_stats["criterion"],
+            "adaptive_steps": a_stats["adaptive_steps"],
+            "t_reached": a_stats["t_reached"], "t_end": a_stats["t_end"],
+            "dt_min": a_stats["dt_min"],
+            "dt_max_used": a_stats["dt_max_used"],
+            "tail_steps": a_stats["adaptive_tail_steps"],
+            "launches": a_counts["nbody_direct"],
+            "ms_per_step": 1e3 * a_stats["avg_step_s"],
+            "energy_drift": abs(energy_of(a_stats["final_state"],
+                                          adaptive_cfg) - e0) / abs(e0),
+        },
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    return record
+
+
+def nlist_kick_tiles(positions, masses, targets, side, cap, t_cap, rcut):
+    """The pair-tile kernel's arguments of a K-target kick, as
+    ``nlist_accelerations_vs`` builds them: the sources' cells at ``cap``,
+    the targets binned on the same grid at ``t_cap``."""
+    import torch
+
+    from gravity_tpu_torch.constants import G
+    from gravity_tpu_torch.ops import nlist
+    from gravity_tpu_torch.ops.cells import bin_to_cells, grid_coords
+
+    origin, span, params, _, binned = nlist.source_cells(
+        positions, masses, rcut=rcut, side=side, cap=cap)
+    cells_pos, cells_mass, cell_count = binned[:3]
+    tcells_pos, _, t_count, _, _, _ = bin_to_cells(
+        targets, torch.ones_like(targets[:, 0]),
+        grid_coords(targets, origin, span, side), side, t_cap)
+    return (tcells_pos, t_count, cells_pos, cells_mass * G, cell_count,
+            side, params)
+
+
+def phase_nlist_multirate_path(device: dict) -> dict:
+    """README's nlist run with --integrator multirate (k = 32,768, sub 4),
+    cut to 100 of its 500 steps; the t_cap the occupancy model chose and
+    the share of fast targets over it; one kick's pair tiles at that
+    t_cap against the plain version; the kick's kernel and the whole kick
+    timed, and the kick's stages by the nlist.* profiler ranges."""
+    import warnings
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS
+    from gravity_tpu_torch.ops import nlist
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = SimulationConfig(**{**NLIST_RUN, "integrator": "multirate",
+                                 "steps": NLIST_MULTIRATE_STEPS})
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = Simulator(config)
+    side, cap, t_cap = sim.kick_sizing
+    k = sim._multirate_plan()[0]
+    check(k == 32_768 and t_cap < cap, f"k {k}, t_cap {t_cap}, cap {cap}")
+    state0 = sim.state
+
+    def over_share(state):
+        idx = fast_targets(sim, state, k)
+        args = nlist_kick_tiles(state.positions, state.masses,
+                                state.positions[idx], side, cap, t_cap,
+                                config.nlist_rcut)
+        return idx, args, float(
+            (args[1] - t_cap).clamp_min(0).sum()) / k
+
+    _, _, share0 = over_share(state0)
+    stats, counts = logged_run(sim, "nlist_multirate_path",
+                               fixed_steps=config.steps)
+    check(counts["nlist_pair"] == 1 + 5 * config.steps,
+          f"{counts['nlist_pair']} nlist_pair launches for {config.steps} "
+          "two-rung steps")
+    final = stats["final_state"]
+    idx, args, share = over_share(final)
+    kw = dict(cutoff=CUTOFF_RADIUS, eps=config.eps)
+    kern = nlist.pair_cells_kernel(*args, **kw)
+    again = nlist.pair_cells_kernel(*args, **kw)
+    plain = nlist.pair_cells_plain(*args, **kw)
+    scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(kern, again), "nlist t_cap: two launches differ")
+    empty = (torch.arange(t_cap, device=kern.device)[None, :]
+             >= args[1].clamp_max(t_cap)[:, None])
+    check(bool((kern[empty] == 0).all()), "nlist t_cap: padded slot not 0")
+    check_rec = compare("nlist_kick_t_cap", kern, plain, scale, "float32",
+                        reason=NLIST_REASON)
+    targets = final.positions[idx]
+
+    def kernel():
+        nlist.pair_cells_kernel(*args, **kw)
+
+    def plain_fn():
+        nlist.pair_cells_plain(*args, **kw)
+
+    def kick():
+        sim._kick(targets, final.positions, final.masses)
+
+    cuda_ms(kernel, 3)
+    ms = [cuda_ms(kernel, 30), cuda_ms(kernel, 30)]
+    cuda_ms(plain_fn, 1)
+    plain_ms = cuda_ms(plain_fn, 3)
+    cuda_ms(kick, 3)
+    kick_ms = cuda_ms(kick, 20)
+    pairs = nlist.real_pairs(args[1], args[4], side, t_cap, cap)
+    n_bytes = tile_bytes(args[1], args[4], side, t_cap, cap, 4, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            kick()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / 5
+    timing = {
+        "ms": ms[0], "ms_repeat": ms[1], "plain_ms": plain_ms,
+        "pairs_evaluated": pairs,
+        **bound(pairs, NLIST_FLOPS_PER_PAIR, n_bytes, device),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a cell-list "
+                        "pair sum",
+    }
+    timing["share_of_bound"] = timing["bound_ms"] / ms[0]
+    record = {
+        "phase": "nlist_multirate_path", "command": {
+            **NLIST_RUN, "integrator": "multirate"},
+        "steps": config.steps, "cut_from": NLIST_RUN["steps"],
+        "k": k, "side": side, "cap": cap, "t_cap": t_cap,
+        "fast_over_t_cap_share_t0": share0,
+        "fast_over_t_cap_share_final": share,
+        "launches": counts["nlist_pair"], "counts": counts,
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "kick_ms": kick_ms, "kick_profile": profile_record(
+            prof, "nlist.", 5, wall_ms),
+        "check": check_rec, "timing": timing,
+        "warnings": [str(w.message) for w in caught],
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    return record
+
+
+def phase_mxu_multirate_path(device: dict) -> dict:
+    """The flagship N = 65,536 through pallas-mxu with --integrator
+    multirate (k = 8,192, sub 4), cut to 20 steps; one (8,192 x 65,536)
+    kick of the final state against gram_acc4_plain, timed beside its
+    bound."""
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS, G
+    from gravity_tpu_torch.ops import mxu_kernel
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = SimulationConfig(**{**MXU_RUN, "integrator": "multirate",
+                                 "steps": MXU_MULTIRATE_STEPS})
+    sim = Simulator(config)
+    stats, counts = logged_run(sim, "mxu_multirate_path",
+                               fixed_steps=config.steps)
+    check(stats["multirate_k"] == 8192, f"k {stats['multirate_k']}")
+    check(counts["nbody_mxu"] == 1 + 5 * config.steps,
+          f"{counts['nbody_mxu']} nbody_mxu launches for {config.steps} "
+          "two-rung steps")
+    final = stats["final_state"]
+    idx = fast_targets(sim, final, 8192)
+    pos, masses = final.positions, final.masses
+    check_rec = mxu_compare("mxu_kick_8192", pos[idx], pos, masses,
+                            config.eps, bf16=False)
+    center = pos.mean(dim=0)
+    xi = (pos[idx] - center).contiguous()
+    xj = (pos - center).contiguous()
+    gm = (masses * G).contiguous()
+
+    def kernel():
+        mxu_kernel.gram_acc4(xi, xj, gm, cutoff=CUTOFF_RADIUS,
+                             eps=config.eps)
+
+    def plain_fn():
+        mxu_kernel.gram_acc4_plain(xi, xj, gm, cutoff=CUTOFF_RADIUS,
+                                   eps=config.eps, bf16=False)
+
+    cuda_ms(kernel, 3)
+    ms = [cuda_ms(kernel, 20), cuda_ms(kernel, 20)]
+    cuda_ms(plain_fn, 1)
+    plain_ms = cuda_ms(plain_fn, 2)
+    m, k = xi.shape[0], xj.shape[0]
+    timing = {"ms": ms[0], "ms_repeat": ms[1], "plain_ms": plain_ms,
+              **mxu_bound(m * k, (m * 3 + k * 4 + m * 4) * 4, device,
+                          False),
+              "library_ms": None,
+              "library_note": "no single PyTorch call computes this sum"}
+    timing["share_of_bound"] = timing["bound_ms"] / ms[0]
+    record = {
+        "phase": "mxu_multirate_path", "command": {
+            **MXU_RUN, "integrator": "multirate"},
+        "steps": config.steps, "cut_from": 500, "k": 8192,
+        "launches": counts["nbody_mxu"], "counts": counts,
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "check": check_rec, "timing": timing,
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    return record
+
+
+def phase_adaptive_path(device: dict, base16k: dict) -> dict:
+    """baseline-16k --adaptive (eta 0.025, the criterion resolves to
+    accel, t_end = 500 x 3,600 s): steps, dt range, drift, ms per step
+    against the fixed-dt run, and the wasted tail's evaluations."""
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = dataclasses.replace(PRESETS["baseline-16k"], adaptive=True)
+    sim = Simulator(config)
+    e0 = energy_of(sim.state, config)
+    stats, counts = logged_run(sim, "adaptive_path")
+    check(stats["criterion"] == "accel", f"criterion {stats['criterion']}")
+    check(stats["t_reached"] == config.steps * config.dt,
+          f"t_reached {stats['t_reached']}")
+    check(counts["nbody_direct"] == 1 + stats["adaptive_steps"]
+          + stats["adaptive_tail_steps"],
+          f"{counts['nbody_direct']} launches for "
+          f"{stats['adaptive_steps']} steps and "
+          f"{stats['adaptive_tail_steps']} tail steps")
+    record = {
+        "phase": "adaptive_path", "preset": "baseline-16k",
+        "eta": config.eta, "criterion": stats["criterion"],
+        "t_end": stats["t_end"], "t_reached": stats["t_reached"],
+        "adaptive_steps": stats["adaptive_steps"],
+        "dt_min": stats["dt_min"], "dt_max_used": stats["dt_max_used"],
+        "tail_steps": stats["adaptive_tail_steps"],
+        "launches": counts["nbody_direct"],
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "fixed_dt_ms_per_step": base16k["ms_per_step"],
+        "energy_drift": abs(energy_of(stats["final_state"], config) - e0)
+        / abs(e0),
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    return record
+
+
+def phase_external_path(device: dict) -> dict:
+    """baseline-16k under an external Plummer halo of the cluster's own
+    G M (a = 1e12 m), all 500 steps; the drift of KE + PE_self + PE_ext
+    in float64."""
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.constants import G
+    from gravity_tpu_torch.simulation import Simulator
+
+    base = PRESETS["baseline-16k"]
+    probe = Simulator(base)
+    gm = G * float(probe.state.masses.double().sum())
+    spec = f"plummer:gm={gm:.6e},a={EXTERNAL_A:.0e}"
+    config = dataclasses.replace(base, external=spec)
+    sim = Simulator(config)
+    phi = sim._ext_phi
+    e0 = energy_of(sim.state, config, phi)
+    e0_self = energy_of(sim.state, config)
+    stats, counts = logged_run(sim, "external_path",
+                               fixed_steps=config.steps)
+    check(counts["nbody_direct"] == config.steps + 1,
+          f"{counts['nbody_direct']} launches for {config.steps} steps")
+    e1 = energy_of(stats["final_state"], config, phi)
+    record = {
+        "phase": "external_path", "preset": "baseline-16k",
+        "external": spec, "steps": config.steps,
+        "launches": counts["nbody_direct"],
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "energy_drift": abs(e1 - e0) / abs(e0),
+        "external_share_of_e0": (e0 - e0_self) / e0,
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    return record
+
+
+def phase_merge_path(device: dict) -> dict:
+    """Collision merging on reference-cuda (N = 50,000: the grid
+    candidates) and baseline-16k (the chunked O(N^2) scan), each cut to
+    100 steps with a check every 10, at a radius of the 20th closest
+    pair of its initial state: merged pairs, one check's time, and mass
+    and momentum through the first check, conserved to fp32 rounding."""
+    import torch
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.ops.encounters import closest_pairs
+    from gravity_tpu_torch.simulation import MERGE_GRID_THRESHOLD, Simulator
+
+    records = {}
+    for preset in ("reference-cuda", "baseline-16k"):
+        base = PRESETS[preset]
+        probe = Simulator(base)
+        state0 = probe.state
+        d, _, _ = closest_pairs(state0.positions, state0.masses,
+                                k=MERGE_RANK)
+        radius = float(d[MERGE_RANK - 1])
+        config = dataclasses.replace(base, merge_radius=radius,
+                                     merge_every=MERGE_EVERY,
+                                     steps=MERGE_STEPS)
+        sim = Simulator(config)
+        sim.merge_pass(state0)  # first use of its ops, untimed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim.merge_pass(state0)
+        n_merged = int(res.n_merged)
+        check_ms = 1e3 * (time.perf_counter() - t0)
+        check(n_merged > 0, f"{preset}: no pair merged at r = {radius:.4g}")
+        m0 = state0.masses.double()
+        m1 = res.state.masses.double()
+        p0 = (m0[:, None] * state0.velocities.double()).sum(0)
+        p1 = (m1[:, None] * res.state.velocities.double()).sum(0)
+        p_scale = float((m0[:, None] * state0.velocities.double().abs())
+                        .sum())
+        mass_err = abs(float(m1.sum() - m0.sum())) / float(m0.sum())
+        mom_err = float((p1 - p0).abs().max()) / p_scale
+        # Each merge rounds one mass sum and one velocity to fp32.
+        check(mass_err <= n_merged * 2.0**-23,
+              f"{preset}: mass changed by {mass_err:.3e}")
+        check(mom_err <= n_merged * 8 * 2.0**-24,
+              f"{preset}: momentum changed by {mom_err:.3e}")
+        stats, counts = logged_run(sim, f"merge_{preset}",
+                                   fixed_steps=MERGE_STEPS)
+        check(stats["merged_pairs"] > 0, f"{preset}: run merged nothing")
+        records[preset] = {
+            "n": base.n, "form": ("grid" if base.n >= MERGE_GRID_THRESHOLD
+                                  else "chunked scan"),
+            "merge_radius": radius, "radius_rule": f"closest pair "
+            f"#{MERGE_RANK} of the initial state",
+            "first_check_merged": n_merged, "check_ms": check_ms,
+            "mass_rel_change": mass_err, "momentum_rel_change": mom_err,
+            "steps": MERGE_STEPS, "cut_from": base.steps,
+            "merge_every": MERGE_EVERY,
+            "merged_pairs": stats["merged_pairs"],
+            "launches": counts["nbody_direct"],
+            "ms_per_step": 1e3 * stats["avg_step_s"],
+        }
+    record = {"phase": "merge_path", "runs": records,
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -2159,6 +2799,13 @@ def main() -> int:
     base16k = phase_baseline16k_path()
     base2m = phase_baseline2m_path(device)
     bf16_paths = phase_bf16_paths()
+    multirate = phase_multirate_path(device, base16k)
+    star = phase_star_cluster_path(device)
+    nlist_mr = phase_nlist_multirate_path(device)
+    mxu_mr = phase_mxu_multirate_path(device)
+    phase_adaptive_path(device, base16k)
+    phase_external_path(device)
+    phase_merge_path(device)
     phase_small_reference()
     phase_other_entry_points()
     timing = phase_timing(device, build)
@@ -2180,7 +2827,13 @@ def main() -> int:
           "baseline2m_ms_per_step": base2m["ms_per_step"],
           "bf16_kernel_share_of_step":
               timing["bf16"]["ms"]
-              / bf16_paths["nbody_direct"]["ms_per_step"]})
+              / bf16_paths["nbody_direct"]["ms_per_step"],
+          "multirate_ms_per_step": {
+              "baseline16k_two_rung": multirate["ms_per_step"],
+              "baseline16k_ladder": multirate["ladder"]["ms_per_step"],
+              "nlist": nlist_mr["ms_per_step"],
+              "pallas_mxu": mxu_mr["ms_per_step"]},
+          "star_cluster_ordering_holds": star["ordering_holds"]})
     kernels = [
         ("nbody_direct", "gravity_tpu/ops/pallas_forces.py:45",
          main_path["launches"], max_abs_err, timing),
@@ -2192,6 +2845,18 @@ def main() -> int:
          p3m_path["launches"], p3m_err, t_p3m),
         ("nbody_direct/bf16", "gravity_tpu/ops/pallas_forces.py:45",
          bf16_paths["nbody_direct"]["launches"], bf16_err, timing["bf16"]),
+        # The multirate fast kicks, the rectangular entry points
+        # (make_pallas_local_kernel, make_nlist_local_kernel with a
+        # k_targets hint, make_pallas_mxu_local_kernel).
+        ("nbody_direct/kick", "gravity_tpu/ops/pallas_forces.py:45",
+         multirate["launches"],
+         multirate["kick"]["max_abs_err"], multirate["kick"]),
+        ("nlist_pair/t_cap", "gravity_tpu/ops/pallas_nlist.py:292",
+         nlist_mr["launches"], nlist_mr["check"]["max_abs_err"],
+         nlist_mr["timing"]),
+        ("nbody_mxu/kick", "gravity_tpu/ops/pallas_forces_mxu.py:85",
+         mxu_mr["launches"], mxu_mr["check"]["max_abs_err"],
+         mxu_mr["timing"]),
     ]
     emit({"kernels": [{
         "name": name, "route": "cuda",

@@ -15,7 +15,12 @@ reference log and ``.npy`` trajectories); the cutoff-radius cell list
 ``csrc/nbody_mxu.cu``); P3M (``ops/pm.py``, ``ops/p3m.py``); the
 plummer, cold_collapse, hernquist, disk and merger models with the
 ``baseline-16k`` and ``baseline-2m`` presets; bf16 states on the direct
-sums; and the state diagnostics (``ops/diagnostics.py``).
+sums; the state diagnostics (``ops/diagnostics.py``); and the
+integration modes: multirate block timesteps whose fast kicks launch
+each kernel at a rectangular shape (``ops/multirate.py``,
+``simulation.make_local_kernel``), adaptive dt (``ops/adaptive.py``),
+external fields (``ops/external.py``) and collision merging
+(``ops/encounters.py``).
 ``ops/cuda_build.py`` builds every kernel.
 """
 

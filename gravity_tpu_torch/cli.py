@@ -16,6 +16,12 @@ Usage:
     python -m gravity_tpu_torch run --model disk --n 1048576 --g 1.0 \
         --dt 2e-3 --eps 0.05 --force-backend p3m --pm-grid 256 \
         --p3m-cap 64 --p3m-short nlist --integrator leapfrog
+    python -m gravity_tpu_torch run --preset baseline-16k \
+        --integrator multirate --multirate-rungs 3
+    python -m gravity_tpu_torch run --preset baseline-16k --adaptive
+    python -m gravity_tpu_torch run --preset baseline-16k \
+        --external plummer:gm=1.3e20,a=1e12
+    python -m gravity_tpu_torch run --preset reference-cuda --merge-radius 1e9
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 
 from .config import (
     DTYPES,
@@ -32,6 +39,7 @@ from .config import (
     MODELS,
     P3M_SHORT_MODES,
     PRESETS,
+    TIMESTEP_CRITERIA,
     SimulationConfig,
 )
 
@@ -46,6 +54,15 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--g", type=float, default=None)
     p.add_argument("--eps", type=float, default=None)
     p.add_argument("--integrator", choices=INTEGRATORS, default=None)
+    p.add_argument("--multirate-k", dest="multirate_k", type=int,
+                   default=None,
+                   help="fast-rung capacity (0 = auto: n/8)")
+    p.add_argument("--multirate-rungs", dest="multirate_rungs", type=int,
+                   default=None,
+                   help="timestep rungs (2 = classic two-rung; >2 = "
+                        "power-of-two ladder, rung r at dt/2^r)")
+    p.add_argument("--multirate-sub", dest="multirate_sub", type=int,
+                   default=None, help="substeps per outer step")
     p.add_argument("--force-backend", dest="force_backend",
                    choices=FORCE_BACKENDS, default=None,
                    help="auto/direct/pallas = the CUDA direct-sum kernel "
@@ -77,6 +94,26 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fast-chunk", dest="fast_chunk", type=int, default=None,
                    help="target chunk of the p3m gather pass")
     p.add_argument("--dtype", choices=DTYPES, default=None)
+    p.add_argument("--external", default=None,
+                   help="analytic background field spec, e.g. "
+                        "'nfw:gm=1e13,rs=2e20' or "
+                        "'pointmass:gm=1.3e20 + uniform:gz=-9.8'")
+    p.add_argument("--merge-radius", dest="merge_radius", type=float,
+                   default=None,
+                   help="merge pairs closer than this radius (inelastic "
+                        "collision; 0 = off)")
+    p.add_argument("--merge-k", dest="merge_k", type=int, default=None)
+    p.add_argument("--merge-every", dest="merge_every", type=int,
+                   default=None,
+                   help="steps between collision checks (physics cadence, "
+                        "independent of --progress-every)")
+    p.add_argument("--adaptive", action="store_true", default=None,
+                   help="adaptive dt: steps*dt becomes the target "
+                        "simulated time, dt the per-step ceiling")
+    p.add_argument("--eta", type=float, default=None,
+                   help="adaptive-timestep safety factor")
+    p.add_argument("--timestep-criterion", dest="timestep_criterion",
+                   choices=TIMESTEP_CRITERIA, default=None)
     p.add_argument("--progress-every", dest="progress_every", type=int,
                    default=None, help="steps per progress line and block")
     p.add_argument("--log-dir", dest="log_dir", default=None)
@@ -107,6 +144,13 @@ def cmd_run(args: argparse.Namespace) -> int:
     from .utils.trajectory import TrajectoryWriter
 
     config = build_config(args)
+    if config.adaptive and config.merge_radius > 0.0:
+        print(
+            "error: --adaptive does not support --merge-radius "
+            "(collision merging needs the fixed-dt block loop)",
+            file=sys.stderr,
+        )
+        return 1
     sim = Simulator(config, device=args.device)
     logger = RunLogger(config.log_dir)
     writer = None

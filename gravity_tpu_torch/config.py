@@ -16,7 +16,8 @@ from . import constants as C
 
 MODELS = ("random", "solar", "disk", "plummer", "cold_collapse", "hernquist",
           "merger")
-INTEGRATORS = ("euler", "leapfrog", "verlet", "yoshida4")
+INTEGRATORS = ("euler", "leapfrog", "verlet", "yoshida4", "multirate")
+TIMESTEP_CRITERIA = ("auto", "accel", "velocity")
 DTYPES = ("float32", "float64", "bfloat16")
 # "pallas" and "pallas-mxu" are the JAX names of the hand-written
 # direct-sum kernels; here they name the CUDA kernels (ops/direct_kernel.py,
@@ -31,7 +32,6 @@ _QUEUE = "ROADMAP.md Queue 1 item"
 # Values of honoured fields that belong to a later slice.
 _UNPORTED_VALUES = {
     "model": (("grf",), f"{_QUEUE} 7 (grf, with the periodic family)"),
-    "integrator": (("multirate",), f"{_QUEUE} 4 (integration modes)"),
     "force_backend": (
         ("tree", "fmm", "sfmm", "pm"),
         f"{_QUEUE} 7 (fast full-gravity solvers)",
@@ -57,9 +57,6 @@ _UNPORTED_BACKENDS = {
 # carry: (the JAX default, which means "feature off", and the ROADMAP item
 # that ports the feature). A JSON config may name them only at that value.
 _NOT_PORTED = {
-    "multirate_k": (0, f"{_QUEUE} 4"),
-    "multirate_sub": (4, f"{_QUEUE} 4"),
-    "multirate_rungs": (2, f"{_QUEUE} 4"),
     "autotune": (True, f"{_QUEUE} 8"),
     "fmm_mode": ("auto", f"{_QUEUE} 7"),
     "tree_depth": (0, f"{_QUEUE} 7"),
@@ -69,20 +66,13 @@ _NOT_PORTED = {
     "nlist_mesh": ("auto", f"{_QUEUE} 5 (halo)"),
     "nlist_mig_cap": (0, f"{_QUEUE} 5 (halo)"),
     "tree_near": ("gather", f"{_QUEUE} 7"),
-    "adaptive": (False, f"{_QUEUE} 4"),
-    "eta": (0.025, f"{_QUEUE} 4"),
-    "timestep_criterion": ("auto", f"{_QUEUE} 4"),
-    "adaptive_max_steps": (1_000_000, f"{_QUEUE} 4"),
     "periodic_box": (0.0, f"{_QUEUE} 7"),
     "pm_assignment": ("cic", f"{_QUEUE} 7"),
-    "external": ("", f"{_QUEUE} 4"),
-    "merge_radius": (0.0, f"{_QUEUE} 4"),
-    "merge_k": (16, f"{_QUEUE} 4"),
-    "merge_every": (100, f"{_QUEUE} 4"),
     "auto_recover": (False, f"{_QUEUE} 2"),
     "max_retries": (3, f"{_QUEUE} 2"),
     "on_diverge": ("halve-dt", f"{_QUEUE} 2"),
-    "sharding": ("none", f"{_QUEUE} 5"),
+    "sharding": ("none", f"{_QUEUE} 5 (multi-GPU, with the sharded "
+                         "multirate forms)"),
     "mesh_shape": (None, f"{_QUEUE} 5"),
     "io_pipeline": ("auto", f"{_QUEUE} 3"),
     "trajectory_format": ("npy", f"{_QUEUE} 3 (native .gtrj writer)"),
@@ -119,7 +109,14 @@ class SimulationConfig:
     eps: float = 0.0  # Plummer softening (0 = reference semantics)
 
     # Numerics / backend
-    integrator: str = "euler"  # euler | leapfrog | verlet | yoshida4
+    # euler | leapfrog | verlet | yoshida4 | multirate (block timesteps,
+    # ops/multirate.py)
+    integrator: str = "euler"
+    multirate_k: int = 0  # fast-rung capacity; 0 = auto (n // 8)
+    multirate_sub: int = 4  # substeps per outer step for the fast rung
+    # > 2: the power-of-two rung ladder, rung r at dt / 2^r with capacity
+    # k // 8^(r-1); multirate_sub is then unused.
+    multirate_rungs: int = 2
     dtype: str = "float32"  # float32 | float64 | bfloat16
     # auto | direct | pallas: the CUDA direct-sum kernel on the card,
     # dense/chunked plain PyTorch on the CPU (simulation._resolve_backend).
@@ -148,6 +145,26 @@ class SimulationConfig:
     p3m_cap: int = 128
     p3m_short: str = "auto"
     fast_chunk: int = 4096
+
+    # Adaptive time stepping (ops/adaptive.py): steps * dt becomes the
+    # target simulated time and dt the per-step ceiling.
+    adaptive: bool = False
+    eta: float = 0.025  # timestep safety factor
+    # auto (accel if eps > 0, else velocity) | accel | velocity
+    timestep_criterion: str = "auto"
+    adaptive_max_steps: int = 1_000_000  # runaway-subdivision bound
+
+    # Analytic background field added to self-gravity (ops/external.py),
+    # e.g. "nfw:gm=1e13,rs=2e20" or "pointmass:gm=1.3e20 + uniform:gz=-9.8";
+    # "" = none.
+    external: str = ""
+
+    # Collision merging (ops/encounters.py): radius > 0 merges pairs closer
+    # than it inelastically every merge_every steps, from merge_k
+    # candidate pairs a check.
+    merge_radius: float = 0.0
+    merge_k: int = 16
+    merge_every: int = 100
 
     # I/O & observability
     log_dir: str = "gravity_logs_gpu"
@@ -181,6 +198,7 @@ class SimulationConfig:
             ("model", MODELS), ("integrator", INTEGRATORS),
             ("dtype", DTYPES), ("force_backend", FORCE_BACKENDS),
             ("p3m_short", P3M_SHORT_MODES),
+            ("timestep_criterion", TIMESTEP_CRITERIA),
         ):
             if getattr(self, name) not in choices:
                 raise ValueError(

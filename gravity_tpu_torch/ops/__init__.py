@@ -6,5 +6,8 @@ Gram-form direct sum and its kernel (``mxu_kernel``), the cell binning
 (``cells``) and the cutoff-radius cell list with its kernel (``nlist``,
 whose ``ewald`` kind is P3M's near field), the CIC mass assignment
 (``pm``) and the P3M solver (``p3m``), the kernels' build and load step
-(``cuda_build``) and the time integrators (``integrators``).
+(``cuda_build``), the time integrators (``integrators``), the state
+diagnostics (``diagnostics``) and the integration modes: multirate
+block timesteps (``multirate``), adaptive dt (``adaptive``), external
+fields (``external``) and collision merging (``encounters``).
 """

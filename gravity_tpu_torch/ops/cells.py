@@ -1,9 +1,10 @@
 """Cell-grid binning shared by the cell-list solvers.
 
 Counterpart of ``gravity_tpu/ops/cells.py`` (the parts the cell-list
-force backend and the P3M solver use). Points are binned into a cube grid
-over the source bounding cube (``ops/pm.py::bounding_cube``, re-exported
-here) and padded into a dense ``(side^3, cap)`` slot layout.
+force backend, the P3M solver and the merge grid use). Points are binned
+into a cube grid over the source bounding cube
+(``ops/pm.py::bounding_cube``, re-exported here) and padded into a dense
+``(side^3, cap)`` slot layout.
 
 Index tensors are int64 (the JAX package's are int32); their values are
 the same. The sort within a cell is stable, as ``jnp.argsort`` is, so the
@@ -21,6 +22,7 @@ __all__ = [
     "bin_to_cells",
     "bounding_cube",
     "build_padded_cells",
+    "build_padded_cells_indexed",
     "cell_ids",
     "grid_coords",
     "map_target_chunks",
@@ -115,6 +117,21 @@ def build_padded_cells(sorted_pos, sorted_mass, sorted_cell_ids,
     cells_pos = _scatter_cells(sorted_pos, slot, n_cells, cap)
     cells_mass = _scatter_cells(sorted_mass, slot, n_cells, cap)
     return cells_pos, cells_mass
+
+
+def build_padded_cells_indexed(sorted_pos, sorted_mass, sorted_idx,
+                               sorted_cell_ids, cell_start, n_cells: int,
+                               cap: int):
+    """:func:`build_padded_cells` plus a per-slot global-index block (fill
+    -1) and the count of in-grid bodies that overflowed their cell's cap
+    (a device scalar). Ids >= n_cells exclude a body from the structure;
+    ``cell_start`` then has n_cells + 1 entries."""
+    slot, kept = _cell_slots(sorted_cell_ids, cell_start, n_cells, cap)
+    cells_pos = _scatter_cells(sorted_pos, slot, n_cells, cap)
+    cells_mass = _scatter_cells(sorted_mass, slot, n_cells, cap)
+    cells_idx = _scatter_cells(sorted_idx, slot, n_cells, cap, fill=-1)
+    n_dropped = ((sorted_cell_ids < n_cells) & ~kept).sum()
+    return cells_pos, cells_mass, cells_idx, n_dropped
 
 
 def map_target_chunks(fn, targets, t_coords, chunk: int) -> torch.Tensor:

@@ -40,10 +40,17 @@ def kinetic_energy_f64(state: ParticleState) -> float:
 
 
 def total_energy(state: ParticleState, *, g: float = G,
-                 cutoff: float = CUTOFF_RADIUS,
-                 eps: float = 0.0) -> torch.Tensor:
-    return kinetic_energy(state) + potential_energy(
+                 cutoff: float = CUTOFF_RADIUS, eps: float = 0.0,
+                 external_phi=None) -> torch.Tensor:
+    """Kinetic plus self-gravity potential energy; with ``external_phi``
+    (``ops/external.py::parse_external(spec, kind="potential")``) also
+    the external field's sum(m phi(x)), so that an ``--external`` run
+    conserves what is reported."""
+    e = kinetic_energy(state) + potential_energy(
         state.positions, state.masses, g=g, cutoff=cutoff, eps=eps)
+    if external_phi is not None:
+        e = e + (state.masses * external_phi(state.positions)).sum()
+    return e
 
 
 def total_momentum(state: ParticleState) -> torch.Tensor:

@@ -202,3 +202,17 @@ def accelerations_vs_kernel(
     LIBRARY.check(status)
     LAUNCHES += 1
     return acc
+
+
+def make_direct_local_kernel(*, g: float = G, cutoff: float = CUTOFF_RADIUS,
+                             eps: float = 0.0):
+    """A (targets, sources, masses) -> accelerations closure over
+    :func:`accelerations_vs_kernel`: the (M, K) launches of the multirate
+    fast kicks (the counterpart of ``make_pallas_local_kernel``). Forward
+    only: the backward pass comes with ROADMAP Queue 1 item 9."""
+
+    def kernel(pos_i, pos_j, masses_j):
+        return accelerations_vs_kernel(pos_i, pos_j, masses_j, g=g,
+                                       cutoff=cutoff, eps=eps)
+
+    return kernel

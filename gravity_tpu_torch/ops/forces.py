@@ -47,6 +47,13 @@ def rounded(value: float, dtype: torch.dtype) -> float:
     return torch.tensor(value, dtype=dtype).item()
 
 
+def tiny(dtype: torch.dtype) -> float:
+    """The smallest safe divisor floor of a dtype, as a Python float: in
+    the normal range, so that a flushed subnormal never turns 0 / floor
+    into NaN (``gravity_tpu/ops/numerics.py``)."""
+    return rounded(1e-290 if dtype == torch.float64 else 1e-37, dtype)
+
+
 def _pair_weights(r2, masses_j, g, cutoff, eps, rcut=0.0):
     """w_j = G * m_j / r^3 with cutoff/softening semantics, given r^2;
     ``rcut`` > 0 also zeroes pairs with r > rcut."""

@@ -29,9 +29,12 @@ from .forces import rounded
 AccelFn = Callable[[torch.Tensor], torch.Tensor]
 
 
-def _step(value: float, state: ParticleState) -> float:
+def _step(value, state: ParticleState):
     """``value`` rounded to the state's dtype, as JAX rounds a weak-typed
-    Python scalar."""
+    Python scalar. A tensor step size (the adaptive loop's device ``dt``)
+    is taken as it is, in the state's dtype, never read on the host."""
+    if isinstance(value, torch.Tensor):
+        return value.to(state.dtype)
     return rounded(float(value), state.dtype)
 
 
@@ -125,6 +128,9 @@ FORCE_EVALS_PER_STEP = {
     "leapfrog": 1,
     "verlet": 1,
     "yoshida4": 3,
+    # One full (N, N) evaluation an outer step; the rectangular (K, N)
+    # fast kicks are not counted, so the reported pairs/s is conservative.
+    "multirate": 1,
 }
 
 

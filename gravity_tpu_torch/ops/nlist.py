@@ -668,8 +668,11 @@ def nlist_accelerations(positions, masses, **kwargs) -> torch.Tensor:
 def make_nlist_local_kernel(*, rcut: float, side: int, cap: int = DEFAULT_CAP,
                             t_cap: int = 0, g: float = G,
                             cutoff: float = CUTOFF_RADIUS, eps: float = 0.0):
-    """A (targets, sources, masses) -> accelerations closure. Forward only:
-    the backward pass comes with ROADMAP Queue 1 item 9."""
+    """A (targets, sources, masses) -> accelerations closure; its
+    ``sizing`` attribute is the as-run (side, cap, t_cap). ``t_cap`` below
+    ``cap`` bins the targets (a multirate fast rung) into fewer slots a
+    cell than the sources. Forward only: the backward pass comes with
+    ROADMAP Queue 1 item 9."""
 
     def kernel(pos_i, pos_j, masses_j):
         return nlist_accelerations_vs(
@@ -677,4 +680,5 @@ def make_nlist_local_kernel(*, rcut: float, side: int, cap: int = DEFAULT_CAP,
             t_cap=t_cap, g=g, cutoff=cutoff, eps=eps,
         )
 
+    kernel.sizing = (side, cap, t_cap or cap)
     return kernel

@@ -373,3 +373,113 @@ def test_simulator_runs_bf16_states_through_the_kernels(cuda):
         final = stats["final_state"]
         assert final.positions.dtype == torch.bfloat16
         assert bool(torch.isfinite(final.positions).all())
+
+
+# The multirate fast kicks: each kernel at the rectangular shapes its
+# path launches (make_local_kernel).
+
+
+@pytest.mark.parametrize("m", [2, 2048])
+def test_direct_kick_shapes_match_plain(cuda, m):
+    """nbody_direct at M = 2 and 2,048 targets (the star cluster's binary,
+    baseline-16k's auto k) against its 16,384 sources, mask-free: rows
+    at fp32 rtol 2e-5, the same bits on a repeat."""
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.simulation import (
+        KERNEL_BACKEND,
+        make_initial_state,
+        make_local_kernel,
+    )
+
+    cfg = PRESETS["baseline-16k"]
+    state = make_initial_state(cfg, cuda)
+    kick = make_local_kernel(cfg, KERNEL_BACKEND)
+    gen = torch.Generator().manual_seed(m)
+    idx = torch.randperm(state.n, generator=gen)[:m].to(cuda)
+    ti = state.positions[idx]
+    before = direct_kernel.LAUNCHES
+    got = kick(ti, state.positions, state.masses)
+    again = kick(ti, state.positions, state.masses)
+    assert direct_kernel.LAUNCHES == before + 2
+    want = accelerations_vs(ti, state.positions, state.masses, eps=cfg.eps)
+    torch.cuda.synchronize()
+    err = (got - want).double().norm(dim=1)
+    assert bool((err <= 2e-5 * want.double().norm(dim=1)).all())
+    assert torch.equal(got, again)
+
+
+def test_nlist_kick_at_t_cap_below_cap_matches_plain(cuda):
+    """The cell list's K-target kick bins its targets at the t_cap that
+    _occupancy_t_cap sizes below the cap; the pair tiles at that t_cap
+    against the plain version, 1e-4 of each row's term scale."""
+    from gravity_tpu_torch.simulation import _occupancy_t_cap
+
+    n, rcut, k = 20_000, 5e10, 2500
+    pos, masses = _system(n, torch.float32, cuda, seed=3)
+    side, cap = nlist.resolve_nlist_sizing(pos, rcut)
+    t_cap = _occupancy_t_cap(cap, k, n, pos, side, "test")
+    assert t_cap < cap
+    targets = pos[torch.randperm(n, device=cuda)[:k]]
+    origin, span, params, _, binned = nlist.source_cells(
+        pos, masses, rcut=rcut, side=side, cap=cap)
+    cells_pos, cells_mass, cell_count = binned[:3]
+    tcells = bin_to_cells(targets, torch.ones_like(targets[:, 0]),
+                          grid_coords(targets, origin, span, side), side,
+                          t_cap)
+    args = (tcells[0], tcells[2], cells_pos, cells_mass * 6.6743e-11,
+            cell_count, side, params)
+    kw = dict(cutoff=1e-10, eps=1e9, use_rcut=True, kind="newton")
+    before = nlist.LAUNCHES["newton"]
+    got = nlist.pair_cells_kernel(*args, **kw)
+    assert nlist.LAUNCHES["newton"] == before + 1
+    want = nlist.pair_cells_plain(*args, **kw)
+    scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (side**3, t_cap, 3)
+    _within_term_scale(got, want, scale, 1e-4)
+
+
+def test_mxu_kick_shape_matches_plain(cuda):
+    """nbody_mxu at M = 8,192 targets against 65,536 sources (the
+    flagship's auto k), held to its plain version at 1e-4 of each row's
+    sum of |w| |[x_j | 1]|, the same bits on a repeat."""
+    pos, masses = _system(65_536, torch.float32, cuda, seed=8)
+    ops = pos - pos.mean(dim=0)
+    xi = ops[torch.randperm(65_536, device=cuda)[:8192]]
+    gm = masses * 6.6743e-11
+    got = mxu_kernel.gram_acc4(xi, ops, gm, cutoff=1e-10, eps=1e9)
+    again = mxu_kernel.gram_acc4(xi, ops, gm, cutoff=1e-10, eps=1e9)
+    rows = torch.arange(0, 8192, 16, device=cuda)
+    want = mxu_kernel.gram_acc4_plain(xi[rows], ops, gm, cutoff=1e-10,
+                                      eps=1e9, bf16=False)
+    w = mxu_kernel._gram_weights(
+        xi[rows], mxu_kernel._norm2(xi[rows]), ops, mxu_kernel._norm2(ops),
+        gm, cutoff=1e-10, eps=1e9)
+    xj4 = torch.cat([ops.abs(), torch.ones_like(gm)[:, None]], 1)
+    scale = w @ xj4
+    torch.cuda.synchronize()
+    _within_term_scale(got[rows], want, scale, 1e-4)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("backend,count", [
+    ("pallas", lambda: direct_kernel.LAUNCHES),
+    ("pallas-mxu", lambda: mxu_kernel.LAUNCHES),
+    ("nlist", lambda: nlist.LAUNCHES["newton"]),
+])
+@pytest.mark.parametrize("rungs", [2, 3])
+def test_simulator_multirate_launches_its_kernels(cuda, backend, count,
+                                                  rungs):
+    """A multirate run launches the backend's kernel once for the carry,
+    then a step's full evaluation and its kicks: 1 + 4 (two rungs, sub 4)
+    or 1 + 4 + 2 (three rungs) a step."""
+    cfg = SimulationConfig(n=4096, steps=3, integrator="multirate",
+                           multirate_rungs=rungs, eps=1e9,
+                           force_backend=backend, nlist_rcut=(
+                               1e11 if backend == "nlist" else 0.0))
+    sim = Simulator(cfg)
+    before = count()
+    stats = sim.run()
+    per_step = 5 if rungs == 2 else 7
+    assert count() - before == stats["kernel_launches"] == 1 + 3 * per_step
+    assert bool(torch.isfinite(stats["final_state"].positions).all())

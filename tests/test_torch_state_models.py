@@ -132,14 +132,20 @@ def test_interop_round_trip_with_a_jax_state():
 
 @pytest.mark.parametrize("fields,item", [
     ({"sharding": "allgather"}, "Queue 1 item 5"),
-    ({"adaptive": True}, "Queue 1 item 4"),
+    # The integration modes are ported; on a bf16 state through the
+    # cell-list kernel each is still refused with the bf16 half of item 4.
+    ({"adaptive": True, "dtype": "bfloat16", "force_backend": "nlist",
+      "nlist_rcut": 5e10}, "Queue 1 item 4"),
     ({"periodic_box": 1e12}, "Queue 1 item 7"),
-    ({"merge_radius": 1e9}, "Queue 1 item 4"),
-    ({"external": "pointmass:gm=1e20"}, "Queue 1 item 4"),
+    ({"merge_radius": 1e9, "dtype": "bfloat16", "force_backend": "p3m"},
+     "Queue 1 item 4"),
+    ({"external": "pointmass:gm=1e20", "dtype": "bfloat16",
+      "force_backend": "nlist", "nlist_rcut": 5e10}, "Queue 1 item 4"),
     ({"checkpoint_every": 10}, "Queue 1 item 2"),
     ({"pm_assignment": "tsc"}, "Queue 1 item 7"),
     ({"trajectory_format": "native"}, "Queue 1 item 3"),
-    ({"integrator": "multirate"}, "Queue 1 item 4"),
+    ({"integrator": "multirate", "dtype": "bfloat16",
+      "force_backend": "nlist", "nlist_rcut": 5e10}, "Queue 1 item 4"),
     ({"dtype": "bfloat16", "force_backend": "nlist", "nlist_rcut": 5e10},
      "Queue 1 item 4"),
     ({"model": "grf"}, "Queue 1 item 7"),
@@ -147,6 +153,10 @@ def test_interop_round_trip_with_a_jax_state():
     ({"force_backend": "pm"}, "Queue 1 item 7"),
     ({"p3m_short": "slice"}, "Queue 1 item 7"),
     ({"nlist_mesh": "halo"}, "Queue 1 item 5"),
+    # What stays unported of the integration modes: the sharded multirate
+    # forms (item 5) and merging in a periodic box (item 7).
+    ({"integrator": "multirate", "sharding": "allgather"}, "Queue 1 item 5"),
+    ({"merge_radius": 1e9, "periodic_box": 1e12}, "Queue 1 item 7"),
 ])
 def test_unported_features_are_refused(fields, item):
     """A JAX config asking for a feature no slice has ported is refused
@@ -176,6 +186,43 @@ def test_ported_backends_construct(fields):
     cfg = SimulationConfig.from_json(json.dumps(data))
     for name, value in fields.items():
         assert getattr(cfg, name) == value
+
+
+@pytest.mark.parametrize("fields", [
+    {"integrator": "multirate", "multirate_k": 64, "multirate_sub": 3},
+    {"integrator": "multirate", "multirate_rungs": 4, "force_backend": "nlist",
+     "nlist_rcut": 5e10},
+    {"adaptive": True, "eta": 0.01, "timestep_criterion": "velocity",
+     "adaptive_max_steps": 5000, "integrator": "leapfrog"},
+    {"adaptive": True, "integrator": "multirate", "force_backend":
+     "pallas-mxu", "eps": 1e9},
+    {"external": "nfw:gm=1e13,rs=2e20 + uniform:gz=-9.8"},
+    {"merge_radius": 1e9, "merge_k": 32, "merge_every": 10},
+])
+def test_integration_modes_parse_and_round_trip(fields):
+    """Multirate, adaptive dt, external fields and merging are ported: a
+    JAX config naming them carries over and round-trips."""
+    data = json.loads(JaxConfig().to_json())
+    data.update(fields)
+    cfg = SimulationConfig.from_json(json.dumps(data))
+    for name, value in fields.items():
+        assert getattr(cfg, name) == value
+    assert SimulationConfig.from_json(cfg.to_json()) == cfg
+
+
+def test_adaptive_refuses_merging_as_jax_does():
+    """The JAX package refuses adaptive dt with collision merging when
+    the run starts (a ValueError, not a NotPortedError): so does the
+    port."""
+    from gravity_tpu_torch.simulation import Simulator
+
+    cfg = SimulationConfig(n=8, adaptive=True, merge_radius=1e9,
+                           integrator="leapfrog")
+    with pytest.raises(ValueError, match="does not support collision") as e:
+        Simulator(cfg, device="cpu").run()
+    assert not isinstance(e.value, NotPortedError)
+    with pytest.raises(ValueError, match="unknown timestep_criterion"):
+        SimulationConfig(timestep_criterion="energy")
 
 
 def test_jax_default_config_and_presets_carry_over():
