@@ -5,8 +5,8 @@
 
 Builds the three CUDA kernels from the checkout (one nvcc each, all
 started together), holds each against its plain PyTorch version on the
-card (the cell-list kernel in both of its pair kinds, the direct sum in
-fp32, fp64 and bf16), and drives each
+card (the cell-list kernel in both of its pair kinds and untruncated,
+the direct sum in fp32, fp64 and bf16), and drives each
 kernel's path at full size through the Simulator, with every launch count
 set to 0 just before the path and read just after:
 
@@ -38,11 +38,19 @@ set to 0 just before the path and read just after:
   ``baseline-16k --adaptive``, ``baseline-16k`` under an external
   Plummer halo, and merging on ``reference-cuda`` (the grid) and
   ``baseline-16k`` (the chunked scan), each cut to 100 steps; each fast
-  kick shape held to its plain version.
+  kick shape held to its plain version;
+- the octree: ``baseline-1m`` (the 1M disk, G = 1, leaf_cap 32, depth 7
+  fit to the state) with ``--tree-near nlist``, cut to 50 of 500 steps,
+  through ``nlist_pair``'s untruncated form (``nlist_pair/near``), its
+  forces held to ``nbody_direct`` at 4,096 targets and to the gather
+  near field on the same state (fp32 and fp64, each piece of the near
+  field also taken out in turn to show the bars catch it); the preset's
+  own gather near field (3 steps, no kernel); and multirate (10 steps).
 
 It then times each kernel at its path's shapes beside its bound (the
 direct sum masked at N = 50,000, mask-free at N = 16,384 and 65,536, and
-its bf16 form at both) and beside
+its bf16 form at both; the tree's near field at its 2,097,152 leaves,
+and the same launch on an empty grid) and beside
 the issue floor of its inner loop's SASS instructions a pair. Each phase
 prints one JSON line (the ``done`` line carries ``wall_s``); the last two
 lines are the kernels table and ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -269,6 +277,7 @@ def read_counts() -> dict:
     return {"nbody_direct": direct_kernel.LAUNCHES,
             "nlist_pair": nlist.LAUNCHES["newton"],
             "nlist_pair/ewald": nlist.LAUNCHES["ewald"],
+            "nlist_pair/near": nlist.LAUNCHES["near"],
             "nbody_mxu": mxu_kernel.LAUNCHES}
 
 
@@ -1191,16 +1200,19 @@ def phase_mxu_path() -> dict:
 
 def tile_bytes(t_count, s_count, side: int, t_cap: int, cap: int,
                item: int, n_params: int) -> int:
-    """Bytes the cell-list kernel must move at these counts: the dense
-    (side^3, t_cap, 3) output written once, both count arrays and the
-    params read once, and only the real target slots (3 coordinates) and
-    source slots (3 coordinates and G*m) read once; padded slots are
-    never read."""
+    """Bytes the cell-list function must move at these counts: both count
+    arrays and the params read once, the real target slots (3
+    coordinates) read once and their output written once, and the real
+    source slots (3 coordinates and G*m) read once. Padded slots are
+    neither needed nor read: the zeros the kernel writes into the dense
+    (side^3, t_cap, 3) output past each count (805 MB at the octree's
+    side 128, where under 1% of the leaves hold bodies) are its layout's
+    cost, not the function's."""
     n_cells = side**3
     targets = int(t_count.clamp_max(t_cap).sum())
     sources = int(s_count.clamp_max(cap).sum())
-    return ((n_cells * t_cap * 3 + targets * 3 + sources * 4 + n_params)
-            * item + 2 * n_cells * 8)
+    return ((targets * 6 + sources * 4 + n_params) * item
+            + 2 * n_cells * t_count.element_size())
 
 
 def bound(pairs, flops_per_pair, n_bytes, device,
@@ -2195,7 +2207,7 @@ def logged_run(sim, name: str, *, fixed_steps=None) -> tuple:
     for section in sections:
         check(section in log, f"{name}: log lacks {section!r}")
     key = {"nbody_direct": "nbody_direct", "nbody_mxu": "nbody_mxu",
-           "nlist": "nlist_pair"}[sim.backend]
+           "nlist": "nlist_pair", "tree": "nlist_pair/near"}[sim.backend]
     check(stats["kernel_launches"] == counts[key],
           f"{name}: stats count {stats['kernel_launches']}, counts {counts}")
     return stats, counts
@@ -2767,6 +2779,568 @@ def phase_merge_path(device: dict) -> dict:
     emit(record)
     return record
 
+# The octree run: the baseline-1m preset (the JAX package's 1M disk in
+# galactic units, G = 1, dt 2e-3, eps 0.05, leapfrog, leaf_cap 32, the
+# depth fit to the state) with --tree-near nlist, cut to 50 of its 500
+# steps; with the preset's own gather near field, 3 steps; multirate, 10.
+TREE_STEPS = 50
+TREE_GATHER_STEPS = 3
+TREE_MULTIRATE_STEPS = 10
+TREE_SAMPLE = 4096
+# The JAX suite's bars for the tree against the exact sum
+# (tests/test_tree.py:86-87: a 2,048-body disk at depth 5, where the leaf
+# grid resolves the disk): median relative < 0.05, p90 < 0.2. At
+# baseline-1m's own sizing the depth rails at 7 and ~86% of the bodies
+# lie past leaf_cap in their leaf, so most of the near field is overflow
+# monopoles: the JAX package measured a median of 0.0563 and a p90 of
+# 0.098 there (chip_logs/cross_solver_1m_disk.log, CPU, fp64 oracle, 1,024
+# targets, gather near field). The 1M path keeps the p90 bar and holds
+# the median to 0.1, that measured class plus the tile engine's target
+# fallback; the 2,048-body disk holds both bars as stated.
+TREE_MEDIAN_BAR = 0.05
+TREE_P90_BAR = 0.2
+TREE_1M_MEDIAN_BAR = 0.1
+# Both near fields take the same pairs where nothing overflows: the JAX
+# suite's case (tests/test_nlist.py:291-305: 512 bodies over 1e12 m,
+# 1e25-1e26 kg, depth 3, leaf_cap 32, eps 1e9 m), max |delta a| < 1e-5 of
+# the mean |a|. The 1M random cube at depth 7 (no leaf over the cap) is
+# held to it in float64; in float32 its worst target is a close pair whose
+# |a| is ~10^3 the mean, so that metric reads the pair's rounding there.
+NEAR_MODES_BAR = 1e-5
+# The two near fields on the 1M path's final state. A target in its
+# leaf's first t_cap slots takes the same pairs and the same remainder
+# monopoles in both, so its gap is rounding: held per target in float64,
+# and by its median in float32. A target past t_cap takes the tile
+# engine's whole-cell fallback in place of the gather's pairs: the median
+# gap over all targets is that fallback's (0.28% on the first runs).
+NEAR_GAP_IN_SLOT_F64_BAR = 1e-10
+NEAR_GAP_IN_SLOT_F32_MEDIAN_BAR = 1e-5
+NEAR_GAP_MEDIAN_BAR = 0.01
+
+
+@functools.lru_cache(maxsize=1)
+def tree_state():
+    """The baseline-1m initial disk on the card; made once."""
+    import torch
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    return make_initial_state(PRESETS["baseline-1m"], torch.device("cuda", 0))
+
+
+def tree_depth_of(positions) -> int:
+    """The depth the path fits to a state (recommended_depth_data at
+    leaf_cap 32; it rails at 7 on the 1M disk, which tree_path records)."""
+    import warnings
+
+    from gravity_tpu_torch.ops import tree
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return tree.recommended_depth_data(positions, 32)
+
+
+def tree_tiles(positions, masses, depth: int, leaf_cap: int = 32,
+               g: float = 1.0):
+    """The near field's pair-tile kernel arguments at a state (targets =
+    sources), as tree_accelerations_vs and nlist_near_field build them."""
+    import torch
+
+    from gravity_tpu_torch.ops import cells, tree
+
+    side = 1 << depth
+    _, origin, span, coords = tree.build_octree(positions, masses, depth)
+    cells_pos, cells_mass, leaf_count, *_ = cells.bin_to_cells(
+        positions, masses, coords, side, leaf_cap)
+    t_coords = cells.grid_coords(positions, origin, span, side)
+    tcells_pos, _, t_count, *_ = cells.bin_to_cells(
+        positions, torch.ones_like(positions[:, 0]), t_coords, side, leaf_cap)
+    return (tcells_pos, t_count, cells_pos, g * cells_mass, leaf_count, side,
+            positions.new_zeros(1))
+
+
+def tree_occupancy(args, cap: int) -> dict:
+    """The leaf grid's load at these tiles, and the kernel's warp items
+    (a cell's 16 target slots each) against those that hold pairs."""
+    from gravity_tpu_torch.ops import nlist
+
+    t_count, side = args[1], args[5]
+    occupied = int((t_count > 0).sum())
+    return {
+        "side": side, "leaves": side**3, "occupied_leaves": occupied,
+        "mean_occupied_load": float(t_count.sum()) / occupied,
+        "max_occupancy": int(t_count.max()),
+        "overflowing_leaves": int((t_count > cap).sum()),
+        "bodies_past_cap_share": float((t_count - cap).clamp_min(0).sum())
+        / float(t_count.sum()),
+        "warp_items": side**3 * -(-cap // 16),
+        "warp_items_with_pairs": int(((t_count.clamp_max(cap) + 15) // 16)
+                                     .sum()),
+        "pairs_evaluated": nlist.real_pairs(t_count, args[4], side, cap, cap),
+    }
+
+
+def phase_tree_kernel_vs_plain() -> float:
+    """nlist_pair's untruncated newton form (the octree's near field) on
+    the leaf blocks of the baseline-1m disk at the depth the path picks,
+    against the plain version, in fp32 and fp64; a second launch gives
+    the same bits. Returns the fp32 max abs error."""
+    import torch
+
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS
+    from gravity_tpu_torch.ops import nlist
+
+    state = tree_state()
+    depth = tree_depth_of(state.positions)
+    kw = dict(cutoff=CUTOFF_RADIUS, eps=0.05, use_rcut=False, kind="newton")
+    errors = {}
+    for dtype_name in ("float32", "float64"):
+        st = state if dtype_name == "float32" else state.astype(torch.float64)
+        args = tree_tiles(st.positions, st.masses, depth)
+        kern = nlist.pair_cells_kernel(*args, **kw)
+        again = nlist.pair_cells_kernel(*args, **kw)
+        plain = nlist.pair_cells_plain(*args, **kw)
+        scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(kern, again),
+              f"tree tiles {dtype_name}: two launches differ")
+        t_cap = args[0].shape[1]
+        empty = (torch.arange(t_cap, device=kern.device)[None, :]
+                 >= args[1].clamp_max(t_cap)[:, None])
+        check(bool((kern[empty] == 0).all()),
+              f"tree tiles {dtype_name}: nonzero output past a count")
+        record = compare(f"baseline-1m leaf blocks depth {depth}",
+                         kern.reshape(-1, 3), plain.reshape(-1, 3),
+                         scale.reshape(-1, 3), dtype_name,
+                         reason=NLIST_REASON)
+        record.update(tree_occupancy(args, 32), depth=depth,
+                      same_bits_on_repeat=True)
+        emit({"phase": "tree_kernel_vs_plain", **record})
+        errors[dtype_name] = record["max_abs_err"]
+        del kern, again, plain, scale, args
+    return errors["float32"]
+
+
+def rel_errors(acc, ref) -> dict:
+    """Per-target relative error of ``acc`` against ``ref`` (float64)."""
+    import torch
+
+    rel = (acc.double() - ref).norm(dim=1) / ref.norm(dim=1)
+    return {"median": float(rel.median()),
+            "p90": float(torch.quantile(rel, 0.9)),
+            "p99": float(torch.quantile(rel, 0.99)),
+            "max": float(rel.max())}
+
+
+def past_t_cap(positions, masses, depth: int, t_cap: int = 32):
+    """Which targets (= sources) lie past their leaf's first ``t_cap``
+    slots in stable sort order, in the caller's order: the targets the
+    tile engine sends through its whole-cell fallback."""
+    import torch
+
+    from gravity_tpu_torch.ops import cells, tree
+
+    side = 1 << depth
+    _, origin, span, _ = tree.build_octree(positions, masses, depth)
+    t_coords = cells.grid_coords(positions, origin, span, side)
+    _, _, _, start, order, sorted_ids = cells.bin_to_cells(
+        positions, torch.ones_like(positions[:, 0]), t_coords, side, t_cap)
+    slot = (torch.arange(positions.shape[0], device=positions.device)
+            - start[sorted_ids])
+    past = torch.empty_like(slot, dtype=torch.bool)
+    past[order] = slot >= t_cap
+    return past
+
+
+def near_gap(a_nlist, a_gather, past) -> dict:
+    """The two near fields' per-target relative gap, over all targets and
+    apart for the targets in their leaf's slots and past t_cap."""
+    rel = ((a_nlist - a_gather).double().norm(dim=1)
+           / a_gather.double().norm(dim=1))
+    record = {"median_rel": float(rel.median())}
+    for name, sel in (("in_slot", ~past), ("past_t_cap", past)):
+        part = rel[sel]
+        record[name] = {"targets": int(sel.sum()),
+                        "median_rel": float(part.median()),
+                        "max_rel": float(part.max())}
+    return record
+
+
+def near_gap_faults(gaps: dict) -> list:
+    """The near-mode bars a float32 reading of :func:`near_gap` breaks."""
+    faults = []
+    if gaps["in_slot"]["median_rel"] >= NEAR_GAP_IN_SLOT_F32_MEDIAN_BAR:
+        faults.append("in-slot median gap")
+    if gaps["median_rel"] >= NEAR_GAP_MEDIAN_BAR:
+        faults.append("median gap")
+    return faults
+
+
+def broken_near_fields(positions, masses, kw: dict):
+    """The tile engine's forces with one piece of its near field taken out
+    for one evaluation (the piece's function in ``ops/nlist.py`` replaced
+    by zeros of its output's shape): what the checks read when that piece
+    is broken. Yields (piece, accelerations)."""
+    from unittest import mock
+
+    import torch
+
+    from gravity_tpu_torch.ops import nlist, tree
+
+    def zeros(first, *args, **kwargs):
+        return torch.zeros_like(first)
+
+    for piece, name in (("near_tiles", "pair_cells_kernel"),
+                        ("remainder", "_remainder_cells"),
+                        ("target_fallback", "_overflow_targets")):
+        with mock.patch.object(nlist, name, zeros):
+            acc = tree.tree_accelerations(positions, masses, **kw)
+        yield piece, acc
+
+
+def phase_tree_path(device: dict) -> dict:
+    """`run --preset baseline-1m --tree-near nlist` through the Simulator
+    at N = 1,048,576, cut to 50 of its 500 steps: the near field's
+    launches against the force evaluations, the peak device memory, the
+    energy drift by the tree potential (reported), and the forces on the
+    final state in both near modes against nbody_direct at 4,096 sampled
+    targets and against each other (float32 and float64, the targets in
+    their leaf's slots apart), the latter also with each piece of the
+    near field taken out in turn, which the near-mode bars must catch;
+    then the JAX suite's 2,048-body disk on the card."""
+    import dataclasses
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
+    from gravity_tpu_torch.ops import tree
+    from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
+    from gravity_tpu_torch.simulation import (
+        Simulator,
+        _tree_kwargs,
+        make_initial_state,
+    )
+
+    config = dataclasses.replace(PRESETS["baseline-1m"], tree_near="nlist",
+                                 steps=TREE_STEPS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = Simulator(config)
+    check(sim.backend == "tree", f"backend {sim.backend}")
+    t0 = time.perf_counter()
+    e0 = sim.energy()
+    energy_s = time.perf_counter() - t0
+    check(isinstance(e0, np.float64), f"energy is {type(e0)}, not float64")
+    torch.cuda.reset_peak_memory_stats()
+    stats, counts = logged_run(sim, "tree_path", fixed_steps=config.steps)
+    peak = torch.cuda.max_memory_allocated()
+    evals = config.steps + 1
+    check(counts["nlist_pair/near"] == evals,
+          f"{counts['nlist_pair/near']} near-field launches for {evals} "
+          "force evaluations")
+    final = stats["final_state"]
+    drift = float(abs((sim.energy() - e0) / e0))
+
+    pos, masses = final.positions, final.masses
+    gen = torch.Generator().manual_seed(17)
+    idx = torch.randperm(config.n, generator=gen)[:TREE_SAMPLE].to(pos.device)
+    ref = accelerations_vs_kernel(pos[idx].contiguous(), pos, masses,
+                                  g=config.g, eps=config.eps).double()
+    kws = {near: _tree_kwargs(dataclasses.replace(config, tree_near=near),
+                              sim.tree_depth)
+           for near in ("nlist", "gather")}
+    accs, errors = {}, {}
+    for near, kw in kws.items():
+        accs[near] = tree.tree_accelerations(pos, masses, **kw)
+        check(bool(torch.isfinite(accs[near]).all()),
+              f"tree {near}: forces not finite")
+        errors[near] = rel_errors(accs[near][idx], ref)
+    gap = (accs["nlist"] - accs["gather"]).double()
+    mean_a = accs["gather"].double().norm(dim=1).mean()
+    # The two near fields on this state, in float32 and float64, apart for
+    # the targets in their leaf's slots (the same sums in both modes).
+    past = past_t_cap(pos, masses, sim.tree_depth, config.tree_leaf_cap)
+    gaps = {"float32": near_gap(accs["nlist"], accs["gather"], past)}
+    pos64, masses64 = pos.double(), masses.double()
+    acc64 = {near: tree.tree_accelerations(pos64, masses64, **kw)
+             for near, kw in kws.items()}
+    gaps["float64"] = near_gap(
+        acc64["nlist"], acc64["gather"],
+        past_t_cap(pos64, masses64, sim.tree_depth, config.tree_leaf_cap))
+    del acc64, pos64, masses64
+    # What the checks read with one piece of the near field taken out.
+    broken = {}
+    for piece, acc in broken_near_fields(pos, masses, kws["nlist"]):
+        reading = {"vs_nbody_direct": rel_errors(acc[idx], ref),
+                   "near_modes_gap": near_gap(acc, accs["gather"], past)}
+        reading["near_gap_faults"] = near_gap_faults(
+            reading["near_modes_gap"])
+        broken[piece] = reading
+    small = make_initial_state(SimulationConfig(model="disk", n=2048),
+                               pos.device)
+    small_acc = tree.tree_accelerations(small.positions, small.masses,
+                                        depth=5, g=1.0, eps=0.05,
+                                        near_mode="nlist")
+    small_ref = accelerations_vs_kernel(small.positions, small.positions,
+                                        small.masses, g=1.0,
+                                        eps=0.05).double()
+    suite = rel_errors(small_acc, small_ref)
+    record = {
+        "phase": "tree_path", "preset": "baseline-1m", "tree_near": "nlist",
+        "n": config.n, "steps": config.steps, "cut_from": 500,
+        "depth": sim.tree_depth, "leaf_cap": config.tree_leaf_cap,
+        "launches": counts["nlist_pair/near"], "force_evaluations": evals,
+        "counts": counts, "total_s": stats["total_time_s"],
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "peak_memory_bytes": peak, "energy_drift": drift,
+        "energy_eval_s": energy_s,
+        "vs_nbody_direct_targets": int(idx.numel()),
+        "vs_nbody_direct": errors,
+        "near_modes_gap_max_over_mean_a": float(gap.abs().max() / mean_a),
+        "near_modes_gap": gaps,
+        "near_modes_gap_bars": {
+            "float64_in_slot_max_rel": NEAR_GAP_IN_SLOT_F64_BAR,
+            "float32_in_slot_median_rel": NEAR_GAP_IN_SLOT_F32_MEDIAN_BAR,
+            "float32_median_rel": NEAR_GAP_MEDIAN_BAR},
+        "near_field_piece_taken_out": broken,
+        "jax_suite_disk_2048_depth5_nlist": suite,
+        "warnings": [str(w.message)[:160] for w in caught],
+        "device": stats["device"], "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    check(suite["median"] < TREE_MEDIAN_BAR and suite["p90"] < TREE_P90_BAR,
+          f"tree on the 2,048-body disk: {suite}")
+    got = errors["nlist"]
+    check(got["median"] < TREE_1M_MEDIAN_BAR and got["p90"] < TREE_P90_BAR,
+          f"tree nlist vs nbody_direct at 1M: {got}")
+    check(gaps["float64"]["in_slot"]["max_rel"] < NEAR_GAP_IN_SLOT_F64_BAR,
+          f"near modes, in-slot targets, float64: {gaps['float64']}")
+    faults = near_gap_faults(gaps["float32"])
+    check(not faults, f"near modes, float32: {faults}: {gaps['float32']}")
+    for piece, reading in broken.items():
+        check(reading["near_gap_faults"],
+              f"the near-mode bars pass with the {piece} taken out: "
+              f"{reading}")
+    return record
+
+
+def phase_tree_gather_path(device: dict) -> dict:
+    """`run --preset baseline-1m` (the gather near field, plain PyTorch,
+    as in the JAX package) for 3 steps; then both near fields on states
+    where nothing overflows, held to 1e-5 of the mean |a|: the JAX
+    suite's 512-body cloud, and the 1M random cube at depth 7 in float64
+    (in float32 reported, with its worst target's relative gap)."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
+    from gravity_tpu_torch.constants import G
+    from gravity_tpu_torch.ops import tree
+    from gravity_tpu_torch.simulation import Simulator, make_initial_state
+
+    config = dataclasses.replace(PRESETS["baseline-1m"],
+                                 steps=TREE_GATHER_STEPS)
+    check(config.tree_near == "gather", "the preset's near field")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sim = Simulator(config)
+    stats, counts = logged_run(sim, "tree_gather_path",
+                               fixed_steps=config.steps)
+    check(not any(counts.values()),
+          f"the gather near field launched kernels: {counts}")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(23)
+    cloud = torch.rand(512, 3, generator=gen, dtype=torch.float64) * 1e12
+    cloud_m = 1e25 + 9e25 * torch.rand(512, generator=gen,
+                                        dtype=torch.float64)
+    cube = make_initial_state(SimulationConfig(model="random",
+                                               n=1_048_576), dev)
+    agreement = {}
+    for name, pos, masses, depth in (
+            ("cloud_512", cloud.float().to(dev), cloud_m.float().to(dev), 3),
+            ("random_cube_1m", cube.positions, cube.masses, 7),
+            ("random_cube_1m_fp64", cube.positions.double(),
+             cube.masses.double(), 7)):
+        kw = dict(depth=depth, leaf_cap=32, g=G, eps=1e9)
+        a_g = tree.tree_accelerations(pos, masses, near_mode="gather", **kw)
+        a_n = tree.tree_accelerations(pos, masses, near_mode="nlist", **kw)
+        args = tree_tiles(pos, masses, depth, g=G)
+        gap = (a_n - a_g).double()
+        norm = a_g.double().norm(dim=1)
+        worst = int(gap.norm(dim=1).argmax())
+        agreement[name] = {
+            "n": pos.shape[0], "depth": depth, "dtype": str(pos.dtype),
+            "max_occupancy": int(args[1].max()),
+            "max_over_mean_a": float(gap.abs().max() / norm.mean()),
+            "worst_target_a_over_mean_a": float(norm[worst] / norm.mean()),
+            "max_rel": float((gap.norm(dim=1) / norm).max()),
+        }
+        del a_g, a_n, args
+    record = {
+        "phase": "tree_gather_path", "preset": "baseline-1m",
+        "tree_near": "gather", "steps": config.steps, "cut_from": 500,
+        "depth": sim.tree_depth, "counts": counts,
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "near_modes_without_overflow": agreement,
+        "bar": NEAR_MODES_BAR, "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    for name in ("cloud_512", "random_cube_1m_fp64"):
+        rec = agreement[name]
+        check(rec["max_occupancy"] <= 32, f"{name} overflows")
+        check(rec["max_over_mean_a"] < NEAR_MODES_BAR,
+              f"{name}: near modes differ by {rec['max_over_mean_a']:.3e} "
+              "of the mean |a| where nothing overflows")
+    return record
+
+
+def phase_tree_multirate_path(device: dict) -> dict:
+    """baseline-1m --tree-near nlist --integrator multirate (two rungs, k
+    = n / 8, sub 4), 10 steps: each fast kick launches the near field at
+    the fast targets against all sources."""
+    import dataclasses
+    import warnings
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = dataclasses.replace(PRESETS["baseline-1m"], tree_near="nlist",
+                                 integrator="multirate",
+                                 steps=TREE_MULTIRATE_STEPS)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sim = Simulator(config)
+    stats, counts = logged_run(sim, "tree_multirate_path",
+                               fixed_steps=config.steps)
+    check(counts["nlist_pair/near"] == 1 + 5 * config.steps,
+          f"{counts['nlist_pair/near']} near-field launches for "
+          f"{config.steps} two-rung steps")
+    record = {
+        "phase": "tree_multirate_path", "preset": "baseline-1m",
+        "tree_near": "nlist", "steps": config.steps, "cut_from": 500,
+        "k": sim._multirate_plan()[0], "launches": counts["nlist_pair/near"],
+        "counts": counts, "ms_per_step": 1e3 * stats["avg_step_s"],
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    return record
+
+
+def tree_force_eval(state, depth: int):
+    """One baseline-1m --tree-near nlist force evaluation of ``state``."""
+    import dataclasses
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.ops import tree
+    from gravity_tpu_torch.simulation import _tree_kwargs
+
+    config = dataclasses.replace(PRESETS["baseline-1m"], tree_near="nlist")
+    return tree.tree_accelerations(state.positions, state.masses,
+                                   **_tree_kwargs(config, depth))
+
+
+def phase_timing_tree(device: dict, build: dict) -> dict:
+    """The near field's kernel at the baseline-1m leaf blocks by CUDA
+    events, beside its bound for the pairs these counts need, its issue
+    floor, its plain version, the same launch on an empty grid of the same
+    side (what the items without pairs cost), and a whole evaluation."""
+    import torch
+
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS
+    from gravity_tpu_torch.ops import nlist
+
+    state = tree_state()
+    depth = tree_depth_of(state.positions)
+    args = tree_tiles(state.positions, state.masses, depth)
+    side = args[5]
+    empty_args = (args[0], torch.zeros_like(args[1]), args[2], args[3],
+                  torch.zeros_like(args[4]), side, args[6])
+    kw = dict(cutoff=CUTOFF_RADIUS, eps=0.05, use_rcut=False, kind="newton")
+
+    def kernel():
+        nlist.pair_cells_kernel(*args, **kw)
+
+    def empty_grid():
+        nlist.pair_cells_kernel(*empty_args, **kw)
+
+    def plain():
+        nlist.pair_cells_plain(*args, **kw)
+
+    def force_eval():
+        tree_force_eval(state, depth)
+
+    cuda_ms(kernel, 3)
+    ms = cuda_ms(kernel, 20)
+    cuda_ms(empty_grid, 3)
+    empty_ms = cuda_ms(empty_grid, 20)
+    cuda_ms(plain, 1)
+    plain_ms = cuda_ms(plain, 3)
+    ms_again = cuda_ms(kernel, 20)
+    cuda_ms(force_eval, 1)
+    eval_ms = cuda_ms(force_eval, 3)
+    occupancy = tree_occupancy(args, 32)
+    pairs = occupancy["pairs_evaluated"]
+    n_bytes = tile_bytes(args[1], args[4], side, 32, 32, 4, 0)
+    instrs = per_pair(build, "nlist_pair", "nlist_pair_kernel<fLi0ELb0ELb1>")
+    record = {
+        "phase": "timing_tree", "kernel": "nlist_pair/near", "depth": depth,
+        "n": state.n, "dtype": "float32", **occupancy,
+        "ms": ms, "ms_repeat": ms_again, "empty_grid_ms": empty_ms,
+        "plain_ms": plain_ms,
+        **bound(pairs, NLIST_FLOPS_PER_PAIR, n_bytes, device),
+        "bytes": n_bytes,
+        "sass_instrs_per_pair": instrs,
+        "issue_floor_ms": issue_floor_ms(pairs, instrs, device),
+        "force_eval_ms": eval_ms,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes a cell-list "
+                        "pair sum",
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    record["share_of_bound"] = record["bound_ms"] / ms
+    emit(record)
+    return record
+
+
+def phase_profile_tree() -> dict:
+    """Where a baseline-1m --tree-near nlist force evaluation's device
+    time goes: the PyTorch profiler over 2 evaluations, device time by
+    kernel and the device span of each stage ops/tree.py and
+    nlist_near_field name (tree.build, tree.far, tree.bin_targets,
+    tree.near_tiles, tree.remainder, tree.overflow_targets) over one
+    evaluation (its ~20k launches keep the profiler busy for tens of
+    seconds); the peak device memory of one evaluation."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    state = tree_state()
+    depth = tree_depth_of(state.positions)
+    tree_force_eval(state, depth)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    tree_force_eval(state, depth)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    evals = 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(evals):
+            tree_force_eval(state, depth)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0) / evals
+    record = profile_record(prof, "tree.", evals, wall_ms)
+    record.update(phase="profile_tree", depth=depth,
+                  peak_memory_bytes=peak, memory_before_eval_bytes=base)
+    emit(record)
+    return record
+
 
 def main() -> int:
     try:
@@ -2792,6 +3366,7 @@ def main() -> int:
     nlist_err = phase_nlist_kernel_vs_plain()
     mxu_err = phase_mxu_kernel_vs_plain()
     p3m_err = phase_p3m_kernel_vs_plain()
+    tree_err = phase_tree_kernel_vs_plain()
     main_path = phase_main_path()
     nlist_path = phase_nlist_main_path()
     mxu_path = phase_mxu_path()
@@ -2806,14 +3381,19 @@ def main() -> int:
     phase_adaptive_path(device, base16k)
     phase_external_path(device)
     phase_merge_path(device)
+    tree_path = phase_tree_path(device)
+    phase_tree_gather_path(device)
+    tree_mr = phase_tree_multirate_path(device)
     phase_small_reference()
     phase_other_entry_points()
     timing = phase_timing(device, build)
     t_nlist = phase_timing_nlist(device, build)
     t_mxu = phase_timing_mxu(device, build)
     t_p3m = phase_timing_p3m(device)
+    t_tree = phase_timing_tree(device, build)
     phase_profile_nlist()
     phase_profile_p3m()
+    phase_profile_tree()
     emit({"phase": "done", "wall_s": time.perf_counter() - t0,
           "kernel_share_of_main_path_step":
               timing["ms"] / main_path["ms_per_step"],
@@ -2833,7 +3413,11 @@ def main() -> int:
               "baseline16k_ladder": multirate["ladder"]["ms_per_step"],
               "nlist": nlist_mr["ms_per_step"],
               "pallas_mxu": mxu_mr["ms_per_step"]},
-          "star_cluster_ordering_holds": star["ordering_holds"]})
+          "star_cluster_ordering_holds": star["ordering_holds"],
+          "tree_ms_per_step": tree_path["ms_per_step"],
+          "tree_multirate_ms_per_step": tree_mr["ms_per_step"],
+          "tree_near_kernel_share_of_step":
+              t_tree["ms"] / tree_path["ms_per_step"]})
     kernels = [
         ("nbody_direct", "gravity_tpu/ops/pallas_forces.py:45",
          main_path["launches"], max_abs_err, timing),
@@ -2857,6 +3441,10 @@ def main() -> int:
         ("nbody_mxu/kick", "gravity_tpu/ops/pallas_forces_mxu.py:85",
          mxu_mr["launches"], mxu_mr["check"]["max_abs_err"],
          mxu_mr["timing"]),
+        # The octree's near field (nlist_near_field): the untruncated
+        # newton form.
+        ("nlist_pair/near", "gravity_tpu/ops/pallas_nlist.py:292",
+         tree_path["launches"], tree_err, t_tree),
     ]
     emit({"kernels": [{
         "name": name, "route": "cuda",

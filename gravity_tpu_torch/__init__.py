@@ -20,7 +20,9 @@ integration modes: multirate block timesteps whose fast kicks launch
 each kernel at a rectangular shape (``ops/multirate.py``,
 ``simulation.make_local_kernel``), adaptive dt (``ops/adaptive.py``),
 external fields (``ops/external.py``) and collision merging
-(``ops/encounters.py``).
+(``ops/encounters.py``); the octree (``ops/tree.py``, preset
+``baseline-1m``), whose ``--tree-near nlist`` near field launches the
+cell-list kernel untruncated.
 ``ops/cuda_build.py`` builds every kernel.
 """
 

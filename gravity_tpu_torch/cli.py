@@ -10,6 +10,7 @@ Usage:
     python -m gravity_tpu_torch run --preset baseline-16k
     python -m gravity_tpu_torch run --preset baseline-16k --dtype bfloat16
     python -m gravity_tpu_torch run --preset baseline-2m --steps 3
+    python -m gravity_tpu_torch run --preset baseline-1m --tree-near nlist
     python -m gravity_tpu_torch run --device cpu --preset reference-mpi
     python -m gravity_tpu_torch run --model random --n 262144 \
         --integrator leapfrog --force-backend nlist --nlist-rcut 5e10 --eps 1e9
@@ -40,6 +41,8 @@ from .config import (
     P3M_SHORT_MODES,
     PRESETS,
     TIMESTEP_CRITERIA,
+    TREE_FAR_MODES,
+    TREE_NEAR_MODES,
     SimulationConfig,
 )
 
@@ -68,8 +71,8 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                    help="auto/direct/pallas = the CUDA direct-sum kernel "
                         "on the GPU; pallas-mxu = its Gram-form kernel; "
                         "nlist = the cutoff-radius cell list (needs "
-                        "--nlist-rcut); p3m = the P3M solver; "
-                        "dense/chunked = plain PyTorch")
+                        "--nlist-rcut); p3m = the P3M solver; tree = "
+                        "the octree; dense/chunked = plain PyTorch")
     p.add_argument("--nlist-rcut", dest="nlist_rcut", type=float,
                    default=None,
                    help="declared truncation radius (m): forces truncated "
@@ -91,8 +94,23 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                         "gather = per-target block gathers (auto = nlist "
                         "on the GPU, gather on the CPU; slice is not "
                         "ported)")
+    p.add_argument("--tree-depth", dest="tree_depth", type=int, default=None,
+                   help="octree leaf depth (0 = fit to the initial state)")
+    p.add_argument("--tree-leaf-cap", dest="tree_leaf_cap", type=int,
+                   default=None)
+    p.add_argument("--tree-ws", dest="tree_ws", type=int, default=None,
+                   help="octree opening criterion (theta ~ 0.87/ws)")
+    p.add_argument("--tree-far", dest="tree_far", choices=TREE_FAR_MODES,
+                   default=None,
+                   help="octree far-field mode (expansion = gather-lean)")
+    p.add_argument("--tree-near", dest="tree_near", choices=TREE_NEAR_MODES,
+                   default=None,
+                   help="octree near field: gather = per-target block "
+                        "gathers; nlist = the cell-list kernel over the "
+                        "leaf blocks (ws 1 only)")
     p.add_argument("--fast-chunk", dest="fast_chunk", type=int, default=None,
-                   help="target chunk of the p3m gather pass")
+                   help="target chunk of the tree and of the p3m gather "
+                        "pass")
     p.add_argument("--dtype", choices=DTYPES, default=None)
     p.add_argument("--external", default=None,
                    help="analytic background field spec, e.g. "

@@ -22,10 +22,13 @@ DTYPES = ("float32", "float64", "bfloat16")
 # "pallas" and "pallas-mxu" are the JAX names of the hand-written
 # direct-sum kernels; here they name the CUDA kernels (ops/direct_kernel.py,
 # ops/mxu_kernel.py). "nlist" is the cutoff-radius cell list (ops/nlist.py),
-# "p3m" the particle-particle particle-mesh solver (ops/p3m.py).
+# "p3m" the particle-particle particle-mesh solver (ops/p3m.py), "tree" the
+# octree (ops/tree.py).
 FORCE_BACKENDS = ("auto", "direct", "dense", "chunked", "pallas",
-                  "pallas-mxu", "nlist", "p3m")
+                  "pallas-mxu", "nlist", "p3m", "tree")
 P3M_SHORT_MODES = ("auto", "gather", "slice", "nlist")
+TREE_FAR_MODES = ("direct", "expansion")
+TREE_NEAR_MODES = ("gather", "nlist")
 
 _QUEUE = "ROADMAP.md Queue 1 item"
 
@@ -33,7 +36,7 @@ _QUEUE = "ROADMAP.md Queue 1 item"
 _UNPORTED_VALUES = {
     "model": (("grf",), f"{_QUEUE} 7 (grf, with the periodic family)"),
     "force_backend": (
-        ("tree", "fmm", "sfmm", "pm"),
+        ("fmm", "sfmm", "pm"),
         f"{_QUEUE} 7 (fast full-gravity solvers)",
     ),
     "p3m_short": (
@@ -43,8 +46,8 @@ _UNPORTED_VALUES = {
     ),
 }
 # Backends that do not take a bf16 state yet: the cell-list kernel has no
-# bf16 form.
-_BF16_UNPORTED_BACKENDS = ("nlist", "p3m")
+# bf16 form (the octree's near field is that kernel too).
+_BF16_UNPORTED_BACKENDS = ("nlist", "p3m", "tree")
 _BF16_UNPORTED_ITEM = f"{_QUEUE} 4 (bf16 states through the cell-list kernel)"
 _UNPORTED_BACKENDS = {
     "cpp": (
@@ -59,13 +62,8 @@ _UNPORTED_BACKENDS = {
 _NOT_PORTED = {
     "autotune": (True, f"{_QUEUE} 8"),
     "fmm_mode": ("auto", f"{_QUEUE} 7"),
-    "tree_depth": (0, f"{_QUEUE} 7"),
-    "tree_leaf_cap": (32, f"{_QUEUE} 7"),
-    "tree_ws": (1, f"{_QUEUE} 7"),
-    "tree_far": ("direct", f"{_QUEUE} 7"),
     "nlist_mesh": ("auto", f"{_QUEUE} 5 (halo)"),
     "nlist_mig_cap": (0, f"{_QUEUE} 5 (halo)"),
-    "tree_near": ("gather", f"{_QUEUE} 7"),
     "periodic_box": (0.0, f"{_QUEUE} 7"),
     "pm_assignment": ("cic", f"{_QUEUE} 7"),
     "auto_recover": (False, f"{_QUEUE} 2"),
@@ -124,6 +122,7 @@ class SimulationConfig:
     # pallas-mxu: the Gram-form CUDA kernel, explicit opt-in only.
     # nlist: the cutoff-radius cell list; needs nlist_rcut > 0.
     # p3m: the P3M solver (mesh + cell-list near field), explicit only.
+    # tree: the octree (ops/tree.py), explicit only.
     force_backend: str = "auto"
     chunk: int = 1024  # i-chunk of the chunked plain direct sum
     # Declared truncation radius (m): with nlist_rcut > 0 forces are
@@ -144,6 +143,17 @@ class SimulationConfig:
     p3m_rcut_sigmas: float = 4.0
     p3m_cap: int = 128
     p3m_short: str = "auto"
+    # Octree (force_backend="tree", ops/tree.py): leaf depth (0 = fit to the
+    # initial state, recommended_depth_data), near-field slots per leaf,
+    # opening criterion (theta ~ 0.87 / ws), far field (direct | expansion)
+    # and near field (gather = per-target block gathers; nlist = the
+    # cell-list kernel over the leaf blocks, ws = 1 only).
+    tree_depth: int = 0
+    tree_leaf_cap: int = 32
+    tree_ws: int = 1
+    tree_far: str = "direct"
+    tree_near: str = "gather"
+    # Target chunk of the tree's evaluation and of the p3m gather pass.
     fast_chunk: int = 4096
 
     # Adaptive time stepping (ops/adaptive.py): steps * dt becomes the
@@ -198,6 +208,7 @@ class SimulationConfig:
             ("model", MODELS), ("integrator", INTEGRATORS),
             ("dtype", DTYPES), ("force_backend", FORCE_BACKENDS),
             ("p3m_short", P3M_SHORT_MODES),
+            ("tree_far", TREE_FAR_MODES), ("tree_near", TREE_NEAR_MODES),
             ("timestep_criterion", TIMESTEP_CRITERIA),
         ):
             if getattr(self, name) not in choices:
@@ -205,12 +216,12 @@ class SimulationConfig:
                     f"unknown {name} {getattr(self, name)!r}; choose from "
                     f"{sorted(choices)}"
                 )
-        for name in ("nlist_rcut", "nlist_side", "nlist_cap"):
+        for name in ("nlist_rcut", "nlist_side", "nlist_cap", "tree_depth"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0, got "
                                  f"{getattr(self, name)}")
         for name in ("pm_grid", "p3m_sigma_cells", "p3m_rcut_sigmas",
-                     "p3m_cap", "fast_chunk"):
+                     "p3m_cap", "fast_chunk", "tree_leaf_cap", "tree_ws"):
             if getattr(self, name) <= 0:
                 raise ValueError(f"{name} must be > 0, got "
                                  f"{getattr(self, name)}")
@@ -263,6 +274,10 @@ PRESETS = {
         force_backend="pallas", eps=1.0e9,
     ),
     # Galactic natural units (G = 1, kpc, 1e10 Msun).
+    "baseline-1m": SimulationConfig(
+        model="disk", n=1_048_576, integrator="leapfrog",
+        force_backend="tree", g=1.0, dt=2.0e-3, eps=0.05,
+    ),
     "baseline-1m-p3m": SimulationConfig(
         model="disk", n=1_048_576, integrator="leapfrog",
         force_backend="p3m", pm_grid=256, p3m_cap=64,

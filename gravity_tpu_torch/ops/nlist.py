@@ -1,11 +1,13 @@
 """Cutoff-radius cell-list forces: O(N) truncated short-range pairs.
 
-Counterpart of ``gravity_tpu/ops/pallas_nlist.py`` for two of its
+Counterpart of ``gravity_tpu/ops/pallas_nlist.py`` for its three
 consumers, with isolated boundaries: the standalone ``--force-backend
 nlist`` (truncated-at-``rcut`` softened Newtonian forces, declared
 short-range physics, not an approximation of full gravity; pair kind
-``newton``) and the P3M near field (:func:`nlist_short_range_cells`, the
-erfc remainder of the Ewald split; pair kind ``ewald``):
+``newton``), the P3M near field (:func:`nlist_short_range_cells`, the
+erfc remainder of the Ewald split; pair kind ``ewald``) and the octree's
+near field (:func:`nlist_near_field`, ``--tree-near nlist``: pair kind
+``newton`` with no truncation radius over the tree's leaf blocks):
 
 - **Sort by cell** (``ops/cells.py``): bodies land in a dense
   ``(side^3, cap)`` slot layout over the bounding cube, with the cell
@@ -30,8 +32,7 @@ fallback is computed for every target and selected with ``torch.where``
 
 Not ported yet, and refused with :class:`~..config.NotPortedError`: the
 periodic form (``box`` > 0, ROADMAP Queue 1 item 7). Not ported either:
-the tree near field (``nlist_near_field``, with the octree, Queue 1 item
-7), the domain-decomposed slab/halo engines (Queue 1 item 5) and backward
+the domain-decomposed slab/halo engines (Queue 1 item 5) and backward
 passes (Queue 1 item 9).
 """
 
@@ -354,6 +355,11 @@ def _overflow_targets(t_pos, t_coords, cell_w, ccom, side: int, params, *,
 # ---------------------------------------------------------------------------
 
 
+# Pair slots a batch of target cells of the plain version: bounds its
+# temporaries at a few tens of MB whatever the tile.
+PLAIN_BATCH_SLOTS = 1 << 22
+
+
 def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
                      side: int, params, *, cutoff: float, eps: float,
                      use_rcut: bool = True, kind: str = "newton",
@@ -367,29 +373,31 @@ def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
     "newton" takes params[0] = rcut_eff^2 (``use_rcut``); "ewald" takes
     params = [rcut^2, alpha] and always truncates. Each tile row is
     summed apart and then added to the accumulator, offset by offset in
-    ``_near_offsets`` order, as the kernel does. Target slots past the
-    cell's count are zero. ``s_count`` is unused: padded sources are
-    exact no-ops here. ``absolute`` sums each pair's terms in absolute
-    value before any cancellation (for ``ewald`` gm (|newt| + |corr|)
-    |d|): the scale a row's rounding is measured in."""
+    ``_near_offsets`` order, as the kernel does. Only cells that hold
+    targets are evaluated (read on the host), in batches; every other
+    slot, and target slots past a cell's count, are zero. ``s_count`` is
+    unused: padded sources are exact no-ops here, as are out-of-grid
+    neighbors (their G*m is taken as zero). ``absolute`` sums each pair's
+    terms in absolute value before any cancellation (for ``ewald`` gm
+    (|newt| + |corr|) |d|): the scale a row's rounding is measured in."""
     del s_count
-    s = side
     t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
-    pos_p = cells_pos.new_zeros((s + 2, s + 2, s + 2, cap, 3))
-    pos_p[1:-1, 1:-1, 1:-1] = cells_pos.reshape(s, s, s, cap, 3)
-    gm_p = cells_gm.new_zeros((s + 2, s + 2, s + 2, cap))
-    gm_p[1:-1, 1:-1, 1:-1] = cells_gm.reshape(s, s, s, cap)
-    tpos_g = tcells_pos.reshape(s, s, s, t_cap, 3)
-    planes = []
-    for x0 in range(s):  # a plane of cells at a time bounds the memory
-        tpos = tpos_g[x0].reshape(s * s, t_cap, 1, 3)
-        acc = tcells_pos.new_zeros((s * s, t_cap, 3))
+    out = torch.zeros_like(tcells_pos)
+    occupied = torch.nonzero(t_count > 0).flatten()
+    coords = torch.stack([occupied // (side * side),
+                          (occupied // side) % side, occupied % side],
+                         dim=-1)
+    batch = max(1, PLAIN_BATCH_SLOTS // (t_cap * cap))
+    for lo in range(0, occupied.numel(), batch):
+        cb = occupied[lo:lo + batch]
+        ids, inside = _neighbors(coords[lo:lo + batch], side)  # (B, 27)
+        tpos = tcells_pos[cb][:, :, None, :]  # (B, t_cap, 1, 3)
+        acc = tcells_pos.new_zeros((cb.numel(), t_cap, 3))
         for o in range(27):
-            ox, oy, oz = o // 9, (o // 3) % 3, o % 3
-            spos = pos_p[x0 + ox, oy:oy + s, oz:oz + s].reshape(
-                s * s, 1, cap, 3)
-            sgm = gm_p[x0 + ox, oy:oy + s, oz:oz + s].reshape(s * s, 1, cap)
-            dx = spos[..., 0] - tpos[..., 0]  # (S^2, t_cap, cap)
+            spos = cells_pos[ids[:, o]][:, None]  # (B, 1, cap, 3)
+            sgm = torch.where(inside[:, o, None], cells_gm[ids[:, o]],
+                              0.0)[:, None]  # (B, 1, cap)
+            dx = spos[..., 0] - tpos[..., 0]  # (B, t_cap, cap)
             dy = spos[..., 1] - tpos[..., 1]
             dz = spos[..., 2] - tpos[..., 2]
             r2 = dx * dx + dy * dy + dz * dz
@@ -399,10 +407,9 @@ def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
             if absolute:
                 terms = terms.abs()
             acc = acc + terms.sum(dim=2)
-        planes.append(acc)
-    acc = torch.stack(planes).reshape(s**3, t_cap, 3)
-    real = torch.arange(t_cap, device=acc.device)[None, :] < t_count[:, None]
-    return torch.where(real[..., None], acc, 0.0)
+        out[cb] = acc
+    real = torch.arange(t_cap, device=out.device)[None, :] < t_count[:, None]
+    return torch.where(real[..., None], out, 0.0)
 
 
 _ENTRY = {torch.float32: "nlist_pair_f32", torch.float64: "nlist_pair_f64"}
@@ -420,10 +427,16 @@ LIBRARY = cuda_build.CudaLibrary("nlist_pair", {
     for name in _ENTRY.values()
 })
 
-# Kernel launches so far, per pair kind; a run reads its kind's count to
-# show its path went through the kernel. Incremented only where the
-# kernel is launched.
-LAUNCHES = {kind: 0 for kind in KINDS}
+# Kernel launches so far, per pair kind, and apart for the untruncated
+# newton form (``near``, the octree's near field); a run reads its form's
+# count to show its path went through the kernel. Incremented only where
+# the kernel is launched.
+LAUNCHES = {kind: 0 for kind in (*KINDS, "near")}
+
+
+def launch_key(kind: str, use_rcut: bool) -> str:
+    """The :data:`LAUNCHES` key of a launch of ``kind``."""
+    return "near" if kind == "newton" and not use_rcut else kind
 
 
 def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params,
@@ -493,7 +506,7 @@ def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
             torch.cuda.current_stream(device).cuda_stream,
         )
     LIBRARY.check(status)
-    LAUNCHES[kind] += 1
+    LAUNCHES[launch_key(kind, use_rcut)] += 1
     return out
 
 
@@ -545,6 +558,60 @@ def nlist_short_range_cells(tcells_pos, t_cap, cells_pos, cells_mass,
             tcells_pos, rem_w, rem_com, over, side, params, kind="ewald",
             eps=eps, cell_h=span / side,
         )
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# The octree's near field
+# ---------------------------------------------------------------------------
+
+
+def nlist_near_field(targets, t_coords, cells_pos, cells_mass, cell_count,
+                     cmass, ccom, m_scale, span, side: int, cap: int,
+                     g: float, cutoff: float, eps: float, *, t_cap: int = 0):
+    """The octree's near field (``--tree-near nlist``): the exact
+    27-neighbourhood pair sum over the tree's (side^3, cap) leaf blocks as
+    cell tiles, through :func:`pair_cells_kernel`'s ``newton`` kind with no
+    truncation radius (the far field covers everything beyond the
+    neighbourhood). The gather near field's overflow contracts: a leaf's
+    sources beyond ``cap`` as a leaf-softened monopole, targets beyond
+    ``t_cap`` (0: ``cap``) through the whole-cell fallback.
+    ``cmass``/``ccom`` are the leaf level's totals (raw mass). Returns
+    per-target accelerations (M, 3) in the caller's target order."""
+    kt = targets.shape[0]
+    t_cap = t_cap or cap
+    cell_h = span / side
+    params = targets.new_zeros(1)  # the untruncated form reads none
+    with record_function("tree.bin_targets"):
+        tcells_pos, _, t_count, t_start, t_sort, t_sorted_ids = bin_to_cells(
+            targets, torch.ones_like(targets[:, 0]), t_coords, side, t_cap)
+    with record_function("tree.near_tiles"):
+        acc_cell = pair_cells_kernel(
+            tcells_pos, t_count, cells_pos, g * cells_mass, cell_count, side,
+            params, cutoff=cutoff, eps=eps, use_rcut=False, kind="newton",
+        )
+    with record_function("tree.remainder"):
+        rem_w, rem_com, over = _source_overflow_channels(
+            cells_pos, cells_mass, cell_count, cmass / m_scale, ccom,
+            m_scale, g, cap,
+        )
+        acc_cell = acc_cell + _remainder_cells(
+            tcells_pos, rem_w, rem_com, over, side, params, kind="newton",
+            eps=eps, cell_h=cell_h,
+        )
+    # Targets past t_cap take the whole-cell monopole fallback, computed
+    # for all and selected.
+    with record_function("tree.overflow_targets"):
+        slot = torch.arange(kt, device=targets.device) - t_start[t_sorted_ids]
+        over_t = slot >= t_cap
+        acc_sorted = acc_cell[t_sorted_ids, slot.clamp_max(t_cap - 1)]
+        fallback = _overflow_targets(
+            targets[t_sort], t_coords[t_sort], g * cmass, ccom, side, params,
+            kind="newton", eps=eps, cell_h=cell_h,
+        )
+        acc_sorted = torch.where(over_t[:, None], fallback, acc_sorted)
+        acc = torch.empty_like(acc_sorted)
+        acc[t_sort] = acc_sorted
     return acc
 
 

@@ -1,7 +1,8 @@
 """The simulation loop.
 
 Counterpart of ``gravity_tpu/simulation.py`` for single-card runs of the
-direct sum, its Gram form, the cutoff-radius cell list and the P3M solver:
+direct sum, its Gram form, the cutoff-radius cell list, the P3M solver and
+the octree:
 build the initial state, resolve the force backend, then run blocks
 of steps, logging and recording between them. The JAX package jits a
 ``lax.scan`` per block; here a block is a Python loop over steps that
@@ -31,7 +32,7 @@ import torch
 from .config import NotPortedError, SimulationConfig
 from .interop import to_numpy
 from .models import create_model
-from .ops import diagnostics, direct_kernel, mxu_kernel, nlist, p3m
+from .ops import diagnostics, direct_kernel, mxu_kernel, nlist, p3m, tree
 from .ops.adaptive import adaptive_run
 from .ops.direct_kernel import accelerations_vs_kernel
 from .ops.encounters import (
@@ -75,13 +76,20 @@ DENSE_MAX_N = 4096
 # cell grid instead of the exact O(N^2) scan (ops/encounters.py), as in
 # the JAX package.
 MERGE_GRID_THRESHOLD = 32_768
+# Above this N a tree or p3m run prices its energy with the octree's
+# O(N log N) potential instead of the dense O(N^2) pair scan, as in the JAX
+# package.
+ENERGY_TREE_THRESHOLD = 16_384
 # The launch count of each resolved backend's kernel (p3m's is the
-# cell-list kernel's ewald kind, which its gather pass does not launch).
+# cell-list kernel's ewald kind, which its gather pass does not launch;
+# the tree's its untruncated newton form, which its gather near field
+# does not launch).
 _LAUNCH_COUNTS = {
     KERNEL_BACKEND: lambda: direct_kernel.LAUNCHES,
     MXU_BACKEND: lambda: mxu_kernel.LAUNCHES,
     "nlist": lambda: nlist.LAUNCHES["newton"],
     "p3m": lambda: nlist.LAUNCHES["ewald"],
+    "tree": lambda: nlist.LAUNCHES["near"],
 }
 
 
@@ -103,12 +111,12 @@ def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
     n >= 1024 threshold is a TPU measurement and is not adopted). On the
     CPU, ``auto`` and ``direct`` take the plain version, dense or chunked;
     an explicit ``pallas`` or ``pallas-mxu`` keeps the kernel's wrapper,
-    which runs the plain version for CPU tensors. ``pallas-mxu`` and
-    ``p3m`` are explicit opt-ins only. ``dense`` and ``chunked`` are the
+    which runs the plain version for CPU tensors. ``pallas-mxu``, ``p3m``
+    and ``tree`` are explicit opt-ins only. ``dense`` and ``chunked`` are the
     plain version on any device. ``auto`` does not route to the fast
     solvers: that is the autotuned router (ROADMAP Queue 1 item 8).
     A bf16 state takes the same route: the kernels' bf16 forms (the
-    config refuses bf16 with ``nlist`` and ``p3m``).
+    config refuses bf16 with ``nlist``, ``p3m`` and ``tree``).
     """
     backend = config.force_backend
     plain = "dense" if config.n <= DENSE_MAX_N else "chunked"
@@ -123,7 +131,7 @@ def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
                 "dense/chunked honor the rcut mask)",
                 stacklevel=3,
             )
-    if backend in ("dense", "chunked", "nlist", "p3m"):
+    if backend in ("dense", "chunked", "nlist", "p3m", "tree"):
         return backend
     if backend == "pallas-mxu":
         return MXU_BACKEND
@@ -148,6 +156,31 @@ def _resolve_nlist_config(config: SimulationConfig, positions):
         return side, cap
     return nlist.resolve_nlist_sizing(positions, config.nlist_rcut, cap=cap,
                                       side=side)
+
+
+def _resolve_depth_and_warn(config: SimulationConfig, positions, where: str,
+                            n=None) -> int:
+    """The octree's depth (``tree_depth``, else fit to ``positions``, else
+    to the count) and the cell-memory warning, in one place for every path
+    that builds a tree."""
+    depth = config.tree_depth or (
+        tree.recommended_depth_data(positions, config.tree_leaf_cap)
+        if positions is not None
+        else tree.recommended_depth(config.n, config.tree_leaf_cap)
+    )
+    tree.warn_if_cell_memory_heavy(
+        n if n is not None else config.n, depth, config.tree_leaf_cap,
+        where,
+        dtype_bytes={"float64": 8, "bfloat16": 2}.get(config.dtype, 4),
+    )
+    return depth
+
+
+def _tree_kwargs(config: SimulationConfig, depth: int) -> dict:
+    return dict(depth=depth, leaf_cap=config.tree_leaf_cap,
+                ws=config.tree_ws, far=config.tree_far,
+                chunk=config.fast_chunk, near_mode=config.tree_near,
+                g=config.g, cutoff=config.cutoff, eps=config.eps)
 
 
 def _occupancy_t_cap(cap: int, k_targets: int, n: int, positions,
@@ -220,6 +253,10 @@ def make_local_kernel(config: SimulationConfig, backend: str,
         return mxu_kernel.make_mxu_local_kernel(**common)
     if backend == "nlist":
         return _make_nlist_kernel(config, positions, k_targets)
+    if backend == "tree":
+        depth = _resolve_depth_and_warn(config, positions, "tree kernel")
+        return functools.partial(tree.tree_accelerations_vs,
+                                 **_tree_kwargs(config, depth))
     if backend == "p3m":
         raise NotPortedError(
             "the rectangular kernel of force_backend='p3m' (multirate "
@@ -299,6 +336,14 @@ class Simulator:
             self.p3m_sizing = (side, config.p3m_cap, config.p3m_cap,
                                p3m.resolve_short_mode(config.p3m_short,
                                                       self.device))
+        # As-run octree depth, fit once to the initial state.
+        self.tree_depth = None
+        if self.backend == "tree":
+            self.tree_depth = _resolve_depth_and_warn(
+                config, state.positions, "tree backend", n=state.n)
+        # The energy diagnostic's tree depth: the run's own, else resolved
+        # at its first use.
+        self._energy_tree_depth = self.tree_depth
         # The external field and its potential, parsed once; added after
         # the self-gravity of every evaluation.
         self._ext = self._ext_phi = None
@@ -356,6 +401,9 @@ class Simulator:
                 cap=c.p3m_cap, chunk=c.fast_chunk, khat=self._p3m_khat,
                 short_mode=c.p3m_short, **common,
             )
+        if self.backend == "tree":
+            return tree.tree_accelerations(
+                positions, masses, **_tree_kwargs(c, self.tree_depth))
         if c.nlist_rcut > 0.0:
             # Declared truncated physics: the rcut-masked direct sum.
             common["rcut"] = c.nlist_rcut
@@ -561,6 +609,10 @@ class Simulator:
             stats.update({"p3m_side": side, "p3m_cap": cap,
                           "p3m_t_cap": t_cap, "p3m_short": mode,
                           "pm_grid": config.pm_grid})
+        if self.tree_depth is not None:
+            stats.update({"tree_depth": self.tree_depth,
+                          "tree_leaf_cap": config.tree_leaf_cap,
+                          "tree_near": config.tree_near})
         if merging:
             stats["merged_pairs"] = merged_total
         return self._finish(logger, total_time, total_steps, stats)
@@ -777,15 +829,37 @@ class Simulator:
         """The state of the real particles, on the run's device."""
         return self.state
 
-    def energy(self) -> torch.Tensor:
+    def energy(self):
         """Total conserved energy of the current state: kinetic plus the
-        self-gravity pair potential plus, under ``external``, the field's
-        potential energy (a device scalar in the state's dtype). The pair
-        potential is the plain O(N^2) sum on every backend; the JAX
-        package's tree potential for the fast solvers comes with ROADMAP
-        Queue 1 item 7."""
+        self-gravity potential plus, under ``external``, the field's
+        potential energy.
+
+        A tree or p3m run above :data:`ENERGY_TREE_THRESHOLD` bodies prices
+        the potential with the octree (``ops/tree.py::
+        tree_potential_energy``, at a depth resolved once a run) and
+        returns a host ``np.float64`` (kinetic energy and the potential
+        each in float64, since |PE| can pass fp32's range); the dense pair
+        scan would cost ~5.5e11 pair evaluations at 1M bodies. This is the
+        JAX package's CPU branch: on a TPU it takes the FMM's potential
+        instead, which is not ported (ROADMAP Queue 1 item 7). Otherwise
+        the plain O(N^2) sum, a device scalar in the state's dtype."""
         c = self.config
-        return diagnostics.total_energy(
-            self.final_state(), g=c.g, cutoff=c.cutoff, eps=c.eps,
-            external_phi=self._ext_phi,
+        state = self.final_state()
+        if (self.backend not in ("tree", "p3m")
+                or self.n_real <= ENERGY_TREE_THRESHOLD):
+            return diagnostics.total_energy(
+                state, g=c.g, cutoff=c.cutoff, eps=c.eps,
+                external_phi=self._ext_phi,
+            )
+        if self._energy_tree_depth is None:
+            self._energy_tree_depth = _resolve_depth_and_warn(
+                c, state.positions, "energy diagnostic", n=self.n_real)
+        e = diagnostics.kinetic_energy_f64(state) + tree.tree_potential_energy(
+            state.positions, state.masses, depth=self._energy_tree_depth,
+            leaf_cap=c.tree_leaf_cap, ws=c.tree_ws, chunk=c.fast_chunk,
+            g=c.g, cutoff=c.cutoff, eps=c.eps,
         )
+        if self._ext_phi is not None:
+            e = e + np.float64(float(
+                (state.masses * self._ext_phi(state.positions)).sum()))
+        return e

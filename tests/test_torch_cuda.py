@@ -112,9 +112,10 @@ def test_nlist_kernel_matches_plain(cuda, side, cap, dtype, tol, use_rcut):
     args = (cells_pos, count, cells_pos, cells_m * 6.6743e-11, count, side,
             params)
     kw = dict(cutoff=1e-10, eps=1e9, use_rcut=use_rcut)
-    before = nlist.LAUNCHES["newton"]
+    key = nlist.launch_key("newton", use_rcut)
+    before = nlist.LAUNCHES[key]
     got = nlist.pair_cells_kernel(*args, **kw)
-    assert nlist.LAUNCHES["newton"] == before + 1
+    assert nlist.LAUNCHES[key] == before + 1
     want = nlist.pair_cells_plain(*args, **kw)
     scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
     torch.cuda.synchronize()
@@ -483,3 +484,67 @@ def test_simulator_multirate_launches_its_kernels(cuda, backend, count,
     per_step = 5 if rungs == 2 else 7
     assert count() - before == stats["kernel_launches"] == 1 + 3 * per_step
     assert bool(torch.isfinite(stats["final_state"].positions).all())
+
+
+def _disk_state(n, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    r = torch.from_numpy(rng.exponential(3.0, n))
+    phi = torch.from_numpy(rng.uniform(0.0, 2.0 * np.pi, n))
+    pos = torch.stack([r * torch.cos(phi), r * torch.sin(phi),
+                       torch.from_numpy(0.3 * rng.normal(size=n))], 1)
+    pos[0] = 0.0
+    masses = torch.full((n,), 5.0 / n, dtype=torch.float64)
+    masses[0] = 1.0
+    return pos.to(device, dtype), masses.to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+def test_tree_near_field_kernel_matches_plain(cuda, dtype, tol):
+    """The octree's near field: nlist_pair's untruncated newton form on
+    the leaf blocks of a disk (depth 5, leaf_cap 8: the central leaves
+    overflow), one launch counted under "near", the same bits again."""
+    from gravity_tpu_torch.ops import tree
+
+    pos, masses = _disk_state(4096, dtype, cuda, seed=5)
+    _, origin, span, coords = tree.build_octree(pos, masses, 5)
+    cells_pos, cells_m, count, *_ = bin_to_cells(pos, masses, coords, 32, 8)
+    assert int(count.max()) > 8
+    args = (cells_pos, count, cells_pos, cells_m, count, 32,
+            pos.new_zeros(1))
+    kw = dict(cutoff=1e-10, eps=0.05, use_rcut=False, kind="newton")
+    before = dict(nlist.LAUNCHES)
+    got = nlist.pair_cells_kernel(*args, **kw)
+    assert nlist.LAUNCHES == {**before, "near": before["near"] + 1}
+    again = nlist.pair_cells_kernel(*args, **kw)
+    want = nlist.pair_cells_plain(*args, **kw)
+    scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
+    torch.cuda.synchronize()
+    _within_term_scale(got, want, scale, tol)
+    assert torch.equal(got, again)
+
+
+def test_tree_runs_its_near_field_through_the_kernel(cuda):
+    """--tree-near nlist launches the near field once an evaluation (the
+    gather near field none; a two-rung multirate step 1 + 4 times); where
+    nothing overflows both near fields agree (fp64, 1e-9 of the mean
+    |a|)."""
+    from gravity_tpu_torch.ops import tree
+
+    for near, integrator, launches in (("nlist", "leapfrog", 6),
+                                       ("gather", "leapfrog", 0),
+                                       ("nlist", "multirate", 16)):
+        cfg = SimulationConfig(model="disk", n=4096, steps=5 if integrator
+                               == "leapfrog" else 3, g=1.0, dt=2e-3,
+                               eps=0.05, integrator=integrator,
+                               force_backend="tree", tree_near=near)
+        before = nlist.LAUNCHES["near"]
+        stats = Simulator(cfg).run()
+        assert nlist.LAUNCHES["near"] - before == \
+            stats["kernel_launches"] == launches
+        assert bool(torch.isfinite(stats["final_state"].positions).all())
+    pos, masses = _system(2000, torch.float64, cuda, seed=9)
+    kw = dict(depth=3, leaf_cap=64, g=6.6743e-11, eps=1e9)
+    a = tree.tree_accelerations(pos, masses, near_mode="nlist", **kw)
+    b = tree.tree_accelerations(pos, masses, near_mode="gather", **kw)
+    assert float((a - b).abs().max() / b.norm(dim=1).mean()) < 1e-9

@@ -276,7 +276,8 @@ def test_diagnostics_equal_the_jax_diagnostics(x64):
         jax_diag.energy_drift(-2.0, -2.5))
 
 
-@pytest.mark.parametrize("name", ["baseline-16k", "baseline-2m"])
+@pytest.mark.parametrize("name", ["baseline-16k", "baseline-2m",
+                                  "baseline-1m"])
 def test_baseline_presets_load_from_the_jax_config(name):
     """The JAX package's preset, written by its to_json, is the port's
     preset field for field."""
