@@ -6,7 +6,8 @@
 Builds the three CUDA kernels from the checkout (one nvcc each, all
 started together), holds each against its plain PyTorch version on the
 card (the cell-list kernel in both of its pair kinds and untruncated,
-the direct sum in fp32, fp64 and bf16), and drives each
+in fp32, fp64 and bf16, the direct sum in fp32, fp64 and bf16), and
+drives each
 kernel's path at full size through the Simulator, with every launch count
 set to 0 just before the path and read just after:
 
@@ -45,12 +46,20 @@ set to 0 just before the path and read just after:
   forces held to ``nbody_direct`` at 4,096 targets and to the gather
   near field on the same state (fp32 and fp64, each piece of the near
   field also taken out in turn to show the bars catch it); the preset's
-  own gather near field (3 steps, no kernel); and multirate (10 steps).
+  own gather near field (3 steps, no kernel); and multirate (10 steps);
+- bf16 states through the cell list and the octree, through
+  ``nlist_pair``'s bf16 form: the README cell-list run at ``--dtype
+  bfloat16`` (cut to 100 steps; multirate cut to 20), its forces against
+  fp32 nlist; ``baseline-1m --dtype bfloat16 --tree-near nlist`` (cut to
+  10 steps; its gather near field and multirate, 3 each), its forces
+  against the fp32 tree and ``nbody_direct`` (bar: 1.5x the JAX
+  package's own bf16 figure) and the two near fields against each other.
 
 It then times each kernel at its path's shapes beside its bound (the
 direct sum masked at N = 50,000, mask-free at N = 16,384 and 65,536, and
 its bf16 form at both; the tree's near field at its 2,097,152 leaves,
-and the same launch on an empty grid) and beside
+and the same launch on an empty grid; the cell list's bf16 form at the
+README state, a kick's t_cap and the leaf blocks) and beside
 the issue floor of its inner loop's SASS instructions a pair. Each phase
 prints one JSON line (the ``done`` line carries ``wall_s``); the last two
 lines are the kernels table and ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -263,22 +272,25 @@ def term_scale(pos_i, pos_j, masses_j, eps, chunk=1024, g=None):
 
 
 def reset_counts() -> None:
-    from gravity_tpu_torch.ops import direct_kernel, mxu_kernel, nlist
+    from gravity_tpu_torch.ops import cells, direct_kernel, mxu_kernel, nlist
 
-    for module in (direct_kernel, mxu_kernel):
+    for module in (cells, direct_kernel, mxu_kernel):
         module.LAUNCHES = 0
     for kind in nlist.LAUNCHES:
         nlist.LAUNCHES[kind] = 0
 
 
 def read_counts() -> dict:
-    from gravity_tpu_torch.ops import direct_kernel, mxu_kernel, nlist
+    from gravity_tpu_torch.ops import cells, direct_kernel, mxu_kernel, nlist
 
     return {"nbody_direct": direct_kernel.LAUNCHES,
             "nlist_pair": nlist.LAUNCHES["newton"],
             "nlist_pair/ewald": nlist.LAUNCHES["ewald"],
             "nlist_pair/near": nlist.LAUNCHES["near"],
-            "nbody_mxu": mxu_kernel.LAUNCHES}
+            "nlist_pair/bf16": nlist.LAUNCHES["newton_bf16"],
+            "nlist_pair/near_bf16": nlist.LAUNCHES["near_bf16"],
+            "nbody_mxu": mxu_kernel.LAUNCHES,
+            "segment_sum/bf16": cells.LAUNCHES}
 
 
 def compare(name, kern, plain, scale, dtype_name, tol=None,
@@ -408,6 +420,7 @@ def issue_floor_ms(pairs, instrs_per_pair, device):
 def phase_build() -> dict:
     """All three libraries, one nvcc each, started together."""
     from gravity_tpu_torch.ops import (
+        cells,
         cuda_build,
         direct_kernel,
         mxu_kernel,
@@ -415,7 +428,8 @@ def phase_build() -> dict:
     )
 
     t0 = time.perf_counter()
-    libraries = (direct_kernel.LIBRARY, nlist.LIBRARY, mxu_kernel.LIBRARY)
+    libraries = (direct_kernel.LIBRARY, nlist.LIBRARY, mxu_kernel.LIBRARY,
+                 cells.LIBRARY)
     cuda_build.build_all(libraries)
     total = time.perf_counter() - t0
     records = {}
@@ -754,12 +768,8 @@ def phase_timing(device: dict, build: dict) -> dict:
                        "issue_floor_ms": issue_floor_ms(n_bodies**2, instrs,
                                                         device)})
         if item == 2:
-            # The bf16 form's conversions, at their own pipe's rate: a
-            # floor of this design (fp32 registers, rounded op by op),
-            # not of the work.
-            record["conversion_floor_ms"] = 1e3 * n_bodies**2 * (
-                BF16_CVT_PER_PAIR / (device["sm_count"] * CVT_PER_SM_PER_CLOCK
-                                     * device["max_sm_clock_mhz"] * 1e6))
+            record["conversion_floor_ms"] = conversion_floor_ms(
+                n_bodies**2, BF16_CVT_PER_PAIR, device)
         return record
 
     record = {
@@ -855,7 +865,8 @@ def nlist_compare(name, positions, masses, side, cap, rcut, eps) -> dict:
 EDGE_CAPS = ((64, 40), (20, 33), (45, 96), (100, 70), (160, 50))
 
 
-def count_edge_cases(kind: str, reason: str) -> None:
+def count_edge_cases(kind: str, reason: str, dtype_name: str = "float32",
+                     tol=None, phase=None) -> None:
     """The cell-list kernel against its plain version on a side-3 grid
     whose target and source counts run through 0, 31, 32, 33, the caps
     and past them, with targets apart from sources; G m is zero on every
@@ -865,6 +876,9 @@ def count_edge_cases(kind: str, reason: str) -> None:
     from gravity_tpu_torch.ops import nlist
 
     dev = torch.device("cuda", 0)
+    dtype = getattr(torch, dtype_name)
+    phase = phase or (f"{'nlist' if kind == 'newton' else 'p3m'}"
+                      "_kernel_vs_plain")
     gen = torch.Generator().manual_seed(19)
     side, n = 3, 27
     c = torch.arange(n)
@@ -880,8 +894,9 @@ def count_edge_cases(kind: str, reason: str) -> None:
         gm = torch.where(torch.arange(cap)[None] < s_count[:, None], gm, 0.0)
         # newton: rcut_eff = 1 cell; ewald: rcut 1, sigma 1/4.
         params = torch.tensor([1.0, 1.0 / (math.sqrt(2.0) * 0.25)])
-        args = [t.to(dev) for t in (tpos, t_count, spos, gm, s_count)]
-        args = (*args, side, params.to(dev))
+        args = [t.to(dev, dtype) if t.is_floating_point() else t.to(dev)
+                for t in (tpos, t_count, spos, gm, s_count)]
+        args = (*args, side, params.to(dev, dtype))
         for use_rcut in ((True, False) if kind == "newton" else (True,)):
             kw = dict(cutoff=1e-10, eps=0.05, kind=kind, use_rcut=use_rcut)
             kern = nlist.pair_cells_kernel(*args, **kw)
@@ -891,13 +906,12 @@ def count_edge_cases(kind: str, reason: str) -> None:
             record = compare(
                 f"count edges t_cap={t_cap} cap={cap} use_rcut={use_rcut}",
                 kern.reshape(-1, 3), plain.reshape(-1, 3),
-                scale.reshape(-1, 3), "float32", reason=reason)
+                scale.reshape(-1, 3), dtype_name, tol=tol, reason=reason)
             empty = (torch.arange(t_cap, device=dev)[None]
                      >= args[1].clamp_max(t_cap)[:, None])
             check(bool((kern[empty] == 0).all()),
                   f"{kind}: nonzero output past a cell's count")
-            emit({"phase": f"{'nlist' if kind == 'newton' else 'p3m'}"
-                           "_kernel_vs_plain", "kind": kind, **record,
+            emit({"phase": phase, "kind": kind, **record,
                   "t_counts": sorted(set(t_count.tolist())),
                   "s_counts": sorted(set(s_count.tolist()))})
 
@@ -1953,15 +1967,19 @@ def phase_bf16_kernel_vs_plain() -> float:
     return record["max_abs_err"]
 
 
-def energy_f64(state, config) -> float:
-    """Total energy of a state in float64 on the card
-    (ops/diagnostics.total_energy on the state cast to float64)."""
+def energy_f64(state, config, chunk: int = 4096) -> float:
+    """Total energy (KE + PE) of a state in float64 on the card, the
+    potential streamed over ``chunk`` target rows (at N = 262,144 the
+    default chunk would take ~50 GB of float64 temporaries)."""
     import torch
 
     from gravity_tpu_torch.ops import diagnostics
+    from gravity_tpu_torch.ops.forces import potential_energy
 
-    return float(diagnostics.total_energy(state.astype(torch.float64),
-                                          g=config.g, eps=config.eps))
+    st = state.astype(torch.float64)
+    return float(diagnostics.kinetic_energy(st) + potential_energy(
+        st.positions, st.masses, g=config.g, cutoff=config.cutoff,
+        eps=config.eps, chunk=chunk))
 
 
 def run_counted(config) -> tuple:
@@ -2208,6 +2226,9 @@ def logged_run(sim, name: str, *, fixed_steps=None) -> tuple:
         check(section in log, f"{name}: log lacks {section!r}")
     key = {"nbody_direct": "nbody_direct", "nbody_mxu": "nbody_mxu",
            "nlist": "nlist_pair", "tree": "nlist_pair/near"}[sim.backend]
+    if sim.backend in ("nlist", "tree") and sim.config.dtype == "bfloat16":
+        key = {"nlist": "nlist_pair/bf16",
+               "tree": "nlist_pair/near_bf16"}[sim.backend]
     check(stats["kernel_launches"] == counts[key],
           f"{name}: stats count {stats['kernel_launches']}, counts {counts}")
     return stats, counts
@@ -2842,20 +2863,23 @@ def tree_depth_of(positions) -> int:
 
 
 def tree_tiles(positions, masses, depth: int, leaf_cap: int = 32,
-               g: float = 1.0):
-    """The near field's pair-tile kernel arguments at a state (targets =
-    sources), as tree_accelerations_vs and nlist_near_field build them."""
+               g: float = 1.0, targets=None):
+    """The near field's pair-tile kernel arguments at a state, as
+    tree_accelerations_vs and nlist_near_field build them: the targets
+    (the sources by default; a kick's fast rung) binned on the leaf grid
+    at t_cap = leaf_cap."""
     import torch
 
     from gravity_tpu_torch.ops import cells, tree
 
     side = 1 << depth
+    targets = positions if targets is None else targets
     _, origin, span, coords = tree.build_octree(positions, masses, depth)
     cells_pos, cells_mass, leaf_count, *_ = cells.bin_to_cells(
         positions, masses, coords, side, leaf_cap)
-    t_coords = cells.grid_coords(positions, origin, span, side)
+    t_coords = cells.grid_coords(targets, origin, span, side)
     tcells_pos, _, t_count, *_ = cells.bin_to_cells(
-        positions, torch.ones_like(positions[:, 0]), t_coords, side, leaf_cap)
+        targets, torch.ones_like(targets[:, 0]), t_coords, side, leaf_cap)
     return (tcells_pos, t_count, cells_pos, g * cells_mass, leaf_count, side,
             positions.new_zeros(1))
 
@@ -3342,6 +3366,641 @@ def phase_profile_tree() -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# bf16 states through the cell list and the octree: nlist_pair's bf16 form.
+# ---------------------------------------------------------------------------
+
+# The bf16 form against pair_cells_plain at bf16, in units of each row's
+# sum of |terms|. Both round every op of a term alike and take the same
+# masks; a term differs only where rsqrt.approx and the plain rsqrt land
+# one bf16 ulp apart (3 x 2^-8 of that term, through the weight's three
+# products). Each row is an fp32 sum in another order (~cap 2^-24 apart),
+# rounded to bf16 once and added into the bf16 accumulator: where a row
+# lands one ulp (at most 2^-7 of the row's sum of |terms|) apart, the
+# accumulator carries it. A few such ulps a target: 2^-5.
+NLIST_BF16_TOL = 2.0**-5
+NLIST_BF16_REASON = ("in units of the row's sum of |terms|: terms rounded to "
+                     "bf16 op by op as the plain version, the same masks; "
+                     "rsqrt may round one bf16 ulp apart (3 x 2^-8 of a "
+                     "term); rows are fp32 sums in another order, each "
+                     "rounded once into a bf16 accumulator: a few ulps "
+                     "(2^-7) a target")
+# Conversions a pair of the bf16 form: 12 roundings (d, d^2 and r^2 for
+# each axis or once, r^2 + eps^2, rsqrt, the weight's three products),
+# two to a cvt.rn.bf16x2.f32 (csrc/nlist_pair.cu).
+NLIST_BF16_CVT_PER_PAIR = 6
+# The README nlist run at --dtype bfloat16, cut to 100 of its 500 steps;
+# multirate cut to 20.
+NLIST_BF16_STEPS = 100
+NLIST_BF16_MULTIRATE_STEPS = 20
+# baseline-1m at --dtype bfloat16: --tree-near nlist cut to 10 of 500
+# steps, the gather near field and multirate to 3 each.
+TREE_BF16_STEPS = 10
+TREE_BF16_GATHER_STEPS = 3
+TREE_BF16_MULTIRATE_STEPS = 3
+# The JAX package's own bf16 tree against fp32 on baseline-1m's initial
+# disk rounded to bf16, at the 4,096 targets tree paths sample (seed 17),
+# gather near field, direct far field, depth 7: the median and p90 of the
+# per-target relative error, on the CPU, from
+# scripts/jax_bf16_tree_figure.py. The bf16 path is held to at most 1.5x
+# each. The reference's bf16 tree is far off at this size: its cell
+# totals are bf16 segment sums, which stall once a body's m / max(m)
+# (5e-6 here) falls below half an ulp of the running sum (after 256 to
+# 512 such bodies, at ~2e-3 of a true total near 5), so every coarse
+# cell gets too little mass and the far field is wrong by a median 71%
+# of |a|.
+JAX_BF16_TREE = {"vs_fp32_tree": {"median": 0.7108528233921156,
+                                  "p90": 3.5809018798667203},
+                 "vs_fp32_direct": {"median": 0.718638604370603,
+                                    "p90": 3.515180550317095}}
+TREE_BF16_FACTOR = 1.5
+# The JAX package's own bf16 cell list against its fp32 one on the README
+# state rounded to bf16, every target (jnp engine, side 12, cap 256), on
+# the CPU, from scripts/jax_bf16_figures.py. It misses the dense bf16
+# bar of tests/test_bfloat16.py (median < 1e-2) by itself: rcut_eff^2
+# rounds to bf16 (2^-9 of it), so the pairs within that band of rcut, each
+# as large as any other pair's term in a uniform state, enter one sum and
+# not the other. The bf16 nlist path is held to at most 1.5x this figure,
+# median and p90, as the tree is; the suite's bars are reported beside.
+JAX_BF16_NLIST = {"median": 0.010319506496561274,
+                  "p90": 0.026686674180806887}
+# The two near fields at bf16 on the final state. A target in its leaf's
+# slots takes the same terms in both (the same bf16 roundings of d, r^2,
+# rsqrt and the weight), but the tile engine rounds its near-field sum 54
+# times (27 rows, 27 accumulator adds, 2^-9 each of at most the near
+# field's sum of |terms|) where the gather rounds it once: a median under
+# 2^-6 of |a|. Over all targets the t_cap fallback adds its own gap (0.28%
+# in fp32): a median under 2^-5.
+NEAR_GAP_BF16_IN_SLOT_MEDIAN_BAR = 2.0**-6
+NEAR_GAP_BF16_MEDIAN_BAR = 2.0**-5
+
+
+def conversion_floor_ms(pairs, cvt_per_pair, device) -> float:
+    """Least time to issue ``pairs`` x ``cvt_per_pair`` fp32-to-bf16
+    conversions at their pipe's rate (16 per SM per clock): a floor of a
+    design that computes in fp32 and rounds op by op, not of the work
+    (bf16x2 arithmetic rounds without them)."""
+    return 1e3 * pairs * cvt_per_pair / (
+        device["sm_count"] * CVT_PER_SM_PER_CLOCK
+        * device["max_sm_clock_mhz"] * 1e6)
+
+
+def nlist_bf16_check(name, args, kw) -> dict:
+    """The bf16 form against pair_cells_plain at bf16 on these tiles:
+    within NLIST_BF16_TOL of each row's sum of |terms|, zeros past each
+    cell's count, the same bits on a second launch; the share of outputs
+    with the plain version's bits."""
+    import torch
+
+    from gravity_tpu_torch.ops import nlist
+
+    kern = nlist.pair_cells_kernel(*args, **kw)
+    again = nlist.pair_cells_kernel(*args, **kw)
+    plain = nlist.pair_cells_plain(*args, **kw)
+    scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
+    torch.cuda.synchronize()
+    check(kern.dtype == torch.bfloat16, f"{name}: output {kern.dtype}")
+    check(torch.equal(kern, again), f"{name}: two launches differ")
+    t_cap, cap, side = args[0].shape[1], args[2].shape[1], args[5]
+    real = (torch.arange(t_cap, device=kern.device)[None, :]
+            < args[1].clamp_max(t_cap)[:, None])
+    check(bool((kern[~real] == 0).all()),
+          f"{name}: nonzero output past a cell's count")
+    record = compare(name, kern.reshape(-1, 3), plain.reshape(-1, 3),
+                     scale.reshape(-1, 3), "bfloat16", tol=NLIST_BF16_TOL,
+                     reason=NLIST_BF16_REASON)
+    record.update({
+        "side": side, "t_cap": t_cap, "cap": cap,
+        "use_rcut": kw.get("use_rcut", True),
+        "same_bits_as_plain": float((kern[real] == plain[real]).float()
+                                    .mean()),
+        "bitwise_repeatable": True,
+        "pairs_evaluated": nlist.real_pairs(args[1], args[4], side, t_cap,
+                                            cap),
+    })
+    return record
+
+
+def nlist_bf16_config(**fields):
+    from gravity_tpu_torch.config import SimulationConfig
+
+    return SimulationConfig(**{**NLIST_RUN, "dtype": "bfloat16", **fields})
+
+
+def segment_sum_cases(state, depth: int = 7):
+    """(name, values, ids, n) of the bf16 segment sums an octree build of
+    ``state`` takes at levels 0, 3 and ``depth``: one, three and six
+    columns (mass, weighted position, a quadrupole's six)."""
+    import torch
+
+    from gravity_tpu_torch.ops import tree
+
+    pos, m = state.positions, state.masses
+    coords = tree.build_octree(pos, m, depth)[3]
+    m_hat = m / m.max()
+    mw = m_hat[:, None] * pos
+    six = torch.cat([mw, mw * mw], dim=1)
+    for d in (0, 3, depth):
+        sd = 1 << d
+        cd = coords >> (depth - d)
+        ids = (cd[:, 0] * sd + cd[:, 1]) * sd + cd[:, 2]
+        for values in (m_hat, mw, six):
+            cols = 1 if values.dim() == 1 else values.shape[1]
+            yield f"level {d} ({sd**3} cells) x {cols}", values, ids, sd**3
+
+
+def phase_segment_sum_bf16(device: dict) -> dict:
+    """The bf16 segment-sum kernel against its plain version (the CPU's
+    element-order sum, on copies of the same inputs) at the sums of a
+    bf16 octree build of the baseline-1m disk and at the README nlist
+    state's cell totals: the same bits everywhere, and on a second launch.
+    Then the level-0 and leaf-level three-column sums timed by CUDA
+    events, beside the plain version (host clock), index_add_ on the card
+    (the library call; bf16 atomics) and the bound (bytes)."""
+    import torch
+
+    from gravity_tpu_torch.ops import cells, nlist
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    tstate = tree_state().astype(torch.bfloat16)
+    nstate = make_initial_state(nlist_bf16_config(), torch.device("cuda", 0))
+    side, _ = nlist.resolve_nlist_sizing(nstate.positions,
+                                         NLIST_RUN["nlist_rcut"])
+    origin, span = cells.bounding_cube(nstate.positions)
+    nids = cells.cell_ids(cells.grid_coords(nstate.positions, origin, span,
+                                            side), side)
+    n_hat = nstate.masses / nstate.masses.max()
+    cases = list(segment_sum_cases(tstate)) + [
+        (f"README nlist cells ({side**3}) x 1", n_hat, nids, side**3),
+        (f"README nlist cells ({side**3}) x 3",
+         n_hat[:, None] * nstate.positions, nids, side**3)]
+    checked = []
+    for name, values, ids, n in cases:
+        kern = cells.segment_sum_bf16(values, ids, n)
+        again = cells.segment_sum_bf16(values, ids, n)
+        plain = cells.segment_sum_bf16_plain(values.cpu(), ids.cpu(), n)
+        torch.cuda.synchronize()
+        check(torch.equal(kern, again), f"segment sum {name}: runs differ")
+        same = torch.equal(kern.cpu(), plain)
+        checked.append({"case": name, "rows": values.shape[0],
+                        "same_bits_as_plain": same,
+                        "max_abs_err": float((kern.cpu().double()
+                                              - plain.double()).abs().max())})
+        check(same, f"segment sum {name}: not the plain version's bits")
+    timing = {}
+    for name, values, ids, n in cases:
+        if not name.endswith("x 3") or "nlist" in name or "level 3" in name:
+            continue
+
+        def kernel(values=values, ids=ids, n=n):
+            cells.segment_sum_bf16(values, ids, n)
+
+        def library(values=values, ids=ids, n=n):
+            torch.zeros((n, 3), dtype=values.dtype,
+                        device=values.device).index_add_(0, ids, values)
+
+        cuda_ms(kernel, 2)
+        ms = [cuda_ms(kernel, 10), cuda_ms(kernel, 10)]
+        library_ms = cuda_ms(library, 1)
+        host = (values.cpu(), ids.cpu())
+        t0 = time.perf_counter()
+        cells.segment_sum_bf16_plain(*host, n)
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        n_bytes = values.numel() * 2 + ids.numel() * 8 + n * 3 * 2
+        byte_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+        timing[name] = {
+            "ms": ms[0], "ms_repeat": ms[1],
+            "plain_ms": plain_ms, "plain_on": "host CPU (host clock)",
+            "library_ms": library_ms,
+            "library_note": "index_add_ on the card: bf16 atomics, another "
+                            "order of adds each run",
+            "bound_ms": byte_ms, "bound_by": "bytes", "bytes": n_bytes,
+            "share_of_bound": byte_ms / ms[0],
+            "nvidia_smi": device["nvidia_smi"],
+        }
+    record = {"phase": "segment_sum_bf16", "cases": checked,
+              "timing": timing}
+    emit(record)
+    level0 = next(v for k, v in timing.items() if k.startswith("level 0"))
+    return {"max_abs_err": max(c["max_abs_err"] for c in checked),
+            "timing": level0, "timing_by_case": timing}
+
+
+def bf16_subnormal_case(dev) -> dict:
+    """Two bodies 1e12 m apart inside the radius at bf16: the 1.5e7 kg
+    body's weight on the other, G m / r^3 = 1e-39, lies in fp32's and
+    bf16's subnormal range, so a kernel that flushed subnormals would
+    return 0 for its pull (1e-27 m/s^2). The bf16 form must give the
+    plain version's bits, nonzero, within 25% of float64 (a bf16
+    subnormal near 1e-39 holds ~4 bits)."""
+    import torch
+
+    from gravity_tpu_torch.constants import G
+    from gravity_tpu_torch.ops import nlist
+
+    pos = torch.tensor([[0.0, 0.0, 0.0], [1e12, 0.0, 0.0],
+                        [2.2e12, 0.0, 0.0]], dtype=torch.bfloat16)
+    masses = torch.tensor([1e24, 1.5e7, 0.0], dtype=torch.bfloat16)
+    kw = dict(rcut=1.2e12, side=2, cap=8)
+    plain = nlist.nlist_accelerations(pos, masses, **kw)
+    reset_counts()
+    kern = nlist.nlist_accelerations(pos.to(dev), masses.to(dev), **kw).cpu()
+    check(read_counts()["nlist_pair/bf16"] == 1, "bf16 subnormal: no launch")
+    p, m = pos.double(), masses.double()
+    want = G * m[1] / (p[1, 0] - p[0, 0]) ** 2
+    rel = float(abs(kern[0, 0].double() - want) / want)
+    check(torch.equal(kern, plain), "bf16 subnormal weight: kernel "
+          f"{kern[:2, 0].tolist()} against plain {plain[:2, 0].tolist()}")
+    check(float(kern[0, 0]) != 0.0 and rel < 0.25,
+          f"bf16 subnormal weight flushed or off: {kern[0, 0]}, {rel}")
+    return {"case": "2 bodies 1e12 m bf16 (weight 1e-39, subnormal)",
+            "acc_x": kern[:2, 0].tolist(), "same_bits_as_plain": True,
+            "rel_err_vs_fp64": rel, "tolerance": 0.25}
+
+
+def phase_nlist_bf16_kernel_vs_plain() -> dict:
+    """nlist_pair's bf16 form against the plain version at bf16 on the
+    tiles of the README nlist state (side 12, cap 256, rcut form), of a
+    multirate kick there (k = n / 8 targets at the occupancy model's
+    t_cap below the cap), of the baseline-1m leaf blocks (side 128, t_cap
+    = cap = 32, untruncated), and on the count edge cases. Returns the
+    records by launch: "readme", "t_cap", "near"."""
+    import torch
+
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS
+    from gravity_tpu_torch.ops import nlist
+    from gravity_tpu_torch.simulation import (
+        _occupancy_t_cap,
+        make_initial_state,
+    )
+
+    dev = torch.device("cuda", 0)
+    config = nlist_bf16_config()
+    state = make_initial_state(config, dev)
+    side, cap = nlist.resolve_nlist_sizing(state.positions, config.nlist_rcut)
+    kw = dict(cutoff=CUTOFF_RADIUS, eps=config.eps)
+    records = {"readme": nlist_bf16_check(
+        "README state N=262144 bf16", nlist_tiles(
+            state.positions, state.masses, side, cap, config.nlist_rcut),
+        kw)}
+    k = config.n // 8
+    t_cap = _occupancy_t_cap(cap, k, config.n, state.positions, side,
+                             "nlist bf16 kick")
+    check(t_cap < cap, f"kick t_cap {t_cap} not below cap {cap}")
+    gen = torch.Generator().manual_seed(29)
+    idx = torch.randperm(config.n, generator=gen)[:k].to(dev)
+    records["t_cap"] = nlist_bf16_check(
+        f"README state kick k={k} t_cap={t_cap} bf16", nlist_kick_tiles(
+            state.positions, state.masses, state.positions[idx], side, cap,
+            t_cap, config.nlist_rcut), kw)
+    del state
+    tstate = tree_state().astype(torch.bfloat16)
+    depth = tree_depth_of(tstate.positions)
+    records["near"] = nlist_bf16_check(
+        f"baseline-1m leaf blocks depth {depth} bf16",
+        tree_tiles(tstate.positions, tstate.masses, depth),
+        dict(cutoff=CUTOFF_RADIUS, eps=0.05, use_rcut=False, kind="newton"))
+    records["near"]["depth"] = depth
+    for record in records.values():
+        emit({"phase": "nlist_bf16_kernel_vs_plain", **record})
+    emit({"phase": "nlist_bf16_kernel_vs_plain", **bf16_subnormal_case(dev)})
+    count_edge_cases("newton", NLIST_BF16_REASON, "bfloat16", NLIST_BF16_TOL,
+                     phase="nlist_bf16_kernel_vs_plain")
+    return records
+
+
+def nlist_bf16_timing(args, kw, device, build, loop, reps=30) -> dict:
+    """The bf16 form at these tiles by CUDA events (twice), its plain
+    version, its bound for the pairs these counts need (21 flops a pair at
+    the bf16x2 rate, rsqrt on the SFUs, bytes at 2 an element), the
+    conversions' floor and the issue floor of its SASS loop ``loop``."""
+    from gravity_tpu_torch.ops import nlist
+
+    t_cap, cap, side = args[0].shape[1], args[2].shape[1], args[5]
+
+    def kernel():
+        nlist.pair_cells_kernel(*args, **kw)
+
+    def plain():
+        nlist.pair_cells_plain(*args, **kw)
+
+    cuda_ms(kernel, 3)
+    ms = [cuda_ms(kernel, reps), cuda_ms(kernel, reps)]
+    cuda_ms(plain, 1)
+    plain_ms = cuda_ms(plain, 3)
+    pairs = nlist.real_pairs(args[1], args[4], side, t_cap, cap)
+    n_bytes = tile_bytes(args[1], args[4], side, t_cap, cap, 2,
+                         1 if kw.get("use_rcut", True) else 0)
+    instrs = per_pair(build, "nlist_pair", loop)
+    record = {
+        "ms": ms[0], "ms_repeat": ms[1], "plain_ms": plain_ms,
+        "pairs_evaluated": pairs, "bytes": n_bytes,
+        **bound(pairs, NLIST_FLOPS_PER_PAIR, n_bytes, device,
+                PEAK_BF16X2_FLOPS),
+        "conversions_per_pair": NLIST_BF16_CVT_PER_PAIR,
+        "conversion_floor_ms": conversion_floor_ms(
+            pairs, NLIST_BF16_CVT_PER_PAIR, device),
+        "sass_loop": loop, "sass_instrs_per_pair": instrs,
+        "issue_floor_ms": issue_floor_ms(pairs, instrs, device),
+        "library_ms": None,
+        "library_note": "none: no single PyTorch call computes a cell-list "
+                        "pair sum",
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    record["share_of_bound"] = record["bound_ms"] / ms[0]
+    return record
+
+
+def phase_timing_nlist_bf16(device: dict, build: dict) -> dict:
+    """The bf16 form's launches at the README nlist state's tiles and at
+    the baseline-1m leaf blocks (the t_cap launch is timed by
+    nlist_bf16_multirate_path on its own kick)."""
+    import torch
+
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS
+    from gravity_tpu_torch.ops import nlist
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    config = nlist_bf16_config()
+    state = make_initial_state(config, torch.device("cuda", 0))
+    side, cap = nlist.resolve_nlist_sizing(state.positions, config.nlist_rcut)
+    records = {"readme": nlist_bf16_timing(
+        nlist_tiles(state.positions, state.masses, side, cap,
+                    config.nlist_rcut),
+        dict(cutoff=CUTOFF_RADIUS, eps=config.eps), device, build,
+        "nlist_pair_kernel<bf16Li0ELb1ELb1>")}
+    del state
+    tstate = tree_state().astype(torch.bfloat16)
+    depth = tree_depth_of(tstate.positions)
+    records["near"] = nlist_bf16_timing(
+        tree_tiles(tstate.positions, tstate.masses, depth),
+        dict(cutoff=CUTOFF_RADIUS, eps=0.05, use_rcut=False, kind="newton"),
+        device, build, "nlist_pair_kernel<bf16Li0ELb0ELb1>", reps=20)
+    for name, record in records.items():
+        emit({"phase": "timing_nlist_bf16", "launch": name, **record})
+    return records
+
+
+def phase_nlist_bf16_path(device: dict, nlist_path: dict) -> dict:
+    """README's nlist command with --dtype bfloat16 through the Simulator
+    at N = 262,144, cut to 100 of its 500 steps: launches of the bf16 form
+    = force evaluations (and no fp32 launch), the dtype kept, the share of
+    bodies that moved, the full-gravity energy drift in float64 (reported:
+    the dynamics truncate at rcut), ms/step beside the fp32 path's, and
+    the final state's bf16 forces against fp32 nlist on the same state:
+    at most 1.5x the JAX package's own figure (JAX_BF16_NLIST), median and
+    p90, with the JAX suite's dense bars (median < 1e-2, p90 < 3e-2)
+    reported beside."""
+    import warnings
+
+    import torch
+
+    from gravity_tpu_torch.ops import diagnostics, nlist
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = nlist_bf16_config(steps=NLIST_BF16_STEPS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = Simulator(config)
+    check(sim.backend == "nlist", f"backend {sim.backend}")
+    x0 = sim.state.positions
+    e0 = energy_f64(sim.state, config, chunk=256)
+    stats, counts = logged_run(sim, "nlist_bf16_path",
+                               fixed_steps=config.steps)
+    evals = config.steps + 1
+    check(counts["nlist_pair/bf16"] == evals and counts["nlist_pair"] == 0
+          and counts["segment_sum/bf16"] == 2 * evals,
+          f"bf16 nlist: {counts} for {evals} force evaluations")
+    final = stats["final_state"]
+    check(final.positions.dtype == torch.bfloat16,
+          f"bf16 nlist: state became {final.positions.dtype}")
+    moved = float((final.positions != x0).any(dim=1).float().mean())
+    drift = diagnostics.energy_drift(e0, energy_f64(final, config,
+                                                    chunk=256))
+    side, cap, _ = sim.nlist_sizing
+    acc = sim.accel(final.positions, final.masses)
+    ref = nlist.nlist_accelerations(
+        final.positions.float(), final.masses.float(),
+        rcut=config.nlist_rcut, side=side, cap=cap, g=config.g,
+        cutoff=config.cutoff, eps=config.eps).double()
+    errors = rel_errors(acc, ref)
+    record = {
+        "phase": "nlist_bf16_path", "command": {**NLIST_RUN,
+                                                "dtype": "bfloat16"},
+        "steps": config.steps, "cut_from": NLIST_RUN["steps"],
+        "side": side, "cap": cap, "launches": counts["nlist_pair/bf16"],
+        "force_evaluations": evals, "counts": counts,
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "fp32_ms_per_step": nlist_path["ms_per_step"],
+        "moved_share": moved, "energy_drift_full_gravity_f64": drift,
+        "vs_fp32_nlist": errors, "jax_bf16_figure": JAX_BF16_NLIST,
+        "factor": TREE_BF16_FACTOR,
+        "suite_bars": {"median": BF16_MEDIAN_BAR, "p90": 3e-2,
+                       "met": errors["median"] < BF16_MEDIAN_BAR
+                       and errors["p90"] < 3e-2},
+        "warnings": [str(w.message)[:160] for w in caught],
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    check(all(errors[q] <= TREE_BF16_FACTOR * JAX_BF16_NLIST[q]
+              for q in ("median", "p90")),
+          f"bf16 nlist vs fp32 nlist past 1.5x the JAX figure: {errors}")
+    return record
+
+
+def phase_nlist_bf16_multirate_path(device: dict, build: dict) -> dict:
+    """The same bf16 state with --integrator multirate (k = 32,768, sub 4),
+    cut to 20 steps: the fast kicks through the bf16 form at the t_cap the
+    occupancy model picks; the last kick's tiles (the final state's fast
+    rung) held to the plain version, and that launch timed."""
+    import warnings
+
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = nlist_bf16_config(integrator="multirate",
+                               steps=NLIST_BF16_MULTIRATE_STEPS)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sim = Simulator(config)
+    side, cap, t_cap = sim.kick_sizing
+    k = sim._multirate_plan()[0]
+    check(t_cap < cap, f"k {k}, t_cap {t_cap}, cap {cap}")
+    stats, counts = logged_run(sim, "nlist_bf16_multirate_path",
+                               fixed_steps=config.steps)
+    check(counts["nlist_pair/bf16"] == 1 + 5 * config.steps
+          and counts["nlist_pair"] == 0,
+          f"{counts} for {config.steps} two-rung steps")
+    final = stats["final_state"]
+    idx = fast_targets(sim, final, k)
+    args = nlist_kick_tiles(final.positions, final.masses,
+                            final.positions[idx], side, cap, t_cap,
+                            config.nlist_rcut)
+    kw = dict(cutoff=CUTOFF_RADIUS, eps=config.eps)
+    check_rec = nlist_bf16_check(f"last kick k={k} t_cap={t_cap} bf16", args,
+                                 kw)
+    timing = nlist_bf16_timing(args, kw, device, build,
+                               "nlist_pair_kernel<bf16Li0ELb1ELb1>")
+    record = {
+        "phase": "nlist_bf16_multirate_path", "command": {
+            **NLIST_RUN, "dtype": "bfloat16", "integrator": "multirate"},
+        "steps": config.steps, "cut_from": NLIST_RUN["steps"], "k": k,
+        "side": side, "cap": cap, "t_cap": t_cap,
+        "launches": counts["nlist_pair/bf16"], "counts": counts,
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "dtype_kept": final.positions.dtype == sim.dtype,
+        "check": check_rec, "timing": timing,
+    }
+    emit(record)
+    return record
+
+
+def tree_bf16_errors(acc, idx, acc32, ref_direct) -> dict:
+    """bf16 tree forces at the sampled targets against the fp32 tree and
+    the fp32 direct sum, with each reading's bars (1.5x the JAX package's
+    own figure); the failed ones listed."""
+    record = {"vs_fp32_tree": rel_errors(acc[idx], acc32[idx].double()),
+              "vs_fp32_direct": rel_errors(acc[idx], ref_direct)}
+    record["faults"] = [
+        f"{ref} {q}" for ref in ("vs_fp32_tree", "vs_fp32_direct")
+        for q in ("median", "p90")
+        if record[ref][q] > TREE_BF16_FACTOR * JAX_BF16_TREE[ref][q]]
+    return record
+
+
+def phase_tree_bf16_path(device: dict) -> dict:
+    """`run --preset baseline-1m --dtype bfloat16 --tree-near nlist` at N =
+    1,048,576, cut to 10 of its 500 steps: the bf16 near-field launches =
+    force evaluations, the dtype kept, the share of bodies that moved, the
+    drift by Simulator.energy() (the tree potential at bf16, reported), the
+    peak memory; on the final state both near fields' bf16 forces against
+    the fp32 tree and fp32 nbody_direct at 4,096 targets (at most 1.5x the
+    JAX package's own figure, JAX_BF16_TREE) and against each other (the
+    targets in their leaf's slots apart). Then the gather near field for 3
+    steps (no kernel) and multirate for 3 (the near kicks through the bf16
+    form; the last kick's tiles held to the plain version)."""
+    import dataclasses
+    import warnings
+
+    import torch
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS
+    from gravity_tpu_torch.ops import tree
+    from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
+    from gravity_tpu_torch.simulation import Simulator, _tree_kwargs
+
+    base = dataclasses.replace(PRESETS["baseline-1m"], dtype="bfloat16")
+    config = dataclasses.replace(base, tree_near="nlist",
+                                 steps=TREE_BF16_STEPS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = Simulator(config)
+    check(sim.backend == "tree", f"backend {sim.backend}")
+    x0 = sim.state.positions
+    e0 = sim.energy()
+    torch.cuda.reset_peak_memory_stats()
+    stats, counts = logged_run(sim, "tree_bf16_path",
+                               fixed_steps=config.steps)
+    peak = torch.cuda.max_memory_allocated()
+    evals = config.steps + 1
+    check(counts["nlist_pair/near_bf16"] == evals
+          and counts["nlist_pair/near"] == 0
+          and counts["segment_sum/bf16"] >= evals,
+          f"bf16 tree: {counts} for {evals} force evaluations")
+    final = stats["final_state"]
+    check(final.positions.dtype == torch.bfloat16,
+          f"bf16 tree: state became {final.positions.dtype}")
+    moved = float((final.positions != x0).any(dim=1).float().mean())
+    drift = float(abs((sim.energy() - e0) / e0))
+
+    pos, masses = final.positions, final.masses
+    pos32, masses32 = pos.float(), masses.float()
+    gen = torch.Generator().manual_seed(17)
+    idx = torch.randperm(config.n, generator=gen)[:TREE_SAMPLE].to(pos.device)
+    ref = accelerations_vs_kernel(pos32[idx].contiguous(), pos32, masses32,
+                                  g=config.g, eps=config.eps).double()
+    accs, errors = {}, {}
+    for near in ("nlist", "gather"):
+        kw = _tree_kwargs(dataclasses.replace(config, tree_near=near),
+                          sim.tree_depth)
+        accs[near] = tree.tree_accelerations(pos, masses, **kw)
+        check(accs[near].dtype == torch.bfloat16
+              and bool(torch.isfinite(accs[near]).all()),
+              f"bf16 tree {near}: forces")
+        acc32 = tree.tree_accelerations(pos32, masses32, **kw)
+        errors[near] = tree_bf16_errors(accs[near], idx, acc32, ref)
+        del acc32
+    past = past_t_cap(pos, masses, sim.tree_depth, config.tree_leaf_cap)
+    gaps = near_gap(accs["nlist"], accs["gather"], past)
+    del accs
+
+    # The gather near field (no kernel) and multirate, 3 steps each.
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        gsim = Simulator(dataclasses.replace(base,
+                                             steps=TREE_BF16_GATHER_STEPS))
+    gstats, gcounts = logged_run(gsim, "tree_bf16_gather_path",
+                                 fixed_steps=TREE_BF16_GATHER_STEPS)
+    check(gcounts["nlist_pair/near_bf16"] == 0
+          and gcounts["nlist_pair/near"] == 0,
+          f"the bf16 gather near field launched nlist_pair: {gcounts}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        msim = Simulator(dataclasses.replace(
+            base, tree_near="nlist", integrator="multirate",
+            steps=TREE_BF16_MULTIRATE_STEPS))
+    mstats, mcounts = logged_run(msim, "tree_bf16_multirate_path",
+                                 fixed_steps=TREE_BF16_MULTIRATE_STEPS)
+    check(mcounts["nlist_pair/near_bf16"] == 1 + 5 * TREE_BF16_MULTIRATE_STEPS,
+          f"bf16 tree multirate: {mcounts}")
+    mfinal = mstats["final_state"]
+    k = msim._multirate_plan()[0]
+    fast = fast_targets(msim, mfinal, k)
+    kick = nlist_bf16_check(
+        f"baseline-1m last kick k={k} bf16", tree_tiles(
+            mfinal.positions, mfinal.masses, msim.tree_depth,
+            targets=mfinal.positions[fast]),
+        dict(cutoff=CUTOFF_RADIUS, eps=config.eps, use_rcut=False,
+             kind="newton"))
+    record = {
+        "phase": "tree_bf16_path", "preset": "baseline-1m",
+        "dtype": "bfloat16", "tree_near": "nlist", "n": config.n,
+        "steps": config.steps, "cut_from": 500, "depth": sim.tree_depth,
+        "launches": counts["nlist_pair/near_bf16"],
+        "force_evaluations": evals, "counts": counts,
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "peak_memory_bytes": peak, "moved_share": moved,
+        "energy_drift_tree_potential": drift,
+        "vs_fp32_targets": int(idx.numel()), "errors": errors,
+        "jax_bf16_figure": JAX_BF16_TREE, "factor": TREE_BF16_FACTOR,
+        "near_modes_gap": gaps,
+        "near_modes_gap_bars": {
+            "in_slot_median_rel": NEAR_GAP_BF16_IN_SLOT_MEDIAN_BAR,
+            "median_rel": NEAR_GAP_BF16_MEDIAN_BAR},
+        "gather": {"steps": TREE_BF16_GATHER_STEPS, "counts": gcounts,
+                   "ms_per_step": 1e3 * gstats["avg_step_s"],
+                   "dtype_kept": gstats["final_state"].positions.dtype
+                   == torch.bfloat16},
+        "multirate": {"steps": TREE_BF16_MULTIRATE_STEPS, "k": k,
+                      "launches": mcounts["nlist_pair/near_bf16"],
+                      "counts": mcounts,
+                      "ms_per_step": 1e3 * mstats["avg_step_s"],
+                      "last_kick": kick},
+        "warnings": [str(w.message)[:160] for w in caught],
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    for near, reading in errors.items():
+        check(not reading["faults"],
+              f"bf16 tree {near}: past 1.5x the JAX figure: {reading}")
+    check(gaps["in_slot"]["median_rel"] < NEAR_GAP_BF16_IN_SLOT_MEDIAN_BAR
+          and gaps["median_rel"] < NEAR_GAP_BF16_MEDIAN_BAR,
+          f"bf16 near modes: {gaps}")
+    check(record["gather"]["dtype_kept"], "bf16 gather run changed dtype")
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -3367,6 +4026,8 @@ def main() -> int:
     mxu_err = phase_mxu_kernel_vs_plain()
     p3m_err = phase_p3m_kernel_vs_plain()
     tree_err = phase_tree_kernel_vs_plain()
+    nlist_bf16 = phase_nlist_bf16_kernel_vs_plain()
+    seg_bf16 = phase_segment_sum_bf16(device)
     main_path = phase_main_path()
     nlist_path = phase_nlist_main_path()
     mxu_path = phase_mxu_path()
@@ -3384,6 +4045,9 @@ def main() -> int:
     tree_path = phase_tree_path(device)
     phase_tree_gather_path(device)
     tree_mr = phase_tree_multirate_path(device)
+    nlist_bf16_path = phase_nlist_bf16_path(device, nlist_path)
+    nlist_bf16_mr = phase_nlist_bf16_multirate_path(device, build)
+    tree_bf16 = phase_tree_bf16_path(device)
     phase_small_reference()
     phase_other_entry_points()
     timing = phase_timing(device, build)
@@ -3391,6 +4055,7 @@ def main() -> int:
     t_mxu = phase_timing_mxu(device, build)
     t_p3m = phase_timing_p3m(device)
     t_tree = phase_timing_tree(device, build)
+    t_nlist_bf16 = phase_timing_nlist_bf16(device, build)
     phase_profile_nlist()
     phase_profile_p3m()
     phase_profile_tree()
@@ -3417,7 +4082,13 @@ def main() -> int:
           "tree_ms_per_step": tree_path["ms_per_step"],
           "tree_multirate_ms_per_step": tree_mr["ms_per_step"],
           "tree_near_kernel_share_of_step":
-              t_tree["ms"] / tree_path["ms_per_step"]})
+              t_tree["ms"] / tree_path["ms_per_step"],
+          "bf16_ms_per_step": {
+              "nlist": nlist_bf16_path["ms_per_step"],
+              "nlist_multirate": nlist_bf16_mr["ms_per_step"],
+              "tree_nlist": tree_bf16["ms_per_step"],
+              "tree_gather": tree_bf16["gather"]["ms_per_step"],
+              "tree_multirate": tree_bf16["multirate"]["ms_per_step"]}})
     kernels = [
         ("nbody_direct", "gravity_tpu/ops/pallas_forces.py:45",
          main_path["launches"], max_abs_err, timing),
@@ -3445,6 +4116,23 @@ def main() -> int:
         # newton form.
         ("nlist_pair/near", "gravity_tpu/ops/pallas_nlist.py:292",
          tree_path["launches"], tree_err, t_tree),
+        # The bf16 form on a bf16 state: the nlist run, its multirate
+        # kicks at t_cap, and the octree's near field.
+        ("nlist_pair/bf16", "gravity_tpu/ops/pallas_nlist.py:292",
+         nlist_bf16_path["launches"], nlist_bf16["readme"]["max_abs_err"],
+         t_nlist_bf16["readme"]),
+        ("nlist_pair/t_cap_bf16", "gravity_tpu/ops/pallas_nlist.py:292",
+         nlist_bf16_mr["launches"], nlist_bf16_mr["check"]["max_abs_err"],
+         nlist_bf16_mr["timing"]),
+        ("nlist_pair/near_bf16", "gravity_tpu/ops/pallas_nlist.py:292",
+         tree_bf16["launches"], nlist_bf16["near"]["max_abs_err"],
+         t_nlist_bf16["near"]),
+        # The bf16 cell totals (cells.segment_sum_bf16): no TPU kernel.
+        ("segment_sum/bf16",
+         "none: jax.ops.segment_sum at gravity_tpu/ops/tree.py:137 is an "
+         "XLA scatter-add, not a Pallas kernel",
+         tree_bf16["counts"]["segment_sum/bf16"], seg_bf16["max_abs_err"],
+         seg_bf16["timing"]),
     ]
     emit({"kernels": [{
         "name": name, "route": "cuda",
@@ -3453,7 +4141,7 @@ def main() -> int:
         "launches": launches, "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": None, "library_note": t["library_note"],
+        "library_ms": t.get("library_ms"), "library_note": t["library_note"],
         "checked_against_plain": True,
     } for name, replaces, launches, err, t in kernels]})
     emit({"ok": True, "device": {

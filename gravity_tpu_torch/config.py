@@ -45,10 +45,14 @@ _UNPORTED_VALUES = {
         "gather)",
     ),
 }
-# Backends that do not take a bf16 state yet: the cell-list kernel has no
-# bf16 form (the octree's near field is that kernel too).
-_BF16_UNPORTED_BACKENDS = ("nlist", "p3m", "tree")
-_BF16_UNPORTED_ITEM = f"{_QUEUE} 4 (bf16 states through the cell-list kernel)"
+# P3M takes no bf16 state, as in the JAX package, whose mesh FFT refuses
+# one: nothing is left to port there.
+_BF16_REFUSED_BACKENDS = ("p3m",)
+_BF16_REFUSED_REASON = (
+    "the JAX package's P3M cannot run a bf16 state either: its mesh FFT, "
+    "jnp.fft.rfftn at gravity_tpu/ops/pm.py:286, takes float32 or float64 "
+    "only (ValueError: RFFT input must be float32 or float64)"
+)
 _UNPORTED_BACKENDS = {
     "cpp": (
         "ROADMAP.md Queue 2 (the JAX CPU XLA-FFI kernel has no port; "
@@ -192,11 +196,10 @@ class SimulationConfig:
                     f"gravity_tpu_torch yet ({item})"
                 )
         if (self.dtype == "bfloat16"
-                and self.force_backend in _BF16_UNPORTED_BACKENDS):
-            raise NotPortedError(
-                f"dtype='bfloat16' with force_backend={self.force_backend!r} "
-                f"is not ported to gravity_tpu_torch yet "
-                f"({_BF16_UNPORTED_ITEM})"
+                and self.force_backend in _BF16_REFUSED_BACKENDS):
+            raise ValueError(
+                f"dtype='bfloat16' with force_backend={self.force_backend!r}"
+                f": {_BF16_REFUSED_REASON}; use float32 or float64"
             )
         if self.force_backend in _UNPORTED_BACKENDS:
             raise NotPortedError(

@@ -78,14 +78,39 @@
 // normal: ewald's max(r^2 + eps^2, 1e-30) always, newton's r^2 + eps^2 >
 // cutoff^2 (or 1) when cutoff^2 >= FLT_MIN.
 //
+// The bf16 form (nlist_pair_bf16, newton kind with and without rcut)
+// replaces the same TPU kernel on a bf16 state, where _nlist_kernel
+// computes, accumulates and writes in the operands' dtype
+// (pallas_nlist.py:322, :399). Its contract is that of the JAX tile
+// engines, written out in pair_cells_plain's docstring: each op of a pair
+// term is computed in fp32 registers and rounded to bf16 where the plain
+// version holds a bf16 value (d, each d^2, r^2 with its three squares
+// added in fp32 and rounded once, r^2 + eps^2, rsqrt, the weight's three
+// products); each (cell, offset) row sum w d is formed in fp32 from the
+// exact products and rounded to bf16 once, as jnp.einsum does
+// (pallas_nlist.py:487); and the accumulator is bf16, rounded after each
+// of the 27 offsets (:490-491): 27 + 27 roundings a target, not one a
+// pair. The masks compare the rounded r^2 and r^2 + eps^2 with the bf16
+// params (rcut_eff^2), eps^2 and cutoff^2, so a pair within 2^-9 of rcut
+// is taken or left as the plain version takes it. Sources are staged in
+// fp32 (exact when widened from bf16), so the tile loop is the fp32 one;
+// each lane takes two sources of its target a step, so that one
+// cvt.rn.bf16x2.f32 rounds both pairs' values (12 roundings a pair, 6
+// conversions). What bounds it: those conversions, which issue at 16 a
+// clock an SM (1/8 of the FP32 pipe's rate), and the ~36 fp32 and
+// integer instructions a pair beside them. FTZ as the fp32 form: bf16 has
+// fp32's exponent range, and cutoff = 1e-10 gives a normal 1e-20.
+//
 // Build WITHOUT --use_fast_math: the weight is ((G m inv_r) inv_r) inv_r
 // in that order, because inv_r^3 alone underflows in fp32 and a distant
 // light pair's weight is subnormal; flushing subnormals would drop it.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -102,6 +127,31 @@ struct alignas(4 * sizeof(T)) Body {
 
 constexpr int kNewton = 0;
 constexpr int kEwald = 1;
+
+using bf16 = __nv_bfloat16;
+
+// The element type IO (float, double or bf16) and the type the kernel
+// computes, stages and sums in: fp32 for bf16.
+template <typename IO>
+using Compute = std::conditional_t<std::is_same_v<IO, bf16>, float, IO>;
+
+template <typename IO>
+__device__ __forceinline__ Compute<IO> load(const IO* p) {
+  if constexpr (std::is_same_v<IO, bf16>) {
+    return __bfloat162float(*p);
+  } else {
+    return *p;
+  }
+}
+
+template <typename IO, typename T>
+__device__ __forceinline__ IO store_as(T v) {
+  if constexpr (std::is_same_v<IO, bf16>) {
+    return __float2bfloat16_rn(v);
+  } else {
+    return v;
+  }
+}
 
 // rsqrt on an input known to be normal: rsqrt.approx.ftz.f32 gives the
 // same bits as rsqrtf there without its rescaling of subnormal inputs.
@@ -198,17 +248,97 @@ __device__ __forceinline__ void pair(const Body<T>& s, T xi, T yi, T zi,
   tz += w * dz;
 }
 
+// v rounded to bf16 (to nearest, even), back in fp32.
+__device__ __forceinline__ float rnd(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// a and b rounded to bf16 by one cvt.rn.bf16x2.f32, back in fp32: two
+// roundings for one conversion instruction.
+__device__ __forceinline__ void rnd2(float& a, float& b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  a = __low2float(h);
+  b = __high2float(h);
+}
+
+// The bf16 form's newton pair term for two sources s0, s1 of one target,
+// each op in fp32 and rounded to bf16 where pair_cells_plain holds a bf16
+// tensor, the two sources' roundings packed into one conversion: d, each
+// d^2, r^2 (its three squares added in fp32 as (x + y) + z, rounded
+// once), r^2 + eps^2, rsqrt and each of the weight's three products. The
+// masks compare those rounded values with the bf16 params, eps^2 and
+// cutoff^2. The products w d are exact in fp32 and summed there.
+template <bool USE_RCUT, bool FTZ>
+__device__ __forceinline__ void pair_bf16(const Body<float>& s0,
+                                          const Body<float>& s1, float xi,
+                                          float yi, float zi, float rcut2,
+                                          float eps2, float cutoff2,
+                                          float& tx, float& ty, float& tz) {
+  float dx[2] = {s0.x - xi, s1.x - xi};
+  float dy[2] = {s0.y - yi, s1.y - yi};
+  float dz[2] = {s0.z - zi, s1.z - zi};
+  rnd2(dx[0], dx[1]);
+  rnd2(dy[0], dy[1]);
+  rnd2(dz[0], dz[1]);
+  float sx[2], sy[2], sz[2], r2[2], r2s[2], inv_r[2], w[2];
+  bool ok[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    sx[k] = dx[k] * dx[k];
+    sy[k] = dy[k] * dy[k];
+    sz[k] = dz[k] * dz[k];
+  }
+  rnd2(sx[0], sx[1]);
+  rnd2(sy[0], sy[1]);
+  rnd2(sz[0], sz[1]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) r2[k] = (sx[k] + sy[k]) + sz[k];
+  rnd2(r2[0], r2[1]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) r2s[k] = r2[k] + eps2;
+  rnd2(r2s[0], r2s[1]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    ok[k] = r2s[k] > cutoff2 && r2[k] > 0.0f;
+    if (USE_RCUT) ok[k] = ok[k] && r2[k] <= rcut2;
+    inv_r[k] = rsqrt_t<FTZ>(ok[k] ? r2s[k] : 1.0f);
+  }
+  rnd2(inv_r[0], inv_r[1]);
+  w[0] = s0.gm * inv_r[0];
+  w[1] = s1.gm * inv_r[1];
+  rnd2(w[0], w[1]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) w[k] = w[k] * inv_r[k];
+  rnd2(w[0], w[1]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) w[k] = w[k] * inv_r[k];
+  rnd2(w[0], w[1]);
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float wk = ok[k] ? w[k] : 0.0f;
+    tx = fmaf(wk, dx[k], tx);
+    ty = fmaf(wk, dy[k], ty);
+    tz = fmaf(wk, dz[k], tz);
+  }
+}
+
 // Warp v of the grid serves work item v = cell * ceil(t_cap / kGroup) +
 // slot group. Lane l serves target slot l / kQ of its item and the
-// sources j = l % kQ (mod kQ) of each staged tile.
-template <typename T, int KIND, bool USE_RCUT, bool FTZ>
+// sources j = l % kQ (mod kQ) of each staged tile (two at a time in the
+// bf16 form).
+template <typename IO, int KIND, bool USE_RCUT, bool FTZ>
 __global__ void __launch_bounds__(kThreads)
-    nlist_pair_kernel(const T* __restrict__ tpos,
+    nlist_pair_kernel(const IO* __restrict__ tpos,
                       const int64_t* __restrict__ t_count,
-                      const T* __restrict__ spos, const T* __restrict__ sgm,
+                      const IO* __restrict__ spos, const IO* __restrict__ sgm,
                       const int64_t* __restrict__ s_count, int side,
-                      int t_cap, int cap, const T* __restrict__ params,
-                      T eps2, T cutoff2, T* __restrict__ out) {
+                      int t_cap, int cap, const IO* __restrict__ params,
+                      Compute<IO> eps2, Compute<IO> cutoff2,
+                      IO* __restrict__ out) {
+  using T = Compute<IO>;
+  constexpr bool kBf16 = std::is_same_v<IO, bf16>;
+  static_assert(!kBf16 || KIND == kNewton,
+                "the bf16 form has the newton kind only");
   __shared__ Body<T> stage[kWarps][kStage];
   const int lane = threadIdx.x & 31;
   const int q = lane % kQ;
@@ -227,14 +357,14 @@ __global__ void __launch_bounds__(kThreads)
   // Warp-uniform: an item whose slots all lie past the count only writes
   // zeros.
   if (first < nt) {
-    const T rcut2 = USE_RCUT ? params[0] : T(0);
-    const T alpha = KIND == kEwald ? params[1] : T(0);
+    const T rcut2 = USE_RCUT ? load(params) : T(0);
+    const T alpha = KIND == kEwald ? load(params + 1) : T(0);
     const T alpha3 = mul_rn(mul_rn(alpha, alpha), alpha);
     T xi = T(0), yi = T(0), zi = T(0);
     if (active) {
-      xi = tpos[3 * trow];
-      yi = tpos[3 * trow + 1];
-      zi = tpos[3 * trow + 2];
+      xi = load(tpos + 3 * trow);
+      yi = load(tpos + 3 * trow + 1);
+      zi = load(tpos + 3 * trow + 2);
     }
     const int cx = c / (side * side);
     const int cy = (c / side) % side;
@@ -256,17 +386,33 @@ __global__ void __launch_bounds__(kThreads)
         for (int jj = lane; jj < jn; jj += 32) {
           const int64_t j = sbase + base + jj;
           Body<T> b;
-          b.x = spos[3 * j];
-          b.y = spos[3 * j + 1];
-          b.z = spos[3 * j + 2];
-          b.gm = sgm[j];
+          b.x = load(spos + 3 * j);
+          b.y = load(spos + 3 * j + 1);
+          b.z = load(spos + 3 * j + 2);
+          b.gm = load(sgm + j);
           buf[jj] = b;
         }
         __syncwarp();
+        if constexpr (kBf16) {
+          // Two sources a step; past the tile's end the second is the
+          // first with G m = 0, an exact no-op.
+#pragma unroll 2
+          for (int jj = q; jj < jn; jj += 2 * kQ) {
+            Body<float> s1 = buf[jj];
+            if (jj + kQ < jn) {
+              s1 = buf[jj + kQ];
+            } else {
+              s1.gm = 0.0f;
+            }
+            pair_bf16<USE_RCUT, FTZ>(buf[jj], s1, xi, yi, zi, rcut2, eps2,
+                                     cutoff2, tx, ty, tz);
+          }
+        } else {
 #pragma unroll 4
-        for (int jj = q; jj < jn; jj += kQ) {
-          pair<T, KIND, USE_RCUT, FTZ>(buf[jj], xi, yi, zi, rcut2, alpha,
-                                       alpha3, eps2, cutoff2, tx, ty, tz);
+          for (int jj = q; jj < jn; jj += kQ) {
+            pair<T, KIND, USE_RCUT, FTZ>(buf[jj], xi, yi, zi, rcut2, alpha,
+                                         alpha3, eps2, cutoff2, tx, ty, tz);
+          }
         }
         __syncwarp();
       }
@@ -278,41 +424,54 @@ __global__ void __launch_bounds__(kThreads)
         ty += __shfl_xor_sync(0xffffffffu, ty, off);
         tz += __shfl_xor_sync(0xffffffffu, tz, off);
       }
-      ax += tx;
-      ay += ty;
-      az += tz;
+      if constexpr (kBf16) {
+        // The row rounded once, then the bf16 accumulator.
+        ax = rnd(ax + rnd(tx));
+        ay = rnd(ay + rnd(ty));
+        az = rnd(az + rnd(tz));
+      } else {
+        ax += tx;
+        ay += ty;
+        az += tz;
+      }
     }
   }
   if (q == 0 && slot < t_cap) {
-    out[3 * trow] = active ? ax : T(0);
-    out[3 * trow + 1] = active ? ay : T(0);
-    out[3 * trow + 2] = active ? az : T(0);
+    out[3 * trow] = store_as<IO>(active ? ax : T(0));
+    out[3 * trow + 1] = store_as<IO>(active ? ay : T(0));
+    out[3 * trow + 2] = store_as<IO>(active ? az : T(0));
   }
 }
 
-template <typename T>
-using KernelFn = void (*)(const T*, const int64_t*, const T*, const T*,
-                          const int64_t*, int, int, int, const T*, T, T, T*);
+template <typename IO>
+using KernelFn = void (*)(const IO*, const int64_t*, const IO*, const IO*,
+                          const int64_t*, int, int, int, const IO*,
+                          Compute<IO>, Compute<IO>, IO*);
 
-// The instantiation a launch takes. The newton kind's rsqrt input is
-// r^2 + eps^2 > cutoff^2, or 1, so normal when cutoff^2 >= FLT_MIN.
-template <typename T>
-KernelFn<T> pick_kernel(int kind, int use_rcut, double cutoff2) {
+// The instantiation a launch takes, or null (the bf16 form has no ewald
+// kind). The newton kind's rsqrt input is r^2 + eps^2 > cutoff^2, or 1,
+// so normal when cutoff^2 >= FLT_MIN.
+template <typename IO>
+KernelFn<IO> pick_kernel(int kind, int use_rcut, double cutoff2) {
   if (kind == kEwald) {
-    // The ewald kind always truncates at rcut.
-    return nlist_pair_kernel<T, kEwald, true, false>;
-  }
-  if constexpr (sizeof(T) == 4) {
-    if (cutoff2 >= FLT_MIN) {
-      return use_rcut ? nlist_pair_kernel<T, kNewton, true, true>
-                      : nlist_pair_kernel<T, kNewton, false, true>;
+    if constexpr (std::is_same_v<IO, bf16>) {
+      return nullptr;
+    } else {
+      // The ewald kind always truncates at rcut.
+      return nlist_pair_kernel<IO, kEwald, true, false>;
     }
   }
-  return use_rcut ? nlist_pair_kernel<T, kNewton, true, false>
-                  : nlist_pair_kernel<T, kNewton, false, false>;
+  if constexpr (sizeof(Compute<IO>) == 4) {
+    if (cutoff2 >= FLT_MIN) {
+      return use_rcut ? nlist_pair_kernel<IO, kNewton, true, true>
+                      : nlist_pair_kernel<IO, kNewton, false, true>;
+    }
+  }
+  return use_rcut ? nlist_pair_kernel<IO, kNewton, true, false>
+                  : nlist_pair_kernel<IO, kNewton, false, false>;
 }
 
-template <typename T>
+template <typename IO>
 int launch(const void* tpos, const void* t_count, const void* spos,
            const void* sgm, const void* s_count, int side, int t_cap, int cap,
            const void* params, double eps2, double cutoff2, int use_rcut,
@@ -320,18 +479,19 @@ int launch(const void* tpos, const void* t_count, const void* spos,
   if (kind != kNewton && kind != kEwald) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const KernelFn<IO> kernel = pick_kernel<IO>(kind, use_rcut, cutoff2);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (side <= 0 || t_cap <= 0) return 0;
   const int64_t n_items = static_cast<int64_t>(side) * side * side *
                           ((t_cap + kGroup - 1) / kGroup);
   const unsigned grid = static_cast<unsigned>((n_items + kWarps - 1) /
                                               kWarps);
-  pick_kernel<T>(kind, use_rcut, cutoff2)<<<
-      grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(tpos), static_cast<const int64_t*>(t_count),
-      static_cast<const T*>(spos), static_cast<const T*>(sgm),
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const IO*>(tpos), static_cast<const int64_t*>(t_count),
+      static_cast<const IO*>(spos), static_cast<const IO*>(sgm),
       static_cast<const int64_t*>(s_count), side, t_cap, cap,
-      static_cast<const T*>(params), static_cast<T>(eps2),
-      static_cast<T>(cutoff2), static_cast<T*>(out));
+      static_cast<const IO*>(params), static_cast<Compute<IO>>(eps2),
+      static_cast<Compute<IO>>(cutoff2), static_cast<IO*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -363,6 +523,18 @@ extern "C" int nlist_pair_f64(const void* tpos, const void* t_count,
                               void* out, void* stream) {
   return launch<double>(tpos, t_count, spos, sgm, s_count, side, t_cap, cap,
                         params, eps2, cutoff2, use_rcut, kind, out, stream);
+}
+
+// The bf16 form: bf16 arrays throughout (params too), newton kind only
+// (kind 1 returns cudaErrorInvalidValue).
+extern "C" int nlist_pair_bf16(const void* tpos, const void* t_count,
+                               const void* spos, const void* sgm,
+                               const void* s_count, int side, int t_cap,
+                               int cap, const void* params, double eps2,
+                               double cutoff2, int use_rcut, int kind,
+                               void* out, void* stream) {
+  return launch<bf16>(tpos, t_count, spos, sgm, s_count, side, t_cap, cap,
+                      params, eps2, cutoff2, use_rcut, kind, out, stream);
 }
 
 extern "C" const char* nlist_pair_error_string(int code) {

@@ -13,9 +13,13 @@ same bodies take a cell's slots and the same ones overflow.
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import numpy as np
 import torch
 
+from . import cuda_build
 from .pm import bounding_cube
 
 __all__ = [
@@ -27,6 +31,8 @@ __all__ = [
     "grid_coords",
     "map_target_chunks",
     "segment_sum",
+    "segment_sum_bf16",
+    "segment_sum_bf16_plain",
 ]
 
 
@@ -60,10 +66,80 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor,
                 n: int) -> torch.Tensor:
     """``jax.ops.segment_sum``: rows of ``values`` summed by ``ids``. On
     CUDA the float sums use atomics, so their last bits vary from run to
-    run."""
+    run; a bf16 sum goes through :func:`segment_sum_bf16`."""
+    if values.dtype == torch.bfloat16:
+        return segment_sum_bf16(values, ids, n)
     out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype,
                       device=values.device)
     return out.index_add_(0, ids, values)
+
+
+def segment_sum_bf16_plain(values: torch.Tensor, ids: torch.Tensor,
+                           n: int) -> torch.Tensor:
+    """The bf16 segment sum of the JAX package's scatter-add on the CPU:
+    rounded to bf16 after every add, in element order, so a segment of
+    ones stalls at 256 (256 + 1 rounds back to 256) and a cell total of
+    more bodies comes out short in both packages. torch's ``index_add_``
+    on the CPU adds a 1-D source in element order but the rows of a 2-D
+    one in another, so the sum is taken column by column. The plain
+    version of :func:`segment_sum_bf16`'s kernel."""
+    if values.dim() > 1:
+        cols = values.reshape(values.shape[0], -1).unbind(1)
+        out = torch.stack([segment_sum_bf16_plain(c.contiguous(), ids, n)
+                           for c in cols], dim=1)
+        return out.reshape(n, *values.shape[1:])
+    out = torch.zeros(n, dtype=values.dtype, device=values.device)
+    return out.index_add_(0, ids, values)
+
+
+# Kernel launches of segment_sum_bf16 so far (only where it launches).
+LAUNCHES = 0
+LIBRARY = cuda_build.CudaLibrary("segment_sum", {
+    "segment_sum_bf16": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+                         ctypes.c_int),
+})
+_MAX_COLS = 8
+
+
+def segment_sum_bf16(values: torch.Tensor, ids: torch.Tensor,
+                     n: int) -> torch.Tensor:
+    """:func:`segment_sum_bf16_plain`'s contract. CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/segment_sum.cu`` on the current
+    stream, without synchronising, or raise: the rows are gathered in
+    segment order by a stable argsort of ``ids`` (element order inside a
+    segment) and each warp of the kernel adds one segment's rows in that
+    order. Unlike ``index_add_``'s bf16 atomics on the card, this gives the
+    JAX package's CPU bits, the same on every run."""
+    global LAUNCHES
+    cols = math.prod(values.shape[1:])
+    if values.dim() < 1 or ids.shape != values.shape[:1] \
+            or not 1 <= cols <= _MAX_COLS:
+        raise ValueError(f"values {tuple(values.shape)} and ids "
+                         f"{tuple(ids.shape)}: one id a row, at most "
+                         f"{_MAX_COLS} values a row")
+    if values.device.type == "cpu" and ids.device.type == "cpu":
+        return segment_sum_bf16_plain(values, ids, n)
+    if values.device.type != "cuda" or ids.device != values.device:
+        raise ValueError("the CUDA kernel needs values and ids on one CUDA "
+                         f"device, got {values.device} and {ids.device}")
+    if values.dtype != torch.bfloat16 or ids.dtype != torch.int64:
+        raise TypeError(f"the CUDA kernel takes bfloat16 values and int64 "
+                        f"ids, not {values.dtype} and {ids.dtype}")
+    order = torch.argsort(ids, stable=True)
+    rows = values.reshape(values.shape[0], cols)[order].contiguous()
+    counts = torch.zeros(n + 1, dtype=torch.int64, device=values.device)
+    counts.index_add_(0, ids + 1, torch.ones_like(ids))
+    starts = torch.cumsum(counts, 0)
+    out = torch.empty((n, cols), dtype=values.dtype, device=values.device)
+    lib = LIBRARY.load()
+    with torch.cuda.device(values.device):
+        status = lib.segment_sum_bf16(
+            rows.data_ptr(), starts.data_ptr(), n, cols, out.data_ptr(),
+            torch.cuda.current_stream(values.device).cuda_stream)
+    LIBRARY.check(status)
+    LAUNCHES += 1
+    return out.reshape(n, *values.shape[1:])
 
 
 def _cell_slots(sorted_cell_ids, cell_start, n_cells: int, cap: int):

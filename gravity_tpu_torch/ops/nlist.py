@@ -30,6 +30,13 @@ device scalar that the kernel reads through a pointer, and the overflow
 fallback is computed for every target and selected with ``torch.where``
 (the JAX package gates it with ``lax.cond``).
 
+A bf16 state runs bf16 through every step, as the JAX package's does: the
+binning, the segment sums (``cells.segment_sum``, rounded add by add),
+rcut_eff^2 rounded to bf16, the overflow channels in bf16 torch ops, and
+the pair tiles under the bf16 contract of :func:`pair_cells_plain`,
+which the kernel's bf16 form keeps. The ``newton`` kind only: ``ewald``
+serves P3M, which takes no bf16 state in either package.
+
 Not ported yet, and refused with :class:`~..config.NotPortedError`: the
 periodic form (``box`` > 0, ROADMAP Queue 1 item 7). Not ported either:
 the domain-decomposed slab/halo engines (Queue 1 item 5) and backward
@@ -48,6 +55,7 @@ from torch.profiler import record_function
 
 from ..config import NotPortedError
 from ..constants import CUTOFF_RADIUS, G
+from ..interop import to_numpy
 from . import cuda_build
 from .cells import (
     bin_to_cells,
@@ -56,6 +64,7 @@ from .cells import (
     grid_coords,
     segment_sum,
 )
+from .forces import rounded
 
 # Default static per-cell source cap when no occupancy data is available.
 DEFAULT_CAP = 64
@@ -85,7 +94,8 @@ def resolve_nlist_sizing(
     if rcut <= 0.0:
         raise ValueError(f"nlist rcut must be > 0, got {rcut}")
     if isinstance(positions, torch.Tensor):
-        positions = positions.detach().cpu().numpy()
+        # A bf16 tensor through float32, which holds it exactly.
+        positions = to_numpy(positions)
     pos = np.asarray(positions, np.float64)
     lo, hi = pos.min(axis=0), pos.max(axis=0)
     span = float((hi - lo).max()) * 1.02 + 1e-30
@@ -161,9 +171,10 @@ def _newton_w(r2, gm, params, *, cutoff, eps, use_rcut):
     eps^2)^(3/2) for cutoff^2 < r^2 + eps^2, r^2 <= params[0] =
     rcut_eff^2 (a device scalar) and r > 0. gm is G*m, zero on padded
     slots. eps^2 and cutoff^2 are squared in double and then rounded to
-    the dtype (a Python scalar in a tensor op takes the tensor's dtype)."""
-    r2s = r2 + eps * eps
-    valid = (r2s > cutoff * cutoff) & (r2 > 0)
+    the dtype, as the JAX package rounds them: a Python scalar in a bf16
+    tensor op would enter at fp32."""
+    r2s = r2 + rounded(eps * eps, r2.dtype)
+    valid = (r2s > rounded(cutoff * cutoff, r2.dtype)) & (r2 > 0)
     if use_rcut:
         valid = valid & (r2 <= params[0])
     inv_r = torch.rsqrt(torch.where(valid, r2s, 1.0))
@@ -379,8 +390,18 @@ def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
     unused: padded sources are exact no-ops here, as are out-of-grid
     neighbors (their G*m is taken as zero). ``absolute`` sums each pair's
     terms in absolute value before any cancellation (for ``ewald`` gm
-    (|newt| + |corr|) |d|): the scale a row's rounding is measured in."""
+    (|newt| + |corr|) |d|): the scale a row's rounding is measured in.
+
+    At bf16 (``newton`` only) the contract of the JAX tile engines, which
+    the kernel's bf16 form keeps: each op of a pair term is rounded to
+    bf16 (d, each d^2, r^2 with its three squares added in fp32 in the
+    order (x + y) + z and rounded once, r^2 + eps^2, rsqrt, the weight's
+    three products); each (cell, offset) row sum_s w d is formed in fp32
+    from the exact products and rounded to bf16 once, as
+    ``jnp.einsum`` does (``pallas_nlist.py:487``); and the accumulator
+    is bf16, rounded after each of the 27 offsets (``:490-491``)."""
     del s_count
+    low = tcells_pos.dtype == torch.bfloat16
     t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
     out = torch.zeros_like(tcells_pos)
     occupied = torch.nonzero(t_count > 0).flatten()
@@ -400,20 +421,27 @@ def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
             dx = spos[..., 0] - tpos[..., 0]  # (B, t_cap, cap)
             dy = spos[..., 1] - tpos[..., 1]
             dz = spos[..., 2] - tpos[..., 2]
-            r2 = dx * dx + dy * dy + dz * dz
+            if low:
+                sq = [(d * d).float() for d in (dx, dy, dz)]
+                r2 = ((sq[0] + sq[1]) + sq[2]).to(torch.bfloat16)
+                dx, dy, dz = (d.float() for d in (dx, dy, dz))
+            else:
+                r2 = dx * dx + dy * dy + dz * dz
             w = _pair_w(kind, r2, sgm, params, cutoff=cutoff, eps=eps,
                         use_rcut=use_rcut, absolute=absolute)
+            if low:
+                w = w.float()  # the products w d are exact in fp32
             terms = torch.stack([w * dx, w * dy, w * dz], dim=-1)
             if absolute:
                 terms = terms.abs()
-            acc = acc + terms.sum(dim=2)
+            acc = acc + terms.sum(dim=2).to(acc.dtype)
         out[cb] = acc
     real = torch.arange(t_cap, device=out.device)[None, :] < t_count[:, None]
     return torch.where(real[..., None], out, 0.0)
 
 
-_ENTRY = {torch.float32: "nlist_pair_f32", torch.float64: "nlist_pair_f64"}
-_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+_ENTRY = {torch.float32: "nlist_pair_f32", torch.float64: "nlist_pair_f64",
+          torch.bfloat16: "nlist_pair_bf16"}
 # The kernel's pair-kind codes (csrc/nlist_pair.cu) and the params each
 # kind reads.
 _KIND_CODE = {"newton": 0, "ewald": 1}
@@ -428,15 +456,19 @@ LIBRARY = cuda_build.CudaLibrary("nlist_pair", {
 })
 
 # Kernel launches so far, per pair kind, and apart for the untruncated
-# newton form (``near``, the octree's near field); a run reads its form's
-# count to show its path went through the kernel. Incremented only where
-# the kernel is launched.
-LAUNCHES = {kind: 0 for kind in (*KINDS, "near")}
+# newton form (``near``, the octree's near field) and for the bf16 form
+# (``newton_bf16``, ``near_bf16``); a run reads its form's count to show
+# its path went through the kernel. Incremented only where the kernel is
+# launched.
+LAUNCHES = {kind: 0 for kind in (*KINDS, "near", "newton_bf16",
+                                 "near_bf16")}
 
 
-def launch_key(kind: str, use_rcut: bool) -> str:
-    """The :data:`LAUNCHES` key of a launch of ``kind``."""
-    return "near" if kind == "newton" and not use_rcut else kind
+def launch_key(kind: str, use_rcut: bool,
+               dtype: torch.dtype = torch.float32) -> str:
+    """The :data:`LAUNCHES` key of a launch of ``kind`` on ``dtype``."""
+    key = "near" if kind == "newton" and not use_rcut else kind
+    return f"{key}_bf16" if dtype == torch.bfloat16 else key
 
 
 def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params,
@@ -448,7 +480,8 @@ def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params,
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
     if dtype not in _ENTRY:
-        raise TypeError(f"the CUDA kernel takes float32 or float64, not {dtype}")
+        raise TypeError("the CUDA kernel takes float32, float64 or bfloat16, "
+                        f"not {dtype}")
     n_cells = side**3
     t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
     shapes = (
@@ -483,17 +516,24 @@ def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
     contract (``s_count``, the sources of each cell, bounds the slots the
     kernel reads). CPU tensors take the plain version; CUDA tensors
     launch ``csrc/nlist_pair.cu`` on the current stream, without
-    synchronising, or raise."""
+    synchronising, or raise. A bf16 launch takes the kernel's bf16 form.
+    ``ewald`` at bf16 is refused on every device: it serves only P3M,
+    which refuses a bf16 state as the JAX package's does (its mesh FFT
+    takes float32 or float64 only, ``gravity_tpu/ops/pm.py:286``)."""
+    if kind == "ewald" and tcells_pos.dtype == torch.bfloat16:
+        raise ValueError(
+            "the ewald pair kind takes float32 or float64: it serves only "
+            "P3M, which refuses a bf16 state as the JAX package's does "
+            "(jnp.fft.rfftn at gravity_tpu/ops/pm.py:286)")
     args = (tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params)
     if all(t.device.type == "cpu" for t in args if isinstance(t, torch.Tensor)):
         return pair_cells_plain(*args, cutoff=cutoff, eps=eps,
                                 use_rcut=use_rcut, kind=kind)
     _check(*args, kind)
     dtype, device = tcells_pos.dtype, tcells_pos.device
-    scalar = _NP_DTYPE[dtype]
-    # Squared in double, then rounded to the element type (_pair_w).
-    eps2 = float(scalar(eps * eps))
-    cutoff2 = float(scalar(cutoff * cutoff))
+    # Squared in double, then rounded to the element type (_newton_w).
+    eps2 = rounded(eps * eps, dtype)
+    cutoff2 = rounded(cutoff * cutoff, dtype)
     t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
     out = torch.empty_like(tcells_pos)
     lib = LIBRARY.load()
@@ -506,7 +546,7 @@ def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
             torch.cuda.current_stream(device).cuda_stream,
         )
     LIBRARY.check(status)
-    LAUNCHES[launch_key(kind, use_rcut)] += 1
+    LAUNCHES[launch_key(kind, use_rcut, dtype)] += 1
     return out
 
 

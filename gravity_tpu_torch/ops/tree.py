@@ -27,6 +27,12 @@ over the bounding cube, evaluated with fixed-shape interaction lists.
   monopole softened to half the leaf size, so dense leaves degrade to the
   resolution limit and never drop mass.
 
+A bf16 state is evaluated in bf16 throughout, as in the JAX package: cell
+totals by bf16 segment sums (a cell of more than 256 to 512 bodies of
+equal mass gets too little mass in both packages, ``cells.segment_sum``),
+both far modes and both near fields, the latter through ``nlist_pair``'s
+bf16 form on the card.
+
 No step of an evaluation waits for the device: the overflow monopole,
 which the JAX package gates with ``lax.cond``, is computed for every chunk
 and masked (its terms are exact zeros off the overflow set).

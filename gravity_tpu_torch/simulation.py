@@ -80,16 +80,18 @@ MERGE_GRID_THRESHOLD = 32_768
 # O(N log N) potential instead of the dense O(N^2) pair scan, as in the JAX
 # package.
 ENERGY_TREE_THRESHOLD = 16_384
-# The launch count of each resolved backend's kernel (p3m's is the
-# cell-list kernel's ewald kind, which its gather pass does not launch;
-# the tree's its untruncated newton form, which its gather near field
-# does not launch).
+# The launch count of each resolved backend's kernel on a state's dtype
+# (p3m's is the cell-list kernel's ewald kind, which its gather pass does
+# not launch; the tree's its untruncated newton form, which its gather near
+# field does not launch; the cell list's bf16 form counts apart).
 _LAUNCH_COUNTS = {
-    KERNEL_BACKEND: lambda: direct_kernel.LAUNCHES,
-    MXU_BACKEND: lambda: mxu_kernel.LAUNCHES,
-    "nlist": lambda: nlist.LAUNCHES["newton"],
-    "p3m": lambda: nlist.LAUNCHES["ewald"],
-    "tree": lambda: nlist.LAUNCHES["near"],
+    KERNEL_BACKEND: lambda dtype: direct_kernel.LAUNCHES,
+    MXU_BACKEND: lambda dtype: mxu_kernel.LAUNCHES,
+    "nlist": lambda dtype: nlist.LAUNCHES[
+        nlist.launch_key("newton", True, dtype)],
+    "p3m": lambda dtype: nlist.LAUNCHES["ewald"],
+    "tree": lambda dtype: nlist.LAUNCHES[
+        nlist.launch_key("newton", False, dtype)],
 }
 
 
@@ -115,8 +117,9 @@ def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
     and ``tree`` are explicit opt-ins only. ``dense`` and ``chunked`` are the
     plain version on any device. ``auto`` does not route to the fast
     solvers: that is the autotuned router (ROADMAP Queue 1 item 8).
-    A bf16 state takes the same route: the kernels' bf16 forms (the
-    config refuses bf16 with ``nlist``, ``p3m`` and ``tree``).
+    A bf16 state takes the same route: the kernels' bf16 forms, the cell
+    list's and the octree's near field through ``nlist_pair``'s (the
+    config refuses bf16 with ``p3m``, as the JAX package's mesh FFT does).
     """
     backend = config.force_backend
     plain = "dense" if config.n <= DENSE_MAX_N else "chunked"
@@ -484,7 +487,8 @@ class Simulator:
         return state, acc, frames
 
     def _launch_count(self):
-        return _LAUNCH_COUNTS.get(self.backend, lambda: 0)
+        count = _LAUNCH_COUNTS.get(self.backend, lambda dtype: 0)
+        return lambda: count(self.dtype)
 
     def _setup_accel(self) -> None:
         if self.backend == "p3m":

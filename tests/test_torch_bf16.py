@@ -126,7 +126,8 @@ def test_bf16_state_round_trips_through_integrators(integrator, backend):
 def test_bf16_routing_and_refusals():
     """A bf16 state takes nbody_direct's bf16 form on auto, direct and
     pallas on the card, nbody_mxu's bf16 form on pallas-mxu, the plain
-    version on dense and chunked; the cell-list backends refuse it."""
+    version on dense and chunked, the cell list on nlist; P3M refuses it
+    with the JAX package's own reason (its mesh FFT, pm.py:286)."""
     cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
     for backend in ("auto", "direct", "pallas"):
         cfg = SimulationConfig(n=16_384, dtype="bfloat16",
@@ -138,10 +139,12 @@ def test_bf16_routing_and_refusals():
         cfg = SimulationConfig(dtype="bfloat16", force_backend=backend)
         assert _resolve_backend(cfg, cuda) == backend
     assert _resolve_backend(SimulationConfig(dtype="bfloat16"), cpu) == "dense"
-    for backend in ("nlist", "p3m"):
-        with pytest.raises(NotPortedError, match="Queue 1 item 4"):
-            SimulationConfig(dtype="bfloat16", force_backend=backend,
-                             nlist_rcut=5e10)
+    cfg = SimulationConfig(dtype="bfloat16", force_backend="nlist",
+                           nlist_rcut=5e10)
+    assert _resolve_backend(cfg, cuda) == "nlist"
+    with pytest.raises(ValueError, match="pm.py:286") as e:
+        SimulationConfig(dtype="bfloat16", force_backend="p3m")
+    assert not isinstance(e.value, NotPortedError)
 
 
 def test_bf16_interop_and_trajectories(tmp_path):

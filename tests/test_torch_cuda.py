@@ -548,3 +548,126 @@ def test_tree_runs_its_near_field_through_the_kernel(cuda):
     a = tree.tree_accelerations(pos, masses, near_mode="nlist", **kw)
     b = tree.tree_accelerations(pos, masses, near_mode="gather", **kw)
     assert float((a - b).abs().max() / b.norm(dim=1).mean()) < 1e-9
+
+
+# The bf16 form of nlist_pair against the plain version at bf16, in units
+# of each row's sum of |terms|. Both round every op of a term alike and
+# take the same masks; a term differs only where rsqrt.approx and the
+# plain rsqrt round inv_r to bf16 one ulp apart (3 x 2^-8 of that term
+# through the weight's three products). Each row is an fp32 sum in
+# another order (~cap 2^-24 apart), rounded to bf16 once, and then added
+# into the bf16 accumulator: where a row lands one ulp (2^-7 of at most
+# the row's sum of |terms|) apart, the accumulator carries it. A few such
+# ulps a target: 2^-5.
+NLIST_BF16_TOL = 2.0**-5
+
+
+@pytest.mark.parametrize("use_rcut", [True, False])
+@pytest.mark.parametrize("t_cap,cap", [(64, 64), (32, 32), (20, 33),
+                                       (128, 256)])
+def test_nlist_bf16_kernel_matches_plain(cuda, t_cap, cap, use_rcut):
+    """The bf16 form against the plain version at bf16 (rcut_eff^2 and
+    G m rounded to bf16 as the path makes them): targets = sources and a
+    t_cap below the cap, counts over the cap (side 3 at N = 20,000), one
+    launch counted under its kind's key, the same bits again."""
+    n, side, rcut = 20_000, 3 if cap < 64 else 6, 1.5e11
+    pos, masses = _system(n, torch.bfloat16, cuda, seed=t_cap + cap)
+    origin, span, params, _, binned = nlist.source_cells(
+        pos, masses, rcut=rcut, side=side, cap=cap)
+    cells_pos, cells_m, count = binned[:3]
+    targets = pos[:n // 4] if t_cap < cap else pos
+    tcells = bin_to_cells(targets, torch.ones_like(targets[:, 0]),
+                          grid_coords(targets, origin, span, side), side,
+                          t_cap)
+    args = (tcells[0], tcells[2], cells_pos, cells_m * 6.6743e-11, count,
+            side, params)
+    assert params.dtype == torch.bfloat16
+    kw = dict(cutoff=1e-10, eps=1e9, use_rcut=use_rcut, kind="newton")
+    key = nlist.launch_key("newton", use_rcut, torch.bfloat16)
+    assert key.endswith("_bf16")
+    before = nlist.LAUNCHES[key]
+    got = nlist.pair_cells_kernel(*args, **kw)
+    again = nlist.pair_cells_kernel(*args, **kw)
+    assert nlist.LAUNCHES[key] == before + 2
+    want = nlist.pair_cells_plain(*args, **kw)
+    scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    _within_term_scale(got, want, scale, NLIST_BF16_TOL)
+    empty = (torch.arange(t_cap, device=cuda)[None, :]
+             >= tcells[2].clamp_max(t_cap)[:, None])
+    assert bool((got[empty] == 0).all())
+
+
+def test_nlist_bf16_form_keeps_a_subnormal_weight(cuda):
+    """G m / r^3 = 1e-39 lies in bf16's subnormal range: the bf16 form
+    gives the plain version's bits, the light body's pull not flushed."""
+    pos = torch.tensor([[0.0, 0.0, 0.0], [1e12, 0.0, 0.0],
+                        [2.2e12, 0.0, 0.0]], dtype=torch.bfloat16)
+    masses = torch.tensor([1e24, 1.5e7, 0.0], dtype=torch.bfloat16)
+    kw = dict(rcut=1.2e12, side=2, cap=8)
+    want = nlist.nlist_accelerations(pos, masses, **kw)
+    got = nlist.nlist_accelerations(pos.to(cuda), masses.to(cuda), **kw)
+    assert torch.equal(got.cpu(), want) and float(got[0, 0]) != 0.0
+
+
+def test_nlist_bf16_form_refuses_the_ewald_kind(cuda):
+    pos, masses = _system(64, torch.bfloat16, cuda)
+    origin, span = bounding_cube(pos)
+    coords = grid_coords(pos, origin, span, 2)
+    cells_pos, cells_m, count, *_ = bin_to_cells(pos, masses, coords, 2, 64)
+    params = torch.ones(2, dtype=torch.bfloat16, device=cuda)
+    before = dict(nlist.LAUNCHES)
+    with pytest.raises(ValueError, match="pm.py:286"):
+        nlist.pair_cells_kernel(cells_pos, count, cells_pos, cells_m, count,
+                                2, params, cutoff=1e-10, eps=1e9,
+                                kind="ewald")
+    assert nlist.LAUNCHES == before
+
+
+def test_simulator_runs_bf16_cell_lists_through_the_kernel(cuda):
+    """A bf16 state through nlist (leapfrog and multirate) and the octree
+    with --tree-near nlist: the bf16 form launches once a force
+    evaluation, counted under its own key, and the state stays bf16 and
+    finite."""
+    for fields, key, launches in (
+            (dict(model="random", n=4096, force_backend="nlist",
+                  nlist_rcut=1e11, eps=1e9), "newton_bf16", 6),
+            (dict(model="random", n=4096, force_backend="nlist",
+                  nlist_rcut=1e11, eps=1e9, integrator="multirate"),
+             "newton_bf16", 26),
+            (dict(model="disk", n=4096, g=1.0, dt=2e-3, eps=0.05,
+                  force_backend="tree", tree_near="nlist"), "near_bf16",
+             6)):
+        cfg = SimulationConfig(**{"integrator": "leapfrog", **fields},
+                               steps=5, dtype="bfloat16", progress_every=5)
+        before = nlist.LAUNCHES[key]
+        stats = Simulator(cfg).run()
+        assert nlist.LAUNCHES[key] - before == \
+            stats["kernel_launches"] == launches
+        final = stats["final_state"]
+        assert final.positions.dtype == torch.bfloat16
+        assert bool(torch.isfinite(final.positions).all())
+
+
+@pytest.mark.parametrize("n_seg,cols", [(1, 1), (1, 3), (8, 6), (4096, 3),
+                                        (1 << 21, 1)])
+def test_segment_sum_bf16_kernel_matches_plain(cuda, n_seg, cols):
+    """The bf16 segment sums on the card against the CPU's element-order
+    sums of the same inputs: the same bits (the same adds, in the same
+    order), also on a second launch; one launch counted each."""
+    from gravity_tpu_torch.ops import cells
+
+    gen = torch.Generator().manual_seed(n_seg + cols)
+    n = 200_000
+    ids = torch.randint(0, n_seg, (n,), generator=gen)
+    values = (torch.rand(n, cols, generator=gen) * 1e-3 + 1e-4).to(
+        torch.bfloat16).squeeze(1)
+    before = cells.LAUNCHES
+    got = cells.segment_sum_bf16(values.to(cuda), ids.to(cuda), n_seg)
+    again = cells.segment_sum_bf16(values.to(cuda), ids.to(cuda), n_seg)
+    assert cells.LAUNCHES == before + 2
+    want = cells.segment_sum_bf16_plain(values, ids, n_seg)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, again) and torch.equal(got.cpu(), want)

@@ -246,7 +246,9 @@ def test_untruncated_launches_count_apart():
     assert nlist.launch_key("newton", False) == "near"
     assert nlist.launch_key("newton", True) == "newton"
     assert nlist.launch_key("ewald", True) == "ewald"
-    assert set(nlist.LAUNCHES) == {"newton", "ewald", "near"}
+    # The bf16 form counts apart as well (tests/test_torch_nlist_bf16.py).
+    assert set(nlist.LAUNCHES) == {"newton", "ewald", "near", "newton_bf16",
+                                   "near_bf16"}
 
 
 # --- sizing helpers and the potential ------------------------------------

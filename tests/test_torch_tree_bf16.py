@@ -1,0 +1,206 @@
+"""bf16 states through the port's octree, against the JAX package at bf16
+on the CPU.
+
+The JAX suite's 2,048-body disk (``create_disk``, ``tests/test_tree.py``)
+rounded to bf16 goes through ``gravity_tpu.ops.tree`` and
+``gravity_tpu_torch.ops.tree`` at depth 5, in each near mode (the gather
+near field, and the cell-list tile engine ``nlist_near_field``, whose
+plain version keeps the contract of the CUDA kernel's bf16 form) and each
+far mode. Tolerances are per target, in units of that target's own |a|
+(the mean |a| is set by the few targets beside the central mass):
+
+- the port against the JAX package at bf16: a median of 2^-7 and a
+  maximum of 2^-3. The two round the same bf16 ops, XLA with excess
+  precision inside its fusions and torch op by op, and their segment sums
+  alike (``cells.segment_sum``): measured a median of 0.0018-0.0028 and a
+  maximum of 0.037 over the four modes;
+- each package's bf16 forces against its own fp32 tree on the same bf16
+  state: the reference's own bf16 tree misses the dense bf16 bar of
+  ``tests/test_bfloat16.py`` (median 1e-2, p90 3e-2) five times over
+  (median 0.049, p90 0.13), because the cell totals and centres of mass
+  round in bf16 and the far field's cancellations amplify that. So the
+  port is held to at most 1.5x the JAX package's own figure, median and
+  p90, and the JAX figure itself is pinned;
+- the tree potential at bf16: the JAX package's within 2^-7 (measured:
+  the same bits), and within 2^-5 of the fp32 potential (measured 0.011).
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gravity_tpu.config import SimulationConfig as JaxConfig
+from gravity_tpu.models import create_disk
+from gravity_tpu.ops import tree as jax_tree
+from gravity_tpu.simulation import Simulator as JaxSimulator
+from gravity_tpu.state import ParticleState as JaxState
+from gravity_tpu_torch import simulation
+from gravity_tpu_torch.config import SimulationConfig
+from gravity_tpu_torch.interop import state_from_numpy, state_to_numpy
+from gravity_tpu_torch.ops import diagnostics, tree
+from gravity_tpu_torch.simulation import Simulator
+
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BF16 = torch.bfloat16
+DISK = dict(depth=5, g=1.0, eps=0.05)
+PORT_VS_JAX_MEDIAN = 2.0**-7
+PORT_VS_JAX_MAX = 2.0**-3
+OWN_FIGURE_FACTOR = 1.5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One intra-op thread: the suite runs several workers at once."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def disk():
+    """The JAX suite's 2,048-body disk rounded to bf16, as float32 numpy
+    arrays (exact): positions, velocities, masses."""
+    state = create_disk(jax.random.PRNGKey(0), 2048)
+    return tuple(np.array(a.astype(jnp.bfloat16).astype(jnp.float32))
+                 for a in (state.positions, state.velocities, state.masses))
+
+
+def _rel(a, b) -> np.ndarray:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)
+
+
+def _port(pos, m, dtype, **kw):
+    got = tree.tree_accelerations(torch.from_numpy(pos).to(dtype),
+                                  torch.from_numpy(m).to(dtype), **kw)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    return got.double().numpy()
+
+
+def _jax(pos, m, dtype, **kw):
+    got = jax_tree.tree_accelerations(jnp.asarray(pos, dtype),
+                                      jnp.asarray(m, dtype), **kw)
+    assert got.dtype == dtype
+    return np.asarray(got.astype(jnp.float32), np.float64)
+
+
+@pytest.mark.parametrize("near", ["gather", "nlist"])
+@pytest.mark.parametrize("far", ["direct", "expansion"])
+def test_tree_bf16_matches_jax(disk, near, far):
+    pos, _, m = disk
+    kw = dict(far=far, near_mode=near, **DISK)
+    got = _port(pos, m, BF16, **kw)
+    want = _jax(pos, m, jnp.bfloat16, **kw)
+    gap = _rel(got, want)
+    assert np.median(gap) <= PORT_VS_JAX_MEDIAN, np.median(gap)
+    assert gap.max() <= PORT_VS_JAX_MAX, gap.max()
+    # Each package's bf16 tree against its own fp32 tree.
+    own = _rel(got, _port(pos, m, torch.float32, **kw))
+    jax_own = _rel(want, _jax(pos, m, jnp.float32, **kw))
+    for q in (50, 90):
+        assert (np.percentile(own, q)
+                <= OWN_FIGURE_FACTOR * np.percentile(jax_own, q)), q
+
+
+def test_jax_bf16_tree_figure_is_pinned(disk):
+    """The reference's own bf16-against-fp32 figure on this disk (gather,
+    direct far field): a median of 0.049 and a p90 of 0.13, five times the
+    dense bf16 bar. The port's bar above is relative to it."""
+    pos, _, m = disk
+    jax_own = _rel(_jax(pos, m, jnp.bfloat16, **DISK),
+                   _jax(pos, m, jnp.float32, **DISK))
+    assert 0.04 < np.median(jax_own) < 0.06
+    assert 0.10 < np.percentile(jax_own, 90) < 0.16
+
+
+def test_tree_potential_energy_bf16_matches_jax(disk):
+    pos, _, m = disk
+    got = tree.tree_potential_energy(torch.from_numpy(pos).to(BF16),
+                                     torch.from_numpy(m).to(BF16), **DISK)
+    assert isinstance(got, np.float64) and np.isfinite(got)
+    want = float(jax_tree.tree_potential_energy(
+        jnp.asarray(pos, jnp.bfloat16), jnp.asarray(m, jnp.bfloat16),
+        **DISK))
+    fp32 = tree.tree_potential_energy(torch.from_numpy(pos),
+                                      torch.from_numpy(m), **DISK)
+    assert abs(got - want) <= 2.0**-7 * abs(want)
+    assert abs(got - fp32) <= 2.0**-5 * abs(fp32)
+
+
+def test_bf16_energy_takes_the_tree_potential(disk, monkeypatch):
+    """Simulator.energy() of a bf16 tree run above the tree threshold (set
+    low here): the octree's potential plus the kinetic energy, each in
+    float64, on the bf16 state."""
+    pos, vel, m = disk
+    monkeypatch.setattr(simulation, "ENERGY_TREE_THRESHOLD", 1000)
+    cfg = SimulationConfig(model="disk", n=2048, force_backend="tree",
+                           tree_depth=5, g=1.0, eps=0.05, dtype="bfloat16")
+    sim = Simulator(cfg, state_from_numpy(pos, vel, m, dtype=BF16,
+                                          device="cpu"), device="cpu")
+    e = sim.energy()
+    assert isinstance(e, np.float64)
+    want = (diagnostics.kinetic_energy_f64(sim.state)
+            + tree.tree_potential_energy(sim.state.positions,
+                                         sim.state.masses, **DISK))
+    assert e == want
+
+
+@pytest.mark.parametrize("near", ["gather", "nlist"])
+def test_simulator_bf16_tree_matches_jax(disk, near):
+    """3 leapfrog steps of the disk at bf16 through the octree (depth 4)
+    against the JAX Simulator on the same state. At the preset's dt of
+    2e-3 a bf16 disk barely moves (v dt ~ 0.003 against a half-ulp of
+    0.008 at |x| ~ 3), so the run takes dt = 0.02. Bar: each body's
+    position and velocity within 2^-5 of its own norm (the forces'
+    port-to-JAX gap, at most 0.037 of |a|, times a dt that moves |v| by a
+    few percent)."""
+    pos, vel, m = disk
+    common = dict(model="disk", n=pos.shape[0], steps=3, dt=0.02, g=1.0,
+                  eps=0.05, integrator="leapfrog", force_backend="tree",
+                  tree_depth=4, tree_near=near, dtype="bfloat16",
+                  progress_every=3)
+    jax_final = JaxSimulator(
+        JaxConfig(**common),
+        state=JaxState(*(jnp.asarray(a, jnp.bfloat16) for a in disk)),
+    ).run()["final_state"]
+    stats = Simulator(SimulationConfig(**common),
+                      state_from_numpy(pos, vel, m, dtype=BF16,
+                                       device="cpu"),
+                      device="cpu").run()
+    final = stats["final_state"]
+    assert final.positions.dtype == BF16 and stats["dtype"] == "bfloat16"
+    got_pos, got_vel, _ = state_to_numpy(final)
+    assert np.mean(np.any(got_pos != pos, axis=1)) > 0.5  # it moved
+    for got, want in ((got_pos, jax_final.positions),
+                      (got_vel, jax_final.velocities)):
+        want = np.asarray(jnp.asarray(want).astype(jnp.float32), np.float64)
+        err = np.linalg.norm(got - want, axis=1)
+        norm = np.linalg.norm(want, axis=1)
+        assert np.all(err <= 2.0**-5 * norm), float(np.max(err / norm))
+
+
+@pytest.mark.parametrize("near", ["gather", "nlist"])
+def test_cli_runs_the_tree_at_bf16_on_cpu(tmp_path, near):
+    """The README's CPU tree command at bf16, cut to N = 1,024 and 3
+    steps: the run keeps its dtype, in each near mode."""
+    env = dict(os.environ, PYTHONPATH=REPO_ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "gravity_tpu_torch", "run", "--device", "cpu",
+         "--model", "disk", "--n", "1024", "--g", "1.0", "--dt", "2e-3",
+         "--eps", "0.05", "--force-backend", "tree", "--tree-near", near,
+         "--integrator", "leapfrog", "--steps", "3", "--dtype", "bfloat16",
+         "--log-dir", str(tmp_path)],
+        cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert stats["backend"] == "tree" and stats["dtype"] == "bfloat16"
+    assert stats["tree_near"] == near and stats["kernel_launches"] == 0

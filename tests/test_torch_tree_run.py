@@ -209,8 +209,11 @@ def test_tree_flags_parse_into_the_config():
 
 
 def test_tree_config_refusals():
-    with pytest.raises(NotPortedError, match="Queue 1 item 4"):
-        SimulationConfig(force_backend="tree", dtype="bfloat16")
+    # A bf16 state runs through the octree, both near fields.
+    for near in ("gather", "nlist"):
+        cfg = SimulationConfig(force_backend="tree", tree_near=near,
+                               dtype="bfloat16")
+        assert (cfg.dtype, cfg.tree_near) == ("bfloat16", near)
     # The tile engine takes the 27-cell stencil only: the config is the
     # JAX package's, and the evaluation refuses it as JAX's does.
     cfg = SimulationConfig(model="disk", n=64, steps=1, g=1.0, eps=0.05,
