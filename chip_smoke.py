@@ -110,11 +110,13 @@ PEAK_BF16X2_FLOPS = 2 * PEAK_FP32_FLOPS
 # rsqrt issue rate of the special function units, per SM per clock.
 SFU_PER_SM_PER_CLOCK = 16
 # fp32-to-bf16 conversions, per SM per clock (the CUDA guide's "all other
-# type conversions" on compute capability 9.0), and the conversions a pair
-# of nbody_direct's bf16 form issues: 15 roundings, two to a
-# cvt.rn.bf16x2.f32 (csrc/nbody_direct.cu).
+# type conversions" on compute capability 9.0). The conversions a pair of
+# each bf16 form are read off its SASS (:func:`sass_loops`).
 CVT_PER_SM_PER_CLOCK = 16
-BF16_CVT_PER_PAIR = 7.5
+# The bf16 forms compute in packed bf16x2 ops, which round without a
+# conversion; r^2 and the rsqrt are rounded from fp32, one
+# cvt.rn.bf16x2.f32 for two pairs each: 1 a pair, at most 2 with slack.
+BF16X2_MAX_CVT = 2.0
 
 # Tolerances of kernel vs plain version, in units of each row's sum of
 # |terms| (the scale that a row's summation rounds at). The kernel sums
@@ -345,9 +347,12 @@ def sass_loops(path: str) -> dict:
     """The innermost loops of each float32 (and bf16) kernel in a built
     library, read off ``cuobjdump -sass``: for each, its instructions and
     how many are MUFU (rsqrt and the other special functions), LDS
-    (shared-memory loads) and HMMA (tensor-core products). The pair loops
-    of the direct sums and of the newton kind take one MUFU.RSQ a pair,
-    so instructions / MUFU is their issued instructions a pair. Keys name
+    (shared-memory loads), HMMA (tensor-core products), conversions to a
+    narrower float (F2FP, F2F) and packed half-precision ops (HADD2,
+    HMUL2, HFMA2). The pair loops of the direct sums and of the newton
+    kind take one MUFU.RSQ a pair, so instructions / MUFU is their issued
+    instructions a pair, and conversions / MUFU their conversions a pair.
+    Keys name
     the kernel and its template arguments as mangled, ``f`` for float and
     ``bf16`` for __nv_bfloat16 (``nbody_mxu_kernel<fLb0ELb1>``: float,
     no cutoff test, ftz rsqrt)."""
@@ -391,20 +396,25 @@ def sass_loops(path: str) -> dict:
             body = [o for a, o in ops if lo <= a <= hi]
             loops.append({"instrs": len(body), "mufu": body.count("MUFU"),
                           "lds": body.count("LDS"),
-                          "hmma": body.count("HMMA")})
+                          "hmma": body.count("HMMA"),
+                          "cvt": body.count("F2FP") + body.count("F2F"),
+                          "hadd2": body.count("HADD2"),
+                          "hmul2": body.count("HMUL2"),
+                          "hfma2": body.count("HFMA2")})
         args = kernel.group(2).replace("13__nv_bfloat16", "bf16")
         out[f"{kernel.group(1)}<{args}>"] = loops
     return out
 
 
-def per_pair(build: dict, lib: str, kernel: str):
+def per_pair(build: dict, lib: str, kernel: str, what: str = "instrs"):
     """Issued instructions a pair of the innermost rsqrt loop of
-    ``kernel`` (a key of :func:`sass_loops`), or "not measured"."""
+    ``kernel`` (a key of :func:`sass_loops`), or of one kind of them
+    (``what``: "cvt" for the conversions), or "not measured"."""
     loops = [x for x in build[lib]["sass"].get(kernel, []) if x["mufu"]]
     if not loops:
         return "not measured"
     best = min(loops, key=lambda x: x["instrs"])
-    return best["instrs"] / best["mufu"]
+    return best[what] / best["mufu"]
 
 
 def issue_floor_ms(pairs, instrs_per_pair, device):
@@ -768,8 +778,12 @@ def phase_timing(device: dict, build: dict) -> dict:
                        "issue_floor_ms": issue_floor_ms(n_bodies**2, instrs,
                                                         device)})
         if item == 2:
-            record["conversion_floor_ms"] = conversion_floor_ms(
-                n_bodies**2, BF16_CVT_PER_PAIR, device)
+            cvt = per_pair(build, "nbody_direct", loop, "cvt")
+            check(not isinstance(cvt, float) or cvt <= BF16X2_MAX_CVT,
+                  f"{loop}: {cvt} conversions a pair")
+            record.update({"conversions_per_pair": cvt,
+                           "conversion_floor_ms": conversion_floor_ms(
+                               n_bodies**2, cvt, device)})
         return record
 
     record = {
@@ -1912,9 +1926,10 @@ def phase_profile_p3m() -> dict:
 def phase_bf16_kernel_vs_plain() -> float:
     """nbody_direct's bf16 form against the plain version at bf16 on the
     card: masked (eps = 0) and mask-free (eps = 1e9 m), ragged M and K,
-    M = 1, many source chunks, and the baseline-16k state at bf16 (the
-    bf16 path's shape); a second launch must give the same bits. Returns
-    the max abs error at the path's shape."""
+    M = 1, many source chunks, a weight in bf16's subnormal range, and
+    the baseline-16k state at bf16 (the bf16 path's shape); a second
+    launch must give the same bits. Returns the max abs error at the
+    path's shape."""
     import torch
 
     from gravity_tpu_torch.config import PRESETS
@@ -1958,6 +1973,9 @@ def phase_bf16_kernel_vs_plain() -> float:
         for eps in (0.0, 1e9):
             case(f"{m}x{k} eps={eps:g}", pos_i, pos_j, m_j, eps,
                  accelerations_vs(pos_i, pos_j, m_j, eps=eps))
+    for eps in (0.0, 1e9):
+        emit({"phase": "bf16_kernel_vs_plain",
+              **bf16_subnormal_case(dev, "nbody_direct", eps)})
     config = dataclasses.replace(PRESETS["baseline-16k"], dtype="bfloat16")
     state = make_initial_state(config, dev)
     pos, masses = state.positions, state.masses
@@ -3385,10 +3403,6 @@ NLIST_BF16_REASON = ("in units of the row's sum of |terms|: terms rounded to "
                      "term); rows are fp32 sums in another order, each "
                      "rounded once into a bf16 accumulator: a few ulps "
                      "(2^-7) a target")
-# Conversions a pair of the bf16 form: 12 roundings (d, d^2 and r^2 for
-# each axis or once, r^2 + eps^2, rsqrt, the weight's three products),
-# two to a cvt.rn.bf16x2.f32 (csrc/nlist_pair.cu).
-NLIST_BF16_CVT_PER_PAIR = 6
 # The README nlist run at --dtype bfloat16, cut to 100 of its 500 steps;
 # multirate cut to 20.
 NLIST_BF16_STEPS = 100
@@ -3435,11 +3449,12 @@ NEAR_GAP_BF16_IN_SLOT_MEDIAN_BAR = 2.0**-6
 NEAR_GAP_BF16_MEDIAN_BAR = 2.0**-5
 
 
-def conversion_floor_ms(pairs, cvt_per_pair, device) -> float:
+def conversion_floor_ms(pairs, cvt_per_pair, device):
     """Least time to issue ``pairs`` x ``cvt_per_pair`` fp32-to-bf16
-    conversions at their pipe's rate (16 per SM per clock): a floor of a
-    design that computes in fp32 and rounds op by op, not of the work
-    (bf16x2 arithmetic rounds without them)."""
+    conversions at their pipe's rate (16 per SM per clock): a floor of the
+    design, not of the work (bf16x2 arithmetic rounds without them)."""
+    if not isinstance(cvt_per_pair, float):
+        return "not measured"
     return 1e3 * pairs * cvt_per_pair / (
         device["sm_count"] * CVT_PER_SM_PER_CLOCK
         * device["max_sm_clock_mhz"] * 1e6)
@@ -3586,34 +3601,46 @@ def phase_segment_sum_bf16(device: dict) -> dict:
             "timing": level0, "timing_by_case": timing}
 
 
-def bf16_subnormal_case(dev) -> dict:
-    """Two bodies 1e12 m apart inside the radius at bf16: the 1.5e7 kg
-    body's weight on the other, G m / r^3 = 1e-39, lies in fp32's and
-    bf16's subnormal range, so a kernel that flushed subnormals would
-    return 0 for its pull (1e-27 m/s^2). The bf16 form must give the
-    plain version's bits, nonzero, within 25% of float64 (a bf16
-    subnormal near 1e-39 holds ~4 bits)."""
+def bf16_subnormal_case(dev, kernel: str = "nlist_pair/bf16",
+                        eps: float = 0.0) -> dict:
+    """Two bodies 1e12 m apart (inside the radius, for the cell list) at
+    bf16: the 1.5e7 kg body's weight on the other, G m / r^3 = 1e-39, lies
+    in fp32's and bf16's subnormal range, so a kernel that flushed
+    subnormals would return 0 for its pull (1e-27 m/s^2). ``kernel``'s
+    bf16 form (``nlist_pair/bf16``, or ``nbody_direct`` at softening
+    ``eps``) must give the plain version's bits, nonzero, within 25% of
+    float64 (a bf16 subnormal near 1e-39 holds ~4 bits)."""
     import torch
 
     from gravity_tpu_torch.constants import G
     from gravity_tpu_torch.ops import nlist
+    from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
 
     pos = torch.tensor([[0.0, 0.0, 0.0], [1e12, 0.0, 0.0],
                         [2.2e12, 0.0, 0.0]], dtype=torch.bfloat16)
     masses = torch.tensor([1e24, 1.5e7, 0.0], dtype=torch.bfloat16)
-    kw = dict(rcut=1.2e12, side=2, cap=8)
-    plain = nlist.nlist_accelerations(pos, masses, **kw)
+
+    def run(p, m):
+        # CPU tensors take the plain version, CUDA tensors the kernel.
+        if kernel == "nbody_direct":
+            return accelerations_vs_kernel(p, p, m, eps=eps)
+        return nlist.nlist_accelerations(p, m, rcut=1.2e12, side=2, cap=8)
+
+    plain = run(pos, masses)
     reset_counts()
-    kern = nlist.nlist_accelerations(pos.to(dev), masses.to(dev), **kw).cpu()
-    check(read_counts()["nlist_pair/bf16"] == 1, "bf16 subnormal: no launch")
+    kern = run(pos.to(dev), masses.to(dev)).cpu()
+    check(read_counts()[kernel] == 1, f"{kernel} bf16 subnormal: no launch")
     p, m = pos.double(), masses.double()
     want = G * m[1] / (p[1, 0] - p[0, 0]) ** 2
     rel = float(abs(kern[0, 0].double() - want) / want)
-    check(torch.equal(kern, plain), "bf16 subnormal weight: kernel "
-          f"{kern[:2, 0].tolist()} against plain {plain[:2, 0].tolist()}")
+    check(torch.equal(kern, plain), f"{kernel} bf16 subnormal weight: "
+          f"kernel {kern[:2, 0].tolist()} against plain "
+          f"{plain[:2, 0].tolist()}")
     check(float(kern[0, 0]) != 0.0 and rel < 0.25,
-          f"bf16 subnormal weight flushed or off: {kern[0, 0]}, {rel}")
-    return {"case": "2 bodies 1e12 m bf16 (weight 1e-39, subnormal)",
+          f"{kernel} bf16 subnormal weight flushed or off: {kern[0, 0]}, "
+          f"{rel}")
+    return {"case": f"{kernel}: 2 bodies 1e12 m bf16 eps={eps:g} (weight "
+                    "1e-39, subnormal)",
             "acc_x": kern[:2, 0].tolist(), "same_bits_as_plain": True,
             "rel_err_vs_fp64": rel, "tolerance": 0.25}
 
@@ -3692,14 +3719,16 @@ def nlist_bf16_timing(args, kw, device, build, loop, reps=30) -> dict:
     n_bytes = tile_bytes(args[1], args[4], side, t_cap, cap, 2,
                          1 if kw.get("use_rcut", True) else 0)
     instrs = per_pair(build, "nlist_pair", loop)
+    cvt = per_pair(build, "nlist_pair", loop, "cvt")
+    check(not isinstance(cvt, float) or cvt <= BF16X2_MAX_CVT,
+          f"{loop}: {cvt} conversions a pair")
     record = {
         "ms": ms[0], "ms_repeat": ms[1], "plain_ms": plain_ms,
         "pairs_evaluated": pairs, "bytes": n_bytes,
         **bound(pairs, NLIST_FLOPS_PER_PAIR, n_bytes, device,
                 PEAK_BF16X2_FLOPS),
-        "conversions_per_pair": NLIST_BF16_CVT_PER_PAIR,
-        "conversion_floor_ms": conversion_floor_ms(
-            pairs, NLIST_BF16_CVT_PER_PAIR, device),
+        "conversions_per_pair": cvt,
+        "conversion_floor_ms": conversion_floor_ms(pairs, cvt, device),
         "sass_loop": loop, "sass_instrs_per_pair": instrs,
         "issue_floor_ms": issue_floor_ms(pairs, instrs, device),
         "library_ms": None,
@@ -3735,7 +3764,7 @@ def phase_timing_nlist_bf16(device: dict, build: dict) -> dict:
     records["near"] = nlist_bf16_timing(
         tree_tiles(tstate.positions, tstate.masses, depth),
         dict(cutoff=CUTOFF_RADIUS, eps=0.05, use_rcut=False, kind="newton"),
-        device, build, "nlist_pair_kernel<bf16Li0ELb0ELb1>", reps=20)
+        device, build, "nlist_near_kernel<bf16Lb1>", reps=20)
     for name, record in records.items():
         emit({"phase": "timing_nlist_bf16", "launch": name, **record})
     return records

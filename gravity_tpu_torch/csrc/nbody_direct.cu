@@ -53,24 +53,37 @@
 // state, where _nbody_kernel computes in the operands' dtype
 // (pallas_forces.py:122-139). It reads bf16 positions and G m_j already
 // rounded to bf16 (the wrapper forms bf16(G) m_j rounded, as `gmj` is at
-// pallas_forces.py:132-134), computes each op of the pair term in fp32
-// registers and rounds it to bf16 where the plain version
-// (ops/forces.py::accelerations_vs at bf16) holds a bf16 tensor: d, each
-// d^2, r^2 (the three squares added in fp32, rounded once, as torch's
-// sum), r^2 + eps^2, rsqrt, each of the three products of the weight, and
-// each w d. The terms are summed in fp32 (tile sums, chunk totals, the
-// ordered reduce) and rounded to bf16 once per target: the rounding of
-// the dense JAX form and of the TPU's fp32-accumulating reductions, not
-// that of the Pallas kernel's bf16 accumulator, which adds each
-// 2,048-source tile's partial in bf16. The sources are packed as fp32
-// (x, y, z, G m), exact, so the tile loop is the fp32 one; the partial
-// sums are always fp32 scratch, and the reduce kernel rounds once.
-// What bounds the bf16 form: its 15 roundings a pair. An fp32-to-bf16
-// conversion issues at 16 a clock an SM (the CUDA guide's "all other type
-// conversions"), 1/8 of the FP32 pipe's rate; one cvt.rn.bf16x2.f32
-// rounds a thread's two targets' values at once, 7.5 conversions a pair,
-// so N^2 pairs take at least N^2 * 7.5 / (132 * 16 * f_clock).
-//
+// pallas_forces.py:132-134). Its contract is the plain version's
+// (ops/forces.py::accelerations_vs at bf16): each op of the pair term
+// computed in fp32 and rounded to bf16 where the plain version holds a
+// bf16 tensor: d, each d^2, r^2 (the three squares added in fp32, rounded
+// once, as torch's sum), r^2 + eps^2, rsqrt, each of the three products of
+// the weight, and each w d. The terms are summed in fp32 (tile sums, chunk
+// totals, the ordered reduce) and rounded to bf16 once per target: the
+// rounding of the dense JAX form and of the TPU's fp32-accumulating
+// reductions, not that of the Pallas kernel's bf16 accumulator, which adds
+// each 2,048-source tile's partial in bf16.
+// Design: packed bf16x2 arithmetic. A thread's two targets sit in the two
+// halves of one 32-bit register an axis (x0|x1, y0|y1, z0|z1), and each
+// source is packed once per call with each value in both halves (x|x,
+// y|y, z|z, G m|G m: 16 bytes, as the fp32 Body). Then d, the squares,
+// r^2 + eps^2, the weight's three products and the w d are one
+// sub.rn.bf16x2, mul.rn.bf16x2 or add.rn.bf16x2 for both targets, rounded
+// once to nearest even. For +, - and x of two bf16 operands that is the
+// same bits as the fp32 op rounded to bf16: fp32's 24 bits are at least 2
+// x 8 + 2, so the double rounding is innocuous (Figueroa, "When is double
+// rounding innocuous?", 1995; tests/test_torch_bf16_rounding.py checks
+// it), and bf16 shares fp32's exponent range. Three steps stay in fp32 as
+// the contract says: r^2's three squares are unpacked with integer ops
+// (low half << 16, high half & 0xffff0000, exact), added, and packed by
+// one cvt.rn.bf16x2.f32; the rsqrt is fp32 MUFU on the unpacked r^2 + eps^2
+// (rsqrt.approx is not correctly rounded, so a bf16 rsqrt would not give
+// the plain version's bits), packed by a second cvt; and the sums of the
+// terms. So the kernel's outputs are the bits of the op-by-op fp32 design
+// it replaces, with 2 conversions a source (1 a pair) where that design
+// had 15 roundings a pair in 7.5 conversions, which issue at 16 a clock
+// an SM, 1/8 of the FP32 pipe's rate. What bounds it now: issue, ~21
+// instructions a pair, and the SFU's rsqrt.
 // Build WITHOUT --use_fast_math: the weight is ((G m_j inv_r) inv_r)
 // inv_r, in that order, because inv_r^3 alone underflows in fp32 for
 // r > ~2e12 m, and a distant light pair's weight is subnormal; flushing
@@ -103,10 +116,23 @@ struct alignas(4 * sizeof(T)) Body {
   T x, y, z, gm;
 };
 
+// A source of the bf16 form: the bits of bf16 x, y, z and G m, each in
+// both halves of its word, so one 16-byte read feeds a thread's two
+// targets.
+struct alignas(16) Body2 {
+  uint32_t x, y, z, gm;
+};
+
 // The element type IO (float, double or bf16) and the type the kernel
 // computes and sums in: fp32 for bf16.
 template <typename IO>
 using Compute = std::conditional_t<std::is_same_v<IO, bf16>, float, IO>;
+
+// What a tile stages a source as: Body2 for bf16, else Body of the compute
+// type.
+template <typename IO>
+using Staged = std::conditional_t<std::is_same_v<IO, bf16>, Body2,
+                                  Body<Compute<IO>>>;
 
 template <typename IO>
 __device__ __forceinline__ Compute<IO> load(const IO* p) {
@@ -154,9 +180,9 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // One tile of packed sources into shared memory, 16 bytes a copy.
-template <typename T>
-__device__ __forceinline__ void stage(Body<T>* dst, const Body<T>* src) {
-  constexpr int kCopies = kTile * sizeof(Body<T>) / 16;
+template <typename S>
+__device__ __forceinline__ void stage(S* dst, const S* src) {
+  constexpr int kCopies = kTile * sizeof(S) / 16;
   char* d = reinterpret_cast<char*>(dst);
   const char* s = reinterpret_cast<const char*>(src);
   for (int c = threadIdx.x; c < kCopies; c += kThreads) {
@@ -187,108 +213,113 @@ __device__ __forceinline__ void pair(const Body<T>& s, T xi, T yi, T zi,
   tz += w * dz;
 }
 
-// a and b rounded to bf16 (to nearest, even) by one cvt.rn.bf16x2.f32,
-// and back to fp32: two bf16 roundings for one conversion instruction.
-__device__ __forceinline__ void rnd2(float& a, float& b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  a = __low2float(h);
-  b = __high2float(h);
+// bf16x2 arithmetic on raw bits, two bf16 values to a 32-bit word: each
+// op rounds once to nearest even and keeps subnormals. The explicit .rn
+// keeps ptxas from contracting a product and a sum into one fma.
+__device__ __forceinline__ uint32_t sub2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// The low and high halves as fp32, exactly, by integer ops.
+__device__ __forceinline__ float lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+// a (low half) and b (high half) rounded to bf16 by one
+// cvt.rn.bf16x2.f32, which takes its high half first.
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(b), "f"(a));
+  return d;
+}
+// A bf16 value's bits in both halves.
+__device__ __forceinline__ uint32_t splat(bf16 v) {
+  return 0x10001u * __bfloat16_as_ushort(v);
 }
 
-// The bf16 form's pair, for a thread's two targets (kR = 2) at once: each
-// op in fp32, rounded to bf16 where the plain version holds a bf16 value
-// (d, each d^2, r^2 with its three squares added in fp32 as torch's sum,
-// r^2 + eps^2, rsqrt, the weight's three products, each w d), the two
-// targets' roundings packed into one conversion; the terms summed in
-// fp32.
+// The bf16 form's pair, for a thread's two targets (kR = 2: target r in
+// half r of xi, yi, zi) and one source: the packed ops round as the
+// plain version rounds each op; r^2's squares add in fp32 (x + y) + z,
+// as torch's sum, and r^2 and the rsqrt are rounded by one conversion for
+// both targets. The terms are summed in fp32. eps2 holds bf16 eps^2 in
+// both halves.
 template <int MODE, bool FTZ>
-__device__ __forceinline__ void pair_bf16(const Body<float>& s,
-                                          const float* xi, const float* yi,
-                                          const float* zi, float eps2,
-                                          float cutoff2, float* tx, float* ty,
-                                          float* tz) {
-  float dx[2], dy[2], dz[2], r2[2], inv_r[2], w[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    dx[r] = s.x - xi[r];
-    dy[r] = s.y - yi[r];
-    dz[r] = s.z - zi[r];
+__device__ __forceinline__ void pair_bf16(const Body2& s, uint32_t xi,
+                                          uint32_t yi, uint32_t zi,
+                                          uint32_t eps2, float cutoff2,
+                                          float* tx, float* ty, float* tz) {
+  const uint32_t dx = sub2(s.x, xi);
+  const uint32_t dy = sub2(s.y, yi);
+  const uint32_t dz = sub2(s.z, zi);
+  const uint32_t sx = mul2(dx, dx);
+  const uint32_t sy = mul2(dy, dy);
+  const uint32_t sz = mul2(dz, dz);
+  uint32_t r2 = pack2((lo(sx) + lo(sy)) + lo(sz), (hi(sx) + hi(sy)) + hi(sz));
+  if (MODE != kMaskedNoEps) r2 = add2(r2, eps2);
+  const float r0 = lo(r2), r1 = hi(r2);
+  float inv0, inv1;
+  if (MODE == kMaskFree) {
+    inv0 = rsqrt_t<FTZ>(r0);
+    inv1 = rsqrt_t<FTZ>(r1);
+  } else {
+    // As in pair: 0 at or below the cutoff, so the weight is an exact 0.
+    inv0 = r0 > cutoff2 ? rsqrt_t<FTZ>(r0) : 0.0f;
+    inv1 = r1 > cutoff2 ? rsqrt_t<FTZ>(r1) : 0.0f;
   }
-  rnd2(dx[0], dx[1]);
-  rnd2(dy[0], dy[1]);
-  rnd2(dz[0], dz[1]);
-  float sx[2], sy[2], sz[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sx[r] = dx[r] * dx[r];
-    sy[r] = dy[r] * dy[r];
-    sz[r] = dz[r] * dz[r];
-  }
-  rnd2(sx[0], sx[1]);
-  rnd2(sy[0], sy[1]);
-  rnd2(sz[0], sz[1]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) r2[r] = sx[r] + sy[r] + sz[r];
-  rnd2(r2[0], r2[1]);
-  if (MODE != kMaskedNoEps) {
-    r2[0] += eps2;
-    r2[1] += eps2;
-    rnd2(r2[0], r2[1]);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (MODE == kMaskFree) {
-      inv_r[r] = rsqrt_t<FTZ>(r2[r]);
-    } else {
-      // As in pair: 0 at or below the cutoff (0 rounds to 0).
-      inv_r[r] = r2[r] > cutoff2 ? rsqrt_t<FTZ>(r2[r]) : 0.0f;
-    }
-  }
-  rnd2(inv_r[0], inv_r[1]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) w[r] = s.gm * inv_r[r];
-  rnd2(w[0], w[1]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) w[r] = w[r] * inv_r[r];
-  rnd2(w[0], w[1]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) w[r] = w[r] * inv_r[r];
-  rnd2(w[0], w[1]);
-  float px[2], py[2], pz[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    px[r] = w[r] * dx[r];
-    py[r] = w[r] * dy[r];
-    pz[r] = w[r] * dz[r];
-  }
-  rnd2(px[0], px[1]);
-  rnd2(py[0], py[1]);
-  rnd2(pz[0], pz[1]);
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    tx[r] += px[r];
-    ty[r] += py[r];
-    tz[r] += pz[r];
-  }
+  const uint32_t inv_r = pack2(inv0, inv1);
+  const uint32_t w = mul2(mul2(mul2(s.gm, inv_r), inv_r), inv_r);
+  const uint32_t px = mul2(w, dx);
+  const uint32_t py = mul2(w, dy);
+  const uint32_t pz = mul2(w, dz);
+  tx[0] += lo(px);
+  tx[1] += hi(px);
+  ty[0] += lo(py);
+  ty[1] += hi(py);
+  tz[0] += lo(pz);
+  tz[1] += hi(pz);
 }
 
 template <typename IO>
 __global__ void nbody_pack_kernel(const IO* __restrict__ pos_j,
                                   const IO* __restrict__ gm_j, int64_t k,
                                   int64_t k_pad,
-                                  Body<Compute<IO>>* __restrict__ out) {
+                                  Staged<IO>* __restrict__ out) {
   using T = Compute<IO>;
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (j >= k_pad) return;
-  Body<T> b{T(0), T(0), T(0), T(0)};
-  if (j < k) {
-    b.x = load(pos_j + 3 * j);
-    b.y = load(pos_j + 3 * j + 1);
-    b.z = load(pos_j + 3 * j + 2);
-    b.gm = load(gm_j + j);
+  if constexpr (std::is_same_v<IO, bf16>) {
+    Body2 b{0u, 0u, 0u, 0u};
+    if (j < k) {
+      b.x = splat(pos_j[3 * j]);
+      b.y = splat(pos_j[3 * j + 1]);
+      b.z = splat(pos_j[3 * j + 2]);
+      b.gm = splat(gm_j[j]);
+    }
+    out[j] = b;
+  } else {
+    Body<T> b{T(0), T(0), T(0), T(0)};
+    if (j < k) {
+      b.x = load(pos_j + 3 * j);
+      b.y = load(pos_j + 3 * j + 1);
+      b.z = load(pos_j + 3 * j + 2);
+      b.gm = load(gm_j + j);
+    }
+    out[j] = b;
   }
-  out[j] = b;
 }
 
 // Block (x, c): targets [x kBlockM, (x + 1) kBlockM) against the tiles of
@@ -297,11 +328,12 @@ __global__ void nbody_pack_kernel(const IO* __restrict__ pos_j,
 template <typename IO, int MODE, bool FTZ>
 __global__ void __launch_bounds__(kThreads)
     nbody_direct_kernel(const IO* __restrict__ pos_i, int64_t m,
-                        const Body<Compute<IO>>* __restrict__ packed,
+                        const Staged<IO>* __restrict__ packed,
                         int n_tiles, int chunks, Compute<IO> eps2,
                         Compute<IO> cutoff2, Compute<IO>* __restrict__ out) {
   using T = Compute<IO>;
-  __shared__ Body<T> tile[2][kTile];
+  constexpr bool kBf16 = std::is_same_v<IO, bf16>;
+  __shared__ Staged<IO> tile[2][kTile];
   const int c = blockIdx.y;
   const int t_lo = static_cast<int>(static_cast<int64_t>(c) * n_tiles /
                                     chunks);
@@ -309,16 +341,31 @@ __global__ void __launch_bounds__(kThreads)
                                     chunks);
   const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kBlockM + threadIdx.x;
   T xi[kR], yi[kR], zi[kR], ax[kR], ay[kR], az[kR];
+  // The bf16 form's targets, target r in half r; eps^2 in both halves.
+  uint32_t xi2 = 0u, yi2 = 0u, zi2 = 0u, eps2x2 = 0u;
 #pragma unroll
   for (int r = 0; r < kR; ++r) {
     const int64_t i = i0 + r * kThreads;
     xi[r] = yi[r] = zi[r] = T(0);
     if (i < m) {
-      xi[r] = load(pos_i + 3 * i);
-      yi[r] = load(pos_i + 3 * i + 1);
-      zi[r] = load(pos_i + 3 * i + 2);
+      if constexpr (kBf16) {
+        xi2 |= static_cast<uint32_t>(__bfloat16_as_ushort(pos_i[3 * i]))
+               << (16 * r);
+        yi2 |= static_cast<uint32_t>(__bfloat16_as_ushort(pos_i[3 * i + 1]))
+               << (16 * r);
+        zi2 |= static_cast<uint32_t>(__bfloat16_as_ushort(pos_i[3 * i + 2]))
+               << (16 * r);
+      } else {
+        xi[r] = load(pos_i + 3 * i);
+        yi[r] = load(pos_i + 3 * i + 1);
+        zi[r] = load(pos_i + 3 * i + 2);
+      }
     }
     ax[r] = ay[r] = az[r] = T(0);
+  }
+  if constexpr (kBf16) {
+    // eps2 is a bf16 value, so its low 16 bits are zero.
+    eps2x2 = 0x10001u * (__float_as_uint(eps2) >> 16);
   }
   if (t_lo < t_hi) {
     stage(tile[0], packed + static_cast<int64_t>(t_lo) * kTile);
@@ -332,15 +379,15 @@ __global__ void __launch_bounds__(kThreads)
       stage(tile[(t + 1 - t_lo) & 1],
             packed + static_cast<int64_t>(t + 1) * kTile);
     }
-    const Body<T>* buf = tile[(t - t_lo) & 1];
+    const Staged<IO>* buf = tile[(t - t_lo) & 1];
     T tx[kR], ty[kR], tz[kR];
 #pragma unroll
     for (int r = 0; r < kR; ++r) tx[r] = ty[r] = tz[r] = T(0);
 #pragma unroll 8
     for (int jj = 0; jj < kTile; ++jj) {
-      const Body<T> s = buf[jj];
-      if constexpr (std::is_same_v<IO, bf16>) {
-        pair_bf16<MODE, FTZ>(s, xi, yi, zi, eps2, cutoff2, tx, ty, tz);
+      const Staged<IO> s = buf[jj];
+      if constexpr (kBf16) {
+        pair_bf16<MODE, FTZ>(s, xi2, yi2, zi2, eps2x2, cutoff2, tx, ty, tz);
       } else {
 #pragma unroll
         for (int r = 0; r < kR; ++r) {
@@ -384,8 +431,8 @@ __global__ void nbody_reduce_kernel(const Compute<IO>* __restrict__ partial,
 }
 
 template <typename IO>
-using KernelFn = void (*)(const IO*, int64_t, const Body<Compute<IO>>*, int,
-                          int, Compute<IO>, Compute<IO>, Compute<IO>*);
+using KernelFn = void (*)(const IO*, int64_t, const Staged<IO>*, int, int,
+                          Compute<IO>, Compute<IO>, Compute<IO>*);
 
 // The instantiation a launch with these arguments takes.
 template <typename IO>
@@ -407,8 +454,9 @@ KernelFn<IO> pick_kernel(int masked, double eps2, double cutoff2) {
 }
 
 // `packed` holds (K_pad, 4) and `partial` (S, M, 3) elements of the
-// compute type. fp32 and fp64 with S = 1 write acc directly; bf16 always
-// writes fp32 partials and rounds them once in the reduce kernel.
+// compute type (for bf16, `packed` holds its Body2 words in the same 16
+// bytes a source). fp32 and fp64 with S = 1 write acc directly; bf16
+// always writes fp32 partials and rounds them once in the reduce kernel.
 template <typename IO>
 int launch(const void* pos_i, int64_t m, const void* pos_j, const void* gm_j,
            int64_t k, double eps2, double cutoff2, int masked, int chunks,
@@ -421,7 +469,7 @@ int launch(const void* pos_i, int64_t m, const void* pos_j, const void* gm_j,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Body<T>* pk = static_cast<Body<T>*>(packed);
+  Staged<IO>* pk = static_cast<Staged<IO>*>(packed);
   const int64_t k_pad = static_cast<int64_t>(n_tiles) * kTile;
   if (k_pad > 0) {
     nbody_pack_kernel<IO><<<static_cast<unsigned>((k_pad + 255) / 256), 256,

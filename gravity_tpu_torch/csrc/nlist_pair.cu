@@ -83,22 +83,37 @@
 // computes, accumulates and writes in the operands' dtype
 // (pallas_nlist.py:322, :399). Its contract is that of the JAX tile
 // engines, written out in pair_cells_plain's docstring: each op of a pair
-// term is computed in fp32 registers and rounded to bf16 where the plain
-// version holds a bf16 value (d, each d^2, r^2 with its three squares
-// added in fp32 and rounded once, r^2 + eps^2, rsqrt, the weight's three
+// term is computed in fp32 and rounded to bf16 where the plain version
+// holds a bf16 value (d, each d^2, r^2 with its three squares added in
+// fp32 and rounded once, r^2 + eps^2, rsqrt, the weight's three
 // products); each (cell, offset) row sum w d is formed in fp32 from the
 // exact products and rounded to bf16 once, as jnp.einsum does
 // (pallas_nlist.py:487); and the accumulator is bf16, rounded after each
 // of the 27 offsets (:490-491): 27 + 27 roundings a target, not one a
 // pair. The masks compare the rounded r^2 and r^2 + eps^2 with the bf16
 // params (rcut_eff^2), eps^2 and cutoff^2, so a pair within 2^-9 of rcut
-// is taken or left as the plain version takes it. Sources are staged in
-// fp32 (exact when widened from bf16), so the tile loop is the fp32 one;
-// each lane takes two sources of its target a step, so that one
-// cvt.rn.bf16x2.f32 rounds both pairs' values (12 roundings a pair, 6
-// conversions). What bounds it: those conversions, which issue at 16 a
-// clock an SM (1/8 of the FP32 pipe's rate), and the ~36 fp32 and
-// integer instructions a pair beside them. FTZ as the fp32 form: bf16 has
+// is taken or left as the plain version takes it.
+// Design: packed bf16x2 arithmetic on two sources of a target at once.
+// A warp stages 128 sources at a time as pairs (s, s + 2) of x, y, z and
+// G m, the first in the low half of each 32-bit word (Pair2, 16 bytes),
+// so that lane q of a target reads the pair of sources q + 4k and q + 4k
+// + 2 in one shared-memory load: the sources, and the order of each
+// lane's sums, of the fp32 form. The target is held in both halves.
+// Then d, the squares, r^2 + eps^2 and the weight's three products are
+// one sub.rn.bf16x2, mul.rn.bf16x2 or add.rn.bf16x2 for both pairs,
+// rounded once to nearest even: for +, - and x of bf16 operands the same
+// bits as the fp32 op rounded to bf16 (fp32's 24 bits are at least 2 x 8
+// + 2, so the double rounding is innocuous: Figueroa, 1995;
+// tests/test_torch_bf16_rounding.py), bf16 sharing fp32's exponent
+// range. r^2's squares are unpacked by integer ops (exact), added in fp32
+// and packed by one cvt.rn.bf16x2.f32; the masks and the fp32 MUFU rsqrt
+// (not a bf16 one: rsqrt.approx is not correctly rounded) read the
+// unpacked values, and a second cvt packs the two rsqrts. So the kernel
+// gives the bits of the op-by-op fp32 design it replaces, with 1
+// conversion a pair where that design had 6 (at 16 a clock an SM, 1/8 of
+// the FP32 pipe's rate). What bounds it now: issue (~26 instructions a
+// pair) and the SFU's rsqrt. A pair cut by a mask takes inv_r = 0, so its
+// weight is an exact 0 (G m is finite). FTZ as the fp32 form: bf16 has
 // fp32's exponent range, and cutoff = 1e-10 gives a normal 1e-20.
 //
 // Build WITHOUT --use_fast_math: the weight is ((G m inv_r) inv_r) inv_r
@@ -118,11 +133,17 @@ constexpr int kWarps = 8;              // warps a block
 constexpr int kThreads = 32 * kWarps;
 constexpr int kGroup = 16;             // target slots a warp (a work item)
 constexpr int kQ = 32 / kGroup;        // source lanes a target
-constexpr int kStage = 64;             // sources a warp stages at once
+constexpr int kStage = 64;             // sources (bf16: pairs) a warp stages
 
 template <typename T>
 struct alignas(4 * sizeof(T)) Body {
   T x, y, z, gm;
+};
+
+// Two sources of the bf16 form, the bits of the first in the low half of
+// each word and of the second in the high half.
+struct alignas(16) Pair2 {
+  uint32_t x, y, z, gm;
 };
 
 constexpr int kNewton = 0;
@@ -253,88 +274,98 @@ __device__ __forceinline__ float rnd(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// a and b rounded to bf16 by one cvt.rn.bf16x2.f32, back in fp32: two
-// roundings for one conversion instruction.
-__device__ __forceinline__ void rnd2(float& a, float& b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  a = __low2float(h);
-  b = __high2float(h);
+// bf16x2 arithmetic on raw bits, two bf16 values to a 32-bit word: each
+// op rounds once to nearest even and keeps subnormals. The explicit .rn
+// keeps ptxas from contracting a product and a sum into one fma.
+__device__ __forceinline__ uint32_t sub2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t add2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t mul2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+// The low and high halves as fp32, exactly, by integer ops.
+__device__ __forceinline__ float lo(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+__device__ __forceinline__ float hi(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+// a (low half) and b (high half) rounded to bf16 by one
+// cvt.rn.bf16x2.f32, which takes its high half first.
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  uint32_t d;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(d) : "f"(b), "f"(a));
+  return d;
+}
+__device__ __forceinline__ uint32_t bits(bf16 v) {
+  return __bfloat16_as_ushort(v);
 }
 
-// The bf16 form's newton pair term for two sources s0, s1 of one target,
-// each op in fp32 and rounded to bf16 where pair_cells_plain holds a bf16
-// tensor, the two sources' roundings packed into one conversion: d, each
-// d^2, r^2 (its three squares added in fp32 as (x + y) + z, rounded
-// once), r^2 + eps^2, rsqrt and each of the weight's three products. The
-// masks compare those rounded values with the bf16 params, eps^2 and
-// cutoff^2. The products w d are exact in fp32 and summed there.
+// The bf16 form's rsqrt of one pair: masked by the rounded r^2 and r^2 +
+// eps^2 (fp32 values of bf16 ones) as pair_cells_plain masks them, 0
+// where a mask cuts the pair.
 template <bool USE_RCUT, bool FTZ>
-__device__ __forceinline__ void pair_bf16(const Body<float>& s0,
-                                          const Body<float>& s1, float xi,
-                                          float yi, float zi, float rcut2,
-                                          float eps2, float cutoff2,
-                                          float& tx, float& ty, float& tz) {
-  float dx[2] = {s0.x - xi, s1.x - xi};
-  float dy[2] = {s0.y - yi, s1.y - yi};
-  float dz[2] = {s0.z - zi, s1.z - zi};
-  rnd2(dx[0], dx[1]);
-  rnd2(dy[0], dy[1]);
-  rnd2(dz[0], dz[1]);
-  float sx[2], sy[2], sz[2], r2[2], r2s[2], inv_r[2], w[2];
-  bool ok[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    sx[k] = dx[k] * dx[k];
-    sy[k] = dy[k] * dy[k];
-    sz[k] = dz[k] * dz[k];
-  }
-  rnd2(sx[0], sx[1]);
-  rnd2(sy[0], sy[1]);
-  rnd2(sz[0], sz[1]);
-#pragma unroll
-  for (int k = 0; k < 2; ++k) r2[k] = (sx[k] + sy[k]) + sz[k];
-  rnd2(r2[0], r2[1]);
-#pragma unroll
-  for (int k = 0; k < 2; ++k) r2s[k] = r2[k] + eps2;
-  rnd2(r2s[0], r2s[1]);
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    ok[k] = r2s[k] > cutoff2 && r2[k] > 0.0f;
-    if (USE_RCUT) ok[k] = ok[k] && r2[k] <= rcut2;
-    inv_r[k] = rsqrt_t<FTZ>(ok[k] ? r2s[k] : 1.0f);
-  }
-  rnd2(inv_r[0], inv_r[1]);
-  w[0] = s0.gm * inv_r[0];
-  w[1] = s1.gm * inv_r[1];
-  rnd2(w[0], w[1]);
-#pragma unroll
-  for (int k = 0; k < 2; ++k) w[k] = w[k] * inv_r[k];
-  rnd2(w[0], w[1]);
-#pragma unroll
-  for (int k = 0; k < 2; ++k) w[k] = w[k] * inv_r[k];
-  rnd2(w[0], w[1]);
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const float wk = ok[k] ? w[k] : 0.0f;
-    tx = fmaf(wk, dx[k], tx);
-    ty = fmaf(wk, dy[k], ty);
-    tz = fmaf(wk, dz[k], tz);
-  }
+__device__ __forceinline__ float inv_r_bf16(float r2, float r2s, float rcut2,
+                                            float cutoff2) {
+  bool ok = r2s > cutoff2 && r2 > 0.0f;
+  if (USE_RCUT) ok = ok && r2 <= rcut2;
+  return ok ? rsqrt_t<FTZ>(r2s) : 0.0f;
+}
+
+// The bf16 form's newton pair term for the two sources of s (low and high
+// halves) and one target (xi, yi, zi: its bits in both halves): the
+// packed ops round as pair_cells_plain rounds each op; r^2's three
+// squares add in fp32 as (x + y) + z; r^2 and the two rsqrts are rounded
+// by one conversion each. The products w d are exact in fp32 and summed
+// there, the low source first. eps2 holds bf16 eps^2 in both halves.
+template <bool USE_RCUT, bool FTZ>
+__device__ __forceinline__ void pair_bf16(const Pair2& s, uint32_t xi,
+                                          uint32_t yi, uint32_t zi,
+                                          float rcut2, uint32_t eps2,
+                                          float cutoff2, float& tx,
+                                          float& ty, float& tz) {
+  const uint32_t dx = sub2(s.x, xi);
+  const uint32_t dy = sub2(s.y, yi);
+  const uint32_t dz = sub2(s.z, zi);
+  const uint32_t sx = mul2(dx, dx);
+  const uint32_t sy = mul2(dy, dy);
+  const uint32_t sz = mul2(dz, dz);
+  const uint32_t r2 =
+      pack2((lo(sx) + lo(sy)) + lo(sz), (hi(sx) + hi(sy)) + hi(sz));
+  const uint32_t r2s = add2(r2, eps2);
+  const uint32_t inv_r = pack2(
+      inv_r_bf16<USE_RCUT, FTZ>(lo(r2), lo(r2s), rcut2, cutoff2),
+      inv_r_bf16<USE_RCUT, FTZ>(hi(r2), hi(r2s), rcut2, cutoff2));
+  const uint32_t w = mul2(mul2(mul2(s.gm, inv_r), inv_r), inv_r);
+  const float w0 = lo(w), w1 = hi(w);
+  tx = fmaf(w0, lo(dx), tx);
+  ty = fmaf(w0, lo(dy), ty);
+  tz = fmaf(w0, lo(dz), tz);
+  tx = fmaf(w1, hi(dx), tx);
+  ty = fmaf(w1, hi(dy), ty);
+  tz = fmaf(w1, hi(dz), tz);
 }
 
 // Warp v of the grid serves work item v = cell * ceil(t_cap / kGroup) +
 // slot group. Lane l serves target slot l / kQ of its item and the
-// sources j = l % kQ (mod kQ) of each staged tile (two at a time in the
+// sources j = l % kQ (mod kQ) of each staged tile (two a step in the
 // bf16 form).
 template <typename IO, int KIND, bool USE_RCUT, bool FTZ>
-__global__ void __launch_bounds__(kThreads)
-    nlist_pair_kernel(const IO* __restrict__ tpos,
-                      const int64_t* __restrict__ t_count,
-                      const IO* __restrict__ spos, const IO* __restrict__ sgm,
-                      const int64_t* __restrict__ s_count, int side,
-                      int t_cap, int cap, const IO* __restrict__ params,
-                      Compute<IO> eps2, Compute<IO> cutoff2,
-                      IO* __restrict__ out) {
+__device__ __forceinline__ void pair_cells(
+    const IO* __restrict__ tpos, const int64_t* __restrict__ t_count,
+    const IO* __restrict__ spos, const IO* __restrict__ sgm,
+    const int64_t* __restrict__ s_count, int side, int t_cap, int cap,
+    const IO* __restrict__ params, Compute<IO> eps2, Compute<IO> cutoff2,
+    IO* __restrict__ out) {
   using T = Compute<IO>;
   constexpr bool kBf16 = std::is_same_v<IO, bf16>;
   static_assert(!kBf16 || KIND == kNewton,
@@ -361,10 +392,22 @@ __global__ void __launch_bounds__(kThreads)
     const T alpha = KIND == kEwald ? load(params + 1) : T(0);
     const T alpha3 = mul_rn(mul_rn(alpha, alpha), alpha);
     T xi = T(0), yi = T(0), zi = T(0);
+    // The bf16 form's target, its bits in both halves; eps^2 likewise
+    // (eps2 is a bf16 value: its low 16 bits are zero).
+    uint32_t xi2 = 0u, yi2 = 0u, zi2 = 0u, eps2x2 = 0u;
+    if constexpr (kBf16) {
+      eps2x2 = 0x10001u * (__float_as_uint(eps2) >> 16);
+    }
     if (active) {
-      xi = load(tpos + 3 * trow);
-      yi = load(tpos + 3 * trow + 1);
-      zi = load(tpos + 3 * trow + 2);
+      if constexpr (kBf16) {
+        xi2 = 0x10001u * bits(tpos[3 * trow]);
+        yi2 = 0x10001u * bits(tpos[3 * trow + 1]);
+        zi2 = 0x10001u * bits(tpos[3 * trow + 2]);
+      } else {
+        xi = load(tpos + 3 * trow);
+        yi = load(tpos + 3 * trow + 1);
+        zi = load(tpos + 3 * trow + 2);
+      }
     }
     const int cx = c / (side * side);
     const int cy = (c / side) % side;
@@ -381,40 +424,62 @@ __global__ void __launch_bounds__(kThreads)
       const int ns = static_cast<int>(s_count[n] < cap ? s_count[n] : cap);
       const int64_t sbase = static_cast<int64_t>(n) * cap;
       T tx = T(0), ty = T(0), tz = T(0);
-      for (int base = 0; base < ns; base += kStage) {
-        const int jn = min(kStage, ns - base);
-        for (int jj = lane; jj < jn; jj += 32) {
-          const int64_t j = sbase + base + jj;
-          Body<T> b;
-          b.x = load(spos + 3 * j);
-          b.y = load(spos + 3 * j + 1);
-          b.z = load(spos + 3 * j + 2);
-          b.gm = load(sgm + j);
-          buf[jj] = b;
-        }
-        __syncwarp();
-        if constexpr (kBf16) {
-          // Two sources a step; past the tile's end the second is the
-          // first with G m = 0, an exact no-op.
-#pragma unroll 2
-          for (int jj = q; jj < jn; jj += 2 * kQ) {
-            Body<float> s1 = buf[jj];
-            if (jj + kQ < jn) {
-              s1 = buf[jj + kQ];
+      if constexpr (kBf16) {
+        // 2 kStage sources a tile, in the warp's slice as kStage pairs:
+        // pair p holds sources 4 (p / 2) + p % 2 and that + 2, so lane q
+        // takes sources q, q + 2, q + 4, ... in order, two a step, as the
+        // fp32 form takes them one a step. Past the tile's end the high
+        // source is the low one with G m = 0, an exact no-op.
+        static_assert(kQ == 2, "the bf16 pairs interleave two lanes");
+        Pair2* pairs = reinterpret_cast<Pair2*>(buf);
+        for (int base = 0; base < ns; base += 2 * kStage) {
+          const int jn = min(2 * kStage, ns - base);
+          for (int p = lane; p < kStage; p += 32) {
+            const int j0 = 4 * (p >> 1) + (p & 1);
+            if (j0 >= jn) continue;
+            const int64_t j = sbase + base + j0;
+            Pair2 b{bits(spos[3 * j]), bits(spos[3 * j + 1]),
+                    bits(spos[3 * j + 2]), bits(sgm[j])};
+            if (j0 + 2 < jn) {
+              b.x |= bits(spos[3 * j + 6]) << 16;
+              b.y |= bits(spos[3 * j + 7]) << 16;
+              b.z |= bits(spos[3 * j + 8]) << 16;
+              b.gm |= bits(sgm[j + 2]) << 16;
             } else {
-              s1.gm = 0.0f;
+              b.x *= 0x10001u;
+              b.y *= 0x10001u;
+              b.z *= 0x10001u;
             }
-            pair_bf16<USE_RCUT, FTZ>(buf[jj], s1, xi, yi, zi, rcut2, eps2,
+            pairs[p] = b;
+          }
+          __syncwarp();
+#pragma unroll 2
+          for (int p = q; 2 * p - q < jn; p += kQ) {
+            pair_bf16<USE_RCUT, FTZ>(pairs[p], xi2, yi2, zi2, rcut2, eps2x2,
                                      cutoff2, tx, ty, tz);
           }
-        } else {
+          __syncwarp();
+        }
+      } else {
+        for (int base = 0; base < ns; base += kStage) {
+          const int jn = min(kStage, ns - base);
+          for (int jj = lane; jj < jn; jj += 32) {
+            const int64_t j = sbase + base + jj;
+            Body<T> b;
+            b.x = load(spos + 3 * j);
+            b.y = load(spos + 3 * j + 1);
+            b.z = load(spos + 3 * j + 2);
+            b.gm = load(sgm + j);
+            buf[jj] = b;
+          }
+          __syncwarp();
 #pragma unroll 4
           for (int jj = q; jj < jn; jj += kQ) {
             pair<T, KIND, USE_RCUT, FTZ>(buf[jj], xi, yi, zi, rcut2, alpha,
                                          alpha3, eps2, cutoff2, tx, ty, tz);
           }
+          __syncwarp();
         }
-        __syncwarp();
       }
       // The kQ source lanes of a target hold this neighbor's partial
       // sums; a butterfly adds them in the same order on every lane.
@@ -443,6 +508,40 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename IO, int KIND, bool USE_RCUT, bool FTZ>
+__global__ void __launch_bounds__(kThreads)
+    nlist_pair_kernel(const IO* __restrict__ tpos,
+                      const int64_t* __restrict__ t_count,
+                      const IO* __restrict__ spos, const IO* __restrict__ sgm,
+                      const int64_t* __restrict__ s_count, int side,
+                      int t_cap, int cap, const IO* __restrict__ params,
+                      Compute<IO> eps2, Compute<IO> cutoff2,
+                      IO* __restrict__ out) {
+  pair_cells<IO, KIND, USE_RCUT, FTZ>(tpos, t_count, spos, sgm, s_count, side,
+                                      t_cap, cap, params, eps2, cutoff2, out);
+}
+
+// The bf16 form's untruncated newton kind (the octree's near field) held
+// to 48 registers, 5 blocks an SM. Most of its warp items are empty
+// leaves that only write zeros, so the launch goes as fast as the SMs
+// take blocks: at the baseline-1m leaf blocks 0.877 ms at 48 registers
+// against 0.978 at the 56 ptxas picks (NVIDIA H100 80GB HBM3, 700.00 W).
+// The rcut form stays at its own count: held to 48 it took 1.227 ms
+// against 1.151 at the README nlist state (scripts/kernel_ab.py).
+template <typename IO, bool FTZ>
+__global__ void __launch_bounds__(kThreads, 5)
+    nlist_near_kernel(const IO* __restrict__ tpos,
+                      const int64_t* __restrict__ t_count,
+                      const IO* __restrict__ spos, const IO* __restrict__ sgm,
+                      const int64_t* __restrict__ s_count, int side,
+                      int t_cap, int cap, const IO* __restrict__ params,
+                      Compute<IO> eps2, Compute<IO> cutoff2,
+                      IO* __restrict__ out) {
+  static_assert(std::is_same_v<IO, bf16>, "the bf16 form's near field");
+  pair_cells<IO, kNewton, false, FTZ>(tpos, t_count, spos, sgm, s_count, side,
+                                      t_cap, cap, params, eps2, cutoff2, out);
+}
+
 template <typename IO>
 using KernelFn = void (*)(const IO*, const int64_t*, const IO*, const IO*,
                           const int64_t*, int, int, int, const IO*,
@@ -461,14 +560,24 @@ KernelFn<IO> pick_kernel(int kind, int use_rcut, double cutoff2) {
       return nlist_pair_kernel<IO, kEwald, true, false>;
     }
   }
-  if constexpr (sizeof(Compute<IO>) == 4) {
-    if (cutoff2 >= FLT_MIN) {
-      return use_rcut ? nlist_pair_kernel<IO, kNewton, true, true>
-                      : nlist_pair_kernel<IO, kNewton, false, true>;
+  if constexpr (std::is_same_v<IO, bf16>) {
+    // The untruncated form has its own entry point.
+    const bool ftz = cutoff2 >= FLT_MIN;
+    if (!use_rcut) {
+      return ftz ? nlist_near_kernel<IO, true> : nlist_near_kernel<IO, false>;
     }
+    return ftz ? nlist_pair_kernel<IO, kNewton, true, true>
+               : nlist_pair_kernel<IO, kNewton, true, false>;
+  } else {
+    if constexpr (sizeof(Compute<IO>) == 4) {
+      if (cutoff2 >= FLT_MIN) {
+        return use_rcut ? nlist_pair_kernel<IO, kNewton, true, true>
+                        : nlist_pair_kernel<IO, kNewton, false, true>;
+      }
+    }
+    return use_rcut ? nlist_pair_kernel<IO, kNewton, true, false>
+                    : nlist_pair_kernel<IO, kNewton, false, false>;
   }
-  return use_rcut ? nlist_pair_kernel<IO, kNewton, true, false>
-                  : nlist_pair_kernel<IO, kNewton, false, false>;
 }
 
 template <typename IO>

@@ -611,6 +611,72 @@ def test_nlist_bf16_form_keeps_a_subnormal_weight(cuda):
     assert torch.equal(got.cpu(), want) and float(got[0, 0]) != 0.0
 
 
+@pytest.mark.parametrize("eps", [0.0, 1e9])
+@pytest.mark.parametrize("m,k", [(1, 1), (1, 255), (3, 257), (257, 7),
+                                 (300, 513), (511, 1023)])
+def test_bf16_packed_layouts_match_plain(cuda, m, k, eps):
+    """nbody_direct's bf16 form holds a thread's two targets in the two
+    halves of a register and stages each source in both: M = 1 and ragged
+    M (a thread's second target past M), odd K (zero-mass padding in the
+    last tile), the same bits again."""
+    pos, masses = _system(max(m, k), torch.bfloat16, cuda, seed=3 * m + k)
+    pos_i, pos_j, m_j = pos[:m].contiguous(), pos[:k].contiguous(), masses[:k]
+    got = direct_kernel.accelerations_vs_kernel(pos_i, pos_j, m_j, eps=eps)
+    again = direct_kernel.accelerations_vs_kernel(pos_i, pos_j, m_j, eps=eps)
+    want = accelerations_vs(pos_i, pos_j, m_j, eps=eps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _within_term_scale(got, want, _term_scale(pos_i, pos_j, m_j, eps),
+                       BF16_TOL)
+
+
+@pytest.mark.parametrize("eps", [0.0, 1e9])
+def test_direct_bf16_form_keeps_a_subnormal_weight(cuda, eps):
+    """G m / r^3 = 1e-39 lies in bf16's subnormal range: the packed bf16x2
+    products keep it, and the light body's pull is the plain version's
+    bits, not 0."""
+    pos = torch.tensor([[0.0, 0.0, 0.0], [1e12, 0.0, 0.0],
+                        [2.2e12, 0.0, 0.0]], dtype=torch.bfloat16)
+    masses = torch.tensor([1e24, 1.5e7, 0.0], dtype=torch.bfloat16)
+    want = accelerations_vs(pos, pos, masses, eps=eps)
+    got = direct_kernel.accelerations_vs_kernel(
+        pos.to(cuda), pos.to(cuda), masses.to(cuda), eps=eps)
+    assert torch.equal(got.cpu(), want) and float(got[0, 0]) != 0.0
+
+
+@pytest.mark.parametrize("use_rcut", [True, False])
+@pytest.mark.parametrize("t_cap,cap", [(33, 131), (1, 255), (17, 129)])
+def test_nlist_bf16_odd_source_counts_match_plain(cuda, t_cap, cap,
+                                                  use_rcut):
+    """nlist_pair's bf16 form takes two sources of a target a step, from
+    pairs staged 128 sources at a time: odd source counts (the last pair's
+    high half a no-op), counts past one staging tile and past the cap,
+    and a ragged t_cap, against the plain version; the same bits again."""
+    rng = np.random.default_rng(t_cap + cap)
+    side, n = 2, 8
+    counts = [1, 3, 5, 127, 129, 131, cap, cap + 4]
+    t_count = torch.tensor([min(c, t_cap + 2) for c in counts[::-1]])
+    s_count = torch.tensor(counts)
+    c = torch.arange(n)
+    corner = torch.stack([c // 4, (c // 2) % 2, c % 2], 1).double()
+    tpos = corner[:, None] + torch.from_numpy(rng.uniform(0, 1, (n, t_cap, 3)))
+    spos = corner[:, None] + torch.from_numpy(rng.uniform(0, 1, (n, cap, 3)))
+    gm = torch.from_numpy(rng.uniform(0.5, 1.5, (n, cap))) / 1000
+    gm = torch.where(torch.arange(cap)[None] < s_count[:, None], gm, 0.0)
+    bf = torch.bfloat16
+    args = (tpos.to(cuda, bf), t_count.to(cuda), spos.to(cuda, bf),
+            gm.to(cuda, bf), s_count.to(cuda), side,
+            torch.tensor([1.0], dtype=bf, device=cuda))
+    kw = dict(cutoff=1e-10, eps=0.05, use_rcut=use_rcut, kind="newton")
+    got = nlist.pair_cells_kernel(*args, **kw)
+    again = nlist.pair_cells_kernel(*args, **kw)
+    want = nlist.pair_cells_plain(*args, **kw)
+    scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _within_term_scale(got, want, scale, NLIST_BF16_TOL)
+
+
 def test_nlist_bf16_form_refuses_the_ewald_kind(cuda):
     pos, masses = _system(64, torch.bfloat16, cuda)
     origin, span = bounding_cube(pos)

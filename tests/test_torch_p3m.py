@@ -8,8 +8,10 @@ Pallas kernel in interpret mode. The states are thin disks around a
 central point mass (the P3M run's geometry), in galactic units (G = 1).
 Tolerances, each 3-10x the port-vs-JAX spread measured on these inputs:
 
-- kernel transform: 1e-13 of its largest entry (measured 5e-14: both
-  are built in float64 and rounded once);
+- kernel transform: 1e-13 of its largest entry in float64 (measured
+  5e-14: both are built in float64); in float32 the port's own float64
+  build rounded once, bitwise, and the JAX entry within one float32 ulp
+  plus that 1e-13;
 - pair weight: 1e-6 of its largest value in fp32 (measured 2.4e-7; erf
   and exp differ by an ulp), 1e-15 in fp64 (measured 1.7e-16);
 - near-field tiles: 3e-5 of the mean |a| (measured 6.1e-6);
@@ -83,16 +85,31 @@ def _max_over_mean(got, want):
 @pytest.mark.parametrize("dtype,name", [(torch.float32, "float32"),
                                         (torch.float64, "float64")])
 def test_force_kernel_hat_matches_the_numpy_constants(m2, dtype, name):
+    """Both packages build the transform in float64 (two FFT libraries,
+    1e-13 of the scale apart) and round it once. float64: that bar.
+    float32: the port's complex64 is its own complex128 rounded, bit for
+    bit; against the JAX package, two correct roundings of values that
+    far apart differ by at most one float32 ulp plus that gap (where the
+    float64 values straddle a rounding boundary they land an ulp apart:
+    4,641 imaginary entries at m2 = 64 on one machine)."""
     got = p3m.force_kernel_hat(m2, 1.25, dtype, CPU)
     want = jax_p3m._force_kernel_hat_np(m2, 1.25, name)
     assert len(got) == 3
+    if name == "float32":
+        full = p3m.force_kernel_hat(m2, 1.25, torch.float64, CPU)
+        for kh, kf in zip(got, full):
+            assert torch.equal(kh, kf.to(torch.complex64))
     for kh, (re, im) in zip(got, want):
         assert kh.dtype == (torch.complex64 if name == "float32"
                             else torch.complex128)
         assert tuple(kh.shape) == (m2, m2, m2 // 2 + 1)
         scale = max(np.abs(re).max(), np.abs(im).max())
-        assert np.abs(kh.real.numpy() - re).max() <= 1e-13 * scale
-        assert np.abs(kh.imag.numpy() - im).max() <= 1e-13 * scale
+        for part, ref in ((kh.real.numpy(), re), (kh.imag.numpy(), im)):
+            diff = np.abs(part.astype(np.float64) - ref)
+            bar = 1e-13 * scale
+            if name == "float32":
+                bar = bar + np.spacing(np.abs(ref)).astype(np.float64)
+            assert bool((diff <= bar).all())
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6),
