@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels from the checkout (one nvcc each, all
-started together), holds each against its plain PyTorch version on the
-card (the cell-list kernel in both of its pair kinds and untruncated,
-in fp32, fp64 and bf16, the direct sum in fp32, fp64 and bf16), and
-drives each
+Builds the four CUDA kernel libraries from the checkout (one nvcc each,
+all started together), holds each kernel against its plain PyTorch
+version on the card (the cell-list kernel in both of its pair kinds and
+untruncated, in fp32, fp64 and bf16, the direct sum in fp32, fp64 and
+bf16, the bf16 segment sums bit for bit at an octree build's sums and
+their edge cases), and drives each
 kernel's path at full size through the Simulator, with every launch count
 set to 0 just before the path and read just after:
 
@@ -59,8 +60,11 @@ It then times each kernel at its path's shapes beside its bound (the
 direct sum masked at N = 50,000, mask-free at N = 16,384 and 65,536, and
 its bf16 form at both; the tree's near field at its 2,097,152 leaves,
 and the same launch on an empty grid; the cell list's bf16 form at the
-README state, a kick's t_cap and the leaf blocks) and beside
-the issue floor of its inner loop's SASS instructions a pair. Each phase
+README state, a kick's t_cap and the leaf blocks; the bf16 segment sums
+at the 1M disk's level 0 and leaf level, bound by their longest chain of
+dependent adds at the SM clock sampled meanwhile) and beside
+the issue floor of its inner loop's SASS instructions a pair. The
+bf16 octree evaluation is profiled for its segment sums' share. Each phase
 prints one JSON line (the ``done`` line carries ``wall_s``); the last two
 lines are the kernels table and ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
 exits non-zero and prints no result. It needs a CUDA device and the
@@ -349,13 +353,14 @@ def sass_loops(path: str) -> dict:
     how many are MUFU (rsqrt and the other special functions), LDS
     (shared-memory loads), HMMA (tensor-core products), conversions to a
     narrower float (F2FP, F2F) and packed half-precision ops (HADD2,
-    HMUL2, HFMA2). The pair loops of the direct sums and of the newton
-    kind take one MUFU.RSQ a pair, so instructions / MUFU is their issued
-    instructions a pair, and conversions / MUFU their conversions a pair.
-    Keys name
-    the kernel and its template arguments as mangled, ``f`` for float and
-    ``bf16`` for __nv_bfloat16 (``nbody_mxu_kernel<fLb0ELb1>``: float,
-    no cutoff test, ftz rsqrt)."""
+    HMUL2, HFMA2) and global loads (LDG). The pair loops of the direct
+    sums and of the newton kind take one MUFU.RSQ a pair, so instructions
+    / MUFU is their issued instructions a pair, and conversions / MUFU
+    their conversions a pair; a segment-sum loop adds one row a bf16 add
+    (HADD2 or HFMA2). Keys name the kernel and its template arguments as
+    mangled, ``f`` for float and ``bf16`` for __nv_bfloat16
+    (``nbody_mxu_kernel<fLb0ELb1>``: float, no cutoff test, ftz rsqrt),
+    or the kernel alone where it has none (``segment_sum_long_kernel``)."""
     import re
 
     from gravity_tpu_torch.ops import cuda_build
@@ -379,7 +384,8 @@ def sass_loops(path: str) -> dict:
     for name, ins in funcs.items():
         kernel = re.search(r"([a-z_]+_kernel)I((?:f|13__nv_bfloat16)\w*?)"
                            r"EEEv", name)
-        if kernel is None:
+        plain = re.search(r"\d(segment_sum_[a-z]+_kernel)E", name)
+        if kernel is None and plain is None:
             continue
         ops = [(a, (i.split()[1] if i.startswith("@") else i.split()[0])
                 .split(".")[0]) for a, i in ins]
@@ -400,7 +406,11 @@ def sass_loops(path: str) -> dict:
                           "cvt": body.count("F2FP") + body.count("F2F"),
                           "hadd2": body.count("HADD2"),
                           "hmul2": body.count("HMUL2"),
-                          "hfma2": body.count("HFMA2")})
+                          "hfma2": body.count("HFMA2"),
+                          "ldg": body.count("LDG")})
+        if kernel is None:
+            out[plain.group(1)] = loops
+            continue
         args = kernel.group(2).replace("13__nv_bfloat16", "bf16")
         out[f"{kernel.group(1)}<{args}>"] = loops
     return out
@@ -428,7 +438,7 @@ def issue_floor_ms(pairs, instrs_per_pair, device):
 
 
 def phase_build() -> dict:
-    """All three libraries, one nvcc each, started together."""
+    """All four libraries, one nvcc each, started together."""
     from gravity_tpu_torch.ops import (
         cells,
         cuda_build,
@@ -1497,11 +1507,11 @@ def phase_profile_nlist() -> dict:
     return record
 
 
-def profile_record(prof, prefix: str, evals: int, wall_ms: float) -> dict:
+def profile_record(prof, prefix, evals: int, wall_ms: float) -> dict:
     """Per-evaluation device time by kernel and by stage from a profile.
-    On the device side the profiler records each ``prefix``* range as a
-    span (from its first kernel to its last, idle gaps included) and each
-    kernel as itself."""
+    On the device side the profiler records each ``prefix``* range (a
+    string or a tuple of them) as a span (from its first kernel to its
+    last, idle gaps included) and each kernel as itself."""
     stages, kernels = {}, []
     for item in prof.key_averages():
         if "CUDA" not in str(getattr(item, "device_type", "")):
@@ -3349,18 +3359,38 @@ def phase_timing_tree(device: dict, build: dict) -> dict:
     return record
 
 
-def phase_profile_tree() -> dict:
+def device_ms(prof, evals: int, match) -> float:
+    """Device ms an evaluation of the profiled kernels whose name
+    ``match`` accepts."""
+    total = 0.0
+    for item in prof.key_averages():
+        if "CUDA" in str(getattr(item, "device_type", "")) and match(item.key):
+            us = getattr(item, "device_time_total", None)
+            total += us if us is not None else item.cuda_time_total
+    return total / evals / 1e3
+
+
+def phase_profile_tree(bf16: bool = False) -> dict:
     """Where a baseline-1m --tree-near nlist force evaluation's device
     time goes: the PyTorch profiler over 2 evaluations, device time by
     kernel and the device span of each stage ops/tree.py and
     nlist_near_field name (tree.build, tree.far, tree.bin_targets,
     tree.near_tiles, tree.remainder, tree.overflow_targets) over one
     evaluation (its ~20k launches keep the profiler busy for tens of
-    seconds); the peak device memory of one evaluation."""
+    seconds); the peak device memory of one evaluation. With ``bf16``
+    the state is rounded to bf16 (phase profile_tree_bf16), and the
+    record adds the build's bf16 segment sums: their kernels' device time,
+    the spans of their plans (sort and search, ``segment_sum.plan``) and
+    of their gathers and launches (``segment_sum.sum``), and their launches
+    (exactly TREE_SUMS_PER_LEVEL a level)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from gravity_tpu_torch.ops import cells
+
     state = tree_state()
+    if bf16:
+        state = state.astype(torch.bfloat16)
     depth = tree_depth_of(state.positions)
     tree_force_eval(state, depth)
     torch.cuda.synchronize()
@@ -3370,6 +3400,7 @@ def phase_profile_tree() -> dict:
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
     evals = 1
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3377,9 +3408,19 @@ def phase_profile_tree() -> dict:
             tree_force_eval(state, depth)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / evals
-    record = profile_record(prof, "tree.", evals, wall_ms)
-    record.update(phase="profile_tree", depth=depth,
+    launches = cells.LAUNCHES
+    record = profile_record(prof, ("tree.", "segment_sum."), evals, wall_ms)
+    record.update(phase="profile_tree_bf16" if bf16 else "profile_tree",
+                  depth=depth, dtype=str(state.positions.dtype),
                   peak_memory_bytes=peak, memory_before_eval_bytes=base)
+    if bf16:
+        record.update(
+            segment_sum_kernels_ms_per_eval=device_ms(
+                prof, evals, lambda key: "segment_sum_" in key),
+            segment_sum_launches_per_eval=launches / evals)
+        check(launches == TREE_SUMS_PER_LEVEL * (depth + 1) * evals,
+              f"bf16 tree build: {launches} segment-sum launches in "
+              f"{evals} evaluations at depth {depth}")
     emit(record)
     return record
 
@@ -3412,6 +3453,10 @@ NLIST_BF16_MULTIRATE_STEPS = 20
 TREE_BF16_STEPS = 10
 TREE_BF16_GATHER_STEPS = 3
 TREE_BF16_MULTIRATE_STEPS = 3
+# bf16 segment-sum launches a level of an octree build: the cell masses
+# and weighted positions in one, the quadrupoles in a second
+# (tree.build_octree through cells.Segments).
+TREE_SUMS_PER_LEVEL = 2
 # The JAX package's own bf16 tree against fp32 on baseline-1m's initial
 # disk rounded to bf16, at the 4,096 targets tree paths sample (seed 17),
 # gather near field, direct far field, depth 7: the median and p90 of the
@@ -3502,7 +3547,12 @@ def nlist_bf16_config(**fields):
     return SimulationConfig(**{**NLIST_RUN, "dtype": "bfloat16", **fields})
 
 
-def segment_sum_cases(state, depth: int = 7):
+# The depth the tree paths fit to the baseline-1m disk (tree_depth_of
+# rails at 7 there).
+TREE_DEPTH = 7
+
+
+def segment_sum_cases(state, depth: int = TREE_DEPTH):
     """(name, values, ids, n) of the bf16 segment sums an octree build of
     ``state`` takes at levels 0, 3 and ``depth``: one, three and six
     columns (mass, weighted position, a quadrupole's six)."""
@@ -3524,14 +3574,110 @@ def segment_sum_cases(state, depth: int = 7):
             yield f"level {d} ({sd**3} cells) x {cols}", values, ids, sd**3
 
 
-def phase_segment_sum_bf16(device: dict) -> dict:
-    """The bf16 segment-sum kernel against its plain version (the CPU's
-    element-order sum, on copies of the same inputs) at the sums of a
-    bf16 octree build of the baseline-1m disk and at the README nlist
-    state's cell totals: the same bits everywhere, and on a second launch.
-    Then the level-0 and leaf-level three-column sums timed by CUDA
-    events, beside the plain version (host clock), index_add_ on the card
-    (the library call; bf16 atomics) and the bound (bytes)."""
+def bits_equal(a, b) -> bool:
+    """The same shape and bits, NaN's bits too."""
+    import torch
+
+    return tuple(a.shape) == tuple(b.shape) and torch.equal(
+        a.cpu().contiguous().view(torch.int16),
+        b.cpu().contiguous().view(torch.int16))
+
+
+def segment_sum_edge_cases(dev):
+    """(name, values, ids, n) of the bf16 sums' edge cases, made on the
+    CPU from a seed and moved to ``dev``: ones that stall at 256, signed
+    zeros, subnormals, +-inf and NaN (the kernel writes 0x7fc0, the CPU's
+    NaN), empty segments, and 1,048,576 rows of three columns in one
+    segment."""
+    import torch
+
+    gen = torch.Generator().manual_seed(23)
+    bf16 = torch.bfloat16
+
+    def ids_of(n_rows, n):
+        return torch.randint(0, n, (n_rows,), generator=gen)
+
+    def pick(choices, shape):
+        table = torch.tensor(choices, dtype=torch.float32)
+        return table[torch.randint(0, len(choices), shape, generator=gen)]
+
+    inf = float("inf")
+    nan_inf = pick([inf, -inf, 1.0, 2.0, 3e38, float("nan")], (600, 3))
+    cases = [
+        ("ones stall at 256", torch.ones(5000, 3),
+         torch.repeat_interleave(torch.arange(3), torch.tensor([4000, 700,
+                                                                300])), 3),
+        ("signed zeros", pick([0.0, -0.0], (400, 4)), ids_of(400, 6), 6),
+        ("subnormals", pick([2.0**-130, -(2.0**-131), 2.0**-133, 2.0**-126,
+                             -1.5 * 2.0**-126, 0.0], (600, 4)),
+         ids_of(600, 5), 5),
+        ("inf and nan", nan_inf, ids_of(600, 40), 40),
+        ("empty segments", torch.randn(5000, 4, generator=gen),
+         torch.tensor([3, 17, 18, 4000])[torch.randint(0, 4, (5000,),
+                                                       generator=gen)],
+         8192),
+        ("1,048,576 rows, one segment",
+         torch.randn(1 << 20, 3, generator=gen),
+         torch.zeros(1 << 20, dtype=torch.int64), 1),
+    ]
+    for name, values, ids, n in cases:
+        yield name, values.to(bf16).to(dev), ids.to(dev), n
+
+
+def chain_cycles() -> float:
+    """Cycles of one add.rn.bf16 in a dependent chain, measured now on the
+    card by ``scripts/chain_latency.py``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chain_latency", os.path.join(REPO, "scripts", "chain_latency.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.cycles_per_step(module.FORMS.index("bf16_add"))
+
+
+def with_sm_clock(fn) -> tuple:
+    """``fn()`` while a thread samples the SM clock with nvidia-smi:
+    (its result, the median MHz of the samples, the samples)."""
+    import threading
+
+    samples, stop = [], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            samples.append(float(nvidia_smi("clocks.sm",
+                                            "--format=csv,noheader,nounits")))
+            stop.wait(0.05)
+
+    thread = threading.Thread(target=sample)
+    thread.start()
+    try:
+        result = fn()
+    finally:
+        stop.set()
+        thread.join()
+    return result, statistics.median(samples), samples
+
+
+def segment_sum_sass(build: dict) -> dict:
+    """The long grid's row loop, read off its SASS (``sass_loops``): its
+    instructions and bf16 adds (HADD2, HFMA2) a row, a row being 1/8 of a
+    16-byte load (LDG)."""
+    loops = build["segment_sum"]["sass"].get("segment_sum_long_kernel")
+    if not loops:
+        return {"not measured": "no SASS of segment_sum_long_kernel"}
+    loop = max(loops, key=lambda x: x["hadd2"] + x["hfma2"])
+    adds = loop["hadd2"] + loop["hfma2"]
+    rows = 8 * loop["ldg"]
+    return {"loop": loop, "bf16_adds_per_row": adds / rows,
+            "instrs_per_row": loop["instrs"] / rows}
+
+
+def segment_sum_check_cases() -> list:
+    """(name, values, ids, n) on the card of every sum the segment-sum
+    phase holds to the plain version (and ``scripts/segment_sum_ab.py`` to
+    another build): a bf16 octree build of the baseline-1m disk, the README
+    nlist state's cell totals and the edge cases."""
     import torch
 
     from gravity_tpu_torch.ops import cells, nlist
@@ -3545,60 +3691,161 @@ def phase_segment_sum_bf16(device: dict) -> dict:
     nids = cells.cell_ids(cells.grid_coords(nstate.positions, origin, span,
                                             side), side)
     n_hat = nstate.masses / nstate.masses.max()
-    cases = list(segment_sum_cases(tstate)) + [
+    return (list(segment_sum_cases(tstate)) + [
         (f"README nlist cells ({side**3}) x 1", n_hat, nids, side**3),
         (f"README nlist cells ({side**3}) x 3",
          n_hat[:, None] * nstate.positions, nids, side**3)]
+        + list(segment_sum_edge_cases(tstate.positions.device)))
+
+
+def phase_segment_sum_bf16(device: dict, build: dict) -> dict:
+    """The bf16 segment-sum kernel against its plain version (the CPU's
+    element-order sum, on copies of the same inputs), bit for bit and again
+    on a second launch: at the sums of a bf16 octree build of the
+    baseline-1m disk (levels 0, 3 and 7, one, three and six columns, and
+    the build's own four-column mass and weighted-position sums), at the
+    README nlist state's cell totals, and at the edge cases. Then the
+    level-0 and leaf-level sums timed by CUDA events: the kernel alone
+    (``segment_sum_rows`` on a made plan) and the whole wrapper call (plan,
+    gather, launch), beside the plan, the plain version (host clock),
+    index_add_ on the card (the library call; bf16 atomics) and the bound:
+    the longest segment's rows x the latency of one add.rn.bf16 (measured
+    now, ``scripts/chain_latency.py``) at the SM clock sampled while the
+    kernel runs, the bytes beside it."""
+    import torch
+
+    from gravity_tpu_torch.ops import cells, tree
+
+    tstate = tree_state().astype(torch.bfloat16)
     checked = []
-    for name, values, ids, n in cases:
+    for name, values, ids, n in segment_sum_check_cases():
         kern = cells.segment_sum_bf16(values, ids, n)
         again = cells.segment_sum_bf16(values, ids, n)
         plain = cells.segment_sum_bf16_plain(values.cpu(), ids.cpu(), n)
         torch.cuda.synchronize()
-        check(torch.equal(kern, again), f"segment sum {name}: runs differ")
-        same = torch.equal(kern.cpu(), plain)
-        checked.append({"case": name, "rows": values.shape[0],
-                        "same_bits_as_plain": same,
-                        "max_abs_err": float((kern.cpu().double()
-                                              - plain.double()).abs().max())})
+        check(bits_equal(kern, again), f"segment sum {name}: runs differ")
+        same = bits_equal(kern, plain)
+        gap = (kern.cpu().double() - plain.double())[torch.isfinite(plain)]
+        checked.append({
+            "case": name, "rows": values.shape[0], "segments": n,
+            "same_bits_as_plain": same,
+            "max_abs_err": float(gap.abs().max()) if gap.numel() else 0.0})
         check(same, f"segment sum {name}: not the plain version's bits")
+    cycles = chain_cycles()
+    sass = segment_sum_sass(build)
     timing = {}
-    for name, values, ids, n in cases:
-        if not name.endswith("x 3") or "nlist" in name or "level 3" in name:
-            continue
+    for name, parts, ids, n in timed_segment_sums(tstate):
+        values = parts[0] if len(parts) == 1 else None
+        segments = cells.Segments(ids, n)
+        _, starts = segments.plan()
+        rows = segments.gather(*parts)
+        cols, n_rows = rows.shape[0], ids.shape[0]
+        lengths = starts.diff()
+        longest = int(lengths.max())
+        merged = cells.Segments(ids, n).sum(*parts)
+        check(all(bits_equal(m, cells.segment_sum_bf16_plain(
+            p.cpu(), ids.cpu(), n)) for m, p in zip(merged, parts)),
+            f"segment sum {name}: merged columns differ from the plain "
+            "version")
 
-        def kernel(values=values, ids=ids, n=n):
-            cells.segment_sum_bf16(values, ids, n)
+        def kernel(rows=rows, starts=starts, n_rows=n_rows):
+            cells.segment_sum_rows(rows, starts, n_rows)
 
-        def library(values=values, ids=ids, n=n):
-            torch.zeros((n, 3), dtype=values.dtype,
-                        device=values.device).index_add_(0, ids, values)
+        def wrapper(parts=parts, ids=ids, n=n):
+            cells.Segments(ids, n).sum(*parts)
+
+        def plan(ids=ids, n=n):
+            cells.Segments(ids, n).plan()
 
         cuda_ms(kernel, 2)
-        ms = [cuda_ms(kernel, 10), cuda_ms(kernel, 10)]
-        library_ms = cuda_ms(library, 1)
-        host = (values.cpu(), ids.cpu())
+        reps = 100 if n == 1 else 400
+        ms, clock_mhz, samples = with_sm_clock(lambda: cuda_ms(kernel, reps))
+        ms_repeat = cuda_ms(kernel, reps // 4)
+        cuda_ms(wrapper, 2)
+        wrapper_ms = cuda_ms(wrapper, 10)
+        plan_ms = cuda_ms(plan, 10)
+        library_ms = None
+        if values is not None:
+            def library(values=values, ids=ids, n=n, cols=cols):
+                torch.zeros((n, cols), dtype=values.dtype,
+                            device=values.device).index_add_(
+                    0, ids, values.reshape(n_rows, cols))
+
+            library_ms = cuda_ms(library, 1)
+        host = ([p.cpu() for p in parts], ids.cpu())
         t0 = time.perf_counter()
-        cells.segment_sum_bf16_plain(*host, n)
+        for p in host[0]:
+            cells.segment_sum_bf16_plain(p, host[1], n)
         plain_ms = 1e3 * (time.perf_counter() - t0)
-        n_bytes = values.numel() * 2 + ids.numel() * 8 + n * 3 * 2
+        n_bytes = n_rows * (2 * cols + 8) + n * cols * 2
         byte_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+        chain_ms = 1e3 * longest * cycles / (clock_mhz * 1e6)
+        bound_ms = max(chain_ms, byte_ms)
         timing[name] = {
-            "ms": ms[0], "ms_repeat": ms[1],
+            "cols": cols, "rows": n_rows, "segments": n,
+            "longest_segment_rows": longest,
+            "occupied_segments": int((lengths > 0).sum()),
+            "ms": ms, "ms_repeat": ms_repeat, "kernel_reps": reps,
+            "wrapper_ms": wrapper_ms, "plan_ms": plan_ms,
             "plain_ms": plain_ms, "plain_on": "host CPU (host clock)",
             "library_ms": library_ms,
             "library_note": "index_add_ on the card: bf16 atomics, another "
-                            "order of adds each run",
-            "bound_ms": byte_ms, "bound_by": "bytes", "bytes": n_bytes,
-            "share_of_bound": byte_ms / ms[0],
-            "nvidia_smi": device["nvidia_smi"],
+                            "order of adds each run" if values is not None
+                            else "not timed for merged columns",
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if chain_ms >= byte_ms else "bytes",
+            "bound_note": "the longest segment's dependent bf16 adds, one "
+                          "a measured add.rn.bf16 latency at the sampled SM "
+                          "clock (a chain issues no faster); the bytes "
+                          "beside",
+            "chain_bound_ms": chain_ms, "bytes_bound_ms": byte_ms,
+            "bytes": n_bytes, "add_cycles": cycles,
+            "sm_clock_mhz": clock_mhz, "sm_clock_samples": samples,
+            "share_of_bound": bound_ms / ms,
+            "sass": sass, "nvidia_smi": device["nvidia_smi"],
         }
+    # A bf16 build's chain bound: each level's longest cell, twice (its
+    # two launches), against the same launches batched over all levels.
+    coords = tree.build_octree(tstate.positions, tstate.masses,
+                               TREE_DEPTH)[3]
+    longest_by_level = [
+        int(torch.bincount(cells.cell_ids(coords >> (TREE_DEPTH - d), 1 << d),
+                           minlength=8**d).max())
+        for d in range(TREE_DEPTH + 1)]
+    clock_mhz = timing[next(iter(timing))]["sm_clock_mhz"]
     record = {"phase": "segment_sum_bf16", "cases": checked,
-              "timing": timing}
+              "timing": timing,
+              "build_longest_segment_rows_by_level": longest_by_level,
+              "build_chain_bound_ms": 1e3 * TREE_SUMS_PER_LEVEL
+              * sum(longest_by_level) * cycles / (clock_mhz * 1e6),
+              "build_chain_bound_batched_ms": 1e3 * TREE_SUMS_PER_LEVEL
+              * max(longest_by_level) * cycles / (clock_mhz * 1e6)}
     emit(record)
-    level0 = next(v for k, v in timing.items() if k.startswith("level 0"))
+    by_level = {k.split(" (")[0] + (" merged" if "merged" in k else ""): v
+                for k, v in timing.items()}
     return {"max_abs_err": max(c["max_abs_err"] for c in checked),
-            "timing": level0, "timing_by_case": timing}
+            "timing": by_level["level 0"],
+            "leaf": by_level[f"level {TREE_DEPTH}"], "timing_by_case": timing}
+
+
+def timed_segment_sums(state):
+    """(name, values, ids, n) of the timed sums of a bf16 octree build of
+    ``state`` at levels 0 and TREE_DEPTH: three columns (the weighted
+    positions) and the build's own merged launch (mass and weighted
+    position, four columns)."""
+    from gravity_tpu_torch.ops import tree
+
+    pos, m = state.positions, state.masses
+    coords = tree.build_octree(pos, m, TREE_DEPTH)[3]
+    m_hat = m / m.max()
+    mw = m_hat[:, None] * pos
+    for d in (0, TREE_DEPTH):
+        sd = 1 << d
+        cd = coords >> (TREE_DEPTH - d)
+        ids = (cd[:, 0] * sd + cd[:, 1]) * sd + cd[:, 2]
+        yield f"level {d} ({sd**3} cells) x 3", (mw,), ids, sd**3
+        yield (f"level {d} ({sd**3} cells) x 4 merged", (m_hat, mw), ids,
+               sd**3)
 
 
 def bf16_subnormal_case(dev, kernel: str = "nlist_pair/bf16",
@@ -3797,8 +4044,10 @@ def phase_nlist_bf16_path(device: dict, nlist_path: dict) -> dict:
     stats, counts = logged_run(sim, "nlist_bf16_path",
                                fixed_steps=config.steps)
     evals = config.steps + 1
+    # One bf16 segment-sum launch an evaluation: the overflow channels'
+    # cell masses and weighted positions (nlist.cell_totals).
     check(counts["nlist_pair/bf16"] == evals and counts["nlist_pair"] == 0
-          and counts["segment_sum/bf16"] == 2 * evals,
+          and counts["segment_sum/bf16"] == evals,
           f"bf16 nlist: {counts} for {evals} force evaluations")
     final = stats["final_state"]
     check(final.positions.dtype == torch.bfloat16,
@@ -3857,8 +4106,9 @@ def phase_nlist_bf16_multirate_path(device: dict, build: dict) -> dict:
     check(t_cap < cap, f"k {k}, t_cap {t_cap}, cap {cap}")
     stats, counts = logged_run(sim, "nlist_bf16_multirate_path",
                                fixed_steps=config.steps)
-    check(counts["nlist_pair/bf16"] == 1 + 5 * config.steps
-          and counts["nlist_pair"] == 0,
+    kicks = 1 + 5 * config.steps
+    check(counts["nlist_pair/bf16"] == kicks and counts["nlist_pair"] == 0
+          and counts["segment_sum/bf16"] == kicks,
           f"{counts} for {config.steps} two-rung steps")
     final = stats["final_state"]
     idx = fast_targets(sim, final, k)
@@ -3933,9 +4183,10 @@ def phase_tree_bf16_path(device: dict) -> dict:
                                fixed_steps=config.steps)
     peak = torch.cuda.max_memory_allocated()
     evals = config.steps + 1
+    builds = TREE_SUMS_PER_LEVEL * (sim.tree_depth + 1)
     check(counts["nlist_pair/near_bf16"] == evals
           and counts["nlist_pair/near"] == 0
-          and counts["segment_sum/bf16"] >= evals,
+          and counts["segment_sum/bf16"] == builds * evals,
           f"bf16 tree: {counts} for {evals} force evaluations")
     final = stats["final_state"]
     check(final.positions.dtype == torch.bfloat16,
@@ -3972,8 +4223,11 @@ def phase_tree_bf16_path(device: dict) -> dict:
     gstats, gcounts = logged_run(gsim, "tree_bf16_gather_path",
                                  fixed_steps=TREE_BF16_GATHER_STEPS)
     check(gcounts["nlist_pair/near_bf16"] == 0
-          and gcounts["nlist_pair/near"] == 0,
-          f"the bf16 gather near field launched nlist_pair: {gcounts}")
+          and gcounts["nlist_pair/near"] == 0
+          and gcounts["segment_sum/bf16"]
+          == TREE_SUMS_PER_LEVEL * (gsim.tree_depth + 1)
+          * (TREE_BF16_GATHER_STEPS + 1),
+          f"the bf16 gather near field: {gcounts}")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         msim = Simulator(dataclasses.replace(
@@ -3981,7 +4235,10 @@ def phase_tree_bf16_path(device: dict) -> dict:
             steps=TREE_BF16_MULTIRATE_STEPS))
     mstats, mcounts = logged_run(msim, "tree_bf16_multirate_path",
                                  fixed_steps=TREE_BF16_MULTIRATE_STEPS)
-    check(mcounts["nlist_pair/near_bf16"] == 1 + 5 * TREE_BF16_MULTIRATE_STEPS,
+    kicks = 1 + 5 * TREE_BF16_MULTIRATE_STEPS
+    check(mcounts["nlist_pair/near_bf16"] == kicks
+          and mcounts["segment_sum/bf16"]
+          == TREE_SUMS_PER_LEVEL * (msim.tree_depth + 1) * kicks,
           f"bf16 tree multirate: {mcounts}")
     mfinal = mstats["final_state"]
     k = msim._multirate_plan()[0]
@@ -4056,7 +4313,7 @@ def main() -> int:
     p3m_err = phase_p3m_kernel_vs_plain()
     tree_err = phase_tree_kernel_vs_plain()
     nlist_bf16 = phase_nlist_bf16_kernel_vs_plain()
-    seg_bf16 = phase_segment_sum_bf16(device)
+    seg_bf16 = phase_segment_sum_bf16(device, build)
     main_path = phase_main_path()
     nlist_path = phase_nlist_main_path()
     mxu_path = phase_mxu_path()
@@ -4088,6 +4345,7 @@ def main() -> int:
     phase_profile_nlist()
     phase_profile_p3m()
     phase_profile_tree()
+    profile_bf16 = phase_profile_tree(bf16=True)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0,
           "kernel_share_of_main_path_step":
               timing["ms"] / main_path["ms_per_step"],
@@ -4117,7 +4375,12 @@ def main() -> int:
               "nlist_multirate": nlist_bf16_mr["ms_per_step"],
               "tree_nlist": tree_bf16["ms_per_step"],
               "tree_gather": tree_bf16["gather"]["ms_per_step"],
-              "tree_multirate": tree_bf16["multirate"]["ms_per_step"]}})
+              "tree_multirate": tree_bf16["multirate"]["ms_per_step"]},
+          "bf16_tree_segment_sums_ms_per_eval":
+              profile_bf16["segment_sum_kernels_ms_per_eval"],
+          "bf16_tree_segment_sum_share_of_step":
+              profile_bf16["segment_sum_kernels_ms_per_eval"]
+              / tree_bf16["ms_per_step"]})
     kernels = [
         ("nbody_direct", "gravity_tpu/ops/pallas_forces.py:45",
          main_path["launches"], max_abs_err, timing),

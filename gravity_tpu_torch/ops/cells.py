@@ -18,6 +18,7 @@ import math
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import cuda_build
 from .pm import bounding_cube
@@ -30,9 +31,11 @@ __all__ = [
     "cell_ids",
     "grid_coords",
     "map_target_chunks",
+    "Segments",
     "segment_sum",
     "segment_sum_bf16",
     "segment_sum_bf16_plain",
+    "segment_sum_rows",
 ]
 
 
@@ -64,9 +67,11 @@ def cell_ids(coords: torch.Tensor, side: int) -> torch.Tensor:
 
 def segment_sum(values: torch.Tensor, ids: torch.Tensor,
                 n: int) -> torch.Tensor:
-    """``jax.ops.segment_sum``: rows of ``values`` summed by ``ids``. On
-    CUDA the float sums use atomics, so their last bits vary from run to
-    run; a bf16 sum goes through :func:`segment_sum_bf16`."""
+    """``jax.ops.segment_sum``: rows of ``values`` summed by ``ids``. The
+    fp32 and fp64 sums (and integer counts) are ``index_add_``, on CUDA
+    with atomics, so their last bits vary from run to run; a bf16 sum goes
+    through :func:`segment_sum_bf16`, which uses none and gives the same
+    bits on every run."""
     if values.dtype == torch.bfloat16:
         return segment_sum_bf16(values, ids, n)
     out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype,
@@ -82,7 +87,11 @@ def segment_sum_bf16_plain(values: torch.Tensor, ids: torch.Tensor,
     more bodies comes out short in both packages. torch's ``index_add_``
     on the CPU adds a 1-D source in element order but the rows of a 2-D
     one in another, so the sum is taken column by column. The plain
-    version of :func:`segment_sum_bf16`'s kernel."""
+    version of :func:`segment_sum_bf16`'s kernel.
+
+    Unlike the JAX package's CPU sums, which flush subnormal inputs and
+    results to zero, this one keeps bf16 subnormals, as the kernel does
+    (``tests/test_torch_segment_sum.py``)."""
     if values.dim() > 1:
         cols = values.reshape(values.shape[0], -1).unbind(1)
         out = torch.stack([segment_sum_bf16_plain(c.contiguous(), ids, n)
@@ -92,54 +101,160 @@ def segment_sum_bf16_plain(values: torch.Tensor, ids: torch.Tensor,
     return out.index_add_(0, ids, values)
 
 
-# Kernel launches of segment_sum_bf16 so far (only where it launches).
+# Kernel launches of segment_sum_rows so far (only where it launches).
 LAUNCHES = 0
 LIBRARY = cuda_build.CudaLibrary("segment_sum", {
-    "segment_sum_bf16": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
-                         ctypes.c_int),
+    "segment_sum_bf16": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                          ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
 })
 _MAX_COLS = 8
+# The kernel reads a column in 16-byte chunks of 8 rows.
+_CHUNK_ROWS = 8
+
+
+class Segments:
+    """Sums over one id vector: ``jax.ops.segment_sum(v, ids, n)`` of each
+    of several values, which may share one plan and one launch.
+
+    ``sum(*values)`` returns one total a value. fp32 and fp64 values take
+    :func:`segment_sum` (``index_add_``) one by one. bf16 values on the CPU
+    take :func:`segment_sum_bf16_plain`; on CUDA their columns (at most 8
+    in all) are summed by one launch of ``csrc/segment_sum.cu``
+    (:func:`segment_sum_rows`) over the plan of these ids (:meth:`plan`),
+    which is made at the first such sum and kept for the next: an octree
+    level sums its masses and weighted positions in one launch and its
+    quadrupoles, which need the centres of mass, in a second on the same
+    plan."""
+
+    def __init__(self, ids: torch.Tensor, n: int):
+        self.ids = ids
+        self.n = n
+        self._plan = None
+
+    def plan(self):
+        """(order, starts): a stable sort of the ids (element order inside
+        a segment), padded with row 0 to a multiple of 8 rows, and each
+        segment's first row in that order, ``starts[n]`` the number of
+        rows with an id below n. No atomics: the starts are a binary
+        search of the sorted ids."""
+        if self._plan is None:
+            with record_function("segment_sum.plan"):
+                ids, n = self.ids, self.n
+                key = ids.to(torch.int32) if n < 2**31 else ids
+                sorted_ids, order = torch.sort(key, stable=True)
+                starts = torch.searchsorted(
+                    sorted_ids, torch.arange(n + 1, dtype=key.dtype,
+                                             device=ids.device))
+                pad = -ids.shape[0] % _CHUNK_ROWS
+                if pad:
+                    order = torch.cat([order, order.new_zeros(pad)])
+                self._plan = (order, starts)
+        return self._plan
+
+    def gather(self, *values) -> torch.Tensor:
+        """The values' columns in the plan's order, column-major: (cols,
+        rows padded to a multiple of 8), each column contiguous."""
+        order, _ = self.plan()
+        flat = [v.reshape(v.shape[0], math.prod(v.shape[1:])) for v in values]
+        rows = torch.empty((sum(f.shape[1] for f in flat), order.shape[0]),
+                           dtype=values[0].dtype, device=values[0].device)
+        c = 0
+        for f in flat:
+            torch.index_select(f.t(), 1, order, out=rows[c:c + f.shape[1]])
+            c += f.shape[1]
+        return rows
+
+    def sum(self, *values) -> list:
+        if not values:
+            return []
+        if any(v.dtype != torch.bfloat16 for v in values):
+            return [segment_sum(v, self.ids, self.n) for v in values]
+        n_rows = self.ids.shape[0]
+        widths = [math.prod(v.shape[1:]) for v in values]
+        if any(v.dim() < 1 or v.shape[0] != n_rows for v in values) \
+                or self.ids.dim() != 1 or not 1 <= sum(widths) <= _MAX_COLS:
+            raise ValueError(
+                f"values {[tuple(v.shape) for v in values]} and ids "
+                f"{tuple(self.ids.shape)}: one id a row, at most "
+                f"{_MAX_COLS} values a row in all")
+        devices = {v.device for v in values} | {self.ids.device}
+        if devices == {torch.device("cpu")}:
+            return [segment_sum_bf16_plain(v, self.ids, self.n)
+                    for v in values]
+        if len(devices) != 1 or values[0].device.type != "cuda":
+            raise ValueError("the CUDA kernel needs values and ids on one "
+                             f"CUDA device, got {sorted(map(str, devices))}")
+        if self.ids.dtype != torch.int64:
+            raise TypeError(f"the CUDA kernel takes int64 ids, not "
+                            f"{self.ids.dtype}")
+        if n_rows == 0:
+            return [values[0].new_zeros((self.n, *v.shape[1:]))
+                    for v in values]
+        with record_function("segment_sum.sum"):
+            out = segment_sum_rows(self.gather(*values), self.plan()[1],
+                                   n_rows)
+        return [o.reshape(self.n, *v.shape[1:]) for o, v in
+                zip(out.split(widths, dim=1), values)]
+
+
+def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
+                     n_rows: int) -> torch.Tensor:
+    """The wrapper of ``csrc/segment_sum.cu``: bf16 ``rows`` (cols, stride),
+    column-major in segment order (:meth:`Segments.gather`), summed over
+    the segments that ``starts`` (n + 1,) bounds, into (n, cols), each
+    column one chain of bf16 adds in row order. CPU tensors take the plain
+    version (``index_add_`` column by column over the rows in this order,
+    which is element order inside a segment); CUDA tensors launch the
+    kernel on the current stream, without synchronising, or raise."""
+    global LAUNCHES
+    cols, stride = rows.shape
+    n = starts.shape[0] - 1
+    if rows.dtype != torch.bfloat16 or starts.dtype != torch.int64:
+        raise TypeError(f"the kernel takes bfloat16 rows and int64 starts, "
+                        f"not {rows.dtype} and {starts.dtype}")
+    if not 1 <= cols <= _MAX_COLS or stride % _CHUNK_ROWS \
+            or not 0 <= n_rows <= stride or n < 0:
+        raise ValueError(f"rows {tuple(rows.shape)}, {n_rows} of them "
+                         f"real: at most {_MAX_COLS} columns of a multiple "
+                         f"of {_CHUNK_ROWS} rows")
+    if rows.device.type == "cpu" and starts.device.type == "cpu":
+        lo, hi = int(starts[0]), int(starts[-1])
+        seg = torch.repeat_interleave(torch.arange(n), starts.diff())
+        return torch.stack([
+            torch.zeros(n, dtype=rows.dtype).index_add_(0, seg, col[lo:hi])
+            for col in rows], dim=1)
+    if rows.device.type != "cuda" or starts.device != rows.device:
+        raise ValueError("the CUDA kernel needs rows and starts on one CUDA "
+                         f"device, got {rows.device} and {starts.device}")
+    if not rows.is_contiguous() or not starts.is_contiguous():
+        raise ValueError("the CUDA kernel takes contiguous rows and starts")
+    out = torch.empty((n, cols), dtype=rows.dtype, device=rows.device)
+    if n == 0:
+        return out
+    lib = LIBRARY.load()
+    with torch.cuda.device(rows.device):
+        status = lib.segment_sum_bf16(
+            rows.data_ptr(), stride, n_rows, starts.data_ptr(), n, cols,
+            out.data_ptr(),
+            torch.cuda.current_stream(rows.device).cuda_stream)
+    LIBRARY.check(status)
+    LAUNCHES += 1
+    return out
 
 
 def segment_sum_bf16(values: torch.Tensor, ids: torch.Tensor,
                      n: int) -> torch.Tensor:
-    """:func:`segment_sum_bf16_plain`'s contract. CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/segment_sum.cu`` on the current
-    stream, without synchronising, or raise: the rows are gathered in
-    segment order by a stable argsort of ``ids`` (element order inside a
-    segment) and each warp of the kernel adds one segment's rows in that
-    order. Unlike ``index_add_``'s bf16 atomics on the card, this gives the
-    JAX package's CPU bits, the same on every run."""
-    global LAUNCHES
-    cols = math.prod(values.shape[1:])
-    if values.dim() < 1 or ids.shape != values.shape[:1] \
-            or not 1 <= cols <= _MAX_COLS:
-        raise ValueError(f"values {tuple(values.shape)} and ids "
-                         f"{tuple(ids.shape)}: one id a row, at most "
-                         f"{_MAX_COLS} values a row")
-    if values.device.type == "cpu" and ids.device.type == "cpu":
-        return segment_sum_bf16_plain(values, ids, n)
-    if values.device.type != "cuda" or ids.device != values.device:
-        raise ValueError("the CUDA kernel needs values and ids on one CUDA "
-                         f"device, got {values.device} and {ids.device}")
-    if values.dtype != torch.bfloat16 or ids.dtype != torch.int64:
-        raise TypeError(f"the CUDA kernel takes bfloat16 values and int64 "
-                        f"ids, not {values.dtype} and {ids.dtype}")
-    order = torch.argsort(ids, stable=True)
-    rows = values.reshape(values.shape[0], cols)[order].contiguous()
-    counts = torch.zeros(n + 1, dtype=torch.int64, device=values.device)
-    counts.index_add_(0, ids + 1, torch.ones_like(ids))
-    starts = torch.cumsum(counts, 0)
-    out = torch.empty((n, cols), dtype=values.dtype, device=values.device)
-    lib = LIBRARY.load()
-    with torch.cuda.device(values.device):
-        status = lib.segment_sum_bf16(
-            rows.data_ptr(), starts.data_ptr(), n, cols, out.data_ptr(),
-            torch.cuda.current_stream(values.device).cuda_stream)
-    LIBRARY.check(status)
-    LAUNCHES += 1
-    return out.reshape(n, *values.shape[1:])
+    """:func:`segment_sum_bf16_plain`'s contract, for one value of at most
+    8 columns: ``Segments(ids, n).sum(values)``. CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/segment_sum.cu`` once or raise.
+    Unlike ``index_add_``'s bf16 atomics on the card, this gives the JAX
+    package's CPU bits (bar its flushed subnormals), the same on every
+    run."""
+    if values.dtype != torch.bfloat16:
+        raise TypeError(f"a bf16 segment sum takes bfloat16 values, not "
+                        f"{values.dtype}")
+    return Segments(ids, n).sum(values)[0]
 
 
 def _cell_slots(sorted_cell_ids, cell_start, n_cells: int, cap: int):

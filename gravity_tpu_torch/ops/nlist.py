@@ -31,7 +31,7 @@ fallback is computed for every target and selected with ``torch.where``
 (the JAX package gates it with ``lax.cond``).
 
 A bf16 state runs bf16 through every step, as the JAX package's does: the
-binning, the segment sums (``cells.segment_sum``, rounded add by add),
+binning, the segment sums (``cells.Segments``, rounded add by add),
 rcut_eff^2 rounded to bf16, the overflow channels in bf16 torch ops, and
 the pair tiles under the bf16 contract of :func:`pair_cells_plain`,
 which the kernel's bf16 form keeps. The ``newton`` kind only: ``ewald``
@@ -58,11 +58,11 @@ from ..constants import CUTOFF_RADIUS, G
 from ..interop import to_numpy
 from . import cuda_build
 from .cells import (
+    Segments,
     bin_to_cells,
     bounding_cube,
     cell_ids,
     grid_coords,
-    segment_sum,
 )
 from .forces import rounded
 
@@ -252,6 +252,19 @@ def _monopole_w(kind: str, r2, w_mass, params, eps_o2):
         return ((w_mass * inv_r) * inv_r) * inv_r
     alpha = params[1]
     return w_mass * _short_range_w(r2, alpha, eps_o2, alpha * alpha * alpha)
+
+
+def cell_totals(positions, masses, ids, n_cells: int):
+    """Per-cell totals for the overflow channels, in normalized mass
+    (``pallas_nlist.py:1005-1012``): (m_scale, cell mass / m_scale, cell
+    centre of mass). The masses and weighted positions are one
+    ``Segments`` sum: at bf16 on the card, one sort and one launch."""
+    m_scale = torch.clamp_min(masses.max(), 1e-37)
+    m_hat = masses / m_scale
+    cmass_hat, cmw = Segments(ids, n_cells).sum(
+        m_hat, m_hat[:, None] * positions)
+    ccom = cmw / torch.clamp_min(cmass_hat, 1e-37)[:, None]
+    return m_scale, cmass_hat, ccom
 
 
 def _source_overflow_channels(cells_pos, cells_mass, cell_count, cmass_hat,
@@ -714,12 +727,8 @@ def nlist_accelerations_vs(
          src_sorted_ids) = binned
         cells_gm = cells_mass * g
 
-        # Per-cell totals for the overflow channels, in normalized mass.
-        m_scale = torch.clamp_min(masses.max(), 1e-37)
-        m_hat = masses / m_scale
-        cmass_hat = segment_sum(m_hat, ids, n_cells)
-        cmw = segment_sum(m_hat[:, None] * positions, ids, n_cells)
-        ccom = cmw / torch.clamp_min(cmass_hat, 1e-37)[:, None]
+        m_scale, cmass_hat, ccom = cell_totals(positions, masses, ids,
+                                               n_cells)
 
         t_coords = grid_coords(targets, origin, span, side)
         if _self and t_cap == cap:

@@ -5,8 +5,10 @@ over the bounding cube, evaluated with fixed-shape interaction lists.
 
 - **Build**: every body's integer leaf coords at depth D; for each level
   d in [0, D] the cell masses and centres of mass (and, with ``quad``, the
-  traceless quadrupole, stored as Q / (m_scale h_d^2)) by one
-  ``segment_sum`` over the bodies' level-d cell ids. The tree is a pyramid
+  traceless quadrupole, stored as Q / (m_scale h_d^2)) by segment sums
+  over the bodies' level-d cell ids (``cells.Segments``: at bf16 on the
+  card one sort of the ids a level, masses and weighted positions in one
+  launch, the quadrupoles in a second). The tree is a pyramid
   of flat (8^d,) arrays. The leaves are padded into (8^D, leaf_cap) slot
   blocks (``ops/cells.py::bin_to_cells``, a stable sort, so the same
   bodies take a leaf's slots as in the JAX package).
@@ -55,11 +57,11 @@ from ..config import TREE_FAR_MODES, TREE_NEAR_MODES
 from ..constants import CUTOFF_RADIUS, G
 from ..interop import to_numpy
 from .cells import (
+    Segments,
     _near_offsets,
     bin_to_cells,
     grid_coords,
     map_target_chunks,
-    segment_sum,
 )
 
 # ---------------------------------------------------------------------------
@@ -140,8 +142,8 @@ def build_octree(positions, masses, depth: int, *, quad: bool = False):
         cd = coords >> (depth - d)
         ids = (cd[:, 0] * sd + cd[:, 1]) * sd + cd[:, 2]
         n_cells = sd**3
-        cmass_hat = segment_sum(m_hat, ids, n_cells)
-        cmw = segment_sum(mw, ids, n_cells)
+        segments = Segments(ids, n_cells)
+        cmass_hat, cmw = segments.sum(m_hat, mw)
         ccom = cmw / torch.clamp_min(cmass_hat, 1e-37)[:, None]
         if not quad:
             levels.append((cmass_hat * m_scale, ccom))
@@ -158,8 +160,7 @@ def build_octree(positions, masses, depth: int, *, quad: bool = False):
             m_hat * 3.0 * dx * dz,
             m_hat * 3.0 * dy * dz,
         ], dim=1)
-        levels.append((cmass_hat * m_scale, ccom,
-                       segment_sum(q6, ids, n_cells)))
+        levels.append((cmass_hat * m_scale, ccom, segments.sum(q6)[0]))
     return levels, origin, span, coords
 
 

@@ -12,22 +12,26 @@ forms:
 - ``bf16_add``: one ``add.rn.bf16`` a step, which rounds the exact sum
   once: the same bits as an fp32 add rounded to bf16 (fp32's 24 bits are
   at least 2 x 8 + 2; ``tests/test_torch_bf16_rounding.py``). The least
-  a step can take under the contract.
+  a step can take under the contract, and the step of ``segment_sum.cu``
+  since its redesign;
 - ``fp32_add_cvt``: an fp32 add, ``cvt.rn.bf16.f32`` and the widening
-  back, as ``segment_sum.cu`` steps today;
-- ``kernel_step``: that step with the ``__shfl_sync`` that hands each
-  row to the warp, as in ``segment_sum.cu``'s loop.
+  back, as ``segment_sum.cu`` stepped before it;
+- ``kernel_step``: that step with the ``__shfl_sync`` that handed each
+  row to the warp, as in that design's loop.
 
 Prints one JSON line: cycles a step for each form, the SM clock
 ``nvidia-smi`` reports at its top, the card's name and power limit, and
 the bound the chain sets for the level-0 sums of ``baseline-1m`` (all
 1,048,576 rows in one segment): rows x cycles / clock. The library is
 built by nvcc into ``gravity_tpu_torch/build/``. Needs a CUDA device.
+``chip_smoke.py`` loads this file and calls :func:`cycles_per_step` for
+the segment sums' bound.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import json
 import os
 import subprocess
@@ -117,6 +121,26 @@ def build() -> str:
     return lib
 
 
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(build())
+    lib.chain_cycles.argtypes = [ctypes.c_int, ctypes.c_int,
+                                 ctypes.POINTER(ctypes.c_longlong)]
+    lib.chain_cycles.restype = ctypes.c_int
+    return lib
+
+
+def cycles_per_step(form: int, steps: int = STEPS) -> float:
+    """Cycles a step of the chain of ``FORMS[form]``, read by one thread's
+    ``clock64`` over ``steps`` steps (after a warm-up launch)."""
+    cycles = ctypes.c_longlong(0)
+    status = library().chain_cycles(form, steps, ctypes.byref(cycles))
+    if status != 0:
+        raise RuntimeError(f"chain_latency {FORMS[form]}: CUDA error "
+                           f"{status}")
+    return cycles.value / steps
+
+
 def main() -> int:
     import torch
 
@@ -125,20 +149,12 @@ def main() -> int:
         return 1
     import chip_smoke as cs
 
-    lib = ctypes.CDLL(build())
-    lib.chain_cycles.argtypes = [ctypes.c_int, ctypes.c_int,
-                                 ctypes.POINTER(ctypes.c_longlong)]
-    lib.chain_cycles.restype = ctypes.c_int
     clock_mhz = float(cs.nvidia_smi("clocks.max.sm",
                                     "--format=csv,noheader,nounits"))
     record = {"steps": STEPS, "max_sm_clock_mhz": clock_mhz,
               "nvidia_smi": cs.nvidia_smi("name,power.limit")}
     for form, name in enumerate(FORMS):
-        cycles = ctypes.c_longlong(0)
-        status = lib.chain_cycles(form, STEPS, ctypes.byref(cycles))
-        if status != 0:
-            raise RuntimeError(f"chain_latency {name}: CUDA error {status}")
-        per_step = cycles.value / STEPS
+        per_step = cycles_per_step(form)
         record[name] = {
             "cycles_per_step": per_step,
             "level0_bound_ms": 1e3 * LEVEL0_ROWS * per_step

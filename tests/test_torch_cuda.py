@@ -716,16 +716,62 @@ def test_simulator_runs_bf16_cell_lists_through_the_kernel(cuda):
         assert bool(torch.isfinite(final.positions).all())
 
 
-@pytest.mark.parametrize("n_seg,cols", [(1, 1), (1, 3), (8, 6), (4096, 3),
-                                        (1 << 21, 1)])
-def test_segment_sum_bf16_kernel_matches_plain(cuda, n_seg, cols):
+def _bits(t):
+    return t.cpu().contiguous().view(torch.int16)
+
+
+def _segment_edge_case(name):
+    """(values, ids, n) of one edge case of the bf16 segment sums, made on
+    the CPU from a seed."""
+    gen = torch.Generator().manual_seed(len(name))
+
+    def pick(choices, shape):
+        table = torch.tensor(choices, dtype=torch.float32)
+        return table[torch.randint(0, len(choices), shape, generator=gen)]
+
+    if name == "ones_stall_at_256":
+        ids = torch.repeat_interleave(torch.arange(3),
+                                      torch.tensor([4000, 700, 300]))
+        return torch.ones(5000, 3, dtype=torch.bfloat16), ids, 3
+    if name == "signed_zeros":
+        return (pick([0.0, -0.0], (400, 4)).to(torch.bfloat16),
+                torch.randint(0, 6, (400,), generator=gen), 6)
+    if name == "subnormals":
+        return (pick([2.0**-130, -(2.0**-131), 2.0**-133, 2.0**-126,
+                      -1.5 * 2.0**-126, 0.0], (600, 4)).to(torch.bfloat16),
+                torch.randint(0, 5, (600,), generator=gen), 5)
+    if name == "inf_and_nan":
+        inf = float("inf")
+        return (pick([inf, -inf, 1.0, 2.0, 3e38, float("nan")], (600, 3))
+                .to(torch.bfloat16),
+                torch.randint(0, 40, (600,), generator=gen), 40)
+    if name == "empty_segments":
+        ids = torch.tensor([3, 17, 18, 4000])[
+            torch.randint(0, 4, (5000,), generator=gen)]
+        return torch.randn(5000, 4, generator=gen).to(torch.bfloat16), ids, \
+            8192
+    # lengths about the kernel's 8-row chunks and its long-segment edge
+    lengths = torch.tensor([0, 1, 7, 8, 9, 15, 16, 17, 255, 256, 257, 513,
+                            4097, 70000, 3])
+    ids = torch.repeat_interleave(torch.arange(lengths.numel()), lengths)
+    ids = ids[torch.randperm(ids.numel(), generator=gen)]
+    return (torch.randn(ids.numel(), 3, generator=gen).to(torch.bfloat16),
+            ids, lengths.numel())
+
+
+@pytest.mark.parametrize("n_seg,cols,n", [(1, 1, 200_000), (1, 3, 200_000),
+                                          (8, 6, 200_000),
+                                          (4096, 3, 200_000),
+                                          (1 << 21, 1, 200_000),
+                                          (1, 3, 1 << 20), (3, 8, 10_000)])
+def test_segment_sum_bf16_kernel_matches_plain(cuda, n_seg, cols, n):
     """The bf16 segment sums on the card against the CPU's element-order
     sums of the same inputs: the same bits (the same adds, in the same
-    order), also on a second launch; one launch counted each."""
+    order), also on a second launch; one launch counted each. Among them
+    1,048,576 rows in one segment: one chain of adds."""
     from gravity_tpu_torch.ops import cells
 
     gen = torch.Generator().manual_seed(n_seg + cols)
-    n = 200_000
     ids = torch.randint(0, n_seg, (n,), generator=gen)
     values = (torch.rand(n, cols, generator=gen) * 1e-3 + 1e-4).to(
         torch.bfloat16).squeeze(1)
@@ -737,3 +783,53 @@ def test_segment_sum_bf16_kernel_matches_plain(cuda, n_seg, cols):
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert torch.equal(got, again) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", ["ones_stall_at_256", "signed_zeros",
+                                  "subnormals", "inf_and_nan",
+                                  "empty_segments", "lengths"])
+def test_segment_sum_bf16_edge_cases_match_plain(cuda, name):
+    """Edge cases, bit for bit (a NaN total too: 0x7fc0, the CPU's), a
+    mass and a weighted position merged into one launch."""
+    from gravity_tpu_torch.ops import cells
+
+    values, ids, n = _segment_edge_case(name)
+    mass, pos = values[:, 0].contiguous(), values[:, 1:].contiguous()
+    before = cells.LAUNCHES
+    got = cells.Segments(ids.to(cuda), n).sum(mass.to(cuda), pos.to(cuda))
+    again = cells.Segments(ids.to(cuda), n).sum(mass.to(cuda), pos.to(cuda))
+    torch.cuda.synchronize()
+    assert cells.LAUNCHES == before + 2
+    for g, a, v in zip(got, again, (mass, pos)):
+        want = cells.segment_sum_bf16_plain(v, ids, n)
+        assert torch.equal(_bits(g), _bits(want))
+        assert torch.equal(_bits(g), _bits(a))
+
+
+@pytest.mark.parametrize("depth,quad", [(7, True), (3, False)])
+def test_bf16_tree_build_launches_exactly(cuda, monkeypatch, depth, quad):
+    """A bf16 octree build launches the segment sums exactly twice a level
+    with quadrupoles (masses with weighted positions, then quadrupoles),
+    once without, and gives the bits of the same build whose sums are the
+    plain version's."""
+    from gravity_tpu_torch.ops import cells, tree
+
+    rng = np.random.default_rng(depth)
+    pos = torch.from_numpy(rng.normal(size=(50_000, 3))).to(torch.bfloat16)
+    m = torch.from_numpy(rng.uniform(1, 2, 50_000)).to(torch.bfloat16)
+    pos, m = pos.to(cuda), m.to(cuda)
+    before = cells.LAUNCHES
+    got = tree.build_octree(pos, m, depth, quad=quad)[0]
+    torch.cuda.synchronize()
+    assert cells.LAUNCHES - before == (2 if quad else 1) * (depth + 1)
+
+    class PlainSegments(cells.Segments):
+        def sum(self, *values):
+            return [cells.segment_sum_bf16_plain(
+                v.cpu(), self.ids.cpu(), self.n).to(v.device) for v in values]
+
+    monkeypatch.setattr(tree, "Segments", PlainSegments)
+    want = tree.build_octree(pos, m, depth, quad=quad)[0]
+    for level, ref in zip(got, want):
+        for g, w in zip(level, ref):
+            assert torch.equal(_bits(g), _bits(w))

@@ -269,6 +269,35 @@ def test_segment_sum_bf16_matches_jax_and_stalls_at_256():
                                   np.asarray(want.astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("n,side,span,seed", [(3000, 2, 30.0, 8),
+                                               (2000, 4, 100.0, 9),
+                                               (5000, 8, 100.0, 10)])
+def test_cell_totals_bf16_match_jax_bits(n, side, span, seed):
+    """The overflow channels' cell totals at bf16 (``nlist.cell_totals``:
+    masses and weighted positions in one ``Segments`` sum) against the
+    JAX package's lines (``pallas_nlist.py:1005-1012``) on the same bf16
+    state and cell ids: the same bits, in cells of ~375 bodies that stall
+    (side 2) and in sparse ones."""
+    pos, m = _cloud(n, span=span, seed=seed)
+    c = np.clip((pos / span * side).astype(np.int64), 0, side - 1)
+    ids = (c[:, 0] * side + c[:, 1]) * side + c[:, 2]
+    n_cells = side**3
+    got = nlist.cell_totals(*_port_bf16(pos, m), torch.from_numpy(ids),
+                            n_cells)
+    jpos, jm = _jax_bf16(pos, m)
+    m_scale = jnp.maximum(jnp.max(jm), jnp.asarray(1e-37, jnp.bfloat16))
+    m_hat = jm / m_scale
+    cmass_hat = jax.ops.segment_sum(m_hat, ids, num_segments=n_cells)
+    cmw = jax.ops.segment_sum(m_hat[:, None] * jpos, ids,
+                              num_segments=n_cells)
+    ccom = cmw / jnp.maximum(cmass_hat,
+                             jnp.asarray(1e-37, jnp.bfloat16))[:, None]
+    for port, ref in zip(got, (m_scale, cmass_hat, ccom)):
+        assert port.dtype == BF16
+        np.testing.assert_array_equal(
+            port.view(torch.int16).numpy(), np.asarray(ref).view(np.int16))
+
+
 def test_segment_sum_wrapper_on_cpu_is_the_plain_version():
     """cells.segment_sum at bf16 takes segment_sum_bf16, whose CPU form is
     the plain version (no kernel launch); int and float32 sums stay

@@ -110,6 +110,40 @@ def test_tree_bf16_matches_jax(disk, near, far):
                 <= OWN_FIGURE_FACTOR * np.percentile(jax_own, q)), q
 
 
+def _plummer_bf16(n=3000, seed=11):
+    """A cloud of unequal masses (a Plummer-like radial profile) rounded to
+    bf16, as float32 numpy arrays."""
+    rng = np.random.default_rng(seed)
+    r = 1.0 / np.sqrt(rng.uniform(0.01, 1.0, n) ** (-2.0 / 3.0) - 1.0)
+    v = rng.normal(size=(n, 3))
+    pos = r[:, None] * v / np.linalg.norm(v, axis=1)[:, None]
+    m = rng.uniform(0.2, 2.0, n)
+    return tuple(torch.from_numpy(a).to(BF16).float().numpy()
+                 for a in (pos, m))
+
+
+@pytest.mark.parametrize("state,depth,quad", [("disk", 5, True),
+                                              ("disk", 5, False),
+                                              ("plummer", 4, True)])
+def test_build_octree_bf16_matches_jax_bits(disk, state, depth, quad):
+    """A bf16 octree build (cell masses, centres of mass, quadrupoles at
+    every level, each level's masses and weighted positions one
+    ``Segments`` sum and its quadrupoles a second) gives the JAX
+    package's bits, where the coarse cells' masses stall."""
+    pos, m = (disk[0], disk[2]) if state == "disk" else _plummer_bf16()
+    got = tree.build_octree(torch.from_numpy(pos).to(BF16),
+                            torch.from_numpy(m).to(BF16), depth, quad=quad)
+    want = jax_tree.build_octree(jnp.asarray(pos, jnp.bfloat16),
+                                 jnp.asarray(m, jnp.bfloat16), depth,
+                                 quad=quad)
+    for level, ref in zip(got[0], want[0]):
+        assert len(level) == len(ref) == (3 if quad else 2)
+        for port, arr in zip(level, ref):
+            assert port.dtype == BF16
+            np.testing.assert_array_equal(port.view(torch.int16).numpy(),
+                                          np.asarray(arr).view(np.int16))
+
+
 def test_jax_bf16_tree_figure_is_pinned(disk):
     """The reference's own bf16-against-fp32 figure on this disk (gather,
     direct far field): a median of 0.049 and a p90 of 0.13, five times the
