@@ -54,7 +54,15 @@ set to 0 just before the path and read just after:
   fp32 nlist; ``baseline-1m --dtype bfloat16 --tree-near nlist`` (cut to
   10 steps; its gather near field and multirate, 3 each), its forces
   against the fp32 tree and ``nbody_direct`` (bar: 1.5x the JAX
-  package's own bf16 figure) and the two near fields against each other.
+  package's own bf16 figure) and the two near fields against each other;
+- the measurement layer: ``bench.main()`` (``python -m
+  gravity_tpu_torch.bench``) through ``nbody_direct``, ``nbody_mxu`` and
+  ``nlist_pair`` at N = 262,144 (each rate held under 1.05x its kernel's
+  rate alone), and plain ``auto`` through the autotuned router in a fresh
+  tuning cache: ``baseline-1m`` and ``baseline-16k`` (``--tree-near
+  nlist``: pallas, pallas-mxu, tree) and the README cell-list run (nlist
+  against the masked direct sum), each a miss that runs the argmin's
+  kernel, then a hit; and ``tune --sizes 16384 65536`` twice.
 
 It then times each kernel at its path's shapes beside its bound (the
 direct sum masked at N = 50,000, mask-free at N = 16,384 and 65,536, and
@@ -673,20 +681,28 @@ def phase_other_entry_points() -> None:
               f"CLI run failed ({proc.returncode}): {proc.stderr[-2000:]}")
         stats = json.loads(proc.stdout.strip().splitlines()[-1])
         frames = TrajectoryReader(stats["trajectory_dir"]).load(mmap=False)
-    check(stats["backend"] == "nbody_direct" and
-          stats["kernel_launches"] >= 100,
+    # reference-spark is plain auto: the router measures nbody_direct
+    # against nbody_mxu (a miss in this run's fresh tuning cache) and the
+    # run goes through the winner's kernel
+    check(stats["backend"] in ("nbody_direct", "nbody_mxu")
+          and stats["autotune_cache"] == "miss"
+          and stats["kernel_launches"] >= 100,
           f"CLI run did not go through the kernel: {stats}")
     check(frames.shape == (100, 1000, 3) and bool(
         torch.isfinite(torch.from_numpy(frames)).all()),
           f"trajectories: shape {frames.shape}")
     emit({"phase": "cli_reference_spark", "steps": 100,
+          "backend": stats["backend"],
+          "autotune_probe_ms": stats["autotune_probe_ms"],
           "launches": stats["kernel_launches"],
           "total_s": stats["total_time_s"],
           "trajectory_frames": frames.shape[0]})
 
-    # Softened leapfrog: the mask-free specialization on the main path.
+    # Softened leapfrog: the mask-free specialization on the main path
+    # (direct: the static route, which plain auto would now measure).
     config = SimulationConfig(model="random", n=16384, eps=1e9,
-                              integrator="leapfrog", steps=50)
+                              integrator="leapfrog", steps=50,
+                              force_backend="direct")
     sim = Simulator(config)
     reset_counts()
     stats = sim.run()
@@ -3583,12 +3599,19 @@ def bits_equal(a, b) -> bool:
         b.cpu().contiguous().view(torch.int16))
 
 
+TINY_EARLY_CASE = "1,048,576 rows, one segment, a tiny row early"
+
+
 def segment_sum_edge_cases(dev):
     """(name, values, ids, n) of the bf16 sums' edge cases, made on the
     CPU from a seed and moved to ``dev``: ones that stall at 256, signed
-    zeros, subnormals, +-inf and NaN (the kernel writes 0x7fc0, the CPU's
-    NaN), empty segments, and 1,048,576 rows of three columns in one
-    segment."""
+    zeros, subnormals (flushed, as the JAX package's CPU sums flush them),
+    +-inf and NaN (the kernel writes 0x7fc0, the CPU's NaN), empty
+    segments, 1,048,576 rows of three columns in one segment, the same
+    with a tiny row (nonzero, below 2^-119) early in three of four
+    columns, which takes the kernel's flushing chain
+    (:data:`TINY_EARLY_CASE`), and sums that cancel down to the least
+    normal 2^-126 with no tiny row, which do not."""
     import torch
 
     gen = torch.Generator().manual_seed(23)
@@ -3603,6 +3626,19 @@ def segment_sum_edge_cases(dev):
 
     inf = float("inf")
     nan_inf = pick([inf, -inf, 1.0, 2.0, 3e38, float("nan")], (600, 3))
+    # 2^-119 and the subnormal -2^-127 open a column of signed zeros: its
+    # total is 2^-119 flushed, 255 2^-127 not
+    tiny_early = torch.randn(1 << 20, 4, generator=gen)
+    tiny_early[3, 0] = 2.0**-130
+    tiny_early[:, 1] = pick([0.0, -0.0], (1 << 20,))
+    tiny_early[:2, 1] = torch.tensor([2.0**-119, -(2.0**-127)])
+    tiny_early[5, 3] = -1.5 * 2.0**-126
+    # pairs +m 2^-126, -(m +- 1) 2^-126, m in [129, 254]: partial sums
+    # step by 2^-126 about zero
+    m = torch.randint(129, 255, (1 << 17, 3), generator=gen).float()
+    step = pick([-1.0, 1.0], (1 << 17, 3))
+    cancel = torch.stack([m, -(m + step)], dim=1).reshape(1 << 18, 3) \
+        * 2.0**-126
     cases = [
         ("ones stall at 256", torch.ones(5000, 3),
          torch.repeat_interleave(torch.arange(3), torch.tensor([4000, 700,
@@ -3619,6 +3655,10 @@ def segment_sum_edge_cases(dev):
         ("1,048,576 rows, one segment",
          torch.randn(1 << 20, 3, generator=gen),
          torch.zeros(1 << 20, dtype=torch.int64), 1),
+        (TINY_EARLY_CASE, tiny_early,
+         torch.zeros(1 << 20, dtype=torch.int64), 1),
+        ("cancelling to 2^-126, no tiny row", cancel,
+         torch.arange(16).repeat_interleave(1 << 14), 16),
     ]
     for name, values, ids, n in cases:
         yield name, values.to(bf16).to(dev), ids.to(dev), n
@@ -3724,6 +3764,13 @@ def phase_segment_sum_bf16(device: dict, build: dict) -> dict:
         plain = cells.segment_sum_bf16_plain(values.cpu(), ids.cpu(), n)
         torch.cuda.synchronize()
         check(bits_equal(kern, again), f"segment sum {name}: runs differ")
+        if name == TINY_EARLY_CASE:
+            # the flush fired on the card: column 1's unflushed total
+            # (index_add_ alone) is 255 2^-127, its flushed one 2^-119
+            unflushed = torch.zeros(1, dtype=values.dtype).index_add_(
+                0, ids.cpu(), values[:, 1].cpu())
+            check(not bits_equal(kern[:, 1], unflushed),
+                  f"segment sum {name}: the flush did not change column 1")
         same = bits_equal(kern, plain)
         gap = (kern.cpu().double() - plain.double())[torch.isfinite(plain)]
         checked.append({
@@ -4287,6 +4334,264 @@ def phase_tree_bf16_path(device: dict) -> dict:
     return record
 
 
+# The measurement layer: the bench entry point and the autotuned
+# auto router, each driven with the counts set to 0 just before it.
+BENCH_N = 262_144
+BENCH_STEPS = 20
+BENCH_WARMUP = 3  # bench.main's
+# A bench rate may not pass its own kernel's rate alone by more than this
+# (CUDA events, same N, same run): a benchmark that beats its own kernel
+# has a timer that stopped early.
+BENCH_RATE_SLACK = 1.05
+# (BENCH_BACKEND, the counter of its kernel)
+BENCH_BACKENDS = (("direct", "nbody_direct"), ("pallas-mxu", "nbody_mxu"),
+                  ("nlist", "nlist_pair"))
+AUTOTUNE_STEPS = 3
+TUNE_SIZES = (16_384, 65_536)
+
+
+def bench_kernel_rate(backend: str, line: dict) -> dict:
+    """The rate of the bench line's own kernel alone, at the bench's N and
+    state, by CUDA events: pairs a second for the direct sums (N(N-1) a
+    launch), pair-tile slots a second for the cell list (its evaluated
+    rate)."""
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS, G
+    from gravity_tpu_torch.ops import direct_kernel, mxu_kernel, nlist
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    config = SimulationConfig(model="plummer", n=BENCH_N, dt=3600.0,
+                              eps=1.0e9, integrator="leapfrog")
+    state = make_initial_state(config, torch.device("cuda", 0))
+    pos, masses = state.positions, state.masses
+    n = pos.shape[0]
+    if backend == "direct":
+        def kernel():
+            direct_kernel.accelerations_vs_kernel(pos, pos, masses,
+                                                  eps=config.eps)
+        work = n * (n - 1)
+    elif backend == "pallas-mxu":
+        xi = (pos - pos.mean(dim=0)).contiguous()
+        gm = (masses * G).contiguous()
+
+        def kernel():
+            mxu_kernel.gram_acc4(xi, xi, gm, cutoff=CUTOFF_RADIUS,
+                                 eps=config.eps)
+        work = n * (n - 1)
+    else:
+        side, cap = line["nlist_side"], line["nlist_cap"]
+        args = nlist_tiles(pos, masses, side, cap, line["nlist_rcut"])
+
+        def kernel():
+            nlist.pair_cells_kernel(*args, cutoff=CUTOFF_RADIUS,
+                                    eps=config.eps)
+        work = nlist.evaluated_pairs_per_eval(side, cap)
+    cuda_ms(kernel, 2)
+    ms = cuda_ms(kernel, 5)
+    return {"kernel_ms": ms, "work_per_launch": work,
+            "kernel_rate": work / (ms * 1e-3)}
+
+
+def phase_bench_path(device: dict) -> dict:
+    """``bench.main()`` in-process for ``direct``, ``pallas-mxu`` and
+    ``nlist`` at N = 262,144 (plummer, fp32, leapfrog, 3 warm-up and 20
+    timed steps): its one headline line each; each backend's kernel
+    launched exactly (warm-up + bench steps + the steps of the SM clock's
+    window after the timed one) x FORCE_EVALS_PER_STEP + 1 (the first
+    evaluation) times, with the clock sampled in that window; the nlist line labelled with the
+    dense-equivalent metric beside its evaluated-tile rate; and no rate
+    above 1.05x its own kernel's rate alone (:func:`bench_kernel_rate`),
+    which a timer that stopped early would give."""
+    import contextlib
+    import io
+
+    from gravity_tpu_torch import bench
+    from gravity_tpu_torch.ops.integrators import FORCE_EVALS_PER_STEP
+    from gravity_tpu_torch.utils.timing import pairs_metric_name
+
+    lines = {}
+    saved = {k: os.environ.get(k) for k in
+             ("BENCH_N", "BENCH_STEPS", "BENCH_BACKEND", "BENCH_DEVICE")}
+    try:
+        for backend, counter in BENCH_BACKENDS:
+            os.environ.update(BENCH_N=str(BENCH_N),
+                              BENCH_STEPS=str(BENCH_STEPS),
+                              BENCH_BACKEND=backend)
+            os.environ.pop("BENCH_DEVICE", None)
+            out = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stdout(out):
+                rc = bench.main()
+            counts = read_counts()
+            check(rc == 0, f"bench {backend}: exit code {rc}")
+            line = json.loads(out.getvalue().strip().splitlines()[-1])
+            want_launches = 1 + (BENCH_WARMUP + BENCH_STEPS
+                                 + line["sm_clock_steps"]) \
+                * FORCE_EVALS_PER_STEP["leapfrog"]
+            rate = bench_kernel_rate(backend, line)
+            bench_rate = (line["evaluated_pairs_per_sec_per_chip"]
+                          if backend == "nlist" else line["value"])
+            record = {"phase": "bench_path", "backend": backend,
+                      "line": line, "launches": counts[counter],
+                      "launches_expected": want_launches, "counts": counts,
+                      "bench_rate": bench_rate, **rate,
+                      "bench_over_kernel": bench_rate / rate["kernel_rate"],
+                      "slack": BENCH_RATE_SLACK,
+                      "nvidia_smi": device["nvidia_smi"]}
+            emit(record)
+            check(counts[counter] == want_launches,
+                  f"bench {backend}: {counts[counter]} launches of "
+                  f"{counter}, not {want_launches}")
+            check(line["n"] == BENCH_N and line["steps"] == BENCH_STEPS
+                  and line["platform"] == "cuda"
+                  and line["autotune_cache"] == "off"
+                  and line["sm_clock_samples"] > 0
+                  and line["sm_clock_steps"] >= BENCH_STEPS,
+                  f"bench {backend}: {line}")
+            check(bench_rate <= BENCH_RATE_SLACK * rate["kernel_rate"],
+                  f"bench {backend}: rate {bench_rate:.4g} above "
+                  f"{BENCH_RATE_SLACK}x its kernel's {rate['kernel_rate']:.4g}")
+            if backend == "nlist":
+                check(line["pairs_metric"] == pairs_metric_name("nlist")
+                      == "dense_equiv_pairs_per_sec"
+                      and line["evaluated_pairs_per_sec_per_chip"] > 0,
+                      f"bench nlist: labels {line}")
+            lines[backend] = record
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return lines
+
+
+# The counter of each candidate's kernel on a path (the tree's near field
+# at --tree-near nlist; the plain masked direct sum has none).
+CANDIDATE_COUNTER = {"pallas": "nbody_direct", "pallas-mxu": "nbody_mxu",
+                     "nlist": "nlist_pair", "tree": "nlist_pair/near"}
+
+
+def autotune_case(name: str, config, device: dict) -> dict:
+    """One configuration through plain ``auto``: the first Simulator a
+    miss that timed every eligible candidate (each > 0; fmm and sfmm
+    skipped as not ported, nothing skipped for an exception), routed to
+    the argmin; its run (the counts set to 0 just before) through the
+    winner's kernel; a second Simulator a hit that probes nothing."""
+    from gravity_tpu_torch import autotune
+    from gravity_tpu_torch.simulation import Simulator
+
+    eligible, why = autotune.eligible_candidates(config, True)
+    check(len(eligible) > 1, f"autotune {name}: {eligible} eligible")
+    t0 = time.perf_counter()
+    sim = Simulator(config)
+    build_s = time.perf_counter() - t0
+    d = sim.autotune_decision
+    check(d.cache == "miss",
+          f"autotune {name}: a {sim.autotune} decision with {eligible} "
+          "eligible")
+    check(set(d.timings_s) == set(eligible)
+          and all(t > 0 for t in d.timings_s.values()),
+          f"autotune {name}: timings {d.timings_s} for {eligible}")
+    check(set(d.skipped) == set(why) and not set(d.skipped) & set(eligible),
+          f"autotune {name}: skipped {d.skipped}")
+    if "tree" in eligible:
+        check(all(d.skipped[k] == autotune.NOT_PORTED[k]
+                  for k in ("fmm", "sfmm")),
+              f"autotune {name}: fmm/sfmm {d.skipped}")
+    winner = min(d.timings_s, key=d.timings_s.get)
+    check(d.backend == winner, f"autotune {name}: {d.backend}, not the "
+          f"argmin {winner} of {d.timings_s}")
+    counter = CANDIDATE_COUNTER[winner]
+    reset_counts()
+    stats = sim.run()
+    counts = read_counts()
+    check(stats["autotune_cache"] == "miss"
+          and stats["autotune_probe_ms"] > 0, f"autotune {name}: {stats}")
+    check(counts[counter] > 0, f"autotune {name}: the winner {winner}'s "
+          f"{counter} launched no time in the run: {counts}")
+    probes = autotune.probe_counters()
+    again = Simulator(config)
+    check(again.autotune == {"cache": "hit", "probe_ms": 0.0}
+          and autotune.probe_counters() == probes
+          and again.backend == sim.backend,
+          f"autotune {name}: second Simulator {again.autotune}")
+    record = {"phase": "autotune_path", "case": name, "n": config.n,
+              "winner": winner, "backend": sim.backend,
+              "timings_s": d.timings_s, "errors": d.errors,
+              "skipped": d.skipped, "probe_ms": d.probe_ms,
+              "simulator_s": build_s, "run_launches": counts[counter],
+              "counter": counter, "steps": stats["steps"],
+              "ms_per_step": 1e3 * stats["avg_step_s"],
+              "hit": again.autotune, "key_hash": d.key_hash,
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
+def phase_autotune_path(device: dict) -> dict:
+    """Plain ``auto`` through the autotuned router on the card, in a fresh
+    tuning cache: ``baseline-1m`` (``--tree-near nlist``: pallas,
+    pallas-mxu, tree), the README cell-list run (the rcut contest: nlist
+    against the masked direct sum) and ``baseline-16k`` (``--tree-near
+    nlist``), each cut to 3 steps, a miss then a hit
+    (:func:`autotune_case`); then ``tune --sizes 16384 65536`` twice in
+    processes of their own: one line a size, misses, then all hits."""
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
+
+    saved = os.environ.get("GRAVITY_TPU_TUNE_DIR")
+    cases = {}
+    with tempfile.TemporaryDirectory() as tune_dir:
+        os.environ["GRAVITY_TPU_TUNE_DIR"] = tune_dir
+        try:
+            for name, config in (
+                ("baseline-1m", dataclasses.replace(
+                    PRESETS["baseline-1m"], force_backend="auto",
+                    tree_near="nlist", steps=AUTOTUNE_STEPS)),
+                ("readme-nlist", SimulationConfig(**{
+                    **NLIST_RUN, "force_backend": "auto",
+                    "steps": AUTOTUNE_STEPS})),
+                ("baseline-16k", dataclasses.replace(
+                    PRESETS["baseline-16k"], force_backend="auto",
+                    tree_near="nlist", steps=AUTOTUNE_STEPS)),
+            ):
+                cases[name] = autotune_case(name, config, device)
+            env = dict(os.environ, PYTHONPATH=REPO)
+            calls = []
+            for _ in range(2):
+                proc = subprocess.run(
+                    [sys.executable, "-m", "gravity_tpu_torch", "tune",
+                     "--sizes", *map(str, TUNE_SIZES)],
+                    cwd=REPO, env=env, capture_output=True, text=True,
+                    timeout=600)
+                check(proc.returncode == 0,
+                      f"tune failed ({proc.returncode}): "
+                      f"{proc.stderr[-2000:]}")
+                calls.append([json.loads(x) for x in
+                              proc.stdout.strip().splitlines()])
+        finally:
+            if saved is None:
+                os.environ.pop("GRAVITY_TPU_TUNE_DIR", None)
+            else:
+                os.environ["GRAVITY_TPU_TUNE_DIR"] = saved
+    first, second = calls
+    emit({"phase": "autotune_path", "case": "tune", "sizes": TUNE_SIZES,
+          "first": first, "second": second,
+          "nvidia_smi": device["nvidia_smi"]})
+    check([x["n"] for x in first] == list(TUNE_SIZES)
+          and all(x["cache"] == "miss" and len(x["timings_s"]) > 1
+                  for x in first), f"tune: first call {first}")
+    check([x["n"] for x in second] == list(TUNE_SIZES)
+          and all(x["cache"] == "hit" and x["probe_steps"] == 0
+                  and x["backend"] == y["backend"]
+                  for x, y in zip(second, first)),
+          f"tune: second call {second}")
+    cases["tune"] = {"first": first, "second": second}
+    return cases
+
+
 def main() -> int:
     try:
         import torch
@@ -4303,6 +4608,15 @@ def main() -> int:
     # Plain-version references in full fp32 (guide: TF32 defaults).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # Every auto run of this script routes through a tuning cache of its
+    # own, empty at the start and removed at the end (subprocesses inherit
+    # it), never a cache left on the machine.
+    with tempfile.TemporaryDirectory() as tune_dir:
+        os.environ["GRAVITY_TPU_TUNE_DIR"] = tune_dir
+        return run_phases(torch)
+
+
+def run_phases(torch) -> int:
     t0 = time.perf_counter()
     device = phase_device()
     build = phase_build()
@@ -4336,6 +4650,8 @@ def main() -> int:
     tree_bf16 = phase_tree_bf16_path(device)
     phase_small_reference()
     phase_other_entry_points()
+    bench_path = phase_bench_path(device)
+    autotune_path = phase_autotune_path(device)
     timing = phase_timing(device, build)
     t_nlist = phase_timing_nlist(device, build)
     t_mxu = phase_timing_mxu(device, build)
@@ -4380,7 +4696,11 @@ def main() -> int:
               profile_bf16["segment_sum_kernels_ms_per_eval"],
           "bf16_tree_segment_sum_share_of_step":
               profile_bf16["segment_sum_kernels_ms_per_eval"]
-              / tree_bf16["ms_per_step"]})
+              / tree_bf16["ms_per_step"],
+          "bench_pairs_per_sec": {k: v["line"]["value"]
+                                  for k, v in bench_path.items()},
+          "autotune_winners": {k: v["winner"] for k, v in
+                               autotune_path.items() if k != "tune"}})
     kernels = [
         ("nbody_direct", "gravity_tpu/ops/pallas_forces.py:45",
          main_path["launches"], max_abs_err, timing),

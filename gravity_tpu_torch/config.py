@@ -64,7 +64,6 @@ _UNPORTED_BACKENDS = {
 # carry: (the JAX default, which means "feature off", and the ROADMAP item
 # that ports the feature). A JSON config may name them only at that value.
 _NOT_PORTED = {
-    "autotune": (True, f"{_QUEUE} 8"),
     "fmm_mode": ("auto", f"{_QUEUE} 7"),
     "nlist_mesh": ("auto", f"{_QUEUE} 5 (halo)"),
     "nlist_mig_cap": (0, f"{_QUEUE} 5 (halo)"),
@@ -120,14 +119,19 @@ class SimulationConfig:
     # k // 8^(r-1); multirate_sub is then unused.
     multirate_rungs: int = 2
     dtype: str = "float32"  # float32 | float64 | bfloat16
-    # auto | direct | pallas: the CUDA direct-sum kernel on the card,
-    # dense/chunked plain PyTorch on the CPU (simulation._resolve_backend).
+    # auto: the measured-fastest eligible backend (autotune.py); direct |
+    # pallas: the CUDA direct-sum kernel on the card, dense/chunked plain
+    # PyTorch on the CPU (simulation._resolve_direct).
     # dense | chunked: the plain PyTorch direct sum on any device.
-    # pallas-mxu: the Gram-form CUDA kernel, explicit opt-in only.
+    # pallas-mxu: the Gram-form CUDA kernel.
     # nlist: the cutoff-radius cell list; needs nlist_rcut > 0.
     # p3m: the P3M solver (mesh + cell-list near field), explicit only.
-    # tree: the octree (ops/tree.py), explicit only.
+    # tree: the octree (ops/tree.py).
     force_backend: str = "auto"
+    # With force_backend="auto": route by measurement (autotune.py, a
+    # probe of the eligible candidates, kept in an on-disk cache); False
+    # keeps the static route.
+    autotune: bool = True
     chunk: int = 1024  # i-chunk of the chunked plain direct sum
     # Declared truncation radius (m): with nlist_rcut > 0 forces are
     # truncated at r > nlist_rcut (short-range physics), and auto/direct

@@ -11,9 +11,12 @@
 //
 //   out[s, c] = ((+0 + v[i0, c]) + v[i1, c]) + ..., each add rounded,
 //
-// over the rows i0 < i1 < ... whose id is s, in element order. So a
-// segment of ones stalls at 256, as in the JAX package. A NaN total is
-// written as 0x7fc0, the bits the CPU's bf16 rounding gives every NaN.
+// over the rows i0 < i1 < ... whose id is s, in element order, with the
+// JAX package's flush: XLA's CPU sums read a subnormal input, and a sum
+// below the least normal 2^-126 before it is rounded, as zero of the
+// same sign. So a segment of ones stalls at 256, as in the JAX package.
+// A NaN total is written as 0x7fc0, the bits the CPU's bf16 rounding
+// gives every NaN.
 // The wrapper hands the rows already gathered in segment order and
 // column-major, (cols, stride) with each column contiguous (a stable sort
 // of the ids, which keeps element order inside a segment), and each
@@ -45,11 +48,32 @@
 //   The chunks at the segment's two ends are read whole and their rows
 //   outside the segment replaced by -0.0, which adds nothing (x + -0 = x
 //   for every x, +0 + -0 = +0), so every add is unconditional.
-// - Two grids, one launch call: segments of fewer than kLongRows rows take
-//   a thread each with a ring of kShortRing chunks, few registers and a
-//   full card of threads (the leaf level of an octree: 2,097,152 cells,
-//   most of them empty); a segment of at least kLongRows rows is taken by
-//   the long grid, one thread a column with a ring of kLongRing chunks
+// - The flush costs the chain nothing. Call a row tiny when it is nonzero
+//   and its biased exponent is below 8 (|x| < 2^-119). Without a tiny
+//   row, every input is 0 or a multiple of 2^-126, so is every partial
+//   sum rounded to bf16 (below 2^-118 such a sum has at most 8
+//   significant bits and is exact), and no nonzero one is below 2^-126:
+//   neither flush can fire, and the plain add.rn.bf16 chain gives the
+//   flushed bits. So the chain stays as it is, and a (segment, column)
+//   with a tiny row takes the flushing chain instead: an fp32 add.ftz,
+//   which flushes both ways, rounded to bf16. Such segments are rare: no
+//   model makes masses 2^-119 below the largest. The rows are tested by a
+//   pass of their own before the sums (a thread a column's kFlagRows
+//   rows, 4 integer ops a word, one flag byte a block of rows), since a
+//   test inside the chain's thread put its ~2 instructions a row into
+//   that one warp's in-order issue beside the add (the 1M disk's level-0
+//   sum took 4.10 ms against 2.95 on an H100 80GB HBM3 at 700 W, and
+//   2.98 with the pass, PERF.md); a thread then reads the flag
+//   bytes of its segment's blocks, 16 at a time (4,096 rows a load),
+//   before its chain. A tiny row flags its whole block and the bytes
+//   beside it in one load, so a neighbouring segment may take the
+//   flushing chain too, which gives the same bits.
+// - Two grids after the flags' pass, one launch call: segments of fewer
+//   than kLongRows rows take a thread each with a ring of kShortRing
+//   chunks, few registers and a full card of threads (the leaf level of
+//   an octree: 2,097,152 cells, most of them empty); a segment of at
+//   least kLongRows rows is taken by the long grid, one thread a column
+//   with a ring of kLongRing chunks
 //   (256 rows, ~1,250 cycles of the chain: a trip to HBM). The long grid
 //   has a thread for every kLongRows-th row; the one whose row is the
 //   first such row of its segment (found by binary search in the starts)
@@ -66,6 +90,7 @@ constexpr int kMaxCols = 8;
 constexpr int kLongRows = 256;  // a segment this long goes to the long grid
 constexpr int kShortRing = 4;   // 16-byte chunks in flight, short segments
 constexpr int kLongRing = 32;   // and long ones
+constexpr int kFlagRows = 256;  // rows a tiny flag covers
 constexpr uint32_t kNegZero = 0x8000u;
 constexpr uint16_t kNaN = 0x7fc0u;
 
@@ -75,19 +100,50 @@ __device__ __forceinline__ uint16_t add_bf16(uint16_t a, uint16_t b) {
   return d;
 }
 
+// The add under the JAX package's flush: add.ftz.f32 reads a subnormal
+// input as zero and writes a subnormal sum as zero, each of its sign; the
+// fp32 sum of two bf16 values rounded to bf16 is their exact sum rounded
+// once (tests/test_torch_bf16_rounding.py).
+__device__ __forceinline__ uint16_t add_bf16_flush(uint16_t a, uint16_t b) {
+  const float fa = __uint_as_float(static_cast<uint32_t>(a) << 16);
+  const float fb = __uint_as_float(static_cast<uint32_t>(b) << 16);
+  float sum;
+  asm("add.rn.ftz.f32 %0, %1, %2;" : "=f"(sum) : "f"(fa), "f"(fb));
+  uint16_t d;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(d) : "f"(sum));
+  return d;
+}
+
 // The two rows of a 32-bit word, the lower address first.
+template <bool FLUSH>
 __device__ __forceinline__ uint16_t add_word(uint16_t acc, uint32_t w) {
   uint16_t lo, hi;
   asm("mov.b32 {%0, %1}, %2;" : "=h"(lo), "=h"(hi) : "r"(w));
+  if (FLUSH) return add_bf16_flush(add_bf16_flush(acc, lo), hi);
   return add_bf16(add_bf16(acc, lo), hi);
 }
 
+template <bool FLUSH>
 __device__ __forceinline__ uint16_t add_chunk(uint16_t acc, uint4 v) {
-  acc = add_word(acc, v.x);
-  acc = add_word(acc, v.y);
-  acc = add_word(acc, v.z);
-  return add_word(acc, v.w);
+  acc = add_word<FLUSH>(acc, v.x);
+  acc = add_word<FLUSH>(acc, v.y);
+  acc = add_word<FLUSH>(acc, v.z);
+  return add_word<FLUSH>(acc, v.w);
 }
+
+// Bit 15 (31) set when the lower (upper) row of a word is tiny: its
+// magnitude h, 15 bits, is at least 1 (h + 0x7fff carries into bit 15)
+// and below 0x0400 (h + 0x7c00 does not). No carry crosses a half.
+__device__ __forceinline__ uint32_t tiny_rows(uint32_t w) {
+  const uint32_t h = w & 0x7fff7fffu;
+  return (h + 0x7fff7fffu) & ~(h + 0x7c007c00u);
+}
+
+__device__ __forceinline__ uint32_t tiny_rows(uint4 v) {
+  return tiny_rows(v.x) | tiny_rows(v.y) | tiny_rows(v.z) | tiny_rows(v.w);
+}
+
+constexpr uint32_t kTinyBits = 0x80008000u;
 
 // The chunk's rows e outside [first, end) replaced by -0.0.
 __device__ __forceinline__ uint4 keep(uint4 v, int first, int end) {
@@ -102,10 +158,15 @@ __device__ __forceinline__ uint4 keep(uint4 v, int first, int end) {
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
+__device__ __forceinline__ uint16_t finish(uint16_t acc) {
+  return (acc & 0x7fffu) > 0x7f80u ? kNaN : acc;
+}
+
 // One column's chain over rows [lo, hi): chunks k0 = lo / 8 up to
 // ceil(hi / 8), the first and the last masked, the rest through a ring of
-// RING chunks loaded RING chunks ahead of their adds.
-template <int RING>
+// RING chunks loaded RING chunks ahead of their adds; FLUSH, the adds
+// under the flush.
+template <int RING, bool FLUSH>
 __device__ __forceinline__ uint16_t chain(const uint4* __restrict__ col,
                                           int64_t lo, int64_t hi) {
   uint16_t acc = 0;  // +0
@@ -122,33 +183,78 @@ __device__ __forceinline__ uint16_t chain(const uint4* __restrict__ col,
     if (j < nb) ring[j] = __ldg(body + j);
   }
   const int head_end = static_cast<int>(hi - 8 * k0 < 8 ? hi - 8 * k0 : 8);
-  acc = add_chunk(acc, keep(head, static_cast<int>(lo - 8 * k0), head_end));
+  acc = add_chunk<FLUSH>(
+      acc, keep(head, static_cast<int>(lo - 8 * k0), head_end));
   int64_t k = 0;
   for (; k + RING <= nb; k += RING) {
 #pragma unroll
     for (int j = 0; j < RING; ++j) {
       const uint4 v = ring[j];
       if (k + RING + j < nb) ring[j] = __ldg(body + k + RING + j);
-      acc = add_chunk(acc, v);
+      acc = add_chunk<FLUSH>(acc, v);
     }
   }
 #pragma unroll
   for (int j = 0; j < RING; ++j) {
-    if (k + j < nb) acc = add_chunk(acc, ring[j]);
+    if (k + j < nb) acc = add_chunk<FLUSH>(acc, ring[j]);
   }
   if (k1 - k0 > 1) {
-    acc = add_chunk(acc, keep(tail, 0, static_cast<int>(hi - 8 * (k1 - 1))));
+    acc = add_chunk<FLUSH>(
+        acc, keep(tail, 0, static_cast<int>(hi - 8 * (k1 - 1))));
   }
   return acc;
-}
-
-__device__ __forceinline__ uint16_t finish(uint16_t acc) {
-  return (acc & 0x7fffu) > 0x7f80u ? kNaN : acc;
 }
 
 __device__ __forceinline__ const uint4* column(const uint16_t* rows,
                                                int64_t stride, int c) {
   return reinterpret_cast<const uint4*>(rows + c * stride);
+}
+
+// A (segment, column)'s total over rows [lo, hi): the add.rn.bf16 chain,
+// or the flushing chain (its short ring: such segments are rare) where a
+// flag of the segment's blocks is set. ``flags``: this column's flag
+// bytes, 16-byte aligned, read 16 at a time.
+template <int RING>
+__device__ __forceinline__ uint16_t total(const uint4* __restrict__ col,
+                                          const uint8_t* __restrict__ flags,
+                                          int64_t lo, int64_t hi) {
+  uint32_t tiny = 0;
+  if (lo < hi) {
+    const auto* groups = reinterpret_cast<const uint4*>(flags);
+    const int64_t q1 = (hi - 1) / (16 * kFlagRows);
+#pragma unroll 16
+    for (int64_t q = lo / (16 * kFlagRows); q <= q1; ++q) {
+      const uint4 v = __ldg(groups + q);
+      tiny |= v.x | v.y | v.z | v.w;
+    }
+  }
+  return finish(tiny ? chain<kShortRing, true>(col, lo, hi)
+                     : chain<RING, false>(col, lo, hi));
+}
+
+// Thread t: flag byte b = t % fpitch of column c = t / fpitch, a multiple
+// of 16 bytes a column. Below fblocks it covers rows [b * kFlagRows,
+// min((b + 1) * kFlagRows, n_rows)), rounded up to whole chunks (the rows
+// past n_rows that this reads are the plan's padding: at worst they flag a
+// block for nothing), and is 1 where one of them is tiny; the pitch's
+// padding is 0.
+__global__ void __launch_bounds__(kThreads)
+    tiny_flags_kernel(const uint16_t* __restrict__ rows, int64_t stride,
+                      int64_t n_rows, int64_t fblocks, int64_t fpitch,
+                      int cols, uint8_t* __restrict__ flags) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= fpitch * cols) return;
+  const int c = static_cast<int>(t / fpitch);
+  const int64_t b = t - c * fpitch;
+  const int64_t r1 = (b + 1) * kFlagRows < n_rows ? (b + 1) * kFlagRows
+                                                  : n_rows;
+  const uint4* col = column(rows, stride, c);
+  uint32_t tiny = 0;
+#pragma unroll 8
+  for (int64_t k = b * (kFlagRows / 8); k < (r1 + 7) >> 3; ++k) {
+    tiny |= tiny_rows(__ldg(col + k));
+  }
+  flags[t] = (tiny & kTinyBits) != 0;
 }
 
 // Thread t: segment t / cols, column t % cols, for a segment of fewer than
@@ -157,7 +263,8 @@ __global__ void __launch_bounds__(kThreads)
     segment_sum_short_kernel(const uint16_t* __restrict__ rows,
                              int64_t stride,
                              const int64_t* __restrict__ starts, int64_t n,
-                             int cols, uint16_t* __restrict__ out) {
+                             int cols, const uint8_t* __restrict__ flags,
+                             int64_t fpitch, uint16_t* __restrict__ out) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= n * cols) return;
   const int64_t s = t / cols;
@@ -165,7 +272,8 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t lo = starts[s];
   const int64_t hi = starts[s + 1];
   if (hi - lo >= kLongRows) return;  // the long grid's
-  out[t] = finish(chain<kShortRing>(column(rows, stride, c), lo, hi));
+  out[t] = total<kShortRing>(column(rows, stride, c), flags + c * fpitch,
+                             lo, hi);
 }
 
 // Thread t: row r = b * kLongRows for b = t / cols, column t % cols. It
@@ -176,7 +284,8 @@ __global__ void __launch_bounds__(kThreads)
                             int64_t stride,
                             const int64_t* __restrict__ starts, int64_t n,
                             int64_t blocks, int cols,
-                            uint16_t* __restrict__ out) {
+                            const uint8_t* __restrict__ flags,
+                            int64_t fpitch, uint16_t* __restrict__ out) {
   const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (t >= blocks * cols) return;
   const int64_t b = t / cols;
@@ -194,8 +303,8 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t lo = starts[first];
   const int64_t hi = starts[first + 1];
   if (r < lo || r >= hi || hi - lo < kLongRows || r - lo >= kLongRows) return;
-  out[first * cols + c] =
-      finish(chain<kLongRing>(column(rows, stride, c), lo, hi));
+  out[first * cols + c] = total<kLongRing>(column(rows, stride, c),
+                                          flags + c * fpitch, lo, hi);
 }
 
 }  // namespace
@@ -205,31 +314,47 @@ __global__ void __launch_bounds__(kThreads)
 // order, 16-byte aligned, stride a multiple of 8 and at least n_rows (rows
 // past n_rows are read at a segment's last chunk but never added); starts
 // (n + 1,) int64, non-decreasing, starts[n] <= n_rows; out (n, cols) bf16;
-// 1 <= cols <= 8. Launches the short grid, then the long one, on
-// ``stream``. Returns the first nonzero cudaGetLastError() of the two
+// 1 <= cols <= 8; flags (cols * fpitch,) bytes of scratch, 16-byte
+// aligned, fpitch = ceil(n_rows / 256) rounded up to a multiple of 16.
+// Launches the tiny flags' pass, the short grid, then the long one, on
+// ``stream``. Returns the first nonzero cudaGetLastError() of the
 // launches as an int (cudaErrorInvalidValue for arguments out of range).
 extern "C" int segment_sum_bf16(const void* rows, int64_t stride,
                                 int64_t n_rows, const void* starts,
-                                int64_t n, int cols, void* out,
+                                int64_t n, int cols, void* out, void* flags,
                                 void* stream) {
   if (n <= 0) return 0;
   if (cols < 1 || cols > kMaxCols || stride % 8 != 0 || stride < n_rows ||
-      reinterpret_cast<uintptr_t>(rows) % 16 != 0) {
+      n_rows < 0 || reinterpret_cast<uintptr_t>(rows) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* r = static_cast<const uint16_t*>(rows);
   const auto* st = static_cast<const int64_t*>(starts);
   auto* o = static_cast<uint16_t*>(out);
+  auto* f = static_cast<uint8_t*>(flags);
+  const int64_t fblocks = (n_rows + kFlagRows - 1) / kFlagRows;
+  const int64_t fpitch = (fblocks + 15) / 16 * 16;
+  if (reinterpret_cast<uintptr_t>(flags) % 16 != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSuccess;
+  if (fpitch > 0) {
+    tiny_flags_kernel<<<
+        static_cast<unsigned>((fpitch * cols + kThreads - 1) / kThreads),
+        kThreads, 0, s>>>(r, stride, n_rows, fblocks, fpitch, cols, f);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   segment_sum_short_kernel<<<
       static_cast<unsigned>((n * cols + kThreads - 1) / kThreads),
-      kThreads, 0, s>>>(r, stride, st, n, cols, o);
-  cudaError_t err = cudaGetLastError();
+      kThreads, 0, s>>>(r, stride, st, n, cols, f, fpitch, o);
+  err = cudaGetLastError();
   if (err != cudaSuccess || n_rows < kLongRows) return static_cast<int>(err);
   const int64_t blocks = (n_rows + kLongRows - 1) / kLongRows;
   segment_sum_long_kernel<<<
       static_cast<unsigned>((blocks * cols + kThreads - 1) / kThreads),
-      kThreads, 0, s>>>(r, stride, st, n, blocks, cols, o);
+      kThreads, 0, s>>>(r, stride, st, n, blocks, cols, f, fpitch, o);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,6 +30,7 @@ __all__ = [
     "build_padded_cells_indexed",
     "cell_ids",
     "grid_coords",
+    "is_tiny",
     "map_target_chunks",
     "Segments",
     "segment_sum",
@@ -79,26 +80,86 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor,
     return out.index_add_(0, ids, values)
 
 
+# A bf16 row is tiny when it is nonzero and its biased exponent is below
+# 8: |x| < 2^-119, a magnitude's bits below 0x0400. Only a segment with a
+# tiny row can differ under the JAX package's flush (csrc/segment_sum.cu).
+_TINY_BITS = 0x0400
+_LEAST_NORMAL = 2.0**-126
+
+
+def is_tiny(values: torch.Tensor) -> torch.Tensor:
+    """Where bf16 ``values`` are tiny: nonzero and below 2^-119."""
+    magnitude = values.view(torch.int16).to(torch.int32) & 0x7FFF
+    return (magnitude != 0) & (magnitude < _TINY_BITS)
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal values read as zero of their sign, as XLA's CPU sums
+    read them."""
+    return torch.where(x.abs() < _LEAST_NORMAL, x * 0, x)
+
+
+def _flushed_add(acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """bf16 ``acc + x`` under the flush: the fp32 sum of the flushed
+    ``x``, flushed, rounded to bf16 (``acc`` is never subnormal)."""
+    return _flush(acc.float() + _flush(x.float())).to(acc.dtype)
+
+
+def _flushed_chain(col: torch.Tensor) -> torch.Tensor:
+    """The element-order bf16 sum of the 1-D ``col`` under the flush: each
+    input and each fp32 sum flushed, then rounded to bf16. Adds one at a
+    time at a tiny row and while the total is tiny; between them
+    ``index_add_`` takes the stretch, whose flushed and unflushed bits are
+    the same (the argument of csrc/segment_sum.cu)."""
+    acc = col.new_zeros(1)
+    n = col.shape[0]
+    i = 0
+    for stop in torch.nonzero(is_tiny(col)).flatten().tolist() + [n]:
+        while i < stop:
+            if bool(is_tiny(acc)):
+                acc = _flushed_add(acc, col[i:i + 1])
+                i += 1
+            else:
+                acc.index_add_(0, acc.new_zeros(stop - i, dtype=torch.int64),
+                               col[i:stop])
+                i = stop
+        if i < n:
+            acc = _flushed_add(acc, col[i:i + 1])
+            i += 1
+    return acc[0]
+
+
+def _flush_tiny_segments(out: torch.Tensor, values: torch.Tensor,
+                         ids: torch.Tensor) -> torch.Tensor:
+    """``out`` (n,), the ``index_add_`` sums of the 1-D ``values`` by
+    ``ids``, with each segment that holds a tiny row summed again under
+    the flush."""
+    tiny = is_tiny(values)
+    if bool(tiny.any()):
+        for s in torch.unique(ids[tiny]).tolist():
+            out[s] = _flushed_chain(values[ids == s])
+    return out
+
+
 def segment_sum_bf16_plain(values: torch.Tensor, ids: torch.Tensor,
                            n: int) -> torch.Tensor:
     """The bf16 segment sum of the JAX package's scatter-add on the CPU:
     rounded to bf16 after every add, in element order, so a segment of
     ones stalls at 256 (256 + 1 rounds back to 256) and a cell total of
-    more bodies comes out short in both packages. torch's ``index_add_``
-    on the CPU adds a 1-D source in element order but the rows of a 2-D
-    one in another, so the sum is taken column by column. The plain
-    version of :func:`segment_sum_bf16`'s kernel.
-
-    Unlike the JAX package's CPU sums, which flush subnormal inputs and
-    results to zero, this one keeps bf16 subnormals, as the kernel does
-    (``tests/test_torch_segment_sum.py``)."""
+    more bodies comes out short in both packages; a subnormal input, and
+    a sum below 2^-126 before it is rounded, read as zero of its sign, as
+    XLA's CPU sums flush them. torch's ``index_add_`` on the CPU adds a
+    1-D source in element order but the rows of a 2-D one in another, so
+    the sum is taken column by column; a segment with a tiny row is summed
+    again under the flush. The plain version of :func:`segment_sum_bf16`'s
+    kernel."""
     if values.dim() > 1:
         cols = values.reshape(values.shape[0], -1).unbind(1)
         out = torch.stack([segment_sum_bf16_plain(c.contiguous(), ids, n)
                            for c in cols], dim=1)
         return out.reshape(n, *values.shape[1:])
     out = torch.zeros(n, dtype=values.dtype, device=values.device)
-    return out.index_add_(0, ids, values)
+    return _flush_tiny_segments(out.index_add_(0, ids, values), values, ids)
 
 
 # Kernel launches of segment_sum_rows so far (only where it launches).
@@ -106,11 +167,14 @@ LAUNCHES = 0
 LIBRARY = cuda_build.CudaLibrary("segment_sum", {
     "segment_sum_bf16": ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                           ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                          ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p],
+                         ctypes.c_int),
 })
 _MAX_COLS = 8
 # The kernel reads a column in 16-byte chunks of 8 rows.
 _CHUNK_ROWS = 8
+# Rows a flag byte of the kernel's tiny-row pass covers (kFlagRows).
+_FLAG_ROWS = 256
 
 
 class Segments:
@@ -205,7 +269,8 @@ def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
     the segments that ``starts`` (n + 1,) bounds, into (n, cols), each
     column one chain of bf16 adds in row order. CPU tensors take the plain
     version (``index_add_`` column by column over the rows in this order,
-    which is element order inside a segment); CUDA tensors launch the
+    which is element order inside a segment, with the flush); CUDA
+    tensors launch the
     kernel on the current stream, without synchronising, or raise."""
     global LAUNCHES
     cols, stride = rows.shape
@@ -221,9 +286,9 @@ def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
     if rows.device.type == "cpu" and starts.device.type == "cpu":
         lo, hi = int(starts[0]), int(starts[-1])
         seg = torch.repeat_interleave(torch.arange(n), starts.diff())
-        return torch.stack([
-            torch.zeros(n, dtype=rows.dtype).index_add_(0, seg, col[lo:hi])
-            for col in rows], dim=1)
+        return torch.stack([_flush_tiny_segments(
+            torch.zeros(n, dtype=rows.dtype).index_add_(0, seg, col[lo:hi]),
+            col[lo:hi], seg) for col in rows], dim=1)
     if rows.device.type != "cuda" or starts.device != rows.device:
         raise ValueError("the CUDA kernel needs rows and starts on one CUDA "
                          f"device, got {rows.device} and {starts.device}")
@@ -232,11 +297,15 @@ def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
     out = torch.empty((n, cols), dtype=rows.dtype, device=rows.device)
     if n == 0:
         return out
+    # the kernel's tiny-row flags: a byte a block of rows, the column's
+    # bytes padded to a multiple of 16
+    flags = torch.empty(cols * -(-n_rows // (16 * _FLAG_ROWS)) * 16,
+                        dtype=torch.uint8, device=rows.device)
     lib = LIBRARY.load()
     with torch.cuda.device(rows.device):
         status = lib.segment_sum_bf16(
             rows.data_ptr(), stride, n_rows, starts.data_ptr(), n, cols,
-            out.data_ptr(),
+            out.data_ptr(), flags.data_ptr(),
             torch.cuda.current_stream(rows.device).cuda_stream)
     LIBRARY.check(status)
     LAUNCHES += 1
@@ -249,7 +318,7 @@ def segment_sum_bf16(values: torch.Tensor, ids: torch.Tensor,
     8 columns: ``Segments(ids, n).sum(values)``. CPU tensors take the plain
     version; CUDA tensors launch ``csrc/segment_sum.cu`` once or raise.
     Unlike ``index_add_``'s bf16 atomics on the card, this gives the JAX
-    package's CPU bits (bar its flushed subnormals), the same on every
+    package's CPU bits, flushed subnormals included, the same on every
     run."""
     if values.dtype != torch.bfloat16:
         raise TypeError(f"a bf16 segment sum takes bfloat16 values, not "

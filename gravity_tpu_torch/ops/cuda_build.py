@@ -16,6 +16,7 @@ flushing it would drop the pair).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -46,6 +47,19 @@ def nvcc() -> str:
     return found
 
 
+@functools.lru_cache(maxsize=1)
+def nvcc_version() -> str:
+    """The release line of the ``nvcc`` that builds the kernels (``nvcc
+    --version``'s last line), or ``"none"`` where there is none."""
+    try:
+        out = subprocess.run([nvcc(), "--version"], capture_output=True,
+                             text=True, timeout=60, check=True).stdout
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return "none"
+    lines = out.strip().splitlines()
+    return lines[-1] if lines else "unknown"
+
+
 class CudaLibrary:
     """One kernel source, its built library and its ctypes binding.
 
@@ -67,12 +81,16 @@ class CudaLibrary:
         self.info: dict = {}
         self._lib = None
 
-    def library_path(self) -> str:
+    def digest(self) -> str:
+        """A hash of the source and the flags: it names the built library,
+        and it keys what was measured with it (``autotune.versions``)."""
         with open(self.source, "rb") as f:
-            digest = hashlib.sha256(
+            return hashlib.sha256(
                 f.read() + " ".join(NVCC_FLAGS).encode()
             ).hexdigest()[:16]
-        return os.path.join(BUILD_DIR, f"lib{self.name}_{digest}.so")
+
+    def library_path(self) -> str:
+        return os.path.join(BUILD_DIR, f"lib{self.name}_{self.digest()}.so")
 
     def _start(self):
         """Start ``nvcc`` unless the library is built; returns the

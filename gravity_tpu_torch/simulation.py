@@ -20,6 +20,7 @@ steps with one host read a block).
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 import time
@@ -29,6 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import autotune
 from .config import NotPortedError, SimulationConfig
 from .interop import to_numpy
 from .models import create_model
@@ -101,46 +103,71 @@ def resolve_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
-def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
-    """Resolve ``force_backend`` to the function that computes forces.
+def _resolve_direct(config: SimulationConfig, on_card: bool) -> str:
+    """The exact direct sum of the static route, by its force_backend
+    name: with ``nlist_rcut`` > 0 (declared truncated physics) the
+    rcut-masked plain sum on any device, dense up to ``DENSE_MAX_N`` and
+    chunked above; otherwise ``pallas``, the CUDA kernel, on the card at
+    every N (the JAX package's n >= 1024 threshold is a TPU measurement
+    and is not adopted), and the plain sum on the CPU."""
+    plain = "dense" if config.n <= DENSE_MAX_N else "chunked"
+    if config.nlist_rcut > 0.0 or not on_card:
+        return plain
+    return "pallas"
 
-    ``nlist_rcut`` > 0 declares truncated physics: ``auto`` and ``direct``
-    then take the rcut-masked plain direct sum (dense up to
-    ``DENSE_MAX_N``, chunked above) on any device, never a full-gravity
-    kernel; an explicit full-gravity backend warns, and ``nlist`` is the
-    cell list. Otherwise ``auto``, ``direct`` and ``pallas`` take the
-    CUDA direct-sum kernel on the card, at every N (the JAX package's
-    n >= 1024 threshold is a TPU measurement and is not adopted). On the
-    CPU, ``auto`` and ``direct`` take the plain version, dense or chunked;
-    an explicit ``pallas`` or ``pallas-mxu`` keeps the kernel's wrapper,
-    which runs the plain version for CPU tensors. ``pallas-mxu``, ``p3m``
-    and ``tree`` are explicit opt-ins only. ``dense`` and ``chunked`` are the
-    plain version on any device. ``auto`` does not route to the fast
-    solvers: that is the autotuned router (ROADMAP Queue 1 item 8).
+
+def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
+    """Resolve ``force_backend`` statically to the function that computes
+    forces.
+
+    ``auto`` and ``direct`` take :func:`_resolve_direct`'s exact direct
+    sum; with ``nlist_rcut`` > 0 an explicit full-gravity backend warns,
+    and ``nlist`` is the cell list. ``pallas`` and ``pallas-mxu`` name the
+    CUDA kernels, whose wrappers run the plain version for CPU tensors;
+    ``dense`` and ``chunked`` are the plain version on any device;
+    ``nlist``, ``p3m`` and ``tree`` are themselves. A Simulator's plain
+    ``auto`` asks the autotuner first (:func:`_resolve_backend_for_run`),
+    which may route to the Gram form, the cell list or the octree.
     A bf16 state takes the same route: the kernels' bf16 forms, the cell
     list's and the octree's near field through ``nlist_pair``'s (the
     config refuses bf16 with ``p3m``, as the JAX package's mesh FFT does).
     """
     backend = config.force_backend
-    plain = "dense" if config.n <= DENSE_MAX_N else "chunked"
-    if config.nlist_rcut > 0.0:
-        if backend in ("auto", "direct"):
-            return plain
-        if backend not in ("nlist", "dense", "chunked"):
-            warnings.warn(
-                f"nlist_rcut={config.nlist_rcut:g} declares truncated "
-                f"short-range physics, but force_backend={backend!r} "
-                "computes FULL gravity and ignores it (only nlist/"
-                "dense/chunked honor the rcut mask)",
-                stacklevel=3,
-            )
-    if backend in ("dense", "chunked", "nlist", "p3m", "tree"):
-        return backend
+    if config.nlist_rcut > 0.0 and backend not in (
+            "auto", "direct", "nlist", "dense", "chunked"):
+        warnings.warn(
+            f"nlist_rcut={config.nlist_rcut:g} declares truncated "
+            f"short-range physics, but force_backend={backend!r} "
+            "computes FULL gravity and ignores it (only nlist/"
+            "dense/chunked honor the rcut mask)",
+            stacklevel=4,
+        )
+    if backend in ("auto", "direct"):
+        backend = _resolve_direct(config, device.type == "cuda")
     if backend == "pallas-mxu":
         return MXU_BACKEND
-    if backend == "pallas" or device.type == "cuda":
+    if backend == "pallas":
         return KERNEL_BACKEND
-    return plain
+    return backend
+
+
+def _resolve_backend_for_run(config: SimulationConfig, state,
+                             device: torch.device) -> tuple:
+    """(resolved backend, autotune decision) for a Simulator about to run.
+
+    Plain ``auto`` with ``autotune`` on consults the measured tuning cache
+    (``autotune.py``): at once on a hit, by a probe of the eligible
+    candidates on a miss. Everything else keeps the static route with an
+    ``off`` decision. A candidate's error once it runs propagates: routing
+    does not go on by another route that would hide a kernel (the JAX
+    package falls back to the static route on any error)."""
+    if config.force_backend != "auto" or not config.autotune:
+        return _resolve_backend(config, device), \
+            autotune.off(config.force_backend)
+    decision = autotune.resolve_backend_measured(config, state,
+                                                 device=device)
+    chosen = dataclasses.replace(config, force_backend=decision.backend)
+    return _resolve_backend(chosen, device), decision
 
 
 def _resolve_nlist_config(config: SimulationConfig, positions):
@@ -311,7 +338,11 @@ class Simulator:
             state = state.astype(self.dtype).to(self.device)
         self.state = state
         self.n_real = state.n
-        self.backend = _resolve_backend(config, self.device)
+        # Plain auto routes through the autotuner, which probes its
+        # candidates on this initial state; its verdict (cache, probe time,
+        # timings, errors, skips) is an "off" decision for other backends.
+        self.backend, self.autotune_decision = \
+            _resolve_backend_for_run(config, state, self.device)
         # As-run cell-list sizing (side, cap, pair-tile slots per force
         # evaluation), for nlist runs.
         self.nlist_sizing = None
@@ -379,6 +410,12 @@ class Simulator:
                 self._kick = lambda ti, sj, m: kick(ti, sj, m) + ext(ti)
             else:
                 self._kick = kick
+
+    @property
+    def autotune(self) -> dict:
+        """The routing facts of the run stats: ``{"cache", "probe_ms"}``."""
+        d = self.autotune_decision
+        return {"cache": d.cache, "probe_ms": round(d.probe_ms, 3)}
 
     def _self_accel(self, positions: torch.Tensor,
                     masses: torch.Tensor) -> torch.Tensor:
@@ -486,6 +523,25 @@ class Simulator:
                 frames.append(state.positions)
         return state, acc, frames
 
+    def initial_carry(self, state: Optional[ParticleState] = None):
+        """The first force evaluation of ``state`` (the run's by default):
+        the ``acc`` of the ``(state, acc)`` carry, after the step-invariant
+        set-up (P3M's kernel transform)."""
+        state = self.state if state is None else state
+        self._setup_accel()
+        return self.accel(state.positions, state.masses)
+
+    def run_block(self, state: ParticleState, acc: torch.Tensor, *,
+                  n_steps: int):
+        """``n_steps`` steps from ``(state, acc)`` with no logger, frames,
+        divergence check or fence: the block ``bench`` and the autotuner's
+        probe time (the JAX package's ``_run_block(..., record=False)``).
+        Returns the new ``(state, acc)``; the caller synchronises."""
+        state, acc, _ = self._block_fn(state, acc,
+                                       self._step_fn(state.masses),
+                                       n_steps=n_steps)
+        return state, acc
+
     def _launch_count(self):
         count = _LAUNCH_COUNTS.get(self.backend, lambda dtype: 0)
         return lambda: count(self.dtype)
@@ -530,10 +586,9 @@ class Simulator:
         step_fn = self._step_fn(state.masses)
         count = self._launch_count()
         launches0 = count()
-        self._setup_accel()
         # The first force evaluation loads (and, once per source, builds)
         # the kernel; it stays outside the timed loop.
-        acc = self.accel(state.positions, state.masses)
+        acc = self.initial_carry(state)
         sync(self.device)
         t0 = time.perf_counter()
         step = 0
@@ -637,6 +692,7 @@ class Simulator:
             "device": device_name(self.device),
             "dtype": self.config.dtype,
             "kernel_launches": launches,
+            **{f"autotune_{k}": v for k, v in self.autotune.items()},
         }
         if self.config.integrator == "multirate":
             k, capacities = self._multirate_plan()
@@ -721,8 +777,7 @@ class Simulator:
 
         count = self._launch_count()
         launches0 = count()
-        self._setup_accel()
-        acc = accel_fn(state.positions)
+        acc = self.initial_carry(state)
         sync(self.device)
         t0_wall = time.perf_counter()
         t, comp = 0.0, 0.0

@@ -30,9 +30,12 @@ pytestmark = pytest.mark.gpu
 
 
 @pytest.fixture
-def cuda():
+def cuda(tmp_path, monkeypatch):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU form)")
+    # These tests run without tests/conftest.py: a tuning cache of the
+    # test's own, never one left on the machine.
+    monkeypatch.setenv("GRAVITY_TPU_TUNE_DIR", str(tmp_path / "tuning"))
     return torch.device("cuda", 0)
 
 
@@ -82,7 +85,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 def test_simulator_runs_through_the_kernel(cuda):
-    cfg = SimulationConfig(n=300, steps=10, progress_every=5)
+    # direct, not auto: plain auto routes by a probe of nbody_direct
+    # against nbody_mxu, whose winner at N = 300 is not this test's
+    cfg = SimulationConfig(n=300, steps=10, progress_every=5,
+                           force_backend="direct")
     sim = Simulator(cfg)
     before = direct_kernel.LAUNCHES
     stats = sim.run()
@@ -720,6 +726,30 @@ def _bits(t):
     return t.cpu().contiguous().view(torch.int16)
 
 
+def _cancelling(gen, rows, cols):
+    """bf16 pairs +m 2^-126, -(m +- 1) 2^-126, m in [129, 254]: no tiny row
+    (nonzero, below 2^-119), partial sums that land on 2^-126."""
+    m = torch.randint(129, 255, (rows // 2, cols), generator=gen).float()
+    step = torch.randint(0, 2, (rows // 2, cols), generator=gen) * 2.0 - 1.0
+    pairs = torch.stack([m, -(m + step)], dim=1).reshape(rows, cols)
+    return (pairs * 2.0**-126).to(torch.bfloat16)
+
+
+def _tiny_early(gen):
+    """1,048,576 rows of one segment, 4 columns: a subnormal at row 3 of
+    normal values; 2^-119 and the subnormal -2^-127 opening a column of
+    signed zeros, whose total the flush leaves at 2^-119 (unflushed:
+    255 2^-127); no tiny row; a tiny normal -1.5 2^-126 at row 5."""
+    rows = 1 << 20
+    values = torch.randn(rows, 4, generator=gen)
+    values[3, 0] = 2.0**-130
+    values[:, 1] = torch.tensor([0.0, -0.0])[
+        torch.randint(0, 2, (rows,), generator=gen)]
+    values[:2, 1] = torch.tensor([2.0**-119, -(2.0**-127)])
+    values[5, 3] = -1.5 * 2.0**-126
+    return values.to(torch.bfloat16)
+
+
 def _segment_edge_case(name):
     """(values, ids, n) of one edge case of the bf16 segment sums, made on
     the CPU from a seed."""
@@ -750,6 +780,11 @@ def _segment_edge_case(name):
             torch.randint(0, 4, (5000,), generator=gen)]
         return torch.randn(5000, 4, generator=gen).to(torch.bfloat16), ids, \
             8192
+    if name == "tiny_early_in_long_segment":
+        return _tiny_early(gen), torch.zeros(1 << 20, dtype=torch.int64), 1
+    if name == "cancel_to_least_normal":
+        return (_cancelling(gen, 1 << 18, 4),
+                torch.arange(16).repeat_interleave(1 << 14), 16)
     # lengths about the kernel's 8-row chunks and its long-segment edge
     lengths = torch.tensor([0, 1, 7, 8, 9, 15, 16, 17, 255, 256, 257, 513,
                             4097, 70000, 3])
@@ -787,9 +822,14 @@ def test_segment_sum_bf16_kernel_matches_plain(cuda, n_seg, cols, n):
 
 @pytest.mark.parametrize("name", ["ones_stall_at_256", "signed_zeros",
                                   "subnormals", "inf_and_nan",
-                                  "empty_segments", "lengths"])
+                                  "empty_segments", "lengths",
+                                  "tiny_early_in_long_segment",
+                                  "cancel_to_least_normal"])
 def test_segment_sum_bf16_edge_cases_match_plain(cuda, name):
-    """Edge cases, bit for bit (a NaN total too: 0x7fc0, the CPU's), a
+    """Edge cases, bit for bit (a NaN total too: 0x7fc0, the CPU's; the
+    JAX package's flush of subnormals, which a tiny row early in a
+    1,048,576-row segment sends down the kernel's flushing chain, and
+    sums that cancel down to 2^-126 without one, which it does not), a
     mass and a weighted position merged into one launch."""
     from gravity_tpu_torch.ops import cells
 

@@ -3,18 +3,19 @@ wrapper of ``csrc/segment_sum.cu``) on the CPU, against the JAX package's
 ``jax.ops.segment_sum`` at bf16 and an element-order reference in numpy.
 
 The contract is bit for bit: every add rounds to bf16, in element order
-inside a segment, from +0. The reference below adds in float32 and rounds
-to bf16 (round to nearest even), which gives the bits of one rounding of
-the exact sum (``tests/test_torch_bf16_rounding.py``); a NaN total is
-0x7fc0, as torch's bf16 rounding writes every NaN. Two places where the
-JAX package's CPU sums give other bits, each pinned here:
+inside a segment, from +0, with XLA's CPU flush: a subnormal input, and a
+float32 sum below 2^-126 before it is rounded, read as zero of the same
+sign. The reference below adds in float32 and rounds to bf16 (round to
+nearest even), which gives the bits of one rounding of the exact sum
+(``tests/test_torch_bf16_rounding.py``); a NaN total is 0x7fc0, as
+torch's bf16 rounding writes every NaN. One place where the JAX package's
+CPU sums give other bits, pinned here: XLA keeps the sign of x86's default
+NaN (0xffc0 for inf + -inf); only NaN-ness is compared with it.
 
-- NaN: XLA keeps the sign of x86's default NaN (0xffc0 for inf + -inf);
-  only NaN-ness is compared with it;
-- subnormals: XLA's CPU sums flush subnormal inputs and results to zero
-  (of the same sign), where the port, like torch's ``index_add_`` and the
-  card's ``add.rn.bf16``, keeps them. The JAX result equals the reference
-  with flushing, the port's the reference without.
+Only a segment with a tiny row (nonzero, below 2^-119) can come out
+otherwise with the flush than without (``csrc/segment_sum.cu``): the
+unflushed sum of any other segment is the flushed one, which a seeded test
+holds here on sums that cancel down to 2^-126.
 """
 
 import jax
@@ -63,6 +64,15 @@ def _bits(t: torch.Tensor) -> np.ndarray:
     return t.contiguous().view(torch.int16).numpy().view(np.uint16)
 
 
+def _cancelling(rng, shape) -> np.ndarray:
+    """Pairs +m 2^-126, -(m +- 1) 2^-126 with m in [129, 254]: no tiny
+    row (the least exponent that is not tiny, 2^-119), partial sums that
+    step by 2^-126 about zero and land on the least normal."""
+    m = rng.integers(129, 255, shape).astype(np.float32)
+    m[1::2] = -(m[0::2] + rng.choice(np.float32([-1.0, 1.0]), m[1::2].shape))
+    return m * np.float32(2.0**-126)
+
+
 def _case(name: str):
     """(bf16 bits (N, 4), ids (N,), n) of one edge case, made with numpy
     from a seed."""
@@ -88,6 +98,20 @@ def _case(name: str):
         vals[(ids == 2) & (np.arange(300) % 2 == 0), 1] = -np.inf
         vals[ids == 3, 2] = 3e38  # overflows to inf
         vals[(ids == 4) & (np.arange(300) % 5 == 0), 3] = np.nan
+    elif name == "tiny_early_in_long_segment":
+        # One segment: a subnormal early in column 0 of normal values;
+        # 2^-119 and the subnormal -2^-127 opening column 1 of signed
+        # zeros, whose total the flush leaves at 2^-119; column 2 without
+        # a tiny row; a tiny normal early in column 3.
+        ids = np.zeros(4096, np.int64)
+        vals = rng.normal(size=(4096, 4)).astype(np.float32)
+        vals[3, 0] = 2.0**-130
+        vals[:, 1] = rng.choice(np.float32([0.0, -0.0]), 4096)
+        vals[:2, 1] = [2.0**-119, -(2.0**-127)]
+        vals[5, 3] = -1.5 * 2.0**-126
+    elif name == "cancel_to_least_normal":
+        ids = np.repeat(np.arange(8), 512)
+        vals = _cancelling(rng, (4096, 4))
     elif name == "empty_segments":
         ids = rng.choice(np.int64([3, 17, 18, 40]), 500)
         vals = rng.normal(size=(500, 4)).astype(np.float32)
@@ -103,7 +127,8 @@ def _case(name: str):
 
 
 CASES = ["ones_stall_at_256", "signed_zeros", "subnormals", "inf_and_nan",
-         "empty_segments", "one_segment", "mixed_lengths"]
+         "empty_segments", "one_segment", "mixed_lengths",
+         "tiny_early_in_long_segment", "cancel_to_least_normal"]
 
 
 def _torch(bits: np.ndarray) -> torch.Tensor:
@@ -117,7 +142,7 @@ def test_merged_columns_match_per_column_plain_and_reference(name):
     the element-order reference; the plan and gather the card's launch
     takes, summed by the kernel wrapper's CPU form, give them too."""
     bits, ids, n = _case(name)
-    want = _reference(bits, ids, n)
+    want = _reference(bits, ids, n, flush=True)
     values = _torch(bits)
     mass, pos = values[:, 0].contiguous(), values[:, 1:].contiguous()
     t_ids = torch.from_numpy(ids)
@@ -139,25 +164,62 @@ def test_merged_columns_match_per_column_plain_and_reference(name):
 @pytest.mark.parametrize("name", CASES)
 def test_segment_sum_matches_jax_at_bf16(name):
     """``cells.segment_sum`` at bf16 against ``jax.ops.segment_sum`` at
-    bf16 on the same numpy inputs: the same bits, bar NaN's sign and
-    subnormals (module docstring), each of which is pinned exactly."""
+    bf16 on the same numpy inputs: the same bits, flushed subnormals
+    included, bar NaN's sign (module docstring), which is pinned exactly.
+    Where a tiny row makes the flush matter, the bits differ from the
+    unflushed reference's."""
     bits, ids, n = _case(name)
     got = _bits(cells.segment_sum(_torch(bits), torch.from_numpy(ids), n))
     jx = jax.ops.segment_sum(
         jnp.asarray(bits.view(np.int16)).view(jnp.bfloat16),
         jnp.asarray(ids), num_segments=n)
     want = np.asarray(jx).view(np.uint16)
-    np.testing.assert_array_equal(got, _reference(bits, ids, n))
-    if name == "subnormals":
-        np.testing.assert_array_equal(want,
-                                      _reference(bits, ids, n, flush=True))
-        assert (got != want).any()  # the port keeps what XLA flushes
+    np.testing.assert_array_equal(got, _reference(bits, ids, n, flush=True))
+    if name in ("subnormals", "tiny_early_in_long_segment"):
+        np.testing.assert_array_equal(got, want)
+        assert (got != _reference(bits, ids, n)).any()  # the flush fired
         return
     nan = np.isnan(_float(got))
     np.testing.assert_array_equal(nan, np.isnan(_float(want)))
     assert (nan.any() and (got[nan] == NAN_BITS).all()) \
         == (name == "inf_and_nan")
     np.testing.assert_array_equal(got[~nan], want[~nan])
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_segments_without_a_tiny_row_have_the_same_bits_flushed_or_not(
+        seed):
+    """The argument the kernel's flag rests on: with no tiny row, every
+    partial sum is a multiple of 2^-126 and none lies below it, so
+    flushing changes no bit. Sums that cancel down to 2^-126, mixed with
+    values of every other exponent, give the same bits with and without
+    the flush, and the port (``index_add_`` alone here) gives them."""
+    rng = np.random.default_rng(seed)
+    vals = _cancelling(rng, (3000, 3))
+    # column 2 also takes values of every exponent that is not tiny
+    wide = np.float32(2.0) ** rng.integers(-119, 127, 3000)
+    vals[:, 2] = np.where(rng.random(3000) < 0.2, wide * rng.choice(
+        np.float32([-1.0, 1.0]), 3000), vals[:, 2])
+    vals[rng.random(3000) < 0.05, 2] = 0.0
+    ids = np.sort(rng.integers(0, 7, 1500)).repeat(2)  # whole pairs
+    bits = _round_bf16(vals)
+    assert not cells.is_tiny(_torch(bits)).any()
+    flushed = _reference(bits, ids, 7, flush=True)
+    np.testing.assert_array_equal(flushed, _reference(bits, ids, 7))
+    # totals of the cancelling columns a few times 2^-126
+    assert (np.abs(_float(flushed[:, :2])) < 2.0**-118).all()
+    assert (flushed[:, :2] & 0x7FFF != 0).any()
+    got = cells.segment_sum(_torch(bits), torch.from_numpy(ids), 7)
+    np.testing.assert_array_equal(_bits(got), flushed)
+
+
+def test_tiny_marks_nonzero_bf16_below_two_to_the_minus_119():
+    """``cells.is_tiny`` over all 65,536 bf16 patterns."""
+    bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    x = _float(bits)
+    want = (np.abs(x) < 2.0**-119) & (x != 0)
+    got = cells.is_tiny(_torch(bits)).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_plan_is_a_stable_sort_with_searched_starts():
