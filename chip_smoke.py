@@ -62,7 +62,21 @@ set to 0 just before the path and read just after:
   tuning cache: ``baseline-1m`` and ``baseline-16k`` (``--tree-near
   nlist``: pallas, pallas-mxu, tree) and the README cell-list run (nlist
   against the masked direct sum), each a miss that runs the argmin's
-  kernel, then a hit; and ``tune --sizes 16384 65536`` twice.
+  kernel, then a hit; and ``tune --sizes 16384 65536`` twice;
+- the run loop's host side: ``baseline-16k`` (500 steps, trajectories, a
+  checkpoint every 100, the ledger, the sentinel every 5 blocks) with
+  the block pipeline on and off, their artifacts bit for bit the same,
+  and PERF_BASELINE.json's ``host_gap_pipelined`` configuration;
+  ``reference-cuda`` preempted at step 250 in a process of its own (exit
+  75) and resumed bit for bit, also from the older snapshot when the
+  newest is truncated, and the README cell-list run (cut to 100 steps)
+  preempted and resumed, its gap reported; ``baseline-16k`` with
+  ``--auto-recover`` healing ``diverge@300`` (exit 0) and without it
+  exiting 2; ``bench --cadence`` on and off on the README cell list;
+  ``baseline-1m --ledger`` (3 steps, the tree potential); the host syncs
+  a step of each path; and on the main, nlist, Gram, P3M, multirate and
+  merge paths the energy drift by the conservation ledger, outside the
+  timed runs.
 
 It then times each kernel at its path's shapes beside its bound (the
 direct sum masked at N = 50,000, mask-free at N = 16,384 and 65,536, and
@@ -604,6 +618,7 @@ def phase_main_path() -> dict:
 
     config = PRESETS["reference-cuda"]
     sim = Simulator(config)
+    s0 = ledger_start(sim)
     log_root = os.path.join(REPO, "gravity_logs_gpu")
     os.makedirs(log_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=log_root) as log_dir:
@@ -631,6 +646,11 @@ def phase_main_path() -> dict:
         "launches": launches, "total_s": stats["total_time_s"],
         "ms_per_step": 1e3 * stats["avg_step_s"],
         "pairs_per_s": stats["pairs_per_sec"], "device": stats["device"],
+        "host_gap_frac": stats["host_gap_frac"],
+        **ledger_energy_drift(sim, s0, final),
+        # The ledger prices this N's potential with the octree; the exact
+        # pair scan in fp64 beside it.
+        "energy_drift_fp64_pair_scan": energy_drift_f64(s0, final, config),
     }
     emit(record)
     return record
@@ -1170,6 +1190,7 @@ def phase_nlist_main_path() -> dict:
     args = nlist_tiles(sim.state.positions, sim.state.masses, side, cap,
                        config.nlist_rcut)
     pairs0 = nlist.real_pairs(args[1], args[4], side, cap, cap)
+    s0 = ledger_start(sim)
     log_root = os.path.join(REPO, "gravity_logs_gpu")
     os.makedirs(log_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=log_root) as log_dir:
@@ -1201,7 +1222,8 @@ def phase_nlist_main_path() -> dict:
         "tile_slots_per_eval": slots,
         "kernel_pairs_per_eval_at_t0": pairs0,
         "warnings": [str(w.message) for w in caught],
-        "device": stats["device"],
+        "device": stats["device"], "host_gap_frac": stats["host_gap_frac"],
+        **ledger_energy_drift(sim, s0, final),
     }
     emit(record)
     return record
@@ -1219,6 +1241,7 @@ def phase_mxu_path() -> dict:
 
     config = SimulationConfig(**MXU_RUN)
     sim = Simulator(config)
+    s0 = ledger_start(sim)
     reset_counts()
     stats = sim.run()
     counts = read_counts()
@@ -1244,6 +1267,8 @@ def phase_mxu_path() -> dict:
         "vs_nbody_direct_median_rel_err": float(rel.median()),
         "vs_nbody_direct_p99_rel_err": float(torch.quantile(rel, 0.99)),
         "vs_nbody_direct_max_rel_err": float(rel.max()),
+        "host_gap_frac": stats["host_gap_frac"],
+        **ledger_energy_drift(sim, s0, final),
     }
     # The JAX suite's fp32 class for the Gram form: median ~1e-6.
     check(record["vs_nbody_direct_median_rel_err"] < 1e-4,
@@ -1743,6 +1768,7 @@ def phase_p3m_path() -> dict:
     occupancy = p3m_occupancy(
         p3m_tiles(sim.state.positions, sim.state.masses, grid=config.pm_grid,
                   cap=cap, g=config.g), cap)
+    s0 = ledger_start(sim)
     log_root = os.path.join(REPO, "gravity_logs_gpu")
     os.makedirs(log_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=log_root) as log_dir:
@@ -1804,7 +1830,8 @@ def phase_p3m_path() -> dict:
         "vs_nbody_direct_targets": int(idx.numel()),
         "vs_nbody_direct": errors,
         "warnings": [str(w.message) for w in caught],
-        "device": stats["device"],
+        "device": stats["device"], "host_gap_frac": stats["host_gap_frac"],
+        **ledger_energy_drift(sim, s0, final),
     }
     emit(record)
     # The JAX package measured a median relative error of 0.19 on this
@@ -2024,6 +2051,11 @@ def energy_f64(state, config, chunk: int = 4096) -> float:
     return float(diagnostics.kinetic_energy(st) + potential_energy(
         st.positions, st.masses, g=config.g, cutoff=config.cutoff,
         eps=config.eps, chunk=chunk))
+
+
+def energy_drift_f64(state0, final, config) -> float:
+    e0 = energy_f64(state0, config)
+    return abs((energy_f64(final, config) - e0) / e0)
 
 
 def run_counted(config) -> tuple:
@@ -2289,6 +2321,36 @@ def energy_of(state, config, external_phi=None) -> float:
         eps=config.eps, external_phi=external_phi))
 
 
+# Target rows a pair-scan chunk of the ledger takes at once: at N = 262,144
+# the ledger's default 4,096 would hold ~50 GB of temporaries.
+LEDGER_CHUNK = 1024
+
+
+def ledger_start(sim):
+    """The initial state of ``sim``'s run, kept for its ledger. Both ends'
+    ledgers are taken after the run (``ledger_energy_drift``), so that the
+    ledger puts nothing on the card before the timed loop; the depth of
+    the tree potential (the ledger's term above 16,384 bodies) is fit here
+    to the initial state, a host pass, and kept for the final one."""
+    sim._ledger_tree_depth()
+    return sim.state
+
+
+def ledger_energy_drift(sim, state0, final) -> dict:
+    """|E - E0| / |E0| and the other drifts of the conservation ledger
+    (``Simulator.ledger_of``: ``ledger_vec`` and the path's potential
+    term, the pair scan up to 16,384 bodies and for the truncated family,
+    the octree's scaled potential above) between ``state0`` and ``final``,
+    outside the timed run."""
+    from gravity_tpu_torch.ops import diagnostics
+
+    l0 = sim.ledger_of(state0, chunk=LEDGER_CHUNK)
+    l1 = sim.ledger_of(final, chunk=LEDGER_CHUNK)
+    drift = diagnostics.ledger_drift(l0, l1)
+    return {"energy_drift": drift["energy_drift"],
+            "ledger_pe_kind": l0["pe_kind"], "ledger_drift": drift}
+
+
 def fast_targets(sim, state, k: int):
     """The fast rung of ``state``: the k largest |a| of its full force."""
     from gravity_tpu_torch.ops.multirate import select_fast
@@ -2359,6 +2421,7 @@ def phase_multirate_path(device: dict, base16k: dict) -> dict:
     config = dataclasses.replace(PRESETS["baseline-16k"],
                                  integrator="multirate")
     sim = Simulator(config)
+    s0 = ledger_start(sim)
     stats, counts = logged_run(sim, "multirate_path",
                                fixed_steps=config.steps)
     check(stats["multirate_k"] == 2048, f"k {stats['multirate_k']}")
@@ -2405,6 +2468,8 @@ def phase_multirate_path(device: dict, base16k: dict) -> dict:
                    "launches": l_counts["nbody_direct"],
                    "ms_per_step": 1e3 * l_stats["avg_step_s"]},
         "kick": kick, "step_profile": step_profile,
+        "host_gap_frac": stats["host_gap_frac"],
+        **ledger_energy_drift(sim, s0, final),
         "nvidia_smi": device["nvidia_smi"],
     }
     emit(record)
@@ -2823,6 +2888,7 @@ def phase_merge_path(device: dict) -> dict:
               f"{preset}: mass changed by {mass_err:.3e}")
         check(mom_err <= n_merged * 8 * 2.0**-24,
               f"{preset}: momentum changed by {mom_err:.3e}")
+        s0 = ledger_start(sim)
         stats, counts = logged_run(sim, f"merge_{preset}",
                                    fixed_steps=MERGE_STEPS)
         check(stats["merged_pairs"] > 0, f"{preset}: run merged nothing")
@@ -2838,6 +2904,10 @@ def phase_merge_path(device: dict) -> dict:
             "merged_pairs": stats["merged_pairs"],
             "launches": counts["nbody_direct"],
             "ms_per_step": 1e3 * stats["avg_step_s"],
+            "io_pipeline": stats["io_pipeline"],
+            # Across the run's merges: a merger dissipates kinetic energy,
+            # so this drift holds that physics beside the integrator's.
+            **ledger_energy_drift(sim, s0, stats["final_state"]),
         }
     record = {"phase": "merge_path", "runs": records,
               "nvidia_smi": device["nvidia_smi"]}
@@ -4592,6 +4662,512 @@ def phase_autotune_path(device: dict) -> dict:
     return cases
 
 
+# The run loop's host side: the block pipeline, checkpoints and resume,
+# the supervisor, the ledger and the sentinel. The pipeline A/B on
+# baseline-16k (500 steps, trajectories, a checkpoint every 100, the
+# ledger, the sentinel every 5 blocks); PERF_BASELINE.json's
+# host_gap_pipelined configuration as written there (a Plummer sphere of
+# 2,048 through the plain dense sum, 150 steps, blocks of 25, a checkpoint
+# every 100, 2 repetitions a mode), reported beside its 0.35.
+PIPELINE_CKPT_EVERY = 100
+PIPELINE_SENTINEL_EVERY = 5
+HOST_GAP_CONTRACT = dict(n=2048, steps=150, reps=2, block=25,
+                         ckpt_every=100, max_frac=0.35)
+# The README cell-list run cut to 100 of its 500 steps for the resume and
+# cadence A/Bs, in blocks of 25 (resume, preempted at 50) and 10 (the
+# cadence bench, a checkpoint every 50), so that there are blocks to
+# overlap and a step to resume from.
+NLIST_CUT_STEPS = 100
+LEDGER_TREE_STEPS = 3
+
+
+def run_cli(args, faults: str = "", timeout: int = 600):
+    """``python -m gravity_tpu_torch ARGS`` in a process of its own, with
+    ``GRAVITY_TPU_FAULTS`` set to ``faults``."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("GRAVITY_TPU_FAULTS", None)
+    if faults:
+        env["GRAVITY_TPU_FAULTS"] = faults
+    return subprocess.run([sys.executable, "-m", "gravity_tpu_torch", *args],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def last_json(text: str) -> dict:
+    return json.loads(text.strip().splitlines()[-1])
+
+
+def same_bits(a, b) -> bool:
+    """Two states (or tensors) hold the same bits, wherever they lie."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    return all(same_bits(getattr(a, k), getattr(b, k))
+               for k in ("positions", "velocities", "masses"))
+
+
+def checkpoint_at(ckpt: str, step: int):
+    from gravity_tpu_torch.utils.checkpoint import (
+        make_checkpoint_manager,
+        restore_checkpoint,
+    )
+
+    state, _ = restore_checkpoint(make_checkpoint_manager(ckpt), step)
+    return state
+
+
+def phase_pipeline_path(device: dict) -> dict:
+    """baseline-16k (N = 16,384, fp32, pallas, 500 steps) with
+    trajectories, a checkpoint every 100 steps, the ledger and the
+    sentinel every 5 blocks, with ``--io-pipeline`` on, off, on, off:
+    every run's checkpoints and trajectory frames bit for bit the
+    first's; the ledger's final energy within 1e-6 relative of
+    ``ops/diagnostics.total_energy`` in fp64 on the same final state; the
+    sentinel's max relative error below 1e-5 (nbody_direct against its
+    own rectangular form); launches 1 + 500 + 2 a probe. Then
+    PERF_BASELINE.json's host_gap_pipelined configuration through
+    ``bench.run_cadence_benchmark``, on and off."""
+    from gravity_tpu_torch.bench import run_cadence_benchmark
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
+    from gravity_tpu_torch.simulation import Simulator
+    from gravity_tpu_torch.utils.checkpoint import make_checkpoint_manager
+    from gravity_tpu_torch.utils.trajectory import (
+        TrajectoryReader,
+        TrajectoryWriter,
+    )
+
+    config = dataclasses.replace(
+        PRESETS["baseline-16k"], record_trajectories=True,
+        checkpoint_every=PIPELINE_CKPT_EVERY, ledger=True,
+        sentinel_every=PIPELINE_SENTINEL_EVERY)
+    blocks = config.steps // config.progress_every
+    probes = -(-blocks // PIPELINE_SENTINEL_EVERY)
+    want_steps = list(range(PIPELINE_CKPT_EVERY, config.steps + 1,
+                            PIPELINE_CKPT_EVERY))
+    runs, finals = {"on": [], "off": []}, {}
+    log_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(log_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=log_root) as root:
+        # on, off, on, off: the first run also pays the pinned host
+        # allocator's first allocations.
+        for rep, mode in enumerate(("on", "off", "on", "off")):
+            cfg = dataclasses.replace(config, io_pipeline=mode)
+            sim = Simulator(cfg)
+            run_dir = os.path.join(root, str(rep))
+            writer = TrajectoryWriter(os.path.join(run_dir, "traj"),
+                                      sim.n_real, every=1)
+            mgr = make_checkpoint_manager(os.path.join(run_dir, "ckpt"),
+                                          max_to_keep=10)
+            reset_counts()
+            stats = sim.run(trajectory_writer=writer,
+                            checkpoint_manager=mgr)
+            counts = read_counts()
+            check(stats["io_pipeline"] == mode, f"pipeline {mode}: {stats}")
+            check(counts["nbody_direct"] == 1 + config.steps + 2 * probes,
+                  f"pipeline {mode}: {counts['nbody_direct']} launches")
+            check(mgr.all_steps() == want_steps,
+                  f"pipeline {mode}: checkpoints {mgr.all_steps()}")
+            sent = stats["sentinel"]
+            check(sent["probes"] == probes and sent["max_rel_err"] < 1e-5,
+                  f"pipeline {mode}: sentinel {sent}")
+            finals.setdefault(mode, stats["final_state"])
+            runs[mode].append({
+                "ms_per_step": 1e3 * stats["avg_step_s"],
+                "host_gap_frac": stats["host_gap_frac"],
+                "launches": counts["nbody_direct"],
+                "ledger": stats["ledger"],
+                "total_energy": stats["total_energy"],
+                "sentinel": sent,
+            })
+            if rep == 0:
+                continue
+            # Every run's artifacts against the first's, bit for bit.
+            for step in want_steps:
+                check(same_bits(
+                    checkpoint_at(os.path.join(root, "0", "ckpt"), step),
+                    checkpoint_at(os.path.join(run_dir, "ckpt"), step)),
+                    f"pipeline: checkpoint {step} of run {rep} ({mode}) "
+                    "differs from run 0 (on)")
+            first = TrajectoryReader(os.path.join(root, "0", "traj"))
+            this = TrajectoryReader(os.path.join(run_dir, "traj"))
+            check(first.steps == this.steps
+                  == list(range(1, config.steps + 1)),
+                  "pipeline: trajectory steps")
+            check(first.load(mmap=False).tobytes()
+                  == this.load(mmap=False).tobytes(),
+                  f"pipeline: trajectory frames of run {rep} ({mode}) "
+                  "differ from run 0 (on)")
+    check(same_bits(finals["on"], finals["off"]),
+          "pipeline: final states differ")
+    e64 = energy_f64(finals["on"], config)
+    ledger_e = runs["on"][0]["total_energy"]
+    ledger_rel = abs(ledger_e - e64) / abs(e64)
+    check(ledger_rel < 1e-6, f"ledger energy {ledger_e!r} against {e64!r} "
+          f"in fp64: {ledger_rel:.3e}")
+    contract = {}
+    for mode in ("on", "off"):
+        reps = []
+        for _ in range(HOST_GAP_CONTRACT["reps"]):
+            cfg = SimulationConfig(
+                model="plummer", n=HOST_GAP_CONTRACT["n"],
+                steps=HOST_GAP_CONTRACT["steps"], dt=3600.0, eps=1e9,
+                integrator="leapfrog", force_backend="dense",
+                dtype="float32", record_trajectories=True,
+                trajectory_every=1, progress_every=HOST_GAP_CONTRACT["block"],
+                checkpoint_every=HOST_GAP_CONTRACT["ckpt_every"],
+                io_pipeline=mode)
+            line = run_cadence_benchmark(cfg)
+            check(line["io_pipeline"] == mode
+                  and line["host_gap_frac"] is not None,
+                  f"host_gap_pipelined {mode}: {line}")
+            reps.append({"host_gap_frac": line["host_gap_frac"],
+                         "steps_per_sec": line["steps_per_sec"]})
+        contract[mode] = {
+            "reps": reps, "median_host_gap_frac": statistics.median(
+                r["host_gap_frac"] for r in reps)}
+    record = {
+        "phase": "pipeline_path", "preset": "baseline-16k",
+        "steps": config.steps, "block": config.progress_every,
+        "checkpoint_every": PIPELINE_CKPT_EVERY,
+        "sentinel_every_blocks": PIPELINE_SENTINEL_EVERY, "runs": runs,
+        "artifacts_bitwise_identical": True,
+        "ledger_energy_vs_fp64_rel": ledger_rel, "energy_fp64": e64,
+        "host_gap_pipelined": {
+            "config": HOST_GAP_CONTRACT, "runs": contract,
+            "contract_max_frac": HOST_GAP_CONTRACT["max_frac"],
+            "reported_only": "the gate (ROADMAP.md Queue 1 item 8) holds "
+                             "it to the bar"},
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    emit(record)
+    return record
+
+
+def phase_resume_path(device: dict) -> dict:
+    """reference-cuda (N = 50,000, 500 Euler steps, masked, nbody_direct)
+    in a process of its own with a checkpoint every 100 and
+    ``GRAVITY_TPU_FAULTS=preempt@250``: exit 75; ``resume`` finishes it
+    with exit 0 and its step-500 checkpoint equals an uninterrupted run's
+    final state bit for bit (nbody_direct repeats bit for bit); with the
+    newest snapshot (300) truncated, ``resume`` falls back to 200 and ends
+    bit for bit again. Then the README cell-list run, cut to 100 steps in
+    blocks of 25, preempted at 50 and resumed: its max position gap
+    against an uninterrupted run, which the fp32 cell totals' float
+    atomics (``ops/cells.py``) leave nonzero."""
+    import shutil
+
+    import torch
+
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
+    from gravity_tpu_torch.simulation import Simulator
+    from gravity_tpu_torch.utils.checkpoint import make_checkpoint_manager
+
+    config = PRESETS["reference-cuda"]
+    log_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(log_root, exist_ok=True)
+    record = {"phase": "resume_path", "nvidia_smi": device["nvidia_smi"]}
+    with tempfile.TemporaryDirectory(dir=log_root) as root:
+        ckpt, copy = os.path.join(root, "ckpt"), os.path.join(root, "copy")
+        logs = os.path.join(root, "logs")
+        common = ["--preset", "reference-cuda", "--checkpoint-every", "100",
+                  "--log-dir", logs]
+        t0 = time.perf_counter()
+        pre = run_cli(["run", *common, "--checkpoint-dir", ckpt],
+                      faults="preempt@250")
+        check(pre.returncode == 75, f"preempted run: exit {pre.returncode}: "
+              f"{pre.stderr[-2000:]}")
+        pre_line = last_json(pre.stderr)
+        check(pre_line["preempted"] and pre_line["resumable"],
+              f"preempted run: {pre_line}")
+        saved = make_checkpoint_manager(ckpt).all_steps()
+        check(saved == [100, 200, 300], f"after the preemption: {saved}")
+        shutil.copytree(ckpt, copy)
+        res = run_cli(["resume", *common, "--checkpoint-dir", ckpt])
+        check(res.returncode == 0, f"resume: exit {res.returncode}: "
+              f"{res.stderr[-2000:]}")
+        res_line = last_json(res.stdout)
+        check(res_line["resumed_at"] == 300 and res_line["steps"] == 200,
+              f"resume: {res_line}")
+        sim = Simulator(config)
+        reset_counts()
+        straight = sim.run()
+        launches = read_counts()["nbody_direct"]
+        check(launches == config.steps + 1, f"{launches} launches")
+        final = straight["final_state"]
+        check(same_bits(checkpoint_at(ckpt, config.steps), final),
+              "resumed reference-cuda differs from the uninterrupted run")
+        path = os.path.join(copy, "300", "checkpoint.pt")
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+        res2 = run_cli(["resume", *common, "--checkpoint-dir", copy])
+        check(res2.returncode == 0, f"fallback resume: exit "
+              f"{res2.returncode}: {res2.stderr[-2000:]}")
+        res2_line = last_json(res2.stdout)
+        check(res2_line["resumed_at"] == 200,
+              f"fallback resume: {res2_line}")
+        check(same_bits(checkpoint_at(copy, config.steps), final),
+              "fallback resume differs from the uninterrupted run")
+        record["reference_cuda"] = {
+            "steps": config.steps, "preempt_at": 250,
+            "preempted_exit": pre.returncode,
+            "checkpoints_at_preemption": saved,
+            "resume": {"resumed_at": 300, "exit": res.returncode,
+                       "ms_per_step": 1e3 * res_line["avg_step_s"]},
+            "fallback_resume": {"truncated": 300, "resumed_at": 200,
+                                "exit": res2.returncode},
+            "bitwise_equal_uninterrupted": True,
+            "uninterrupted_ms_per_step": 1e3 * straight["avg_step_s"],
+            "uninterrupted_launches": launches,
+            "wall_s": time.perf_counter() - t0,
+        }
+        nl_cfg = SimulationConfig(**{**NLIST_RUN, "steps": NLIST_CUT_STEPS,
+                                     "progress_every": 25})
+        nl = ["--model", "random", "--n", str(nl_cfg.n), "--integrator",
+              "leapfrog", "--force-backend", "nlist", "--nlist-rcut",
+              str(nl_cfg.nlist_rcut), "--eps", str(nl_cfg.eps), "--steps",
+              str(NLIST_CUT_STEPS), "--progress-every", "25",
+              "--checkpoint-every", "25", "--log-dir", logs,
+              "--checkpoint-dir", os.path.join(root, "nl")]
+        pre = run_cli(["run", *nl], faults="preempt@50")
+        check(pre.returncode == 75, f"nlist preempted: exit "
+              f"{pre.returncode}: {pre.stderr[-2000:]}")
+        res = run_cli(["resume", *nl])
+        check(res.returncode == 0, f"nlist resume: exit {res.returncode}: "
+              f"{res.stderr[-2000:]}")
+        check(last_json(res.stdout)["resumed_at"] == 50, "nlist resume")
+        nl_sim = Simulator(nl_cfg)
+        reset_counts()
+        nl_straight = nl_sim.run()
+        check(read_counts()["nlist_pair"] == NLIST_CUT_STEPS + 1,
+              "nlist uninterrupted launches")
+        got = checkpoint_at(os.path.join(root, "nl"), NLIST_CUT_STEPS)
+        want = nl_straight["final_state"]
+        gap = (got.positions.to(want.positions.device).double()
+               - want.positions.double()).abs()
+        spread = float(want.positions.double().abs().max())
+        check(bool(torch.isfinite(got.positions).all()), "nlist resume")
+        record["readme_nlist"] = {
+            "steps": NLIST_CUT_STEPS, "cut_from": 500, "block": 25,
+            "preempt_at": 50, "resumed_at": 50,
+            "max_position_gap_m": float(gap.max()),
+            "max_gap_over_max_abs_x": float(gap.max()) / spread,
+            "bodies_with_a_gap": int((gap.amax(dim=1) > 0).sum()),
+            "bitwise_equal": bool(float(gap.max()) == 0.0),
+            "not_held_bitwise": "the fp32 cell totals (ops/cells.py "
+                                "segment_sum, index_add_) are float atomics "
+                                "on CUDA: two runs may sum in other orders, "
+                                "so the gap is reported, not held to 0",
+        }
+    emit(record)
+    return record
+
+
+def phase_supervisor_path(device: dict) -> dict:
+    """baseline-16k with ``--auto-recover --checkpoint-every 100`` and
+    ``GRAVITY_TPU_FAULTS=diverge@300``, in a process of its own: exit 0,
+    its recovery events diverged (at 200), rolled_back (to 200), retry at
+    dt/2 over the bad interval; without ``--auto-recover`` the same run
+    exits 2 with the ``diverged`` stderr JSON line."""
+    from gravity_tpu_torch.config import PRESETS
+
+    config = PRESETS["baseline-16k"]
+    log_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(log_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=log_root) as root:
+        common = ["--preset", "baseline-16k", "--checkpoint-every", "100"]
+        healed = run_cli(["run", *common, "--auto-recover",
+                          "--checkpoint-dir", os.path.join(root, "a"),
+                          "--log-dir", os.path.join(root, "la")],
+                         faults="diverge@300")
+        check(healed.returncode == 0, f"supervised: exit "
+              f"{healed.returncode}: {healed.stderr[-2000:]}")
+        stats = last_json(healed.stdout)
+        (events_file,) = [f for f in os.listdir(os.path.join(root, "la"))
+                          if f.startswith("recovery_")]
+        with open(os.path.join(root, "la", events_file)) as f:
+            events = [json.loads(x) for x in f if x.strip()]
+        kinds = [e["event"] for e in events]
+        check(kinds == ["diverged", "rolled_back", "retry"],
+              f"recovery events {events}")
+        check(events[0]["step"] == 200 and events[1]["to_step"] == 200
+              and events[2]["dt"] == config.dt / 2
+              and events[2]["span"] == config.progress_every,
+              f"recovery events {events}")
+        check(stats["supervisor"]["diverge_retries"] == 1
+              and stats["steps"] == config.steps - 300,
+              f"supervised stats {stats}")
+        failed = run_cli(["run", *common,
+                          "--checkpoint-dir", os.path.join(root, "b"),
+                          "--log-dir", os.path.join(root, "lb")],
+                         faults="diverge@300")
+        check(failed.returncode == 2, f"unsupervised: exit "
+              f"{failed.returncode}")
+        err = last_json(failed.stderr)
+        check(err["error"] == "diverged" and err["last_finite_step"] == 200,
+              f"unsupervised stderr {err}")
+    record = {"phase": "supervisor_path", "preset": "baseline-16k",
+              "fault": "diverge@300", "supervised_exit": healed.returncode,
+              "events": events, "final_leg_steps": stats["steps"],
+              "final_leg_ms_per_step": 1e3 * stats["avg_step_s"],
+              "unsupervised_exit": failed.returncode,
+              "unsupervised_error": err,
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
+def phase_cadence_path(device: dict) -> dict:
+    """``bench --cadence`` on the README cell-list run (N = 262,144), 100
+    steps in blocks of 10, a trajectory frame every step and a checkpoint
+    every 50, with ``--io-pipeline`` on, off, on, off: steps a second and
+    host_gap_frac each; nlist_pair launched 101 times a run."""
+    import contextlib
+    import io
+
+    from gravity_tpu_torch.cli import main as cli_main
+
+    lines = {"on": [], "off": []}
+    for mode in ("on", "off", "on", "off"):
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main([
+                "bench", "--cadence", "--model", "random", "--n",
+                str(NLIST_RUN["n"]), "--integrator", "leapfrog",
+                "--force-backend", "nlist", "--nlist-rcut",
+                str(NLIST_RUN["nlist_rcut"]), "--eps", str(NLIST_RUN["eps"]),
+                "--steps", str(NLIST_CUT_STEPS), "--progress-every", "10",
+                "--trajectories", "--checkpoint-every", "50",
+                "--io-pipeline", mode])
+        counts = read_counts()
+        check(rc == 0, f"cadence {mode}: exit {rc}")
+        line = last_json(out.getvalue())
+        check(line["io_pipeline"] == mode and line["steps"] == NLIST_CUT_STEPS
+              and line["host_gap_frac"] is not None,
+              f"cadence {mode}: {line}")
+        check(counts["nlist_pair"] == NLIST_CUT_STEPS + 1,
+              f"cadence {mode}: {counts}")
+        lines[mode].append({"steps_per_sec": line["steps_per_sec"],
+                            "ms_per_step": 1e3 * line["avg_step_s"],
+                            "host_gap_frac": line["host_gap_frac"],
+                            "launches": counts["nlist_pair"]})
+    record = {"phase": "cadence_path", "command": "README cell list",
+              "steps": NLIST_CUT_STEPS, "cut_from": 500, "block": 10,
+              "checkpoint_every": 50, "trajectory_every": 1, "runs": lines,
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
+def phase_ledger_tree_path(device: dict) -> dict:
+    """baseline-1m --tree-near nlist --ledger, 3 steps: the ledger prices
+    the energy with the octree's potential (pe_kind tree) and its final
+    energy agrees with ``Simulator.energy()`` within 1e-6 relative; one
+    ledger evaluation's device ms beside the step's."""
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = dataclasses.replace(PRESETS["baseline-1m"], tree_near="nlist",
+                                 ledger=True, steps=LEDGER_TREE_STEPS)
+    sim = Simulator(config)
+    reset_counts()
+    stats = sim.run()
+    counts = read_counts()
+    check(counts["nlist_pair/near"] == LEDGER_TREE_STEPS + 1,
+          f"ledger tree: {counts}")
+    led = stats["ledger"]
+    check(led["pe_kind"] == "tree" and led["blocks"] == 1,
+          f"ledger tree: {led}")
+    e_sim = float(sim.energy())
+    rel = abs(stats["total_energy"] - e_sim) / abs(e_sim)
+    check(rel < 1e-6, f"ledger {stats['total_energy']!r} against "
+          f"Simulator.energy() {e_sim!r}: {rel:.3e}")
+    final = stats["final_state"]
+    ledger_ms = cuda_ms(lambda: sim._ledger_fn(final), 3)
+    record = {"phase": "ledger_tree_path", "preset": "baseline-1m",
+              "tree_near": "nlist", "steps": LEDGER_TREE_STEPS,
+              "cut_from": 500, "launches": counts["nlist_pair/near"],
+              "energy_drift": led["energy_drift"], "ledger": led,
+              "ledger_vs_energy_rel": rel,
+              "ledger_eval_ms": ledger_ms,
+              "ms_per_step": 1e3 * stats["avg_step_s"],
+              "ledger_over_step": ledger_ms / (1e3 * stats["avg_step_s"]),
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
+def count_host_syncs(sim, steps: int = 2) -> float:
+    """Host syncs a step in ``steps`` steps of ``sim``'s block
+    (``torch.cuda.set_sync_debug_mode("warn")`` warns at each)."""
+    import warnings
+
+    import torch
+
+    state = sim.state
+    acc = sim.initial_carry(state)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sim.run_block(state, acc, n_steps=steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught) / steps
+
+
+def phase_host_syncs(device: dict) -> dict:
+    """The host syncs in a block on each path: what blocks the host while
+    it queues the next block under the pipeline (counted, not removed)."""
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
+    from gravity_tpu_torch.simulation import Simulator
+
+    base16k = PRESETS["baseline-16k"]
+    paths = {
+        "reference-cuda": PRESETS["reference-cuda"],
+        "readme-nlist": SimulationConfig(**NLIST_RUN),
+        "pallas-mxu": SimulationConfig(**MXU_RUN),
+        "readme-p3m": SimulationConfig(**P3M_RUN),
+        "baseline-16k": base16k,
+        "baseline-16k-multirate": dataclasses.replace(
+            base16k, integrator="multirate"),
+        "baseline-16k-adaptive": dataclasses.replace(base16k, adaptive=True),
+        "baseline-1m-tree-nlist": dataclasses.replace(
+            PRESETS["baseline-1m"], tree_near="nlist"),
+    }
+    counts = {}
+    for name, config in paths.items():
+        sim = Simulator(config)
+        if config.adaptive:
+            # A block's budget and its one host read are the loop's.
+            import warnings
+
+            import torch
+
+            cfg = dataclasses.replace(config, steps=4, progress_every=4)
+            sim = Simulator(cfg)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    stats = sim.run()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            counts[name] = sum("synchroniz" in str(w.message)
+                               for w in caught) / max(1, stats["steps"])
+        else:
+            counts[name] = count_host_syncs(sim)
+    record = {"phase": "host_syncs", "syncs_per_step": counts,
+              "how": "torch.cuda.set_sync_debug_mode('warn') over 2 steps "
+                     "of run_block (adaptive: one 4-step run)",
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -4652,6 +5228,12 @@ def run_phases(torch) -> int:
     phase_other_entry_points()
     bench_path = phase_bench_path(device)
     autotune_path = phase_autotune_path(device)
+    pipeline = phase_pipeline_path(device)
+    resume = phase_resume_path(device)
+    phase_supervisor_path(device)
+    cadence = phase_cadence_path(device)
+    ledger_tree = phase_ledger_tree_path(device)
+    syncs = phase_host_syncs(device)
     timing = phase_timing(device, build)
     t_nlist = phase_timing_nlist(device, build)
     t_mxu = phase_timing_mxu(device, build)
@@ -4700,7 +5282,23 @@ def run_phases(torch) -> int:
           "bench_pairs_per_sec": {k: v["line"]["value"]
                                   for k, v in bench_path.items()},
           "autotune_winners": {k: v["winner"] for k, v in
-                               autotune_path.items() if k != "tune"}})
+                               autotune_path.items() if k != "tune"},
+          "host_gap_frac": {
+              "baseline16k_pipeline": {
+                  m: [r["host_gap_frac"] for r in pipeline["runs"][m]]
+                  for m in ("on", "off")},
+              "host_gap_pipelined": {
+                  m: v["median_host_gap_frac"] for m, v in
+                  pipeline["host_gap_pipelined"]["runs"].items()},
+              "readme_nlist_cadence": {
+                  m: [r["host_gap_frac"] for r in v]
+                  for m, v in cadence["runs"].items()}},
+          "resume_bitwise_reference_cuda":
+              resume["reference_cuda"]["bitwise_equal_uninterrupted"],
+          "resume_nlist_max_gap_m":
+              resume["readme_nlist"]["max_position_gap_m"],
+          "ledger_tree_eval_over_step": ledger_tree["ledger_over_step"],
+          "host_syncs_per_step": syncs["syncs_per_step"]})
     kernels = [
         ("nbody_direct", "gravity_tpu/ops/pallas_forces.py:45",
          main_path["launches"], max_abs_err, timing),

@@ -21,9 +21,10 @@ name and power limit, the torch and CUDA versions and the SM clock,
 sampled under the same load in a window of its own after the timed one. It needs a card: ``BENCH_DEVICE=cpu``
 asks for the CPU, whose numbers are no device metric.
 
-Not ported: the TPU replay cache of the root ``bench.py``;
-:func:`run_cadence_benchmark` (the host pipeline, ROADMAP.md Queue 1
-items 2 and 3), the trend report (item 10) and the perf gate (item 8).
+:func:`run_cadence_benchmark` is ``bench --cadence``: a whole run with
+trajectories and checkpoints, the A/B of the host pipeline. Not ported:
+the TPU replay cache of the root ``bench.py``, the trend report (ROADMAP.md
+Queue 1 item 10) and the perf gate (item 8).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ import sys
 import threading
 import time
 
-from .config import NotPortedError, SimulationConfig
+from .config import SimulationConfig
 from .ops.integrators import FORCE_EVALS_PER_STEP
 from .simulation import Simulator, make_initial_state
 from .utils.platform import DeviceLike, device_name
@@ -133,14 +134,50 @@ def run_benchmark(config: SimulationConfig, *, warmup_steps: int = 3,
     return stats
 
 
-def run_cadence_benchmark(config: SimulationConfig) -> dict:
-    """The cadence-heavy end-to-end benchmark (trajectories and
-    checkpoints through the host pipeline): not ported."""
-    raise NotPortedError(
-        "the cadence benchmark (bench --cadence) is not ported to "
-        "gravity_tpu_torch yet (ROADMAP.md Queue 1 items 2 and 3: "
-        "checkpoints and the host pipeline)"
+def run_cadence_benchmark(config: SimulationConfig, *,
+                          device: DeviceLike = None) -> dict:
+    """The cadence-heavy end-to-end benchmark: a whole ``Simulator.run``
+    with trajectory recording and checkpoints into a throwaway directory,
+    the workload whose host tax the pipeline exists to hide. The A/B axis
+    is ``config.io_pipeline`` (on or off); the headline numbers are
+    ``steps_per_sec`` and the measured ``host_gap_frac`` (the share of the
+    wall clock with no block in flight, ``utils/timing.HostGapTimer``).
+    The artifacts are bitwise identical either way
+    (``tests/test_torch_io_pipeline.py``), so a difference in speed is
+    overlap alone."""
+    import shutil
+    import tempfile
+
+    from .utils.checkpoint import make_checkpoint_manager
+    from .utils.trajectory import TrajectoryWriter
+
+    sim = Simulator(config, device=device)
+    sync(sim.device)
+    root = tempfile.mkdtemp(prefix="gravity_bench_cadence_")
+    try:
+        writer = None
+        if config.record_trajectories:
+            writer = TrajectoryWriter(os.path.join(root, "traj"), sim.n_real,
+                                      every=1)
+        mgr = None
+        if config.checkpoint_every:
+            mgr = make_checkpoint_manager(os.path.join(root, "ckpt"))
+        stats = sim.run(trajectory_writer=writer, checkpoint_manager=mgr)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    stats.pop("final_state", None)
+    stats["steps_per_sec"] = (stats["steps"] / stats["total_time_s"]
+                              if stats["total_time_s"] > 0 else float("inf"))
+    stats.update(
+        model=config.model,
+        integrator=config.integrator,
+        backend=sim.backend,
+        dtype=config.dtype,
+        platform=sim.device.type,
+        record_every=config.trajectory_every,
+        checkpoint_every=config.checkpoint_every,
     )
+    return stats
 
 
 def nvidia_smi(query: str) -> str | None:
@@ -226,7 +263,8 @@ def main() -> int:
         "achieved_tflops": stats.get("achieved_tflops"),
         "peak_tflops": stats.get("peak_tflops"),
         "mfu": stats.get("mfu"),
-        # the host pipeline's idle share is ROADMAP.md Queue 1 item 3
+        # bench times run_block between fences, with no host pipeline:
+        # its idle share is run and bench --cadence's.
         "host_gap_frac": None,
         "autotune_cache": stats.get("autotune_cache"),
         "autotune_probe_ms": stats.get("autotune_probe_ms"),

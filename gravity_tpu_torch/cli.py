@@ -1,11 +1,18 @@
-"""Command-line interface: the ``run``, ``bench`` and ``tune`` verbs.
+"""Command-line interface: the ``run``, ``resume``, ``bench`` and ``tune``
+verbs.
 
 Counterpart of ``gravity_tpu/cli.py`` for this slice, with the JAX CLI's
 flag names. ``run`` writes the reference log and prints one JSON line of
-run statistics on stdout; ``bench`` prints one JSON line of a timed block
-(``bench.run_benchmark``); ``tune`` fills the autotuner's cache over a
-size ladder, one JSON line a size. Each runs on the GPU unless
-``--device cpu``.
+run statistics on stdout; ``resume`` continues a checkpointed run;
+``bench`` prints one JSON line of a timed block (``bench.run_benchmark``,
+or with ``--cadence`` a whole run with trajectories and checkpoints);
+``tune`` fills the autotuner's cache over a size ladder, one JSON line a
+size. Each runs on the GPU unless ``--device cpu``.
+
+Exit codes of ``run`` and ``resume``: 0 done; 1 a usage error; 2 a
+failure of the recovery layer (divergence, an accuracy breach, an
+exhausted retry budget, an unbuildable backend: one JSON line on stderr);
+75 preempted by SIGTERM after a checkpoint (run ``resume``).
 
 Usage:
     python -m gravity_tpu_torch run --preset reference-cuda
@@ -30,6 +37,11 @@ Usage:
     python -m gravity_tpu_torch bench --model plummer --n 262144 \
         --integrator leapfrog --eps 1e9 --force-backend pallas-mxu
     python -m gravity_tpu_torch tune --sizes 16384 65536
+    python -m gravity_tpu_torch run --preset reference-cuda \
+        --checkpoint-every 100 --ledger --sentinel-every 5
+    python -m gravity_tpu_torch resume --preset reference-cuda
+    python -m gravity_tpu_torch run --preset baseline-16k --auto-recover \
+        --checkpoint-every 100
 """
 
 from __future__ import annotations
@@ -154,6 +166,58 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                    action="store_true", default=None)
     p.add_argument("--trajectory-every", dest="trajectory_every",
                    type=int, default=None)
+    p.add_argument("--trajectory-format", dest="trajectory_format",
+                   choices=["npy", "native"], default=None,
+                   help="npy = .npy shards + manifest; native = one .gtrj "
+                        "file")
+    p.add_argument("--io-pipeline", dest="io_pipeline",
+                   choices=["auto", "on", "off"], default=None,
+                   help="the host pipeline: queue block k+1, then consume "
+                        "block k (watchdog, ledger, sentinel, trajectory "
+                        "and checkpoint writes) while k+1 runs; off = the "
+                        "serial loop (the same artifacts, bit for bit)")
+    p.add_argument("--checkpoint-every", dest="checkpoint_every", type=int,
+                   default=None, help="steps between checkpoints (0 = off)")
+    p.add_argument("--checkpoint-dir", dest="checkpoint_dir", default=None)
+    p.add_argument("--metrics", action="store_true", default=None,
+                   help="write a JSONL metrics stream next to the log")
+    p.add_argument("--metrics-energy", dest="metrics_energy",
+                   action="store_true", default=None,
+                   help="deprecated alias for --ledger")
+    p.add_argument("--ledger", action="store_true", default=None,
+                   help="the in-program conservation ledger: energy, "
+                        "momentum, angular momentum and COM drift of "
+                        "every block (metrics stream and run stats)")
+    p.add_argument("--sentinel-every", dest="sentinel_every", type=int,
+                   default=None,
+                   help="accuracy sentinel cadence in blocks: the "
+                        "backend's force error on --sentinel-k sampled "
+                        "targets against the exact direct sum (0 = off)")
+    p.add_argument("--sentinel-k", dest="sentinel_k", type=int,
+                   default=None,
+                   help="sampled sentinel targets a probe (default 64)")
+    p.add_argument("--error-budget", dest="error_budget", type=float,
+                   default=None,
+                   help="largest acceptable sentinel p90 relative force "
+                        "error; a breach exits 2, or heals under "
+                        "--auto-recover")
+    p.add_argument("--debug-check", dest="debug_check", action="store_true",
+                   default=None,
+                   help="the backend against the plain direct sum on the "
+                        "final state")
+    p.add_argument("--auto-recover", dest="auto_recover",
+                   action="store_true", default=None,
+                   help="self-healing supervision: divergence rolls back "
+                        "to the last verified checkpoint and retries at "
+                        "halved dt, transient faults retry with backoff, "
+                        "an unbuildable backend degrades pallas-mxu -> "
+                        "pallas -> chunked (on the card it stops at "
+                        "pallas)")
+    p.add_argument("--max-retries", dest="max_retries", type=int,
+                   default=None,
+                   help="recovery attempts a failure class (default 3)")
+    p.add_argument("--on-diverge", dest="on_diverge",
+                   choices=["halve-dt", "abort"], default=None)
     p.add_argument("--no-nan-check", dest="nan_check", action="store_false",
                    default=None,
                    help="disable the per-block divergence watchdog")
@@ -177,13 +241,94 @@ def build_config(args: argparse.Namespace) -> SimulationConfig:
         val = getattr(args, field.name, None)
         if val is not None:
             config = dataclasses.replace(config, **{field.name: val})
+    if config.metrics_energy and not config.ledger:
+        print("warning: --metrics-energy is a deprecated alias for "
+              "--ledger", file=sys.stderr)
     return config
 
 
+def _print_failure_json(e) -> int:
+    """One stderr JSON line and exit 2 for a failure of the recovery
+    layer, shared by ``run`` and ``resume``."""
+    from .simulation import AccuracyBreach, SimulationDiverged
+    from .supervisor import EXIT_FAILED
+    from .utils.faults import BackendUnavailable
+
+    if isinstance(e, SimulationDiverged):
+        payload = {"error": "diverged", "last_finite_step": e.step,
+                   "message": str(e)}
+    elif isinstance(e, AccuracyBreach):
+        payload = {"error": "accuracy_breach", "step": e.step,
+                   "backend": e.backend, "p90_rel_err": e.p90_rel_err,
+                   "budget": e.budget, "message": str(e)}
+    elif isinstance(e, BackendUnavailable):
+        payload = {"error": "backend_unavailable", "message": str(e)}
+    else:
+        payload = {"error": "transient", "message": str(e)}
+    print(json.dumps(payload), file=sys.stderr)
+    return EXIT_FAILED
+
+
+def _make_writer(config: SimulationConfig, logger, n_real: int):
+    """The run's trajectory writer (every=1: the Simulator strides the
+    frames by config.trajectory_every), or None."""
+    if not config.record_trajectories:
+        return None
+    from .utils.trajectory import NativeTrajectoryWriter, TrajectoryWriter
+
+    base = os.path.join(config.log_dir, f"trajectories_{logger.timestamp}")
+    if config.trajectory_format == "native":
+        return NativeTrajectoryWriter(base + ".gtrj", n_real, every=1)
+    return TrajectoryWriter(base, n_real, every=1)
+
+
+def _debug_check(config: SimulationConfig, sim, final, logger) -> dict:
+    """The run's backend against the plain direct sum on ``final``, at
+    the as-run sizing (``utils/profiling.debug_check_forces``): for nlist
+    the as-run cell list and the rcut-masked oracle; a masked direct run
+    against the cell list sized from the final state; P3M by its full-set
+    evaluation."""
+    from .simulation import make_local_kernel
+    from .utils.profiling import debug_check_forces
+
+    kernel = full_acc = None
+    rcut = (config.nlist_rcut
+            if sim.backend in ("nlist", "dense", "chunked") else 0.0)
+    if sim.backend == "nlist":
+        side, cap, _ = sim.nlist_sizing
+        kernel = make_local_kernel(
+            dataclasses.replace(config, nlist_side=side, nlist_cap=cap),
+            "nlist")
+    elif sim.backend in ("dense", "chunked") and rcut > 0.0:
+        kernel = make_local_kernel(config, "nlist",
+                                   positions=final.positions)
+    elif sim.backend == "p3m":
+        full_acc = sim._self_accel(final.positions, final.masses)
+    elif sim.backend not in ("dense", "chunked"):
+        kernel = make_local_kernel(config, sim.backend,
+                                   positions=final.positions)
+    check = debug_check_forces(
+        final.positions, final.masses, g=config.g, cutoff=config.cutoff,
+        eps=config.eps, rcut=rcut, kernel=kernel, full_acc=full_acc)
+    logger.log_print(
+        f"Force cross-check ({sim.backend} vs the plain direct sum): "
+        f"max_rel_err={check['max_rel_err']:.3e} "
+        f"median_rel_err={check['median_rel_err']:.3e} "
+        f"(n={check['n_checked']})")
+    return check
+
+
 def cmd_run(args: argparse.Namespace) -> int:
-    from .simulation import Simulator
+    from .simulation import (
+        AccuracyBreach,
+        SimulationDiverged,
+        SimulationPreempted,
+        Simulator,
+        make_initial_state,
+    )
+    from .supervisor import EXIT_PREEMPTED
+    from .utils.faults import BackendUnavailable, TransientFault
     from .utils.logging import RunLogger
-    from .utils.trajectory import TrajectoryWriter
 
     config = build_config(args)
     if config.adaptive and config.merge_radius > 0.0:
@@ -193,20 +338,161 @@ def cmd_run(args: argparse.Namespace) -> int:
             file=sys.stderr,
         )
         return 1
-    sim = Simulator(config, device=args.device)
     logger = RunLogger(config.log_dir)
-    writer = None
-    if config.record_trajectories:
-        # every=1: the Simulator already strides frames by
-        # config.trajectory_every.
-        writer = TrajectoryWriter(
-            os.path.join(config.log_dir, f"trajectories_{logger.timestamp}"),
-            sim.n_real, every=1,
-        )
-    stats = sim.run(logger, trajectory_writer=writer)
+    sim = state0 = None
+    if not config.auto_recover:
+        try:
+            sim = Simulator(config, device=args.device)
+        except BackendUnavailable as e:
+            return _print_failure_json(e)
+        n_real = sim.n_real
+    else:
+        # The supervisor builds the Simulator (building one here would
+        # die on the very fault its ladder survives); the writer still
+        # needs the model's count.
+        state0 = make_initial_state(config, args.device)
+        n_real = state0.n
+    writer = _make_writer(config, logger, n_real)
+    ckpt_mgr = None
+    if config.checkpoint_every or config.auto_recover:
+        # The supervisor always needs one: the watchdog's emergency save
+        # is its rollback point.
+        from .utils.checkpoint import make_checkpoint_manager
+
+        ckpt_mgr = make_checkpoint_manager(config.checkpoint_dir)
+    metrics_logger = None
+    if config.metrics:
+        from .utils.profiling import MetricsLogger
+
+        metrics_logger = MetricsLogger(os.path.join(
+            config.log_dir, f"metrics_{logger.timestamp}.jsonl"))
+    sup = None
+    if config.auto_recover:
+        from .supervisor import RunSupervisor
+        from .utils.logging import RecoveryEventLogger
+
+        events = RecoveryEventLogger(os.path.join(
+            config.log_dir, f"recovery_{logger.timestamp}.jsonl"))
+        sup = RunSupervisor(config, logger=logger, events=events,
+                            checkpoint_manager=ckpt_mgr,
+                            trajectory_writer=writer,
+                            metrics_logger=metrics_logger, state=state0,
+                            device=args.device)
+    try:
+        if sup is not None:
+            stats = sup.run()
+            sim = sup.last_sim
+        elif config.adaptive:
+            stats = sim.run_adaptive(logger, trajectory_writer=writer,
+                                     checkpoint_manager=ckpt_mgr,
+                                     metrics_logger=metrics_logger)
+        else:
+            stats = sim.run(logger, trajectory_writer=writer,
+                            checkpoint_manager=ckpt_mgr,
+                            metrics_logger=metrics_logger)
+    except SimulationPreempted:
+        # The run loop saved its last consumed block; the resumable exit
+        # code lets a scheduler requeue the run.
+        if writer is not None:
+            writer.close()
+        print(json.dumps({
+            "preempted": True,
+            "resumable": (ckpt_mgr is not None
+                          and ckpt_mgr.latest_step() is not None),
+            "resume": "gravity_tpu_torch resume --checkpoint-dir "
+                      + config.checkpoint_dir,
+        }), file=sys.stderr)
+        return EXIT_PREEMPTED
+    except (SimulationDiverged, AccuracyBreach, TransientFault,
+            BackendUnavailable) as e:
+        if writer is not None:
+            writer.close()
+        return _print_failure_json(e)
+    if config.debug_check:
+        stats["debug_check"] = _debug_check(config, sim,
+                                            stats["final_state"], logger)
     stats.pop("final_state")
     if writer is not None:
-        stats["trajectory_dir"] = writer.out_dir
+        stats["trajectory_dir"] = getattr(writer, "out_dir", None) \
+            or writer.path
+    print(json.dumps(stats))
+    return 0
+
+
+def cmd_resume(args: argparse.Namespace) -> int:
+    """Restore the latest (or ``--step``) checkpoint and continue to the
+    configured step count (an adaptive run to its t_end)."""
+    from .simulation import (
+        AccuracyBreach,
+        SimulationDiverged,
+        SimulationPreempted,
+        Simulator,
+    )
+    from .supervisor import EXIT_FAILED, EXIT_PREEMPTED
+    from .utils.checkpoint import (
+        CheckpointCorrupt,
+        make_checkpoint_manager,
+        restore_checkpoint_with_extra,
+    )
+    from .utils.faults import BackendUnavailable, TransientFault
+    from .utils.logging import RunLogger
+
+    config = build_config(args)
+    mgr = make_checkpoint_manager(config.checkpoint_dir)
+    try:
+        state, step, extra = restore_checkpoint_with_extra(mgr, args.step)
+    except (FileNotFoundError, CheckpointCorrupt) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return EXIT_FAILED
+    kwargs = dict(state=state, start_step=step)
+    if config.adaptive:
+        if "t" not in extra:
+            print("error: checkpoint has no simulated-time metadata: it "
+                  "was written by a fixed-dt run; resume it without "
+                  "--adaptive", file=sys.stderr)
+            return 1
+        t_end = config.steps * config.dt
+        if extra["t"] >= t_end:
+            print(json.dumps({"resumed_at": step, "t": extra["t"],
+                              "t_end": t_end,
+                              "note": "checkpoint already at/past t_end"}))
+            return 0
+        kwargs.update(start_t=extra["t"], start_comp=extra.get("comp", 0.0))
+    elif step >= config.steps:
+        print(json.dumps({"resumed_at": step, "steps": config.steps,
+                          "note": "checkpoint already at/past target"}))
+        return 0
+    logger = RunLogger(config.log_dir)
+    logger.log_print(f"Resuming from checkpoint at step {step}")
+    try:
+        if config.auto_recover:
+            from .supervisor import RunSupervisor
+            from .utils.logging import RecoveryEventLogger
+
+            events = RecoveryEventLogger(os.path.join(
+                config.log_dir, f"recovery_{logger.timestamp}.jsonl"))
+            stats = RunSupervisor(config, logger=logger, events=events,
+                                  checkpoint_manager=mgr,
+                                  device=args.device, **kwargs).run()
+        else:
+            sim = Simulator(config, state=state, device=args.device)
+            if config.adaptive:
+                stats = sim.run_adaptive(
+                    logger, checkpoint_manager=mgr,
+                    start_t=kwargs["start_t"],
+                    start_comp=kwargs["start_comp"], start_steps=step)
+            else:
+                stats = sim.run(logger, checkpoint_manager=mgr,
+                                start_step=step)
+    except SimulationPreempted:
+        print(json.dumps({"preempted": True, "resumable": True}),
+              file=sys.stderr)
+        return EXIT_PREEMPTED
+    except (SimulationDiverged, AccuracyBreach, TransientFault,
+            BackendUnavailable) as e:
+        return _print_failure_json(e)
+    stats.pop("final_state", None)
+    stats["resumed_at"] = step
     print(json.dumps(stats))
     return 0
 
@@ -272,7 +558,13 @@ def cmd_bench(args: argparse.Namespace) -> int:
             "ported to gravity_tpu_torch yet (ROADMAP.md Queue 1 item 10)")
     config = build_config(args)
     if args.cadence:
-        result = run_cadence_benchmark(config)
+        # An end-to-end run with trajectories and checkpoints: the A/B of
+        # the host pipeline (--io-pipeline on|off).
+        config = dataclasses.replace(
+            config, record_trajectories=True,
+            checkpoint_every=config.checkpoint_every
+            or max(1, config.progress_every))
+        result = run_cadence_benchmark(config, device=args.device)
     else:
         result = run_benchmark(config, warmup_steps=args.warmup,
                                bench_steps=args.bench_steps,
@@ -290,6 +582,14 @@ def main(argv=None) -> int:
     p_run = sub.add_parser("run", help="run a simulation")
     _add_config_args(p_run)
     p_run.set_defaults(func=cmd_run)
+
+    p_resume = sub.add_parser(
+        "resume", help="resume from the latest checkpoint")
+    _add_config_args(p_resume)
+    p_resume.add_argument("--step", type=int, default=None,
+                          help="checkpoint step to restore (default the "
+                               "latest verified one)")
+    p_resume.set_defaults(func=cmd_resume)
 
     p_tune = sub.add_parser(
         "tune", help="fill the autotune cache over a size ladder")
@@ -309,8 +609,10 @@ def main(argv=None) -> int:
     p_bench.add_argument("--bench-steps", dest="bench_steps", type=int,
                          default=20)
     p_bench.add_argument("--cadence", action="store_true",
-                         help="cadence-on end-to-end mode (not ported: "
-                              "ROADMAP.md Queue 1 items 2 and 3)")
+                         help="cadence-on end-to-end mode: a whole run "
+                              "with trajectories and checkpoints (the "
+                              "--io-pipeline on|off A/B): steps_per_sec "
+                              "and host_gap_frac")
     p_bench.add_argument("--report", action="store_true",
                          help="the perf trend table (not ported: ROADMAP.md "
                               "Queue 1 item 10)")

@@ -69,26 +69,17 @@ _NOT_PORTED = {
     "nlist_mig_cap": (0, f"{_QUEUE} 5 (halo)"),
     "periodic_box": (0.0, f"{_QUEUE} 7"),
     "pm_assignment": ("cic", f"{_QUEUE} 7"),
-    "auto_recover": (False, f"{_QUEUE} 2"),
-    "max_retries": (3, f"{_QUEUE} 2"),
-    "on_diverge": ("halve-dt", f"{_QUEUE} 2"),
     "sharding": ("none", f"{_QUEUE} 5 (multi-GPU, with the sharded "
                          "multirate forms)"),
     "mesh_shape": (None, f"{_QUEUE} 5"),
-    "io_pipeline": ("auto", f"{_QUEUE} 3"),
-    "trajectory_format": ("npy", f"{_QUEUE} 3 (native .gtrj writer)"),
-    "checkpoint_every": (0, f"{_QUEUE} 2"),
-    "checkpoint_dir": ("checkpoints", f"{_QUEUE} 2"),
-    "metrics": (False, f"{_QUEUE} 3"),
-    "metrics_energy": (False, f"{_QUEUE} 3"),
-    "ledger": (False, f"{_QUEUE} 3"),
-    "sentinel_every": (0, f"{_QUEUE} 3"),
-    "sentinel_k": (64, f"{_QUEUE} 3"),
-    "error_budget": (0.0, f"{_QUEUE} 3"),
+    # The jax.profiler trace and its cost/memory ledger (telemetry/perf.py)
+    # and the span tracer of the serving stack's telemetry.
     "profile": (False, f"{_QUEUE} 8"),
     "trace": (False, f"{_QUEUE} 9"),
-    "debug_check": (False, f"{_QUEUE} 3"),
 }
+IO_PIPELINE_MODES = ("auto", "on", "off")
+TRAJECTORY_FORMATS = ("npy", "native")
+ON_DIVERGE = ("halve-dt", "abort")
 
 
 class NotPortedError(ValueError):
@@ -189,8 +180,46 @@ class SimulationConfig:
     record_trajectories: bool = False
     trajectory_every: int = 1
     progress_every: int = C.PROGRESS_EVERY
+    # npy: .npy shards + manifest; native: one .gtrj file (the JAX
+    # package's C++ writer's format, written here in Python).
+    trajectory_format: str = "npy"
     # Per-block NaN/Inf state check; raises SimulationDiverged.
     nan_check: bool = True
+
+    # The host pipeline: auto/on = queue block k+1 before consuming block k
+    # (its watchdog verdict, ledger, sentinel, trajectory copies and
+    # writes, checkpoint saves, these two on a background writer), so the
+    # card does not idle through them; the artifacts are bitwise those of
+    # the serial loop (off). auto degrades to off with collision merging.
+    io_pipeline: str = "auto"
+    checkpoint_every: int = 0  # 0 = off
+    checkpoint_dir: str = "checkpoints"
+    metrics: bool = False  # the JSONL per-block metrics stream
+    # Deprecated alias of `ledger`.
+    metrics_energy: bool = False
+    # The in-program conservation ledger: energy, momentum, angular
+    # momentum and COM drift of every block, queued behind it on the card
+    # and summed in float64 on the host.
+    ledger: bool = False
+    # The accuracy sentinel: every `sentinel_every` blocks, the backend's
+    # force error on `sentinel_k` sampled targets against the exact direct
+    # sum (rcut-masked for the truncated family). 0 = off (1 when an error
+    # budget is set).
+    sentinel_every: int = 0
+    sentinel_k: int = 64
+    # The largest acceptable sentinel p90 relative force error; 0 = observe
+    # only. A breach raises AccuracyBreach: exit 2 alone, healed under
+    # auto_recover (a leaf-cap re-size, then an exact direct sum).
+    error_budget: float = 0.0
+    debug_check: bool = False  # kernel vs plain direct sum on the final state
+
+    # Self-healing supervision (supervisor.py): divergence rolls back to
+    # the last verified checkpoint and retries the bad interval at halved
+    # dt, injected transient errors retry with backoff, an injected
+    # unbuildable backend degrades pallas-mxu -> pallas -> chunked.
+    auto_recover: bool = False
+    max_retries: int = 3  # a failure class
+    on_diverge: str = "halve-dt"  # halve-dt | abort
 
     def __post_init__(self) -> None:
         for name, (values, item) in _UNPORTED_VALUES.items():
@@ -217,18 +246,24 @@ class SimulationConfig:
             ("p3m_short", P3M_SHORT_MODES),
             ("tree_far", TREE_FAR_MODES), ("tree_near", TREE_NEAR_MODES),
             ("timestep_criterion", TIMESTEP_CRITERIA),
+            ("io_pipeline", IO_PIPELINE_MODES),
+            ("trajectory_format", TRAJECTORY_FORMATS),
+            ("on_diverge", ON_DIVERGE),
         ):
             if getattr(self, name) not in choices:
                 raise ValueError(
                     f"unknown {name} {getattr(self, name)!r}; choose from "
                     f"{sorted(choices)}"
                 )
-        for name in ("nlist_rcut", "nlist_side", "nlist_cap", "tree_depth"):
+        for name in ("nlist_rcut", "nlist_side", "nlist_cap", "tree_depth",
+                     "checkpoint_every", "sentinel_every", "error_budget",
+                     "max_retries"):
             if getattr(self, name) < 0:
                 raise ValueError(f"{name} must be >= 0, got "
                                  f"{getattr(self, name)}")
         for name in ("pm_grid", "p3m_sigma_cells", "p3m_rcut_sigmas",
-                     "p3m_cap", "fast_chunk", "tree_leaf_cap", "tree_ws"):
+                     "p3m_cap", "fast_chunk", "tree_leaf_cap", "tree_ws",
+                     "sentinel_k"):
             if getattr(self, name) <= 0:
                 raise ValueError(f"{name} must be > 0, got "
                                  f"{getattr(self, name)}")

@@ -16,13 +16,25 @@ kernels), an external field added after self-gravity, collision merging
 at block boundaries every ``merge_every`` steps, and adaptive dt
 (:meth:`Simulator.run_adaptive`, blocks of ``ops/adaptive.py``'s device
 steps with one host read a block).
+
+The run loop's host side is the JAX package's ``_run_impl`` contract: the
+depth-1 block pipeline (``io_pipeline``: block k+1 is queued before block
+k is consumed, and block k is consumed by waiting on its own CUDA event),
+with ``host_gap_frac``; integrity-checked checkpoints, emergency saves on
+divergence and on SIGTERM (:class:`SimulationPreempted`) and resume from
+``start_step``; the in-program conservation ledger and the accuracy
+sentinel (:class:`AccuracyBreach`), both queued right behind their block
+and read through its fence.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
+import signal
+import threading
 import time
 import warnings
 from typing import Optional
@@ -57,6 +69,8 @@ from .ops.multirate import (
     two_rung_step,
 )
 from .state import ParticleState
+from .utils import faults
+from .utils.checkpoint import crossed_cadence, save_checkpoint
 from .utils.logging import RunLogger
 from .utils.platform import (
     DeviceLike,
@@ -64,7 +78,18 @@ from .utils.platform import (
     resolve_device,
     sync,
 )
-from .utils.trajectory import TrajectoryWriter
+from .utils.profiling import (
+    full_set_probe_kernel,
+    make_force_error_probe,
+    sentinel_indices,
+    sentinel_summary,
+)
+from .utils.timing import HostGapTimer, pairs_metric_name, pairs_per_step
+from .utils.trajectory import (
+    AsyncTrajectoryWriter,
+    TrajectoryWriter,
+    record_frames,
+)
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64,
            "bfloat16": torch.bfloat16}
@@ -82,6 +107,9 @@ MERGE_GRID_THRESHOLD = 32_768
 # O(N log N) potential instead of the dense O(N^2) pair scan, as in the JAX
 # package.
 ENERGY_TREE_THRESHOLD = 16_384
+# The JAX package's names of the resolved kernel backends (fault specs and
+# the supervisor's degrade ladder use them).
+JAX_NAMES = {KERNEL_BACKEND: "pallas", MXU_BACKEND: "pallas-mxu"}
 # The launch count of each resolved backend's kernel on a state's dtype
 # (p3m's is the cell-list kernel's ewald kind, which its gather pass does
 # not launch; the tree's its untruncated newton form, which its gather near
@@ -320,6 +348,104 @@ class SimulationDiverged(RuntimeError):
         self.step = step
 
 
+class AccuracyBreach(RuntimeError):
+    """The accuracy sentinel measured a force error past the declared
+    ``error_budget``. The state is finite: nothing rolls back; the
+    supervisor heals by re-sizing the tree's leaf cap or rerouting to an
+    exact direct sum, and continues from the last consumed block. A run
+    without the supervisor exits 2."""
+
+    def __init__(self, step: int, backend: str, p90_rel_err: float,
+                 budget: float):
+        super().__init__(
+            f"accuracy breach at step {step}: backend {backend!r} "
+            f"sentinel p90 relative force error {p90_rel_err:.3e} "
+            f"exceeds the error budget {budget:.3e} (raise the budget, "
+            "re-size the solver, or run with --auto-recover to heal)"
+        )
+        self.step = step
+        self.backend = backend
+        self.p90_rel_err = p90_rel_err
+        self.budget = budget
+
+
+class SimulationPreempted(KeyboardInterrupt):
+    """SIGTERM (a scheduler's preemption) as an exception. A
+    ``KeyboardInterrupt``, so that it takes the run loops' checkpoint-and-
+    re-raise path of Ctrl-C; the CLI exits with the resumable code 75."""
+
+
+@contextlib.contextmanager
+def preemption_guard():
+    """SIGTERM raises :class:`SimulationPreempted` inside the block, and
+    the previous handler is restored after it. The handler only raises:
+    the checkpoint is written on the run loop's ``except`` path, from the
+    last consumed block. A no-op outside the main thread, where Python
+    delivers no signals."""
+    if threading.current_thread() is not threading.main_thread():
+        yield
+        return
+
+    def _handler(signum, frame):
+        raise SimulationPreempted("SIGTERM received (preemption)")
+
+    try:
+        prev = signal.signal(signal.SIGTERM, _handler)
+    except ValueError:
+        yield
+        return
+    try:
+        yield
+    finally:
+        signal.signal(signal.SIGTERM, prev)
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` in host memory. On the card it is queued on the
+    current stream into pinned memory (``non_blocking``), so that it runs
+    behind the work before it and completes by the next event recorded
+    there; on the CPU a plain copy."""
+    if t.device.type == "cuda":
+        out = torch.empty(t.shape, dtype=t.dtype, device="cpu",
+                          pin_memory=True)
+        out.copy_(t.detach(), non_blocking=True)
+        return out
+    return t.detach().clone()
+
+
+def _host_state(state: ParticleState) -> ParticleState:
+    return ParticleState(_to_host(state.positions),
+                         _to_host(state.velocities), _to_host(state.masses))
+
+
+@dataclasses.dataclass
+class _Block:
+    """A dispatched block and its companions: host copies queued behind
+    it (the watchdog's verdict, trajectory frames, a checkpoint snapshot
+    where the block crosses the cadence, the ledger's components, the
+    sentinel's errors) and the CUDA event recorded after them."""
+
+    prev_step: int
+    n_steps: int
+    state: ParticleState
+    finite: Optional[torch.Tensor] = None
+    frames: Optional[torch.Tensor] = None
+    snapshot: Optional[ParticleState] = None
+    ledger: Optional[dict] = None
+    sentinel: Optional[torch.Tensor] = None
+    event: Optional["torch.cuda.Event"] = None
+
+    @property
+    def end_step(self) -> int:
+        return self.prev_step + self.n_steps
+
+    def wait(self) -> None:
+        """Wait for this block (and its companions) alone: its own event,
+        never the whole device, so the block queued after it keeps
+        running."""
+        if self.event is not None:
+            self.event.synchronize()
+
 
 
 class Simulator:
@@ -343,6 +469,11 @@ class Simulator:
         # timings, errors, skips) is an "off" decision for other backends.
         self.backend, self.autotune_decision = \
             _resolve_backend_for_run(config, state, self.device)
+        # Injected unbuildable backends (utils/faults.py) fail here, where
+        # the JAX package builds its kernels; nothing else raises
+        # BackendUnavailable.
+        faults.check_backend(config.force_backend, self.backend,
+                             JAX_NAMES.get(self.backend, self.backend))
         # As-run cell-list sizing (side, cap, pair-tile slots per force
         # evaluation), for nlist runs.
         self.nlist_sizing = None
@@ -410,6 +541,113 @@ class Simulator:
                 self._kick = lambda ti, sj, m: kick(ti, sj, m) + ext(ti)
             else:
                 self._kick = kick
+        self._build_observatory()
+
+    def _ledger_tree_depth(self) -> int:
+        """The depth of the ledger's large-N tree potential: the energy
+        diagnostic's, resolved once a Simulator."""
+        if self._energy_tree_depth is None:
+            self._energy_tree_depth = _resolve_depth_and_warn(
+                self.config, self.state.positions, "energy ledger",
+                n=self.n_real)
+        return self._energy_tree_depth
+
+    def make_ledger(self, chunk: int = 4096):
+        """(device_fn, convert, pe_kind) of the conservation ledger:
+        ``device_fn(state)`` queues the ledger's components on the state's
+        device (a dict of device scalars), ``convert(components)`` gives
+        the float64 host ledger (``ops/diagnostics.ledger_host``).
+
+        The potential term is the JAX package's: the exact pair scan
+        (``pe_hat_dense``, a pair scan of ``chunk`` targets at a time) up
+        to ``LEDGER_DENSE_MAX`` bodies and for every truncated (rcut) run,
+        its shifted kernel there; above it the octree's scaled potential
+        (``ops/tree._tree_pe_scaled``), the JAX package's branch off the
+        TPU. Its TPU branch (the FMM's potential) and the periodic mesh's
+        come with those solvers (ROADMAP.md Queue 1 item 7). With an
+        external field the ledger adds its potential energy."""
+        config = self.config
+        truncated = config.nlist_rcut > 0.0 and self.backend in (
+            "nlist", "dense", "chunked")
+        rcut = config.nlist_rcut if truncated else 0.0
+        if truncated or self.n_real <= diagnostics.LEDGER_DENSE_MAX:
+            def pe_dev(pos, m):
+                return diagnostics.pe_hat_dense(
+                    pos, m, cutoff=config.cutoff, eps=config.eps,
+                    rcut=rcut, chunk=chunk), diagnostics.mass_scale(m)
+            pe_kind = "dense"
+        else:
+            depth = self._ledger_tree_depth()
+
+            def pe_dev(pos, m):
+                return tree._tree_pe_scaled(
+                    pos, m, depth=depth, leaf_cap=config.tree_leaf_cap,
+                    chunk=config.fast_chunk, ws=config.tree_ws,
+                    cutoff=config.cutoff, eps=config.eps, quad=True)
+            pe_kind = "tree"
+        ext_phi = self._ext_phi
+
+        def device_fn(st: ParticleState) -> dict:
+            pe, scale = pe_dev(st.positions, st.masses)
+            out = {"vec": diagnostics.ledger_vec(
+                       st.positions, st.velocities, st.masses),
+                   "pe": pe, "pe_scale": scale}
+            if ext_phi is not None:
+                m_hat = st.masses / diagnostics.mass_scale(st.masses)
+                out["ext"] = (m_hat * ext_phi(st.positions)).sum()
+            return out
+
+        def convert(dev: dict) -> dict:
+            return diagnostics.ledger_host(
+                dev["vec"], dev.get("pe"), dev.get("pe_scale"), g=config.g,
+                pe_kind=pe_kind, ext=dev.get("ext"))
+
+        return device_fn, convert, pe_kind
+
+    def ledger_of(self, state: Optional[ParticleState] = None,
+                  chunk: int = 4096) -> dict:
+        """The host ledger of ``state`` (the current one by default), with
+        its ``pe_kind``: a fenced, one-off evaluation."""
+        device_fn, convert, pe_kind = self.make_ledger(chunk)
+        out = convert(device_fn(self.state if state is None else state))
+        out["pe_kind"] = pe_kind
+        return out
+
+    def _build_observatory(self) -> None:
+        """The conservation ledger and the accuracy sentinel of this run,
+        each a function of a block's final state that the run loop queues
+        right behind the block (``config.ledger``; ``metrics_energy`` is
+        its deprecated alias; ``sentinel_every``, forced to 1 by an
+        ``error_budget`` with no cadence)."""
+        config = self.config
+        self._ledger_on = bool(config.ledger or config.metrics_energy)
+        if config.metrics_energy and not config.ledger:
+            warnings.warn(
+                "--metrics-energy is a deprecated alias for the in-program "
+                "conservation ledger (--ledger)", DeprecationWarning,
+                stacklevel=3)
+        sent_every = int(config.sentinel_every or 0)
+        if config.error_budget > 0.0 and sent_every <= 0:
+            # A declared budget with no cadence watches every block.
+            sent_every = 1
+        self._sentinel_every = sent_every
+        self._ledger_fn = self._ledger_convert = self._sentinel_fn = None
+        self.ledger_pe_kind = None
+        if self._ledger_on:
+            self._ledger_fn, self._ledger_convert, self.ledger_pe_kind = \
+                self.make_ledger()
+        if sent_every > 0:
+            truncated = config.nlist_rcut > 0.0 and self.backend in (
+                "nlist", "dense", "chunked")
+            idx = sentinel_indices(self.n_real, config.sentinel_k,
+                                   config.seed)
+            # The run's own self-gravity on the whole state, its K sampled
+            # rows against the exact oracle: one extra force evaluation a
+            # probe.
+            self._sentinel_fn = make_force_error_probe(
+                full_set_probe_kernel(self._self_accel, idx), idx=idx,
+                g=config.g, cutoff=config.cutoff, eps=config.eps,
+                rcut=config.nlist_rcut if truncated else 0.0)
 
     @property
     def autotune(self) -> dict:
@@ -554,19 +792,118 @@ class Simulator:
                 2 * self.config.pm_grid, self.config.p3m_sigma_cells,
                 self.dtype, self.device)
 
+    def _resolve_io_pipeline(self) -> bool:
+        """True when this run drives the depth-1 host pipeline: queue block
+        k+1, then consume block k while k+1 runs. ``auto`` means on, except
+        with collision merging, whose pass edits the live state at block
+        boundaries (the block in flight would integrate the state from
+        before the merge); ``on`` with merging raises."""
+        mode = self.config.io_pipeline
+        if mode == "off":
+            return False
+        if self.config.merge_radius > 0.0:
+            if mode == "on":
+                raise ValueError(
+                    "io_pipeline='on' does not compose with collision "
+                    "merging (merge_radius > 0): the merge pass edits "
+                    "the live state at block boundaries, which the "
+                    "in-flight block would ignore; use io_pipeline="
+                    "'auto' (degrades to the serial loop) or 'off'"
+                )
+            return False
+        return True
+
+    @staticmethod
+    def _make_host_pipeline(trajectory_writer, checkpoint_manager,
+                            enabled: bool):
+        """(host_writer, trajectory_writer, submit_save): with ``enabled``
+        and any I/O consumer, trajectory records and checkpoint saves go
+        through one bounded-queue :class:`~gravity_tpu_torch.utils.hostio.
+        HostWriter` (the checksum and the write off the critical path);
+        otherwise ``host_writer`` is None and saves run inline."""
+        host_writer = None
+        if enabled and (trajectory_writer is not None
+                        or checkpoint_manager is not None):
+            from .utils.hostio import HostWriter
+
+            host_writer = HostWriter()
+            if trajectory_writer is not None:
+                trajectory_writer = AsyncTrajectoryWriter(trajectory_writer,
+                                                          host_writer)
+
+        def submit_save(at_step, at_state, extra=None):
+            if host_writer is not None:
+                host_writer.submit(save_checkpoint, checkpoint_manager,
+                                   at_step, at_state, extra=extra)
+            else:
+                save_checkpoint(checkpoint_manager, at_step, at_state,
+                                extra=extra)
+
+        return host_writer, trajectory_writer, submit_save
+
+    def _dispatch_companions(self, state: ParticleState, frames: list, *,
+                             prev_step: int, n_steps: int, save_due: bool,
+                             ledger_due: bool, sentinel_due: bool,
+                             finite_due: bool) -> _Block:
+        """Queue a block's companions behind it, then its event. Nothing
+        here waits for the card."""
+        blk = _Block(prev_step, n_steps, state)
+        if finite_due:
+            blk.finite = _to_host(torch.isfinite(state.positions).all()
+                                  & torch.isfinite(state.velocities).all())
+        if frames:
+            blk.frames = _to_host(torch.stack(frames))
+        if save_due:
+            blk.snapshot = _host_state(state)
+        if ledger_due:
+            blk.ledger = {k: _to_host(v)
+                          for k, v in self._ledger_fn(state).items()}
+        if sentinel_due:
+            blk.sentinel = _to_host(self._sentinel_fn(state.positions,
+                                                      state.masses))
+        if state.positions.device.type == "cuda":
+            # Recorded even with nothing queued: waiting on it is how the
+            # loop observes the block's completion.
+            blk.event = torch.cuda.Event()
+            blk.event.record()
+        return blk
+
     def run(
         self,
         logger: Optional[RunLogger] = None,
         *,
         steps: Optional[int] = None,
         trajectory_writer: Optional[TrajectoryWriter] = None,
+        checkpoint_manager=None,
+        metrics_logger=None,
+        start_step: int = 0,
     ) -> dict:
-        """Run the configured number of steps; returns a results dict.
-        An adaptive config runs :meth:`run_adaptive` instead."""
+        """Run the configured number of steps (from ``start_step`` on a
+        resume); returns a results dict. An adaptive config runs
+        :meth:`run_adaptive` instead. SIGTERM raises
+        :class:`SimulationPreempted` through the same checkpoint-and-exit
+        path as Ctrl-C, so that a preempted run can be resumed."""
+        with preemption_guard():
+            return self._run_impl(
+                logger, steps=steps, trajectory_writer=trajectory_writer,
+                checkpoint_manager=checkpoint_manager,
+                metrics_logger=metrics_logger, start_step=start_step,
+            )
+
+    def _run_impl(self, logger, *, steps, trajectory_writer,
+                  checkpoint_manager, metrics_logger, start_step) -> dict:
         config = self.config
         if config.adaptive:
-            return self.run_adaptive(logger,
-                                     trajectory_writer=trajectory_writer)
+            if steps is not None or start_step:
+                raise ValueError(
+                    "adaptive runs take their span from config.steps "
+                    "(t_end = steps * dt); use run_adaptive(start_t=...) "
+                    "to resume"
+                )
+            return self._run_adaptive_impl(
+                logger, trajectory_writer=trajectory_writer,
+                checkpoint_manager=checkpoint_manager,
+                metrics_logger=metrics_logger)
         total_steps = config.steps if steps is None else steps
         # Frames are kept only when there is somewhere to put them.
         record = trajectory_writer is not None
@@ -581,6 +918,10 @@ class Simulator:
             # Block size must be a multiple of the recording stride.
             block = max(1, block // every) * every
 
+        pipelined = self._resolve_io_pipeline()
+        host_writer, trajectory_writer, save_cadence = \
+            self._make_host_pipeline(trajectory_writer, checkpoint_manager,
+                                     pipelined)
         self._banner(logger, total_steps, config.integrator)
         state = self.state
         step_fn = self._step_fn(state.masses)
@@ -589,73 +930,251 @@ class Simulator:
         # The first force evaluation loads (and, once per source, builds)
         # the kernel; it stays outside the timed loop.
         acc = self.initial_carry(state)
+        ledger_on = self._ledger_fn is not None
+        sent_every = self._sentinel_every if self._sentinel_fn else 0
+        ledger0 = ledger_last = drift_last = max_energy_drift = None
+        if ledger_on:
+            ledger0 = self._ledger_convert(self._ledger_fn(state))
+        ledger_blocks = 0
+        sent_stats = {"probes": 0, "max_rel_err": None, "last": None}
+        blocks_dispatched = 0
+        # self.state and self._last_step follow the CONSUMED blocks, so the
+        # interrupt path can checkpoint mid-run (a pipelined run drops its
+        # block in flight; resume integrates it again).
+        step = start_step
+        self._last_step = step
+        last_good = state
+        # The first dispatch works on a private copy of the caller's
+        # initial state, as the JAX package's does.
+        state = ParticleState(state.positions.clone(),
+                              state.velocities.clone(), state.masses.clone())
         sync(self.device)
-        t0 = time.perf_counter()
-        step = 0
+        t0 = block_prev = time.perf_counter()
+        gap = HostGapTimer()
         steps_since_merge_check = 0
         merged_total = 0
-        while step < total_steps:
-            remaining = total_steps - step
-            if record and remaining >= every:
-                # Whole strides only; any sub-stride tail runs unrecorded.
-                n_steps = min(block, (remaining // every) * every)
-                record_every = every
-            else:
-                n_steps = min(block, remaining)
-                record_every = 0
-            state, acc, frames = self._block_fn(
-                state, acc, step_fn, n_steps=n_steps,
-                record_every=record_every,
-            )
-            prev_step, step = step, step + n_steps
-            # One fence per block: the finite check reads a device value.
-            if config.nan_check and not self._state_finite(state):
-                if logger is not None:
-                    logger.log_print(
-                        f"DIVERGED within steps {prev_step + 1}..{step}; "
-                        f"last finite state is at step {prev_step}"
+        pending = None
+        try:
+            while step < total_steps or pending is not None:
+                if step < total_steps:
+                    # Injected transient errors surface at block start.
+                    faults.maybe_raise_transient(step)
+                    remaining = total_steps - step
+                    if record and remaining >= every:
+                        # Whole strides only; a sub-stride tail runs
+                        # unrecorded.
+                        n_steps = min(block, (remaining // every) * every)
+                        record_every = every
+                    else:
+                        n_steps = min(block, remaining)
+                        record_every = 0
+                    companions = dict(
+                        prev_step=step, n_steps=n_steps,
+                        save_due=checkpoint_manager is not None
+                        and crossed_cadence(step, step + n_steps,
+                                            config.checkpoint_every),
+                        ledger_due=ledger_on,
+                        sentinel_due=bool(sent_every) and
+                        blocks_dispatched % sent_every == 0,
                     )
-                raise SimulationDiverged(prev_step)
-            sync(self.device)
-            self.state = state
-            if logger is not None:
-                logger.progress(step, total_steps)
-            if frames:
-                host = to_numpy(torch.stack(frames))
-                for k in range(host.shape[0]):
-                    trajectory_writer.record(
-                        prev_step + (k + 1) * every, host[k]
-                    )
-            steps_since_merge_check += n_steps
-            # The final block always checks, so that the returned state
-            # holds no never-examined colliding pair.
-            if merging and (steps_since_merge_check >= config.merge_every
-                            or step >= total_steps):
-                steps_since_merge_check = 0
-                res = self.merge_pass(state)
-                n_merged = int(res.n_merged)
-                if n_merged > 0:
-                    state = self.state = res.state
-                    merged_total += n_merged
+                    blocks_dispatched += 1
+                    gap.dispatched()
+                    state, acc, frames = self._block_fn(
+                        state, acc, step_fn, n_steps=n_steps,
+                        record_every=record_every)
+                    step += n_steps
+                    blk = self._dispatch_companions(
+                        state, frames, finite_due=config.nan_check,
+                        **companions)
+                    if pipelined:
+                        # Depth 1: consume the block before this one while
+                        # this one runs. The serial loop is depth 0.
+                        blk, pending = pending, blk
+                        if blk is None:
+                            continue  # priming: nothing to consume yet
+                else:
+                    # Dispatching is done; drain the block in flight.
+                    blk, pending = pending, None
+
+                # --- consume one finished block (k, while k+1 runs) ---
+                blk.wait()
+                gap.completed()
+                prev_step, end_step, bstate = (blk.prev_step, blk.end_step,
+                                               blk.state)
+                finite_ok = blk.finite is None or bool(blk.finite)
+                # Injected divergence: the watchdog's verdict on the
+                # consumed block reads non-finite.
+                if faults.divergence_due(prev_step, end_step):
+                    finite_ok = False
+                if config.nan_check and not finite_ok:
+                    # The watchdog (a block late under the pipeline):
+                    # abort with the last verified state saved. Queued
+                    # cadence saves land first; the emergency save must
+                    # not mask the divergence.
+                    if checkpoint_manager is not None:
+                        try:
+                            if host_writer is not None:
+                                host_writer.barrier()
+                            save_checkpoint(checkpoint_manager, prev_step,
+                                            last_good)
+                        except Exception as ce:  # noqa: BLE001
+                            if logger is not None:
+                                logger.log_print(
+                                    "WARNING: emergency checkpoint at step "
+                                    f"{prev_step} failed: {ce}")
                     if logger is not None:
                         logger.log_print(
-                            f"merged {n_merged} pair(s) at step {step} "
-                            f"({merged_total} total)"
-                        )
-                    # The force reads the new masses from here on.
-                    step_fn = self._step_fn(state.masses)
-                    acc = self.accel(state.positions, state.masses)
+                            f"DIVERGED within steps {prev_step + 1}.."
+                            f"{end_step}; last finite state is at step "
+                            f"{prev_step}"
+                            + (" (checkpoint saved)"
+                               if checkpoint_manager is not None else ""))
+                    raise SimulationDiverged(prev_step)
+                now = time.perf_counter()
+                block_elapsed, block_prev = now - block_prev, now
+                self.state, self._last_step = bstate, end_step
+                last_good = bstate
+                drift = None
+                if blk.ledger is not None:
+                    ledger_last = self._ledger_convert(blk.ledger)
+                    ledger_blocks += 1
+                    drift = drift_last = diagnostics.ledger_drift(
+                        ledger0, ledger_last)
+                    if drift["energy_drift"] is not None:
+                        max_energy_drift = max(max_energy_drift or 0.0,
+                                               drift["energy_drift"])
+                sent_summary = None
+                if blk.sentinel is not None:
+                    sent_summary = sentinel_summary(blk.sentinel)
+                    if faults.accuracy_breach_due(end_step):
+                        # Injected solver overload: the breach runs
+                        # through its real path.
+                        sent_summary = dict(sent_summary, p90_rel_err=1.0,
+                                            max_rel_err=1.0, injected=True)
+                    sent_stats["probes"] += 1
+                    sent_stats["last"] = sent_summary
+                    sent_stats["max_rel_err"] = max(
+                        sent_stats["max_rel_err"] or 0.0,
+                        sent_summary["max_rel_err"])
+                # Injected preemption: a real SIGTERM to this process.
+                faults.maybe_preempt(prev_step, end_step)
+                if logger is not None:
+                    logger.progress(end_step, total_steps)
+                steps_since_merge_check += blk.n_steps
+                # The final block always checks, so that the returned state
+                # holds no never-examined colliding pair. (Merging runs
+                # serially: ``state`` is the consumed state.)
+                if merging and (steps_since_merge_check >= config.merge_every
+                                or end_step >= total_steps):
+                    steps_since_merge_check = 0
+                    res = self.merge_pass(state)
+                    n_merged = int(res.n_merged)
+                    if n_merged > 0:
+                        state = self.state = last_good = res.state
+                        merged_total += n_merged
+                        if logger is not None:
+                            logger.log_print(
+                                f"merged {n_merged} pair(s) at step "
+                                f"{end_step} ({merged_total} total)")
+                        # The force reads the new masses from here on; a
+                        # merger dissipates energy, so the ledger takes a
+                        # new baseline.
+                        step_fn = self._step_fn(state.masses)
+                        acc = self.accel(state.positions, state.masses)
+                        if ledger_on:
+                            ledger0 = self._ledger_convert(
+                                self._ledger_fn(state))
+                if metrics_logger is not None:
+                    extra = {}
+                    if drift is not None:
+                        if ledger_last["energy"] is not None:
+                            extra["total_energy"] = float(
+                                ledger_last["energy"])
+                        for key in ("energy_drift", "momentum_drift",
+                                    "angmom_drift", "com_drift"):
+                            extra[key] = drift[key]
+                    if sent_summary is not None:
+                        extra["force_err_median"] = \
+                            sent_summary["median_rel_err"]
+                        extra["force_err_p90"] = sent_summary["p90_rel_err"]
+                    extra[pairs_metric_name(self.backend)] = (
+                        pairs_per_step(self.n_real) * blk.n_steps
+                        / block_elapsed if block_elapsed > 0 else None)
+                    metrics_logger.log(step=end_step,
+                                       block_steps=blk.n_steps,
+                                       block_s=block_elapsed, **extra)
+                if trajectory_writer is not None and blk.frames is not None:
+                    # The frames were copied behind the block and fenced by
+                    # its event: the writer thread gets numpy arrays only.
+                    host = to_numpy(blk.frames)
+                    record_frames(trajectory_writer,
+                                  range(prev_step + every, blk.end_step + 1,
+                                        every), host)
+                if blk.snapshot is not None:
+                    save_cadence(end_step, blk.snapshot)
+                if (sent_summary is not None and config.error_budget > 0.0
+                        and sent_summary["p90_rel_err"] > config.error_budget):
+                    # Raised after this block's trajectory and checkpoint
+                    # writes, so that a supervised heal continues a
+                    # gap-free run from self._last_step.
+                    if logger is not None:
+                        logger.log_print(
+                            f"ACCURACY BREACH at step {end_step}: "
+                            f"{self.backend} sentinel p90 rel err "
+                            f"{sent_summary['p90_rel_err']:.3e} > budget "
+                            f"{config.error_budget:.3e}")
+                    raise AccuracyBreach(end_step, self.backend,
+                                         sent_summary["p90_rel_err"],
+                                         config.error_budget)
+            # Drain the writer inside the try, so that a failed write fails
+            # the run.
+            if host_writer is not None:
+                host_writer.barrier()
+        except KeyboardInterrupt as e:
+            # Ctrl-C or SIGTERM: save the last consumed block so that
+            # `resume` works; queued cadence saves land first.
+            if checkpoint_manager is not None \
+                    and self._last_step > start_step:
+                word = ("Preempted (SIGTERM)"
+                        if isinstance(e, SimulationPreempted)
+                        else "Interrupted")
+                try:
+                    if host_writer is not None:
+                        host_writer.barrier()
+                    save_checkpoint(checkpoint_manager, self._last_step,
+                                    self.state)
+                except Exception as ce:  # noqa: BLE001 — must not mask
+                    if logger is not None:  # the interrupt itself
+                        logger.log_print(
+                            f"WARNING: {word} at step {self._last_step} "
+                            f"but the checkpoint save failed: {ce}")
+                else:
+                    if logger is not None:
+                        logger.log_print(f"{word} at step "
+                                         f"{self._last_step}; checkpoint "
+                                         "saved")
+            raise
+        finally:
+            if host_writer is not None:
+                host_writer.close(raise_errors=False)
         sync(self.device)
         total_time = time.perf_counter() - t0
+        self.state = state
         if trajectory_writer is not None:
             trajectory_writer.close()
+        # Host work after the last block's completion (its writes, the
+        # writer's drain) is device-idle time too.
+        gap.finish()
 
-        stats = self._stats(total_steps, total_time, count() - launches0)
+        run_steps = total_steps - start_step
+        stats = self._stats(run_steps, total_time, count() - launches0)
+        stats["io_pipeline"] = "on" if pipelined else "off"
+        stats["host_gap_frac"] = gap.host_gap_frac
         if self.nlist_sizing is not None:
             # The N(N-1) rate is what a dense sum would have needed;
             # evaluated_pairs_per_sec counts the pair-tile slots.
             side, cap, slots = self.nlist_sizing
-            evals = total_steps * FORCE_EVALS_PER_STEP[config.integrator]
+            evals = run_steps * FORCE_EVALS_PER_STEP[config.integrator]
             stats.update({
                 "dense_equiv_pairs_per_sec": stats["pairs_per_sec"],
                 "nlist_side": side,
@@ -672,9 +1191,28 @@ class Simulator:
             stats.update({"tree_depth": self.tree_depth,
                           "tree_leaf_cap": config.tree_leaf_cap,
                           "tree_near": config.tree_near})
+        if ledger_on:
+            stats["ledger"] = {"blocks": ledger_blocks,
+                               "pe_kind": self.ledger_pe_kind,
+                               "max_energy_drift": max_energy_drift,
+                               **(drift_last or {})}
+            if ledger_last is not None and ledger_last["energy"] is not None:
+                stats["total_energy"] = float(ledger_last["energy"])
+        if sent_every:
+            stats["sentinel"] = {
+                "backend": self.backend,
+                "every": sent_every,
+                "k": int(config.sentinel_k),
+                "probes": sent_stats["probes"],
+                "max_rel_err": sent_stats["max_rel_err"],
+                **{k: sent_stats["last"][k]
+                   for k in ("median_rel_err", "p90_rel_err")
+                   if sent_stats["last"] is not None},
+            }
         if merging:
             stats["merged_pairs"] = merged_total
-        return self._finish(logger, total_time, total_steps, stats)
+        return self._finish(logger, total_time, run_steps, stats)
+
 
     def _stats(self, steps: int, total_time: float, launches: int) -> dict:
         """The throughput keys shared by fixed-dt and adaptive runs."""
@@ -703,11 +1241,17 @@ class Simulator:
                 stats["kick_t_cap"] = self.kick_sizing[2]
         return stats
 
+
     def run_adaptive(
         self,
         logger: Optional[RunLogger] = None,
         *,
         trajectory_writer: Optional[TrajectoryWriter] = None,
+        checkpoint_manager=None,
+        metrics_logger=None,
+        start_t: float = 0.0,
+        start_comp: float = 0.0,
+        start_steps: int = 0,
     ) -> dict:
         """Adaptive-dt run to t_end = steps * dt (``ops/adaptive.py``).
 
@@ -719,9 +1263,24 @@ class Simulator:
         block's budget is also capped at the steps the remaining time
         needs at dt_max (the first block) or at the previous block's
         largest dt.
-        Trajectory frames land at block boundaries. Checkpoints, the
-        supervisor and the host writer pipeline are ROADMAP Queue 1 items
-        2 and 3."""
+        The block read decides the next block, so the compute stays
+        serial; trajectory frames (at block boundaries) and checkpoint
+        saves still go through the host writer when ``io_pipeline`` is on.
+        A checkpoint carries ``t`` and the Kahan ``comp`` as extras, which
+        ``start_t``/``start_comp``/``start_steps`` take back on a resume.
+        SIGTERM raises :class:`SimulationPreempted` through the
+        checkpoint-and-exit path."""
+        with preemption_guard():
+            return self._run_adaptive_impl(
+                logger, trajectory_writer=trajectory_writer,
+                checkpoint_manager=checkpoint_manager,
+                metrics_logger=metrics_logger, start_t=start_t,
+                start_comp=start_comp, start_steps=start_steps)
+
+    def _run_adaptive_impl(self, logger, *, trajectory_writer,
+                           checkpoint_manager, metrics_logger,
+                           start_t: float = 0.0, start_comp: float = 0.0,
+                           start_steps: int = 0) -> dict:
         config = self.config
         if config.merge_radius > 0.0:
             raise ValueError(
@@ -765,6 +1324,9 @@ class Simulator:
                         f"sub={config.multirate_sub})")
         self._banner(logger, config.steps,
                      f"{mode} ({criterion}, eta={config.eta})")
+        host_writer, trajectory_writer, submit_save = \
+            self._make_host_pipeline(trajectory_writer, checkpoint_manager,
+                                     self._resolve_io_pipeline())
 
         block_cap = max(1, min(config.progress_every,
                                config.adaptive_max_steps))
@@ -779,60 +1341,131 @@ class Simulator:
         launches0 = count()
         acc = self.initial_carry(state)
         sync(self.device)
-        t0_wall = time.perf_counter()
-        t, comp = 0.0, 0.0
-        steps_taken = tail_steps = 0
+        t0_wall = block_prev = time.perf_counter()
+        t, comp = start_t, start_comp
+        steps_taken = start_steps
+        tail_steps = 0
         dt_min, dt_max_used = math.inf, 0.0
         # The dt a block's budget is sized by: the ceiling at first (no
         # step can be longer, so the first block takes no tail step),
         # then the previous block's largest dt.
         dt_est = config.dt
-        while t < t_end_cast and steps_taken < config.adaptive_max_steps:
-            budget = min(block_cap, config.adaptive_max_steps - steps_taken,
-                         max(1, math.ceil((t_end_cast - t) / dt_est)))
-            res = adaptive_run(
-                state, accel_fn, t_end=t_end, dt_max=config.dt,
-                eta=config.eta, eps=config.eps, criterion=criterion,
-                max_steps=budget, t0=t, comp0=comp, acc0=acc,
-                step_fn=step_fn, exclude_fastest=exclude_fastest,
-            )
-            # The block's one host read.
-            t, comp, b_min, b_max, block_steps = torch.stack([
-                res.t.double(), res.comp.double(), res.dt_min.double(),
-                res.dt_max_used.double(), res.steps.double(),
-            ]).tolist()
-            block_steps = int(block_steps)
-            state, acc = res.state, res.acc
-            tail_steps += budget - block_steps
-            if block_steps > 0:
-                dt_min = min(dt_min, b_min)
-                dt_max_used = max(dt_max_used, b_max)
-                dt_est = b_max
-            if config.nan_check and not self._state_finite(state):
+        # One consistent (state, steps, t, comp) snapshot, replaced in one
+        # assignment once a block is known finite: the only source of
+        # checkpoints, so that no save pairs a state with another t.
+        snap = (state, steps_taken, t, comp)
+        self._snap = snap
+        self._last_step = steps_taken
+        try:
+            while (t < t_end_cast
+                   and steps_taken < config.adaptive_max_steps):
+                faults.maybe_raise_transient(steps_taken)
+                prev_steps = steps_taken
+                budget = min(block_cap,
+                             config.adaptive_max_steps - steps_taken,
+                             max(1, math.ceil((t_end_cast - t) / dt_est)))
+                res = adaptive_run(
+                    state, accel_fn, t_end=t_end, dt_max=config.dt,
+                    eta=config.eta, eps=config.eps, criterion=criterion,
+                    max_steps=budget, t0=t, comp0=comp, acc0=acc,
+                    step_fn=step_fn, exclude_fastest=exclude_fastest,
+                )
+                # The block's one host read.
+                t, comp, b_min, b_max, block_steps = torch.stack([
+                    res.t.double(), res.comp.double(), res.dt_min.double(),
+                    res.dt_max_used.double(), res.steps.double(),
+                ]).tolist()
+                block_steps = int(block_steps)
+                state, acc = res.state, res.acc
+                state = faults.maybe_corrupt_state(
+                    state, prev_steps, prev_steps + block_steps)
+                tail_steps += budget - block_steps
+                if block_steps > 0:
+                    dt_min = min(dt_min, b_min)
+                    dt_max_used = max(dt_max_used, b_max)
+                    dt_est = b_max
+                if config.nan_check and not self._state_finite(state):
+                    if checkpoint_manager is not None and snap[1] > 0:
+                        try:
+                            if host_writer is not None:
+                                host_writer.barrier()
+                            save_checkpoint(
+                                checkpoint_manager, snap[1], snap[0],
+                                extra={"t": snap[2], "comp": snap[3]})
+                        except Exception as ce:  # noqa: BLE001
+                            if logger is not None:
+                                logger.log_print(
+                                    "WARNING: emergency checkpoint at "
+                                    f"step {snap[1]} failed: {ce}")
+                    if logger is not None:
+                        logger.log_print(
+                            f"DIVERGED during adaptive run (after "
+                            f"{steps_taken} steps)"
+                        )
+                    raise SimulationDiverged(steps_taken)
+                now = time.perf_counter()
+                block_elapsed, block_prev = now - block_prev, now
+                steps_taken += block_steps
+                snap = (state, steps_taken, t, comp)
+                self._snap = snap
+                self.state, self._last_step = state, steps_taken
+                faults.maybe_preempt(prev_steps, steps_taken)
                 if logger is not None:
                     logger.log_print(
-                        f"DIVERGED during adaptive run (after "
-                        f"{steps_taken} steps)"
+                        f"t={t:.6g}/{t_end:.6g} ({steps_taken} adaptive "
+                        f"steps, dt in [{b_min:.3g}, {b_max:.3g}])"
                     )
-                raise SimulationDiverged(steps_taken)
-            steps_taken += block_steps
-            self.state = state
-            if logger is not None:
-                logger.log_print(
-                    f"t={t:.6g}/{t_end:.6g} ({steps_taken} adaptive "
-                    f"steps, dt in [{b_min:.3g}, {b_max:.3g}])"
-                )
-            if trajectory_writer is not None and block_steps > 0:
-                trajectory_writer.record(steps_taken,
-                                         to_numpy(state.positions))
-            if block_steps == 0:
-                break  # t >= t_end in the state's dtype
+                if metrics_logger is not None:
+                    metrics_logger.log(
+                        step=steps_taken, block_steps=block_steps,
+                        block_s=block_elapsed, t=t,
+                        dt_min=b_min if block_steps else None,
+                        dt_max=b_max if block_steps else None,
+                        **{pairs_metric_name(self.backend): (
+                            pairs_per_step(self.n_real) * block_steps
+                            / block_elapsed if block_elapsed > 0 else None)})
+                if trajectory_writer is not None and block_steps > 0:
+                    trajectory_writer.record(steps_taken,
+                                             to_numpy(state.positions))
+                if checkpoint_manager is not None and crossed_cadence(
+                        prev_steps, steps_taken, config.checkpoint_every):
+                    submit_save(steps_taken, _host_state(state),
+                                {"t": t, "comp": comp})
+                if block_steps == 0:
+                    break  # t >= t_end in the state's dtype
+            if host_writer is not None:
+                host_writer.barrier()
+        except KeyboardInterrupt as e:
+            if checkpoint_manager is not None and snap[1] > start_steps:
+                word = ("Preempted (SIGTERM)"
+                        if isinstance(e, SimulationPreempted)
+                        else "Interrupted")
+                try:
+                    if host_writer is not None:
+                        host_writer.barrier()
+                    save_checkpoint(checkpoint_manager, snap[1], snap[0],
+                                    extra={"t": snap[2], "comp": snap[3]})
+                except Exception as ce:  # noqa: BLE001 — must not mask
+                    if logger is not None:  # the interrupt itself
+                        logger.log_print(
+                            f"WARNING: {word} at adaptive step {snap[1]} "
+                            f"but the checkpoint save failed: {ce}")
+                else:
+                    if logger is not None:
+                        logger.log_print(
+                            f"{word} at adaptive step {snap[1]} "
+                            f"(t={snap[2]:.6g}); checkpoint saved")
+            raise
+        finally:
+            if host_writer is not None:
+                host_writer.close(raise_errors=False)
         sync(self.device)
         total_time = time.perf_counter() - t0_wall
         if trajectory_writer is not None:
             trajectory_writer.close()
 
-        stats = self._stats(steps_taken, total_time, count() - launches0)
+        run_steps = steps_taken - start_steps
+        stats = self._stats(run_steps, total_time, count() - launches0)
         stats.update(
             t_end=t_end,
             t_reached=t,
@@ -847,7 +1480,7 @@ class Simulator:
                 f"WARNING: max_steps={config.adaptive_max_steps} hit at "
                 f"t={t:.6g} of {t_end:.6g}"
             )
-        return self._finish(logger, total_time, steps_taken, stats)
+        return self._finish(logger, total_time, run_steps, stats)
 
     def _banner(self, logger: Optional[RunLogger], steps: int,
                 integrator_label: str) -> None:

@@ -1,0 +1,247 @@
+"""Deterministic fault injection: every recovery path, testable on the CPU.
+
+Counterpart of the run-loop part of ``gravity_tpu/utils/faults.py``. None
+of the failures the supervisor heals (divergence, transient device
+errors, an unbuildable backend, preemption, an accuracy breach) happens
+on its own in a short test, so each is injectable here and fires at the
+code point where the real fault would surface: a divergence at a block
+boundary (the fixed-dt loop takes the consumed block's watchdog verdict
+as non-finite, :func:`divergence_due`; the adaptive loop NaNs a copy of
+its state, :func:`maybe_corrupt_state`, and its watchdog trips through
+its detection path), :class:`TransientFault` is raised at block start,
+:class:`BackendUnavailable` when a Simulator is built, and a real SIGTERM
+is sent to this process (the signal handler itself is exercised).
+
+These two exceptions come from the fault plan and from nowhere else: a
+kernel that fails to build or to launch raises its own error, which
+propagates and is never turned into either of them.
+
+The plan comes from the ``GRAVITY_TPU_FAULTS`` environment variable (so
+subprocesses inherit it) or from :func:`install`. Grammar, items
+separated by commas:
+
+    diverge@STEP          a non-finite state at the first block
+                          boundary crossing STEP (fires once)
+    transient@STEP        raise TransientFault at the first block starting
+                          at or after STEP; ``transient@STEPxCOUNT``
+                          repeats it COUNT times
+    preempt@STEP          send SIGTERM to this process at the first block
+                          boundary crossing STEP (fires once)
+    backend:NAME          building force backend NAME raises
+                          BackendUnavailable (persistent)
+    accuracy_breach@STEP  the sentinel's first probe at or after STEP
+                          reports an error past any budget (fires once)
+
+The JAX package's serving and mesh items (``crash_worker``,
+``stall_worker``, ``stale_lease``, ``torn_spool_write``,
+``drop_result_write``, ``mesh_fail``, ``collective_stall``,
+``torn_progress_write``, ``disk_full``) parse, then raise
+:class:`~gravity_tpu_torch.config.NotPortedError`: they fire in the
+serving stack (ROADMAP.md Queue 1 item 9) and on a device mesh (item 5).
+
+Example: ``GRAVITY_TPU_FAULTS="transient@10x2,diverge@20"``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import signal
+from typing import Optional
+
+from ..config import NotPortedError
+
+ENV_KNOB = "GRAVITY_TPU_FAULTS"
+
+RUN_KINDS = ("diverge", "transient", "preempt", "accuracy_breach")
+# The JAX package's serving-layer and mesh items, with the ROADMAP item
+# that ports their code points.
+UNPORTED_KINDS = {
+    "crash_worker": 9, "stall_worker": 9, "stale_lease": 9,
+    "torn_spool_write": 9, "drop_result_write": 9,
+    "torn_progress_write": 9, "disk_full": 9,
+    "mesh_fail": 5, "collective_stall": 5,
+}
+
+
+class TransientFault(RuntimeError):
+    """An injected transient device or runtime error: the class the
+    supervisor retries with exponential backoff."""
+
+
+class BackendUnavailable(RuntimeError):
+    """An injected unbuildable force backend: the class the supervisor
+    degrades down the backend ladder."""
+
+    def __init__(self, backend: str, reason: str = "fault injection"):
+        super().__init__(
+            f"force backend {backend!r} unavailable ({reason})"
+        )
+        self.backend = backend
+
+
+@dataclasses.dataclass
+class _Fault:
+    kind: str
+    step: int = 0
+    count: int = 1
+    backend: str = ""
+
+
+class FaultPlan:
+    """A parsed, stateful plan (counts decrement as faults fire)."""
+
+    def __init__(self, faults: list):
+        self._faults = faults
+
+    @staticmethod
+    def parse(spec: str) -> "FaultPlan":
+        faults = []
+        for item in spec.split(","):
+            item = item.strip()
+            if not item:
+                continue
+            if item.startswith("backend:"):
+                faults.append(
+                    _Fault(kind="backend", backend=item.split(":", 1)[1])
+                )
+                continue
+            if "@" not in item:
+                raise ValueError(
+                    f"bad fault spec {item!r}: expected KIND@STEP[xCOUNT] "
+                    "or backend:NAME"
+                )
+            kind, arg = item.split("@", 1)
+            count = 1
+            if "x" in arg:
+                arg, cnt = arg.split("x", 1)
+                count = int(cnt)
+            step = int(arg)
+            if kind in UNPORTED_KINDS:
+                raise NotPortedError(
+                    f"fault {item!r} fires in the JAX package's "
+                    + ("serving stack" if UNPORTED_KINDS[kind] == 9
+                       else "device mesh")
+                    + ", which is not ported to gravity_tpu_torch yet "
+                    f"(ROADMAP.md Queue 1 item {UNPORTED_KINDS[kind]})"
+                )
+            if kind not in RUN_KINDS:
+                raise ValueError(f"unknown fault kind {kind!r}")
+            faults.append(_Fault(kind=kind, step=step, count=count))
+        return FaultPlan(faults)
+
+    def _take(self, kind: str, due) -> Optional[_Fault]:
+        """Consume one occurrence of the first matching armed fault."""
+        for f in self._faults:
+            if f.kind == kind and f.count > 0 and due(f):
+                f.count -= 1
+                return f
+        return None
+
+    def corrupt_due(self, prev_step: int, step: int) -> bool:
+        return self._take(
+            "diverge", lambda f: prev_step < f.step <= step
+        ) is not None
+
+    def transient_due(self, step: int) -> bool:
+        return self._take("transient", lambda f: step >= f.step) is not None
+
+    def preempt_due(self, prev_step: int, step: int) -> bool:
+        return self._take(
+            "preempt", lambda f: prev_step < f.step <= step
+        ) is not None
+
+    def breach_due(self, step: int) -> bool:
+        return self._take(
+            "accuracy_breach", lambda f: step >= f.step
+        ) is not None
+
+    def backend_down(self, backend: str) -> bool:
+        # Persistent: a platform that cannot build a kernel fails every
+        # attempt, which the degrade ladder must survive.
+        return any(
+            f.kind == "backend" and f.backend == backend
+            for f in self._faults
+        )
+
+
+_active: Optional[FaultPlan] = None
+_parsed_env = False
+
+
+def active() -> Optional[FaultPlan]:
+    """The process-wide plan (the environment is parsed lazily; None = no
+    injection)."""
+    global _active, _parsed_env
+    if _active is None and not _parsed_env:
+        _parsed_env = True
+        spec = os.environ.get(ENV_KNOB, "")
+        if spec:
+            _active = FaultPlan.parse(spec)
+    return _active
+
+
+def install(spec: str) -> FaultPlan:
+    """Install a plan in this process (tests)."""
+    global _active, _parsed_env
+    _active = FaultPlan.parse(spec)
+    _parsed_env = True
+    return _active
+
+
+def reset() -> None:
+    """Drop the plan; the next :func:`active` reads the environment again."""
+    global _active, _parsed_env
+    _active = None
+    _parsed_env = False
+
+
+def maybe_corrupt_state(state, prev_step: int, step: int):
+    """A copy of ``state`` with one NaN coordinate when a diverge fault
+    crosses ``(prev_step, step]``, else ``state`` itself."""
+    plan = active()
+    if plan is None or not plan.corrupt_due(prev_step, step):
+        return state
+    positions = state.positions.clone()
+    positions[0, 0] = float("nan")
+    return state.replace(positions=positions)
+
+
+def divergence_due(prev_step: int, step: int) -> bool:
+    """Does a diverge fault cross ``(prev_step, step]``? The fixed-dt loop
+    then takes the block's watchdog verdict as non-finite. (Fires once.)"""
+    plan = active()
+    return plan is not None and plan.corrupt_due(prev_step, step)
+
+
+def maybe_raise_transient(step: int) -> None:
+    plan = active()
+    if plan is not None and plan.transient_due(step):
+        raise TransientFault(
+            f"injected transient device error at step {step}"
+        )
+
+
+def maybe_preempt(prev_step: int, step: int) -> None:
+    """Send a real SIGTERM, so that the handler itself is exercised."""
+    plan = active()
+    if plan is not None and plan.preempt_due(prev_step, step):
+        os.kill(os.getpid(), signal.SIGTERM)
+
+
+def check_backend(*names: str) -> None:
+    """Raise :class:`BackendUnavailable` when the plan takes down any of
+    ``names`` (a backend's config name and its resolved name)."""
+    plan = active()
+    if plan is None:
+        return
+    for name in names:
+        if plan.backend_down(name):
+            raise BackendUnavailable(name)
+
+
+def accuracy_breach_due(step: int) -> bool:
+    """Should the sentinel probe at ``step`` report an injected error past
+    any budget? (Fires once.)"""
+    plan = active()
+    return plan is not None and plan.breach_due(step)

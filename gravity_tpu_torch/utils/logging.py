@@ -7,6 +7,7 @@ message mirrored to stdout, a start banner, ``Step k/STEPS`` progress
 lines, a ``Performance Statistics:`` section, a ``Final positions:``
 section and a closing ``Simulation completed successfully`` line. The
 banner names the platform the run is on (GPU or CPU) and its device.
+:class:`RecoveryEventLogger` is the supervisor's JSONL audit trail.
 """
 
 from __future__ import annotations
@@ -55,6 +56,17 @@ class RunEventLogger(JsonlEventLogger):
     """The run log's structured sidecar."""
 
     KINDS = ("banner", "progress", "performance", "completed")
+
+
+class RecoveryEventLogger(JsonlEventLogger):
+    """Recovery events: the audit trail of the self-healing supervisor, in
+    the JAX package's JSONL schema. Event-specific keys ride along (step,
+    dt, backend, backoff_s, ...)."""
+
+    KINDS = (
+        "diverged", "rolled_back", "retry", "degraded", "preempted",
+        "accuracy_breach",
+    )
 
 
 class RunLogger:

@@ -1,13 +1,16 @@
-"""Runtime fidelity checks.
+"""Runtime fidelity checks and the per-block metrics stream.
 
-Counterpart of ``gravity_tpu/utils/profiling.py``, of which only
-:func:`debug_check_forces` is ported: the accuracy half of the autotuner's
-probe. The profiler trace, the memory snapshot and the metrics logger are
-ROADMAP.md Queue 1 item 8 (``telemetry/perf.py``) and item 3.
+Counterpart of ``gravity_tpu/utils/profiling.py``: :func:`debug_check_forces`
+(the accuracy half of the autotuner's probe and ``--debug-check``), the
+accuracy sentinel (:func:`sentinel_indices`, :func:`make_force_error_probe`,
+:func:`full_set_probe_kernel`, :func:`sentinel_summary`) and
+:class:`MetricsLogger`. The profiler trace and the memory snapshot are
+ROADMAP.md Queue 1 item 8 (``telemetry/perf.py``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 
 from ..constants import CUTOFF_RADIUS, G
 from ..ops.forces import accelerations_vs
+from .logging import JsonlEventLogger
 
 # Targets a call of the oracle takes at once: (rows, N, 3) temporaries.
 _ORACLE_ROWS = 32
@@ -83,4 +87,113 @@ def debug_check_forces(
         "p90_rel_err": float(np.percentile(rel, 90)),
         "median_rel_err": float(np.median(rel)),
         "n_checked": int(targets.shape[0]),
+    }
+
+
+class MetricsLogger(JsonlEventLogger):
+    """The per-block metrics stream (``--metrics``): one ``event="block"``
+    JSONL record a consumed block, with ``step``, ``block_steps``,
+    ``block_s`` (consumption to consumption), ``wall_s`` since the logger
+    was made, and a pair rate whose key says what was computed
+    (``utils/timing.pairs_metric_name``: ``pairs_per_sec`` for the direct
+    sums, ``dense_equiv_pairs_per_sec`` for the others); with the ledger
+    the energy, momentum, angular momentum and COM drifts, with the
+    sentinel its median and p90 relative force error."""
+
+    KINDS = ("block",)
+
+    def __init__(self, path: str):
+        super().__init__(path)
+        self._start = time.perf_counter()
+
+    def log(self, **metrics) -> None:
+        clean = {
+            k: (v.item() if hasattr(v, "item") else v)
+            for k, v in metrics.items()
+        }
+        self.event(
+            "block", wall_s=time.perf_counter() - self._start, **clean
+        )
+
+
+def sentinel_indices(n: int, k: int, seed: int = 0) -> np.ndarray:
+    """The K fixed target rows the accuracy sentinel probes: sorted,
+    drawn by ``np.random.RandomState(seed)``, the JAX package's rows for
+    the same (n, k, seed)."""
+    k = max(1, min(int(k), n))
+    if k >= n:
+        return np.arange(n)
+    return np.sort(
+        np.random.RandomState(seed).choice(n, k, replace=False)
+    )
+
+
+def _oracle(g: float, cutoff: float, eps: float, rcut: float):
+    """The exact direct sum ``(targets, sources, masses) -> acc`` of the
+    sentinel: ``nbody_direct``'s rectangular form (its wrapper launches
+    the kernel on CUDA tensors and takes the plain sum only on CPU ones);
+    with ``rcut`` > 0 the rcut-masked plain sum, the exact reference of
+    the truncated cell-list family, which no kernel computes."""
+    if rcut > 0.0:
+        return lambda t, p, m: accelerations_vs(
+            t, p, m, g=g, cutoff=cutoff, eps=eps, rcut=rcut)
+    from ..ops.direct_kernel import make_direct_local_kernel
+
+    return make_direct_local_kernel(g=g, cutoff=cutoff, eps=eps)
+
+
+def make_force_error_probe(kernel, *, idx, g: float, cutoff: float,
+                           eps: float = 0.0, rcut: float = 0.0):
+    """The device half of the accuracy sentinel: ``probe(positions,
+    masses) -> (K,)`` relative force errors of ``kernel`` (``(targets,
+    sources, masses) -> acc``) against the exact oracle (:func:`_oracle`)
+    on the K fixed targets ``idx``. Queued right behind a block, so that
+    its values are read through that block's completion fence."""
+    oracle = _oracle(g, cutoff, eps, rcut)
+    idx_np = np.asarray(idx, np.int64)
+    cache = {}
+
+    def probe(positions, masses):
+        dev = positions.device
+        if dev not in cache:
+            cache[dev] = torch.from_numpy(idx_np).to(dev)
+        targets = positions[cache[dev]]
+        ref = oracle(targets, positions, masses)
+        got = kernel(targets, positions, masses)
+        denom = torch.linalg.norm(ref, dim=1) + torch.tensor(
+            1e-30, dtype=ref.dtype, device=dev)
+        return torch.linalg.norm(got - ref, dim=1) / denom
+
+    return probe
+
+
+def full_set_probe_kernel(full_accel, idx):
+    """A full-set accelerations function ``(positions, masses) -> (N, 3)``
+    in the sentinel's kernel slot: the backend evaluates the whole state
+    and the probe compares the K sampled rows (one extra force evaluation
+    a probe, amortized by the cadence)."""
+    idx_np = np.asarray(idx, np.int64)
+    cache = {}
+
+    def kernel(targets, positions, masses):
+        del targets
+        dev = positions.device
+        if dev not in cache:
+            cache[dev] = torch.from_numpy(idx_np).to(dev)
+        return full_accel(positions, masses)[cache[dev]]
+
+    return kernel
+
+
+def sentinel_summary(rel_errors) -> dict:
+    """The host summary of one probe's (K,) relative errors: the fields
+    the metrics stream, the run stats and the breach check read."""
+    if isinstance(rel_errors, torch.Tensor):
+        rel_errors = rel_errors.detach().double().cpu().numpy()
+    rel = np.asarray(rel_errors, np.float64)
+    return {
+        "median_rel_err": float(np.median(rel)),
+        "p90_rel_err": float(np.percentile(rel, 90)),
+        "max_rel_err": float(rel.max()),
+        "n_checked": int(rel.shape[0]),
     }

@@ -2,8 +2,8 @@
 
 Counterpart of ``gravity_tpu/utils/timing.py``: the completion fence for
 wall-clock timing, pair-interaction counts and rates, and the roofline
-position of a pair rate against the card's peak. ``HostGapTimer`` (the
-host pipeline's idle share) is ROADMAP.md Queue 1 item 3.
+position of a pair rate against the card's peak, and ``HostGapTimer``,
+the host pipeline's device-idle share (``host_gap_frac``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from .platform import DeviceLike, sync
 __all__ = ["sync", "warm_sync", "DIRECT_SUM_BACKENDS", "pairs_metric_name",
            "pairs_per_step", "FLOPS_PER_PAIR", "DEVICE_PEAK_TFLOPS",
            "device_peak_tflops", "roofline", "backend_formulation",
-           "StepTimer", "throughput"]
+           "StepTimer", "HostGapTimer", "throughput"]
 
 
 def warm_sync(device: DeviceLike = None) -> None:
@@ -157,6 +157,65 @@ class StepTimer:
 
     def avg_step(self, steps: int) -> float:
         return self.total / max(steps, 1)
+
+
+@dataclass
+class HostGapTimer:
+    """Device-idle ("host gap") accounting of the block pipeline.
+
+    ``host_gap_frac`` is the share of the run's wall clock during which
+    the run loop held no dispatched and unconsumed block: time the card is
+    idle because nothing was in flight. The serial loop (``io_pipeline``
+    off) shows its whole host tax here (the watchdog read, the ledger,
+    trajectory copies and writes, checkpoint saves, all with nothing
+    queued); the depth-1 pipeline keeps a block in flight through
+    consumption. Completion is only ever observed, never assumed: the
+    caller marks :meth:`completed` after a CUDA event's ``synchronize()``
+    or a value fetch of the block, so the metric cannot undercount the
+    serial tax."""
+
+    inflight: int = 0
+    gap_s: float = 0.0
+    _first_dispatch: Optional[float] = None
+    _last_complete: Optional[float] = None
+    _last_event: Optional[float] = None
+
+    def dispatched(self) -> None:
+        now = time.perf_counter()
+        if self._first_dispatch is None:
+            self._first_dispatch = now
+        if self.inflight == 0 and self._last_complete is not None:
+            self.gap_s += now - self._last_complete
+        self.inflight += 1
+        self._last_event = now
+
+    def completed(self) -> None:
+        now = time.perf_counter()
+        self.inflight = max(0, self.inflight - 1)
+        self._last_complete = now
+        self._last_event = now
+
+    def finish(self) -> None:
+        """Close the window at the end of the run: host work after the
+        last block's observed completion (its trajectory writes, the final
+        checkpoint, the writer's drain) is idle time with nothing in
+        flight."""
+        now = time.perf_counter()
+        if self.inflight == 0 and self._last_complete is not None:
+            self.gap_s += now - self._last_complete
+            self._last_complete = now
+        self._last_event = now
+
+    @property
+    def span_s(self) -> float:
+        if self._first_dispatch is None or self._last_event is None:
+            return 0.0
+        return self._last_event - self._first_dispatch
+
+    @property
+    def host_gap_frac(self) -> Optional[float]:
+        span = self.span_s
+        return self.gap_s / span if span > 0 else None
 
 
 def throughput(

@@ -136,12 +136,25 @@ def test_bench_verb_prints_the_stats(capsys):
     assert stats["pair_interactions"] == 200 * 199 * 2
 
 
-@pytest.mark.parametrize("flag,item", [("--cadence", "items 2 and 3"),
-                                       ("--report", "item 10"),
+@pytest.mark.parametrize("flag,item", [("--report", "item 10"),
                                        ("--gate", "item 8")])
 def test_bench_modes_not_ported_name_their_item(flag, item):
     with pytest.raises(NotPortedError, match=item):
         main(["bench", "--device", "cpu", "--n", "64", flag])
+
+
+@pytest.mark.parametrize("mode", ["on", "off"])
+def test_bench_cadence_runs_with_trajectories_and_checkpoints(mode, capsys):
+    """``bench --cadence``: a whole run with trajectories and a checkpoint
+    every block (progress_every), through the pipeline or the serial
+    loop; its line carries steps_per_sec and host_gap_frac."""
+    assert main(["bench", "--device", "cpu", "--n", "64", "--steps", "40",
+                 "--progress-every", "10", "--cadence", "--io-pipeline",
+                 mode]) == 0
+    stats = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert stats["io_pipeline"] == mode and stats["steps"] == 40
+    assert stats["checkpoint_every"] == 10 and stats["steps_per_sec"] > 0
+    assert 0.0 <= stats["host_gap_frac"] <= 1.0
 
 
 def _parse(add_args, argv):

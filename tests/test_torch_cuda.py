@@ -873,3 +873,26 @@ def test_bf16_tree_build_launches_exactly(cuda, monkeypatch, depth, quad):
     for level, ref in zip(got, want):
         for g, w in zip(level, ref):
             assert torch.equal(_bits(g), _bits(w))
+
+
+@pytest.mark.parametrize("mode", ["on", "off"])
+def test_every_block_is_fenced_by_its_own_event(cuda, monkeypatch, mode):
+    """With nothing queued behind a block (no watchdog, frames, saves,
+    ledger or sentinel) the run loop still waits on the block's own CUDA
+    event, in both modes: its completion is observed, never assumed."""
+    blocks = []
+    dispatch = Simulator._dispatch_companions
+
+    def spy(self, *args, **kwargs):
+        blocks.append(dispatch(self, *args, **kwargs))
+        return blocks[-1]
+
+    monkeypatch.setattr(Simulator, "_dispatch_companions", spy)
+    cfg = SimulationConfig(model="random", n=1024, steps=20,
+                           progress_every=5, force_backend="pallas",
+                           nan_check=False, io_pipeline=mode)
+    stats = Simulator(cfg).run()
+    assert stats["io_pipeline"] == mode
+    assert len(blocks) == 4
+    assert all(b.event is not None and b.event.query() for b in blocks)
+    assert 0.0 <= stats["host_gap_frac"] <= 1.0

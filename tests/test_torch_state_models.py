@@ -133,9 +133,9 @@ def test_interop_round_trip_with_a_jax_state():
 @pytest.mark.parametrize("fields,item", [
     ({"sharding": "allgather"}, "Queue 1 item 5"),
     ({"periodic_box": 1e12}, "Queue 1 item 7"),
-    ({"checkpoint_every": 10}, "Queue 1 item 2"),
+    ({"profile": True}, "Queue 1 item 8"),
     ({"pm_assignment": "tsc"}, "Queue 1 item 7"),
-    ({"trajectory_format": "native"}, "Queue 1 item 3"),
+    ({"trace": True}, "Queue 1 item 9"),
     ({"model": "grf"}, "Queue 1 item 7"),
     ({"force_backend": "fmm"}, "Queue 1 item 7"),
     ({"force_backend": "pm"}, "Queue 1 item 7"),
