@@ -42,12 +42,12 @@ set to 0 just before the path and read just after:
   ``baseline-16k`` (the chunked scan), each cut to 100 steps; each fast
   kick shape held to its plain version;
 - the octree: ``baseline-1m`` (the 1M disk, G = 1, leaf_cap 32, depth 7
-  fit to the state) with ``--tree-near nlist``, cut to 50 of 500 steps,
+  fit to the state) with ``--tree-near nlist``, cut to 20 of 500 steps,
   through ``nlist_pair``'s untruncated form (``nlist_pair/near``), its
   forces held to ``nbody_direct`` at 4,096 targets and to the gather
   near field on the same state (fp32 and fp64, each piece of the near
   field also taken out in turn to show the bars catch it); the preset's
-  own gather near field (3 steps, no kernel); and multirate (10 steps);
+  own gather near field (3 steps, no kernel); and multirate (5 steps);
 - bf16 states through the cell list and the octree, through
   ``nlist_pair``'s bf16 form: the README cell-list run at ``--dtype
   bfloat16`` (cut to 100 steps; multirate cut to 20), its forces against
@@ -55,12 +55,21 @@ set to 0 just before the path and read just after:
   10 steps; its gather near field and multirate, 3 each), its forces
   against the fp32 tree and ``nbody_direct`` (bar: 1.5x the JAX
   package's own bf16 figure) and the two near fields against each other;
+- the fast multipole solvers, plain PyTorch (no kernel may launch on
+  their paths): ``baseline-1m-fmm`` (the 1M disk, fmm_mode auto, which
+  must resolve sparse: depth 9) cut to 3 steps, its stages profiled, its
+  forces against ``nbody_direct`` at 4,096 targets; the 1M uniform cube
+  through the dense grid (2 steps); sparse (both far modes) against
+  dense on one overflow-free state; ``baseline-1m-fmm`` multirate (3
+  steps, kicks through the dense grid's rectangular form, one held to
+  ``nbody_direct``); ``--debug-check`` on the preset through the CLI;
 - the measurement layer: ``bench.main()`` (``python -m
   gravity_tpu_torch.bench``) through ``nbody_direct``, ``nbody_mxu`` and
   ``nlist_pair`` at N = 262,144 (each rate held under 1.05x its kernel's
   rate alone), and plain ``auto`` through the autotuned router in a fresh
   tuning cache: ``baseline-1m`` and ``baseline-16k`` (``--tree-near
-  nlist``: pallas, pallas-mxu, tree) and the README cell-list run (nlist
+  nlist``: pallas, pallas-mxu, tree, fmm, sfmm) and the README cell-list
+  run (nlist
   against the masked direct sum), each a miss that runs the argmin's
   kernel, then a hit; and ``tune --sizes 16384 65536`` twice;
 - the run loop's host side: ``baseline-16k`` (500 steps, trajectories, a
@@ -73,7 +82,8 @@ set to 0 just before the path and read just after:
   preempted and resumed, its gap reported; ``baseline-16k`` with
   ``--auto-recover`` healing ``diverge@300`` (exit 0) and without it
   exiting 2; ``bench --cadence`` on and off on the README cell list;
-  ``baseline-1m --ledger`` (3 steps, the tree potential); the host syncs
+  ``baseline-1m --ledger`` (3 steps, the card's large-N potential, the
+  FMM's, timed against the tree's); the host syncs
   a step of each path; and on the main, nlist, Gram, P3M, multirate and
   merge paths the energy drift by the conservation ledger, outside the
   timed runs.
@@ -2300,6 +2310,11 @@ def logged_run(sim, name: str, *, fixed_steps=None) -> tuple:
         sections.append(f"Step {fixed_steps}/")
     for section in sections:
         check(section in log, f"{name}: log lacks {section!r}")
+    if sim.backend in ("fmm", "sfmm"):
+        # Plain PyTorch, as the JAX package's jnp: no kernel may launch.
+        check(stats["kernel_launches"] == 0 and not any(counts.values()),
+              f"{name}: a kernel launched on the FMM's path: {counts}")
+        return stats, counts
     key = {"nbody_direct": "nbody_direct", "nbody_mxu": "nbody_mxu",
            "nlist": "nlist_pair", "tree": "nlist_pair/near"}[sim.backend]
     if sim.backend in ("nlist", "tree") and sim.config.dtype == "bfloat16":
@@ -2916,11 +2931,12 @@ def phase_merge_path(device: dict) -> dict:
 
 # The octree run: the baseline-1m preset (the JAX package's 1M disk in
 # galactic units, G = 1, dt 2e-3, eps 0.05, leapfrog, leaf_cap 32, the
-# depth fit to the state) with --tree-near nlist, cut to 50 of its 500
-# steps; with the preset's own gather near field, 3 steps; multirate, 10.
-TREE_STEPS = 50
+# depth fit to the state) with --tree-near nlist, cut to 20 of its 500
+# steps (50 before the FMM's phases came); with the preset's own gather
+# near field, 3 steps; multirate, 5 (10 before).
+TREE_STEPS = 20
 TREE_GATHER_STEPS = 3
-TREE_MULTIRATE_STEPS = 10
+TREE_MULTIRATE_STEPS = 5
 TREE_SAMPLE = 4096
 # The JAX suite's bars for the tree against the exact sum
 # (tests/test_tree.py:86-87: a 2,048-body disk at depth 5, where the leaf
@@ -3139,9 +3155,9 @@ def broken_near_fields(positions, masses, kw: dict):
 
 def phase_tree_path(device: dict) -> dict:
     """`run --preset baseline-1m --tree-near nlist` through the Simulator
-    at N = 1,048,576, cut to 50 of its 500 steps: the near field's
+    at N = 1,048,576, cut to TREE_STEPS of its 500 steps: the near field's
     launches against the force evaluations, the peak device memory, the
-    energy drift by the tree potential (reported), and the forces on the
+    energy drift by Simulator.energy() (reported), and the forces on the
     final state in both near modes against nbody_direct at 4,096 sampled
     targets and against each other (float32 and float64, the targets in
     their leaf's slots apart), the latter also with each piece of the
@@ -3339,8 +3355,8 @@ def phase_tree_gather_path(device: dict) -> dict:
 
 def phase_tree_multirate_path(device: dict) -> dict:
     """baseline-1m --tree-near nlist --integrator multirate (two rungs, k
-    = n / 8, sub 4), 10 steps: each fast kick launches the near field at
-    the fast targets against all sources."""
+    = n / 8, sub 4), TREE_MULTIRATE_STEPS steps: each fast kick launches
+    the near field at the fast targets against all sources."""
     import dataclasses
     import warnings
 
@@ -4539,17 +4555,18 @@ def phase_bench_path(device: dict) -> dict:
 
 
 # The counter of each candidate's kernel on a path (the tree's near field
-# at --tree-near nlist; the plain masked direct sum has none).
+# at --tree-near nlist; the plain masked direct sum and the FMM have none).
 CANDIDATE_COUNTER = {"pallas": "nbody_direct", "pallas-mxu": "nbody_mxu",
-                     "nlist": "nlist_pair", "tree": "nlist_pair/near"}
+                     "nlist": "nlist_pair", "tree": "nlist_pair/near",
+                     "fmm": None, "sfmm": None}
 
 
 def autotune_case(name: str, config, device: dict) -> dict:
     """One configuration through plain ``auto``: the first Simulator a
-    miss that timed every eligible candidate (each > 0; fmm and sfmm
-    skipped as not ported, nothing skipped for an exception), routed to
-    the argmin; its run (the counts set to 0 just before) through the
-    winner's kernel; a second Simulator a hit that probes nothing."""
+    miss that timed every eligible candidate (each > 0, nothing skipped
+    for an exception), routed to the argmin; its run (the counts set to 0
+    just before) through the winner's kernel (an FMM winner launches
+    none); a second Simulator a hit that probes nothing."""
     from gravity_tpu_torch import autotune
     from gravity_tpu_torch.simulation import Simulator
 
@@ -4568,9 +4585,8 @@ def autotune_case(name: str, config, device: dict) -> dict:
     check(set(d.skipped) == set(why) and not set(d.skipped) & set(eligible),
           f"autotune {name}: skipped {d.skipped}")
     if "tree" in eligible:
-        check(all(d.skipped[k] == autotune.NOT_PORTED[k]
-                  for k in ("fmm", "sfmm")),
-              f"autotune {name}: fmm/sfmm {d.skipped}")
+        check({"fmm", "sfmm"} <= set(eligible),
+              f"autotune {name}: the FMM is not a candidate: {eligible}")
     winner = min(d.timings_s, key=d.timings_s.get)
     check(d.backend == winner, f"autotune {name}: {d.backend}, not the "
           f"argmin {winner} of {d.timings_s}")
@@ -4580,8 +4596,13 @@ def autotune_case(name: str, config, device: dict) -> dict:
     counts = read_counts()
     check(stats["autotune_cache"] == "miss"
           and stats["autotune_probe_ms"] > 0, f"autotune {name}: {stats}")
-    check(counts[counter] > 0, f"autotune {name}: the winner {winner}'s "
-          f"{counter} launched no time in the run: {counts}")
+    if counter is None:
+        check(stats["backend"] == winner and not any(counts.values()),
+              f"autotune {name}: the winner {winner} ran {stats['backend']}"
+              f" with launches {counts}")
+    else:
+        check(counts[counter] > 0, f"autotune {name}: the winner {winner}'s"
+              f" {counter} launched no time in the run: {counts}")
     probes = autotune.probe_counters()
     again = Simulator(config)
     check(again.autotune == {"cache": "hit", "probe_ms": 0.0}
@@ -4592,7 +4613,8 @@ def autotune_case(name: str, config, device: dict) -> dict:
               "winner": winner, "backend": sim.backend,
               "timings_s": d.timings_s, "errors": d.errors,
               "skipped": d.skipped, "probe_ms": d.probe_ms,
-              "simulator_s": build_s, "run_launches": counts[counter],
+              "simulator_s": build_s,
+              "run_launches": counts[counter] if counter else 0,
               "counter": counter, "steps": stats["steps"],
               "ms_per_step": 1e3 * stats["avg_step_s"],
               "hit": again.autotune, "key_hash": d.key_hash,
@@ -4604,9 +4626,9 @@ def autotune_case(name: str, config, device: dict) -> dict:
 def phase_autotune_path(device: dict) -> dict:
     """Plain ``auto`` through the autotuned router on the card, in a fresh
     tuning cache: ``baseline-1m`` (``--tree-near nlist``: pallas,
-    pallas-mxu, tree), the README cell-list run (the rcut contest: nlist
-    against the masked direct sum) and ``baseline-16k`` (``--tree-near
-    nlist``), each cut to 3 steps, a miss then a hit
+    pallas-mxu, tree, fmm, sfmm), the README cell-list run (the rcut
+    contest: nlist against the masked direct sum) and ``baseline-16k``
+    (``--tree-near nlist``), each cut to 3 steps, a miss then a hit
     (:func:`autotune_case`); then ``tune --sizes 16384 65536`` twice in
     processes of their own: one line a size, misses, then all hits."""
     from gravity_tpu_torch.config import PRESETS, SimulationConfig
@@ -5062,11 +5084,15 @@ def phase_cadence_path(device: dict) -> dict:
 
 def phase_ledger_tree_path(device: dict) -> dict:
     """baseline-1m --tree-near nlist --ledger, 3 steps: the ledger prices
-    the energy with the octree's potential (pe_kind tree) and its final
-    energy agrees with ``Simulator.energy()`` within 1e-6 relative; one
-    ledger evaluation's device ms beside the step's."""
+    the energy with the card's large-N potential (``LARGE_N_POTENTIAL``)
+    and its final energy agrees with ``Simulator.energy()`` within 1e-6
+    relative; one ledger evaluation's device ms beside the step's. Both
+    large-N potentials on the final state, timed by CUDA events: the card
+    must take the faster, and the two agree within the JAX suite's 0.05
+    (tests/test_fmm.py:382-398)."""
     from gravity_tpu_torch.config import PRESETS
-    from gravity_tpu_torch.simulation import Simulator
+    from gravity_tpu_torch.ops import fmm, tree
+    from gravity_tpu_torch.simulation import LARGE_N_POTENTIAL, Simulator
 
     config = dataclasses.replace(PRESETS["baseline-1m"], tree_near="nlist",
                                  ledger=True, steps=LEDGER_TREE_STEPS)
@@ -5077,7 +5103,8 @@ def phase_ledger_tree_path(device: dict) -> dict:
     check(counts["nlist_pair/near"] == LEDGER_TREE_STEPS + 1,
           f"ledger tree: {counts}")
     led = stats["ledger"]
-    check(led["pe_kind"] == "tree" and led["blocks"] == 1,
+    chosen = LARGE_N_POTENTIAL["cuda"]
+    check(led["pe_kind"] == chosen and led["blocks"] == 1,
           f"ledger tree: {led}")
     e_sim = float(sim.energy())
     rel = abs(stats["total_energy"] - e_sim) / abs(e_sim)
@@ -5085,7 +5112,22 @@ def phase_ledger_tree_path(device: dict) -> dict:
           f"Simulator.energy() {e_sim!r}: {rel:.3e}")
     final = stats["final_state"]
     ledger_ms = cuda_ms(lambda: sim._ledger_fn(final), 3)
+    depth, c = sim._ledger_tree_depth(), config
+    kw = dict(depth=depth, leaf_cap=c.tree_leaf_cap, ws=c.tree_ws, g=c.g,
+              cutoff=c.cutoff, eps=c.eps)
+    potentials = {
+        "fmm": lambda: fmm.fmm_potential_energy(final.positions,
+                                                final.masses, **kw),
+        "tree": lambda: tree.tree_potential_energy(
+            final.positions, final.masses, chunk=c.fast_chunk, **kw)}
+    pe = {k: float(fn()) for k, fn in potentials.items()}
+    pe_ms = {k: cuda_ms(fn, 2) for k, fn in potentials.items()}
+    pe_gap = abs(pe["fmm"] - pe["tree"]) / abs(pe["tree"])
+    record_pe = {"depth": depth, "ms": pe_ms, "values": pe,
+                 "rel_gap": pe_gap, "chosen": chosen,
+                 "faster": min(pe_ms, key=pe_ms.get)}
     record = {"phase": "ledger_tree_path", "preset": "baseline-1m",
+              "large_n_potentials": record_pe,
               "tree_near": "nlist", "steps": LEDGER_TREE_STEPS,
               "cut_from": 500, "launches": counts["nlist_pair/near"],
               "energy_drift": led["energy_drift"], "ledger": led,
@@ -5095,12 +5137,23 @@ def phase_ledger_tree_path(device: dict) -> dict:
               "ledger_over_step": ledger_ms / (1e3 * stats["avg_step_s"]),
               "nvidia_smi": device["nvidia_smi"]}
     emit(record)
+    check(pe_gap < 0.05, f"large-N potentials disagree: {record_pe}")
+    check(record_pe["faster"] == chosen,
+          f"the card takes the {chosen} potential, not the faster: "
+          f"{record_pe}")
     return record
 
 
 def count_host_syncs(sim, steps: int = 2) -> float:
-    """Host syncs a step in ``steps`` steps of ``sim``'s block
-    (``torch.cuda.set_sync_debug_mode("warn")`` warns at each)."""
+    """Host syncs a step in ``steps`` steps of ``sim``'s block."""
+    return len(host_sync_sites(sim, steps)) / steps
+
+
+def host_sync_sites(sim, steps: int) -> list:
+    """The host syncs in ``steps`` steps of ``sim``'s block
+    (``torch.cuda.set_sync_debug_mode("warn")`` warns at each), each as
+    the source line that made it."""
+    import linecache
     import warnings
 
     import torch
@@ -5116,7 +5169,9 @@ def count_host_syncs(sim, steps: int = 2) -> float:
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return sum("synchroniz" in str(w.message) for w in caught) / steps
+    return [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}: "
+            f"{linecache.getline(w.filename, w.lineno).strip()}"
+            for w in caught if "synchroniz" in str(w.message)]
 
 
 def phase_host_syncs(device: dict) -> dict:
@@ -5166,6 +5221,299 @@ def phase_host_syncs(device: dict) -> dict:
               "nvidia_smi": device["nvidia_smi"]}
     emit(record)
     return record
+
+# ---------------------------------------------------------------------------
+# The fast multipole solvers (PR 14): plain PyTorch on the card, as the JAX
+# package's are jnp; no hand-written kernel runs on their paths.
+# ---------------------------------------------------------------------------
+
+# baseline-1m-fmm cut to 3 of its 500 steps (multirate too); the 1M
+# uniform cube through the dense grid, 2 steps.
+FMM_STEPS = 3
+FMM_DENSE_STEPS = 2
+FMM_MULTIRATE_STEPS = 3
+FMM_SAMPLE = 4096
+FMM_DENSE_N = 1 << 20
+# The sparse FMM's accuracy class at its resolving depth against the exact
+# sum (tests/test_sfmm.py:90-105), beside the JAX package's own raw median
+# at this disk (0.126%, on its CPU; BASELINE.md:66).
+FMM_MEDIAN_BAR, FMM_P99_BAR = 5e-3, 0.1
+FMM_JAX_1M_MEDIAN = 1.26e-3
+# The dense FMM's at its defaults (tests/test_fmm.py:79-100).
+FMM_DENSE_MEDIAN_BAR, FMM_DENSE_P90_BAR = 0.008, 0.02
+# Sparse against dense on one overflow-free state: the same interaction
+# sets summed in another order (tests/test_sfmm.py:69-87).
+FMM_PARITY_MEDIAN_BAR, FMM_PARITY_MAX_BAR = 1e-5, 1e-3
+FMM_PARITY_DEPTH = 6
+
+
+def fmm_sample(n: int, device):
+    import torch
+
+    gen = torch.Generator().manual_seed(17)
+    return torch.randperm(n, generator=gen)[:FMM_SAMPLE].to(device)
+
+
+def fmm_vs_direct(acc, targets, pos, masses, config) -> dict:
+    """Relative errors of ``acc`` at ``targets`` against the exact sum
+    there (nbody_direct)."""
+    from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
+
+    ref = accelerations_vs_kernel(targets.contiguous(), pos, masses,
+                                  g=config.g, cutoff=config.cutoff,
+                                  eps=config.eps).double()
+    return rel_errors(acc, ref)
+
+
+def fmm_profile(fn, prefix: str) -> dict:
+    """One evaluation under the profiler (the path's run warmed it):
+    device time by kernel, the device span of each ``prefix`` stage, the
+    busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    return profile_record(prof, prefix, 1, wall_ms)
+
+
+def fmm_run_record(name, sim, config, device, *, prefix, cut_from,
+                   bars) -> dict:
+    """Run ``sim`` through logged_run (no kernel may launch), then on its
+    final state: one evaluation's stages by the profiler, the peak memory
+    of the run, host syncs a step (one step of its block), and the forces
+    against the exact sum at FMM_SAMPLE targets, held to ``bars`` (median,
+    and p99 or p90)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    stats, counts = logged_run(sim, name, fixed_steps=config.steps)
+    peak = torch.cuda.max_memory_allocated()
+    final = stats["final_state"]
+    pos, masses = final.positions, final.masses
+
+    def evaluate():
+        return sim._self_accel(pos, masses)
+
+    acc = evaluate()
+    idx = fmm_sample(pos.shape[0], pos.device)
+    errors = fmm_vs_direct(acc[idx], pos[idx], pos, masses, config)
+    del acc
+    profile = fmm_profile(evaluate, f"{prefix}.")
+    sites = host_sync_sites(sim, 1)
+    record = {
+        "phase": name, "n": config.n, "steps": config.steps,
+        "cut_from": cut_from, "backend": sim.backend,
+        "fmm_mode": stats["fmm_mode"], "depth": stats["fmm_depth"],
+        "leaf_cap": stats["fmm_leaf_cap"],
+        "k_cells": stats.get("sfmm_k_cells"),
+        "setup_s": stats["fmm_setup_s"],
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "counts": counts, "peak_memory_bytes": peak,
+        "host_syncs_per_step": len(sites), "host_sync_sites": sites,
+        "profile": profile,
+        "vs_nbody_direct_targets": FMM_SAMPLE, "vs_nbody_direct": errors,
+        "bars": bars,
+        "sfmm_final_occupancy": stats.get("sfmm_final_occupancy"),
+        "nvidia_smi": device["nvidia_smi"],
+    }
+    return record
+
+
+def phase_fmm_path(device: dict) -> dict:
+    """`run --preset baseline-1m-fmm`: the 1M disk through fmm with
+    fmm_mode auto, which must resolve sparse, cut to FMM_STEPS steps; the
+    sizing, the stages, the forces against nbody_direct."""
+    import dataclasses
+    import warnings
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = dataclasses.replace(PRESETS["baseline-1m-fmm"], steps=FMM_STEPS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = Simulator(config)
+    check(sim.backend == "fmm" and sim.fmm_sparse,
+          f"fmm_mode=auto resolved {sim.backend}, sparse={sim.fmm_sparse}")
+    record = fmm_run_record(
+        "fmm_path", sim, config, device, prefix="sfmm", cut_from=500,
+        bars={"median": FMM_MEDIAN_BAR, "p99": FMM_P99_BAR,
+              "jax_1m_median_cpu": FMM_JAX_1M_MEDIAN})
+    depth, cap, k_cells, k_chunk = sim.sfmm_sizing
+    record.update(preset="baseline-1m-fmm", k_chunk=k_chunk,
+                  occupied_final=record["sfmm_final_occupancy"]["occupied"],
+                  warnings=[str(w.message)[:160] for w in caught])
+    emit(record)
+    err = record["vs_nbody_direct"]
+    check(err["median"] < FMM_MEDIAN_BAR and err["p99"] < FMM_P99_BAR,
+          f"sparse FMM vs nbody_direct at 1M: {err}")
+    check(not record["sfmm_final_occupancy"]["overflow"],
+          f"sparse FMM occupancy: {record['sfmm_final_occupancy']}")
+    return record
+
+
+def phase_fmm_dense_path(device: dict) -> dict:
+    """`run --model random --n 1048576 --force-backend fmm --eps 1e9`: the
+    uniform cube, the dense grid's regime (fmm_mode auto must resolve
+    dense), cut to FMM_DENSE_STEPS steps."""
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = SimulationConfig(model="random", n=FMM_DENSE_N, eps=1e9,
+                              integrator="leapfrog", force_backend="fmm",
+                              steps=FMM_DENSE_STEPS)
+    sim = Simulator(config)
+    check(sim.backend == "fmm" and sim.fmm_sparse is False,
+          f"fmm_mode=auto on the uniform cube: sparse={sim.fmm_sparse}")
+    record = fmm_run_record(
+        "fmm_dense_path", sim, config, device, prefix="fmm", cut_from=None,
+        bars={"median": FMM_DENSE_MEDIAN_BAR, "p90": FMM_DENSE_P90_BAR})
+    emit(record)
+    err = record["vs_nbody_direct"]
+    check(err["median"] < FMM_DENSE_MEDIAN_BAR
+          and err["p90"] < FMM_DENSE_P90_BAR,
+          f"dense FMM vs nbody_direct on the cube: {err}")
+    return record
+
+
+def phase_fmm_parity_path(device: dict) -> dict:
+    """The sparse layout in both far modes against the dense grid on one
+    overflow-free state (the 1M uniform cube at a forced depth, no leaf
+    past the cap), on the card."""
+    import numpy as np
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.ops import fmm, sfmm
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    config = SimulationConfig(model="random", n=FMM_DENSE_N, eps=1e9)
+    state = make_initial_state(config, torch.device("cuda", 0))
+    pos, masses = state.positions, state.masses
+    ids = sfmm._host_cell_ids(pos.cpu().numpy(), FMM_PARITY_DEPTH)
+    counts = np.bincount(ids)
+    cap = 32
+    check(int(counts.max()) <= cap, f"parity state overflows: "
+          f"{int(counts.max())} > {cap}")
+    kw = dict(depth=FMM_PARITY_DEPTH, leaf_cap=cap, g=config.g, eps=config.eps)
+    reset_counts()
+    times = {"dense": cuda_ms(lambda: fmm.fmm_accelerations(pos, masses,
+                                                            **kw), 1)}
+    dense = fmm.fmm_accelerations(pos, masses, **kw).double()
+    norm = dense.norm(dim=1)
+    gaps = {}
+    for mode in ("gather", "window"):
+        def sparse(mode=mode):
+            return sfmm.sfmm_accelerations(
+                pos, masses, k_cells=int((counts > 0).sum()),
+                far_mode=mode, **kw)
+        times[mode] = cuda_ms(sparse, 1)
+        rel = (sparse().double() - dense).norm(dim=1) / norm
+        gaps[mode] = {"median": float(rel.median()),
+                      "max": float(rel.max())}
+    launches = read_counts()
+    record = {"phase": "fmm_parity_path", "n": config.n,
+              "depth": FMM_PARITY_DEPTH, "leaf_cap": cap,
+              "max_leaf_load": int(counts.max()),
+              "occupied": int((counts > 0).sum()), "eval_ms": times,
+              "sparse_vs_dense": gaps, "counts": launches,
+              "bars": {"median": FMM_PARITY_MEDIAN_BAR,
+                       "max": FMM_PARITY_MAX_BAR},
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    check(not any(launches.values()), f"FMM parity launched {launches}")
+    for mode, gap in gaps.items():
+        check(gap["median"] < FMM_PARITY_MEDIAN_BAR
+              and gap["max"] < FMM_PARITY_MAX_BAR,
+              f"sparse ({mode}) vs dense: {gap}")
+    return record
+
+
+def phase_fmm_multirate_path(device: dict) -> dict:
+    """baseline-1m-fmm --integrator multirate (two rungs, k = n / 8, sub
+    4), cut to FMM_MULTIRATE_STEPS steps: the full evaluations through the
+    sparse layout, the fast kicks through the dense grid's rectangular
+    form (make_local_kernel("fmm")); one kick of the final state's fast
+    rung against the exact sum at FMM_SAMPLE of its targets, held to the
+    octree's bars at this sizing (depth 7, cap 32: tree_path)."""
+    import dataclasses
+    import warnings
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = dataclasses.replace(PRESETS["baseline-1m-fmm"],
+                                 integrator="multirate",
+                                 steps=FMM_MULTIRATE_STEPS)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        sim = Simulator(config)
+    check(sim.fmm_sparse, "multirate: the full evaluation is not sparse")
+    stats, counts = logged_run(sim, "fmm_multirate_path",
+                               fixed_steps=config.steps)
+    final = stats["final_state"]
+    pos, masses = final.positions, final.masses
+    k, _ = sim._multirate_plan()
+    fast = fast_targets(sim, final, k)
+    targets = pos[fast].contiguous()
+
+    def kick():
+        return sim._kick(targets, pos, masses)
+
+    acc = kick()
+    idx = fmm_sample(k, pos.device)
+    errors = fmm_vs_direct(acc[idx], targets[idx], pos, masses, config)
+    kick_ms = cuda_ms(kick, 2)
+    record = {"phase": "fmm_multirate_path", "preset": "baseline-1m-fmm",
+              "steps": config.steps, "cut_from": 500, "k": k,
+              "kicks_per_step": config.multirate_sub,
+              "full_evaluations_per_step": 1,
+              "kick_t_cap": sim._kick.keywords.get("t_cap"),
+              "kick_depth": sim._kick.keywords.get("depth"),
+              "ms_per_step": 1e3 * stats["avg_step_s"], "kick_ms": kick_ms,
+              "counts": counts, "kick_vs_nbody_direct": errors,
+              "bars": {"median": TREE_1M_MEDIAN_BAR, "p90": TREE_P90_BAR},
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    check(errors["median"] < TREE_1M_MEDIAN_BAR
+          and errors["p90"] < TREE_P90_BAR,
+          f"fmm kick vs nbody_direct: {errors}")
+    return record
+
+
+def phase_fmm_debug_check(device: dict) -> dict:
+    """`run --preset baseline-1m-fmm --steps 1 --debug-check` through the
+    CLI, in this process: the audit of the sparse layout's full-set forces
+    at the as-run sizing against the plain direct sum on 2,048 rows."""
+    import contextlib
+    import io
+
+    from gravity_tpu_torch.cli import main as cli_main
+
+    log_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(log_root, exist_ok=True)
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory(dir=log_root) as log_dir:
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(["run", "--preset", "baseline-1m-fmm", "--steps",
+                           "1", "--debug-check", "--log-dir", log_dir])
+    stats = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(rc == 0 and stats["fmm_mode"] == "sparse", f"fmm CLI: {stats}")
+    audit = stats["debug_check"]
+    record = {"phase": "fmm_debug_check", "preset": "baseline-1m-fmm",
+              "steps": 1, "debug_check": audit,
+              "bars": {"median": FMM_MEDIAN_BAR},
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    check(audit["median_rel_err"] < FMM_MEDIAN_BAR, f"fmm audit: {audit}")
+    return record
+
 
 
 def main() -> int:
@@ -5224,6 +5572,11 @@ def run_phases(torch) -> int:
     nlist_bf16_path = phase_nlist_bf16_path(device, nlist_path)
     nlist_bf16_mr = phase_nlist_bf16_multirate_path(device, build)
     tree_bf16 = phase_tree_bf16_path(device)
+    fmm_path = phase_fmm_path(device)
+    fmm_dense = phase_fmm_dense_path(device)
+    fmm_parity = phase_fmm_parity_path(device)
+    fmm_mr = phase_fmm_multirate_path(device)
+    phase_fmm_debug_check(device)
     phase_small_reference()
     phase_other_entry_points()
     bench_path = phase_bench_path(device)
@@ -5298,6 +5651,20 @@ def run_phases(torch) -> int:
           "resume_nlist_max_gap_m":
               resume["readme_nlist"]["max_position_gap_m"],
           "ledger_tree_eval_over_step": ledger_tree["ledger_over_step"],
+          "large_n_potentials_ms": ledger_tree["large_n_potentials"]["ms"],
+          "fmm": {
+              "baseline_1m_fmm_ms_per_step": fmm_path["ms_per_step"],
+              "sparse_stages_ms": fmm_path["profile"][
+                  "stage_device_span_ms_per_eval"],
+              "dense_cube_ms_per_step": fmm_dense["ms_per_step"],
+              "multirate_ms_per_step": fmm_mr["ms_per_step"],
+              "parity_sparse_vs_dense": fmm_parity["sparse_vs_dense"],
+              "vs_nbody_direct": {
+                  "sparse_1m": fmm_path["vs_nbody_direct"],
+                  "dense_cube": fmm_dense["vs_nbody_direct"]},
+              "host_syncs_per_step": {
+                  "sparse": fmm_path["host_syncs_per_step"],
+                  "dense": fmm_dense["host_syncs_per_step"]}},
           "host_syncs_per_step": syncs["syncs_per_step"]})
     kernels = [
         ("nbody_direct", "gravity_tpu/ops/pallas_forces.py:45",

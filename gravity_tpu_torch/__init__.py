@@ -22,7 +22,10 @@ each kernel at a rectangular shape (``ops/multirate.py``,
 external fields (``ops/external.py``) and collision merging
 (``ops/encounters.py``); the octree (``ops/tree.py``, preset
 ``baseline-1m``), whose ``--tree-near nlist`` near field launches the
-cell-list kernel untruncated; and the measurement layer: ``bench.py``
+cell-list kernel untruncated; the fast multipole solvers
+(``ops/fmm.py``, ``ops/sfmm.py``, preset ``baseline-1m-fmm``), plain
+PyTorch as the JAX package's are jnp; and the measurement layer:
+``bench.py``
 (the ``bench`` verb and ``python -m gravity_tpu_torch.bench``),
 ``autotune.py`` (plain ``auto`` routes by measurement; the ``tune``
 verb) and ``utils/timing.py``.

@@ -75,12 +75,6 @@ def fast_probe_min() -> int:
 # PERF.md section 6).
 DIRECT_PROBE_PAIR_BUDGET = {"cpu": 1 << 35, "cuda": 1 << 42}
 
-# The JAX package's fast solvers that are not ported: skipped by name.
-NOT_PORTED = {
-    "fmm": "not ported: ROADMAP Queue 1 item 7",
-    "sfmm": "not ported: ROADMAP Queue 1 item 7",
-}
-
 _mem_cache: dict[str, dict] = {}
 _counters = {"probes": 0, "probe_steps": 0}
 
@@ -157,8 +151,8 @@ def eligible_candidates(config, on_card: bool) -> tuple[tuple, dict]:
       MXU form on a TPU; not for a float64 state, which the Gram form
       would compute in float32. A direct sum over the pair budget is
       skipped.
-    - The fast solvers join from :func:`fast_probe_min` up: ``tree``;
-      ``fmm`` and ``sfmm`` are skipped as not ported.
+    - The fast solvers join from :func:`fast_probe_min` up: ``tree``,
+      ``fmm`` (its layout by ``fmm_mode``) and ``sfmm``.
     - ``nlist_rcut`` > 0 declares truncated physics: the contest is the
       cell list (``nlist``, from the floor up) against the rcut-masked
       direct sum, and the full-gravity fast solvers are left out.
@@ -194,8 +188,7 @@ def eligible_candidates(config, on_card: bool) -> tuple[tuple, dict]:
             )
         return tuple(cands), skipped
     if config.n >= floor:
-        cands.append("tree")
-        skipped.update(NOT_PORTED)
+        cands += ["tree", "fmm", "sfmm"]
     else:
         skipped["tree/fmm/sfmm"] = (
             f"n={config.n} below the fast-probe floor {floor} (the direct "
@@ -209,8 +202,8 @@ def make_key(
 ) -> dict:
     """The canonical configuration key: everything whose change should
     re-open the question which backend is fastest here, the solver knobs
-    included (a forced tree depth or cell-list sizing builds a materially
-    different candidate). The single-card port keys no mesh."""
+    included (a forced tree depth, FMM layout or cell-list sizing builds a
+    materially different candidate). The single-card port keys no mesh."""
     return {
         "candidates": list(candidates),
         "n": config.n,
@@ -226,6 +219,7 @@ def make_key(
             "tree_ws": config.tree_ws,
             "tree_far": config.tree_far,
             "tree_near": config.tree_near,
+            "fmm_mode": config.fmm_mode,
             "chunk": config.chunk,
             "fast_chunk": config.fast_chunk,
             "cutoff": config.cutoff,

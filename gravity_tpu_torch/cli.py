@@ -21,6 +21,9 @@ Usage:
     python -m gravity_tpu_torch run --preset baseline-16k --dtype bfloat16
     python -m gravity_tpu_torch run --preset baseline-2m --steps 3
     python -m gravity_tpu_torch run --preset baseline-1m --tree-near nlist
+    python -m gravity_tpu_torch run --preset baseline-1m-fmm
+    python -m gravity_tpu_torch run --model random --n 1048576 --eps 1e9 \
+        --integrator leapfrog --force-backend fmm --fmm-mode dense
     python -m gravity_tpu_torch run --device cpu --preset reference-mpi
     python -m gravity_tpu_torch run --model random --n 262144 \
         --integrator leapfrog --force-backend nlist --nlist-rcut 5e10 --eps 1e9
@@ -57,6 +60,7 @@ from .config import (
     FORCE_BACKENDS,
     INTEGRATORS,
     MODELS,
+    FMM_MODES,
     P3M_SHORT_MODES,
     PRESETS,
     TIMESTEP_CRITERIA,
@@ -92,8 +96,14 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                         "on the GPU; pallas-mxu = its Gram-form kernel; "
                         "nlist = the cutoff-radius cell list (needs "
                         "--nlist-rcut); p3m = the P3M solver; tree = "
-                        "the octree; dense/chunked = plain PyTorch; auto = "
-                        "the measured-fastest of them (autotune.py)")
+                        "the octree; fmm = the fast multipole solver "
+                        "(layout by --fmm-mode), sfmm = its sparse layout; "
+                        "dense/chunked = plain PyTorch; auto = the "
+                        "measured-fastest of them (autotune.py)")
+    p.add_argument("--fmm-mode", dest="fmm_mode", choices=FMM_MODES,
+                   default=None,
+                   help="fmm layout: sparse = occupied-leaf compaction for "
+                        "clustered states (auto picks by occupancy)")
     p.add_argument("--no-autotune", dest="autotune", action="store_false",
                    default=None,
                    help="with --force-backend auto, keep the static route "
@@ -287,7 +297,8 @@ def _debug_check(config: SimulationConfig, sim, final, logger) -> dict:
     the as-run sizing (``utils/profiling.debug_check_forces``): for nlist
     the as-run cell list and the rcut-masked oracle; a masked direct run
     against the cell list sized from the final state; P3M by its full-set
-    evaluation."""
+    evaluation, the FMM's by its full-set evaluation at the as-run
+    sizing (pure self-gravity, without an --external field)."""
     from .simulation import make_local_kernel
     from .utils.profiling import debug_check_forces
 
@@ -302,7 +313,7 @@ def _debug_check(config: SimulationConfig, sim, final, logger) -> dict:
     elif sim.backend in ("dense", "chunked") and rcut > 0.0:
         kernel = make_local_kernel(config, "nlist",
                                    positions=final.positions)
-    elif sim.backend == "p3m":
+    elif sim.backend in ("p3m", "fmm", "sfmm"):
         full_acc = sim._self_accel(final.positions, final.masses)
     elif sim.backend not in ("dense", "chunked"):
         kernel = make_local_kernel(config, sim.backend,

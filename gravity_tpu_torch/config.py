@@ -23,10 +23,12 @@ DTYPES = ("float32", "float64", "bfloat16")
 # direct-sum kernels; here they name the CUDA kernels (ops/direct_kernel.py,
 # ops/mxu_kernel.py). "nlist" is the cutoff-radius cell list (ops/nlist.py),
 # "p3m" the particle-particle particle-mesh solver (ops/p3m.py), "tree" the
-# octree (ops/tree.py).
+# octree (ops/tree.py), "fmm" the fast multipole solver (ops/fmm.py, its
+# layout by fmm_mode) and "sfmm" its sparse layout (ops/sfmm.py).
 FORCE_BACKENDS = ("auto", "direct", "dense", "chunked", "pallas",
-                  "pallas-mxu", "nlist", "p3m", "tree")
+                  "pallas-mxu", "nlist", "p3m", "tree", "fmm", "sfmm")
 P3M_SHORT_MODES = ("auto", "gather", "slice", "nlist")
+FMM_MODES = ("auto", "dense", "sparse")
 TREE_FAR_MODES = ("direct", "expansion")
 TREE_NEAR_MODES = ("gather", "nlist")
 
@@ -35,10 +37,7 @@ _QUEUE = "ROADMAP.md Queue 1 item"
 # Values of honoured fields that belong to a later slice.
 _UNPORTED_VALUES = {
     "model": (("grf",), f"{_QUEUE} 7 (grf, with the periodic family)"),
-    "force_backend": (
-        ("fmm", "sfmm", "pm"),
-        f"{_QUEUE} 7 (fast full-gravity solvers)",
-    ),
+    "force_backend": (("pm",), f"{_QUEUE} 7 (the particle-mesh solver)"),
     "p3m_short": (
         ("slice",),
         f"{_QUEUE} 7 (the TPU's shifted-slice P3M pass; use nlist or "
@@ -53,6 +52,8 @@ _BF16_REFUSED_REASON = (
     "jnp.fft.rfftn at gravity_tpu/ops/pm.py:286, takes float32 or float64 "
     "only (ValueError: RFFT input must be float32 or float64)"
 )
+# The FMM runs a bf16 state in the JAX package; here it is queued.
+_BF16_UNPORTED_BACKENDS = ("fmm", "sfmm")
 _UNPORTED_BACKENDS = {
     "cpp": (
         "ROADMAP.md Queue 2 (the JAX CPU XLA-FFI kernel has no port; "
@@ -64,7 +65,6 @@ _UNPORTED_BACKENDS = {
 # carry: (the JAX default, which means "feature off", and the ROADMAP item
 # that ports the feature). A JSON config may name them only at that value.
 _NOT_PORTED = {
-    "fmm_mode": ("auto", f"{_QUEUE} 7"),
     "nlist_mesh": ("auto", f"{_QUEUE} 5 (halo)"),
     "nlist_mig_cap": (0, f"{_QUEUE} 5 (halo)"),
     "periodic_box": (0.0, f"{_QUEUE} 7"),
@@ -152,6 +152,13 @@ class SimulationConfig:
     tree_ws: int = 1
     tree_far: str = "direct"
     tree_near: str = "gather"
+    # FMM layout (force_backend="fmm"): dense (the leaf grid, quasi-uniform
+    # states) | sparse (the occupied-leaf compaction of ops/sfmm.py,
+    # clustered states) | auto = sparse when the initial state occupies
+    # under 5% of its resolving grid's leaves (sfmm.sfmm_auto_decision).
+    # force_backend="sfmm" is the sparse layout whatever this says. Both
+    # take their depth and cap from tree_depth / tree_leaf_cap.
+    fmm_mode: str = "auto"
     # Target chunk of the tree's evaluation and of the p3m gather pass.
     fast_chunk: int = 4096
 
@@ -234,6 +241,12 @@ class SimulationConfig:
                 f"dtype='bfloat16' with force_backend={self.force_backend!r}"
                 f": {_BF16_REFUSED_REASON}; use float32 or float64"
             )
+        if (self.dtype == "bfloat16"
+                and self.force_backend in _BF16_UNPORTED_BACKENDS):
+            raise NotPortedError(
+                f"dtype='bfloat16' with force_backend="
+                f"{self.force_backend!r} is not ported to gravity_tpu_torch "
+                f"yet ({_QUEUE} 7, bf16 states through the FMM)")
         if self.force_backend in _UNPORTED_BACKENDS:
             raise NotPortedError(
                 f"force_backend={self.force_backend!r} is not ported to "
@@ -245,6 +258,7 @@ class SimulationConfig:
             ("dtype", DTYPES), ("force_backend", FORCE_BACKENDS),
             ("p3m_short", P3M_SHORT_MODES),
             ("tree_far", TREE_FAR_MODES), ("tree_near", TREE_NEAR_MODES),
+            ("fmm_mode", FMM_MODES),
             ("timestep_criterion", TIMESTEP_CRITERIA),
             ("io_pipeline", IO_PIPELINE_MODES),
             ("trajectory_format", TRAJECTORY_FORMATS),
@@ -324,6 +338,10 @@ PRESETS = {
         model="disk", n=1_048_576, integrator="leapfrog",
         force_backend="p3m", pm_grid=256, p3m_cap=64,
         g=1.0, dt=2.0e-3, eps=0.05,
+    ),
+    "baseline-1m-fmm": SimulationConfig(
+        model="disk", n=1_048_576, integrator="leapfrog",
+        force_backend="fmm", g=1.0, dt=2.0e-3, eps=0.05,
     ),
     # The single-card 2M direct sum: 4.4e12 pairs a step.
     "baseline-2m": SimulationConfig(

@@ -257,12 +257,14 @@ def ledger_host(vec, pe=None, pe_scale=None, *, g: float = G,
     """The float64 host ledger from its device components: ``vec`` from
     :func:`ledger_vec`, ``pe``/``pe_scale`` from the potential path.
     ``pe_kind``: ``dense``/``tree`` (PE = -0.5 g pe_scale^2 pe, pe_scale
-    defaulting to the vec's m_scale), ``absolute`` (pe is the float64
-    potential energy) or ``none`` (no energy term: ``energy`` is None).
-    The JAX package's ``fmm`` and ``pm`` kinds come with those solvers
-    (ROADMAP.md Queue 1 item 7). ``ext`` is the normalized external-field
-    energy sum(m_hat phi_ext), rescaled by the vec's m_scale: an
-    ``--external`` run conserves KE + PE_self + PE_ext."""
+    defaulting to the vec's m_scale), ``fmm`` (PE = -0.5 pe_scale pe: g
+    and one mass power folded in, ``ops/fmm._fmm_pe_scaled``'s contract),
+    ``absolute`` (pe is the float64 potential energy) or ``none`` (no
+    energy term: ``energy`` is None). The JAX package's ``pm`` kind comes
+    with that solver (ROADMAP.md Queue 1 item 7). ``ext`` is the
+    normalized external-field energy sum(m_hat phi_ext), rescaled by the
+    vec's m_scale: an ``--external`` run conserves KE + PE_self +
+    PE_ext."""
     if isinstance(vec, torch.Tensor):
         vec = vec.detach().double().cpu().numpy()
     v = {k: np.float64(x)
@@ -286,6 +288,8 @@ def ledger_host(vec, pe=None, pe_scale=None, *, g: float = G,
     scale = _f64(pe_scale) if pe_scale is not None else m_scale
     if pe_kind in ("dense", "tree"):
         potential = np.float64(-0.5 * g) * scale * scale * pe64
+    elif pe_kind == "fmm":
+        potential = np.float64(-0.5) * scale * pe64
     elif pe_kind == "absolute":
         potential = pe64
     else:

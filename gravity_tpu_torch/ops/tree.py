@@ -39,8 +39,8 @@ No step of an evaluation waits for the device: the overflow monopole,
 which the JAX package gates with ``lax.cond``, is computed for every chunk
 and masked (its terms are exact zeros off the overflow set).
 
-Not ported here: the FMM and the sparse FMM that share this module's
-sizing helpers in the JAX package (ROADMAP Queue 1 item 7).
+The FMM and the sparse FMM (``ops/fmm.py``, ``ops/sfmm.py``) build on
+this module's octree, interaction-list tables and quadrupole correction.
 """
 
 from __future__ import annotations

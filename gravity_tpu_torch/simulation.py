@@ -1,8 +1,8 @@
 """The simulation loop.
 
 Counterpart of ``gravity_tpu/simulation.py`` for single-card runs of the
-direct sum, its Gram form, the cutoff-radius cell list, the P3M solver and
-the octree:
+direct sum, its Gram form, the cutoff-radius cell list, the P3M solver,
+the octree and the fast multipole solver in its dense and sparse layouts:
 build the initial state, resolve the force backend, then run blocks
 of steps, logging and recording between them. The JAX package jits a
 ``lax.scan`` per block; here a block is a Python loop over steps that
@@ -46,7 +46,16 @@ from . import autotune
 from .config import NotPortedError, SimulationConfig
 from .interop import to_numpy
 from .models import create_model
-from .ops import diagnostics, direct_kernel, mxu_kernel, nlist, p3m, tree
+from .ops import (
+    diagnostics,
+    direct_kernel,
+    fmm,
+    mxu_kernel,
+    nlist,
+    p3m,
+    sfmm,
+    tree,
+)
 from .ops.adaptive import adaptive_run
 from .ops.direct_kernel import accelerations_vs_kernel
 from .ops.encounters import (
@@ -107,6 +116,15 @@ MERGE_GRID_THRESHOLD = 32_768
 # O(N log N) potential instead of the dense O(N^2) pair scan, as in the JAX
 # package.
 ENERGY_TREE_THRESHOLD = 16_384
+# The large-N potential of the energy diagnostic and the ledger, by device
+# type: the octree's on the CPU (the JAX package's branch off the TPU,
+# measured faster there); on the card the faster of the octree's and the
+# FMM's at the 1M disk (chip_smoke.py phase ledger_tree_path times both;
+# PERF.md section 5).
+LARGE_N_POTENTIAL = {"cpu": "tree", "cuda": "fmm"}
+# The FMM's multirate kicks below this K x N take the exact plain (K, N)
+# sum, cheaper than any grid pass at that size (the JAX package's bound).
+DENSE_KICK_BUDGET = 1 << 25
 # The JAX package's names of the resolved kernel backends (fault specs and
 # the supervisor's degrade ladder use them).
 JAX_NAMES = {KERNEL_BACKEND: "pallas", MXU_BACKEND: "pallas-mxu"}
@@ -153,7 +171,8 @@ def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
     and ``nlist`` is the cell list. ``pallas`` and ``pallas-mxu`` name the
     CUDA kernels, whose wrappers run the plain version for CPU tensors;
     ``dense`` and ``chunked`` are the plain version on any device;
-    ``nlist``, ``p3m`` and ``tree`` are themselves. A Simulator's plain
+    ``nlist``, ``p3m``, ``tree``, ``fmm`` and ``sfmm`` are themselves (the
+    FMM's layout is the Simulator's to resolve). A Simulator's plain
     ``auto`` asks the autotuner first (:func:`_resolve_backend_for_run`),
     which may route to the Gram form, the cell list or the octree.
     A bf16 state takes the same route: the kernels' bf16 forms, the cell
@@ -315,6 +334,22 @@ def make_local_kernel(config: SimulationConfig, backend: str,
         depth = _resolve_depth_and_warn(config, positions, "tree kernel")
         return functools.partial(tree.tree_accelerations_vs,
                                  **_tree_kwargs(config, depth))
+    if backend in ("fmm", "sfmm"):
+        # Both layouts kick through the dense grid's rectangular form: the
+        # fast targets are few and binned anew each call, where the sparse
+        # compaction would cost more than it saves (the JAX package's
+        # choice).
+        if k_targets is not None and k_targets * config.n <= DENSE_KICK_BUDGET:
+            return functools.partial(accelerations_vs, **common)
+        depth = _resolve_depth_and_warn(config, positions, "fmm kernel")
+        t_cap = 0
+        if k_targets is not None:
+            t_cap = _occupancy_t_cap(config.tree_leaf_cap, k_targets,
+                                     config.n, positions, 1 << depth,
+                                     "fmm kernel")
+        return functools.partial(fmm.fmm_accelerations_vs, depth=depth,
+                                 leaf_cap=config.tree_leaf_cap,
+                                 ws=config.tree_ws, t_cap=t_cap, **common)
     if backend == "p3m":
         raise NotPortedError(
             "the rectangular kernel of force_backend='p3m' (multirate "
@@ -506,9 +541,18 @@ class Simulator:
         if self.backend == "tree":
             self.tree_depth = _resolve_depth_and_warn(
                 config, state.positions, "tree backend", n=state.n)
+        # As-run FMM layout (fmm_sparse), the dense grid's depth and the
+        # sparse sizing (depth, cap, effective k_cells, k_chunk), resolved
+        # once from the initial state on the host.
+        self.fmm_sparse = self.fmm_depth = self.sfmm_sizing = None
+        self.fmm_setup_s = None
+        if self.backend in ("fmm", "sfmm"):
+            t0 = time.perf_counter()
+            self._resolve_fmm(state.positions)
+            self.fmm_setup_s = time.perf_counter() - t0
         # The energy diagnostic's tree depth: the run's own, else resolved
         # at its first use.
-        self._energy_tree_depth = self.tree_depth
+        self._energy_tree_depth = self.tree_depth or self.fmm_depth
         # The external field and its potential, parsed once; added after
         # the self-gravity of every evaluation.
         self._ext = self._ext_phi = None
@@ -543,6 +587,64 @@ class Simulator:
                 self._kick = kick
         self._build_observatory()
 
+    def _resolve_fmm(self, positions) -> None:
+        """The FMM's layout and sizing: sparse for ``sfmm`` or
+        ``fmm_mode="sparse"``; with ``auto`` the occupancy decision
+        (``sfmm.sfmm_auto_decision``), whose sizing the build reuses when
+        no depth is forced."""
+        config = self.config
+        sizing = None
+        sparse = self.backend == "sfmm" or config.fmm_mode == "sparse"
+        if self.backend == "fmm" and config.fmm_mode == "auto":
+            sparse, sizing = sfmm.sfmm_auto_decision(positions,
+                                                     config.tree_leaf_cap)
+        self.fmm_sparse = bool(sparse)
+        if not sparse:
+            self.fmm_depth = _resolve_depth_and_warn(
+                config, positions, "fmm backend", n=self.n_real)
+            return
+        if sizing is not None and not config.tree_depth:
+            depth, cap, k_cells, _ = sizing
+        else:
+            depth, cap, k_cells = sfmm.resolve_sfmm_sizing(
+                positions, config.tree_depth, config.tree_leaf_cap)
+        # The EFFECTIVE (chunk-rounded) k the solver runs with: what the
+        # audits replay.
+        self.sfmm_sizing = (depth, cap, sfmm.effective_k_cells(k_cells),
+                            sfmm.DEFAULT_K_CHUNK)
+
+    def _fmm_stats(self) -> dict:
+        if self.fmm_sparse:
+            depth, cap, k_cells, k_chunk = self.sfmm_sizing
+            return {"fmm_mode": "sparse", "fmm_depth": depth,
+                    "fmm_leaf_cap": cap, "sfmm_k_cells": k_cells,
+                    "sfmm_k_chunk": k_chunk,
+                    "fmm_setup_s": self.fmm_setup_s}
+        return {"fmm_mode": "dense", "fmm_depth": self.fmm_depth,
+                "fmm_leaf_cap": self.config.tree_leaf_cap,
+                "fmm_setup_s": self.fmm_setup_s}
+
+    def _large_n_potential(self):
+        """(pe_kind, pe_dev) of the energy's and the ledger's large-N
+        potential on this device (:data:`LARGE_N_POTENTIAL`): ``pe_dev(pos,
+        m)`` queues the scaled sum and its mass scale, at the depth resolved
+        once a Simulator."""
+        c = self.config
+        depth = self._ledger_tree_depth()
+        if LARGE_N_POTENTIAL[self.device.type] == "fmm":
+            def pe_dev(pos, m):
+                return fmm._fmm_pe_scaled(
+                    pos, m, depth=depth, leaf_cap=c.tree_leaf_cap,
+                    ws=c.tree_ws, g=c.g, cutoff=c.cutoff, eps=c.eps)
+            return "fmm", pe_dev
+
+        def pe_dev(pos, m):
+            return tree._tree_pe_scaled(
+                pos, m, depth=depth, leaf_cap=c.tree_leaf_cap,
+                chunk=c.fast_chunk, ws=c.tree_ws, cutoff=c.cutoff,
+                eps=c.eps, quad=True)
+        return "tree", pe_dev
+
     def _ledger_tree_depth(self) -> int:
         """The depth of the ledger's large-N tree potential: the energy
         diagnostic's, resolved once a Simulator."""
@@ -561,11 +663,12 @@ class Simulator:
         The potential term is the JAX package's: the exact pair scan
         (``pe_hat_dense``, a pair scan of ``chunk`` targets at a time) up
         to ``LEDGER_DENSE_MAX`` bodies and for every truncated (rcut) run,
-        its shifted kernel there; above it the octree's scaled potential
-        (``ops/tree._tree_pe_scaled``), the JAX package's branch off the
-        TPU. Its TPU branch (the FMM's potential) and the periodic mesh's
-        come with those solvers (ROADMAP.md Queue 1 item 7). With an
-        external field the ledger adds its potential energy."""
+        its shifted kernel there; above it the large-N potential of this
+        device (:meth:`_large_n_potential`: the octree's on the CPU, as the
+        JAX package off the TPU; the FMM's on the card, as the JAX package
+        on its accelerator). The periodic mesh's comes with that solver
+        (ROADMAP.md Queue 1 item 7). With an external field the ledger adds
+        its potential energy."""
         config = self.config
         truncated = config.nlist_rcut > 0.0 and self.backend in (
             "nlist", "dense", "chunked")
@@ -577,14 +680,7 @@ class Simulator:
                     rcut=rcut, chunk=chunk), diagnostics.mass_scale(m)
             pe_kind = "dense"
         else:
-            depth = self._ledger_tree_depth()
-
-            def pe_dev(pos, m):
-                return tree._tree_pe_scaled(
-                    pos, m, depth=depth, leaf_cap=config.tree_leaf_cap,
-                    chunk=config.fast_chunk, ws=config.tree_ws,
-                    cutoff=config.cutoff, eps=config.eps, quad=True)
-            pe_kind = "tree"
+            pe_kind, pe_dev = self._large_n_potential()
         ext_phi = self._ext_phi
 
         def device_fn(st: ParticleState) -> dict:
@@ -682,6 +778,15 @@ class Simulator:
         if self.backend == "tree":
             return tree.tree_accelerations(
                 positions, masses, **_tree_kwargs(c, self.tree_depth))
+        if self.fmm_sparse:
+            depth, cap, k_cells, k_chunk = self.sfmm_sizing
+            return sfmm.sfmm_accelerations(
+                positions, masses, depth=depth, leaf_cap=cap,
+                k_cells=k_cells, k_chunk=k_chunk, ws=c.tree_ws, **common)
+        if self.fmm_sparse is not None:
+            return fmm.fmm_accelerations(
+                positions, masses, depth=self.fmm_depth,
+                leaf_cap=c.tree_leaf_cap, ws=c.tree_ws, **common)
         if c.nlist_rcut > 0.0:
             # Declared truncated physics: the rcut-masked direct sum.
             common["rcut"] = c.nlist_rcut
@@ -1191,6 +1296,8 @@ class Simulator:
             stats.update({"tree_depth": self.tree_depth,
                           "tree_leaf_cap": config.tree_leaf_cap,
                           "tree_near": config.tree_near})
+        if self.fmm_sparse is not None:
+            stats.update(self._fmm_stats())
         if ledger_on:
             stats["ledger"] = {"blocks": ledger_blocks,
                                "pe_kind": self.ledger_pe_kind,
@@ -1515,6 +1622,21 @@ class Simulator:
             logger.final_positions(to_numpy(self.state.positions))
             logger.completed()
         stats["final_state"] = self.final_state()
+        if self.fmm_sparse:
+            # The sparse sizing was fixed from the initial state: a run
+            # whose structure spread out past k_cells degraded the
+            # rank-overflow leaves to the monopole fallback, which the
+            # solver itself cannot report. A host count on the final state.
+            note = sfmm.final_occupancy_check(stats["final_state"].positions,
+                                              self.sfmm_sizing)
+            stats["sfmm_final_occupancy"] = note
+            if note["overflow"] and logger is not None:
+                logger.log_print(
+                    "WARNING: sparse-FMM occupancy grew past k_cells during "
+                    f"the run ({note['occupied']} occupied vs k_cells="
+                    f"{note['k_cells']} at depth {note['depth']}); "
+                    "rank-overflow cells degraded to the monopole fallback "
+                    "- re-run with a larger k_cells")
         return stats
 
     def final_state(self) -> ParticleState:
@@ -1526,18 +1648,19 @@ class Simulator:
         self-gravity potential plus, under ``external``, the field's
         potential energy.
 
-        A tree or p3m run above :data:`ENERGY_TREE_THRESHOLD` bodies prices
-        the potential with the octree (``ops/tree.py::
-        tree_potential_energy``, at a depth resolved once a run) and
+        A tree, FMM or p3m run above :data:`ENERGY_TREE_THRESHOLD` bodies
+        prices the potential with the large-N potential of its device
+        (:data:`LARGE_N_POTENTIAL`: ``ops/tree.py::tree_potential_energy``
+        on the CPU, as the JAX package off the TPU;
+        ``ops/fmm.py::fmm_potential_energy`` on the card, as the JAX
+        package on its accelerator), at a depth resolved once a run, and
         returns a host ``np.float64`` (kinetic energy and the potential
         each in float64, since |PE| can pass fp32's range); the dense pair
-        scan would cost ~5.5e11 pair evaluations at 1M bodies. This is the
-        JAX package's CPU branch: on a TPU it takes the FMM's potential
-        instead, which is not ported (ROADMAP Queue 1 item 7). Otherwise
+        scan would cost ~5.5e11 pair evaluations at 1M bodies. Otherwise
         the plain O(N^2) sum, a device scalar in the state's dtype."""
         c = self.config
         state = self.final_state()
-        if (self.backend not in ("tree", "p3m")
+        if (self.backend not in ("tree", "fmm", "sfmm", "p3m")
                 or self.n_real <= ENERGY_TREE_THRESHOLD):
             return diagnostics.total_energy(
                 state, g=c.g, cutoff=c.cutoff, eps=c.eps,
@@ -1546,11 +1669,14 @@ class Simulator:
         if self._energy_tree_depth is None:
             self._energy_tree_depth = _resolve_depth_and_warn(
                 c, state.positions, "energy diagnostic", n=self.n_real)
-        e = diagnostics.kinetic_energy_f64(state) + tree.tree_potential_energy(
-            state.positions, state.masses, depth=self._energy_tree_depth,
-            leaf_cap=c.tree_leaf_cap, ws=c.tree_ws, chunk=c.fast_chunk,
-            g=c.g, cutoff=c.cutoff, eps=c.eps,
-        )
+        kw = dict(depth=self._energy_tree_depth, leaf_cap=c.tree_leaf_cap,
+                  ws=c.tree_ws, g=c.g, cutoff=c.cutoff, eps=c.eps)
+        if LARGE_N_POTENTIAL[self.device.type] == "fmm":
+            pe = fmm.fmm_potential_energy(state.positions, state.masses, **kw)
+        else:
+            pe = tree.tree_potential_energy(state.positions, state.masses,
+                                            chunk=c.fast_chunk, **kw)
+        e = diagnostics.kinetic_energy_f64(state) + pe
         if self._ext_phi is not None:
             e = e + np.float64(float(
                 (state.masses * self._ext_phi(state.positions)).sum()))

@@ -17,8 +17,8 @@ Counterpart of ``gravity_tpu/supervisor.py``:
   kernel rung: no rung below it runs plain PyTorch on card tensors, and
   the failure propagates instead (the CLI exits 2).
 - **An accuracy breach** (:class:`~gravity_tpu_torch.simulation.
-  AccuracyBreach`): re-size the tree's leaf cap once, then reroute to an
-  exact direct sum (on the card, only to a kernel).
+  AccuracyBreach`): re-size the tree's or the FMM's leaf cap once, then
+  reroute to an exact direct sum (on the card, only to a kernel).
 - **Preemption** (SIGTERM -> :class:`~gravity_tpu_torch.simulation.
   SimulationPreempted`): the run loop checkpoints; the supervisor records
   the event and re-raises, so that the CLI exits with
@@ -230,20 +230,18 @@ class RunSupervisor:
 
     def _accuracy_heal(self, e: AccuracyBreach, sim) -> None:
         """Heal an error-budget breach; the state is finite, the solver
-        is wrong for the data. (1) Once, a tree's leaf cap re-sized to
-        ``ops/tree.recommended_leaf_cap`` of the current state; (2) the
-        scale-appropriate exact direct sum in place of the approximate
-        solver (an exact backend that breaches walks the ladder). Raises
-        the breach past the retry budget or with no rung left."""
+        is wrong for the data. (1) Once, a tree's or an FMM's leaf cap
+        re-sized to ``ops/tree.recommended_leaf_cap`` of the current state
+        (the classic overload: an under-capped dense core degrading to
+        overflow monopoles); (2) the scale-appropriate exact direct sum in
+        place of the approximate solver (an exact backend that breaches
+        walks the ladder). Raises the breach past the retry budget or with
+        no rung left."""
         if self.accuracy_retries >= self.policy.max_retries:
             raise e
         self.accuracy_retries += 1
         config = self.config
-        if e.backend in ("fmm", "sfmm", "pm"):
-            raise NotPortedError(
-                f"the accuracy heal of {e.backend!r} is not ported to "
-                "gravity_tpu_torch yet (ROADMAP.md Queue 1 item 7)")
-        if e.backend == "tree" and not self._releafed:
+        if e.backend in ("tree", "fmm", "sfmm") and not self._releafed:
             self._releafed = True
             from .ops.tree import recommended_depth_data, recommended_leaf_cap
 
@@ -260,7 +258,7 @@ class RunSupervisor:
                     self.config = dataclasses.replace(
                         config, tree_leaf_cap=new_cap)
                     return
-        if e.backend in ("tree", "p3m"):
+        if e.backend in ("tree", "fmm", "sfmm", "p3m"):
             nxt = _resolve_direct(config, self._on_card)
             if self._on_card and nxt in PLAIN_BACKENDS:
                 nxt = None

@@ -3,10 +3,10 @@ autotune.py``), on the CPU, after the JAX package's ``tests/
 test_autotune.py``, with parity against ``gravity_tpu/autotune.py``.
 
 The same numpy positions give both packages the same occupancy signature,
-and the same configurations the same candidate set (the port skips
-``fmm`` and ``sfmm`` by name: not ported). The cache mechanics are the
-JAX package's: a stable key, probe on a miss, at once on a hit, a record
-from other versions is a miss, ``refresh``, torn records, fenced writes.
+and the same configurations the same candidate set. The cache mechanics
+are the JAX package's: a stable key, probe on a miss, at once on a hit, a
+record from other versions is a miss, ``refresh``, torn records, fenced
+writes.
 Where the port departs on purpose: only a candidate whose Simulator
 refuses to be built is skipped; a kernel's build or launch error, or a
 wrapper's refusal of a launch, inside a probe propagates.
@@ -39,6 +39,16 @@ from gravity_tpu_torch.autotune import (
 from gravity_tpu_torch.config import SimulationConfig
 
 CPU = "cpu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One intra-op thread: the suite runs several workers at once, and the
+    real probes' FMM candidates fill volume-sized grids."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 @pytest.fixture(autouse=True)
@@ -131,8 +141,7 @@ def test_occupancy_signature_degrades_to_na():
 def test_eligible_candidates_match_jax_on_the_cpu(monkeypatch, n, rcut,
                                                   floor):
     """The JAX package's candidates on the CPU (its C++ FFI kernel off,
-    which the port does not carry), bar fmm and sfmm, which the port
-    skips as not ported; the same skipped keys otherwise."""
+    which the port does not carry) and the same skipped keys."""
     import gravity_tpu.ops.ffi_forces as ffi
 
     monkeypatch.setattr(ffi, "ffi_forces_available", lambda: False)
@@ -141,16 +150,13 @@ def test_eligible_candidates_match_jax_on_the_cpu(monkeypatch, n, rcut,
     kw = dict(model="plummer", n=n, eps=1e9, nlist_rcut=rcut)
     cands, skipped = eligible_candidates(SimulationConfig(**kw), False)
     jcands, jskipped = jat.eligible_candidates(JaxConfig(**kw), False)
-    not_ported = {"fmm", "sfmm"}
-    assert tuple(c for c in jcands if c not in not_ported) == cands
-    for name in not_ported & set(jcands):
-        assert skipped[name] == "not ported: ROADMAP Queue 1 item 7"
-    assert set(skipped) - not_ported == set(jskipped)
+    assert jcands == cands
+    assert set(skipped) == set(jskipped)
 
 
 def test_eligible_on_the_card_adds_the_gram_form_beside_the_kernel():
     cands, _ = eligible_candidates(_cfg(1_048_576), True)
-    assert cands == ("pallas", "pallas-mxu", "tree")
+    assert cands == ("pallas", "pallas-mxu", "tree", "fmm", "sfmm")
     cands, _ = eligible_candidates(_cfg(1000), True)
     assert cands == ("pallas", "pallas-mxu")
     # the Gram form computes in float32: not for a float64 state
@@ -165,7 +171,7 @@ def test_eligible_on_the_card_adds_the_gram_form_beside_the_kernel():
     cands, _ = eligible_candidates(_cfg(2_097_152), True)
     assert cands[0] == "pallas"
     cands, skipped = eligible_candidates(_cfg(2_097_153), True)
-    assert cands == ("tree",) and "pair" in skipped["pallas"]
+    assert cands == ("tree", "fmm", "sfmm") and "pair" in skipped["pallas"]
 
 
 # --- cache key -------------------------------------------------------------
@@ -219,7 +225,7 @@ def test_eligible_small_n_is_direct_only():
 
 def test_eligible_large_n_cpu_drops_direct_over_pair_budget():
     cands, skipped = eligible_candidates(_cfg(1_048_576), False)
-    assert cands == ("tree",)
+    assert cands == ("tree", "fmm", "sfmm")
     assert any("pair" in v for v in skipped.values())
 
 
@@ -371,15 +377,18 @@ def test_a_real_probe_times_and_audits_each_candidate(monkeypatch):
     monkeypatch.setenv("GRAVITY_TPU_AUTOTUNE_MIN_N", "128")
     before = probe_counters()
     d = _resolve(_cfg(256), state=lambda: simulation_state(_cfg(256)))
-    assert d.cache == "miss" and set(d.timings_s) == {"dense", "tree"}
+    fast = ("tree", "fmm", "sfmm")
+    assert d.cache == "miss" and set(d.timings_s) == {"dense", *fast}
     assert all(t > 0 for t in d.timings_s.values())
     assert d.errors["dense"]["p90_rel_err"] < 1e-5
-    assert d.errors["tree"]["p90_rel_err"] > d.errors["dense"]["p90_rel_err"]
+    for name in fast:
+        assert d.errors[name]["p90_rel_err"] \
+            > d.errors["dense"]["p90_rel_err"]
     assert d.backend == min(d.timings_s, key=d.timings_s.get)
-    assert set(d.skipped) == {"fmm", "sfmm"}
+    assert d.skipped == {}
     after = probe_counters()
-    assert after["probes"] == before["probes"] + 2
-    assert after["probe_steps"] == before["probe_steps"] + 2 * at.PROBE_STEPS
+    assert after["probes"] == before["probes"] + 4
+    assert after["probe_steps"] == before["probe_steps"] + 4 * at.PROBE_STEPS
 
 
 def simulation_state(cfg):
@@ -408,7 +417,8 @@ def test_simulator_auto_miss_then_hit_lands_in_run_stats(monkeypatch):
     the second run of the same configuration takes no probe step and
     reports the hit, all in the run stats."""
     monkeypatch.setenv("GRAVITY_TPU_AUTOTUNE_MIN_N", "128")
-    _fake_probe(monkeypatch, {"dense": 0.05, "tree": 0.01})
+    _fake_probe(monkeypatch, {"dense": 0.05, "tree": 0.01, "fmm": 0.02,
+                              "sfmm": 0.03})
     from gravity_tpu_torch.simulation import Simulator
 
     cfg = _cfg(256, steps=2)
@@ -433,7 +443,8 @@ def test_simulator_real_probe_then_hit(monkeypatch):
     sim = Simulator(cfg, device=CPU)
     assert sim.autotune["cache"] == "miss"
     winner = sim.autotune_decision.backend
-    assert sim.backend == winner and winner in ("dense", "tree")
+    assert sim.backend == winner
+    assert winner in ("dense", "tree", "fmm", "sfmm")
     stats = sim.run()
     assert stats["steps"] == 3 and stats["autotune_cache"] == "miss"
     before = probe_counters()
@@ -470,7 +481,8 @@ def test_cli_tune_prewarms_the_cache(monkeypatch, capsys):
     """``tune --sizes ...``: one JSON line a size; a second call is all
     hits with no probe step."""
     monkeypatch.setenv("GRAVITY_TPU_AUTOTUNE_MIN_N", "128")
-    _fake_probe(monkeypatch, {"dense": 0.05, "tree": 0.01})
+    _fake_probe(monkeypatch, {"dense": 0.05, "tree": 0.01, "fmm": 0.02,
+                              "sfmm": 0.03})
     from gravity_tpu_torch.cli import main
 
     argv = ["tune", "--device", "cpu", "--sizes", "160", "256", "--model",
@@ -481,7 +493,8 @@ def test_cli_tune_prewarms_the_cache(monkeypatch, capsys):
     assert [x["n"] for x in lines] == [160, 256]
     assert all(x["cache"] == "miss" and x["backend"] == "tree"
                for x in lines)
-    assert all(x["skipped"]["fmm"].startswith("not ported") for x in lines)
+    assert all(set(x["timings_s"]) == {"dense", "tree", "fmm", "sfmm"}
+               and not x["skipped"] for x in lines)
     before = probe_counters()["probe_steps"]
     assert main(argv) == 0
     lines2 = [json.loads(x) for x in

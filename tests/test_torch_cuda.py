@@ -896,3 +896,86 @@ def test_every_block_is_fenced_by_its_own_event(cuda, monkeypatch, mode):
     assert len(blocks) == 4
     assert all(b.event is not None and b.event.query() for b in blocks)
     assert 0.0 <= stats["host_gap_frac"] <= 1.0
+
+
+# --- the FMM: plain PyTorch on the card, against the same functions on the
+# CPU (fp64: every row within 1e-9 of its |a|; fp32: median relative 1e-5,
+# max 1e-3, the summation-order bars of tests/test_torch_fmm.py) ---
+
+
+def _fmm_disk(n, dtype, seed=3):
+    rng = np.random.default_rng(seed)
+    r = rng.exponential(3.0, n)
+    phi = rng.uniform(0.0, 2.0 * np.pi, n)
+    pos = np.stack([r * np.cos(phi), r * np.sin(phi),
+                    0.3 * rng.normal(size=n)], axis=1)
+    m = np.full(n, 5.0 / (n - 1))
+    pos[0], m[0] = 0.0, 1.0
+    return torch.from_numpy(pos).to(dtype), torch.from_numpy(m).to(dtype)
+
+
+def _fmm_close(got, want, dtype):
+    want = want.double()
+    rel = (got.cpu().double() - want).norm(dim=1) / want.norm(dim=1)
+    if dtype == torch.float64:
+        assert float(rel.max()) < 1e-9
+    else:
+        assert float(rel.median()) < 1e-5 and float(rel.max()) < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("form", ["dense", "vs", "sparse", "window",
+                                  "ranks"])
+def test_fmm_on_the_card_matches_the_cpu(cuda, form, dtype):
+    from gravity_tpu_torch.ops import fmm, sfmm
+
+    pos, m = _fmm_disk(8192, dtype)
+    kw = dict(g=1.0, eps=0.05)
+    if form == "dense":
+        def fn(p, w):
+            return fmm.fmm_accelerations(p, w, depth=5, leaf_cap=16, **kw)
+    elif form == "vs":
+        def fn(p, w):
+            tg = torch.cat([p[::5], p[:2] * 40.0])
+            return fmm.fmm_accelerations_vs(tg, p, w, depth=5, leaf_cap=16,
+                                            t_cap=4, **kw)
+    else:
+        k = 256 if form == "ranks" else 8192
+
+        def fn(p, w):
+            return sfmm.sfmm_accelerations(
+                p, w, depth=6, leaf_cap=8, k_cells=k, k_chunk=256,
+                far_mode="window" if form == "window" else "gather", **kw)
+    before = (direct_kernel.LAUNCHES, dict(nlist.LAUNCHES))
+    got = fn(pos.to(cuda), m.to(cuda))
+    torch.cuda.synchronize()
+    assert (direct_kernel.LAUNCHES, dict(nlist.LAUNCHES)) == before
+    assert got.device.type == "cuda" and got.dtype == dtype
+    _fmm_close(got, fn(pos, m), dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-10)])
+def test_fmm_potential_on_the_card_matches_the_cpu(cuda, dtype, tol):
+    from gravity_tpu_torch.ops import fmm
+
+    pos, m = _fmm_disk(8192, dtype)
+    kw = dict(depth=5, leaf_cap=16, g=1.0, eps=0.05)
+    got = fmm.fmm_potential_energy(pos.to(cuda), m.to(cuda), **kw)
+    want = fmm.fmm_potential_energy(pos, m, **kw)
+    assert abs(got - want) <= tol * abs(want)
+
+
+def test_simulator_runs_the_fmm_on_the_card(cuda):
+    """The FMM preset's layout at 8,192 bodies: sparse by occupancy, plain
+    PyTorch on the card (no kernel launched), finite, its occupancy
+    audited."""
+    cfg = SimulationConfig(model="disk", n=8192, steps=3, g=1.0, dt=2e-3,
+                           eps=0.05, integrator="leapfrog",
+                           force_backend="fmm")
+    sim = Simulator(cfg, device=cuda)
+    assert sim.fmm_sparse
+    stats = sim.run()
+    assert stats["kernel_launches"] == 0 and stats["fmm_mode"] == "sparse"
+    assert not stats["sfmm_final_occupancy"]["overflow"]
+    assert bool(torch.isfinite(stats["final_state"].positions).all())
