@@ -63,6 +63,18 @@ set to 0 just before the path and read just after:
   dense on one overflow-free state; ``baseline-1m-fmm`` multirate (3
   steps, kicks through the dense grid's rectangular form, one held to
   ``nbody_direct``); ``--debug-check`` on the preset through the CLI;
+- the ensemble serving path (PR 15): the batched launches of
+  ``nbody_direct`` (fp32 masked and mask-free, fp64, bf16) and
+  ``nbody_mxu`` (fp32, bf16) at 4 slots of bucket 8,192 (a padded
+  5,000-body Plummer sphere, an 8,192-body cube, the padded solar system,
+  an empty slot) against their plain versions and bit for bit against
+  solo launches; the daemon (``serve --slots 4 --slice-steps 100`` as a
+  process) serving 12 jobs at buckets 8,192, 4,096 and 1,024 through the
+  ``submit``, ``status``, ``result`` and ``cancel`` verbs, ``auto`` on a
+  kernel at every bucket, one build a key, the batched launches equal to
+  the batched force evaluations; and served runs in process bit for bit
+  against solo runs of the bucket-padded states, a diverging job failing
+  alone;
 - the measurement layer: ``bench.main()`` (``python -m
   gravity_tpu_torch.bench``) through ``nbody_direct``, ``nbody_mxu`` and
   ``nlist_pair`` at N = 262,144 (each rate held under 1.05x its kernel's
@@ -314,6 +326,7 @@ def reset_counts() -> None:
 
     for module in (cells, direct_kernel, mxu_kernel):
         module.LAUNCHES = 0
+    direct_kernel.BATCHED_LAUNCHES = mxu_kernel.BATCHED_LAUNCHES = 0
     for kind in nlist.LAUNCHES:
         nlist.LAUNCHES[kind] = 0
 
@@ -328,6 +341,8 @@ def read_counts() -> dict:
             "nlist_pair/bf16": nlist.LAUNCHES["newton_bf16"],
             "nlist_pair/near_bf16": nlist.LAUNCHES["near_bf16"],
             "nbody_mxu": mxu_kernel.LAUNCHES,
+            "nbody_direct/batched": direct_kernel.BATCHED_LAUNCHES,
+            "nbody_mxu/batched": mxu_kernel.BATCHED_LAUNCHES,
             "segment_sum/bf16": cells.LAUNCHES}
 
 
@@ -5515,6 +5530,526 @@ def phase_fmm_debug_check(device: dict) -> dict:
     return record
 
 
+# The serve phases (serve/): the batched kernels at B = 4 slots of bucket
+# 8,192, the daemon through the CLI verbs, and served against solo runs.
+SERVE_BUCKET = 8192
+SERVE_SLOTS = 4
+SERVE_EPS = 1e9
+SERVE_SLICE = 100
+SERVE_PARITY_STEPS = 50
+# The daemon's traffic: (label, n, model, integrator, steps, dt, priority,
+# extra submit flags). Four jobs a bucket (8,192, 4,096, 1,024). The job
+# that gets cancelled waits at priority -1 behind the four priority-1
+# leapfrog jobs that fill its bucket-1,024 batch (a waiter takes a
+# resident's slot by yield only at an equal or higher priority); its
+# cancel is piped from its submit (phase_serve_path), and the record says
+# whether it was still queued.
+SERVE_JOBS = (
+    ("a", 8192, "plummer", "leapfrog", 1000, 3600.0, 0, ()),
+    ("b", 8192, "random", "leapfrog", 500, 3600.0, 0, ()),
+    ("c", 8192, "hernquist", "yoshida4", 200, 1800.0, 0, ()),
+    ("d", 8192, "plummer", "leapfrog", 300, 7200.0, 0,
+     ("--force-backend", "pallas-mxu")),
+    ("e", 3000, "random", "leapfrog", 600, 1800.0, 1, ()),
+    ("f", 3000, "plummer", "leapfrog", 400, 3600.0, 0,
+     ("--dtype", "bfloat16")),
+    ("g", 3000, "hernquist", "euler", 300, 3600.0, 0, ()),
+    ("h", 3000, "random", "yoshida4", 200, 7200.0, 0,
+     ("--dtype", "float64")),
+    ("i", 700, "plummer", "leapfrog", 800, 3600.0, 1, ()),
+    ("j", 700, "random", "leapfrog", 1000, 7200.0, 1, ()),
+    ("k", 700, "hernquist", "leapfrog", 1000, 1800.0, 1, ()),
+    ("l", 700, "random", "leapfrog", 1000, 3600.0, 1, ()),
+)
+SERVE_CANCEL = ("x", 700, "random", "leapfrog", 1000, 3600.0, -1, ())
+
+
+def serve_batch(dtype):
+    """The serve_kernels state: (B, 8192, 3) positions and (B, 8192)
+    masses of a 5,000-body Plummer sphere, an 8,192-body random cube and
+    the 3-body solar system, each padded to the bucket, and an empty
+    slot; in float64, cast to ``dtype``."""
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    dev = torch.device("cuda", 0)
+    pos, mass = [], []
+    for model, n in (("plummer", 5000), ("random", 8192), ("solar", 3)):
+        state = make_initial_state(
+            SimulationConfig(model=model, n=n, dtype="float64"), dev)
+        padded, _ = state.pad_to(SERVE_BUCKET)
+        pos.append(padded.positions)
+        mass.append(padded.masses)
+    pos.append(torch.zeros_like(pos[0]))
+    mass.append(torch.zeros_like(mass[0]))
+    return (torch.stack(pos).to(dtype).contiguous(),
+            torch.stack(mass).to(dtype).contiguous())
+
+
+def phase_serve_kernels(device: dict) -> dict:
+    """The batched launches of nbody_direct (fp32 masked with eps 0, fp32
+    mask-free, fp64, bf16) and nbody_mxu (fp32, bf16) at B = 4 slots of
+    bucket 8,192: each slot against the plain version under the kernel
+    table's bars, against a solo launch on the slot's arrays bit for bit
+    (twice), one launch a batched evaluation; then ms by CUDA events for
+    one batched launch and for the four solo launches, fp32 mask-free
+    (the serve path's form), beside the bound."""
+    import torch
+
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS, G
+    from gravity_tpu_torch.ops import direct_kernel, mxu_kernel
+    from gravity_tpu_torch.ops.forces import accelerations_vs
+
+    cases = []
+    for name, dtype, eps, tol, reason in (
+            ("fp32 masked eps=0", torch.float32, 0.0, TOL["float32"],
+             DIRECT_REASON),
+            ("fp32 mask-free", torch.float32, SERVE_EPS, TOL["float32"],
+             DIRECT_REASON),
+            ("fp64", torch.float64, 0.0, TOL["float64"], DIRECT_REASON),
+            ("bf16", torch.bfloat16, SERVE_EPS, BF16_TOL, BF16_REASON)):
+        pos, mass = serve_batch(dtype)
+        before = direct_kernel.BATCHED_LAUNCHES
+        batched = direct_kernel.accelerations_vs_batched_kernel(
+            pos, pos, mass, eps=eps)
+        again = direct_kernel.accelerations_vs_batched_kernel(
+            pos, pos, mass, eps=eps)
+        check(direct_kernel.BATCHED_LAUNCHES - before == 2,
+              f"nbody_direct batched {name}: "
+              f"{direct_kernel.BATCHED_LAUNCHES - before} launches for 2 "
+              "batched evaluations")
+        solo = torch.stack([direct_kernel.accelerations_vs_kernel(
+            pos[b], pos[b], mass[b], eps=eps) for b in range(SERVE_SLOTS)])
+        torch.cuda.synchronize()
+        check(torch.equal(batched, again),
+              f"nbody_direct batched {name}: two launches differ")
+        check(torch.equal(batched, solo),
+              f"nbody_direct batched {name}: not the bits of solo launches")
+        slots = []
+        for b in range(SERVE_SLOTS):
+            plain = accelerations_vs(pos[b], pos[b], mass[b], eps=eps)
+            slots.append(compare(
+                f"nbody_direct/batched {name} slot {b}", batched[b], plain,
+                term_scale(pos[b], pos[b], mass[b], eps, chunk=256),
+                str(dtype).removeprefix("torch."), tol=tol, reason=reason))
+        cases.append({"kernel": "nbody_direct/batched", "case": name,
+                      "same_bits_as_solo": True, "bitwise_repeatable": True,
+                      "launches_per_batched_eval": 1,
+                      "max_abs_err": max(r["max_abs_err"] for r in slots),
+                      "max_err_over_term_scale": max(
+                          r["max_err_over_term_scale"] for r in slots),
+                      "tolerance": tol})
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        pos, mass = serve_batch(dtype)
+        before = mxu_kernel.BATCHED_LAUNCHES
+        batched = mxu_kernel.accelerations_vs_mxu_batched_kernel(
+            pos, pos, mass, eps=SERVE_EPS)
+        again = mxu_kernel.accelerations_vs_mxu_batched_kernel(
+            pos, pos, mass, eps=SERVE_EPS)
+        solo = torch.stack([mxu_kernel.accelerations_vs_mxu_kernel(
+            pos[b], pos[b], mass[b], eps=SERVE_EPS)
+            for b in range(SERVE_SLOTS)])
+        # [S | W] of the batched launch against the plain version, slot by
+        # slot, on the wrapper's own centred operands.
+        compute = torch.bfloat16 if name == "bf16" else torch.float32
+        xs, gms = [], []
+        for b in range(SERVE_SLOTS):
+            center = pos[b].float().mean(dim=0)
+            xs.append((pos[b].float() - center).to(compute))
+            gms.append(mass[b].float() * G)
+        xi, gm = torch.stack(xs).contiguous(), torch.stack(gms).contiguous()
+        acc4 = mxu_kernel.gram_acc4_batched(xi, xi, gm, cutoff=CUTOFF_RADIUS,
+                                            eps=SERVE_EPS)
+        check(mxu_kernel.BATCHED_LAUNCHES - before == 3,
+              f"nbody_mxu batched {name}: "
+              f"{mxu_kernel.BATCHED_LAUNCHES - before} launches for 3 "
+              "batched evaluations")
+        solo4 = torch.stack([mxu_kernel.gram_acc4(
+            xi[b], xi[b], gm[b], cutoff=CUTOFF_RADIUS, eps=SERVE_EPS)
+            for b in range(SERVE_SLOTS)])
+        torch.cuda.synchronize()
+        check(torch.equal(batched, again),
+              f"nbody_mxu batched {name}: two launches differ")
+        check(torch.equal(batched, solo),
+              f"nbody_mxu batched {name}: not the bits of solo launches")
+        check(torch.equal(acc4, solo4),
+              f"nbody_mxu batched {name}: [S | W] not the solo bits")
+        slots = []
+        for b in range(SERVE_SLOTS):
+            plain = mxu_kernel.gram_acc4_plain(
+                xi[b], xi[b], gm[b], cutoff=CUTOFF_RADIUS, eps=SERVE_EPS,
+                bf16=name == "bf16")
+            slots.append(compare(
+                f"nbody_mxu/batched {name} slot {b}", acc4[b], plain,
+                mxu_scale(xi[b], xi[b], gm[b], SERVE_EPS, name == "bf16"),
+                "float32", reason=MXU_REASON))
+        cases.append({"kernel": "nbody_mxu/batched", "case": name,
+                      "same_bits_as_solo": True, "bitwise_repeatable": True,
+                      "launches_per_batched_eval": 1,
+                      "max_abs_err": max(r["max_abs_err"] for r in slots),
+                      "max_err_over_term_scale": max(
+                          r["max_err_over_term_scale"] for r in slots),
+                      "tolerance": TOL["float32"]})
+    for case in cases:
+        emit({"phase": "serve_kernels", **case})
+
+    # Timing, fp32 mask-free: the serve path's form.
+    pos, mass = serve_batch(torch.float32)
+    xi = torch.stack([pos[s] - pos[s].mean(dim=0)
+                      for s in range(SERVE_SLOTS)]).contiguous()
+    gm = (mass * G).contiguous()
+    b, n = SERVE_SLOTS, SERVE_BUCKET
+    pairs = b * n * n
+    n_bytes = b * (n * 3 * 4 * 2 + n * 4 + n * 3 * 4)
+    timing = {}
+    for kernel, batched_fn, solo_fn, plain_fn, bnd in (
+            ("nbody_direct/batched",
+             lambda: direct_kernel.accelerations_vs_batched_kernel(
+                 pos, pos, mass, eps=SERVE_EPS),
+             lambda: [direct_kernel.accelerations_vs_kernel(
+                 pos[s], pos[s], mass[s], eps=SERVE_EPS) for s in range(b)],
+             lambda: direct_kernel.accelerations_vs_batched(
+                 pos, pos, mass, eps=SERVE_EPS),
+             bound(pairs, FLOPS_PER_PAIR, n_bytes, device)),
+            ("nbody_mxu/batched",
+             lambda: mxu_kernel.accelerations_vs_mxu_batched_kernel(
+                 pos, pos, mass, eps=SERVE_EPS),
+             lambda: [mxu_kernel.accelerations_vs_mxu_kernel(
+                 pos[s], pos[s], mass[s], eps=SERVE_EPS) for s in range(b)],
+             lambda: torch.stack([mxu_kernel.gram_acc4_plain(
+                 xi[s], xi[s], gm[s], cutoff=CUTOFF_RADIUS, eps=SERVE_EPS,
+                 bf16=False) for s in range(b)]),
+             mxu_bound(pairs, n_bytes + b * n * 4 * 4, device, False))):
+        cuda_ms(batched_fn, 3)
+        ms = [cuda_ms(batched_fn, 20), cuda_ms(batched_fn, 20)]
+        cuda_ms(solo_fn, 3)
+        solo_ms = cuda_ms(solo_fn, 20)
+        cuda_ms(plain_fn, 1)
+        plain_ms = cuda_ms(plain_fn, 3)
+        timing[kernel] = {
+            "ms": min(ms), "ms_runs": ms, "solo_x4_ms": solo_ms,
+            "plain_ms": plain_ms, **bnd, "pairs": pairs, "slots": b,
+            "bucket": n, "eps": SERVE_EPS,
+            "library_ms": None,
+            "library_note": "none: no PyTorch call computes a batched "
+                            "softened pair sum",
+        }
+        emit({"phase": "serve_kernels_timing", "kernel": kernel,
+              "nvidia_smi": device["nvidia_smi"], **timing[kernel]})
+    return {"cases": cases, "timing": timing,
+            "max_abs_err": {
+                k: max(c["max_abs_err"] for c in cases if c["kernel"] == k)
+                for k in ("nbody_direct/batched", "nbody_mxu/batched")}}
+
+
+def serve_cli(spool: str, *args) -> list:
+    return [sys.executable, "-m", "gravity_tpu_torch", *args,
+            "--spool-dir", spool]
+
+
+def submit_args(job) -> list:
+    _, n, model, integrator, steps, dt, prio, extra = job
+    return ["submit", "--model", model, "--n", str(n), "--integrator",
+            integrator, "--steps", str(steps), "--dt", str(dt), "--eps",
+            str(SERVE_EPS), "--priority", str(prio), *extra]
+
+
+def run_parallel(cmds, timeout: int = 300) -> list:
+    """Run the commands as processes all at once; their
+    CompletedProcess-like (returncode, stdout, stderr)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    out = []
+    for p in procs:
+        stdout, stderr = p.communicate(timeout=timeout)
+        out.append((p.returncode, stdout, stderr))
+    return out
+
+
+def phase_serve_path(device: dict) -> dict:
+    """The daemon on the card through the user's verbs: ``serve --slots 4
+    --slice-steps 100`` as a process, 12 jobs by ``submit`` at buckets
+    8,192, 4,096 and 1,024 (plummer, random, hernquist; leapfrog, two
+    yoshida4, one euler; priorities 0 and 1; auto but one pallas-mxu, one
+    bf16 and one fp64 job), a 13th job, queued behind its batch's
+    priority-1 residents, cancelled by ``cancel`` (a process that has
+    loaded the CLI while the submit ran, fed the job id through a pipe;
+    its events say whether it was still queued), then ``status`` and
+    ``result --out`` for each. The daemon's /metrics
+    gives the builds, force evaluations, launches, host reads, router
+    verdicts and the perf ledger's peaks; its event stream the rounds."""
+    import numpy as np
+
+    from gravity_tpu_torch.serve import request, wait_for
+
+    spool_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(spool_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=spool_root) as spool:
+        env = dict(os.environ, PYTHONPATH=REPO)
+        daemon = subprocess.Popen(
+            serve_cli(spool, "serve", "--slots", str(SERVE_SLOTS),
+                      "--slice-steps", str(SERVE_SLICE)),
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            t0 = time.perf_counter()
+            banner = json.loads(daemon.stdout.readline())
+            check(banner.get("serving") and banner["device"].startswith(
+                "cuda"), f"daemon banner {banner}")
+            # The cancel target's submit, 2 s behind the traffic's (its
+            # batch's priority-1 jobs resident by then), piped into a
+            # process that has loaded the CLI and the serve package
+            # meanwhile: the cancel lands milliseconds after the submit.
+            submit = " ".join(serve_cli(spool, *submit_args(SERVE_CANCEL)))
+            cancel = (f"{sys.executable} -c 'import json, sys; "
+                      "from gravity_tpu_torch.cli import main; "
+                      "import gravity_tpu_torch.serve; "
+                      "job = json.loads(sys.stdin.read())[\"job\"]; "
+                      "print(job); sys.stdout.flush(); "
+                      f"sys.exit(main([\"cancel\", \"--spool-dir\", "
+                      f"\"{spool}\", job]))'")
+            subs = run_parallel(
+                [serve_cli(spool, *submit_args(j)) for j in SERVE_JOBS]
+                + [["bash", "-o", "pipefail", "-c",
+                    f"sleep 2; {submit} | {cancel}"]])
+            ids = {}
+            for job, (rc, out, err) in zip(SERVE_JOBS, subs):
+                check(rc == 0, f"submit {job[0]}: rc {rc}: {err[-2000:]}")
+                ids[job[0]] = json.loads(out.strip().splitlines()[-1])["job"]
+            rc, out, err = subs[-1]
+            lines = out.strip().splitlines()
+            check(rc == 0 and json.loads(lines[-1])["cancelled"],
+                  f"submit | cancel: rc {rc} {out} {err[-2000:]}")
+            cancel_id = lines[0]
+            statuses = wait_for(spool, list(ids.values()), timeout=600)
+            serve_s = time.perf_counter() - t0
+            rc, out, err = run_parallel([serve_cli(spool, "status")])[0]
+            check(rc == 0, f"status: {err[-1000:]}")
+            listing = {j["id"]: j for j in json.loads(out)["jobs"]}
+            check(listing[cancel_id]["status"] == "cancelled",
+                  f"cancel target is {listing[cancel_id]['status']}")
+            res_dir = os.path.join(spool, "out")
+            os.makedirs(res_dir)
+            results = run_parallel([
+                serve_cli(spool, "result", jid, "--out",
+                          os.path.join(res_dir, f"{label}.npz"))
+                for label, jid in ids.items()])
+            for (label, jid), (rc, out, err) in zip(ids.items(), results):
+                check(rc == 0, f"result {label}: {err[-1000:]}")
+                st = statuses[jid]
+                check(st["status"] == "completed"
+                      and st["steps_done"] == st["steps"],
+                      f"job {label}: {st['status']} {st['steps_done']}/"
+                      f"{st['steps']} {st.get('error')}")
+                with np.load(os.path.join(res_dir, f"{label}.npz")) as z:
+                    for k in ("positions", "velocities", "masses"):
+                        check(bool(np.isfinite(z[k]).all()),
+                              f"job {label}: {k} not finite")
+                    n = dict((j[0], j[1]) for j in SERVE_JOBS)[label]
+                    check(z["positions"].shape == (n, 3),
+                          f"job {label}: shape {z['positions'].shape}")
+            metrics = request(spool, "GET", "/metrics")
+            with open(os.path.join(spool, "serving_events.jsonl")) as f:
+                events = [json.loads(line) for line in f if line.strip()]
+            mine = [e["event"] for e in events if e.get("job") == cancel_id]
+            check(mine[0] == "submitted" and mine[-1] == "cancelled",
+                  f"the cancelled job's events {mine}")
+        finally:
+            try:
+                request(spool, "POST", "/shutdown")
+            except Exception:  # noqa: BLE001 — the wait below decides
+                pass
+            try:
+                daemon.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                daemon.kill()
+                daemon.wait()
+    engine = metrics["engine"]
+    launches = metrics["kernel_launches"]
+    check(all(v == 1 for v in engine["builds"].values()),
+          f"builds per key {engine['builds']}")
+    for key in engine["builds"]:
+        check("backend=pallas" in key, f"a key off the kernels: {key}")
+    for bucket, verdict in metrics["router"].items():
+        check(verdict["backend"] in ("pallas", "pallas-mxu"),
+              f"auto at {bucket} resolved to {verdict['backend']}")
+    evals = engine["force_evals"]
+    check(launches["nbody_direct/batched"] == evals.get("pallas", 0),
+          f"nbody_direct batched launches {launches} vs evaluations "
+          f"{evals}")
+    check(launches["nbody_mxu/batched"] == evals.get("pallas-mxu", 0),
+          f"nbody_mxu batched launches {launches} vs evaluations {evals}")
+    check(launches["nbody_direct/batched"] > 0, "no batched nbody_direct")
+    check(launches["nbody_mxu/batched"] > 0, "no batched nbody_mxu")
+    rounds = [e for e in events if e.get("event") == "round"]
+    by_bucket = {}
+    for e in rounds:
+        by_bucket.setdefault(e["bucket"], []).append(e)
+    jobs = {j[0]: j for j in SERVE_JOBS}
+    body_steps = sum(jobs[label][1] * jobs[label][4] for label in ids)
+    pair_evals = sum(
+        jobs[label][1] * (jobs[label][1] - 1) * jobs[label][4]
+        * (3 if jobs[label][3] == "yoshida4" else 1) for label in ids)
+    round_s = sum(e["round_s"] for e in rounds)
+    record = {
+        "phase": "serve_path", "nvidia_smi": device["nvidia_smi"],
+        "jobs": len(ids), "cancelled": cancel_id,
+        "cancelled_job_events": mine,
+        "cancelled_while_queued": "admitted" not in mine,
+        "wall_s": serve_s, "rounds": len(rounds),
+        "ms_per_round_by_bucket": {
+            b: {"median": 1e3 * statistics.median(e["round_s"] for e in es),
+                "rounds": len(es),
+                "mean_slots_used": statistics.mean(e["slots_used"]
+                                                   for e in es)}
+            for b, es in sorted(by_bucket.items())},
+        "body_steps_per_s": body_steps / round_s,
+        "pairs_per_s": pair_evals / round_s,
+        "round_s_total": round_s,
+        "mean_occupancy": statistics.mean(e["occupancy"] for e in rounds),
+        "latency_s": metrics["latency"],
+        "builds": engine["builds"], "build_seconds": engine["build_seconds"],
+        "force_evals": evals, "kernel_launches": launches,
+        "host_reads": engine["host_reads"],
+        "host_reads_per_round": {
+            k: v / max(1, metrics["rounds"])
+            for k, v in engine["host_reads"].items()},
+        "router": metrics["router"],
+        "peak_bytes_vs_estimate": {
+            r["key"]: {"measured": r.get("peak_bytes"),
+                       "estimated": r.get("estimated_bytes")}
+            for r in metrics["perf_ledger"]},
+    }
+    emit(record)
+    return record
+
+
+def phase_serve_parity(device: dict) -> dict:
+    """Served runs in process against solo Simulator runs on the card:
+    four jobs of 50 steps through pallas and two through pallas-mxu (n
+    from 700 to 8,192) each bit for bit the solo run of its bucket-padded
+    state and within 1e-5 of the unpadded one; a diverging job (dt =
+    1e30) in a full batch fails alone, rolled back to its last finite
+    state, its batchmates keeping their bits. Then one round of each
+    bucket under the sync debug mode (host syncs, by source line) and
+    under the profiler (the device's busy share, kernels a round)."""
+    import linecache
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.serve import EnsembleScheduler, bucket_size
+    from gravity_tpu_torch.simulation import Simulator, make_initial_state
+
+    dev = torch.device("cuda", 0)
+    specs = (("pallas", "plummer", 700, "leapfrog"),
+             ("pallas", "random", 1000, "yoshida4"),
+             ("pallas", "hernquist", 3000, "leapfrog"),
+             ("pallas", "plummer", 8192, "leapfrog"),
+             ("pallas-mxu", "plummer", 2000, "leapfrog"),
+             ("pallas-mxu", "plummer", 8192, "leapfrog"))
+    configs = [SimulationConfig(model=m, n=n, integrator=it, steps=SERVE_PARITY_STEPS,
+                                dt=3600.0, eps=SERVE_EPS, force_backend=fb)
+               for fb, m, n, it in specs]
+
+    def max_rel(a, b):
+        return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
+
+    sched = EnsembleScheduler(slots=SERVE_SLOTS, slice_steps=SERVE_SLICE,
+                              device=dev, sentinel_every=0)
+    ids = [sched.submit(c) for c in configs]
+    # The diverging batch: three good jobs and one at dt = 1e30 in one key
+    # (unsoftened random cubes: the close pairs overflow fp32 at once).
+    div_good = [SimulationConfig(model="random", n=600 + 100 * k,
+                                 integrator="leapfrog", seed=k,
+                                 steps=SERVE_PARITY_STEPS, dt=3600.0,
+                                 force_backend="pallas")
+                for k in range(3)]
+    div_bad = dataclasses.replace(div_good[0], dt=1e30, seed=9)
+    div_ids = [sched.submit(c) for c in div_good] + [sched.submit(div_bad)]
+    sched.run_until_idle()
+    records = []
+    for c, jid in zip(configs + div_good, ids + div_ids[:3]):
+        st = sched.status(jid)
+        check(st["status"] == "completed", f"served {c.model} n={c.n}: {st}")
+        served = sched.result(jid)
+        state = make_initial_state(c, dev)
+        padded, _ = state.pad_to(bucket_size(c.n))
+        solo_pad = Simulator(dataclasses.replace(c, n=padded.n),
+                             state=padded).run()["final_state"]
+        solo = Simulator(c, state=state).run()["final_state"]
+        same = all(torch.equal(getattr(served, k).to(dev),
+                               getattr(solo_pad, k)[:c.n])
+                   for k in ("positions", "velocities"))
+        check(same, f"served {c.force_backend} {c.model} n={c.n} "
+                    f"{c.integrator}: not the bits of the padded solo run")
+        rel = max_rel(served.positions.double().cpu().numpy(),
+                      solo.positions.double().cpu().numpy())
+        check(rel <= 1e-5, f"served {c.force_backend} n={c.n}: max rel "
+                           f"{rel:.3e} against the unpadded solo run")
+        records.append({"backend": c.force_backend, "model": c.model,
+                        "n": c.n, "integrator": c.integrator,
+                        "bits_equal_padded_solo": True,
+                        "max_rel_vs_unpadded_solo": rel})
+    bad = sched.status(div_ids[3])
+    check(bad["status"] == "failed" and "diverged" in (bad["error"] or ""),
+          f"diverging job: {bad}")
+    rolled = sched.jobs[div_ids[3]].state
+    start = make_initial_state(div_bad, dev)
+    check(bool(torch.isfinite(rolled.positions).all())
+          and torch.equal(rolled.positions.to(dev), start.positions),
+          "diverging job not rolled back to its last finite state")
+    sched.close_io()
+    # One round of each bucket: host syncs and the device's busy share.
+    rounds = {}
+    for n in (700, 3000, 8192):
+        c = SimulationConfig(model="plummer", n=n, integrator="leapfrog",
+                             steps=10 * SERVE_SLICE, dt=3600.0, eps=SERVE_EPS,
+                             force_backend="pallas")
+        probe = EnsembleScheduler(slots=SERVE_SLOTS, slice_steps=SERVE_SLICE,
+                                  device=dev, sentinel_every=0)
+        for k in range(SERVE_SLOTS):
+            probe.submit(dataclasses.replace(c, seed=k))
+        probe.run_round()  # the build and first round: the steady rounds
+        # below neither build nor finish a job (no result copies).
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                probe.run_round()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sites = [f"{os.path.relpath(w.filename, REPO)}:{w.lineno}: "
+                 f"{linecache.getline(w.filename, w.lineno).strip()}"
+                 for w in caught if "synchroniz" in str(w.message)
+                 and "set_sync_debug_mode" not in
+                 linecache.getline(w.filename, w.lineno)]
+        prof = fmm_profile(probe.run_round, "serve")
+        probe.close_io()
+        rounds[bucket_size(n)] = {
+            "host_syncs_per_round": len(sites), "sync_sites": sites,
+            "ms_per_round_profiled": prof["wall_ms_per_eval_profiled"],
+            "device_busy_share": prof["device_busy_share"],
+            "device_ms_per_round": prof["device_ms_per_eval"],
+            "kernels_per_round": prof["device_kernels_per_eval"],
+            "top_kernels": prof["top_kernels_ms_per_eval"][:4],
+        }
+    record = {"phase": "serve_parity", "nvidia_smi": device["nvidia_smi"],
+              "jobs": records, "diverging_job": {
+                  "status": bad["status"], "error": bad["error"],
+                  "rolled_back_to_start": True,
+                  "batchmates_bits_equal_padded_solo": True},
+              "rounds": rounds}
+    emit(record)
+    return record
+
 
 def main() -> int:
     try:
@@ -5542,62 +6077,79 @@ def main() -> int:
 
 def run_phases(torch) -> int:
     t0 = time.perf_counter()
-    device = phase_device()
-    build = phase_build()
-    max_abs_err = phase_kernel_vs_plain()
-    bf16_err = phase_bf16_kernel_vs_plain()
-    nlist_err = phase_nlist_kernel_vs_plain()
-    mxu_err = phase_mxu_kernel_vs_plain()
-    p3m_err = phase_p3m_kernel_vs_plain()
-    tree_err = phase_tree_kernel_vs_plain()
-    nlist_bf16 = phase_nlist_bf16_kernel_vs_plain()
-    seg_bf16 = phase_segment_sum_bf16(device, build)
-    main_path = phase_main_path()
-    nlist_path = phase_nlist_main_path()
-    mxu_path = phase_mxu_path()
-    p3m_path = phase_p3m_path()
-    base16k = phase_baseline16k_path()
-    base2m = phase_baseline2m_path(device)
-    bf16_paths = phase_bf16_paths()
-    multirate = phase_multirate_path(device, base16k)
-    star = phase_star_cluster_path(device)
-    nlist_mr = phase_nlist_multirate_path(device)
-    mxu_mr = phase_mxu_multirate_path(device)
-    phase_adaptive_path(device, base16k)
-    phase_external_path(device)
-    phase_merge_path(device)
-    tree_path = phase_tree_path(device)
-    phase_tree_gather_path(device)
-    tree_mr = phase_tree_multirate_path(device)
-    nlist_bf16_path = phase_nlist_bf16_path(device, nlist_path)
-    nlist_bf16_mr = phase_nlist_bf16_multirate_path(device, build)
-    tree_bf16 = phase_tree_bf16_path(device)
-    fmm_path = phase_fmm_path(device)
-    fmm_dense = phase_fmm_dense_path(device)
-    fmm_parity = phase_fmm_parity_path(device)
-    fmm_mr = phase_fmm_multirate_path(device)
-    phase_fmm_debug_check(device)
-    phase_small_reference()
-    phase_other_entry_points()
-    bench_path = phase_bench_path(device)
-    autotune_path = phase_autotune_path(device)
-    pipeline = phase_pipeline_path(device)
-    resume = phase_resume_path(device)
-    phase_supervisor_path(device)
-    cadence = phase_cadence_path(device)
-    ledger_tree = phase_ledger_tree_path(device)
-    syncs = phase_host_syncs(device)
-    timing = phase_timing(device, build)
-    t_nlist = phase_timing_nlist(device, build)
-    t_mxu = phase_timing_mxu(device, build)
-    t_p3m = phase_timing_p3m(device)
-    t_tree = phase_timing_tree(device, build)
-    t_nlist_bf16 = phase_timing_nlist_bf16(device, build)
-    phase_profile_nlist()
-    phase_profile_p3m()
-    phase_profile_tree()
-    profile_bf16 = phase_profile_tree(bf16=True)
+    # Seconds of each phase, in the done line (a phase run twice, as
+    # profile_tree, keeps one entry a run).
+    phase_s = {}
+
+    def timed(fn, *args, **kwargs):
+        t = time.perf_counter()
+        result = fn(*args, **kwargs)
+        name = fn.__name__.removeprefix("phase_")
+        while name in phase_s:
+            name += "+"
+        phase_s[name] = time.perf_counter() - t
+        return result
+
+    device = timed(phase_device)
+    build = timed(phase_build)
+    max_abs_err = timed(phase_kernel_vs_plain)
+    bf16_err = timed(phase_bf16_kernel_vs_plain)
+    nlist_err = timed(phase_nlist_kernel_vs_plain)
+    mxu_err = timed(phase_mxu_kernel_vs_plain)
+    p3m_err = timed(phase_p3m_kernel_vs_plain)
+    tree_err = timed(phase_tree_kernel_vs_plain)
+    nlist_bf16 = timed(phase_nlist_bf16_kernel_vs_plain)
+    seg_bf16 = timed(phase_segment_sum_bf16, device, build)
+    main_path = timed(phase_main_path)
+    nlist_path = timed(phase_nlist_main_path)
+    mxu_path = timed(phase_mxu_path)
+    p3m_path = timed(phase_p3m_path)
+    base16k = timed(phase_baseline16k_path)
+    base2m = timed(phase_baseline2m_path, device)
+    bf16_paths = timed(phase_bf16_paths)
+    multirate = timed(phase_multirate_path, device, base16k)
+    star = timed(phase_star_cluster_path, device)
+    nlist_mr = timed(phase_nlist_multirate_path, device)
+    mxu_mr = timed(phase_mxu_multirate_path, device)
+    timed(phase_adaptive_path, device, base16k)
+    timed(phase_external_path, device)
+    timed(phase_merge_path, device)
+    tree_path = timed(phase_tree_path, device)
+    timed(phase_tree_gather_path, device)
+    tree_mr = timed(phase_tree_multirate_path, device)
+    nlist_bf16_path = timed(phase_nlist_bf16_path, device, nlist_path)
+    nlist_bf16_mr = timed(phase_nlist_bf16_multirate_path, device, build)
+    tree_bf16 = timed(phase_tree_bf16_path, device)
+    fmm_path = timed(phase_fmm_path, device)
+    fmm_dense = timed(phase_fmm_dense_path, device)
+    fmm_parity = timed(phase_fmm_parity_path, device)
+    fmm_mr = timed(phase_fmm_multirate_path, device)
+    timed(phase_fmm_debug_check, device)
+    serve_kernels = timed(phase_serve_kernels, device)
+    serve_path = timed(phase_serve_path, device)
+    serve_parity = timed(phase_serve_parity, device)
+    timed(phase_small_reference)
+    timed(phase_other_entry_points)
+    bench_path = timed(phase_bench_path, device)
+    autotune_path = timed(phase_autotune_path, device)
+    pipeline = timed(phase_pipeline_path, device)
+    resume = timed(phase_resume_path, device)
+    timed(phase_supervisor_path, device)
+    cadence = timed(phase_cadence_path, device)
+    ledger_tree = timed(phase_ledger_tree_path, device)
+    syncs = timed(phase_host_syncs, device)
+    timing = timed(phase_timing, device, build)
+    t_nlist = timed(phase_timing_nlist, device, build)
+    t_mxu = timed(phase_timing_mxu, device, build)
+    t_p3m = timed(phase_timing_p3m, device)
+    t_tree = timed(phase_timing_tree, device, build)
+    t_nlist_bf16 = timed(phase_timing_nlist_bf16, device, build)
+    timed(phase_profile_nlist)
+    timed(phase_profile_p3m)
+    timed(phase_profile_tree)
+    profile_bf16 = timed(phase_profile_tree, bf16=True)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0,
+          "phase_s": phase_s,
           "kernel_share_of_main_path_step":
               timing["ms"] / main_path["ms_per_step"],
           "nlist_kernel_share_of_step":
@@ -5665,6 +6217,17 @@ def run_phases(torch) -> int:
               "host_syncs_per_step": {
                   "sparse": fmm_path["host_syncs_per_step"],
                   "dense": fmm_dense["host_syncs_per_step"]}},
+          "serve": {
+              "batched_ms": {k: v["ms"] for k, v in
+                             serve_kernels["timing"].items()},
+              "ms_per_round_by_bucket": {
+                  b: v["median"] for b, v in
+                  serve_path["ms_per_round_by_bucket"].items()},
+              "body_steps_per_s": serve_path["body_steps_per_s"],
+              "latency_s": serve_path["latency_s"],
+              "host_syncs_per_round": {
+                  b: v["host_syncs_per_round"]
+                  for b, v in serve_parity["rounds"].items()}},
           "host_syncs_per_step": syncs["syncs_per_step"]})
     kernels = [
         ("nbody_direct", "gravity_tpu/ops/pallas_forces.py:45",
@@ -5710,6 +6273,17 @@ def run_phases(torch) -> int:
          "XLA scatter-add, not a Pallas kernel",
          tree_bf16["counts"]["segment_sum/bf16"], seg_bf16["max_abs_err"],
          seg_bf16["timing"]),
+        # The serve engine's batched force evaluations (the TPU kernels
+        # under vmap from gravity_tpu/serve/engine.py:418): one launch a
+        # batch, counted on the daemon's serve path.
+        ("nbody_direct/batched", "gravity_tpu/ops/pallas_forces.py:45",
+         serve_path["kernel_launches"]["nbody_direct/batched"],
+         serve_kernels["max_abs_err"]["nbody_direct/batched"],
+         serve_kernels["timing"]["nbody_direct/batched"]),
+        ("nbody_mxu/batched", "gravity_tpu/ops/pallas_forces_mxu.py:85",
+         serve_path["kernel_launches"]["nbody_mxu/batched"],
+         serve_kernels["max_abs_err"]["nbody_mxu/batched"],
+         serve_kernels["timing"]["nbody_mxu/batched"]),
     ]
     emit({"kernels": [{
         "name": name, "route": "cuda",

@@ -28,7 +28,10 @@ PyTorch as the JAX package's are jnp; and the measurement layer:
 ``bench.py``
 (the ``bench`` verb and ``python -m gravity_tpu_torch.bench``),
 ``autotune.py`` (plain ``auto`` routes by measurement; the ``tune``
-verb) and ``utils/timing.py``.
+verb) and ``utils/timing.py``; and the ensemble serving path
+(``serve/``, ``telemetry/``: the ``serve``, ``submit``, ``status``,
+``result`` and ``cancel`` verbs, a batch's force evaluation one launch
+of ``nbody_direct.cu`` or ``nbody_mxu.cu`` with a slot grid axis).
 ``ops/cuda_build.py`` builds every kernel.
 """
 

@@ -29,9 +29,10 @@ shape, contiguity or device checks) alike. The run fails rather than go
 on by another route that would hide the kernel. This departs on purpose
 from the JAX package, which skips a candidate on any exception.
 
-Left out: the serve stack's ``engine_candidates`` and
-``resolve_engine_backend`` (ROADMAP.md Queue 1 item 9) and the telemetry
-hooks (items 8 and 9).
+The serve stack's admission routing (:func:`resolve_engine_backend`)
+times its candidates through the same probe and cache, keyed on the
+job's padded bucket. Left out: the telemetry hooks (ROADMAP.md Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -452,3 +453,66 @@ def resolve_backend_measured(
     }, stamp_ns=probe_started_ns)
     return AutotuneDecision(winner, "miss", probe_ms, timings, skipped, h,
                             errors)
+
+
+def engine_candidates(on_card: bool, dtype: str = "float32") -> tuple:
+    """The engine backends worth timing for a serve bucket: on the card
+    the two kernels, ``pallas`` and ``pallas-mxu`` (``pallas`` alone for
+    a float64 key, which the Gram form would compute in float32, as
+    :func:`eligible_candidates` decides a solo run); on the CPU the plain
+    batched ``dense`` form alone, so admission routing is free.
+    Module-level so that tests can widen the set."""
+    if not on_card:
+        return ("dense",)
+    return ("pallas",) if dtype == "float64" else ("pallas", "pallas-mxu")
+
+
+def resolve_engine_backend(config, *, min_bucket: int = 16,
+                           job_type: str = "integrate",
+                           device: DeviceLike = None) -> AutotuneDecision:
+    """Serve-admission routing: the measured-fastest engine backend for a
+    job's padded bucket, by the JAX package's names. Jobs sharing a
+    bucket share a verdict (keyed on the bucket with the ``"serve"``
+    occupancy marker, as they share a batch). The probe runs here, at
+    submit time, never inside a scheduling round; what it times is the
+    solo kernel at the bucket size on the Simulator's own step, a proxy
+    for the batched round (the slot count is not fixed at admission).
+    A candidate's build or launch error propagates (this module's rule):
+    admission fails rather than route around a kernel."""
+    from .serve.engine import bucket_size
+    from .simulation import make_initial_state
+
+    dev = resolve_device(device)
+    candidates = engine_candidates(dev.type == "cuda", config.dtype)
+    if len(candidates) == 1:
+        return AutotuneDecision(candidates[0], "static", 0.0, {}, {}, "")
+    cfg = dataclasses.replace(
+        config, n=bucket_size(config.n, min_bucket), force_backend="auto",
+        integrator=(config.integrator if config.integrator in (
+            "euler", "leapfrog", "verlet", "yoshida4") else "leapfrog"),
+    )
+    occupancy = "serve" if job_type == "integrate" else f"serve:{job_type}"
+    decision = resolve_backend_measured(
+        cfg, lambda: make_initial_state(cfg, dev), device=dev,
+        candidates=candidates, occupancy=occupancy,
+    )
+    name = f"bucket={cfg.n},dtype={cfg.dtype}"
+    if decision.cache == "miss" or name not in _engine_verdicts:
+        _engine_verdicts[name] = {
+            "backend": decision.backend, "cache": decision.cache,
+            "probe_ms": round(decision.probe_ms, 3),
+            "timings_s": decision.timings_s,
+        }
+    return decision
+
+
+# The admission verdict of each (bucket, dtype) in this process: its
+# probe (a miss) when this process made one, else its first hit.
+_engine_verdicts: dict[str, dict] = {}
+
+
+def engine_verdicts() -> dict:
+    """The serve admission router's verdict of each bucket and dtype in
+    this process: backend, cache (miss/hit), probe ms and the timings,
+    as a daemon's /metrics shows them."""
+    return {k: dict(v) for k, v in _engine_verdicts.items()}

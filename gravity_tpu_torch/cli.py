@@ -1,5 +1,6 @@
 """Command-line interface: the ``run``, ``resume``, ``bench`` and ``tune``
-verbs.
+verbs, and the serving verbs ``serve``, ``submit``, ``status``, ``result``
+and ``cancel``.
 
 Counterpart of ``gravity_tpu/cli.py`` for this slice, with the JAX CLI's
 flag names. ``run`` writes the reference log and prints one JSON line of
@@ -7,7 +8,10 @@ run statistics on stdout; ``resume`` continues a checkpointed run;
 ``bench`` prints one JSON line of a timed block (``bench.run_benchmark``,
 or with ``--cadence`` a whole run with trajectories and checkpoints);
 ``tune`` fills the autotuner's cache over a size ladder, one JSON line a
-size. Each runs on the GPU unless ``--device cpu``.
+size. Each runs on the GPU unless ``--device cpu``. ``serve`` starts the
+ensemble daemon (serve/service.py) on the GPU unless ``--device cpu``;
+the client verbs find it through ``--spool-dir``. ``submit --job-type``
+takes ``integrate`` only: the other classes are refused with exit 2.
 
 Exit codes of ``run`` and ``resume``: 0 done; 1 a usage error; 2 a
 failure of the recovery layer (divergence, an accuracy breach, an
@@ -45,6 +49,13 @@ Usage:
     python -m gravity_tpu_torch resume --preset reference-cuda
     python -m gravity_tpu_torch run --preset baseline-16k --auto-recover \
         --checkpoint-every 100
+    python -m gravity_tpu_torch serve --spool-dir D --slots 4 \
+        --slice-steps 100 &
+    python -m gravity_tpu_torch submit --spool-dir D --model plummer \
+        --n 8192 --steps 500 --wait
+    python -m gravity_tpu_torch status --spool-dir D
+    python -m gravity_tpu_torch result --spool-dir D <job> --out final.npz
+    python -m gravity_tpu_torch cancel --spool-dir D <job>
 """
 
 from __future__ import annotations
@@ -584,6 +595,263 @@ def cmd_bench(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_serve(args: argparse.Namespace) -> int:
+    """Start the ensemble serving daemon: a localhost HTTP/JSON job API
+    over the batched engine. Jobs and results persist under
+    --spool-dir, so a restarted daemon resumes its queue."""
+    from .serve import GravityDaemon
+
+    daemon = GravityDaemon(
+        args.spool_dir, host=args.host, port=args.port,
+        slots=args.slots, slice_steps=args.slice_steps,
+        yield_rounds=args.yield_rounds, worker_id=args.worker_id,
+        lease_ttl_s=args.lease_ttl_s, max_queue=args.max_queue,
+        max_requeues=args.max_requeues, slo_p99_ms=args.slo_p99_ms,
+        slo_occupancy=args.slo_occupancy,
+        error_budget=args.serve_error_budget,
+        sentinel_every=args.serve_sentinel_every,
+        sentinel_k=args.serve_sentinel_k, ledger_every=args.ledger_every,
+        progress_every=args.serve_progress_every, device=args.device,
+    )
+    host, port = daemon.start()
+    print(json.dumps({
+        "serving": True, "host": host, "port": port,
+        "spool_dir": args.spool_dir, "pid": os.getpid(),
+        "slots": args.slots, "slice_steps": args.slice_steps,
+        "worker_id": daemon.worker_id, "lease_ttl_s": args.lease_ttl_s,
+        "device": str(daemon.device),
+    }), flush=True)
+    daemon.serve_blocking()
+    return 0
+
+
+def cmd_submit(args: argparse.Namespace) -> int:
+    """Submit one job (the config flags describe it) to the daemon
+    advertised under --spool-dir; prints the job id, or with --wait
+    polls to the terminal status."""
+    import uuid
+
+    from .serve import DaemonUnreachable, request, wait_for
+    from .serve.jobs import NOT_PORTED
+
+    if args.job_type != "integrate":
+        item = NOT_PORTED.get(args.job_type)
+        print(f"error: --job-type {args.job_type!r} is not served by "
+              "gravity_tpu_torch" + (
+                  f" yet (ROADMAP.md Queue 1 item {item})" if item
+                  else "; the served class is 'integrate'"),
+              file=sys.stderr)
+        return 2
+    config = build_config(args)
+    params = None
+    if args.params:
+        raw = args.params
+        try:
+            if raw.startswith("@"):
+                with open(raw[1:]) as f:
+                    raw = f.read()
+            params = json.loads(raw)
+        except (OSError, ValueError) as e:
+            print(f"error: bad --params: {e}", file=sys.stderr)
+            return 2
+        if not isinstance(params, dict):
+            print("error: --params must be a JSON object", file=sys.stderr)
+            return 2
+    try:
+        resp = request(args.spool_dir, "POST", "/submit", {
+            "config": json.loads(config.to_json()),
+            "job_type": args.job_type,
+            "params": params,
+            "priority": args.priority,
+            "deadline_s": args.deadline_s,
+            # Client-made idempotency key: a retry after a lost response
+            # re-submits the SAME job, never a duplicate.
+            "job_id": f"job-{uuid.uuid4().hex[:12]}",
+        }, retries=args.retries)
+    except DaemonUnreachable as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    if "job" not in resp:
+        print(json.dumps(resp), file=sys.stderr)
+        return 1
+    if args.wait:
+        try:
+            statuses = wait_for(args.spool_dir, [resp["job"]],
+                                timeout=args.timeout)
+        except (DaemonUnreachable, TimeoutError) as e:
+            print(json.dumps({"job": resp["job"], "error": str(e)}),
+                  file=sys.stderr)
+            return 2
+        st = statuses[resp["job"]]
+        print(json.dumps(st))
+        return 0 if st["status"] == "completed" else 1
+    print(json.dumps(resp))
+    return 0
+
+
+def cmd_job_status(args: argparse.Namespace) -> int:
+    from .serve import DaemonUnreachable, request
+
+    path = f"/status?job={args.job}" if args.job else "/status"
+    try:
+        resp = request(args.spool_dir, "GET", path)
+    except DaemonUnreachable as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    # An error answer (unknown job) has no "id"; a job's status carries an
+    # "error" field of its own (null unless it failed), so the JAX CLI's
+    # test for that key fails every single-job query.
+    if "id" not in resp and "jobs" not in resp:
+        print(json.dumps(resp), file=sys.stderr)
+        return 1
+    print(json.dumps(resp, indent=2))
+    return 0
+
+
+def cmd_result(args: argparse.Namespace) -> int:
+    """Fetch a completed job's result; --out saves its arrays as .npz."""
+    import numpy as np
+
+    from .serve import DaemonUnreachable, request
+
+    try:
+        resp = request(args.spool_dir, "GET", f"/result?job={args.job}")
+    except DaemonUnreachable as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    array_keys = [k for k, v in resp.items() if isinstance(v, list)]
+    # A completed job's status carries "error": null; only a truthy
+    # error (unknown job, not completed) is a failure.
+    if resp.get("error") or not array_keys:
+        print(json.dumps(resp), file=sys.stderr)
+        return 1
+    if args.out:
+        # No dtype coercion: fp64 results keep their mantissa.
+        np.savez(args.out, **{k: np.asarray(resp[k]) for k in array_keys})
+    summary = {k: v for k, v in resp.items() if k not in array_keys}
+    summary["arrays"] = sorted(array_keys)
+    if "positions" in resp:
+        summary["n"] = len(resp["positions"])
+    if args.out:
+        summary["saved_to"] = args.out
+    print(json.dumps(summary))
+    return 0
+
+
+def cmd_cancel(args: argparse.Namespace) -> int:
+    from .serve import DaemonUnreachable, request
+
+    try:
+        resp = request(args.spool_dir, "POST", "/cancel", {"job": args.job})
+    except DaemonUnreachable as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    print(json.dumps(resp))
+    return 0 if resp.get("cancelled") else 1
+
+
+def _add_spool_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--spool-dir", dest="spool_dir", default="gravity_spool",
+                   help="daemon spool directory (jobs, results, "
+                        "daemon.json endpoint file)")
+
+
+def _add_serving_parsers(sub) -> None:
+    """The serving verbs, with the JAX CLI's flags."""
+    p = sub.add_parser("serve", help="start the ensemble serving daemon "
+                                     "(HTTP/JSON job API over the batched "
+                                     "engine)")
+    _add_spool_arg(p)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the GPU; 'cpu' to serve "
+                        "on the CPU)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0,
+                   help="0 = any free port (clients find it through the "
+                        "spool's daemon.json)")
+    p.add_argument("--slots", type=int, default=4,
+                   help="batch slots per bucket")
+    p.add_argument("--slice-steps", dest="slice_steps", type=int,
+                   default=100, help="steps per scheduling round")
+    p.add_argument("--worker-id", dest="worker_id", default=None,
+                   help="stable worker identity in the shared spool")
+    p.add_argument("--lease-ttl-s", dest="lease_ttl_s", type=float,
+                   default=30.0, help="job-lease TTL; peers adopt this "
+                                      "worker's jobs once its leases expire")
+    p.add_argument("--max-queue", dest="max_queue", type=int, default=1024,
+                   help="bounded admission queue: submissions beyond it "
+                        "shed with HTTP 503 + Retry-After (0 = unbounded)")
+    p.add_argument("--max-requeues", dest="max_requeues", type=int,
+                   default=5, help="requeue cap per job before it goes "
+                                   "terminal failed ('poisoned')")
+    p.add_argument("--yield-rounds", dest="yield_rounds", type=int,
+                   default=2, help="consecutive rounds a resident job may "
+                                   "hold a contended slot before yielding")
+    p.add_argument("--slo-p99-ms", dest="slo_p99_ms", type=float,
+                   default=None, help="p99 completed-latency SLO in ms")
+    p.add_argument("--slo-occupancy", dest="slo_occupancy", type=float,
+                   default=None, help="round-occupancy SLO (0..1)")
+    p.add_argument("--error-budget", dest="serve_error_budget", type=float,
+                   default=0.0,
+                   help="accuracy SLO: largest acceptable sentinel p90 "
+                        "relative force error; a breach trips the "
+                        "backend's breaker")
+    p.add_argument("--sentinel-every", dest="serve_sentinel_every",
+                   type=int, default=8,
+                   help="accuracy-sentinel cadence in rounds (0 = off)")
+    p.add_argument("--sentinel-k", dest="serve_sentinel_k", type=int,
+                   default=64, help="sampled sentinel targets per probe")
+    p.add_argument("--progress-every", dest="serve_progress_every",
+                   type=int, default=1,
+                   help="rounds between durable mid-run progress "
+                        "snapshots per running job (0 disables)")
+    p.add_argument("--ledger-every", dest="ledger_every", type=int,
+                   default=1, help="per-slot conservation-ledger cadence "
+                                   "in rounds (0 = off)")
+    p.set_defaults(func=cmd_serve)
+
+    p = sub.add_parser("submit", help="submit a job to the serving daemon")
+    _add_config_args(p)
+    _add_spool_arg(p)
+    p.add_argument("--job-type", dest="job_type", default="integrate",
+                   help="traffic class: integrate (the JAX package's fit, "
+                        "sweep, watch and sharded-integrate are not "
+                        "ported: exit 2)")
+    p.add_argument("--params", default=None,
+                   help="job-class payload as inline JSON or @file (an "
+                        "optional inline 'state')")
+    p.add_argument("--priority", type=int, default=0,
+                   help="higher preempts lower in a full batch")
+    p.add_argument("--deadline-s", dest="deadline_s", type=float,
+                   default=None, help="wall-clock budget from submission")
+    p.add_argument("--wait", action="store_true",
+                   help="poll until the job is terminal")
+    p.add_argument("--retries", type=int, default=3,
+                   help="client retries with jittered exponential backoff "
+                        "on an unreachable daemon or a 503 load shed")
+    p.add_argument("--timeout", type=float, default=600.0,
+                   help="--wait poll budget in seconds")
+    p.set_defaults(func=cmd_submit)
+
+    p = sub.add_parser("status",
+                       help="job status (all jobs when no id is given)")
+    _add_spool_arg(p)
+    p.add_argument("job", nargs="?", default=None)
+    p.set_defaults(func=cmd_job_status)
+
+    p = sub.add_parser("result", help="fetch a completed job's final state")
+    _add_spool_arg(p)
+    p.add_argument("job")
+    p.add_argument("--out", default=None,
+                   help="save the final state as this .npz")
+    p.set_defaults(func=cmd_result)
+
+    p = sub.add_parser("cancel", help="cancel a queued/running job")
+    _add_spool_arg(p)
+    p.add_argument("job")
+    p.set_defaults(func=cmd_cancel)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="gravity_tpu_torch",
@@ -631,5 +899,6 @@ def main(argv=None) -> int:
                          help="the perf regression gate (not ported: "
                               "ROADMAP.md Queue 1 item 8)")
     p_bench.set_defaults(func=cmd_bench)
+    _add_serving_parsers(sub)
     args = parser.parse_args(argv)
     return args.func(args)

@@ -43,6 +43,15 @@
 //   whenever cutoff^2 (masked) or eps^2 (mask-free) is at least FLT_MIN.
 //   The weight's products stay non-ftz (see below).
 //
+// Batched launches (the serve engine, gravity_tpu_torch/serve/engine.py):
+// the counterpart of pallas_call's batching rule under the JAX engine's
+// vmap, which gives the TPU kernel an extra grid axis. Here the pack, main
+// and reduce kernels each take the slot as one more grid axis (blockIdx.y
+// for pack and reduce, blockIdx.z for the main kernel) and offset every
+// pointer by the slot's stride, so B systems are one launch of each. A
+// slot's blocks do exactly a solo launch's work on that slot's arrays with
+// the same chunking, so slot b's result has the bits of a solo launch.
+//
 // Rounding: each thread sums one tile's pairs apart and adds the tile sum
 // to its chunk total, and the chunk totals are added in order, so a row
 // rounds at ~(kTile + K / (kTile S) + S) ulp of its sum of |terms|, at
@@ -292,6 +301,8 @@ __device__ __forceinline__ void pair_bf16(const Body2& s, uint32_t xi,
   tz[1] += hi(pz);
 }
 
+// Slot blockIdx.y of a batched launch: its sources start at slot * k,
+// its packed tiles at slot * k_pad.
 template <typename IO>
 __global__ void nbody_pack_kernel(const IO* __restrict__ pos_j,
                                   const IO* __restrict__ gm_j, int64_t k,
@@ -301,6 +312,9 @@ __global__ void nbody_pack_kernel(const IO* __restrict__ pos_j,
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (j >= k_pad) return;
+  pos_j += static_cast<int64_t>(blockIdx.y) * k * 3;
+  gm_j += static_cast<int64_t>(blockIdx.y) * k;
+  out += static_cast<int64_t>(blockIdx.y) * k_pad;
   if constexpr (std::is_same_v<IO, bf16>) {
     Body2 b{0u, 0u, 0u, 0u};
     if (j < k) {
@@ -322,9 +336,11 @@ __global__ void nbody_pack_kernel(const IO* __restrict__ pos_j,
   }
 }
 
-// Block (x, c): targets [x kBlockM, (x + 1) kBlockM) against the tiles of
-// chunk c. Writes out[c][i][:] in the compute type T (out is acc itself
-// when chunks == 1 and IO is T).
+// Block (x, c, b): slot b's targets [x kBlockM, (x + 1) kBlockM) against
+// the tiles of its chunk c. Writes out[b][c][i][:] in the compute type T
+// (out is acc itself when chunks == 1 and IO is T). A slot's blocks do
+// the work of a solo launch's on that slot's arrays, so its bits are a
+// solo launch's.
 template <typename IO, int MODE, bool FTZ>
 __global__ void __launch_bounds__(kThreads)
     nbody_direct_kernel(const IO* __restrict__ pos_i, int64_t m,
@@ -335,6 +351,10 @@ __global__ void __launch_bounds__(kThreads)
   constexpr bool kBf16 = std::is_same_v<IO, bf16>;
   __shared__ Staged<IO> tile[2][kTile];
   const int c = blockIdx.y;
+  const int64_t slot = blockIdx.z;
+  pos_i += slot * m * 3;
+  packed += slot * n_tiles * kTile;
+  out += slot * chunks * m * 3;
   const int t_lo = static_cast<int>(static_cast<int64_t>(c) * n_tiles /
                                     chunks);
   const int t_hi = static_cast<int>(static_cast<int64_t>(c + 1) * n_tiles /
@@ -417,6 +437,7 @@ __global__ void __launch_bounds__(kThreads)
 
 // acc[e] = partial[0][e] + partial[1][e] + ... in that order, in the
 // compute type T, rounded to IO once.
+// Slot blockIdx.y of a batched launch: partial (B, S, n), acc (B, n).
 template <typename IO>
 __global__ void nbody_reduce_kernel(const Compute<IO>* __restrict__ partial,
                                     int64_t n, int chunks,
@@ -425,6 +446,8 @@ __global__ void nbody_reduce_kernel(const Compute<IO>* __restrict__ partial,
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (e >= n) return;
+  partial += static_cast<int64_t>(blockIdx.y) * chunks * n;
+  acc += static_cast<int64_t>(blockIdx.y) * n;
   T s = partial[e];
   for (int c = 1; c < chunks; ++c) s += partial[static_cast<int64_t>(c) * n + e];
   acc[e] = store_as<IO>(s);
@@ -453,42 +476,48 @@ KernelFn<IO> pick_kernel(int masked, double eps2, double cutoff2) {
              : nbody_direct_kernel<IO, kMaskedNoEps, false>;
 }
 
-// `packed` holds (K_pad, 4) and `partial` (S, M, 3) elements of the
+// `packed` holds (B, K_pad, 4) and `partial` (B, S, M, 3) elements of the
 // compute type (for bf16, `packed` holds its Body2 words in the same 16
 // bytes a source). fp32 and fp64 with S = 1 write acc directly; bf16
 // always writes fp32 partials and rounds them once in the reduce kernel.
+// `batch` slots of (M, 3), (K, 3), (K,) and (M, 3) arrays lie back to
+// back; each of the three kernels takes the slot as a grid axis, so a
+// batch is one launch of each (B = 1 is the solo launch).
 template <typename IO>
 int launch(const void* pos_i, int64_t m, const void* pos_j, const void* gm_j,
            int64_t k, double eps2, double cutoff2, int masked, int chunks,
-           void* packed, void* partial, void* acc, void* stream) {
+           void* packed, void* partial, void* acc, void* stream,
+           int batch = 1) {
   using T = Compute<IO>;
-  if (m <= 0) return 0;
+  if (m <= 0 || batch == 0) return 0;
   const int n_tiles = static_cast<int>((k + kTile - 1) / kTile);
   if (chunks < 1 || (n_tiles > 0 && chunks > n_tiles) ||
-      (n_tiles == 0 && chunks != 1)) {
+      (n_tiles == 0 && chunks != 1) || batch < 0 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Staged<IO>* pk = static_cast<Staged<IO>*>(packed);
   const int64_t k_pad = static_cast<int64_t>(n_tiles) * kTile;
+  const unsigned slots = static_cast<unsigned>(batch);
   if (k_pad > 0) {
-    nbody_pack_kernel<IO><<<static_cast<unsigned>((k_pad + 255) / 256), 256,
-                            0, s>>>(static_cast<const IO*>(pos_j),
-                                    static_cast<const IO*>(gm_j), k, k_pad,
-                                    pk);
+    nbody_pack_kernel<IO>
+        <<<dim3(static_cast<unsigned>((k_pad + 255) / 256), slots), 256, 0,
+           s>>>(static_cast<const IO*>(pos_j), static_cast<const IO*>(gm_j),
+                k, k_pad, pk);
   }
   const bool direct = chunks == 1 && std::is_same_v<IO, T>;
   T* out = static_cast<T*>(direct ? acc : partial);
   const dim3 grid(static_cast<unsigned>((m + kBlockM - 1) / kBlockM),
-                  static_cast<unsigned>(chunks));
+                  static_cast<unsigned>(chunks), slots);
   pick_kernel<IO>(masked, eps2, cutoff2)<<<grid, kThreads, 0, s>>>(
       static_cast<const IO*>(pos_i), m, pk, n_tiles, chunks,
       static_cast<T>(eps2), static_cast<T>(cutoff2), out);
   if (!direct) {
     const int64_t n = 3 * m;
-    nbody_reduce_kernel<IO><<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                              s>>>(static_cast<const T*>(partial), n, chunks,
-                                   static_cast<IO*>(acc));
+    nbody_reduce_kernel<IO>
+        <<<dim3(static_cast<unsigned>((n + 255) / 256), slots), 256, 0,
+           s>>>(static_cast<const T*>(partial), n, chunks,
+                static_cast<IO*>(acc));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -537,6 +566,24 @@ extern "C" int nbody_direct_bf16(const void* pos_i, int64_t m,
   return launch<bf16>(pos_i, m, pos_j, gm_j, k, eps2, cutoff2, masked,
                       chunks, packed, partial, acc, stream);
 }
+
+// The batched launch: `batch` slots (at most 65,535) of the arrays above,
+// each slot's arrays contiguous after the one before; `packed` and
+// `partial` hold a slot's scratch for each slot. One launch of each
+// kernel for the whole batch; slot b's result has the bits of a solo
+// launch on slot b's arrays with the same `chunks`.
+#define NBODY_DIRECT_BATCHED(NAME, IO)                                      \
+  extern "C" int NAME(const void* pos_i, int64_t m, const void* pos_j,     \
+                      const void* gm_j, int64_t k, double eps2,            \
+                      double cutoff2, int masked, int chunks, void* packed, \
+                      void* partial, void* acc, void* stream, int batch) {  \
+    return launch<IO>(pos_i, m, pos_j, gm_j, k, eps2, cutoff2, masked,     \
+                      chunks, packed, partial, acc, stream, batch);        \
+  }
+NBODY_DIRECT_BATCHED(nbody_direct_batched_f32, float)
+NBODY_DIRECT_BATCHED(nbody_direct_batched_f64, double)
+NBODY_DIRECT_BATCHED(nbody_direct_batched_bf16, bf16)
+#undef NBODY_DIRECT_BATCHED
 
 // The block shape the wrapper plans with: 0 -> targets a block,
 // 1 -> sources a tile.

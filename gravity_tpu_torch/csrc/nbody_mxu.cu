@@ -63,6 +63,11 @@
 //   where ftz gives the same bits. A pair that is not selected may take
 //   any rsqrt, since its weight is replaced by 0 in a select.
 //
+// Batched launches (the serve engine): each of the three kernels takes the
+// slot as one more grid axis and offsets its pointers by the slot's
+// stride; a slot's blocks do a solo launch's work with the same chunking,
+// so each slot has a solo launch's bits (nbody_direct.cu says more).
+//
 // Rounding: the hardware does not promise that the adds inside mma.sync
 // round like FADD, so each 256-source tile is summed in a fresh fragment
 // and its total added to the chunk total with __fadd_rn, and the chunk
@@ -214,6 +219,10 @@ __global__ void nbody_mxu_pack_kernel(const In* __restrict__ xj_in,
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (j >= k_pad) return;
+  // Slot blockIdx.y of a batched launch.
+  xj_in += static_cast<int64_t>(blockIdx.y) * k * 3;
+  gm_j += static_cast<int64_t>(blockIdx.y) * k;
+  packed += static_cast<int64_t>(blockIdx.y) * (k_pad / kTile) * L::kBytes;
   float x[3] = {0.f, 0.f, 0.f};
   float gm = 0.f;
   const bool real = j < k;
@@ -250,9 +259,10 @@ __global__ void nbody_mxu_pack_kernel(const In* __restrict__ xj_in,
   }
 }
 
-// Block (x, c): targets [x kBlockM, (x + 1) kBlockM) against the tiles of
-// chunk c, tiles [c n / S, (c + 1) n / S). Writes out[c][i][:] (out is the
-// result itself when chunks == 1). Warp w holds m-tiles of rows
+// Block (x, c, b): slot b's targets [x kBlockM, (x + 1) kBlockM) against
+// the tiles of its chunk c, tiles [c n / S, (c + 1) n / S). Writes
+// out[b][c][i][:] (out is the result itself when chunks == 1); a slot's
+// blocks do a solo launch's work on that slot's arrays, with its bits. Warp w holds m-tiles of rows
 // x kBlockM + 16 (kR w + r) + [0, 16); lane 4 g + t holds rows g and g + 8
 // of each (PTX fragment layout: groupID g, threadID_in_group t).
 template <typename In, bool CUTOFF, bool FTZ>
@@ -265,6 +275,10 @@ __global__ void __launch_bounds__(kThreads)
   using L = Layout<BF16>;
   __shared__ __align__(16) char smem[2][L::kBytes];
   const int c = blockIdx.y;
+  const int64_t slot = blockIdx.z;
+  xi_in += slot * m * 3;
+  packed += slot * n_tiles * L::kBytes;
+  out += slot * chunks * m * 4;
   const int t_lo = static_cast<int>(static_cast<int64_t>(c) * n_tiles /
                                     chunks);
   const int t_hi = static_cast<int>(static_cast<int64_t>(c + 1) * n_tiles /
@@ -414,6 +428,9 @@ __global__ void nbody_mxu_reduce_kernel(const float* __restrict__ partial,
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (e >= n) return;
+  // Slot blockIdx.y of a batched launch: partial (B, S, n), acc (B, n).
+  partial += static_cast<int64_t>(blockIdx.y) * chunks * n;
+  acc += static_cast<int64_t>(blockIdx.y) * n;
   float s = partial[e];
   for (int c = 1; c < chunks; ++c) {
     s = __fadd_rn(s, partial[static_cast<int64_t>(c) * n + e]);
@@ -440,37 +457,44 @@ KernelFn<In> pick_kernel(double eps2, double cutoff2) {
              : nbody_mxu_kernel<In, false, false>;
 }
 
+// `batch` slots (B = 1 is the solo launch) of the arrays, back to back;
+// `packed` and `partial` hold a slot's scratch for each slot. Each of the
+// three kernels takes the slot as a grid axis: one launch of each a batch.
 template <typename In>
 int launch(const void* xi, int64_t m, const void* xj, const void* gm_j,
            int64_t k, double eps2, double cutoff2, double tau, int chunks,
-           void* packed, void* partial, void* out4, void* stream) {
-  if (m <= 0) return 0;
+           void* packed, void* partial, void* out4, void* stream,
+           int batch = 1) {
+  if (m <= 0 || batch == 0) return 0;
   const int n_tiles = static_cast<int>((k + kTile - 1) / kTile);
   if (chunks < 1 || (n_tiles > 0 && chunks > n_tiles) ||
-      (n_tiles == 0 && chunks != 1)) {
+      (n_tiles == 0 && chunks != 1) || batch < 0 || batch > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   char* pk = static_cast<char*>(packed);
   const int64_t k_pad = static_cast<int64_t>(n_tiles) * kTile;
+  const unsigned slots = static_cast<unsigned>(batch);
   if (k_pad > 0) {
     nbody_mxu_pack_kernel<In>
-        <<<static_cast<unsigned>((k_pad + 255) / 256), 256, 0, s>>>(
-            static_cast<const In*>(xj), static_cast<const float*>(gm_j), k,
-            k_pad, pk);
+        <<<dim3(static_cast<unsigned>((k_pad + 255) / 256), slots), 256, 0,
+           s>>>(static_cast<const In*>(xj), static_cast<const float*>(gm_j),
+                k, k_pad, pk);
   }
   float* out = static_cast<float*>(chunks > 1 ? partial : out4);
   const dim3 grid(static_cast<unsigned>((m + kBlockM - 1) / kBlockM),
-                  static_cast<unsigned>(chunks));
+                  static_cast<unsigned>(chunks), slots);
   pick_kernel<In>(eps2, cutoff2)<<<grid, kThreads, 0, s>>>(
       static_cast<const In*>(xi), m, pk, n_tiles, chunks,
       static_cast<float>(eps2), static_cast<float>(cutoff2),
       static_cast<float>(tau), out);
   if (chunks > 1) {
     const int64_t n = 4 * m;
-    nbody_mxu_reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                              s>>>(static_cast<const float*>(partial), n,
-                                   chunks, static_cast<float*>(out4));
+    nbody_mxu_reduce_kernel<<<dim3(static_cast<unsigned>((n + 255) / 256),
+                                   slots),
+                              256, 0, s>>>(static_cast<const float*>(partial),
+                                           n, chunks,
+                                           static_cast<float*>(out4));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -509,6 +533,30 @@ extern "C" int nbody_mxu_bf16(const void* xi, int64_t m, const void* xj,
                               void* stream) {
   return launch<__nv_bfloat16>(xi, m, xj, gm_j, k, eps2, cutoff2, tau,
                                chunks, packed, partial, out4, stream);
+}
+
+// The batched launch: `batch` slots (at most 65,535) of the arrays above,
+// each slot's arrays contiguous after the one before, and a slot's
+// scratch for each slot. Slot b's out4 has the bits of a solo launch on
+// slot b's arrays with the same `chunks`.
+extern "C" int nbody_mxu_batched_f32(const void* xi, int64_t m,
+                                     const void* xj, const void* gm_j,
+                                     int64_t k, double eps2, double cutoff2,
+                                     double tau, int chunks, void* packed,
+                                     void* partial, void* out4, void* stream,
+                                     int batch) {
+  return launch<float>(xi, m, xj, gm_j, k, eps2, cutoff2, tau, chunks,
+                       packed, partial, out4, stream, batch);
+}
+
+extern "C" int nbody_mxu_batched_bf16(const void* xi, int64_t m,
+                                      const void* xj, const void* gm_j,
+                                      int64_t k, double eps2, double cutoff2,
+                                      double tau, int chunks, void* packed,
+                                      void* partial, void* out4,
+                                      void* stream, int batch) {
+  return launch<__nv_bfloat16>(xi, m, xj, gm_j, k, eps2, cutoff2, tau,
+                               chunks, packed, partial, out4, stream, batch);
 }
 
 // The launch shape the wrapper plans with: 0 -> targets a block, 1 ->

@@ -37,8 +37,15 @@ _ARGTYPES = [
     _P, ctypes.c_int64, _P, _P, ctypes.c_int64, ctypes.c_double,
     ctypes.c_double, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
 ]
+# The batched entries: a slot count after the solo entry's arguments.
+_BATCHED = {dtype: name.replace("nbody_direct_", "nbody_direct_batched_")
+            for dtype, name in _ENTRY.items()}
+# The most slots a batched launch takes (the grid's slot axis).
+MAX_SLOTS = 65_535
 LIBRARY = cuda_build.CudaLibrary("nbody_direct", {
     **{name: (_ARGTYPES, ctypes.c_int) for name in _ENTRY.values()},
+    **{name: (_ARGTYPES + [ctypes.c_int], ctypes.c_int)
+       for name in _BATCHED.values()},
     "nbody_direct_shape": ([ctypes.c_int], ctypes.c_int),
     "nbody_direct_blocks_per_sm": (
         [ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double],
@@ -51,6 +58,9 @@ BUILD_INFO = LIBRARY.info
 # Kernel launches so far; a run reads it to show its path went through
 # the kernel. Incremented only where the kernel is launched.
 LAUNCHES = 0
+# Batched launches so far (:func:`accelerations_vs_batched_kernel`): one
+# for each force evaluation of a whole batch, whatever its slot count.
+BATCHED_LAUNCHES = 0
 
 
 def library_path() -> str:
@@ -123,7 +133,9 @@ def chunks_for(m: int, k: int, *, dtype: torch.dtype, cutoff: float,
                          tile=lib.nbody_direct_shape(1), slots=slots)
 
 
-def _check(pos_i, pos_j, masses_j) -> None:
+def _check(pos_i, pos_j, masses_j, batch: tuple = ()) -> None:
+    """The launch's checks; ``batch`` is ``(B,)`` for a batched launch,
+    whose arrays carry the slot axis first."""
     device, dtype = pos_i.device, pos_i.dtype
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
@@ -138,14 +150,16 @@ def _check(pos_i, pos_j, masses_j) -> None:
             raise TypeError(f"{name} is {t.dtype}, pos_i is {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    m, k = pos_i.shape[0], pos_j.shape[0]
-    if pos_i.shape != (m, 3) or pos_j.shape != (k, 3):
+    lead = len(batch)
+    m, k = pos_i.shape[lead], pos_j.shape[lead]
+    if pos_i.shape != (*batch, m, 3) or pos_j.shape != (*batch, k, 3):
         raise ValueError(
-            f"positions must be (M, 3) and (K, 3), got "
-            f"{tuple(pos_i.shape)} and {tuple(pos_j.shape)}"
+            f"positions must be {(*batch, 'M', 3)} and {(*batch, 'K', 3)}, "
+            f"got {tuple(pos_i.shape)} and {tuple(pos_j.shape)}"
         )
-    if masses_j.shape != (k,):
-        raise ValueError(f"masses_j must be ({k},), got {tuple(masses_j.shape)}")
+    if masses_j.shape != (*batch, k):
+        raise ValueError(f"masses_j must be {(*batch, k)}, got "
+                         f"{tuple(masses_j.shape)}")
 
 
 def accelerations_vs_kernel(
@@ -201,6 +215,76 @@ def accelerations_vs_kernel(
         )
     LIBRARY.check(status)
     LAUNCHES += 1
+    return acc
+
+
+def accelerations_vs_batched(pos_i, pos_j, masses_j, **kwargs):
+    """The plain batched version: :func:`~.forces.accelerations_vs` slot by
+    slot over ``(B, M, 3)``, ``(B, K, 3)`` and ``(B, K)``."""
+    if pos_i.shape[0] == 0:
+        return torch.empty_like(pos_i)
+    return torch.stack([
+        accelerations_vs(pos_i[b], pos_j[b], masses_j[b], **kwargs)
+        for b in range(pos_i.shape[0])
+    ])
+
+
+def accelerations_vs_batched_kernel(
+    pos_i: torch.Tensor,
+    pos_j: torch.Tensor,
+    masses_j: torch.Tensor,
+    *,
+    g: float = G,
+    cutoff: float = CUTOFF_RADIUS,
+    eps: float = 0.0,
+) -> torch.Tensor:
+    """B independent direct sums, ``(B, M, 3) x (B, K, 3) x (B, K) ->
+    (B, M, 3)``, in one launch of each of the kernel's three parts (the
+    serve engine's batched force evaluation). Slot b's result has the
+    bits of :func:`accelerations_vs_kernel` on slot b's arrays: the source
+    chunking is the one a solo launch at (M, K) takes.
+
+    CPU tensors take the plain batched version
+    (:func:`accelerations_vs_batched`); CUDA tensors launch the kernel on
+    the current stream, without synchronising, or raise."""
+    global BATCHED_LAUNCHES
+    if all(t.device.type == "cpu" for t in (pos_i, pos_j, masses_j)):
+        return accelerations_vs_batched(pos_i, pos_j, masses_j, g=g,
+                                        cutoff=cutoff, eps=eps)
+    if pos_i.ndim != 3:
+        raise ValueError(f"pos_i must be (B, M, 3), got {tuple(pos_i.shape)}")
+    batch = pos_i.shape[0]
+    _check(pos_i, pos_j, masses_j, (batch,))
+    if batch > MAX_SLOTS:
+        raise ValueError(f"a batched launch takes at most {MAX_SLOTS} "
+                         f"slots, got {batch}")
+    dtype, device = pos_i.dtype, pos_i.device
+    compute = _COMPUTE[dtype]
+    eps2 = rounded(rounded(eps, dtype) ** 2, dtype)
+    cutoff2 = rounded(rounded(cutoff, dtype) ** 2, dtype)
+    masked = eps * eps <= cutoff * cutoff
+    gm = masses_j * rounded(g, dtype)
+    acc = torch.empty_like(pos_i)
+    m, k = pos_i.shape[1], pos_j.shape[1]
+    if batch == 0 or m == 0:
+        return acc
+    lib = load_library()
+    tile = lib.nbody_direct_shape(1)
+    with torch.cuda.device(device):
+        chunks = chunks_for(m, k, dtype=dtype, cutoff=cutoff, eps=eps)
+        packed = torch.empty((batch, -(-k // tile) * tile, 4), dtype=compute,
+                             device=device)
+        partial = (torch.empty((batch, chunks, m, 3), dtype=compute,
+                               device=device)
+                   if chunks > 1 or compute != dtype else acc)
+        status = getattr(lib, _BATCHED[dtype])(
+            pos_i.data_ptr(), m, pos_j.data_ptr(), gm.data_ptr(), k, eps2,
+            cutoff2, int(masked), chunks, packed.data_ptr(),
+            partial.data_ptr(), acc.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream, batch,
+        )
+    LIBRARY.check(status)
+    BATCHED_LAUNCHES += 1
     return acc
 
 

@@ -88,13 +88,15 @@ def accelerations_vs(
 ) -> torch.Tensor:
     """Accelerations on ``pos_i`` (M, 3) sourced by ``pos_j`` (K, 3) and
     ``masses_j`` (K,). Self-pairs are excluded because r == 0 falls below
-    the cutoff; ``rcut`` > 0 truncates at r > rcut."""
+    the cutoff; ``rcut`` > 0 truncates at r > rcut. Leading batch axes
+    (``(B, M, 3)``, ``(B, K, 3)``, ``(B, K)``: the serve engine's batched
+    ``dense`` form, the JAX form under ``vmap``) sum each system apart."""
     _not_ported(box)
-    diff = pos_j[None, :, :] - pos_i[:, None, :]  # (M, K, 3)
+    diff = pos_j[..., None, :, :] - pos_i[..., :, None, :]  # (M, K, 3)
     r2 = (diff * diff).sum(dim=-1)  # (M, K)
-    w = _pair_weights(r2, masses_j[None, :], g, cutoff, eps,
+    w = _pair_weights(r2, masses_j[..., None, :], g, cutoff, eps,
                       rcut)  # (M, K)
-    return (w[:, :, None] * diff).sum(dim=1)  # (M, 3)
+    return (w[..., None] * diff).sum(dim=-2)  # (M, 3)
 
 
 def pairwise_accelerations_dense(

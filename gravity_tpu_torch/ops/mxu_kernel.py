@@ -113,12 +113,16 @@ def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 _ENTRY = {torch.float32: "nbody_mxu_f32", torch.bfloat16: "nbody_mxu_bf16"}
+# The batched entries: a slot count after the solo entry's arguments.
+_BATCHED = {torch.float32: "nbody_mxu_batched_f32",
+            torch.bfloat16: "nbody_mxu_batched_bf16"}
 _P = ctypes.c_void_p
+_ARGTYPES = [_P, ctypes.c_int64, _P, _P, ctypes.c_int64, ctypes.c_double,
+             ctypes.c_double, ctypes.c_double, ctypes.c_int, _P, _P, _P, _P]
 LIBRARY = cuda_build.CudaLibrary("nbody_mxu", {
-    **{name: ([_P, ctypes.c_int64, _P, _P, ctypes.c_int64, ctypes.c_double,
-               ctypes.c_double, ctypes.c_double, ctypes.c_int, _P, _P, _P,
-               _P], ctypes.c_int)
-       for name in _ENTRY.values()},
+    **{name: (_ARGTYPES, ctypes.c_int) for name in _ENTRY.values()},
+    **{name: (_ARGTYPES + [ctypes.c_int], ctypes.c_int)
+       for name in _BATCHED.values()},
     "nbody_mxu_shape": ([ctypes.c_int], ctypes.c_int),
     "nbody_mxu_blocks_per_sm": (
         [ctypes.c_int, ctypes.c_double, ctypes.c_double], ctypes.c_int),
@@ -127,6 +131,9 @@ LIBRARY = cuda_build.CudaLibrary("nbody_mxu", {
 # Kernel launches so far; a run reads it to show its path went through
 # the kernel. Incremented only where the kernel is launched.
 LAUNCHES = 0
+# Batched launches so far (:func:`gram_acc4_batched`): one for each force
+# evaluation of a whole batch, whatever its slot count.
+BATCHED_LAUNCHES = 0
 
 
 def _squares(eps: float, cutoff: float) -> tuple[float, float]:
@@ -159,17 +166,20 @@ def chunks_for(m: int, k: int, *, bf16: bool, cutoff: float,
                          tile=lib.nbody_mxu_shape(1), slots=slots)
 
 
-def _check(xi, xj, gmj) -> None:
+def _check(xi, xj, gmj, batch: tuple = ()) -> None:
+    """The launch's checks; ``batch`` is ``(B,)`` for a batched launch,
+    whose arrays carry the slot axis first."""
     device, dtype = xi.device, xi.dtype
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")
     if dtype not in _ENTRY:
         raise TypeError(f"the CUDA kernel takes float32 or bfloat16 "
                         f"operands, not {dtype}")
-    k = xj.shape[0]
-    for name, t, shape, want in (("xi", xi, (xi.shape[0], 3), dtype),
-                                 ("xj", xj, (k, 3), dtype),
-                                 ("gmj", gmj, (k,), torch.float32)):
+    lead = len(batch)
+    m, k = xi.shape[lead], xj.shape[lead]
+    for name, t, shape, want in (("xi", xi, (*batch, m, 3), dtype),
+                                 ("xj", xj, (*batch, k, 3), dtype),
+                                 ("gmj", gmj, (*batch, k), torch.float32)):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, xi on {device}")
         if t.dtype != want:
@@ -217,6 +227,73 @@ def gram_acc4(xi: torch.Tensor, xj: torch.Tensor, gmj: torch.Tensor, *,
     return out
 
 
+def gram_acc4_batched(xi: torch.Tensor, xj: torch.Tensor, gmj: torch.Tensor,
+                      *, cutoff: float, eps: float) -> torch.Tensor:
+    """:func:`gram_acc4` over a slot axis, ``(B, M, 3) x (B, K, 3) x (B, K)
+    -> (B, M, 4)``, in one launch of each of the kernel's three parts.
+    Slot b's rows have the bits of :func:`gram_acc4` on slot b's arrays
+    (the same source chunking). CPU tensors take the plain version slot
+    by slot; CUDA tensors launch the kernel or raise."""
+    global BATCHED_LAUNCHES
+    bf16 = xi.dtype == torch.bfloat16
+    if all(t.device.type == "cpu" for t in (xi, xj, gmj)):
+        rows = [gram_acc4_plain(xi[b], xj[b], gmj[b], cutoff=cutoff,
+                                eps=eps, bf16=bf16)
+                for b in range(xi.shape[0])]
+        return (torch.stack(rows) if rows
+                else xi.new_zeros((0, xi.shape[1], 4), dtype=torch.float32))
+    if xi.ndim != 3:
+        raise ValueError(f"xi must be (B, M, 3), got {tuple(xi.shape)}")
+    batch = xi.shape[0]
+    _check(xi, xj, gmj, (batch,))
+    if batch > 65_535:
+        raise ValueError(f"a batched launch takes at most 65535 slots, "
+                         f"got {batch}")
+    device = xi.device
+    m, k = xi.shape[1], xj.shape[1]
+    out = torch.empty((batch, m, 4), dtype=torch.float32, device=device)
+    if batch == 0 or m == 0:
+        return out
+    lib = LIBRARY.load()
+    with torch.cuda.device(device):
+        chunks = chunks_for(m, k, bf16=bf16, cutoff=cutoff, eps=eps)
+        tile = lib.nbody_mxu_shape(1)
+        packed = torch.empty(
+            batch * -(-k // tile) * lib.nbody_mxu_shape(2 + bf16),
+            dtype=torch.uint8, device=device)
+        partial = (torch.empty((batch, chunks, m, 4), dtype=torch.float32,
+                               device=device) if chunks > 1 else out)
+        status = getattr(lib, _BATCHED[xi.dtype])(
+            xi.data_ptr(), m, xj.data_ptr(), gmj.data_ptr(), k,
+            *_squares(eps, cutoff), GRAM_NOISE_TAU, chunks,
+            packed.data_ptr(), partial.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream, batch,
+        )
+    LIBRARY.check(status)
+    BATCHED_LAUNCHES += 1
+    return out
+
+
+def _operands(pos_i, pos_j, masses_j, g: float, compute: torch.dtype,
+              center: torch.Tensor):
+    """The kernel's operands: targets and sources centred on ``center``
+    and cast to ``compute``, and G m_j in fp32."""
+    xi = (pos_i.float() - center).to(compute).contiguous()
+    xj = (pos_j.float() - center).to(compute).contiguous()
+    gmj = (masses_j.float() * g).contiguous()
+    return xi, xj, gmj
+
+
+def _compute_dtype(precision: str, dtype: torch.dtype) -> torch.dtype:
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"precision must be 'dtype', 'fp32' or 'bf16'; got {precision!r}"
+        )
+    bf16 = precision == "bf16" or (precision == "dtype"
+                                   and dtype == torch.bfloat16)
+    return torch.bfloat16 if bf16 else torch.float32
+
+
 def accelerations_vs_mxu_kernel(
     pos_i: torch.Tensor,
     pos_j: torch.Tensor,
@@ -234,23 +311,59 @@ def accelerations_vs_mxu_kernel(
     ``precision``: "fp32" | "bf16" | "dtype" (bf16 for a bf16 input,
     fp32 otherwise). Computes in fp32 (bf16 operands for "bf16") and
     returns the input dtype: a float64 input computes in float32."""
-    if precision not in PRECISIONS:
-        raise ValueError(
-            f"precision must be 'dtype', 'fp32' or 'bf16'; got {precision!r}"
-        )
     out_dtype = pos_i.dtype
-    bf16 = precision == "bf16" or (precision == "dtype"
-                                   and out_dtype == torch.bfloat16)
-    compute = torch.bfloat16 if bf16 else torch.float32
+    compute = _compute_dtype(precision, out_dtype)
     # Centre on the source centroid: the noise floor and the epilogue's
     # cancellation both scale with |x|^2.
     center = pos_j.float().mean(dim=0)
-    xi = (pos_i.float() - center).to(compute).contiguous()
-    xj = (pos_j.float() - center).to(compute).contiguous()
-    gmj = (masses_j.float() * g).contiguous()
+    xi, xj, gmj = _operands(pos_i, pos_j, masses_j, g, compute, center)
     acc4 = gram_acc4(xi, xj, gmj, cutoff=cutoff, eps=eps)
     # Epilogue in the same centred (and, for bf16, quantized) frame.
     acc = acc4[:, :3] - acc4[:, 3:4] * xi.float()
+    return acc.to(out_dtype)
+
+
+def accelerations_vs_mxu_batched(pos_i, pos_j, masses_j, **kwargs):
+    """The plain batched version: :func:`accelerations_vs_mxu_kernel` slot
+    by slot (on CPU tensors its plain path)."""
+    if pos_i.shape[0] == 0:
+        return torch.empty_like(pos_i)
+    return torch.stack([
+        accelerations_vs_mxu_kernel(pos_i[b], pos_j[b], masses_j[b],
+                                    **kwargs)
+        for b in range(pos_i.shape[0])
+    ])
+
+
+def accelerations_vs_mxu_batched_kernel(
+    pos_i: torch.Tensor,
+    pos_j: torch.Tensor,
+    masses_j: torch.Tensor,
+    *,
+    g: float = G,
+    cutoff: float = CUTOFF_RADIUS,
+    eps: float = 0.0,
+    precision: str = "dtype",
+) -> torch.Tensor:
+    """B independent Gram-form sums, ``(B, M, 3) x (B, K, 3) x (B, K) ->
+    (B, M, 3)``, through one batched launch (:func:`gram_acc4_batched`).
+    Slot b's result has the bits of :func:`accelerations_vs_mxu_kernel`
+    on slot b's arrays: each slot's centroid is reduced on its own (K, 3)
+    rows, as the solo wrapper reduces them, and the rest is elementwise.
+    CPU tensors take the plain batched version."""
+    if all(t.device.type == "cpu" for t in (pos_i, pos_j, masses_j)):
+        return accelerations_vs_mxu_batched(
+            pos_i, pos_j, masses_j, g=g, cutoff=cutoff, eps=eps,
+            precision=precision)
+    out_dtype = pos_i.dtype
+    compute = _compute_dtype(precision, out_dtype)
+    if pos_i.shape[0] == 0:
+        return torch.empty_like(pos_i)
+    center = torch.stack([pos_j[b].float().mean(dim=0)
+                          for b in range(pos_j.shape[0])])[:, None, :]
+    xi, xj, gmj = _operands(pos_i, pos_j, masses_j, g, compute, center)
+    acc4 = gram_acc4_batched(xi, xj, gmj, cutoff=cutoff, eps=eps)
+    acc = acc4[..., :3] - acc4[..., 3:4] * xi.float()
     return acc.to(out_dtype)
 
 

@@ -32,12 +32,24 @@ separated by commas:
     accuracy_breach@STEP  the sentinel's first probe at or after STEP
                           reports an error past any budget (fires once)
 
-The JAX package's serving and mesh items (``crash_worker``,
-``stall_worker``, ``stale_lease``, ``torn_spool_write``,
-``drop_result_write``, ``mesh_fail``, ``collective_stall``,
-``torn_progress_write``, ``disk_full``) parse, then raise
-:class:`~gravity_tpu_torch.config.NotPortedError`: they fire in the
-serving stack (ROADMAP.md Queue 1 item 9) and on a device mesh (item 5).
+The serving layer's items fire in ``serve/`` and its spool writes, as in
+the JAX package:
+
+    crash_worker@R        SIGKILL this process at scheduling round R
+    stall_worker@RxSECS   pause the worker SECS seconds at round R, its
+                          lease heartbeats suspended
+    stale_lease@R[xSECS]  backdate the worker's leases at round R and stop
+                          renewing for SECS (default 30) seconds
+    torn_spool_write@K    the K-th (0-based) atomic JSON write lands
+                          truncated
+    drop_result_write@K   the K-th result write reports success and
+                          writes nothing
+    torn_progress_write@K the K-th progress snapshot lands truncated
+    disk_full@K           the K-th durable spool write raises ENOSPC
+
+The mesh items (``mesh_fail``, ``collective_stall``) parse, then raise
+:class:`~gravity_tpu_torch.config.NotPortedError`: they fire on a device
+mesh (ROADMAP.md Queue 1 item 5).
 
 Example: ``GRAVITY_TPU_FAULTS="transient@10x2,diverge@20"``.
 """
@@ -54,14 +66,13 @@ from ..config import NotPortedError
 ENV_KNOB = "GRAVITY_TPU_FAULTS"
 
 RUN_KINDS = ("diverge", "transient", "preempt", "accuracy_breach")
-# The JAX package's serving-layer and mesh items, with the ROADMAP item
-# that ports their code points.
-UNPORTED_KINDS = {
-    "crash_worker": 9, "stall_worker": 9, "stale_lease": 9,
-    "torn_spool_write": 9, "drop_result_write": 9,
-    "torn_progress_write": 9, "disk_full": 9,
-    "mesh_fail": 5, "collective_stall": 5,
-}
+SERVING_KINDS = (
+    "crash_worker", "stall_worker", "stale_lease", "torn_spool_write",
+    "drop_result_write", "torn_progress_write", "disk_full",
+)
+# The JAX package's mesh items, with the ROADMAP item that ports their
+# code points.
+UNPORTED_KINDS = {"mesh_fail": 5, "collective_stall": 5}
 
 
 class TransientFault(RuntimeError):
@@ -86,6 +97,9 @@ class _Fault:
     step: int = 0
     count: int = 1
     backend: str = ""
+    # Was COUNT written (KIND@STEPxCOUNT)? stale_lease's payload needs to
+    # tell "x1" from none given.
+    explicit_count: bool = False
 
 
 class FaultPlan:
@@ -93,6 +107,12 @@ class FaultPlan:
 
     def __init__(self, faults: list):
         self._faults = faults
+        # Ordinal counters of the write-granular serving faults: they key
+        # off how many such writes came before, not a step.
+        self._spool_writes = 0
+        self._result_writes = 0
+        self._progress_writes = 0
+        self._durable_writes = 0
 
     @staticmethod
     def parse(spec: str) -> "FaultPlan":
@@ -113,21 +133,21 @@ class FaultPlan:
                 )
             kind, arg = item.split("@", 1)
             count = 1
-            if "x" in arg:
+            explicit = "x" in arg
+            if explicit:
                 arg, cnt = arg.split("x", 1)
                 count = int(cnt)
             step = int(arg)
             if kind in UNPORTED_KINDS:
                 raise NotPortedError(
-                    f"fault {item!r} fires in the JAX package's "
-                    + ("serving stack" if UNPORTED_KINDS[kind] == 9
-                       else "device mesh")
-                    + ", which is not ported to gravity_tpu_torch yet "
+                    f"fault {item!r} fires in the JAX package's device "
+                    "mesh, which is not ported to gravity_tpu_torch yet "
                     f"(ROADMAP.md Queue 1 item {UNPORTED_KINDS[kind]})"
                 )
-            if kind not in RUN_KINDS:
+            if kind not in RUN_KINDS + SERVING_KINDS:
                 raise ValueError(f"unknown fault kind {kind!r}")
-            faults.append(_Fault(kind=kind, step=step, count=count))
+            faults.append(_Fault(kind=kind, step=step, count=count,
+                                 explicit_count=explicit))
         return FaultPlan(faults)
 
     def _take(self, kind: str, due) -> Optional[_Fault]:
@@ -245,3 +265,83 @@ def accuracy_breach_due(step: int) -> bool:
     any budget? (Fires once.)"""
     plan = active()
     return plan is not None and plan.breach_due(step)
+
+
+# --- hooks called from the serving layer (gravity_tpu_torch/serve/) ---
+
+
+def maybe_crash_worker(round_no: int) -> None:
+    """SIGKILL this process at the start of scheduling round ``round_no``:
+    no atexit, no finally, no lease release, like ``kill -9``."""
+    plan = active()
+    if plan is not None and plan._take(
+            "crash_worker", lambda f: round_no >= f.step) is not None:
+        os.kill(os.getpid(), signal.SIGKILL)
+
+
+def _take_once_with_payload(plan: FaultPlan, kind: str, due) -> int:
+    """Consume a whole fault (COUNT is a payload in seconds here, not a
+    repeat count) and return its payload, or 0."""
+    for f in plan._faults:
+        if f.kind == kind and f.count > 0 and due(f):
+            payload, f.count = f.count, 0
+            return payload
+    return 0
+
+
+def stall_worker_secs(round_no: int) -> float:
+    """Seconds to pause the worker at this round (0 = no stall due)."""
+    plan = active()
+    if plan is None:
+        return 0.0
+    return float(_take_once_with_payload(
+        plan, "stall_worker", lambda f: round_no >= f.step))
+
+
+def stale_lease_secs(round_no: int, default_s: float = 30.0) -> float:
+    """Heartbeat-suspension seconds of a due ``stale_lease`` fault (0 =
+    not due): a bare ``stale_lease@R`` takes ``default_s``, an explicit
+    ``xSECS`` (x1 too) is taken as written."""
+    plan = active()
+    if plan is None:
+        return 0.0
+    for f in plan._faults:
+        if f.kind == "stale_lease" and f.count > 0 and round_no >= f.step:
+            payload, f.count = f.count, 0
+            return float(payload if f.explicit_count else default_s)
+    return 0.0
+
+
+def _ordinal_due(kind: str, counter: str) -> bool:
+    plan = active()
+    if plan is None:
+        return False
+    seq = getattr(plan, counter)
+    setattr(plan, counter, seq + 1)
+    return plan._take(kind, lambda f: seq >= f.step) is not None
+
+
+def torn_write_due() -> bool:
+    """One torn JSON write due? (utils/hostio.atomic_write_json)"""
+    return _ordinal_due("torn_spool_write", "_spool_writes")
+
+
+def drop_result_due() -> bool:
+    """One silently dropped result write due? (Spool.write_result)"""
+    return _ordinal_due("drop_result_write", "_result_writes")
+
+
+def torn_progress_due() -> bool:
+    """One torn progress-snapshot write due? (Spool.write_progress, whose
+    checksum must catch it)"""
+    return _ordinal_due("torn_progress_write", "_progress_writes")
+
+
+def disk_full_due() -> None:
+    """Raise an injected ENOSPC when a ``disk_full`` fault is due, at the
+    spool's result and progress writes."""
+    if _ordinal_due("disk_full", "_durable_writes"):
+        import errno
+
+        raise OSError(errno.ENOSPC,
+                      "No space left on device (injected disk_full)")

@@ -52,12 +52,24 @@ def read_json_retry(
     return None
 
 
-def atomic_write_json(path: str, obj: dict) -> None:
+def atomic_write_json(path: str, obj: dict, *,
+                      fault_injection: bool = True) -> None:
     """Write ``obj`` as JSON to ``path`` through a temporary file and
-    ``os.replace``, so that readers never see a half-written file. (The
-    JAX package's torn-write fault injection belongs to its serving layer,
-    ROADMAP.md Queue 1 item 9.)"""
+    ``os.replace``, so that readers never see a half-written file.
+
+    An armed ``torn_spool_write`` fault (utils/faults.py) makes this call
+    write a truncated document straight to ``path`` and return, like a
+    writer that died mid-write; ``fault_injection=False`` opts a
+    best-effort stream (metrics publication, progress meta records) out
+    of that injection point."""
     payload = json.dumps(obj)
+    if fault_injection:
+        from .faults import torn_write_due
+
+        if torn_write_due():
+            with open(path, "w") as f:
+                f.write(payload[: max(1, len(payload) // 3)])
+            return
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "w") as f:
         f.write(payload)
@@ -104,6 +116,23 @@ class HostWriter:
         if self._closed:
             raise RuntimeError("HostWriter is closed")
         self._q.put((fn, args, kwargs))
+
+    def try_submit(self, fn, *args, reserve: int = 0, **kwargs) -> bool:
+        """Non-blocking :meth:`submit` for best-effort work (progress
+        snapshots): False instead of blocking when the queue is full.
+        ``reserve`` keeps that many slots free for the mandatory writers'
+        blocking submits."""
+        self._raise_pending()
+        if self._closed:
+            raise RuntimeError("HostWriter is closed")
+        if reserve > 0 and \
+                self._q.qsize() >= max(1, self._q.maxsize - reserve):
+            return False
+        try:
+            self._q.put_nowait((fn, args, kwargs))
+            return True
+        except queue.Full:
+            return False
 
     def barrier(self) -> None:
         """Block until every submitted task has run; raise the first

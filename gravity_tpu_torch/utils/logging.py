@@ -29,9 +29,13 @@ class JsonlEventLogger:
     KINDS: tuple = ()
     SCHEMA_VERSION = 1
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, context: Optional[dict] = None):
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         self.path = path
+        # Fields stamped on every record: the serving daemon's worker id,
+        # so that workers appending to one shared spool stream stay
+        # attributable.
+        self.context = dict(context or {})
 
     def event(self, kind: str, /, **fields) -> None:
         if kind not in self.KINDS:
@@ -40,7 +44,8 @@ class JsonlEventLogger:
             )
         record = {
             "v": self.SCHEMA_VERSION,
-            "ts": round(time.time(), 3), "event": kind, **fields,
+            "ts": round(time.time(), 3), "event": kind,
+            **self.context, **fields,
         }
         with open(self.path, "a") as f:
             f.write(json.dumps(record, default=str) + "\n")
@@ -66,6 +71,29 @@ class RecoveryEventLogger(JsonlEventLogger):
     KINDS = (
         "diverged", "rolled_back", "retry", "degraded", "preempted",
         "accuracy_breach",
+    )
+
+
+class ServingEventLogger(JsonlEventLogger):
+    """Serving events: the ensemble scheduler's and daemon's metrics
+    stream (``serving_events.jsonl``), in the JAX package's schema.
+    ``round`` events carry queue depth, occupancy, pairs/s and the
+    completed-job latency percentiles; the job lifecycle, the fleet
+    kinds (adoption, fencing, breakers, load shedding, the requeue cap),
+    the SLO and accuracy breaches and memory rejections have their own.
+    The JAX package's watch and router kinds stay in the list so that
+    one tooling path reads both packages' streams."""
+
+    KINDS = (
+        "submitted", "admitted", "yielded", "round", "completed",
+        "failed", "cancelled", "respooled", "spool_error",
+        "adopted", "adopted_resumed", "fenced",
+        "breaker_open", "breaker_closed",
+        "shed", "poisoned", "worker_reaped",
+        "encounter", "merger", "followup_submitted",
+        "slo_breach", "accuracy_breach",
+        "recompile_storm", "memory_rejected",
+        "routed", "router_rejected", "drained",
     )
 
 

@@ -16,6 +16,8 @@ gm (|newt| + |corr|) |d|, the terms before they cancel near rcut: its
 erff and expf differ from the plain version's by an ulp or two.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -979,3 +981,113 @@ def test_simulator_runs_the_fmm_on_the_card(cuda):
     assert stats["kernel_launches"] == 0 and stats["fmm_mode"] == "sparse"
     assert not stats["sfmm_final_occupancy"]["overflow"]
     assert bool(torch.isfinite(stats["final_state"].positions).all())
+
+
+def _serve_batch(dtype, device):
+    """B = 4 slots of bucket 1,024: a padded 700-body Plummer sphere, a
+    full random cube, the padded 3-body solar system and an empty slot."""
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    pos, mass = [], []
+    for model, n in (("plummer", 700), ("random", 1024), ("solar", 3)):
+        state = make_initial_state(
+            SimulationConfig(model=model, n=n, dtype="float64"), device)
+        padded, _ = state.pad_to(1024)
+        pos.append(padded.positions)
+        mass.append(padded.masses)
+    pos.append(torch.zeros_like(pos[0]))
+    mass.append(torch.zeros_like(mass[0]))
+    return (torch.stack(pos).to(dtype).contiguous(),
+            torch.stack(mass).to(dtype).contiguous())
+
+
+@pytest.mark.parametrize("dtype,eps,rtol", [
+    (torch.float32, 0.0, 1e-4), (torch.float32, 1e9, 1e-4),
+    (torch.float64, 0.0, 1e-12), (torch.bfloat16, 1e9, 3 * 2.0**-8)])
+def test_batched_direct_kernel(cuda, dtype, eps, rtol):
+    """The batched launch: one launch a batched evaluation, each slot the
+    bits of a solo launch on its arrays, and the plain version within the
+    kernel table's bar in units of each row's sum of |terms| (fp32 1e-4,
+    fp64 1e-12, bf16 3 x 2^-8)."""
+    pos, mass = _serve_batch(dtype, cuda)
+    before = direct_kernel.BATCHED_LAUNCHES
+    got = direct_kernel.accelerations_vs_batched_kernel(pos, pos, mass,
+                                                        eps=eps)
+    assert direct_kernel.BATCHED_LAUNCHES == before + 1
+    solo = torch.stack([direct_kernel.accelerations_vs_kernel(
+        pos[b], pos[b], mass[b], eps=eps) for b in range(4)])
+    assert torch.equal(got, solo)
+    want = direct_kernel.accelerations_vs_batched(pos, pos, mass, eps=eps)
+    torch.cuda.synchronize()
+    assert bool((got[3] == 0).all())
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS, G
+    from gravity_tpu_torch.ops.forces import _pair_weights
+
+    for b in range(3):
+        p64, m64 = pos[b].double(), mass[b].double()
+        diff = p64[None, :, :] - p64[:, None, :]
+        w = _pair_weights((diff * diff).sum(-1), m64[None, :], G,
+                          CUTOFF_RADIUS, eps)
+        scale = (w[:, :, None] * diff.abs()).sum(dim=1)
+        _within_term_scale(got[b], want[b], scale, rtol)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_batched_mxu_kernel(cuda, bf16):
+    """The Gram form's batched launch: one launch a batched evaluation,
+    each slot the bits of a solo launch (the whole wrapper, and [S | W]
+    on the same operands), and [S | W] within 1e-4 of the plain
+    version's term scale."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    pos, mass = _serve_batch(dtype, cuda)
+    before = mxu_kernel.BATCHED_LAUNCHES
+    got = mxu_kernel.accelerations_vs_mxu_batched_kernel(pos, pos, mass,
+                                                         eps=1e9)
+    assert mxu_kernel.BATCHED_LAUNCHES == before + 1
+    solo = torch.stack([mxu_kernel.accelerations_vs_mxu_kernel(
+        pos[b], pos[b], mass[b], eps=1e9) for b in range(4)])
+    assert torch.equal(got, solo)
+    ops = torch.stack([(pos[b].float() - pos[b].float().mean(dim=0))
+                       .to(dtype) for b in range(4)]).contiguous()
+    gm = (mass.float() * 6.6743e-11).contiguous()
+    acc4 = mxu_kernel.gram_acc4_batched(ops, ops, gm, cutoff=1e-10, eps=1e9)
+    for b in range(4):
+        assert torch.equal(acc4[b], mxu_kernel.gram_acc4(
+            ops[b], ops[b], gm[b], cutoff=1e-10, eps=1e9))
+        want = mxu_kernel.gram_acc4_plain(ops[b], ops[b], gm[b],
+                                          cutoff=1e-10, eps=1e9, bf16=bf16)
+        x = ops[b].float()
+        w = mxu_kernel._gram_weights(x, mxu_kernel._norm2(x), x,
+                                     mxu_kernel._norm2(x), gm[b],
+                                     cutoff=1e-10, eps=1e9)
+        xj4 = torch.cat([x.abs(), torch.ones_like(gm[b])[:, None]], 1)
+        scale = (w[:, :, None] * xj4[None, :, :]).sum(dim=1)
+        _within_term_scale(acc4[b], want, scale, 1e-4)
+
+
+@pytest.mark.parametrize("backend", ["pallas", "pallas-mxu"])
+def test_served_job_matches_padded_solo_bit_for_bit(cuda, backend):
+    """A served job on the card: one build, one batched launch a force
+    evaluation, and the bits of the solo run of its bucket-padded
+    state."""
+    from gravity_tpu_torch.serve import EnsembleScheduler, bucket_size
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    config = SimulationConfig(model="plummer", n=700, steps=30, dt=3600.0,
+                              eps=1e9, integrator="leapfrog",
+                              force_backend=backend)
+    counter = direct_kernel if backend == "pallas" else mxu_kernel
+    before = counter.BATCHED_LAUNCHES
+    with EnsembleScheduler(slots=2, slice_steps=10, device=cuda) as sched:
+        jid = sched.submit(config)
+        sched.run_until_idle()
+        got = sched.result(jid)
+        assert list(sched.engine.compile_counts.values()) == [1]
+        assert counter.BATCHED_LAUNCHES - before == \
+            sched.engine.force_evals[backend] == 30
+    state = make_initial_state(config, cuda)
+    padded, _ = state.pad_to(bucket_size(config.n))
+    solo = Simulator(dataclasses.replace(config, n=padded.n),
+                     state=padded).run()["final_state"]
+    assert torch.equal(got.positions.to(cuda), solo.positions[:config.n])
+    assert torch.equal(got.velocities.to(cuda), solo.velocities[:config.n])

@@ -1,7 +1,8 @@
 """The port's fault injection (``gravity_tpu_torch/utils/faults.py``), on
 the CPU: the run-loop grammar of ``gravity_tpu/utils/faults.py`` parses
-the same way, each fault fires at its real code point, the serving and
-mesh items are refused with their ROADMAP items, and the two exceptions
+the same way, each fault fires at its real code point, the serving items
+parse (tests/test_torch_serve_host.py fires them), the mesh items are
+refused with their ROADMAP item, and the two exceptions
 come from the plan alone (mirrors ``tests/test_faults.py``)."""
 
 import json
@@ -64,16 +65,21 @@ def test_parse_rejects_garbage():
 
 
 @pytest.mark.parametrize("item,roadmap", [
-    ("crash_worker@3", "item 9"), ("stall_worker@2x5", "item 9"),
-    ("stale_lease@1", "item 9"), ("torn_spool_write@0", "item 9"),
-    ("drop_result_write@0", "item 9"), ("torn_progress_write@1", "item 9"),
-    ("disk_full@0", "item 9"), ("mesh_fail@0x2", "item 5"),
+    ("crash_worker@3", None), ("stall_worker@2x5", None),
+    ("stale_lease@1", None), ("torn_spool_write@0", None),
+    ("drop_result_write@0", None), ("torn_progress_write@1", None),
+    ("disk_full@0", None), ("mesh_fail@0x2", "item 5"),
     ("collective_stall@1x3", "item 5"),
 ])
 def test_serving_and_mesh_items_are_refused(item, roadmap):
-    """They parse in the JAX package; the port refuses them with the
-    ROADMAP item that ports their code points."""
+    """They parse in the JAX package. The serving items (``roadmap``
+    None) parse in the port too, now that the serving stack is ported
+    (tests/test_torch_serve_host.py fires them); the mesh items are
+    refused with the ROADMAP item that ports their code points."""
     JaxFaultPlan.parse(item)
+    if roadmap is None:
+        FaultPlan.parse(item)
+        return
     with pytest.raises(NotPortedError, match=roadmap):
         FaultPlan.parse(item)
 
