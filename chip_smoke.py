@@ -75,6 +75,15 @@ set to 0 just before the path and read just after:
   the batched force evaluations; and served runs in process bit for bit
   against solo runs of the bucket-padded states, a diverging job failing
   alone;
+- served truncated physics: the batched launch of ``nlist_pair``
+  (fp32, fp64, bf16) at 4 slots of bucket 8,192 of README's cell-list
+  workload (rcut 5e10 m, side 12, cap 32; a padded 5,000-body job, two
+  more, an empty slot) against its plain version, bit for bit against
+  solo launches, and the whole batched cell list bit for bit against the
+  slots' solo evaluations; 5 nlist jobs through the daemon (4 fp32 at
+  bucket 8,192, one bf16) beside the 12, every key's first-round peak at
+  most its admission estimate; served cell lists in process bit for bit
+  against padded solo runs, and one nlist round's syncs and busy share;
 - the measurement layer: ``bench.main()`` (``python -m
   gravity_tpu_torch.bench``) through ``nbody_direct``, ``nbody_mxu`` and
   ``nlist_pair`` at N = 262,144 (each rate held under 1.05x its kernel's
@@ -343,6 +352,8 @@ def read_counts() -> dict:
             "nbody_mxu": mxu_kernel.LAUNCHES,
             "nbody_direct/batched": direct_kernel.BATCHED_LAUNCHES,
             "nbody_mxu/batched": mxu_kernel.BATCHED_LAUNCHES,
+            "nlist_pair/batched": nlist.LAUNCHES["newton/batched"],
+            "nlist_pair/batched_bf16": nlist.LAUNCHES["newton_bf16/batched"],
             "segment_sum/bf16": cells.LAUNCHES}
 
 
@@ -4991,10 +5002,10 @@ def phase_resume_path(device: dict) -> dict:
             "max_gap_over_max_abs_x": float(gap.max()) / spread,
             "bodies_with_a_gap": int((gap.amax(dim=1) > 0).sum()),
             "bitwise_equal": bool(float(gap.max()) == 0.0),
-            "not_held_bitwise": "the fp32 cell totals (ops/cells.py "
-                                "segment_sum, index_add_) are float atomics "
-                                "on CUDA: two runs may sum in other orders, "
-                                "so the gap is reported, not held to 0",
+            "not_held_bitwise": "reported, not held to 0: the cell "
+                                "totals are one chain a cell "
+                                "(nlist.cell_totals), but the check "
+                                "predates them",
         }
     emit(record)
     return record
@@ -5537,6 +5548,10 @@ SERVE_SLOTS = 4
 SERVE_EPS = 1e9
 SERVE_SLICE = 100
 SERVE_PARITY_STEPS = 50
+# Served against unpadded solo runs, max relative position gap: fp32 the
+# direct-sum jobs' bar; bf16 2^-5, the cell list's bf16 kernel bar (a gap
+# there is a few bf16 roundings taken otherwise, not a fault).
+SERVE_UNPADDED_BAR = {"float32": 1e-5, "bfloat16": 2.0**-5}
 # The daemon's traffic: (label, n, model, integrator, steps, dt, priority,
 # extra submit flags). Four jobs a bucket (8,192, 4,096, 1,024). The job
 # that gets cancelled waits at priority -1 behind the four priority-1
@@ -5562,6 +5577,18 @@ SERVE_JOBS = (
     ("l", 700, "random", "leapfrog", 1000, 3600.0, 1, ()),
 )
 SERVE_CANCEL = ("x", 700, "random", "leapfrog", 1000, 3600.0, -1, ())
+# Served truncated physics (SERVE_NLIST's workload through submit): four
+# fp32 jobs of one key at bucket 8,192, one of them 5,000 bodies (its
+# padding overflows its first body's cell), and a bf16 job.
+SERVE_NLIST_FLAGS = ("--force-backend", "nlist", "--nlist-rcut", "5e10",
+                     "--nlist-side", "12", "--nlist-cap", "32")
+SERVE_NLIST_PATH_JOBS = tuple(
+    (label, n, "random", "leapfrog", steps, 3600.0, 0,
+     SERVE_NLIST_FLAGS + ("--seed", str(seed)) + extra)
+    for label, n, steps, seed, extra in (
+        ("m", 5000, 300, 11, ()), ("n", 8192, 300, 12, ()),
+        ("o", 6000, 200, 13, ()), ("p", 7000, 200, 14, ()),
+        ("q", 5000, 200, 15, ("--dtype", "bfloat16"))))
 
 
 def serve_batch(dtype):
@@ -5586,6 +5613,188 @@ def serve_batch(dtype):
     mass.append(torch.zeros_like(mass[0]))
     return (torch.stack(pos).to(dtype).contiguous(),
             torch.stack(mass).to(dtype).contiguous())
+
+
+# The served cell list: README's cell-list workload at serving size
+# (random model, rcut 5e10 m, eps 1e9 m; side 12, the cell edge = rcut
+# for the 6e11 m cube; cap 32) at B = 4 slots of bucket 8,192: a
+# 5,000-body job padded to the bucket (3,192 zero-mass bodies parked in
+# its first body's cell, far past the cap), two more jobs and an empty
+# slot.
+SERVE_NLIST = dict(rcut=5e10, side=12, cap=32, eps=SERVE_EPS)
+SERVE_NLIST_JOBS = ((5000, 0), (8192, 1), (3000, 2))
+
+
+def serve_nlist_batch(dtype):
+    """(B, 8192, 3) positions and (B, 8192) masses of the served cell
+    list's batch (SERVE_NLIST_JOBS and an empty slot), in float64, cast
+    to ``dtype``."""
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    dev = torch.device("cuda", 0)
+    pos, mass = [], []
+    for n, seed in SERVE_NLIST_JOBS:
+        state = make_initial_state(SimulationConfig(
+            model="random", n=n, seed=seed, dtype="float64"), dev)
+        padded, _ = state.pad_to(SERVE_BUCKET)
+        pos.append(padded.positions)
+        mass.append(padded.masses)
+    pos.append(torch.zeros_like(pos[0]))
+    mass.append(torch.zeros_like(mass[0]))
+    return (torch.stack(pos).to(dtype).contiguous(),
+            torch.stack(mass).to(dtype).contiguous())
+
+
+def serve_nlist_tiles(pos, mass):
+    """The batched pair kernel's arguments for the batch, as
+    nlist_accelerations_vs_batched builds them, and each slot's solo
+    arguments as nlist_accelerations_vs builds them."""
+    from gravity_tpu_torch.constants import G
+    from gravity_tpu_torch.ops import nlist
+
+    kw = {k: SERVE_NLIST[k] for k in ("rcut", "side", "cap")}
+    _, _, params, _, binned = nlist.source_cells_batched(pos, mass, **kw)
+    cells_pos, cells_mass, count = binned[:3]
+    batched = (cells_pos, count, cells_pos, cells_mass * G, count,
+               SERVE_NLIST["side"], params)
+    solo = [nlist_tiles(pos[b], mass[b], SERVE_NLIST["side"],
+                        SERVE_NLIST["cap"], SERVE_NLIST["rcut"])
+            for b in range(pos.shape[0])]
+    return batched, solo
+
+
+def serve_nlist_kernels(device: dict) -> dict:
+    """The batched nlist_pair (fp32, fp64, bf16) at SERVE_NLIST's batch:
+    the batch's binning the bits of each slot's solo binning; each slot
+    against the plain version under the kernel table's bars (fp32 1e-4,
+    fp64 1e-12 of each row's sum of |terms|, bf16 2^-5), against a solo
+    launch on the slot's arrays bit for bit (twice), one launch a batched
+    evaluation; the whole batched evaluation the bits of the slots' solo
+    evaluations (twice), finite on the empty slot. Then fp32 and bf16 by
+    CUDA events: one batched launch, the four solo launches, the plain
+    batched version, beside the bound (21 flops and one SFU rsqrt a real
+    pair, tile_bytes for the bytes)."""
+    import torch
+
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS
+    from gravity_tpu_torch.ops import nlist
+
+    kw = dict(cutoff=CUTOFF_RADIUS, eps=SERVE_NLIST["eps"])
+    ev = {k: SERVE_NLIST[k] for k in ("rcut", "side", "cap", "eps")}
+    side, cap = SERVE_NLIST["side"], SERVE_NLIST["cap"]
+    cases, timing = [], {}
+    for name, dtype, tol, reason in (
+            ("fp32", torch.float32, TOL["float32"], NLIST_REASON),
+            ("fp64", torch.float64, TOL["float64"], NLIST_REASON),
+            ("bf16", torch.bfloat16, NLIST_BF16_TOL, NLIST_BF16_REASON)):
+        pos, mass = serve_nlist_batch(dtype)
+        args, solo_args = serve_nlist_tiles(pos, mass)
+        for b, sa in enumerate(solo_args):
+            for k in (0, 1, 3, 6):
+                want = sa[k].reshape(-1) if k == 6 else sa[k]
+                got = args[k][b:b + 1] if k == 6 else args[k][b]
+                check(torch.equal(got, want),
+                      f"nlist batched {name}: slot {b}'s binning (arg {k}) "
+                      "not the bits of its solo binning")
+        key = nlist.launch_key("newton", True, dtype) + "/batched"
+        before = nlist.LAUNCHES[key]
+        batched = nlist.pair_cells_kernel_batched(*args, **kw)
+        again = nlist.pair_cells_kernel_batched(*args, **kw)
+        check(nlist.LAUNCHES[key] - before == 2,
+              f"nlist_pair batched {name}: {nlist.LAUNCHES[key] - before} "
+              "launches for 2 batched evaluations")
+        solo = torch.stack([nlist.pair_cells_kernel(*sa, **kw)
+                            for sa in solo_args])
+        torch.cuda.synchronize()
+        check(torch.equal(batched, again),
+              f"nlist_pair batched {name}: two launches differ")
+        check(torch.equal(batched, solo),
+              f"nlist_pair batched {name}: not the bits of solo launches")
+        slots = []
+        for b, sa in enumerate(solo_args):
+            plain = nlist.pair_cells_plain(*sa, **kw)
+            scale = nlist.pair_cells_plain(*sa, absolute=True, **kw)
+            slots.append(compare(
+                f"nlist_pair/batched {name} slot {b}",
+                batched[b].reshape(-1, 3), plain.reshape(-1, 3),
+                scale.reshape(-1, 3), str(dtype).removeprefix("torch."),
+                tol=tol, reason=reason))
+        # The whole evaluation: the batch's glue around the launch.
+        acc = nlist.nlist_accelerations_vs_batched(pos, mass, **ev)
+        acc2 = nlist.nlist_accelerations_vs_batched(pos, mass, **ev)
+        acc_solo = torch.stack([nlist.nlist_accelerations_vs(
+            pos[b], pos[b], mass[b], **ev) for b in range(pos.shape[0])])
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(acc).all()),
+              f"nlist batched evaluation {name}: not finite")
+        check(torch.equal(acc, acc2),
+              f"nlist batched evaluation {name}: two evaluations differ")
+        check(torch.equal(acc, acc_solo),
+              f"nlist batched evaluation {name}: not the bits of the "
+              "slots' solo evaluations")
+        count = args[1]
+        cases.append({
+            "kernel": "nlist_pair/batched", "case": name,
+            "same_bits_as_solo": True, "bitwise_repeatable": True,
+            "binning_bits_as_solo": True,
+            "evaluation_bits_as_solo": True,
+            "launches_per_batched_eval": 1,
+            "overflowing_cells_by_slot": (count > cap).sum(dim=1).tolist(),
+            "max_occupancy_by_slot": count.max(dim=1).values.tolist(),
+            "max_abs_err": max(r["max_abs_err"] for r in slots),
+            "max_err_over_term_scale": max(
+                r["max_err_over_term_scale"] for r in slots),
+            "tolerance": tol})
+        if name == "fp64":
+            continue
+        n_slots = pos.shape[0]
+        item = pos.element_size()
+        pairs = sum(nlist.real_pairs(count[b], count[b], side, cap, cap)
+                    for b in range(n_slots))
+        n_bytes = sum(tile_bytes(count[b], count[b], side, cap, cap, item, 1)
+                      for b in range(n_slots))
+
+        def batched_fn(args=args):
+            nlist.pair_cells_kernel_batched(*args, **kw)
+
+        def solo_fn(solo_args=solo_args):
+            for sa in solo_args:
+                nlist.pair_cells_kernel(*sa, **kw)
+
+        def plain_fn(args=args):
+            nlist.pair_cells_plain_batched(*args, **kw)
+
+        cuda_ms(batched_fn, 3)
+        ms = [cuda_ms(batched_fn, 20), cuda_ms(batched_fn, 20)]
+        cuda_ms(solo_fn, 3)
+        solo_ms = cuda_ms(solo_fn, 20)
+        cuda_ms(plain_fn, 1)
+        plain_ms = cuda_ms(plain_fn, 3)
+        label = ("nlist_pair/batched" if name == "fp32"
+                 else "nlist_pair/batched_bf16")
+        timing[label] = {
+            "ms": min(ms), "ms_runs": ms, "solo_x4_ms": solo_ms,
+            "plain_ms": plain_ms,
+            **bound(pairs, NLIST_FLOPS_PER_PAIR, n_bytes, device,
+                    PEAK_FP32_FLOPS if name == "fp32"
+                    else PEAK_BF16X2_FLOPS),
+            "pairs": pairs, "bytes": n_bytes, "slots": n_slots,
+            "bucket": SERVE_BUCKET, "side": side, "cap": cap,
+            "dtype": name, "library_ms": None,
+            "library_note": "none: no PyTorch call computes a batched "
+                            "cell-list pair sum",
+        }
+        timing[label]["share_of_bound"] = (timing[label]["bound_ms"]
+                                           / timing[label]["ms"])
+    return {"cases": cases, "timing": timing,
+            "max_abs_err": {
+                "nlist_pair/batched": max(c["max_abs_err"] for c in cases
+                                          if c["case"] != "bf16"),
+                "nlist_pair/batched_bf16": max(
+                    c["max_abs_err"] for c in cases if c["case"] == "bf16")}}
 
 
 def phase_serve_kernels(device: dict) -> dict:
@@ -5692,6 +5901,8 @@ def phase_serve_kernels(device: dict) -> dict:
                       "max_err_over_term_scale": max(
                           r["max_err_over_term_scale"] for r in slots),
                       "tolerance": TOL["float32"]})
+    served_nlist = serve_nlist_kernels(device)
+    cases += served_nlist["cases"]
     for case in cases:
         emit({"phase": "serve_kernels", **case})
 
@@ -5738,10 +5949,16 @@ def phase_serve_kernels(device: dict) -> dict:
         }
         emit({"phase": "serve_kernels_timing", "kernel": kernel,
               "nvidia_smi": device["nvidia_smi"], **timing[kernel]})
+    for kernel, t in served_nlist["timing"].items():
+        timing[kernel] = t
+        emit({"phase": "serve_kernels_timing", "kernel": kernel,
+              "nvidia_smi": device["nvidia_smi"], **t})
     return {"cases": cases, "timing": timing,
             "max_abs_err": {
-                k: max(c["max_abs_err"] for c in cases if c["kernel"] == k)
-                for k in ("nbody_direct/batched", "nbody_mxu/batched")}}
+                **{k: max(c["max_abs_err"] for c in cases
+                          if c["kernel"] == k)
+                   for k in ("nbody_direct/batched", "nbody_mxu/batched")},
+                **served_nlist["max_abs_err"]}}
 
 
 def serve_cli(spool: str, *args) -> list:
@@ -5775,7 +5992,11 @@ def phase_serve_path(device: dict) -> dict:
     --slice-steps 100`` as a process, 12 jobs by ``submit`` at buckets
     8,192, 4,096 and 1,024 (plummer, random, hernquist; leapfrog, two
     yoshida4, one euler; priorities 0 and 1; auto but one pallas-mxu, one
-    bf16 and one fp64 job), a 13th job, queued behind its batch's
+    bf16 and one fp64 job) and 5 served cell-list jobs
+    (SERVE_NLIST_PATH_JOBS: two nlist keys, each key reading
+    backend=nlist, launches = batched evaluations, every key's measured
+    first-round peak at most its admission estimate), a 13th job, queued
+    behind its batch's
     priority-1 residents, cancelled by ``cancel`` (a process that has
     loaded the CLI while the submit ran, fed the job id through a pipe;
     its events say whether it was still queued), then ``status`` and
@@ -5812,12 +6033,13 @@ def phase_serve_path(device: dict) -> dict:
                       "print(job); sys.stdout.flush(); "
                       f"sys.exit(main([\"cancel\", \"--spool-dir\", "
                       f"\"{spool}\", job]))'")
+            jobs_all = SERVE_JOBS + SERVE_NLIST_PATH_JOBS
             subs = run_parallel(
-                [serve_cli(spool, *submit_args(j)) for j in SERVE_JOBS]
+                [serve_cli(spool, *submit_args(j)) for j in jobs_all]
                 + [["bash", "-o", "pipefail", "-c",
                     f"sleep 2; {submit} | {cancel}"]])
             ids = {}
-            for job, (rc, out, err) in zip(SERVE_JOBS, subs):
+            for job, (rc, out, err) in zip(jobs_all, subs):
                 check(rc == 0, f"submit {job[0]}: rc {rc}: {err[-2000:]}")
                 ids[job[0]] = json.loads(out.strip().splitlines()[-1])["job"]
             rc, out, err = subs[-1]
@@ -5849,7 +6071,7 @@ def phase_serve_path(device: dict) -> dict:
                     for k in ("positions", "velocities", "masses"):
                         check(bool(np.isfinite(z[k]).all()),
                               f"job {label}: {k} not finite")
-                    n = dict((j[0], j[1]) for j in SERVE_JOBS)[label]
+                    n = dict((j[0], j[1]) for j in jobs_all)[label]
                     check(z["positions"].shape == (n, 3),
                           f"job {label}: shape {z['positions'].shape}")
             metrics = request(spool, "GET", "/metrics")
@@ -5873,7 +6095,13 @@ def phase_serve_path(device: dict) -> dict:
     check(all(v == 1 for v in engine["builds"].values()),
           f"builds per key {engine['builds']}")
     for key in engine["builds"]:
-        check("backend=pallas" in key, f"a key off the kernels: {key}")
+        check(any(f"backend={b}," in key
+                  for b in ("pallas", "pallas-mxu", "nlist")),
+              f"a key off the kernels: {key}")
+    nlist_keys = [k for k in engine["builds"] if "backend=nlist," in k]
+    check(len(nlist_keys) == 2 and any("dtype=bfloat16" in k
+                                       for k in nlist_keys),
+          f"the nlist jobs' keys {nlist_keys}")
     for bucket, verdict in metrics["router"].items():
         check(verdict["backend"] in ("pallas", "pallas-mxu"),
               f"auto at {bucket} resolved to {verdict['backend']}")
@@ -5883,18 +6111,37 @@ def phase_serve_path(device: dict) -> dict:
           f"{evals}")
     check(launches["nbody_mxu/batched"] == evals.get("pallas-mxu", 0),
           f"nbody_mxu batched launches {launches} vs evaluations {evals}")
-    check(launches["nbody_direct/batched"] > 0, "no batched nbody_direct")
-    check(launches["nbody_mxu/batched"] > 0, "no batched nbody_mxu")
+    check(launches["nlist_pair/batched"]
+          + launches["nlist_pair/batched_bf16"] == evals.get("nlist", 0),
+          f"nlist_pair batched launches {launches} vs evaluations {evals}")
+    for kernel in ("nbody_direct/batched", "nbody_mxu/batched",
+                   "nlist_pair/batched", "nlist_pair/batched_bf16"):
+        check(launches[kernel] > 0, f"no {kernel} launch")
+    peaks = {r["key"]: {"measured": r.get("peak_bytes"),
+                        "estimated": r.get("estimated_bytes")}
+             for r in metrics["perf_ledger"]}
+    check(len(peaks) == len(engine["builds"]),
+          f"{len(peaks)} ledger rows for {len(engine['builds'])} keys")
+    for key, p in peaks.items():
+        check(p["measured"] is not None and p["measured"] <= p["estimated"],
+              f"{key}: first-round peak {p['measured']} above the "
+              f"admission estimate {p['estimated']}")
     rounds = [e for e in events if e.get("event") == "round"]
     by_bucket = {}
     for e in rounds:
-        by_bucket.setdefault(e["bucket"], []).append(e)
-    jobs = {j[0]: j for j in SERVE_JOBS}
+        name = (e["bucket"] if e["backend"] != "nlist"
+                else f"nlist {e['dtype']} {e['bucket']}")
+        by_bucket.setdefault(name, []).append(e)
+    jobs = {j[0]: j for j in jobs_all}
     body_steps = sum(jobs[label][1] * jobs[label][4] for label in ids)
+    # Direct-sum pairs of the direct-sum jobs, over their rounds.
+    direct = [label for label in ids if label in {j[0] for j in SERVE_JOBS}]
     pair_evals = sum(
         jobs[label][1] * (jobs[label][1] - 1) * jobs[label][4]
-        * (3 if jobs[label][3] == "yoshida4" else 1) for label in ids)
+        * (3 if jobs[label][3] == "yoshida4" else 1) for label in direct)
     round_s = sum(e["round_s"] for e in rounds)
+    direct_round_s = sum(e["round_s"] for e in rounds
+                         if e["backend"] != "nlist")
     record = {
         "phase": "serve_path", "nvidia_smi": device["nvidia_smi"],
         "jobs": len(ids), "cancelled": cancel_id,
@@ -5906,9 +6153,10 @@ def phase_serve_path(device: dict) -> dict:
                 "rounds": len(es),
                 "mean_slots_used": statistics.mean(e["slots_used"]
                                                    for e in es)}
-            for b, es in sorted(by_bucket.items())},
+            for b, es in sorted(by_bucket.items(), key=lambda kv:
+                                str(kv[0]))},
         "body_steps_per_s": body_steps / round_s,
-        "pairs_per_s": pair_evals / round_s,
+        "pairs_per_s": pair_evals / direct_round_s,
         "round_s_total": round_s,
         "mean_occupancy": statistics.mean(e["occupancy"] for e in rounds),
         "latency_s": metrics["latency"],
@@ -5919,10 +6167,8 @@ def phase_serve_path(device: dict) -> dict:
             k: v / max(1, metrics["rounds"])
             for k, v in engine["host_reads"].items()},
         "router": metrics["router"],
-        "peak_bytes_vs_estimate": {
-            r["key"]: {"measured": r.get("peak_bytes"),
-                       "estimated": r.get("estimated_bytes")}
-            for r in metrics["perf_ledger"]},
+        "peak_bytes_vs_estimate": peaks,
+        "nlist_keys": nlist_keys,
     }
     emit(record)
     return record
@@ -5930,13 +6176,15 @@ def phase_serve_path(device: dict) -> dict:
 
 def phase_serve_parity(device: dict) -> dict:
     """Served runs in process against solo Simulator runs on the card:
-    four jobs of 50 steps through pallas and two through pallas-mxu (n
-    from 700 to 8,192) each bit for bit the solo run of its bucket-padded
-    state and within 1e-5 of the unpadded one; a diverging job (dt =
-    1e30) in a full batch fails alone, rolled back to its last finite
-    state, its batchmates keeping their bits. Then one round of each
-    bucket under the sync debug mode (host syncs, by source line) and
-    under the profiler (the device's busy share, kernels a round)."""
+    four jobs of 50 steps through pallas, two through pallas-mxu (n from
+    700 to 8,192) and three served cell lists (fp32 at 5,000 and 8,192
+    bodies, bf16 at 5,000) each bit for bit the solo run of its
+    bucket-padded state and within SERVE_UNPADDED_BAR of the unpadded
+    one; a diverging job (dt = 1e30) in a full batch fails alone, rolled
+    back to its last finite state, its batchmates keeping their bits.
+    Then one round of each bucket and of the cell list under the sync
+    debug mode (host syncs, by source line) and under the profiler (the
+    device's busy share, kernels a round)."""
     import linecache
     import warnings
 
@@ -5957,6 +6205,17 @@ def phase_serve_parity(device: dict) -> dict:
     configs = [SimulationConfig(model=m, n=n, integrator=it, steps=SERVE_PARITY_STEPS,
                                 dt=3600.0, eps=SERVE_EPS, force_backend=fb)
                for fb, m, n, it in specs]
+    # Served cell lists: an fp32 key at bucket 8,192 (5,000 and 8,192
+    # bodies) and a bf16 one.
+    nlist_kw = dict(model="random", integrator="leapfrog",
+                    steps=SERVE_PARITY_STEPS, dt=3600.0, eps=SERVE_EPS,
+                    force_backend="nlist", nlist_rcut=SERVE_NLIST["rcut"],
+                    nlist_side=SERVE_NLIST["side"],
+                    nlist_cap=SERVE_NLIST["cap"])
+    configs += [SimulationConfig(n=n, seed=seed, dtype=dtype, **nlist_kw)
+                for n, seed, dtype in ((5000, 21, "float32"),
+                                       (8192, 22, "float32"),
+                                       (5000, 23, "bfloat16"))]
 
     def max_rel(a, b):
         return float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30)))
@@ -5988,15 +6247,18 @@ def phase_serve_parity(device: dict) -> dict:
                                getattr(solo_pad, k)[:c.n])
                    for k in ("positions", "velocities"))
         check(same, f"served {c.force_backend} {c.model} n={c.n} "
-                    f"{c.integrator}: not the bits of the padded solo run")
+                    f"{c.integrator} {c.dtype}: not the bits of the padded "
+                    "solo run")
         rel = max_rel(served.positions.double().cpu().numpy(),
                       solo.positions.double().cpu().numpy())
-        check(rel <= 1e-5, f"served {c.force_backend} n={c.n}: max rel "
-                           f"{rel:.3e} against the unpadded solo run")
+        bar = SERVE_UNPADDED_BAR[c.dtype]
+        check(rel <= bar, f"served {c.force_backend} n={c.n} {c.dtype}: "
+                          f"max rel {rel:.3e} against the unpadded solo run")
         records.append({"backend": c.force_backend, "model": c.model,
                         "n": c.n, "integrator": c.integrator,
-                        "bits_equal_padded_solo": True,
-                        "max_rel_vs_unpadded_solo": rel})
+                        "dtype": c.dtype, "bits_equal_padded_solo": True,
+                        "max_rel_vs_unpadded_solo": rel,
+                        "unpadded_bar": bar})
     bad = sched.status(div_ids[3])
     check(bad["status"] == "failed" and "diverged" in (bad["error"] or ""),
           f"diverging job: {bad}")
@@ -6006,12 +6268,16 @@ def phase_serve_parity(device: dict) -> dict:
           and torch.equal(rolled.positions.to(dev), start.positions),
           "diverging job not rolled back to its last finite state")
     sched.close_io()
-    # One round of each bucket: host syncs and the device's busy share.
+    # One round of each bucket, and of the served cell list at 8,192:
+    # host syncs and the device's busy share.
     rounds = {}
-    for n in (700, 3000, 8192):
-        c = SimulationConfig(model="plummer", n=n, integrator="leapfrog",
-                             steps=10 * SERVE_SLICE, dt=3600.0, eps=SERVE_EPS,
-                             force_backend="pallas")
+    round_cases = [(bucket_size(n), SimulationConfig(
+        model="plummer", n=n, integrator="leapfrog", steps=10 * SERVE_SLICE,
+        dt=3600.0, eps=SERVE_EPS, force_backend="pallas"))
+        for n in (700, 3000, 8192)]
+    round_cases.append(("nlist 8192", SimulationConfig(
+        n=8192, **dict(nlist_kw, steps=10 * SERVE_SLICE))))
+    for name, c in round_cases:
         probe = EnsembleScheduler(slots=SERVE_SLOTS, slice_steps=SERVE_SLICE,
                                   device=dev, sentinel_every=0)
         for k in range(SERVE_SLOTS):
@@ -6031,10 +6297,14 @@ def phase_serve_parity(device: dict) -> dict:
                  for w in caught if "synchroniz" in str(w.message)
                  and "set_sync_debug_mode" not in
                  linecache.getline(w.filename, w.lineno)]
-        prof = fmm_profile(probe.run_round, "serve")
+        # The cell list's profiler ranges are stages, not kernels.
+        prof = fmm_profile(probe.run_round,
+                           ("serve", "nlist.", "segment_sum."))
         probe.close_io()
-        rounds[bucket_size(n)] = {
+        rounds[name] = {
             "host_syncs_per_round": len(sites), "sync_sites": sites,
+            "stage_device_span_ms_per_round":
+                prof["stage_device_span_ms_per_eval"],
             "ms_per_round_profiled": prof["wall_ms_per_eval_profiled"],
             "device_busy_share": prof["device_busy_share"],
             "device_ms_per_round": prof["device_ms_per_eval"],
@@ -6284,6 +6554,16 @@ def run_phases(torch) -> int:
          serve_path["kernel_launches"]["nbody_mxu/batched"],
          serve_kernels["max_abs_err"]["nbody_mxu/batched"],
          serve_kernels["timing"]["nbody_mxu/batched"]),
+        # The served cell list's pair tiles, fp32 and bf16 (the batched
+        # _nlist_kernel), counted on the daemon's serve path.
+        ("nlist_pair/batched", "gravity_tpu/ops/pallas_nlist.py:292",
+         serve_path["kernel_launches"]["nlist_pair/batched"],
+         serve_kernels["max_abs_err"]["nlist_pair/batched"],
+         serve_kernels["timing"]["nlist_pair/batched"]),
+        ("nlist_pair/batched_bf16", "gravity_tpu/ops/pallas_nlist.py:292",
+         serve_path["kernel_launches"]["nlist_pair/batched_bf16"],
+         serve_kernels["max_abs_err"]["nlist_pair/batched_bf16"],
+         serve_kernels["timing"]["nlist_pair/batched_bf16"]),
     ]
     emit({"kernels": [{
         "name": name, "route": "cuda",

@@ -11,7 +11,10 @@ or with ``--cadence`` a whole run with trajectories and checkpoints);
 size. Each runs on the GPU unless ``--device cpu``. ``serve`` starts the
 ensemble daemon (serve/service.py) on the GPU unless ``--device cpu``;
 the client verbs find it through ``--spool-dir``. ``submit --job-type``
-takes ``integrate`` only: the other classes are refused with exit 2.
+takes ``integrate`` only: the other classes are refused with exit 2. A
+served ``--force-backend nlist`` job names its ``--nlist-rcut`` and
+``--nlist-side`` (no state exists at admission to size the grid from;
+``--nlist-cap`` defaults to 64); the daemon refuses it otherwise.
 
 Exit codes of ``run`` and ``resume``: 0 done; 1 a usage error; 2 a
 failure of the recovery layer (divergence, an accuracy breach, an
@@ -53,6 +56,10 @@ Usage:
         --slice-steps 100 &
     python -m gravity_tpu_torch submit --spool-dir D --model plummer \
         --n 8192 --steps 500 --wait
+    python -m gravity_tpu_torch submit --spool-dir D --model random \
+        --n 5000 --steps 500 --integrator leapfrog --eps 1e9 \
+        --force-backend nlist --nlist-rcut 5e10 --nlist-side 12 \
+        --nlist-cap 32
     python -m gravity_tpu_torch status --spool-dir D
     python -m gravity_tpu_torch result --spool-dir D <job> --out final.npz
     python -m gravity_tpu_torch cancel --spool-dir D <job>
@@ -126,10 +133,11 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                    help="declared truncation radius (m): forces truncated "
                         "at r > rcut (short-range physics)")
     p.add_argument("--nlist-side", dest="nlist_side", type=int, default=None,
-                   help="cell-list grid side (0 = fit to the initial state)")
+                   help="cell-list grid side (0 = fit to the initial state; "
+                        "a served nlist job must give it)")
     p.add_argument("--nlist-cap", dest="nlist_cap", type=int, default=None,
                    help="cell-list slots per cell (0 = fit to the initial "
-                        "state)")
+                        "state; for a served job 64)")
     p.add_argument("--pm-grid", dest="pm_grid", type=int, default=None)
     p.add_argument("--p3m-sigma-cells", dest="p3m_sigma_cells", type=float,
                    default=None)

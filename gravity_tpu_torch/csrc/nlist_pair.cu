@@ -26,6 +26,12 @@
 // cube every evaluation, and reading them on the host would stall the
 // host each step.
 //
+// The batched entries (nlist_pair_batched_*) are the same TPU kernel
+// under the JAX serve engine's vmap (pallas_call's batching rule, an
+// extra grid axis; gravity_tpu/serve/engine.py:418): B independent cell
+// lists, one a slot, in one launch, the slot on grid.y (pair_cells).
+// Each slot has its own bounding cube, so its own rcut_eff^2.
+//
 // What bounds it: FP32-pipe and SFU operations. A newton pair costs ~21
 // flops (the JAX cost model, pallas_nlist.py:381) and one rsqrt; an
 // ewald pair inside rcut adds a sqrt, erff, expf and two divisions (a
@@ -359,6 +365,12 @@ __device__ __forceinline__ void pair_bf16(const Pair2& s, uint32_t xi,
 // slot group. Lane l serves target slot l / kQ of its item and the
 // sources j = l % kQ (mod kQ) of each staged tile (two a step in the
 // bf16 form).
+//
+// Slot blockIdx.y of a batched launch (the serve engine's batch of B
+// independent cell lists): each array starts at the slot's stride, its
+// params at slot * (the kind's params). A solo launch has one slot, so
+// its offsets are 0; a slot's blocks do exactly a solo launch's work on
+// the slot's arrays, in the same compiled code, and give its bits.
 template <typename IO, int KIND, bool USE_RCUT, bool FTZ>
 __device__ __forceinline__ void pair_cells(
     const IO* __restrict__ tpos, const int64_t* __restrict__ t_count,
@@ -370,6 +382,17 @@ __device__ __forceinline__ void pair_cells(
   constexpr bool kBf16 = std::is_same_v<IO, bf16>;
   static_assert(!kBf16 || KIND == kNewton,
                 "the bf16 form has the newton kind only");
+  {
+    const int64_t b = blockIdx.y;
+    const int64_t cells = static_cast<int64_t>(side) * side * side;
+    tpos += b * cells * t_cap * 3;
+    out += b * cells * t_cap * 3;
+    t_count += b * cells;
+    s_count += b * cells;
+    spos += b * cells * cap * 3;
+    sgm += b * cells * cap;
+    params += b * (KIND == kEwald ? 2 : 1);
+  }
   __shared__ Body<T> stage[kWarps][kStage];
   const int lane = threadIdx.x & 31;
   const int q = lane % kQ;
@@ -580,21 +603,25 @@ KernelFn<IO> pick_kernel(int kind, int use_rcut, double cutoff2) {
   }
 }
 
+// `batch` slots (grid.y; 1 for a solo launch), each slot's arrays
+// contiguous after the one before.
 template <typename IO>
 int launch(const void* tpos, const void* t_count, const void* spos,
            const void* sgm, const void* s_count, int side, int t_cap, int cap,
            const void* params, double eps2, double cutoff2, int use_rcut,
-           int kind, void* out, void* stream) {
+           int kind, void* out, void* stream, int batch = 1) {
   if (kind != kNewton && kind != kEwald) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const KernelFn<IO> kernel = pick_kernel<IO>(kind, use_rcut, cutoff2);
-  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  if (side <= 0 || t_cap <= 0) return 0;
+  if (kernel == nullptr || batch < 0 || batch > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (side <= 0 || t_cap <= 0 || batch == 0) return 0;
   const int64_t n_items = static_cast<int64_t>(side) * side * side *
                           ((t_cap + kGroup - 1) / kGroup);
-  const unsigned grid = static_cast<unsigned>((n_items + kWarps - 1) /
-                                              kWarps);
+  const dim3 grid(static_cast<unsigned>((n_items + kWarps - 1) / kWarps),
+                  static_cast<unsigned>(batch));
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const IO*>(tpos), static_cast<const int64_t*>(t_count),
       static_cast<const IO*>(spos), static_cast<const IO*>(sgm),
@@ -645,6 +672,32 @@ extern "C" int nlist_pair_bf16(const void* tpos, const void* t_count,
   return launch<bf16>(tpos, t_count, spos, sgm, s_count, side, t_cap, cap,
                       params, eps2, cutoff2, use_rcut, kind, out, stream);
 }
+
+// The batched launch (the serve engine's batched force evaluation):
+// `batch` slots (at most 65,535) of the arrays above, each slot's arrays
+// contiguous after the one before, params holding one rcut_eff^2 a slot.
+// The newton kind with the rcut mask only (the one the engine serves;
+// anything else returns cudaErrorInvalidValue). One launch for the whole
+// batch; slot b's result has the bits of a solo launch on slot b's
+// arrays.
+#define NLIST_PAIR_BATCHED(NAME, IO)                                         \
+  extern "C" int NAME(const void* tpos, const void* t_count,                \
+                      const void* spos, const void* sgm,                    \
+                      const void* s_count, int side, int t_cap, int cap,    \
+                      const void* params, double eps2, double cutoff2,      \
+                      int use_rcut, int kind, void* out, void* stream,      \
+                      int batch) {                                          \
+    if (kind != kNewton || !use_rcut) {                                     \
+      return static_cast<int>(cudaErrorInvalidValue);                       \
+    }                                                                       \
+    return launch<IO>(tpos, t_count, spos, sgm, s_count, side, t_cap, cap,  \
+                      params, eps2, cutoff2, use_rcut, kind, out, stream,   \
+                      batch);                                               \
+  }
+NLIST_PAIR_BATCHED(nlist_pair_batched_f32, float)
+NLIST_PAIR_BATCHED(nlist_pair_batched_f64, double)
+NLIST_PAIR_BATCHED(nlist_pair_batched_bf16, bf16)
+#undef NLIST_PAIR_BATCHED
 
 extern "C" const char* nlist_pair_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

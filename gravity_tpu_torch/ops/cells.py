@@ -4,7 +4,9 @@ Counterpart of ``gravity_tpu/ops/cells.py`` (the parts the cell-list
 force backend, the P3M solver and the merge grid use). Points are binned
 into a cube grid over the source bounding cube
 (``ops/pm.py::bounding_cube``, re-exported here) and padded into a dense
-``(side^3, cap)`` slot layout.
+``(side^3, cap)`` slot layout. A batch of B independent systems (the
+serve engine's slots) bins through one sort of ids flattened over the
+batch (:func:`bin_to_cells_batched`), each slot over its own cube.
 
 Index tensors are int64 (the JAX package's are int32); their values are
 the same. The sort within a cell is stable, as ``jnp.argsort`` is, so the
@@ -24,7 +26,9 @@ from . import cuda_build
 from .pm import bounding_cube
 
 __all__ = [
+    "bin_ids_to_cells",
     "bin_to_cells",
+    "bin_to_cells_batched",
     "bounding_cube",
     "build_padded_cells",
     "build_padded_cells_indexed",
@@ -37,6 +41,7 @@ __all__ = [
     "segment_sum_bf16",
     "segment_sum_bf16_plain",
     "segment_sum_rows",
+    "slot_cell_ids",
 ]
 
 
@@ -57,8 +62,9 @@ def _near_offsets(ws: int) -> np.ndarray:
 def grid_coords(points, origin, span, side: int) -> torch.Tensor:
     """Integer cell coords of ``points`` on a side^3 grid over the cube
     (origin, span), clipped to the grid (coincident-with-boundary and
-    out-of-cube points land in edge cells)."""
-    u = (points - origin[None, :]) / span
+    out-of-cube points land in edge cells). A batch, points (B, n, 3)
+    over origin (B, 3) and span (B,), takes each slot's own cube."""
+    u = (points - origin[..., None, :]) / span[..., None, None]
     return torch.clamp((u * side).to(torch.int64), 0, side - 1)
 
 
@@ -354,10 +360,15 @@ def bin_to_cells(points, weights, coords, side: int, cap: int):
     cell-slot layout.
 
     Returns (cells_pos, cells_w, count, start, sort_order, sorted_ids)."""
-    ids = cell_ids(coords, side)
+    return bin_ids_to_cells(points, weights, cell_ids(coords, side),
+                            side**3, cap)
+
+
+def bin_ids_to_cells(points, weights, ids, n_cells: int, cap: int):
+    """:func:`bin_to_cells` from the bodies' flat cell ids (< n_cells):
+    one stable argsort, so the bodies of a cell keep their order."""
     sort_order = torch.argsort(ids, stable=True)
     sorted_ids = ids[sort_order]
-    n_cells = side**3
     count = segment_sum(torch.ones_like(ids), ids, n_cells)
     start = torch.cumsum(count, 0) - count
     cells_pos, cells_w = build_padded_cells(
@@ -365,6 +376,37 @@ def bin_to_cells(points, weights, coords, side: int, cap: int):
         n_cells, cap,
     )
     return cells_pos, cells_w, count, start, sort_order, sorted_ids
+
+
+def slot_cell_ids(coords: torch.Tensor, side: int) -> torch.Tensor:
+    """The flat ids of a batch's bodies, (B, n, 3) coords -> (B n,): slot
+    b's cell c is ``b * side^3 + c``, so one sort orders a whole batch
+    slot by slot and each slot's bodies as its own sort orders them."""
+    b, n = coords.shape[:2]
+    ids = cell_ids(coords.reshape(b * n, 3), side).reshape(b, n)
+    slot = torch.arange(b, device=coords.device)[:, None] * side**3
+    return (ids + slot).reshape(b * n)
+
+
+def bin_to_cells_batched(points, weights, coords, side: int, cap: int):
+    """:func:`bin_to_cells` over a batch of B systems, points (B, n, 3),
+    weights (B, n) and coords (B, n, 3), through one stable argsort of
+    the flat ids (:func:`slot_cell_ids`) over B n bodies: slot b's cells
+    are slot b's solo cells.
+
+    Returns (cells_pos (B, side^3, cap, 3), cells_w (B, side^3, cap),
+    count (B, side^3), start, sort_order, sorted_ids), the last three over
+    the flattened batch: ``start`` (B side^3,) each flat cell's first
+    position in the sorted order, ``sort_order`` and ``sorted_ids`` (B n,)
+    indices into the flattened bodies and their flat ids."""
+    b, n = points.shape[:2]
+    n_cells = side**3
+    cells_pos, cells_w, count, start, sort_order, sorted_ids = (
+        bin_ids_to_cells(points.reshape(b * n, 3), weights.reshape(b * n),
+                         slot_cell_ids(coords, side), b * n_cells, cap))
+    return (cells_pos.reshape(b, n_cells, cap, 3),
+            cells_w.reshape(b, n_cells, cap), count.reshape(b, n_cells),
+            start, sort_order, sorted_ids)
 
 
 def build_padded_cells(sorted_pos, sorted_mass, sorted_cell_ids,

@@ -223,8 +223,8 @@ def _pe_rows_hat(pos_i, positions, m_hat, cutoff, eps, rcut):
         ok = ok & (r2 <= rcut * rcut)
     k = torch.rsqrt(torch.where(ok, r2_soft, torch.ones_like(r2_soft)))
     if rcut > 0.0:
-        k = k - torch.rsqrt(torch.tensor(rcut * rcut + eps * eps,
-                                         dtype=k.dtype, device=k.device))
+        # A device fill, not a copy from the host (which would stall it).
+        k = k - torch.rsqrt(k.new_full((), rcut * rcut + eps * eps))
     k = torch.where(ok, k, torch.zeros_like(k))
     return (m_hat[None, :] * k).sum(dim=1)
 

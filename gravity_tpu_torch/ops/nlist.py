@@ -60,6 +60,7 @@ from . import cuda_build
 from .cells import (
     Segments,
     bin_to_cells,
+    bin_to_cells_batched,
     bounding_cube,
     cell_ids,
     grid_coords,
@@ -254,33 +255,69 @@ def _monopole_w(kind: str, r2, w_mass, params, eps_o2):
     return w_mass * _short_range_w(r2, alpha, eps_o2, alpha * alpha * alpha)
 
 
-def cell_totals(positions, masses, ids, n_cells: int):
+def cell_totals(positions, masses, sort_order, sorted_ids, count):
     """Per-cell totals for the overflow channels, in normalized mass
     (``pallas_nlist.py:1005-1012``): (m_scale, cell mass / m_scale, cell
-    centre of mass). The masses and weighted positions are one
-    ``Segments`` sum: at bf16 on the card, one sort and one launch."""
-    m_scale = torch.clamp_min(masses.max(), 1e-37)
-    m_hat = masses / m_scale
-    cmass_hat, cmw = Segments(ids, n_cells).sum(
-        m_hat, m_hat[:, None] * positions)
+    centre of mass), from the binning's stable sort
+    (:func:`cells.bin_to_cells`' sort_order, sorted_ids and count). The
+    masses and weighted positions are summed in one pass over the bodies
+    in that order (element order inside a cell), each cell's sum one
+    sequential chain, so the totals are the same bits on every run and on
+    the CPU and the card (an ``index_add_`` of floats on the card is
+    atomics, whose order, and last bits, change from run to run):
+    ``torch.segment_reduce`` at fp32 and fp64, and at bf16 the JAX
+    package's rounded adds through ``Segments`` (on the card one launch of
+    ``csrc/segment_sum.cu``).
+
+    A batch, positions (B, n, 3) and masses (B, n), takes each slot's own
+    m_scale and :func:`cells.bin_to_cells_batched`' sort over the
+    flattened ids: (m_scale (B,), (B, side^3), (B, side^3, 3)), each
+    slot's segments its solo segments in the same order."""
+    m_scale = torch.clamp_min(masses.max(dim=-1).values, 1e-37)
+    m_hat = masses / m_scale[..., None]
+    mw = (m_hat[..., None] * positions).reshape(-1, 3)
+    m_hat = m_hat.reshape(-1)
+    if masses.dtype == torch.bfloat16:
+        cmass_hat, cmw = Segments(sorted_ids, count.numel()).sum(
+            m_hat[sort_order], mw[sort_order])
+    else:
+        sums = torch.segment_reduce(
+            torch.cat([m_hat[:, None], mw], dim=1)[sort_order], "sum",
+            lengths=count.reshape(-1), unsafe=True)
+        cmass_hat, cmw = sums[:, 0], sums[:, 1:]
     ccom = cmw / torch.clamp_min(cmass_hat, 1e-37)[:, None]
-    return m_scale, cmass_hat, ccom
+    lead = masses.shape[:-1]
+    return (m_scale, cmass_hat.reshape(*lead, -1),
+            ccom.reshape(*lead, -1, 3))
 
 
 def _source_overflow_channels(cells_pos, cells_mass, cell_count, cmass_hat,
                               ccom, m_scale, g, cap: int):
     """(rem_w, rem_com, over): each cell's beyond-cap remainder weight
     (G * remainder mass), centre of mass and overflow flag, accumulated
-    in normalized mass (m * x overflows fp32 at astronomical scales)."""
-    pref_mhat = cells_mass.sum(dim=-1) / m_scale
+    in normalized mass (m * x overflows fp32 at astronomical scales). A
+    batch has a leading slot axis on every array and m_scale (B,).
+
+    A cell whose remainder is empty (rem_mhat = 0: only zero-mass
+    padding past the cap, as a padded serve job parks in its first
+    body's cell) takes its centre of mass as 0: the rounding residue of
+    its weighted positions over the 1e-37 floor can overflow to inf (at
+    bf16 every few padded states), and 0 times inf would put NaN into
+    every neighbour's remainder term where the monopole weighs 0."""
+    ms = m_scale[..., None]  # a slot's scale over its cells
+    pref_mhat = cells_mass.sum(dim=-1) / ms
     over = cell_count > cap
     rem_mhat = torch.clamp_min(
         torch.where(over, cmass_hat - pref_mhat, 0.0), 0.0
     )
-    tot_mw = ccom * cmass_hat[:, None]
-    pref_mw = ((cells_mass / m_scale)[..., None] * cells_pos).sum(dim=-2)
-    rem_com = (tot_mw - pref_mw) / torch.clamp_min(rem_mhat, 1e-37)[:, None]
-    rem_w = g * rem_mhat * m_scale
+    tot_mw = ccom * cmass_hat[..., None]
+    pref_mw = ((cells_mass / ms[..., None])[..., None] * cells_pos).sum(
+        dim=-2)
+    rem_com = torch.where(
+        (rem_mhat > 0)[..., None],
+        (tot_mw - pref_mw) / torch.clamp_min(rem_mhat, 1e-37)[..., None],
+        0.0)
+    rem_w = g * rem_mhat * ms
     return rem_w, rem_com, over
 
 
@@ -332,39 +369,56 @@ def _remainder_cells(tcells_pos, rem_w, rem_com, over, side: int, params,
     (side^3, t_cap, 3), added to the tile engine's output. ``eps`` is
     widened to max(eps, cell/2): an overflowing cell's centre of mass can
     sit arbitrarily close to a target. Offset groups per
-    :data:`OFFSET_BATCH_BYTES`."""
+    :data:`OFFSET_BATCH_BYTES` of one system's terms. A batch (the
+    ``newton`` kind) has a leading slot axis on the arrays and ``cell_h``
+    (B,); each slot's terms are its solo terms, grouped alike."""
     eps_o2 = _eps_o2(eps, cell_h)
+    eps_o2 = eps_o2.reshape(*eps_o2.shape, 1, 1, 1)
     c = torch.arange(side**3, device=tcells_pos.device)
     coords = torch.stack([c // (side * side), (c // side) % side, c % side],
                          dim=-1)
     offsets = _offsets(tcells_pos.device)
     acc = torch.zeros_like(tcells_pos)
-    per_offset = tcells_pos.numel() * tcells_pos.element_size()
+    per_offset = math.prod(tcells_pos.shape[-3:]) * tcells_pos.element_size()
     for group in _offset_groups(per_offset):
         ids, inside = _neighbors(coords, side, offsets[group])  # (S^3, K)
-        w_n = torch.where(inside, rem_w[ids], 0.0)
-        ov_n = inside & over[ids]
+        w_n = torch.where(inside, rem_w[..., ids], 0.0)
+        ov_n = inside & over[..., ids]
         diff = torch.where(
-            ov_n[:, :, None, None],
-            rem_com[ids][:, :, None, :] - tcells_pos[:, None, :, :],
+            ov_n[..., None, None],
+            rem_com[..., ids, :][..., None, :]
+            - tcells_pos[..., :, None, :, :],
             0.0,
         )  # (S^3, K, t_cap, 3)
         r2 = (diff * diff).sum(dim=-1)
-        w = _monopole_w(kind, r2, w_n[:, :, None], params, eps_o2)
-        acc.add_((w[..., None] * diff).sum(dim=1))
+        w = _monopole_w(kind, r2, w_n[..., None], params, eps_o2)
+        acc.add_((w[..., None] * diff).sum(dim=-3))
     return acc
 
 
 def _overflow_targets(t_pos, t_coords, cell_w, ccom, side: int, params, *,
-                      kind: str, eps: float, cell_h):
+                      kind: str, eps: float, cell_h, slot=None,
+                      per_offset_bytes=None):
     """Fallback for targets beyond t_cap: the 27 neighbor cells as
     whole-cell monopoles (cell-size softened) through the pair kernel,
-    (M, 3), in offset groups as :func:`_remainder_cells`."""
+    (M, 3), in offset groups as :func:`_remainder_cells`. A batch's
+    targets (the ``newton`` kind), flattened to (M, 3), name their slot
+    (``slot`` (M,)) in flat cell_w (B side^3,) and ccom (B side^3, 3), with
+    ``cell_h`` (B,) and the group size of one system's ``per_offset_bytes``
+    (its targets' bytes)."""
     eps_o2 = _eps_o2(eps, cell_h)
+    base = None
+    if slot is not None:
+        eps_o2 = eps_o2[slot][:, None]
+        base = (slot * side**3)[:, None]
     offsets = _offsets(t_pos.device)
     acc = torch.zeros_like(t_pos)
-    for group in _offset_groups(t_pos.numel() * t_pos.element_size()):
+    if per_offset_bytes is None:
+        per_offset_bytes = t_pos.numel() * t_pos.element_size()
+    for group in _offset_groups(per_offset_bytes):
         ids, inside = _neighbors(t_coords, side, offsets[group])  # (M, K)
+        if base is not None:
+            ids = ids + base
         sw = torch.where(inside, cell_w[ids], 0.0)
         diff = torch.where(inside[..., None], ccom[ids] - t_pos[:, None, :],
                            0.0)
@@ -453,28 +507,51 @@ def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
     return torch.where(real[..., None], out, 0.0)
 
 
+def pair_cells_plain_batched(tcells_pos, t_count, cells_pos, cells_gm,
+                             s_count, side: int, params, *, cutoff: float,
+                             eps: float):
+    """The plain version of :func:`pair_cells_kernel_batched`:
+    :func:`pair_cells_plain` slot by slot (``newton`` with the rcut mask),
+    slot b with its own rcut_eff^2 ``params[b]``."""
+    return torch.stack([
+        pair_cells_plain(tcells_pos[b], t_count[b], cells_pos[b],
+                         cells_gm[b], s_count[b], side, params[b:b + 1],
+                         cutoff=cutoff, eps=eps)
+        for b in range(tcells_pos.shape[0])
+    ]) if tcells_pos.shape[0] else torch.empty_like(tcells_pos)
+
+
 _ENTRY = {torch.float32: "nlist_pair_f32", torch.float64: "nlist_pair_f64",
           torch.bfloat16: "nlist_pair_bf16"}
+# The batched entries: a slot count after the solo entry's arguments.
+_BATCHED = {dtype: name.replace("nlist_pair_", "nlist_pair_batched_")
+            for dtype, name in _ENTRY.items()}
+# The most slots a batched launch takes (the grid's slot axis).
+MAX_SLOTS = 65_535
 # The kernel's pair-kind codes (csrc/nlist_pair.cu) and the params each
 # kind reads.
 _KIND_CODE = {"newton": 0, "ewald": 1}
 _N_PARAMS = {"newton": 1, "ewald": 2}
 _P = ctypes.c_void_p
+_ARGTYPES = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             _P, ctypes.c_double, ctypes.c_double, ctypes.c_int,
+             ctypes.c_int, _P, _P]
 LIBRARY = cuda_build.CudaLibrary("nlist_pair", {
-    name: ([_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            _P, ctypes.c_double, ctypes.c_double, ctypes.c_int,
-            ctypes.c_int, _P, _P],
-           ctypes.c_int)
-    for name in _ENTRY.values()
+    **{name: (_ARGTYPES, ctypes.c_int) for name in _ENTRY.values()},
+    **{name: (_ARGTYPES + [ctypes.c_int], ctypes.c_int)
+       for name in _BATCHED.values()},
 })
 
 # Kernel launches so far, per pair kind, and apart for the untruncated
-# newton form (``near``, the octree's near field) and for the bf16 form
-# (``newton_bf16``, ``near_bf16``); a run reads its form's count to show
-# its path went through the kernel. Incremented only where the kernel is
-# launched.
+# newton form (``near``, the octree's near field), for the bf16 form
+# (``newton_bf16``, ``near_bf16``) and for the batched launches of the
+# serve engine (``newton/batched``, ``newton_bf16/batched``: one a batched
+# evaluation, whatever its slot count); a run reads its form's count to
+# show its path went through the kernel. Incremented only where the kernel
+# is launched.
 LAUNCHES = {kind: 0 for kind in (*KINDS, "near", "newton_bf16",
-                                 "near_bf16")}
+                                 "near_bf16", "newton/batched",
+                                 "newton_bf16/batched")}
 
 
 def launch_key(kind: str, use_rcut: bool,
@@ -485,7 +562,9 @@ def launch_key(kind: str, use_rcut: bool,
 
 
 def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params,
-           kind):
+           kind, batch=()):
+    """The launch's checks; ``batch`` is ``(B,)`` for a batched launch,
+    whose params hold one value a slot."""
     if kind not in _KIND_CODE:
         raise ValueError(f"unknown nlist pair kind {kind!r}; choose from "
                          f"{KINDS}")
@@ -496,13 +575,17 @@ def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params,
         raise TypeError("the CUDA kernel takes float32, float64 or bfloat16, "
                         f"not {dtype}")
     n_cells = side**3
-    t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
+    if tcells_pos.dim() != len(batch) + 3 or cells_pos.dim() != len(batch) + 3:
+        raise ValueError(
+            f"tcells_pos {tuple(tcells_pos.shape)} and cells_pos "
+            f"{tuple(cells_pos.shape)} must be {batch} + (side^3, slots, 3)")
+    t_cap, cap = tcells_pos.shape[-2], cells_pos.shape[-2]
     shapes = (
-        ("tcells_pos", tcells_pos, (n_cells, t_cap, 3), dtype),
-        ("t_count", t_count, (n_cells,), torch.int64),
-        ("cells_pos", cells_pos, (n_cells, cap, 3), dtype),
-        ("cells_gm", cells_gm, (n_cells, cap), dtype),
-        ("s_count", s_count, (n_cells,), torch.int64),
+        ("tcells_pos", tcells_pos, (*batch, n_cells, t_cap, 3), dtype),
+        ("t_count", t_count, (*batch, n_cells), torch.int64),
+        ("cells_pos", cells_pos, (*batch, n_cells, cap, 3), dtype),
+        ("cells_gm", cells_gm, (*batch, n_cells, cap), dtype),
+        ("s_count", s_count, (*batch, n_cells), torch.int64),
     )
     for name, t, shape, want in shapes:
         if t.device != device:
@@ -513,13 +596,14 @@ def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params,
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    n_params = _N_PARAMS[kind] * (batch[0] if batch else 1)
     if (params.device != device or params.dtype != dtype
-            or params.numel() < _N_PARAMS[kind]
+            or params.numel() < n_params
             or not params.is_contiguous()):
         raise ValueError(
-            "params must hold rcut_eff^2 (newton) or [rcut^2, alpha] "
-            "(ewald) as a contiguous tensor of the positions' dtype on "
-            "their device")
+            "params must hold rcut_eff^2 (newton; one a slot in a batched "
+            "launch) or [rcut^2, alpha] (ewald) as a contiguous tensor of "
+            "the positions' dtype on their device")
 
 
 def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
@@ -560,6 +644,51 @@ def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
         )
     LIBRARY.check(status)
     LAUNCHES[launch_key(kind, use_rcut, dtype)] += 1
+    return out
+
+
+def pair_cells_kernel_batched(tcells_pos, t_count, cells_pos, cells_gm,
+                              s_count, side: int, params, *, cutoff: float,
+                              eps: float):
+    """B independent 27-neighborhood pair-tile sums, the ``newton`` kind
+    with the rcut mask (the serve engine's batched cell list):
+    tcells_pos (B, side^3, t_cap, 3), t_count and s_count (B, side^3),
+    cells_pos (B, side^3, cap, 3), cells_gm (B, side^3, cap) and params
+    (B,), one rcut_eff^2 a slot (each slot has its own bounding cube) ->
+    (B, side^3, t_cap, 3). Slot b's result has the bits of
+    :func:`pair_cells_kernel` on slot b's arrays.
+
+    CPU tensors take the plain version (:func:`pair_cells_plain_batched`);
+    CUDA tensors launch ``csrc/nlist_pair.cu``'s batched entry once (the
+    slot a grid axis) on the current stream, without synchronising, or
+    raise. Counted under ``LAUNCHES["newton/batched"]`` (bf16:
+    ``"newton_bf16/batched"``), one a batched evaluation."""
+    args = (tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params)
+    if all(t.device.type == "cpu" for t in args if isinstance(t, torch.Tensor)):
+        return pair_cells_plain_batched(*args, cutoff=cutoff, eps=eps)
+    batch = tcells_pos.shape[0] if tcells_pos.dim() else 0
+    _check(*args, "newton", (batch,))
+    if batch > MAX_SLOTS:
+        raise ValueError(f"a batched launch takes at most {MAX_SLOTS} "
+                         f"slots, got {batch}")
+    dtype, device = tcells_pos.dtype, tcells_pos.device
+    eps2 = rounded(eps * eps, dtype)
+    cutoff2 = rounded(cutoff * cutoff, dtype)
+    t_cap, cap = tcells_pos.shape[-2], cells_pos.shape[-2]
+    out = torch.empty_like(tcells_pos)
+    if batch == 0:
+        return out
+    lib = LIBRARY.load()
+    with torch.cuda.device(device):
+        status = getattr(lib, _BATCHED[dtype])(
+            tcells_pos.data_ptr(), t_count.data_ptr(), cells_pos.data_ptr(),
+            cells_gm.data_ptr(), s_count.data_ptr(), side, t_cap, cap,
+            params.data_ptr(), eps2, cutoff2, 1, _KIND_CODE["newton"],
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+            batch,
+        )
+    LIBRARY.check(status)
+    LAUNCHES[launch_key("newton", True, dtype) + "/batched"] += 1
     return out
 
 
@@ -721,14 +850,12 @@ def nlist_accelerations_vs(
         origin, span, params, coords, binned = source_cells(
             positions, masses, rcut=rcut, side=side, cap=cap)
         cell_h = span / side
-        ids = cell_ids(coords, side)
-        n_cells = side**3
         (cells_pos, cells_mass, cell_count, cell_start, src_sort,
          src_sorted_ids) = binned
         cells_gm = cells_mass * g
 
-        m_scale, cmass_hat, ccom = cell_totals(positions, masses, ids,
-                                               n_cells)
+        m_scale, cmass_hat, ccom = cell_totals(
+            positions, masses, src_sort, src_sorted_ids, cell_count)
 
         t_coords = grid_coords(targets, origin, span, side)
         if _self and t_cap == cap:
@@ -797,4 +924,111 @@ def make_nlist_local_kernel(*, rcut: float, side: int, cap: int = DEFAULT_CAP,
         )
 
     kernel.sizing = (side, cap, t_cap or cap)
+    return kernel
+
+
+# ---------------------------------------------------------------------------
+# The serve engine's batched cell list
+# ---------------------------------------------------------------------------
+
+
+def source_cells_batched(positions, masses, *, rcut: float, side: int,
+                         cap: int):
+    """:func:`source_cells` over a batch, positions (B, n, 3) and masses
+    (B, n): (origin (B, 3), span (B,), params (B,), coords (B, n, 3),
+    binned), each slot over its own bounding cube with its own rcut_eff^2,
+    ``binned`` :func:`cells.bin_to_cells_batched`'s tuple. Slot b's
+    values are its solo call's bits."""
+    origin, span = bounding_cube(positions)
+    rcut_eff = torch.clamp_max(span / side, rcut)
+    params = rcut_eff * rcut_eff
+    coords = grid_coords(positions, origin, span, side)
+    binned = bin_to_cells_batched(positions, masses, coords, side, cap)
+    return origin, span, params, coords, binned
+
+
+def nlist_accelerations_vs_batched(
+    positions: torch.Tensor,
+    masses: torch.Tensor,
+    *,
+    rcut: float,
+    side: int,
+    cap: int = DEFAULT_CAP,
+    g: float = G,
+    cutoff: float = CUTOFF_RADIUS,
+    eps: float = 0.0,
+) -> torch.Tensor:
+    """:func:`nlist_accelerations` over a batch of B independent systems
+    (the serve engine's slots, the counterpart of the JAX engine's ``vmap``
+    of ``nlist_accelerations_vs``): positions (B, n, 3), masses (B, n) ->
+    (B, n, 3), slot b's result the bits of the solo call on slot b's
+    arrays.
+
+    Each slot takes its own bounding cube, effective radius (params (B,))
+    and mass scale; one sort bins the whole batch
+    (:func:`cells.bin_to_cells_batched`), the cell totals are one sum over
+    the flattened ids, the pair tiles ONE launch of
+    :func:`pair_cells_kernel_batched`, and the overflow channels and the
+    un-binning run over the batch at once. The overflow-target fallback is
+    computed for every target and selected: nothing reads the device on
+    the host. An empty slot (all zeros) spans the 1e-30 floor, holds every
+    body in one cell and stays finite."""
+    b, n = positions.shape[:2]
+    n_cells = side**3
+    with record_function("nlist.bin"):
+        _, span, params, coords, binned = source_cells_batched(
+            positions, masses, rcut=rcut, side=side, cap=cap)
+        cell_h = span / side
+        cells_pos, cells_mass, count, start, sort, sorted_ids = binned
+        cells_gm = cells_mass * g
+        m_scale, cmass_hat, ccom = cell_totals(
+            positions, masses, sort, sorted_ids, count)
+    with record_function("nlist.pair_tiles"):
+        acc_cell = pair_cells_kernel_batched(
+            cells_pos, count, cells_pos, cells_gm, count, side, params,
+            cutoff=cutoff, eps=eps)
+    with record_function("nlist.remainder"):
+        rem_w, rem_com, over = _source_overflow_channels(
+            cells_pos, cells_mass, count, cmass_hat, ccom, m_scale, g, cap)
+        acc_cell = acc_cell + _remainder_cells(
+            cells_pos, rem_w, rem_com, over, side, params, kind="newton",
+            eps=eps, cell_h=cell_h)
+    with record_function("nlist.unbin_and_overflow_targets"):
+        flat_pos = positions.reshape(b * n, 3)
+        rank = (torch.arange(b * n, device=positions.device)
+                - start[sorted_ids])
+        over_t = rank >= cap
+        acc_sorted = acc_cell.reshape(b * n_cells, cap, 3)[
+            sorted_ids, rank.clamp_max(cap - 1)]
+        fallback = _overflow_targets(
+            flat_pos[sort], coords.reshape(b * n, 3)[sort],
+            (g * cmass_hat * m_scale[:, None]).reshape(-1),
+            ccom.reshape(-1, 3), side, params, kind="newton", eps=eps,
+            cell_h=cell_h, slot=sorted_ids // n_cells,
+            per_offset_bytes=n * 3 * positions.element_size())
+        acc_sorted = torch.where(over_t[:, None], fallback, acc_sorted)
+        acc = torch.empty_like(acc_sorted)
+        acc[sort] = acc_sorted
+    return acc.reshape(b, n, 3)
+
+
+def make_nlist_batched_kernel(*, rcut: float, side: int,
+                              cap: int = DEFAULT_CAP, g: float = G,
+                              cutoff: float = CUTOFF_RADIUS,
+                              eps: float = 0.0):
+    """The serve engine's batched force of an ``nlist`` key: a
+    ``(pos_i, pos_j, masses_j) -> acc`` closure over (B, n, 3) and (B, n)
+    for the self form the engine evaluates (``pos_i is pos_j``), through
+    :func:`nlist_accelerations_vs_batched`; ``sizing`` is (side, cap,
+    cap)."""
+
+    def kernel(pos_i, pos_j, masses_j):
+        if pos_i is not pos_j:
+            raise ValueError("the batched cell list evaluates the self form "
+                             "(targets = sources) only")
+        return nlist_accelerations_vs_batched(
+            pos_j, masses_j, rcut=rcut, side=side, cap=cap, g=g,
+            cutoff=cutoff, eps=eps)
+
+    kernel.sizing = (side, cap, cap)
     return kernel

@@ -20,21 +20,24 @@ from __future__ import annotations
 
 import torch
 
+from .forces import rounded
+
 
 def bounding_cube(positions: torch.Tensor):
     """(origin, span) of a cube containing all positions, small margin;
-    device tensors of the positions' dtype."""
-    lo = positions.min(dim=0).values
-    hi = positions.max(dim=0).values
-    span = (hi - lo).max() * _scalar(1.02, positions) + _scalar(1e-30,
-                                                               positions)
+    device tensors of the positions' dtype. A batch of systems, (B, n, 3),
+    gives each slot its own cube: origin (B, 3) and span (B,), each slot's
+    the bits of its own call (min and max are exact, and the rest is
+    elementwise). The margin and floor are Python scalars already rounded
+    to the dtype, which round a product as their tensors do, with no
+    host-to-device copy (a copy would stall the host every evaluation)."""
+    lo = positions.min(dim=-2).values
+    hi = positions.max(dim=-2).values
+    span = ((hi - lo).max(dim=-1).values * rounded(1.02, positions.dtype)
+            + rounded(1e-30, positions.dtype))
     center = 0.5 * (hi + lo)
-    origin = center - 0.5 * span
+    origin = center - 0.5 * span[..., None]
     return origin, span
-
-
-def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
 
 
 def _stencil_indices(base, dx: int, dy: int, dz: int, m: int):

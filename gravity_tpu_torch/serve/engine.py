@@ -4,14 +4,26 @@ Counterpart of ``gravity_tpu/serve/engine.py``. Serving many small
 requests one program each pays a launch round-trip per job and leaves
 the card mostly idle; here B systems, each zero-mass-padded to one
 power-of-two bucket (the ``ParticleState.pad_to`` contract: padding
-exerts no force), step together over ``(B, n, 3)`` tensors. A force
-evaluation of the whole batch is ONE launch of a hand-written kernel
-with a slot grid axis (``direct_kernel.accelerations_vs_batched_kernel``
-for ``pallas``, ``mxu_kernel.accelerations_vs_mxu_batched_kernel`` for
-``pallas-mxu``), the counterpart of ``pallas_call``'s batching rule under
-the JAX engine's ``vmap``. ``dense`` and ``chunked`` are the plain
-PyTorch sums over the batch axis, for jobs that name them (and the CPU's
-static route).
+exerts no force), step together over ``(B, n, 3)`` tensors. The backends,
+by the JAX package's names:
+
+- ``pallas`` and ``pallas-mxu``: a force evaluation of the whole batch is
+  ONE launch of a hand-written kernel with a slot grid axis
+  (``direct_kernel.accelerations_vs_batched_kernel``,
+  ``mxu_kernel.accelerations_vs_mxu_batched_kernel``), the counterpart of
+  ``pallas_call``'s batching rule under the JAX engine's ``vmap``;
+- ``nlist``: the cutoff-radius cell list over the batch
+  (``nlist.nlist_accelerations_vs_batched``: each slot its own bounding
+  cube, one sort of the batch, the pair tiles ONE launch of
+  ``csrc/nlist_pair.cu``'s batched entry), truncated physics whose rcut,
+  side and cap ride the key;
+- ``dense`` and ``chunked``: the plain PyTorch sums over the batch axis
+  (with the rcut mask where the job declares one), for jobs that name
+  them (and the CPU's static route).
+
+Each slot of a batched evaluation has the bits of the solo evaluation of
+the slot's arrays, so a served job follows the solo run of its
+bucket-padded state bit for bit.
 
 Per-slot isolation: slots never mix, so one diverging system NaNs only
 its own slot. A round returns a per-slot finite flag over each job's
@@ -53,28 +65,20 @@ import numpy as np
 import torch
 
 from ..config import NotPortedError, SimulationConfig
-from ..ops import direct_kernel, mxu_kernel
+from ..ops import direct_kernel, mxu_kernel, nlist
 from ..ops.forces import accelerations_vs
 from ..ops.integrators import make_step_fn
 from ..state import ParticleState
 from ..utils.platform import DeviceLike, resolve_device
 
-# Force backends of the batched round, by the JAX package's names. The
-# JAX engine also serves ``nlist`` (its cell list under vmap); the port
-# refuses it at keying until the cell list has a batched form.
+# Force backends of the batched round, by the JAX package's names.
 ENGINE_BACKENDS = ("dense", "chunked", "pallas", "pallas-mxu", "nlist")
-NOT_PORTED_BACKENDS = {
-    "nlist": (
-        "served nlist jobs (the cell list's batched form, the batched "
-        "_nlist_kernel) are not ported to gravity_tpu_torch yet "
-        "(ROADMAP.md Queue 1 item 9)"
-    ),
-}
 
 MIN_BUCKET = 16
-# Largest padded bucket the engine accepts: every engine backend is a
-# direct sum over (slots, n, n) pairs; past this n the right tool is a
-# solo run, whose auto router can pick a fast solver.
+# Largest padded bucket the engine accepts, the JAX engine's: the direct
+# sums cover (slots, n, n) pairs and the cell list's grid is sized
+# blind at admission; past this n the right tool is a solo run, whose
+# auto router can pick a fast solver for the data.
 MAX_BUCKET = 8192
 
 
@@ -112,19 +116,20 @@ def batch_key_for(
     device: DeviceLike = None,
 ) -> BatchKey:
     """The batch a job with this config lands in. Raises ValueError for
-    configs outside the ensemble envelope (a submit-time rejection), and
-    :class:`~gravity_tpu_torch.config.NotPortedError` for a served
-    ``nlist`` job.
+    configs outside the ensemble envelope (a submit-time rejection).
 
     ``auto``/``direct`` route through the measured tuning cache at the
     job's padded bucket (:func:`~gravity_tpu_torch.autotune.
     resolve_engine_backend`, probed at submit time on a miss), or with
     autotuning off the static route: ``pallas`` on the card, ``dense``
-    on the CPU. A job with ``nlist_rcut`` > 0 routes to ``dense``, the
-    one engine backend that applies the rcut mask. ``reroute`` (backend
-    -> backend) is the circuit breakers' admission hook
-    (serve/breaker.py); ``device`` is the engine's (the card unless the
-    CPU is asked for)."""
+    on the CPU. ``auto`` with ``nlist_rcut`` > 0 routes statically to
+    ``dense``, as the JAX engine does. Truncated physics (``nlist``, or an
+    rcut on ``dense``/``chunked``) keys its rcut, side and cap in
+    ``extra``: ``nlist`` needs rcut > 0 and an explicit ``nlist_side``
+    (no state exists at admission to size the grid from), and a declared
+    rcut on a full-gravity backend is refused. ``reroute`` (backend ->
+    backend) is the circuit breakers' admission hook (serve/breaker.py);
+    ``device`` is the engine's (the card unless the CPU is asked for)."""
     backend = config.force_backend
     if backend not in ("auto", "direct") and backend not in ENGINE_BACKENDS:
         raise ValueError(
@@ -135,9 +140,8 @@ def batch_key_for(
     if config.n > MAX_BUCKET:
         raise ValueError(
             f"n={config.n} exceeds the ensemble engine's bucket cap "
-            f"({MAX_BUCKET}): the batched direct sum covers (slots, n, n) "
-            "pairs; run this size solo via `run` (its auto router picks "
-            "a scale-appropriate backend)"
+            f"({MAX_BUCKET}); run this size solo via `run` (its auto "
+            "router picks a scale-appropriate backend)"
         )
     from ..models import MODELS
 
@@ -164,8 +168,9 @@ def batch_key_for(
         on_card = resolve_device(device).type == "cuda"
         backend = "pallas" if on_card else "dense"
         if config.nlist_rcut > 0.0:
-            # Declared truncated physics: of the engine's backends only
-            # the plain dense form applies the rcut mask.
+            # Declared truncated physics routes statically to the masked
+            # dense form, as in the JAX engine: the probe's candidates
+            # compute full gravity.
             backend = "dense"
         elif getattr(config, "autotune", True):
             from ..autotune import resolve_engine_backend
@@ -182,18 +187,28 @@ def batch_key_for(
                 f"backends ({'/'.join(ENGINE_BACKENDS)})"
             )
         backend = rerouted
-    if backend in NOT_PORTED_BACKENDS:
-        raise NotPortedError(NOT_PORTED_BACKENDS[backend])
-    if config.nlist_rcut > 0.0:
-        if backend not in ("dense", "chunked"):
+    if backend == "nlist" or config.nlist_rcut > 0.0:
+        if config.nlist_rcut <= 0.0:
+            raise ValueError(
+                "force_backend='nlist' needs nlist_rcut > 0 "
+                "(--nlist-rcut): the cell-list kernel computes "
+                "rcut-truncated forces"
+            )
+        if backend not in ("nlist", "dense", "chunked"):
             raise ValueError(
                 f"nlist_rcut > 0 declares truncated physics, but "
                 f"force_backend {backend!r} computes full gravity and "
-                "ignores it; use dense or chunked, which apply the rcut "
-                "mask"
+                "ignores it; use nlist (or dense/chunked, which apply "
+                "the rcut mask)"
             )
-        # The rcut is part of the key: jobs with other radii never share
-        # a batch.
+        if backend == "nlist" and config.nlist_side <= 0:
+            raise ValueError(
+                "served nlist jobs need an explicit --nlist-side: no "
+                "concrete state exists at admission to size the cell "
+                "list from"
+            )
+        # The rcut and the cell list's sizing are part of the key: jobs
+        # with other radii or grids never share a batch.
         extra = tuple(extra) + (
             ("nlist_rcut", config.nlist_rcut),
             ("nlist_side", config.nlist_side),
@@ -347,8 +362,9 @@ class EnsembleEngine:
     def _batched_kernel(self, key: BatchKey):
         """``(B, M, 3) x (B, K, 3) x (B, K) -> (B, M, 3)`` of the key's
         backend: one batched launch of a hand-written kernel for
-        ``pallas``/``pallas-mxu`` (their plain batched versions only for
-        CPU tensors), the plain sum over the batch for dense/chunked."""
+        ``pallas``/``pallas-mxu`` and for the pair tiles of ``nlist``
+        (their plain batched versions only for CPU tensors), the plain
+        sum over the batch for dense/chunked."""
         cfg = _key_config(key)
         common = dict(g=cfg.g, cutoff=cfg.cutoff, eps=cfg.eps)
         if key.backend == "pallas":
@@ -357,6 +373,13 @@ class EnsembleEngine:
         if key.backend == "pallas-mxu":
             return functools.partial(
                 mxu_kernel.accelerations_vs_mxu_batched_kernel, **common)
+        if key.backend == "nlist":
+            from ..simulation import _resolve_nlist_config
+
+            # Sized blind, as the solo kernel of the key is.
+            side, cap = _resolve_nlist_config(cfg, None)
+            return nlist.make_nlist_batched_kernel(
+                rcut=cfg.nlist_rcut, side=side, cap=cap, **common)
         if cfg.nlist_rcut > 0.0:
             common["rcut"] = cfg.nlist_rcut
         if key.backend == "dense":
@@ -364,8 +387,6 @@ class EnsembleEngine:
         if key.backend == "chunked":
             return functools.partial(_chunked_batched, chunk=cfg.chunk,
                                      **common)
-        if key.backend in NOT_PORTED_BACKENDS:
-            raise NotPortedError(NOT_PORTED_BACKENDS[key.backend])
         raise ValueError(f"backend {key.backend!r} is not an engine backend")
 
     def _seed_accel(self, key: BatchKey, positions, masses):

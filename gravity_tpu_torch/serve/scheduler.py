@@ -103,12 +103,16 @@ class QueueFull(RuntimeError):
 def _kernel_launches() -> dict:
     """The hand-written kernels' launch counts in this process, solo and
     batched."""
-    from ..ops import direct_kernel, mxu_kernel
+    from ..ops import direct_kernel, mxu_kernel, nlist
 
     return {"nbody_direct": direct_kernel.LAUNCHES,
             "nbody_direct/batched": direct_kernel.BATCHED_LAUNCHES,
             "nbody_mxu": mxu_kernel.LAUNCHES,
-            "nbody_mxu/batched": mxu_kernel.BATCHED_LAUNCHES}
+            "nbody_mxu/batched": mxu_kernel.BATCHED_LAUNCHES,
+            "nlist_pair": nlist.LAUNCHES["newton"],
+            "nlist_pair/bf16": nlist.LAUNCHES["newton_bf16"],
+            "nlist_pair/batched": nlist.LAUNCHES["newton/batched"],
+            "nlist_pair/batched_bf16": nlist.LAUNCHES["newton_bf16/batched"]}
 
 
 def _router_verdicts() -> dict:
@@ -2298,6 +2302,8 @@ class EnsembleScheduler:
             "job_type": key.job_type,
             "units": cls.units,
             "bucket": key.bucket_n,
+            "backend": key.backend,
+            "dtype": key.dtype,
             "slots_used": len(occupied),
             "slots_total": key.slots,
             "occupancy": occ_particles / (key.bucket_n * key.slots),

@@ -94,16 +94,15 @@ def worker_capabilities(*, slots: int) -> dict:
     budget, bucket cap, batch slots), also rendered by `gravity_tpu
     fleet-status`."""
     from ..telemetry.perf import device_memory_budget
-    from .engine import ENGINE_BACKENDS, MAX_BUCKET, NOT_PORTED_BACKENDS
+    from .engine import ENGINE_BACKENDS, MAX_BUCKET
 
     return {
         "devices": int(torch.cuda.device_count()),
-        # The sharded class (ROADMAP.md Queue 1 item 5) and served nlist
-        # jobs (item 9) are not ported.
+        # The sharded class is not ported (ROADMAP.md Queue 1 item 5).
         "sharded_capable": False,
-        "nlist_capable": False,
-        "backends": [b for b in ENGINE_BACKENDS
-                     if b not in NOT_PORTED_BACKENDS],
+        # Every worker serves the truncated cell-list family.
+        "nlist_capable": True,
+        "backends": list(ENGINE_BACKENDS),
         "hbm_budget_bytes": device_memory_budget(),
         "max_bucket": MAX_BUCKET,
         "slots": int(slots),

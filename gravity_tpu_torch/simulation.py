@@ -220,7 +220,9 @@ def _resolve_backend_for_run(config: SimulationConfig, state,
 def _resolve_nlist_config(config: SimulationConfig, positions):
     """The (side, cap) of the nlist backend: explicit config knobs win;
     otherwise they are fit to the initial positions
-    (``ops/nlist.py::resolve_nlist_sizing``)."""
+    (``ops/nlist.py::resolve_nlist_sizing``). With no positions (a serve
+    key's kernels, sized blind at admission) the side must be given and
+    the cap defaults to ``nlist.DEFAULT_CAP``, as in the JAX package."""
     if config.nlist_rcut <= 0.0:
         raise ValueError(
             "force_backend='nlist' needs nlist_rcut > 0 (--nlist-rcut): "
@@ -231,6 +233,14 @@ def _resolve_nlist_config(config: SimulationConfig, positions):
     side, cap = config.nlist_side, config.nlist_cap
     if side and cap:
         return side, cap
+    if positions is None:
+        if not side:
+            raise ValueError(
+                "nlist sizing needs concrete initial positions or an "
+                "explicit --nlist-side (serve jobs must set it: no state "
+                "exists at admission)"
+            )
+        return side, cap or nlist.DEFAULT_CAP
     return nlist.resolve_nlist_sizing(positions, config.nlist_rcut, cap=cap,
                                       side=side)
 

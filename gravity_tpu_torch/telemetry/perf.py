@@ -98,23 +98,103 @@ def device_memory_budget() -> Optional[int]:
     return int(total)
 
 
+# The (B, n, 3) generations a round holds at once besides the batch's own
+# tensors, by integrator: the round-start carry (kept for the rollback),
+# the current and the new state and acceleration, a step's half-kicked
+# velocity and drifted positions, the budget mask's selections and the
+# elementwise temporaries around them; Verlet's and Yoshida's steps hold
+# more (their acc sums, three sub-steps).
+STEP_GENERATIONS = {"euler": 12, "leapfrog": 14, "verlet": 16,
+                    "yoshida4": 18}
+# The element units of the cell list's per-(slot, cell, offset, slot)
+# temporaries at once (ops/nlist.py::_remainder_cells: the masked
+# differences, their squares, the weight's intermediates, the weighted
+# differences; a 3-vector counts 3), and of a target's per-offset
+# fallback terms (_overflow_targets).
+NLIST_TILE_UNITS = 9
+# The plain sum's (rows, n) temporaries at once (ops/forces.py::
+# accelerations_vs): the differences (3), r^2, the weight's
+# intermediates and the masks, then the weighted differences (3); 10.1
+# units measured at bucket 4,096 in fp64 (NVIDIA H100 80GB HBM3, 700 W);
+# its chunk of rows for ``chunked`` (SimulationConfig.chunk).
+PLAIN_PAIR_UNITS = 12
+PLAIN_CHUNK = 1024
+NLIST_FALLBACK_UNITS = 9
+# The largest source chunk count a direct-sum launch takes at n sources:
+# one chunk a staged tile of 256 (kTile of csrc/nbody_direct.cu and
+# csrc/nbody_mxu.cu), at most direct_kernel.MAX_CHUNKS; the card's own
+# occupancy picks S at or below it (direct_kernel.source_chunks).
+KERNEL_TILE = 256
+
+
+def chunk_bound(n: int) -> int:
+    """The most source chunks S a launch at n sources can take."""
+    from ..ops.direct_kernel import MAX_CHUNKS
+
+    return max(1, min(MAX_CHUNKS, -(-n // KERNEL_TILE)))
+
+
 def estimate_peak_bytes(key) -> int:
-    """Cold-key sizing model of a serve BatchKey's footprint: two
-    generations of the (slots, n, 3) state triple (a round keeps the
-    round-start carry for its rollback) plus the backend's dominant pair
-    intermediate."""
-    item = {"float64": 8, "bfloat16": 2}.get(str(key.dtype), 4)
+    """Cold-key sizing model of a serve BatchKey's first round, in bytes.
+    It counts, for B = slots, n = bucket, ``item`` the dtype's bytes
+    (bf16 at 4, as the JAX model counts it):
+
+    - the JAX model's figure (``gravity_tpu/telemetry/perf.py:234-262``),
+      never less: two generations of the (B, n, 3) state triple and the
+      masses, plus its pair term (nlist B side^3 27 cap 4 item, the
+      kernels B n 8 item; dense and chunked below);
+    - for ``dense`` and ``chunked``, the plain sum's pair temporaries,
+      :data:`PLAIN_PAIR_UNITS` of B n rows, rows = n or the config's chunk
+      of 1,024 (the JAX model counts the (n, n, 3) difference alone);
+    - the step's temporaries: :data:`STEP_GENERATIONS` of the key's
+      integrator times a (B, n, 3) generation;
+    - the kernels' scratch: ``nbody_direct``'s packed sources (B, n, 4)
+      and its (B, S, n, 3) chunk partial, ``nbody_mxu``'s packed tiles
+      (B n 64 bytes), its centred operands and (B, n, 4) sums and its
+      (B, S, n, 4) partial, all in the compute type (fp32 for bf16), S at
+      most :func:`chunk_bound`;
+    - for ``nlist`` (side and cap from ``key.extra``): the (B, side^3,
+      cap) cell grids (positions, masses, G m, the pair tiles and their
+      sum with the remainder, the scatter buffers), the remainder's
+      per-offset terms (:data:`NLIST_TILE_UNITS` of B side^3 27 cap), the
+      targets' overflow fallback (:data:`NLIST_FALLBACK_UNITS` of B n 27
+      and its int64 neighbour ids), and the sorted and un-binned copies
+      with the int64 coordinates, ids and orders of B n bodies.
+
+    The measured peak of a key's first round replaces it for every later
+    admission (:func:`required_bytes_for_key`)."""
+    item = 8 if str(key.dtype) in ("float64", "f64") else 4
+    compute = item
     slots, n = int(key.slots), int(key.bucket_n)
-    state = 2 * slots * (3 * n * 3 + n) * item
-    if key.backend == "dense":
-        pair = slots * n * n * 3 * item  # the (n, n, 3) diff tensor
-    elif key.backend == "chunked":
-        pair = slots * n * min(1024, n) * 3 * item
+    vec = slots * n * 3 * item
+    state = 2 * (3 * vec + slots * n * item)
+    backend = key.backend
+    extra = dict(key.extra) if key.extra else {}
+    side = int(extra.get("nlist_side", 8) or 8)
+    cap = int(extra.get("nlist_cap", 0) or 0) or 64
+    if backend in ("dense", "chunked"):
+        rows = n if backend == "dense" else min(PLAIN_CHUNK, n)
+        pair = slots * n * rows * PLAIN_PAIR_UNITS * item
+    elif backend == "nlist":
+        pair = slots * side**3 * 27 * cap * 4 * item
     else:
-        # The kernels stage sources in shared memory: device memory stays
-        # state-dominated (packed sources and chunk partials).
-        pair = slots * n * 8 * 4
-    return state + pair
+        pair = slots * n * 8 * item
+    steps = STEP_GENERATIONS.get(key.integrator, max(
+        STEP_GENERATIONS.values())) * vec
+    chunks = chunk_bound(n)
+    scratch = 0
+    if backend == "pallas":
+        scratch = slots * n * compute * (4 + 3 * chunks)
+    elif backend == "pallas-mxu":
+        scratch = slots * n * (64 + 4 * (3 + 3 + 4 + 4 * chunks + 6))
+    elif backend == "nlist":
+        grid = slots * side**3 * cap
+        bodies = slots * n
+        scratch = (grid * (17 * item + 16)
+                   + NLIST_TILE_UNITS * grid * 27 * item
+                   + bodies * 27 * (NLIST_FALLBACK_UNITS * item + 17)
+                   + bodies * (24 * item + 8 * 16))
+    return state + pair + steps + scratch
 
 
 class PerfLedger:

@@ -1091,3 +1091,158 @@ def test_served_job_matches_padded_solo_bit_for_bit(cuda, backend):
                      state=padded).run()["final_state"]
     assert torch.equal(got.positions.to(cuda), solo.positions[:config.n])
     assert torch.equal(got.velocities.to(cuda), solo.velocities[:config.n])
+
+
+# The served cell list (README's cell-list workload at serving size: rcut
+# 5e10 m, side 12, cap 32) at B = 4 slots of bucket 1,024.
+SERVE_NLIST = dict(rcut=5e10, side=12, cap=32, eps=1e9)
+
+
+def _serve_nlist_batch(dtype, device):
+    """A padded 700-body random cube, a full one, a padded 300-body one
+    and an empty slot, bucket 1,024."""
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    pos, mass = [], []
+    for n, seed in ((700, 0), (1024, 1), (300, 2)):
+        state = make_initial_state(SimulationConfig(
+            model="random", n=n, seed=seed, dtype="float64"), device)
+        padded, _ = state.pad_to(1024)
+        pos.append(padded.positions)
+        mass.append(padded.masses)
+    pos.append(torch.zeros_like(pos[0]))
+    mass.append(torch.zeros_like(mass[0]))
+    return (torch.stack(pos).to(dtype).contiguous(),
+            torch.stack(mass).to(dtype).contiguous())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12),
+                                       (torch.bfloat16, 2.0**-5)])
+def test_batched_nlist_kernel(cuda, dtype, tol):
+    """The batched pair tiles: one launch a batched evaluation, each slot
+    the bits of a solo launch on its arrays, and the plain version within
+    the kernel table's bar in units of each row's sum of |terms|."""
+    from gravity_tpu_torch.constants import G
+
+    pos, mass = _serve_nlist_batch(dtype, cuda)
+    kw = {k: SERVE_NLIST[k] for k in ("rcut", "side", "cap")}
+    _, _, params, _, binned = nlist.source_cells_batched(pos, mass, **kw)
+    cells_pos, cells_mass, count = binned[:3]
+    args = (cells_pos, count, cells_pos, cells_mass * G, count,
+            SERVE_NLIST["side"], params)
+    key = nlist.launch_key("newton", True, dtype) + "/batched"
+    before = nlist.LAUNCHES[key]
+    got = nlist.pair_cells_kernel_batched(*args, cutoff=1e-10, eps=1e9)
+    assert nlist.LAUNCHES[key] == before + 1
+    for b in range(4):
+        solo_args = tuple(a[b] for a in args[:5]) + (
+            SERVE_NLIST["side"], params[b:b + 1])
+        solo = nlist.pair_cells_kernel(*solo_args, cutoff=1e-10, eps=1e9)
+        assert torch.equal(got[b], solo)
+        want = nlist.pair_cells_plain(*solo_args, cutoff=1e-10, eps=1e9)
+        scale = nlist.pair_cells_plain(*solo_args, cutoff=1e-10, eps=1e9,
+                                       absolute=True)
+        _within_term_scale(got[b], want, scale, tol)
+    assert bool((got[3] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_batched_nlist_evaluation_is_solo_bits(cuda, dtype):
+    """The whole batched cell list (binning, totals, tiles, overflow
+    channels, un-binning) on the card: each slot the bits of its solo
+    evaluation, the same bits on a second run, finite everywhere."""
+    pos, mass = _serve_nlist_batch(dtype, cuda)
+    got = nlist.nlist_accelerations_vs_batched(pos, mass, **SERVE_NLIST)
+    again = nlist.nlist_accelerations_vs_batched(pos, mass, **SERVE_NLIST)
+    solo = torch.stack([nlist.nlist_accelerations_vs(
+        pos[b], pos[b], mass[b], **SERVE_NLIST) for b in range(4)])
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    assert torch.equal(got, solo)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_served_nlist_job_matches_padded_solo_bit_for_bit(cuda, dtype):
+    """A served nlist job on the card: one build, one batched launch a
+    force evaluation, and the bits of the solo run of its bucket-padded
+    state."""
+    from gravity_tpu_torch.serve import EnsembleScheduler, bucket_size
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    config = SimulationConfig(model="random", n=700, steps=30, dt=3600.0,
+                              eps=1e9, integrator="leapfrog", dtype=dtype,
+                              force_backend="nlist", nlist_rcut=5e10,
+                              nlist_side=12, nlist_cap=32)
+    key = "newton_bf16/batched" if dtype == "bfloat16" else "newton/batched"
+    before = nlist.LAUNCHES[key]
+    with EnsembleScheduler(slots=2, slice_steps=10, device=cuda) as sched:
+        jid = sched.submit(config)
+        sched.run_until_idle()
+        assert sched.status(jid)["status"] == "completed"
+        got = sched.result(jid)
+        assert list(sched.engine.compile_counts.values()) == [1]
+        assert nlist.LAUNCHES[key] - before == \
+            sched.engine.force_evals["nlist"] == 30
+    state = make_initial_state(config, cuda)
+    padded, _ = state.pad_to(bucket_size(config.n))
+    solo = Simulator(dataclasses.replace(config, n=padded.n),
+                     state=padded).run()["final_state"]
+    assert torch.equal(got.positions.to(cuda), solo.positions[:config.n])
+    assert torch.equal(got.velocities.to(cuda), solo.velocities[:config.n])
+
+
+@pytest.mark.parametrize("backend,dtype,integrator", [
+    ("pallas", "float32", "leapfrog"), ("pallas", "float32", "yoshida4"),
+    ("pallas-mxu", "float32", "leapfrog"), ("pallas", "bfloat16", "euler"),
+    ("nlist", "float32", "leapfrog"), ("nlist", "bfloat16", "yoshida4"),
+    ("dense", "float64", "leapfrog")])
+def test_first_round_peak_within_the_estimate(cuda, backend, dtype,
+                                              integrator):
+    """The admission estimate of a cold key covers the measured peak of
+    its first round (torch.cuda.max_memory_allocated over the round)."""
+    from gravity_tpu_torch.serve import EnsembleScheduler
+    from gravity_tpu_torch.telemetry import perf
+
+    extra = (dict(nlist_rcut=5e10, nlist_side=12, nlist_cap=32)
+             if backend == "nlist" else {})
+    config = SimulationConfig(model="random", n=3000, steps=40, dt=3600.0,
+                              eps=1e9, integrator=integrator, dtype=dtype,
+                              force_backend=backend, **extra)
+    perf.ledger().reset()
+    with EnsembleScheduler(slots=4, slice_steps=20, device=cuda) as sched:
+        for seed in range(3):
+            sched.submit(dataclasses.replace(config, seed=seed))
+        sched.run_round()
+        (row,) = perf.ledger().rows_list()
+    assert 0 < row["peak_bytes"] <= row["estimated_bytes"]
+
+
+def test_nlist_round_error_fails_its_jobs_on_the_card(cuda, monkeypatch):
+    """No fallback: a served nlist round whose kernel raises fails its
+    jobs with the error and trips the nlist breaker; nothing runs the
+    job through dense or chunked."""
+    from gravity_tpu_torch.serve import EnsembleScheduler
+    from gravity_tpu_torch.serve.breaker import BreakerOpen
+
+    config = SimulationConfig(model="random", n=700, steps=30, dt=3600.0,
+                              eps=1e9, integrator="leapfrog",
+                              force_backend="nlist", nlist_rcut=5e10,
+                              nlist_side=12, nlist_cap=32)
+    with EnsembleScheduler(slots=2, slice_steps=10, device=cuda) as sched:
+        assert sched.breakers.on_card
+        jid = sched.submit(config)
+
+        def broken(*args, **kwargs):
+            raise RuntimeError("nlist_pair batched launch failed: test")
+
+        monkeypatch.setattr(nlist, "pair_cells_kernel_batched", broken)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            sched.run_round()
+        st = sched.status(jid)
+        assert st["status"] == "failed" and "launch failed" in st["error"]
+        assert sched.breakers.snapshot()["nlist"]["state"] == "open"
+        with pytest.raises(BreakerOpen):
+            sched.submit(config)
+        assert set(sched.engine.force_evals) <= {"nlist"}

@@ -282,8 +282,10 @@ def test_cell_totals_bf16_match_jax_bits(n, side, span, seed):
     c = np.clip((pos / span * side).astype(np.int64), 0, side - 1)
     ids = (c[:, 0] * side + c[:, 1]) * side + c[:, 2]
     n_cells = side**3
-    got = nlist.cell_totals(*_port_bf16(pos, m), torch.from_numpy(ids),
-                            n_cells)
+    tids = torch.from_numpy(ids)
+    order = torch.argsort(tids, stable=True)
+    got = nlist.cell_totals(*_port_bf16(pos, m), order, tids[order],
+                            torch.bincount(tids, minlength=n_cells))
     jpos, jm = _jax_bf16(pos, m)
     m_scale = jnp.maximum(jnp.max(jm), jnp.asarray(1e-37, jnp.bfloat16))
     m_hat = jm / m_scale

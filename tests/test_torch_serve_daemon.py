@@ -187,7 +187,8 @@ def test_metrics_carry_engine_counters(daemon):
     assert m["engine"]["host_reads"]["finite"] == m["rounds"]
     assert set(m["kernel_launches"]) == {
         "nbody_direct", "nbody_direct/batched", "nbody_mxu",
-        "nbody_mxu/batched"}
+        "nbody_mxu/batched", "nlist_pair", "nlist_pair/bf16",
+        "nlist_pair/batched", "nlist_pair/batched_bf16"}
     text = daemon.metrics_prometheus({})[1]
     assert "gravity_rounds_total" in text
 

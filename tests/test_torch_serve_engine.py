@@ -25,7 +25,7 @@ from gravity_tpu.serve.engine import EnsembleEngine as JaxEngine
 from gravity_tpu.serve.engine import batch_key_for as jax_key_for
 from gravity_tpu.serve.engine import bucket_size as jax_bucket_size
 from gravity_tpu.state import ParticleState as JaxState
-from gravity_tpu_torch.config import NotPortedError, SimulationConfig
+from gravity_tpu_torch.config import SimulationConfig
 from gravity_tpu_torch.interop import state_from_numpy
 from gravity_tpu_torch.serve import (
     EnsembleEngine,
@@ -100,15 +100,20 @@ def test_batch_key_groups_and_rejections():
 def test_batch_key_truncated_and_refused_backends():
     """nlist_rcut > 0 keys the rcut and routes auto to dense; a full-
     gravity kernel with a declared rcut is refused as the JAX package
-    refuses it; served nlist is not ported (NotPortedError)."""
+    refuses it; served nlist is accepted and keys its rcut, side and cap,
+    as the JAX engine's key does."""
     key = _key(_cfg(10, force_backend="auto", nlist_rcut=5e10))
     assert key.backend == "dense"
     assert dict(key.extra)["nlist_rcut"] == 5e10
     with pytest.raises(ValueError):
         _key(_cfg(10, force_backend="pallas", nlist_rcut=5e10))
-    with pytest.raises(NotPortedError, match="item 9"):
-        _key(_cfg(10, force_backend="nlist", nlist_rcut=5e10,
-                  nlist_side=4))
+    cfg = dict(force_backend="nlist", nlist_rcut=5e10, nlist_side=4)
+    key = _key(_cfg(10, **cfg))
+    assert key.backend == "nlist"
+    assert dict(key.extra) == {"nlist_rcut": 5e10, "nlist_side": 4,
+                               "nlist_cap": 0}
+    assert tuple(key) == tuple(jax_key_for(_cfg(10, cls=JaxConfig, **cfg),
+                                           slots=4))
     assert MAX_BUCKET == 8192
 
 

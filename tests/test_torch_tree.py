@@ -246,9 +246,12 @@ def test_untruncated_launches_count_apart():
     assert nlist.launch_key("newton", False) == "near"
     assert nlist.launch_key("newton", True) == "newton"
     assert nlist.launch_key("ewald", True) == "ewald"
-    # The bf16 form counts apart as well (tests/test_torch_nlist_bf16.py).
+    # The bf16 form counts apart as well (tests/test_torch_nlist_bf16.py),
+    # and so do the serve engine's batched launches
+    # (tests/test_torch_serve_nlist.py).
     assert set(nlist.LAUNCHES) == {"newton", "ewald", "near", "newton_bf16",
-                                   "near_bf16"}
+                                   "near_bf16", "newton/batched",
+                                   "newton_bf16/batched"}
 
 
 # --- sizing helpers and the potential ------------------------------------
