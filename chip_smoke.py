@@ -107,7 +107,20 @@ set to 0 just before the path and read just after:
   FMM's, timed against the tree's); the host syncs
   a step of each path; and on the main, nlist, Gram, P3M, multirate and
   merge paths the energy drift by the conservation ledger, outside the
-  timed runs.
+  timed runs;
+- the performance observatory (after the serve phases): the perf-ledger
+  rows of the paths above (``reference-cuda``, ``baseline-16k``, the
+  cell list, the Gram form, the octree, the sparse FMM), each with
+  counted flops, bytes and an allocator peak, a direct sum's
+  ``model_ratio`` in 0.8-3.0, beside its ms a step and its share of the
+  card's fp32 peak, and ``reference-cuda`` counted against uncounted
+  (``perf_ledger``); ``bench --gate`` on PERF_BASELINE.json (the five
+  contracts the port runs, then every contract, the halo exchange
+  reported violated, then a planted 2x handicap that must be caught;
+  ``gate_path``); ``run --preset baseline-16k --steps 20 --profile`` and
+  the daemon's ``POST /profile`` around a bucket-8,192 round, each trace
+  holding the ``nbody_direct`` kernel once a counted launch
+  (``profile_path``).
 
 It then times each kernel at its path's shapes beside its bound (the
 direct sum masked at N = 50,000, mask-free at N = 16,384 and 65,536, and
@@ -682,7 +695,7 @@ def phase_main_path() -> dict:
         "launches": launches, "total_s": stats["total_time_s"],
         "ms_per_step": 1e3 * stats["avg_step_s"],
         "pairs_per_s": stats["pairs_per_sec"], "device": stats["device"],
-        "host_gap_frac": stats["host_gap_frac"],
+        "host_gap_frac": stats["host_gap_frac"], "perf": stats["perf"],
         **ledger_energy_drift(sim, s0, final),
         # The ledger prices this N's potential with the octree; the exact
         # pair scan in fp64 beside it.
@@ -1259,6 +1272,7 @@ def phase_nlist_main_path() -> dict:
         "kernel_pairs_per_eval_at_t0": pairs0,
         "warnings": [str(w.message) for w in caught],
         "device": stats["device"], "host_gap_frac": stats["host_gap_frac"],
+        "perf": stats["perf"],
         **ledger_energy_drift(sim, s0, final),
     }
     emit(record)
@@ -1303,7 +1317,7 @@ def phase_mxu_path() -> dict:
         "vs_nbody_direct_median_rel_err": float(rel.median()),
         "vs_nbody_direct_p99_rel_err": float(torch.quantile(rel, 0.99)),
         "vs_nbody_direct_max_rel_err": float(rel.max()),
-        "host_gap_frac": stats["host_gap_frac"],
+        "host_gap_frac": stats["host_gap_frac"], "perf": stats["perf"],
         **ledger_energy_drift(sim, s0, final),
     }
     # The JAX suite's fp32 class for the Gram form: median ~1e-6.
@@ -2144,6 +2158,7 @@ def phase_baseline16k_path() -> dict:
         "ms_per_step": 1e3 * stats["avg_step_s"],
         "pairs_per_s": stats["pairs_per_sec"], "energy_drift": drift,
         "moved_share": stats["moved_share"], "device": stats["device"],
+        "perf": stats["perf"],
     }
     emit(record)
     return record
@@ -3289,6 +3304,7 @@ def phase_tree_path(device: dict) -> dict:
         "jax_suite_disk_2048_depth5_nlist": suite,
         "warnings": [str(w.message)[:160] for w in caught],
         "device": stats["device"], "nvidia_smi": device["nvidia_smi"],
+        "perf": stats["perf"],
     }
     emit(record)
     check(suite["median"] < TREE_MEDIAN_BAR and suite["p90"] < TREE_P90_BAR,
@@ -5346,7 +5362,7 @@ def fmm_run_record(name, sim, config, device, *, prefix, cut_from,
         "vs_nbody_direct_targets": FMM_SAMPLE, "vs_nbody_direct": errors,
         "bars": bars,
         "sfmm_final_occupancy": stats.get("sfmm_final_occupancy"),
-        "nvidia_smi": device["nvidia_smi"],
+        "nvidia_smi": device["nvidia_smi"], "perf": stats["perf"],
     }
     return record
 
@@ -6117,9 +6133,12 @@ def phase_serve_path(device: dict) -> dict:
     for kernel in ("nbody_direct/batched", "nbody_mxu/batched",
                    "nlist_pair/batched", "nlist_pair/batched_bf16"):
         check(launches[kernel] > 0, f"no {kernel} launch")
+    # The serve keys' rows (the ledger also holds the admission probes'
+    # block rows, site autotune_probe, since PR 17).
     peaks = {r["key"]: {"measured": r.get("peak_bytes"),
                         "estimated": r.get("estimated_bytes")}
-             for r in metrics["perf_ledger"]}
+             for r in metrics["perf_ledger"]
+             if r.get("site") == "serve_round"}
     check(len(peaks) == len(engine["builds"]),
           f"{len(peaks)} ledger rows for {len(engine['builds'])} keys")
     for key, p in peaks.items():
@@ -6321,6 +6340,308 @@ def phase_serve_parity(device: dict) -> dict:
     return record
 
 
+# --- the performance observatory (PR 17) ---
+
+# The JAX suite's band for a direct sum's model_ratio
+# (tests/test_perf_observatory.py:79).
+DIRECT_RATIO_BAND = (0.8, 3.0)
+# The card's fp32 peak (non-tensor FMA, TFLOP/s): a row's share of it.
+FP32_PEAK_TFLOPS = 67.0
+# The contracts of PERF_BASELINE.json that the port runs; the sixth, the
+# halo exchange, waits on the multi-GPU mesh (ROADMAP item 5).
+GATE_CONTRACTS = ("ledger_coverage", "nlist_vs_chunked_speedup",
+                  "nlist_scaling_subquadratic", "host_gap_pipelined",
+                  "serve_compile_once")
+
+
+def perf_row_summary(name: str, record: dict, direct: bool) -> dict:
+    """A path's perf-ledger rows (its run's ``stats["perf"]``): each row's
+    counted flops and bytes a step beside the path's ms a step, checked
+    finite, the peak from the allocator, a direct sum's model_ratio in the
+    JAX suite's band."""
+    rows = record.get("perf") or []
+    check(bool(rows), f"perf_ledger: {name} has no ledger row")
+    out = []
+    for row in rows:
+        for field in ("flops", "bytes_accessed", "peak_bytes",
+                      "model_ratio"):
+            check(row.get(field) is not None
+                  and math.isfinite(float(row[field])),
+                  f"perf_ledger: {name} row {field}={row.get(field)!r}")
+        check(row.get("flops_source") == "counted"
+              and row.get("peak_source") == "cuda_allocator",
+              f"perf_ledger: {name} sources {row.get('flops_source')}, "
+              f"{row.get('peak_source')}")
+        if direct:
+            lo, hi = DIRECT_RATIO_BAND
+            check(lo <= row["model_ratio"] <= hi,
+                  f"perf_ledger: {name} model_ratio {row['model_ratio']}")
+            check(row.get("kernel_launches_counted", 0) >= 1,
+                  f"perf_ledger: {name} counted no kernel launch")
+        ms = record["ms_per_step"]
+        out.append({
+            "key": row["key"], "n_steps": row.get("n_steps"),
+            "flops_per_step": row["flops"],
+            "bytes_per_step": row["bytes_accessed"],
+            "transcendentals_per_step": row.get("transcendentals"),
+            "peak_bytes": row["peak_bytes"],
+            "model_ratio": row["model_ratio"],
+            "kernel_launches_counted": row.get("kernel_launches_counted"),
+            "ms_per_step": ms,
+            "achieved_tflops": row["flops"] / (ms * 1e-3) / 1e12,
+            "share_of_fp32_peak":
+                row["flops"] / (ms * 1e-3) / (FP32_PEAK_TFLOPS * 1e12),
+            "bytes_per_s": row["bytes_accessed"] / (ms * 1e-3)})
+    return {"rows": out, "ms_per_step": record["ms_per_step"]}
+
+
+def reference_cuda_ms(counted: bool) -> float:
+    """ms a step of a fresh reference-cuda run, its blocks counted at their
+    first call as a run is (one ledger row a block signature), or all under
+    ``perf.uncounted()`` (no row)."""
+    import contextlib
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.simulation import Simulator
+    from gravity_tpu_torch.telemetry import perf
+
+    sim = Simulator(PRESETS["reference-cuda"])
+    before = len(perf.ledger().rows_list())
+    with contextlib.nullcontext() if counted else perf.uncounted():
+        stats = sim.run()
+    rows = perf.ledger().rows_list()[before:]
+    sigs = {(r["n_steps"], r["record_every"]) for r in rows}
+    check(len(rows) == len(sigs) and bool(rows) == counted,
+          f"perf_ledger: counted={counted} run's rows {rows}")
+    return 1e3 * stats["avg_step_s"]
+
+
+def phase_perf_ledger(device: dict, paths: dict) -> dict:
+    """The ledger rows of the paths already run (reference-cuda,
+    baseline-16k, the README cell list, the Gram form, the octree, the
+    sparse FMM): counted flops, bytes and peaks, each beside its path's
+    ms a step and its share of the card's fp32 peak; then the counted
+    pass's cost: reference-cuda three times counted and three times
+    uncounted, in turns (CU, UC, CU), the counted runs' mean within the
+    runs' spread of the uncounted mean, and one row a signature."""
+    from gravity_tpu_torch.telemetry import perf
+
+    direct = {"main_path", "baseline16k_path", "mxu_path"}
+    rows = {name: perf_row_summary(name, rec, name in direct)
+            for name, rec in paths.items()}
+    perf.ledger().reset()
+    ms = {"counted": [], "uncounted": []}
+    # In turns (counted first, then uncounted first, ...): a run's place in
+    # the sequence moves it by about as much as the effect looked for.
+    for i in range(3):
+        for counted in ((True, False) if i % 2 == 0 else (False, True)):
+            ms["counted" if counted else "uncounted"].append(
+                reference_cuda_ms(counted))
+    spread = max(max(v) - min(v) for v in ms.values())
+    moved = (statistics.mean(ms["counted"])
+             - statistics.mean(ms["uncounted"]))
+    record = {"phase": "perf_ledger", "paths": rows,
+              "reference_cuda_ms_per_step": ms, "counted_moved_ms": moved,
+              "run_to_run_spread_ms": spread,
+              "fp32_peak_tflops": FP32_PEAK_TFLOPS,
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    check(abs(moved) <= spread,
+          f"perf_ledger: the counted pass moved reference-cuda by "
+          f"{moved:.4f} ms a step, beyond the spread {spread:.4f}")
+    return record
+
+
+def run_gate_cli(contracts, out: str, env_extra=None) -> tuple:
+    """``bench --gate`` as a process on the committed baseline; (exit
+    code, its report or None, its stdout)."""
+    env = dict(os.environ, **(env_extra or {}))
+    proc = subprocess.run(
+        [sys.executable, "-m", "gravity_tpu_torch", "bench", "--gate",
+         "--gate-contracts", ",".join(contracts), "--gate-out", out],
+        cwd=REPO, capture_output=True, text=True, timeout=600, env=env)
+    report = json.load(open(out)) if os.path.exists(out) else None
+    return proc.returncode, report, proc.stdout + proc.stderr[-2000:]
+
+
+def phase_gate_path(device: dict) -> dict:
+    """``bench --gate`` on PERF_BASELINE.json as written: the five
+    contracts the port runs, each value, CI and verdict; every contract
+    named (the halo exchange reported violated, naming item 5); a planted
+    2x handicap on arm b of nlist_vs_chunked_speedup, which must turn
+    its verdict to violated. A timing contract the card violates is a
+    finding (reported), not a failure of the phase."""
+    from gravity_tpu_torch import perfgate
+
+    out_dir = os.path.join(REPO, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    five = os.path.join(out_dir, "perf_gate_torch.json")
+    everyone = os.path.join(out_dir, "perf_gate_torch_all.json")
+    for path in (five, everyone):
+        if os.path.exists(path):
+            os.remove(path)
+    rc, report, text = run_gate_cli(GATE_CONTRACTS, five)
+    check(report is not None, f"gate_path: no report (rc {rc}): {text}")
+    by_name = {r["name"]: r for r in report["results"]}
+    check(sorted(by_name) == sorted(GATE_CONTRACTS),
+          f"gate_path: contracts {sorted(by_name)}")
+    for r in report["results"]:
+        check("error" not in r["detail"],
+              f"gate_path: {r['name']} errored: {r['detail']}")
+        check(r["measured"] is not None
+              and math.isfinite(float(r["measured"])),
+              f"gate_path: {r['name']} measured {r['measured']}")
+    check(by_name["ledger_coverage"]["ok"]
+          and by_name["ledger_coverage"]["measured"] == 7.0,
+          f"gate_path: ledger_coverage {by_name['ledger_coverage']}")
+    check(by_name["serve_compile_once"]["ok"],
+          f"gate_path: serve_compile_once {by_name['serve_compile_once']}")
+    names = [c["name"] for c in
+             perfgate.load_baseline(os.path.join(
+                 REPO, perfgate.BASELINE_FILE))["contracts"]]
+    rc_all, report_all, text_all = run_gate_cli(names, everyone)
+    check(report_all is not None and rc_all == 1,
+          f"gate_path: every contract named: rc {rc_all}: {text_all}")
+    halo = {r["name"]: r for r in report_all["results"]}[
+        "halo_vs_allgather_speedup"]
+    check(not halo["ok"] and "item 5" in halo["detail"].get("error", ""),
+          f"gate_path: halo contract {halo}")
+    handicap = json.dumps({"contract": "nlist_vs_chunked_speedup",
+                           "arm": "b", "factor": 2.0})
+    planted_out = os.path.join(out_dir, "perf_gate_torch_planted.json")
+    rc_h, report_h, text_h = run_gate_cli(
+        ["nlist_vs_chunked_speedup"], planted_out,
+        {"GRAVITY_TPU_PERF_HANDICAP": handicap})
+    check(rc_h == 1 and report_h is None and "VIOLATED" in text_h,
+          f"gate_path: the planted handicap was not caught (rc {rc_h}): "
+          f"{text_h}")
+    import re
+
+    planted = re.search(r"ratio ([0-9.]+)", text_h)
+    record = {
+        "phase": "gate_path", "rc": rc, "ok": report["ok"],
+        "contracts": {r["name"]: {"ok": r["ok"], "measured": r["measured"],
+                                  "ci": r["ci"], "bound": r["bound"],
+                                  "kind": r["kind"]}
+                      for r in report["results"]},
+        "every_contract_rc": rc_all,
+        "every_contract": {r["name"]: {"ok": r["ok"],
+                                       "measured": r["measured"]}
+                           for r in report_all["results"]},
+        "halo_error": halo["detail"]["error"],
+        "planted_handicap": {
+            "rc": rc_h, "ratio": float(planted.group(1)) if planted else None,
+            "log_tail": text_h[-600:]},
+        "ledger_rows": by_name["ledger_coverage"]["detail"].get("rows"),
+        "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
+def trace_kernels(paths, name: str) -> list:
+    """The kernel events of Chrome traces whose name holds ``name``: a
+    list of (name, grid)."""
+    out = []
+    for path in paths:
+        doc = json.load(open(path))
+        for e in doc["traceEvents"] if isinstance(doc, dict) else doc:
+            if e.get("cat") == "kernel" and name in e.get("name", ""):
+                out.append((e["name"], (e.get("args") or {}).get("grid")))
+    return out
+
+
+def phase_profile_path(device: dict) -> dict:
+    """``run --preset baseline-16k --steps 20 --profile`` as a process: its
+    Chrome trace names the nbody_direct kernel once a launch the run
+    counted (its stats' ``kernel_launches``, the wrapper's count over the
+    run); then ``serve --slots 4 --slice-steps 20`` as a process, ``POST
+    /profile {"rounds": 1}`` and one submit at bucket 8,192: a trace of
+    that round, holding each of its batched launches (the same kernel
+    with the slots on grid.z) that the daemon's /metrics counted."""
+    import glob
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.serve import request, wait_for
+
+    env = dict(os.environ, PYTHONPATH=REPO)
+    with tempfile.TemporaryDirectory(dir=REPO) as tmp:
+        log_dir = os.path.join(tmp, "logs")
+        proc = subprocess.run(
+            [sys.executable, "-m", "gravity_tpu_torch", "run", "--preset",
+             "baseline-16k", "--steps", "20", "--profile", "--log-dir",
+             log_dir], cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=300)
+        check(proc.returncode == 0,
+              f"profile_path: run --profile exit {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        stats = last_json(proc.stdout)
+        launches = stats["kernel_launches"]
+        traces = glob.glob(os.path.join(log_dir, "profile_*",
+                                        "trace_*.json"))
+        check(len(traces) == 1, f"profile_path: traces {traces}")
+        solo = trace_kernels(traces, "nbody_direct_kernel")
+        names = {}
+        for name, _ in trace_kernels(traces, ""):
+            names[name[:60]] = names.get(name[:60], 0) + 1
+        check(launches == 21 and len(solo) == launches,
+              f"profile_path: {len(solo)} nbody_direct_kernel events in the "
+              f"trace, {launches} launches counted; kernels {names}")
+
+        spool = os.path.join(tmp, "spool")
+        prof_dir = os.path.join(tmp, "serve_profile")
+        daemon = subprocess.Popen(
+            serve_cli(spool, "serve", "--slots", "4", "--slice-steps", "20"),
+            cwd=REPO, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+        try:
+            banner = json.loads(daemon.stdout.readline())
+            check(bool(banner.get("serving")), f"daemon banner {banner}")
+            ans = request(spool, "POST", "/profile",
+                          {"rounds": 1, "dir": prof_dir})
+            check(ans == {"profiling_rounds": 1, "dir": prof_dir},
+                  f"profile_path: /profile answered {ans}")
+            cfg = SimulationConfig(model="plummer", n=8192, steps=20,
+                                   dt=3600.0, eps=1e9,
+                                   integrator="leapfrog",
+                                   force_backend="pallas")
+            job = request(spool, "POST", "/submit",
+                          {"config": json.loads(cfg.to_json())})["job"]
+            status = wait_for(spool, [job], timeout=300)[job]["status"]
+            metrics = request(spool, "GET", "/metrics")
+        finally:
+            try:
+                request(spool, "POST", "/shutdown")
+            except Exception:  # noqa: BLE001 — the wait below decides
+                pass
+            try:
+                daemon.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                daemon.kill()
+                daemon.wait()
+        check(status == "completed", f"profile_path: served job {status}")
+        batched = metrics["kernel_launches"]["nbody_direct/batched"]
+        round_traces = glob.glob(os.path.join(prof_dir, "trace_*.json"))
+        check(len(round_traces) == 1, f"profile_path: {round_traces}")
+        events = trace_kernels(round_traces, "nbody_direct_kernel")
+        # A batched launch: the same kernel, the slots on grid.z.
+        slotted = [e for e in events if e[1] and e[1][2] == 4]
+        check(batched == 20 and len(slotted) == batched,
+              f"profile_path: {len(slotted)} batched nbody_direct_kernel "
+              f"events in the round's trace, {batched} batched launches")
+    record = {"phase": "profile_path", "run_launches": launches,
+              "trace_files": [os.path.basename(t) for t in
+                              traces + round_traces],
+              "run_trace_kernel_events": len(solo),
+              "run_ms_per_step": 1e3 * stats["avg_step_s"],
+              "serve_batched_launches": batched,
+              "serve_trace_batched_events": len(slotted),
+              "serve_trace_kernel_events": len(events),
+              "kernel_names": sorted({n[:120] for n, _ in solo + events}),
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -6398,6 +6719,12 @@ def run_phases(torch) -> int:
     serve_kernels = timed(phase_serve_kernels, device)
     serve_path = timed(phase_serve_path, device)
     serve_parity = timed(phase_serve_parity, device)
+    perf_ledger = timed(phase_perf_ledger, device, {
+        "main_path": main_path, "baseline16k_path": base16k,
+        "nlist_main_path": nlist_path, "mxu_path": mxu_path,
+        "tree_path": tree_path, "fmm_path": fmm_path})
+    gate = timed(phase_gate_path, device)
+    timed(phase_profile_path, device)
     timed(phase_small_reference)
     timed(phase_other_entry_points)
     bench_path = timed(phase_bench_path, device)
@@ -6498,7 +6825,12 @@ def run_phases(torch) -> int:
               "host_syncs_per_round": {
                   b: v["host_syncs_per_round"]
                   for b, v in serve_parity["rounds"].items()}},
-          "host_syncs_per_step": syncs["syncs_per_step"]})
+          "host_syncs_per_step": syncs["syncs_per_step"],
+          "perf_ledger_share_of_fp32_peak": {
+              k: [r["share_of_fp32_peak"] for r in v["rows"]]
+              for k, v in perf_ledger["paths"].items()},
+          "gate": {k: [v["ok"], v["measured"]]
+                   for k, v in gate["contracts"].items()}})
     kernels = [
         ("nbody_direct", "gravity_tpu/ops/pallas_forces.py:45",
          main_path["launches"], max_abs_err, timing),

@@ -31,8 +31,10 @@ from the JAX package, which skips a candidate on any exception.
 
 The serve stack's admission routing (:func:`resolve_engine_backend`)
 times its candidates through the same probe and cache, keyed on the
-job's padded bucket. Left out: the telemetry hooks (ROADMAP.md Queue 1
-item 8).
+job's padded bucket. A probe's block rows in the perf ledger carry the
+site ``autotune_probe``; its timed steps are never counted; the probe's
+milliseconds go to the attached registry
+(``perf.ledger().observe_probe``).
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .telemetry import perf as _perf
 from .utils.platform import DeviceLike, resolve_device
 
 # Timed steps a candidate, after one untimed step that also loads its
@@ -343,15 +346,19 @@ def _time_backend(sim, probe_steps: int) -> tuple[float, dict]:
 
     config = sim.config
     st = sim.state
-    acc = sim.initial_carry(st)
-    st, acc = sim.run_block(st, acc, n_steps=1)
-    warm_sync(sim.device)
-    t0 = time.perf_counter()
-    for _ in range(probe_steps):
+    # The untimed step is the block's counted first call, labelled as a
+    # probe's (JAX autotune.py:448); the timed steps run uncounted.
+    with _perf.site("autotune_probe"):
+        acc = sim.initial_carry(st)
         st, acc = sim.run_block(st, acc, n_steps=1)
-        _counters["probe_steps"] += 1
-    sync(sim.device)
-    per_step = (time.perf_counter() - t0) / max(1, probe_steps)
+    warm_sync(sim.device)
+    with _perf.uncounted():
+        t0 = time.perf_counter()
+        for _ in range(probe_steps):
+            st, acc = sim.run_block(st, acc, n_steps=1)
+            _counters["probe_steps"] += 1
+        sync(sim.device)
+        per_step = (time.perf_counter() - t0) / max(1, probe_steps)
     probe_state = sim.state
     full = sim._self_accel(probe_state.positions, probe_state.masses)
     err = debug_check_forces(
@@ -437,6 +444,7 @@ def resolve_backend_measured(
         timings[backend], errors[backend] = _time_backend(sim, probe_steps)
         _counters["probes"] += 1
     probe_ms = (time.perf_counter() - t0) * 1e3
+    _perf.ledger().observe_probe(probe_ms)
     if not timings:
         return AutotuneDecision(_static(), "static", probe_ms, {}, skipped, h)
     winner = min(timings, key=timings.get)

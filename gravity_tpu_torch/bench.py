@@ -23,8 +23,8 @@ asks for the CPU, whose numbers are no device metric.
 
 :func:`run_cadence_benchmark` is ``bench --cadence``: a whole run with
 trajectories and checkpoints, the A/B of the host pipeline. Not ported:
-the TPU replay cache of the root ``bench.py``, the trend report (ROADMAP.md
-Queue 1 item 10) and the perf gate (item 8).
+the TPU replay cache of the root ``bench.py`` and the trend report
+(ROADMAP.md Queue 1 item 10). The perf gate is ``perfgate.py``.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ import time
 from .config import SimulationConfig
 from .ops.integrators import FORCE_EVALS_PER_STEP
 from .simulation import Simulator, make_initial_state
+from .telemetry import perf
 from .utils.platform import DeviceLike, device_name
 from .utils.timing import (
     DIRECT_SUM_BACKENDS,
@@ -77,19 +78,22 @@ def run_benchmark(config: SimulationConfig, *, warmup_steps: int = 3,
     if warmup_steps:
         state, acc = sim.run_block(state, acc, n_steps=warmup_steps)
     sync(sim.device)
-    start = time.perf_counter()
-    state, acc = sim.run_block(state, acc, n_steps=bench_steps)
-    sync(sim.device)
-    elapsed = time.perf_counter() - start
-    samples, clock_steps = [], 0
-    if sm_clock and sim.device.type == "cuda":
-        def load() -> int:
-            nonlocal state, acc
-            state, acc = sim.run_block(state, acc, n_steps=bench_steps)
-            sync(sim.device)
-            return bench_steps
+    # The warm-up block was the counted one (perf ledger); the timed steps
+    # and the clock's load never are.
+    with perf.uncounted():
+        start = time.perf_counter()
+        state, acc = sim.run_block(state, acc, n_steps=bench_steps)
+        sync(sim.device)
+        elapsed = time.perf_counter() - start
+        samples, clock_steps = [], 0
+        if sm_clock and sim.device.type == "cuda":
+            def load() -> int:
+                nonlocal state, acc
+                state, acc = sim.run_block(state, acc, n_steps=bench_steps)
+                sync(sim.device)
+                return bench_steps
 
-        samples, clock_steps = sm_clock_under_load(load)
+            samples, clock_steps = sm_clock_under_load(load)
 
     evals_per_step = FORCE_EVALS_PER_STEP[config.integrator]
     stats = throughput(sim.n_real, bench_steps, elapsed, num_devices=1,

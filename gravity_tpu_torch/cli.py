@@ -230,6 +230,10 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                    help="largest acceptable sentinel p90 relative force "
                         "error; a breach exits 2, or heals under "
                         "--auto-recover")
+    p.add_argument("--profile", action="store_true", default=None,
+                   help="capture a torch.profiler trace of the run (host "
+                        "ops and the card's kernels, a Chrome trace) into "
+                        "<log-dir>/profile_<timestamp>/")
     p.add_argument("--debug-check", dest="debug_check", action="store_true",
                    default=None,
                    help="the backend against the plain direct sum on the "
@@ -408,18 +412,26 @@ def cmd_run(args: argparse.Namespace) -> int:
                             trajectory_writer=writer,
                             metrics_logger=metrics_logger, state=state0,
                             device=args.device)
-    try:
+    def _go():
         if sup is not None:
-            stats = sup.run()
-            sim = sup.last_sim
-        elif config.adaptive:
-            stats = sim.run_adaptive(logger, trajectory_writer=writer,
-                                     checkpoint_manager=ckpt_mgr,
-                                     metrics_logger=metrics_logger)
+            return sup.run(), sup.last_sim
+        if config.adaptive:
+            return sim.run_adaptive(logger, trajectory_writer=writer,
+                                    checkpoint_manager=ckpt_mgr,
+                                    metrics_logger=metrics_logger), sim
+        return sim.run(logger, trajectory_writer=writer,
+                       checkpoint_manager=ckpt_mgr,
+                       metrics_logger=metrics_logger), sim
+
+    try:
+        if config.profile:
+            from .utils.profiling import trace
+
+            with trace(os.path.join(config.log_dir,
+                                    f"profile_{logger.timestamp}")):
+                stats, sim = _go()
         else:
-            stats = sim.run(logger, trajectory_writer=writer,
-                            checkpoint_manager=ckpt_mgr,
-                            metrics_logger=metrics_logger)
+            stats, sim = _go()
     except SimulationPreempted:
         # The run loop saved its last consumed block; the resumable exit
         # code lets a scheduler requeue the run.
@@ -579,9 +591,17 @@ def cmd_bench(args: argparse.Namespace) -> int:
     from .config import NotPortedError
 
     if args.gate:
-        raise NotPortedError(
-            "bench --gate (the perf regression gate, perfgate.py) is not "
-            "ported to gravity_tpu_torch yet (ROADMAP.md Queue 1 item 8)")
+        # The noise-robust perf regression gate on the committed
+        # PERF_BASELINE.json: exit 1 names the file and every violated
+        # contract.
+        from .perfgate import run_gate
+
+        code, _ = run_gate(
+            args.gate_baseline,
+            contracts=([c for c in args.gate_contracts.split(",") if c]
+                       if args.gate_contracts else None),
+            report_path=args.gate_out or None, device=args.device)
+        return code
     if args.report:
         raise NotPortedError(
             "bench --report (the trend table over round artifacts) is not "
@@ -904,8 +924,19 @@ def main(argv=None) -> int:
                          help="the perf trend table (not ported: ROADMAP.md "
                               "Queue 1 item 10)")
     p_bench.add_argument("--gate", action="store_true",
-                         help="the perf regression gate (not ported: "
-                              "ROADMAP.md Queue 1 item 8)")
+                         help="run the noise-robust perf regression gate "
+                              "against the committed PERF_BASELINE.json "
+                              "(exit 1 on any violated contract)")
+    p_bench.add_argument("--gate-baseline", dest="gate_baseline",
+                         default="PERF_BASELINE.json",
+                         help="baseline contract file for --gate")
+    p_bench.add_argument("--gate-contracts", dest="gate_contracts",
+                         default=None,
+                         help="comma-separated contract names for --gate "
+                              "(default: all)")
+    p_bench.add_argument("--gate-out", dest="gate_out",
+                         default="PERF_GATE_LAST_TORCH.json",
+                         help="the gate's report ('' writes none)")
     p_bench.set_defaults(func=cmd_bench)
     _add_serving_parsers(sub)
     args = parser.parse_args(argv)

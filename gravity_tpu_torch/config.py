@@ -72,9 +72,7 @@ _NOT_PORTED = {
     "sharding": ("none", f"{_QUEUE} 5 (multi-GPU, with the sharded "
                          "multirate forms)"),
     "mesh_shape": (None, f"{_QUEUE} 5"),
-    # The jax.profiler trace and its cost/memory ledger (telemetry/perf.py)
-    # and the span tracer of the serving stack's telemetry.
-    "profile": (False, f"{_QUEUE} 8"),
+    # The span tracer of the serving stack's telemetry.
     "trace": (False, f"{_QUEUE} 9"),
 }
 IO_PIPELINE_MODES = ("auto", "on", "off")
@@ -219,6 +217,9 @@ class SimulationConfig:
     # auto_recover (a leaf-cap re-size, then an exact direct sum).
     error_budget: float = 0.0
     debug_check: bool = False  # kernel vs plain direct sum on the final state
+    # Capture a torch.profiler trace of the run (utils/profiling.trace)
+    # into <log_dir>/profile_<timestamp>/.
+    profile: bool = False
 
     # Self-healing supervision (supervisor.py): divergence rolls back to
     # the last verified checkpoint and retries the bad interval at halved

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..telemetry.perf import count_launch
 from . import cuda_build
 from .pm import bounding_cube
 
@@ -42,6 +43,7 @@ __all__ = [
     "segment_sum_bf16_plain",
     "segment_sum_rows",
     "slot_cell_ids",
+    "sorted_segment_sum",
 ]
 
 
@@ -74,16 +76,102 @@ def cell_ids(coords: torch.Tensor, side: int) -> torch.Tensor:
 
 def segment_sum(values: torch.Tensor, ids: torch.Tensor,
                 n: int) -> torch.Tensor:
-    """``jax.ops.segment_sum``: rows of ``values`` summed by ``ids``. The
-    fp32 and fp64 sums (and integer counts) are ``index_add_``, on CUDA
-    with atomics, so their last bits vary from run to run; a bf16 sum goes
-    through :func:`segment_sum_bf16`, which uses none and gives the same
-    bits on every run."""
+    """``jax.ops.segment_sum``: rows of ``values`` summed by ``ids`` (each
+    in [0, n)). Float sums take no atomics, so they give the same bits on
+    every run: fp32 and fp64 go through ``Segments.sum`` (a stable sort,
+    then :func:`_sum_sorted`), a bf16 sum through
+    :func:`segment_sum_bf16`. Integer counts stay ``index_add_``, whose
+    sums are exact in any order."""
     if values.dtype == torch.bfloat16:
         return segment_sum_bf16(values, ids, n)
+    if values.is_floating_point():
+        return Segments(ids, n).sum(values)[0]
     out = torch.zeros((n, *values.shape[1:]), dtype=values.dtype,
                       device=values.device)
     return out.index_add_(0, ids, values)
+
+
+def sorted_segment_sum(values: torch.Tensor, sorted_ids: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """:func:`segment_sum` of fp32 or fp64 ``values`` whose ``sorted_ids``
+    are already in ascending order (a caller that holds a sort), with no
+    second sort."""
+    return _sum_sorted(values, sorted_ids, n)
+
+
+def _segment_starts(sorted_ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n + 1,): segment k's first row in ``sorted_ids`` (ascending ids in
+    [0, n)) is ``starts[k]``, ``starts[n]`` the number of rows: a binary
+    search of the ids, no atomics."""
+    return torch.searchsorted(
+        sorted_ids, torch.arange(n + 1, dtype=sorted_ids.dtype,
+                                 device=sorted_ids.device))
+
+
+# Rows a piece of a segment holds in the card's two-pass segment sums.
+PIECE_ROWS = 1024
+
+
+def _sum_sorted(values: torch.Tensor, sorted_ids: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """Rows of ``values`` whose ids ``sorted_ids`` ascend in [0, n) summed
+    into (n, ...). No atomics, so every run gives the same bits. On the
+    CPU each segment is one chain of adds from zero in element order (the
+    JAX package's bits); on the card :func:`piecewise_sum`, since
+    PyTorch's kernel gives a (segment, column) one thread, and a segment
+    of 1M rows (an octree's level 0) would be 1M dependent adds and
+    loads."""
+    if values.shape[0] == 0:
+        return values.new_zeros((n, *values.shape[1:]))
+    if values.device.type != "cpu":
+        return piecewise_sum(values, sorted_ids, n)
+    return torch.segment_reduce(
+        values, "sum", lengths=_segment_starts(sorted_ids, n).diff(),
+        unsafe=True)
+
+
+def _run_lengths(starts_run: torch.Tensor, run: torch.Tensor,
+                 at: torch.Tensor) -> torch.Tensor:
+    """(rows,) lengths of runs numbered ``run`` (0, 1, ... in row order;
+    ``starts_run`` marks each run's first row) measured in ``at`` (a
+    nondecreasing position of each row), zero past the last run: the
+    difference of consecutive runs' first positions, written with no
+    atomics (the rows that start no run write to a spare slot)."""
+    rows = run.shape[0]
+    end = (at[-1:] + 1).expand(rows + 2).clone()
+    first = end.scatter_(0, torch.where(starts_run, run, rows + 1), at)
+    return first[1:rows + 1] - first[:rows]
+
+
+def piecewise_sum(values: torch.Tensor, sorted_ids: torch.Tensor, n: int,
+                  piece: int = PIECE_ROWS) -> torch.Tensor:
+    """:func:`_sum_sorted` in two passes, every array sized by the rows,
+    not by n, and no host read: each segment's rows cut into pieces at its
+    start and at every multiple of ``piece`` in row order, the pieces
+    summed one chain each, then each segment's pieces one chain in order;
+    the segments' totals, by rank, land at their ids."""
+    rows = values.shape[0]
+    dev = values.device
+    ids = sorted_ids.to(torch.int64)
+    idx = torch.arange(rows, device=dev)
+    new_seg = torch.ones(rows, dtype=torch.bool, device=dev)
+    new_seg[1:] = ids[1:] != ids[:-1]
+    new_piece = new_seg | (idx % piece == 0)
+    piece_of = torch.cumsum(new_piece, 0) - 1
+    rank = torch.cumsum(new_seg, 0) - 1
+    partial = torch.segment_reduce(
+        values, "sum", lengths=_run_lengths(new_piece, piece_of, idx),
+        unsafe=True)
+    # A segment's pieces: the difference of its and the next segment's
+    # first pieces.
+    totals = torch.segment_reduce(
+        partial, "sum", lengths=_run_lengths(new_seg, rank, piece_of),
+        unsafe=True)
+    # Every row of a segment writes its id at its rank; the unused ranks
+    # (past the last segment, zero totals) go to a spare row n.
+    at = torch.full_like(idx, n).scatter_(0, rank, ids)
+    out = values.new_zeros((n + 1, *values.shape[1:]))
+    return out.index_copy_(0, at, totals)[:n]
 
 
 # A bf16 row is tiny when it is nonzero and its biased exponent is below
@@ -187,8 +275,11 @@ class Segments:
     """Sums over one id vector: ``jax.ops.segment_sum(v, ids, n)`` of each
     of several values, which may share one plan and one launch.
 
-    ``sum(*values)`` returns one total a value. fp32 and fp64 values take
-    :func:`segment_sum` (``index_add_``) one by one. bf16 values on the CPU
+    ``sum(*values)`` returns one total a value. fp32 and fp64 values are
+    gathered in the stable sort's order, their columns side by side, and
+    summed in one call of :func:`_sum_sorted` (no atomics: the same bits
+    every run); integer values take ``index_add_`` (exact). bf16 values
+    on the CPU
     take :func:`segment_sum_bf16_plain`; on CUDA their columns (at most 8
     in all) are summed by one launch of ``csrc/segment_sum.cu``
     (:func:`segment_sum_rows`) over the plan of these ids (:meth:`plan`),
@@ -200,27 +291,39 @@ class Segments:
     def __init__(self, ids: torch.Tensor, n: int):
         self.ids = ids
         self.n = n
+        self._sorted = None
         self._plan = None
 
-    def plan(self):
-        """(order, starts): a stable sort of the ids (element order inside
-        a segment), padded with row 0 to a multiple of 8 rows, and each
-        segment's first row in that order, ``starts[n]`` the number of
-        rows with an id below n. No atomics: the starts are a binary
-        search of the sorted ids."""
-        if self._plan is None:
+    def _sort(self):
+        """(sorted ids, order): a stable sort of the ids (element order
+        inside a segment), made once."""
+        if self._sorted is None:
             with record_function("segment_sum.plan"):
-                ids, n = self.ids, self.n
-                key = ids.to(torch.int32) if n < 2**31 else ids
-                sorted_ids, order = torch.sort(key, stable=True)
-                starts = torch.searchsorted(
-                    sorted_ids, torch.arange(n + 1, dtype=key.dtype,
-                                             device=ids.device))
-                pad = -ids.shape[0] % _CHUNK_ROWS
+                ids = self.ids
+                key = ids.to(torch.int32) if self.n < 2**31 else ids
+                self._sorted = torch.sort(key, stable=True)
+        return self._sorted
+
+    def plan(self):
+        """(order, starts): the stable sort's order, padded with row 0 to
+        a multiple of 8 rows, and each segment's first row in that order,
+        ``starts[n]`` the number of rows with an id below n
+        (:func:`_segment_starts`)."""
+        if self._plan is None:
+            sorted_ids, order = self._sort()
+            with record_function("segment_sum.plan"):
+                starts = _segment_starts(sorted_ids, self.n)
+                pad = -self.ids.shape[0] % _CHUNK_ROWS
                 if pad:
                     order = torch.cat([order, order.new_zeros(pad)])
                 self._plan = (order, starts)
         return self._plan
+
+    def _chain(self, values: torch.Tensor) -> torch.Tensor:
+        """fp32/fp64 ``values`` summed by the ids over the stable sort
+        (:func:`_sum_sorted`)."""
+        sorted_ids, order = self._sort()
+        return _sum_sorted(values[order], sorted_ids, self.n)
 
     def gather(self, *values) -> torch.Tensor:
         """The values' columns in the plan's order, column-major: (cols,
@@ -238,8 +341,18 @@ class Segments:
     def sum(self, *values) -> list:
         if not values:
             return []
+        if all(v.is_floating_point() and v.dtype != torch.bfloat16
+               for v in values):
+            # One call for all the columns (each column its own chains).
+            flat = [v.reshape(v.shape[0], math.prod(v.shape[1:]))
+                    for v in values]
+            out = self._chain(torch.cat(flat, dim=1) if len(flat) > 1
+                              else flat[0])
+            return [o.reshape(self.n, *v.shape[1:]) for o, v in zip(
+                out.split([f.shape[1] for f in flat], dim=1), values)]
         if any(v.dtype != torch.bfloat16 for v in values):
-            return [segment_sum(v, self.ids, self.n) for v in values]
+            return [self._chain(v) if v.is_floating_point()
+                    else segment_sum(v, self.ids, self.n) for v in values]
         n_rows = self.ids.shape[0]
         widths = [math.prod(v.shape[1:]) for v in values]
         if any(v.dim() < 1 or v.shape[0] != n_rows for v in values) \
@@ -315,6 +428,10 @@ def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
             torch.cuda.current_stream(rows.device).cuda_stream)
     LIBRARY.check(status)
     LAUNCHES += 1
+    # A scatter-add's cost: one flop a summed element, the rows and the
+    # starts read once, the totals written once.
+    count_launch(cols * n_rows, (cols * n_rows + n * cols) * 2
+                 + starts.numel() * 8, 0)
     return out
 
 

@@ -21,6 +21,7 @@ import functools
 import torch
 
 from ..constants import CUTOFF_RADIUS, G
+from ..telemetry.perf import count_launch
 from . import cuda_build
 from .cuda_build import BUILD_DIR, NVCC_FLAGS  # noqa: F401  (public names)
 from .forces import accelerations_vs, rounded
@@ -103,6 +104,19 @@ def source_chunks(m: int, k: int, *, block_m: int, tile: int,
         if best_cost is None or cost < best_cost:
             best, best_cost = s, cost
     return best
+
+
+def cost_estimate(m: int, k: int, *, block_m: int, tile: int,
+                  batch: int = 1) -> tuple:
+    """(flops, bytes_accessed, transcendentals) of one launch: the TPU
+    kernel's ``pl.CostEstimate`` (``gravity_tpu/ops/pallas_forces.py:
+    158-162``: 20 flops and one rsqrt a pair, ``(mp 3 + 2 kp 4) 4`` bytes)
+    at this launch's own padding, M to whole blocks of ``block_m`` and K
+    to whole tiles, times the ``batch`` slots."""
+    mp = -(-m // block_m) * block_m
+    kp = -(-k // tile) * tile
+    return (batch * 20 * mp * kp, batch * (mp * 3 + 2 * kp * 4) * 4,
+            batch * mp * kp)
 
 
 @functools.lru_cache(maxsize=64)
@@ -215,6 +229,8 @@ def accelerations_vs_kernel(
         )
     LIBRARY.check(status)
     LAUNCHES += 1
+    count_launch(*cost_estimate(m, k, block_m=lib.nbody_direct_shape(0),
+                                tile=tile))
     return acc
 
 
@@ -285,6 +301,8 @@ def accelerations_vs_batched_kernel(
         )
     LIBRARY.check(status)
     BATCHED_LAUNCHES += 1
+    count_launch(*cost_estimate(m, k, block_m=lib.nbody_direct_shape(0),
+                                tile=tile, batch=batch))
     return acc
 
 

@@ -33,6 +33,7 @@ import functools
 import torch
 
 from ..constants import CUTOFF_RADIUS, G
+from ..telemetry.perf import count_launch
 from . import cuda_build
 from .direct_kernel import source_chunks
 from .forces import rounded
@@ -190,6 +191,19 @@ def _check(xi, xj, gmj, batch: tuple = ()) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def cost_estimate(m: int, k: int, *, block_m: int, tile: int,
+                  batch: int = 1) -> tuple:
+    """(flops, bytes_accessed, transcendentals) of one launch: the TPU
+    kernel's ``pl.CostEstimate`` (``gravity_tpu/ops/pallas_forces_mxu.py:
+    255-259``: 22 flops and one rsqrt a pair, ``(mp 3 + kp 8) 4 + mp 16``
+    bytes) at this launch's own padding, M to whole blocks of ``block_m``
+    and K to whole tiles, times the ``batch`` slots."""
+    mp = -(-m // block_m) * block_m
+    kp = -(-k // tile) * tile
+    return (batch * 22 * mp * kp, batch * ((mp * 3 + kp * 8) * 4 + mp * 16),
+            batch * mp * kp)
+
+
 def gram_acc4(xi: torch.Tensor, xj: torch.Tensor, gmj: torch.Tensor, *,
               cutoff: float, eps: float) -> torch.Tensor:
     """:func:`gram_acc4_plain`'s contract, bf16 when the operands are.
@@ -224,6 +238,8 @@ def gram_acc4(xi: torch.Tensor, xj: torch.Tensor, gmj: torch.Tensor, *,
         )
     LIBRARY.check(status)
     LAUNCHES += 1
+    count_launch(*cost_estimate(m, k, block_m=lib.nbody_mxu_shape(0),
+                                tile=tile))
     return out
 
 
@@ -271,6 +287,8 @@ def gram_acc4_batched(xi: torch.Tensor, xj: torch.Tensor, gmj: torch.Tensor,
         )
     LIBRARY.check(status)
     BATCHED_LAUNCHES += 1
+    count_launch(*cost_estimate(m, k, block_m=lib.nbody_mxu_shape(0),
+                                tile=tile, batch=batch))
     return out
 
 

@@ -56,6 +56,7 @@ from torch.profiler import record_function
 from ..config import NotPortedError
 from ..constants import CUTOFF_RADIUS, G
 from ..interop import to_numpy
+from ..telemetry.perf import count_launch
 from . import cuda_build
 from .cells import (
     Segments,
@@ -606,6 +607,19 @@ def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params,
             "the positions' dtype on their device")
 
 
+def pair_cost_estimate(n_cells: int, t_cap: int, cap: int,
+                       batch: int = 1) -> tuple:
+    """(flops, bytes_accessed, transcendentals) of one pair-tile launch:
+    the TPU kernel's ``pl.CostEstimate`` (``gravity_tpu/ops/
+    pallas_nlist.py:400-405``: 21 flops and one rsqrt a slot pair of the
+    (n_cells, 27) grid of (t_cap, cap) tiles, padding included) times the
+    ``batch`` slots."""
+    pairs = n_cells * 27 * t_cap * cap
+    return (batch * 21 * pairs,
+            batch * (n_cells * t_cap * 3 * 2 + n_cells * 27 * cap * 4) * 4,
+            batch * pairs)
+
+
 def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
                       side: int, params, *, cutoff: float, eps: float,
                       use_rcut: bool = True, kind: str = "newton"):
@@ -644,6 +658,7 @@ def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
         )
     LIBRARY.check(status)
     LAUNCHES[launch_key(kind, use_rcut, dtype)] += 1
+    count_launch(*pair_cost_estimate(side**3, t_cap, cap))
     return out
 
 
@@ -689,6 +704,7 @@ def pair_cells_kernel_batched(tcells_pos, t_count, cells_pos, cells_gm,
         )
     LIBRARY.check(status)
     LAUNCHES[launch_key("newton", True, dtype) + "/batched"] += 1
+    count_launch(*pair_cost_estimate(side**3, t_cap, cap, batch))
     return out
 
 

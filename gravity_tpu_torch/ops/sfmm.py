@@ -45,7 +45,12 @@ from torch.profiler import record_function
 
 from ..constants import CUTOFF_RADIUS, G
 from ..interop import to_numpy
-from .cells import _scatter_cells, grid_coords, segment_sum
+from .cells import (
+    _scatter_cells,
+    grid_coords,
+    segment_sum,
+    sorted_segment_sum,
+)
 from .fmm import (
     _CoarseGrids,
     _eval_far,
@@ -129,10 +134,13 @@ def _build_sparse(positions, masses, depth: int, k_cells: int,
     # in normalised mass (m x overflows fp32 at astronomical scales).
     m_scale = _mass_scale(masses)
     m_hat = sorted_mass / m_scale
+    # The bodies are in leaf order, so each sum is one chain a rank over
+    # the sort above (the same bits on every run, as jax.ops.segment_sum's
+    # element order on the CPU).
     seg = torch.where(occ_rank < k_cells, occ_rank, k_cells)
-    occ_mhat = segment_sum(m_hat, seg, k_cells + 1)[:k_cells]
-    occ_mw = segment_sum(m_hat[:, None] * sorted_pos, seg,
-                         k_cells + 1)[:k_cells]
+    m_mw = torch.cat([m_hat[:, None], m_hat[:, None] * sorted_pos], dim=1)
+    occ_sums = sorted_segment_sum(m_mw, seg, k_cells + 1)[:k_cells]
+    occ_mhat, occ_mw = occ_sums[:, 0], occ_sums[:, 1:]
     occ_com = occ_mw / torch.clamp_min(occ_mhat, 1e-37)[:, None]
     occ_qhat = None
     if quad:
@@ -147,12 +155,12 @@ def _build_sparse(positions, masses, depth: int, k_cells: int,
             m_hat * (3.0 * dz * dz - d2), m_hat * 3.0 * dx * dy,
             m_hat * 3.0 * dx * dz, m_hat * 3.0 * dy * dz,
         ], dim=1)
-        occ_qhat = segment_sum(q6, seg, k_cells + 1)[:k_cells]
+        occ_qhat = sorted_segment_sum(q6, seg, k_cells + 1)[:k_cells]
     # Per-RANK monopoles of every occupied leaf (n-sized: ranks past
     # k_cells are the rank-overflow leaves' source data).
-    all_mhat = segment_sum(m_hat, occ_rank, n)
-    all_com = segment_sum(m_hat[:, None] * sorted_pos, occ_rank, n) \
-        / torch.clamp_min(all_mhat, 1e-37)[:, None]
+    all_sums = sorted_segment_sum(m_mw, occ_rank, n)
+    all_mhat = all_sums[:, 0]
+    all_com = all_sums[:, 1:] / torch.clamp_min(all_mhat, 1e-37)[:, None]
     count = segment_sum(torch.ones_like(seg), seg, k_cells + 1)[:k_cells]
     over, rem_mhat, rem_com = overflow_remainder(
         cells_pos, cells_mass, count, occ_mhat, occ_mw, m_scale, leaf_cap)

@@ -69,6 +69,7 @@ from ..ops import direct_kernel, mxu_kernel, nlist
 from ..ops.forces import accelerations_vs
 from ..ops.integrators import make_step_fn
 from ..state import ParticleState
+from ..telemetry import perf as _perf
 from ..utils.platform import DeviceLike, resolve_device
 
 # Force backends of the batched round, by the JAX package's names.
@@ -311,6 +312,8 @@ class EnsembleEngine:
         self._round_fns: dict[BatchKey, object] = {}
         self._probe_fns: dict[tuple, object] = {}
         self.compile_counts: dict[BatchKey, int] = {}
+        # Keys whose first round has its perf-ledger row.
+        self._ledgered: set = set()
         # Seconds each key's build took; the batched force evaluations of
         # the rounds by backend (each one launch of a kernel's batched
         # entry for pallas/pallas-mxu); host reads by site (the finite
@@ -418,7 +421,7 @@ class EnsembleEngine:
             return kernel(p, p, mass)
 
         def round_fn(pos, vel, mass, acc, slot_args, all_take, *,
-                     n_steps):
+                     n_steps, probe=None):
             # slot_args (B, 3) float64 on the device: each slot's dt,
             # budget and real particle count, shipped in one copy.
             # all_take (host): the steps in which every slot takes, which
@@ -433,7 +436,14 @@ class EnsembleEngine:
             st = ParticleState(pos, vel, mass)
             a = acc
             for i in range(n_steps):
-                new_st, new_a = step(st, a)
+                if i == n_steps - 1 and probe is not None:
+                    # A key's first round counts one step, its last (the
+                    # counter's host cost behind the queued steps); the
+                    # peak's window opened with the round.
+                    with probe:
+                        new_st, new_a = step(st, a)
+                else:
+                    new_st, new_a = step(st, a)
                 if all_take[i]:
                     st, a = new_st, new_a
                     continue
@@ -649,6 +659,28 @@ class EnsembleEngine:
 
     # --- the hot path ---
 
+    def _record_first_round(self, key: BatchKey, probe, seconds: float
+                            ) -> None:
+        """A key's perf-ledger row after its first round (site
+        ``serve_round``): the build and first round's seconds, the counted
+        flops, bytes and transcendentals of the round's last step over
+        the whole batch, the cost model's flops of one step of every slot,
+        and the round's peak device bytes above what was allocated before
+        it plus the batch's own tensors, which admission then reads for
+        the key's later jobs (``perf.required_bytes_for_key``)."""
+        peak, source = probe.peak()
+        flops = _perf.analytic_flops(key.backend, key.bucket_n)
+        _perf.ledger().record_compile(
+            site="serve_round", key=_perf.engine_key_str(key),
+            compile_s=seconds, backend=key.backend, n=key.bucket_n,
+            analytic=(flops or 0.0) * key.slots or None,
+            cost=probe.counter.cost(), peak_bytes=peak, peak_source=source,
+            storm_count=self.compile_counts.get(key, 1),
+            estimated_bytes=_perf.estimate_peak_bytes(key),
+            job_type=key.job_type, slots=key.slots, bucket=key.bucket_n,
+            kernel_launches_counted=probe.counter.launches,
+        )
+
     def run_slice(self, batch: EnsembleBatch,
                   slice_steps: int) -> tuple[EnsembleBatch, SliceResult]:
         """Advance every occupied slot by up to ``slice_steps`` steps.
@@ -657,7 +689,19 @@ class EnsembleEngine:
         went non-finite comes back rolled back to its round-start state,
         flagged in ``SliceResult.finite``. One host read: the flags."""
         self._check_thread()
-        fn = self.round_fn(batch.key)
+        key = batch.key
+        first = (key not in self._ledgered and _perf.counting_allowed()
+                 and not _perf.counting())
+        t0 = time.perf_counter()
+        fn = self.round_fn(key)
+        probe = None
+        if first:
+            self._ledgered.add(key)
+            probe = _perf.FirstCall(self.device, sum(
+                t.numel() * t.element_size() for t in (
+                    batch.positions, batch.velocities, batch.masses,
+                    batch.acc)))
+            probe.start_peak()  # the whole round's peak, for admission
         budgets = budget_i32(batch.remaining)
         slot_args = np.stack([batch.dt.astype(np.float64),
                               budgets.astype(np.float64),
@@ -672,10 +716,12 @@ class EnsembleEngine:
             args = args.pin_memory().to(self.device, non_blocking=True)
         pos, vel, acc, finite = fn(
             batch.positions, batch.velocities, batch.masses, batch.acc,
-            args, all_take, n_steps=slice_steps,
+            args, all_take, n_steps=slice_steps, probe=probe,
         )
         finite_host = finite.cpu().numpy()
         self.host_reads["finite"] += 1
+        if probe is not None:
+            self._record_first_round(key, probe, time.perf_counter() - t0)
         advanced, remaining, finite_np = account_slice(
             batch.remaining, batch.n_real, slice_steps, finite_host)
         new_batch = dataclasses.replace(

@@ -622,6 +622,7 @@ class EnsembleScheduler:
             out_dir=spool.root if spool is not None else None,
             registry=self.telemetry.registry,
             recorder=self.telemetry.recorder,
+            event_hook=self._event,
             owner=self,
         )
         # SLO burn flags (--slo-p99-ms / --slo-occupancy): breaches are
@@ -662,8 +663,6 @@ class EnsembleScheduler:
             threshold=breaker_threshold, cooldown_s=breaker_cooldown_s,
             on_card=self.engine.device.type == "cuda",
         )
-        # Keys whose perf-ledger row (first round) is recorded.
-        self._perf_recorded: set = set()
         # Fleet mode: lease ownership whenever jobs are durable.
         self.leases: Optional[LeaseManager] = None
         if spool is not None:
@@ -2024,7 +2023,6 @@ class EnsembleScheduler:
 
         cls = get_class(key.job_type)
         compiles_before = self.engine.compile_counts.get(key, 0)
-        perf_probe = self._perf_begin(key, batch)
         t0_wall = time.time()
         t0 = time.perf_counter()
         try:
@@ -2128,7 +2126,6 @@ class EnsembleScheduler:
             raise
         self._batches[key] = batch
         self.rounds_run += 1
-        self._perf_end(key, batch, perf_probe, time.perf_counter() - t0)
         compiled = (
             self.engine.compile_counts.get(key, 0) > compiles_before
         )
@@ -2322,45 +2319,6 @@ class EnsembleScheduler:
         self._check_slo(metrics)
         self._publish_metrics(min_interval_s=1.0)
         return metrics
-
-    def _perf_begin(self, key: BatchKey, batch) -> Optional[tuple]:
-        """Before a key's FIRST round: (device, bytes allocated, the
-        batch's own bytes), with the card's peak counter reset; None for
-        every later round."""
-        if key in self._perf_recorded:
-            return None
-        dev = self.engine.device
-        own = sum(t.numel() * t.element_size() for t in (
-            batch.positions, batch.velocities, batch.masses, batch.acc))
-        if dev.type != "cuda":
-            return (dev, 0, own)
-        torch.cuda.reset_peak_memory_stats(dev)
-        return (dev, torch.cuda.memory_allocated(dev), own)
-
-    def _perf_end(self, key: BatchKey, batch, probe, seconds: float
-                  ) -> None:
-        """After a key's first round: its perf-ledger row (the build and
-        first round's seconds, the round's peak device bytes above what
-        was allocated before it plus the batch's own tensors, and the
-        cost model's flops of one step of the whole batch). The measured
-        peak feeds admission for the key's later jobs."""
-        if probe is None:
-            return
-        self._perf_recorded.add(key)
-        from ..telemetry import perf as _perf
-
-        dev, before, own = probe
-        peak = None
-        if dev.type == "cuda":
-            peak = torch.cuda.max_memory_allocated(dev) - before + own
-        flops = _perf.analytic_flops(key.backend, key.bucket_n)
-        _perf.ledger().record_compile(
-            site="serve_round", key=_perf.engine_key_str(key),
-            compile_s=seconds, backend=key.backend, n=key.bucket_n,
-            analytic=(flops or 0.0) * key.slots or None, peak_bytes=peak,
-            estimated_bytes=_perf.estimate_peak_bytes(key),
-            job_type=key.job_type, slots=key.slots, bucket=key.bucket_n,
-        )
 
     def _check_slo(self, round_metrics: dict) -> None:
         """Edge-triggered SLO burn: emit one ``slo_breach`` event per

@@ -7,8 +7,10 @@ thread that launches holds the daemon's round lock (:class:`RoundLock`,
 the engine's guard): the worker thread's rounds and the handler threads'
 admission probes (``/submit`` may probe the autotuner on a cache miss)
 are serialised under it, on the daemon's device; the engine raises on a
-launch from a thread that does not hold it. ``/profile`` answers 501:
-the profiler is ROADMAP.md Queue 1 item 8.
+launch from a thread that does not hold it. ``POST /profile {"rounds":
+N, "dir": D}`` captures the worker's next N rounds that have work, each
+under a ``torch.profiler`` trace (``utils/profiling.trace``) into D
+(default ``<spool>/profile``); nothing is paid while the budget is 0.
 
 ``gravity_tpu_torch serve`` hosts an :class:`EnsembleScheduler` behind a
 localhost HTTP/JSON API (stdlib ``http.server`` — no new dependency);
@@ -218,6 +220,10 @@ class GravityDaemon:
         # The JAX package's drain flag (its pod router's rotation, ROADMAP
         # item 9): advertised, always False here.
         self.draining = False
+        # The profiler capture budget of POST /profile: rounds left to
+        # trace, and where; zero cost while 0.
+        self._profile_rounds = 0
+        self._profile_dir = os.path.join(spool_dir, "profile")
 
     # --- lifecycle ---
 
@@ -367,6 +373,17 @@ class GravityDaemon:
                     self.scheduler.housekeeping()
                     if not self.scheduler.has_work():
                         worked = False
+                    elif self._profile_rounds > 0:
+                        # POST /profile: exactly the asked rounds under
+                        # a trace; the capture ends with its round, also
+                        # when the round raises.
+                        from ..utils.profiling import trace
+
+                        self._profile_rounds -= 1
+                        with trace(self._profile_dir):
+                            worked = (
+                                self.scheduler.run_round() is not None
+                            )
                     else:
                         worked = (
                             self.scheduler.run_round() is not None
@@ -753,12 +770,20 @@ class GravityDaemon:
                 ok = self.scheduler.cancel(str(body.get("job")))
             return (200 if ok else 409), {"cancelled": ok}
         if path == "/profile":
-            return 501, {
-                "error": "the /profile endpoint (the profiler capture of "
-                         "serving rounds) is not ported to "
-                         "gravity_tpu_torch yet (ROADMAP.md Queue 1 "
-                         "item 8)",
-            }
+            # Capture the next N rounds under torch.profiler (JAX
+            # service.py:714-731).
+            try:
+                rounds = int(body.get("rounds", 1))
+            except (TypeError, ValueError):
+                return 400, {"error": "rounds must be an integer"}
+            if rounds < 0:
+                return 400, {"error": "rounds must be >= 0"}
+            out_dir = body.get("dir")
+            if out_dir:
+                self._profile_dir = str(out_dir)
+            self._profile_rounds = rounds
+            return 200, {"profiling_rounds": rounds,
+                         "dir": self._profile_dir}
         if path == "/shutdown":
             self._stop.set()
             return 200, {"stopping": True}

@@ -78,6 +78,7 @@ from .ops.multirate import (
     two_rung_step,
 )
 from .state import ParticleState
+from .telemetry import perf as _perf
 from .utils import faults
 from .utils.checkpoint import crossed_cadence, save_checkpoint
 from .utils.logging import RunLogger
@@ -596,6 +597,29 @@ class Simulator:
             else:
                 self._kick = kick
         self._build_observatory()
+        # The performance observatory: the block the run loop, run_block
+        # (bench, the autotuner's probe) and the perf gate go through.
+        # Each (n_steps, record_every, n, dtype, device) signature's first
+        # call counts one step's flops, bytes and transcendentals and
+        # measures its peak device bytes into the perf ledger, beside the
+        # pair model's one-step flops (JAX simulation.py:1208-1262).
+        _perf.warm(self.device)
+        # Rows name the backend as the JAX package does (pallas, not
+        # nbody_direct), so that the two packages' keys agree.
+        n, name = state.n, JAX_NAMES.get(self.backend, self.backend)
+        self._run_block = _perf.InstrumentedBlock(
+            self._block_fn, site="solo_block",
+            key=_perf.logical_key("solo", backend=name, n=n,
+                                  dtype=config.dtype,
+                                  integrator=config.integrator),
+            backend=name, n=n,
+            analytic=_perf.analytic_flops(
+                self.backend, n,
+                force_evals=FORCE_EVALS_PER_STEP.get(config.integrator, 1),
+                evaluated_pairs=(self.nlist_sizing[2]
+                                 if self.nlist_sizing is not None
+                                 else None)),
+        )
 
     def _resolve_fmm(self, positions) -> None:
         """The FMM's layout and sizing: sparse for ``sfmm`` or
@@ -890,9 +914,9 @@ class Simulator:
         divergence check or fence: the block ``bench`` and the autotuner's
         probe time (the JAX package's ``_run_block(..., record=False)``).
         Returns the new ``(state, acc)``; the caller synchronises."""
-        state, acc, _ = self._block_fn(state, acc,
-                                       self._step_fn(state.masses),
-                                       n_steps=n_steps)
+        state, acc, _ = self._run_block(state, acc,
+                                        self._step_fn(state.masses),
+                                        n_steps=n_steps)
         return state, acc
 
     def _launch_count(self):
@@ -1094,7 +1118,7 @@ class Simulator:
                     )
                     blocks_dispatched += 1
                     gap.dispatched()
-                    state, acc, frames = self._block_fn(
+                    state, acc, frames = self._run_block(
                         state, acc, step_fn, n_steps=n_steps,
                         record_every=record_every)
                     step += n_steps
@@ -1632,6 +1656,11 @@ class Simulator:
             logger.final_positions(to_numpy(self.state.positions))
             logger.completed()
         stats["final_state"] = self.final_state()
+        # This block's ledger rows, latest a signature (JAX simulation.py:
+        # 2470-2473).
+        stats["perf"] = _perf.summarize_rows([
+            r for r in _perf.ledger().rows_list()
+            if r.get("key") == self._run_block.key])
         if self.fmm_sparse:
             # The sparse sizing was fixed from the initial state: a run
             # whose structure spread out past k_cells degraded the

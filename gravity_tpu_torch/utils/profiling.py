@@ -1,15 +1,19 @@
 """Runtime fidelity checks and the per-block metrics stream.
 
-Counterpart of ``gravity_tpu/utils/profiling.py``: :func:`debug_check_forces`
-(the accuracy half of the autotuner's probe and ``--debug-check``), the
-accuracy sentinel (:func:`sentinel_indices`, :func:`make_force_error_probe`,
+Counterpart of ``gravity_tpu/utils/profiling.py``: :func:`trace` (the
+profiler capture behind ``run --profile`` and the daemon's ``/profile``),
+:func:`debug_check_forces` (the accuracy half
+of the autotuner's probe and ``--debug-check``), the accuracy sentinel
+(:func:`sentinel_indices`, :func:`make_force_error_probe`,
 :func:`full_set_probe_kernel`, :func:`sentinel_summary`) and
-:class:`MetricsLogger`. The profiler trace and the memory snapshot are
-ROADMAP.md Queue 1 item 8 (``telemetry/perf.py``).
+:class:`MetricsLogger`.
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
+import os
 import time
 from typing import Optional
 
@@ -22,6 +26,41 @@ from .logging import JsonlEventLogger
 
 # Targets a call of the oracle takes at once: (rows, N, 3) temporaries.
 _ORACLE_ROWS = 32
+_TRACES = itertools.count()
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Capture a ``torch.profiler`` trace of the enclosed block: the host's
+    ops and, where a card is present, its kernels (CUPTI), exported as a
+    Chrome trace ``trace_<pid>_<k>.json`` into ``log_dir`` (the counterpart
+    of the JAX package's ``jax.profiler`` capture). The perf ledger's cost
+    counter stays off inside (the two do not nest well), and no profiler
+    is left running when the block raises."""
+    from ..telemetry import perf
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=activities)
+    try:
+        with prof, perf.uncounted():
+            if torch.cuda.is_available():
+                # A first kernel to start the card's activity tracing on,
+                # so that the block's own first kernel is recorded.
+                torch.cuda.synchronize()
+                torch.zeros(1, device="cuda").add_(1)
+                torch.cuda.synchronize()
+            yield log_dir
+            if torch.cuda.is_available():
+                # Every kernel of the block done before the capture ends.
+                torch.cuda.synchronize()
+    finally:
+        path = os.path.join(log_dir,
+                            f"trace_{os.getpid()}_{next(_TRACES)}.json")
+        prof.export_chrome_trace(path)
+
 
 
 def debug_check_forces(

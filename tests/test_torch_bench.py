@@ -138,7 +138,23 @@ def test_bench_verb_prints_the_stats(capsys):
 
 @pytest.mark.parametrize("flag,item", [("--report", "item 10"),
                                        ("--gate", "item 8")])
-def test_bench_modes_not_ported_name_their_item(flag, item):
+def test_bench_modes_not_ported_name_their_item(flag, item, tmp_path,
+                                                capsys):
+    """``--report`` is still refused (item 10). ``--gate`` (item 8, now
+    ported) runs: a one-contract temporary baseline, its report beside
+    it."""
+    if flag == "--gate":
+        baseline = tmp_path / "baseline.json"
+        baseline.write_text(json.dumps({"v": 1, "contracts": [
+            {"name": "compile_once", "kind": "count_max", "max_count": 1,
+             "params": {"n": 12, "steps": 20, "slice_steps": 10}}]}))
+        out = tmp_path / "report.json"
+        assert main(["bench", "--device", "cpu", "--gate",
+                     "--gate-baseline", str(baseline),
+                     "--gate-out", str(out)]) == 0
+        assert "all contracts hold" in capsys.readouterr().out
+        assert json.load(open(out))["results"][0]["measured"] == 1.0
+        return
     with pytest.raises(NotPortedError, match=item):
         main(["bench", "--device", "cpu", "--n", "64", flag])
 

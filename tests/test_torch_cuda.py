@@ -956,6 +956,32 @@ def test_fmm_on_the_card_matches_the_cpu(cuda, form, dtype):
     _fmm_close(got, fn(pos, m), dtype)
 
 
+@pytest.mark.parametrize("solver", ["dense", "sparse", "tree"])
+def test_fmm_and_tree_repeat_their_bits_on_the_card(cuda, solver):
+    """The fp32 segment sums of the FMM and the tree take no atomics (one
+    chain a segment over a stable sort), so every evaluation on the card
+    gives the bits of the first; the dense FMM's card-against-CPU bar
+    (median 1e-5) holds in each of 10 evaluations."""
+    from gravity_tpu_torch.ops import fmm, sfmm, tree
+
+    pos, m = _fmm_disk(8192, torch.float32)
+    kw = dict(g=1.0, eps=0.05)
+    fn = {
+        "dense": lambda p, w: fmm.fmm_accelerations(p, w, depth=5,
+                                                    leaf_cap=16, **kw),
+        "sparse": lambda p, w: sfmm.sfmm_accelerations(
+            p, w, depth=6, leaf_cap=8, k_cells=8192, k_chunk=256, **kw),
+        "tree": lambda p, w: tree.tree_accelerations(p, w, depth=5, **kw),
+    }[solver]
+    want = fn(pos, m)
+    first = fn(pos.to(cuda), m.to(cuda))
+    for _ in range(10 if solver == "dense" else 2):
+        got = fn(pos.to(cuda), m.to(cuda))
+        assert torch.equal(got, first)
+        if solver != "tree":
+            _fmm_close(got, want, torch.float32)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.float64, 1e-10)])
 def test_fmm_potential_on_the_card_matches_the_cpu(cuda, dtype, tol):

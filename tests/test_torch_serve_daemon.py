@@ -140,11 +140,8 @@ def test_answers_have_the_jax_daemons_keys(daemon, jax_daemon):
             "profile": req(spool, "POST", "/profile", {"rounds": 1}),
         }
     for what, ans in answers["port"].items():
-        if what == "profile":
-            # The profiler is not ported: 501 with its ROADMAP item.
-            assert "item 8" in ans["error"]
-            continue
         assert set(ans) == set(answers["jax"][what]), what
+    assert answers["port"]["profile"]["profiling_rounds"] == 1
     assert answers["port"]["cancel"] == {"cancelled": True}
     assert answers["port"]["result"]["status"] == "completed"
 

@@ -202,7 +202,11 @@ def test_perf_ledger_row_at_first_round():
     row = perf_mod.ledger().row_for(perf_mod.engine_key_str(key))
     assert row["compile_count"] == 1 and row["flops"] > 0
     assert row["estimated_bytes"] == perf_mod.estimate_peak_bytes(key)
-    assert row.get("peak_bytes") is None  # no card to measure it on
+    # No allocator to read on the CPU: the peak is the counter's
+    # high-water mark of live tensor bytes, above the batch's own.
+    assert row["flops_source"] == "counted"
+    assert row["peak_source"] == "counted_live_bytes"
+    assert row["peak_bytes"] > 0
 
 
 def test_unported_job_classes_refused():

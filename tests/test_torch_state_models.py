@@ -150,9 +150,13 @@ def test_interop_round_trip_with_a_jax_state():
 ])
 def test_unported_features_are_refused(fields, item):
     """A JAX config asking for a feature no slice has ported is refused
-    with the ROADMAP item that ports it."""
+    with the ROADMAP item that ports it. ``profile`` (item 8) is ported
+    now: such a config loads and carries the field."""
     data = json.loads(JaxConfig().to_json())
     data.update(fields)
+    if fields == {"profile": True}:
+        assert SimulationConfig.from_json(json.dumps(data)).profile is True
+        return
     with pytest.raises(NotPortedError, match=item):
         SimulationConfig.from_json(json.dumps(data))
 
