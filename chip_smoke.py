@@ -20,8 +20,8 @@ set to 0 just before the path and read just after:
 - the Gram-form direct sum (N = 65,536, leapfrog, eps = 1e9 m, 100 steps)
   through ``nbody_mxu``;
 - the P3M run of README.md (the ``baseline-1m-p3m`` preset: a 1,048,576-
-  body disk, grid 256, cap 64, leapfrog) with ``--p3m-short nlist``,
-  through the ``ewald`` kind of ``nlist_pair``;
+  body disk, grid 256, cap 64, leapfrog) with ``--p3m-short nlist``, cut
+  to 100 of its 500 steps, through the ``ewald`` kind of ``nlist_pair``;
 - the ``baseline-16k`` preset (a Plummer sphere, N = 16,384, leapfrog,
   eps = 1e9 m, 500 steps) through ``nbody_direct`` mask-free, with its
   energy drift;
@@ -42,17 +42,17 @@ set to 0 just before the path and read just after:
   ``baseline-16k`` (the chunked scan), each cut to 100 steps; each fast
   kick shape held to its plain version;
 - the octree: ``baseline-1m`` (the 1M disk, G = 1, leaf_cap 32, depth 7
-  fit to the state) with ``--tree-near nlist``, cut to 20 of 500 steps,
+  fit to the state) with ``--tree-near nlist``, cut to 5 of 500 steps,
   through ``nlist_pair``'s untruncated form (``nlist_pair/near``), its
   forces held to ``nbody_direct`` at 4,096 targets and to the gather
   near field on the same state (fp32 and fp64, each piece of the near
   field also taken out in turn to show the bars catch it); the preset's
-  own gather near field (3 steps, no kernel); and multirate (5 steps);
+  own gather near field (3 steps, no kernel); and multirate (3 steps);
 - bf16 states through the cell list and the octree, through
   ``nlist_pair``'s bf16 form: the README cell-list run at ``--dtype
   bfloat16`` (cut to 100 steps; multirate cut to 20), its forces against
   fp32 nlist; ``baseline-1m --dtype bfloat16 --tree-near nlist`` (cut to
-  10 steps; its gather near field and multirate, 3 each), its forces
+  5 steps; its gather near field and multirate, 3 each), its forces
   against the fp32 tree and ``nbody_direct`` (bar: 1.5x the JAX
   package's own bf16 figure) and the two near fields against each other;
 - the fast multipole solvers, plain PyTorch (no kernel may launch on
@@ -63,6 +63,20 @@ set to 0 just before the path and read just after:
   dense on one overflow-free state; ``baseline-1m-fmm`` multirate (3
   steps, kicks through the dense grid's rectangular form, one held to
   ``nbody_direct``); ``--debug-check`` on the preset through the CLI;
+- the periodic box and cosmology, plain PyTorch and ``torch.fft``
+  (no kernel may launch on their paths): cosmo-262k (262,144 grf bodies
+  in a box of 1e13 m, ``--force-backend pm --pm-grid 128``, leapfrog, 100
+  steps; TSC 20), its mesh spans, its positions in the box, its mesh
+  energy drift and its first evaluation against the port on the CPU in
+  float64; the Ewald pair at grid 128; the isolated ``pm``: the
+  point-mass probe at grid 64 and a 262,144-body disk against
+  ``nbody_direct``; the ``cosmo`` verb at 2,097,152 bodies and grid 256
+  (flat LCDM, 40 steps, with and without ``--li-check``), EdS and 2LPT
+  at 262,144, a resume from step 20 against the uninterrupted run; the
+  minimum-image cell list (grf at 262,144, rcut box/16, 20 steps)
+  against the minimum-image oracle and a merge across a face; and the
+  ``analyze`` verb (P(k), friends-of-friends, xi(r)) in a process of its
+  own started before the octree phases, its P(k) held to the CPU port's;
 - the ensemble serving path (PR 15): the batched launches of
   ``nbody_direct`` (fp32 masked and mask-free, fp64, bf16) and
   ``nbody_mxu`` (fp32, bf16) at 4 slots of bucket 8,192 (a padded
@@ -139,6 +153,7 @@ package beside it, and imports nothing of JAX.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import functools
 import json
@@ -231,7 +246,8 @@ MXU_RUN = dict(model="random", n=65_536, integrator="leapfrog",
 # The P3M run: README.md's command for the JAX package (the
 # baseline-1m-p3m preset: a 1,048,576-body disk in galactic units, G = 1,
 # dt 2e-3, eps 0.05, grid 256, cap 64, leapfrog) with --p3m-short nlist.
-P3M_STEPS = 500
+# Cut to 100 of its 500 steps, to make room for the periodic phases.
+P3M_STEPS = 100
 P3M_RUN = dict(model="disk", n=1_048_576, g=1.0, dt=2e-3, eps=0.05,
                integrator="leapfrog", force_backend="p3m", pm_grid=256,
                p3m_cap=64, p3m_short="nlist", steps=P3M_STEPS)
@@ -2351,10 +2367,11 @@ def logged_run(sim, name: str, *, fixed_steps=None) -> tuple:
         sections.append(f"Step {fixed_steps}/")
     for section in sections:
         check(section in log, f"{name}: log lacks {section!r}")
-    if sim.backend in ("fmm", "sfmm"):
-        # Plain PyTorch, as the JAX package's jnp: no kernel may launch.
+    if sim.backend in ("fmm", "sfmm", "pm") or sim.config.periodic_box > 0.0:
+        # Plain PyTorch, as the JAX package's jnp (the FMM, the mesh, the
+        # periodic cell list): no kernel may launch.
         check(stats["kernel_launches"] == 0 and not any(counts.values()),
-              f"{name}: a kernel launched on the FMM's path: {counts}")
+              f"{name}: a kernel launched on a plain path: {counts}")
         return stats, counts
     key = {"nbody_direct": "nbody_direct", "nbody_mxu": "nbody_mxu",
            "nlist": "nlist_pair", "tree": "nlist_pair/near"}[sim.backend]
@@ -2972,12 +2989,12 @@ def phase_merge_path(device: dict) -> dict:
 
 # The octree run: the baseline-1m preset (the JAX package's 1M disk in
 # galactic units, G = 1, dt 2e-3, eps 0.05, leapfrog, leaf_cap 32, the
-# depth fit to the state) with --tree-near nlist, cut to 20 of its 500
+# depth fit to the state) with --tree-near nlist, cut to 5 of its 500
 # steps (50 before the FMM's phases came); with the preset's own gather
 # near field, 3 steps; multirate, 5 (10 before).
-TREE_STEPS = 20
+TREE_STEPS = 5
 TREE_GATHER_STEPS = 3
-TREE_MULTIRATE_STEPS = 5
+TREE_MULTIRATE_STEPS = 3
 TREE_SAMPLE = 4096
 # The JAX suite's bars for the tree against the exact sum
 # (tests/test_tree.py:86-87: a 2,048-body disk at depth 5, where the leaf
@@ -3594,7 +3611,7 @@ NLIST_BF16_STEPS = 100
 NLIST_BF16_MULTIRATE_STEPS = 20
 # baseline-1m at --dtype bfloat16: --tree-near nlist cut to 10 of 500
 # steps, the gather near field and multirate to 3 each.
-TREE_BF16_STEPS = 10
+TREE_BF16_STEPS = 5
 TREE_BF16_GATHER_STEPS = 3
 TREE_BF16_MULTIRATE_STEPS = 3
 # bf16 segment-sum launches a level of an octree build: the cell masses
@@ -4324,7 +4341,7 @@ def tree_bf16_errors(acc, idx, acc32, ref_direct) -> dict:
 
 def phase_tree_bf16_path(device: dict) -> dict:
     """`run --preset baseline-1m --dtype bfloat16 --tree-near nlist` at N =
-    1,048,576, cut to 10 of its 500 steps: the bf16 near-field launches =
+    1,048,576, cut to 5 of its 500 steps: the bf16 near-field launches =
     force evaluations, the dtype kept, the share of bodies that moved, the
     drift by Simulator.energy() (the tree potential at bf16, reported), the
     peak memory; on the final state both near fields' bf16 forces against
@@ -6642,6 +6659,585 @@ def phase_profile_path(device: dict) -> dict:
     return record
 
 
+# ---------------------------------------------------------------------------
+# The periodic box and cosmology (plain PyTorch and torch.fft, no kernel)
+# ---------------------------------------------------------------------------
+
+# cosmo-262k of the JAX package's baselines (benchmarks/run_baselines.py):
+# 262,144 grf bodies in a periodic box of 1e13 m, PM grid 128, leapfrog.
+COSMO_BOX = 1.0e13
+COSMO_262K = dict(model="grf", n=262_144, periodic_box=COSMO_BOX,
+                  force_backend="pm", pm_grid=128, integrator="leapfrog",
+                  eps=2.0e11, dt=2.0e4)
+COSMO_262K_STEPS = 100
+COSMO_TSC_STEPS = 20
+PERIODIC_NLIST_STEPS = 20
+# The fp32 mesh against fp64 on the same state: the JAX suite's bar
+# (tests/test_periodic.py:199-225): |a32 - a64| <= 2e-3 |a64| + 1e-3 max|a|.
+PM_FP32_RTOL, PM_FP32_ATOL = 2e-3, 1e-3
+EWALD_RTOL = 0.02  # tests/test_periodic.py:59-77
+PROBE_MEDIAN_BAR = 0.05  # tests/test_pm.py:18-46
+COSMO_REL_ERR_BAR = 0.06  # tests/test_cosmo.py:58-78
+NLIST_TERM_BAR = 1e-4  # fp32 of each row's sum of |terms|
+# P(k) on the card against the CPU port on the same state: the deposits
+# and bin sums differ in their last bits (float atomics on the card).
+SPECTRUM_RTOL = 1e-3
+ANALYZE_ARGS = ["analyze", "--model", "grf", "--n", "262144",
+                "--periodic-box", "1e13", "--eps", "1e11", "--spectrum",
+                "--fof", "5e11", "--correlation"]
+
+
+def check_no_launch(name: str, counts: dict) -> None:
+    check(not any(counts.values()),
+          f"{name}: a kernel launched on a periodic path: {counts}")
+
+
+def pm_profile(fn) -> dict:
+    """One mesh evaluation under the profiler: the device spans of
+    pm.deposit, pm.fft and pm.gather, kernels and busy share."""
+    return fmm_profile(fn, "pm.")
+
+
+def ewald_pair_ax(d, box, m, eps):
+    """x-acceleration on particle 0 from particle 1 and all its images by
+    Ewald summation, with the solver's arctan-core softening as a
+    nearest-image correction (tests/test_periodic.py:18-56)."""
+    import numpy as np
+
+    from gravity_tpu_torch.constants import G
+
+    alpha = 3.0 / box
+    d = np.asarray(d, float)
+    ar = np.zeros(3)
+    for ix in range(-3, 4):
+        for iy in range(-3, 4):
+            for iz in range(-3, 4):
+                rn = d + np.array([ix, iy, iz]) * box
+                r = np.linalg.norm(rn)
+                ar += (G * m * rn / r**3
+                       * (math.erfc(alpha * r) + 2 * alpha * r
+                          / math.sqrt(math.pi)
+                          * math.exp(-(alpha * r) ** 2)))
+    mx, my, mz = np.meshgrid(*[np.arange(-10, 11)] * 3, indexing="ij")
+    k = 2 * math.pi / box * np.stack([mx, my, mz], -1).reshape(-1, 3)
+    k = k[np.any(k != 0, axis=1)]
+    k2 = (k * k).sum(1)
+    ak = (4 * math.pi * G * m / box**3 * k / k2[:, None]
+          * (np.exp(-k2 / (4 * alpha**2)) * np.sin(k @ d))[:, None]).sum(0)
+    r = np.linalg.norm(d)
+    f_point = G * m / r**2
+    f_soft = (2 / math.pi) * G * m * (np.arctan(r / eps) / r**2
+                                      - eps / (r * (r**2 + eps**2)))
+    return float((ar + ak)[0] + (f_soft - f_point) * d[0] / r)
+
+
+def ewald_pair_check(dtype) -> dict:
+    """The periodic solver's pair force at grid 128 on the card against
+    the Ewald sum (rtol 0.02), and the pair's antisymmetry."""
+    import torch
+
+    from gravity_tpu_torch.ops.periodic import pm_periodic_accelerations
+
+    box, eps = 1.0e12, 5.0e10
+    pos = torch.tensor([[0.4e12, 0.5e12, 0.5e12], [0.6e12, 0.5e12, 0.5e12]],
+                       dtype=dtype, device="cuda")
+    masses = torch.tensor([1e30, 1e30], dtype=dtype, device="cuda")
+    reset_counts()
+    acc = pm_periodic_accelerations(pos, masses, box=box, grid=128, eps=eps)
+    check_no_launch("pm_periodic_path ewald", read_counts())
+    acc = acc.double().cpu()
+    want = ewald_pair_ax([0.2e12, 0.0, 0.0], box, 1e30, eps)
+    rel = abs(float(acc[0, 0]) - want) / abs(want)
+    check(rel < EWALD_RTOL,
+          f"pm_periodic_path: Ewald pair ({dtype}) off by {rel:.3e}")
+    asym = float((acc[0] + acc[1]).abs().max()) / abs(float(acc[0, 0]))
+    return {"dtype": str(dtype).removeprefix("torch."), "ax": float(acc[0, 0]),
+            "ewald_ax": want, "rel_err": rel, "bar": EWALD_RTOL,
+            "antisymmetry_over_ax": asym}
+
+
+def pm_vs_cpu_f64(state, config, n_targets: int = FMM_SAMPLE) -> dict:
+    """The first evaluation's forces on the card (the run's dtype) against
+    the port on the CPU in float64 on the same state, at ``n_targets``
+    targets: per-target relative errors and the JAX suite's fp32 bar."""
+    import torch
+
+    from gravity_tpu_torch.ops.periodic import pm_periodic_accelerations_vs
+
+    kw = dict(box=config.periodic_box, grid=config.pm_grid, g=config.g,
+              eps=config.eps, assignment=config.pm_assignment)
+    idx = fmm_sample(state.n, state.positions.device)
+    pos, masses = state.positions, state.masses
+    card = pm_periodic_accelerations_vs(pos[idx], pos, masses, **kw)
+    cpu = pm_periodic_accelerations_vs(pos[idx].double().cpu(),
+                                       pos.double().cpu(),
+                                       masses.double().cpu(), **kw)
+    card = card.double().cpu()
+    errors = rel_errors(card, cpu)
+    bound = PM_FP32_RTOL * cpu.abs() + PM_FP32_ATOL * float(cpu.abs().max())
+    within = bool(((card - cpu).abs() <= bound).all())
+    check(within, f"pm_periodic_path: card fp32 mesh off the fp64 CPU port "
+                  f"past the JAX suite's bar: {errors}")
+    return {"targets": n_targets, **errors,
+            "bar": f"|a_card - a_cpu64| <= {PM_FP32_RTOL} |a_cpu64| + "
+                   f"{PM_FP32_ATOL} max|a_cpu64|", "held": within}
+
+
+def periodic_run(name: str, config, device: dict, *, profile: bool) -> tuple:
+    """A periodic pm run through logged_run (no kernel may launch): ms a
+    step, positions in [0, box), the mesh energy's drift, optionally one
+    evaluation's spans."""
+    import torch
+
+    from gravity_tpu_torch.simulation import Simulator
+
+    sim = Simulator(config)
+    state0 = sim.state
+    e0 = sim.energy()
+    stats, counts = logged_run(sim, name, fixed_steps=config.steps)
+    final = stats["final_state"]
+    box = config.periodic_box
+    inside = bool(((final.positions >= 0) & (final.positions < box)).all())
+    check(inside, f"{name}: a final position outside [0, box)")
+    e1 = sim.energy()
+    record = {"steps": config.steps, "assignment": config.pm_assignment,
+              "ms_per_step": 1e3 * stats["avg_step_s"], "counts": counts,
+              "positions_in_box": inside,
+              "mesh_energy_drift": abs((e1 - e0) / e0),
+              "perf": stats["perf"]}
+    if profile:
+        record["profile"] = pm_profile(
+            lambda: sim._self_accel(final.positions, final.masses))
+    return sim, state0, record
+
+
+def phase_pm_periodic_path(device: dict) -> dict:
+    """cosmo-262k at full size: 262,144 grf bodies in the 1e13 m box
+    through the periodic PM solver (grid 128, leapfrog, 100 steps), its
+    spans, positions, mesh-energy drift and first evaluation against the
+    CPU port in float64; the TSC form (20 steps); the Ewald pair at grid
+    128 (fp32 and fp64)."""
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+
+    config = SimulationConfig(steps=COSMO_262K_STEPS,
+                              progress_every=COSMO_262K_STEPS, **COSMO_262K)
+    sim, state0, cic = periodic_run("pm_periodic_path", config, device,
+                                    profile=True)
+    first = pm_vs_cpu_f64(state0, config)
+    tsc_config = dataclasses.replace(config, pm_assignment="tsc",
+                                     steps=COSMO_TSC_STEPS,
+                                     progress_every=COSMO_TSC_STEPS)
+    _, _, tsc = periodic_run("pm_periodic_path tsc", tsc_config, device,
+                             profile=True)
+    record = {"phase": "pm_periodic_path", "n": config.n,
+              "pm_grid": config.pm_grid, "box": config.periodic_box,
+              "cic": cic, "tsc": tsc, "first_eval_vs_cpu_f64": first,
+              "ewald": [ewald_pair_check(torch.float32),
+                        ewald_pair_check(torch.float64)],
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
+def point_mass_probe() -> dict:
+    """tests/test_pm.py:18-46 on the card: 200 massless probes 8-24 cells
+    from a point mass, the isolated PM at grid 64."""
+    import numpy as np
+    import torch
+
+    from gravity_tpu_torch.constants import G
+    from gravity_tpu_torch.ops.pm import pm_accelerations
+
+    m_central, grid, box = 1.0e30, 64, 1.0e12
+    rng = np.random.RandomState(0)
+    dirs = rng.randn(200, 3)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    h = box / (grid - 1)
+    radii = rng.uniform(8 * h, 24 * h, (200, 1))
+    pos = np.concatenate([np.zeros((1, 3)), [[box / 2] * 3, [-box / 2] * 3],
+                          dirs * radii]).astype(np.float32)
+    masses = np.zeros(203, np.float32)
+    masses[0] = m_central
+    reset_counts()
+    acc = pm_accelerations(torch.from_numpy(pos).cuda(),
+                           torch.from_numpy(masses).cuda(), grid=grid)
+    check_no_launch("pm_isolated_path probe", read_counts())
+    acc = acc.double().cpu().numpy()[3:]
+    r = radii[:, 0]
+    a_expected = G * m_central / r**2
+    rel = np.abs(-np.sum(acc * dirs, axis=1) - a_expected) / a_expected
+    a_tan = np.linalg.norm(acc + a_expected[:, None] * dirs, axis=1)
+    median = float(np.median(rel))
+    check(median < PROBE_MEDIAN_BAR,
+          f"pm_isolated_path: probe median {median:.3e}")
+    return {"median_radial_rel_err": median, "bar": PROBE_MEDIAN_BAR,
+            "max_radial_rel_err": float(rel.max()),
+            "median_tangential_over_radial": float(np.median(
+                a_tan / a_expected))}
+
+
+def phase_pm_isolated_path(device: dict) -> dict:
+    """The isolated pm backend: the point-mass probe at grid 64, and a
+    262,144-body disk through --force-backend pm --pm-grid 128 (10
+    leapfrog steps), its final forces against nbody_direct at 4,096
+    targets (reported; the reference launches counted apart)."""
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.simulation import Simulator
+
+    probe = point_mass_probe()
+    config = SimulationConfig(model="disk", n=262_144, g=1.0, dt=2e-3,
+                              eps=0.05, force_backend="pm", pm_grid=128,
+                              integrator="leapfrog", steps=10,
+                              progress_every=10)
+    sim = Simulator(config)
+    stats, counts = logged_run(sim, "pm_isolated_path", fixed_steps=10)
+    final = stats["final_state"]
+    pos, masses = final.positions, final.masses
+    idx = fmm_sample(pos.shape[0], pos.device)
+    reset_counts()
+    acc = sim._self_accel(pos, masses)[idx]
+    check_no_launch("pm_isolated_path", read_counts())
+    errors = fmm_vs_direct(acc, pos[idx], pos, masses, config)
+    reference_launches = read_counts()["nbody_direct"]
+    record = {"phase": "pm_isolated_path", "probe": probe,
+              "disk": {"n": config.n, "pm_grid": config.pm_grid,
+                       "steps": config.steps,
+                       "ms_per_step": 1e3 * stats["avg_step_s"],
+                       "counts": counts,
+                       "vs_nbody_direct_targets": FMM_SAMPLE,
+                       "vs_nbody_direct": errors,
+                       "reference_nbody_direct_launches":
+                           reference_launches,
+                       "profile": pm_profile(
+                           lambda: sim._self_accel(pos, masses))},
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
+def cosmo_cli(*args) -> tuple:
+    """``cosmo ARGS`` through the CLI in this process (every launch count
+    set to 0 before it and read after, the card's peak memory around
+    it): (report, counts, peak bytes)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from gravity_tpu_torch import cli
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["cosmo", *args])
+    counts = read_counts()
+    check(rc == 0, f"cosmo {' '.join(args)}: exit {rc}")
+    check_no_launch(f"cosmo {' '.join(args)}", counts)
+    return last_json(out.getvalue()), counts, torch.cuda.max_memory_allocated()
+
+
+def cosmo_summary(report: dict, peak: int, *, bar: bool) -> dict:
+    keys = ("n", "grid", "omega_m", "a_start", "a_end", "steps",
+            "growth_measured", "growth_linear", "rel_err", "total_time_s",
+            "platform", "layzer_irvine")
+    out = {k: report[k] for k in keys if k in report}
+    out["ms_per_step"] = 1e3 * report["total_time_s"] / report["steps"]
+    out["peak_memory_bytes"] = peak
+    if bar:
+        check(report["rel_err"] < COSMO_REL_ERR_BAR,
+              f"cosmo_path: rel_err {report['rel_err']:.3e} at n "
+              f"{report['n']}")
+        out["bar"] = COSMO_REL_ERR_BAR
+    return out
+
+
+def phase_cosmo_path(device: dict) -> dict:
+    """The cosmo verb on the card: 128^3 bodies at grid 256, flat LCDM
+    (Omega_m 0.3, a 0.2 -> 0.5, 40 steps), plain and with --li-check;
+    EdS and 2LPT at 262,144; a run checkpointed at step 20, then
+    --resume, against the uninterrupted run."""
+    import shutil
+
+    from gravity_tpu_torch.utils.checkpoint import (
+        make_checkpoint_manager,
+        restore_checkpoint_with_extra,
+    )
+
+    lcdm = ["--n", "2097152", "--grid", "256", "--omega-m", "0.3",
+            "--a-start", "0.2", "--a-end", "0.5", "--steps", "40"]
+    rep, _, peak = cosmo_cli(*lcdm)
+    big = cosmo_summary(rep, peak, bar=True)
+    rep, _, peak = cosmo_cli(*lcdm, "--li-check")
+    big_li = cosmo_summary(rep, peak, bar=True)
+    eds = ["--n", "262144", "--omega-m", "1", "--a-start", "0.02",
+           "--a-end", "0.08", "--steps", "40"]
+    small = {}
+    for order in ("1", "2"):
+        rep, _, peak = cosmo_cli(*eds, "--lpt-order", order)
+        small[f"eds_lpt{order}"] = cosmo_summary(rep, peak, bar=True)
+    log_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(log_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=log_root) as tmp:
+        ckpt = os.path.join(tmp, "ckpt")
+        whole, _, _ = cosmo_cli(*eds, "--checkpoint-every", "20",
+                                "--checkpoint-dir", ckpt)
+        mgr = make_checkpoint_manager(ckpt)
+        uninterrupted, step, _ = restore_checkpoint_with_extra(mgr, 40)
+        check(step == 40, f"cosmo_path: checkpoint steps {mgr.all_steps()}")
+        shutil.rmtree(os.path.join(ckpt, "40"))
+        resumed_rep, _, _ = cosmo_cli(*eds, "--checkpoint-every", "20",
+                                      "--checkpoint-dir", ckpt, "--resume")
+        resumed, step, extra = restore_checkpoint_with_extra(
+            make_checkpoint_manager(ckpt), 40)
+    gap = float((resumed.positions.double()
+                 - uninterrupted.positions.double()).abs().max())
+    resume = {"resumed_at": resumed_rep.get("resumed_at"),
+              "same_bits": same_bits(resumed.positions,
+                                     uninterrupted.positions),
+              "max_position_gap_m": gap,
+              "gap_over_box": gap / COSMO_BOX,
+              "growth_uninterrupted": whole["growth_measured"],
+              "growth_resumed": resumed_rep["growth_measured"],
+              "a_at_40": extra.get("a")}
+    check(resume["resumed_at"] == 20, f"cosmo_path: resume {resumed_rep}")
+    record = {"phase": "cosmo_path", "lcdm_2m": big, "lcdm_2m_li": big_li,
+              **small, "resume": resume,
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
+def min_image_oracle(pos, masses, idx, config):
+    """The minimum-image rcut-masked direct sum at targets ``idx`` over all
+    sources in float64, and each component's sum of |terms|."""
+    import torch
+
+    from gravity_tpu_torch.ops.forces import _pair_weights
+
+    p64, m64 = pos.double(), masses.double()
+    box = config.periodic_box
+    refs, scales = [], []
+    for lo in range(0, idx.numel(), 256):
+        t = p64[idx[lo:lo + 256]]
+        diff = p64[None, :, :] - t[:, None, :]
+        diff = diff - box * torch.round(diff / box)
+        w = _pair_weights((diff * diff).sum(-1), m64[None, :], config.g,
+                          config.cutoff, config.eps, config.nlist_rcut)
+        refs.append((w[..., None] * diff).sum(dim=1))
+        scales.append((w[..., None] * diff.abs()).sum(dim=1))
+    return torch.cat(refs), torch.cat(scales)
+
+
+def over_term_scale(got, ref, scale):
+    return ((got.double() - ref).abs() / scale.clamp_min(1e-300)).amax(dim=1)
+
+
+def clean_targets(pos, idx, side: int, cap: int, box: float):
+    """Which targets sit where no cell of their 27-neighbourhood holds more
+    than ``cap`` bodies (no overflow monopole reaches them), from the
+    positions' cell counts on the host."""
+    import numpy as np
+    import torch
+
+    from gravity_tpu_torch.interop import to_numpy
+
+    u = np.clip((np.mod(to_numpy(pos).astype(np.float64), box) / box
+                 * side).astype(int), 0, side - 1)
+    counts = np.bincount((u[:, 0] * side + u[:, 1]) * side + u[:, 2],
+                         minlength=side**3).reshape(side, side, side)
+    over = counts > cap
+    near = np.zeros_like(over)
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            for dz in (-1, 0, 1):
+                near |= np.roll(over, (dx, dy, dz), axis=(0, 1, 2))
+    t = u[to_numpy(idx)]
+    return (torch.from_numpy(~near[t[:, 0], t[:, 1], t[:, 2]]),
+            int(counts.max()), int(over.sum()))
+
+
+def min_image_oracle_check(pos, masses, config, sim) -> dict:
+    """The cell list against the minimum-image rcut-masked direct sum at
+    4,096 targets in float64, each component held to 1e-4 of its row's
+    sum of |terms|: on one evaluation with a cap above every cell (the
+    engine exact), and the run's own sizing on the targets no overflow
+    monopole reaches (the others' error reported)."""
+    from gravity_tpu_torch.ops import nlist
+
+    side, cap, _ = sim.nlist_sizing
+    idx = fmm_sample(pos.shape[0], pos.device)
+    ref, scale = min_image_oracle(pos, masses, idx, config)
+    clean, max_count, n_over = clean_targets(pos, idx, side, cap,
+                                             config.periodic_box)
+    reset_counts()
+    run_sizing = sim._self_accel(pos, masses)[idx]
+    wide_cap = 1 << math.ceil(math.log2(max_count))
+    exact = nlist.nlist_accelerations(
+        pos, masses, rcut=config.nlist_rcut, side=side, cap=wide_cap,
+        box=config.periodic_box, g=config.g, cutoff=config.cutoff,
+        eps=config.eps)[idx]
+    check_no_launch("periodic_nlist_path", read_counts())
+    exact_err = float(over_term_scale(exact, ref, scale).max())
+    run_err = over_term_scale(run_sizing, ref, scale).cpu()
+    clean_err = float(run_err[clean].max()) if clean.any() else 0.0
+    some = ref.norm(dim=1) > 0  # a body with no neighbour feels nothing
+    check(exact_err <= NLIST_TERM_BAR and clean_err <= NLIST_TERM_BAR,
+          f"periodic_nlist_path: {exact_err:.3e} (cap {wide_cap}), "
+          f"{clean_err:.3e} (the run's cap {cap}, clean targets) of the "
+          "term scale")
+    return {"targets": FMM_SAMPLE, "bar": NLIST_TERM_BAR,
+            "wide_cap": wide_cap, "max_err_over_term_scale": exact_err,
+            "wide_cap_vs_oracle": rel_errors(exact[some], ref[some]),
+            "run_cap": cap, "cells_over_run_cap": n_over,
+            "clean_targets": int(clean.sum()),
+            "clean_max_err_over_term_scale": clean_err,
+            "overflow_reached_targets_max_err_over_term_scale":
+                float(run_err[~clean].max()) if (~clean).any() else None,
+            "run_cap_vs_oracle": rel_errors(run_sizing[some],
+                                                ref[some])}
+
+
+def face_merge_check() -> dict:
+    """tests/test_periodic.py:331: a pair across a face of the box merges
+    at the face (on the card, fp64), not at the box-spanning midpoint."""
+    import torch
+
+    from gravity_tpu_torch.ops.encounters import merge_close_pairs
+    from gravity_tpu_torch.state import ParticleState
+
+    box = 1.0e12
+    pos = torch.tensor([[0.005e12, 0.5e12, 0.5e12],
+                        [0.995e12, 0.5e12, 0.5e12],
+                        [0.5e12, 0.2e12, 0.5e12]], dtype=torch.float64,
+                       device="cuda")
+    state = ParticleState(pos, torch.zeros_like(pos),
+                          torch.full((3,), 1e30, dtype=torch.float64,
+                                     device="cuda"))
+    iso = int(merge_close_pairs(state, 2e10, k=4, chunk=4).n_merged)
+    res = merge_close_pairs(state, 2e10, k=4, chunk=4, box=box)
+    x = float(res.state.positions[0, 0])
+    ok = (iso == 0 and int(res.n_merged) == 1
+          and float(res.state.masses[0]) == 2e30 and min(x, box - x) < 1e9)
+    check(ok, f"periodic_nlist_path: face merge {iso}, {x}")
+    return {"isolated_merged": iso, "periodic_merged": int(res.n_merged),
+            "merged_x": x}
+
+
+def phase_periodic_nlist_path(device: dict) -> dict:
+    """grf at 262,144 in the 1e13 m box through the minimum-image cell
+    list at its default sizing (rcut box/16, 20 leapfrog steps, plain
+    PyTorch: nlist_pair must not launch), its forces against the
+    minimum-image oracle, and a pair merging across a face."""
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.simulation import Simulator
+
+    config = SimulationConfig(model="grf", n=262_144,
+                              periodic_box=COSMO_BOX, force_backend="nlist",
+                              nlist_rcut=COSMO_BOX / 16,
+                              integrator="leapfrog", eps=2.0e11, dt=2.0e4,
+                              steps=PERIODIC_NLIST_STEPS,
+                              progress_every=PERIODIC_NLIST_STEPS)
+    sim = Simulator(config)
+    stats, counts = logged_run(sim, "periodic_nlist_path",
+                               fixed_steps=config.steps)
+    final = stats["final_state"]
+    check(bool(((final.positions >= 0)
+                & (final.positions < COSMO_BOX)).all()),
+          "periodic_nlist_path: a final position outside [0, box)")
+    record = {"phase": "periodic_nlist_path", "n": config.n,
+              "rcut": config.nlist_rcut, "side": stats["nlist_side"],
+              "cap": stats["nlist_cap"], "steps": config.steps,
+              "ms_per_step": 1e3 * stats["avg_step_s"], "counts": counts,
+              "vs_min_image_oracle": min_image_oracle_check(
+                  final.positions, final.masses, config, sim),
+              "face_merge": face_merge_check(),
+              "profile": fmm_profile(
+                  lambda: sim._self_accel(final.positions, final.masses),
+                  "nlist."),
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
+def start_analyze():
+    """The ``analyze`` verb at 262,144 bodies (P(k), halos, xi(r)), as a
+    process of its own: its friends-of-friends and xi(r) run on the host
+    (scipy) for minutes, so it starts early and overlaps the card's
+    phases."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("GRAVITY_TPU_FAULTS", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gravity_tpu_torch", *ANALYZE_ARGS],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    # A phase that fails before the report is read must not leave it on.
+    atexit.register(stop)
+    return time.perf_counter(), proc
+
+
+def phase_analyze_path(device: dict, started) -> dict:
+    """The analyze process's report (exit 0, P(k), n_halos, its wall
+    time), and P(k) on the card held against the CPU port's on the same
+    state (in this process)."""
+    import numpy as np
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.ops.spectra import density_power_spectrum
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    wall_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"analyze_path: exit {proc.returncode}: {err[-2000:]}")
+    report = json.loads(out)
+    state = make_initial_state(SimulationConfig(
+        model="grf", n=262_144, periodic_box=COSMO_BOX, eps=1e11))
+    box = ((0.0, 0.0, 0.0), COSMO_BOX)
+    reset_counts()
+    _, p_card, _ = density_power_spectrum(state.positions, state.masses,
+                                          grid=64, box=box)
+    check_no_launch("analyze_path", read_counts())
+    _, p_cpu, _ = density_power_spectrum(state.positions.cpu(),
+                                         state.masses.cpu(), grid=64,
+                                         box=box)
+    ok = np.isfinite(p_cpu)
+    spec_rel = float(np.max(np.abs(p_card[ok] - p_cpu[ok]) / p_cpu[ok]))
+    check(spec_rel < SPECTRUM_RTOL,
+          f"analyze_path: P(k) card against CPU {spec_rel:.3e}")
+    p_report = report["power_spectrum"]["P"]
+    check(np.allclose([v for v in p_report if v is not None],
+                      p_card[np.isfinite(p_card)], rtol=SPECTRUM_RTOL),
+          "analyze_path: the process's P(k) is not this state's")
+    record = {"phase": "analyze_path", "args": ANALYZE_ARGS,
+              "wall_s": wall_s, "power_spectrum": report["power_spectrum"],
+              "n_halos": report["fof"]["n_halos"],
+              "fof_mass_fraction": report["fof"]["mass_fraction_in_halos"],
+              "xi_first_bins": report["correlation"]["xi"][:4],
+              "spectrum_card_vs_cpu_max_rel": spec_rel,
+              "spectrum_bar": SPECTRUM_RTOL,
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -6705,6 +7301,9 @@ def run_phases(torch) -> int:
     timed(phase_adaptive_path, device, base16k)
     timed(phase_external_path, device)
     timed(phase_merge_path, device)
+    # The analyze verb's host analysis (minutes of scipy) overlaps the
+    # card-bound octree and FMM phases from here on.
+    analyze = start_analyze()
     tree_path = timed(phase_tree_path, device)
     timed(phase_tree_gather_path, device)
     tree_mr = timed(phase_tree_multirate_path, device)
@@ -6716,6 +7315,11 @@ def run_phases(torch) -> int:
     fmm_parity = timed(phase_fmm_parity_path, device)
     fmm_mr = timed(phase_fmm_multirate_path, device)
     timed(phase_fmm_debug_check, device)
+    pm_periodic = timed(phase_pm_periodic_path, device)
+    pm_isolated = timed(phase_pm_isolated_path, device)
+    cosmo = timed(phase_cosmo_path, device)
+    periodic_nlist = timed(phase_periodic_nlist_path, device)
+    analyze_path = timed(phase_analyze_path, device, analyze)
     serve_kernels = timed(phase_serve_kernels, device)
     serve_path = timed(phase_serve_path, device)
     serve_parity = timed(phase_serve_parity, device)
@@ -6814,6 +7418,31 @@ def run_phases(torch) -> int:
               "host_syncs_per_step": {
                   "sparse": fmm_path["host_syncs_per_step"],
                   "dense": fmm_dense["host_syncs_per_step"]}},
+          "periodic": {
+              "cosmo_262k_ms_per_step": pm_periodic["cic"]["ms_per_step"],
+              "cosmo_262k_tsc_ms_per_step":
+                  pm_periodic["tsc"]["ms_per_step"],
+              "pm_spans_ms": pm_periodic["cic"]["profile"][
+                  "stage_device_span_ms_per_eval"],
+              "mesh_energy_drift": pm_periodic["cic"]["mesh_energy_drift"],
+              "first_eval_vs_cpu_f64": pm_periodic["first_eval_vs_cpu_f64"],
+              "ewald_rel_err": [e["rel_err"] for e in pm_periodic["ewald"]],
+              "isolated_probe_median":
+                  pm_isolated["probe"]["median_radial_rel_err"],
+              "isolated_disk_vs_nbody_direct":
+                  pm_isolated["disk"]["vs_nbody_direct"],
+              "cosmo_2m_rel_err": cosmo["lcdm_2m"]["rel_err"],
+              "cosmo_2m_ms_per_step": cosmo["lcdm_2m"]["ms_per_step"],
+              "cosmo_2m_peak_bytes": cosmo["lcdm_2m"]["peak_memory_bytes"],
+              "layzer_irvine": cosmo["lcdm_2m_li"]["layzer_irvine"][
+                  "residual"],
+              "cosmo_resume": cosmo["resume"],
+              "periodic_nlist_ms_per_step": periodic_nlist["ms_per_step"],
+              "periodic_nlist_vs_oracle":
+                  periodic_nlist["vs_min_image_oracle"][
+                      "max_err_over_term_scale"],
+              "analyze_wall_s": analyze_path["wall_s"],
+              "analyze_n_halos": analyze_path["n_halos"]},
           "serve": {
               "batched_ms": {k: v["ms"] for k, v in
                              serve_kernels["timing"].items()},

@@ -31,8 +31,13 @@ PyTorch as the JAX package's are jnp; and the measurement layer:
 verb) and ``utils/timing.py``; and the ensemble serving path
 (``serve/``, ``telemetry/``: the ``serve``, ``submit``, ``status``,
 ``result`` and ``cancel`` verbs, a batch's force evaluation one launch
-of ``nbody_direct.cu`` or ``nbody_mxu.cu`` with a slot grid axis).
-``ops/cuda_build.py`` builds every kernel.
+of ``nbody_direct.cu`` or ``nbody_mxu.cu`` with a slot grid axis); and
+the periodic box and cosmology, plain PyTorch and ``torch.fft`` as the
+JAX package's are XLA and ``jnp.fft``: the ``pm`` solver isolated and
+periodic (``ops/pm.py``, ``ops/periodic.py``), the minimum-image cell
+list, the ``grf`` model (``models/grf.py``), ``ops/cosmo.py`` with the
+``cosmo`` verb, ``ops/spectra.py`` and ``ops/halos.py`` with the
+``analyze`` verb. ``ops/cuda_build.py`` builds every kernel.
 """
 
 from .config import PRESETS, SimulationConfig

@@ -1,6 +1,7 @@
 """Command-line interface: the ``run``, ``resume``, ``bench`` and ``tune``
-verbs, and the serving verbs ``serve``, ``submit``, ``status``, ``result``
-and ``cancel``.
+verbs, the cosmology and analysis verbs ``cosmo`` and ``analyze``, and the
+serving verbs ``serve``, ``submit``, ``status``, ``result`` and
+``cancel``.
 
 Counterpart of ``gravity_tpu/cli.py`` for this slice, with the JAX CLI's
 flag names. ``run`` writes the reference log and prints one JSON line of
@@ -8,7 +9,11 @@ run statistics on stdout; ``resume`` continues a checkpointed run;
 ``bench`` prints one JSON line of a timed block (``bench.run_benchmark``,
 or with ``--cadence`` a whole run with trajectories and checkpoints);
 ``tune`` fills the autotuner's cache over a size ladder, one JSON line a
-size. Each runs on the GPU unless ``--device cpu``. ``serve`` starts the
+size. ``cosmo`` runs a comoving cosmological box (grf initial conditions,
+the periodic PM solver, the comoving KDK) and prints one JSON growth
+report; ``analyze`` prints a diagnostics report (energy, radii, P(k),
+halos, xi(r)) of a checkpoint or a fresh realization. Each runs on the
+GPU unless ``--device cpu``. ``serve`` starts the
 ensemble daemon (serve/service.py) on the GPU unless ``--device cpu``;
 the client verbs find it through ``--spool-dir``. ``submit --job-type``
 takes ``integrate`` only: the other classes are refused with exit 2. A
@@ -44,6 +49,13 @@ Usage:
         --external plummer:gm=1.3e20,a=1e12
     python -m gravity_tpu_torch run --preset reference-cuda --merge-radius 1e9
     python -m gravity_tpu_torch run --preset baseline-1m --force-backend auto
+    python -m gravity_tpu_torch run --model grf --n 262144 \
+        --periodic-box 1e13 --force-backend pm --pm-grid 128 \
+        --integrator leapfrog --eps 2e11 --dt 2e4
+    python -m gravity_tpu_torch cosmo --n 2097152 --grid 256 --omega-m 0.3 \
+        --a-start 0.2 --a-end 0.5 --steps 40 --li-check
+    python -m gravity_tpu_torch analyze --model grf --n 262144 \
+        --periodic-box 1e13 --eps 1e11 --spectrum --fof 5e11 --correlation
     python -m gravity_tpu_torch bench --model plummer --n 262144 \
         --integrator leapfrog --eps 1e9 --force-backend pallas-mxu
     python -m gravity_tpu_torch tune --sizes 16384 65536
@@ -80,6 +92,7 @@ from .config import (
     MODELS,
     FMM_MODES,
     P3M_SHORT_MODES,
+    PM_ASSIGNMENTS,
     PRESETS,
     TIMESTEP_CRITERIA,
     TREE_FAR_MODES,
@@ -116,6 +129,8 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                         "--nlist-rcut); p3m = the P3M solver; tree = "
                         "the octree; fmm = the fast multipole solver "
                         "(layout by --fmm-mode), sfmm = its sparse layout; "
+                        "pm = the particle-mesh FFT solver (isolated, or "
+                        "periodic with --periodic-box); "
                         "dense/chunked = plain PyTorch; auto = the "
                         "measured-fastest of them (autotune.py)")
     p.add_argument("--fmm-mode", dest="fmm_mode", choices=FMM_MODES,
@@ -167,6 +182,14 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--fast-chunk", dest="fast_chunk", type=int, default=None,
                    help="target chunk of the tree and of the p3m gather "
                         "pass")
+    p.add_argument("--pm-assignment", dest="pm_assignment",
+                   choices=PM_ASSIGNMENTS, default=None,
+                   help="pm-solver mass assignment, periodic or isolated "
+                        "(tsc = smoother, 27-point)")
+    p.add_argument("--periodic-box", dest="periodic_box", type=float,
+                   default=None,
+                   help="periodic unit-cell side (0 = isolated BCs); "
+                        "needs --force-backend pm (or nlist)")
     p.add_argument("--dtype", choices=DTYPES, default=None)
     p.add_argument("--external", default=None,
                    help="analytic background field spec, e.g. "
@@ -321,13 +344,21 @@ def _debug_check(config: SimulationConfig, sim, final, logger) -> dict:
     the as-run cell list and the rcut-masked oracle; a masked direct run
     against the cell list sized from the final state; P3M by its full-set
     evaluation, the FMM's by its full-set evaluation at the as-run
-    sizing (pure self-gravity, without an --external field)."""
+    sizing (pure self-gravity, without an --external field). A periodic
+    truncated run takes the minimum-image oracle; full periodic gravity
+    has none, and the check is skipped (None)."""
     from .simulation import make_local_kernel
     from .utils.profiling import debug_check_forces
 
     kernel = full_acc = None
     rcut = (config.nlist_rcut
             if sim.backend in ("nlist", "dense", "chunked") else 0.0)
+    if config.periodic_box > 0.0 and rcut <= 0.0:
+        logger.log_print(
+            "debug-check skipped: the direct-sum oracle is isolated-BC and "
+            "cannot audit the periodic solver (tests/test_torch_periodic.py "
+            "holds it to the Ewald pair instead)")
+        return None
     if sim.backend == "nlist":
         side, cap, _ = sim.nlist_sizing
         kernel = make_local_kernel(
@@ -343,7 +374,8 @@ def _debug_check(config: SimulationConfig, sim, final, logger) -> dict:
                                    positions=final.positions)
     check = debug_check_forces(
         final.positions, final.masses, g=config.g, cutoff=config.cutoff,
-        eps=config.eps, rcut=rcut, kernel=kernel, full_acc=full_acc)
+        eps=config.eps, rcut=rcut, box=config.periodic_box, kernel=kernel,
+        full_acc=full_acc)
     logger.log_print(
         f"Force cross-check ({sim.backend} vs the plain direct sum): "
         f"max_rel_err={check['max_rel_err']:.3e} "
@@ -451,8 +483,9 @@ def cmd_run(args: argparse.Namespace) -> int:
             writer.close()
         return _print_failure_json(e)
     if config.debug_check:
-        stats["debug_check"] = _debug_check(config, sim,
-                                            stats["final_state"], logger)
+        check = _debug_check(config, sim, stats["final_state"], logger)
+        if check is not None:
+            stats["debug_check"] = check
     stats.pop("final_state")
     if writer is not None:
         stats["trajectory_dir"] = getattr(writer, "out_dir", None) \
@@ -549,9 +582,15 @@ def cmd_tune(args: argparse.Namespace) -> int:
     from .utils.platform import resolve_device
 
     config = build_config(args)
-    if not config.autotune:
-        print("error: nothing to tune: autotuning disabled (--no-autotune)",
-              file=sys.stderr)
+    # The Simulator's routing gate: a config the router never tunes
+    # (autotuning off, or periodic: pm and nlist are its only solvers)
+    # has nothing to fill.
+    if not config.autotune or config.periodic_box > 0.0:
+        reason = ("autotuning disabled (--no-autotune)"
+                  if not config.autotune
+                  else "periodic runs route statically (pm is the only "
+                  "periodic solver)")
+        print(f"error: nothing to tune: {reason}", file=sys.stderr)
         return 2
     device = resolve_device(args.device)
     on_card = device.type == "cuda"
@@ -621,6 +660,501 @@ def cmd_bench(args: argparse.Namespace) -> int:
                                device=args.device)
     print(json.dumps(result))
     return 0
+
+
+def _finite_or_none(values) -> list:
+    """Empty bins are NaN by design; null keeps the report strict JSON."""
+    import numpy as np
+
+    return [None if not np.isfinite(v) else float(v)
+            for v in np.asarray(values)]
+
+
+def cmd_analyze(args: argparse.Namespace) -> int:
+    """Structure and conserved-quantity report of a checkpointed state or
+    a fresh model realization: energy, virial ratio, Lagrangian radii,
+    velocity dispersion, centre of mass; with flags P(k), the density
+    profile, the correlation function and friends-of-friends halos."""
+    import numpy as np
+
+    from .interop import to_numpy
+    from .ops import diagnostics as diag
+    from .simulation import Simulator
+    from .utils.platform import resolve_device
+
+    config = build_config(args)
+    if args.checkpoint:
+        from .utils.checkpoint import (
+            make_checkpoint_manager,
+            restore_checkpoint,
+        )
+
+        mgr = make_checkpoint_manager(config.checkpoint_dir)
+        state, step = restore_checkpoint(mgr, args.step)
+        state = state.to(resolve_device(args.device))
+    else:
+        state = Simulator(config, device=args.device).state
+        step = 0
+
+    lr = to_numpy(diag.lagrangian_radii(state, (0.1, 0.25, 0.5, 0.75, 0.9)))
+    if config.periodic_box > 0.0:
+        # The conserved potential of a periodic run is the mesh potential
+        # (Simulator.energy's); the isolated pair sum and the virial
+        # ratio built on it mean nothing in a box.
+        from .ops.periodic import pm_periodic_potential_energy
+
+        pot = float(pm_periodic_potential_energy(
+            state.positions, state.masses, box=config.periodic_box,
+            grid=config.pm_grid, g=config.g, eps=config.eps,
+            assignment=config.pm_assignment))
+        virial = None
+    else:
+        pot = float(diag.total_energy(state, g=config.g,
+                                      cutoff=config.cutoff, eps=config.eps)
+                    - diag.kinetic_energy(state))
+        virial = float(diag.virial_ratio(state, g=config.g,
+                                         cutoff=config.cutoff,
+                                         eps=config.eps))
+    report = {
+        "step": int(step),
+        "n": int(state.n),
+        "kinetic_energy": float(diag.kinetic_energy(state)),
+        "potential_energy": pot,
+        "virial_ratio": virial,
+        "center_of_mass": to_numpy(diag.center_of_mass(state)).tolist(),
+        "total_momentum": to_numpy(diag.total_momentum(state)).tolist(),
+        "total_angular_momentum": np.asarray(
+            diag.total_angular_momentum(state)).tolist(),
+        "velocity_dispersion": float(diag.velocity_dispersion(state)),
+        "lagrangian_radii": {
+            "0.10": float(lr[0]), "0.25": float(lr[1]),
+            "0.50": float(lr[2]), "0.75": float(lr[3]),
+            "0.90": float(lr[4]),
+        },
+    }
+    if config.periodic_box > 0.0:
+        report["periodic_note"] = (
+            "periodic run: potential_energy is the mesh potential "
+            "(matches Simulator.energy); virial_ratio is null "
+            "(isolated-only diagnostic)"
+        )
+    if config.external:
+        # analyze agrees with run and the metrics, whose total energy
+        # includes the background field; virial_ratio stays self-gravity.
+        from .ops.external import parse_external
+
+        phi = parse_external(config.external, kind="potential")
+        e_ext = float((state.masses * phi(state.positions)).sum())
+        report["external_potential_energy"] = e_ext
+        report["total_energy"] = (report["kinetic_energy"]
+                                  + report["potential_energy"] + e_ext)
+        report["note"] = ("virial_ratio covers self-gravity only; "
+                          "total_energy includes the external field")
+    if args.spectrum:
+        from .ops.spectra import density_power_spectrum
+
+        # A periodic run's P(k) takes the simulation box's volume, k_f and
+        # wrap seam, not the data's bounding cube.
+        spectrum_box = (((0.0, 0.0, 0.0), config.periodic_box)
+                        if config.periodic_box > 0.0 else None)
+        k, p, shot = density_power_spectrum(
+            state.positions, state.masses, grid=args.spectrum_grid,
+            box=spectrum_box, interlace=args.spectrum_interlace)
+        report["power_spectrum"] = {"k": np.asarray(k).tolist(),
+                                    "P": _finite_or_none(p),
+                                    "shot_noise": float(shot)}
+    if args.density_profile:
+        r_mid, rho = diag.radial_density_profile(state,
+                                                 bins=args.density_profile)
+        report["density_profile"] = {"r": to_numpy(r_mid).tolist(),
+                                     "rho": to_numpy(rho).tolist()}
+    if args.correlation:
+        from .ops.halos import correlation_function
+
+        if args.correlation_bins < 1:
+            print("error: --correlation-bins must be >= 1", file=sys.stderr)
+            return 1
+        if config.periodic_box <= 0.0:
+            print("error: --correlation needs --periodic-box (the natural "
+                  "estimator's RR term is analytic only on the torus)",
+                  file=sys.stderr)
+            return 1
+        r_c, xi, dd = correlation_function(
+            to_numpy(state.positions), box=config.periodic_box,
+            n_bins=args.correlation_bins)
+        report["correlation"] = {"r": r_c.tolist(),
+                                 "xi": _finite_or_none(xi),
+                                 "dd": dd.tolist()}
+    if args.fof > 0.0:
+        from .ops.halos import friends_of_friends
+
+        masses = to_numpy(state.masses)
+        fof = friends_of_friends(
+            to_numpy(state.positions), masses, linking_length=args.fof,
+            box=config.periodic_box, min_members=args.fof_min_members)
+        m_tot = float(masses.sum())
+        top = min(10, fof.n_halos)
+        report["fof"] = {
+            "linking_length": args.fof,
+            "min_members": args.fof_min_members,
+            "n_halos": fof.n_halos,
+            "mass_fraction_in_halos": (float(fof.halo_masses.sum()) / m_tot
+                                       if m_tot else 0.0),
+            "top_halo_masses": fof.halo_masses[:top].tolist(),
+            "top_halo_sizes": fof.halo_sizes[:top].tolist(),
+            "top_halo_centers": fof.halo_centers[:top].tolist(),
+        }
+    print(json.dumps(report, indent=2))
+    return 0
+
+
+def _grf_generator(seed: int):
+    import torch
+
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    return gen
+
+
+def cmd_cosmo(args: argparse.Namespace) -> int:
+    """Comoving cosmological run (EdS, LCDM, open or closed curvature, or
+    CPL dark energy): Zel'dovich (or 2LPT) initial conditions in a
+    periodic box, comoving KDK through the periodic FFT solver, and the
+    measured growth against linear theory: grf, ops/periodic, ops/cosmo
+    in one command. Its normal fields come from a CPU generator seeded
+    with --seed; it runs on the GPU unless --device cpu."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from .interop import to_numpy
+    from .models import create_grf, grf_displacement_fields
+    from .models.grf import grf_lattice, grf_side
+    from .ops.cosmo import (
+        comoving_kdk_factors,
+        comoving_kdk_scan,
+        growing_mode_momenta,
+        layzer_irvine_residual,
+        linear_growth_ratio,
+    )
+    from .ops.periodic import (
+        pm_periodic_accelerations_vs,
+        pm_periodic_potential_energy,
+    )
+    from .simulation import SimulationPreempted, preemption_guard
+    from .supervisor import EXIT_PREEMPTED
+    from .utils.checkpoint import crossed_cadence, save_checkpoint
+    from .utils.platform import resolve_device, sync
+
+    device = resolve_device(args.device)
+    try:
+        side = grf_side(args.n)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    grid = args.grid or side
+    box, h0, a1, a2 = args.box, args.h0, args.a_start, args.a_end
+
+    p_table = None
+    if args.spectrum_file:
+        # A two-column (k, P) text table (CAMB/CLASS output), shape only:
+        # sigma_psi pins the amplitude.
+        try:
+            p_table = np.loadtxt(args.spectrum_file)
+        except (OSError, ValueError) as e:
+            print(f"error: cannot read --spectrum-file: {e}",
+                  file=sys.stderr)
+            return 1
+    grf_kw = dict(box=box, spectral_index=args.spectral_index,
+                  sigma_psi=args.sigma_psi, power_spectrum=p_table,
+                  device=device)
+    try:
+        st = create_grf(_grf_generator(args.seed), args.n, total_mass=1.0e36,
+                        lpt_order=args.lpt_order, **grf_kw)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+    lat = to_numpy(grf_lattice(side, box, dtype=st.positions.dtype))
+    disp = (to_numpy(st.positions) - lat + box / 2) % box - box / 2
+    cosmo = dict(omega_k=args.omega_k, w0=args.w0, wa=args.wa)
+
+    start_step = 0
+    ckpt_mgr = None
+    if args.checkpoint_every or args.resume:
+        from .utils.checkpoint import make_checkpoint_manager
+
+        ckpt_mgr = make_checkpoint_manager(args.checkpoint_dir)
+    if args.resume:
+        from .utils.checkpoint import (
+            CheckpointCorrupt,
+            restore_checkpoint_with_extra,
+        )
+
+        try:
+            st, start_step, extra = restore_checkpoint_with_extra(ckpt_mgr)
+        except (FileNotFoundError, CheckpointCorrupt) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        st = st.to(device)
+        if "a" not in extra:
+            print("error: checkpoint has no scale-factor metadata (not a "
+                  "cosmo checkpoint)", file=sys.stderr)
+            return 1
+        if start_step >= args.steps:
+            print(json.dumps({"resumed_at": start_step,
+                              "note": "checkpoint already at/past a_end"}))
+            return 0
+    elif args.lpt_order == 2:
+        # Second-order momenta: psi2 grows as D2 ~ D^2, so its rate factor
+        # is f2 ~ 2 f1 (the 2LPTic EdS approximation); the split fields of
+        # the same realization, from a generator seeded alike.
+        psi1, psi2 = grf_displacement_fields(_grf_generator(args.seed),
+                                             args.n, **grf_kw)
+        st = st.replace(velocities=(
+            growing_mode_momenta(psi1, a1, h0, args.omega_m, **cosmo)
+            + 2.0 * growing_mode_momenta(psi2, a1, h0, args.omega_m,
+                                         **cosmo)))
+    else:
+        st = st.replace(velocities=growing_mode_momenta(
+            torch.from_numpy(disp).to(device), a1, h0, args.omega_m,
+            **cosmo))
+    # The closure Om rho_crit0 = mean density fixes G.
+    m_tot = float(st.masses.sum())
+    g_eff = 3.0 * args.omega_m * h0**2 * box**3 / (8.0 * np.pi * m_tot)
+    masses = st.masses
+
+    def accel(x):
+        return pm_periodic_accelerations_vs(
+            x, x, masses, box=box, grid=grid, g=g_eff, eps=0.0,
+            assignment=args.pm_assignment)
+
+    writer = None
+    if args.trajectories:
+        from .utils.trajectory import TrajectoryWriter
+
+        stamp = time.strftime("%Y%m%d_%H%M%S")
+        writer = TrajectoryWriter(
+            os.path.join(args.out_dir, f"trajectories_cosmo_{stamp}"),
+            args.n, every=1)
+
+    # One global log-a grid of edges: blocks end on the edges a single
+    # shot uses, so streaming and resume are exact.
+    edges = np.exp(np.linspace(np.log(a1), np.log(a2), args.steps + 1))
+    if args.resume:
+        # The stored scale factor catches a resume onto another (a_start,
+        # a_end, steps) grid, where the step counter means another epoch.
+        a_ckpt = extra["a"]
+        a_grid = float(edges[start_step])
+        if abs(a_ckpt - a_grid) > 1e-9 * max(a_ckpt, a_grid):
+            print(f"error: checkpoint step {start_step} was taken at "
+                  f"a={a_ckpt:.9g} but the current --a-start/--a-end/"
+                  f"--steps grid puts that step at a={a_grid:.9g}; resume "
+                  "with the original grid", file=sys.stderr)
+            return 1
+    # The checkpoint cadence bounds the block too. The user's block (the
+    # trajectory cadence) excludes the Layzer-Irvine shrinkage below.
+    user_block = max(1, min(args.progress_every or args.steps,
+                            args.checkpoint_every or args.steps, args.steps))
+    # The Layzer-Irvine quadrature needs enough samples.
+    block = min(user_block,
+                max(1, args.steps // 16) if args.li_check else args.steps)
+
+    li_records = []
+
+    def li_sample(a_val, st_):
+        # Peculiar KE (v_pec = p / a) and the proper potential energy of
+        # the fluctuations (the comoving potential over a), in float64.
+        p = st_.velocities.double().cpu().numpy()
+        m = st_.masses.double().cpu().numpy()
+        t_kin = 0.5 * float(np.sum(m * np.sum((p / a_val) ** 2, axis=-1)))
+        w_c = pm_periodic_potential_energy(
+            st_.positions, st_.masses, box=box, grid=grid, g=g_eff,
+            eps=0.0, assignment=args.pm_assignment)
+        li_records.append((a_val, t_kin, w_c / a_val))
+
+    if args.li_check:
+        li_sample(float(edges[start_step]), st)
+
+    t0 = time.perf_counter()
+    step_i = start_step
+    # One consistent (state, step) pair, replaced in one assignment once a
+    # block is committed: the only source the preemption save reads.
+    snap = (st, step_i)
+    try:
+        with preemption_guard():
+            while step_i < args.steps:
+                hi = min(step_i + block, args.steps)
+                k1s, drs, k2s = comoving_kdk_factors(
+                    edges[step_i:hi + 1], h0, args.omega_m, **cosmo,
+                    dtype=st.positions.dtype, device=device)
+                st_new = comoving_kdk_scan(st, k1s, drs, k2s,
+                                           accel_fn=accel)
+                sync(device)
+                st = st_new
+                prev_i, step_i = step_i, hi
+                snap = (st, step_i)
+                a_now = float(edges[step_i])
+                # Output cadences are gated apart from the block size.
+                if (args.progress_every
+                        and crossed_cadence(prev_i, step_i,
+                                            args.progress_every)
+                        and step_i < args.steps):
+                    print(f"Step {step_i}/{args.steps} (a={a_now:.6g})",
+                          file=sys.stderr)
+                if args.li_check:
+                    li_sample(a_now, st)
+                if writer is not None and crossed_cadence(prev_i, step_i,
+                                                          user_block):
+                    writer.record(step_i, to_numpy(st.positions))
+                if ckpt_mgr is not None and crossed_cadence(
+                        prev_i, step_i, args.checkpoint_every):
+                    save_checkpoint(ckpt_mgr, step_i, st,
+                                    extra={"a": a_now})
+    except SimulationPreempted:
+        st_snap, step_snap = snap
+        if ckpt_mgr is not None and step_snap > start_step:
+            save_checkpoint(ckpt_mgr, step_snap, st_snap,
+                            extra={"a": float(edges[step_snap])})
+        if writer is not None:
+            writer.close()
+        print(json.dumps({
+            "preempted": True,
+            "resumable": (ckpt_mgr is not None
+                          and ckpt_mgr.latest_step() is not None),
+            "step": step_snap,
+        }), file=sys.stderr)
+        return EXIT_PREEMPTED
+    elapsed = time.perf_counter() - t0
+    if writer is not None:
+        writer.close()
+
+    disp2 = (to_numpy(st.positions) - lat + box / 2) % box - box / 2
+    measured = float((disp2 * disp).sum() / (disp * disp).sum())
+    linear = linear_growth_ratio(a1, a2, args.omega_m, **cosmo)
+    report = {
+        "n": args.n, "box": box, "grid": grid,
+        "a_start": a1, "a_end": a2, "steps": args.steps,
+        "omega_m": args.omega_m,
+        "omega_k": args.omega_k, "w0": args.w0, "wa": args.wa,
+        "assignment": args.pm_assignment,
+        "growth_measured": measured,
+        "growth_linear": linear,
+        "rel_err": abs(measured - linear) / linear,
+        "total_time_s": elapsed,
+        "platform": device.type,
+    }
+    if args.li_check:
+        report["layzer_irvine"] = {
+            "residual": layzer_irvine_residual(li_records),
+            "n_samples": len(li_records),
+            "T_final": li_records[-1][1],
+            "W_final": li_records[-1][2],
+        }
+    if start_step:
+        report["resumed_at"] = start_step
+    print(json.dumps(report))
+    return 0
+
+
+def _add_analysis_parsers(sub) -> None:
+    """The ``analyze`` and ``cosmo`` verbs (the JAX CLI's flags)."""
+    p_an = sub.add_parser(
+        "analyze", help="diagnostics report for a checkpoint or model")
+    _add_config_args(p_an)
+    p_an.add_argument("--checkpoint", action="store_true",
+                      help="analyze the latest (or --step) checkpoint "
+                           "instead of a fresh model realization")
+    p_an.add_argument("--step", type=int, default=None)
+    p_an.add_argument("--spectrum", action="store_true",
+                      help="add the radially binned density power "
+                           "spectrum P(k) to the report")
+    p_an.add_argument("--spectrum-grid", dest="spectrum_grid", type=int,
+                      default=64)
+    p_an.add_argument("--spectrum-interlace", dest="spectrum_interlace",
+                      action="store_true",
+                      help="interlaced deposits (alias suppression)")
+    p_an.add_argument("--fof", type=float, default=0.0,
+                      help="friends-of-friends halo finding with this "
+                           "linking length (absolute; the cosmological "
+                           "convention is ~0.2 x the mean interparticle "
+                           "spacing); periodic with --periodic-box")
+    p_an.add_argument("--fof-min-members", dest="fof_min_members",
+                      type=int, default=20)
+    p_an.add_argument("--density-profile", dest="density_profile",
+                      type=int, default=0, metavar="BINS",
+                      help="add the centre-of-mass radial mass-density "
+                           "profile with this many log shells")
+    p_an.add_argument("--correlation", action="store_true",
+                      help="two-point correlation function xi(r) "
+                           "(periodic boxes; natural estimator)")
+    p_an.add_argument("--correlation-bins", dest="correlation_bins",
+                      type=int, default=16)
+    p_an.set_defaults(func=cmd_analyze)
+
+    p = sub.add_parser(
+        "cosmo", help="comoving cosmological run: Zel'dovich ICs -> "
+                      "periodic PM -> growth report")
+    p.add_argument("--n", type=int, default=32**3,
+                   help="particle count (perfect cube)")
+    p.add_argument("--box", type=float, default=1.0e13)
+    p.add_argument("--grid", type=int, default=0,
+                   help="PM grid (0 = the lattice side, the PM-safe "
+                        "choice)")
+    p.add_argument("--a-start", dest="a_start", type=float, default=0.02)
+    p.add_argument("--a-end", dest="a_end", type=float, default=0.08)
+    p.add_argument("--steps", type=int, default=60)
+    p.add_argument("--h0", type=float, default=0.05,
+                   help="Hubble constant in code units (1/s scale set by "
+                        "--box units)")
+    p.add_argument("--omega-m", dest="omega_m", type=float, default=1.0,
+                   help="matter density (1.0 = EdS; < 1 = flat LCDM)")
+    p.add_argument("--sigma-psi", dest="sigma_psi", type=float,
+                   default=0.004,
+                   help="RMS Zel'dovich displacement at a_start, as a box "
+                        "fraction")
+    p.add_argument("--spectral-index", dest="spectral_index", type=float,
+                   default=-2.0)
+    p.add_argument("--omega-k", dest="omega_k", type=float, default=0.0,
+                   help="curvature density (0 = flat)")
+    p.add_argument("--w0", type=float, default=-1.0,
+                   help="dark-energy equation of state today (CPL w(a) = "
+                        "w0 + wa (1 - a))")
+    p.add_argument("--wa", type=float, default=0.0,
+                   help="dark-energy EoS evolution (CPL)")
+    p.add_argument("--pm-assignment", dest="pm_assignment",
+                   choices=PM_ASSIGNMENTS, default="cic")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--progress-every", dest="progress_every", type=int,
+                   default=0,
+                   help="steps per streaming block (0 = one shot)")
+    p.add_argument("--checkpoint-every", dest="checkpoint_every", type=int,
+                   default=0,
+                   help="checkpoint cadence in steps (stores the scale "
+                        "factor for an exact resume)")
+    p.add_argument("--checkpoint-dir", dest="checkpoint_dir",
+                   default="gravity_ckpt_cosmo")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the latest cosmo checkpoint (same "
+                        "seed, cosmology and step grid)")
+    p.add_argument("--trajectories", action="store_true",
+                   help="record comoving positions at each block boundary")
+    p.add_argument("--lpt-order", dest="lpt_order", type=int, choices=[1, 2],
+                   default=1,
+                   help="IC displacement order: 1 = Zel'dovich, 2 = 2LPT "
+                        "(the EdS D2 = -3/7 D^2 convention)")
+    p.add_argument("--spectrum-file", dest="spectrum_file", default="",
+                   help="two-column (k, P) text table for the IC power "
+                        "spectrum's shape (CAMB/CLASS output; log-log "
+                        "interpolated, --sigma-psi sets the amplitude)")
+    p.add_argument("--li-check", dest="li_check", action="store_true",
+                   help="track the Layzer-Irvine cosmic energy equation "
+                        "and report its normalized residual")
+    p.add_argument("--out-dir", dest="out_dir", default="gravity_logs_cosmo")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the GPU; 'cpu' to run on "
+                        "the CPU)")
+    p.set_defaults(func=cmd_cosmo)
 
 
 def cmd_serve(args: argparse.Namespace) -> int:
@@ -938,6 +1472,7 @@ def main(argv=None) -> int:
                          default="PERF_GATE_LAST_TORCH.json",
                          help="the gate's report ('' writes none)")
     p_bench.set_defaults(func=cmd_bench)
+    _add_analysis_parsers(sub)
     _add_serving_parsers(sub)
     args = parser.parse_args(argv)
     return args.func(args)

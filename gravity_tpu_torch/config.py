@@ -15,7 +15,7 @@ import json
 from . import constants as C
 
 MODELS = ("random", "solar", "disk", "plummer", "cold_collapse", "hernquist",
-          "merger")
+          "merger", "grf")
 INTEGRATORS = ("euler", "leapfrog", "verlet", "yoshida4", "multirate")
 TIMESTEP_CRITERIA = ("auto", "accel", "velocity")
 DTYPES = ("float32", "float64", "bfloat16")
@@ -24,9 +24,11 @@ DTYPES = ("float32", "float64", "bfloat16")
 # ops/mxu_kernel.py). "nlist" is the cutoff-radius cell list (ops/nlist.py),
 # "p3m" the particle-particle particle-mesh solver (ops/p3m.py), "tree" the
 # octree (ops/tree.py), "fmm" the fast multipole solver (ops/fmm.py, its
-# layout by fmm_mode) and "sfmm" its sparse layout (ops/sfmm.py).
+# layout by fmm_mode), "sfmm" its sparse layout (ops/sfmm.py) and "pm" the
+# particle-mesh solver (ops/pm.py isolated, ops/periodic.py in a box).
 FORCE_BACKENDS = ("auto", "direct", "dense", "chunked", "pallas",
-                  "pallas-mxu", "nlist", "p3m", "tree", "fmm", "sfmm")
+                  "pallas-mxu", "nlist", "p3m", "tree", "fmm", "sfmm", "pm")
+PM_ASSIGNMENTS = ("cic", "tsc")
 P3M_SHORT_MODES = ("auto", "gather", "slice", "nlist")
 FMM_MODES = ("auto", "dense", "sparse")
 TREE_FAR_MODES = ("direct", "expansion")
@@ -36,8 +38,6 @@ _QUEUE = "ROADMAP.md Queue 1 item"
 
 # Values of honoured fields that belong to a later slice.
 _UNPORTED_VALUES = {
-    "model": (("grf",), f"{_QUEUE} 7 (grf, with the periodic family)"),
-    "force_backend": (("pm",), f"{_QUEUE} 7 (the particle-mesh solver)"),
     "p3m_short": (
         ("slice",),
         f"{_QUEUE} 7 (the TPU's shifted-slice P3M pass; use nlist or "
@@ -67,8 +67,6 @@ _UNPORTED_BACKENDS = {
 _NOT_PORTED = {
     "nlist_mesh": ("auto", f"{_QUEUE} 5 (halo)"),
     "nlist_mig_cap": (0, f"{_QUEUE} 5 (halo)"),
-    "periodic_box": (0.0, f"{_QUEUE} 7"),
-    "pm_assignment": ("cic", f"{_QUEUE} 7"),
     "sharding": ("none", f"{_QUEUE} 5 (multi-GPU, with the sharded "
                          "multirate forms)"),
     "mesh_shape": (None, f"{_QUEUE} 5"),
@@ -159,6 +157,13 @@ class SimulationConfig:
     fmm_mode: str = "auto"
     # Target chunk of the tree's evaluation and of the p3m gather pass.
     fast_chunk: int = 4096
+
+    # Periodic-box gravity: the side of the periodic unit cell, 0 =
+    # isolated boundaries. Needs force_backend "pm" (the periodic FFT
+    # solver, ops/periodic.py) or "nlist" (the minimum-image cell list);
+    # positions wrap mod box.
+    periodic_box: float = 0.0
+    pm_assignment: str = "cic"  # cic | tsc (pm mass assignment, both BCs)
 
     # Adaptive time stepping (ops/adaptive.py): steps * dt becomes the
     # target simulated time and dt the per-step ceiling.
@@ -259,7 +264,7 @@ class SimulationConfig:
             ("dtype", DTYPES), ("force_backend", FORCE_BACKENDS),
             ("p3m_short", P3M_SHORT_MODES),
             ("tree_far", TREE_FAR_MODES), ("tree_near", TREE_NEAR_MODES),
-            ("fmm_mode", FMM_MODES),
+            ("fmm_mode", FMM_MODES), ("pm_assignment", PM_ASSIGNMENTS),
             ("timestep_criterion", TIMESTEP_CRITERIA),
             ("io_pipeline", IO_PIPELINE_MODES),
             ("trajectory_format", TRAJECTORY_FORMATS),
@@ -271,6 +276,7 @@ class SimulationConfig:
                     f"{sorted(choices)}"
                 )
         for name in ("nlist_rcut", "nlist_side", "nlist_cap", "tree_depth",
+                     "periodic_box",
                      "checkpoint_every", "sentinel_every", "error_budget",
                      "max_retries"):
             if getattr(self, name) < 0:

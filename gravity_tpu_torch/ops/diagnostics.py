@@ -22,7 +22,7 @@ import torch
 
 from ..constants import CUTOFF_RADIUS, G
 from ..state import ParticleState
-from .forces import potential_energy
+from .forces import potential_energy, rounded
 
 
 def kinetic_energy(state: ParticleState) -> torch.Tensor:
@@ -210,12 +210,17 @@ def ledger_vec(positions: torch.Tensor, velocities: torch.Tensor,
     ])
 
 
-def _pe_rows_hat(pos_i, positions, m_hat, cutoff, eps, rcut):
+def _pe_rows_hat(pos_i, positions, m_hat, cutoff, eps, rcut, box=0.0):
     """Each target's dimensionless potential row sum_j m_hat_j k(r): k =
     1/r_soft, or with ``rcut`` > 0 the truncated family's shifted kernel
     1/r_soft - 1/rcut_soft for r <= rcut and 0 beyond (the potential whose
-    negative gradient is the rcut-masked force)."""
+    negative gradient is the rcut-masked force). ``box`` > 0 takes
+    minimum-image separations (the truncated family's periodic pair
+    potential, valid for rcut < box/2)."""
     diff = positions[None, :, :] - pos_i[:, None, :]
+    if box > 0.0:
+        b = rounded(box, diff.dtype)
+        diff = diff - b * torch.round(diff / b)
     r2 = (diff * diff).sum(dim=-1)
     r2_soft = r2 + eps * eps
     ok = r2_soft > cutoff * cutoff
@@ -231,16 +236,17 @@ def _pe_rows_hat(pos_i, positions, m_hat, cutoff, eps, rcut):
 
 def pe_hat_dense(positions: torch.Tensor, masses: torch.Tensor, *,
                  cutoff: float = CUTOFF_RADIUS, eps: float = 0.0,
-                 rcut: float = 0.0, chunk: int = 4096) -> torch.Tensor:
+                 rcut: float = 0.0, box: float = 0.0,
+                 chunk: int = 4096) -> torch.Tensor:
     """The dimensionless pair-potential double sum ``s_hat`` (a device
     scalar, O(N chunk) memory): ``PE = -0.5 g m_scale^2 s_hat`` with
     ``m_scale = max(masses)``, the ledger's dense energy term. The same
-    conventions as ``ops/forces.py::potential_energy`` for rcut = 0. A
-    periodic box (minimum image) is ROADMAP.md Queue 1 item 7."""
+    conventions as ``ops/forces.py::potential_energy`` for rcut = 0;
+    ``box`` > 0 takes minimum-image separations."""
     m_hat = masses / mass_scale(masses)
     rows = torch.cat([
         _pe_rows_hat(positions[lo:lo + chunk], positions, m_hat, cutoff,
-                     eps, rcut)
+                     eps, rcut, box)
         for lo in range(0, positions.shape[0], chunk)
     ])
     return (m_hat * rows).sum()
@@ -259,9 +265,10 @@ def ledger_host(vec, pe=None, pe_scale=None, *, g: float = G,
     ``pe_kind``: ``dense``/``tree`` (PE = -0.5 g pe_scale^2 pe, pe_scale
     defaulting to the vec's m_scale), ``fmm`` (PE = -0.5 pe_scale pe: g
     and one mass power folded in, ``ops/fmm._fmm_pe_scaled``'s contract),
+    ``pm`` (PE = pe_scale^2 pe: the periodic mesh core's mean-mass
+    normalization, ``ops/periodic._potential_core``, 0.5 and g folded in),
     ``absolute`` (pe is the float64 potential energy) or ``none`` (no
-    energy term: ``energy`` is None). The JAX package's ``pm`` kind comes
-    with that solver (ROADMAP.md Queue 1 item 7). ``ext`` is the
+    energy term: ``energy`` is None). ``ext`` is the
     normalized external-field energy sum(m_hat phi_ext), rescaled by the
     vec's m_scale: an ``--external`` run conserves KE + PE_self +
     PE_ext."""
@@ -290,6 +297,8 @@ def ledger_host(vec, pe=None, pe_scale=None, *, g: float = G,
         potential = np.float64(-0.5 * g) * scale * scale * pe64
     elif pe_kind == "fmm":
         potential = np.float64(-0.5) * scale * pe64
+    elif pe_kind == "pm":
+        potential = scale * scale * pe64
     elif pe_kind == "absolute":
         potential = pe64
     else:

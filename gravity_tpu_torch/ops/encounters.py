@@ -1,4 +1,4 @@
-"""Close-encounter detection and particle merging, isolated boundaries.
+"""Close-encounter detection and particle merging.
 
 Counterpart of ``gravity_tpu/ops/encounters.py``. Close pairs are
 detected and optionally merged (inelastic: mass and momentum conserved,
@@ -12,8 +12,9 @@ Zero-mass bodies take no part.
 
 The greedy pass is a loop over the k candidates of device ops
 (``torch.where``), with no host read: the caller reads ``n_merged`` once
-a check. The periodic forms (``box`` > 0) are not ported yet and raise
-:class:`~..config.NotPortedError` (ROADMAP Queue 1 item 7).
+a check. ``box`` > 0 (periodic runs) detects and merges with
+minimum-image separations, so a pair across a face merges at the face and
+its merged body is wrapped back into the box.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import NotPortedError
 from ..interop import to_numpy
 from ..state import ParticleState
 from .cells import build_padded_cells_indexed, grid_coords
@@ -32,13 +32,11 @@ from .forces import rounded, tiny
 from .nlist import _offsets
 
 
-def _not_ported(box: float) -> None:
-    if box > 0.0:
-        raise NotPortedError(
-            "merging or detection in a periodic box (box > 0) is not "
-            "ported to gravity_tpu_torch yet (ROADMAP.md Queue 1 item 7, "
-            "with the periodic family)"
-        )
+def _min_image(diff: torch.Tensor, box: float) -> torch.Tensor:
+    """Per-axis separations wrapped into [-box/2, box/2) (``jnp.mod`` is
+    ``torch.remainder``: the result takes the divisor's sign)."""
+    b = rounded(box, diff.dtype)
+    return torch.remainder(diff + 0.5 * b, b) - 0.5 * b
 
 
 def closest_pairs(
@@ -52,8 +50,7 @@ def closest_pairs(
     """The k globally closest (distance, i, j) pairs, ascending, each
     unordered pair once (j > i), zero-mass bodies ignored. Slots beyond
     the valid pairs hold inf / -1. O(N * chunk) memory: a running top-k
-    over i-chunks."""
-    _not_ported(box)
+    over i-chunks. ``box`` > 0 takes minimum-image distances."""
     n = positions.shape[0]
     dtype, device = positions.dtype, positions.device
     mask = masses > 0
@@ -66,6 +63,8 @@ def closest_pairs(
         pos_i = positions[i0:i0 + chunk]
         rows = torch.arange(i0, i0 + pos_i.shape[0], device=device)
         diff = positions[None, :, :] - pos_i[:, None, :]
+        if box > 0.0:
+            diff = _min_image(diff, box)
         r2 = (diff * diff).sum(dim=-1)  # (chunk, n)
         keep = ((cols[None, :] > rows[:, None]) & mask[i0:i0 + chunk, None]
                 & mask[None, :])
@@ -107,12 +106,13 @@ def merge_scan_chunk(n: int) -> int:
 
 
 def _greedy_merge(state: ParticleState, dists, is_, js,
-                  radius: float) -> MergeResult:
+                  radius: float, box: float = 0.0) -> MergeResult:
     """Greedy at-most-one-merge-per-body pass over candidate pairs in
     the given (ascending-distance) order; a duplicate such as (j, i)
     after (i, j) is blocked by the used flags. Shared by the brute and
     grid detections. Each candidate updates rows i and j through
-    ``torch.where`` on the device."""
+    ``torch.where`` on the device. ``box`` > 0 places the merged body at
+    the centre of i and the minimum image of j, wrapped into the box."""
     dtype = state.dtype
     i_safe = torch.clamp_min(is_, 0)
     j_safe = torch.clamp_min(js, 0)
@@ -133,7 +133,12 @@ def _greedy_merge(state: ParticleState, dists, is_, js,
         # Mass fractions, not m x: the JAX package's (mi x_i + mj x_j) /
         # mt overflows fp32 at SI scales (m ~ 4e27 kg times x ~ 1e13 m).
         wi, wj = (mi / mt)[:, None], (mj / mt)[:, None]
-        new_pos = wi * pos[i] + wj * pos[j]
+        if box > 0.0:
+            xj_eff = pos[i] + _min_image(pos[j] - pos[i], box)
+            new_pos = torch.remainder(wi * pos[i] + wj * xj_eff,
+                                      rounded(box, dtype))
+        else:
+            new_pos = wi * pos[i] + wj * pos[j]
         new_vel = wi * vel[i] + wj * vel[j]
         pos = pos.index_copy(0, i, torch.where(ok, new_pos, pos[i]))
         pos = pos.index_copy(0, j, torch.where(ok, new_pos, pos[j]))
@@ -155,11 +160,12 @@ def merge_close_pairs(state: ParticleState, radius: float, *, k: int = 16,
     with ``n_merged == 0`` is a fixed point). The merged body (lower
     index) carries the total mass, the mass-weighted centre and the
     momentum-conserving velocity; the donor (higher index) becomes a
-    massless tracer at the same point. Exact at any radius, O(N^2):
+    massless tracer at the same point. ``box`` > 0 detects and merges
+    with minimum-image separations. Exact at any radius, O(N^2):
     :func:`merge_close_pairs_grid` is O(N) at small radii."""
     dists, is_, js = closest_pairs(state.positions, state.masses, k=k,
                                    chunk=chunk, box=box)
-    return _greedy_merge(state, dists, is_, js, radius)
+    return _greedy_merge(state, dists, is_, js, radius, box)
 
 
 def nearest_within_radius_grid(
@@ -180,17 +186,22 @@ def nearest_within_radius_grid(
     nearest in-radius neighbour (inf / -1 when none), and the count of
     massive bodies that overflowed their cell's ``cap`` slots and were
     dropped from the source side (a device scalar; the caller retries
-    with a larger cap when it is nonzero)."""
-    _not_ported(box)
+    with a larger cap when it is nonzero). ``box`` > 0 wraps both the grid
+    and the separations (minimum image)."""
     n = positions.shape[0]
     dtype, device = positions.dtype, positions.device
     valid = masses > 0
     n_cells = side**3
-    big = torch.full_like(positions, math.inf)
-    pmin = torch.where(valid[:, None], positions, big).amin(dim=0)
-    pmax = torch.where(valid[:, None], positions, -big).amax(dim=0)
-    span = torch.clamp_min((pmax - pmin).max(), tiny(dtype))
-    coords = grid_coords(positions, pmin, span, side)
+    if box > 0.0:
+        origin = torch.zeros(3, dtype=dtype, device=device)
+        span = torch.tensor(box, dtype=dtype, device=device)
+        positions = torch.remainder(positions, span)
+    else:
+        big = torch.full_like(positions, math.inf)
+        origin = torch.where(valid[:, None], positions, big).amin(dim=0)
+        pmax = torch.where(valid[:, None], positions, -big).amax(dim=0)
+        span = torch.clamp_min((pmax - origin).max(), tiny(dtype))
+    coords = grid_coords(positions, origin, span, side)
     cell_id = (coords[:, 0] * side + coords[:, 1]) * side + coords[:, 2]
     # Massless bodies are left out of the source structure entirely.
     cell_id = torch.where(valid, cell_id, n_cells)
@@ -210,10 +221,17 @@ def nearest_within_radius_grid(
         pos_c, coord_c, idx_c = (positions[lo:lo + chunk],
                                  coords[lo:lo + chunk], idx[lo:lo + chunk])
         nbr = coord_c[:, None, :] + offs[None, :, :]  # (C, 27, 3)
-        ok_cell = ((nbr >= 0) & (nbr < side)).all(dim=-1)
-        nbr = nbr.clamp(0, side - 1)
+        if box > 0.0:
+            nbr = torch.remainder(nbr, side)
+            ok_cell = torch.ones(nbr.shape[:2], dtype=torch.bool,
+                                 device=device)
+        else:
+            ok_cell = ((nbr >= 0) & (nbr < side)).all(dim=-1)
+            nbr = nbr.clamp(0, side - 1)
         nbr_id = (nbr[..., 0] * side + nbr[..., 1]) * side + nbr[..., 2]
         diff = cells_pos[nbr_id] - pos_c[:, None, None, :]  # (C, 27, cap, 3)
+        if box > 0.0:
+            diff = _min_image(diff, box)
         r2 = (diff * diff).sum(dim=-1)
         nidx = cells_idx[nbr_id]
         ok = (ok_cell[..., None] & (cells_mass[nbr_id] > 0)
@@ -231,10 +249,10 @@ def nearest_within_radius_grid(
     return d, j, n_dropped
 
 
-def _merge_pass_grid(state, radius, *, k, side, cap, chunk):
+def _merge_pass_grid(state, radius, *, k, side, cap, chunk, box=0.0):
     d, j, n_dropped = nearest_within_radius_grid(
         state.positions, state.masses, radius, side=side, cap=cap,
-        chunk=chunk,
+        chunk=chunk, box=box,
     )
     # A mutual nearest pair appears as (i, j) and (j, i): drop the
     # higher-index orientation so that each pair takes one top-k slot.
@@ -250,7 +268,7 @@ def _merge_pass_grid(state, radius, *, k, side, cap, chunk):
     lo, hi = torch.minimum(is_, js), torch.maximum(is_, js)
     is_ = torch.where(found, lo, -1)
     js = torch.where(found, hi, -1)
-    return _greedy_merge(state, dists, is_, js, radius), n_dropped
+    return _greedy_merge(state, dists, is_, js, radius, box), n_dropped
 
 
 def merge_close_pairs_grid(
@@ -270,12 +288,12 @@ def merge_close_pairs_grid(
     side with cells >= radius, at most ``max_side``, coarsened while
     side^3 * cap exceeds the slot limit) and the cap (from the measured
     occupancy, doubled on overflow), and falls back to the exact brute
-    pass when the grid degenerates."""
-    _not_ported(box)
+    pass when the grid degenerates. ``box`` > 0 plans the grid over the
+    box and wraps the separations (minimum image)."""
 
     def brute():
         return merge_close_pairs(state, radius, k=k,
-                                 chunk=merge_scan_chunk(state.n))
+                                 chunk=merge_scan_chunk(state.n), box=box)
 
     pos = to_numpy(state.positions).astype(np.float64)
     m = to_numpy(state.masses).astype(np.float64)
@@ -283,8 +301,13 @@ def merge_close_pairs_grid(
     if not valid.any():
         return MergeResult(state, torch.zeros((), dtype=torch.int64,
                                               device=state.device))
-    origin = pos[valid].min(axis=0)
-    span = max(float((pos[valid].max(axis=0) - origin).max()), 1e-300)
+    if box > 0.0:
+        origin = np.zeros(3)
+        span = float(box)
+        pos = np.mod(pos, span)
+    else:
+        origin = pos[valid].min(axis=0)
+        span = max(float((pos[valid].max(axis=0) - origin).max()), 1e-300)
     side = 1
     while side * 2 <= max_side and span / (side * 2) >= radius:
         side *= 2
@@ -310,7 +333,7 @@ def merge_close_pairs_grid(
     while True:
         chunk_eff = max(64, min(chunk, (1 << 22) // (27 * cap)))
         res, n_dropped = _merge_pass_grid(state, radius, k=k, side=side,
-                                          cap=cap, chunk=chunk_eff)
+                                          cap=cap, chunk=chunk_eff, box=box)
         if int(n_dropped) == 0:
             return res
         # The numpy plan and the device binning rounded differently and

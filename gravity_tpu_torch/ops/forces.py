@@ -13,7 +13,8 @@ matrix product, so TF32 settings cannot touch it.
 
 ``rcut`` > 0 truncates at r > rcut: the declared short-range physics of
 the cell-list backend (``ops/nlist.py``), whose exact reference this
-masked sum is. The periodic (``box``) form is not ported yet.
+masked sum is. ``box`` > 0 takes each pair separation to its minimum
+image: the rcut-masked periodic oracle of the cell list's periodic form.
 """
 
 from __future__ import annotations
@@ -22,17 +23,7 @@ import functools
 
 import torch
 
-from ..config import NotPortedError
 from ..constants import CUTOFF_RADIUS, G
-
-
-def _not_ported(box: float) -> None:
-    if box:
-        raise NotPortedError(
-            "box > 0 (the minimum-image periodic direct sum) is not ported "
-            "to gravity_tpu_torch yet (ROADMAP.md Queue 1 item 7, with the "
-            "periodic family)"
-        )
 
 
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -90,9 +81,15 @@ def accelerations_vs(
     ``masses_j`` (K,). Self-pairs are excluded because r == 0 falls below
     the cutoff; ``rcut`` > 0 truncates at r > rcut. Leading batch axes
     (``(B, M, 3)``, ``(B, K, 3)``, ``(B, K)``: the serve engine's batched
-    ``dense`` form, the JAX form under ``vmap``) sum each system apart."""
-    _not_ported(box)
+    ``dense`` form, the JAX form under ``vmap``) sum each system apart.
+    ``box`` > 0 applies the minimum-image convention to each separation:
+    the rcut-masked periodic oracle of the cell list (meaningful with
+    rcut < box/2; it is not an Ewald sum of full periodic gravity)."""
     diff = pos_j[..., None, :, :] - pos_i[..., :, None, :]  # (M, K, 3)
+    if box > 0.0:
+        b = _scalar(box, diff)
+        # torch.round rounds half to even, as jnp.round does.
+        diff = diff - b * torch.round(diff / b)
     r2 = (diff * diff).sum(dim=-1)  # (M, K)
     w = _pair_weights(r2, masses_j[..., None, :], g, cutoff, eps,
                       rcut)  # (M, K)

@@ -37,10 +37,17 @@ the pair tiles under the bf16 contract of :func:`pair_cells_plain`,
 which the kernel's bf16 form keeps. The ``newton`` kind only: ``ewald``
 serves P3M, which takes no bf16 state in either package.
 
-Not ported yet, and refused with :class:`~..config.NotPortedError`: the
-periodic form (``box`` > 0, ROADMAP Queue 1 item 7). Not ported either:
-the domain-decomposed slab/halo engines (Queue 1 item 5) and backward
-passes (Queue 1 item 9).
+The periodic form (``box`` > 0, the minimum-image cell list of a
+periodic run) is plain PyTorch on every device, as the JAX package's is
+(its Pallas engine is isolated-BCs only, ``pallas_nlist.py:955-961``):
+positions and targets wrap mod box onto a grid over the box, each
+neighbour read wraps mod side and shifts the wrapped cell's positions by
++-box, so differences are minimum-image by construction
+(:func:`pair_cells_periodic`), and it never launches ``nlist_pair.cu``.
+It needs side >= 3.
+
+Not ported: the domain-decomposed slab/halo engines (Queue 1 item 5) and
+backward passes (Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -53,7 +60,6 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..config import NotPortedError
 from ..constants import CUTOFF_RADIUS, G
 from ..interop import to_numpy
 from ..telemetry.perf import count_launch
@@ -82,11 +88,13 @@ def resolve_nlist_sizing(
     cap: int = 0,
     *,
     side: int = 0,
+    box: float = 0.0,
     side_max: int = SIDE_MAX,
     slot_budget: int = SLOT_BUDGET,
 ):
-    """Host-side static (side, cap) sizing for a cutoff-radius cell list
-    (isolated boundaries), from concrete positions.
+    """Host-side static (side, cap) sizing for a cutoff-radius cell list,
+    from concrete positions: over their bounding cube, or with ``box`` > 0
+    over the periodic box (positions wrapped into it, side >= 3).
 
     side = floor(span / rcut) (cell edge >= rcut), capped by a mean
     occupancy of about 2 and clipped to [2, side_max]; cap is the next
@@ -99,11 +107,18 @@ def resolve_nlist_sizing(
         # A bf16 tensor through float32, which holds it exactly.
         positions = to_numpy(positions)
     pos = np.asarray(positions, np.float64)
-    lo, hi = pos.min(axis=0), pos.max(axis=0)
-    span = float((hi - lo).max()) * 1.02 + 1e-30
-    origin = 0.5 * (hi + lo) - 0.5 * span
+    if box > 0.0:
+        pos = np.mod(pos, box)
+        origin = np.zeros(3)
+        span = float(box)
+    else:
+        lo, hi = pos.min(axis=0), pos.max(axis=0)
+        span = float((hi - lo).max()) * 1.02 + 1e-30
+        origin = 0.5 * (hi + lo) - 0.5 * span
     side_forced = bool(side)
-    side_min = 2
+    # The periodic evaluator needs side >= 3 (at side 2 the +-1 offsets
+    # wrap onto the same neighbour twice).
+    side_min = 3 if box > 0.0 else 2
     if not side:
         # A grid much finer than the particle count pays pure volume:
         # every cell is 27 tiles of work whether or not anything lives
@@ -341,6 +356,27 @@ def _neighbors(coords: torch.Tensor, side: int, offsets=None):
     return ids.reshape(cell.shape[:2]), inside
 
 
+def _periodic_neighbors(coords: torch.Tensor, side: int, offsets, box: float,
+                        dtype):
+    """(ids, shift): the flat ids of the neighbours of each cell
+    coordinate (M, 3) at ``offsets`` (K, 3), wrapped mod side, and the
+    image shift (M, K, 3) = box * floor((coord + offset) / side) that
+    brings a wrapped neighbour's positions next to the cell (a value of
+    -box, 0 or +box, rounded to ``dtype``)."""
+    cell = coords[:, None, :] + offsets[None]
+    ids = cell_ids(torch.remainder(cell, side).reshape(-1, 3), side)
+    shift = rounded(box, dtype) * torch.div(
+        cell, side, rounding_mode="floor").to(dtype)
+    return ids.reshape(cell.shape[:2]), shift
+
+
+def _all_coords(side: int, device) -> torch.Tensor:
+    """(side^3, 3) coordinates of every cell, in flat-id order."""
+    c = torch.arange(side**3, device=device)
+    return torch.stack([c // (side * side), (c // side) % side, c % side],
+                       dim=-1)
+
+
 # Bytes of one batch of per-offset terms in the overflow channels. The 27
 # offsets are taken in consecutive groups (in _near_offsets order) whose
 # terms fit in it, and each group's terms are summed at once into the
@@ -364,7 +400,7 @@ def _eps_o2(eps: float, cell_h):
 
 
 def _remainder_cells(tcells_pos, rem_w, rem_com, over, side: int, params,
-                     *, kind: str, eps: float, cell_h):
+                     *, kind: str, eps: float, cell_h, box: float = 0.0):
     """Source-cap-overflow remainder: each neighbor cell's beyond-cap mass
     as a cell-size-softened monopole through the pair kernel,
     (side^3, t_cap, 3), added to the tile engine's output. ``eps`` is
@@ -372,23 +408,29 @@ def _remainder_cells(tcells_pos, rem_w, rem_com, over, side: int, params,
     sit arbitrarily close to a target. Offset groups per
     :data:`OFFSET_BATCH_BYTES` of one system's terms. A batch (the
     ``newton`` kind) has a leading slot axis on the arrays and ``cell_h``
-    (B,); each slot's terms are its solo terms, grouped alike."""
+    (B,); each slot's terms are its solo terms, grouped alike. ``box`` > 0
+    (solo only) wraps the neighbour reads and shifts a wrapped cell's
+    centre of mass by its image."""
     eps_o2 = _eps_o2(eps, cell_h)
     eps_o2 = eps_o2.reshape(*eps_o2.shape, 1, 1, 1)
-    c = torch.arange(side**3, device=tcells_pos.device)
-    coords = torch.stack([c // (side * side), (c // side) % side, c % side],
-                         dim=-1)
+    coords = _all_coords(side, tcells_pos.device)
     offsets = _offsets(tcells_pos.device)
     acc = torch.zeros_like(tcells_pos)
     per_offset = math.prod(tcells_pos.shape[-3:]) * tcells_pos.element_size()
     for group in _offset_groups(per_offset):
-        ids, inside = _neighbors(coords, side, offsets[group])  # (S^3, K)
-        w_n = torch.where(inside, rem_w[..., ids], 0.0)
-        ov_n = inside & over[..., ids]
+        if box > 0.0:
+            ids, shift = _periodic_neighbors(coords, side, offsets[group],
+                                             box, tcells_pos.dtype)
+            w_n, ov_n = rem_w[ids], over[ids]
+            com_n = rem_com[ids] + shift
+        else:
+            ids, inside = _neighbors(coords, side, offsets[group])  # (S^3, K)
+            w_n = torch.where(inside, rem_w[..., ids], 0.0)
+            ov_n = inside & over[..., ids]
+            com_n = rem_com[..., ids, :]
         diff = torch.where(
             ov_n[..., None, None],
-            rem_com[..., ids, :][..., None, :]
-            - tcells_pos[..., :, None, :, :],
+            com_n[..., None, :] - tcells_pos[..., :, None, :, :],
             0.0,
         )  # (S^3, K, t_cap, 3)
         r2 = (diff * diff).sum(dim=-1)
@@ -399,14 +441,15 @@ def _remainder_cells(tcells_pos, rem_w, rem_com, over, side: int, params,
 
 def _overflow_targets(t_pos, t_coords, cell_w, ccom, side: int, params, *,
                       kind: str, eps: float, cell_h, slot=None,
-                      per_offset_bytes=None):
+                      per_offset_bytes=None, box: float = 0.0):
     """Fallback for targets beyond t_cap: the 27 neighbor cells as
     whole-cell monopoles (cell-size softened) through the pair kernel,
     (M, 3), in offset groups as :func:`_remainder_cells`. A batch's
     targets (the ``newton`` kind), flattened to (M, 3), name their slot
     (``slot`` (M,)) in flat cell_w (B side^3,) and ccom (B side^3, 3), with
     ``cell_h`` (B,) and the group size of one system's ``per_offset_bytes``
-    (its targets' bytes)."""
+    (its targets' bytes). ``box`` > 0 (solo only) wraps the neighbour ids
+    and shifts a wrapped cell's centre of mass by its image."""
     eps_o2 = _eps_o2(eps, cell_h)
     base = None
     if slot is not None:
@@ -417,12 +460,18 @@ def _overflow_targets(t_pos, t_coords, cell_w, ccom, side: int, params, *,
     if per_offset_bytes is None:
         per_offset_bytes = t_pos.numel() * t_pos.element_size()
     for group in _offset_groups(per_offset_bytes):
-        ids, inside = _neighbors(t_coords, side, offsets[group])  # (M, K)
-        if base is not None:
-            ids = ids + base
-        sw = torch.where(inside, cell_w[ids], 0.0)
-        diff = torch.where(inside[..., None], ccom[ids] - t_pos[:, None, :],
-                           0.0)
+        if box > 0.0:
+            ids, shift = _periodic_neighbors(t_coords, side, offsets[group],
+                                             box, t_pos.dtype)
+            sw = cell_w[ids]
+            diff = ccom[ids] + shift - t_pos[:, None, :]
+        else:
+            ids, inside = _neighbors(t_coords, side, offsets[group])  # (M, K)
+            if base is not None:
+                ids = ids + base
+            sw = torch.where(inside, cell_w[ids], 0.0)
+            diff = torch.where(inside[..., None],
+                               ccom[ids] - t_pos[:, None, :], 0.0)
         r2 = (diff * diff).sum(dim=-1)
         w = _monopole_w(kind, r2, sw, params, eps_o2)
         acc.add_((w[..., None] * diff).sum(dim=1))
@@ -469,7 +518,6 @@ def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
     ``jnp.einsum`` does (``pallas_nlist.py:487``); and the accumulator
     is bf16, rounded after each of the 27 offsets (``:490-491``)."""
     del s_count
-    low = tcells_pos.dtype == torch.bfloat16
     t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
     out = torch.zeros_like(tcells_pos)
     occupied = torch.nonzero(t_count > 0).flatten()
@@ -486,26 +534,74 @@ def pair_cells_plain(tcells_pos, t_count, cells_pos, cells_gm, s_count,
             spos = cells_pos[ids[:, o]][:, None]  # (B, 1, cap, 3)
             sgm = torch.where(inside[:, o, None], cells_gm[ids[:, o]],
                               0.0)[:, None]  # (B, 1, cap)
-            dx = spos[..., 0] - tpos[..., 0]  # (B, t_cap, cap)
-            dy = spos[..., 1] - tpos[..., 1]
-            dz = spos[..., 2] - tpos[..., 2]
-            if low:
-                sq = [(d * d).float() for d in (dx, dy, dz)]
-                r2 = ((sq[0] + sq[1]) + sq[2]).to(torch.bfloat16)
-                dx, dy, dz = (d.float() for d in (dx, dy, dz))
-            else:
-                r2 = dx * dx + dy * dy + dz * dz
-            w = _pair_w(kind, r2, sgm, params, cutoff=cutoff, eps=eps,
-                        use_rcut=use_rcut, absolute=absolute)
-            if low:
-                w = w.float()  # the products w d are exact in fp32
-            terms = torch.stack([w * dx, w * dy, w * dz], dim=-1)
-            if absolute:
-                terms = terms.abs()
-            acc = acc + terms.sum(dim=2).to(acc.dtype)
+            acc = acc + _tile_rows(tpos, spos, sgm, params, kind=kind,
+                                   cutoff=cutoff, eps=eps, use_rcut=use_rcut,
+                                   absolute=absolute)
         out[cb] = acc
     real = torch.arange(t_cap, device=out.device)[None, :] < t_count[:, None]
     return torch.where(real[..., None], out, 0.0)
+
+
+def _tile_rows(tpos, spos, sgm, params, *, kind, cutoff, eps, use_rcut,
+               absolute=False):
+    """One neighbour offset's row sums sum_s w d of a batch of cell
+    tiles, (B, t_cap, 3) in the targets' dtype: tpos (B, t_cap, 1, 3),
+    spos (B, 1, cap, 3), sgm (B, 1, cap). The bf16 contract of
+    :func:`pair_cells_plain`."""
+    low = tpos.dtype == torch.bfloat16
+    dx = spos[..., 0] - tpos[..., 0]  # (B, t_cap, cap)
+    dy = spos[..., 1] - tpos[..., 1]
+    dz = spos[..., 2] - tpos[..., 2]
+    if low:
+        sq = [(d * d).float() for d in (dx, dy, dz)]
+        r2 = ((sq[0] + sq[1]) + sq[2]).to(torch.bfloat16)
+        dx, dy, dz = (d.float() for d in (dx, dy, dz))
+    else:
+        r2 = dx * dx + dy * dy + dz * dz
+    w = _pair_w(kind, r2, sgm, params, cutoff=cutoff, eps=eps,
+                use_rcut=use_rcut, absolute=absolute)
+    if low:
+        w = w.float()  # the products w d are exact in fp32
+    terms = torch.stack([w * dx, w * dy, w * dz], dim=-1)
+    if absolute:
+        terms = terms.abs()
+    return terms.sum(dim=2).to(tpos.dtype)
+
+
+def pair_cells_periodic(tcells_pos, cells_pos, cells_gm, side: int, params,
+                        *, box: float, cutoff: float, eps: float):
+    """The periodic 27-neighbourhood pair-tile sum of the ``newton`` kind
+    with the rcut mask, (side^3, t_cap, 3), in plain PyTorch on every
+    device: the JAX package's periodic engine (``_jnp_pair_cells(box=)``,
+    jnp on the TPU too), which the CUDA kernel does not take. Neighbour
+    (c + offset) mod side is read with its positions shifted by the
+    image, +-box on each wrapped axis, so every difference is the minimum
+    image (side >= 3 and cell edge >= rcut put each in-range pair in one
+    offset). Whole x-planes of target cells go at once, as many as keep
+    the live (cells, t_cap, cap) transient within
+    :data:`PLAIN_BATCH_SLOTS` pair slots (at least one plane), with no
+    host read. Padded target slots are not masked: the caller reads the
+    real slots only."""
+    t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
+    device, dtype = tcells_pos.device, tcells_pos.dtype
+    plane = side * side
+    coords = _all_coords(side, device)
+    offsets = _offsets(device)
+    planes = max(1, PLAIN_BATCH_SLOTS // (plane * t_cap * cap))
+    out = []
+    for x0 in range(0, side, planes):
+        cb = slice(x0 * plane, min(side, x0 + planes) * plane)
+        ids, shift = _periodic_neighbors(coords[cb], side, offsets, box,
+                                         dtype)  # (C, 27), (C, 27, 3)
+        tpos = tcells_pos[cb][:, :, None, :]  # (C, t_cap, 1, 3)
+        acc = tcells_pos.new_zeros((tpos.shape[0], t_cap, 3))
+        for o in range(27):
+            spos = (cells_pos[ids[:, o]] + shift[:, o, None, :])[:, None]
+            sgm = cells_gm[ids[:, o]][:, None]  # (C, 1, cap)
+            acc = acc + _tile_rows(tpos, spos, sgm, params, kind="newton",
+                                   cutoff=cutoff, eps=eps, use_rcut=True)
+        out.append(acc)
+    return torch.cat(out)
 
 
 def pair_cells_plain_batched(tcells_pos, t_count, cells_pos, cells_gm,
@@ -712,10 +808,7 @@ def real_pairs(t_count, s_count, side: int, t_cap: int, cap: int) -> int:
     """Pairs the kernel evaluates for these cell counts: over every cell
     and each of its in-grid neighbors, min(targets, t_cap) x min(sources,
     cap). Reads the counts on the host."""
-    c = torch.arange(side**3, device=t_count.device)
-    coords = torch.stack([c // (side * side), (c // side) % side, c % side],
-                         dim=-1)
-    ids, inside = _neighbors(coords, side)
+    ids, inside = _neighbors(_all_coords(side, t_count.device), side)
     src = torch.where(inside, s_count.clamp_max(cap)[ids], 0).sum(dim=1)
     return int((t_count.clamp_max(t_cap) * src).sum())
 
@@ -818,13 +911,20 @@ def nlist_near_field(targets, t_coords, cells_pos, cells_mass, cell_count,
 # ---------------------------------------------------------------------------
 
 
-def source_cells(positions, masses, *, rcut: float, side: int, cap: int):
+def source_cells(positions, masses, *, rcut: float, side: int, cap: int,
+                 box: float = 0.0):
     """The sources' cell list for one force evaluation: (origin, span,
     params, coords, binned), where params[0] = rcut_eff^2 with the
     effective radius min(rcut, cell edge) (the 27-neighborhood covers
     one cell edge only), a device scalar, and ``binned`` is
-    :func:`cells.bin_to_cells`'s tuple."""
-    origin, span = bounding_cube(positions)
+    :func:`cells.bin_to_cells`'s tuple. The grid spans the bounding cube,
+    or with ``box`` > 0 the box from the origin (the caller wraps the
+    positions into it)."""
+    if box > 0.0:
+        origin = positions.new_zeros(3)
+        span = positions.new_full((), box)
+    else:
+        origin, span = bounding_cube(positions)
     rcut_eff = torch.clamp_max(span / side, rcut)
     params = (rcut_eff * rcut_eff).reshape(1)
     coords = grid_coords(positions, origin, span, side)
@@ -851,20 +951,27 @@ def nlist_accelerations_vs(
     sources (positions, masses): the exact pair sum over all pairs with
     r <= min(rcut, cell edge), zero beyond. ``side``/``cap`` are the
     static cell-list sizing (:func:`resolve_nlist_sizing`), ``t_cap``
-    the target slots per cell (0: ``cap``). Overflow degradations per the
-    module docstring."""
+    the target slots per cell (0: ``cap``). ``box`` > 0 evaluates on the
+    periodic unit cell with minimum-image wrapping, in plain PyTorch on
+    every device (:func:`pair_cells_periodic`); it needs side >= 3.
+    Overflow degradations per the module docstring."""
     if box > 0.0:
-        raise NotPortedError(
-            "periodic nlist (box > 0) is not ported to gravity_tpu_torch "
-            "yet (ROADMAP.md Queue 1 item 7, with the periodic family)"
-        )
+        if side < 3:
+            raise ValueError(
+                f"periodic nlist needs side >= 3 (box/rcut >= 3); got "
+                f"side={side}"
+            )
+        # jnp.mod is torch.remainder (never fmod): results in [0, box).
+        span_b = rounded(box, positions.dtype)
+        positions = torch.remainder(positions, span_b)
+        targets = torch.remainder(targets, span_b)
     t_cap = t_cap or cap
     kt = targets.shape[0]
     # Profiler ranges name the stages (chip_smoke.py reads them); they
     # cost nothing measurable when no profiler runs.
     with record_function("nlist.bin"):
         origin, span, params, coords, binned = source_cells(
-            positions, masses, rcut=rcut, side=side, cap=cap)
+            positions, masses, rcut=rcut, side=side, cap=cap, box=box)
         cell_h = span / side
         (cells_pos, cells_mass, cell_count, cell_start, src_sort,
          src_sorted_ids) = binned
@@ -886,10 +993,15 @@ def nlist_accelerations_vs(
             )
 
     with record_function("nlist.pair_tiles"):
-        acc_cell = pair_cells_kernel(
-            tcells_pos, t_count, cells_pos, cells_gm, cell_count, side,
-            params, cutoff=cutoff, eps=eps, use_rcut=True, kind="newton",
-        )
+        if box > 0.0:
+            acc_cell = pair_cells_periodic(
+                tcells_pos, cells_pos, cells_gm, side, params, box=box,
+                cutoff=cutoff, eps=eps)
+        else:
+            acc_cell = pair_cells_kernel(
+                tcells_pos, t_count, cells_pos, cells_gm, cell_count, side,
+                params, cutoff=cutoff, eps=eps, use_rcut=True, kind="newton",
+            )
     with record_function("nlist.remainder"):
         rem_w, rem_com, over = _source_overflow_channels(
             cells_pos, cells_mass, cell_count, cmass_hat, ccom, m_scale, g,
@@ -897,7 +1009,7 @@ def nlist_accelerations_vs(
         )
         acc_cell = acc_cell + _remainder_cells(
             tcells_pos, rem_w, rem_com, over, side, params, kind="newton",
-            eps=eps, cell_h=cell_h,
+            eps=eps, cell_h=cell_h, box=box,
         )
 
     # Un-bin to per-target order; targets past t_cap take the whole-cell
@@ -910,6 +1022,7 @@ def nlist_accelerations_vs(
         fallback = _overflow_targets(
             targets[t_sort], t_coords[t_sort], g * cmass_hat * m_scale,
             ccom, side, params, kind="newton", eps=eps, cell_h=cell_h,
+            box=box,
         )
         acc_sorted = torch.where(over_t[:, None], fallback, acc_sorted)
         acc = torch.empty_like(acc_sorted)
@@ -926,7 +1039,8 @@ def nlist_accelerations(positions, masses, **kwargs) -> torch.Tensor:
 
 def make_nlist_local_kernel(*, rcut: float, side: int, cap: int = DEFAULT_CAP,
                             t_cap: int = 0, g: float = G,
-                            cutoff: float = CUTOFF_RADIUS, eps: float = 0.0):
+                            cutoff: float = CUTOFF_RADIUS, eps: float = 0.0,
+                            box: float = 0.0):
     """A (targets, sources, masses) -> accelerations closure; its
     ``sizing`` attribute is the as-run (side, cap, t_cap). ``t_cap`` below
     ``cap`` bins the targets (a multirate fast rung) into fewer slots a
@@ -936,7 +1050,7 @@ def make_nlist_local_kernel(*, rcut: float, side: int, cap: int = DEFAULT_CAP,
     def kernel(pos_i, pos_j, masses_j):
         return nlist_accelerations_vs(
             pos_i, pos_j, masses_j, rcut=rcut, side=side, cap=cap,
-            t_cap=t_cap, g=g, cutoff=cutoff, eps=eps,
+            t_cap=t_cap, g=g, cutoff=cutoff, eps=eps, box=box,
         )
 
     kernel.sizing = (side, cap, t_cap or cap)

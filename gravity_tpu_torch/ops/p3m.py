@@ -29,9 +29,10 @@ them through a pointer), and the overflow fallbacks that the JAX package
 gates with ``lax.cond`` are computed for every row and selected.
 
 Not ported yet (ROADMAP Queue 1 item 7): ``short_mode="slice"`` (the
-TPU's gather-free shifted-slice pass), the periodic P3M form, and the
-chip A/B file ``P3M_SHORT_TPU.json`` that the JAX ``auto`` mode reads (a
-TPU measurement).
+TPU's gather-free shifted-slice pass) and the chip A/B file
+``P3M_SHORT_TPU.json`` that the JAX ``auto`` mode reads (a TPU
+measurement). P3M is isolated-BC in both packages: a periodic run takes
+``pm`` or ``nlist`` (``gravity_tpu/simulation.py:911-919``).
 """
 
 from __future__ import annotations

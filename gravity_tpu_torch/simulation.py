@@ -2,7 +2,9 @@
 
 Counterpart of ``gravity_tpu/simulation.py`` for single-card runs of the
 direct sum, its Gram form, the cutoff-radius cell list, the P3M solver,
-the octree and the fast multipole solver in its dense and sparse layouts:
+the octree, the fast multipole solver in its dense and sparse layouts and
+the particle-mesh solver, isolated or in a periodic box (with the
+minimum-image cell list the box's other solver):
 build the initial state, resolve the force backend, then run blocks
 of steps, logging and recording between them. The JAX package jits a
 ``lax.scan`` per block; here a block is a Python loop over steps that
@@ -53,6 +55,8 @@ from .ops import (
     mxu_kernel,
     nlist,
     p3m,
+    periodic,
+    pm,
     sfmm,
     tree,
 )
@@ -179,8 +183,12 @@ def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
     A bf16 state takes the same route: the kernels' bf16 forms, the cell
     list's and the octree's near field through ``nlist_pair``'s (the
     config refuses bf16 with ``p3m``, as the JAX package's mesh FFT does).
+    A periodic ``auto`` is ``nlist`` with ``nlist_rcut`` > 0 (the periodic
+    member of the truncated family), else ``pm``.
     """
     backend = config.force_backend
+    if backend == "auto" and config.periodic_box > 0.0:
+        return "nlist" if config.nlist_rcut > 0.0 else "pm"
     if config.nlist_rcut > 0.0 and backend not in (
             "auto", "direct", "nlist", "dense", "chunked"):
         warnings.warn(
@@ -208,8 +216,10 @@ def _resolve_backend_for_run(config: SimulationConfig, state,
     candidates on a miss. Everything else keeps the static route with an
     ``off`` decision. A candidate's error once it runs propagates: routing
     does not go on by another route that would hide a kernel (the JAX
-    package falls back to the static route on any error)."""
-    if config.force_backend != "auto" or not config.autotune:
+    package falls back to the static route on any error). A periodic run
+    keeps the static route: pm and nlist are its only solvers."""
+    if (config.force_backend != "auto" or not config.autotune
+            or config.periodic_box > 0.0):
         return _resolve_backend(config, device), \
             autotune.off(config.force_backend)
     decision = autotune.resolve_backend_measured(config, state,
@@ -243,7 +253,7 @@ def _resolve_nlist_config(config: SimulationConfig, positions):
             )
         return side, cap or nlist.DEFAULT_CAP
     return nlist.resolve_nlist_sizing(positions, config.nlist_rcut, cap=cap,
-                                      side=side)
+                                      side=side, box=config.periodic_box)
 
 
 def _resolve_depth_and_warn(config: SimulationConfig, positions, where: str,
@@ -318,7 +328,7 @@ def _make_nlist_kernel(config: SimulationConfig, positions=None,
                                  "nlist kernel")
     return nlist.make_nlist_local_kernel(
         rcut=config.nlist_rcut, side=side, cap=cap, t_cap=t_cap, g=config.g,
-        cutoff=config.cutoff, eps=config.eps,
+        cutoff=config.cutoff, eps=config.eps, box=config.periodic_box,
     )
 
 
@@ -361,6 +371,13 @@ def make_local_kernel(config: SimulationConfig, backend: str,
         return functools.partial(fmm.fmm_accelerations_vs, depth=depth,
                                  leaf_cap=config.tree_leaf_cap,
                                  ws=config.tree_ws, t_cap=t_cap, **common)
+    if backend == "pm":
+        kw = dict(grid=config.pm_grid, g=config.g, eps=config.eps,
+                  assignment=config.pm_assignment)
+        if config.periodic_box > 0.0:
+            return functools.partial(periodic.pm_periodic_accelerations_vs,
+                                     box=config.periodic_box, **kw)
+        return functools.partial(pm.pm_accelerations_vs, **kw)
     if backend == "p3m":
         raise NotPortedError(
             "the rectangular kernel of force_backend='p3m' (multirate "
@@ -374,12 +391,14 @@ def make_local_kernel(config: SimulationConfig, backend: str,
 def make_initial_state(config: SimulationConfig,
                        device: DeviceLike = None) -> ParticleState:
     """The run's initial state from its config: drawn from a CPU generator
-    seeded with ``config.seed``, then moved to ``device``."""
+    seeded with ``config.seed``, then moved to ``device`` (the grf lattice
+    over the run's periodic box)."""
     gen = torch.Generator(device="cpu")
     gen.manual_seed(config.seed)
     return create_model(config.model, gen, config.n,
                         resolve_dtype(config.dtype),
-                        device=resolve_device(device))
+                        device=resolve_device(device),
+                        periodic_box=config.periodic_box)
 
 
 class SimulationDiverged(RuntimeError):
@@ -515,6 +534,14 @@ class Simulator:
         # timings, errors, skips) is an "off" decision for other backends.
         self.backend, self.autotune_decision = \
             _resolve_backend_for_run(config, state, self.device)
+        if config.periodic_box > 0.0 and self.backend not in ("pm", "nlist"):
+            raise ValueError(
+                "periodic_box > 0 needs a periodic-capable solver — "
+                "'pm' (full gravity, FFT) or 'nlist' (truncated "
+                f"short-range, minimum-image cell list); got "
+                f"{JAX_NAMES.get(self.backend, self.backend)!r} — "
+                "tree/p3m/direct backends are isolated-BC"
+            )
         # Injected unbuildable backends (utils/faults.py) fail here, where
         # the JAX package builds its kernels; nothing else raises
         # BackendUnavailable.
@@ -700,18 +727,29 @@ class Simulator:
         its shifted kernel there; above it the large-N potential of this
         device (:meth:`_large_n_potential`: the octree's on the CPU, as the
         JAX package off the TPU; the FMM's on the card, as the JAX package
-        on its accelerator). The periodic mesh's comes with that solver
-        (ROADMAP.md Queue 1 item 7). With an external field the ledger adds
-        its potential energy."""
+        on its accelerator). Full periodic gravity takes the mesh potential
+        the solver integrates (``pm``: ``periodic._potential_core`` over
+        mean-mass weights), and a truncated run in a box the minimum-image
+        pair scan. With an external field the ledger adds its potential
+        energy."""
         config = self.config
         truncated = config.nlist_rcut > 0.0 and self.backend in (
             "nlist", "dense", "chunked")
         rcut = config.nlist_rcut if truncated else 0.0
-        if truncated or self.n_real <= diagnostics.LEDGER_DENSE_MAX:
+        if config.periodic_box > 0.0 and not truncated:
+            def pe_dev(pos, m):
+                mw, m_mean = periodic.mean_mass_weights(m)
+                return periodic._potential_core(
+                    pos, mw, config.periodic_box, grid=config.pm_grid,
+                    g=config.g, eps=config.eps,
+                    assignment=config.pm_assignment), m_mean
+            pe_kind = "pm"
+        elif truncated or self.n_real <= diagnostics.LEDGER_DENSE_MAX:
             def pe_dev(pos, m):
                 return diagnostics.pe_hat_dense(
                     pos, m, cutoff=config.cutoff, eps=config.eps,
-                    rcut=rcut, chunk=chunk), diagnostics.mass_scale(m)
+                    rcut=rcut, box=config.periodic_box,
+                    chunk=chunk), diagnostics.mass_scale(m)
             pe_kind = "dense"
         else:
             pe_kind, pe_dev = self._large_n_potential()
@@ -766,9 +804,17 @@ class Simulator:
         if self._ledger_on:
             self._ledger_fn, self._ledger_convert, self.ledger_pe_kind = \
                 self.make_ledger()
+        truncated = config.nlist_rcut > 0.0 and self.backend in (
+            "nlist", "dense", "chunked")
+        if sent_every > 0 and config.periodic_box > 0.0 and not truncated:
+            warnings.warn(
+                "accuracy sentinel disabled: full periodic gravity has no "
+                "exact direct-sum oracle (the minimum-image reference only "
+                "covers the rcut-truncated nlist family)",
+                stacklevel=3,
+            )
+            self._sentinel_every = sent_every = 0
         if sent_every > 0:
-            truncated = config.nlist_rcut > 0.0 and self.backend in (
-                "nlist", "dense", "chunked")
             idx = sentinel_indices(self.n_real, config.sentinel_k,
                                    config.seed)
             # The run's own self-gravity on the whole state, its K sampled
@@ -777,7 +823,8 @@ class Simulator:
             self._sentinel_fn = make_force_error_probe(
                 full_set_probe_kernel(self._self_accel, idx), idx=idx,
                 g=config.g, cutoff=config.cutoff, eps=config.eps,
-                rcut=config.nlist_rcut if truncated else 0.0)
+                rcut=config.nlist_rcut if truncated else 0.0,
+                box=config.periodic_box if truncated else 0.0)
 
     @property
     def autotune(self) -> dict:
@@ -800,8 +847,15 @@ class Simulator:
             side, cap, _ = self.nlist_sizing
             return nlist.nlist_accelerations(
                 positions, masses, rcut=c.nlist_rcut, side=side, cap=cap,
-                **common,
+                box=c.periodic_box, **common,
             )
+        if self.backend == "pm":
+            kw = dict(grid=c.pm_grid, assignment=c.pm_assignment, g=c.g,
+                      eps=c.eps)
+            if c.periodic_box > 0.0:
+                return periodic.pm_periodic_accelerations(
+                    positions, masses, box=c.periodic_box, **kw)
+            return pm.pm_accelerations(positions, masses, **kw)
         if self.backend == "p3m":
             return p3m.p3m_accelerations(
                 positions, masses, grid=c.pm_grid,
@@ -885,20 +939,33 @@ class Simulator:
         scan below it. Returns an ``ops.encounters.MergeResult``."""
         c = self.config
         if state.n >= MERGE_GRID_THRESHOLD:
-            return merge_close_pairs_grid(state, c.merge_radius, k=c.merge_k)
+            return merge_close_pairs_grid(state, c.merge_radius, k=c.merge_k,
+                                          box=c.periodic_box)
         return merge_close_pairs(state, c.merge_radius, k=c.merge_k,
-                                 chunk=merge_scan_chunk(state.n))
+                                 chunk=merge_scan_chunk(state.n),
+                                 box=c.periodic_box)
 
     def _block_fn(self, state: ParticleState, acc: torch.Tensor, step_fn, *,
                   n_steps: int, record_every: int = 0):
         """``n_steps`` steps from ``(state, acc)``; with ``record_every`` a
-        (device) frame of positions every ``record_every`` steps."""
+        (device) frame of positions every ``record_every`` steps. A
+        periodic run re-wraps its positions once a block (the forces are
+        wrap-invariant: this guards precision over long drifts)."""
         frames = []
         for k in range(1, n_steps + 1):
             state, acc = step_fn(state, acc)
             if record_every and k % record_every == 0:
                 frames.append(state.positions)
-        return state, acc, frames
+        return self._wrap(state), acc, frames
+
+    def _wrap(self, state: ParticleState) -> ParticleState:
+        """Positions mod the periodic box (``jnp.mod`` is
+        ``torch.remainder``); the state itself when isolated."""
+        box = self.config.periodic_box
+        if box <= 0.0:
+            return state
+        return state.replace(positions=torch.remainder(
+            state.positions, rounded(box, state.positions.dtype)))
 
     def initial_carry(self, state: Optional[ParticleState] = None):
         """The first force evaluation of ``state`` (the run's by default):
@@ -1178,7 +1245,8 @@ class Simulator:
                     ledger_last = self._ledger_convert(blk.ledger)
                     ledger_blocks += 1
                     drift = drift_last = diagnostics.ledger_drift(
-                        ledger0, ledger_last)
+                        ledger0, ledger_last,
+                        com_frame=config.periodic_box <= 0.0)
                     if drift["energy_drift"] is not None:
                         max_energy_drift = max(max_energy_drift or 0.0,
                                                drift["energy_drift"])
@@ -1604,6 +1672,8 @@ class Simulator:
         total_time = time.perf_counter() - t0_wall
         if trajectory_writer is not None:
             trajectory_writer.close()
+        # The block loop's re-wrap, at the end of an adaptive run.
+        self.state = state = self._wrap(state)
 
         run_steps = steps_taken - start_steps
         stats = self._stats(run_steps, total_time, count() - launches0)
@@ -1695,10 +1765,20 @@ class Simulator:
         package on its accelerator), at a depth resolved once a run, and
         returns a host ``np.float64`` (kinetic energy and the potential
         each in float64, since |PE| can pass fp32's range); the dense pair
-        scan would cost ~5.5e11 pair evaluations at 1M bodies. Otherwise
-        the plain O(N^2) sum, a device scalar in the state's dtype."""
+        scan would cost ~5.5e11 pair evaluations at 1M bodies. A periodic
+        run (either solver) prices the potential with the mesh potential
+        the periodic solver integrates (the isolated pair sum is not
+        conserved in a box and jumps at re-wraps): a host ``np.float64``.
+        Otherwise the plain O(N^2) sum, a device scalar in the state's
+        dtype."""
         c = self.config
         state = self.final_state()
+        if c.periodic_box > 0.0:
+            return diagnostics.kinetic_energy_f64(state) + np.float64(
+                periodic.pm_periodic_potential_energy(
+                    state.positions, state.masses, box=c.periodic_box,
+                    grid=c.pm_grid, g=c.g, eps=c.eps,
+                    assignment=c.pm_assignment))
         if (self.backend not in ("tree", "fmm", "sfmm", "p3m")
                 or self.n_real <= ENERGY_TREE_THRESHOLD):
             return diagnostics.total_energy(

@@ -258,7 +258,7 @@ class RunSupervisor:
                     self.config = dataclasses.replace(
                         config, tree_leaf_cap=new_cap)
                     return
-        if e.backend in ("tree", "fmm", "sfmm", "p3m"):
+        if e.backend in ("tree", "fmm", "sfmm", "pm", "p3m"):
             nxt = _resolve_direct(config, self._on_card)
             if self._on_card and nxt in PLAIN_BACKENDS:
                 nxt = None

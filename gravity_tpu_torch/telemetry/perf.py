@@ -13,7 +13,11 @@ signature is the "compile":
   output element of an elementwise op, the input elements of a
   reduction, ``2 m n k`` for a matrix product, ``n ceil(log2 n)`` for a
   sort, a transcendental (and no flop) an element of ``rsqrt``,
-  ``sqrt``, ``exp``, ``log``, ``sin`` or ``cos``, and the operand and
+  ``sqrt``, ``exp``, ``log``, ``sin`` or ``cos``, the FFTs by one rule
+  (a transform of N points, the product of its transformed axes, costs
+  5 N log2 N flops complex to complex and 2.5 N log2 N real to complex
+  or complex to real, N counted on the real side, times the batch of
+  transforms the other axes hold), and the operand and
   result bytes of every op that moves data as ``bytes_accessed``. The
   hand-written kernels launch through ``ctypes``, which no dispatch mode
   sees: each wrapper calls :func:`count_launch` with its TPU
@@ -212,6 +216,10 @@ _REDUCTION = _names(
 _MATMUL = _names("mm", "bmm", "addmm", "baddbmm", "addbmm", "dot", "mv",
                  "addmv", "vdot")
 _SORT = _names("sort", "argsort", "topk", "kthvalue", "msort")
+# FFTs: real (r2c, c2r) at 2.5 N log2 N flops a transform of N points,
+# complex (c2c) at 5 N log2 N (the usual radix-2 operation count).
+_FFT_REAL = _names("_fft_r2c", "_fft_c2r")
+_FFT_COMPLEX = _names("_fft_c2c")
 # Scatter-adds: one flop an update element (XLA counts the update
 # computation once an update).
 _SCATTER_ADD = _names("index_add", "index_add_", "scatter_add",
@@ -243,7 +251,9 @@ def _category(func) -> str:
         for cat, names in (("free", _FREE), ("move", _MOVE),
                            ("transcendental", _TRANSCENDENTAL),
                            ("matmul", _MATMUL), ("reduction", _REDUCTION),
-                           ("sort", _SORT), ("scatter_add", _SCATTER_ADD)):
+                           ("sort", _SORT), ("scatter_add", _SCATTER_ADD),
+                           ("fft_real", _FFT_REAL),
+                           ("fft_complex", _FFT_COMPLEX)):
             if name in names:
                 break
         else:
@@ -255,6 +265,22 @@ def _category(func) -> str:
 
 
 _CATEGORIES: dict = {}
+
+
+def fft_flops(cat: str, args, ins, outs) -> float:
+    """An FFT's flops by the module's rule: ``args[1]`` names the
+    transformed axes; N is their size on the real side (the input of an
+    r2c, the output of a c2r), and the other axes are a batch."""
+    # The output of a c2r is real; an r2c's input and a c2c's are the
+    # real-side (or the complex) shape.
+    real = outs[0] if outs and outs[0].is_floating_point() else ins[0]
+    dims = args[1] if len(args) > 1 else range(real.dim())
+    n = math.prod(real.shape[d] for d in dims)
+    if n < 2:
+        return 0.0
+    batch = real.numel() // n
+    per = 2.5 if cat == "fft_real" else 5.0
+    return batch * per * n * math.log2(n)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -346,6 +372,8 @@ class CostCounter(TorchDispatchMode):
                                                                      2))))
         elif cat == "scatter_add":
             self.flops += ins[-1].numel() if ins else 0
+        elif cat in ("fft_real", "fft_complex"):
+            self.flops += fft_flops(cat, args, ins, outs)
         elif cat == "convert":
             if outs and ins and outs[0].dtype != ins[0].dtype:
                 self.flops += out_elems  # a convert is elementwise

@@ -71,6 +71,7 @@ def debug_check_forces(
     cutoff: Optional[float] = None,
     eps: float = 0.0,
     rcut: float = 0.0,
+    box: float = 0.0,
     sample: int = 2048,
     seed: int = 0,
     kernel=None,
@@ -84,7 +85,8 @@ def debug_check_forces(
     choosing ``sample`` of the N rows, sorted, so both packages check the
     same targets. The oracle is ``ops/forces.accelerations_vs`` in the
     state's dtype (rcut-masked when ``rcut`` > 0, the exact reference of
-    the truncated cell-list family), taken a few targets at a time.
+    the truncated cell-list family; with ``box`` > 0 also minimum-image,
+    the periodic cell list's oracle), taken a few targets at a time.
 
     ``kernel``: ``(targets, sources, masses) -> acc``; defaults to the
     direct-sum kernel's wrapper (``ops/direct_kernel.py``). ``full_acc``:
@@ -112,7 +114,7 @@ def debug_check_forces(
         got = kernel(targets, positions, masses)
     ref = torch.cat([
         accelerations_vs(targets[lo:lo + _ORACLE_ROWS], positions, masses,
-                         g=g, cutoff=cutoff, eps=eps, rcut=rcut)
+                         g=g, cutoff=cutoff, eps=eps, rcut=rcut, box=box)
         for lo in range(0, targets.shape[0], _ORACLE_ROWS)])
     # float64 before the division: on an fp32 array the +1e-300 guard
     # underflows to zero, and a zero-reference row (possible only with
@@ -167,28 +169,31 @@ def sentinel_indices(n: int, k: int, seed: int = 0) -> np.ndarray:
     )
 
 
-def _oracle(g: float, cutoff: float, eps: float, rcut: float):
+def _oracle(g: float, cutoff: float, eps: float, rcut: float,
+            box: float = 0.0):
     """The exact direct sum ``(targets, sources, masses) -> acc`` of the
     sentinel: ``nbody_direct``'s rectangular form (its wrapper launches
     the kernel on CUDA tensors and takes the plain sum only on CPU ones);
     with ``rcut`` > 0 the rcut-masked plain sum, the exact reference of
-    the truncated cell-list family, which no kernel computes."""
+    the truncated cell-list family, which no kernel computes (minimum
+    image with ``box`` > 0)."""
     if rcut > 0.0:
         return lambda t, p, m: accelerations_vs(
-            t, p, m, g=g, cutoff=cutoff, eps=eps, rcut=rcut)
+            t, p, m, g=g, cutoff=cutoff, eps=eps, rcut=rcut, box=box)
     from ..ops.direct_kernel import make_direct_local_kernel
 
     return make_direct_local_kernel(g=g, cutoff=cutoff, eps=eps)
 
 
 def make_force_error_probe(kernel, *, idx, g: float, cutoff: float,
-                           eps: float = 0.0, rcut: float = 0.0):
+                           eps: float = 0.0, rcut: float = 0.0,
+                           box: float = 0.0):
     """The device half of the accuracy sentinel: ``probe(positions,
     masses) -> (K,)`` relative force errors of ``kernel`` (``(targets,
     sources, masses) -> acc``) against the exact oracle (:func:`_oracle`)
     on the K fixed targets ``idx``. Queued right behind a block, so that
     its values are read through that block's completion fence."""
-    oracle = _oracle(g, cutoff, eps, rcut)
+    oracle = _oracle(g, cutoff, eps, rcut, box)
     idx_np = np.asarray(idx, np.int64)
     cache = {}
 

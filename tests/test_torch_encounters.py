@@ -19,7 +19,7 @@ from gravity_tpu.config import SimulationConfig as JaxConfig
 from gravity_tpu.ops import encounters as jenc
 from gravity_tpu.simulation import Simulator as JaxSimulator
 from gravity_tpu.state import ParticleState as JaxState
-from gravity_tpu_torch.config import NotPortedError, SimulationConfig
+from gravity_tpu_torch.config import SimulationConfig
 from gravity_tpu_torch.interop import state_from_numpy
 from gravity_tpu_torch.ops import encounters
 from gravity_tpu_torch.simulation import Simulator
@@ -183,19 +183,36 @@ def test_merge_close_pairs_grid_matches_jax(x64, dtype, radius):
     _merge_equal(got, want, dtype)
 
 
-def test_merge_scan_chunk_and_refusals():
+def test_merge_scan_chunk_and_refusals(x64):
+    """The chunk rule, and the periodic forms (``box`` > 0, ported with the
+    periodic family, no longer refused) against the JAX package's on one
+    state: minimum-image candidates, the grid's nearest neighbours and a
+    grid merge pass."""
     for n in (1, 1000, 50_000, 2_000_000):
         assert encounters.merge_scan_chunk(n) == jenc.merge_scan_chunk(n)
-    _, state = _pair(16, "float64", clumps=1)
-    for call in (
-        lambda: encounters.closest_pairs(state.positions, state.masses,
-                                         box=1e12),
-        lambda: encounters.merge_close_pairs_grid(state, 1e9, box=1e12),
-        lambda: encounters.nearest_within_radius_grid(
-            state.positions, state.masses, 1e9, side=4, cap=8, box=1e12),
-    ):
-        with pytest.raises(NotPortedError, match="Queue 1 item 7"):
-            call()
+    jstate, state = _pair(16, "float64", clumps=1)
+    box = 1e12
+    jd, ji, jj = jenc.closest_pairs(jstate.positions, jstate.masses, k=8,
+                                    chunk=4, box=box)
+    d, i, j = encounters.closest_pairs(state.positions, state.masses, k=8,
+                                       chunk=4, box=box)
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-12)
+    assert {(int(a), int(b)) for a, b in zip(i, j)} == \
+        {(int(a), int(b)) for a, b in zip(ji, jj)}
+    jd, jj, jdrop = jenc.nearest_within_radius_grid(
+        jstate.positions, jstate.masses, 3e9, side=4, cap=8, box=box)
+    d, j, drop = encounters.nearest_within_radius_grid(
+        state.positions, state.masses, 3e9, side=4, cap=8, box=box)
+    np.testing.assert_array_equal(j.numpy(), np.asarray(jj))
+    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=1e-12)
+    assert int(drop) == int(jdrop)
+    want = jenc.merge_close_pairs_grid(jstate, 3e9, box=box)
+    got = encounters.merge_close_pairs_grid(state, 3e9, box=box)
+    assert int(got.n_merged) == int(want.n_merged) > 0
+    np.testing.assert_array_equal(got.state.masses.numpy(),
+                                  np.asarray(want.state.masses))
+    np.testing.assert_allclose(got.state.positions.numpy(),
+                               np.asarray(want.state.positions), rtol=1e-12)
 
 
 @pytest.mark.parametrize("n,integrator", [(512, "leapfrog"), (2048, "euler")])

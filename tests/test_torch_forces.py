@@ -20,7 +20,6 @@ import torch
 import reference_oracle
 from gravity_tpu.ops import forces as jax_forces
 from gravity_tpu.ops.pallas_forces import pallas_accelerations_vs
-from gravity_tpu_torch.config import NotPortedError
 from gravity_tpu_torch.ops import direct_kernel
 from gravity_tpu_torch.ops.forces import (
     accelerations_vs,
@@ -169,9 +168,21 @@ def test_rcut_masked_sum_matches_jax(n, rcut):
 
 
 def test_box_is_not_ported():
-    pos, masses = _torch(*_system(8))
-    with pytest.raises(NotPortedError, match="Queue 1 item 7"):
-        accelerations_vs(pos, pos, masses, box=1e12)
+    """The minimum-image ``box`` form, ported with the periodic family (no
+    longer refused): against the JAX package's, plain and rcut-masked,
+    with positions straddling the box's faces."""
+    pos, masses = _system(64)
+    box = float(np.abs(pos).max())  # the cloud spans about two boxes
+    tp, tm = _torch(pos, masses)
+    for rcut in (0.0, 0.3 * box):
+        want = np.asarray(jax_forces.accelerations_vs(
+            jnp.asarray(pos), jnp.asarray(pos), jnp.asarray(masses),
+            eps=1e9, rcut=rcut, box=box))
+        got = accelerations_vs(tp, tp, tm, eps=1e9, rcut=rcut, box=box)
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-5,
+                                   atol=1e-6 * np.abs(want).max())
+        isolated = accelerations_vs(tp, tp, tm, eps=1e9, rcut=rcut)
+        assert not np.allclose(got.numpy(), isolated.numpy())
 
 
 def test_kernel_wrapper_on_cpu_is_the_plain_version():

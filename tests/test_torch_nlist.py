@@ -27,7 +27,7 @@ from gravity_tpu.config import SimulationConfig as JaxConfig
 from gravity_tpu.ops import pallas_nlist as jax_nlist
 from gravity_tpu.simulation import Simulator as JaxSimulator
 from gravity_tpu.state import ParticleState as JaxState
-from gravity_tpu_torch.config import NotPortedError, SimulationConfig
+from gravity_tpu_torch.config import SimulationConfig
 from gravity_tpu_torch.interop import state_from_numpy, state_to_numpy
 from gravity_tpu_torch.ops import nlist
 from gravity_tpu_torch.simulation import (
@@ -253,9 +253,18 @@ def test_local_kernel_closures():
 
 
 def test_periodic_form_is_not_ported():
+    """The periodic form, ported with the periodic family (no longer
+    refused): against the JAX package's periodic engine, the cap small
+    enough to reach the remainder monopoles; side 2 is refused by both."""
     pos, m = _cloud(32, seed=12)
-    with pytest.raises(NotPortedError, match="Queue 1 item 7"):
-        _port(pos, m, rcut=10.0, side=3, cap=8, box=100.0)
+    kw = dict(rcut=10.0, side=3, cap=8, box=100.0, **G1)
+    want = np.asarray(jax_nlist.nlist_accelerations_vs(
+        jnp.asarray(pos), jnp.asarray(pos), jnp.asarray(m), _self=True,
+        **kw))
+    got = _port(pos, m, **kw)
+    assert _max_over_mean(got, want) < 1e-5
+    with pytest.raises(ValueError, match="side >= 3"):
+        _port(pos, m, **dict(kw, side=2))
 
 
 # --- the Simulator, routing and the CLI ------------------------------------

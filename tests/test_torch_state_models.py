@@ -116,8 +116,14 @@ def test_initial_state_from_config_and_unported_models():
     assert torch.equal(a.positions, b.positions)
     with pytest.raises(ValueError, match="exactly 3 bodies"):
         create_model("solar", _gen(0), 4, torch.float32)
-    with pytest.raises(NotPortedError, match="Queue 1 item 7"):
+    # grf is ported: it needs a perfect cube, and its lattice period is
+    # the run's periodic box.
+    with pytest.raises(ValueError, match="perfect-cube"):
         create_model("grf", _gen(0), 4, torch.float32)
+    grf = make_initial_state(SimulationConfig(model="grf", n=64,
+                                              periodic_box=1e12), "cpu")
+    assert grf.n == 64 and float(grf.masses.sum()) == pytest.approx(1e33)
+    assert bool(((grf.positions >= 0) & (grf.positions < 1e12)).all())
 
 
 def test_interop_round_trip_with_a_jax_state():
@@ -142,7 +148,7 @@ def test_interop_round_trip_with_a_jax_state():
     ({"p3m_short": "slice"}, "Queue 1 item 7"),
     ({"nlist_mesh": "halo"}, "Queue 1 item 5"),
     # What stays unported of the integration modes: the sharded multirate
-    # forms (item 5) and merging in a periodic box (item 7).
+    # forms (item 5); merging in a periodic box is ported.
     ({"integrator": "multirate", "sharding": "allgather"}, "Queue 1 item 5"),
     ({"merge_radius": 1e9, "periodic_box": 1e12}, "Queue 1 item 7"),
     # The FMM is ported for fp32 and fp64 states; bf16 ones are queued.
@@ -150,12 +156,20 @@ def test_interop_round_trip_with_a_jax_state():
 ])
 def test_unported_features_are_refused(fields, item):
     """A JAX config asking for a feature no slice has ported is refused
-    with the ROADMAP item that ports it. ``profile`` (item 8) is ported
-    now: such a config loads and carries the field."""
+    with the ROADMAP item that ports it. ``profile`` (item 8) and the
+    periodic family (item 7: ``periodic_box``, ``pm_assignment``, the
+    ``grf`` model, the ``pm`` backend, merging in a box) are ported now:
+    such a config loads and carries its fields."""
     data = json.loads(JaxConfig().to_json())
     data.update(fields)
-    if fields == {"profile": True}:
-        assert SimulationConfig.from_json(json.dumps(data)).profile is True
+    ported = ({"profile": True}, {"periodic_box": 1e12},
+              {"pm_assignment": "tsc"}, {"model": "grf"},
+              {"force_backend": "pm"},
+              {"merge_radius": 1e9, "periodic_box": 1e12})
+    if fields in ported:
+        cfg = SimulationConfig.from_json(json.dumps(data))
+        for name, value in fields.items():
+            assert getattr(cfg, name) == value
         return
     with pytest.raises(NotPortedError, match=item):
         SimulationConfig.from_json(json.dumps(data))
