@@ -28,6 +28,14 @@ set to 0 just before the path and read just after:
 - the ``baseline-2m`` preset (the merger, N = 2,097,152, G = 1, eps =
   0.05) cut to 3 steps, through ``nbody_direct``, held to the plain
   version on 4,096 sampled targets;
+- the sharded direct sums on a world of one (NCCL, this card):
+  ``baseline-262k`` (allgather, 262,144 cold-collapse bodies, cut to 20
+  steps) bit for bit against the same config unsharded, and through
+  pallas-mxu (5 steps); ``baseline-2m-merger`` (the ring, cut to 2
+  steps), one force evaluation against the unsharded ``nbody_direct``
+  evaluation, its ms a step beside ``baseline-2m``'s; a (1, 1)
+  hierarchical ring on a 16,384-body state; each rectangular launch held
+  to the plain version at 4,096 sampled rows and timed;
 - ``baseline-16k`` at bf16, 500 steps through ``nbody_direct``'s bf16
   form and 500 through ``nbody_mxu``'s, each against fp32;
 - the integration modes, whose multirate fast kicks launch each kernel
@@ -63,6 +71,17 @@ set to 0 just before the path and read just after:
   dense on one overflow-free state; ``baseline-1m-fmm`` multirate (3
   steps, kicks through the dense grid's rectangular form, one held to
   ``nbody_direct``); ``--debug-check`` on the preset through the CLI;
+  ``baseline-1m-fmm`` at bf16 (3 steps, sparse, its cell totals
+  through ``segment_sum.cu``), against the fp32 sparse FMM at 4,096
+  targets (at least 2^-9 apart at the median), the port's
+  bf16-against-fp32 error on the CPU test's disk and on the preset's disk
+  cut to 4,096 bodies each within 1.5x of the JAX package's own there,
+  either way;
+- P3M's rectangular kernel and slice pass: the README P3M run
+  with ``--integrator multirate`` (k = 512, cut to 10 steps), its kicks
+  through the ``ewald`` kind at a ``t_cap`` below the cap, one kick's
+  tiles held to the plain version; one ``--p3m-short slice`` evaluation
+  of the README state against the cell-list pass;
 - the periodic box and cosmology, plain PyTorch and ``torch.fft``
   (no kernel may launch on their paths): cosmo-262k (262,144 grf bodies
   in a box of 1e13 m, ``--force-backend pm --pm-grid 128``, leapfrog, 100
@@ -1134,10 +1153,12 @@ def mxu_scale(xi, xj, gmj, eps, bf16, chunk=256):
     return torch.cat(rows)
 
 
-def mxu_compare(name, pos_i, pos_j, masses, eps, bf16) -> dict:
+def mxu_compare(name, pos_i, pos_j, masses, eps, bf16, rows=None) -> dict:
     """The Gram kernel's [S | W] against the plain version's, and the
     accelerations after the epilogue; a second launch must give the same
-    bits (the chunk sums are added in a fixed order)."""
+    bits (the chunk sums are added in a fixed order). With ``rows``, the
+    launch is the whole (M, K) one and its rows ``rows`` are held to the
+    plain version on those rows alone."""
     import torch
 
     from gravity_tpu_torch.constants import CUTOFF_RADIUS, G
@@ -1148,13 +1169,17 @@ def mxu_compare(name, pos_i, pos_j, masses, eps, bf16) -> dict:
     xi = (pos_i.float() - center).to(compute).contiguous()
     xj = (pos_j.float() - center).to(compute).contiguous()
     gm = (masses.float() * G).contiguous()
+    m_launch = xi.shape[0]
     kern = mxu_kernel.gram_acc4(xi, xj, gm, cutoff=CUTOFF_RADIUS, eps=eps)
     again = mxu_kernel.gram_acc4(xi, xj, gm, cutoff=CUTOFF_RADIUS, eps=eps)
+    torch.cuda.synchronize()
+    check(torch.equal(kern, again), f"nbody_mxu {name}: two runs differ")
+    if rows is not None:
+        kern, xi = kern[rows], xi[rows].contiguous()
     plain = mxu_kernel.gram_acc4_plain(xi, xj, gm, cutoff=CUTOFF_RADIUS,
                                        eps=eps, bf16=bf16)
     scale = mxu_scale(xi, xj, gm, eps, bf16)
     torch.cuda.synchronize()
-    check(torch.equal(kern, again), f"nbody_mxu {name}: two runs differ")
     record = compare(name, kern, plain, scale, "float32", reason=MXU_REASON)
     acc_k = kern[:, :3] - kern[:, 3:4] * xi.float()
     acc_p = plain[:, :3] - plain[:, 3:4] * xi.float()
@@ -1162,10 +1187,10 @@ def mxu_compare(name, pos_i, pos_j, masses, eps, bf16) -> dict:
     norm = acc_p.double().norm(dim=1)
     rel = (diff.norm(dim=1) / norm)[norm > 0]
     record.update({
-        "precision": "bf16" if bf16 else "fp32", "m": xi.shape[0],
-        "k": xj.shape[0],
+        "precision": "bf16" if bf16 else "fp32", "m": m_launch,
+        "k": xj.shape[0], "rows_compared": xi.shape[0],
         "source_chunks": mxu_kernel.chunks_for(
-            xi.shape[0], xj.shape[0], bf16=bf16, cutoff=CUTOFF_RADIUS,
+            m_launch, xj.shape[0], bf16=bf16, cutoff=CUTOFF_RADIUS,
             eps=eps),
         "bitwise_repeatable": True,
         "acc_max_abs_err": float(diff.abs().max()),
@@ -3809,6 +3834,7 @@ def segment_sum_edge_cases(dev):
         yield name, values.to(bf16).to(dev), ids.to(dev), n
 
 
+@functools.lru_cache(maxsize=1)
 def chain_cycles() -> float:
     """Cycles of one add.rn.bf16 in a dependent chain, measured now on the
     card by ``scripts/chain_latency.py``."""
@@ -7238,6 +7264,729 @@ def phase_analyze_path(device: dict, started) -> dict:
     return record
 
 
+# --- the sharded direct sums, P3M's kick and slice pass, bf16 FMM ----------
+
+SHARDED_262K_STEPS = 20
+SHARDED_MXU_STEPS = 5
+SHARDED_2M_STEPS = 2
+SHARDED_SAMPLE = 4096
+# The ring's rows held to the plain version, each against all 2,097,152
+# sources.
+SHARDED_2M_SAMPLE = 1024
+# Where the rectangular entry chunks its sources otherwise than the square
+# one, the sharded and unsharded forces may differ by rounding: at most
+# this much of a row's sum of |terms|.
+SHARDED_GAP_BAR = 1e-6
+HRING_RUN = dict(model="plummer", n=16_384, integrator="leapfrog",
+                 force_backend="pallas", eps=1.0e9, steps=10,
+                 sharding="ring", mesh_shape=(1, 1))
+# The README P3M state's multirate run: k = 512 is the largest fast rung
+# whose modeled densest-cell load fits under the cap (the disk's central
+# binning cell holds 36,722 of the 1,048,576 bodies: t_cap 36 of 64 at
+# k = 512, the full cap from k = 1,024).
+P3M_MULTIRATE_K = 512
+P3M_MULTIRATE_STEPS = 10
+# The slice pass against the cell-list pass on one evaluation of the README
+# P3M state, fp32: the same pair terms in another order, and the same
+# remainder monopoles; per target, in units of the RMS |a| (the JAX
+# package's P3M accuracy metric).
+P3M_SLICE_BAR = 1e-4
+FMM_BF16_STEPS = 3
+# The JAX package's own bf16-against-fp32 median relative error of the FMM
+# forces on the CPU, at the 1,024-body disk of
+# tests/test_torch_p3m_kick_fmm_bf16.py (depth 4, leaf cap 32; the sparse
+# layout k_cells 512 in chunks of 128), which pins these values; the port
+# on the card is held to 1.5x of them on the same inputs.
+FMM_BF16_JAX_CPU = {"fmm": 0.0420795054226199, "sfmm": 0.04460962995373498}
+FMM_BF16_RATIO = 1.5
+# A witness where the bf16 error has grown: the baseline-1m-fmm disk cut
+# to 4,096 bodies (its initial state, drawn on the CPU, rounded to bf16 for
+# both forms), the sparse FMM at the sizing a run resolves there. The JAX
+# package's own bf16-against-fp32 median on the CPU (pinned by
+# tests/test_torch_fmm_bf16_growth.py, which prints the figure at other
+# sizes); the card's is held within 1.5x of it either way.
+FMM_BF16_GROWTH_N = 4096
+FMM_BF16_GROWTH_JAX_CPU = 0.06873284532614546
+# The floor of the 1M figure: bf16 operands alone round each term by up
+# to 2^-9, so the bf16 forces differ from the fp32 ones by more than that
+# at the median; a path that quietly computed in fp32 would not.
+FMM_BF16_FLOOR = 2.0**-9
+FMM_BF16_STATE = dict(n=1024, seed=11)
+FMM_BF16_KW = {"fmm": dict(depth=4, leaf_cap=32, g=1.0, eps=0.05),
+               "sfmm": dict(depth=4, leaf_cap=32, g=1.0, eps=0.05,
+                            k_cells=512, k_chunk=128)}
+
+
+def fmm_bf16_disk(n: int, seed: int):
+    """The CPU test's disk (tests/test_torch_p3m_kick_fmm_bf16.py::_disk):
+    positions and masses in float64, drawn with numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    r = rng.exponential(3.0, n)
+    phi = rng.uniform(0.0, 2.0 * np.pi, n)
+    pos = np.stack([r * np.cos(phi), r * np.sin(phi),
+                    0.3 * rng.normal(size=n)], axis=1)
+    return pos, np.full(n, 5.0 / n)
+
+
+def fmm_bf16_growth_inputs(n: int = FMM_BF16_GROWTH_N):
+    """(positions, masses, sfmm kwargs) of the stall's witness: the
+    baseline-1m-fmm disk at ``n`` bodies, drawn on the CPU, in float64,
+    and the sparse sizing a run resolves on it."""
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.ops import sfmm
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    config = dataclasses.replace(PRESETS["baseline-1m-fmm"], n=n)
+    state = make_initial_state(config, "cpu")
+    depth, cap, k_cells = sfmm.resolve_sfmm_sizing(
+        state.positions, config.tree_depth, config.tree_leaf_cap)
+    kw = dict(depth=depth, leaf_cap=cap,
+              k_cells=sfmm.effective_k_cells(k_cells),
+              k_chunk=sfmm.DEFAULT_K_CHUNK, ws=config.tree_ws, g=config.g,
+              cutoff=config.cutoff, eps=config.eps)
+    return (state.positions.double().numpy(),
+            state.masses.double().numpy(), kw)
+
+
+def rows_gap(a, b, scale) -> float:
+    """max |a - b| over the row's term scale (0 where a and b agree)."""
+    diff = (a.double() - b.double()).abs()
+    return float((diff / scale.clamp_min(1e-300)).max())
+
+
+def gathered_direct_row(name, pos, masses, config, device, *, mxu=False):
+    """A rank's rectangular launch on a world of one: its rows against the
+    sources all_gather_into_tensor gives it (the allgather path's own
+    call), held to the plain version at SHARDED_SAMPLE sampled rows; the
+    launch at its full (n_local, N) shape timed beside the bound, the
+    plain version at the sampled rows (its whole shape would take
+    minutes), the gather alone and the path's whole sharded evaluation."""
+    import torch
+
+    from gravity_tpu_torch.ops import mxu_kernel
+    from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
+    from gravity_tpu_torch.ops.forces import accelerations_vs
+    from gravity_tpu_torch.parallel.mesh import all_gather_rows
+
+    kw = dict(g=config.g, cutoff=config.cutoff, eps=config.eps)
+    all_pos, all_m = all_gather_rows(pos), all_gather_rows(masses)
+    launch = (mxu_kernel.accelerations_vs_mxu_kernel if mxu
+              else accelerations_vs_kernel)
+    gen = torch.Generator().manual_seed(23)
+    idx = torch.randperm(pos.shape[0], generator=gen)[:SHARDED_SAMPLE].to(
+        pos.device)
+    pos_i = pos[idx].contiguous()
+    if mxu:
+        # The path's own (n_local, N) launch, its sampled rows compared.
+        record = mxu_compare(name, pos, all_pos, all_m, config.eps, False,
+                             rows=idx)
+    else:
+        kern = launch(pos, all_pos, all_m, **kw)[idx]
+        plain = torch.cat([accelerations_vs(p, all_pos, all_m, **kw)
+                           for p in torch.split(pos_i, 64)])
+        torch.cuda.synchronize()
+        record = compare(name, kern, plain,
+                         term_scale(pos_i, all_pos, all_m, config.eps,
+                                    chunk=32, g=config.g), "float32")
+
+    def kernel():
+        launch(pos, all_pos, all_m, **kw)
+
+    def plain_fn():
+        if mxu:
+            center = all_pos.mean(dim=0)
+            mxu_kernel.gram_acc4_plain(
+                (pos_i - center).contiguous(), (all_pos - center).contiguous(),
+                all_m * config.g, cutoff=config.cutoff, eps=config.eps,
+                bf16=False)
+        else:
+            for p in torch.split(pos_i, 256):
+                accelerations_vs(p, all_pos, all_m, **kw)
+
+    def gather():
+        all_gather_rows(pos)
+        all_gather_rows(masses)
+
+    cuda_ms(kernel, 2)
+    ms = [cuda_ms(kernel, 5), cuda_ms(kernel, 5)]
+    cuda_ms(plain_fn, 1)
+    plain_ms = cuda_ms(plain_fn, 2)
+    gather_ms = cuda_ms(gather, 20)
+    m, k = pos.shape[0], all_pos.shape[0]
+    n_bytes = (m * 3 + k * 4 + m * 3) * 4
+    terms = (mxu_bound(m * k, n_bytes, device, False) if mxu
+             else bound(m * k, FLOPS_PER_PAIR, n_bytes, device))
+    record.update({
+        "m": m, "k": k, "rows_compared": SHARDED_SAMPLE,
+        "ms": ms[0], "ms_repeat": ms[1], "plain_ms": plain_ms,
+        "plain_shape": [SHARDED_SAMPLE, k], "all_gather_ms": gather_ms,
+        **terms, "library_ms": None,
+        "library_note": "no single PyTorch call computes this sum",
+        "nvidia_smi": device["nvidia_smi"]})
+    if not mxu:
+        record["source_chunks"] = direct_chunks(m, k, pos.dtype, config.eps)
+    record["share_of_bound"] = record["bound_ms"] / ms[0]
+    return record
+
+
+def steps_profile(sim, steps: int = 3) -> dict:
+    """``steps`` steps of ``sim`` from its state (``run_block``, counting
+    off) under the profiler, after one warm step: the device's busy share
+    of the wall clock, its kernels a step, the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gravity_tpu_torch.telemetry import perf
+
+    with perf.uncounted():
+        state = sim.state
+        acc = sim.initial_carry(state)
+        sim.run_block(state, acc, n_steps=1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sim.run_block(state, acc, n_steps=steps)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    return profile_record(prof, ("sharded.",), steps, wall_ms)
+
+
+def sharded_run(config, name: str) -> tuple:
+    """A Simulator run of ``config`` with the launch counts reset just
+    before it and read just after."""
+    from gravity_tpu_torch.simulation import Simulator
+
+    sim = Simulator(config)
+    stats, counts = logged_run(sim, name, fixed_steps=config.steps)
+    return sim, stats, counts
+
+
+def phase_sharded_path(device: dict, base2m: dict) -> dict:
+    """The sharded direct sums on a world of one (NCCL, one card), through
+    the presets a user runs: ``baseline-262k`` (allgather, 262,144 cold-
+    collapse bodies, 20 of its steps) bit for bit against the unsharded run
+    of the same config; the same through pallas-mxu (5 steps);
+    ``baseline-2m-merger`` (the ring, 2,097,152 bodies, 2 steps) with one
+    force evaluation's bits against the unsharded nbody_direct evaluation
+    and its ms a step beside this run's baseline-2m; a (1, 1) hierarchical
+    ring on a 16,384-body state, bit for bit against its unsharded run.
+    Each rectangular launch is held to the plain version and timed."""
+    import torch
+    import torch.distributed as dist
+
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
+    from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
+    from gravity_tpu_torch.ops.forces import accelerations_vs
+
+    out = {"phase": "sharded_path", "nvidia_smi": device["nvidia_smi"]}
+    # baseline-262k: allgather, against the same config unsharded.
+    config = dataclasses.replace(PRESETS["baseline-262k"],
+                                 steps=SHARDED_262K_STEPS)
+    sim, stats, counts = sharded_run(config, "sharded_262k")
+    check(sim.backend == "nbody_direct" and sim.mesh.shape == (1,),
+          f"baseline-262k: backend {sim.backend}, mesh {sim.mesh.shape}")
+    check(stats["num_devices"] == 1 and stats["sharding"] == "allgather",
+          f"baseline-262k stats: {stats.get('sharding')}")
+    check(counts["nbody_direct"] == config.steps + 1,
+          f"{counts['nbody_direct']} nbody_direct launches for "
+          f"{config.steps} steps")
+    plain_cfg = dataclasses.replace(config, sharding="none")
+    ref_sim, ref_stats, _ = sharded_run(plain_cfg, "unsharded_262k")
+    # The same sharded run again: the first sharded run of a process pays
+    # once for its collectives' first steps (an earlier probe: 39.25 ms a
+    # step, then 36.43 against 36.39 unsharded).
+    _, again_stats, _ = sharded_run(config, "sharded_262k_again")
+    final, ref = stats["final_state"], ref_stats["final_state"]
+    same = (torch.equal(final.positions, ref.positions)
+            and torch.equal(final.velocities, ref.velocities))
+    # One evaluation of the final state, sharded and not.
+    a_sh = sim._self_accel(final.positions, final.masses)
+    a_un = accelerations_vs_kernel(final.positions, final.positions,
+                                   final.masses, g=config.g, eps=config.eps)
+    gen = torch.Generator().manual_seed(29)
+    idx = torch.randperm(config.n, generator=gen)[:SHARDED_SAMPLE].to(
+        a_sh.device)
+    scale = term_scale(final.positions[idx], final.positions, final.masses,
+                       config.eps, chunk=32, g=config.g)
+    gap = rows_gap(a_sh[idx], a_un[idx], scale)
+    eval_same = torch.equal(a_sh, a_un)
+    check(gap <= SHARDED_GAP_BAR,
+          f"baseline-262k sharded vs unsharded force gap {gap:.3e} of the "
+          f"term scale > {SHARDED_GAP_BAR:.0e}")
+    out["baseline_262k"] = {
+        "n": config.n, "steps": config.steps, "cut_from": PRESETS[
+            "baseline-262k"].steps,
+        "launches": counts["nbody_direct"], "counts": counts,
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "unsharded_ms_per_step": 1e3 * ref_stats["avg_step_s"],
+        "again_ms_per_step": 1e3 * again_stats["avg_step_s"],
+        "run_bitwise_equal_unsharded": same,
+        "again_bitwise_equal": all(
+            torch.equal(getattr(again_stats["final_state"], f),
+                        getattr(final, f))
+            for f in ("positions", "velocities")),
+        "eval_bitwise_equal_unsharded": eval_same,
+        "eval_gap_over_term_scale": gap,
+        "source_chunks": {"rectangular": direct_chunks(
+            config.n, config.n, torch.float32, config.eps),
+            "square": direct_chunks(config.n, config.n, torch.float32,
+                                    config.eps)},
+        "gap_cause": ("none: on a world of one the gathered sources are "
+                      "the state itself and the (n_local, N) launch is the "
+                      "square launch's shape and chunking"),
+        "perf": stats["perf"]}
+    # Where a world of one's step time goes beside the unsharded one's.
+    out["baseline_262k"]["step_profile"] = {
+        "sharded": steps_profile(sim), "unsharded": steps_profile(ref_sim)}
+    out["allgather"] = gathered_direct_row(
+        "nbody_direct/allgather baseline-262k (n_local, N)", final.positions,
+        final.masses, config, device)
+    del a_sh, a_un, ref_sim, ref_stats
+    # pallas-mxu under allgather.
+    mxu_cfg = dataclasses.replace(config, force_backend="pallas-mxu",
+                                  steps=SHARDED_MXU_STEPS)
+    msim, mstats, mcounts = sharded_run(mxu_cfg, "sharded_262k_mxu")
+    check(msim.backend == "nbody_mxu"
+          and mcounts["nbody_mxu"] == mxu_cfg.steps + 1,
+          f"pallas-mxu allgather: {msim.backend}, {mcounts}")
+    mfinal = mstats["final_state"]
+    out["mxu_262k"] = {"steps": mxu_cfg.steps, "launches":
+                       mcounts["nbody_mxu"], "counts": mcounts,
+                       "ms_per_step": 1e3 * mstats["avg_step_s"]}
+    out["mxu_allgather"] = gathered_direct_row(
+        "nbody_mxu/allgather baseline-262k (n_local, N)", mfinal.positions,
+        mfinal.masses, mxu_cfg, device, mxu=True)
+    del msim, mstats, mfinal
+    # baseline-2m-merger: the ring.
+    config = dataclasses.replace(PRESETS["baseline-2m-merger"],
+                                 steps=SHARDED_2M_STEPS)
+    sim, stats, counts = sharded_run(config, "sharded_2m_ring")
+    check(sim.backend == "nbody_direct" and stats["sharding"] == "ring",
+          f"baseline-2m-merger: {sim.backend}, {stats.get('sharding')}")
+    check(counts["nbody_direct"] == config.steps + 1,
+          f"{counts['nbody_direct']} nbody_direct launches (ring)")
+    final = stats["final_state"]
+    pos, masses = final.positions, final.masses
+    kw = dict(g=config.g, cutoff=config.cutoff, eps=config.eps)
+    # The ring's one hop (nothing sent on a world of one), timed by
+    # events: the hop's launch and the zero it is added to.
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    ring = sim._self_accel(pos, masses)
+    end.record()
+    square = accelerations_vs_kernel(pos, pos, masses, **kw)
+    torch.cuda.synchronize()
+    hop_ms = start.elapsed_time(end)
+    ring_same = torch.equal(ring, square)
+    idx = torch.randperm(config.n, generator=gen)[:SHARDED_2M_SAMPLE].to(
+        pos.device)
+    pos_i = pos[idx].contiguous()
+    scale = term_scale(pos_i, pos, masses, config.eps, chunk=32, g=config.g)
+    ring_gap = rows_gap(ring[idx], square[idx], scale)
+    check(ring_gap <= SHARDED_GAP_BAR,
+          f"ring vs unsharded gap {ring_gap:.3e} > {SHARDED_GAP_BAR:.0e}")
+    plain = torch.cat([accelerations_vs(p, pos, masses, **kw)
+                       for p in torch.split(pos_i, 64)])
+    torch.cuda.synchronize()
+    ring_rec = compare("nbody_direct/ring hop baseline-2m-merger "
+                       "(n_local, n_local)", ring[idx], plain, scale,
+                       "float32")
+    del ring, square
+
+    def plain_fn():
+        for p in torch.split(pos_i, 256):
+            accelerations_vs(p, pos, masses, **kw)
+
+    cuda_ms(plain_fn, 1)
+    plain_ms = cuda_ms(plain_fn, 2)
+    n = config.n
+    ring_rec.update({
+        "m": n, "k": n, "hops": sim.mesh.size, "ms": hop_ms,
+        "plain_ms": plain_ms, "plain_shape": [SHARDED_2M_SAMPLE, n],
+        "source_chunks": direct_chunks(n, n, torch.float32, config.eps),
+        **bound(n * n, FLOPS_PER_PAIR, (n * 3 + n * 4 + n * 3) * 4, device),
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes this sum",
+        "nvidia_smi": device["nvidia_smi"]})
+    ring_rec["share_of_bound"] = ring_rec["bound_ms"] / hop_ms
+    out["ring"] = ring_rec
+    out["baseline_2m_merger"] = {
+        "n": n, "steps": config.steps, "cut_from": PRESETS[
+            "baseline-2m-merger"].steps,
+        "launches": counts["nbody_direct"], "counts": counts,
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "baseline_2m_ms_per_step_this_run": base2m["ms_per_step"],
+        "eval_bitwise_equal_unsharded": ring_same,
+        "eval_gap_over_term_scale": ring_gap}
+    del sim, stats, final, pos, masses
+    # A (1, 1) hierarchical mesh: the outer gather and the inner ring.
+    hcfg = SimulationConfig(**HRING_RUN)
+    hsim, hstats, hcounts = sharded_run(hcfg, "hierarchical_ring_1x1")
+    check(hsim.mesh.shape == (1, 1), f"mesh {hsim.mesh.shape}")
+    _, ustats, _ = sharded_run(dataclasses.replace(hcfg, sharding="none",
+                                                   mesh_shape=None),
+                               "hierarchical_ring_unsharded")
+    hsame = all(torch.equal(getattr(hstats["final_state"], f),
+                            getattr(ustats["final_state"], f))
+                for f in ("positions", "velocities"))
+    check(hsame, "(1, 1) hierarchical ring: not the unsharded run's bits")
+    out["hierarchical_1x1"] = {
+        "n": hcfg.n, "steps": hcfg.steps, "launches": hcounts[
+            "nbody_direct"], "bitwise_equal_unsharded": hsame,
+        "ms_per_step": 1e3 * hstats["avg_step_s"]}
+    emit(out)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return out
+
+
+def p3m_kick_tiles(positions, masses, targets, *, grid, cap, t_cap, g,
+                   sigma_cells=1.25, rcut_sigmas=4.0):
+    """The ewald kind's arguments of a K-target P3M kick, as
+    ``p3m_accelerations_vs`` builds them: the sources' cells at ``cap``,
+    the targets binned on the same grid at ``t_cap``."""
+    import torch
+
+    from gravity_tpu_torch.ops import cells, p3m
+
+    origin, span = cells.bounding_cube(positions)
+    sigma = sigma_cells * (span / (grid - 1))
+    alpha = 1.0 / (math.sqrt(2.0) * sigma)
+    rcut = rcut_sigmas * sigma
+    side = p3m.binning_side(grid, sigma_cells, rcut_sigmas)
+    cells_pos, cells_mass, count = cells.bin_to_cells(
+        positions, masses, cells.grid_coords(positions, origin, span, side),
+        side, cap)[:3]
+    tcells_pos, _, t_count = cells.bin_to_cells(
+        targets, torch.ones_like(targets[:, 0]),
+        cells.grid_coords(targets, origin, span, side), side, t_cap)[:3]
+    params = torch.stack([rcut * rcut, alpha])
+    return (tcells_pos, t_count, cells_pos, g * cells_mass, count, side,
+            params)
+
+
+def phase_p3m_multirate_path(device: dict) -> dict:
+    """The README P3M run with --integrator multirate (k = 512, sub 4), cut
+    to 10 steps: every kick through make_local_kernel's p3m branch, the
+    ewald kind at the t_cap the occupancy model chose on the binning grid;
+    one kick's tiles at that t_cap against the plain version, timed beside
+    the bound and the whole kick."""
+    import warnings
+
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.ops import nlist, p3m
+    from gravity_tpu_torch.simulation import Simulator
+    from gravity_tpu_torch.utils.logging import RunLogger
+
+    config = SimulationConfig(**{**P3M_RUN, "integrator": "multirate",
+                                 "multirate_k": P3M_MULTIRATE_K,
+                                 "steps": P3M_MULTIRATE_STEPS})
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = Simulator(config)
+    side, cap, t_cap = sim.kick_sizing
+    check(side == p3m.binning_side(config.pm_grid, config.p3m_sigma_cells,
+                                   config.p3m_rcut_sigmas)
+          and t_cap < cap, f"p3m kick sizing {sim.kick_sizing}")
+    log_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(log_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=log_root) as log_dir:
+        logger = RunLogger(log_dir, quiet=True)
+        reset_counts()
+        stats = sim.run(logger)
+        counts = read_counts()
+    evals = 1 + (1 + config.multirate_sub) * config.steps
+    check(counts["nlist_pair/ewald"] == evals
+          and stats["kernel_launches"] == evals,
+          f"{counts['nlist_pair/ewald']} ewald launches for {evals} "
+          "multirate force evaluations")
+    check(not any(v for k, v in counts.items() if k != "nlist_pair/ewald"),
+          f"another kernel launched: {counts}")
+    final = stats["final_state"]
+    check(bool(torch.isfinite(final.positions).all()
+               & torch.isfinite(final.velocities).all()),
+          "p3m multirate: final state not finite")
+    pos, masses = final.positions, final.masses
+    idx = fast_targets(sim, final, P3M_MULTIRATE_K)
+    targets = pos[idx].contiguous()
+    args = p3m_kick_tiles(pos, masses, targets, grid=config.pm_grid, cap=cap,
+                          t_cap=t_cap, g=config.g)
+    kw = dict(cutoff=config.cutoff, eps=config.eps, kind="ewald")
+    kern = nlist.pair_cells_kernel(*args, **kw)
+    again = nlist.pair_cells_kernel(*args, **kw)
+    plain = nlist.pair_cells_plain(*args, **kw)
+    scale = nlist.pair_cells_plain(*args, absolute=True, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(kern, again), "p3m kick: two launches differ")
+    check_rec = compare("p3m kick at t_cap", kern.reshape(-1, 3),
+                        plain.reshape(-1, 3), scale.reshape(-1, 3),
+                        "float32", reason=EWALD_REASON)
+
+    def kernel():
+        nlist.pair_cells_kernel(*args, **kw)
+
+    def plain_fn():
+        nlist.pair_cells_plain(*args, **kw)
+
+    def kick():
+        sim._kick(targets, pos, masses)
+
+    cuda_ms(kernel, 3)
+    ms = [cuda_ms(kernel, 30), cuda_ms(kernel, 30)]
+    cuda_ms(plain_fn, 1)
+    plain_ms = cuda_ms(plain_fn, 3)
+    cuda_ms(kick, 2)
+    kick_ms = cuda_ms(kick, 5)
+    timing = {"ms": ms[0], "ms_repeat": ms[1], "plain_ms": plain_ms,
+              **ewald_bound(args, device), "library_ms": None,
+              "library_note": "no single PyTorch call computes a cell-list "
+                              "pair sum"}
+    timing["share_of_bound"] = timing["bound_ms"] / ms[0]
+    record = {
+        "phase": "p3m_multirate_path", "command": {
+            **P3M_RUN, "integrator": "multirate",
+            "multirate_k": P3M_MULTIRATE_K},
+        "steps": config.steps, "cut_from": P3M_RUN["steps"],
+        "k": P3M_MULTIRATE_K, "side": side, "cap": cap, "t_cap": t_cap,
+        "targets_over_t_cap": int((args[1] - t_cap).clamp_min(0).sum()),
+        "launches": counts["nlist_pair/ewald"], "counts": counts,
+        "ms_per_step": 1e3 * stats["avg_step_s"], "kick_ms": kick_ms,
+        "check": check_rec, "timing": timing,
+        "warnings": [str(w.message)[:160] for w in caught],
+        "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    return record
+
+
+def phase_p3m_slice(device: dict) -> dict:
+    """One P3M evaluation of the README state through --p3m-short slice
+    (the JAX package's gather-free pass, plain PyTorch) against the same
+    evaluation through the cell-list kernel; no kernel may launch in the
+    slice evaluation."""
+    import torch
+
+    from gravity_tpu_torch.ops import p3m
+
+    state = p3m_state("disk")
+    kw = dict(grid=P3M_RUN["pm_grid"], cap=P3M_RUN["p3m_cap"], g=1.0,
+              eps=P3M_RUN["eps"], khat=p3m_khat())
+    reset_counts()
+    t0 = time.perf_counter()
+    sliced = p3m.p3m_accelerations(state.positions, state.masses,
+                                   short_mode="slice", **kw)
+    torch.cuda.synchronize()
+    slice_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(not any(counts.values()), f"slice pass launched a kernel: {counts}")
+    ref = p3m.p3m_accelerations(state.positions, state.masses,
+                                short_mode="nlist", **kw)
+    check(bool(torch.isfinite(sliced).all()), "slice pass not finite")
+    rms = ref.double().norm(dim=1).square().mean().sqrt()
+    scaled = (sliced.double() - ref.double()).norm(dim=1) / rms
+    record = {"phase": "p3m_slice", "n": state.n, "grid": kw["grid"],
+              "cap": kw["cap"], "slice_eval_s": slice_s,
+              "max_scaled_gap": float(scaled.max()),
+              "median_scaled_gap": float(scaled.median()),
+              "bar": P3M_SLICE_BAR, "counts": counts,
+              "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    check(record["max_scaled_gap"] <= P3M_SLICE_BAR,
+          f"slice vs nlist pass: {record['max_scaled_gap']:.3e} of the RMS "
+          f"|a| > {P3M_SLICE_BAR:.0e}")
+    return record
+
+
+def sfmm_segment_sums(sim, pos, masses) -> list:
+    """The bf16 segment sums one sparse-FMM evaluation of ``sim`` takes
+    (``sfmm.sorted_segment_sum``'s calls), recorded as (values, ids, n)."""
+    from gravity_tpu_torch.ops import sfmm
+
+    calls = []
+    inner = sfmm.sorted_segment_sum
+
+    def record(values, ids, n):
+        calls.append((values, ids, n))
+        return inner(values, ids, n)
+
+    sfmm.sorted_segment_sum = record
+    try:
+        sim._self_accel(pos, masses)
+    finally:
+        sfmm.sorted_segment_sum = inner
+    return calls
+
+
+def segment_sum_row(name, values, ids, n, cycles, device) -> dict:
+    """segment_sum.cu at one of the sparse FMM's sums: the kernel against
+    the plain version (host copies) bit for bit, timed alone on its plan
+    beside the plain version (host clock), index_add_ on the card and the
+    bound (the longest segment's chain of dependent bf16 adds at the SM
+    clock sampled meanwhile, or the bytes)."""
+    import torch
+
+    from gravity_tpu_torch.ops import cells
+
+    ids = ids.long()
+    segments = cells.Segments(ids, n)
+    _, starts = segments.plan()
+    rows = segments.gather(values)
+    cols, n_rows = rows.shape[0], ids.shape[0]
+    longest = int(starts.diff().max())
+    kern = segments.sum(values)[0]
+    plain = cells.segment_sum_bf16_plain(values.cpu(), ids.cpu(), n)
+    check(bits_equal(kern, plain), f"{name}: not the plain version's bits")
+
+    def kernel():
+        cells.segment_sum_rows(rows, starts, n_rows)
+
+    def library():
+        torch.zeros((n, cols), dtype=values.dtype,
+                    device=values.device).index_add_(
+            0, ids, values.reshape(n_rows, cols))
+
+    cuda_ms(kernel, 2)
+    ms, clock_mhz, samples = with_sm_clock(lambda: cuda_ms(kernel, 100))
+    library_ms = cuda_ms(library, 3)
+    host = (values.cpu(), ids.cpu())
+    t0 = time.perf_counter()
+    cells.segment_sum_bf16_plain(*host, n)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    n_bytes = n_rows * (2 * cols + 8) + n * cols * 2
+    byte_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    chain_ms = 1e3 * longest * cycles / (clock_mhz * 1e6)
+    bound_ms = max(chain_ms, byte_ms)
+    return {"case": name, "cols": cols, "rows": n_rows, "segments": n,
+            "longest_segment_rows": longest, "max_abs_err": float(
+                (kern.cpu().double() - plain.double())[
+                    torch.isfinite(plain)].abs().max()),
+            "same_bits_as_plain": True, "ms": ms, "plain_ms": plain_ms,
+            "plain_on": "host CPU (host clock)", "library_ms": library_ms,
+            "library_note": "index_add_ on the card: bf16 atomics, another "
+                            "order of adds each run",
+            "bound_ms": bound_ms,
+            "bound_by": "operations" if chain_ms >= byte_ms else "bytes",
+            "chain_bound_ms": chain_ms, "bytes_bound_ms": byte_ms,
+            "sm_clock_mhz": clock_mhz, "sm_clock_samples": samples,
+            "share_of_bound": bound_ms / ms,
+            "nvidia_smi": device["nvidia_smi"]}
+
+
+def phase_fmm_bf16_path(device: dict) -> dict:
+    """``baseline-1m-fmm`` at --dtype bfloat16, cut to 3 steps: the sparse
+    layout (fmm_mode auto) with its cell totals summed by segment_sum.cu
+    (launches counted); its forces on the final state against the fp32
+    sparse FMM at 4,096 targets, at least FMM_BF16_FLOOR at the median;
+    the port's bf16-against-fp32 figure on the CPU test's disk, dense and
+    sparse, and on the preset's disk cut to 4,096 bodies, sparse, each
+    within 1.5x of the JAX package's own there, either way; the
+    evaluation's largest segment sum against the plain version and
+    timed."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.ops import fmm, sfmm
+    from gravity_tpu_torch.simulation import Simulator
+    from gravity_tpu_torch.utils.logging import RunLogger
+
+    config = dataclasses.replace(PRESETS["baseline-1m-fmm"],
+                                 dtype="bfloat16", steps=FMM_BF16_STEPS)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sim = Simulator(config)
+    check(sim.backend == "fmm" and sim.fmm_sparse,
+          f"bf16 fmm resolved {sim.backend}, sparse={sim.fmm_sparse}")
+    log_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(log_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=log_root) as log_dir:
+        reset_counts()
+        stats = sim.run(RunLogger(log_dir, quiet=True))
+        counts = read_counts()
+    check(counts["segment_sum/bf16"] > 0
+          and not any(v for k, v in counts.items()
+                      if k != "segment_sum/bf16"),
+          f"bf16 sparse FMM launches: {counts}")
+    final = stats["final_state"]
+    check(final.positions.dtype == torch.bfloat16
+          and bool(torch.isfinite(final.positions).all()
+                   & torch.isfinite(final.velocities).all()),
+          "bf16 fmm: final state")
+    pos, masses = final.positions, final.masses
+    depth, cap, k_cells, k_chunk = sim.sfmm_sizing
+    kw = dict(depth=depth, leaf_cap=cap, k_cells=k_cells, k_chunk=k_chunk,
+              ws=config.tree_ws, g=config.g, cutoff=config.cutoff,
+              eps=config.eps)
+    idx = fmm_sample(config.n, pos.device)
+    acc16 = sim._self_accel(pos, masses)[idx]
+    acc32 = sfmm.sfmm_accelerations(pos.float(), masses.float(), **kw)[idx]
+    vs_f32 = rel_errors(acc16.float(), acc32.double())
+    # The shared state of the CPU test, the same inputs as the JAX figure.
+    p_np, m_np = fmm_bf16_disk(**FMM_BF16_STATE)
+    shared = {}
+    for backend, fn in (("fmm", fmm.fmm_accelerations),
+                        ("sfmm", sfmm.sfmm_accelerations)):
+        out = {dt: fn(torch.tensor(p_np, dtype=dt, device=pos.device),
+                      torch.tensor(m_np, dtype=dt, device=pos.device),
+                      **FMM_BF16_KW[backend]).double()
+               for dt in (torch.bfloat16, torch.float32)}
+        rel = ((out[torch.bfloat16] - out[torch.float32]).norm(dim=1)
+               / out[torch.float32].norm(dim=1))
+        shared[backend] = {"median": float(rel.median()),
+                           "jax_cpu_median": FMM_BF16_JAX_CPU[backend],
+                           "band": [FMM_BF16_JAX_CPU[backend] / FMM_BF16_RATIO,
+                                    FMM_BF16_RATIO * FMM_BF16_JAX_CPU[backend]]}
+    # The witness where the error has grown: both forms on one bf16 state.
+    p_np, m_np, gkw = fmm_bf16_growth_inputs()
+    p16, m16 = (torch.tensor(a, device=pos.device).to(torch.bfloat16)
+                for a in (p_np, m_np))
+    g16 = sfmm.sfmm_accelerations(p16, m16, **gkw).double()
+    g32 = sfmm.sfmm_accelerations(p16.float(), m16.float(), **gkw).double()
+    grel = (g16 - g32).norm(dim=1) / g32.norm(dim=1)
+    growth = {"n": FMM_BF16_GROWTH_N, "sizing": gkw,
+              "median": float(grel.median()),
+              "p99": float(torch.quantile(grel, 0.99)),
+              "jax_cpu_median": FMM_BF16_GROWTH_JAX_CPU,
+              "band": [FMM_BF16_GROWTH_JAX_CPU / FMM_BF16_RATIO,
+                       FMM_BF16_RATIO * FMM_BF16_GROWTH_JAX_CPU]}
+    calls = sfmm_segment_sums(sim, pos, masses)
+    values, ids, n = max(calls, key=lambda c: c[0].numel())
+    seg = segment_sum_row("sparse FMM build, largest bf16 sum", values, ids,
+                          n, chain_cycles(), device)
+    record = {
+        "phase": "fmm_bf16_path", "preset": "baseline-1m-fmm",
+        "dtype": "bfloat16", "n": config.n, "steps": config.steps,
+        "cut_from": PRESETS["baseline-1m-fmm"].steps,
+        "sfmm_sizing": list(sim.sfmm_sizing), "counts": counts,
+        "launches": counts["segment_sum/bf16"],
+        "segment_sums_per_eval": len(calls),
+        "ms_per_step": 1e3 * stats["avg_step_s"],
+        "vs_fp32_sparse_fmm_targets": int(idx.numel()),
+        "vs_fp32_sparse_fmm": vs_f32, "vs_fp32_floor": FMM_BF16_FLOOR,
+        "shared_state_vs_fp32": shared, "growth_witness_vs_fp32": growth,
+        "segment_sum": seg,
+        "warnings": [str(w.message)[:160] for w in caught],
+        "nvidia_smi": device["nvidia_smi"]}
+    emit(record)
+    for what, r in (*shared.items(), ("sfmm 4,096", growth)):
+        low, high = r["band"]
+        check(low <= r["median"] <= high,
+              f"bf16 {what} vs fp32 median {r['median']:.3e} not within "
+              f"{FMM_BF16_RATIO}x of the JAX package's "
+              f"{r['jax_cpu_median']:.3e}")
+    check(bool(np.isfinite(vs_f32["median"]))
+          and vs_f32["median"] >= FMM_BF16_FLOOR,
+          f"bf16 vs fp32 median {vs_f32['median']!r}: not finite, or under "
+          f"{FMM_BF16_FLOOR!r} (a path that computed in fp32)")
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -7291,8 +8040,11 @@ def run_phases(torch) -> int:
     nlist_path = timed(phase_nlist_main_path)
     mxu_path = timed(phase_mxu_path)
     p3m_path = timed(phase_p3m_path)
+    p3m_mr = timed(phase_p3m_multirate_path, device)
+    p3m_slice = timed(phase_p3m_slice, device)
     base16k = timed(phase_baseline16k_path)
     base2m = timed(phase_baseline2m_path, device)
+    sharded = timed(phase_sharded_path, device, base2m)
     bf16_paths = timed(phase_bf16_paths)
     multirate = timed(phase_multirate_path, device, base16k)
     star = timed(phase_star_cluster_path, device)
@@ -7315,6 +8067,7 @@ def run_phases(torch) -> int:
     fmm_parity = timed(phase_fmm_parity_path, device)
     fmm_mr = timed(phase_fmm_multirate_path, device)
     timed(phase_fmm_debug_check, device)
+    fmm_bf16 = timed(phase_fmm_bf16_path, device)
     pm_periodic = timed(phase_pm_periodic_path, device)
     pm_isolated = timed(phase_pm_isolated_path, device)
     cosmo = timed(phase_cosmo_path, device)
@@ -7361,6 +8114,30 @@ def run_phases(torch) -> int:
           "baseline16k_kernel_share_of_step":
               timing["baseline16k"]["ms"][0] / base16k["ms_per_step"],
           "baseline2m_ms_per_step": base2m["ms_per_step"],
+          "sharded": {
+              "baseline_262k_ms_per_step":
+                  sharded["baseline_262k"]["ms_per_step"],
+              "unsharded_262k_ms_per_step":
+                  sharded["baseline_262k"]["unsharded_ms_per_step"],
+              "baseline_262k_again_ms_per_step":
+                  sharded["baseline_262k"]["again_ms_per_step"],
+              "baseline_262k_bitwise_unsharded":
+                  sharded["baseline_262k"]["run_bitwise_equal_unsharded"],
+              "baseline_2m_merger_ms_per_step":
+                  sharded["baseline_2m_merger"]["ms_per_step"],
+              "baseline_2m_merger_eval_bitwise_unsharded":
+                  sharded["baseline_2m_merger"][
+                      "eval_bitwise_equal_unsharded"],
+              "hierarchical_1x1_bitwise_unsharded":
+                  sharded["hierarchical_1x1"]["bitwise_equal_unsharded"]},
+          "p3m_multirate_ms_per_step": p3m_mr["ms_per_step"],
+          "p3m_slice_max_scaled_gap": p3m_slice["max_scaled_gap"],
+          "fmm_bf16": {
+              "ms_per_step": fmm_bf16["ms_per_step"],
+              "vs_fp32_median_1m": fmm_bf16["vs_fp32_sparse_fmm"]["median"],
+              "shared_state_vs_fp32": {
+                  k: v["median"] for k, v in
+                  fmm_bf16["shared_state_vs_fp32"].items()}},
           "bf16_kernel_share_of_step":
               timing["bf16"]["ms"]
               / bf16_paths["nbody_direct"]["ms_per_step"],
@@ -7525,6 +8302,28 @@ def run_phases(torch) -> int:
          serve_path["kernel_launches"]["nlist_pair/batched_bf16"],
          serve_kernels["max_abs_err"]["nlist_pair/batched_bf16"],
          serve_kernels["timing"]["nlist_pair/batched_bf16"]),
+        # The sharded direct sums on a world of one: the allgather's
+        # (n_local, N) launches (baseline-262k, pallas and pallas-mxu) and
+        # the ring's (n_local, n_local) hops (baseline-2m-merger).
+        ("nbody_direct/allgather", "gravity_tpu/ops/pallas_forces.py:45",
+         sharded["baseline_262k"]["launches"],
+         sharded["allgather"]["max_abs_err"], sharded["allgather"]),
+        ("nbody_direct/ring", "gravity_tpu/ops/pallas_forces.py:45",
+         sharded["baseline_2m_merger"]["launches"],
+         sharded["ring"]["max_abs_err"], sharded["ring"]),
+        ("nbody_mxu/allgather", "gravity_tpu/ops/pallas_forces_mxu.py:85",
+         sharded["mxu_262k"]["launches"],
+         sharded["mxu_allgather"]["max_abs_err"], sharded["mxu_allgather"]),
+        # P3M's multirate kicks: the ewald kind at t_cap < cap.
+        ("nlist_pair/p3m_kick", "gravity_tpu/ops/pallas_nlist.py:292",
+         p3m_mr["launches"], p3m_mr["check"]["max_abs_err"],
+         p3m_mr["timing"]),
+        # The bf16 sparse FMM's cell totals.
+        ("segment_sum/sfmm_bf16",
+         "none: jax.ops.segment_sum at gravity_tpu/ops/sfmm.py:187 is an "
+         "XLA scatter-add, not a Pallas kernel",
+         fmm_bf16["launches"], fmm_bf16["segment_sum"]["max_abs_err"],
+         fmm_bf16["segment_sum"]),
     ]
     emit({"kernels": [{
         "name": name, "route": "cuda",

@@ -37,7 +37,10 @@ JAX package's are XLA and ``jnp.fft``: the ``pm`` solver isolated and
 periodic (``ops/pm.py``, ``ops/periodic.py``), the minimum-image cell
 list, the ``grf`` model (``models/grf.py``), ``ops/cosmo.py`` with the
 ``cosmo`` verb, ``ops/spectra.py`` and ``ops/halos.py`` with the
-``analyze`` verb. ``ops/cuda_build.py`` builds every kernel.
+``analyze`` verb; and multi-device runs (``parallel/``: the sharded
+direct sums on ``torch.distributed``, allgather, the ring and the
+hierarchical ring, with the presets ``baseline-262k`` and
+``baseline-2m-merger``). ``ops/cuda_build.py`` builds every kernel.
 """
 
 from .config import PRESETS, SimulationConfig

@@ -103,7 +103,7 @@ def run_benchmark(config: SimulationConfig, *, warmup_steps: int = 3,
         model=config.model,
         integrator=config.integrator,
         backend=sim.backend,
-        sharding="none",
+        sharding=config.sharding,
         dtype=config.dtype,
         platform=sim.device.type,
         autotune_cache=sim.autotune["cache"],

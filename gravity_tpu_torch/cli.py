@@ -21,6 +21,13 @@ served ``--force-backend nlist`` job names its ``--nlist-rcut`` and
 ``--nlist-side`` (no state exists at admission to size the grid from;
 ``--nlist-cap`` defaults to 64); the daemon refuses it otherwise.
 
+Under ``--sharding allgather|ring`` (``--mesh-shape P`` or ``S,P/S``)
+``run`` is one rank of a ``torch.distributed`` world: the launcher's
+(``python -m torch.distributed.run``; ``--distributed`` joins it before
+anything else), or a world of one without a launcher. Every rank runs
+the same command; rank 0 alone writes the log, the trajectories, the
+metrics and the JSON line.
+
 Exit codes of ``run`` and ``resume``: 0 done; 1 a usage error; 2 a
 failure of the recovery layer (divergence, an accuracy breach, an
 exhausted retry budget, an unbuildable backend: one JSON line on stderr);
@@ -32,6 +39,11 @@ Usage:
     python -m gravity_tpu_torch run --preset baseline-16k
     python -m gravity_tpu_torch run --preset baseline-16k --dtype bfloat16
     python -m gravity_tpu_torch run --preset baseline-2m --steps 3
+    python -m gravity_tpu_torch run --preset baseline-262k --steps 20
+    python -m gravity_tpu_torch run --preset baseline-2m-merger --steps 2
+    python -m torch.distributed.run --nproc-per-node 4 -m gravity_tpu_torch \
+        run --device cpu --distributed --sharding ring --model plummer \
+        --n 4096 --eps 1e9 --integrator leapfrog --steps 20
     python -m gravity_tpu_torch run --preset baseline-1m --tree-near nlist
     python -m gravity_tpu_torch run --preset baseline-1m-fmm
     python -m gravity_tpu_torch run --model random --n 1048576 --eps 1e9 \
@@ -91,9 +103,11 @@ from .config import (
     INTEGRATORS,
     MODELS,
     FMM_MODES,
+    NLIST_MESH_MODES,
     P3M_SHORT_MODES,
     PM_ASSIGNMENTS,
     PRESETS,
+    SHARDING_MODES,
     TIMESTEP_CRITERIA,
     TREE_FAR_MODES,
     TREE_NEAR_MODES,
@@ -162,9 +176,9 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--p3m-short", dest="p3m_short", choices=P3M_SHORT_MODES,
                    default=None,
                    help="short-range pass: nlist = the cell-list kernel, "
-                        "gather = per-target block gathers (auto = nlist "
-                        "on the GPU, gather on the CPU; slice is not "
-                        "ported)")
+                        "gather = per-target block gathers, slice = the "
+                        "JAX package's gather-free shifted-slice pass "
+                        "(auto = nlist on the GPU, gather on the CPU)")
     p.add_argument("--tree-depth", dest="tree_depth", type=int, default=None,
                    help="octree leaf depth (0 = fit to the initial state)")
     p.add_argument("--tree-leaf-cap", dest="tree_leaf_cap", type=int,
@@ -191,6 +205,25 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                    help="periodic unit-cell side (0 = isolated BCs); "
                         "needs --force-backend pm (or nlist)")
     p.add_argument("--dtype", choices=DTYPES, default=None)
+    p.add_argument("--sharding", choices=SHARDING_MODES, default=None,
+                   help="the sharded direct sums over a torch.distributed "
+                        "world (parallel/): allgather, or the ring (on a "
+                        "two-axis --mesh-shape the hierarchical ring)")
+    p.add_argument("--mesh-shape", dest="mesh_shape",
+                   type=lambda s: tuple(int(x) for x in s.split(",")),
+                   default=None,
+                   help="device mesh shape, e.g. 8 or 2,4 (outer axis "
+                        "first; default: the world on one axis)")
+    p.add_argument("--nlist-mesh", dest="nlist_mesh",
+                   choices=NLIST_MESH_MODES, default=None,
+                   help="mesh strategy of nlist and p3m's near field: "
+                        "allgather (halo, and auto where the JAX package "
+                        "would take halo, are not ported)")
+    p.add_argument("--distributed", action="store_true", default=False,
+                   help="join the launcher's torch.distributed world "
+                        "first (python -m torch.distributed.run sets "
+                        "RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR and "
+                        "MASTER_PORT); a world of one without one")
     p.add_argument("--external", default=None,
                    help="analytic background field spec, e.g. "
                         "'nfw:gm=1e13,rs=2e20' or "
@@ -338,6 +371,33 @@ def _make_writer(config: SimulationConfig, logger, n_real: int):
     return TrajectoryWriter(base, n_real, every=1)
 
 
+def _world(args, config: SimulationConfig) -> tuple:
+    """(rank, world size) of this process: with ``--distributed`` or a
+    sharded config the world is joined first (``parallel/mesh.py``); any
+    other run is a world of one. A run on more than one process refuses
+    what is not ported for it (ROADMAP Queue 1 item 5)."""
+    if not (getattr(args, "distributed", False)
+            or config.sharding != "none"):
+        return 0, 1
+    import torch.distributed as dist
+
+    from .config import NotPortedError
+    from .parallel import initialize_distributed
+
+    # main() leaves a world it joined here when the verb returns.
+    args.joined_world = not dist.is_initialized()
+    initialize_distributed(args.device)
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if world > 1 and (config.auto_recover or config.checkpoint_every
+                      or args.command == "resume"):
+        raise NotPortedError(
+            "checkpoints, resume and the supervisor on more than one "
+            "device are not ported to gravity_tpu_torch yet (ROADMAP.md "
+            "Queue 1 item 5, checkpoint re-layout and the supervisor's "
+            "rungs)")
+    return rank, world
+
+
 def _debug_check(config: SimulationConfig, sim, final, logger) -> dict:
     """The run's backend against the plain direct sum on ``final``, at
     the as-run sizing (``utils/profiling.debug_check_forces``): for nlist
@@ -350,11 +410,15 @@ def _debug_check(config: SimulationConfig, sim, final, logger) -> dict:
     from .simulation import make_local_kernel
     from .utils.profiling import debug_check_forces
 
+    def log(message):
+        if logger is not None:
+            logger.log_print(message)
+
     kernel = full_acc = None
     rcut = (config.nlist_rcut
             if sim.backend in ("nlist", "dense", "chunked") else 0.0)
     if config.periodic_box > 0.0 and rcut <= 0.0:
-        logger.log_print(
+        log(
             "debug-check skipped: the direct-sum oracle is isolated-BC and "
             "cannot audit the periodic solver (tests/test_torch_periodic.py "
             "holds it to the Ewald pair instead)")
@@ -368,7 +432,7 @@ def _debug_check(config: SimulationConfig, sim, final, logger) -> dict:
         kernel = make_local_kernel(config, "nlist",
                                    positions=final.positions)
     elif sim.backend in ("p3m", "fmm", "sfmm"):
-        full_acc = sim._self_accel(final.positions, final.masses)
+        full_acc = sim.global_self_accel(final.positions, final.masses)
     elif sim.backend not in ("dense", "chunked"):
         kernel = make_local_kernel(config, sim.backend,
                                    positions=final.positions)
@@ -376,7 +440,7 @@ def _debug_check(config: SimulationConfig, sim, final, logger) -> dict:
         final.positions, final.masses, g=config.g, cutoff=config.cutoff,
         eps=config.eps, rcut=rcut, box=config.periodic_box, kernel=kernel,
         full_acc=full_acc)
-    logger.log_print(
+    log(
         f"Force cross-check ({sim.backend} vs the plain direct sum): "
         f"max_rel_err={check['max_rel_err']:.3e} "
         f"median_rel_err={check['median_rel_err']:.3e} "
@@ -392,7 +456,7 @@ def cmd_run(args: argparse.Namespace) -> int:
         Simulator,
         make_initial_state,
     )
-    from .supervisor import EXIT_PREEMPTED
+    from .supervisor import EXIT_FAILED, EXIT_PREEMPTED
     from .utils.faults import BackendUnavailable, TransientFault
     from .utils.logging import RunLogger
 
@@ -404,13 +468,20 @@ def cmd_run(args: argparse.Namespace) -> int:
             file=sys.stderr,
         )
         return 1
-    logger = RunLogger(config.log_dir)
+    # Every rank of a sharded world runs this same sequence, so that all
+    # reach the same collectives; rank 0 alone writes and prints.
+    lead = _world(args, config)[0] == 0
+
+    def failed(e) -> int:
+        return _print_failure_json(e) if lead else EXIT_FAILED
+
+    logger = RunLogger(config.log_dir) if lead else None
     sim = state0 = None
     if not config.auto_recover:
         try:
             sim = Simulator(config, device=args.device)
         except BackendUnavailable as e:
-            return _print_failure_json(e)
+            return failed(e)
         n_real = sim.n_real
     else:
         # The supervisor builds the Simulator (building one here would
@@ -418,7 +489,7 @@ def cmd_run(args: argparse.Namespace) -> int:
         # needs the model's count.
         state0 = make_initial_state(config, args.device)
         n_real = state0.n
-    writer = _make_writer(config, logger, n_real)
+    writer = _make_writer(config, logger, n_real) if lead else None
     ckpt_mgr = None
     if config.checkpoint_every or config.auto_recover:
         # The supervisor always needs one: the watchdog's emergency save
@@ -427,7 +498,7 @@ def cmd_run(args: argparse.Namespace) -> int:
 
         ckpt_mgr = make_checkpoint_manager(config.checkpoint_dir)
     metrics_logger = None
-    if config.metrics:
+    if config.metrics and lead:
         from .utils.profiling import MetricsLogger
 
         metrics_logger = MetricsLogger(os.path.join(
@@ -456,7 +527,7 @@ def cmd_run(args: argparse.Namespace) -> int:
                        metrics_logger=metrics_logger), sim
 
     try:
-        if config.profile:
+        if config.profile and lead:
             from .utils.profiling import trace
 
             with trace(os.path.join(config.log_dir,
@@ -469,6 +540,8 @@ def cmd_run(args: argparse.Namespace) -> int:
         # code lets a scheduler requeue the run.
         if writer is not None:
             writer.close()
+        if not lead:
+            return EXIT_PREEMPTED
         print(json.dumps({
             "preempted": True,
             "resumable": (ckpt_mgr is not None
@@ -481,7 +554,7 @@ def cmd_run(args: argparse.Namespace) -> int:
             BackendUnavailable) as e:
         if writer is not None:
             writer.close()
-        return _print_failure_json(e)
+        return failed(e)
     if config.debug_check:
         check = _debug_check(config, sim, stats["final_state"], logger)
         if check is not None:
@@ -490,7 +563,8 @@ def cmd_run(args: argparse.Namespace) -> int:
     if writer is not None:
         stats["trajectory_dir"] = getattr(writer, "out_dir", None) \
             or writer.path
-    print(json.dumps(stats))
+    if lead:
+        print(json.dumps(stats))
     return 0
 
 
@@ -513,6 +587,7 @@ def cmd_resume(args: argparse.Namespace) -> int:
     from .utils.logging import RunLogger
 
     config = build_config(args)
+    _world(args, config)
     mgr = make_checkpoint_manager(config.checkpoint_dir)
     try:
         state, step, extra = restore_checkpoint_with_extra(mgr, args.step)
@@ -1475,4 +1550,10 @@ def main(argv=None) -> int:
     _add_analysis_parsers(sub)
     _add_serving_parsers(sub)
     args = parser.parse_args(argv)
-    return args.func(args)
+    try:
+        return args.func(args)
+    finally:
+        if getattr(args, "joined_world", False):
+            import torch.distributed as dist
+
+            dist.destroy_process_group()

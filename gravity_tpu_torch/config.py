@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+from typing import Optional
 
 from . import constants as C
 
@@ -33,17 +34,36 @@ P3M_SHORT_MODES = ("auto", "gather", "slice", "nlist")
 FMM_MODES = ("auto", "dense", "sparse")
 TREE_FAR_MODES = ("direct", "expansion")
 TREE_NEAR_MODES = ("gather", "nlist")
+# none | allgather | ring (a (S, P/S) mesh_shape makes the ring the
+# hierarchical one): the sharded direct sums of parallel/sharded.py.
+SHARDING_MODES = ("none", "allgather", "ring")
+# The cell-list family's mesh strategy: halo (the slab decomposition) is a
+# later bullet of item 5; auto refuses where the JAX package would take it.
+NLIST_MESH_MODES = ("auto", "halo", "allgather")
 
 _QUEUE = "ROADMAP.md Queue 1 item"
+_HALO_ITEM = f"{_QUEUE} 5 (the halo and slab engines)"
 
 # Values of honoured fields that belong to a later slice.
 _UNPORTED_VALUES = {
-    "p3m_short": (
-        ("slice",),
-        f"{_QUEUE} 7 (the TPU's shifted-slice P3M pass; use nlist or "
-        "gather)",
-    ),
+    "nlist_mesh": (("halo",), _HALO_ITEM),
 }
+# Features that do not run on a mesh yet, each a later bullet of item 5:
+# (predicate on the config, what it is, the bullet).
+_UNPORTED_ON_MESH = (
+    (lambda c: c.force_backend in ("fmm", "sfmm"),
+     lambda c: f"force_backend={c.force_backend!r}",
+     f"{_QUEUE} 5 (the sharded FMM forms: the JAX package's slab engines "
+     "gravity_tpu/ops/fmm.py:1223 and ops/sfmm.py:1047)"),
+    (lambda c: c.integrator == "multirate",
+     lambda c: "integrator='multirate'",
+     f"{_QUEUE} 5 (sharded multirate: gravity_tpu/ops/multirate.py:124, "
+     ":401)"),
+    (lambda c: c.adaptive,
+     lambda c: "adaptive=True",
+     f"{_QUEUE} 5 (sharded adaptive: gravity_tpu/ops/multirate.py:232, "
+     ":501)"),
+)
 # P3M takes no bf16 state, as in the JAX package, whose mesh FFT refuses
 # one: nothing is left to port there.
 _BF16_REFUSED_BACKENDS = ("p3m",)
@@ -52,8 +72,6 @@ _BF16_REFUSED_REASON = (
     "jnp.fft.rfftn at gravity_tpu/ops/pm.py:286, takes float32 or float64 "
     "only (ValueError: RFFT input must be float32 or float64)"
 )
-# The FMM runs a bf16 state in the JAX package; here it is queued.
-_BF16_UNPORTED_BACKENDS = ("fmm", "sfmm")
 _UNPORTED_BACKENDS = {
     "cpp": (
         "ROADMAP.md Queue 2 (the JAX CPU XLA-FFI kernel has no port; "
@@ -65,11 +83,7 @@ _UNPORTED_BACKENDS = {
 # carry: (the JAX default, which means "feature off", and the ROADMAP item
 # that ports the feature). A JSON config may name them only at that value.
 _NOT_PORTED = {
-    "nlist_mesh": ("auto", f"{_QUEUE} 5 (halo)"),
-    "nlist_mig_cap": (0, f"{_QUEUE} 5 (halo)"),
-    "sharding": ("none", f"{_QUEUE} 5 (multi-GPU, with the sharded "
-                         "multirate forms)"),
-    "mesh_shape": (None, f"{_QUEUE} 5"),
+    "nlist_mig_cap": (0, _HALO_ITEM),
     # The span tracer of the serving stack's telemetry.
     "trace": (False, f"{_QUEUE} 9"),
 }
@@ -157,6 +171,16 @@ class SimulationConfig:
     fmm_mode: str = "auto"
     # Target chunk of the tree's evaluation and of the p3m gather pass.
     fast_chunk: int = 4096
+
+    # Multi-device execution (parallel/): one process a device on
+    # torch.distributed. sharding = none | allgather | ring; mesh_shape =
+    # (P,) or (S, P/S) (None: (world size,)); the hierarchical ring runs on
+    # a two-axis mesh. nlist_mesh: the mesh strategy of nlist and p3m's near
+    # field (allgather; halo is not ported, and auto refuses where the JAX
+    # package would take halo).
+    sharding: str = "none"
+    mesh_shape: Optional[tuple] = None
+    nlist_mesh: str = "auto"
 
     # Periodic-box gravity: the side of the periodic unit cell, 0 =
     # isolated boundaries. Needs force_backend "pm" (the periodic FFT
@@ -247,12 +271,19 @@ class SimulationConfig:
                 f"dtype='bfloat16' with force_backend={self.force_backend!r}"
                 f": {_BF16_REFUSED_REASON}; use float32 or float64"
             )
-        if (self.dtype == "bfloat16"
-                and self.force_backend in _BF16_UNPORTED_BACKENDS):
-            raise NotPortedError(
-                f"dtype='bfloat16' with force_backend="
-                f"{self.force_backend!r} is not ported to gravity_tpu_torch "
-                f"yet ({_QUEUE} 7, bf16 states through the FMM)")
+        if self.sharding != "none":
+            for applies, what, item in _UNPORTED_ON_MESH:
+                if applies(self):
+                    raise NotPortedError(
+                        f"{what} with sharding={self.sharding!r} is not "
+                        f"ported to gravity_tpu_torch yet ({item})")
+        if self.mesh_shape is not None:
+            self.mesh_shape = tuple(int(x) for x in self.mesh_shape)
+            if (len(self.mesh_shape) not in (1, 2)
+                    or min(self.mesh_shape) < 1):
+                raise ValueError(
+                    f"mesh_shape must be (P,) or (S, P/S) of positive "
+                    f"sizes, got {self.mesh_shape}")
         if self.force_backend in _UNPORTED_BACKENDS:
             raise NotPortedError(
                 f"force_backend={self.force_backend!r} is not ported to "
@@ -262,7 +293,8 @@ class SimulationConfig:
         for name, choices in (
             ("model", MODELS), ("integrator", INTEGRATORS),
             ("dtype", DTYPES), ("force_backend", FORCE_BACKENDS),
-            ("p3m_short", P3M_SHORT_MODES),
+            ("p3m_short", P3M_SHORT_MODES), ("sharding", SHARDING_MODES),
+            ("nlist_mesh", NLIST_MESH_MODES),
             ("tree_far", TREE_FAR_MODES), ("tree_near", TREE_NEAR_MODES),
             ("fmm_mode", FMM_MODES), ("pm_assignment", PM_ASSIGNMENTS),
             ("timestep_criterion", TIMESTEP_CRITERIA),
@@ -317,8 +349,8 @@ class SimulationConfig:
         return SimulationConfig(**kept)
 
 
-# Named presets: the three reference workloads and the single-card
-# baselines (copied from gravity_tpu/config.py).
+# Named presets: the three reference workloads, the single-card baselines
+# and the two sharded ones, all 11 of gravity_tpu/config.py.
 PRESETS = {
     "reference-mpi": SimulationConfig(model="random", n=8, integrator="euler"),
     # Pinned to the exact direct sum: reference parity means pairwise
@@ -354,5 +386,15 @@ PRESETS = {
     "baseline-2m": SimulationConfig(
         model="merger", n=2_097_152, integrator="leapfrog",
         force_backend="pallas", g=1.0, dt=2.0e-3, eps=0.05,
+    ),
+    # The sharded direct sums (parallel/sharded.py): allgather at 262,144
+    # bodies, and the 2M merger's ring.
+    "baseline-262k": SimulationConfig(
+        model="cold_collapse", n=262_144, integrator="leapfrog",
+        force_backend="pallas", sharding="allgather", eps=1.0e9,
+    ),
+    "baseline-2m-merger": SimulationConfig(
+        model="merger", n=2_097_152, integrator="leapfrog",
+        force_backend="pallas", sharding="ring", g=1.0, dt=2.0e-3, eps=0.05,
     ),
 }

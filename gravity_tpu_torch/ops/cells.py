@@ -93,9 +93,13 @@ def segment_sum(values: torch.Tensor, ids: torch.Tensor,
 
 def sorted_segment_sum(values: torch.Tensor, sorted_ids: torch.Tensor,
                        n: int) -> torch.Tensor:
-    """:func:`segment_sum` of fp32 or fp64 ``values`` whose ``sorted_ids``
-    are already in ascending order (a caller that holds a sort), with no
-    second sort."""
+    """:func:`segment_sum` of ``values`` whose ``sorted_ids`` are already
+    in ascending order (a caller that holds a sort): fp32 and fp64 with no
+    second sort; bf16 through :class:`Segments` (``csrc/segment_sum.cu``
+    on the card, the plain bf16 chain on the CPU), whose stable sort keeps
+    the element order, never through fp32 sums that would round once."""
+    if values.dtype == torch.bfloat16:
+        return Segments(sorted_ids.long(), n).sum(values)[0]
     return _sum_sorted(values, sorted_ids, n)
 
 

@@ -38,8 +38,10 @@ fallback targets (sizes of the passes that follow). The JAX package gates
 its fallback with ``lax.cond``; here the fallback runs on exactly the
 targets that take it, which gives each of them the same terms.
 
+A bf16 state runs at its own dtype, as in the JAX package.
+
 Not ported: the sharded form ``make_sharded_fmm_accel`` (ROADMAP.md Queue
-1 item 5) and bf16 states (item 7; the config refuses them).
+1 item 5).
 """
 
 from __future__ import annotations

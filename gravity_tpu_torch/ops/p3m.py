@@ -14,9 +14,12 @@ sigma))/r:
   (``ops/nlist.py::nlist_short_range_cells``: the ``ewald`` kind of the
   hand-written CUDA kernel ``csrc/nlist_pair.cu`` on the card, its plain
   version on the CPU); ``"gather"`` takes per-target gathers of the 27
-  neighbor cells' slot blocks in plain PyTorch. Sources beyond a cell's
-  ``cap`` and targets beyond ``t_cap`` degrade to cell-size-softened
-  monopoles; no mass is dropped.
+  neighbor cells' slot blocks in plain PyTorch; ``"slice"`` the JAX
+  package's gather-free TPU pass (:func:`_short_range_shifted`, 27
+  shifted slices of the padded cell grid a plane of target cells, plain
+  PyTorch: it has no Pallas kernel behind it, and it is kept for parity).
+  Sources beyond a cell's ``cap`` and targets beyond ``t_cap`` degrade to
+  cell-size-softened monopoles; no mass is dropped.
 
 The eps softening lives entirely in the short-range term. Typical accuracy
 at the defaults (sigma = 1.25 cells, r_cut = 4 sigma): ~1e-3..1e-2 median
@@ -28,11 +31,10 @@ cell edge follow the bounding cube as device scalars (the kernel reads
 them through a pointer), and the overflow fallbacks that the JAX package
 gates with ``lax.cond`` are computed for every row and selected.
 
-Not ported yet (ROADMAP Queue 1 item 7): ``short_mode="slice"`` (the
-TPU's gather-free shifted-slice pass) and the chip A/B file
-``P3M_SHORT_TPU.json`` that the JAX ``auto`` mode reads (a TPU
-measurement). P3M is isolated-BC in both packages: a periodic run takes
-``pm`` or ``nlist`` (``gravity_tpu/simulation.py:911-919``).
+The JAX ``auto`` mode's TPU default (``slice``, or the chip A/B file
+``P3M_SHORT_TPU.json``) is a TPU measurement and is not adopted: ``auto``
+is ``nlist`` on the card. P3M is isolated-BC in both packages: a periodic
+run takes ``pm`` or ``nlist`` (``gravity_tpu/simulation.py:911-919``).
 """
 
 from __future__ import annotations
@@ -43,10 +45,11 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from ..config import P3M_SHORT_MODES, NotPortedError
+from ..config import P3M_SHORT_MODES
 from ..constants import CUTOFF_RADIUS, G
 from .cells import (
     bin_to_cells,
+    _near_offsets,
     bounding_cube,
     cell_ids,
     grid_coords,
@@ -83,8 +86,9 @@ def resolve_short_mode(short_mode: str, device) -> str:
     The CPU takes ``"gather"``, as in the JAX package (its measured CPU
     winner). A CUDA device takes ``"nlist"``: the JAX rule gives an
     accelerator its gather-free pass, and here the gather-free pass is the
-    hand-written cell-list kernel (``"slice"`` is not ported). Explicit
-    modes are returned as given."""
+    hand-written cell-list kernel (the JAX package's ``"slice"`` default is
+    a TPU cost model). Explicit modes, ``"slice"`` among them, are returned
+    as given."""
     if short_mode not in P3M_SHORT_MODES:
         raise ValueError(f"unknown p3m short_mode {short_mode!r}; choose "
                          f"from {P3M_SHORT_MODES}")
@@ -310,6 +314,87 @@ def _gather_pass(targets, t_coords, cells_pos, cells_mass, cell_count,
     return map_target_chunks(chunk_short, targets, t_coords, chunk)
 
 
+def _pad_cells(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (S, S, S, ...) inside a zero (or False) border one cell wide:
+    ``jnp.pad(t, ((1, 1),) * 3 + ((0, 0),) * rest)``."""
+    s = t.shape[0]
+    out = t.new_zeros((s + 2, s + 2, s + 2, *t.shape[3:]))
+    out[1:-1, 1:-1, 1:-1] = t
+    return out
+
+
+def _short_range_shifted(tcells_pos, t_cap, cells_pos, cells_mass,
+                         cell_count, cmass_hat, ccom, m_scale, span,
+                         side: int, cap: int, g: float, cutoff: float,
+                         eps: float, alpha, rcut):
+    """``short_mode="slice"``: the JAX package's gather-free pass
+    (``gravity_tpu/ops/p3m.py::_short_range_shifted``), step for step in
+    plain PyTorch. A plane of target cells at a time, each of the 27
+    neighbour offsets reads every cell's source block as one shifted slice
+    of the zero-bordered (S^3, cap) grid and adds the erfc pair sum, then
+    that neighbour cell's beyond-cap remainder as a cell-size-softened
+    monopole (computed once over the grid). (S^3, t_cap, 3) in (cell,
+    slot) layout; padded target slots hold values the caller never reads.
+    The dense layout pays for empty slots, so it does cap / occupancy
+    times the gather pass's pair work."""
+    s = side
+    pos_g = cells_pos.reshape(s, s, s, cap, 3)
+    mass_g = cells_mass.reshape(s, s, s, cap)
+    tpos_g = tcells_pos.reshape(s, s, s, t_cap, 3)
+    cnt_g = cell_count.reshape(s, s, s)
+
+    # The per-cell overflow remainder, in normalized mass (m x overflows
+    # fp32 at astronomical scales).
+    pref_mhat = mass_g.sum(dim=-1) / m_scale
+    cell_mhat = cmass_hat.reshape(s, s, s)
+    over_g = cnt_g > cap
+    rem_mhat = torch.clamp_min(
+        torch.where(over_g, cell_mhat - pref_mhat, 0.0), 0.0)
+    tot_mw = ccom.reshape(s, s, s, 3) * cell_mhat[..., None]
+    pref_mw = ((mass_g / m_scale)[..., None] * pos_g).sum(dim=-2)
+    rem_com = (tot_mw - pref_mw) / torch.clamp_min(rem_mhat,
+                                                   1e-37)[..., None]
+
+    pos_p, mass_p = _pad_cells(pos_g), _pad_cells(mass_g)
+    rem_mhat_p, rem_com_p = _pad_cells(rem_mhat), _pad_cells(rem_com)
+    over_p = _pad_cells(over_g)
+
+    alpha3 = alpha * alpha * alpha
+    rcut2 = rcut * rcut
+    eps2 = eps * eps
+    eps_o2 = _eps_o2(eps, span / s)
+    c = s * s
+    planes = []
+    for x0 in range(s):
+        tpos = tpos_g[x0].reshape(c, t_cap, 3)
+        acc = torch.zeros_like(tpos)
+        for dx, dy, dz in _near_offsets(1).tolist():
+            x, y, z = 1 + x0 + dx, 1 + dy, 1 + dz
+            spos = pos_p[x, y:y + s, z:z + s].reshape(c, cap, 3)
+            smass = mass_p[x, y:y + s, z:z + s].reshape(c, cap)
+            diff = spos[:, None, :, :] - tpos[:, :, None, :]
+            r2 = (diff * diff).sum(dim=-1)  # (C, t_cap, cap)
+            ok = ((smass[:, None, :] > 0) & (r2 < rcut2)
+                  & (r2 + eps2 > cutoff * cutoff) & (r2 > 0))
+            w = _short_range_w(r2, alpha, eps2, alpha3)
+            w = torch.where(ok, g * smass[:, None, :] * w, 0.0)
+            acc = acc + torch.einsum("cts,ctsd->ctd", w, diff)
+
+            # This neighbour cell's overflow remainder.
+            r_m = rem_mhat_p[x, y:y + s, z:z + s].reshape(c)
+            r_c = rem_com_p[x, y:y + s, z:z + s].reshape(c, 3)
+            r_over = over_p[x, y:y + s, z:z + s].reshape(c)
+            diff_o = torch.where(r_over[:, None, None],
+                                 r_c[:, None, :] - tpos, 0.0)
+            r2o = (diff_o * diff_o).sum(dim=-1)
+            w_o = _short_range_w(r2o, alpha, eps_o2, alpha3)
+            w_o = torch.where(r_over[:, None],
+                              g * (r_m * m_scale)[:, None] * w_o, 0.0)
+            acc = acc + w_o[..., None] * diff_o
+        planes.append(acc)
+    return torch.stack(planes).reshape(-1, t_cap, 3)
+
+
 def p3m_accelerations_vs(
     targets: torch.Tensor,
     positions: torch.Tensor,
@@ -332,17 +417,10 @@ def p3m_accelerations_vs(
     isolated boundaries. ``grid`` is the mesh per axis, ``sigma_cells``
     the Ewald split scale in mesh cells, ``rcut_sigmas`` the short-range
     truncation, ``cap`` the cell list's source slots per cell, ``t_cap``
-    its target slots (0: ``cap``; ``nlist`` mode), ``chunk`` the target
-    chunk of the ``gather`` mode, ``khat`` a prebuilt
+    its target slots (0: ``cap``; ``nlist`` and ``slice`` modes),
+    ``chunk`` the target chunk of the ``gather`` mode, ``khat`` a prebuilt
     :func:`force_kernel_hat`. ``short_mode`` per :func:`resolve_short_mode`."""
     mode = resolve_short_mode(short_mode, positions.device)
-    if mode == "slice":
-        raise NotPortedError(
-            "p3m short_mode='slice' (the TPU's gather-free shifted-slice "
-            "pass) is not ported to gravity_tpu_torch yet (ROADMAP.md "
-            "Queue 1 item 7); use 'nlist' (the cell-list kernel) or "
-            "'gather'"
-        )
     origin, span = bounding_cube(positions)
     h = span / (grid - 1)
     sigma = sigma_cells * h
@@ -392,11 +470,19 @@ def p3m_accelerations_vs(
                 bin_to_cells(targets, torch.ones_like(targets[:, 0]),
                              t_coords, side, t_cap)
             )
-    near_cell = nlist_short_range_cells(
-        tcells_pos, t_cap, cells_pos, cells_mass, cell_count, cmass_hat,
-        ccom, m_scale, span, side, cap, g, cutoff, eps, alpha, rcut,
-        t_count=t_count,
-    )
+    if mode == "slice":
+        with record_function("p3m.slice_pass"):
+            near_cell = _short_range_shifted(
+                tcells_pos, t_cap, cells_pos, cells_mass, cell_count,
+                cmass_hat, ccom, m_scale, span, side, cap, g, cutoff, eps,
+                alpha, rcut,
+            )
+    else:
+        near_cell = nlist_short_range_cells(
+            tcells_pos, t_cap, cells_pos, cells_mass, cell_count, cmass_hat,
+            ccom, m_scale, span, side, cap, g, cutoff, eps, alpha, rcut,
+            t_count=t_count,
+        )
     # Un-bin to target order; targets past t_cap take the whole-cell
     # monopole fallback, computed for all and selected.
     with record_function("p3m.overflow_targets"):

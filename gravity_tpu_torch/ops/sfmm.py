@@ -33,8 +33,10 @@ sizing helpers are host numpy, as in the JAX package, and bin in the
 positions' own dtype, so they return the JAX package's integers.
 
 Host reads: one an evaluation (the occupied count and the fallback
-count). Not ported: ``make_sharded_sfmm_accel`` (ROADMAP.md Queue 1 item
-5) and bf16 states (item 7).
+count). A bf16 state runs at its own dtype, its cell totals through the
+bf16 segment sum (``csrc/segment_sum.cu`` on the card), as the JAX
+package's ``segment_sum`` at bf16. Not ported: ``make_sharded_sfmm_accel``
+(ROADMAP.md Queue 1 item 5).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """The simulation loop.
 
-Counterpart of ``gravity_tpu/simulation.py`` for single-card runs of the
+Counterpart of ``gravity_tpu/simulation.py`` for runs of the
 direct sum, its Gram form, the cutoff-radius cell list, the P3M solver,
 the octree, the fast multipole solver in its dense and sparse layouts and
 the particle-mesh solver, isolated or in a periodic box (with the
@@ -18,6 +18,11 @@ kernels), an external field added after self-gravity, collision merging
 at block boundaries every ``merge_every`` steps, and adaptive dt
 (:meth:`Simulator.run_adaptive`, blocks of ``ops/adaptive.py``'s device
 steps with one host read a block).
+
+With ``config.sharding`` the run is one rank of a ``torch.distributed``
+world (``parallel/``): its rows of the padded state, the force the
+sharded direct sum over the backend's rectangular kernel, what is global
+gathered (:class:`Simulator`).
 
 The run loop's host side is the JAX package's ``_run_impl`` contract: the
 depth-1 block pipeline (``io_pipeline``: block k+1 is queued before block
@@ -44,7 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import autotune
+from . import autotune, parallel
 from .config import NotPortedError, SimulationConfig
 from .interop import to_numpy
 from .models import create_model
@@ -217,9 +222,11 @@ def _resolve_backend_for_run(config: SimulationConfig, state,
     ``off`` decision. A candidate's error once it runs propagates: routing
     does not go on by another route that would hide a kernel (the JAX
     package falls back to the static route on any error). A periodic run
-    keeps the static route: pm and nlist are its only solvers."""
+    keeps the static route: pm and nlist are its only solvers, and so does
+    a sharded one (the JAX package's mesh candidates include the halo
+    engine, a later bullet of ROADMAP item 5)."""
     if (config.force_backend != "auto" or not config.autotune
-            or config.periodic_box > 0.0):
+            or config.periodic_box > 0.0 or config.sharding != "none"):
         return _resolve_backend(config, device), \
             autotune.off(config.force_backend)
     decision = autotune.resolve_backend_measured(config, state,
@@ -336,9 +343,11 @@ def make_local_kernel(config: SimulationConfig, backend: str,
                       positions=None, k_targets=None):
     """The rectangular kernel ``(pos_targets (M, 3), pos_sources (K, 3),
     m_sources (K,)) -> (M, 3)`` of a resolved backend: the multirate fast
-    kicks' (K, N) force. ``positions`` (the initial state) and
-    ``k_targets`` (the targets a call) size the cell list's target
-    slots. Forward only: backward passes are ROADMAP Queue 1 item 9."""
+    kicks' (K, N) force, and a rank's (n_local, N) block on a mesh.
+    ``positions`` (the initial state) and ``k_targets`` (the targets a
+    call) size the target slots of the cell list and of P3M's near field
+    (P3M's on its own binning grid). Forward only: backward passes are
+    ROADMAP Queue 1 item 9."""
     common = dict(g=config.g, cutoff=config.cutoff, eps=config.eps)
     if backend in ("dense", "chunked"):
         # The rcut-masked sum where truncated physics is declared.
@@ -379,12 +388,28 @@ def make_local_kernel(config: SimulationConfig, backend: str,
                                      box=config.periodic_box, **kw)
         return functools.partial(pm.pm_accelerations_vs, **kw)
     if backend == "p3m":
-        raise NotPortedError(
-            "the rectangular kernel of force_backend='p3m' (multirate "
-            "kicks through a fast solver) is not ported to "
-            "gravity_tpu_torch yet (ROADMAP.md Queue 1 item 7, fast "
-            "full-gravity solvers)"
-        )
+        note = p3m.check_p3m_sizing(
+            config.n, config.pm_grid, config.p3m_sigma_cells,
+            config.p3m_rcut_sigmas, config.p3m_cap, positions=positions)
+        if note:
+            warnings.warn(note, stacklevel=2)
+        side = p3m.binning_side(config.pm_grid, config.p3m_sigma_cells,
+                                config.p3m_rcut_sigmas)
+        t_cap = 0
+        if k_targets is not None:
+            # The cell-list and slice passes cost their target slots, not
+            # K: size them to the K-target occupancy of the binning grid
+            # the kernel itself runs on.
+            t_cap = _occupancy_t_cap(config.p3m_cap, k_targets, config.n,
+                                     positions, side, "p3m kernel")
+        kernel = functools.partial(
+            p3m.p3m_accelerations_vs, grid=config.pm_grid,
+            sigma_cells=config.p3m_sigma_cells,
+            rcut_sigmas=config.p3m_rcut_sigmas, cap=config.p3m_cap,
+            chunk=config.fast_chunk, short_mode=config.p3m_short,
+            t_cap=t_cap, **common)
+        kernel.sizing = (side, config.p3m_cap, t_cap or config.p3m_cap)
+        return kernel
     raise ValueError(f"unknown force backend {backend!r}")
 
 
@@ -513,27 +538,87 @@ class _Block:
 
 
 
+def _p3m_halo_side(config: SimulationConfig, mesh) -> int:
+    """The near-field cell side the JAX package's halo-sharded P3M would
+    run on this mesh (``binning_side`` rounded down to a multiple of the
+    devices), or 0 where the slab form does not fit (a two-axis mesh, or
+    fewer whole cell planes than devices)."""
+    if len(mesh.shape) != 1:
+        return 0
+    devices = mesh.shape[0]
+    side = p3m.binning_side(config.pm_grid, config.p3m_sigma_cells,
+                            config.p3m_rcut_sigmas)
+    side = (side // devices) * devices
+    return side if side >= max(devices, 2) else 0
+
+
+def _check_mesh_backend(config: SimulationConfig, backend: str,
+                        mesh) -> None:
+    """The JAX Simulator's refusals on a mesh: the ring cannot build a
+    global tree, grid or cell list; and where it would take the halo slab
+    engine (nlist or P3M's near field with ``nlist_mesh="auto"`` on a
+    single-axis mesh of two or more devices) the port refuses, since the
+    halo engine is a later bullet of ROADMAP Queue 1 item 5."""
+    if config.sharding == "ring" and backend in (
+            "tree", "fmm", "sfmm", "pm", "p3m", "nlist"):
+        raise ValueError(
+            f"force backend {backend!r} needs the full source set per "
+            "chip to build its tree/mesh; use sharding='allgather'")
+    halo_fits = len(mesh.shape) == 1 and mesh.shape[0] >= 2
+    if config.nlist_mesh == "auto" and halo_fits and (
+            backend == "nlist"
+            or (backend == "p3m" and _p3m_halo_side(config, mesh) > 0)):
+        raise NotPortedError(
+            f"force_backend={backend!r} on a {mesh.shape[0]}-device mesh "
+            "with nlist_mesh='auto' takes the halo slab engine in the JAX "
+            "package, which is not ported to gravity_tpu_torch yet "
+            "(ROADMAP.md Queue 1 item 5, the halo and slab engines); "
+            "pass nlist_mesh='allgather'")
+
+
 class Simulator:
     """Orchestrates a run for a :class:`SimulationConfig`: fixed-dt
-    (:meth:`run`) or adaptive (:meth:`run_adaptive`)."""
+    (:meth:`run`) or adaptive (:meth:`run_adaptive`).
+
+    With ``config.sharding`` set the run is one rank of a
+    ``torch.distributed`` world (``parallel/``; a world of one when no
+    launcher made one): every rank draws the same initial state, pads it
+    to a multiple of the mesh size with zero-mass bodies and keeps its own
+    rows in ``self.state``; the force is the sharded direct sum over the
+    backend's rectangular kernel. The watchdog's verdict is an
+    ``all_reduce``, and what is global (the final state, trajectory
+    frames, the ledger, the sentinel, the merge pass, :meth:`energy`) is
+    gathered to every rank; the caller lets rank 0 alone write."""
 
     def __init__(self, config: SimulationConfig,
                  state: Optional[ParticleState] = None, *,
                  device: DeviceLike = None):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = None
+        if config.sharding != "none":
+            self.mesh = parallel.make_particle_mesh(config.mesh_shape,
+                                                    device=device)
+            self.device = self.mesh.device
+        else:
+            self.device = resolve_device(device)
         self.dtype = resolve_dtype(config.dtype)
         if state is None:
             state = make_initial_state(config, self.device)
         else:
             state = state.astype(self.dtype).to(self.device)
-        self.state = state
         self.n_real = state.n
         # Plain auto routes through the autotuner, which probes its
         # candidates on this initial state; its verdict (cache, probe time,
         # timings, errors, skips) is an "off" decision for other backends.
         self.backend, self.autotune_decision = \
             _resolve_backend_for_run(config, state, self.device)
+        if self.mesh is not None:
+            _check_mesh_backend(config, self.backend, self.mesh)
+            # Sizing reads the padded global state, as the JAX package's
+            # reads its sharded global array.
+            state, _ = state.pad_to(
+                math.ceil(state.n / self.mesh.size) * self.mesh.size)
+        self.state = state
         if config.periodic_box > 0.0 and self.backend not in ("pm", "nlist"):
             raise ValueError(
                 "periodic_box > 0 needs a periodic-capable solver — "
@@ -618,35 +703,60 @@ class Simulator:
             kick = make_local_kernel(config, self.backend,
                                      positions=state.positions, k_targets=k)
             self.kick_sizing = getattr(kick, "sizing", None)
+            if self.backend == "p3m":
+                kick = self._with_run_khat(kick)
             if self._ext is not None:
                 ext = self._ext
                 self._kick = lambda ti, sj, m: kick(ti, sj, m) + ext(ti)
             else:
                 self._kick = kick
+        # The sharded direct sum over the backend's rectangular kernel
+        # (every backend with one: the JAX package's generic mesh branch),
+        # then this rank's rows of the padded state.
+        self._sharded = None
+        if self.mesh is not None:
+            local = make_local_kernel(config, self.backend,
+                                      positions=state.positions)
+            if self.backend == "p3m":
+                local = self._with_run_khat(local)
+            self._sharded = parallel.make_sharded_accel2(
+                self.mesh, strategy=config.sharding, local_kernel=local)
+            self.state = parallel.shard_state(state, self.mesh)
         self._build_observatory()
         # The performance observatory: the block the run loop, run_block
         # (bench, the autotuner's probe) and the perf gate go through.
         # Each (n_steps, record_every, n, dtype, device) signature's first
         # call counts one step's flops, bytes and transcendentals and
         # measures its peak device bytes into the perf ledger, beside the
-        # pair model's one-step flops (JAX simulation.py:1208-1262).
+        # pair model's one-step flops (JAX simulation.py:1208-1262); a
+        # rank's row counts its own (n_local, N) block.
         _perf.warm(self.device)
         # Rows name the backend as the JAX package does (pallas, not
         # nbody_direct), so that the two packages' keys agree.
         n, name = state.n, JAX_NAMES.get(self.backend, self.backend)
         self._run_block = _perf.InstrumentedBlock(
             self._block_fn, site="solo_block",
-            key=_perf.logical_key("solo", backend=name, n=n,
-                                  dtype=config.dtype,
-                                  integrator=config.integrator),
+            key=_perf.logical_key(
+                "solo", backend=name, n=n, dtype=config.dtype,
+                integrator=config.integrator,
+                sharding=config.sharding if self.mesh is not None else None),
             backend=name, n=n,
             analytic=_perf.analytic_flops(
                 self.backend, n,
                 force_evals=FORCE_EVALS_PER_STEP.get(config.integrator, 1),
                 evaluated_pairs=(self.nlist_sizing[2]
                                  if self.nlist_sizing is not None
-                                 else None)),
+                                 else None),
+                targets=self.state.n),
         )
+
+    def _with_run_khat(self, kernel):
+        """P3M's rectangular ``kernel`` with the run's kernel transform
+        (built once, :meth:`_setup_accel`) instead of one built every
+        call."""
+        def with_khat(targets, positions, masses):
+            return kernel(targets, positions, masses, khat=self._p3m_khat)
+        return with_khat
 
     def _resolve_fmm(self, positions) -> None:
         """The FMM's layout and sizing: sparse for ``sfmm`` or
@@ -777,7 +887,8 @@ class Simulator:
         """The host ledger of ``state`` (the current one by default), with
         its ``pe_kind``: a fenced, one-off evaluation."""
         device_fn, convert, pe_kind = self.make_ledger(chunk)
-        out = convert(device_fn(self.state if state is None else state))
+        out = convert(device_fn(self.global_state(self.state)
+                                if state is None else state))
         out["pe_kind"] = pe_kind
         return out
 
@@ -821,7 +932,7 @@ class Simulator:
             # rows against the exact oracle: one extra force evaluation a
             # probe.
             self._sentinel_fn = make_force_error_probe(
-                full_set_probe_kernel(self._self_accel, idx), idx=idx,
+                full_set_probe_kernel(self.global_self_accel, idx), idx=idx,
                 g=config.g, cutoff=config.cutoff, eps=config.eps,
                 rcut=config.nlist_rcut if truncated else 0.0,
                 box=config.periodic_box if truncated else 0.0)
@@ -834,7 +945,10 @@ class Simulator:
 
     def _self_accel(self, positions: torch.Tensor,
                     masses: torch.Tensor) -> torch.Tensor:
-        """All-pairs self-gravity through the resolved backend."""
+        """All-pairs self-gravity through the resolved backend; on a mesh,
+        of this rank's rows (a collective)."""
+        if self._sharded is not None:
+            return self._sharded(positions, masses)
         c = self.config
         common = dict(g=c.g, cutoff=c.cutoff, eps=c.eps)
         if self.backend == KERNEL_BACKEND:
@@ -882,6 +996,26 @@ class Simulator:
             return accelerations_vs(positions, positions, masses, **common)
         return pairwise_accelerations_chunked(positions, masses,
                                               chunk=c.chunk, **common)
+
+    def global_self_accel(self, positions: torch.Tensor,
+                          masses: torch.Tensor) -> torch.Tensor:
+        """:meth:`_self_accel` of a whole (padded) state, on every rank: on
+        a mesh each rank evaluates its rows and the results are gathered
+        (a collective), so that audits and the sentinel see the run's own
+        sharded force."""
+        if self.mesh is None:
+            return self._self_accel(positions, masses)
+        mine = parallel.shard_state(ParticleState(
+            positions, torch.zeros_like(positions), masses), self.mesh)
+        return parallel.mesh.all_gather_rows(self._self_accel(
+            mine.positions, mine.masses))[:positions.shape[0]]
+
+    def global_state(self, state: ParticleState) -> ParticleState:
+        """The whole (padded) state of a rank's rows, on every rank; the
+        state itself off a mesh."""
+        if self.mesh is None:
+            return state
+        return parallel.replicate_state(state, self.mesh)
 
     def accel(self, positions: torch.Tensor,
               masses: torch.Tensor) -> torch.Tensor:
@@ -1055,18 +1189,29 @@ class Simulator:
         here waits for the card."""
         blk = _Block(prev_step, n_steps, state)
         if finite_due:
-            blk.finite = _to_host(torch.isfinite(state.positions).all()
-                                  & torch.isfinite(state.velocities).all())
+            finite = (torch.isfinite(state.positions).all()
+                      & torch.isfinite(state.velocities).all())
+            if self.mesh is not None:
+                # One verdict for every rank, so that all stop together.
+                finite = parallel.mesh.all_ranks_true(finite)
+            blk.finite = _to_host(finite)
         if frames:
-            blk.frames = _to_host(torch.stack(frames))
+            stacked = torch.stack(frames)
+            if self.mesh is not None:
+                # The frames' particle axis gathered, padding dropped.
+                stacked = parallel.mesh.all_gather_rows(
+                    stacked.transpose(0, 1)).transpose(0, 1)[:, :self.n_real]
+            blk.frames = _to_host(stacked)
         if save_due:
             blk.snapshot = _host_state(state)
+        whole = (self.global_state(state) if ledger_due or sentinel_due
+                 else None)
         if ledger_due:
             blk.ledger = {k: _to_host(v)
-                          for k, v in self._ledger_fn(state).items()}
+                          for k, v in self._ledger_fn(whole).items()}
         if sentinel_due:
-            blk.sentinel = _to_host(self._sentinel_fn(state.positions,
-                                                      state.masses))
+            blk.sentinel = _to_host(self._sentinel_fn(whole.positions,
+                                                      whole.masses))
         if state.positions.device.type == "cuda":
             # Recorded even with nothing queued: waiting on it is how the
             # loop observes the block's completion.
@@ -1111,8 +1256,18 @@ class Simulator:
                 checkpoint_manager=checkpoint_manager,
                 metrics_logger=metrics_logger)
         total_steps = config.steps if steps is None else steps
-        # Frames are kept only when there is somewhere to put them.
+        # Frames are kept only when there is somewhere to put them (on a
+        # mesh, rank 0's writer: every rank gathers them).
         record = trajectory_writer is not None
+        if self.mesh is not None:
+            if checkpoint_manager is not None and self.mesh.size > 1:
+                raise NotPortedError(
+                    "checkpoints of a run on more than one device are not "
+                    "ported to gravity_tpu_torch yet (ROADMAP.md Queue 1 "
+                    "item 5, checkpoint re-layout and the supervisor's "
+                    "rungs)")
+            record = not bool(parallel.mesh.all_ranks_true(
+                torch.tensor(not record, device=self.device)))
         every = max(1, config.trajectory_every) if record else 1
         block = max(1, min(config.progress_every, total_steps))
         merging = config.merge_radius > 0.0
@@ -1140,7 +1295,9 @@ class Simulator:
         sent_every = self._sentinel_every if self._sentinel_fn else 0
         ledger0 = ledger_last = drift_last = max_energy_drift = None
         if ledger_on:
-            ledger0 = self._ledger_convert(self._ledger_fn(state))
+            # Global, as every later reading is (a collective on a mesh).
+            ledger0 = self._ledger_convert(
+                self._ledger_fn(self.global_state(state)))
         ledger_blocks = 0
         sent_stats = {"probes": 0, "max_rel_err": None, "last": None}
         blocks_dispatched = 0
@@ -1274,10 +1431,15 @@ class Simulator:
                 if merging and (steps_since_merge_check >= config.merge_every
                                 or end_step >= total_steps):
                     steps_since_merge_check = 0
-                    res = self.merge_pass(state)
+                    # On a mesh the pair scan sees the gathered state, and
+                    # a merge is sharded again.
+                    res = self.merge_pass(self.global_state(state))
                     n_merged = int(res.n_merged)
                     if n_merged > 0:
-                        state = self.state = last_good = res.state
+                        state = res.state
+                        if self.mesh is not None:
+                            state = parallel.shard_state(state, self.mesh)
+                        self.state = last_good = state
                         merged_total += n_merged
                         if logger is not None:
                             logger.log_print(
@@ -1290,7 +1452,7 @@ class Simulator:
                         acc = self.accel(state.positions, state.masses)
                         if ledger_on:
                             ledger0 = self._ledger_convert(
-                                self._ledger_fn(state))
+                                self._ledger_fn(self.global_state(state)))
                 if metrics_logger is not None:
                     extra = {}
                     if drift is not None:
@@ -1441,6 +1603,17 @@ class Simulator:
             "kernel_launches": launches,
             **{f"autotune_{k}": v for k, v in self.autotune.items()},
         }
+        if self.mesh is not None:
+            # This rank's launches; the rate is the world's, and a chip's
+            # share of it.
+            stats.update({
+                "sharding": self.config.sharding,
+                "mesh_shape": list(self.mesh.shape),
+                "num_devices": self.mesh.size,
+                "pairs_per_sec_per_chip": (
+                    pairs / total_time / self.mesh.size
+                    if total_time > 0 else None),
+            })
         if self.config.integrator == "multirate":
             k, capacities = self._multirate_plan()
             stats["multirate_k"] = k
@@ -1699,7 +1872,7 @@ class Simulator:
             logger.start_banner(
                 platform="GPU" if self.device.type == "cuda" else "CPU",
                 device=device_name(self.device),
-                num_devices=1,
+                num_devices=self.mesh.size if self.mesh is not None else 1,
                 num_particles=self.n_real,
                 steps=steps,
                 dt=self.config.dt,
@@ -1707,6 +1880,8 @@ class Simulator:
                 integrator=integrator_label,
                 backend=self.backend,
                 dtype=self.config.dtype,
+                sharding=(self.config.sharding if self.mesh is not None
+                          else "none"),
             )
 
     @staticmethod
@@ -1719,13 +1894,13 @@ class Simulator:
     def _finish(self, logger: Optional[RunLogger], total_time: float,
                 steps: int, stats: dict) -> dict:
         """Shared run epilogue: perf log, final positions, results dict."""
+        final = stats["final_state"] = self.final_state()
         if logger is not None:
             logger.performance(
                 total_time, steps, pairs_per_sec=stats["pairs_per_sec"]
             )
-            logger.final_positions(to_numpy(self.state.positions))
+            logger.final_positions(to_numpy(final.positions))
             logger.completed()
-        stats["final_state"] = self.final_state()
         # This block's ledger rows, latest a signature (JAX simulation.py:
         # 2470-2473).
         stats["perf"] = _perf.summarize_rows([
@@ -1749,8 +1924,14 @@ class Simulator:
         return stats
 
     def final_state(self) -> ParticleState:
-        """The state of the real particles, on the run's device."""
-        return self.state
+        """The state of the real particles, on the run's device; on a mesh
+        gathered from every rank (a collective), the padding dropped."""
+        if self.mesh is None:
+            return self.state
+        whole = self.global_state(self.state)
+        return ParticleState(whole.positions[:self.n_real],
+                             whole.velocities[:self.n_real],
+                             whole.masses[:self.n_real])
 
     def energy(self):
         """Total conserved energy of the current state: kinetic plus the
@@ -1770,7 +1951,8 @@ class Simulator:
         the periodic solver integrates (the isolated pair sum is not
         conserved in a box and jumps at re-wraps): a host ``np.float64``.
         Otherwise the plain O(N^2) sum, a device scalar in the state's
-        dtype."""
+        dtype. On a mesh every rank gathers the state and prices it
+        whole."""
         c = self.config
         state = self.final_state()
         if c.periodic_box > 0.0:

@@ -148,15 +148,17 @@ def counting_allowed() -> bool:
 
 
 def analytic_flops(backend: str, n: int, *, force_evals: int = 1,
-                   evaluated_pairs: Optional[float] = None
-                   ) -> Optional[float]:
+                   evaluated_pairs: Optional[float] = None,
+                   targets: Optional[int] = None) -> Optional[float]:
     """The cost model's ONE-step flop expectation for a backend at n bodies
     (the denominator of ``model_ratio``). Direct sums price the N (N - 1)
     directed pairs at their formulation's flops a pair; the cell list
     prices the pair tiles it evaluates when the caller knows them
     (``evaluated_pairs``); every other family (tree, fmm, sfmm, p3m, and
     nlist without sizing) is priced at the dense equivalent, so its ratio
-    reads as the measured work fraction."""
+    reads as the measured work fraction. ``targets`` < n prices one rank
+    of a mesh, whose counter sees its own (targets, N) block: that share
+    of the pairs."""
     from ..utils.timing import (
         FLOPS_PER_PAIR,
         backend_formulation,
@@ -167,9 +169,10 @@ def analytic_flops(backend: str, n: int, *, force_evals: int = 1,
         return None
     fpp = FLOPS_PER_PAIR.get(backend_formulation(backend),
                              FLOPS_PER_PAIR["jnp"])
+    share = (targets / n) if targets else 1.0
     if backend == "nlist" and evaluated_pairs:
-        return float(evaluated_pairs) * fpp * max(force_evals, 1)
-    return float(pairs_per_step(n)) * fpp * max(force_evals, 1)
+        return float(evaluated_pairs) * share * fpp * max(force_evals, 1)
+    return float(pairs_per_step(n)) * share * fpp * max(force_evals, 1)
 
 
 # --- the cost counter ---

@@ -137,7 +137,7 @@ class RunLogger:
     def start_banner(
         self, *, platform: str, device: str, num_devices: int,
         num_particles: int, steps: int, dt: float, model: str,
-        integrator: str, backend: str, dtype: str,
+        integrator: str, backend: str, dtype: str, sharding: str = "none",
     ) -> None:
         self.log_print(
             f"Starting {platform} gravity simulation at {self.timestamp}"
@@ -149,14 +149,14 @@ class RunLogger:
         self.log_print(f"Timestep: {dt:f} seconds")
         self.log_print(
             f"Model: {model} | Integrator: {integrator} | "
-            f"Force backend: {backend} | Sharding: none | Dtype: {dtype}"
+            f"Force backend: {backend} | Sharding: {sharding} | Dtype: {dtype}"
         )
         self.log_print("")
         self._emit(
             "banner", platform=platform, device=device,
             num_devices=num_devices, num_particles=num_particles,
             steps=steps, dt=dt, model=model, integrator=integrator,
-            backend=backend, sharding="none", dtype=dtype,
+            backend=backend, sharding=sharding, dtype=dtype,
         )
 
     def progress(self, step: int, total_steps: int) -> None:

@@ -314,8 +314,10 @@ def test_simulator_multirate_through_the_gram_form(x64):
 
 
 @pytest.mark.parametrize("fields,error,match", [
-    (dict(force_backend="p3m", model="disk", g=1.0), NotPortedError,
-     "Queue 1 item 7"),
+    # Multirate through P3M is ported (tests/test_torch_p3m_kick_fmm_bf16
+    # .py); on a mesh multirate is still refused, naming item 5.
+    (dict(force_backend="p3m", model="disk", g=1.0, sharding="allgather"),
+     NotPortedError, "Queue 1 item 5"),
     (dict(multirate_k=-1), ValueError, "multirate_k must be >= 0"),
     (dict(multirate_sub=0), ValueError, "multirate_sub >= 1"),
     (dict(multirate_rungs=7), ValueError, r"must be in \[2, 6\]"),
@@ -323,9 +325,9 @@ def test_simulator_multirate_through_the_gram_form(x64):
      "exceed n=64; lower multirate_k"),
 ])
 def test_simulator_multirate_refusals(fields, error, match):
-    cfg = SimulationConfig(**{"n": 64, "integrator": "multirate",
-                              "force_backend": "dense", **fields})
     with pytest.raises(error, match=match):
+        cfg = SimulationConfig(**{"n": 64, "integrator": "multirate",
+                                  "force_backend": "dense", **fields})
         Simulator(cfg, device="cpu")
 
 

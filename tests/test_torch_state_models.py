@@ -151,21 +151,27 @@ def test_interop_round_trip_with_a_jax_state():
     # forms (item 5); merging in a periodic box is ported.
     ({"integrator": "multirate", "sharding": "allgather"}, "Queue 1 item 5"),
     ({"merge_radius": 1e9, "periodic_box": 1e12}, "Queue 1 item 7"),
-    # The FMM is ported for fp32 and fp64 states; bf16 ones are queued.
+    # The FMM takes fp32, fp64 and (since item 7 closed) bf16 states.
     ({"force_backend": "sfmm", "dtype": "bfloat16"}, "Queue 1 item 7"),
 ])
 def test_unported_features_are_refused(fields, item):
     """A JAX config asking for a feature no slice has ported is refused
     with the ROADMAP item that ports it. ``profile`` (item 8) and the
     periodic family (item 7: ``periodic_box``, ``pm_assignment``, the
-    ``grf`` model, the ``pm`` backend, merging in a box) are ported now:
-    such a config loads and carries its fields."""
+    ``grf`` model, the ``pm`` backend, merging in a box), the rest of
+    item 7 (the P3M slice pass, bf16 FMM states) and item 5's sharded
+    direct sums are ported now: such a config loads and carries its
+    fields."""
     data = json.loads(JaxConfig().to_json())
     data.update(fields)
     ported = ({"profile": True}, {"periodic_box": 1e12},
               {"pm_assignment": "tsc"}, {"model": "grf"},
               {"force_backend": "pm"},
-              {"merge_radius": 1e9, "periodic_box": 1e12})
+              {"merge_radius": 1e9, "periodic_box": 1e12},
+              # Item 7's rest and item 5's sharded direct sums.
+              {"sharding": "allgather"}, {"p3m_short": "slice"},
+              {"force_backend": "fmm", "dtype": "bfloat16"},
+              {"force_backend": "sfmm", "dtype": "bfloat16"})
     if fields in ported:
         cfg = SimulationConfig.from_json(json.dumps(data))
         for name, value in fields.items():
