@@ -40,7 +40,9 @@ list, the ``grf`` model (``models/grf.py``), ``ops/cosmo.py`` with the
 ``analyze`` verb; and multi-device runs (``parallel/``: the sharded
 direct sums on ``torch.distributed``, allgather, the ring and the
 hierarchical ring, with the presets ``baseline-262k`` and
-``baseline-2m-merger``). ``ops/cuda_build.py`` builds every kernel.
+``baseline-2m-merger``; the halo slab engine of the cell list and of
+P3M's near field, ``parallel/halo.py``; sharded multirate and adaptive
+steps). ``ops/cuda_build.py`` builds every kernel.
 """
 
 from .config import PRESETS, SimulationConfig

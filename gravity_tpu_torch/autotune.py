@@ -29,6 +29,14 @@ shape, contiguity or device checks) alike. The run fails rather than go
 on by another route that would hide the kernel. This departs on purpose
 from the JAX package, which skips a candidate on any exception.
 
+On a ``torch.distributed`` world of several ranks (a sharded run) every
+rank probes the same candidates, in the same order, since the sharded
+candidates are collectives; rank 0 alone reads and writes the cache, and
+its hit or its measured winner is broadcast, so that every rank builds
+the same program. On a single-axis mesh the cell list's mesh strategy is
+itself a contest: the composite candidates ``nlist@halo`` (the slab
+decomposition, ``parallel/halo.py``) and ``nlist@allgather``.
+
 The serve stack's admission routing (:func:`resolve_engine_backend`)
 times its candidates through the same probe and cache, keyed on the
 job's padded bucket. A probe's block rows in the perf ledger carry the
@@ -49,6 +57,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .telemetry import perf as _perf
 from .utils.platform import DeviceLike, resolve_device
@@ -144,6 +153,38 @@ def occupancy_signature(positions, side: int = 16) -> str:
     return f"occ2^{int(round(math.log2(max(occ, side ** -3.0))))}"
 
 
+def _world_size() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _nlist_mesh_candidates(config) -> list:
+    """The cell-list candidate(s) of this configuration: on a single-axis
+    mesh of >= 2 devices the mesh strategy is itself measured, the
+    composite ``nlist@halo`` / ``nlist@allgather`` (a pinned
+    ``nlist_mesh`` keeps its own side); elsewhere the lone ``nlist``."""
+    if config.sharding != "allgather":
+        return ["nlist"]
+    shape = tuple(config.mesh_shape or (_world_size(),))
+    if len(shape) != 1 or shape[0] < 2:
+        return ["nlist"]
+    if config.nlist_mesh == "halo":
+        return ["nlist@halo"]
+    if config.nlist_mesh == "allgather":
+        return ["nlist@allgather"]
+    return ["nlist@halo", "nlist@allgather"]
+
+
+def _candidate_config(config, backend: str):
+    """The probe config of one candidate: a composite candidate
+    (``nlist@halo``) carries its mesh strategy after the ``@``; a plain
+    name is the force_backend."""
+    if "@" in backend:
+        base, strategy = backend.split("@", 1)
+        return dataclasses.replace(config, force_backend=base,
+                                   nlist_mesh=strategy)
+    return dataclasses.replace(config, force_backend=backend)
+
+
 def eligible_candidates(config, on_card: bool) -> tuple[tuple, dict]:
     """(candidates, skipped): the backends worth timing for this
     configuration, and why anything obvious was left out.
@@ -158,8 +199,12 @@ def eligible_candidates(config, on_card: bool) -> tuple[tuple, dict]:
     - The fast solvers join from :func:`fast_probe_min` up: ``tree``,
       ``fmm`` (its layout by ``fmm_mode``) and ``sfmm``.
     - ``nlist_rcut`` > 0 declares truncated physics: the contest is the
-      cell list (``nlist``, from the floor up) against the rcut-masked
-      direct sum, and the full-gravity fast solvers are left out.
+      cell list (``nlist``, from the floor up; on a single-axis mesh
+      :func:`_nlist_mesh_candidates`) against the rcut-masked direct sum,
+      and the full-gravity fast solvers are left out.
+    - The ring streams source shards and can assemble no global tree,
+      grid or cell list: it leaves the fast solvers and the cell list
+      out.
     """
     from .simulation import _resolve_direct
 
@@ -183,15 +228,25 @@ def eligible_candidates(config, on_card: bool) -> tuple[tuple, dict]:
             "nlist_rcut declares truncated short-range physics; the "
             "full-gravity fast solvers are not comparable"
         )
-        if config.n >= floor:
-            cands.append("nlist")
+        if config.sharding == "ring":
+            skipped["nlist"] = (
+                "ring sharding streams sources and cannot build the "
+                "global cell list"
+            )
+        elif config.n >= floor:
+            cands += _nlist_mesh_candidates(config)
         else:
             skipped["nlist"] = (
                 f"n={config.n} below the fast-probe floor {floor} (the "
                 "masked direct sum is cheap there)"
             )
         return tuple(cands), skipped
-    if config.n >= floor:
+    if config.sharding == "ring":
+        skipped["tree/fmm/sfmm"] = (
+            "ring sharding streams sources and cannot build a global "
+            "tree/mesh"
+        )
+    elif config.n >= floor:
         cands += ["tree", "fmm", "sfmm"]
     else:
         skipped["tree/fmm/sfmm"] = (
@@ -207,13 +262,20 @@ def make_key(
     """The canonical configuration key: everything whose change should
     re-open the question which backend is fastest here, the solver knobs
     included (a forced tree depth, FMM layout or cell-list sizing builds a
-    materially different candidate). The single-card port keys no mesh."""
+    materially different candidate), and the mesh's shape as it runs
+    (``mesh_shape``, else the world's size, which a launcher sets anew each
+    launch) and strategy."""
+    mesh_shape = None
+    if config.mesh_shape:
+        mesh_shape = list(config.mesh_shape)
+    elif config.sharding != "none":
+        mesh_shape = [_world_size()]
     return {
         "candidates": list(candidates),
         "n": config.n,
         "dtype": config.dtype,
-        "mesh_shape": None,
-        "strategy": "none",
+        "mesh_shape": mesh_shape,
+        "strategy": config.sharding,
         "platform": platform,
         "device_kind": device_kind,
         "occupancy": occupancy,
@@ -230,6 +292,12 @@ def make_key(
             "nlist_rcut": config.nlist_rcut,
             "nlist_side": config.nlist_side,
             "nlist_cap": config.nlist_cap,
+            # The halo form's knobs, only off their defaults (the
+            # composite candidates already key a mesh contest).
+            **({"nlist_mesh": config.nlist_mesh}
+               if config.nlist_mesh != "auto" else {}),
+            **({"nlist_mig_cap": config.nlist_mig_cap}
+               if config.nlist_mig_cap else {}),
         },
     }
 
@@ -332,8 +400,8 @@ def _candidate_simulator(config, backend: str, state, device: DeviceLike):
     ``ValueError`` is the one refusal the probe records as a skip."""
     from .simulation import Simulator
 
-    return Simulator(dataclasses.replace(config, force_backend=backend),
-                     state=state, device=device)
+    return Simulator(_candidate_config(config, backend), state=state,
+                     device=device)
 
 
 def _time_backend(sim, probe_steps: int) -> tuple[float, dict]:
@@ -359,8 +427,9 @@ def _time_backend(sim, probe_steps: int) -> tuple[float, dict]:
             _counters["probe_steps"] += 1
         sync(sim.device)
         per_step = (time.perf_counter() - t0) / max(1, probe_steps)
-    probe_state = sim.state
-    full = sim._self_accel(probe_state.positions, probe_state.masses)
+    # The whole state (gathered on a mesh), its force the run's own.
+    probe_state = sim.global_state(sim.state)
+    full = sim.global_self_accel(probe_state.positions, probe_state.masses)
     err = debug_check_forces(
         probe_state.positions, probe_state.masses,
         g=config.g, cutoff=config.cutoff, eps=config.eps,
@@ -409,8 +478,13 @@ def resolve_backend_measured(
         occupancy=occupancy,
     )
     h = key_hash(key)
+    several = _world_size() > 1
     if not refresh:
-        rec = _load_record(h, key)
+        rec = _load_record(h, key) if not several or dist.get_rank() == 0 \
+            else None
+        if several:
+            # Rank 0's hit or miss, so that every rank probes or none.
+            rec = _broadcast(rec)
         if rec is not None:
             return AutotuneDecision(
                 rec["winner"], "hit", 0.0,
@@ -448,6 +522,11 @@ def resolve_backend_measured(
     if not timings:
         return AutotuneDecision(_static(), "static", probe_ms, {}, skipped, h)
     winner = min(timings, key=timings.get)
+    if several:
+        winner = _broadcast(winner)
+        if dist.get_rank() != 0:
+            return AutotuneDecision(winner, "miss", probe_ms, timings,
+                                    skipped, h, errors)
     _store_record(h, {
         "key": key,
         "winner": winner,
@@ -461,6 +540,13 @@ def resolve_backend_measured(
     }, stamp_ns=probe_started_ns)
     return AutotuneDecision(winner, "miss", probe_ms, timings, skipped, h,
                             errors)
+
+
+def _broadcast(obj):
+    """Rank 0's ``obj`` on every rank of the world."""
+    box = [obj]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
 
 
 def engine_candidates(on_card: bool, dtype: str = "float32") -> tuple:

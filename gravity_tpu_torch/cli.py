@@ -217,8 +217,15 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--nlist-mesh", dest="nlist_mesh",
                    choices=NLIST_MESH_MODES, default=None,
                    help="mesh strategy of nlist and p3m's near field: "
-                        "allgather (halo, and auto where the JAX package "
-                        "would take halo, are not ported)")
+                        "halo = the slab decomposition's one-plane ghost "
+                        "exchange (parallel/halo.py), allgather = gather "
+                        "the world; auto picks halo on single-axis meshes "
+                        "of >= 2 devices")
+    p.add_argument("--nlist-mig-cap", dest="nlist_mig_cap", type=int,
+                   default=None,
+                   help="static halo migration bucket capacity per "
+                        "(device, destination slab); 0 = fit from the "
+                        "initial state")
     p.add_argument("--distributed", action="store_true", default=False,
                    help="join the launcher's torch.distributed world "
                         "first (python -m torch.distributed.run sets "

@@ -37,17 +37,13 @@ TREE_NEAR_MODES = ("gather", "nlist")
 # none | allgather | ring (a (S, P/S) mesh_shape makes the ring the
 # hierarchical one): the sharded direct sums of parallel/sharded.py.
 SHARDING_MODES = ("none", "allgather", "ring")
-# The cell-list family's mesh strategy: halo (the slab decomposition) is a
-# later bullet of item 5; auto refuses where the JAX package would take it.
+# The cell-list family's mesh strategy (nlist and P3M's near field): halo
+# (the slab decomposition, parallel/halo.py) | allgather | auto (halo on a
+# single-axis mesh of >= 2 devices).
 NLIST_MESH_MODES = ("auto", "halo", "allgather")
 
 _QUEUE = "ROADMAP.md Queue 1 item"
-_HALO_ITEM = f"{_QUEUE} 5 (the halo and slab engines)"
 
-# Values of honoured fields that belong to a later slice.
-_UNPORTED_VALUES = {
-    "nlist_mesh": (("halo",), _HALO_ITEM),
-}
 # Features that do not run on a mesh yet, each a later bullet of item 5:
 # (predicate on the config, what it is, the bullet).
 _UNPORTED_ON_MESH = (
@@ -55,14 +51,6 @@ _UNPORTED_ON_MESH = (
      lambda c: f"force_backend={c.force_backend!r}",
      f"{_QUEUE} 5 (the sharded FMM forms: the JAX package's slab engines "
      "gravity_tpu/ops/fmm.py:1223 and ops/sfmm.py:1047)"),
-    (lambda c: c.integrator == "multirate",
-     lambda c: "integrator='multirate'",
-     f"{_QUEUE} 5 (sharded multirate: gravity_tpu/ops/multirate.py:124, "
-     ":401)"),
-    (lambda c: c.adaptive,
-     lambda c: "adaptive=True",
-     f"{_QUEUE} 5 (sharded adaptive: gravity_tpu/ops/multirate.py:232, "
-     ":501)"),
 )
 # P3M takes no bf16 state, as in the JAX package, whose mesh FFT refuses
 # one: nothing is left to port there.
@@ -83,7 +71,6 @@ _UNPORTED_BACKENDS = {
 # carry: (the JAX default, which means "feature off", and the ROADMAP item
 # that ports the feature). A JSON config may name them only at that value.
 _NOT_PORTED = {
-    "nlist_mig_cap": (0, _HALO_ITEM),
     # The span tracer of the serving stack's telemetry.
     "trace": (False, f"{_QUEUE} 9"),
 }
@@ -176,11 +163,14 @@ class SimulationConfig:
     # torch.distributed. sharding = none | allgather | ring; mesh_shape =
     # (P,) or (S, P/S) (None: (world size,)); the hierarchical ring runs on
     # a two-axis mesh. nlist_mesh: the mesh strategy of nlist and p3m's near
-    # field (allgather; halo is not ported, and auto refuses where the JAX
-    # package would take halo).
+    # field (halo = the slab decomposition, allgather = gather the world,
+    # auto = halo on a single-axis mesh of >= 2 devices); nlist_mig_cap:
+    # the halo's static migration bucket capacity a (device, destination
+    # slab), 0 = fit from the initial state (parallel/halo.resolve_mig_cap).
     sharding: str = "none"
     mesh_shape: Optional[tuple] = None
     nlist_mesh: str = "auto"
+    nlist_mig_cap: int = 0
 
     # Periodic-box gravity: the side of the periodic unit cell, 0 =
     # isolated boundaries. Needs force_backend "pm" (the periodic FFT
@@ -259,12 +249,6 @@ class SimulationConfig:
     on_diverge: str = "halve-dt"  # halve-dt | abort
 
     def __post_init__(self) -> None:
-        for name, (values, item) in _UNPORTED_VALUES.items():
-            if getattr(self, name) in values:
-                raise NotPortedError(
-                    f"{name}={getattr(self, name)!r} is not ported to "
-                    f"gravity_tpu_torch yet ({item})"
-                )
         if (self.dtype == "bfloat16"
                 and self.force_backend in _BF16_REFUSED_BACKENDS):
             raise ValueError(
@@ -307,7 +291,8 @@ class SimulationConfig:
                     f"unknown {name} {getattr(self, name)!r}; choose from "
                     f"{sorted(choices)}"
                 )
-        for name in ("nlist_rcut", "nlist_side", "nlist_cap", "tree_depth",
+        for name in ("nlist_rcut", "nlist_side", "nlist_cap",
+                     "nlist_mig_cap", "tree_depth",
                      "periodic_box",
                      "checkpoint_every", "sentinel_every", "error_budget",
                      "max_retries"):

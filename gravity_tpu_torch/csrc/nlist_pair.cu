@@ -32,6 +32,17 @@
 // lists, one a slot, in one launch, the slot on grid.y (pair_cells).
 // Each slot has its own bounding cube, so its own rcut_eff^2.
 //
+// The slab entries (nlist_pair_slab_*) are the same tile code over one
+// slab of a domain-decomposed grid (parallel/halo.py; the JAX package's
+// jnp slab engine _jnp_pair_cells_slab, pallas_nlist.py:623, which shares
+// _pair_w with _nlist_kernel): targets are the slab's (slab_x, side, side)
+// cells, sources the x-extended (slab_x + 2, side, side) grid whose planes
+// 0 and slab_x + 1 are the halo received from the slab neighbours. Target
+// cell x reads source plane x + 1 + dx, always in range; y and z leave the
+// grid and are skipped exactly as in the cubic grid. The 27 offsets come
+// in the same order, so a slab launch gives a cubic launch's bits on the
+// cells it covers (an isolated edge's halo arrives empty: zero sources).
+//
 // What bounds it: FP32-pipe and SFU operations. A newton pair costs ~21
 // flops (the JAX cost model, pallas_nlist.py:381) and one rsqrt; an
 // ewald pair inside rcut adds a sqrt, erff, expf and two divisions (a
@@ -371,26 +382,38 @@ __device__ __forceinline__ void pair_bf16(const Pair2& s, uint32_t xi,
 // params at slot * (the kind's params). A solo launch has one slot, so
 // its offsets are 0; a slot's blocks do exactly a solo launch's work on
 // the slot's arrays, in the same compiled code, and give its bits.
-template <typename IO, int KIND, bool USE_RCUT, bool FTZ>
+//
+// SLAB: the target grid is a slab of slab_x x-planes and the source grid
+// its (slab_x + 2)-plane extension (the slab entries); otherwise the cubic
+// grid, sources and targets alike, and slab_x is not read. A template
+// parameter, so that the cubic instantiations compile as they did before
+// the slab form (read at run time, it took the ewald kind from 56 to 62
+// registers).
+template <typename IO, int KIND, bool USE_RCUT, bool FTZ, bool SLAB>
 __device__ __forceinline__ void pair_cells(
     const IO* __restrict__ tpos, const int64_t* __restrict__ t_count,
     const IO* __restrict__ spos, const IO* __restrict__ sgm,
     const int64_t* __restrict__ s_count, int side, int t_cap, int cap,
     const IO* __restrict__ params, Compute<IO> eps2, Compute<IO> cutoff2,
-    IO* __restrict__ out) {
+    IO* __restrict__ out, int slab_x) {
   using T = Compute<IO>;
   constexpr bool kBf16 = std::is_same_v<IO, bf16>;
   static_assert(!kBf16 || KIND == kNewton,
                 "the bf16 form has the newton kind only");
+  // Source planes and the x offset of target plane 0 among them.
+  const int s_planes = SLAB ? slab_x + 2 : side;
+  const int x_halo = SLAB ? 1 : 0;
+  const int64_t t_cells =
+      static_cast<int64_t>(SLAB ? slab_x : side) * side * side;
   {
     const int64_t b = blockIdx.y;
-    const int64_t cells = static_cast<int64_t>(side) * side * side;
-    tpos += b * cells * t_cap * 3;
-    out += b * cells * t_cap * 3;
-    t_count += b * cells;
-    s_count += b * cells;
-    spos += b * cells * cap * 3;
-    sgm += b * cells * cap;
+    const int64_t s_cells = static_cast<int64_t>(s_planes) * side * side;
+    tpos += b * t_cells * t_cap * 3;
+    out += b * t_cells * t_cap * 3;
+    t_count += b * t_cells;
+    s_count += b * s_cells;
+    spos += b * s_cells * cap * 3;
+    sgm += b * s_cells * cap;
     params += b * (KIND == kEwald ? 2 : 1);
   }
   __shared__ Body<T> stage[kWarps][kStage];
@@ -400,7 +423,7 @@ __device__ __forceinline__ void pair_cells(
   const int groups = (t_cap + kGroup - 1) / kGroup;
   const int64_t item = static_cast<int64_t>(blockIdx.x) * kWarps +
                        (threadIdx.x >> 5);
-  if (item >= static_cast<int64_t>(side) * side * side * groups) return;
+  if (item >= t_cells * groups) return;
   const int c = static_cast<int>(item / groups);
   const int first = static_cast<int>(item % groups) * kGroup;
   const int slot = first + lane / kQ;
@@ -436,10 +459,10 @@ __device__ __forceinline__ void pair_cells(
     const int cy = (c / side) % side;
     const int cz = c % side;
     for (int o = 0; o < 27; ++o) {
-      const int nx = cx + o / 9 - 1;
+      const int nx = cx + x_halo + o / 9 - 1;
       const int ny = cy + (o / 3) % 3 - 1;
       const int nz = cz + o % 3 - 1;
-      if (nx < 0 || nx >= side || ny < 0 || ny >= side || nz < 0 ||
+      if (nx < 0 || nx >= s_planes || ny < 0 || ny >= side || nz < 0 ||
           nz >= side) {
         continue;
       }
@@ -531,7 +554,7 @@ __device__ __forceinline__ void pair_cells(
   }
 }
 
-template <typename IO, int KIND, bool USE_RCUT, bool FTZ>
+template <typename IO, int KIND, bool USE_RCUT, bool FTZ, bool SLAB>
 __global__ void __launch_bounds__(kThreads)
     nlist_pair_kernel(const IO* __restrict__ tpos,
                       const int64_t* __restrict__ t_count,
@@ -539,9 +562,10 @@ __global__ void __launch_bounds__(kThreads)
                       const int64_t* __restrict__ s_count, int side,
                       int t_cap, int cap, const IO* __restrict__ params,
                       Compute<IO> eps2, Compute<IO> cutoff2,
-                      IO* __restrict__ out) {
-  pair_cells<IO, KIND, USE_RCUT, FTZ>(tpos, t_count, spos, sgm, s_count, side,
-                                      t_cap, cap, params, eps2, cutoff2, out);
+                      IO* __restrict__ out, int slab_x) {
+  pair_cells<IO, KIND, USE_RCUT, FTZ, SLAB>(tpos, t_count, spos, sgm, s_count,
+                                            side, t_cap, cap, params, eps2,
+                                            cutoff2, out, slab_x);
 }
 
 // The bf16 form's untruncated newton kind (the octree's near field) held
@@ -559,67 +583,77 @@ __global__ void __launch_bounds__(kThreads, 5)
                       const int64_t* __restrict__ s_count, int side,
                       int t_cap, int cap, const IO* __restrict__ params,
                       Compute<IO> eps2, Compute<IO> cutoff2,
-                      IO* __restrict__ out) {
+                      IO* __restrict__ out, int slab_x) {
   static_assert(std::is_same_v<IO, bf16>, "the bf16 form's near field");
-  pair_cells<IO, kNewton, false, FTZ>(tpos, t_count, spos, sgm, s_count, side,
-                                      t_cap, cap, params, eps2, cutoff2, out);
+  pair_cells<IO, kNewton, false, FTZ, false>(tpos, t_count, spos, sgm,
+                                             s_count, side, t_cap, cap, params,
+                                             eps2, cutoff2, out, slab_x);
 }
 
 template <typename IO>
 using KernelFn = void (*)(const IO*, const int64_t*, const IO*, const IO*,
                           const int64_t*, int, int, int, const IO*,
-                          Compute<IO>, Compute<IO>, IO*);
+                          Compute<IO>, Compute<IO>, IO*, int);
 
 // The instantiation a launch takes, or null (the bf16 form has no ewald
-// kind). The newton kind's rsqrt input is r^2 + eps^2 > cutoff^2, or 1,
-// so normal when cutoff^2 >= FLT_MIN.
-template <typename IO>
-KernelFn<IO> pick_kernel(int kind, int use_rcut, double cutoff2) {
+// kind; the slab form only the truncated kinds). The newton kind's rsqrt
+// input is r^2 + eps^2 > cutoff^2, or 1, so normal when cutoff^2 >=
+// FLT_MIN.
+template <typename IO, bool SLAB>
+KernelFn<IO> pick_form(int kind, int use_rcut, double cutoff2) {
   if (kind == kEwald) {
     if constexpr (std::is_same_v<IO, bf16>) {
       return nullptr;
     } else {
       // The ewald kind always truncates at rcut.
-      return nlist_pair_kernel<IO, kEwald, true, false>;
+      return nlist_pair_kernel<IO, kEwald, true, false, SLAB>;
     }
   }
-  if constexpr (std::is_same_v<IO, bf16>) {
-    // The untruncated form has its own entry point.
-    const bool ftz = cutoff2 >= FLT_MIN;
-    if (!use_rcut) {
+  const bool ftz = sizeof(Compute<IO>) == 4 && cutoff2 >= FLT_MIN;
+  if (!use_rcut) {
+    if constexpr (SLAB) {
+      return nullptr;
+    } else if constexpr (std::is_same_v<IO, bf16>) {
+      // The untruncated form has its own entry point.
       return ftz ? nlist_near_kernel<IO, true> : nlist_near_kernel<IO, false>;
+    } else if constexpr (sizeof(Compute<IO>) == 4) {
+      return ftz ? nlist_pair_kernel<IO, kNewton, false, true, false>
+                 : nlist_pair_kernel<IO, kNewton, false, false, false>;
+    } else {
+      return nlist_pair_kernel<IO, kNewton, false, false, false>;
     }
-    return ftz ? nlist_pair_kernel<IO, kNewton, true, true>
-               : nlist_pair_kernel<IO, kNewton, true, false>;
-  } else {
-    if constexpr (sizeof(Compute<IO>) == 4) {
-      if (cutoff2 >= FLT_MIN) {
-        return use_rcut ? nlist_pair_kernel<IO, kNewton, true, true>
-                        : nlist_pair_kernel<IO, kNewton, false, true>;
-      }
-    }
-    return use_rcut ? nlist_pair_kernel<IO, kNewton, true, false>
-                    : nlist_pair_kernel<IO, kNewton, false, false>;
   }
+  if constexpr (sizeof(Compute<IO>) == 4) {
+    if (ftz) return nlist_pair_kernel<IO, kNewton, true, true, SLAB>;
+  }
+  return nlist_pair_kernel<IO, kNewton, true, false, SLAB>;
+}
+
+template <typename IO>
+KernelFn<IO> pick_kernel(int kind, int use_rcut, double cutoff2, bool slab) {
+  return slab ? pick_form<IO, true>(kind, use_rcut, cutoff2)
+              : pick_form<IO, false>(kind, use_rcut, cutoff2);
 }
 
 // `batch` slots (grid.y; 1 for a solo launch), each slot's arrays
-// contiguous after the one before.
+// contiguous after the one before; slab_x > 0 a slab launch (pair_cells).
 template <typename IO>
 int launch(const void* tpos, const void* t_count, const void* spos,
            const void* sgm, const void* s_count, int side, int t_cap, int cap,
            const void* params, double eps2, double cutoff2, int use_rcut,
-           int kind, void* out, void* stream, int batch = 1) {
+           int kind, void* out, void* stream, int batch = 1,
+           int slab_x = 0) {
   if (kind != kNewton && kind != kEwald) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const KernelFn<IO> kernel = pick_kernel<IO>(kind, use_rcut, cutoff2);
-  if (kernel == nullptr || batch < 0 || batch > 65535) {
+  const KernelFn<IO> kernel = pick_kernel<IO>(kind, use_rcut, cutoff2,
+                                              slab_x > 0);
+  if (kernel == nullptr || batch < 0 || batch > 65535 || slab_x < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (side <= 0 || t_cap <= 0 || batch == 0) return 0;
-  const int64_t n_items = static_cast<int64_t>(side) * side * side *
-                          ((t_cap + kGroup - 1) / kGroup);
+  const int64_t n_items = static_cast<int64_t>(slab_x ? slab_x : side) *
+                          side * side * ((t_cap + kGroup - 1) / kGroup);
   const dim3 grid(static_cast<unsigned>((n_items + kWarps - 1) / kWarps),
                   static_cast<unsigned>(batch));
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -627,7 +661,7 @@ int launch(const void* tpos, const void* t_count, const void* spos,
       static_cast<const IO*>(spos), static_cast<const IO*>(sgm),
       static_cast<const int64_t*>(s_count), side, t_cap, cap,
       static_cast<const IO*>(params), static_cast<Compute<IO>>(eps2),
-      static_cast<Compute<IO>>(cutoff2), static_cast<IO*>(out));
+      static_cast<Compute<IO>>(cutoff2), static_cast<IO*>(out), slab_x);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -698,6 +732,31 @@ NLIST_PAIR_BATCHED(nlist_pair_batched_f32, float)
 NLIST_PAIR_BATCHED(nlist_pair_batched_f64, double)
 NLIST_PAIR_BATCHED(nlist_pair_batched_bf16, bf16)
 #undef NLIST_PAIR_BATCHED
+
+// The slab launch (parallel/halo.py's isolated pair tiles): tpos and out
+// (slab_x side^2, t_cap, 3), t_count (slab_x side^2,), spos ((slab_x + 2)
+// side^2, cap, 3), sgm and s_count over the same extended grid; params,
+// eps2 and cutoff2 as the solo entry. The truncated kinds only (newton
+// with the rcut mask, ewald; the bf16 form newton only); anything else
+// returns cudaErrorInvalidValue.
+#define NLIST_PAIR_SLAB(NAME, IO)                                            \
+  extern "C" int NAME(const void* tpos, const void* t_count,                \
+                      const void* spos, const void* sgm,                    \
+                      const void* s_count, int side, int t_cap, int cap,    \
+                      const void* params, double eps2, double cutoff2,      \
+                      int use_rcut, int kind, void* out, void* stream,      \
+                      int slab_x) {                                         \
+    if (!use_rcut || slab_x <= 0) {                                         \
+      return static_cast<int>(cudaErrorInvalidValue);                       \
+    }                                                                       \
+    return launch<IO>(tpos, t_count, spos, sgm, s_count, side, t_cap, cap,  \
+                      params, eps2, cutoff2, use_rcut, kind, out, stream,   \
+                      1, slab_x);                                           \
+  }
+NLIST_PAIR_SLAB(nlist_pair_slab_f32, float)
+NLIST_PAIR_SLAB(nlist_pair_slab_f64, double)
+NLIST_PAIR_SLAB(nlist_pair_slab_bf16, bf16)
+#undef NLIST_PAIR_SLAB
 
 extern "C" const char* nlist_pair_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -8,7 +8,11 @@ of that size (or by an outer multirate step: ``step_fn``). Two criteria:
   length ``eps`` as the resolution scale;
 - **velocity**: ``dt = eta * min(|v| / |a|)``, scale-free.
 
-Zero-mass particles are excluded from both criteria.
+Zero-mass particles are excluded from both criteria: a sharded state
+pads with zero-mass bodies, which must not drive the global dt. On a mesh
+the criterion reads the whole state (``gather``, the per-body |a| or
+timescale gathered in rank order after the mask), so every rank takes the
+same dt, the unsharded run's on a world of one.
 
 The JAX package runs the steps in a device ``lax.while_loop`` that stops
 at ``t_end``. Here :func:`adaptive_run` takes a block of up to
@@ -42,16 +46,19 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
 
 
 def acceleration_timestep(acc, *, eta: float, eps: float, dt_max: float,
-                          mask=None, exclude_fastest: int = 0):
+                          mask=None, exclude_fastest: int = 0, gather=None):
     """``eta * sqrt(eps / max|a|)``, clipped to (0, dt_max], as a device
     scalar. ``mask`` (bool (N,)) keeps the real particles;
     ``exclude_fastest`` drops the k largest |a| first (the multirate
     composition: those k are sub-cycled, so they must not size the outer
-    step)."""
+    step); ``gather`` maps a rank's (n_local,) values to the whole
+    state's."""
     dtype = acc.dtype
     a = _norm(acc)
     if mask is not None:
         a = torch.where(mask, a, torch.zeros_like(a))
+    if gather is not None:
+        a = gather(a)
     if exclude_fastest > 0:
         kk = min(exclude_fastest, a.shape[0] - 1)
         amax = torch.kthvalue(a, a.shape[0] - kk).values
@@ -66,13 +73,16 @@ def acceleration_timestep(acc, *, eta: float, eps: float, dt_max: float,
 
 
 def velocity_timestep(vel, acc, *, eta: float, dt_max: float, mask=None,
-                      exclude_fastest: int = 0):
+                      exclude_fastest: int = 0, gather=None):
     """``eta * min(|v| / |a|)``, clipped to (0, dt_max], as a device
-    scalar; ``exclude_fastest`` drops the k smallest timescales first."""
+    scalar; ``exclude_fastest`` drops the k smallest timescales first;
+    ``gather`` as :func:`acceleration_timestep`'s."""
     dtype = vel.dtype
     ratio = _norm(vel) / torch.clamp_min(_norm(acc), tiny(dtype))
     if mask is not None:
         ratio = torch.where(mask, ratio, torch.full_like(ratio, math.inf))
+    if gather is not None:
+        ratio = gather(ratio)
     if exclude_fastest > 0:
         kk = min(exclude_fastest, ratio.shape[0] - 1)
         # A picked inf (fewer real particles than the exclusion) gives
@@ -96,9 +106,10 @@ class AdaptiveResult(NamedTuple):
 
 def make_timestep_fn(
     criterion: str, *, eta: float, eps: float, dt_max: float,
-    exclude_fastest: int = 0,
+    exclude_fastest: int = 0, gather=None,
 ) -> Callable:
-    """(state, acc) -> dt for a named criterion ('accel' | 'velocity')."""
+    """(state, acc) -> dt for a named criterion ('accel' | 'velocity');
+    ``gather`` for a rank's rows of a sharded state."""
     if criterion == "accel":
         if eps <= 0.0:
             raise ValueError(
@@ -108,12 +119,13 @@ def make_timestep_fn(
             )
         return lambda state, acc: acceleration_timestep(
             acc, eta=eta, eps=eps, dt_max=dt_max, mask=state.masses > 0,
-            exclude_fastest=exclude_fastest,
+            exclude_fastest=exclude_fastest, gather=gather,
         )
     if criterion == "velocity":
         return lambda state, acc: velocity_timestep(
             state.velocities, acc, eta=eta, dt_max=dt_max,
             mask=state.masses > 0, exclude_fastest=exclude_fastest,
+            gather=gather,
         )
     raise ValueError(
         f"unknown timestep criterion {criterion!r}; "
@@ -150,6 +162,7 @@ def adaptive_run(
     acc0: Optional[torch.Tensor] = None,
     step_fn: Optional[Callable] = None,
     exclude_fastest: int = 0,
+    gather: Optional[Callable] = None,
 ) -> AdaptiveResult:
     """Up to ``max_steps`` adaptive KDK steps towards ``t_end``.
 
@@ -159,7 +172,9 @@ def adaptive_run(
     returned ``(state, t, comp, acc)`` back as ``(state, t0, comp0,
     acc0)`` to continue. ``step_fn(state, acc, dt) -> (state, new_acc)``
     replaces the KDK step (the multirate composition; pass
-    ``exclude_fastest`` = its fast capacity).
+    ``exclude_fastest`` = its fast capacity). On a mesh ``state`` is a
+    rank's rows and ``gather`` brings the criterion's per-body values of
+    every rank (``make_timestep_fn``).
 
     No step reads the device on the host; steps past ``t_end`` are exact
     no-ops (module docstring). ``t0`` and ``comp0`` may be Python floats
@@ -167,7 +182,7 @@ def adaptive_run(
     prefix (:func:`sure_steps`) skip the gates."""
     dt_fn = make_timestep_fn(
         criterion, eta=eta, eps=eps, dt_max=dt_max,
-        exclude_fastest=exclude_fastest,
+        exclude_fastest=exclude_fastest, gather=gather,
     )
     dtype, device = state.dtype, state.device
     if acc0 is None:

@@ -110,6 +110,14 @@ def pairwise_accelerations_dense(
                             cutoff=cutoff, eps=eps, rcut=rcut)
 
 
+def accelerations_vs_chunked(pos_i, pos_j, masses_j, *, chunk: int = 1024,
+                             **kw) -> torch.Tensor:
+    """:func:`accelerations_vs` with O(K * chunk) peak memory: a loop over
+    chunks of the targets, each summed against all K sources."""
+    return torch.cat([accelerations_vs(p, pos_j, masses_j, **kw)
+                      for p in torch.split(pos_i, chunk)])
+
+
 def pairwise_accelerations_chunked(
     positions: torch.Tensor,
     masses: torch.Tensor,
@@ -123,11 +131,9 @@ def pairwise_accelerations_chunked(
     """All-pairs accelerations with O(N * chunk) peak memory: a loop over
     i-chunks, each summed against all N sources. Unlike the JAX form, N
     need not divide by ``chunk``: the last chunk is ragged."""
-    return torch.cat([
-        accelerations_vs(pos_i, positions, masses, g=g, cutoff=cutoff,
-                         eps=eps, rcut=rcut)
-        for pos_i in torch.split(positions, chunk)
-    ])
+    return accelerations_vs_chunked(positions, positions, masses,
+                                    chunk=chunk, g=g, cutoff=cutoff, eps=eps,
+                                    rcut=rcut)
 
 
 def _potential_rows(pos_i, positions, masses, cutoff, eps):

@@ -46,8 +46,20 @@ neighbour read wraps mod side and shifts the wrapped cell's positions by
 (:func:`pair_cells_periodic`), and it never launches ``nlist_pair.cu``.
 It needs side >= 3.
 
-Not ported: the domain-decomposed slab/halo engines (Queue 1 item 5) and
-backward passes (Queue 1 item 9).
+The slab engines are the domain-decomposed form (``parallel/halo.py``,
+the JAX package's ``_*_slab`` engines, ``pallas_nlist.py:623-808``): the
+targets are one slab of x-planes, (sx side^2, t_cap) cells, and the sources
+its ((sx + 2) side^2, cap) extension, whose planes 0 and sx + 1 are the halo
+received from the slab neighbours. An x neighbour is plain plane indexing;
+y and z are out of the grid (isolated) or wrapped with a +-box image shift
+(periodic). They share ``_tile_rows``' pair weights, ``_monopole_w``,
+``_offsets`` and ``_eps_o2`` with the cubic engines, so the two cannot
+drift apart. :func:`pair_cells_slab_kernel` launches ``nlist_pair.cu``'s
+slab entry for the isolated pair tiles of CUDA tensors; a periodic slab,
+like the cubic periodic cell list, stays plain PyTorch on every device
+(:func:`pair_cells_slab_plain`).
+
+Not ported: backward passes (Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -271,7 +283,8 @@ def _monopole_w(kind: str, r2, w_mass, params, eps_o2):
     return w_mass * _short_range_w(r2, alpha, eps_o2, alpha * alpha * alpha)
 
 
-def cell_totals(positions, masses, sort_order, sorted_ids, count):
+def cell_totals(positions, masses, sort_order, sorted_ids, count,
+                m_scale=None):
     """Per-cell totals for the overflow channels, in normalized mass
     (``pallas_nlist.py:1005-1012``): (m_scale, cell mass / m_scale, cell
     centre of mass), from the binning's stable sort
@@ -288,8 +301,10 @@ def cell_totals(positions, masses, sort_order, sorted_ids, count):
     A batch, positions (B, n, 3) and masses (B, n), takes each slot's own
     m_scale and :func:`cells.bin_to_cells_batched`' sort over the
     flattened ids: (m_scale (B,), (B, side^3), (B, side^3, 3)), each
-    slot's segments its solo segments in the same order."""
-    m_scale = torch.clamp_min(masses.max(dim=-1).values, 1e-37)
+    slot's segments its solo segments in the same order. ``m_scale`` given
+    (a mesh's global scale) replaces the masses' own."""
+    if m_scale is None:
+        m_scale = torch.clamp_min(masses.max(dim=-1).values, 1e-37)
     m_hat = masses / m_scale[..., None]
     mw = (m_hat[..., None] * positions).reshape(-1, 3)
     m_hat = m_hat.reshape(-1)
@@ -370,11 +385,35 @@ def _periodic_neighbors(coords: torch.Tensor, side: int, offsets, box: float,
     return ids.reshape(cell.shape[:2]), shift
 
 
-def _all_coords(side: int, device) -> torch.Tensor:
-    """(side^3, 3) coordinates of every cell, in flat-id order."""
-    c = torch.arange(side**3, device=device)
+def _all_coords(side: int, device, planes: int = 0) -> torch.Tensor:
+    """(planes side^2, 3) coordinates of every cell of ``planes`` x-planes
+    (0: all ``side``), in flat-id order."""
+    c = torch.arange((planes or side) * side * side, device=device)
     return torch.stack([c // (side * side), (c // side) % side, c % side],
                        dim=-1)
+
+
+def _slab_neighbors(coords: torch.Tensor, side: int, offsets, box: float,
+                    dtype):
+    """(ids, inside, shift) of slab cell coordinates (M, 3), x in [0, sx),
+    at ``offsets`` (K, 3) on the x-extended ((sx + 2), side, side) grid:
+    neighbour plane x + 1 + dx is always in it. Isolated (``box`` 0): y and
+    z clipped into the grid, ``inside`` (M, K) where they lie in it, shift
+    None. Periodic: y and z wrapped mod side, ``inside`` None and ``shift``
+    (M, K, 3) the image shift box * floor((coord + offset) / side) of y and
+    z (x's image arrives already shifted with the halo planes)."""
+    cell = coords[:, None, :] + offsets[None]
+    cx, cyz = cell[..., 0] + 1, cell[..., 1:]
+    inside = shift = None
+    if box > 0.0:
+        yz = rounded(box, dtype) * torch.div(
+            cyz, side, rounding_mode="floor").to(dtype)
+        shift = torch.cat([torch.zeros_like(yz[..., :1]), yz], dim=-1)
+        cyz = torch.remainder(cyz, side)
+    else:
+        inside = ((cyz >= 0) & (cyz < side)).all(dim=-1)
+        cyz = cyz.clamp(0, side - 1)
+    return (cx * side + cyz[..., 0]) * side + cyz[..., 1], inside, shift
 
 
 # Bytes of one batch of per-offset terms in the overflow channels. The 27
@@ -472,6 +511,61 @@ def _overflow_targets(t_pos, t_coords, cell_w, ccom, side: int, params, *,
             sw = torch.where(inside, cell_w[ids], 0.0)
             diff = torch.where(inside[..., None],
                                ccom[ids] - t_pos[:, None, :], 0.0)
+        r2 = (diff * diff).sum(dim=-1)
+        w = _monopole_w(kind, r2, sw, params, eps_o2)
+        acc.add_((w[..., None] * diff).sum(dim=1))
+    return acc
+
+
+def _remainder_cells_slab(tcells_pos, rem_w, rem_com, over, sx: int,
+                          side: int, params, *, kind: str, eps: float,
+                          cell_h, box: float = 0.0):
+    """:func:`_remainder_cells` over a slab (``_remainder_cells_slab``,
+    ``pallas_nlist.py:700``): targets the slab's (sx side^2, t_cap, 3), the
+    remainder channels over the extended ((sx + 2) side^2,) grid. An
+    isolated edge's missing halo arrives zero (over False): an exact no-op."""
+    eps_o2 = _eps_o2(eps, cell_h)
+    coords = _all_coords(side, tcells_pos.device, sx)
+    offsets = _offsets(tcells_pos.device)
+    acc = torch.zeros_like(tcells_pos)
+    per_offset = math.prod(tcells_pos.shape[-3:]) * tcells_pos.element_size()
+    for group in _offset_groups(per_offset):
+        ids, inside, shift = _slab_neighbors(coords, side, offsets[group],
+                                             box, tcells_pos.dtype)
+        w_n, ov_n, com_n = rem_w[ids], over[ids], rem_com[ids]
+        if box > 0.0:
+            com_n = com_n + shift
+        else:
+            w_n = torch.where(inside, w_n, 0.0)
+            ov_n = inside & ov_n
+        diff = torch.where(ov_n[..., None, None],
+                           com_n[..., None, :] - tcells_pos[:, None], 0.0)
+        r2 = (diff * diff).sum(dim=-1)
+        w = _monopole_w(kind, r2, w_n[..., None], params, eps_o2)
+        acc.add_((w[..., None] * diff).sum(dim=-3))
+    return acc
+
+
+def _overflow_targets_slab(t_pos, t_coords, cell_w, ccom, side: int, params,
+                           *, kind: str, eps: float, cell_h,
+                           box: float = 0.0):
+    """:func:`_overflow_targets` over a slab (``_overflow_targets_slab``,
+    ``pallas_nlist.py:760``): ``t_coords`` are the targets' slab
+    coordinates (x in [0, sx)), ``cell_w``/``ccom`` span the extended
+    ((sx + 2) side^2,) grid; a missing isolated halo weighs zero."""
+    eps_o2 = _eps_o2(eps, cell_h)
+    offsets = _offsets(t_pos.device)
+    acc = torch.zeros_like(t_pos)
+    for group in _offset_groups(t_pos.numel() * t_pos.element_size()):
+        ids, inside, shift = _slab_neighbors(t_coords, side, offsets[group],
+                                             box, t_pos.dtype)
+        sw, com = cell_w[ids], ccom[ids]
+        if box > 0.0:
+            diff = com + shift - t_pos[:, None, :]
+        else:
+            sw = torch.where(inside, sw, 0.0)
+            diff = torch.where(inside[..., None], com - t_pos[:, None, :],
+                               0.0)
         r2 = (diff * diff).sum(dim=-1)
         w = _monopole_w(kind, r2, sw, params, eps_o2)
         acc.add_((w[..., None] * diff).sum(dim=1))
@@ -604,6 +698,52 @@ def pair_cells_periodic(tcells_pos, cells_pos, cells_gm, side: int, params,
     return torch.cat(out)
 
 
+def pair_cells_slab_plain(tcells_pos, t_count, ext_pos, ext_gm, sx: int,
+                          side: int, params, *, cutoff: float, eps: float,
+                          kind: str = "newton", box: float = 0.0,
+                          absolute: bool = False):
+    """The 27-neighbourhood pair-tile sum over one slab, (sx side^2, t_cap,
+    3), in plain PyTorch: the JAX package's ``_jnp_pair_cells_slab``
+    (``pallas_nlist.py:623``) and the plain version of
+    :func:`pair_cells_slab_kernel`, with the truncation mask of ``kind``.
+    Targets tcells_pos (sx side^2, t_cap, 3) with t_count (sx side^2,);
+    sources ext_pos ((sx + 2) side^2, cap, 3) and ext_gm, G*m zero on
+    padded slots, over the extended grid whose planes 0 and sx + 1 are the
+    neighbours' halo. Target cell x reads source plane x + 1 + dx; y and z
+    out of the grid weigh zero (isolated) or wrap with the +-box image
+    shift (``box`` > 0; the x image arrives in the halo). Whole x-planes go
+    at once as :func:`pair_cells_periodic`'s, with no host read, each tile
+    row summed apart and added offset by offset as :func:`pair_cells_plain`
+    does; target slots past a cell's count are zero. ``absolute`` as
+    :func:`pair_cells_plain`'s: the row's sum of |terms|."""
+    t_cap, cap = tcells_pos.shape[1], ext_pos.shape[1]
+    device, dtype = tcells_pos.device, tcells_pos.dtype
+    plane = side * side
+    coords = _all_coords(side, device, sx)
+    offsets = _offsets(device)
+    planes = max(1, PLAIN_BATCH_SLOTS // (plane * t_cap * cap))
+    out = []
+    for x0 in range(0, sx, planes):
+        cb = slice(x0 * plane, min(sx, x0 + planes) * plane)
+        ids, inside, shift = _slab_neighbors(coords[cb], side, offsets, box,
+                                             dtype)  # (C, 27)
+        tpos = tcells_pos[cb][:, :, None, :]  # (C, t_cap, 1, 3)
+        acc = tcells_pos.new_zeros((tpos.shape[0], t_cap, 3))
+        for o in range(27):
+            spos, sgm = ext_pos[ids[:, o]], ext_gm[ids[:, o]]
+            if box > 0.0:
+                spos = spos + shift[:, o, None, :]
+            else:
+                sgm = torch.where(inside[:, o, None], sgm, 0.0)
+            acc = acc + _tile_rows(tpos, spos[:, None], sgm[:, None], params,
+                                   kind=kind, cutoff=cutoff, eps=eps,
+                                   use_rcut=True, absolute=absolute)
+        out.append(acc)
+    out = torch.cat(out) if out else torch.zeros_like(tcells_pos)
+    real = torch.arange(t_cap, device=device)[None, :] < t_count[:, None]
+    return torch.where(real[..., None], out, 0.0)
+
+
 def pair_cells_plain_batched(tcells_pos, t_count, cells_pos, cells_gm,
                              s_count, side: int, params, *, cutoff: float,
                              eps: float):
@@ -623,6 +763,9 @@ _ENTRY = {torch.float32: "nlist_pair_f32", torch.float64: "nlist_pair_f64",
 # The batched entries: a slot count after the solo entry's arguments.
 _BATCHED = {dtype: name.replace("nlist_pair_", "nlist_pair_batched_")
             for dtype, name in _ENTRY.items()}
+# The slab entries: the slab's x-plane count after the solo arguments.
+_SLAB = {dtype: name.replace("nlist_pair_", "nlist_pair_slab_")
+         for dtype, name in _ENTRY.items()}
 # The most slots a batched launch takes (the grid's slot axis).
 MAX_SLOTS = 65_535
 # The kernel's pair-kind codes (csrc/nlist_pair.cu) and the params each
@@ -636,19 +779,21 @@ _ARGTYPES = [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
 LIBRARY = cuda_build.CudaLibrary("nlist_pair", {
     **{name: (_ARGTYPES, ctypes.c_int) for name in _ENTRY.values()},
     **{name: (_ARGTYPES + [ctypes.c_int], ctypes.c_int)
-       for name in _BATCHED.values()},
+       for name in (*_BATCHED.values(), *_SLAB.values())},
 })
 
 # Kernel launches so far, per pair kind, and apart for the untruncated
 # newton form (``near``, the octree's near field), for the bf16 form
 # (``newton_bf16``, ``near_bf16``) and for the batched launches of the
 # serve engine (``newton/batched``, ``newton_bf16/batched``: one a batched
-# evaluation, whatever its slot count); a run reads its form's count to
-# show its path went through the kernel. Incremented only where the kernel
-# is launched.
+# evaluation, whatever its slot count) and for the slab launches of the
+# halo engine (``newton/slab``, ``ewald/slab``, ``newton_bf16/slab``); a
+# run reads its form's count to show its path went through the kernel.
+# Incremented only where the kernel is launched.
 LAUNCHES = {kind: 0 for kind in (*KINDS, "near", "newton_bf16",
                                  "near_bf16", "newton/batched",
-                                 "newton_bf16/batched")}
+                                 "newton_bf16/batched", "newton/slab",
+                                 "ewald/slab", "newton_bf16/slab")}
 
 
 def launch_key(kind: str, use_rcut: bool,
@@ -659,9 +804,10 @@ def launch_key(kind: str, use_rcut: bool,
 
 
 def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params,
-           kind, batch=()):
+           kind, batch=(), slab: int = 0):
     """The launch's checks; ``batch`` is ``(B,)`` for a batched launch,
-    whose params hold one value a slot."""
+    whose params hold one value a slot; ``slab`` > 0 the x-planes of a
+    slab launch's targets (its sources span slab + 2)."""
     if kind not in _KIND_CODE:
         raise ValueError(f"unknown nlist pair kind {kind!r}; choose from "
                          f"{KINDS}")
@@ -671,18 +817,19 @@ def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params,
     if dtype not in _ENTRY:
         raise TypeError("the CUDA kernel takes float32, float64 or bfloat16, "
                         f"not {dtype}")
-    n_cells = side**3
+    t_cells = (slab or side) * side * side
+    s_cells = (slab + 2) * side * side if slab else t_cells
     if tcells_pos.dim() != len(batch) + 3 or cells_pos.dim() != len(batch) + 3:
         raise ValueError(
             f"tcells_pos {tuple(tcells_pos.shape)} and cells_pos "
-            f"{tuple(cells_pos.shape)} must be {batch} + (side^3, slots, 3)")
+            f"{tuple(cells_pos.shape)} must be {batch} + (cells, slots, 3)")
     t_cap, cap = tcells_pos.shape[-2], cells_pos.shape[-2]
     shapes = (
-        ("tcells_pos", tcells_pos, (*batch, n_cells, t_cap, 3), dtype),
-        ("t_count", t_count, (*batch, n_cells), torch.int64),
-        ("cells_pos", cells_pos, (*batch, n_cells, cap, 3), dtype),
-        ("cells_gm", cells_gm, (*batch, n_cells, cap), dtype),
-        ("s_count", s_count, (*batch, n_cells), torch.int64),
+        ("tcells_pos", tcells_pos, (*batch, t_cells, t_cap, 3), dtype),
+        ("t_count", t_count, (*batch, t_cells), torch.int64),
+        ("cells_pos", cells_pos, (*batch, s_cells, cap, 3), dtype),
+        ("cells_gm", cells_gm, (*batch, s_cells, cap), dtype),
+        ("s_count", s_count, (*batch, s_cells), torch.int64),
     )
     for name, t, shape, want in shapes:
         if t.device != device:
@@ -716,6 +863,30 @@ def pair_cost_estimate(n_cells: int, t_cap: int, cap: int,
             batch * pairs)
 
 
+def _launch(entry: str, tcells_pos, t_count, cells_pos, cells_gm, s_count,
+            side: int, params, *, cutoff: float, eps: float, use_rcut: bool,
+            kind: str, extra: tuple = ()):
+    """One launch of ``csrc/nlist_pair.cu``'s C function ``entry`` on the
+    current stream, without synchronising, after the caller's checks;
+    ``extra`` are the entry's arguments after the stream (a batched
+    launch's slot count, a slab launch's x-planes). eps^2 and cutoff^2 are
+    squared in double and then rounded to the element type (_newton_w)."""
+    dtype, device = tcells_pos.dtype, tcells_pos.device
+    out = torch.empty_like(tcells_pos)
+    lib = LIBRARY.load()
+    with torch.cuda.device(device):
+        status = getattr(lib, entry)(
+            tcells_pos.data_ptr(), t_count.data_ptr(), cells_pos.data_ptr(),
+            cells_gm.data_ptr(), s_count.data_ptr(), side,
+            tcells_pos.shape[-2], cells_pos.shape[-2], params.data_ptr(),
+            rounded(eps * eps, dtype), rounded(cutoff * cutoff, dtype),
+            int(use_rcut), _KIND_CODE[kind], out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream, *extra,
+        )
+    LIBRARY.check(status)
+    return out
+
+
 def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
                       side: int, params, *, cutoff: float, eps: float,
                       use_rcut: bool = True, kind: str = "newton"):
@@ -737,24 +908,12 @@ def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
         return pair_cells_plain(*args, cutoff=cutoff, eps=eps,
                                 use_rcut=use_rcut, kind=kind)
     _check(*args, kind)
-    dtype, device = tcells_pos.dtype, tcells_pos.device
-    # Squared in double, then rounded to the element type (_newton_w).
-    eps2 = rounded(eps * eps, dtype)
-    cutoff2 = rounded(cutoff * cutoff, dtype)
-    t_cap, cap = tcells_pos.shape[1], cells_pos.shape[1]
-    out = torch.empty_like(tcells_pos)
-    lib = LIBRARY.load()
-    with torch.cuda.device(device):
-        status = getattr(lib, _ENTRY[dtype])(
-            tcells_pos.data_ptr(), t_count.data_ptr(), cells_pos.data_ptr(),
-            cells_gm.data_ptr(), s_count.data_ptr(), side, t_cap, cap,
-            params.data_ptr(), eps2, cutoff2, int(use_rcut),
-            _KIND_CODE[kind], out.data_ptr(),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    LIBRARY.check(status)
+    dtype = tcells_pos.dtype
+    out = _launch(_ENTRY[dtype], *args, cutoff=cutoff, eps=eps,
+                  use_rcut=use_rcut, kind=kind)
     LAUNCHES[launch_key(kind, use_rcut, dtype)] += 1
-    count_launch(*pair_cost_estimate(side**3, t_cap, cap))
+    count_launch(*pair_cost_estimate(side**3, tcells_pos.shape[1],
+                                     cells_pos.shape[1]))
     return out
 
 
@@ -782,25 +941,48 @@ def pair_cells_kernel_batched(tcells_pos, t_count, cells_pos, cells_gm,
     if batch > MAX_SLOTS:
         raise ValueError(f"a batched launch takes at most {MAX_SLOTS} "
                          f"slots, got {batch}")
-    dtype, device = tcells_pos.dtype, tcells_pos.device
-    eps2 = rounded(eps * eps, dtype)
-    cutoff2 = rounded(cutoff * cutoff, dtype)
-    t_cap, cap = tcells_pos.shape[-2], cells_pos.shape[-2]
-    out = torch.empty_like(tcells_pos)
+    dtype = tcells_pos.dtype
     if batch == 0:
-        return out
-    lib = LIBRARY.load()
-    with torch.cuda.device(device):
-        status = getattr(lib, _BATCHED[dtype])(
-            tcells_pos.data_ptr(), t_count.data_ptr(), cells_pos.data_ptr(),
-            cells_gm.data_ptr(), s_count.data_ptr(), side, t_cap, cap,
-            params.data_ptr(), eps2, cutoff2, 1, _KIND_CODE["newton"],
-            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-            batch,
-        )
-    LIBRARY.check(status)
+        return torch.empty_like(tcells_pos)
+    out = _launch(_BATCHED[dtype], *args, cutoff=cutoff, eps=eps,
+                  use_rcut=True, kind="newton", extra=(batch,))
     LAUNCHES[launch_key("newton", True, dtype) + "/batched"] += 1
-    count_launch(*pair_cost_estimate(side**3, t_cap, cap, batch))
+    count_launch(*pair_cost_estimate(side**3, tcells_pos.shape[-2],
+                                     cells_pos.shape[-2], batch))
+    return out
+
+
+def pair_cells_slab_kernel(tcells_pos, t_count, ext_pos, ext_gm, ext_count,
+                           sx: int, side: int, params, *, cutoff: float,
+                           eps: float, kind: str = "newton"):
+    """The isolated slab pair tiles: :func:`pair_cells_slab_plain`'s
+    contract (``box`` 0), with ``ext_count`` ((sx + 2) side^2,) the sources
+    of each extended cell. CPU tensors take the plain version; CUDA tensors
+    launch ``csrc/nlist_pair.cu``'s slab entry (the cubic kernel's code
+    with target plane x reading source plane x + 1 + dx) on the current
+    stream, without synchronising, or raise. Counted under
+    ``LAUNCHES["newton/slab"]``, ``["ewald/slab"]`` and
+    ``["newton_bf16/slab"]``. ``ewald`` at bf16 is refused on every device,
+    as :func:`pair_cells_kernel` refuses it."""
+    if kind == "ewald" and tcells_pos.dtype == torch.bfloat16:
+        raise ValueError(
+            "the ewald pair kind takes float32 or float64: it serves only "
+            "P3M, which refuses a bf16 state as the JAX package's does "
+            "(jnp.fft.rfftn at gravity_tpu/ops/pm.py:286)")
+    args = (tcells_pos, t_count, ext_pos, ext_gm, ext_count)
+    if all(t.device.type == "cpu" for t in (*args, params)):
+        return pair_cells_slab_plain(tcells_pos, t_count, ext_pos, ext_gm,
+                                     sx, side, params, cutoff=cutoff,
+                                     eps=eps, kind=kind)
+    if sx < 1:
+        raise ValueError(f"a slab launch needs sx >= 1 planes, got {sx}")
+    _check(*args, side, params, kind, slab=sx)
+    dtype = tcells_pos.dtype
+    out = _launch(_SLAB[dtype], *args, side, params, cutoff=cutoff, eps=eps,
+                  use_rcut=True, kind=kind, extra=(sx,))
+    LAUNCHES[launch_key(kind, True, dtype) + "/slab"] += 1
+    count_launch(*pair_cost_estimate(sx * side * side, tcells_pos.shape[1],
+                                     ext_pos.shape[1]))
     return out
 
 

@@ -411,6 +411,7 @@ def p3m_accelerations_vs(
     khat=None,
     short_mode: str = "auto",
     t_cap: int = 0,
+    side: int = 0,
     _self: bool = False,
 ) -> torch.Tensor:
     """P3M accelerations at ``targets`` from sources (positions, masses),
@@ -418,8 +419,11 @@ def p3m_accelerations_vs(
     the Ewald split scale in mesh cells, ``rcut_sigmas`` the short-range
     truncation, ``cap`` the cell list's source slots per cell, ``t_cap``
     its target slots (0: ``cap``; ``nlist`` and ``slice`` modes),
-    ``chunk`` the target chunk of the ``gather`` mode, ``khat`` a prebuilt
-    :func:`force_kernel_hat`. ``short_mode`` per :func:`resolve_short_mode`."""
+    ``side`` its cells per axis (0: :func:`binning_side`; a coarser side,
+    as the halo engine's rounded to whole planes a rank, also covers
+    rcut), ``chunk`` the target chunk of the ``gather`` mode, ``khat`` a
+    prebuilt :func:`force_kernel_hat`. ``short_mode`` per
+    :func:`resolve_short_mode`."""
     mode = resolve_short_mode(short_mode, positions.device)
     origin, span = bounding_cube(positions)
     h = span / (grid - 1)
@@ -431,7 +435,7 @@ def p3m_accelerations_vs(
                               grid=grid, g=g, sigma_cells=sigma_cells,
                               khat=khat)
 
-    side = binning_side(grid, sigma_cells, rcut_sigmas)
+    side = side or binning_side(grid, sigma_cells, rcut_sigmas)
     n_cells = side**3
     with record_function("p3m.bin"):
         coords = grid_coords(positions, origin, span, side)

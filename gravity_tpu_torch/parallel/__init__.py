@@ -1,11 +1,16 @@
 """Multi-device execution on ``torch.distributed``: particle meshes, the
-sharded direct sums and the hierarchical ring.
+sharded direct sums, the hierarchical ring and the halo slab engine.
 
-Counterpart of ``gravity_tpu/parallel/`` for its ``mesh``, ``sharded`` and
-``multislice`` modules; the halo slab engine (``halo.py``) is a later
-bullet of ROADMAP Queue 1 item 5.
+Counterpart of ``gravity_tpu/parallel/`` for its ``mesh``, ``sharded``,
+``multislice`` and ``halo`` modules.
 """
 
+from .halo import (
+    halo_comm_model,
+    make_halo_nlist_accel,
+    resolve_halo_sizing,
+    resolve_mig_cap,
+)
 from .mesh import (
     DCN_AXIS,
     SHARD_AXIS,
@@ -29,8 +34,10 @@ __all__ = [
     "DCN_AXIS",
     "SHARD_AXIS",
     "ParticleMesh",
+    "halo_comm_model",
     "hierarchical_ring_accel",
     "initialize_distributed",
+    "make_halo_nlist_accel",
     "make_particle_mesh",
     "make_sharded_accel2",
     "make_sharded_accel_fn",
@@ -39,5 +46,7 @@ __all__ = [
     "particle_sharding",
     "particle_spec",
     "replicate_state",
+    "resolve_halo_sizing",
+    "resolve_mig_cap",
     "shard_state",
 ]

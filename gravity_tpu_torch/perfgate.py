@@ -23,8 +23,10 @@ The timing arms are the port's own ``nlist_accelerations`` and
 ``pairwise_accelerations_chunked`` on a seeded uniform cube on the run's
 device, each fenced by ``utils/timing.sync``; the perf counter is off in
 every arm. ``mesh_paired_ratio_min`` (the halo exchange against the
-allgather) needs the multi-GPU mesh, ROADMAP.md Queue 1 item 5: it is
-reported VIOLATED with the ``NotPortedError`` text, never skipped.
+allgather, :func:`run_mesh_paired_ratio`) runs, as the JAX package's
+runs on a virtual CPU mesh in a subprocess, on ``devices`` gloo ranks of
+the CPU spawned for it and joined by a ``FileStore`` in a temporary
+directory (no TCP port), whatever device the rest of the gate runs on.
 
 ``GRAVITY_TPU_PERF_HANDICAP`` (JSON ``{"contract": name or "*", "arm":
 "a"|"b"|"both", "factor": F}``) multiplies the named arm's measured
@@ -50,7 +52,6 @@ import statistics
 import time
 from typing import Callable, Optional
 
-from .config import NotPortedError
 from .utils.platform import DeviceLike, resolve_device
 
 BASELINE_FILE = "PERF_BASELINE.json"
@@ -398,21 +399,154 @@ def _serve_ledger_row(n: int, device: DeviceLike = None):
     return perf.ledger().row_for(perf.engine_key_str(key))
 
 
+def mesh_ab_pairs(params: dict, mesh) -> dict:
+    """Interleaved (t_allgather, t_halo) second-pairs of the sharded cell
+    list on ``mesh``, one rank of a world of ``devices``: both arms at the
+    same halo sizing (side, cap) and the same rows, differing only in the
+    exchange (every remote position gathered against one ghost plane each
+    way). An arm's time is the slowest rank's (an ``all_reduce`` MAX), as
+    the evaluation ends when its last rank does."""
+    import torch
+    import torch.distributed as dist
+
+    from .ops.nlist import make_nlist_local_kernel
+    from .parallel import (
+        make_halo_nlist_accel,
+        make_sharded_accel2,
+        resolve_halo_sizing,
+    )
+    from .parallel.mesh import all_gather_rows
+
+    devices = mesh.size
+    n = int(params.get("n_per_device", 2048)) * devices
+    reps = int(params.get("reps", 5))
+    rcut = float(params.get("rcut_spacings", 2.5))  # unit density
+    eps = float(params.get("eps", 0.05))
+    pos, m = _uniform_state(n, device="cpu")
+    side, cap = resolve_halo_sizing(pos, rcut, devices=devices)
+    rows = mesh.rows(n)
+    pos_l, m_l = pos[rows].contiguous(), m[rows].contiguous()
+    halo = make_halo_nlist_accel(mesh, side=side, cap=cap, rcut=rcut, g=1.0,
+                                 eps=eps)
+    allgather = make_sharded_accel2(
+        mesh, strategy="allgather", local_kernel=make_nlist_local_kernel(
+            rcut=rcut, side=side, cap=cap, g=1.0, eps=eps))
+
+    def timed(fn) -> float:
+        dist.barrier()
+        t0 = time.perf_counter()
+        acc = fn(pos_l, m_l)
+        t = torch.tensor([time.perf_counter() - t0], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t[0]), acc
+
+    _, a_ref = timed(allgather)
+    _, a_halo = timed(halo)
+    # The two arms compute one force: the worst row gap over mean |a|.
+    gap = all_gather_rows((a_halo - a_ref).abs().max(dim=1).values)
+    scale = all_gather_rows(a_ref.norm(dim=1))
+    pairs = []
+    for _ in range(reps):
+        t_a, _ = timed(allgather)
+        t_b, _ = timed(halo)
+        pairs.append([t_a, t_b])
+    return {"pairs": pairs, "n": n, "devices": devices, "side": side,
+            "cap": cap, "max_gap_over_mean_a": float(gap.max()
+                                                     / scale.mean())}
+
+
+def _mesh_ab_rank(rank: int, devices: int, workdir: str,
+                  params: dict) -> None:
+    """One gloo rank of the gate's mesh worker; rank 0 writes the pairs to
+    ``workdir/pairs.json``."""
+    import torch
+    import torch.distributed as dist
+
+    from .parallel import make_particle_mesh
+
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(workdir, "store"),
+                                     devices),
+        rank=rank, world_size=devices)
+    try:
+        doc = mesh_ab_pairs(params, make_particle_mesh((devices,),
+                                                       device="cpu"))
+        if rank == 0:
+            with open(os.path.join(workdir, "pairs.json"), "w") as f:
+                json.dump(doc, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_mesh_worker(params: dict) -> dict:
+    """Run :func:`mesh_ab_pairs` on ``devices`` spawned gloo ranks of the
+    CPU within ``worker_timeout`` seconds; returns rank 0's document.
+    Raises ``RuntimeError`` when a rank fails or the time runs out."""
+    import tempfile
+
+    import torch.multiprocessing as tmp
+
+    devices = int(params.get("devices", 8))
+    timeout = float(params.get("worker_timeout", 600))
+    with tempfile.TemporaryDirectory() as workdir:
+        ctx = tmp.start_processes(_mesh_ab_rank,
+                                  args=(devices, workdir, params),
+                                  nprocs=devices, join=False,
+                                  start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=1):
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"mesh worker: {devices} ranks still running after "
+                        f"{timeout:g} s")
+        except tmp.ProcessRaisedException as e:
+            raise RuntimeError(f"mesh worker rank failed: {e}") from e
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(timeout=10)
+        with open(os.path.join(workdir, "pairs.json")) as f:
+            return json.load(f)
+
+
 def run_mesh_paired_ratio(contract: dict, log: Callable,
                           device: DeviceLike = None) -> ContractResult:
-    """The halo exchange against the allgather on the device mesh: the
-    mesh and the halo engine are ROADMAP.md Queue 1 item 5. Reported
-    violated, with the refusal as its error, so that no run of the
-    committed baseline passes it by omission."""
-    err = NotPortedError(
-        "mesh_paired_ratio_min (the halo exchange against the allgather on "
-        "a device mesh, parallel/halo.py) is not ported to "
-        "gravity_tpu_torch yet (ROADMAP.md Queue 1 item 5)")
-    log(f"  {contract['name']}: VIOLATED, not measured: {err}")
+    """min-ratio contract of the halo exchange: arm "a" the allgather
+    sharded cell list, arm "b" the halo form, interleaved pairs measured
+    on ``devices`` gloo ranks of the CPU (:func:`_spawn_mesh_worker`;
+    ``device`` is not read). The handicap is applied here in the parent,
+    a pair at a time; the workers never see it. A worker that fails is
+    reported violated with its error."""
+    del device
+    p = contract.get("params", {})
+    bound = float(contract["min_ratio"])
+    try:
+        doc = _spawn_mesh_worker(p)
+    except (RuntimeError, OSError, ValueError) as e:
+        log(f"  {contract['name']}: mesh worker FAILED: {e}")
+        return ContractResult(
+            contract["name"], "mesh_paired_ratio_min", False, None, bound,
+            None, {"error": f"worker_failed: {e}"})
+    ratios = []
+    for t_a, t_b in doc["pairs"]:
+        t_a = apply_handicap(contract["name"], "a", t_a)
+        t_b = apply_handicap(contract["name"], "b", t_b)
+        ratios.append(t_a / max(t_b, 1e-12))
+    med = statistics.median(ratios)
+    ci = bootstrap_ci(ratios)
+    ok = ci[0] >= bound
+    log(f"  {contract['name']}: median allgather/halo ratio {med:.2f} "
+        f"(CI [{ci[0]:.2f}, {ci[1]:.2f}]) vs min {bound} [n={doc['n']}, "
+        f"{doc['devices']} gloo ranks, side={doc['side']}]")
     return ContractResult(
-        contract["name"], "mesh_paired_ratio_min", False, None,
-        float(contract["min_ratio"]), None,
-        {"error": f"{type(err).__name__}: {err}"})
+        contract["name"], "mesh_paired_ratio_min", ok, med, bound, ci,
+        {"ratios": [round(r, 4) for r in ratios], "n": doc["n"],
+         "devices": doc["devices"], "side": doc["side"], "cap": doc["cap"],
+         "pairs_s": doc["pairs"], "platform": "cpu-gloo",
+         "max_gap_over_mean_a": doc["max_gap_over_mean_a"]})
 
 
 KIND_RUNNERS = {

@@ -21,8 +21,12 @@ steps with one host read a block).
 
 With ``config.sharding`` the run is one rank of a ``torch.distributed``
 world (``parallel/``): its rows of the padded state, the force the
-sharded direct sum over the backend's rectangular kernel, what is global
-gathered (:class:`Simulator`).
+sharded direct sum over the backend's rectangular kernel, or for the cell
+list and P3M's near field on a single-axis mesh the halo slab engine
+(``parallel/halo.py``, ``nlist_mesh``), what is global gathered
+(:class:`Simulator`). Multirate and adaptive runs step a rank's rows
+(``ops/multirate.py``'s sharded forms, the adaptive criterion over the
+gathered state).
 
 The run loop's host side is the JAX package's ``_run_impl`` contract: the
 depth-1 block pipeline (``io_pipeline``: block k+1 is queued before block
@@ -75,6 +79,7 @@ from .ops.encounters import (
 from .ops.external import parse_external
 from .ops.forces import (
     accelerations_vs,
+    accelerations_vs_chunked,
     pairwise_accelerations_chunked,
     rounded,
 )
@@ -141,13 +146,16 @@ JAX_NAMES = {KERNEL_BACKEND: "pallas", MXU_BACKEND: "pallas-mxu"}
 # The launch count of each resolved backend's kernel on a state's dtype
 # (p3m's is the cell-list kernel's ewald kind, which its gather pass does
 # not launch; the tree's its untruncated newton form, which its gather near
-# field does not launch; the cell list's bf16 form counts apart).
+# field does not launch; the cell list's bf16 form counts apart; the halo
+# slab engine's launches, cubic for a multirate kick, slab for the full
+# force, count together).
 _LAUNCH_COUNTS = {
     KERNEL_BACKEND: lambda dtype: direct_kernel.LAUNCHES,
     MXU_BACKEND: lambda dtype: mxu_kernel.LAUNCHES,
-    "nlist": lambda dtype: nlist.LAUNCHES[
-        nlist.launch_key("newton", True, dtype)],
-    "p3m": lambda dtype: nlist.LAUNCHES["ewald"],
+    "nlist": lambda dtype: sum(nlist.LAUNCHES[k + form] for k in (
+        nlist.launch_key("newton", True, dtype),) for form in ("", "/slab")),
+    "p3m": lambda dtype: nlist.LAUNCHES["ewald"] + nlist.LAUNCHES[
+        "ewald/slab"],
     "tree": lambda dtype: nlist.LAUNCHES[
         nlist.launch_key("newton", False, dtype)],
 }
@@ -222,16 +230,17 @@ def _resolve_backend_for_run(config: SimulationConfig, state,
     ``off`` decision. A candidate's error once it runs propagates: routing
     does not go on by another route that would hide a kernel (the JAX
     package falls back to the static route on any error). A periodic run
-    keeps the static route: pm and nlist are its only solvers, and so does
-    a sharded one (the JAX package's mesh candidates include the halo
-    engine, a later bullet of ROADMAP item 5)."""
+    keeps the static route: pm and nlist are its only solvers. On a mesh
+    every rank probes and takes rank 0's verdict, whose composite cell-list
+    candidate (``nlist@halo``, ``nlist@allgather``) carries the mesh
+    strategy the Simulator pins (``autotune._candidate_config``)."""
     if (config.force_backend != "auto" or not config.autotune
-            or config.periodic_box > 0.0 or config.sharding != "none"):
+            or config.periodic_box > 0.0):
         return _resolve_backend(config, device), \
             autotune.off(config.force_backend)
     decision = autotune.resolve_backend_measured(config, state,
                                                  device=device)
-    chosen = dataclasses.replace(config, force_backend=decision.backend)
+    chosen = autotune._candidate_config(config, decision.backend)
     return _resolve_backend(chosen, device), decision
 
 
@@ -261,6 +270,33 @@ def _resolve_nlist_config(config: SimulationConfig, positions):
         return side, cap or nlist.DEFAULT_CAP
     return nlist.resolve_nlist_sizing(positions, config.nlist_rcut, cap=cap,
                                       side=side, box=config.periodic_box)
+
+
+def _resolve_halo_nlist_config(config: SimulationConfig, positions,
+                               devices: int):
+    """:func:`_resolve_nlist_config` for the slab decomposition: the side
+    splits into whole cell planes a rank, fit by
+    ``parallel.halo.resolve_halo_sizing``; an explicit ``nlist_side`` is
+    checked, never rounded (the solo and halo forms agree on what ran)."""
+    if config.nlist_rcut <= 0.0:
+        raise ValueError(
+            "force_backend='nlist' needs nlist_rcut > 0 (--nlist-rcut): "
+            "the cell-list kernel computes forces TRUNCATED at rcut — "
+            "declared short-range physics, not an approximation of "
+            "full gravity"
+        )
+    side, cap = config.nlist_side, config.nlist_cap
+    if side and side % devices:
+        raise ValueError(
+            f"halo nlist needs --nlist-side divisible by the mesh axis "
+            f"size; got side={side}, devices={devices} (round it, or "
+            "set nlist_mesh='allgather')"
+        )
+    if side and cap:
+        return side, cap
+    return parallel.resolve_halo_sizing(
+        positions, config.nlist_rcut, cap=cap, devices=devices, side=side,
+        box=config.periodic_box)
 
 
 def _resolve_depth_and_warn(config: SimulationConfig, positions, where: str,
@@ -353,6 +389,11 @@ def make_local_kernel(config: SimulationConfig, backend: str,
         # The rcut-masked sum where truncated physics is declared.
         if config.nlist_rcut > 0.0:
             common["rcut"] = config.nlist_rcut
+        if backend == "chunked":
+            # A rank's (n_local, N) block or a (K, N) kick, config.chunk
+            # targets at a time, as the unsharded chunked sum runs.
+            return functools.partial(accelerations_vs_chunked,
+                                     chunk=config.chunk, **common)
         return functools.partial(accelerations_vs, **common)
     if backend == KERNEL_BACKEND:
         return direct_kernel.make_direct_local_kernel(**common)
@@ -552,28 +593,33 @@ def _p3m_halo_side(config: SimulationConfig, mesh) -> int:
     return side if side >= max(devices, 2) else 0
 
 
-def _check_mesh_backend(config: SimulationConfig, backend: str,
-                        mesh) -> None:
-    """The JAX Simulator's refusals on a mesh: the ring cannot build a
-    global tree, grid or cell list; and where it would take the halo slab
-    engine (nlist or P3M's near field with ``nlist_mesh="auto"`` on a
-    single-axis mesh of two or more devices) the port refuses, since the
-    halo engine is a later bullet of ROADMAP Queue 1 item 5."""
+def _check_mesh_backend(config: SimulationConfig, backend: str) -> None:
+    """The JAX Simulator's refusal on a mesh: the ring cannot build a
+    global tree, grid or cell list."""
     if config.sharding == "ring" and backend in (
             "tree", "fmm", "sfmm", "pm", "p3m", "nlist"):
         raise ValueError(
             f"force backend {backend!r} needs the full source set per "
             "chip to build its tree/mesh; use sharding='allgather'")
-    halo_fits = len(mesh.shape) == 1 and mesh.shape[0] >= 2
-    if config.nlist_mesh == "auto" and halo_fits and (
-            backend == "nlist"
-            or (backend == "p3m" and _p3m_halo_side(config, mesh) > 0)):
-        raise NotPortedError(
-            f"force_backend={backend!r} on a {mesh.shape[0]}-device mesh "
-            "with nlist_mesh='auto' takes the halo slab engine in the JAX "
-            "package, which is not ported to gravity_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 5, the halo and slab engines); "
-            "pass nlist_mesh='allgather'")
+
+
+def _nlist_mesh_strategy(config: SimulationConfig, mesh) -> str:
+    """The mesh strategy of the cell-list family (nlist, P3M's near
+    field): ``halo`` (the slab decomposition) or ``allgather``. ``auto``
+    takes halo wherever the slab form applies, a single-axis mesh of two
+    or more ranks; ``halo`` insists (an error elsewhere); ``allgather``
+    pins the gather of the world."""
+    applicable = (mesh is not None and len(mesh.shape) == 1
+                  and mesh.shape[0] >= 2)
+    if config.nlist_mesh == "halo":
+        if not applicable:
+            raise ValueError(
+                "nlist_mesh='halo' needs a single-axis mesh with >= 2 "
+                "devices (the slab decomposition runs over one mesh axis)")
+        return "halo"
+    if config.nlist_mesh == "allgather" or not applicable:
+        return "allgather"
+    return "halo"
 
 
 class Simulator:
@@ -585,7 +631,9 @@ class Simulator:
     launcher made one): every rank draws the same initial state, pads it
     to a multiple of the mesh size with zero-mass bodies and keeps its own
     rows in ``self.state``; the force is the sharded direct sum over the
-    backend's rectangular kernel. The watchdog's verdict is an
+    backend's rectangular kernel, or the halo slab engine of the cell list
+    and of P3M's near field (:func:`_nlist_mesh_strategy`). The
+    watchdog's verdict is an
     ``all_reduce``, and what is global (the final state, trajectory
     frames, the ledger, the sentinel, the merge pass, :meth:`energy`) is
     gathered to every rank; the caller lets rank 0 alone write."""
@@ -612,13 +660,41 @@ class Simulator:
         # timings, errors, skips) is an "off" decision for other backends.
         self.backend, self.autotune_decision = \
             _resolve_backend_for_run(config, state, self.device)
+        if "@" in self.autotune_decision.backend:
+            # A composite mesh candidate's winner pins its strategy, so the
+            # build below takes the program the probe measured.
+            self.config = config = dataclasses.replace(
+                config, nlist_mesh=self.autotune_decision.backend.split(
+                    "@", 1)[1])
+        # The slab decomposition's ranks (0 off it) and P3M's near-field
+        # side on it.
+        self._halo_devices = self._p3m_halo_side = 0
         if self.mesh is not None:
-            _check_mesh_backend(config, self.backend, self.mesh)
+            _check_mesh_backend(config, self.backend)
             # Sizing reads the padded global state, as the JAX package's
-            # reads its sharded global array.
+            # reads its sharded global array: every rank builds the same
+            # grid and buckets.
             state, _ = state.pad_to(
                 math.ceil(state.n / self.mesh.size) * self.mesh.size)
+            if self.backend in ("nlist", "p3m") and _nlist_mesh_strategy(
+                    config, self.mesh) == "halo":
+                if self.backend == "nlist":
+                    self._halo_devices = self.mesh.size
+                else:
+                    self._p3m_halo_side = _p3m_halo_side(config, self.mesh)
+                    if self._p3m_halo_side:
+                        self._halo_devices = self.mesh.size
+                    elif config.nlist_mesh == "halo":
+                        raise ValueError(
+                            "nlist_mesh='halo' on sharded p3m needs the "
+                            "near-field cell grid to fit >= 1 whole cell "
+                            "plane per device; this mesh cannot host the "
+                            "slab form — set nlist_mesh='allgather' (or "
+                            "shrink the mesh)")
         self.state = state
+        # The padded count: the multirate plan's n, as the JAX package's
+        # reads its sharded global array.
+        self.n_padded = state.n
         if config.periodic_box > 0.0 and self.backend not in ("pm", "nlist"):
             raise ValueError(
                 "periodic_box > 0 needs a periodic-capable solver — "
@@ -633,10 +709,19 @@ class Simulator:
         faults.check_backend(config.force_backend, self.backend,
                              JAX_NAMES.get(self.backend, self.backend))
         # As-run cell-list sizing (side, cap, pair-tile slots per force
-        # evaluation), for nlist runs.
-        self.nlist_sizing = None
+        # evaluation), for nlist runs: on the slab decomposition its
+        # D-divisible side, and the migration buckets' capacity.
+        self.nlist_sizing = self.nlist_mig_cap = None
         if self.backend == "nlist":
-            side, cap = _resolve_nlist_config(config, state.positions)
+            if self._halo_devices:
+                side, cap = _resolve_halo_nlist_config(
+                    config, state.positions, self._halo_devices)
+                self.nlist_mig_cap = config.nlist_mig_cap or \
+                    parallel.resolve_mig_cap(state.positions, side,
+                                             self._halo_devices,
+                                             box=config.periodic_box)
+            else:
+                side, cap = _resolve_nlist_config(config, state.positions)
             note = nlist.check_nlist_sizing(state.n, side, cap)
             if note:
                 warnings.warn(note, stacklevel=2)
@@ -656,9 +741,10 @@ class Simulator:
                 warnings.warn(note, stacklevel=2)
             side = p3m.binning_side(config.pm_grid, config.p3m_sigma_cells,
                                     config.p3m_rcut_sigmas)
-            self.p3m_sizing = (side, config.p3m_cap, config.p3m_cap,
-                               p3m.resolve_short_mode(config.p3m_short,
-                                                      self.device))
+            mode = p3m.resolve_short_mode(config.p3m_short, self.device)
+            if self._halo_devices:
+                side, mode = self._p3m_halo_side, "halo"
+            self.p3m_sizing = (side, config.p3m_cap, config.p3m_cap, mode)
         # As-run octree depth, fit once to the initial state.
         self.tree_depth = None
         if self.backend == "tree":
@@ -705,22 +791,21 @@ class Simulator:
             self.kick_sizing = getattr(kick, "sizing", None)
             if self.backend == "p3m":
                 kick = self._with_run_khat(kick)
+            if self.mesh is not None:
+                # The sharded fast rung: the K replicated targets against
+                # each rank's rows, summed over the ranks.
+                kick = parallel.make_sharded_rect_accel(self.mesh, kick)
             if self._ext is not None:
                 ext = self._ext
                 self._kick = lambda ti, sj, m: kick(ti, sj, m) + ext(ti)
             else:
                 self._kick = kick
-        # The sharded direct sum over the backend's rectangular kernel
-        # (every backend with one: the JAX package's generic mesh branch),
-        # then this rank's rows of the padded state.
+        # The sharded force (the halo slab engine, or the sharded direct
+        # sum over the backend's rectangular kernel: the JAX package's
+        # generic mesh branch), then this rank's rows of the padded state.
         self._sharded = None
         if self.mesh is not None:
-            local = make_local_kernel(config, self.backend,
-                                      positions=state.positions)
-            if self.backend == "p3m":
-                local = self._with_run_khat(local)
-            self._sharded = parallel.make_sharded_accel2(
-                self.mesh, strategy=config.sharding, local_kernel=local)
+            self._sharded = self._mesh_accel(state)
             self.state = parallel.shard_state(state, self.mesh)
         self._build_observatory()
         # The performance observatory: the block the run loop, run_block
@@ -749,6 +834,46 @@ class Simulator:
                                  else None),
                 targets=self.state.n),
         )
+
+    def _mesh_accel(self, state: ParticleState):
+        """``accel2(pos_l, m_l)`` of this mesh run: the cell list's halo
+        slab engine; P3M's far field by the allgather of its mesh pass (a
+        global FFT has no slab locality) plus its erfc near field on the
+        halo engine (``kind="ewald"``, alpha and rcut following the global
+        cube); else the sharded direct sum over the backend's rectangular
+        kernel."""
+        config = self.config
+        common = dict(g=config.g, cutoff=config.cutoff, eps=config.eps)
+        if self._halo_devices and self.backend == "nlist":
+            side, cap, _ = self.nlist_sizing
+            return parallel.make_halo_nlist_accel(
+                self.mesh, side=side, cap=cap, rcut=config.nlist_rcut,
+                box=config.periodic_box, mig_cap=self.nlist_mig_cap,
+                **common)
+        if self._halo_devices:  # p3m
+            grid, sc = config.pm_grid, config.p3m_sigma_cells
+
+            def far_local(targets, sources, m_src):
+                origin, span = pm.bounding_cube(sources)
+                return p3m._mesh_accelerations(
+                    targets, sources, m_src, origin, span, grid=grid,
+                    g=config.g, sigma_cells=sc, khat=self._p3m_khat)
+
+            far = parallel.make_sharded_accel2(
+                self.mesh, strategy="allgather", local_kernel=far_local)
+            near = parallel.make_halo_nlist_accel(
+                self.mesh, side=self._p3m_halo_side, cap=config.p3m_cap,
+                kind="ewald", ewald_scales=(
+                    (grid - 1) / (math.sqrt(2.0) * sc),
+                    config.p3m_rcut_sigmas * sc / (grid - 1)),
+                **common)
+            return lambda p, m: far(p, m) + near(p, m)
+        local = make_local_kernel(config, self.backend,
+                                  positions=state.positions)
+        if self.backend == "p3m":
+            local = self._with_run_khat(local)
+        return parallel.make_sharded_accel2(
+            self.mesh, strategy=config.sharding, local_kernel=local)
 
     def _with_run_khat(self, kernel):
         """P3M's rectangular ``kernel`` with the run's kernel transform
@@ -1031,7 +1156,7 @@ class Simulator:
         for more than two rungs, the ladder k // 8^(r-1), guarded against
         exceeding n."""
         config = self.config
-        n = self.state.n
+        n = self.n_padded
         k = min(config.multirate_k or max(1, n // 8), n)
         rungs = config.multirate_rungs
         if rungs > 2:
@@ -1058,11 +1183,11 @@ class Simulator:
             if capacities is not None:
                 return make_rung_ladder_step_fn(
                     self._kick, config.dt, capacities=capacities,
-                    accel_full=self.accel,
+                    accel_full=self.accel, mesh=self.mesh,
                 )
             return make_multirate_step_fn(
                 self._kick, config.dt, k=k, n_sub=config.multirate_sub,
-                accel_full=self.accel,
+                accel_full=self.accel, mesh=self.mesh,
             )
         return make_step_fn(config.integrator,
                             lambda pos: self.accel(pos, masses), config.dt)
@@ -1241,6 +1366,14 @@ class Simulator:
                 metrics_logger=metrics_logger, start_step=start_step,
             )
 
+    def _refuse_mesh_checkpoints(self, checkpoint_manager) -> None:
+        if (checkpoint_manager is not None and self.mesh is not None
+                and self.mesh.size > 1):
+            raise NotPortedError(
+                "checkpoints of a run on more than one device are not "
+                "ported to gravity_tpu_torch yet (ROADMAP.md Queue 1 item 5, "
+                "checkpoint re-layout and the supervisor's rungs)")
+
     def _run_impl(self, logger, *, steps, trajectory_writer,
                   checkpoint_manager, metrics_logger, start_step) -> dict:
         config = self.config
@@ -1260,12 +1393,7 @@ class Simulator:
         # mesh, rank 0's writer: every rank gathers them).
         record = trajectory_writer is not None
         if self.mesh is not None:
-            if checkpoint_manager is not None and self.mesh.size > 1:
-                raise NotPortedError(
-                    "checkpoints of a run on more than one device are not "
-                    "ported to gravity_tpu_torch yet (ROADMAP.md Queue 1 "
-                    "item 5, checkpoint re-layout and the supervisor's "
-                    "rungs)")
+            self._refuse_mesh_checkpoints(checkpoint_manager)
             record = not bool(parallel.mesh.all_ranks_true(
                 torch.tensor(not record, device=self.device)))
         every = max(1, config.trajectory_every) if record else 1
@@ -1682,11 +1810,22 @@ class Simulator:
                 f"{config.integrator!r} is not supported "
                 "(use fixed-dt runs for verlet/yoshida4)"
             )
+        if (config.integrator == "multirate" and self.mesh is not None
+                and config.multirate_rungs > 2):
+            raise ValueError(
+                "adaptive + multirate composition supports the two-rung "
+                "scheme on a mesh (multirate_rungs=2); the sharded rung "
+                "ladder stays fixed-dt for now"
+            )
+        self._refuse_mesh_checkpoints(checkpoint_manager)
         # Adaptive x multirate: the criterion sizes the outer dt from the
         # slow remainder (the k fastest excluded), the rungs subdivide it.
         step_fn = None
         exclude_fastest = 0
         mode = "adaptive-kdk"
+        # On a mesh the criterion reads every rank's rows.
+        gather = (parallel.mesh.all_gather_rows if self.mesh is not None
+                  else None)
         if config.integrator == "multirate":
             k, capacities = self._multirate_plan()
             exclude_fastest = k
@@ -1701,6 +1840,7 @@ class Simulator:
                 step_fn = functools.partial(
                     two_rung_step, accel_vs=self._kick, k=k,
                     n_sub=config.multirate_sub, accel_full=self.accel,
+                    mesh=self.mesh,
                 )
                 mode = (f"adaptive-multirate (k={k}, "
                         f"sub={config.multirate_sub})")
@@ -1751,6 +1891,7 @@ class Simulator:
                     eta=config.eta, eps=config.eps, criterion=criterion,
                     max_steps=budget, t0=t, comp0=comp, acc0=acc,
                     step_fn=step_fn, exclude_fastest=exclude_fastest,
+                    gather=gather,
                 )
                 # The block's one host read.
                 t, comp, b_min, b_max, block_steps = torch.stack([
@@ -1806,9 +1947,15 @@ class Simulator:
                         **{pairs_metric_name(self.backend): (
                             pairs_per_step(self.n_real) * block_steps
                             / block_elapsed if block_elapsed > 0 else None)})
+                if self.mesh is not None and block_steps > 0:
+                    # The frame's particle axis gathered on every rank,
+                    # padding dropped; rank 0's writer records it.
+                    frame = parallel.mesh.all_gather_rows(
+                        state.positions)[:self.n_real]
+                else:
+                    frame = state.positions
                 if trajectory_writer is not None and block_steps > 0:
-                    trajectory_writer.record(steps_taken,
-                                             to_numpy(state.positions))
+                    trajectory_writer.record(steps_taken, to_numpy(frame))
                 if checkpoint_manager is not None and crossed_cadence(
                         prev_steps, steps_taken, config.checkpoint_every):
                     submit_save(steps_taken, _host_state(state),
@@ -1884,12 +2031,14 @@ class Simulator:
                           else "none"),
             )
 
-    @staticmethod
-    def _state_finite(state: ParticleState) -> bool:
-        return bool(
-            torch.isfinite(state.positions).all()
-            & torch.isfinite(state.velocities).all()
-        )
+    def _state_finite(self, state: ParticleState) -> bool:
+        """Whether ``state`` is finite; on a mesh every rank's rows, one
+        verdict, so that all stop together."""
+        finite = (torch.isfinite(state.positions).all()
+                  & torch.isfinite(state.velocities).all())
+        if self.mesh is not None:
+            finite = parallel.mesh.all_ranks_true(finite)
+        return bool(finite)
 
     def _finish(self, logger: Optional[RunLogger], total_time: float,
                 steps: int, stats: dict) -> dict:

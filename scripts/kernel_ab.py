@@ -5,8 +5,9 @@ parent commit unpacked with ``git archive``), on the same inputs.
     python3 scripts/kernel_ab.py --other DIR
 
 DIR is the other tree's root; its ``nbody_direct.cu`` and
-``nlist_pair.cu`` are built beside this tree's and must export the same C
-interface. The wrappers of this tree launch either build (their
+``nlist_pair.cu`` are built beside this tree's and bound to the C
+functions both export (an older tree lacks the newer entries). The
+wrappers of this tree launch either build (their
 ``LIBRARY`` handle is pointed at one or the other), so both take the same
 arguments, scratch and launch plans.
 
@@ -18,7 +19,8 @@ both builds to give the same bits (``nbody_direct`` at one source-chunk
 plan, since the plan follows each build's occupancy), and reports each
 build's share of outputs with the plain version's bits under its own
 plan. It times both by CUDA events in turns (other, this, this, other),
-with the fp32 and fp64 forms the path runs, reads both builds' SASS
+with the fp32 and fp64 forms the path runs (the cell list's ewald kind at
+the README P3M disk and the uniform cube among them), reads both builds' SASS
 instructions and conversions a pair (``chip_smoke.sass_loops``), and
 times the bf16 steps that run through them (``baseline-16k`` at bf16
 through ``pallas``, README's nlist run at bf16, each other, this, this,
@@ -45,13 +47,17 @@ DIRECT_STEPS = 200
 
 
 def other_library(lib, root: str):
-    """A CudaLibrary of the same name and C interface, built from the
-    other tree's source."""
+    """A CudaLibrary of the same name, built from the other tree's source,
+    bound to the C functions of this tree's that it names."""
     from gravity_tpu_torch.ops import cuda_build
 
-    other = cuda_build.CudaLibrary(lib.name, lib.signatures)
-    other.source = os.path.join(root, "gravity_tpu_torch", "csrc",
-                                f"{lib.name}.cu")
+    source = os.path.join(root, "gravity_tpu_torch", "csrc",
+                          f"{lib.name}.cu")
+    with open(source) as f:
+        text = f.read()
+    other = cuda_build.CudaLibrary(lib.name, {
+        name: sig for name, sig in lib.signatures.items() if name in text})
+    other.source = source
     return other
 
 
@@ -261,7 +267,7 @@ def time_unchanged_forms(by_lib, dev) -> list:
     import torch
 
     from gravity_tpu_torch.config import PRESETS
-    from gravity_tpu_torch.constants import CUTOFF_RADIUS
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS, G
     from gravity_tpu_torch.ops import direct_kernel, nlist
     from gravity_tpu_torch.simulation import make_initial_state
 
@@ -277,6 +283,15 @@ def time_unchanged_forms(by_lib, dev) -> list:
     tstate = cs.tree_state()
     t_args = cs.tree_tiles(tstate.positions, tstate.masses,
                            cs.tree_depth_of(tstate.positions))
+    ewald = {}
+    for name, cfg, g in (("disk", cs.P3M_RUN, 1.0),
+                         ("uniform", cs.P3M_UNIFORM, G)):
+        state = cs.p3m_state(name)
+        ewald[name] = (cs.p3m_tiles(state.positions, state.masses,
+                                    grid=cfg["pm_grid"], cap=cfg["p3m_cap"],
+                                    g=g),
+                       dict(cutoff=CUTOFF_RADIUS, eps=cfg["eps"],
+                            kind="ewald"))
 
     def direct(state, eps):
         return lambda: direct_kernel.accelerations_vs_kernel(
@@ -295,6 +310,9 @@ def time_unchanged_forms(by_lib, dev) -> list:
         ("nlist_pair fp32 baseline-1m leaf blocks", nlist.LIBRARY,
          lambda: nlist.pair_cells_kernel(
              *t_args, cutoff=CUTOFF_RADIUS, eps=0.05, use_rcut=False), 20),
+        *((f"nlist_pair fp32 ewald P3M {name}", nlist.LIBRARY,
+           lambda a=args, k=kw: nlist.pair_cells_kernel(*a, **k), 20)
+          for name, (args, kw) in ewald.items()),
     ]
     out = []
     for name, lib, fn, reps in cases:

@@ -19,8 +19,9 @@ steps). A tree that honours ``io_pipeline`` also times the cell list and
 P3M with it ``off`` (``nlist/serial``, ``p3m/serial``), which separates
 the loop from the rest of the change. The processes run other, this,
 other, this, ... (``--pairs`` of each). One JSON line a process; the last
-line gives each run's median and range for each tree. Needs a CUDA
-device.
+line gives each run's median and range for each tree. ``--only NAME,...``
+times only the runs of those names (``two_rung``, ``ladder``, ``nlist``,
+...). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -36,9 +37,9 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def measure(tree: str) -> dict:
-    """ms a step of each run, three repetitions, through ``tree``'s
-    package (imported from ``tree``)."""
+def measure(tree: str, only=None) -> dict:
+    """ms a step of each run (of ``only``'s names, else all), three
+    repetitions, through ``tree``'s package (imported from ``tree``)."""
     sys.path.insert(0, tree)
     from gravity_tpu_torch.config import PRESETS, SimulationConfig
     from gravity_tpu_torch.ops.encounters import closest_pairs
@@ -76,6 +77,9 @@ def measure(tree: str) -> dict:
         for name in ("nlist", "p3m"):
             warmed[f"{name}/serial"] = dataclasses.replace(
                 warmed[name], io_pipeline="off")
+    if only:
+        cases = {k: v for k, v in cases.items() if k in only}
+        warmed = {k: v for k, v in warmed.items() if k in only}
     Simulator(base).run()  # the kernel's first load, untimed
     out = {}
     for name, cfg in cases.items():
@@ -93,10 +97,13 @@ def main() -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--other", required=True)
     p.add_argument("--pairs", type=int, default=3)
+    p.add_argument("--only", default="")
     p.add_argument("--measure", default=None, help=argparse.SUPPRESS)
     args = p.parse_args()
+    only = [name for name in args.only.split(",") if name]
     if args.measure:
-        print(json.dumps(measure(os.path.abspath(args.measure))), flush=True)
+        print(json.dumps(measure(os.path.abspath(args.measure), only)),
+              flush=True)
         return 0
     trees = {"other": os.path.abspath(args.other), "this": REPO}
     runs = {"other": [], "this": []}
@@ -104,7 +111,7 @@ def main() -> int:
         for side in ("other", "this"):
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--other",
-                 args.other, "--measure", trees[side]],
+                 args.other, "--only", args.only, "--measure", trees[side]],
                 capture_output=True, text=True, timeout=1200, cwd=REPO)
             if proc.returncode != 0:
                 print(proc.stderr[-3000:], file=sys.stderr)

@@ -13,7 +13,10 @@ exactly as the plain versions do and differ only in the order of the
 sums and the rsqrt (chip_smoke.py states the bounds). The cell list's
 ewald kind is held to the same numbers in units of each row's sum of
 gm (|newt| + |corr|) |d|, the terms before they cancel near rcut: its
-erff and expf differ from the plain version's by an ulp or two.
+erff and expf differ from the plain version's by an ulp or two. The
+slab form of the cell-list kernel (the halo engine's tiles) is held to
+the plain slab engine by the same bars (bf16 2^-5), and its launches on
+hand-cut slabs to the cubic launch's bits.
 """
 
 import dataclasses
@@ -1272,3 +1275,98 @@ def test_nlist_round_error_fails_its_jobs_on_the_card(cuda, monkeypatch):
         with pytest.raises(BreakerOpen):
             sched.submit(config)
         assert set(sched.engine.force_evals) <= {"nlist"}
+
+
+# --- the slab form of nlist_pair.cu (the halo engine's pair tiles) ----------
+
+
+def _slab_args(side, cap, dtype, device, kind, seed=5):
+    """Cubic tile arguments of a 600-body state and the same grid cut into
+    two slabs: each slab's targets and x-extended sources (planes past the
+    grid zero)."""
+    pos, masses = _system(600, dtype, device, seed=seed)
+    origin, span = bounding_cube(pos)
+    coords = grid_coords(pos, origin, span, side)
+    cells_pos, cells_m, count, *_ = bin_to_cells(pos, masses, coords, side,
+                                                 cap)
+    cell = span / side
+    params = (cell.reshape(1) ** 2 if kind == "newton"
+              else torch.stack([(0.9 * cell) ** 2, 2.0 / cell]))
+    gm = cells_m * 6.6743e-11
+    cubic = (cells_pos, count, cells_pos, gm, count, side, params)
+    sx, plane = side // 2, side * side
+
+    def planes(t, lo, hi):
+        return torch.cat([t[x * plane:(x + 1) * plane] if 0 <= x < side
+                          else torch.zeros_like(t[:plane])
+                          for x in range(lo, hi)])
+
+    slabs = [(cells_pos[j * sx * plane:(j + 1) * sx * plane],
+              count[j * sx * plane:(j + 1) * sx * plane],
+              planes(cells_pos, j * sx - 1, (j + 1) * sx + 1),
+              planes(gm, j * sx - 1, (j + 1) * sx + 1),
+              planes(count, j * sx - 1, (j + 1) * sx + 1), sx, side, params)
+             for j in range(2)]
+    return cubic, slabs
+
+
+SLAB_CASES = [("newton", torch.float32, 1e-4), ("newton", torch.float64,
+                                                 1e-12),
+              ("newton", torch.bfloat16, 2.0**-5),
+              ("ewald", torch.float32, 1e-4), ("ewald", torch.float64,
+                                                1e-12)]
+
+
+@pytest.mark.parametrize("kind,dtype,tol", SLAB_CASES)
+@pytest.mark.parametrize("side,cap", [(4, 64), (2, 16)])
+def test_nlist_slab_kernel_matches_plain(cuda, side, cap, kind, dtype, tol):
+    """Each slab launch against the plain slab engine, in units of each
+    row's sum of |terms| (bf16: the solo bf16 form's bar); (2, 16)
+    overflows its cells."""
+    _, slabs = _slab_args(side, cap, dtype, cuda, kind)
+    kw = dict(cutoff=1e-10, eps=1e9, kind=kind)
+    key = nlist.launch_key(kind, True, dtype) + "/slab"
+    for slab in slabs:
+        before = nlist.LAUNCHES[key]
+        got = nlist.pair_cells_slab_kernel(*slab, **kw)
+        assert nlist.LAUNCHES[key] == before + 1
+        plain_args = (*slab[:4], *slab[5:])
+        want = nlist.pair_cells_slab_plain(*plain_args, **kw)
+        scale = nlist.pair_cells_slab_plain(*plain_args, absolute=True,
+                                            **kw)
+        torch.cuda.synchronize()
+        _within_term_scale(got, want, scale, tol)
+
+
+@pytest.mark.parametrize("kind,dtype,tol", SLAB_CASES)
+def test_nlist_slab_launches_give_the_cubic_launch_bits(cuda, kind, dtype,
+                                                        tol):
+    cubic, slabs = _slab_args(4, 64, dtype, cuda, kind)
+    kw = dict(cutoff=1e-10, eps=1e9, kind=kind)
+    solo = nlist.pair_cells_kernel(*cubic, **kw)
+    got = torch.cat([nlist.pair_cells_slab_kernel(*s, **kw) for s in slabs])
+    torch.cuda.synchronize()
+    assert torch.equal(got, solo)
+
+
+def test_slab_cuda_tensors_never_take_the_plain_engine(cuda, monkeypatch):
+    """A CUDA launch goes to the kernel; a failed build raises, and
+    nothing falls back to the plain slab engine."""
+    _, slabs = _slab_args(4, 64, torch.float32, cuda, "newton")
+    kw = dict(cutoff=1e-10, eps=1e9)
+
+    def plain(*args, **kwargs):
+        raise AssertionError("the plain slab engine ran for CUDA tensors")
+
+    monkeypatch.setattr(nlist, "pair_cells_slab_plain", plain)
+    assert nlist.pair_cells_slab_kernel(*slabs[0], **kw).is_cuda
+
+    def broken():
+        raise RuntimeError("nvcc failed: test")
+
+    monkeypatch.setattr(nlist.LIBRARY, "load", broken)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        nlist.pair_cells_slab_kernel(*slabs[0], **kw)
+    with pytest.raises(ValueError, match="must be"):
+        nlist.pair_cells_slab_kernel(*slabs[0][:2], slabs[0][0],
+                                     *slabs[0][3:], **kw)

@@ -26,7 +26,7 @@ from gravity_tpu.ops.pallas_forces import make_pallas_local_kernel
 from gravity_tpu.simulation import Simulator as JaxSimulator
 from gravity_tpu.state import ParticleState as JaxState
 from gravity_tpu_torch import simulation
-from gravity_tpu_torch.config import NotPortedError, SimulationConfig
+from gravity_tpu_torch.config import SimulationConfig
 from gravity_tpu_torch.interop import state_from_numpy
 from gravity_tpu_torch.ops import multirate
 from gravity_tpu_torch.ops.forces import accelerations_vs
@@ -315,9 +315,7 @@ def test_simulator_multirate_through_the_gram_form(x64):
 
 @pytest.mark.parametrize("fields,error,match", [
     # Multirate through P3M is ported (tests/test_torch_p3m_kick_fmm_bf16
-    # .py); on a mesh multirate is still refused, naming item 5.
-    (dict(force_backend="p3m", model="disk", g=1.0, sharding="allgather"),
-     NotPortedError, "Queue 1 item 5"),
+    # .py), and on a mesh (tests/test_torch_sharding.py).
     (dict(multirate_k=-1), ValueError, "multirate_k must be >= 0"),
     (dict(multirate_sub=0), ValueError, "multirate_sub >= 1"),
     (dict(multirate_rungs=7), ValueError, r"must be in \[2, 6\]"),

@@ -183,18 +183,66 @@ def test_gate_handicapped_run_never_persists(tmp_path, monkeypatch):
     assert code == 0 and json.load(open(out))["handicap"] is None
 
 
-def test_halo_contract_is_reported_violated_naming_item_5(tmp_path):
-    baseline = _baseline(tmp_path, [
-        {"name": "halo", "kind": "mesh_paired_ratio_min", "min_ratio": 1.8,
-         "params": {"devices": 8}}])
+HALO = {"name": "halo", "kind": "mesh_paired_ratio_min", "min_ratio": 1.8,
+        "params": {"devices": 2, "n_per_device": 256, "reps": 3,
+                   "rcut_spacings": 2.5, "eps": 0.05, "worker_timeout": 240}}
+
+
+@pytest.fixture(scope="module")
+def halo_doc():
+    """One real measurement of the halo contract: 2 gloo ranks of the CPU
+    spawned by the gate's worker, 512 bodies."""
+    return perfgate._spawn_mesh_worker(HALO["params"])
+
+
+def test_halo_contract_measures_on_gloo_ranks(halo_doc, monkeypatch):
+    """The allgather and halo arms interleaved on 2 gloo ranks: finite
+    positive pairs at the halo's sizing, the two arms' forces equal to
+    1e-5 of the mean |a|, and the gate's verdict is the measured one."""
+    assert halo_doc["devices"] == 2 and halo_doc["n"] == 512
+    assert len(halo_doc["pairs"]) == 3
+    assert all(t > 0 and math.isfinite(t) for p in halo_doc["pairs"]
+               for t in p)
+    assert halo_doc["max_gap_over_mean_a"] <= 1e-5
+    monkeypatch.setattr(perfgate, "_spawn_mesh_worker", lambda p: halo_doc)
+    logs = []
+    r = perfgate.run_mesh_paired_ratio(HALO, logs.append)
+    ratios = [a / b for a, b in halo_doc["pairs"]]
+    assert r.measured == pytest.approx(sorted(ratios)[1])
+    assert r.ok == (r.ci[0] >= HALO["min_ratio"])
+    assert r.detail["platform"] == "cpu-gloo"
+    assert any("allgather/halo" in line for line in logs)
+
+
+def test_halo_contract_catches_a_planted_2x_handicap(halo_doc, tmp_path,
+                                                     monkeypatch):
+    """Bound at the clean run's CI floor: the clean run holds, the halo
+    arm slowed 2x in the parent (never in the worker) is VIOLATED with
+    every ratio halved; a failed worker is reported violated too."""
+    monkeypatch.setattr(perfgate, "_spawn_mesh_worker", lambda p: halo_doc)
+    clean = perfgate.run_mesh_paired_ratio(HALO, _quiet)
+    bound = dict(HALO, min_ratio=clean.ci[0])
+    baseline = _baseline(tmp_path, [bound])
+    code, _ = perfgate.run_gate(baseline, report_path=None, log=_quiet,
+                                device="cpu")
+    assert code == 0
+    monkeypatch.setenv("GRAVITY_TPU_PERF_HANDICAP", json.dumps(
+        {"contract": "halo", "arm": "b", "factor": 2.0}))
     logs = []
     code, report = perfgate.run_gate(baseline, report_path=None,
                                      log=logs.append, device="cpu")
     (r,) = report["results"]
-    assert code == 1 and not r["ok"] and r["measured"] is None
-    assert "NotPortedError" in r["detail"]["error"]
-    assert "item 5" in r["detail"]["error"]
+    assert code == 1 and not r["ok"]
+    assert r["measured"] == pytest.approx(clean.measured / 2)
     assert any("VIOLATED" in line and "halo" in line for line in logs)
+
+    def failed(params):
+        raise RuntimeError("mesh worker: 2 ranks still running after 1 s")
+
+    monkeypatch.setattr(perfgate, "_spawn_mesh_worker", failed)
+    r = perfgate.run_mesh_paired_ratio(HALO, _quiet)
+    assert not r.ok and r.measured is None
+    assert "worker_failed" in r.detail["error"]
 
 
 def test_ledger_coverage_all_seven_families():

@@ -14,7 +14,10 @@ the ring at P = 2 and 4 (dense and chunked, N not divisible by P), the
 allgather form of ``pallas`` (its plain version here), p3m and the tree
 at P = 4, the hierarchical ring on a (2, 4) mesh of 8 ranks, the
 rectangular psum form, the merge pass and a short Simulator run at P = 4,
-and the CLI on a (2, 2) mesh.
+the halo slab engine's nlist and P3M runs and the sharded integration
+modes (multirate with two rungs and the ladder, adaptive, adaptive x
+multirate) at P = 4 against the JAX package's unsharded runs, and the CLI
+on a (2, 2) mesh.
 
 Bars:
 
@@ -59,6 +62,16 @@ from gravity_tpu.state import ParticleState as JaxState
 from gravity_tpu_torch import parallel, simulation
 from gravity_tpu_torch.config import NotPortedError, SimulationConfig
 from gravity_tpu_torch.state import ParticleState
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _torch_threads():
+    """One intra-op thread: the suite runs several workers at once."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 N = 1001  # not a multiple of 2, 4 or 8: every mesh pads
 FP32 = dict(rtol=2e-5, atol=1e-12)
@@ -127,6 +140,23 @@ MESHES = {2: (2,), 4: (4,), 8: (2, 4)}
 MERGE_RADIUS = 0.05  # a few of the disk's 1,001 bodies collide
 RUN_CFG = dict(model="disk", n=N, integrator="leapfrog", steps=10,
                dt=1e-2, progress_every=5, force_backend="dense", **GALAXY)
+# Runs on four ranks against the JAX package's unsharded run of the same
+# fields: the halo engine under nlist_mesh="auto" (the cell list at a
+# pinned sizing both packages share, P3M with its near field's cell list
+# at binning side 4, one grid both use), and the sharded integration
+# modes (an explicit fast capacity: the padded N would change auto's).
+MESH_RUNS = {
+    "halo-nlist": dict(force_backend="nlist", nlist_rcut=1.0,
+                       nlist_side=8, nlist_cap=32),
+    "halo-p3m": dict(force_backend="p3m", pm_grid=24, p3m_cap=16,
+                     p3m_short="nlist"),
+    "multirate": dict(integrator="multirate", multirate_k=64),
+    "ladder": dict(integrator="multirate", multirate_k=64,
+                   multirate_rungs=3),
+    "adaptive": dict(adaptive=True),
+    "adaptive-multirate": dict(adaptive=True, integrator="multirate",
+                               multirate_k=64),
+}
 # The ledger on a mesh: its baseline and every reading are of the whole
 # state (the merge case takes a new baseline after each merger).
 LEDGER_CASES = {
@@ -182,7 +212,8 @@ def _port_run(fields: dict) -> dict:
            "velocities": final.velocities.numpy(),
            "masses": final.masses.numpy(),
            "num_devices": np.array(stats["num_devices"]),
-           "merged": np.array(stats.get("merged_pairs", -1))}
+           "merged": np.array(stats.get("merged_pairs", -1)),
+           "halo": np.array(sim._halo_devices)}
     for k in LEDGER_KEYS:
         if "ledger" in stats:
             out[k] = np.array(stats["ledger"][k], np.float64)
@@ -235,18 +266,10 @@ def _rank_main(rank: int, world: int, out_dir: str) -> None:
                             *LEDGER_CASES.items()):
             for k, v in _port_run(fields).items():
                 out[f"{key}/{k}"] = v
-        # Refusals that need a world of more than one.
-        for key, fields in (("halo-nlist", dict(force_backend="nlist",
-                                                nlist_rcut=5e10)),
-                            ("halo-p3m", dict(force_backend="p3m",
-                                              pm_grid=64, p3m_cap=16))):
-            try:
-                simulation.Simulator(SimulationConfig(
-                    **{**RUN_CFG, "sharding": "allgather", **fields}),
-                    device="cpu")
-                out[f"refused/{key}"] = np.array("")
-            except NotPortedError as e:
-                out[f"refused/{key}"] = np.array(str(e))
+        for key, fields in MESH_RUNS.items():
+            for k, v in _port_run(dict(sharding="allgather",
+                                       **fields)).items():
+                out[f"mesh/{key}/{k}"] = v
     if world == 4:
         from gravity_tpu_torch.cli import main
 
@@ -381,9 +404,9 @@ def test_rect_psum_matches_jax(ranks):
         np.testing.assert_allclose(r["rect"], want, **FP32)
 
 
-def _jax_run(fields: dict):
+def _jax_run(fields: dict, mesh_shape=(4,)):
     pos, vel, m = _run_state()
-    cfg = JaxConfig(**{**RUN_CFG, **fields}, mesh_shape=(4,))
+    cfg = JaxConfig(**{**RUN_CFG, **fields}, mesh_shape=mesh_shape)
     return jax_sim.Simulator(cfg, state=JaxState(
         jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(m))).run()
 
@@ -433,14 +456,23 @@ def test_ledger_on_four_ranks_is_the_whole_systems(ranks, key):
             assert abs(got - one[k]) <= LEDGER_TOL, (k, got, one[k])
 
 
-@pytest.mark.parametrize("key", ["halo-nlist", "halo-p3m"])
-def test_halo_forms_are_refused_naming_item_5(ranks, key):
-    """Where the JAX package would take the halo slab engine (auto on a
+@pytest.mark.parametrize("key", sorted(MESH_RUNS))
+def test_mesh_runs_on_four_ranks_match_jax_unsharded(ranks, key):
+    """Where the JAX package takes the halo slab engine (auto on a
     single-axis mesh of >= 2: nlist, and p3m whose cell grid fits whole
-    planes a device), the port refuses."""
+    planes a device) the port takes it too; the sharded integration modes
+    step the ranks' rows. Each run against the JAX package's unsharded
+    run of the same fields."""
+    fields = MESH_RUNS[key]
+    want = _jax_run({**fields, "sharding": "none"}, mesh_shape=None)
+    final = want["final_state"]
+    halo = key.startswith("halo")
     for r in ranks(4):
-        msg = str(r[f"refused/{key}"])
-        assert "item 5" in msg and "halo" in msg, msg
+        assert int(r[f"mesh/{key}/num_devices"]) == 4
+        assert int(r[f"mesh/{key}/halo"]) == (4 if halo else 0)
+        _rows_close(r[f"mesh/{key}/positions"], final.positions, RUN_TOL)
+        _rows_close(r[f"mesh/{key}/velocities"], final.velocities,
+                    RUN_TOL)
 
 
 def test_cli_ring_on_a_two_by_two_mesh(ranks, tmp_path_factory):
@@ -532,12 +564,68 @@ def test_ring_refuses_the_fast_solvers(world_of_one):
 
 @pytest.mark.parametrize("fields", [
     dict(force_backend="fmm"), dict(force_backend="sfmm"),
-    dict(integrator="multirate"), dict(adaptive=True),
-    dict(nlist_mesh="halo"),
 ])
 def test_later_bullets_of_item_5_are_refused(fields):
     with pytest.raises(NotPortedError, match="item 5"):
         SimulationConfig(**{"sharding": "allgather", **fields})
+
+
+# The integration modes sharded on a world of one: the unsharded run's
+# bits (the sharded forms keep the unsharded arithmetic op for op; only
+# the fast kick's sum over several ranks would run in another order).
+WORLD_OF_ONE_MODES = {
+    "multirate": dict(integrator="multirate", multirate_k=64),
+    "ladder": dict(integrator="multirate", multirate_k=64,
+                   multirate_rungs=3),
+    "adaptive": dict(adaptive=True),
+    "adaptive-multirate": dict(adaptive=True, integrator="multirate",
+                               multirate_k=64),
+    "p3m-multirate": dict(integrator="multirate", multirate_k=64,
+                          force_backend="p3m", pm_grid=32, p3m_cap=32),
+    # The chunked sum's rectangular kernel runs chunk targets at a time
+    # (a rank's (n_local, N) block was one dense (n_local, N, 3) tensor).
+    "chunked-masked": dict(force_backend="chunked", chunk=256,
+                           nlist_rcut=2.0),
+}
+
+
+@pytest.mark.parametrize("key", sorted(WORLD_OF_ONE_MODES))
+def test_sharded_modes_on_a_world_of_one_are_the_unsharded_run(
+        world_of_one, key):
+    pos, vel, m = _run_state()
+    state = ParticleState(*(torch.from_numpy(a) for a in (pos, vel, m)))
+    out = {}
+    for sharding in ("none", "allgather"):
+        cfg = SimulationConfig(**{**RUN_CFG, "sharding": sharding,
+                                  **WORLD_OF_ONE_MODES[key]})
+        out[sharding] = simulation.Simulator(cfg, state=state,
+                                             device="cpu").run()
+    assert out["allgather"]["num_devices"] == 1
+    for f in ("positions", "velocities"):
+        assert torch.equal(getattr(out["allgather"]["final_state"], f),
+                           getattr(out["none"]["final_state"], f))
+
+
+def test_halo_strategy_needs_two_devices_and_one_axis(world_of_one):
+    """nlist_mesh="halo" is accepted; the slab decomposition needs a
+    single-axis mesh of two or more devices (the JAX Simulator's error),
+    where auto takes the allgather; the sharded rung ladder under adaptive
+    stays refused, as in the JAX package."""
+    base = dict(RUN_CFG, sharding="allgather", force_backend="nlist",
+                nlist_rcut=1.0, steps=2)
+    cfg = SimulationConfig(**{**base, "nlist_mesh": "halo",
+                              "nlist_mig_cap": 32})
+    assert (cfg.nlist_mesh, cfg.nlist_mig_cap) == ("halo", 32)
+    with pytest.raises(ValueError, match="single-axis mesh with >= 2"):
+        simulation.Simulator(cfg, device="cpu")
+    sim = simulation.Simulator(SimulationConfig(**base), device="cpu")
+    assert sim._halo_devices == 0 and sim.nlist_mig_cap is None
+    ladder = SimulationConfig(**{**RUN_CFG, "sharding": "allgather",
+                                 "adaptive": True,
+                                 "integrator": "multirate",
+                                 "multirate_rungs": 3, "multirate_k": 64})
+    with pytest.raises(ValueError, match="two-rung scheme on a mesh"):
+        simulation.Simulator(ladder, device="cpu").run()
 
 
 def test_checkpoints_and_the_supervisor_need_one_device(monkeypatch):
@@ -556,3 +644,30 @@ def test_checkpoints_and_the_supervisor_need_one_device(monkeypatch):
     args.command = "resume"
     with pytest.raises(NotPortedError, match="item 5"):
         cli._world(args, SimulationConfig())
+
+
+def test_chunked_rectangular_kernel_runs_chunk_targets_at_a_time(
+        monkeypatch):
+    """The chunked backend's rectangular kernel (a rank's (n_local, N)
+    block, a multirate kick) sums ``chunk`` targets at a time, as the
+    unsharded chunked sum does; it was one dense (n_local, N, 3) tensor,
+    192 GiB for a rank of 262,144 bodies on four cards."""
+    from gravity_tpu_torch.ops import forces
+
+    seen = []
+    inner = forces.accelerations_vs
+
+    def spy(pos_i, *args, **kwargs):
+        seen.append(pos_i.shape[0])
+        return inner(pos_i, *args, **kwargs)
+
+    monkeypatch.setattr(forces, "accelerations_vs", spy)
+    cfg = SimulationConfig(n=1000, chunk=128, nlist_rcut=2.0, **GALAXY)
+    kernel = simulation.make_local_kernel(cfg, "chunked")
+    pos, m = _inputs(1000, 3, np.float32, "disk")
+    got = kernel(torch.from_numpy(pos[:300]), torch.from_numpy(pos),
+                 torch.from_numpy(m))
+    assert seen == [128, 128, 44]
+    want = inner(torch.from_numpy(pos[:300]), torch.from_numpy(pos),
+                 torch.from_numpy(m), rcut=2.0, **GALAXY)
+    assert torch.equal(got, want)

@@ -147,8 +147,8 @@ def test_interop_round_trip_with_a_jax_state():
     ({"force_backend": "pm"}, "Queue 1 item 7"),
     ({"p3m_short": "slice"}, "Queue 1 item 7"),
     ({"nlist_mesh": "halo"}, "Queue 1 item 5"),
-    # What stays unported of the integration modes: the sharded multirate
-    # forms (item 5); merging in a periodic box is ported.
+    # The sharded multirate forms (item 5); merging in a periodic box is
+    # ported.
     ({"integrator": "multirate", "sharding": "allgather"}, "Queue 1 item 5"),
     ({"merge_radius": 1e9, "periodic_box": 1e12}, "Queue 1 item 7"),
     # The FMM takes fp32, fp64 and (since item 7 closed) bf16 states.
@@ -160,8 +160,8 @@ def test_unported_features_are_refused(fields, item):
     periodic family (item 7: ``periodic_box``, ``pm_assignment``, the
     ``grf`` model, the ``pm`` backend, merging in a box), the rest of
     item 7 (the P3M slice pass, bf16 FMM states) and item 5's sharded
-    direct sums are ported now: such a config loads and carries its
-    fields."""
+    direct sums, halo slab engine and sharded multirate are ported now:
+    such a config loads and carries its fields."""
     data = json.loads(JaxConfig().to_json())
     data.update(fields)
     ported = ({"profile": True}, {"periodic_box": 1e12},
@@ -171,7 +171,10 @@ def test_unported_features_are_refused(fields, item):
               # Item 7's rest and item 5's sharded direct sums.
               {"sharding": "allgather"}, {"p3m_short": "slice"},
               {"force_backend": "fmm", "dtype": "bfloat16"},
-              {"force_backend": "sfmm", "dtype": "bfloat16"})
+              {"force_backend": "sfmm", "dtype": "bfloat16"},
+              # Item 5's halo slab engine and sharded multirate.
+              {"nlist_mesh": "halo"},
+              {"integrator": "multirate", "sharding": "allgather"})
     if fields in ported:
         cfg = SimulationConfig.from_json(json.dumps(data))
         for name, value in fields.items():

@@ -248,10 +248,12 @@ def test_untruncated_launches_count_apart():
     assert nlist.launch_key("ewald", True) == "ewald"
     # The bf16 form counts apart as well (tests/test_torch_nlist_bf16.py),
     # and so do the serve engine's batched launches
-    # (tests/test_torch_serve_nlist.py).
+    # (tests/test_torch_serve_nlist.py) and the halo engine's slab
+    # launches (tests/test_torch_halo.py).
     assert set(nlist.LAUNCHES) == {"newton", "ewald", "near", "newton_bf16",
                                    "near_bf16", "newton/batched",
-                                   "newton_bf16/batched"}
+                                   "newton_bf16/batched", "newton/slab",
+                                   "ewald/slab", "newton_bf16/slab"}
 
 
 # --- sizing helpers and the potential ------------------------------------
