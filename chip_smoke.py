@@ -21,18 +21,18 @@ set to 0 just before the path and read just after:
   through ``nbody_mxu``;
 - the P3M run of README.md (the ``baseline-1m-p3m`` preset: a 1,048,576-
   body disk, grid 256, cap 64, leapfrog) with ``--p3m-short nlist``, cut
-  to 100 of its 500 steps, through the ``ewald`` kind of ``nlist_pair``;
+  to 50 of its 500 steps, through the ``ewald`` kind of ``nlist_pair``;
 - the ``baseline-16k`` preset (a Plummer sphere, N = 16,384, leapfrog,
   eps = 1e9 m, 500 steps) through ``nbody_direct`` mask-free, with its
   energy drift;
 - the ``baseline-2m`` preset (the merger, N = 2,097,152, G = 1, eps =
-  0.05) cut to 3 steps, through ``nbody_direct``, held to the plain
+  0.05) cut to 2 steps, through ``nbody_direct``, held to the plain
   version on 4,096 sampled targets;
 - the sharded direct sums on a world of one (NCCL, this card):
   ``baseline-262k`` (allgather, 262,144 cold-collapse bodies, cut to 20
   steps) bit for bit against the same config unsharded, and through
-  pallas-mxu (5 steps); ``baseline-2m-merger`` (the ring, cut to 2
-  steps), one force evaluation against the unsharded ``nbody_direct``
+  pallas-mxu (5 steps); ``baseline-2m-merger`` (the ring, cut to 1
+  step), one force evaluation against the unsharded ``nbody_direct``
   evaluation, its ms a step beside ``baseline-2m``'s; a (1, 1)
   hierarchical ring on a 16,384-body state; each rectangular launch held
   to the plain version at 4,096 sampled rows and timed;
@@ -50,25 +50,25 @@ set to 0 just before the path and read just after:
   ``baseline-16k`` (the chunked scan), each cut to 100 steps; each fast
   kick shape held to its plain version;
 - the octree: ``baseline-1m`` (the 1M disk, G = 1, leaf_cap 32, depth 7
-  fit to the state) with ``--tree-near nlist``, cut to 5 of 500 steps,
+  fit to the state) with ``--tree-near nlist``, cut to 3 of 500 steps,
   through ``nlist_pair``'s untruncated form (``nlist_pair/near``), its
   forces held to ``nbody_direct`` at 4,096 targets and to the gather
   near field on the same state (fp32 and fp64, each piece of the near
   field also taken out in turn to show the bars catch it); the preset's
-  own gather near field (3 steps, no kernel); and multirate (3 steps);
+  own gather near field (2 steps, no kernel); and multirate (2 steps);
 - bf16 states through the cell list and the octree, through
   ``nlist_pair``'s bf16 form: the README cell-list run at ``--dtype
   bfloat16`` (cut to 100 steps; multirate cut to 20), its forces against
   fp32 nlist; ``baseline-1m --dtype bfloat16 --tree-near nlist`` (cut to
-  5 steps; its gather near field and multirate, 3 each), its forces
+  3 steps; its gather near field and multirate, 2 each), its forces
   against the fp32 tree and ``nbody_direct`` (bar: 1.5x the JAX
   package's own bf16 figure) and the two near fields against each other;
 - the fast multipole solvers, plain PyTorch (no kernel may launch on
   their paths): ``baseline-1m-fmm`` (the 1M disk, fmm_mode auto, which
-  must resolve sparse: depth 9) cut to 3 steps, its stages profiled, its
+  must resolve sparse: depth 9) cut to 2 steps, its stages profiled, its
   forces against ``nbody_direct`` at 4,096 targets; the 1M uniform cube
   through the dense grid (2 steps); sparse (both far modes) against
-  dense on one overflow-free state; ``baseline-1m-fmm`` multirate (3
+  dense on one overflow-free state; ``baseline-1m-fmm`` multirate (2
   steps, kicks through the dense grid's rectangular form, one held to
   ``nbody_direct``); ``--debug-check`` on the preset through the CLI;
   ``baseline-1m-fmm`` at bf16 (3 steps, sparse, its cell totals
@@ -92,7 +92,7 @@ set to 0 just before the path and read just after:
   ``nbody_direct``; the ``cosmo`` verb at 2,097,152 bodies and grid 256
   (flat LCDM, 40 steps, with and without ``--li-check``), EdS and 2LPT
   at 262,144, a resume from step 20 against the uninterrupted run; the
-  minimum-image cell list (grf at 262,144, rcut box/16, 20 steps)
+  minimum-image cell list (grf at 262,144, rcut box/16, 10 steps)
   against the minimum-image oracle and a merge across a face; and the
   ``analyze`` verb (P(k), friends-of-friends, xi(r)) in a process of its
   own started before the octree phases, its P(k) held to the CPU port's;
@@ -102,7 +102,8 @@ set to 0 just before the path and read just after:
   5,000-body Plummer sphere, an 8,192-body cube, the padded solar system,
   an empty slot) against their plain versions and bit for bit against
   solo launches; the daemon (``serve --slots 4 --slice-steps 100`` as a
-  process) serving 12 jobs at buckets 8,192, 4,096 and 1,024 through the
+  process) serving 12 jobs of 100-500 steps at buckets 8,192, 4,096 and
+  1,024 through the
   ``submit``, ``status``, ``result`` and ``cancel`` verbs, ``auto`` on a
   kernel at every bucket, one build a key, the batched launches equal to
   the batched force evaluations; and served runs in process bit for bit
@@ -113,7 +114,8 @@ set to 0 just before the path and read just after:
   workload (rcut 5e10 m, side 12, cap 32; a padded 5,000-body job, two
   more, an empty slot) against its plain version, bit for bit against
   solo launches, and the whole batched cell list bit for bit against the
-  slots' solo evaluations; 5 nlist jobs through the daemon (4 fp32 at
+  slots' solo evaluations; 5 nlist jobs of 100-150 steps through the
+  daemon (4 fp32 at
   bucket 8,192, one bf16) beside the 12, every key's first-round peak at
   most its admission estimate; served cell lists in process bit for bit
   against padded solo runs, and one nlist round's syncs and busy share;
@@ -125,18 +127,19 @@ set to 0 just before the path and read just after:
   nlist``: pallas, pallas-mxu, tree, fmm, sfmm) and the README cell-list
   run (nlist
   against the masked direct sum), each a miss that runs the argmin's
-  kernel, then a hit; and ``tune --sizes 16384 65536`` twice;
+  kernel, then a hit; and ``tune --sizes 16384`` twice;
 - the run loop's host side: ``baseline-16k`` (500 steps, trajectories, a
   checkpoint every 100, the ledger, the sentinel every 5 blocks) with
   the block pipeline on and off, their artifacts bit for bit the same,
   and PERF_BASELINE.json's ``host_gap_pipelined`` configuration;
-  ``reference-cuda`` preempted at step 250 in a process of its own (exit
-  75) and resumed bit for bit, also from the older snapshot when the
+  ``reference-cuda`` preempted at step 250 through the CLI verbs in this
+  process (exit 75) and resumed bit for bit, also from the older snapshot
+  when the
   newest is truncated, and the README cell-list run (cut to 100 steps)
   preempted and resumed, its gap reported; ``baseline-16k`` with
   ``--auto-recover`` healing ``diverge@300`` (exit 0) and without it
   exiting 2; ``bench --cadence`` on and off on the README cell list;
-  ``baseline-1m --ledger`` (3 steps, the card's large-N potential, the
+  ``baseline-1m --ledger`` (2 steps, the card's large-N potential, the
   FMM's, timed against the tree's); the host syncs
   a step of each path; and on the main, nlist, Gram, P3M, multirate and
   merge paths the energy drift by the conservation ledger, outside the
@@ -153,7 +156,19 @@ set to 0 just before the path and read just after:
   ``gate_path``); ``run --preset baseline-16k --steps 20 --profile`` and
   the daemon's ``POST /profile`` around a bucket-8,192 round, each trace
   holding the ``nbody_direct`` kernel once a counted launch
-  (``profile_path``).
+  (``profile_path``);
+- the rest of the mesh layer, each on an NCCL world of one: the sharded
+  FMM forms (``baseline-1m-fmm``'s sparse FMM and the 1M cube's dense one
+  at depth 6, 2 steps each, sharded and unsharded: the same bits, no
+  kernel launch, the as-run ``k_eff`` read by ``--debug-check``);
+  ``baseline-16k`` sharded for 200 steps, preempted at 100 and resumed
+  sharded and solo to the uninterrupted bits, and ``--auto-recover``
+  healing ``diverge@150``; the ``sharded-integrate`` job class through
+  three daemons at once (the solo form of ``pallas``, ``pallas-mxu`` and
+  the cell list at 16,384 bodies, a ``devices: 2`` job and a
+  ``mesh_fail`` job walking the elastic ladder to it, a
+  ``collective_stall`` job resuming from its progress snapshot), each
+  result the solo run's bits, launches = force evaluations.
 
 It then times each kernel at its path's shapes beside its bound (the
 direct sum masked at N = 50,000, mask-free at N = 16,384 and 65,536, and
@@ -266,7 +281,7 @@ MXU_RUN = dict(model="random", n=65_536, integrator="leapfrog",
 # baseline-1m-p3m preset: a 1,048,576-body disk in galactic units, G = 1,
 # dt 2e-3, eps 0.05, grid 256, cap 64, leapfrog) with --p3m-short nlist.
 # Cut to 100 of its 500 steps, to make room for the periodic phases.
-P3M_STEPS = 100
+P3M_STEPS = 50
 P3M_RUN = dict(model="disk", n=1_048_576, g=1.0, dt=2e-3, eps=0.05,
                integrator="leapfrog", force_backend="p3m", pm_grid=256,
                p3m_cap=64, p3m_short="nlist", steps=P3M_STEPS)
@@ -312,7 +327,7 @@ BF16_REASON = ("in units of the row's sum of |terms|: terms rounded to "
 # port's PRESETS: a Plummer sphere (N = 16,384, leapfrog, eps 1e9 m, 500
 # steps) and the 2M merger (G = 1, eps 0.05), the latter cut to 3 steps
 # as the JAX package's `validate --tpu` runs it.
-BASELINE_2M_STEPS = 3
+BASELINE_2M_STEPS = 2
 # The 2M check: the path's own N x N evaluation against the plain
 # version on this many sampled rows, each against all sources.
 BASELINE_2M_SAMPLE = 4096
@@ -773,17 +788,12 @@ def phase_other_entry_points() -> None:
     from gravity_tpu_torch.simulation import Simulator
     from gravity_tpu_torch.utils.trajectory import TrajectoryReader
 
-    # The CLI on the card, with trajectories, in a process of its own.
+    # The CLI on the card, with trajectories (run_cli).
     log_root = os.path.join(REPO, "gravity_logs_gpu")
     os.makedirs(log_root, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=log_root) as log_dir:
-        env = dict(os.environ, PYTHONPATH=REPO)
-        proc = subprocess.run(
-            [sys.executable, "-m", "gravity_tpu_torch", "run",
-             "--preset", "reference-spark", "--steps", "100",
-             "--trajectories", "--log-dir", log_dir],
-            cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
-        )
+        proc = run_cli(["run", "--preset", "reference-spark", "--steps",
+                        "100", "--trajectories", "--log-dir", log_dir])
         check(proc.returncode == 0,
               f"CLI run failed ({proc.returncode}): {proc.stderr[-2000:]}")
         stats = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -3020,9 +3030,9 @@ def phase_merge_path(device: dict) -> dict:
 # depth fit to the state) with --tree-near nlist, cut to 5 of its 500
 # steps (50 before the FMM's phases came); with the preset's own gather
 # near field, 3 steps; multirate, 5 (10 before).
-TREE_STEPS = 5
-TREE_GATHER_STEPS = 3
-TREE_MULTIRATE_STEPS = 3
+TREE_STEPS = 3
+TREE_GATHER_STEPS = 2
+TREE_MULTIRATE_STEPS = 2
 TREE_SAMPLE = 4096
 # The JAX suite's bars for the tree against the exact sum
 # (tests/test_tree.py:86-87: a 2,048-body disk at depth 5, where the leaf
@@ -3639,9 +3649,9 @@ NLIST_BF16_STEPS = 100
 NLIST_BF16_MULTIRATE_STEPS = 20
 # baseline-1m at --dtype bfloat16: --tree-near nlist cut to 10 of 500
 # steps, the gather near field and multirate to 3 each.
-TREE_BF16_STEPS = 5
-TREE_BF16_GATHER_STEPS = 3
-TREE_BF16_MULTIRATE_STEPS = 3
+TREE_BF16_STEPS = 3
+TREE_BF16_GATHER_STEPS = 2
+TREE_BF16_MULTIRATE_STEPS = 2
 # bf16 segment-sum launches a level of an octree build: the cell masses
 # and weighted positions in one, the quadrupoles in a second
 # (tree.build_octree through cells.Segments).
@@ -4521,7 +4531,7 @@ BENCH_RATE_SLACK = 1.05
 BENCH_BACKENDS = (("direct", "nbody_direct"), ("pallas-mxu", "nbody_mxu"),
                   ("nlist", "nlist_pair"))
 AUTOTUNE_STEPS = 3
-TUNE_SIZES = (16_384, 65_536)
+TUNE_SIZES = (16_384,)
 
 
 def bench_kernel_rate(backend: str, line: dict) -> dict:
@@ -4717,8 +4727,9 @@ def phase_autotune_path(device: dict) -> dict:
     pallas-mxu, tree, fmm, sfmm), the README cell-list run (the rcut
     contest: nlist against the masked direct sum) and ``baseline-16k``
     (``--tree-near nlist``), each cut to 3 steps, a miss then a hit
-    (:func:`autotune_case`); then ``tune --sizes 16384 65536`` twice in
-    processes of their own: one line a size, misses, then all hits."""
+    (:func:`autotune_case`); then ``tune --sizes 16384`` twice, in
+    this process and then in a process of its own: one line a size,
+    misses, then all hits."""
     from gravity_tpu_torch.config import PRESETS, SimulationConfig
 
     saved = os.environ.get("GRAVITY_TPU_TUNE_DIR")
@@ -4740,12 +4751,15 @@ def phase_autotune_path(device: dict) -> dict:
                 cases[name] = autotune_case(name, config, device)
             env = dict(os.environ, PYTHONPATH=REPO)
             calls = []
-            for _ in range(2):
+            for fresh in (False, True):
+                # The second call in a process of its own: its hits are
+                # the disk cache's.
                 proc = subprocess.run(
                     [sys.executable, "-m", "gravity_tpu_torch", "tune",
                      "--sizes", *map(str, TUNE_SIZES)],
                     cwd=REPO, env=env, capture_output=True, text=True,
-                    timeout=600)
+                    timeout=600) if fresh else run_cli(
+                    ["tune", "--sizes", *map(str, TUNE_SIZES)])
                 check(proc.returncode == 0,
                       f"tune failed ({proc.returncode}): "
                       f"{proc.stderr[-2000:]}")
@@ -4788,19 +4802,40 @@ HOST_GAP_CONTRACT = dict(n=2048, steps=150, reps=2, block=25,
 # cadence bench, a checkpoint every 50), so that there are blocks to
 # overlap and a step to resume from.
 NLIST_CUT_STEPS = 100
-LEDGER_TREE_STEPS = 3
+LEDGER_TREE_STEPS = 2
 
 
-def run_cli(args, faults: str = "", timeout: int = 600):
-    """``python -m gravity_tpu_torch ARGS`` in a process of its own, with
-    ``GRAVITY_TPU_FAULTS`` set to ``faults``."""
-    env = dict(os.environ, PYTHONPATH=REPO)
-    env.pop("GRAVITY_TPU_FAULTS", None)
+def run_cli(args, faults: str = ""):
+    """``gravity_tpu_torch ARGS`` through ``cli.main`` in this process, with
+    ``GRAVITY_TPU_FAULTS`` set to ``faults`` for its duration (an injected
+    preemption is a real SIGTERM to this process, which the verb's own
+    handler takes): a CompletedProcess of its exit code and its captured
+    stdout and stderr. A process of its own for each verb took ~8 s to
+    reach the card; the verbs are the same."""
+    import contextlib
+    import io
+
+    from gravity_tpu_torch.cli import main as cli_main
+    from gravity_tpu_torch.utils import faults as fault_plan
+
+    out, err = io.StringIO(), io.StringIO()
+    saved = os.environ.pop("GRAVITY_TPU_FAULTS", None)
     if faults:
-        env["GRAVITY_TPU_FAULTS"] = faults
-    return subprocess.run([sys.executable, "-m", "gravity_tpu_torch", *args],
-                          cwd=REPO, env=env, capture_output=True, text=True,
-                          timeout=timeout)
+        os.environ["GRAVITY_TPU_FAULTS"] = faults
+    fault_plan.reset()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                rc = cli_main(list(args))
+            except SystemExit as e:
+                rc = e.code if isinstance(e.code, int) else 1
+    finally:
+        os.environ.pop("GRAVITY_TPU_FAULTS", None)
+        if saved is not None:
+            os.environ["GRAVITY_TPU_FAULTS"] = saved
+        fault_plan.reset()
+    return subprocess.CompletedProcess(list(args), rc, out.getvalue(),
+                                       err.getvalue())
 
 
 def last_json(text: str) -> dict:
@@ -4956,7 +4991,7 @@ def phase_pipeline_path(device: dict) -> dict:
 
 def phase_resume_path(device: dict) -> dict:
     """reference-cuda (N = 50,000, 500 Euler steps, masked, nbody_direct)
-    in a process of its own with a checkpoint every 100 and
+    through the CLI (``run_cli``) with a checkpoint every 100 and
     ``GRAVITY_TPU_FAULTS=preempt@250``: exit 75; ``resume`` finishes it
     with exit 0 and its step-500 checkpoint equals an uninterrupted run's
     final state bit for bit (nbody_direct repeats bit for bit); with the
@@ -5075,7 +5110,7 @@ def phase_resume_path(device: dict) -> dict:
 
 def phase_supervisor_path(device: dict) -> dict:
     """baseline-16k with ``--auto-recover --checkpoint-every 100`` and
-    ``GRAVITY_TPU_FAULTS=diverge@300``, in a process of its own: exit 0,
+    ``GRAVITY_TPU_FAULTS=diverge@300``, through the CLI: exit 0,
     its recovery events diverged (at 200), rolled_back (to 200), retry at
     dt/2 over the bad interval; without ``--auto-recover`` the same run
     exits 2 with the ``diverged`` stderr JSON line."""
@@ -5317,9 +5352,9 @@ def phase_host_syncs(device: dict) -> dict:
 
 # baseline-1m-fmm cut to 3 of its 500 steps (multirate too); the 1M
 # uniform cube through the dense grid, 2 steps.
-FMM_STEPS = 3
+FMM_STEPS = 2
 FMM_DENSE_STEPS = 2
-FMM_MULTIRATE_STEPS = 3
+FMM_MULTIRATE_STEPS = 2
 FMM_SAMPLE = 4096
 FMM_DENSE_N = 1 << 20
 # The sparse FMM's accuracy class at its resolving depth against the exact
@@ -5622,23 +5657,23 @@ SERVE_UNPADDED_BAR = {"float32": 1e-5, "bfloat16": 2.0**-5}
 # cancel is piped from its submit (phase_serve_path), and the record says
 # whether it was still queued.
 SERVE_JOBS = (
-    ("a", 8192, "plummer", "leapfrog", 1000, 3600.0, 0, ()),
-    ("b", 8192, "random", "leapfrog", 500, 3600.0, 0, ()),
-    ("c", 8192, "hernquist", "yoshida4", 200, 1800.0, 0, ()),
-    ("d", 8192, "plummer", "leapfrog", 300, 7200.0, 0,
+    ("a", 8192, "plummer", "leapfrog", 500, 3600.0, 0, ()),
+    ("b", 8192, "random", "leapfrog", 250, 3600.0, 0, ()),
+    ("c", 8192, "hernquist", "yoshida4", 100, 1800.0, 0, ()),
+    ("d", 8192, "plummer", "leapfrog", 150, 7200.0, 0,
      ("--force-backend", "pallas-mxu")),
-    ("e", 3000, "random", "leapfrog", 600, 1800.0, 1, ()),
-    ("f", 3000, "plummer", "leapfrog", 400, 3600.0, 0,
+    ("e", 3000, "random", "leapfrog", 300, 1800.0, 1, ()),
+    ("f", 3000, "plummer", "leapfrog", 200, 3600.0, 0,
      ("--dtype", "bfloat16")),
-    ("g", 3000, "hernquist", "euler", 300, 3600.0, 0, ()),
-    ("h", 3000, "random", "yoshida4", 200, 7200.0, 0,
+    ("g", 3000, "hernquist", "euler", 150, 3600.0, 0, ()),
+    ("h", 3000, "random", "yoshida4", 100, 7200.0, 0,
      ("--dtype", "float64")),
-    ("i", 700, "plummer", "leapfrog", 800, 3600.0, 1, ()),
-    ("j", 700, "random", "leapfrog", 1000, 7200.0, 1, ()),
-    ("k", 700, "hernquist", "leapfrog", 1000, 1800.0, 1, ()),
-    ("l", 700, "random", "leapfrog", 1000, 3600.0, 1, ()),
+    ("i", 700, "plummer", "leapfrog", 400, 3600.0, 1, ()),
+    ("j", 700, "random", "leapfrog", 500, 7200.0, 1, ()),
+    ("k", 700, "hernquist", "leapfrog", 500, 1800.0, 1, ()),
+    ("l", 700, "random", "leapfrog", 500, 3600.0, 1, ()),
 )
-SERVE_CANCEL = ("x", 700, "random", "leapfrog", 1000, 3600.0, -1, ())
+SERVE_CANCEL = ("x", 700, "random", "leapfrog", 500, 3600.0, -1, ())
 # Served truncated physics (SERVE_NLIST's workload through submit): four
 # fp32 jobs of one key at bucket 8,192, one of them 5,000 bodies (its
 # padding overflows its first body's cell), and a bf16 job.
@@ -5648,9 +5683,9 @@ SERVE_NLIST_PATH_JOBS = tuple(
     (label, n, "random", "leapfrog", steps, 3600.0, 0,
      SERVE_NLIST_FLAGS + ("--seed", str(seed)) + extra)
     for label, n, steps, seed, extra in (
-        ("m", 5000, 300, 11, ()), ("n", 8192, 300, 12, ()),
-        ("o", 6000, 200, 13, ()), ("p", 7000, 200, 14, ()),
-        ("q", 5000, 200, 15, ("--dtype", "bfloat16"))))
+        ("m", 5000, 150, 11, ()), ("n", 8192, 150, 12, ()),
+        ("o", 6000, 100, 13, ()), ("p", 7000, 100, 14, ()),
+        ("q", 5000, 100, 15, ("--dtype", "bfloat16"))))
 
 
 def serve_batch(dtype):
@@ -6024,8 +6059,21 @@ def phase_serve_kernels(device: dict) -> dict:
 
 
 def serve_cli(spool: str, *args) -> list:
-    return [sys.executable, "-m", "gravity_tpu_torch", *args,
-            "--spool-dir", spool]
+    return [sys.executable, "-m", "gravity_tpu_torch", *serve_args(spool,
+                                                                   *args)]
+
+
+def serve_args(spool: str, *args) -> list:
+    """A client verb's arguments against the daemon of ``spool``."""
+    return [*args, "--spool-dir", spool]
+
+
+def run_clients(argvs) -> list:
+    """Client verbs (``submit``, ``status``, ``result``) through
+    ``run_cli`` in this process, one after another: (returncode, stdout,
+    stderr) of each, as ``run_parallel`` gives them for processes."""
+    return [(p.returncode, p.stdout, p.stderr)
+            for p in (run_cli(a) for a in argvs)]
 
 
 def submit_args(job) -> list:
@@ -6033,20 +6081,6 @@ def submit_args(job) -> list:
     return ["submit", "--model", model, "--n", str(n), "--integrator",
             integrator, "--steps", str(steps), "--dt", str(dt), "--eps",
             str(SERVE_EPS), "--priority", str(prio), *extra]
-
-
-def run_parallel(cmds, timeout: int = 300) -> list:
-    """Run the commands as processes all at once; their
-    CompletedProcess-like (returncode, stdout, stderr)."""
-    env = dict(os.environ, PYTHONPATH=REPO)
-    procs = [subprocess.Popen(c, cwd=REPO, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for c in cmds]
-    out = []
-    for p in procs:
-        stdout, stderr = p.communicate(timeout=timeout)
-        out.append((p.returncode, stdout, stderr))
-    return out
 
 
 def phase_serve_path(device: dict) -> dict:
@@ -6096,10 +6130,14 @@ def phase_serve_path(device: dict) -> dict:
                       f"sys.exit(main([\"cancel\", \"--spool-dir\", "
                       f"\"{spool}\", job]))'")
             jobs_all = SERVE_JOBS + SERVE_NLIST_PATH_JOBS
-            subs = run_parallel(
-                [serve_cli(spool, *submit_args(j)) for j in jobs_all]
-                + [["bash", "-o", "pipefail", "-c",
-                    f"sleep 2; {submit} | {cancel}"]])
+            piped = subprocess.Popen(
+                ["bash", "-o", "pipefail", "-c",
+                 f"sleep 2; {submit} | {cancel}"], cwd=REPO, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            # The traffic's submits through the CLI in this process.
+            subs = run_clients([serve_args(spool, *submit_args(j))
+                                for j in jobs_all])
+            subs.append((piped.wait(timeout=300), *piped.communicate()))
             ids = {}
             for job, (rc, out, err) in zip(jobs_all, subs):
                 check(rc == 0, f"submit {job[0]}: rc {rc}: {err[-2000:]}")
@@ -6111,16 +6149,16 @@ def phase_serve_path(device: dict) -> dict:
             cancel_id = lines[0]
             statuses = wait_for(spool, list(ids.values()), timeout=600)
             serve_s = time.perf_counter() - t0
-            rc, out, err = run_parallel([serve_cli(spool, "status")])[0]
+            rc, out, err = run_clients([serve_args(spool, "status")])[0]
             check(rc == 0, f"status: {err[-1000:]}")
             listing = {j["id"]: j for j in json.loads(out)["jobs"]}
             check(listing[cancel_id]["status"] == "cancelled",
                   f"cancel target is {listing[cancel_id]['status']}")
             res_dir = os.path.join(spool, "out")
             os.makedirs(res_dir)
-            results = run_parallel([
-                serve_cli(spool, "result", jid, "--out",
-                          os.path.join(res_dir, f"{label}.npz"))
+            results = run_clients([
+                serve_args(spool, "result", jid, "--out",
+                           os.path.join(res_dir, f"{label}.npz"))
                 for label, jid in ids.items()])
             for (label, jid), (rc, out, err) in zip(ids.items(), results):
                 check(rc == 0, f"result {label}: {err[-1000:]}")
@@ -6632,6 +6670,8 @@ def phase_profile_path(device: dict) -> dict:
     env = dict(os.environ, PYTHONPATH=REPO)
     with tempfile.TemporaryDirectory(dir=REPO) as tmp:
         log_dir = os.path.join(tmp, "logs")
+        # A process of its own: in this process, after the phases before,
+        # the profiler's trace lost launches that the run counted.
         proc = subprocess.run(
             [sys.executable, "-m", "gravity_tpu_torch", "run", "--preset",
              "baseline-16k", "--steps", "20", "--profile", "--log-dir",
@@ -6720,7 +6760,7 @@ COSMO_262K = dict(model="grf", n=262_144, periodic_box=COSMO_BOX,
                   eps=2.0e11, dt=2.0e4)
 COSMO_262K_STEPS = 100
 COSMO_TSC_STEPS = 20
-PERIODIC_NLIST_STEPS = 20
+PERIODIC_NLIST_STEPS = 10
 # The fp32 mesh against fp64 on the same state: the JAX suite's bar
 # (tests/test_periodic.py:199-225): |a32 - a64| <= 2e-3 |a64| + 1e-3 max|a|.
 PM_FP32_RTOL, PM_FP32_ATOL = 2e-3, 1e-3
@@ -7291,7 +7331,7 @@ def phase_analyze_path(device: dict, started) -> dict:
 
 SHARDED_262K_STEPS = 20
 SHARDED_MXU_STEPS = 5
-SHARDED_2M_STEPS = 2
+SHARDED_2M_STEPS = 1
 SHARDED_SAMPLE = 4096
 # The ring's rows held to the plain version, each against all 2,097,152
 # sources.
@@ -8367,6 +8407,381 @@ def phase_sharded_modes_path(device: dict) -> dict:
     return out
 
 
+# The rest of the mesh layer (the sharded FMM forms, checkpoints and
+# resume on a world, the sharded-integrate job class): each its own NCCL
+# world of one, destroyed at the phase's end.
+SHARDED_FMM_STEPS = 2
+SHARDED_FMM_DENSE_DEPTH = 6
+SHARDED_RESUME_STEPS = 200
+SHARDED_PREEMPT_AT = 100
+SHARDED_DIVERGE_AT = 150
+SERVE_SHARDED_N = 16384
+SERVE_SHARDED_STEPS = 100
+SERVE_SHARDED_COMMON = ("--model", "random", "--n", str(SERVE_SHARDED_N),
+                        "--integrator", "leapfrog", "--dt", "3600",
+                        "--eps", str(SERVE_EPS))
+# (label, steps, extra submit flags, daemon): the local kernels through
+# the solo form (one card: the default devices is 1), a devices: 2 job
+# that walks to it, and the two mesh faults, each on a daemon of its own.
+SERVE_SHARDED_NLIST = ("--force-backend", "nlist", "--nlist-rcut", "5e10",
+                       "--nlist-side", "12", "--nlist-cap", "64")
+SERVE_SHARDED_JOBS = (
+    ("pallas", SERVE_SHARDED_STEPS, ("--force-backend", "pallas"), "main"),
+    ("pallas_mxu", SERVE_SHARDED_STEPS, ("--force-backend", "pallas-mxu"),
+     "main"),
+    ("nlist_halo", SERVE_SHARDED_STEPS, SERVE_SHARDED_NLIST, "main"),
+    ("devices2", SERVE_SHARDED_STEPS, ("--force-backend", "pallas",
+                                       "--devices", "2"), "main"),
+    ("mesh_fail", SERVE_SHARDED_STEPS, ("--force-backend", "pallas",
+                                        "--devices", "4"), "mesh_fail"),
+    ("collective_stall", 2 * SERVE_SHARDED_STEPS,
+     ("--force-backend", "pallas"), "collective_stall"),
+)
+SERVE_SHARDED_DAEMONS = {"main": "", "mesh_fail": "mesh_fail@0x99",
+                         "collective_stall": "collective_stall@1x2"}
+
+
+def phase_sharded_fmm_path(device: dict) -> dict:
+    """The sharded FMM forms on the NCCL world of one
+    (parallel/sharded_fmm.py): baseline-1m-fmm's sparse FMM (fmm_mode
+    auto on the disk, which must take the sparse route) and the 1M cube's
+    dense FMM at depth SHARDED_FMM_DENSE_DEPTH, SHARDED_FMM_STEPS steps
+    each sharded and unsharded: the same bits, no kernel launch, ms a
+    step. The as-run sparse sizing carries the sharded k_eff and
+    k_chunk_eff, which the final occupancy check and ``--debug-check``
+    read (the check is run on the sharded run's final state)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from gravity_tpu_torch.cli import _debug_check
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
+    from gravity_tpu_torch.ops import sfmm
+    from gravity_tpu_torch.simulation import Simulator
+
+    cases = {
+        "sparse_1m_disk": dataclasses.replace(
+            PRESETS["baseline-1m-fmm"], steps=SHARDED_FMM_STEPS),
+        "dense_1m_cube": SimulationConfig(
+            model="random", n=FMM_DENSE_N, eps=1e9, integrator="leapfrog",
+            force_backend="fmm", tree_depth=SHARDED_FMM_DENSE_DEPTH,
+            steps=SHARDED_FMM_STEPS),
+    }
+    out = {"phase": "sharded_fmm_path", "nvidia_smi": device["nvidia_smi"],
+           "steps": SHARDED_FMM_STEPS, "runs": {}}
+    try:
+        for name, config in cases.items():
+            sim = Simulator(dataclasses.replace(config,
+                                                sharding="allgather"))
+            check(sim.mesh.shape == (1,), f"{name}: mesh {sim.mesh.shape}")
+            check(sim.fmm_sparse == name.startswith("sparse"),
+                  f"{name}: fmm_mode auto took sparse={sim.fmm_sparse}")
+            nominal = None
+            if sim.fmm_sparse:
+                nominal = sfmm.resolve_sfmm_sizing(
+                    sim.global_state(sim.state).positions, config.tree_depth,
+                    config.tree_leaf_cap)[2]
+            stats, counts = logged_run(sim, f"sharded_{name}",
+                                       fixed_steps=config.steps)
+            ref_sim = Simulator(config)
+            ref, _ = logged_run(ref_sim, f"unsharded_{name}",
+                                fixed_steps=config.steps)
+            same = same_bits(stats["final_state"], ref["final_state"])
+            check(same, f"sharded {name}: not the unsharded run's bits")
+            run = {"bitwise_equal_unsharded": same,
+                   "launches": sum(counts.values()),
+                   "fmm_mode": stats["fmm_mode"],
+                   "depth": stats["fmm_depth"],
+                   "ms_per_step": 1e3 * stats["avg_step_s"],
+                   "unsharded_ms_per_step": 1e3 * ref["avg_step_s"],
+                   "setup_s": stats["fmm_setup_s"]}
+            if sim.fmm_sparse:
+                depth, cap, k_eff, k_chunk = sim.sfmm_sizing
+                check((k_eff, k_chunk) == sfmm.sharded_k_sizing(nominal,
+                                                                1)[:2],
+                      f"{name}: as-run k {k_eff, k_chunk} for {nominal}")
+                check(stats["sfmm_k_cells"] == k_eff
+                      and stats["sfmm_k_chunk"] == k_chunk
+                      and stats["sfmm_final_occupancy"]["k_cells"] == k_eff,
+                      f"{name}: the stats' sizing {stats['sfmm_k_cells']}")
+                reset_counts()
+                audit = _debug_check(sim.config, sim, stats["final_state"],
+                                     None)
+                check(not any(read_counts().values()),
+                      f"{name}: the debug check launched a kernel")
+                check(audit["median_rel_err"] < FMM_MEDIAN_BAR,
+                      f"{name}: --debug-check {audit}")
+                run.update(k_eff=k_eff, k_chunk_eff=k_chunk,
+                           nominal_k_cells=nominal,
+                           debug_check={k: audit[k] for k in (
+                               "median_rel_err", "max_rel_err",
+                               "n_checked")})
+            out["runs"][name] = run
+            del sim, ref_sim, stats, ref
+            torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit(out)
+    return out
+
+
+def phase_sharded_resume_path(device: dict) -> dict:
+    """baseline-16k sharded (allgather) on the NCCL world of one for
+    SHARDED_RESUME_STEPS steps with a checkpoint every 50, preempted at
+    SHARDED_PREEMPT_AT (``preempt@``, a real SIGTERM to this process):
+    resumed sharded and resumed solo, each the uninterrupted sharded run's
+    bits, its step-200 checkpoint the unpadded global payload; nbody_direct
+    launches = force evaluations of each run. Then ``run --auto-recover``
+    sharded with ``diverge@SHARDED_DIVERGE_AT`` through the CLI: exit 0,
+    its recovery records diverged, rolled_back, retry."""
+    import dataclasses
+    import shutil
+
+    import torch.distributed as dist
+
+    from gravity_tpu_torch.config import PRESETS
+    from gravity_tpu_torch.simulation import SimulationPreempted, Simulator
+    from gravity_tpu_torch.utils import faults
+    from gravity_tpu_torch.utils.checkpoint import (
+        make_checkpoint_manager,
+        restore_checkpoint_with_extra,
+    )
+
+    base = dataclasses.replace(PRESETS["baseline-16k"],
+                               steps=SHARDED_RESUME_STEPS,
+                               checkpoint_every=50, progress_every=50)
+    sharded = dataclasses.replace(base, sharding="allgather")
+    log_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(log_root, exist_ok=True)
+    out = {"phase": "sharded_resume_path", "preset": "baseline-16k",
+           "steps": SHARDED_RESUME_STEPS, "cut_from": 500,
+           "preempt_at": SHARDED_PREEMPT_AT,
+           "nvidia_smi": device["nvidia_smi"]}
+
+    def counted_run(sim, **kw):
+        reset_counts()
+        stats = sim.run(**kw)
+        launches = read_counts()["nbody_direct"]
+        steps = SHARDED_RESUME_STEPS - kw.get("start_step", 0)
+        check(launches == steps + 1 == stats["kernel_launches"],
+              f"{launches} nbody_direct launches for {steps} steps")
+        return stats, launches
+
+    try:
+        with tempfile.TemporaryDirectory(dir=log_root) as root:
+            mgr = {k: make_checkpoint_manager(os.path.join(root, k))
+                   for k in ("straight", "pre")}
+            straight, n0 = counted_run(Simulator(sharded),
+                                       checkpoint_manager=mgr["straight"])
+            want = straight["final_state"]
+            faults.install(f"preempt@{SHARDED_PREEMPT_AT}")
+            try:
+                Simulator(sharded).run(checkpoint_manager=mgr["pre"])
+                check(False, "the preempted run did not stop")
+            except SimulationPreempted:
+                pass
+            finally:
+                faults.reset()
+            saved = mgr["pre"].all_steps()
+            check(saved == [50, 100], f"after the preemption: {saved}")
+            shutil.copytree(os.path.join(root, "pre"),
+                            os.path.join(root, "solo"))
+            runs = {}
+            for name, config in (("sharded", sharded), ("solo", base)):
+                m = make_checkpoint_manager(os.path.join(
+                    root, "pre" if name == "sharded" else "solo"))
+                state, step, _ = restore_checkpoint_with_extra(m)
+                check(step == SHARDED_PREEMPT_AT
+                      and tuple(state.positions.shape) == (base.n, 3),
+                      f"{name}: restored {step} {state.positions.shape}")
+                stats, launches = counted_run(
+                    Simulator(config, state=state), start_step=step,
+                    checkpoint_manager=m)
+                same = (same_bits(stats["final_state"], want)
+                        and same_bits(checkpoint_at(m.directory,
+                                                    SHARDED_RESUME_STEPS),
+                                      want))
+                check(same, f"resumed {name}: not the uninterrupted bits")
+                runs[name] = {"resumed_at": step, "launches": launches,
+                              "bitwise_equal_uninterrupted": same,
+                              "ms_per_step": 1e3 * stats["avg_step_s"]}
+            out.update(uninterrupted_launches=n0,
+                       uninterrupted_ms_per_step=1e3 * straight["avg_step_s"],
+                       resumed=runs)
+            healed = run_cli(
+                ["run", "--preset", "baseline-16k", "--steps",
+                 str(SHARDED_RESUME_STEPS), "--sharding", "allgather",
+                 "--auto-recover", "--checkpoint-every", "50",
+                 "--progress-every", "50",
+                 "--checkpoint-dir", os.path.join(root, "ar"),
+                 "--log-dir", os.path.join(root, "lar")],
+                faults=f"diverge@{SHARDED_DIVERGE_AT}")
+            check(healed.returncode == 0, f"sharded --auto-recover: exit "
+                  f"{healed.returncode}: {healed.stderr[-2000:]}")
+            (events_file,) = [f for f in os.listdir(os.path.join(root, "lar"))
+                              if f.startswith("recovery_")]
+            with open(os.path.join(root, "lar", events_file)) as f:
+                kinds = [json.loads(x)["event"] for x in f if x.strip()]
+            check(kinds == ["diverged", "rolled_back", "retry"],
+                  f"sharded recovery events {kinds}")
+            out["auto_recover"] = {"fault": f"diverge@{SHARDED_DIVERGE_AT}",
+                                   "exit": healed.returncode,
+                                   "events": kinds}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit(out)
+    return out
+
+
+def phase_serve_sharded_path(device: dict) -> dict:
+    """The sharded-integrate job class through the daemon on one card:
+    three ``serve`` processes at once (no fault, ``mesh_fail@0x99``,
+    ``collective_stall@1x2``), SERVE_SHARDED_JOBS by ``submit --job-type
+    sharded-integrate`` at SERVE_SHARDED_N bodies. One card: every key is
+    the solo form of its local kernel (pallas, pallas-mxu, the nlist cell
+    list), run in the daemon's process; the devices: 2 job and the
+    mesh_fail job (devices 4) walk the elastic ladder to it; the
+    collective_stall job fails its second round and resumes from its
+    progress snapshot at step 100. Each result equals the solo run of its
+    state bit for bit; each daemon's launches of each kernel equal its
+    force evaluations; ms a round from the event streams."""
+    import numpy as np
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.serve import request, wait_for
+    from gravity_tpu_torch.simulation import Simulator, make_initial_state
+
+    spool_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(spool_root, exist_ok=True)
+    out = {"phase": "serve_sharded_path", "nvidia_smi": device["nvidia_smi"],
+           "n": SERVE_SHARDED_N, "jobs": {}, "daemons": {}}
+    with tempfile.TemporaryDirectory(dir=spool_root) as root:
+        spools, daemons = {}, {}
+        try:
+            for name, spec in SERVE_SHARDED_DAEMONS.items():
+                spools[name] = os.path.join(root, name)
+                env = dict(os.environ, PYTHONPATH=REPO)
+                env.pop("GRAVITY_TPU_FAULTS", None)
+                if spec:
+                    env["GRAVITY_TPU_FAULTS"] = spec
+                daemons[name] = subprocess.Popen(
+                    serve_cli(spools[name], "serve", "--slots", "1",
+                              "--slice-steps", str(SERVE_SHARDED_STEPS),
+                              "--max-requeues", "8", "--progress-every",
+                              "1"),
+                    cwd=REPO, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+            for name, daemon in daemons.items():
+                banner = json.loads(daemon.stdout.readline())
+                check(banner.get("serving"), f"{name} daemon {banner}")
+            t0 = time.perf_counter()
+            subs = run_clients([serve_args(
+                spools[d], "submit", "--job-type", "sharded-integrate",
+                *SERVE_SHARDED_COMMON, "--steps", str(steps), *extra)
+                for _, steps, extra, d in SERVE_SHARDED_JOBS])
+            ids = {}
+            for (label, *_), (rc, text, err) in zip(SERVE_SHARDED_JOBS,
+                                                    subs):
+                check(rc == 0, f"submit {label}: rc {rc}: {err[-2000:]}")
+                ids[label] = json.loads(text.strip().splitlines()[-1])["job"]
+            statuses = {}
+            for label, _, _, d in SERVE_SHARDED_JOBS:
+                statuses.update(wait_for(spools[d], [ids[label]],
+                                         timeout=600))
+            serve_s = time.perf_counter() - t0
+            results = run_clients([serve_args(
+                spools[d], "result", ids[label], "--out",
+                os.path.join(root, f"{label}.npz"))
+                for label, _, _, d in SERVE_SHARDED_JOBS])
+            for (label, *_), (rc, _, err) in zip(SERVE_SHARDED_JOBS,
+                                                 results):
+                check(rc == 0, f"result {label}: {err[-1000:]}")
+            metrics, events = {}, {}
+            for name, spool in spools.items():
+                metrics[name] = request(spool, "GET", "/metrics")
+                with open(os.path.join(spool, "serving_events.jsonl")) as f:
+                    events[name] = [json.loads(x) for x in f if x.strip()]
+        finally:
+            for name, daemon in daemons.items():
+                try:
+                    request(spools[name], "POST", "/shutdown")
+                except Exception:  # noqa: BLE001 — the wait decides
+                    pass
+                try:
+                    daemon.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    daemon.kill()
+                    daemon.wait()
+        for label, steps, extra, d in SERVE_SHARDED_JOBS:
+            st = statuses[ids[label]]
+            check(st["status"] == "completed" and st["steps_done"] == steps,
+                  f"job {label}: {st}")
+            flags = dict(zip(extra[::2], extra[1::2]))
+            config = SimulationConfig(
+                model="random", n=SERVE_SHARDED_N, integrator="leapfrog",
+                dt=3600.0, eps=SERVE_EPS, steps=steps,
+                force_backend=flags["--force-backend"],
+                nlist_rcut=float(flags.get("--nlist-rcut", 0.0)),
+                nlist_side=int(flags.get("--nlist-side", 0)),
+                nlist_cap=int(flags.get("--nlist-cap", 0)))
+            solo = Simulator(config, state=make_initial_state(config, "cpu"))
+            want = solo.run()["final_state"]
+            with np.load(os.path.join(root, f"{label}.npz")) as z:
+                got = [torch.from_numpy(z[k]) for k in ("positions",
+                                                        "velocities")]
+            same = (torch.equal(got[0], want.positions.cpu())
+                    and torch.equal(got[1], want.velocities.cpu()))
+            check(same, f"served {label}: not the solo run's bits")
+            mine = [e for e in events[d] if e.get("job") == ids[label]]
+            out["jobs"][label] = {
+                "daemon": d, "steps": steps, "bitwise_equal_solo": same,
+                "events": [e["event"] for e in mine],
+                "requeues": st.get("requeues"),
+                "backends_opened": [e["backend"] for e in events[d]
+                                    if e["event"] == "breaker_open"],
+                "resume_steps": [e.get("resume_step") for e in mine
+                                 if e["event"] == "respooled"]}
+        walked = out["jobs"]["mesh_fail"]["backends_opened"]
+        check(walked == ["sharded/4/pallas", "sharded/2/pallas"],
+              f"mesh_fail walked {walked}")
+        check(out["jobs"]["devices2"]["backends_opened"]
+              == ["sharded/2/pallas"], "devices 2 on one card")
+        check(out["jobs"]["collective_stall"]["resume_steps"][-1:]
+              == [SERVE_SHARDED_STEPS],
+              f"stall resume {out['jobs']['collective_stall']}")
+        for name in spools:
+            engine = metrics[name]["engine"]
+            evals, launches = engine["force_evals"], metrics[name][
+                "kernel_launches"]
+            for backend, kernel in (("pallas", "nbody_direct"),
+                                    ("pallas-mxu", "nbody_mxu"),
+                                    ("nlist", "nlist_pair")):
+                check(launches[kernel] == evals.get(backend, 0),
+                      f"{name} daemon: {kernel} {launches[kernel]} "
+                      f"launches vs {evals.get(backend, 0)} evaluations")
+            rounds = [e for e in events[name] if e.get("event") == "round"]
+            out["daemons"][name] = {
+                "fault": SERVE_SHARDED_DAEMONS[name], "force_evals": evals,
+                "kernel_launches": {k: launches[k] for k in (
+                    "nbody_direct", "nbody_mxu", "nlist_pair")},
+                "builds": engine["builds"],
+                "ms_per_round": {
+                    b: 1e3 * statistics.median(e["round_s"] for e in rounds
+                                               if e["backend"] == b)
+                    for b in sorted({e["backend"] for e in rounds})},
+                "rounds": len(rounds)}
+        out["wall_s"] = serve_s
+        out["kernel_launches"] = {
+            k: sum(d["kernel_launches"][k] for d in out["daemons"].values())
+            for k in ("nbody_direct", "nbody_mxu", "nlist_pair")}
+    emit(out)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -8427,6 +8842,8 @@ def run_phases(torch) -> int:
     sharded = timed(phase_sharded_path, device, base2m)
     halo = timed(phase_halo_path, device)
     sharded_modes = timed(phase_sharded_modes_path, device)
+    sharded_fmm = timed(phase_sharded_fmm_path, device)
+    sharded_resume = timed(phase_sharded_resume_path, device)
     bf16_paths = timed(phase_bf16_paths)
     multirate = timed(phase_multirate_path, device, base16k)
     star = timed(phase_star_cluster_path, device)
@@ -8458,6 +8875,7 @@ def run_phases(torch) -> int:
     serve_kernels = timed(phase_serve_kernels, device)
     serve_path = timed(phase_serve_path, device)
     serve_parity = timed(phase_serve_parity, device)
+    serve_sharded = timed(phase_serve_sharded_path, device)
     perf_ledger = timed(phase_perf_ledger, device, {
         "main_path": main_path, "baseline16k_path": base16k,
         "nlist_main_path": nlist_path, "mxu_path": mxu_path,
@@ -8520,6 +8938,16 @@ def run_phases(torch) -> int:
           "sharded_modes_ms_per_step": {
               k: [v["ms_per_step"], v["unsharded_ms_per_step"]]
               for k, v in sharded_modes["modes"].items()},
+          "sharded_fmm": {k: [v["ms_per_step"], v["unsharded_ms_per_step"],
+                              v["bitwise_equal_unsharded"]]
+                          for k, v in sharded_fmm["runs"].items()},
+          "sharded_resume": {k: v["bitwise_equal_uninterrupted"]
+                             for k, v in sharded_resume["resumed"].items()},
+          "serve_sharded": {
+              "bitwise_equal_solo": {k: v["bitwise_equal_solo"] for k, v in
+                                     serve_sharded["jobs"].items()},
+              "ms_per_round": {k: v["ms_per_round"] for k, v in
+                               serve_sharded["daemons"].items()}},
           "p3m_multirate_ms_per_step": p3m_mr["ms_per_step"],
           "p3m_slice_max_scaled_gap": p3m_slice["max_scaled_gap"],
           "fmm_bf16": {

@@ -381,28 +381,21 @@ def _make_writer(config: SimulationConfig, logger, n_real: int):
 def _world(args, config: SimulationConfig) -> tuple:
     """(rank, world size) of this process: with ``--distributed`` or a
     sharded config the world is joined first (``parallel/mesh.py``); any
-    other run is a world of one. A run on more than one process refuses
-    what is not ported for it (ROADMAP Queue 1 item 5)."""
+    other run is a world of one. Checkpoints, ``resume`` and
+    ``--auto-recover`` run on a world of any size: rank 0 writes the
+    gathered solo payload behind a barrier, and ``resume`` reads it onto
+    this world's mesh."""
     if not (getattr(args, "distributed", False)
             or config.sharding != "none"):
         return 0, 1
     import torch.distributed as dist
 
-    from .config import NotPortedError
     from .parallel import initialize_distributed
 
     # main() leaves a world it joined here when the verb returns.
     args.joined_world = not dist.is_initialized()
     initialize_distributed(args.device)
-    rank, world = dist.get_rank(), dist.get_world_size()
-    if world > 1 and (config.auto_recover or config.checkpoint_every
-                      or args.command == "resume"):
-        raise NotPortedError(
-            "checkpoints, resume and the supervisor on more than one "
-            "device are not ported to gravity_tpu_torch yet (ROADMAP.md "
-            "Queue 1 item 5, checkpoint re-layout and the supervisor's "
-            "rungs)")
-    return rank, world
+    return dist.get_rank(), dist.get_world_size()
 
 
 def _debug_check(config: SimulationConfig, sim, final, logger) -> dict:
@@ -515,8 +508,10 @@ def cmd_run(args: argparse.Namespace) -> int:
         from .supervisor import RunSupervisor
         from .utils.logging import RecoveryEventLogger
 
+        # Rank 0 alone records the supervisor's events.
         events = RecoveryEventLogger(os.path.join(
-            config.log_dir, f"recovery_{logger.timestamp}.jsonl"))
+            config.log_dir, f"recovery_{logger.timestamp}.jsonl")) \
+            if lead else None
         sup = RunSupervisor(config, logger=logger, events=events,
                             checkpoint_manager=ckpt_mgr,
                             trajectory_writer=writer,
@@ -594,7 +589,9 @@ def cmd_resume(args: argparse.Namespace) -> int:
     from .utils.logging import RunLogger
 
     config = build_config(args)
-    _world(args, config)
+    # Every rank reads the solo payload; the Simulator shards it onto this
+    # world's mesh. Rank 0 alone writes and prints.
+    lead = _world(args, config)[0] == 0
     mgr = make_checkpoint_manager(config.checkpoint_dir)
     try:
         state, step, extra = restore_checkpoint_with_extra(mgr, args.step)
@@ -610,24 +607,29 @@ def cmd_resume(args: argparse.Namespace) -> int:
             return 1
         t_end = config.steps * config.dt
         if extra["t"] >= t_end:
-            print(json.dumps({"resumed_at": step, "t": extra["t"],
-                              "t_end": t_end,
-                              "note": "checkpoint already at/past t_end"}))
+            if lead:
+                print(json.dumps({"resumed_at": step, "t": extra["t"],
+                                  "t_end": t_end,
+                                  "note": "checkpoint already at/past "
+                                          "t_end"}))
             return 0
         kwargs.update(start_t=extra["t"], start_comp=extra.get("comp", 0.0))
     elif step >= config.steps:
-        print(json.dumps({"resumed_at": step, "steps": config.steps,
-                          "note": "checkpoint already at/past target"}))
+        if lead:
+            print(json.dumps({"resumed_at": step, "steps": config.steps,
+                              "note": "checkpoint already at/past target"}))
         return 0
-    logger = RunLogger(config.log_dir)
-    logger.log_print(f"Resuming from checkpoint at step {step}")
+    logger = RunLogger(config.log_dir) if lead else None
+    if logger is not None:
+        logger.log_print(f"Resuming from checkpoint at step {step}")
     try:
         if config.auto_recover:
             from .supervisor import RunSupervisor
             from .utils.logging import RecoveryEventLogger
 
             events = RecoveryEventLogger(os.path.join(
-                config.log_dir, f"recovery_{logger.timestamp}.jsonl"))
+                config.log_dir, f"recovery_{logger.timestamp}.jsonl")) \
+                if lead else None
             stats = RunSupervisor(config, logger=logger, events=events,
                                   checkpoint_manager=mgr,
                                   device=args.device, **kwargs).run()
@@ -642,15 +644,17 @@ def cmd_resume(args: argparse.Namespace) -> int:
                 stats = sim.run(logger, checkpoint_manager=mgr,
                                 start_step=step)
     except SimulationPreempted:
-        print(json.dumps({"preempted": True, "resumable": True}),
-              file=sys.stderr)
+        if lead:
+            print(json.dumps({"preempted": True, "resumable": True}),
+                  file=sys.stderr)
         return EXIT_PREEMPTED
     except (SimulationDiverged, AccuracyBreach, TransientFault,
             BackendUnavailable) as e:
-        return _print_failure_json(e)
+        return _print_failure_json(e) if lead else EXIT_FAILED
     stats.pop("final_state", None)
     stats["resumed_at"] = step
-    print(json.dumps(stats))
+    if lead:
+        print(json.dumps(stats))
     return 0
 
 
@@ -1276,14 +1280,14 @@ def cmd_submit(args: argparse.Namespace) -> int:
     import uuid
 
     from .serve import DaemonUnreachable, request, wait_for
-    from .serve.jobs import NOT_PORTED
+    from .serve.jobs import NOT_PORTED, job_types
 
-    if args.job_type != "integrate":
+    if args.job_type not in job_types():
         item = NOT_PORTED.get(args.job_type)
         print(f"error: --job-type {args.job_type!r} is not served by "
               "gravity_tpu_torch" + (
                   f" yet (ROADMAP.md Queue 1 item {item})" if item
-                  else "; the served class is 'integrate'"),
+                  else f"; the served classes are {job_types()}"),
               file=sys.stderr)
         return 2
     config = build_config(args)
@@ -1301,6 +1305,8 @@ def cmd_submit(args: argparse.Namespace) -> int:
         if not isinstance(params, dict):
             print("error: --params must be a JSON object", file=sys.stderr)
             return 2
+    if args.devices is not None:
+        params = {**(params or {}), "devices": args.devices}
     try:
         resp = request(args.spool_dir, "POST", "/submit", {
             "config": json.loads(config.to_json()),
@@ -1458,9 +1464,13 @@ def _add_serving_parsers(sub) -> None:
     _add_config_args(p)
     _add_spool_arg(p)
     p.add_argument("--job-type", dest="job_type", default="integrate",
-                   help="traffic class: integrate (the JAX package's fit, "
-                        "sweep, watch and sharded-integrate are not "
+                   help="traffic class: integrate or sharded-integrate "
+                        "(the JAX package's fit, sweep and watch are not "
                         "ported: exit 2)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="sharded-integrate: the devices of the job's "
+                        "group (params.devices; default every card "
+                        "visible to the daemon, 1 on the CPU)")
     p.add_argument("--params", default=None,
                    help="job-class payload as inline JSON or @file (an "
                         "optional inline 'state')")

@@ -44,14 +44,6 @@ NLIST_MESH_MODES = ("auto", "halo", "allgather")
 
 _QUEUE = "ROADMAP.md Queue 1 item"
 
-# Features that do not run on a mesh yet, each a later bullet of item 5:
-# (predicate on the config, what it is, the bullet).
-_UNPORTED_ON_MESH = (
-    (lambda c: c.force_backend in ("fmm", "sfmm"),
-     lambda c: f"force_backend={c.force_backend!r}",
-     f"{_QUEUE} 5 (the sharded FMM forms: the JAX package's slab engines "
-     "gravity_tpu/ops/fmm.py:1223 and ops/sfmm.py:1047)"),
-)
 # P3M takes no bf16 state, as in the JAX package, whose mesh FFT refuses
 # one: nothing is left to port there.
 _BF16_REFUSED_BACKENDS = ("p3m",)
@@ -255,12 +247,6 @@ class SimulationConfig:
                 f"dtype='bfloat16' with force_backend={self.force_backend!r}"
                 f": {_BF16_REFUSED_REASON}; use float32 or float64"
             )
-        if self.sharding != "none":
-            for applies, what, item in _UNPORTED_ON_MESH:
-                if applies(self):
-                    raise NotPortedError(
-                        f"{what} with sharding={self.sharding!r} is not "
-                        f"ported to gravity_tpu_torch yet ({item})")
         if self.mesh_shape is not None:
             self.mesh_shape = tuple(int(x) for x in self.mesh_shape)
             if (len(self.mesh_shape) not in (1, 2)

@@ -40,13 +40,20 @@ targets that take it, which gives each of them the same terms.
 
 A bf16 state runs at its own dtype, as in the JAX package.
 
-Not ported: the sharded form ``make_sharded_fmm_accel`` (ROADMAP.md Queue
-1 item 5).
+On a mesh (``parallel/sharded_fmm.py``, the JAX package's
+``make_sharded_fmm_accel``) every rank rebuilds the octree and the cell
+arrays from the gathered state and runs :func:`cell_pass` on its own
+contiguous share of the target leaves (:class:`SlabShare`: whole x-slabs
+of the leaf grid); the per-leaf outputs are all-gathered in rank order.
+A leaf's outputs do not depend on which leaves share its chunk (the
+finest list's offset groups are sized by the nominal chunk, not by the
+chunk at hand), so a sharded evaluation gives the unsharded bits.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
@@ -333,7 +340,9 @@ def _finest(src, tcoords, tpos, lists, g: float, eps: float, h_leaf,
     group, t, 3) temporary within :data:`PASS_BUDGET`."""
     c, t = tpos.shape[0], tpos.shape[1]
     offs = lists[_parity(tcoords)]  # (C, Lv, 3)
-    group = max(1, PASS_BUDGET // max(1, 3 * c * t))
+    # Sized by the nominal chunk of leaves, so that a leaf's sum takes the
+    # same groups whatever share of the leaves its chunk holds.
+    group = max(1, PASS_BUDGET // max(1, 3 * _cell_chunk(t, src.cap) * t))
     acc = tpos.new_zeros((c, t, 3))
     phi = tpos.new_zeros((c, t)) if potential else None
     for lo in range(0, offs.shape[1], group):
@@ -409,22 +418,107 @@ def _near(src, tcoords, tpos, near, g: float, cutoff: float, eps: float,
     return acc, phi
 
 
+class CellShare:
+    """A rank's contiguous share of the target cells of :func:`cell_pass`
+    and the all-gather of the per-cell outputs in rank order: the split of
+    the sharded FMM forms (the JAX package's ``slab_ids`` and
+    ``chunk_sel``). :meth:`bounds` gives every rank's range (the build is
+    replicated, so each rank knows all of them)."""
+
+    def __init__(self, rank: int, world: int, group=None):
+        self.rank, self.world, self.group = rank, world, group
+
+    def bounds(self, tcoords) -> list:
+        raise NotImplementedError
+
+    def gather(self, outs: tuple, bounds: list) -> tuple:
+        """The per-cell outputs of every rank, concatenated in rank order:
+        one all-gather of the rank's outputs packed into one (C_r, W) block
+        padded to the largest share."""
+        from ..parallel.mesh import all_gather_rows
+
+        live = [o for o in outs if o is not None]
+        counts = [hi - lo for lo, hi in zip(bounds[:-1], bounds[1:])]
+        width = max(counts)
+        flat = torch.cat([o.reshape(o.shape[0], math.prod(o.shape[1:]))
+                          for o in live], dim=1)
+        block = flat.new_zeros((width, flat.shape[1]))
+        block[:flat.shape[0]] = flat
+        every = all_gather_rows(block, self.group).reshape(
+            self.world, width, -1)
+        whole = torch.cat([every[r, :counts[r]] for r in range(self.world)])
+        out, col = [], 0
+        for o in outs:
+            if o is None:
+                out.append(None)
+                continue
+            w = math.prod(o.shape[1:])
+            out.append(whole[:, col:col + w].reshape(-1, *o.shape[1:]))
+            col += w
+        return tuple(out)
+
+
+class SlabShare(CellShare):
+    """Whole x-slabs of the dense leaf grid: rank r takes the leaves with
+    x in [r side/P, (r+1) side/P) (``make_sharded_fmm_accel``'s slab
+    runs; the slab width shrinks until the slab count divides the world,
+    which leaves side/P planes a rank). A world that does not divide the
+    side is refused with the JAX package's message."""
+
+    def __init__(self, rank: int, world: int, depth: int, group=None):
+        super().__init__(rank, world, group)
+        side = 1 << depth
+        if side % world:
+            raise ValueError(
+                f"mesh size {world} does not divide the {side} near-field "
+                f"slabs at depth={depth}; use a power-of-two mesh <= {side}")
+        self.planes = side // world
+
+    def bounds(self, tcoords) -> list:
+        # The target leaves are in ascending leaf id, so x ascends.
+        edges = torch.arange(self.world + 1, device=tcoords.device) \
+            * self.planes
+        return torch.searchsorted(tcoords[:, 0].contiguous(),
+                                  edges.to(tcoords.dtype)).tolist()
+
+
+class ChunkShare(CellShare):
+    """``per_rank`` consecutive cell ranks a rank (the sparse FMM's K
+    chunks split over the world, ``make_sharded_sfmm_accel``)."""
+
+    def __init__(self, rank: int, world: int, per_rank: int, group=None):
+        super().__init__(rank, world, group)
+        self.per_rank = per_rank
+
+    def bounds(self, tcoords) -> list:
+        c = tcoords.shape[0]
+        return [min(r * self.per_rank, c) for r in range(self.world + 1)]
+
+
 def cell_pass(src, coarse, tcoords, tpos, *, depth: int, ws: int, g: float,
               cutoff: float, eps: float, origin, span, m_scale, order: int,
-              potential: bool, prefix: str):
+              potential: bool, prefix: str, share: CellShare | None = None):
     """The per-leaf passes for target leaves ``tcoords`` (C, 3) with
     (C, t, 3) slot positions, in chunks of :func:`_cell_chunk` leaves:
     (near + finest (C, t, 3), their phi (C, t) | None, and the leaves'
-    expansions (F, J, A, T, phi))."""
+    expansions (F, J, A, T, phi)). With ``share`` this rank runs its own
+    range of the leaves and the outputs of all are gathered."""
     side = 1 << depth
     lists, near, _ = _list_tables(ws, tpos.device)
     h_leaf = span / side
     eps_over = torch.clamp_min(0.5 * h_leaf, eps)
     dtype = tpos.dtype
     chunk = _cell_chunk(tpos.shape[1], src.cap)
+    bounds = None
+    lo, hi = 0, tcoords.shape[0]
+    if share is not None:
+        bounds = share.bounds(tcoords)
+        lo, hi = bounds[share.rank], bounds[share.rank + 1]
     parts = []
-    for lo in range(0, tcoords.shape[0], chunk):
-        tc, tp = tcoords[lo:lo + chunk], tpos[lo:lo + chunk]
+    # An empty share still runs one (empty) chunk: its outputs' shapes.
+    for start in range(lo, hi, chunk) or [lo]:
+        tc = tcoords[start:min(start + chunk, hi)]
+        tp = tpos[start:min(start + chunk, hi)]
         with record_function(f"{prefix}.far"):
             exp = _coarse_expansions(
                 coarse, tc, _leaf_centers(tc, origin, span, side, dtype),
@@ -438,8 +532,12 @@ def cell_pass(src, coarse, tcoords, tpos, *, depth: int, ws: int, g: float,
             if potential:
                 phi = phi + phi_f
         parts.append((acc, phi) + exp)
-    return tuple(None if p[0] is None else torch.cat(p)
+    outs = tuple(None if p[0] is None else torch.cat(p)
                  for p in zip(*parts))
+    if share is not None:
+        with record_function(f"{prefix}.gather"):
+            outs = share.gather(outs, bounds)
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -591,7 +689,8 @@ def _unsort(values, sort):
 
 def _dense_eval(targets, positions, masses, *, depth: int, leaf_cap: int,
                 t_cap: int, ws: int, g: float, cutoff: float, eps: float,
-                order: int, quad: bool, form: str):
+                order: int, quad: bool, form: str,
+                share: CellShare | None = None):
     """The dense-grid evaluation at ``targets``. ``form``: "self" (targets
     are the sources: slot-overflow targets take the monopole neighbourhood
     in place of their near + finest sums, as ``_fmm_core``), "vs" (slot
@@ -599,7 +698,8 @@ def _dense_eval(targets, positions, masses, *, depth: int, leaf_cap: int,
     hierarchy, as ``fmm_accelerations_vs``), "potential" (order 1, no
     quadrupoles, the phi channel; slot overflow takes the complete
     hierarchy's phi, as ``_fmm_pe_scaled``). Returns acc (K, 3), or (phi
-    (K,), m_scale) for "potential"."""
+    (K,), m_scale) for "potential". ``share``: this rank's share of the
+    cell pass on a mesh (:func:`cell_pass`)."""
     side = 1 << depth
     dtype = positions.dtype
     potential = form == "potential"
@@ -629,7 +729,7 @@ def _dense_eval(targets, positions, masses, *, depth: int, leaf_cap: int,
     acc_cell, phi_cell, f, j6, a3, t10, phi_loc = cell_pass(
         src, coarse, tcoords, tpos, depth=depth, ws=ws, g=g, cutoff=cutoff,
         eps=eps, origin=origin, span=span, m_scale=m_scale, order=order,
-        potential=potential, prefix="fmm")
+        potential=potential, prefix="fmm", share=share)
     with record_function("fmm.eval"):
         flat = rank * t_cap + torch.clamp_max(slot, t_cap - 1)
         dx = sorted_pos - _leaf_centers(tcoords, origin, span, side,

@@ -35,8 +35,11 @@ positions' own dtype, so they return the JAX package's integers.
 Host reads: one an evaluation (the occupied count and the fallback
 count). A bf16 state runs at its own dtype, its cell totals through the
 bf16 segment sum (``csrc/segment_sum.cu`` on the card), as the JAX
-package's ``segment_sum`` at bf16. Not ported: ``make_sharded_sfmm_accel``
-(ROADMAP.md Queue 1 item 5).
+package's ``segment_sum`` at bf16. On a mesh
+(``parallel/sharded_fmm.py``) every rank rebuilds the compaction from the
+gathered state and runs the cell pass on its own run of the K chunks
+(:class:`~gravity_tpu_torch.ops.fmm.ChunkShare`), with K and the chunk
+width from :func:`sharded_k_sizing`.
 """
 
 from __future__ import annotations
@@ -63,6 +66,7 @@ from .fmm import (
     _parity,
     _point_monopoles,
     _unsort,
+    CellShare,
     cell_pass,
     chunked_points,
     compact,
@@ -265,18 +269,34 @@ def effective_k_cells(k_cells: int, k_chunk: int = DEFAULT_K_CHUNK) -> int:
     return max(k_chunk, (k_cells + k_chunk - 1) // k_chunk * k_chunk)
 
 
+def sharded_k_sizing(k_cells: int, world: int,
+                     k_chunk: int = DEFAULT_K_CHUNK) -> tuple:
+    """(k_eff, k_chunk_eff, chunks a rank) of the sparse FMM on a world of
+    ``world`` ranks, the JAX package's rule (``make_sharded_sfmm_accel``):
+    K made divisible by the world first, then chunked at most ``k_chunk``
+    wide, and rounded up to whole chunks a rank, so that every rank gets
+    an equal, contiguous, non-empty run of chunks."""
+    k_base = max(world, (k_cells + world - 1) // world * world)
+    k_chunk_eff = max(1, min(k_chunk, k_base // world))
+    quantum = k_chunk_eff * world
+    k_eff = (k_base + quantum - 1) // quantum * quantum
+    return k_eff, k_chunk_eff, k_eff // k_chunk_eff // world
+
+
 def sfmm_accelerations(positions: torch.Tensor, masses: torch.Tensor, *,
                        depth: int = 8, leaf_cap: int = 32,
                        k_cells: int = 65536, ws: int = 1, g: float = G,
                        cutoff: float = CUTOFF_RADIUS, eps: float = 0.0,
                        order: int = 2, quad: bool = True,
                        k_chunk: int = DEFAULT_K_CHUNK,
-                       far_mode: str = "auto") -> torch.Tensor:
+                       far_mode: str = "auto",
+                       share: CellShare | None = None) -> torch.Tensor:
     """Sparse cell-list FMM accelerations for all N particles (targets =
     sources). ``k_cells`` is the occupied-leaf capacity (rounded by
     :func:`effective_k_cells`); occupancy beyond it degrades (module
     docstring). Accuracy contract and parameters otherwise those of
-    ``ops/fmm.fmm_accelerations``."""
+    ``ops/fmm.fmm_accelerations``; ``share`` is this rank's share of the
+    cell pass on a mesh."""
     k_cells = effective_k_cells(k_cells, k_chunk)
     window = resolve_far_mode(far_mode) == "window"
     n = positions.shape[0]
@@ -293,7 +313,8 @@ def sfmm_accelerations(positions: torch.Tensor, masses: torch.Tensor, *,
     acc_cell, _, f, j6, a3, t10, _ = cell_pass(
         src, coarse, tcoords, b["cells_pos"][:n_cells], depth=depth, ws=ws,
         g=g, cutoff=cutoff, eps=eps, origin=b["origin"], span=b["span"],
-        m_scale=b["m_scale"], order=order, potential=False, prefix="sfmm")
+        m_scale=b["m_scale"], order=order, potential=False, prefix="sfmm",
+        share=share)
     with record_function("sfmm.eval"):
         side, span = b["side"], b["span"]
         rank_c = torch.clamp_max(b["occ_rank"], k_cells - 1)

@@ -1,8 +1,10 @@
 """Multi-device execution on ``torch.distributed``: particle meshes, the
-sharded direct sums, the hierarchical ring and the halo slab engine.
+sharded direct sums, the hierarchical ring, the halo slab engine and the
+sharded FMM forms.
 
 Counterpart of ``gravity_tpu/parallel/`` for its ``mesh``, ``sharded``,
-``multislice`` and ``halo`` modules.
+``multislice`` and ``halo`` modules, and of the sharded forms of
+``gravity_tpu/ops/fmm.py`` and ``ops/sfmm.py``.
 """
 
 from .halo import (
@@ -29,6 +31,7 @@ from .sharded import (
     make_sharded_accel_fn,
     make_sharded_rect_accel,
 )
+from .sharded_fmm import make_sharded_fmm_accel, make_sharded_sfmm_accel
 
 __all__ = [
     "DCN_AXIS",
@@ -41,7 +44,9 @@ __all__ = [
     "make_particle_mesh",
     "make_sharded_accel2",
     "make_sharded_accel_fn",
+    "make_sharded_fmm_accel",
     "make_sharded_rect_accel",
+    "make_sharded_sfmm_accel",
     "num_shards",
     "particle_sharding",
     "particle_spec",

@@ -9,9 +9,12 @@ open, job keying walks the supervisor's exact-physics ladder
 route to a rung that works. Transitions are emitted as ``breaker_open``
 / ``breaker_closed`` serving events.
 
-One deliberate departure from the JAX package: on the card the ladder
-stops at ``pallas``, as the port's supervisor's does (``on_card``), and
-no rung below it is a plain PyTorch form. An open breaker there fails
+A ``sharded-integrate`` key's backend (``sharded/<devices>/<local>``)
+walks the elastic half of the ladder first: half the devices down to 2,
+then the solo form of the same kernel. One deliberate departure from the
+JAX package: on the card the exact-physics ladder stops at ``pallas``, as
+the port's supervisor's does (``on_card``), and no rung below it is a
+plain PyTorch form. An open breaker there fails
 admission with the breaker's reason (:class:`BreakerOpen`, a
 ValueError: a 400 at submit, a failed job at a requeue); a kernel's job
 is never rerouted to ``dense`` or ``chunked``. On the CPU the JAX

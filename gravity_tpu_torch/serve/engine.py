@@ -47,6 +47,12 @@ float64 tensor on the device, which ``ops/integrators.py`` rounds to the
 state's dtype where a step uses it, as it rounds a solo run's Python dt:
 served and solo runs keep the same bits.
 
+Job classes other than ``integrate`` bring their own program family
+(``serve/jobs/``): the engine's batch lifecycle and round hand a key of
+such a class to its class (``sharded-integrate``: one system an exclusive
+batch, on a worker group of its own for D >= 2 devices,
+``serve/jobs/sharded.py``), as the JAX engine does.
+
 Threads: a kernel runs on the CUDA device of the tensors it is given,
 and :attr:`EnsembleEngine.guard` (the daemon's round lock) must be held
 by the thread that launches: a launch from any other thread raises
@@ -64,7 +70,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..config import NotPortedError, SimulationConfig
+from ..config import SimulationConfig
 from ..ops import direct_kernel, mxu_kernel, nlist
 from ..ops.forces import accelerations_vs
 from ..ops.integrators import make_step_fn
@@ -96,7 +102,8 @@ class BatchKey(NamedTuple):
     """Everything that must be equal for two jobs to share a batch (one
     build per distinct key, kept for the engine's lifetime). dt, steps,
     model and seed are absent: per slot, or host side. ``job_type``
-    selects the program family (only ``integrate`` is ported);
+    selects the program family (``integrate``, the engine's own, or a
+    class's, ``serve/jobs/``);
     ``extra`` carries a family's additional static parameters."""
 
     bucket_n: int
@@ -328,6 +335,24 @@ class EnsembleEngine:
         # The lock whose holder may launch (the daemon's round lock); None
         # for in-process use from one thread.
         self.guard = None
+        # The worker groups of the sharded-integrate keys, by key.
+        self.sharded_groups: dict = {}
+
+    def close(self) -> None:
+        """End the worker groups of the sharded keys."""
+        groups, self.sharded_groups = self.sharded_groups, {}
+        for group in groups.values():
+            group.close()
+
+    @staticmethod
+    def _job_class(key: BatchKey):
+        """The registered program family of a key's class; None for the
+        engine's own ``integrate`` rounds."""
+        if key.job_type == "integrate":
+            return None
+        from .jobs import get_class
+
+        return get_class(key.job_type)
 
     def _check_thread(self) -> None:
         guard = self.guard
@@ -473,15 +498,10 @@ class EnsembleEngine:
 
     def round_fn(self, key: BatchKey):
         if key not in self._round_fns:
-            if key.job_type != "integrate":
-                from .jobs import get_class
-
-                get_class(key.job_type)  # refuses the unported classes
-                raise NotPortedError(
-                    f"job type {key.job_type!r} has no round program in "
-                    "gravity_tpu_torch (ROADMAP.md Queue 1 item 9)")
+            cls = self._job_class(key)  # refuses the unported classes
             t0 = time.perf_counter()
-            self._round_fns[key] = self._build_round_fn(key)
+            self._round_fns[key] = (self._build_round_fn(key) if cls is None
+                                    else cls.build_round_fn(self, key))
             self._mark_compile(key, time.perf_counter() - t0)
         return self._round_fns[key]
 
@@ -489,6 +509,9 @@ class EnsembleEngine:
 
     def new_batch(self, key: BatchKey) -> EnsembleBatch:
         """All-empty batch: zero-mass states, zero budgets."""
+        cls = self._job_class(key)
+        if cls is not None:
+            return cls.new_batch(self, key)
         from ..simulation import resolve_dtype
 
         dtype = resolve_dtype(key.dtype)
@@ -508,13 +531,17 @@ class EnsembleEngine:
                   job=None) -> EnsembleBatch:
         """Admit a job into ``slot``: pad its state to the bucket and seed
         the carried acceleration (identical at admission and re-admission,
-        so evict/resume round trips keep solo parity)."""
-        del job
+        so evict/resume round trips keep solo parity). ``job`` is read by
+        the other classes' slot loads only."""
         self._check_thread()
+        key = batch.key
+        cls = self._job_class(key)
+        if cls is not None:
+            return cls.load_slot(self, batch, slot, state, dt=dt,
+                                 steps=steps, job=job)
         from ..simulation import resolve_dtype
         from ..utils import faults
 
-        key = batch.key
         faults.check_backend(key.backend, _resolved(key.backend))
         n_real = state.n
         padded, _ = state.astype(resolve_dtype(key.dtype)).to(
@@ -536,6 +563,9 @@ class EnsembleEngine:
     def clear_slot(self, batch: EnsembleBatch, slot: int) -> EnsembleBatch:
         """Free a slot: zero its budget and mass (a zero-mass slot exerts
         no force and a zero budget freezes its lanes)."""
+        cls = self._job_class(batch.key)
+        if cls is not None:
+            return cls.clear_slot(self, batch, slot)
         rem, nr = batch.remaining.copy(), batch.n_real.copy()
         rem[slot], nr[slot] = 0, 0
         m = batch.masses.clone()
@@ -545,12 +575,18 @@ class EnsembleEngine:
     def slot_snapshot(self, batch: EnsembleBatch,
                       slot: int) -> tuple[ParticleState, dict]:
         """(state, extras) of one slot: integrate carries no extras."""
+        cls = self._job_class(batch.key)
+        if cls is not None:
+            return cls.slot_snapshot(self, batch, slot)
         return self.slot_state(batch, slot), {}
 
     def slot_state(self, batch: EnsembleBatch, slot: int,
                    n_real: Optional[int] = None) -> ParticleState:
         """The (unpadded) current state of one slot's job, as fresh
         tensors on the engine's device."""
+        cls = self._job_class(batch.key)
+        if cls is not None:
+            return cls.slot_snapshot(self, batch, slot)[0]
         n = int(batch.n_real[slot]) if n_real is None else n_real
         return ParticleState(
             positions=batch.positions[slot, :n].clone(),
@@ -591,8 +627,11 @@ class EnsembleEngine:
         ``(slots, 14)`` host array, the 13 ``LEDGER_VEC_FIELDS`` and the
         dense dimensionless pair-potential sum, slot by slot (zero-mass
         padding lanes are inert). Convert one row with
-        :meth:`slot_ledger_host`."""
+        :meth:`slot_ledger_host`. None for a class whose batch holds no
+        conserving lanes (``conserves = False``)."""
         self._check_thread()
+        if not getattr(self._job_class(batch.key), "conserves", True):
+            return None
         rows = torch.stack([
             self._ledger_row(batch.key, batch.positions[s],
                              batch.velocities[s], batch.masses[s])
@@ -637,9 +676,12 @@ class EnsembleEngine:
                             k: int = 64) -> np.ndarray:
         """Accuracy-sentinel probe of one occupied slot: the key's solo
         kernel against the exact (rcut-masked) direct sum on ``k`` fixed
-        sampled targets. Returns the (k,) relative errors on the host."""
+        sampled targets. Returns the (k,) relative errors on the host, or
+        None for a class whose batch holds no conserving lanes."""
         self._check_thread()
         key = batch.key
+        if not getattr(self._job_class(key), "conserves", True):
+            return None
         fn = self._probe_fns.get((key, k))
         if fn is None:
             from ..utils.profiling import (
@@ -690,6 +732,9 @@ class EnsembleEngine:
         flagged in ``SliceResult.finite``. One host read: the flags."""
         self._check_thread()
         key = batch.key
+        cls = self._job_class(key)
+        if cls is not None:
+            return cls.run_slice(self, batch, slice_steps)
         first = (key not in self._ledgered and _perf.counting_allowed()
                  and not _perf.counting())
         t0 = time.perf_counter()

@@ -4,10 +4,10 @@ Counterpart of ``gravity_tpu/serve/jobs/registry.py``. A
 :class:`JobClass` packages one served capability: its admission
 contract (``validate``, typed rejections at submit), its budget
 (``budget``), its initial state (``initial_state``) and its result
-schema (``finalize``). The port registers ``integrate`` only; the JAX
-package's other classes are refused at submit with the ROADMAP item
-that ports them (:data:`NOT_PORTED`), so the scheduler's paths for them
-are unreachable.
+schema (``finalize``). The port registers ``integrate`` and
+``sharded-integrate``; the JAX package's other classes are refused at
+submit with the ROADMAP item that ports them (:data:`NOT_PORTED`), so the
+scheduler's paths for them are unreachable.
 """
 
 from __future__ import annotations
@@ -21,7 +21,6 @@ from ...state import ParticleState
 # ROADMAP.md Queue 1 item that ports each.
 NOT_PORTED = {
     "fit": 9, "sweep": 9, "sweep-member": 9, "watch": 9,
-    "sharded-integrate": 5,
 }
 
 

@@ -81,6 +81,7 @@ from ..utils.hostio import atomic_write_json
 from ..utils.logging import ServingEventLogger
 from .breaker import BreakerBoard
 from .engine import BatchKey, EnsembleBatch, EnsembleEngine
+from .jobs.sharded import group_stats
 from .leases import LeaseManager, read_json_retry
 
 # Job lifecycle: pending -> running -> completed | failed | cancelled
@@ -1110,6 +1111,9 @@ class EnsembleScheduler:
             # this process (a daemon's own, read over /metrics).
             "engine": self.engine.stats(),
             "kernel_launches": _kernel_launches(),
+            # The sharded keys' worker groups: devices, build seconds and
+            # rank 0's kernel launches.
+            "sharded_groups": group_stats(self.engine),
             "router": _router_verdicts(),
             "perf_ledger": _perf_rows(),
             "max_queue": self.max_queue,
@@ -1491,6 +1495,8 @@ class EnsembleScheduler:
         if self._io is not None:
             self._io.close(raise_errors=False)
             self._io = None
+        # The sharded keys' worker groups end with the scheduler.
+        self.engine.close()
         if self.leases is not None:
             self.leases.stop_heartbeat()
             self.leases.release_all()
@@ -2040,19 +2046,20 @@ class EnsembleScheduler:
             # same contract as a daemon-restart respool), then re-raise
             # for the caller's backstop.
             breaker = self.breakers.get(key.backend)
-            if self.breakers.on_card:
-                # On the card a round that raises is a kernel's build or
+            if isinstance(exc, BackendUnavailable):
+                # An unbuildable backend, or a sharded key's lost mesh (a
+                # stalled or dead worker group), fails every round it is
+                # asked to run: count it on the backend's breaker so
+                # admission reroutes down the ladder (the elastic half
+                # first) instead of burning a round per retry forever.
+                opened = breaker.record_failure(reason=str(exc))
+            elif self.breakers.on_card:
+                # On the card any other round error is a kernel's build or
                 # launch error (or the card's own): trip the backend's
                 # breaker at once with it as the reason, so that the
                 # residents' requeue below fails them with it instead of
                 # sending a kernel's job to a plain form.
                 opened = breaker.trip(reason=f"{type(exc).__name__}: {exc}")
-            elif isinstance(exc, BackendUnavailable):
-                # A kernel that cannot build fails every round it is
-                # asked to run: count it on the backend's breaker so
-                # admission reroutes down the exact-physics ladder
-                # instead of burning a round per retry forever.
-                opened = breaker.record_failure(reason=str(exc))
             else:
                 opened = False
             if opened:

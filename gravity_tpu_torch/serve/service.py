@@ -100,8 +100,8 @@ def worker_capabilities(*, slots: int) -> dict:
 
     return {
         "devices": int(torch.cuda.device_count()),
-        # The sharded class is not ported (ROADMAP.md Queue 1 item 5).
-        "sharded_capable": False,
+        # The sharded-integrate class: a worker group a key.
+        "sharded_capable": True,
         # Every worker serves the truncated cell-list family.
         "nlist_capable": True,
         "backends": list(ENGINE_BACKENDS),

@@ -26,7 +26,11 @@ list and P3M's near field on a single-axis mesh the halo slab engine
 (``parallel/halo.py``, ``nlist_mesh``), what is global gathered
 (:class:`Simulator`). Multirate and adaptive runs step a rank's rows
 (``ops/multirate.py``'s sharded forms, the adaptive criterion over the
-gathered state).
+gathered state); the FMM splits its cell passes over the world
+(``parallel/sharded_fmm.py``). A mesh run's checkpoint is the solo
+payload: the real bodies of the gathered state, written by rank 0 while
+every rank waits at a barrier, so that ``resume`` reads it onto a world of
+any size, one included.
 
 The run loop's host side is the JAX package's ``_run_impl`` contract: the
 depth-1 block pipeline (``io_pipeline``: block k+1 is queued before block
@@ -54,7 +58,7 @@ import numpy as np
 import torch
 
 from . import autotune, parallel
-from .config import NotPortedError, SimulationConfig
+from .config import SimulationConfig
 from .interop import to_numpy
 from .models import create_model
 from .ops import (
@@ -241,7 +245,13 @@ def _resolve_backend_for_run(config: SimulationConfig, state,
     decision = autotune.resolve_backend_measured(config, state,
                                                  device=device)
     chosen = autotune._candidate_config(config, decision.backend)
-    return _resolve_backend(chosen, device), decision
+    backend = _resolve_backend(chosen, device)
+    if backend == "sfmm" and config.sharding != "none":
+        # Auto on a mesh takes the dense layout's name (the JAX package's
+        # simulation.py:284-291); its fmm_mode="auto" occupancy decision
+        # still routes a clustered state to the chunk-sharded sparse form.
+        backend = "fmm"
+    return backend, decision
 
 
 def _resolve_nlist_config(config: SimulationConfig, positions):
@@ -562,6 +572,7 @@ class _Block:
     finite: Optional[torch.Tensor] = None
     frames: Optional[torch.Tensor] = None
     snapshot: Optional[ParticleState] = None
+    save_due: bool = False
     ledger: Optional[dict] = None
     sentinel: Optional[torch.Tensor] = None
     event: Optional["torch.cuda.Event"] = None
@@ -840,7 +851,8 @@ class Simulator:
         slab engine; P3M's far field by the allgather of its mesh pass (a
         global FFT has no slab locality) plus its erfc near field on the
         halo engine (``kind="ewald"``, alpha and rcut following the global
-        cube); else the sharded direct sum over the backend's rectangular
+        cube); the FMM's sharded forms at the as-run layout and sizing;
+        else the sharded direct sum over the backend's rectangular
         kernel."""
         config = self.config
         common = dict(g=config.g, cutoff=config.cutoff, eps=config.eps)
@@ -868,6 +880,18 @@ class Simulator:
                     config.p3m_rcut_sigmas * sc / (grid - 1)),
                 **common)
             return lambda p, m: far(p, m) + near(p, m)
+        if self.backend in ("fmm", "sfmm"):
+            # The replicated build with the cell passes split over the
+            # world (parallel/sharded_fmm.py).
+            fmm_kw = dict(ws=config.tree_ws, **common)
+            if self.fmm_sparse:
+                depth, cap, k_eff, k_chunk = self.sfmm_sizing
+                return parallel.make_sharded_sfmm_accel(
+                    self.mesh, depth=depth, leaf_cap=cap, k_cells=k_eff,
+                    k_chunk=k_chunk, **fmm_kw)
+            return parallel.make_sharded_fmm_accel(
+                self.mesh, depth=self.fmm_depth,
+                leaf_cap=config.tree_leaf_cap, **fmm_kw)
         local = make_local_kernel(config, self.backend,
                                   positions=state.positions)
         if self.backend == "p3m":
@@ -886,8 +910,8 @@ class Simulator:
     def _resolve_fmm(self, positions) -> None:
         """The FMM's layout and sizing: sparse for ``sfmm`` or
         ``fmm_mode="sparse"``; with ``auto`` the occupancy decision
-        (``sfmm.sfmm_auto_decision``), whose sizing the build reuses when
-        no depth is forced."""
+        (``sfmm.sfmm_auto_decision``, on a mesh of the gathered state),
+        whose sizing the build reuses when no depth is forced."""
         config = self.config
         sizing = None
         sparse = self.backend == "sfmm" or config.fmm_mode == "sparse"
@@ -904,10 +928,16 @@ class Simulator:
         else:
             depth, cap, k_cells = sfmm.resolve_sfmm_sizing(
                 positions, config.tree_depth, config.tree_leaf_cap)
-        # The EFFECTIVE (chunk-rounded) k the solver runs with: what the
-        # audits replay.
-        self.sfmm_sizing = (depth, cap, sfmm.effective_k_cells(k_cells),
-                            sfmm.DEFAULT_K_CHUNK)
+        # The EFFECTIVE k and chunk width the solver runs with, what the
+        # audits replay: on a mesh the chunk count divides the world
+        # (sfmm.sharded_k_sizing), off it k is rounded to whole chunks.
+        if self.mesh is not None:
+            k_eff, k_chunk, _ = sfmm.sharded_k_sizing(k_cells,
+                                                      self.mesh.size)
+        else:
+            k_eff = sfmm.effective_k_cells(k_cells)
+            k_chunk = sfmm.DEFAULT_K_CHUNK
+        self.sfmm_sizing = (depth, cap, k_eff, k_chunk)
 
     def _fmm_stats(self) -> dict:
         if self.fmm_sparse:
@@ -1328,7 +1358,8 @@ class Simulator:
                     stacked.transpose(0, 1)).transpose(0, 1)[:, :self.n_real]
             blk.frames = _to_host(stacked)
         if save_due:
-            blk.snapshot = _host_state(state)
+            blk.save_due = True
+            blk.snapshot = self._checkpoint_state(state, queued=True)
         whole = (self.global_state(state) if ledger_due or sentinel_due
                  else None)
         if ledger_due:
@@ -1366,13 +1397,53 @@ class Simulator:
                 metrics_logger=metrics_logger, start_step=start_step,
             )
 
-    def _refuse_mesh_checkpoints(self, checkpoint_manager) -> None:
-        if (checkpoint_manager is not None and self.mesh is not None
-                and self.mesh.size > 1):
-            raise NotPortedError(
-                "checkpoints of a run on more than one device are not "
-                "ported to gravity_tpu_torch yet (ROADMAP.md Queue 1 item 5, "
-                "checkpoint re-layout and the supervisor's rungs)")
+    def _checkpoint_state(self, state: ParticleState, *,
+                          queued: bool = False) -> Optional[ParticleState]:
+        """The payload of a checkpoint of ``state``: the real bodies of the
+        global state, the payload a solo run writes. On a mesh it is
+        gathered from every rank (a collective) and kept by rank 0 alone
+        (None elsewhere). ``queued``: a host copy queued behind the block
+        (written once the block's event has passed) where the write itself
+        may go to the host writer, a solo run or a world of one; else the
+        state on its device, which the write copies."""
+        if self.mesh is not None:
+            whole = self.global_state(state)
+            if self.mesh.rank != 0:
+                return None
+            state = ParticleState(*(t[:self.n_real] for t in (
+                whole.positions, whole.velocities, whole.masses)))
+        if queued and (self.mesh is None or self.mesh.size == 1):
+            return _host_state(state)
+        return state
+
+    def _save_checkpoint(self, manager, step: int,
+                         snapshot: Optional[ParticleState],
+                         extra: Optional[dict] = None, *,
+                         submit=None) -> None:
+        """Write a :meth:`_checkpoint_state` snapshot at ``step``. A solo
+        run or a world of one writes through ``submit`` (the host writer)
+        when given. On a world of more than one rank 0 writes in place and
+        every rank then waits at a barrier that also carries the write's
+        outcome (one ``all_reduce``), so that no rank goes on before the
+        snapshot is whole and a failed write fails every rank."""
+        world = self.mesh.size if self.mesh is not None else 1
+        if world == 1 and submit is not None:
+            submit(step, snapshot, extra)
+            return
+        ok, err = True, None
+        if snapshot is not None:
+            try:
+                save_checkpoint(manager, step, snapshot, extra=extra)
+            except Exception as e:  # noqa: BLE001 — every rank learns of it
+                ok, err = False, e
+        if world > 1:
+            ok = bool(parallel.mesh.all_ranks_true(
+                torch.tensor(ok, device=self.device)))
+        if err is not None:
+            raise err
+        if not ok:
+            raise RuntimeError(
+                f"checkpoint at step {step} failed on rank 0 of the world")
 
     def _run_impl(self, logger, *, steps, trajectory_writer,
                   checkpoint_manager, metrics_logger, start_step) -> dict:
@@ -1393,7 +1464,6 @@ class Simulator:
         # mesh, rank 0's writer: every rank gathers them).
         record = trajectory_writer is not None
         if self.mesh is not None:
-            self._refuse_mesh_checkpoints(checkpoint_manager)
             record = not bool(parallel.mesh.all_ranks_true(
                 torch.tensor(not record, device=self.device)))
         every = max(1, config.trajectory_every) if record else 1
@@ -1506,8 +1576,9 @@ class Simulator:
                         try:
                             if host_writer is not None:
                                 host_writer.barrier()
-                            save_checkpoint(checkpoint_manager, prev_step,
-                                            last_good)
+                            self._save_checkpoint(
+                                checkpoint_manager, prev_step,
+                                self._checkpoint_state(last_good))
                         except Exception as ce:  # noqa: BLE001
                             if logger is not None:
                                 logger.log_print(
@@ -1607,8 +1678,9 @@ class Simulator:
                     record_frames(trajectory_writer,
                                   range(prev_step + every, blk.end_step + 1,
                                         every), host)
-                if blk.snapshot is not None:
-                    save_cadence(end_step, blk.snapshot)
+                if blk.save_due:
+                    self._save_checkpoint(checkpoint_manager, end_step,
+                                          blk.snapshot, submit=save_cadence)
                 if (sent_summary is not None and config.error_budget > 0.0
                         and sent_summary["p90_rel_err"] > config.error_budget):
                     # Raised after this block's trajectory and checkpoint
@@ -1638,8 +1710,9 @@ class Simulator:
                 try:
                     if host_writer is not None:
                         host_writer.barrier()
-                    save_checkpoint(checkpoint_manager, self._last_step,
-                                    self.state)
+                    self._save_checkpoint(
+                        checkpoint_manager, self._last_step,
+                        self._checkpoint_state(self.state))
                 except Exception as ce:  # noqa: BLE001 — must not mask
                     if logger is not None:  # the interrupt itself
                         logger.log_print(
@@ -1817,7 +1890,6 @@ class Simulator:
                 "scheme on a mesh (multirate_rungs=2); the sharded rung "
                 "ladder stays fixed-dt for now"
             )
-        self._refuse_mesh_checkpoints(checkpoint_manager)
         # Adaptive x multirate: the criterion sizes the outer dt from the
         # slow remainder (the k fastest excluded), the rungs subdivide it.
         step_fn = None
@@ -1912,8 +1984,9 @@ class Simulator:
                         try:
                             if host_writer is not None:
                                 host_writer.barrier()
-                            save_checkpoint(
-                                checkpoint_manager, snap[1], snap[0],
+                            self._save_checkpoint(
+                                checkpoint_manager, snap[1],
+                                self._checkpoint_state(snap[0]),
                                 extra={"t": snap[2], "comp": snap[3]})
                         except Exception as ce:  # noqa: BLE001
                             if logger is not None:
@@ -1958,8 +2031,10 @@ class Simulator:
                     trajectory_writer.record(steps_taken, to_numpy(frame))
                 if checkpoint_manager is not None and crossed_cadence(
                         prev_steps, steps_taken, config.checkpoint_every):
-                    submit_save(steps_taken, _host_state(state),
-                                {"t": t, "comp": comp})
+                    self._save_checkpoint(
+                        checkpoint_manager, steps_taken,
+                        self._checkpoint_state(state, queued=True),
+                        {"t": t, "comp": comp}, submit=submit_save)
                 if block_steps == 0:
                     break  # t >= t_end in the state's dtype
             if host_writer is not None:
@@ -1972,8 +2047,10 @@ class Simulator:
                 try:
                     if host_writer is not None:
                         host_writer.barrier()
-                    save_checkpoint(checkpoint_manager, snap[1], snap[0],
-                                    extra={"t": snap[2], "comp": snap[3]})
+                    self._save_checkpoint(
+                        checkpoint_manager, snap[1],
+                        self._checkpoint_state(snap[0]),
+                        extra={"t": snap[2], "comp": snap[3]})
                 except Exception as ce:  # noqa: BLE001 — must not mask
                     if logger is not None:  # the interrupt itself
                         logger.log_print(

@@ -24,6 +24,18 @@ Counterpart of ``gravity_tpu/supervisor.py``:
   the event and re-raises, so that the CLI exits with
   :data:`EXIT_PREEMPTED`.
 
+On a world of more than one rank (a sharded run) every rank runs the same
+ladder: the watchdog's verdict is an ``all_reduce`` and the fault plan is
+every rank's, so all take the same verdict and a rung change rebuilds
+every rank's Simulator; rank 0 alone writes the supervisor's checkpoints
+(the gathered solo payload) and records, and every rank waits for a write
+at a barrier.
+
+Sharded backend names (``sharded/<devices>/<local>``, the serving layer's
+``sharded-integrate`` keys) walk the elastic half of the ladder first:
+half the devices down to 2, then the solo form of the same local kernel,
+then the exact-physics rungs (:func:`next_rung`).
+
 Only the fault plan (``utils/faults.py``) raises ``TransientFault`` and
 ``BackendUnavailable``. A kernel that fails to build or launch raises its
 own error, which no rung catches: it propagates and the run fails, so
@@ -38,7 +50,7 @@ import dataclasses
 import time
 from typing import Optional
 
-from .config import NotPortedError, SimulationConfig
+from .config import SimulationConfig
 from .simulation import (
     JAX_NAMES,
     AccuracyBreach,
@@ -74,29 +86,41 @@ BACKEND_LADDER = ("pallas-mxu", "pallas", "chunked")
 # tensors only.
 PLAIN_BACKENDS = ("dense", "chunked")
 
-_NOT_PORTED_SHARDED = (
-    "sharded backends (sharded/<devices>/<local>) are not ported to "
-    "gravity_tpu_torch yet (ROADMAP.md Queue 1 item 5, multi-GPU)"
-)
-
-
 def parse_sharded_backend(backend: str):
-    """The JAX package's ``sharded/<devices>/<local>`` form: refused, its
-    mesh is ROADMAP.md Queue 1 item 5."""
-    raise NotPortedError(f"{backend!r}: {_NOT_PORTED_SHARDED}")
+    """``sharded/<devices>/<local>`` -> (devices, local); (None, None) for
+    anything that does not parse (callers treat it as off the ladder). The
+    JAX package's parse."""
+    parts = backend.split("/", 2)
+    if len(parts) != 3 or parts[0] != "sharded":
+        return None, None
+    try:
+        devices = int(parts[1])
+    except ValueError:
+        return None, None
+    if devices < 1 or not parts[2]:
+        return None, None
+    return devices, parts[2]
 
 
 def next_rung(backend: str, ladder: tuple = BACKEND_LADDER, *,
               on_card: bool = False) -> Optional[str]:
-    """The next rung down the exact-physics ladder, or None at (or off)
-    its bottom. The port's resolved kernel names map to the JAX names
-    (``nbody_mxu`` -> ``pallas-mxu``, ``nbody_direct`` -> ``pallas``); the
-    cell list's rung is the masked direct sum (``chunked``), its exact
-    reference. ``on_card``: the plain rungs are off the ladder, so that no
-    recovery runs card tensors through plain PyTorch in place of a
-    kernel."""
+    """The next rung down the degrade ladder, or None at (or off) its
+    bottom. A sharded form walks the elastic half first (the JAX
+    package's): half the devices down to 2, then the solo form of the same
+    local kernel, so that mesh loss degrades capacity before it degrades
+    the kernel. Then the exact-physics ladder: the port's resolved kernel
+    names map to the JAX names (``nbody_mxu`` -> ``pallas-mxu``,
+    ``nbody_direct`` -> ``pallas``); the cell list's rung is the masked
+    direct sum (``chunked``), its exact reference. ``on_card``: the plain
+    rungs are off the exact-physics ladder, so that no recovery runs card
+    tensors through plain PyTorch in place of a kernel."""
     if backend.startswith("sharded/"):
-        parse_sharded_backend(backend)
+        devices, local = parse_sharded_backend(backend)
+        if devices is None:
+            return None
+        if devices // 2 >= 2:
+            return f"sharded/{devices // 2}/{local}"
+        return local  # the solo form of the same local kernel
     backend = JAX_NAMES.get(backend, backend)
     if backend == "nlist":
         nxt = "chunked"
@@ -187,6 +211,20 @@ class RunSupervisor:
         # The Simulator of the completed final leg (``--debug-check``
         # audits it).
         self.last_sim: Optional[Simulator] = None
+
+    def _save(self, step: int, state, extra: Optional[dict] = None) -> None:
+        """The supervisor's own snapshot of a (global, unpadded) state:
+        rank 0 writes, and on a world of more than one every rank waits at
+        a barrier before any goes on."""
+        rank, world = _rank_and_world()
+        try:
+            if rank == 0:
+                save_checkpoint(self.mgr, step, state, extra=extra)
+        finally:
+            if world > 1:
+                import torch.distributed as dist
+
+                dist.barrier()
 
     def _event(self, kind: str, /, **fields) -> None:
         if self.events is not None:
@@ -345,7 +383,7 @@ class RunSupervisor:
                 state = seg["final_state"]
                 step += span
                 halvings = 0
-                save_checkpoint(self.mgr, step, state)
+                self._save(step, state)
                 continue
             except SimulationPreempted:
                 # Preempted in the supervisor's own bookkeeping: save the
@@ -353,7 +391,7 @@ class RunSupervisor:
                 # no-op).
                 if state is not None and step > self._start_step:
                     try:
-                        save_checkpoint(self.mgr, step, state)
+                        self._save(step, state)
                     except Exception:  # noqa: BLE001 — must not mask
                         pass  # the preemption
                 self._event("preempted",
@@ -428,9 +466,9 @@ class RunSupervisor:
                 snap = getattr(sim, "_snap", None)
                 if snap is not None and snap[1] > self._start_step:
                     try:
-                        save_checkpoint(self.mgr, snap[1], snap[0],
-                                        extra={"t": snap[2],
-                                               "comp": snap[3]})
+                        # A mesh run's snapshot holds a rank's rows.
+                        self._save(snap[1], sim._checkpoint_state(snap[0]),
+                                   extra={"t": snap[2], "comp": snap[3]})
                     except Exception:  # noqa: BLE001 — must not mask
                         pass  # the preemption
                 self._event("preempted",
@@ -470,6 +508,16 @@ class RunSupervisor:
             return (self._state, self._start_step, self._start_t,
                     self._start_comp)
         return state, step, extra.get("t", 0.0), extra.get("comp", 0.0)
+
+
+def _rank_and_world() -> tuple:
+    """(rank, world size) of this process's torch.distributed world, (0,
+    1) without one."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
 
 
 def supervise(config: SimulationConfig, **kwargs) -> dict:

@@ -47,9 +47,16 @@ the JAX package:
     torn_progress_write@K the K-th progress snapshot lands truncated
     disk_full@K           the K-th durable spool write raises ENOSPC
 
-The mesh items (``mesh_fail``, ``collective_stall``) parse, then raise
-:class:`~gravity_tpu_torch.config.NotPortedError`: they fire on a device
-mesh (ROADMAP.md Queue 1 item 5).
+and the sharded job class's (``serve/jobs/sharded.py``):
+
+    mesh_fail@K           fail the (K+1)-th build of a sharded key's worker
+                          group with BackendUnavailable (``xCOUNT`` fails
+                          COUNT consecutive builds): the elastic ladder
+                          re-keys to fewer devices
+    collective_stall@RxS  at the sharded slice R (the batch's
+                          ``slices_run``) hold the group's collective S
+                          seconds, past its watchdog: the group is torn
+                          down and the round fails with BackendUnavailable
 
 Example: ``GRAVITY_TPU_FAULTS="transient@10x2,diverge@20"``.
 """
@@ -61,18 +68,14 @@ import os
 import signal
 from typing import Optional
 
-from ..config import NotPortedError
-
 ENV_KNOB = "GRAVITY_TPU_FAULTS"
 
 RUN_KINDS = ("diverge", "transient", "preempt", "accuracy_breach")
 SERVING_KINDS = (
     "crash_worker", "stall_worker", "stale_lease", "torn_spool_write",
-    "drop_result_write", "torn_progress_write", "disk_full",
+    "drop_result_write", "torn_progress_write", "disk_full", "mesh_fail",
+    "collective_stall",
 )
-# The JAX package's mesh items, with the ROADMAP item that ports their
-# code points.
-UNPORTED_KINDS = {"mesh_fail": 5, "collective_stall": 5}
 
 
 class TransientFault(RuntimeError):
@@ -113,6 +116,7 @@ class FaultPlan:
         self._result_writes = 0
         self._progress_writes = 0
         self._durable_writes = 0
+        self._mesh_builds = 0
 
     @staticmethod
     def parse(spec: str) -> "FaultPlan":
@@ -138,12 +142,6 @@ class FaultPlan:
                 arg, cnt = arg.split("x", 1)
                 count = int(cnt)
             step = int(arg)
-            if kind in UNPORTED_KINDS:
-                raise NotPortedError(
-                    f"fault {item!r} fires in the JAX package's device "
-                    "mesh, which is not ported to gravity_tpu_torch yet "
-                    f"(ROADMAP.md Queue 1 item {UNPORTED_KINDS[kind]})"
-                )
             if kind not in RUN_KINDS + SERVING_KINDS:
                 raise ValueError(f"unknown fault kind {kind!r}")
             faults.append(_Fault(kind=kind, step=step, count=count,
@@ -319,6 +317,28 @@ def _ordinal_due(kind: str, counter: str) -> bool:
     seq = getattr(plan, counter)
     setattr(plan, counter, seq + 1)
     return plan._take(kind, lambda f: seq >= f.step) is not None
+
+
+def mesh_fail_due() -> bool:
+    """One injected failure of a sharded group's build due? Counted a
+    build attempt (``serve/jobs/sharded.py`` raises BackendUnavailable on
+    True, so the elastic ladder walks through its real path)."""
+    plan = active()
+    if plan is None:
+        return False
+    seq = plan._mesh_builds
+    plan._mesh_builds += 1
+    return plan._take("mesh_fail", lambda f: seq >= f.step) is not None
+
+
+def collective_stall_secs(round_no: int) -> float:
+    """Seconds a due ``collective_stall`` holds the sharded slice
+    ``round_no`` (0 = not due); fires once."""
+    plan = active()
+    if plan is None:
+        return 0.0
+    return float(_take_once_with_payload(
+        plan, "collective_stall", lambda f: round_no >= f.step))
 
 
 def torn_write_due() -> bool:

@@ -13,7 +13,7 @@ import torch
 
 from gravity_tpu.utils.faults import FaultPlan as JaxFaultPlan
 from gravity_tpu_torch.cli import main
-from gravity_tpu_torch.config import NotPortedError, SimulationConfig
+from gravity_tpu_torch.config import SimulationConfig
 from gravity_tpu_torch.simulation import SimulationDiverged, Simulator
 from gravity_tpu_torch.utils import faults as fmod
 from gravity_tpu_torch.utils.checkpoint import (
@@ -68,20 +68,20 @@ def test_parse_rejects_garbage():
     ("crash_worker@3", None), ("stall_worker@2x5", None),
     ("stale_lease@1", None), ("torn_spool_write@0", None),
     ("drop_result_write@0", None), ("torn_progress_write@1", None),
-    ("disk_full@0", None), ("mesh_fail@0x2", "item 5"),
-    ("collective_stall@1x3", "item 5"),
+    ("disk_full@0", None), ("mesh_fail@0x2", None),
+    ("collective_stall@1x3", None),
 ])
 def test_serving_and_mesh_items_are_refused(item, roadmap):
-    """They parse in the JAX package. The serving items (``roadmap``
-    None) parse in the port too, now that the serving stack is ported
-    (tests/test_torch_serve_host.py fires them); the mesh items are
-    refused with the ROADMAP item that ports their code points."""
-    JaxFaultPlan.parse(item)
-    if roadmap is None:
-        FaultPlan.parse(item)
-        return
-    with pytest.raises(NotPortedError, match=roadmap):
-        FaultPlan.parse(item)
+    """They parse in the JAX package and in the port alike, the serving
+    items (tests/test_torch_serve_host.py fires them) and the mesh items
+    (tests/test_torch_serve_sharded.py fires them): none is refused
+    (``roadmap`` None for each), and each parses to the JAX package's
+    kind, step and count."""
+    assert roadmap is None
+    theirs = JaxFaultPlan.parse(item)._faults
+    ours = FaultPlan.parse(item)._faults
+    assert [(f.kind, f.step, f.count) for f in ours] == \
+        [(f.kind, f.step, f.count) for f in theirs]
 
 
 @pytest.mark.parametrize("mode", ["off", "on"])

@@ -31,7 +31,7 @@ from gravity_tpu.state import ParticleState as JaxState
 from gravity_tpu_torch import simulation
 from gravity_tpu_torch.autotune import eligible_candidates, make_key
 from gravity_tpu_torch.cli import main
-from gravity_tpu_torch.config import PRESETS, NotPortedError, SimulationConfig
+from gravity_tpu_torch.config import PRESETS, SimulationConfig
 from gravity_tpu_torch.interop import state_from_numpy, state_to_numpy
 from gravity_tpu_torch.ops import diagnostics
 from gravity_tpu_torch.simulation import Simulator, make_local_kernel
@@ -255,16 +255,17 @@ def test_preset_and_cli_flags(tmp_path, capsys):
 
 
 def test_bf16_and_sharded_fmm_are_refused():
-    """bf16 states through the FMM are ported now (such a config loads;
-    tests/test_torch_p3m_kick_fmm_bf16.py holds them to the JAX package);
-    the sharded FMM forms are still refused, naming item 5."""
+    """bf16 states through the FMM are ported (such a config loads;
+    tests/test_torch_p3m_kick_fmm_bf16.py holds them to the JAX package),
+    and so are the sharded FMM forms: the JAX package's mesh config of
+    either loads with its sharding (tests/test_torch_sharded_fmm.py)."""
     for backend in ("fmm", "sfmm"):
         cfg = SimulationConfig(force_backend=backend, dtype="bfloat16")
         assert (cfg.force_backend, cfg.dtype) == (backend, "bfloat16")
         data = json.loads(JaxConfig(force_backend=backend,
                                     sharding="allgather").to_json())
-        with pytest.raises(NotPortedError, match="Queue 1 item 5"):
-            SimulationConfig.from_json(json.dumps(data))
+        cfg = SimulationConfig.from_json(json.dumps(data))
+        assert (cfg.force_backend, cfg.sharding) == (backend, "allgather")
     with pytest.raises(ValueError, match="fmm_mode"):
         SimulationConfig(fmm_mode="tiles")
     cfg = SimulationConfig.from_json(JaxConfig(

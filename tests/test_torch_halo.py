@@ -14,6 +14,10 @@ engines of ops/nlist.py) against the JAX package, on the CPU.
   N; an 8-step hot-cloud Simulator run on 4 ranks against JAX's solo run;
   P3M with the halo near field on 4 ranks against JAX's unsharded P3M; the
   mesh contest of ``auto`` on 4 ranks.
+- The witness of P3M's halo near field where cells pass their caps: a
+  clustered disk on 2 and 4 ranks in fp64, the halo engine's ewald near
+  field against the solo near field at the halo's side and the sharded
+  mesh pass against the solo mesh pass, each apart.
 
 JAX's own halo (a shard_map over a virtual mesh) is not run: one compile
 takes over a minute on a CPU, and the JAX suite marks its halo tests
@@ -31,7 +35,9 @@ Bars:
   contract for its halo form (``tests/test_nlist_halo.py:62-81``), runs
   within 1e-5 of |row|; P3M in fp64 1e-12 (``test_torch_p3m.py``'s bar
   for the unsharded solver; the halo form adds no arithmetic but alpha
-  and rcut rounded from the global cube).
+  and rcut rounded from the global cube); the split witness: the near
+  field within 1e-12 of each row's sum gm (|newt| + |corr|) |d| over the
+  pairs within rcut (rounding), the mesh pass the solo one's bits.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ from gravity_tpu.parallel import halo as jax_halo
 from gravity_tpu.state import ParticleState as JaxState
 from gravity_tpu_torch import autotune, parallel, simulation
 from gravity_tpu_torch.config import SimulationConfig
-from gravity_tpu_torch.ops import nlist
+from gravity_tpu_torch.ops import nlist, p3m, pm
 from gravity_tpu_torch.state import ParticleState
 
 
@@ -265,6 +271,11 @@ ODD_RUN = dict(n=203, seed=9, rcut=30.0, steps=4, dt=1e-3)
 P3M_CASE = dict(n=1001, seed=10, pm_grid=24, p3m_cap=64, g=6.674e-11,
                 eps=1e9, dtype="float64")
 CONTEST_MIN_N = 64
+# The split witness: six clumps in a thin disk, fp64, binning side 9 at
+# pm_grid 48 (8 on the halo's 2 and 4 ranks), cap 8: a clump's cells hold
+# up to ~260 bodies, so targets and sources pass the cap.
+SPLIT = dict(n=2048, seed=21, pm_grid=48, cap=8, g=6.674e-11, eps=1e9,
+             sigma_cells=1.25, rcut_sigmas=4.0)
 
 
 def _sizing(pos, rcut, devices, box, cap):
@@ -338,6 +349,48 @@ def _port_p3m(mesh) -> dict:
             "mode": np.array(sim.p3m_sizing[3])}
 
 
+def _clumps():
+    rng = np.random.default_rng(SPLIT["seed"])
+    n = SPLIT["n"]
+    centres = rng.uniform(-2e11, 2e11, (6, 3))
+    centres[:, 2] *= 0.1
+    pos = (centres[rng.integers(0, 6, n)]
+           + rng.normal(0.0, 2e10, (n, 3)) * np.array([1.0, 1.0, 0.1]))
+    return pos, rng.uniform(1e23, 1e25, n)
+
+
+def _split_side(devices: int) -> int:
+    side = p3m.binning_side(SPLIT["pm_grid"], SPLIT["sigma_cells"],
+                            SPLIT["rcut_sigmas"])
+    return (side // devices) * devices
+
+
+def _p3m_split(mesh) -> dict:
+    """The halo engine's ewald near field and the allgather mesh pass of
+    the Simulator's sharded P3M (``_mesh_accel``), each alone."""
+    pos, m = _clumps()
+    n, grid, sc = SPLIT["n"], SPLIT["pm_grid"], SPLIT["sigma_cells"]
+    mine = parallel.shard_state(ParticleState(
+        torch.from_numpy(pos), torch.zeros(n, 3, dtype=torch.float64),
+        torch.from_numpy(m)), mesh)
+    near = parallel.make_halo_nlist_accel(
+        mesh, side=_split_side(mesh.size), cap=SPLIT["cap"], kind="ewald",
+        g=SPLIT["g"], eps=SPLIT["eps"], cutoff=0.0,
+        ewald_scales=((grid - 1) / (math.sqrt(2.0) * sc),
+                      SPLIT["rcut_sigmas"] * sc / (grid - 1)))
+
+    def far_local(targets, sources, m_src):
+        origin, span = pm.bounding_cube(sources)
+        return p3m._mesh_accelerations(targets, sources, m_src, origin,
+                                       span, grid=grid, g=SPLIT["g"],
+                                       sigma_cells=sc)
+
+    far = parallel.make_sharded_accel2(mesh, strategy="allgather",
+                                       local_kernel=far_local)
+    return {"split/near": near(mine.positions, mine.masses).numpy(),
+            "split/far": far(mine.positions, mine.masses).numpy()}
+
+
 def _contest(out_dir: str) -> dict:
     """auto on the hot cloud with the cell list's rcut, twice: a probe
     (rank 0 writes the cache), then a hit, each rank's verdict."""
@@ -374,6 +427,8 @@ def _rank_main(rank: int, world: int, out_dir: str) -> None:
         mine = parallel.shard_state(ParticleState(
             torch.from_numpy(SEAM), torch.zeros(4, 3), torch.ones(4)), mesh)
         out["seam"] = fn(mine.positions, mine.masses).numpy()
+    if world in (2, 4):
+        out.update(_p3m_split(mesh))
     if world == 4:
         for k, v in _port_run(HOT, sharding="allgather",
                               mesh_shape=(4,)).items():
@@ -532,6 +587,59 @@ def test_p3m_halo_near_field_matches_jax_unsharded(ranks, x64):
     assert results[0]["p3m/sizing"].tolist() == [4, 64, 64]
     got = _stacked(results, "p3m/acc", P3M_CASE["n"])
     assert _mrel(got, want) <= P3M_TOL
+
+
+def _solo_split(side: int):
+    """The solo P3M's near field at ``side`` (its mesh pass taken out) and
+    its mesh pass, on the clumps, with each row's scale of rounding: the
+    sum over the pairs within rcut of gm (|newt| + |corr|) |d|."""
+    pos, m = _clumps()
+    tp, tm = torch.from_numpy(pos), torch.from_numpy(m)
+    kw = dict(grid=SPLIT["pm_grid"], sigma_cells=SPLIT["sigma_cells"],
+              rcut_sigmas=SPLIT["rcut_sigmas"], g=SPLIT["g"],
+              eps=SPLIT["eps"], cutoff=0.0)
+    mesh_pass = p3m._mesh_accelerations
+    origin, span = pm.bounding_cube(tp)
+    far = mesh_pass(tp, tp, tm, origin, span, grid=kw["grid"], g=kw["g"],
+                    sigma_cells=kw["sigma_cells"])
+    try:
+        p3m._mesh_accelerations = lambda targets, *a, **k: \
+            torch.zeros_like(targets)
+        near = p3m.p3m_accelerations(tp, tm, cap=SPLIT["cap"], side=side,
+                                     short_mode="nlist", **kw)
+    finally:
+        p3m._mesh_accelerations = mesh_pass
+    sigma = SPLIT["sigma_cells"] * span / (SPLIT["pm_grid"] - 1)
+    params = torch.stack([(SPLIT["rcut_sigmas"] * sigma) ** 2,
+                          1.0 / (math.sqrt(2.0) * sigma)])
+    d = tp[None, :, :] - tp[:, None, :]
+    w = nlist._ewald_w((d * d).sum(-1), SPLIT["g"] * tm[None, :], params,
+                       cutoff=0.0, eps=SPLIT["eps"], absolute=True)
+    scale = (w * d.norm(dim=-1)).sum(dim=1)
+    return near.numpy(), far.numpy(), scale.numpy()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_p3m_halo_near_field_split_witness_where_cells_overflow(ranks,
+                                                                world):
+    """Part of P3M's halo run apart from the other: the near field to the
+    solo near field at the halo's side within rounding, with targets and
+    sources past the cap; the mesh pass the solo mesh pass's bits."""
+    side = _split_side(world)
+    pos, _ = _clumps()
+    tp = torch.from_numpy(pos)
+    origin, span = pm.bounding_cube(tp)
+    coords = nlist.grid_coords(tp, origin, span, side)
+    ids = (coords[:, 0] * side + coords[:, 1]) * side + coords[:, 2]
+    counts = np.bincount(ids.numpy(), minlength=side**3)
+    assert (counts > SPLIT["cap"]).sum() >= 10 and counts.max() > 8 * SPLIT[
+        "cap"]
+    results = ranks(world)
+    near, far, scale = _solo_split(side)
+    got_near = _stacked(results, "split/near", SPLIT["n"])
+    got_far = _stacked(results, "split/far", SPLIT["n"])
+    assert np.all(np.abs(got_near - near).max(axis=1) <= F64_TERMS * scale)
+    np.testing.assert_array_equal(got_far, far)
 
 
 def test_mesh_contest_gives_every_rank_one_winner(ranks):

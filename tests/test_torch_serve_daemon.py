@@ -103,9 +103,12 @@ def test_cli_refuses_unported_job_types(daemon, capsys):
     rc, _, err = _cli(capsys, *_submit_argv(daemon.spool_dir, **CFG),
                       "--job-type", "fit")
     assert rc == 2 and "item 9" in err
-    rc, _, err = _cli(capsys, *_submit_argv(daemon.spool_dir, **CFG),
-                      "--job-type", "sharded-integrate")
-    assert rc == 2 and "item 5" in err
+    # sharded-integrate is served now: on the CPU a group of one, the
+    # solo form, which completes.
+    rc, out, _ = _cli(capsys, *_submit_argv(daemon.spool_dir, **CFG),
+                      "--job-type", "sharded-integrate", "--devices", "1",
+                      "--wait", "--timeout", "120")
+    assert rc == 0 and json.loads(out)["status"] == "completed"
     # Submitted over the API, the class is a 400 with its ROADMAP item.
     resp = request(daemon.spool_dir, "POST", "/submit", {
         "config": json.loads(SimulationConfig(**CFG).to_json()),

@@ -21,7 +21,7 @@ from gravity_tpu.telemetry import metrics as jax_metrics
 from gravity_tpu.telemetry import tracing as jax_tracing
 from gravity_tpu.utils import faults as jax_faults
 from gravity_tpu.utils import hostio as jax_hostio
-from gravity_tpu_torch.config import NotPortedError, SimulationConfig
+from gravity_tpu_torch.config import SimulationConfig
 from gravity_tpu_torch.serve import EnsembleScheduler, Spool
 from gravity_tpu_torch.serve import breaker as port_breaker
 from gravity_tpu_torch.serve import leases as port_leases
@@ -113,11 +113,21 @@ def test_torn_and_dropped_spool_writes(both_faults, tmp_path):
     assert snap["step"] == 10 and snap["extras"] == {"k": 1}
 
 
-def test_mesh_faults_stay_refused():
+def test_mesh_faults_stay_refused(both_faults):
+    """The mesh faults are ported: each parses and fires in the port as in
+    the JAX package (mesh_fail a group build, collective_stall a sharded
+    slice; tests/test_torch_serve_sharded.py walks them end to end)."""
     for item in ("mesh_fail@0x2", "collective_stall@1x3"):
-        jax_faults.FaultPlan.parse(item)
-        with pytest.raises(NotPortedError, match="item 5"):
-            port_faults.FaultPlan.parse(item)
+        both_faults(item)
+        if item.startswith("mesh_fail"):
+            fired = [(port_faults.mesh_fail_due(), jax_faults.mesh_fail_due())
+                     for _ in range(3)]
+            assert fired == [(True, True), (True, True), (False, False)]
+        else:
+            fired = [(port_faults.collective_stall_secs(r),
+                      jax_faults.collective_stall_secs(r))
+                     for r in range(3)]
+            assert fired == [(0.0, 0.0), (3.0, 3.0), (0.0, 0.0)]
 
 
 def test_stall_and_stale_lease_fire_in_a_round(both_faults, tmp_path):

@@ -212,10 +212,14 @@ def test_perf_ledger_row_at_first_round():
 def test_unported_job_classes_refused():
     with _sched(slots=1, slice_steps=10) as sched:
         for job_type, item in (("fit", "item 9"), ("sweep", "item 9"),
-                               ("watch", "item 9"),
-                               ("sharded-integrate", "item 5")):
+                               ("watch", "item 9")):
             with pytest.raises(NotPortedError, match=item):
                 sched.submit(_cfg(8), job_type=job_type)
+        # Item 5's class is served: admitted as an exclusive key.
+        jid = sched.submit(_cfg(8), job_type="sharded-integrate")
+        key = sched.jobs[jid].key_cache
+        assert (key.job_type, key.slots, key.backend) == \
+            ("sharded-integrate", 1, "dense")
         with pytest.raises(ValueError, match="unknown job type"):
             sched.submit(_cfg(8), job_type="bogus")
 

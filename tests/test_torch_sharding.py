@@ -60,7 +60,7 @@ from gravity_tpu.parallel import (
 )
 from gravity_tpu.state import ParticleState as JaxState
 from gravity_tpu_torch import parallel, simulation
-from gravity_tpu_torch.config import NotPortedError, SimulationConfig
+from gravity_tpu_torch.config import SimulationConfig
 from gravity_tpu_torch.state import ParticleState
 
 
@@ -565,9 +565,23 @@ def test_ring_refuses_the_fast_solvers(world_of_one):
 @pytest.mark.parametrize("fields", [
     dict(force_backend="fmm"), dict(force_backend="sfmm"),
 ])
-def test_later_bullets_of_item_5_are_refused(fields):
-    with pytest.raises(NotPortedError, match="item 5"):
-        SimulationConfig(**{"sharding": "allgather", **fields})
+def test_later_bullets_of_item_5_are_refused(world_of_one, fields):
+    """Item 5's sharded FMM forms are ported: a mesh config loads, and on
+    a world of one the sharded run is the unsharded run bit for bit
+    (tests/test_torch_sharded_fmm.py holds 2 and 4 ranks)."""
+    pos, vel, m = _run_state()
+    state = ParticleState(*(torch.from_numpy(a) for a in (pos, vel, m)))
+    out = {}
+    for sharding in ("none", "allgather"):
+        cfg = SimulationConfig(**{**RUN_CFG, "steps": 2, "progress_every": 2,
+                                  "sharding": sharding, "tree_depth": 3,
+                                  **fields})
+        out[sharding] = simulation.Simulator(cfg, state=state,
+                                             device="cpu").run()
+    assert out["allgather"]["num_devices"] == 1
+    for f in ("positions", "velocities"):
+        assert torch.equal(getattr(out["allgather"]["final_state"], f),
+                           getattr(out["none"]["final_state"], f))
 
 
 # The integration modes sharded on a world of one: the unsharded run's
@@ -629,21 +643,21 @@ def test_halo_strategy_needs_two_devices_and_one_axis(world_of_one):
 
 
 def test_checkpoints_and_the_supervisor_need_one_device(monkeypatch):
-    """A world of more than one refuses checkpoints, resume and the
-    supervisor (the CLI's check, with the world size of a launcher)."""
+    """Checkpoints, resume and the supervisor run on a world of more than
+    one now: the CLI's world check gives the rank and the world size of a
+    launcher's world and refuses nothing
+    (tests/test_torch_sharded_checkpoint.py runs them on 2 and 4 ranks)."""
     from gravity_tpu_torch import cli
 
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    monkeypatch.setattr(dist, "get_rank", lambda group=None: 0)
+    monkeypatch.setattr(dist, "get_rank", lambda group=None: 1)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     args = cli.argparse.Namespace(distributed=True, device="cpu",
                                   command="run")
     for fields in (dict(checkpoint_every=10), dict(auto_recover=True)):
-        with pytest.raises(NotPortedError, match="item 5"):
-            cli._world(args, SimulationConfig(**fields))
+        assert cli._world(args, SimulationConfig(**fields)) == (1, 2)
     args.command = "resume"
-    with pytest.raises(NotPortedError, match="item 5"):
-        cli._world(args, SimulationConfig())
+    assert cli._world(args, SimulationConfig()) == (1, 2)
 
 
 def test_chunked_rectangular_kernel_runs_chunk_targets_at_a_time(

@@ -19,7 +19,7 @@ import torch
 
 from gravity_tpu_torch import simulation
 from gravity_tpu_torch.cli import main
-from gravity_tpu_torch.config import NotPortedError, SimulationConfig
+from gravity_tpu_torch.config import SimulationConfig
 from gravity_tpu_torch.simulation import (
     SimulationDiverged,
     SimulationPreempted,
@@ -235,10 +235,14 @@ def test_accuracy_heal_reroutes_to_a_kernel_on_the_card(
 
 
 def test_sharded_backends_refused():
-    with pytest.raises(NotPortedError, match="item 5"):
-        next_rung("sharded/8/pallas")
-    with pytest.raises(NotPortedError, match="item 5"):
-        parse_sharded_backend("sharded/4/pallas")
+    """Sharded backends are ported: the elastic half of the ladder halves
+    the devices down to 2, then the solo form of the same kernel, and the
+    parse is the JAX package's (tests/test_torch_serve_sharded.py holds
+    both to it)."""
+    assert next_rung("sharded/8/pallas") == "sharded/4/pallas"
+    assert next_rung("sharded/2/pallas", on_card=True) == "pallas"
+    assert parse_sharded_backend("sharded/4/pallas") == (4, "pallas")
+    assert parse_sharded_backend("pallas") == (None, None)
 
 
 def test_preemption_checkpoints_and_resumes(port_faults, tmp_path):
