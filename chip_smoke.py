@@ -4724,12 +4724,13 @@ def autotune_case(name: str, config, device: dict) -> dict:
 def phase_autotune_path(device: dict) -> dict:
     """Plain ``auto`` through the autotuned router on the card, in a fresh
     tuning cache: ``baseline-1m`` (``--tree-near nlist``: pallas,
-    pallas-mxu, tree, fmm, sfmm), the README cell-list run (the rcut
-    contest: nlist against the masked direct sum) and ``baseline-16k``
-    (``--tree-near nlist``), each cut to 3 steps, a miss then a hit
-    (:func:`autotune_case`); then ``tune --sizes 16384`` twice, in
-    this process and then in a process of its own: one line a size,
-    misses, then all hits."""
+    pallas-mxu, tree, fmm, sfmm) and the README cell-list run (the rcut
+    contest: nlist against the masked direct sum), each cut to 3 steps, a
+    miss then a hit (:func:`autotune_case`); then ``tune --sizes 16384``
+    twice in this process (the router keeps no verdict in memory: the
+    second call's hits are the disk cache's): one line a size, misses,
+    then all hits. (``baseline-16k``'s contest is the one ``tune`` runs
+    at 16,384.)"""
     from gravity_tpu_torch.config import PRESETS, SimulationConfig
 
     saved = os.environ.get("GRAVITY_TPU_TUNE_DIR")
@@ -4744,22 +4745,11 @@ def phase_autotune_path(device: dict) -> dict:
                 ("readme-nlist", SimulationConfig(**{
                     **NLIST_RUN, "force_backend": "auto",
                     "steps": AUTOTUNE_STEPS})),
-                ("baseline-16k", dataclasses.replace(
-                    PRESETS["baseline-16k"], force_backend="auto",
-                    tree_near="nlist", steps=AUTOTUNE_STEPS)),
             ):
                 cases[name] = autotune_case(name, config, device)
-            env = dict(os.environ, PYTHONPATH=REPO)
             calls = []
-            for fresh in (False, True):
-                # The second call in a process of its own: its hits are
-                # the disk cache's.
-                proc = subprocess.run(
-                    [sys.executable, "-m", "gravity_tpu_torch", "tune",
-                     "--sizes", *map(str, TUNE_SIZES)],
-                    cwd=REPO, env=env, capture_output=True, text=True,
-                    timeout=600) if fresh else run_cli(
-                    ["tune", "--sizes", *map(str, TUNE_SIZES)])
+            for _ in range(2):
+                proc = run_cli(["tune", "--sizes", *map(str, TUNE_SIZES)])
                 check(proc.returncode == 0,
                       f"tune failed ({proc.returncode}): "
                       f"{proc.stderr[-2000:]}")
@@ -5673,7 +5663,10 @@ SERVE_JOBS = (
     ("k", 700, "hernquist", "leapfrog", 500, 1800.0, 1, ()),
     ("l", 700, "random", "leapfrog", 500, 3600.0, 1, ()),
 )
-SERVE_CANCEL = ("x", 700, "random", "leapfrog", 500, 3600.0, -1, ())
+# The cancel target: long enough that it is still queued or running when
+# the cancel lands (admission sums a job's t0 ledger on the card and no
+# longer waits on the host: at 500 steps the target can complete first).
+SERVE_CANCEL = ("x", 700, "random", "leapfrog", 50_000, 3600.0, -1, ())
 # Served truncated physics (SERVE_NLIST's workload through submit): four
 # fp32 jobs of one key at bucket 8,192, one of them 5,000 bodies (its
 # padding overflows its first body's cell), and a bf16 job.
@@ -6438,7 +6431,7 @@ FP32_PEAK_TFLOPS = 67.0
 GATE_CONTRACTS = ("ledger_coverage", "nlist_vs_chunked_speedup",
                   "nlist_scaling_subquadratic", "host_gap_pipelined",
                   "serve_compile_once")
-GATE_HALO_CUT = {"n_per_device": 1024, "reps": 3}
+GATE_HALO_CUT = {"n_per_device": 512, "reps": 2}
 
 
 def perf_row_summary(name: str, record: dict, direct: bool) -> dict:
@@ -6560,7 +6553,8 @@ def phase_gate_path(device: dict) -> dict:
     ranks of the host's CPU as the JAX package measures it on a virtual
     CPU mesh, at GATE_HALO_CUT, its value, CI and verdict (the CPU's
     ratio, not the card's); a planted 2x handicap on arm b of
-    nlist_vs_chunked_speedup, which must turn its verdict to violated. A
+    nlist_vs_chunked_speedup (in this process), which must turn its
+    verdict to violated. A
     timing contract that is violated is a finding (reported), not a
     failure of the phase."""
     from gravity_tpu_torch import perfgate
@@ -6611,9 +6605,19 @@ def phase_gate_path(device: dict) -> dict:
     handicap = json.dumps({"contract": "nlist_vs_chunked_speedup",
                            "arm": "b", "factor": 2.0})
     planted_out = os.path.join(out_dir, "perf_gate_torch_planted.json")
-    rc_h, report_h, text_h = run_gate_cli(
-        ["nlist_vs_chunked_speedup"], planted_out,
-        {"GRAVITY_TPU_PERF_HANDICAP": handicap})
+    # The planted run in this process: the gate reads the handicap from the
+    # environment at each call.
+    os.environ["GRAVITY_TPU_PERF_HANDICAP"] = handicap
+    try:
+        planted_proc = run_cli(["bench", "--gate", "--gate-contracts",
+                                "nlist_vs_chunked_speedup", "--gate-out",
+                                planted_out])
+    finally:
+        os.environ.pop("GRAVITY_TPU_PERF_HANDICAP", None)
+    rc_h = planted_proc.returncode
+    report_h = (json.load(open(planted_out))
+                if os.path.exists(planted_out) else None)
+    text_h = planted_proc.stdout + planted_proc.stderr[-2000:]
     check(rc_h == 1 and report_h is None and "VIOLATED" in text_h,
           f"gate_path: the planted handicap was not caught (rc {rc_h}): "
           f"{text_h}")
@@ -8782,6 +8786,606 @@ def phase_serve_sharded_path(device: dict) -> dict:
     return out
 
 
+# The backward passes: the kernels' dense VJP (ops/forces.DenseVJP,
+# plain PyTorch, as the JAX package's wrap_with_dense_vjp) at 4,096 rows,
+# solo and 2 x 4,096 batched; the loss sum((a / A)^2) keeps the fp32 mass
+# gradients normal. Bars: the gradient through each Function against
+# PyTorch's through the plain sum, 1e-10 (fp64) and 5e-4 (fp32) of the
+# scale of the terms a self-form position gradient sums (its target and
+# source parts, which cancel to ~1e-5 of either) and of max |d masses|.
+# The Gram form's forward is ~3e-5 of |a| off the exact sum, which its
+# cotangent carries (5.2e-4 and 1.4e-3 of those scales at 4,096 bodies on
+# an NVIDIA H100 80GB HBM3 at 700 W): its bar holds its backward to the
+# plain VJP on its own cotangent, its end-to-end gap reported.
+BACKWARD_N = 4096
+BACKWARD_BATCH = 2
+BACKWARD_A = 1e-8
+BACKWARD_TOL = {"float32": 5e-4, "float64": 1e-10}
+# The cell list at the bounding cube of the uniform draw (6e11 m a side):
+# side 8 gives a cell edge of 7.5e10 m >= rcut, cap 64 holds every cell,
+# so that its forward is the rcut-masked dense sum.
+BACKWARD_NLIST = dict(rcut=5e10, side=8, cap=64)
+
+
+def card():
+    """The device of the backward, fit and sweep/watch phases (the card; a
+    rehearsal of their control flow on the CPU replaces this function)."""
+    import torch
+
+    return torch.device("cuda", 0)
+
+
+def backward_inputs(dtype, batch: tuple = ()):
+    """Positions in a 6e11 m cube and masses 1e23-1e25 kg, from a seed,
+    on the card."""
+    import torch
+
+    gen = torch.Generator().manual_seed(22)
+    pos = torch.rand((*batch, BACKWARD_N, 3), generator=gen,
+                     dtype=torch.float64) * 6e11 - 3e11
+    m = torch.rand((*batch, BACKWARD_N), generator=gen,
+                   dtype=torch.float64) * (1e25 - 1e23) + 1e23
+    return pos.to(dtype).to(card()), m.to(dtype).to(card())
+
+
+def backward_case(name, fn, counter, dtype, batch=(), rcut=0.0,
+                  own_cotangent=False) -> dict:
+    """One Function: its forward (one launch of ``counter``), its gradient
+    against PyTorch's through the plain sum (accelerations_vs with the
+    same constants; ``own_cotangent``: on the Function's cotangent), the
+    backward's launches (none) and the forward's and backward's ms by
+    CUDA events."""
+    import torch
+
+    from gravity_tpu_torch.constants import CUTOFF_RADIUS, G
+    from gravity_tpu_torch.ops import forces
+
+    kw = dict(g=G, cutoff=CUTOFF_RADIUS, eps=SERVE_EPS, rcut=rcut)
+    pos, m = backward_inputs(dtype, batch)
+    p, mm = pos.clone().requires_grad_(True), m.clone().requires_grad_(True)
+    reset_counts()
+    acc = fn(p, p, mm)
+    forward_launches = read_counts()[counter]
+    check(type(acc.grad_fn) is forces.DenseVJP._backward_cls,
+          f"backward_path {name}: grad_fn {type(acc.grad_fn).__name__}")
+    ct = 2.0 * acc.detach() / BACKWARD_A**2
+    dp, dm = torch.autograd.grad(acc, (p, mm), ct, retain_graph=True)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(forward_launches == 1 and launches[counter] == 1
+          and sum(launches.values()) == 1,
+          f"backward_path {name}: launches {launches} (the forward one, "
+          "the backward none)")
+    p2, m2 = pos.clone().requires_grad_(True), m.clone().requires_grad_(True)
+    plain = forces.accelerations_vs(p2, p2, m2, **kw)
+    plain_ct = 2.0 * plain.detach() / BACKWARD_A**2
+    gi, gj, _ = forces.accelerations_vs_vjp(pos, pos, m, plain_ct, **kw)
+    scale = max(float(gi.abs().max()), float(gj.abs().max()))
+
+    def gaps(cotangent):
+        dp2, dm2 = torch.autograd.grad(plain, (p2, m2), cotangent,
+                                       retain_graph=True)
+        return (float((dp - dp2).abs().max()) / scale,
+                float((dm - dm2).abs().max() / dm2.abs().max()))
+
+    end_to_end = gaps(plain_ct)
+    err_p, err_m = gaps(ct) if own_cotangent else end_to_end
+    dtype_name = str(dtype).removeprefix("torch.")
+    tol = BACKWARD_TOL[dtype_name]
+    check(bool(torch.isfinite(dp).all() and torch.isfinite(dm).all()),
+          f"backward_path {name}: gradient not finite")
+    check(err_p <= tol and err_m <= tol,
+          f"backward_path {name}: positions {err_p:.3g}, masses "
+          f"{err_m:.3g} against the plain gradient (bar {tol})")
+    with torch.no_grad():
+        ms = cuda_ms(lambda: fn(pos, pos, m), 5)
+    backward_ms = cuda_ms(lambda: torch.autograd.grad(
+        acc, (p, mm), ct, retain_graph=True), 3)
+    plain_ms = cuda_ms(lambda: torch.autograd.grad(
+        forces.accelerations_vs(p2, p2, m2, **kw), (p2, m2), ct), 3)
+    return {"kernel": counter, "dtype": dtype_name,
+            "shape": list(pos.shape), "max_err_positions": err_p,
+            "max_err_masses": err_m, "tol": tol,
+            "own_cotangent": own_cotangent,
+            "end_to_end_gap": end_to_end,
+            "parts_scale": scale, "launches_forward": forward_launches,
+            "launches_backward": 0, "ms": ms, "backward_ms": backward_ms,
+            "plain_forward_backward_ms": plain_ms,
+            "backward_rows": forces.backward_rows(
+                BACKWARD_N, BACKWARD_N, BACKWARD_BATCH if batch else 1)}
+
+
+def no_backward_checks() -> dict:
+    """Each kernel entry without a backward, on CUDA tensors that require
+    grad: NoBackwardError naming its kernel, before any launch; the halo
+    engine and the sharded FMM forms, forward only on every device, the
+    same before any collective."""
+    import torch
+
+    from gravity_tpu_torch.ops import mxu_kernel, nlist
+    from gravity_tpu_torch.ops.forces import NoBackwardError
+    from gravity_tpu_torch.parallel import halo, sharded_fmm
+    from gravity_tpu_torch.parallel.mesh import ParticleMesh
+
+    def t(*shape, dtype=torch.float32):
+        x = torch.zeros(shape, dtype=dtype, device=card())
+        return x.requires_grad_(True) if dtype.is_floating_point else x
+
+    c, tc, cap = 8, 4, 4
+    tiles = (t(c, tc, 3), t(c, dtype=torch.int64), t(c, cap, 3), t(c, cap),
+             t(c, dtype=torch.int64), 2, t(2))
+    btiles = (t(2, c, tc, 3), t(2, c, dtype=torch.int64), t(2, c, cap, 3),
+              t(2, c, cap), t(2, c, dtype=torch.int64), 2, t(2))
+    slab = (t(4, tc, 3), t(4, dtype=torch.int64), t(12, cap, 3), t(12, cap),
+            t(12, dtype=torch.int64), 1, 2, t(2))
+    kw = dict(cutoff=0.0, eps=SERVE_EPS)
+    mesh = ParticleMesh((1,), ("shard",), 0, card(), (0,), (0,))
+    pos = t(64, 3)
+    m = torch.ones(64, device=card())
+    cases = {
+        "nlist_pair/ewald": lambda: nlist.pair_cells_kernel(
+            *tiles, kind="ewald", **kw),
+        "nlist_pair/near": lambda: nlist.pair_cells_kernel(
+            *tiles, use_rcut=False, **kw),
+        "nlist_pair/batched": lambda: nlist.pair_cells_kernel_batched(
+            *btiles, **kw),
+        "nlist_pair/newton/slab": lambda: nlist.pair_cells_slab_kernel(
+            *slab, **kw),
+        "nlist_pair/ewald/slab": lambda: nlist.pair_cells_slab_kernel(
+            *slab, kind="ewald", **kw),
+        "nbody_mxu": lambda: mxu_kernel.gram_acc4(
+            t(8, 3), t(8, 3), t(8), **kw),
+        "nbody_mxu/batched": lambda: mxu_kernel.gram_acc4_batched(
+            t(2, 8, 3), t(2, 8, 3), t(2, 8), **kw),
+        "the halo cell list": lambda: halo.make_halo_nlist_accel(
+            mesh, side=4, cap=8, rcut=5e10)(pos, m),
+        "the sharded dense-grid FMM": lambda: sharded_fmm
+        .make_sharded_fmm_accel(mesh, depth=2)(pos, m),
+        "the sharded sparse FMM": lambda: sharded_fmm
+        .make_sharded_sfmm_accel(mesh, depth=2)(pos, m),
+    }
+    out = {}
+    reset_counts()
+    for name, call in cases.items():
+        try:
+            call()
+        except NoBackwardError as e:
+            check(name in str(e), f"backward_path: {name} raised {e}")
+            out[name] = "raises NoBackwardError"
+            continue
+        raise RuntimeError(f"backward_path: {name} returned a tensor cut "
+                           "from the graph instead of raising")
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"backward_path: a guarded entry launched: {counts}")
+    return out
+
+
+def segment_sum_backward_check() -> dict:
+    """segment_sum.cu's backward (cells.SegmentSumRows: each row's
+    cotangent its segment's): the gradient through the kernel's forward
+    equals PyTorch's through the plain version, on CPU copies, bit for
+    bit; one launch, forward only."""
+    import torch
+
+    from gravity_tpu_torch.ops import cells
+
+    gen = torch.Generator().manual_seed(11)
+    n_rows, n_seg = 200_000, 3_000
+    ids = torch.sort(torch.randint(0, n_seg, (n_rows,), generator=gen))[0]
+    values = torch.randn((n_rows, 3), generator=gen).to(torch.bfloat16)
+    seg = cells.Segments(ids.to(card()), n_seg)
+    rows = seg.gather(values.to(card())).detach()
+    starts = seg.plan()[1]
+    ct = torch.randn((n_seg, 3), generator=gen).to(torch.bfloat16)
+    reset_counts()
+    r = rows.clone().requires_grad_(True)
+    out = cells.segment_sum_rows(r, starts, n_rows)
+    (got,) = torch.autograd.grad(out, r, ct.to(card()))
+    launches = read_counts()["segment_sum/bf16"]
+    check(launches == 1, f"backward_path: segment_sum launches {launches}")
+    r_cpu = rows.cpu().requires_grad_(True)
+    (want,) = torch.autograd.grad(
+        cells.segment_sum_rows_plain(r_cpu, starts.cpu(), n_rows), r_cpu, ct)
+    same = torch.equal(got.cpu(), want)
+    check(same, "backward_path: segment_sum's backward is not the plain "
+          "gradient")
+    return {"rows": n_rows, "segments": n_seg, "bitwise_equal_plain": same,
+            "launches": launches}
+
+
+def phase_backward_path(device: dict) -> dict:
+    """The kernels' backward on the card (ops/forces.DenseVJP): through
+    ``nbody_direct`` in fp32 and fp64, ``nbody_mxu`` (fp32), ``nlist_pair``
+    with rcut and each batched form at 2 x 4,096, the gradient of
+    sum((a / A)^2) against PyTorch's through the plain sum; each forward
+    one launch, the backward none; the forward's and backward's ms. Then
+    every entry without a backward raising on an input that requires grad,
+    and segment_sum.cu's backward against the plain gradient."""
+    import functools
+
+    import torch
+
+    from gravity_tpu_torch.ops import direct_kernel, mxu_kernel, nlist
+
+    torch.manual_seed(0)
+    b = (BACKWARD_BATCH,)
+    eps = dict(eps=SERVE_EPS)
+    cases = {
+        "nbody_direct": (direct_kernel.make_direct_local_kernel(**eps),
+                         "nbody_direct", torch.float32, (), 0.0),
+        "nbody_direct/fp64": (direct_kernel.make_direct_local_kernel(**eps),
+                              "nbody_direct", torch.float64, (), 0.0),
+        "nbody_mxu": (mxu_kernel.make_mxu_local_kernel(**eps), "nbody_mxu",
+                      torch.float32, (), 0.0, True),
+        "nlist_pair": (nlist.make_nlist_local_kernel(**BACKWARD_NLIST, **eps),
+                       "nlist_pair", torch.float32, (),
+                       BACKWARD_NLIST["rcut"]),
+        "nbody_direct/batched": (functools.partial(
+            direct_kernel.accelerations_vs_batched_kernel, **eps),
+            "nbody_direct/batched", torch.float32, b, 0.0),
+        "nbody_direct/batched_fp64": (functools.partial(
+            direct_kernel.accelerations_vs_batched_kernel, **eps),
+            "nbody_direct/batched", torch.float64, b, 0.0),
+        "nbody_mxu/batched": (functools.partial(
+            mxu_kernel.accelerations_vs_mxu_batched_kernel, **eps),
+            "nbody_mxu/batched", torch.float32, b, 0.0, True),
+        "nlist_pair/batched": (nlist.make_nlist_batched_kernel(
+            **BACKWARD_NLIST, **eps), "nlist_pair/batched", torch.float32, b,
+            BACKWARD_NLIST["rcut"]),
+    }
+    record = {"phase": "backward_path", "nvidia_smi": device["nvidia_smi"],
+              "n": BACKWARD_N, "cases": {}}
+    for name, (fn, counter, dtype, batch, rcut, *own) in cases.items():
+        record["cases"][name] = backward_case(name, fn, counter, dtype,
+                                              batch, rcut, *own)
+    record["no_backward"] = no_backward_checks()
+    record["segment_sum"] = segment_sum_backward_check()
+    emit(record)
+    return record
+
+
+# The served fit: one in-process daemon at slots 2 and slice_steps
+# 20 (2 iterations of a 10-step rollout a round), a pallas fit at the
+# engine's largest bucket on serve_path's 8,192-body model and dt, and
+# pallas-mxu and cell-list fits at 4,096; gradient descent (Adam's first
+# steps are sign(g) lr, whose near-zero components a rounding can flip),
+# observations of each config's own 10-step trajectory at steps 5 and 10,
+# a 0.95x guess. Parity with fit_solo on the card: max |dv| over max |v|.
+FIT_ROLLOUT = 10
+FIT_ITERS = 2
+FIT_SCALE = 1e8
+FIT_TOL = 1e-5
+FIT_JOBS = (
+    ("pallas", 8192, "plummer", ()),
+    ("pallas-mxu", 4096, "plummer", ()),
+    ("nlist", 4096, "random", (("nlist_rcut", 5e10), ("nlist_side", 12),
+                               ("nlist_cap", 32))),
+)
+
+
+def fit_problem(config) -> dict:
+    """A fit payload of ``config``: its own trajectory observed at steps
+    5 and 10 (the solo kernel on the card), a 0.95x guess, and a gradient
+    descent rate of 0.5 over the loss's curvature in v (2 sum_k t_k^2 /
+    scale^2, the drift's)."""
+    import torch
+
+    from gravity_tpu_torch.ops.integrators import make_step_fn
+    from gravity_tpu_torch.serve.engine import solo_batched_kernel
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    st = make_initial_state(config, card())
+    kernel = solo_batched_kernel(config)
+    m = st.masses[None]
+    with torch.no_grad():
+        step = make_step_fn(config.integrator,
+                            lambda p: kernel(p, p, m), config.dt)
+        s = type(st)(st.positions[None], st.velocities[None], m)
+        a = kernel(s.positions, s.positions, m)
+        obs_steps, out = [FIT_ROLLOUT // 2, FIT_ROLLOUT], []
+        for i in range(FIT_ROLLOUT):
+            s, a = step(s, a)
+            if i + 1 in obs_steps:
+                out.append(s.positions[0].double().cpu().numpy().tolist())
+    curv = 2.0 * sum((k * config.dt) ** 2 for k in obs_steps) / FIT_SCALE**2
+    return {"observations": {"steps": obs_steps, "positions": out},
+            "iters": FIT_ITERS, "optimizer": "gd", "lr": 0.5 / curv,
+            "scale": FIT_SCALE,
+            "guess_velocities": (0.95 * st.velocities).double().cpu()
+            .numpy().tolist()}
+
+
+def transfer_orbit_fit() -> dict:
+    """tests/test_differentiability.py:81-112 through ``pallas`` in fp64 on
+    the card: gradient descent on a test particle's launch velocity until
+    the miss falls below 1e-4 of its first value (200 iterations at
+    most)."""
+    import torch
+
+    from gravity_tpu_torch.ops import direct_kernel
+    from gravity_tpu_torch.ops.integrators import make_step_fn
+    from gravity_tpu_torch.state import ParticleState
+
+    f64 = dict(dtype=torch.float64, device=card())
+    m_sun, r0 = 1.989e30, 1.496e11
+    masses = torch.tensor([m_sun, 1.0], **f64)
+    pos = torch.tensor([[0.0, 0.0, 0.0], [r0, 0.0, 0.0]], **f64)
+    target = torch.tensor([0.0, 1.3 * r0, 0.0], **f64)
+    kern = direct_kernel.make_direct_local_kernel()
+    accel = lambda p: kern(p, p, masses)  # noqa: E731
+    step = make_step_fn("leapfrog", accel, 100_000.0)
+
+    def miss(v0):
+        st = ParticleState(pos, torch.stack([torch.zeros(3, **f64), v0]),
+                           masses)
+        a = accel(pos)
+        for _ in range(40):
+            st, a = step(st, a)
+        return (((st.positions[1] - target) / r0) ** 2).sum()
+
+    v = torch.tensor([0.0, 2.98e4, 0.0], **f64)
+    reset_counts()
+    t0 = time.perf_counter()
+    for it in range(201):
+        vp = v.requires_grad_(True)
+        val = miss(vp)
+        (g,) = torch.autograd.grad(val, vp)
+        val = float(val.detach())
+        if it == 0:
+            miss0 = val
+        if val < 1e-4 * miss0:
+            break
+        v = (v - 5e8 * g).detach()
+    wall = time.perf_counter() - t0
+    launches = read_counts()["nbody_direct"]
+    check(val < 1e-4 * miss0,
+          f"fit_path: the transfer orbit's miss {val} after {it} "
+          f"iterations, first {miss0}")
+    check(launches == 41 * (it + 1),
+          f"fit_path: transfer orbit launches {launches} for {it + 1} "
+          "rollouts of 41 evaluations")
+    return {"iterations": it, "miss0": miss0, "miss": val,
+            "launches": launches, "wall_s": wall}
+
+
+def phase_fit_path(device: dict) -> dict:
+    """The served ``fit`` class on the card: an in-process daemon (slots
+    2, slice_steps 20) serves FIT_JOBS through ``submit --job-type fit``,
+    each key one round; each result within FIT_TOL (of max |v|) of the
+    port's ``fit_solo`` on the card, its loss below the guess's; the
+    daemon's batched launches equal its force evaluations (the backward
+    launches none); each fit key's first-round peak at or below its
+    estimate; ms an iteration from the rounds. Then the transfer-orbit fit
+    in fp64 through pallas."""
+    import numpy as np
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.serve import GravityDaemon, fit_solo, request
+    from gravity_tpu_torch.serve import wait_for
+
+    spool_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(spool_root, exist_ok=True)
+    configs = {backend: SimulationConfig(
+        model=model, n=n, steps=FIT_ROLLOUT, dt=3600.0, eps=SERVE_EPS,
+        integrator="leapfrog", force_backend=backend, **dict(extra))
+        for backend, n, model, extra in FIT_JOBS}
+    problems = {b: fit_problem(c) for b, c in configs.items()}
+    record = {"phase": "fit_path", "nvidia_smi": device["nvidia_smi"],
+              "jobs": {}}
+    with tempfile.TemporaryDirectory(dir=spool_root) as spool:
+        daemon = GravityDaemon(spool, slots=2,
+                               slice_steps=FIT_ROLLOUT * FIT_ITERS,
+                               idle_sleep_s=0.01, device=card())
+        reset_counts()
+        daemon.start()
+        try:
+            ids = {}
+            for backend, config in configs.items():
+                path = os.path.join(spool, f"{backend}.json")
+                with open(path, "w") as f:
+                    json.dump(problems[backend], f)
+                flags = ["--model", config.model, "--n", str(config.n),
+                         "--steps", str(FIT_ROLLOUT), "--dt", "3600",
+                         "--eps", str(SERVE_EPS), "--integrator", "leapfrog",
+                         "--force-backend", backend]
+                if backend == "nlist":
+                    flags += ["--nlist-rcut", "5e10", "--nlist-side", "12",
+                              "--nlist-cap", "32"]
+                rc, out, err = run_clients([serve_args(
+                    spool, "submit", "--job-type", "fit", *flags,
+                    "--params", f"@{path}")])[0]
+                check(rc == 0, f"fit_path: submit {backend}: {err[-2000:]}")
+                ids[backend] = json.loads(out.strip().splitlines()[-1])["job"]
+            statuses = wait_for(spool, list(ids.values()), timeout=600)
+            results = {b: request(spool, "GET", f"/result?job={j}")
+                       for b, j in ids.items()}
+            metrics = request(spool, "GET", "/metrics")
+            with open(os.path.join(spool, "serving_events.jsonl")) as f:
+                events = [json.loads(x) for x in f if x.strip()]
+        finally:
+            daemon.stop()
+    launches = read_counts()
+    engine = metrics["engine"]
+    evals = engine["force_evals"]
+    for backend, kernel in (("pallas", "nbody_direct/batched"),
+                            ("pallas-mxu", "nbody_mxu/batched"),
+                            ("nlist", "nlist_pair/batched")):
+        want = (FIT_ROLLOUT + 1) * FIT_ITERS
+        check(evals.get(backend) == want == launches[kernel],
+              f"fit_path: {kernel} launches {launches[kernel]}, "
+              f"evaluations {evals.get(backend)}, want {want}")
+    check(sum(launches.values()) == 3 * (FIT_ROLLOUT + 1) * FIT_ITERS,
+          f"fit_path: other launches {launches}")
+    peaks = {r["key"]: {"measured": r.get("peak_bytes"),
+                        "estimated": r.get("estimated_bytes")}
+             for r in metrics["perf_ledger"]
+             if r.get("site") == "serve_round" and "job=fit" in r["key"]}
+    check(len(peaks) == 3, f"fit_path: fit ledger rows {sorted(peaks)}")
+    for key, p in peaks.items():
+        check(p["measured"] is not None and p["measured"] <= p["estimated"],
+              f"fit_path: {key}: first-round peak {p['measured']} above "
+              f"its estimate {p['estimated']}")
+    rounds = [e for e in events if e.get("event") == "round"]
+    for backend, config in configs.items():
+        st = statuses[ids[backend]]
+        check(st["status"] == "completed" and st["steps_done"] == FIT_ITERS,
+              f"fit_path {backend}: {st}")
+        served = np.asarray(results[backend]["velocities"], np.float64)
+        t0 = time.perf_counter()
+        solo = fit_solo(config, problems[backend], device=card())
+        solo_s = time.perf_counter() - t0
+        first = fit_solo(config, {**problems[backend], "iters": 1},
+                         device=card())
+        gap = float(np.abs(served - solo["velocities"]).max()
+                    / np.abs(solo["velocities"]).max())
+        loss = float(np.asarray(results[backend]["loss"]).reshape(-1)[0])
+        check(np.isfinite(served).all() and gap <= FIT_TOL,
+              f"fit_path {backend}: served vs solo {gap:.3g} (bar {FIT_TOL})")
+        check(loss < first["loss"],
+              f"fit_path {backend}: loss {loss} not below the guess's "
+              f"{first['loss']}")
+        mine = [e for e in rounds if e.get("backend") == backend]
+        record["jobs"][backend] = {
+            "n": config.n, "bucket": mine[0]["bucket"] if mine else None,
+            "served_vs_solo": gap, "tol": FIT_TOL, "loss_guess":
+            first["loss"], "loss": loss,
+            "ms_per_iteration": [1e3 * e["round_s"] / FIT_ITERS
+                                 for e in mine],
+            "solo_s": solo_s}
+    record.update(force_evals=evals, kernel_launches=launches,
+                  peak_bytes_vs_estimate=peaks,
+                  build_seconds=engine["build_seconds"],
+                  transfer_orbit=transfer_orbit_fit())
+    emit(record)
+    return record
+
+
+# Sweep and watch at the engine's largest bucket through pallas:
+# 16 members of 8,192 bodies, 100 steps, slots 4; one watch of 8,192
+# bodies for 100 steps, its radius 1.5x the initial closest pair's
+# distance, a follow-up of the flagged round at dt / 2. The Plummer sphere
+# of serve_path's 8,192-body jobs: a verdict's energy is a sum in the
+# state's dtype, as the JAX package's is; the sphere's, -1.37e37 J, fits
+# in fp32, the random cube's solar masses (-1.3e41 J) overflow it.
+SWEEP_MEMBERS = 16
+SWEEP_STEPS = 100
+SWEEP_N = 8192
+
+
+def phase_sweep_watch_path(device: dict) -> dict:
+    """The served ``sweep`` and ``watch`` classes on the card, one
+    in-process daemon (slots 4, slice_steps 100): every member's verdict
+    equal to ``sweep_member_solo``'s on the card within the JAX bars (min
+    separation 1e-5 relative, drift 1e-7 absolute, escape equal); the
+    watch's events (step, i, j, kind) equal to ``watch_solo``'s exactly;
+    its follow-up completes; batched launches = force evaluations."""
+    import numpy as np
+    import torch
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.ops.encounters import min_separation
+    from gravity_tpu_torch.serve import (
+        GravityDaemon,
+        request,
+        sweep_member_solo,
+        wait_for,
+        watch_solo,
+    )
+    from gravity_tpu_torch.simulation import make_initial_state
+
+    config = SimulationConfig(model="plummer", n=SWEEP_N, steps=SWEEP_STEPS,
+                              dt=3600.0, eps=SERVE_EPS, integrator="leapfrog",
+                              force_backend="pallas")
+    st = make_initial_state(config, card())
+    radius = 1.5 * float(min_separation(st.positions, st.masses))
+    sweep_params = {"members": SWEEP_MEMBERS, "spread": 0.05,
+                    "sweep_seed": 22}
+    watch_params = {"radius": radius, "followup": {"refine": 2, "max": 1}}
+    spool_root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(spool_root, exist_ok=True)
+    flags = ["--model", "plummer", "--n", str(SWEEP_N), "--steps",
+             str(SWEEP_STEPS), "--dt", "3600", "--eps", str(SERVE_EPS),
+             "--integrator", "leapfrog", "--force-backend", "pallas"]
+    with tempfile.TemporaryDirectory(dir=spool_root) as spool:
+        daemon = GravityDaemon(spool, slots=4, slice_steps=SWEEP_STEPS,
+                               idle_sleep_s=0.01, device=card())
+        reset_counts()
+        daemon.start()
+        t0 = time.perf_counter()
+        try:
+            subs = run_clients([
+                serve_args(spool, "submit", "--job-type", kind, *flags,
+                           "--params", json.dumps(params))
+                for kind, params in (("sweep", sweep_params),
+                                     ("watch", watch_params))])
+            ids = {}
+            for kind, (rc, out, err) in zip(("sweep", "watch"), subs):
+                check(rc == 0, f"sweep_watch_path: submit {kind}: "
+                      f"{err[-2000:]}")
+                ids[kind] = json.loads(out.strip().splitlines()[-1])["job"]
+            followup = f"{ids['watch']}.f0"
+            statuses = wait_for(spool, list(ids.values()), timeout=600)
+            statuses.update(wait_for(spool, [followup], timeout=600))
+            serve_s = time.perf_counter() - t0
+            sweep = request(spool, "GET", f"/result?job={ids['sweep']}")
+            watch = request(spool, "GET", f"/result?job={ids['watch']}")
+            metrics = request(spool, "GET", "/metrics")
+            with open(os.path.join(spool, "serving_events.jsonl")) as f:
+                events = [json.loads(x) for x in f if x.strip()]
+        finally:
+            daemon.stop()
+    launches = read_counts()
+    evals = metrics["engine"]["force_evals"]
+    check(launches["nbody_direct/batched"] == evals.get("pallas"),
+          f"sweep_watch_path: batched launches {launches} vs evaluations "
+          f"{evals}")
+    for kind in ("sweep", "watch"):
+        check(statuses[ids[kind]]["status"] == "completed",
+              f"sweep_watch_path {kind}: {statuses[ids[kind]]}")
+    check(statuses[followup]["status"] == "completed",
+          f"sweep_watch_path: follow-up {statuses[followup]}")
+    gaps = []
+    t1 = time.perf_counter()
+    for k in range(SWEEP_MEMBERS):
+        solo = sweep_member_solo(config, {**sweep_params, "member": k},
+                                 device=card())
+        got = {f: sweep[f][k] for f in ("min_sep", "energy_drift",
+                                        "escaped")}
+        gap_sep = abs(got["min_sep"] - solo["min_sep"]) / solo["min_sep"]
+        gap_drift = abs(got["energy_drift"] - solo["energy_drift"])
+        check(solo["finite"] and gap_sep <= 1e-5 and gap_drift <= 1e-7
+              and bool(got["escaped"]) == solo["escaped"],
+              f"sweep_watch_path member {k}: {got} vs {solo}")
+        gaps.append((gap_sep, gap_drift))
+    solo_events = watch_solo(config, watch_params, slice_steps=SWEEP_STEPS,
+                             device=card())
+    want = [(e["step"], e["i"], e["j"], int(e["kind"] == "merger"))
+            for e in solo_events]
+    served = list(zip(*(np.asarray(watch[f]).astype(int).tolist() for f in (
+        "event_step", "event_i", "event_j", "event_kind"))))
+    check(want and served == want,
+          f"sweep_watch_path: watch events {served} vs solo {want}")
+    solo_s = time.perf_counter() - t1
+    rounds = [e for e in events if e.get("event") == "round"]
+    record = {
+        "phase": "sweep_watch_path", "nvidia_smi": device["nvidia_smi"],
+        "members": SWEEP_MEMBERS, "n": SWEEP_N, "steps": SWEEP_STEPS,
+        "max_min_sep_gap": max(g[0] for g in gaps),
+        "max_drift_gap": max(g[1] for g in gaps),
+        "drift": sweep["energy_drift"], "escaped": sweep["escaped"],
+        "watch_radius": radius, "watch_events": served,
+        "followup": statuses[followup]["status"],
+        "ms_per_round": {jt: [1e3 * e["round_s"] for e in rounds
+                              if e["job_type"] == jt]
+                         for jt in sorted({e["job_type"] for e in rounds})},
+        "force_evals": evals, "kernel_launches": launches,
+        "serve_s": serve_s, "solo_s": solo_s}
+    emit(record)
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -8876,6 +9480,9 @@ def run_phases(torch) -> int:
     serve_path = timed(phase_serve_path, device)
     serve_parity = timed(phase_serve_parity, device)
     serve_sharded = timed(phase_serve_sharded_path, device)
+    backward = timed(phase_backward_path, device)
+    fit = timed(phase_fit_path, device)
+    sweep_watch = timed(phase_sweep_watch_path, device)
     perf_ledger = timed(phase_perf_ledger, device, {
         "main_path": main_path, "baseline16k_path": base16k,
         "nlist_main_path": nlist_path, "mxu_path": mxu_path,
@@ -9049,6 +9656,16 @@ def run_phases(torch) -> int:
               "host_syncs_per_round": {
                   b: v["host_syncs_per_round"]
                   for b, v in serve_parity["rounds"].items()}},
+          "backward_ms": {k: [v["ms"], v["backward_ms"]]
+                          for k, v in backward["cases"].items()},
+          "fit": {k: [v["served_vs_solo"], v["loss_guess"], v["loss"],
+                      v["ms_per_iteration"]]
+                  for k, v in fit["jobs"].items()},
+          "fit_transfer_orbit_iterations":
+              fit["transfer_orbit"]["iterations"],
+          "sweep_watch": [sweep_watch["max_min_sep_gap"],
+                          sweep_watch["max_drift_gap"],
+                          sweep_watch["watch_events"]],
           "host_syncs_per_step": syncs["syncs_per_step"],
           "perf_ledger_share_of_fp32_peak": {
               k: [r["share_of_fp32_peak"] for r in v["rows"]]
@@ -9175,6 +9792,9 @@ def run_phases(torch) -> int:
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": t.get("library_ms"), "library_note": t["library_note"],
         "checked_against_plain": True,
+        # The backward: the dense VJP in plain PyTorch, as the JAX
+        # package's wrap_with_dense_vjp; no kernel, launches 0.
+        "backward_ms": backward["cases"].get(name, {}).get("backward_ms"),
     } for name, replaces, launches, err, t in kernels]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,9 @@ halos, xi(r)) of a checkpoint or a fresh realization. Each runs on the
 GPU unless ``--device cpu``. ``serve`` starts the
 ensemble daemon (serve/service.py) on the GPU unless ``--device cpu``;
 the client verbs find it through ``--spool-dir``. ``submit --job-type``
-takes ``integrate`` only: the other classes are refused with exit 2. A
+takes the served classes, ``integrate``, ``fit``, ``sweep``, ``watch`` and
+``sharded-integrate``, with their payload in ``--params`` (a malformed one
+is the daemon's 400 and exit 2). A
 served ``--force-backend nlist`` job names its ``--nlist-rcut`` and
 ``--nlist-side`` (no state exists at admission to size the grid from;
 ``--nlist-cap`` defaults to 64); the daemon refuses it otherwise.
@@ -1280,14 +1282,11 @@ def cmd_submit(args: argparse.Namespace) -> int:
     import uuid
 
     from .serve import DaemonUnreachable, request, wait_for
-    from .serve.jobs import NOT_PORTED, job_types
+    from .serve.jobs import job_types
 
     if args.job_type not in job_types():
-        item = NOT_PORTED.get(args.job_type)
         print(f"error: --job-type {args.job_type!r} is not served by "
-              "gravity_tpu_torch" + (
-                  f" yet (ROADMAP.md Queue 1 item {item})" if item
-                  else f"; the served classes are {job_types()}"),
+              f"gravity_tpu_torch; the served classes are {job_types()}",
               file=sys.stderr)
         return 2
     config = build_config(args)
@@ -1464,16 +1463,19 @@ def _add_serving_parsers(sub) -> None:
     _add_config_args(p)
     _add_spool_arg(p)
     p.add_argument("--job-type", dest="job_type", default="integrate",
-                   help="traffic class: integrate or sharded-integrate "
-                        "(the JAX package's fit, sweep and watch are not "
-                        "ported: exit 2)")
+                   help="traffic class: integrate, fit (params: "
+                        "observations, iters, lr, optimizer, ...), sweep "
+                        "(params: members, spread, ...), watch (params: "
+                        "radius, merge_radius, followup, ...) or "
+                        "sharded-integrate")
     p.add_argument("--devices", type=int, default=None,
                    help="sharded-integrate: the devices of the job's "
                         "group (params.devices; default every card "
                         "visible to the daemon, 1 on the CPU)")
     p.add_argument("--params", default=None,
-                   help="job-class payload as inline JSON or @file (an "
-                        "optional inline 'state')")
+                   help="job-class payload as inline JSON or @file (the "
+                        "class's params; integrate takes an optional "
+                        "inline 'state')")
     p.add_argument("--priority", type=int, default=0,
                    help="higher preempts lower in a full batch")
     p.add_argument("--deadline-s", dest="deadline_s", type=float,

@@ -20,6 +20,7 @@ import math
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 
 from ..telemetry.perf import count_launch
@@ -42,6 +43,7 @@ __all__ = [
     "segment_sum_bf16",
     "segment_sum_bf16_plain",
     "segment_sum_rows",
+    "segment_sum_rows_plain",
     "slot_cell_ids",
     "sorted_segment_sum",
 ]
@@ -391,10 +393,58 @@ def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
     column-major in segment order (:meth:`Segments.gather`), summed over
     the segments that ``starts`` (n + 1,) bounds, into (n, cols), each
     column one chain of bf16 adds in row order. CPU tensors take the plain
-    version (``index_add_`` column by column over the rows in this order,
-    which is element order inside a segment, with the flush); CUDA
-    tensors launch the
-    kernel on the current stream, without synchronising, or raise."""
+    version (:func:`segment_sum_rows_plain`); CUDA tensors launch the
+    kernel on the current stream, without synchronising, or raise.
+
+    Differentiable on every device (:class:`SegmentSumRows`): each row's
+    cotangent is its segment's, a gather, the VJP of
+    ``jax.ops.segment_sum`` (the flush is the identity almost
+    everywhere)."""
+    if torch.is_grad_enabled() and rows.requires_grad:
+        return SegmentSumRows.apply(rows, starts, n_rows)
+    return _segment_sum_rows(rows, starts, n_rows)
+
+
+class SegmentSumRows(torch.autograd.Function):
+    """:func:`segment_sum_rows` with its exact backward: d rows[c, r] =
+    d out[segment of r, c] for the rows the segments cover, 0 for the
+    padding rows beyond them, found by a search of ``starts`` on the
+    device (no host read)."""
+
+    @staticmethod
+    def forward(ctx, rows, starts, n_rows):
+        ctx.save_for_backward(starts)
+        ctx.stride = rows.shape[1]
+        return _segment_sum_rows(rows, starts, n_rows)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        (starts,) = ctx.saved_tensors
+        r = torch.arange(ctx.stride, device=starts.device)
+        seg = torch.searchsorted(starts, r, right=True) - 1
+        inside = (r >= starts[0]) & (r < starts[-1])
+        d = ct[seg.clamp(0, ct.shape[0] - 1)].t()
+        return torch.where(inside[None, :], d, torch.zeros_like(d)), None, None
+
+
+def segment_sum_rows_plain(rows: torch.Tensor, starts: torch.Tensor,
+                           n_rows: int) -> torch.Tensor:
+    """The plain version of :func:`segment_sum_rows` on CPU tensors:
+    ``index_add_`` column by column over the rows in this order, which is
+    element order inside a segment, with the flush."""
+    del n_rows
+    n = starts.shape[0] - 1
+    lo, hi = int(starts[0]), int(starts[-1])
+    seg = torch.repeat_interleave(torch.arange(n), starts.diff())
+    return torch.stack([_flush_tiny_segments(
+        torch.zeros(n, dtype=rows.dtype).index_add(0, seg, col[lo:hi]),
+        col[lo:hi], seg) for col in rows], dim=1)
+
+
+def _segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
+                      n_rows: int) -> torch.Tensor:
+    """The forward of :func:`segment_sum_rows`."""
     global LAUNCHES
     cols, stride = rows.shape
     n = starts.shape[0] - 1
@@ -407,11 +457,7 @@ def segment_sum_rows(rows: torch.Tensor, starts: torch.Tensor,
                          f"real: at most {_MAX_COLS} columns of a multiple "
                          f"of {_CHUNK_ROWS} rows")
     if rows.device.type == "cpu" and starts.device.type == "cpu":
-        lo, hi = int(starts[0]), int(starts[-1])
-        seg = torch.repeat_interleave(torch.arange(n), starts.diff())
-        return torch.stack([_flush_tiny_segments(
-            torch.zeros(n, dtype=rows.dtype).index_add_(0, seg, col[lo:hi]),
-            col[lo:hi], seg) for col in rows], dim=1)
+        return segment_sum_rows_plain(rows, starts, n_rows)
     if rows.device.type != "cuda" or starts.device != rows.device:
         raise ValueError("the CUDA kernel needs rows and starts on one CUDA "
                          f"device, got {rows.device} and {starts.device}")

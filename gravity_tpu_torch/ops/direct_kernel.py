@@ -10,7 +10,9 @@ by ``ops/cuda_build.py``.
 
 :func:`accelerations_vs_kernel` takes the plain PyTorch version
 (``ops/forces.py::accelerations_vs``) only for tensors that lie on the
-CPU. For CUDA tensors it launches the kernel or raises.
+CPU. For CUDA tensors it launches the kernel or raises. Its backward, on
+every device, is the JAX package's dense VJP (``ops/forces.py::
+DenseVJP``): plain PyTorch, no kernel, as JAX has no backward kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from ..constants import CUTOFF_RADIUS, G
 from ..telemetry.perf import count_launch
 from . import cuda_build
 from .cuda_build import BUILD_DIR, NVCC_FLAGS  # noqa: F401  (public names)
-from .forces import accelerations_vs, rounded
+from .forces import accelerations_vs, rounded, with_dense_vjp
 
 _ENTRY = {torch.float32: "nbody_direct_f32", torch.float64: "nbody_direct_f64",
           torch.bfloat16: "nbody_direct_bf16"}
@@ -189,7 +191,17 @@ def accelerations_vs_kernel(
     ``masses_j`` (K,): the contract of ``ops.forces.accelerations_vs``.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    on the current stream, without synchronising, or raise."""
+    on the current stream, without synchronising, or raise. Differentiable
+    on every device through :class:`~.forces.DenseVJP` (the JAX package's
+    ``wrap_with_dense_vjp``): the backward launches no kernel."""
+    return with_dense_vjp(functools.partial(_launch, g=g, cutoff=cutoff,
+                                            eps=eps),
+                          pos_i, pos_j, masses_j, g=g, cutoff=cutoff, eps=eps)
+
+
+def _launch(pos_i, pos_j, masses_j, *, g: float, cutoff: float,
+            eps: float) -> torch.Tensor:
+    """The forward of :func:`accelerations_vs_kernel`."""
     global LAUNCHES
     if all(t.device.type == "cpu" for t in (pos_i, pos_j, masses_j)):
         return accelerations_vs(pos_i, pos_j, masses_j, g=g, cutoff=cutoff,
@@ -262,7 +274,17 @@ def accelerations_vs_batched_kernel(
 
     CPU tensors take the plain batched version
     (:func:`accelerations_vs_batched`); CUDA tensors launch the kernel on
-    the current stream, without synchronising, or raise."""
+    the current stream, without synchronising, or raise. Differentiable
+    through :class:`~.forces.DenseVJP`, slot by slot (the fit class's
+    batched rollout)."""
+    return with_dense_vjp(functools.partial(_launch_batched, g=g,
+                                            cutoff=cutoff, eps=eps),
+                          pos_i, pos_j, masses_j, g=g, cutoff=cutoff, eps=eps)
+
+
+def _launch_batched(pos_i, pos_j, masses_j, *, g: float, cutoff: float,
+                    eps: float) -> torch.Tensor:
+    """The forward of :func:`accelerations_vs_batched_kernel`."""
     global BATCHED_LAUNCHES
     if all(t.device.type == "cpu" for t in (pos_i, pos_j, masses_j)):
         return accelerations_vs_batched(pos_i, pos_j, masses_j, g=g,
@@ -310,8 +332,9 @@ def make_direct_local_kernel(*, g: float = G, cutoff: float = CUTOFF_RADIUS,
                              eps: float = 0.0):
     """A (targets, sources, masses) -> accelerations closure over
     :func:`accelerations_vs_kernel`: the (M, K) launches of the multirate
-    fast kicks (the counterpart of ``make_pallas_local_kernel``). Forward
-    only: the backward pass comes with ROADMAP Queue 1 item 9."""
+    fast kicks and of a rank's block (the counterpart of
+    ``make_pallas_local_kernel``), differentiable through the dense
+    backward (:class:`~.forces.DenseVJP`)."""
 
     def kernel(pos_i, pos_j, masses_j):
         return accelerations_vs_kernel(pos_i, pos_j, masses_j, g=g,

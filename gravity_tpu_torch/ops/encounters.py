@@ -82,6 +82,47 @@ def closest_pairs(
             torch.where(valid, best_j, -1))
 
 
+# The most (slot, target, source) pairs one row chunk of closest_pair_batched
+# holds (its (B, rows, n, 3) differences: 1.2 GiB at fp32).
+MIN_PAIR_PAIRS = 1 << 25
+
+
+def closest_pair_batched(positions: torch.Tensor, masses: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`closest_pairs` at k = 1 of each system of a batch, positions
+    (B, n, 3) and masses (B, n): ((B,) distance, (B,) i, (B,) j), j > i,
+    zero-mass bodies ignored, (inf, -1, -1) where fewer than two bodies
+    are massive. The pair's r^2 is the same sum of the same differences;
+    a running minimum over row chunks of all slots at once stands in for
+    the running top-k (the first of equal minima kept, as a stable top-k
+    keeps it), so a step costs a few launches a chunk, not a slot's
+    chunks and a top-k each."""
+    b, n = positions.shape[:2]
+    dtype, device = positions.dtype, positions.device
+    mask = masses > 0
+    cols = torch.arange(n, device=device)
+    rows_per = max(1, min(n, MIN_PAIR_PAIRS // max(1, b * n)))
+    best = torch.full((b,), math.inf, dtype=dtype, device=device)
+    best_i = torch.full((b,), -1, dtype=torch.int64, device=device)
+    best_j = torch.full((b,), -1, dtype=torch.int64, device=device)
+    for i0 in range(0, n, rows_per):
+        pos_i = positions[:, i0:i0 + rows_per]
+        rows = torch.arange(i0, i0 + pos_i.shape[1], device=device)
+        diff = positions[:, None, :, :] - pos_i[:, :, None, :]
+        r2 = (diff * diff).sum(dim=-1)  # (B, rows, n)
+        keep = ((cols[None, None, :] > rows[None, :, None])
+                & mask[:, i0:i0 + rows_per, None] & mask[:, None, :])
+        r2 = torch.where(keep, r2, torch.full_like(r2, math.inf))
+        r2_min, flat = r2.flatten(1).min(dim=1)
+        better = r2_min < best
+        best = torch.where(better, r2_min, best)
+        best_i = torch.where(better, rows[flat // n], best_i)
+        best_j = torch.where(better, flat % n, best_j)
+    valid = torch.isfinite(best)
+    return (torch.sqrt(best), torch.where(valid, best_i, -1),
+            torch.where(valid, best_j, -1))
+
+
 def min_separation(positions, masses, *, chunk: int = 1024,
                    box: float = 0.0):
     """Smallest distance between any two massive particles."""

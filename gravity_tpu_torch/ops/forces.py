@@ -15,13 +15,22 @@ matrix product, so TF32 settings cannot touch it.
 the cell-list backend (``ops/nlist.py``), whose exact reference this
 masked sum is. ``box`` > 0 takes each pair separation to its minimum
 image: the rcut-masked periodic oracle of the cell list's periodic form.
+
+The backward of the hand-written kernels lives here too, as in the JAX
+package (``wrap_with_dense_vjp``): :class:`DenseVJP` runs a kernel
+forward and takes the VJP of :func:`accelerations_vs` with the same
+constants backward, in row blocks of targets (:func:`backward_rows`). A
+kernel entry with no backward calls :func:`require_no_grad`, which raises
+instead of returning a tensor cut from the graph.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..constants import CUTOFF_RADIUS, G
 
@@ -168,3 +177,124 @@ def potential_energy(
     ])
     # Each unordered pair is counted twice in the full matrix.
     return -0.5 * (gm * rows).sum()
+
+
+# ---------------------------------------------------------------------------
+# The kernels' backward
+# ---------------------------------------------------------------------------
+
+# The most (slot, target, source) pairs one row block of the dense backward
+# holds: its pair temporaries are BACKWARD_PAIR_UNITS of these at once
+# (telemetry/perf.py counts them for a fit key).
+BACKWARD_PAIRS = 1 << 24
+
+
+class NoBackwardError(RuntimeError):
+    """A kernel with no backward was reached by a differentiable call."""
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise :class:`NoBackwardError` naming ``name`` when autograd would
+    need a gradient through it: grad mode is on and an input requires
+    grad. Every kernel entry without a backward calls it on the card
+    (and the forward-only sharded engines on every device), so that no
+    such call returns a tensor cut from the graph."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise NoBackwardError(
+            f"{name} has no backward: it is forward only, as the JAX "
+            "package's form is, and a gradient through it would be "
+            "silently cut; differentiate through a backend that has one "
+            "(dense, chunked, pallas, pallas-mxu, nlist) or call it under "
+            "torch.no_grad()")
+
+
+def backward_rows(m: int, k: int, slots: int = 1) -> int:
+    """The target rows of one block of the dense backward at M targets, K
+    sources and ``slots`` systems: at most :data:`BACKWARD_PAIRS` pairs."""
+    return max(1, min(m, BACKWARD_PAIRS // max(1, slots * k)))
+
+
+def accelerations_vs_vjp(pos_i, pos_j, masses_j, ct, *, g: float,
+                         cutoff: float, eps: float, rcut: float = 0.0,
+                         needs=(True, True, True)):
+    """The VJP of :func:`accelerations_vs` at (pos_i, pos_j, masses_j) with
+    cotangent ``ct``: (d pos_i, d pos_j, d masses_j), None where ``needs``
+    says no. Leading batch axes sum each system apart. The targets run in
+    row blocks of :func:`backward_rows` (the same math as one block, as
+    :func:`accelerations_vs_chunked` is of the dense sum), so that the
+    pair temporaries stay bounded."""
+    m, k = pos_i.shape[-2], pos_j.shape[-2]
+    rows = backward_rows(m, k, math.prod(pos_i.shape[:-2]))
+    kw = dict(g=g, cutoff=cutoff, eps=eps, rcut=rcut)
+    pj = pos_j.detach().requires_grad_(needs[1])
+    mj = masses_j.detach().requires_grad_(needs[2])
+    d_i, d_j, d_m = [], None, None
+    for r0 in range(0, m, rows):
+        pi = pos_i[..., r0:r0 + rows, :].detach().requires_grad_(needs[0])
+        inputs = [t for t, need in zip((pi, pj, mj), needs) if need]
+        with torch.enable_grad():
+            acc = accelerations_vs(pi, pj, mj, **kw)
+            grads = list(torch.autograd.grad(
+                acc, inputs, ct[..., r0:r0 + rows, :], allow_unused=True))
+        if needs[0]:
+            d_i.append(grads.pop(0))
+        if needs[1]:
+            gj = grads.pop(0)
+            d_j = gj if d_j is None else d_j + gj
+        if needs[2]:
+            gm = grads.pop(0)
+            d_m = gm if d_m is None else d_m + gm
+    d_i = torch.cat(d_i, dim=-2) if needs[0] and d_i else None
+    return d_i, d_j, d_m
+
+
+class DenseVJP(torch.autograd.Function):
+    """A kernel forward with the JAX package's dense backward
+    (``gravity_tpu/ops/forces.py::wrap_with_dense_vjp``): ``forward(pos_i,
+    pos_j, masses_j)`` runs (a hand-written kernel on the card, its plain
+    version on the CPU) and the backward is :func:`accelerations_vs_vjp`
+    with the same ``g``, ``cutoff``, ``eps`` and ``rcut``: the jnp VJP of
+    the force contract the kernels implement, not a kernel. Once
+    differentiable: a second derivative raises."""
+
+    @staticmethod
+    def forward(ctx, forward, kw, pos_i, pos_j, masses_j):
+        ctx.kw = kw
+        ctx.save_for_backward(pos_i, pos_j, masses_j)
+        return forward(pos_i, pos_j, masses_j)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        pos_i, pos_j, masses_j = ctx.saved_tensors
+        grads = accelerations_vs_vjp(pos_i, pos_j, masses_j, ct, **ctx.kw,
+                                     needs=ctx.needs_input_grad[2:])
+        return (None, None, *grads)
+
+
+def with_dense_vjp(forward, pos_i, pos_j, masses_j, *, g: float,
+                   cutoff: float, eps: float, rcut: float = 0.0):
+    """``forward(pos_i, pos_j, masses_j)``, through :class:`DenseVJP` where
+    autograd needs a gradient (grad mode on and an input requiring grad),
+    called as it is otherwise."""
+    if torch.is_grad_enabled() and (pos_i.requires_grad or pos_j.requires_grad
+                                    or masses_j.requires_grad):
+        return DenseVJP.apply(
+            forward, dict(g=g, cutoff=cutoff, eps=eps, rcut=rcut),
+            pos_i, pos_j, masses_j)
+    return forward(pos_i, pos_j, masses_j)
+
+
+def wrap_with_dense_vjp(forward, *, g: float = G,
+                        cutoff: float = CUTOFF_RADIUS, eps: float = 0.0,
+                        rcut: float = 0.0):
+    """A ``(pos_i, pos_j, masses_j) -> acc`` closure over ``forward`` with
+    the dense backward (:func:`with_dense_vjp`): ONE definition for every
+    kernel, so their backward passes cannot drift apart."""
+
+    def kernel(pos_i, pos_j, masses_j):
+        return with_dense_vjp(forward, pos_i, pos_j, masses_j, g=g,
+                              cutoff=cutoff, eps=eps, rcut=rcut)
+
+    return kernel

@@ -36,7 +36,7 @@ from ..constants import CUTOFF_RADIUS, G
 from ..telemetry.perf import count_launch
 from . import cuda_build
 from .direct_kernel import source_chunks
-from .forces import rounded
+from .forces import require_no_grad, rounded, with_dense_vjp
 
 # Gram-formulation noise floor: pairs with r^2 <= TAU * (|x_i|^2 +
 # |x_j|^2) are below the fp32 cancellation resolution and are treated as
@@ -209,12 +209,14 @@ def gram_acc4(xi: torch.Tensor, xj: torch.Tensor, gmj: torch.Tensor, *,
     """:func:`gram_acc4_plain`'s contract, bf16 when the operands are.
     CPU tensors take the plain version; CUDA tensors launch
     ``csrc/nbody_mxu.cu`` on the current stream, without synchronising,
-    or raise."""
+    or raise (also where autograd would need a gradient through it: the
+    differentiable entry is :func:`accelerations_vs_mxu_kernel`)."""
     global LAUNCHES
     bf16 = xi.dtype == torch.bfloat16
     if all(t.device.type == "cpu" for t in (xi, xj, gmj)):
         return gram_acc4_plain(xi, xj, gmj, cutoff=cutoff, eps=eps,
                                bf16=bf16)
+    require_no_grad("nbody_mxu (gram_acc4)", xi, xj, gmj)
     _check(xi, xj, gmj)
     device = xi.device
     m, k = xi.shape[0], xj.shape[0]
@@ -258,6 +260,7 @@ def gram_acc4_batched(xi: torch.Tensor, xj: torch.Tensor, gmj: torch.Tensor,
                 for b in range(xi.shape[0])]
         return (torch.stack(rows) if rows
                 else xi.new_zeros((0, xi.shape[1], 4), dtype=torch.float32))
+    require_no_grad("nbody_mxu/batched (gram_acc4_batched)", xi, xj, gmj)
     if xi.ndim != 3:
         raise ValueError(f"xi must be (B, M, 3), got {tuple(xi.shape)}")
     batch = xi.shape[0]
@@ -328,7 +331,19 @@ def accelerations_vs_mxu_kernel(
 
     ``precision``: "fp32" | "bf16" | "dtype" (bf16 for a bf16 input,
     fp32 otherwise). Computes in fp32 (bf16 operands for "bf16") and
-    returns the input dtype: a float64 input computes in float32."""
+    returns the input dtype: a float64 input computes in float32.
+    Differentiable on every device through :class:`~.forces.DenseVJP`
+    (``make_pallas_mxu_local_kernel``'s ``wrap_with_dense_vjp``): the
+    backward is the exact direct sum's VJP, whatever the precision."""
+    return with_dense_vjp(
+        functools.partial(_mxu_forward, g=g, cutoff=cutoff, eps=eps,
+                          precision=precision),
+        pos_i, pos_j, masses_j, g=g, cutoff=cutoff, eps=eps)
+
+
+def _mxu_forward(pos_i, pos_j, masses_j, *, g: float, cutoff: float,
+                 eps: float, precision: str) -> torch.Tensor:
+    """The forward of :func:`accelerations_vs_mxu_kernel`."""
     out_dtype = pos_i.dtype
     compute = _compute_dtype(precision, out_dtype)
     # Centre on the source centroid: the noise floor and the epilogue's
@@ -368,7 +383,17 @@ def accelerations_vs_mxu_batched_kernel(
     Slot b's result has the bits of :func:`accelerations_vs_mxu_kernel`
     on slot b's arrays: each slot's centroid is reduced on its own (K, 3)
     rows, as the solo wrapper reduces them, and the rest is elementwise.
-    CPU tensors take the plain batched version."""
+    CPU tensors take the plain batched version. Differentiable through
+    :class:`~.forces.DenseVJP`, slot by slot."""
+    return with_dense_vjp(
+        functools.partial(_mxu_batched_forward, g=g, cutoff=cutoff, eps=eps,
+                          precision=precision),
+        pos_i, pos_j, masses_j, g=g, cutoff=cutoff, eps=eps)
+
+
+def _mxu_batched_forward(pos_i, pos_j, masses_j, *, g: float, cutoff: float,
+                         eps: float, precision: str) -> torch.Tensor:
+    """The forward of :func:`accelerations_vs_mxu_batched_kernel`."""
     if all(t.device.type == "cpu" for t in (pos_i, pos_j, masses_j)):
         return accelerations_vs_mxu_batched(
             pos_i, pos_j, masses_j, g=g, cutoff=cutoff, eps=eps,
@@ -392,8 +417,9 @@ def pairwise_accelerations_mxu(positions, masses, **kwargs) -> torch.Tensor:
 
 def make_mxu_local_kernel(*, g: float = G, cutoff: float = CUTOFF_RADIUS,
                           eps: float = 0.0, precision: str = "dtype"):
-    """A (targets, sources, masses) -> accelerations closure. Forward only:
-    the backward pass comes with ROADMAP Queue 1 item 9."""
+    """A (targets, sources, masses) -> accelerations closure over
+    :func:`accelerations_vs_mxu_kernel`, differentiable through the dense
+    backward (:class:`~.forces.DenseVJP`)."""
 
     def kernel(pos_i, pos_j, masses_j):
         return accelerations_vs_mxu_kernel(

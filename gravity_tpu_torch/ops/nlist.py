@@ -59,7 +59,15 @@ slab entry for the isolated pair tiles of CUDA tensors; a periodic slab,
 like the cubic periodic cell list, stays plain PyTorch on every device
 (:func:`pair_cells_slab_plain`).
 
-Not ported: backward passes (Queue 1 item 9).
+Gradients: the kernel closures (:func:`make_nlist_local_kernel`,
+:func:`make_nlist_batched_kernel`) carry the JAX package's rcut-masked
+dense backward (``ops/forces.py::DenseVJP``; JAX wraps its Pallas engine
+with ``wrap_with_dense_vjp(..., rcut=rcut)``) on every device. The pair
+tile launches themselves have none: on the card each raises where
+autograd would need a gradient through it (the ``ewald`` kind and the
+untruncated near field, whose ``pallas_call`` has no autodiff rule in JAX
+either, and the slab tiles), and never returns a tensor cut from the
+graph. The periodic form is plain PyTorch and differentiable.
 """
 
 from __future__ import annotations
@@ -84,7 +92,7 @@ from .cells import (
     cell_ids,
     grid_coords,
 )
-from .forces import rounded
+from .forces import require_no_grad, rounded, wrap_with_dense_vjp
 
 # Default static per-cell source cap when no occupancy data is available.
 DEFAULT_CAP = 64
@@ -907,6 +915,9 @@ def pair_cells_kernel(tcells_pos, t_count, cells_pos, cells_gm, s_count,
     if all(t.device.type == "cpu" for t in args if isinstance(t, torch.Tensor)):
         return pair_cells_plain(*args, cutoff=cutoff, eps=eps,
                                 use_rcut=use_rcut, kind=kind)
+    require_no_grad(
+        f"nlist_pair/{launch_key(kind, use_rcut, tcells_pos.dtype)}",
+        tcells_pos, cells_pos, cells_gm, params)
     _check(*args, kind)
     dtype = tcells_pos.dtype
     out = _launch(_ENTRY[dtype], *args, cutoff=cutoff, eps=eps,
@@ -936,6 +947,8 @@ def pair_cells_kernel_batched(tcells_pos, t_count, cells_pos, cells_gm,
     args = (tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params)
     if all(t.device.type == "cpu" for t in args if isinstance(t, torch.Tensor)):
         return pair_cells_plain_batched(*args, cutoff=cutoff, eps=eps)
+    require_no_grad("nlist_pair/batched", tcells_pos, cells_pos, cells_gm,
+                    params)
     batch = tcells_pos.shape[0] if tcells_pos.dim() else 0
     _check(*args, "newton", (batch,))
     if batch > MAX_SLOTS:
@@ -974,6 +987,9 @@ def pair_cells_slab_kernel(tcells_pos, t_count, ext_pos, ext_gm, ext_count,
         return pair_cells_slab_plain(tcells_pos, t_count, ext_pos, ext_gm,
                                      sx, side, params, cutoff=cutoff,
                                      eps=eps, kind=kind)
+    require_no_grad(
+        f"nlist_pair/{launch_key(kind, True, tcells_pos.dtype)}/slab",
+        tcells_pos, ext_pos, ext_gm, params)
     if sx < 1:
         raise ValueError(f"a slab launch needs sx >= 1 planes, got {sx}")
     _check(*args, side, params, kind, slab=sx)
@@ -1226,15 +1242,20 @@ def make_nlist_local_kernel(*, rcut: float, side: int, cap: int = DEFAULT_CAP,
     """A (targets, sources, masses) -> accelerations closure; its
     ``sizing`` attribute is the as-run (side, cap, t_cap). ``t_cap`` below
     ``cap`` bins the targets (a multirate fast rung) into fewer slots a
-    cell than the sources. Forward only: the backward pass comes with
-    ROADMAP Queue 1 item 9."""
+    cell than the sources. Differentiable: isolated (``box`` 0), through
+    the rcut-masked dense backward (:class:`~.forces.DenseVJP` with
+    ``rcut``, as the JAX package wraps its Pallas engine; the forward
+    launches ``nlist_pair.cu`` on the card); periodic, by PyTorch's own
+    differentiation of the plain form."""
 
-    def kernel(pos_i, pos_j, masses_j):
+    def forward(pos_i, pos_j, masses_j):
         return nlist_accelerations_vs(
             pos_i, pos_j, masses_j, rcut=rcut, side=side, cap=cap,
             t_cap=t_cap, g=g, cutoff=cutoff, eps=eps, box=box,
         )
 
+    kernel = forward if box > 0.0 else wrap_with_dense_vjp(
+        forward, g=g, cutoff=cutoff, eps=eps, rcut=rcut)
     kernel.sizing = (side, cap, t_cap or cap)
     return kernel
 
@@ -1332,9 +1353,10 @@ def make_nlist_batched_kernel(*, rcut: float, side: int,
     ``(pos_i, pos_j, masses_j) -> acc`` closure over (B, n, 3) and (B, n)
     for the self form the engine evaluates (``pos_i is pos_j``), through
     :func:`nlist_accelerations_vs_batched`; ``sizing`` is (side, cap,
-    cap)."""
+    cap). Differentiable through the rcut-masked dense backward, slot by
+    slot (a served ``fit`` of an nlist key)."""
 
-    def kernel(pos_i, pos_j, masses_j):
+    def forward(pos_i, pos_j, masses_j):
         if pos_i is not pos_j:
             raise ValueError("the batched cell list evaluates the self form "
                              "(targets = sources) only")
@@ -1342,5 +1364,7 @@ def make_nlist_batched_kernel(*, rcut: float, side: int,
             pos_j, masses_j, rcut=rcut, side=side, cap=cap, g=g,
             cutoff=cutoff, eps=eps)
 
+    kernel = wrap_with_dense_vjp(forward, g=g, cutoff=cutoff, eps=eps,
+                                 rcut=rcut)
     kernel.sizing = (side, cap, cap)
     return kernel

@@ -43,6 +43,9 @@ every step of it on the rank's device with no host read:
 ``make_halo_nlist_accel`` returns ``accel2(pos_l, m_l)`` with the contract
 of :func:`.sharded.make_sharded_accel2`: a rank's rows in, its rows out,
 masses an argument. Every rank calls it in the same order (collectives).
+It is forward only: where autograd would need a gradient through it, it
+raises on every device (``ops/forces.require_no_grad``) rather than cut
+the graph; no JAX test pins a gradient through the JAX slab engines.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ from ..ops.cells import (
     segment_sum,
     sorted_segment_sum,
 )
-from ..ops.forces import rounded
+from ..ops.forces import require_no_grad, rounded
 from ..ops.nlist import (
     _monopole_w,
     _overflow_targets_slab,
@@ -216,6 +219,9 @@ def _exchange(planes: tuple, ranks: tuple, d: int, box: float,
 def _halo_body(pos_l, m_l, *, mesh: ParticleMesh, side: int, cap: int,
                mig_cap: int, rcut: float, g: float, cutoff: float,
                eps: float, box: float, kind: str, ewald_scales):
+    # Forward only, on every device: its collectives and tile launches
+    # carry no gradient (ROADMAP.md Queue 3).
+    require_no_grad("the halo cell list (parallel/halo.py)", pos_l, m_l)
     ranks, group = mesh.inner_ranks, mesh.inner_group
     devices = len(ranks)
     d = ranks.index(mesh.rank)

@@ -20,6 +20,11 @@ each rank holds its own rows of the particle axis.
 
 A failed ``init_process_group`` or a collective's error raises: nothing
 falls back to another backend or to the CPU.
+
+Gradients cross ranks as the JAX package's collectives carry them: the
+gather's backward is the reduce-scatter of the cotangent by rows
+(:class:`AllGatherRows`), the loss of a sharded program being the sum of
+the ranks' own losses, as a global sum over the sharded state is in JAX.
 """
 
 from __future__ import annotations
@@ -166,12 +171,50 @@ def particle_sharding(mesh: ParticleMesh, n: int) -> slice:
 
 def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     """The ranks' ``t`` of ``group`` (the world for None) stacked along
-    dim 0 in rank order: ``lax.all_gather(..., tiled=True)``."""
+    dim 0 in rank order: ``lax.all_gather(..., tiled=True)``.
+    Differentiable (:class:`AllGatherRows`) where autograd needs it."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        return AllGatherRows.apply(t, group)
+    return _gather_rows(t, group)
+
+
+def _gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     size = dist.get_world_size(group)
     out = t.new_empty((size * t.shape[0], *t.shape[1:]))
     _all_gather(out, t, group=group)
     return out
+
+
+def reduce_scatter_rows(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the ranks of ``group`` of ``t`` (P r, ...), this rank's
+    r rows of it: ``lax.psum_scatter(..., tiled=True)``, the transpose of
+    :func:`all_gather_rows`. NCCL reduce-scatters; gloo, which has no
+    reduce-scatter of a tensor, all-reduces and keeps the rows."""
+    t = t.contiguous()
+    size, rank = dist.get_world_size(group), dist.get_rank(group)
+    per = t.shape[0] // size
+    if dist.get_backend(group) == "nccl":
+        out = t.new_empty((per, *t.shape[1:]))
+        dist.reduce_scatter_tensor(out, t, group=group)
+        return out
+    total = t.clone()
+    dist.all_reduce(total, group=group)
+    return total[rank * per:(rank + 1) * per]
+
+
+class AllGatherRows(torch.autograd.Function):
+    """:func:`all_gather_rows` with its transpose as the backward: each
+    rank's rows get the sum of every rank's cotangent of them."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _gather_rows(t, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return reduce_scatter_rows(ct, ctx.group), None
 
 
 def shard_state(state: ParticleState, mesh: ParticleMesh) -> ParticleState:

@@ -20,6 +20,13 @@ A local kernel is ``(pos_targets (M, 3), pos_sources (K, 3), m_sources
 (K,)) -> (M, 3)``: ``simulation.make_local_kernel`` gives each backend's.
 The functions are collectives: every rank of the mesh calls them in the
 same order.
+
+Both strategies and the rectangular form are differentiable, as the JAX
+package's ``lax.all_gather``, ``ppermute`` and ``psum`` are: the gather's
+backward reduce-scatters (``mesh.AllGatherRows``), a ring hop's sends the
+cotangents one rank back (:class:`RingShift`), and the rectangular sum's
+all-reduces them to every rank (:class:`AllReduceSum`). A forward that
+needs no gradient keeps the overlapped hops.
 """
 
 from __future__ import annotations
@@ -51,6 +58,15 @@ def ring_sum(targets, src_pos, src_m, *, ranks, rank, group, local_kernel):
     p = len(ranks)
     i = ranks.index(rank)
     nxt, prv = ranks[(i + 1) % p], ranks[(i - 1) % p]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (targets, src_pos, src_m)):
+        # The differentiable form: each hop's exchange a RingShift, after
+        # the hop's kernel (no overlap).
+        acc = local_kernel(targets, src_pos, src_m)
+        for _ in range(p - 1):
+            src_pos, src_m = RingShift.apply(src_pos, src_m, nxt, prv, group)
+            acc = acc + local_kernel(targets, src_pos, src_m)
+        return acc
     src_pos, src_m = src_pos.contiguous(), src_m.contiguous()
     acc = torch.zeros_like(targets)
     for hop in range(p):
@@ -70,6 +86,54 @@ def ring_sum(targets, src_pos, src_m, *, ranks, rank, group, local_kernel):
         if pending:
             src_pos, src_m = next_pos, next_m
     return acc
+
+
+def _exchange(tensors, send_to: int, recv_from: int, group) -> list:
+    """Each of ``tensors`` sent to rank ``send_to`` and its like received
+    from ``recv_from``, waited on."""
+    tensors = [t.contiguous() for t in tensors]
+    got = [torch.empty_like(t) for t in tensors]
+    ops = [dist.P2POp(dist.isend, t, send_to, group) for t in tensors]
+    ops += [dist.P2POp(dist.irecv, t, recv_from, group) for t in got]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return got
+
+
+class RingShift(torch.autograd.Function):
+    """One hop of the ring: (positions, masses) sent to the next rank, the
+    previous rank's received (``ppermute`` i -> i + 1); the backward sends
+    the cotangents the other way (i -> i - 1), ``ppermute``'s transpose."""
+
+    @staticmethod
+    def forward(ctx, pos, m, nxt: int, prv: int, group):
+        ctx.peers = (nxt, prv, group)
+        return tuple(_exchange((pos, m), nxt, prv, group))
+
+    @staticmethod
+    def backward(ctx, d_pos, d_m):
+        nxt, prv, group = ctx.peers
+        d_pos, d_m = _exchange((d_pos, d_m), prv, nxt, group)
+        return d_pos, d_m, None, None, None
+
+
+class AllReduceSum(torch.autograd.Function):
+    """``all_reduce`` (SUM) of a rank's partial, the same total on every
+    rank (``psum``); the backward all-reduces the cotangents, so that each
+    rank's partial gets the sum of every rank's cotangent of the total
+    (``psum``'s transpose)."""
+
+    @staticmethod
+    def forward(ctx, partial):
+        total = partial.contiguous().clone()
+        dist.all_reduce(total, op=dist.ReduceOp.SUM)
+        return total
+
+    @staticmethod
+    def backward(ctx, ct):
+        total = ct.contiguous().clone()
+        dist.all_reduce(total, op=dist.ReduceOp.SUM)
+        return total
 
 
 def make_sharded_accel2(
@@ -118,7 +182,10 @@ def make_sharded_rect_accel(
     del mesh
 
     def rect(targets, pos_l, m_l):
-        partial_acc = local_kernel(targets, pos_l, m_l).contiguous()
+        partial_acc = local_kernel(targets, pos_l, m_l)
+        if torch.is_grad_enabled() and partial_acc.requires_grad:
+            return AllReduceSum.apply(partial_acc)
+        partial_acc = partial_acc.contiguous()
         dist.all_reduce(partial_acc, op=dist.ReduceOp.SUM)
         return partial_acc
 

@@ -21,12 +21,17 @@ The split is by cells, not by rows: every rank bins every target, so the
 slot overflow pattern is the unsharded one, and a sharded evaluation has
 the unsharded evaluation's bits on any world. The functions are
 collectives: every rank calls them in the same order.
+
+Forward only: where autograd would need a gradient through them they
+raise (``ops/forces.require_no_grad``), on every device; no JAX test pins
+a gradient through the JAX forms (ROADMAP.md Queue 3).
 """
 
 from __future__ import annotations
 
 from ..constants import CUTOFF_RADIUS, G
 from ..ops import fmm, sfmm
+from ..ops.forces import require_no_grad
 from .mesh import ParticleMesh, all_gather_rows
 
 
@@ -40,6 +45,7 @@ def make_sharded_fmm_accel(mesh: ParticleMesh, *, depth: int,
     share = fmm.SlabShare(mesh.rank, mesh.size, depth)
 
     def accel(pos_l, m_l):
+        require_no_grad("the sharded dense-grid FMM", pos_l, m_l)
         pos, m = all_gather_rows(pos_l), all_gather_rows(m_l)
         acc = fmm._dense_eval(pos, pos, m, depth=depth, leaf_cap=leaf_cap,
                               t_cap=leaf_cap, ws=ws, g=g, cutoff=cutoff,
@@ -66,6 +72,7 @@ def make_sharded_sfmm_accel(mesh: ParticleMesh, *, depth: int,
     share = fmm.ChunkShare(mesh.rank, mesh.size, local * k_chunk_eff)
 
     def accel(pos_l, m_l):
+        require_no_grad("the sharded sparse FMM", pos_l, m_l)
         pos, m = all_gather_rows(pos_l), all_gather_rows(m_l)
         acc = sfmm.sfmm_accelerations(
             pos, m, depth=depth, leaf_cap=leaf_cap, k_cells=k_eff, ws=ws,

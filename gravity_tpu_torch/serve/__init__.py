@@ -16,8 +16,10 @@ Counterpart of ``gravity_tpu/serve/``. Three layers:
 
 Fleet resilience: :mod:`.leases` (TTL job leases with fencing tokens and
 heartbeats) and :mod:`.breaker` (per-backend circuit breakers at
-admission). The job classes other than ``integrate``, the pod router
-and the fleet verbs are ROADMAP.md Queue 1 item 9.
+admission). Traffic classes (:mod:`.jobs`): ``integrate``, ``fit``,
+``sweep``, ``watch`` and ``sharded-integrate``, each under the same
+scheduler, lease and breaker contracts. The pod router and the fleet
+verbs are the rest of ROADMAP.md Queue 1 item 9.
 """
 
 from .breaker import BreakerBoard, CircuitBreaker  # noqa: F401
@@ -29,7 +31,14 @@ from .engine import (  # noqa: F401
     batch_key_for,
     bucket_size,
 )
-from .jobs import JobValidationError, get_class, job_types  # noqa: F401
+from .jobs import (  # noqa: F401
+    JobValidationError,
+    fit_solo,
+    get_class,
+    job_types,
+    sweep_member_solo,
+    watch_solo,
+)
 from .leases import Lease, LeaseManager  # noqa: F401
 from .scheduler import (  # noqa: F401
     EnsembleScheduler,

@@ -49,9 +49,11 @@ served and solo runs keep the same bits.
 
 Job classes other than ``integrate`` bring their own program family
 (``serve/jobs/``): the engine's batch lifecycle and round hand a key of
-such a class to its class (``sharded-integrate``: one system an exclusive
-batch, on a worker group of its own for D >= 2 devices,
-``serve/jobs/sharded.py``), as the JAX engine does.
+such a class to its class, as the JAX engine does: ``fit`` (a batched
+rollout and its backward a round), ``sweep-member`` and ``watch`` (the
+integrate round with a closest-pair carry, on a batch of the key's
+integrate twin, :func:`native_key`), ``sharded-integrate`` (one system an
+exclusive batch, on a worker group of its own for D >= 2 devices).
 
 Threads: a kernel runs on the CUDA device of the tensors it is given,
 and :attr:`EnsembleEngine.guard` (the daemon's round lock) must be held
@@ -87,6 +89,9 @@ MIN_BUCKET = 16
 # blind at admission; past this n the right tool is a solo run, whose
 # auto router can pick a fast solver for the data.
 MAX_BUCKET = 8192
+# The BatchKey.extra entries that are physics (a truncated key's rcut and
+# cell-list sizing), not a class's program parameters.
+PHYSICS_EXTRA = ("nlist_rcut", "nlist_side", "nlist_cap")
 
 
 def bucket_size(n: int, min_bucket: int = MIN_BUCKET) -> int:
@@ -285,15 +290,102 @@ def _resolved(backend: str) -> str:
             "pallas-mxu": MXU_BACKEND}.get(backend, backend)
 
 
+def native_key(key: BatchKey) -> BatchKey:
+    """The ``integrate`` twin of a class's key: the same bucket, slots,
+    backend and physics, without the class's program parameters (a sweep
+    member's and a watch's batch is one of these, with their carries
+    beside it)."""
+    return key._replace(job_type="integrate", extra=tuple(
+        (k, v) for k, v in key.extra if k in PHYSICS_EXTRA))
+
+
 def _key_config(key: BatchKey) -> SimulationConfig:
     """The physics of a key as a config at its bucket (the rcut of a
     truncated key from its ``extra``)."""
-    nlist_kw = {k: v for k, v in key.extra
-                if k in ("nlist_rcut", "nlist_side", "nlist_cap")}
+    nlist_kw = {k: v for k, v in key.extra if k in PHYSICS_EXTRA}
     return SimulationConfig(
         n=key.bucket_n, force_backend=key.backend, dtype=key.dtype,
         g=key.g, eps=key.eps, cutoff=key.cutoff, **nlist_kw,
     )
+
+
+def batched_kernel(key: BatchKey):
+    """``(B, M, 3) x (B, K, 3) x (B, K) -> (B, M, 3)`` of the key's
+    backend: one batched launch of a hand-written kernel for
+    ``pallas``/``pallas-mxu`` and for the pair tiles of ``nlist`` (their
+    plain batched versions only for CPU tensors; each differentiable
+    through the dense backward, ``ops/forces.DenseVJP``), the plain sum
+    over the batch for dense/chunked."""
+    cfg = _key_config(key)
+    common = dict(g=cfg.g, cutoff=cfg.cutoff, eps=cfg.eps)
+    if key.backend == "pallas":
+        return functools.partial(
+            direct_kernel.accelerations_vs_batched_kernel, **common)
+    if key.backend == "pallas-mxu":
+        return functools.partial(
+            mxu_kernel.accelerations_vs_mxu_batched_kernel, **common)
+    if key.backend == "nlist":
+        from ..simulation import _resolve_nlist_config
+
+        # Sized blind, as the solo kernel of the key is.
+        side, cap = _resolve_nlist_config(cfg, None)
+        return nlist.make_nlist_batched_kernel(
+            rcut=cfg.nlist_rcut, side=side, cap=cap, **common)
+    if cfg.nlist_rcut > 0.0:
+        common["rcut"] = cfg.nlist_rcut
+    if key.backend == "dense":
+        return functools.partial(accelerations_vs, **common)
+    if key.backend == "chunked":
+        return functools.partial(_chunked_batched, chunk=cfg.chunk,
+                                 **common)
+    raise ValueError(f"backend {key.backend!r} is not an engine backend")
+
+
+def solo_batched_kernel(config: SimulationConfig):
+    """The batched kernel a solo reference (``fit_solo``,
+    ``sweep_member_solo``, ``watch_solo``) runs on one slot at n: the
+    config's backend, ``dense`` for ``auto``/``direct``, as the JAX
+    package's solo references take it."""
+    backend = config.force_backend
+    if backend in ("auto", "direct"):
+        backend = "dense"
+    extra = ()
+    if backend == "nlist" or config.nlist_rcut > 0.0:
+        extra = tuple((k, getattr(config, k)) for k in PHYSICS_EXTRA)
+    return batched_kernel(BatchKey(
+        bucket_n=config.n, slots=1, backend=backend, dtype=config.dtype,
+        integrator=config.integrator, g=config.g, eps=config.eps,
+        cutoff=config.cutoff, extra=extra))
+
+
+def real_lanes_finite(n_real: torch.Tensor, *lanes) -> torch.Tensor:
+    """(B,) whether every real lane (the first ``n_real`` bodies of each
+    slot) of each (B, n, 3) tensor in ``lanes`` is finite: padding bodies
+    are massless test particles whose fate does not matter."""
+    real = (torch.arange(lanes[0].shape[1], device=lanes[0].device,
+                         dtype=torch.float64)[None, :]
+            < n_real[:, None])[:, :, None]
+    fin = None
+    for t in lanes:
+        ok = torch.where(real, torch.isfinite(t), True).flatten(1).all(dim=1)
+        fin = ok if fin is None else fin & ok
+    return fin
+
+
+def slot_args(dt: np.ndarray, remaining: np.ndarray, n_real: np.ndarray,
+              units: int, device: torch.device) -> tuple:
+    """(args, all_take) of a budgeted round: ``args`` (B, 3) float64 on
+    ``device``, each slot's dt, budget (clamped, :func:`budget_i32`) and
+    real particle count, shipped in one copy (pinned on the card, so
+    that the upload does not wait for it); ``all_take`` (host) the units
+    in which every slot takes, which skip the budget mask's select."""
+    budgets = budget_i32(remaining)
+    host = np.stack([dt.astype(np.float64), budgets.astype(np.float64),
+                     n_real.astype(np.float64)], axis=1)
+    args = torch.from_numpy(host)
+    if device.type == "cuda":
+        args = args.pin_memory().to(device, non_blocking=True)
+    return args, np.arange(units) < budgets.min(initial=0)
 
 
 def _chunked_batched(pos_i, pos_j, masses_j, *, chunk: int, **kw):
@@ -387,35 +479,19 @@ class EnsembleEngine:
 
         return make_local_kernel(_key_config(key), _resolved(key.backend))
 
-    def _batched_kernel(self, key: BatchKey):
-        """``(B, M, 3) x (B, K, 3) x (B, K) -> (B, M, 3)`` of the key's
-        backend: one batched launch of a hand-written kernel for
-        ``pallas``/``pallas-mxu`` and for the pair tiles of ``nlist``
-        (their plain batched versions only for CPU tensors), the plain
-        sum over the batch for dense/chunked."""
-        cfg = _key_config(key)
-        common = dict(g=cfg.g, cutoff=cfg.cutoff, eps=cfg.eps)
-        if key.backend == "pallas":
-            return functools.partial(
-                direct_kernel.accelerations_vs_batched_kernel, **common)
-        if key.backend == "pallas-mxu":
-            return functools.partial(
-                mxu_kernel.accelerations_vs_mxu_batched_kernel, **common)
-        if key.backend == "nlist":
-            from ..simulation import _resolve_nlist_config
+    def counted_kernel(self, key: BatchKey):
+        """The key's :func:`batched_kernel`, each call counted in
+        :attr:`force_evals` under the key's backend (the smoke's launches
+        = evaluations check)."""
+        kernel = batched_kernel(key)
+        evals = self.force_evals
+        evals.setdefault(key.backend, 0)
 
-            # Sized blind, as the solo kernel of the key is.
-            side, cap = _resolve_nlist_config(cfg, None)
-            return nlist.make_nlist_batched_kernel(
-                rcut=cfg.nlist_rcut, side=side, cap=cap, **common)
-        if cfg.nlist_rcut > 0.0:
-            common["rcut"] = cfg.nlist_rcut
-        if key.backend == "dense":
-            return functools.partial(accelerations_vs, **common)
-        if key.backend == "chunked":
-            return functools.partial(_chunked_batched, chunk=cfg.chunk,
-                                     **common)
-        raise ValueError(f"backend {key.backend!r} is not an engine backend")
+        def counted(pos_i, pos_j, masses_j):
+            evals[key.backend] += 1
+            return kernel(pos_i, pos_j, masses_j)
+
+        return counted
 
     def _seed_accel(self, key: BatchKey, positions, masses):
         """The carried-acceleration seed of one admitted slot: the solo
@@ -437,12 +513,9 @@ class EnsembleEngine:
         # Injected unbuildable backends (utils/faults.py) fail where the
         # JAX engine builds its kernels.
         faults.check_backend(key.backend, _resolved(key.backend))
-        kernel = self._batched_kernel(key)
-        evals = self.force_evals
-        evals.setdefault(key.backend, 0)
+        kernel = self.counted_kernel(key)
 
         def accel(p, mass):
-            evals[key.backend] += 1
             return kernel(p, p, mass)
 
         def round_fn(pos, vel, mass, acc, slot_args, all_take, *,
@@ -480,15 +553,8 @@ class EnsembleEngine:
                                            st.velocities),
                 )
                 a = torch.where(t, new_a, a)
-            # Finite watchdog over the REAL lanes only: padding bodies are
-            # massless test particles whose fate is irrelevant.
-            real = (torch.arange(pos.shape[1], device=device,
-                                 dtype=torch.float64)[None, :]
-                    < n_real[:, None])[:, :, None]
-            fin = (torch.where(real, torch.isfinite(st.positions), True)
-                   .flatten(1).all(dim=1)
-                   & torch.where(real, torch.isfinite(st.velocities), True)
-                   .flatten(1).all(dim=1))
+            # Finite watchdog over the REAL lanes only.
+            fin = real_lanes_finite(n_real, st.positions, st.velocities)
             keep = fin[:, None, None]
             return (torch.where(keep, st.positions, pos),
                     torch.where(keep, st.velocities, vel),
@@ -622,6 +688,23 @@ class EnsembleEngine:
                           rcut=self._key_rcut(key))
         return torch.cat([vec, pe.reshape(1)])
 
+    @staticmethod
+    def state_batch(batch):
+        """The batch that holds a class batch's integrating state: its
+        ``base`` (sweep members, watch), else the batch itself."""
+        return getattr(batch, "base", batch)
+
+    def _ledger_applicable(self, key: BatchKey, batch) -> bool:
+        """Whether the key's batches hold an integrating (positions,
+        velocities, masses) state whose conserved quantities mean
+        something: every integration class; not ``fit`` (its lanes hold
+        the optimizer's guess, ``conserves = False``)."""
+        if not getattr(self._job_class(key), "conserves", True):
+            return False
+        inner = self.state_batch(batch)
+        return all(hasattr(inner, f)
+                   for f in ("positions", "velocities", "masses"))
+
     def batch_ledger(self, batch: EnsembleBatch) -> np.ndarray:
         """Per-slot conservation-ledger components of a live batch: a
         ``(slots, 14)`` host array, the 13 ``LEDGER_VEC_FIELDS`` and the
@@ -630,12 +713,13 @@ class EnsembleEngine:
         :meth:`slot_ledger_host`. None for a class whose batch holds no
         conserving lanes (``conserves = False``)."""
         self._check_thread()
-        if not getattr(self._job_class(batch.key), "conserves", True):
+        if not self._ledger_applicable(batch.key, batch):
             return None
+        inner = self.state_batch(batch)
         rows = torch.stack([
-            self._ledger_row(batch.key, batch.positions[s],
-                             batch.velocities[s], batch.masses[s])
-            for s in range(batch.slots)
+            self._ledger_row(batch.key, inner.positions[s],
+                             inner.velocities[s], inner.masses[s])
+            for s in range(inner.slots)
         ])
         self.host_reads["ledger"] += 1
         return rows.double().cpu().numpy()
@@ -665,10 +749,13 @@ class EnsembleEngine:
                            g=key.g, pe_kind=kind)
 
     def state_ledger(self, state: ParticleState, key: BatchKey) -> dict:
-        """The t0 ledger baseline of one job's (unpadded) state."""
+        """The t0 ledger baseline of one job's (unpadded) state, summed on
+        the engine's device as the rounds' ledgers are (an admitted job's
+        state arrives on the host: its dense pair scan there took seconds
+        a job at bucket 8,192)."""
         from ..simulation import resolve_dtype
 
-        st = state.astype(resolve_dtype(key.dtype))
+        st = state.astype(resolve_dtype(key.dtype)).to(self.device)
         row = self._ledger_row(key, st.positions, st.velocities, st.masses)
         return self.slot_ledger_host(row.double().cpu().numpy(), key)
 
@@ -680,7 +767,7 @@ class EnsembleEngine:
         None for a class whose batch holds no conserving lanes."""
         self._check_thread()
         key = batch.key
-        if not getattr(self._job_class(key), "conserves", True):
+        if not self._ledger_applicable(key, batch):
             return None
         fn = self._probe_fns.get((key, k))
         if fn is None:
@@ -695,11 +782,26 @@ class EnsembleEngine:
                 cutoff=key.cutoff, eps=key.eps, rcut=self._key_rcut(key),
             )
             self._probe_fns[(key, k)] = fn
-        rel = fn(batch.positions[slot], batch.masses[slot])
+        inner = self.state_batch(batch)
+        rel = fn(inner.positions[slot], inner.masses[slot])
         self.host_reads["probe"] += 1
         return rel.double().cpu().numpy()
 
     # --- the hot path ---
+
+    def first_round_probe(self, key: BatchKey, tensors):
+        """A :class:`~gravity_tpu_torch.telemetry.perf.FirstCall` whose peak
+        window opens now, for the first round of ``key`` (``tensors``: the
+        batch's own, counted as its inputs), or None after it or where
+        counting is off. Close it with :meth:`_record_first_round`."""
+        if (key in self._ledgered or not _perf.counting_allowed()
+                or _perf.counting()):
+            return None
+        self._ledgered.add(key)
+        probe = _perf.FirstCall(self.device, sum(
+            t.numel() * t.element_size() for t in tensors))
+        probe.start_peak()  # the whole round's peak, for admission
+        return probe
 
     def _record_first_round(self, key: BatchKey, probe, seconds: float
                             ) -> None:
@@ -735,30 +837,12 @@ class EnsembleEngine:
         cls = self._job_class(key)
         if cls is not None:
             return cls.run_slice(self, batch, slice_steps)
-        first = (key not in self._ledgered and _perf.counting_allowed()
-                 and not _perf.counting())
         t0 = time.perf_counter()
         fn = self.round_fn(key)
-        probe = None
-        if first:
-            self._ledgered.add(key)
-            probe = _perf.FirstCall(self.device, sum(
-                t.numel() * t.element_size() for t in (
-                    batch.positions, batch.velocities, batch.masses,
-                    batch.acc)))
-            probe.start_peak()  # the whole round's peak, for admission
-        budgets = budget_i32(batch.remaining)
-        slot_args = np.stack([batch.dt.astype(np.float64),
-                              budgets.astype(np.float64),
-                              batch.n_real.astype(np.float64)], axis=1)
-        # The budget mask's steps in which every slot takes, from the
-        # host's budgets.
-        all_take = np.arange(slice_steps) < budgets.min(initial=0)
-        args = torch.from_numpy(slot_args)
-        if self.device.type == "cuda":
-            # Pinned, so that the one upload of a round does not wait for
-            # the card.
-            args = args.pin_memory().to(self.device, non_blocking=True)
+        probe = self.first_round_probe(key, (
+            batch.positions, batch.velocities, batch.masses, batch.acc))
+        args, all_take = slot_args(batch.dt, batch.remaining, batch.n_real,
+                                   slice_steps, self.device)
         pos, vel, acc, finite = fn(
             batch.positions, batch.velocities, batch.masses, batch.acc,
             args, all_take, n_steps=slice_steps, probe=probe,

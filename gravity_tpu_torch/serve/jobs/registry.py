@@ -2,12 +2,15 @@
 
 Counterpart of ``gravity_tpu/serve/jobs/registry.py``. A
 :class:`JobClass` packages one served capability: its admission
-contract (``validate``, typed rejections at submit), its budget
-(``budget``), its initial state (``initial_state``) and its result
-schema (``finalize``). The port registers ``integrate`` and
-``sharded-integrate``; the JAX package's other classes are refused at
-submit with the ROADMAP item that ports them (:data:`NOT_PORTED`), so the
-scheduler's paths for them are unreachable.
+contract (``validate``, typed rejections at submit), its program family
+(``build_round_fn``, keyed by the extended BatchKey: one build per key),
+its batch layout (``new_batch``, ``load_slot``, ``clear_slot``,
+``slot_snapshot``), its budget (``budget``, in the class's units), its
+initial state (``initial_state``), its scheduler hooks (``post_round``,
+``round_snapshot``) and its result schema (``finalize``). The port serves
+every class of the JAX package: ``integrate``, ``fit``, ``sweep`` (with
+its internal ``sweep-member``), ``watch`` and ``sharded-integrate``
+(:data:`NOT_PORTED` is empty).
 """
 
 from __future__ import annotations
@@ -18,10 +21,8 @@ from ...config import NotPortedError, SimulationConfig
 from ...state import ParticleState
 
 # The JAX package's classes that the port does not serve yet, with the
-# ROADMAP.md Queue 1 item that ports each.
-NOT_PORTED = {
-    "fit": 9, "sweep": 9, "sweep-member": 9, "watch": 9,
-}
+# ROADMAP.md Queue 1 item that ports each: none.
+NOT_PORTED: dict = {}
 
 
 class JobValidationError(ValueError):
@@ -37,9 +38,15 @@ class JobClass:
     name: str = "?"
     #: what ``steps``/``steps_done`` count for this class
     units: str = "steps"
+    #: internal classes (sweep members) are not submittable over the API
+    submittable: bool = True
+    #: whether the class's jobs occupy a slot (a sweep parent does not)
+    resident: bool = True
     #: whether the class's batch lanes hold an integrating state whose
     #: conserved quantities are meaningful (the ledger and sentinel gate)
     conserves: bool = True
+    #: whether the scheduler takes :meth:`round_snapshot` before a round
+    snapshot_before_round: bool = False
 
     def validate(self, config: SimulationConfig, params: dict) -> dict:
         """Normalize + validate the class payload; raises
@@ -53,8 +60,14 @@ class JobClass:
 
         return batch_key_for(
             config, slots=slots, min_bucket=min_bucket, reroute=reroute,
-            job_type=self.name, device=device,
+            job_type=self.name, extra=self.key_extra(config, params),
+            device=device,
         )
+
+    def key_extra(self, config: SimulationConfig, params: dict) -> tuple:
+        """The class's additional static program parameters: part of the
+        build key (``BatchKey.extra``)."""
+        return ()
 
     def budget(self, job) -> int:
         """Total work units for this job; ``job.steps_done`` counts
@@ -69,12 +82,51 @@ class JobClass:
         return params_state(job.params) or make_initial_state(
             job.config, device="cpu")
 
+    # --- the program family of a class with its own rounds ---
+
+    def build_round_fn(self, engine, key):
+        raise NotImplementedError
+
+    def new_batch(self, engine, key):
+        raise NotImplementedError
+
+    def load_slot(self, engine, batch, slot, state, *, dt, steps, job):
+        raise NotImplementedError
+
+    def clear_slot(self, engine, batch, slot):
+        raise NotImplementedError
+
+    def slot_snapshot(self, engine, batch, slot):
+        raise NotImplementedError
+
+    def run_slice(self, engine, batch, slice_steps):
+        raise NotImplementedError
+
+    # --- scheduler hooks ---
+
+    def slice_units(self, key, slice_steps: int) -> int:
+        """Work units a round for this key, from the scheduler's
+        ``slice_steps``, so that every class does a comparable amount of
+        device work a round; a pure function of (key, slice_steps)."""
+        return slice_steps
+
     def pairs_per_unit(self, job) -> float:
         """Dense-equivalent pair interactions per work unit (the round
         throughput metric)."""
         from ...utils.timing import pairs_per_step
 
         return pairs_per_step(job.config.n)
+
+    def round_snapshot(self, scheduler, batch, slot_jobs):
+        """Host snapshot taken before a round for :meth:`post_round` (only
+        where ``snapshot_before_round``)."""
+        return None
+
+    def post_round(self, scheduler, key, batch, slot_jobs, res,
+                   start_units: dict, round_start) -> None:
+        """After a round of this key's batch, before its accounting: the
+        class's events and follow-ups (watch). ``start_units`` maps job id
+        -> units done before the round."""
 
     def finalize(self, job, state: Optional[ParticleState],
                  extra: dict) -> tuple[dict, Optional[dict]]:

@@ -1,9 +1,12 @@
 """Bucketed continuous batching over the ensemble engine.
 
 Counterpart of ``gravity_tpu/serve/scheduler.py``, with the JAX package's
-admission, slot, yield, lease, fencing, breaker and spool semantics. It
-serves the ``integrate`` class; the other classes are refused at submit
-(serve/jobs). The departures: a round that raises on the card (a
+admission, slot, yield, lease, fencing, breaker and spool semantics, for
+every class of serve/jobs: a sweep parent never takes a slot, fans its
+members out at admission, aggregates them when the last one lands
+(``_check_parents``), cascades a cancel to them and is tracked again
+after a restart; a watch's ``round_snapshot`` and ``post_round`` hooks
+run around its rounds. The departures: a round that raises on the card (a
 kernel's build or launch error) trips its backend's breaker at once with
 the error as its reason, and the residents' requeue through the breaker
 then fails them with that reason rather than route a kernel's job to a
@@ -150,8 +153,8 @@ class Job:
     # members for a sweep parent).
     job_type: str = "integrate"
     params: dict = dataclasses.field(default_factory=dict)
-    # The JAX package's sweep-parent linkage (always None here: the
-    # sweep class is not ported), kept for the record schema.
+    # Sweep parent linkage (members carry the parent id; the parent
+    # aggregates member verdicts when the last one lands).
     parent: Optional[str] = None
     # Small JSON verdict persisted in the record (fit loss, sweep
     # member verdict, watch event counts) — the typed result half that
@@ -700,6 +703,9 @@ class EnsembleScheduler:
         self._slot_jobs: dict[BatchKey, list[Optional[str]]] = {}
         self._rotation: list[BatchKey] = []
         self._rotor = 0
+        # Sweep parents: tracked jobs that never occupy a slot; their
+        # members complete them (``_check_parents``).
+        self._parents: set = set()
         # Sliding window: all-time percentiles stop reflecting current
         # serving health and the list is a slow leak in a long-lived
         # daemon (review finding).
@@ -733,16 +739,20 @@ class EnsembleScheduler:
         job_id: Optional[str] = None,
         job_type: str = "integrate",
         params: Optional[dict] = None,
+        _internal: bool = False,
     ) -> str:
         """Validate + enqueue; returns the job id. Raises ValueError
         (:class:`~gravity_tpu_torch.serve.jobs.JobValidationError` for
-        malformed class payloads, ``NotPortedError`` for a class the
-        port does not serve) for jobs the stack cannot serve and
-        :class:`QueueFull` when the bounded queue is shedding.
+        malformed class payloads: an unknown type, a fit without
+        observations, a sweep with zero members, a watch without a radius)
+        for jobs the stack cannot serve and :class:`QueueFull` when the
+        bounded queue is shedding.
 
         ``job_type`` selects the traffic class (serve/jobs registry);
         ``params`` is the class payload, validated HERE so a bad job is
-        a clean submit-time 400, never an admission-round crash.
+        a clean submit-time 400, never an admission-round crash. A sweep
+        expands into its members in this call (each an ordinary leased,
+        respoolable job; ``_internal`` admits those).
 
         An explicit ``job_id`` is an idempotency key: re-submitting the
         SAME job under a known id returns that id instead of raising
@@ -750,9 +760,13 @@ class EnsembleScheduler:
         accepted, or a failover re-POST to a surviving worker) must not
         enqueue the simulation twice. A known id with a DIFFERENT
         config/type/payload is still a hard duplicate error."""
-        from .jobs import get_class
+        from .jobs import JobValidationError, get_class
 
         cls = get_class(job_type)
+        if not getattr(cls, "submittable", True) and not _internal:
+            raise JobValidationError(
+                f"job type {job_type!r} is internal (submit its parent "
+                "class instead)")
         params = cls.validate(config, params or {})
         # Telemetry: the trace is born HERE. The admission span id is
         # pre-minted so the autotune probe (which may run inside the
@@ -815,7 +829,11 @@ class EnsembleScheduler:
                         )
                     self._absorb_spool_record(job_id, record, None)
                     return job_id
-        if self.max_queue and self.queue_depth + 1 > self.max_queue:
+        resident = getattr(cls, "resident", True)
+        # A sweep admits its whole member fan-out in one call: shed it as
+        # a unit (members are queue entries), not after half are in.
+        admits = 1 if resident else int(params.get("members", 1))
+        if self.max_queue and self.queue_depth + admits > self.max_queue:
             # Load shed with a retry hint sized to how fast rounds are
             # actually draining the queue here, not a magic constant.
             retry_after = max(1.0, round(
@@ -830,7 +848,16 @@ class EnsembleScheduler:
         # it launches kernels, serialised with the rounds.
         with _tracing.bind(self.telemetry.tracer, trace_id,
                            parent=admission_span):
-            key = self._job_key_for(cls, config, params)
+            if resident:
+                key = self._job_key_for(cls, config, params)
+            else:
+                # A parent never enters a batch, but its members must be
+                # servable: key one member now, so that the whole fan-out
+                # is one submit-time rejection, not N admission failures.
+                key = self._job_key_for(get_class("sweep-member"), config, {
+                    "member": 0, **{k: v for k, v in params.items() if k in (
+                        "spread", "drift_tol", "escape_radius",
+                        "sweep_seed")}})
         # Memory-aware admission (docs/observability.md
         # "Performance"): the resolved key's program must fit device
         # memory — from the perf ledger's MEASURED peak HBM when the
@@ -865,7 +892,9 @@ class EnsembleScheduler:
             id=job_id, config=config, priority=priority,
             deadline_s=deadline_s, seq=self._seq,
             submitted_ts=time.time(),
-            job_type=job_type, params=params, trace_id=trace_id,
+            job_type=job_type, params=params,
+            parent=params.get("parent") if _internal else None,
+            trace_id=trace_id,
         )
         if self.leases is not None:
             lease = self.leases.claim(
@@ -880,7 +909,10 @@ class EnsembleScheduler:
                 )
             job.fence = lease.fence
         self.jobs[job_id] = job
-        self._enqueue(key, job_id)
+        if resident:
+            self._enqueue(key, job_id)
+        else:
+            self._parents.add(job_id)
         try:
             self._persist(job, raise_oserr=True)
         except OSError as e:
@@ -892,6 +924,7 @@ class EnsembleScheduler:
             # terminal event (the spool_error from _persist is the
             # audit trail).
             self.jobs.pop(job_id, None)
+            self._parents.discard(job_id)
             if job_id in self._pending.get(key, []):
                 self._pending[key].remove(job_id)
             if self.leases is not None:
@@ -900,9 +933,14 @@ class EnsembleScheduler:
                 f"submit rejected: spool cannot persist the job "
                 f"record ({e})"
             ) from e
-        self._event("submitted", job=job_id, n=config.n,
-                    bucket=key.bucket_n, priority=priority,
-                    job_type=job_type)
+        if resident:
+            self._event("submitted", job=job_id, n=config.n,
+                        bucket=key.bucket_n, priority=priority,
+                        job_type=job_type)
+        else:
+            self._event("submitted", job=job_id, n=config.n,
+                        priority=priority, job_type=job_type,
+                        members=admits)
         self.telemetry.registry.counter(
             "gravity_jobs_submitted_total", **{"class": job_type}
         ).inc()
@@ -911,7 +949,82 @@ class EnsembleScheduler:
             span_id=admission_span, job=job_id, job_type=job_type,
             n=config.n,
         )
+        if not resident:
+            # The members through the normal submit path, each an ordinary
+            # leased, respoolable, adoptable job (deterministic ids: a
+            # retried or adopted expansion reuses the same records).
+            for k in range(admits):
+                self.submit(
+                    config, priority=priority, deadline_s=deadline_s,
+                    job_id=cls.member_id(job_id, k),
+                    job_type="sweep-member",
+                    params=cls.member_params(job, k), _internal=True)
         return job_id
+
+    def _check_parents(self) -> None:
+        """Complete the sweep parents whose members are all terminal:
+        aggregate the member verdicts (local jobs first, the shared
+        spool's records for peer-run members) into the parent's result.
+        A member with neither a job nor a record (a fan-out cut by a
+        worker's death) is submitted again from its deterministic id and
+        params, so that an adopted half-expanded sweep completes."""
+        from .jobs import get_class
+
+        for pid in list(self._parents):
+            job = self.jobs.get(pid)
+            if job is None or job.status in TERMINAL or not job.owned:
+                continue
+            cls = get_class(job.job_type)
+            members = int(job.params.get("members", 0))
+            payloads: list = [None] * members
+            done = 0
+            complete = True
+            for k in range(members):
+                mid = cls.member_id(pid, k)
+                member = self.jobs.get(mid)
+                status = payload = None
+                if member is not None:
+                    status, payload = member.status, member.result_payload
+                if (member is None or not member.owned) \
+                        and status not in TERMINAL \
+                        and self.spool is not None:
+                    rec = self.spool.read_job(mid)
+                    if rec is not None:
+                        status = rec.get("status")
+                        payload = rec.get("result")
+                if status is None:
+                    complete = False
+                    try:
+                        self.submit(
+                            job.config, priority=job.priority,
+                            deadline_s=job.deadline_s, job_id=mid,
+                            job_type="sweep-member",
+                            params=cls.member_params(job, k),
+                            _internal=True)
+                    except (ValueError, QueueFull):
+                        pass  # shed or leased by a peer: the next scan
+                    continue
+                if status not in TERMINAL:
+                    # Keep counting: progress must not understate behind
+                    # one running member.
+                    complete = False
+                    continue
+                if status == "completed":
+                    done += 1
+                    payloads[k] = payload
+            job.steps_done = done
+            if not complete:
+                continue
+            arrays, payload = cls.aggregate(job, payloads)
+            job.result_payload = payload
+            job.result_data = arrays
+            if self.spool is not None:
+                self._spool_result_async(job, arrays)
+            if done > 0:
+                self._finish(job, "completed")
+            else:
+                self._finish(job, "failed",
+                             error=f"all {members} members failed/cancelled")
 
     def cancel(self, job_id: str) -> bool:
         job = self.jobs.get(job_id)
@@ -930,6 +1043,19 @@ class EnsembleScheduler:
             return False
         if job.status in TERMINAL:
             return False
+        if job_id in self._parents:
+            # Cancelling a sweep cancels its members (local ones directly,
+            # peer-owned ones through the spool's cancel marker).
+            from .jobs import get_class
+
+            cls = get_class(job.job_type)
+            for k in range(int(job.params.get("members", 0))):
+                mid = cls.member_id(job_id, k)
+                member = self.jobs.get(mid)
+                if member is None or member.status not in TERMINAL:
+                    self.cancel(mid)
+            self._finish(job, "cancelled")
+            return True
         if job.status == "running":
             key = self._assigned_key(job)
             slots = self._slot_jobs.get(key, [])
@@ -1019,7 +1145,13 @@ class EnsembleScheduler:
         )
 
     def has_work(self) -> bool:
-        return self.queue_depth > 0 or self.active_count > 0
+        if self.queue_depth > 0 or self.active_count > 0:
+            return True
+        # A sweep parent whose members are still landing is work: the
+        # aggregation check must run until it goes terminal.
+        return any(
+            job is not None and job.owned and job.status not in TERMINAL
+            for job in map(self.jobs.get, self._parents))
 
     def latency_percentiles(self, job_type: Optional[str] = None
                             ) -> dict:
@@ -1043,6 +1175,11 @@ class EnsembleScheduler:
         for key, pending in self._pending.items():
             queue[key.job_type] = queue.get(key.job_type, 0) \
                 + len(pending)
+        for pid in self._parents:
+            job = self.jobs.get(pid)
+            if job is not None and job.owned \
+                    and job.status not in TERMINAL:
+                queue[job.job_type] = queue.get(job.job_type, 0) + 1
         active: dict = {}
         for key, slots in self._slot_jobs.items():
             n_act = sum(1 for j in slots if j is not None)
@@ -2009,6 +2146,9 @@ class EnsembleScheduler:
                 self.leases.suspend(stale)
                 self.leases.backdate()
         self.housekeeping()
+        # Parent aggregation runs even when no batch has work: the last
+        # member may have landed in an earlier round (or on a peer).
+        self._check_parents()
         key = self._next_key()
         if key is None:
             return None
@@ -2028,6 +2168,14 @@ class EnsembleScheduler:
         from .jobs import get_class
 
         cls = get_class(key.job_type)
+        # The round-START host snapshot of a class that needs it after the
+        # round (watch follow-ups), and the units done before the round,
+        # which post_round anchors event steps to.
+        round_start = (cls.round_snapshot(self, batch, list(slots))
+                       if cls.snapshot_before_round else None)
+        start_units = {
+            slots[s]: self.jobs[slots[s]].steps_done for s in occupied
+        }
         compiles_before = self.engine.compile_counts.get(key, 0)
         t0_wall = time.time()
         t0 = time.perf_counter()
@@ -2173,6 +2321,11 @@ class EnsembleScheduler:
             else 0.0
         )
 
+        # The class's hook BEFORE the accounting: its events and
+        # follow-ups see the round-start unit counts, and a job completing
+        # this very round still emits its final round's events.
+        cls.post_round(self, key, batch, list(slots), res, start_units,
+                       round_start)
         real_pairs = 0.0
         for slot in occupied:
             job = self.jobs[slots[slot]]
@@ -2301,6 +2454,7 @@ class EnsembleScheduler:
                 self._spool_progress_async(
                     job, state, {**(job.extra_state or {}), **extra}
                 )
+        self._check_parents()
 
         metrics = {
             "job_type": key.job_type,
@@ -2713,6 +2867,22 @@ class EnsembleScheduler:
             if self.leases is not None:
                 self.leases.release(job_id)
             self._clear_progress_async(job_id)
+            return
+        from .jobs import get_class
+
+        if not getattr(get_class(job.job_type), "resident", True):
+            # A sweep parent: nothing to enqueue. Its members are records
+            # of their own (absorbed apart); tracking and the aggregation
+            # check complete it once they land.
+            self._parents.add(job_id)
+            job.status = "pending"
+            job.state = None
+            if adopted_from and adopted_from != self.worker_id:
+                self._event("adopted", job=job_id,
+                            from_worker=adopted_from, fence=job.fence)
+            else:
+                self._event("respooled", job=job_id)
+            self._persist(job)
             return
         # Interrupted mid-flight, never started, or completed with
         # its result lost: restart clean.

@@ -392,8 +392,13 @@ def make_local_kernel(config: SimulationConfig, backend: str,
     kicks' (K, N) force, and a rank's (n_local, N) block on a mesh.
     ``positions`` (the initial state) and ``k_targets`` (the targets a
     call) size the target slots of the cell list and of P3M's near field
-    (P3M's on its own binning grid). Forward only: backward passes are
-    ROADMAP Queue 1 item 9."""
+    (P3M's on its own binning grid). Differentiable where the JAX
+    package's is: the plain sums and the octree, FMM and PM by PyTorch's
+    own differentiation, the ``pallas``, ``pallas-mxu`` and isolated
+    ``nlist`` kernels through the dense backward (``ops/forces.py::
+    DenseVJP``); P3M's cell-list near field and the octree's ``nlist``
+    near field raise on the card where a gradient is asked of them, as
+    their ``pallas_call`` has no autodiff rule in JAX."""
     common = dict(g=config.g, cutoff=config.cutoff, eps=config.eps)
     if backend in ("dense", "chunked"):
         # The rcut-masked sum where truncated physics is declared.

@@ -479,6 +479,21 @@ NLIST_TILE_UNITS = 9
 PLAIN_PAIR_UNITS = 12
 PLAIN_CHUNK = 1024
 NLIST_FALLBACK_UNITS = 9
+# A fit key's first round (serve/jobs/fit.py) keeps, besides the step's
+# generations, what its backward reads: each of the ``rollout`` steps'
+# saved (B, n, 3) tensors (the integrator's kicks and drifts, the force
+# evaluation's saved positions) and, per observation, the step's scaled
+# differences and their weighted squares; for ``dense`` and ``chunked``,
+# which PyTorch differentiates itself, each step's saved (B, n, n) pair
+# tensors (8.2 units a step measured at bucket 64, CPU); for the kernels,
+# the backward's pair block, ``ops/forces.backward_rows`` target rows
+# against every source of every slot, BACKWARD_PAIR_UNITS of it at once
+# (the plain sum's recomputed temporaries, those autograd saves, and
+# their gradients).
+FIT_STEP_UNITS = 8
+FIT_OBS_UNITS = 4
+FIT_SAVED_PAIR_UNITS = 10
+BACKWARD_PAIR_UNITS = 24
 # The largest source chunk count a direct-sum launch takes at n sources:
 # one chunk a staged tile of 256 (kTile of csrc/nbody_direct.cu and
 # csrc/nbody_mxu.cu), at most direct_kernel.MAX_CHUNKS; the card's own
@@ -520,6 +535,10 @@ def estimate_peak_bytes(key) -> int:
       and its int64 neighbour ids), and the sorted and un-binned copies
       with the int64 coordinates, ids and orders of B n bodies.
 
+    A ``fit`` key (``rollout`` and ``obs`` from ``key.extra``) adds
+    :func:`fit_bytes`: the rollout's saved residuals, the backward's pair
+    block and the batch's optimizer and observation tensors.
+
     The measured peak of a key's first round replaces it for every later
     admission (:func:`required_bytes_for_key`)."""
     item = 8 if str(key.dtype) in ("float64", "f64") else 4
@@ -553,7 +572,36 @@ def estimate_peak_bytes(key) -> int:
                    + NLIST_TILE_UNITS * grid * 27 * item
                    + bodies * 27 * (NLIST_FALLBACK_UNITS * item + 17)
                    + bodies * (24 * item + 8 * 16))
-    return state + pair + steps + scratch
+    total = state + pair + steps + scratch
+    if key.job_type == "fit":
+        total += fit_bytes(key)
+    return total
+
+
+def fit_bytes(key) -> int:
+    """A fit key's first-round bytes beyond an integrate round's: for
+    ``rollout`` R and K observations, R (FIT_STEP_UNITS + FIT_OBS_UNITS K)
+    (B, n, 3) generations of saved residuals; for ``dense``/``chunked`` R
+    FIT_SAVED_PAIR_UNITS (B, n, n) saved pair tensors, for the kernels the
+    backward's pair block (BACKWARD_PAIR_UNITS x B x rows x n, rows =
+    ``ops/forces.backward_rows(n, n, B)``); and the batch's own
+    observation, weight, moment and parameter tensors ((K + 5) of the
+    (B, n, 3) generation)."""
+    from ..ops.forces import backward_rows
+
+    item = 8 if str(key.dtype) in ("float64", "f64") else 4
+    slots, n = int(key.slots), int(key.bucket_n)
+    extra = dict(key.extra) if key.extra else {}
+    rollout = int(extra.get("rollout", 1))
+    k_obs = int(extra.get("obs", 1))
+    vec = slots * n * 3 * item
+    saved = rollout * (FIT_STEP_UNITS + FIT_OBS_UNITS * k_obs) * vec
+    if key.backend in ("dense", "chunked"):
+        pairs = rollout * FIT_SAVED_PAIR_UNITS * slots * n * n * item
+    else:
+        pairs = (BACKWARD_PAIR_UNITS * slots * backward_rows(n, n, slots)
+                 * n * item)
+    return saved + pairs + (k_obs + 5) * vec
 
 
 class PerfLedger:

@@ -100,20 +100,34 @@ def test_cli_cancel_queued_job(daemon, capsys):
 
 
 def test_cli_refuses_unported_job_types(daemon, capsys):
-    rc, _, err = _cli(capsys, *_submit_argv(daemon.spool_dir, **CFG),
-                      "--job-type", "fit")
-    assert rc == 2 and "item 9" in err
+    """fit, sweep and watch are served: a malformed payload is the
+    daemon's 400 (the JAX daemon's, tests/test_serve_jobs.py:128-155),
+    and an unknown class the verb's own refusal."""
+    spool = daemon.spool_dir
+    rc, _, err = _cli(capsys, *_submit_argv(spool, **CFG), "--job-type",
+                      "fit")
+    assert rc == 1 and "observations" in err
+    rc, _, err = _cli(capsys, *_submit_argv(spool, **CFG), "--job-type",
+                      "sweep", "--params", '{"members": 0}')
+    assert rc == 1 and "members" in err
+    rc, _, err = _cli(capsys, *_submit_argv(spool, **CFG), "--job-type",
+                      "bogus")
+    assert rc == 2 and "served classes" in err
     # sharded-integrate is served now: on the CPU a group of one, the
     # solo form, which completes.
     rc, out, _ = _cli(capsys, *_submit_argv(daemon.spool_dir, **CFG),
                       "--job-type", "sharded-integrate", "--devices", "1",
                       "--wait", "--timeout", "120")
     assert rc == 0 and json.loads(out)["status"] == "completed"
-    # Submitted over the API, the class is a 400 with its ROADMAP item.
+    # Over the API: a watch without its radius and a non-object payload
+    # are 400s that say why.
+    config = json.loads(SimulationConfig(**CFG).to_json())
     resp = request(daemon.spool_dir, "POST", "/submit", {
-        "config": json.loads(SimulationConfig(**CFG).to_json()),
-        "job_type": "sweep"})
-    assert "item 9" in resp["error"]
+        "config": config, "job_type": "watch"})
+    assert "radius" in resp["error"]
+    resp = request(daemon.spool_dir, "POST", "/submit", {
+        "config": config, "job_type": "sweep", "params": "zero"})
+    assert "params" in resp["error"]
 
 
 def test_answers_have_the_jax_daemons_keys(daemon, jax_daemon):

@@ -12,9 +12,10 @@ port's solo ``Simulator`` runs (1e-5).
 import numpy as np
 import pytest
 
-from gravity_tpu_torch.config import NotPortedError, SimulationConfig
+from gravity_tpu_torch.config import SimulationConfig
 from gravity_tpu_torch.serve import (
     EnsembleScheduler,
+    JobValidationError,
     QueueFull,
     Spool,
     batch_key_for,
@@ -210,11 +211,19 @@ def test_perf_ledger_row_at_first_round():
 
 
 def test_unported_job_classes_refused():
+    """Every class of the JAX package is served now: what is refused at
+    submit is a malformed payload, each a typed JobValidationError (the
+    daemon's 400), as tests/test_serve_jobs.py:91-125 pins for the JAX
+    package, with nothing half-admitted."""
     with _sched(slots=1, slice_steps=10) as sched:
-        for job_type, item in (("fit", "item 9"), ("sweep", "item 9"),
-                               ("watch", "item 9")):
-            with pytest.raises(NotPortedError, match=item):
-                sched.submit(_cfg(8), job_type=job_type)
+        for job_type, params, match in (
+                ("fit", {}, "observations"),
+                ("sweep", {"members": 0}, "members must be >= 1"),
+                ("watch", {}, "radius"),
+                ("sweep-member", {"member": 0}, "internal")):
+            with pytest.raises(JobValidationError, match=match):
+                sched.submit(_cfg(8), job_type=job_type, params=params)
+        assert sched.queue_depth == 0 and not sched.jobs
         # Item 5's class is served: admitted as an exclusive key.
         jid = sched.submit(_cfg(8), job_type="sharded-integrate")
         key = sched.jobs[jid].key_cache
