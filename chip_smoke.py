@@ -101,8 +101,8 @@ set to 0 just before the path and read just after:
   ``nbody_mxu`` (fp32, bf16) at 4 slots of bucket 8,192 (a padded
   5,000-body Plummer sphere, an 8,192-body cube, the padded solar system,
   an empty slot) against their plain versions and bit for bit against
-  solo launches; the daemon (``serve --slots 4 --slice-steps 100`` as a
-  process) serving 12 jobs of 100-500 steps at buckets 8,192, 4,096 and
+  solo launches; the daemon (``serve --slots 4 --slice-steps 100``'s, in
+  this process) serving 12 jobs of 100-500 steps at buckets 8,192, 4,096 and
   1,024 through the
   ``submit``, ``status``, ``result`` and ``cancel`` verbs, ``auto`` on a
   kernel at every bucket, one build a key, the batched launches equal to
@@ -168,7 +168,19 @@ set to 0 just before the path and read just after:
   the cell list at 16,384 bodies, a ``devices: 2`` job and a
   ``mesh_fail`` job walking the elastic ladder to it, a
   ``collective_stall`` job resuming from its progress snapshot), each
-  result the solo run's bits, launches = force evaluations.
+  result the solo run's bits, launches = force evaluations;
+- the pod router (``router_path``): two workers of this process behind
+  ``route`` as a process (started before the serve phases), seven jobs
+  through the client verbs on ``pallas``, ``pallas-mxu`` and the cell list
+  (affinity, sweep fan-out, a drained worker, a dense job past every
+  worker's memory refused at the router), each routed integrate job the
+  bits of its padded solo run, launches = evaluations over both workers,
+  no compute context for the router's pid, ``fleet-status`` and a routed
+  job's ``trace-export``; solo tracing (``trace_path``: ``reference-cuda``
+  cut to 100 steps with and without ``--trace``, the same bits and host
+  syncs, a divergence's flight-recorder dump); and the ``sweep`` verb
+  (``sweep_verb_path``: sizes 10 to 1,000 at 500 steps, each the bits of
+  its padded solo run).
 
 It then times each kernel at its path's shapes beside its bound (the
 direct sum masked at N = 50,000, mask-free at N = 16,384 and 65,536, and
@@ -6076,9 +6088,10 @@ def submit_args(job) -> list:
             str(SERVE_EPS), "--priority", str(prio), *extra]
 
 
-def phase_serve_path(device: dict) -> dict:
+def phase_serve_path(device: dict, started) -> dict:
     """The daemon on the card through the user's verbs: ``serve --slots 4
-    --slice-steps 100`` as a process, 12 jobs by ``submit`` at buckets
+    --slice-steps 100`` as a process (``started``: its spool and process,
+    :func:`start_verb`), 12 jobs by ``submit`` at buckets
     8,192, 4,096 and 1,024 (plummer, random, hernquist; leapfrog, two
     yoshida4, one euler; priorities 0 and 1; auto but one pallas-mxu, one
     bf16 and one fp64 job) and 5 served cell-list jobs
@@ -6092,97 +6105,93 @@ def phase_serve_path(device: dict) -> dict:
     ``result --out`` for each. The daemon's /metrics
     gives the builds, force evaluations, launches, host reads, router
     verdicts and the perf ledger's peaks; its event stream the rounds."""
+    import shutil
+
     import numpy as np
 
     from gravity_tpu_torch.serve import request, wait_for
 
-    spool_root = os.path.join(REPO, "gravity_logs_gpu")
-    os.makedirs(spool_root, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=spool_root) as spool:
-        env = dict(os.environ, PYTHONPATH=REPO)
-        daemon = subprocess.Popen(
-            serve_cli(spool, "serve", "--slots", str(SERVE_SLOTS),
-                      "--slice-steps", str(SERVE_SLICE)),
-            cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
+    spool, daemon = started
+    env = dict(os.environ, PYTHONPATH=REPO)
+    try:
+        t0 = time.perf_counter()
+        banner = json.loads(daemon.stdout.readline())
+        check(banner.get("serving") and banner["device"].startswith(
+            "cuda"), f"daemon banner {banner}")
+        # The cancel target's submit, 2 s behind the traffic's (its
+        # batch's priority-1 jobs resident by then), piped into a
+        # process that has loaded the CLI and the serve package
+        # meanwhile: the cancel lands milliseconds after the submit.
+        submit = " ".join(serve_cli(spool, *submit_args(SERVE_CANCEL)))
+        cancel = (f"{sys.executable} -c 'import json, sys; "
+                  "from gravity_tpu_torch.cli import main; "
+                  "import gravity_tpu_torch.serve; "
+                  "job = json.loads(sys.stdin.read())[\"job\"]; "
+                  "print(job); sys.stdout.flush(); "
+                  f"sys.exit(main([\"cancel\", \"--spool-dir\", "
+                  f"\"{spool}\", job]))'")
+        jobs_all = SERVE_JOBS + SERVE_NLIST_PATH_JOBS
+        piped = subprocess.Popen(
+            ["bash", "-o", "pipefail", "-c",
+             f"sleep 2; {submit} | {cancel}"], cwd=REPO, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        # The traffic's submits through the CLI in this process.
+        subs = run_clients([serve_args(spool, *submit_args(j))
+                            for j in jobs_all])
+        subs.append((piped.wait(timeout=300), *piped.communicate()))
+        ids = {}
+        for job, (rc, out, err) in zip(jobs_all, subs):
+            check(rc == 0, f"submit {job[0]}: rc {rc}: {err[-2000:]}")
+            ids[job[0]] = json.loads(out.strip().splitlines()[-1])["job"]
+        rc, out, err = subs[-1]
+        lines = out.strip().splitlines()
+        check(rc == 0 and json.loads(lines[-1])["cancelled"],
+              f"submit | cancel: rc {rc} {out} {err[-2000:]}")
+        cancel_id = lines[0]
+        statuses = wait_for(spool, list(ids.values()), timeout=600)
+        serve_s = time.perf_counter() - t0
+        rc, out, err = run_clients([serve_args(spool, "status")])[0]
+        check(rc == 0, f"status: {err[-1000:]}")
+        listing = {j["id"]: j for j in json.loads(out)["jobs"]}
+        check(listing[cancel_id]["status"] == "cancelled",
+              f"cancel target is {listing[cancel_id]['status']}")
+        res_dir = os.path.join(spool, "out")
+        os.makedirs(res_dir)
+        results = run_clients([
+            serve_args(spool, "result", jid, "--out",
+                       os.path.join(res_dir, f"{label}.npz"))
+            for label, jid in ids.items()])
+        for (label, jid), (rc, out, err) in zip(ids.items(), results):
+            check(rc == 0, f"result {label}: {err[-1000:]}")
+            st = statuses[jid]
+            check(st["status"] == "completed"
+                  and st["steps_done"] == st["steps"],
+                  f"job {label}: {st['status']} {st['steps_done']}/"
+                  f"{st['steps']} {st.get('error')}")
+            with np.load(os.path.join(res_dir, f"{label}.npz")) as z:
+                for k in ("positions", "velocities", "masses"):
+                    check(bool(np.isfinite(z[k]).all()),
+                          f"job {label}: {k} not finite")
+                n = dict((j[0], j[1]) for j in jobs_all)[label]
+                check(z["positions"].shape == (n, 3),
+                      f"job {label}: shape {z['positions'].shape}")
+        metrics = request(spool, "GET", "/metrics")
+        with open(os.path.join(spool, "serving_events.jsonl")) as f:
+            events = [json.loads(line) for line in f if line.strip()]
+        mine = [e["event"] for e in events if e.get("job") == cancel_id]
+        check(mine[0] == "submitted" and mine[-1] == "cancelled",
+              f"the cancelled job's events {mine}")
+    finally:
         try:
-            t0 = time.perf_counter()
-            banner = json.loads(daemon.stdout.readline())
-            check(banner.get("serving") and banner["device"].startswith(
-                "cuda"), f"daemon banner {banner}")
-            # The cancel target's submit, 2 s behind the traffic's (its
-            # batch's priority-1 jobs resident by then), piped into a
-            # process that has loaded the CLI and the serve package
-            # meanwhile: the cancel lands milliseconds after the submit.
-            submit = " ".join(serve_cli(spool, *submit_args(SERVE_CANCEL)))
-            cancel = (f"{sys.executable} -c 'import json, sys; "
-                      "from gravity_tpu_torch.cli import main; "
-                      "import gravity_tpu_torch.serve; "
-                      "job = json.loads(sys.stdin.read())[\"job\"]; "
-                      "print(job); sys.stdout.flush(); "
-                      f"sys.exit(main([\"cancel\", \"--spool-dir\", "
-                      f"\"{spool}\", job]))'")
-            jobs_all = SERVE_JOBS + SERVE_NLIST_PATH_JOBS
-            piped = subprocess.Popen(
-                ["bash", "-o", "pipefail", "-c",
-                 f"sleep 2; {submit} | {cancel}"], cwd=REPO, env=env,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-            # The traffic's submits through the CLI in this process.
-            subs = run_clients([serve_args(spool, *submit_args(j))
-                                for j in jobs_all])
-            subs.append((piped.wait(timeout=300), *piped.communicate()))
-            ids = {}
-            for job, (rc, out, err) in zip(jobs_all, subs):
-                check(rc == 0, f"submit {job[0]}: rc {rc}: {err[-2000:]}")
-                ids[job[0]] = json.loads(out.strip().splitlines()[-1])["job"]
-            rc, out, err = subs[-1]
-            lines = out.strip().splitlines()
-            check(rc == 0 and json.loads(lines[-1])["cancelled"],
-                  f"submit | cancel: rc {rc} {out} {err[-2000:]}")
-            cancel_id = lines[0]
-            statuses = wait_for(spool, list(ids.values()), timeout=600)
-            serve_s = time.perf_counter() - t0
-            rc, out, err = run_clients([serve_args(spool, "status")])[0]
-            check(rc == 0, f"status: {err[-1000:]}")
-            listing = {j["id"]: j for j in json.loads(out)["jobs"]}
-            check(listing[cancel_id]["status"] == "cancelled",
-                  f"cancel target is {listing[cancel_id]['status']}")
-            res_dir = os.path.join(spool, "out")
-            os.makedirs(res_dir)
-            results = run_clients([
-                serve_args(spool, "result", jid, "--out",
-                           os.path.join(res_dir, f"{label}.npz"))
-                for label, jid in ids.items()])
-            for (label, jid), (rc, out, err) in zip(ids.items(), results):
-                check(rc == 0, f"result {label}: {err[-1000:]}")
-                st = statuses[jid]
-                check(st["status"] == "completed"
-                      and st["steps_done"] == st["steps"],
-                      f"job {label}: {st['status']} {st['steps_done']}/"
-                      f"{st['steps']} {st.get('error')}")
-                with np.load(os.path.join(res_dir, f"{label}.npz")) as z:
-                    for k in ("positions", "velocities", "masses"):
-                        check(bool(np.isfinite(z[k]).all()),
-                              f"job {label}: {k} not finite")
-                    n = dict((j[0], j[1]) for j in jobs_all)[label]
-                    check(z["positions"].shape == (n, 3),
-                          f"job {label}: shape {z['positions'].shape}")
-            metrics = request(spool, "GET", "/metrics")
-            with open(os.path.join(spool, "serving_events.jsonl")) as f:
-                events = [json.loads(line) for line in f if line.strip()]
-            mine = [e["event"] for e in events if e.get("job") == cancel_id]
-            check(mine[0] == "submitted" and mine[-1] == "cancelled",
-                  f"the cancelled job's events {mine}")
-        finally:
-            try:
-                request(spool, "POST", "/shutdown")
-            except Exception:  # noqa: BLE001 — the wait below decides
-                pass
-            try:
-                daemon.wait(timeout=60)
-            except subprocess.TimeoutExpired:
-                daemon.kill()
-                daemon.wait()
+            request(spool, "POST", "/shutdown")
+        except Exception:  # noqa: BLE001 — the wait below decides
+            pass
+        try:
+            daemon.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            daemon.kill()
+            daemon.wait()
+        shutil.rmtree(spool, ignore_errors=True)
     engine = metrics["engine"]
     launches = metrics["kernel_launches"]
     check(all(v == 1 for v in engine["builds"].values()),
@@ -6658,15 +6667,17 @@ def trace_kernels(paths, name: str) -> list:
     return out
 
 
-def phase_profile_path(device: dict) -> dict:
+def phase_profile_path(device: dict, started) -> dict:
     """``run --preset baseline-16k --steps 20 --profile`` as a process: its
     Chrome trace names the nbody_direct kernel once a launch the run
     counted (its stats' ``kernel_launches``, the wrapper's count over the
-    run); then ``serve --slots 4 --slice-steps 20`` as a process, ``POST
+    run); then ``serve --slots 4 --slice-steps 20`` as a process
+    (``started``: its spool and process, :func:`start_verb`), ``POST
     /profile {"rounds": 1}`` and one submit at bucket 8,192: a trace of
     that round, holding each of its batched launches (the same kernel
     with the slots on grid.z) that the daemon's /metrics counted."""
     import glob
+    import shutil
 
     from gravity_tpu_torch.config import SimulationConfig
     from gravity_tpu_torch.serve import request, wait_for
@@ -6697,12 +6708,8 @@ def phase_profile_path(device: dict) -> dict:
               f"profile_path: {len(solo)} nbody_direct_kernel events in the "
               f"trace, {launches} launches counted; kernels {names}")
 
-        spool = os.path.join(tmp, "spool")
+        spool, daemon = started
         prof_dir = os.path.join(tmp, "serve_profile")
-        daemon = subprocess.Popen(
-            serve_cli(spool, "serve", "--slots", "4", "--slice-steps", "20"),
-            cwd=REPO, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True)
         try:
             banner = json.loads(daemon.stdout.readline())
             check(bool(banner.get("serving")), f"daemon banner {banner}")
@@ -6728,6 +6735,7 @@ def phase_profile_path(device: dict) -> dict:
             except subprocess.TimeoutExpired:
                 daemon.kill()
                 daemon.wait()
+            shutil.rmtree(spool, ignore_errors=True)
         check(status == "completed", f"profile_path: served job {status}")
         batched = metrics["kernel_launches"]["nbody_direct/batched"]
         round_traces = glob.glob(os.path.join(prof_dir, "trace_*.json"))
@@ -9386,6 +9394,479 @@ def phase_sweep_watch_path(device: dict) -> dict:
     return record
 
 
+# --- the pod router, solo-run tracing and the sweep verb ---
+
+# Two in-process workers on the card behind the router, started as a
+# user starts it (``python -m gravity_tpu_torch route``). The jobs, by
+# label: (n, steps, job type, extra submit flags). ``direct`` and
+# ``affinity`` share one key (pallas at bucket 8,192: serve_path's model,
+# dt and eps); ``drained`` goes in while w1 is drained.
+ROUTER_SLOTS = 4
+ROUTER_SLICE = 100
+ROUTER_STEPS = 200
+ROUTER_BASE = ("--model", "plummer", "--dt", "3600", "--eps", str(SERVE_EPS),
+               "--integrator", "leapfrog")
+ROUTER_JOBS = {
+    "direct": (8192, ROUTER_STEPS, "integrate",
+               ("--force-backend", "pallas", "--seed", "1")),
+    "affinity": (8192, ROUTER_STEPS, "integrate",
+                 ("--force-backend", "pallas", "--seed", "2")),
+    "mxu": (4096, ROUTER_STEPS, "integrate",
+            ("--force-backend", "pallas-mxu", "--seed", "3")),
+    "nlist": (8192, ROUTER_STEPS, "integrate",
+              ("--model", "random", *SERVE_NLIST_FLAGS, "--seed", "4")),
+    "sweep": (4096, 100, "sweep",
+              ("--force-backend", "pallas", "--params",
+               json.dumps({"members": 4, "spread": 0.05}))),
+    "watch": (4096, 100, "watch",
+              ("--force-backend", "pallas", "--params",
+               json.dumps({"radius": 1e11}))),
+    "drained": (2000, ROUTER_STEPS, "integrate",
+                ("--force-backend", "pallas", "--seed", "5")),
+}
+# Past the engine's bucket cap and every worker's memory: refused at the
+# router by its sizing model against the card's real budget.
+ROUTER_OVERSIZE = ("--model", "random", "--n", "262144", "--steps", "10",
+                   "--force-backend", "dense")
+# reference-cuda, cut to 100 of its 500 steps, in blocks of 10.
+TRACE_ARGS = ("run", "--preset", "reference-cuda", "--steps", "100",
+              "--progress-every", "10")
+TRACE_BLOCKS = 10
+TRACE_DIVERGE = "diverge@50"
+# The reference's size sweep at its 500 steps of 3,600 s, through the
+# direct sum's batched kernel.
+SWEEP_VERB_SIZES = (10, 100, 500, 1000)
+BATCHED_ROWS = ("nbody_direct/batched", "nbody_mxu/batched",
+                "nlist_pair/batched")
+SWEEP_VERB_ARGS = ("--steps", "500", "--dt", "3600", "--force-backend",
+                   "pallas")
+
+
+def router_job_args(spool: str, label: str) -> list:
+    n, steps, job_type, extra = ROUTER_JOBS[label]
+    return serve_args(spool, "submit", "--job-type", job_type, *ROUTER_BASE,
+                      "--n", str(n), "--steps", str(steps), *extra)
+
+
+def router_job_config(label: str):
+    """The SimulationConfig a routed integrate job's submit describes,
+    parsed by the CLI's own config flags."""
+    import argparse
+
+    from gravity_tpu_torch import cli
+
+    n, steps, _, extra = ROUTER_JOBS[label]
+    parser = argparse.ArgumentParser()
+    cli._add_config_args(parser)
+    return cli.build_config(parser.parse_args(
+        [*ROUTER_BASE, "--n", str(n), "--steps", str(steps), *extra]))
+
+
+def padded_solo_final(config, dev):
+    """The solo Simulator run of ``config``'s initial state padded to its
+    serving bucket: the state a served job must end on, bit for bit."""
+    from gravity_tpu_torch.serve import bucket_size
+    from gravity_tpu_torch.simulation import Simulator, make_initial_state
+
+    padded, _ = make_initial_state(config, dev).pad_to(
+        bucket_size(config.n))
+    final = Simulator(dataclasses.replace(config, n=padded.n),
+                      state=padded, device=dev).run()["final_state"]
+    return final.positions[:config.n], final.velocities[:config.n]
+
+
+def compute_app_pids() -> list:
+    """The pids ``nvidia-smi`` lists as holding a compute context."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def start_verb(*args):
+    """``python -m gravity_tpu_torch ARGS --spool-dir D`` on a fresh spool
+    D, as a process of its own, started well ahead of the phase that uses
+    it, so that its start (~8 s to import the package and reach the card)
+    overlaps the phases before; the daemons and the router idle until
+    then. (spool, process); both go at exit."""
+    import shutil
+
+    root = os.path.join(REPO, "gravity_logs_gpu")
+    os.makedirs(root, exist_ok=True)
+    spool = tempfile.mkdtemp(dir=root)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("GRAVITY_TPU_FAULTS", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "gravity_tpu_torch", *args, "--spool-dir",
+         spool], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(spool, ignore_errors=True)
+
+    # A phase that fails before the one that uses it must not leave it on.
+    atexit.register(stop)
+    return spool, proc
+
+
+def phase_router_path(device: dict, started) -> dict:
+    """The pod router on the card: two in-process workers (``w1``, ``w2``,
+    slots 4, slice 100) on one spool and the router as a process
+    (``python -m gravity_tpu_torch route``), the client verbs through
+    ``run_cli``. An integrate job on pallas at 8,192, then one of the same
+    key, which must land on the worker that built it (``compile_affinity``,
+    its compile count still 1); pallas-mxu at 4,096; the served cell list
+    at 8,192 (side 12, cap 32); a sweep parent of 4 members and a watch;
+    ``drain w1``, a submit that lands on w2 and the registry flag, then
+    ``--undrain``; a dense job at 262,144 refused at the router with the
+    typed 400 against the card's budget. Held: every job completes, each
+    routed integrate job ends on the bits of its padded solo run, the
+    batched launches over both workers equal their force evaluations,
+    ``nvidia-smi`` lists no compute context of the router's pid,
+    ``fleet-status`` shows both workers and the placements, and a routed
+    job's ``trace-export`` holds the ``route`` span. Printed: ms a round
+    on each worker and the router hop's p50 and p99. ``started`` is the
+    router's spool and process (:func:`start_verb`)."""
+    import shutil
+    import signal
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from gravity_tpu_torch.serve import GravityDaemon, request, wait_for
+    from gravity_tpu_torch.telemetry import snapshot_quantile
+
+    dev = card()
+    spool, router = started
+    record = {"phase": "router_path", "nvidia_smi": device["nvidia_smi"]}
+    t0 = time.perf_counter()
+    workers = {}
+    try:
+        reset_counts()
+        for wid in ("w1", "w2"):
+            workers[wid] = GravityDaemon(
+                spool, slots=ROUTER_SLOTS, slice_steps=ROUTER_SLICE,
+                idle_sleep_s=0.01, worker_id=wid, device=dev)
+            workers[wid].start()
+        banner = json.loads(router.stdout.readline())
+        check(banner.get("routing") and banner["pid"] == router.pid,
+              f"router banner {banner}")
+        # What is left of the router's start once this phase begins.
+        record["router_banner_wait_s"] = time.perf_counter() - t0
+        ids, where = {}, {}
+
+        def submit(label):
+            rc, out, err = run_clients([router_job_args(spool,
+                                                        label)])[0]
+            check(rc == 0, f"router_path submit {label}: rc {rc} "
+                  f"{err[-2000:]}")
+            resp = last_json(out)
+            check(resp.get("routed_by") == "rt",
+                  f"router_path {label}: not routed: {resp}")
+            ids[label], where[label] = resp["job"], resp["worker"]
+
+        submit("direct")
+        wait_for(spool, [ids["direct"]], timeout=300)
+        owner = where["direct"]
+        metrics_path = os.path.join(spool, "workers",
+                                    f"{owner}.metrics.json")
+        deadline = time.monotonic() + 30
+        while not any(json.load(open(metrics_path)).get(
+                "compile_counts", {}).values()):
+            check(time.monotonic() < deadline,
+                  f"router_path: {owner} published no compile counts")
+            time.sleep(0.2)
+        submit("affinity")
+        for label in ("mxu", "nlist", "sweep", "watch"):
+            submit(label)
+        rc, out, err = run_clients([serve_args(spool, "drain",
+                                               "w1")])[0]
+        check(rc == 0 and last_json(out) == {
+            "worker_id": "w1", "draining": True},
+            f"drain w1: rc {rc} {out} {err[-500:]}")
+        with open(os.path.join(spool, "workers", "w1.json")) as f:
+            drained_flag = json.load(f)["draining"]
+        submit("drained")
+        rc, out, err = run_clients([serve_args(
+            spool, "drain", "w1", "--undrain")])[0]
+        with open(os.path.join(spool, "workers", "w1.json")) as f:
+            undrained_flag = json.load(f)["draining"]
+        check(rc == 0 and drained_flag is True
+              and undrained_flag is False and where["drained"] == "w2",
+              f"drain workflow: flags {drained_flag} "
+              f"{undrained_flag}, drained job on {where['drained']}")
+        rc, out, err = run_clients([serve_args(
+            spool, "submit", *ROUTER_OVERSIZE)])[0]
+        rejection = last_json(err)
+        budget = json.load(open(os.path.join(
+            spool, "workers", "w1.json")))["capabilities"][
+            "hbm_budget_bytes"]
+        check(rc == 1 and rejection.get("kind")
+              == "insufficient_device_memory"
+              and rejection["required_bytes"] > rejection["budget_bytes"]
+              and rejection["budget_bytes"] == budget
+              and budget == torch.cuda.mem_get_info()[1],
+              f"the oversize job at the router: rc {rc} {rejection}")
+        statuses = wait_for(spool, list(ids.values()), timeout=600)
+        serve_s = time.perf_counter() - t0
+        launches = read_counts()
+        evals = {}
+        for d in workers.values():
+            for k, v in d.scheduler.engine.force_evals.items():
+                evals[k] = evals.get(k, 0) + v
+        compile_counts = {wid: d.metrics_snapshot()["compile_counts"]
+                          for wid, d in workers.items()}
+        results = {label: request(spool, "GET",
+                                  f"/result?job={ids[label]}")
+                   for label in ids}
+        events = [json.loads(x) for x in open(os.path.join(
+            spool, "serving_events.jsonl")) if x.strip()]
+        apps = compute_app_pids()
+        with open(os.path.join(spool, "router.json")) as f:
+            rinfo = json.load(f)
+        with urllib.request.urlopen(
+                f"http://{rinfo['host']}:{rinfo['port']}/metrics",
+                timeout=30) as r:
+            rsnap = json.loads(r.read())
+        with open(f"/proc/{router.pid}/maps") as f:
+            router_libcuda = "libcuda.so" in f.read()
+        rc, out, err = run_clients([serve_args(spool,
+                                               "fleet-status")])[0]
+        check(rc == 0, f"fleet-status: {err[-1000:]}")
+        fleet = json.loads(out)
+        trace_out = os.path.join(spool, "direct.trace.json")
+        rc, out, err = run_clients([serve_args(
+            spool, "trace-export", ids["affinity"], "--out",
+            trace_out)])[0]
+        check(rc == 0, f"trace-export: {err[-1000:]}")
+        with open(trace_out) as f:
+            span_names = sorted({e["name"] for e in json.load(f)[
+                "traceEvents"] if e.get("ph") == "X"})
+    finally:
+        if router.poll() is None:
+            router.send_signal(signal.SIGTERM)
+            try:
+                router.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                router.kill()
+                router.wait()
+        for d in workers.values():
+            d.stop()
+        shutil.rmtree(spool, ignore_errors=True)
+    for label, st in statuses.items():
+        check(st["status"] == "completed", f"router_path job {st}")
+    routed = {e["job"]: e for e in events if e.get("event") == "routed"}
+    aff = routed[ids["affinity"]]
+    check(aff["rule"] == "compile_affinity" and aff["target"] == owner
+          and compile_counts[owner].get(aff["rationale"]["compile_key"]) == 1
+          and aff["rationale"]["compile_key"] not in compile_counts[
+              "w2" if owner == "w1" else "w1"],
+          f"affinity: {aff}, compile counts {compile_counts}")
+    for backend, kernel in (("pallas", "nbody_direct/batched"),
+                            ("pallas-mxu", "nbody_mxu/batched"),
+                            ("nlist", "nlist_pair/batched")):
+        check(launches[kernel] == evals.get(backend, 0) > 0,
+              f"router_path: {kernel} launches {launches[kernel]} vs "
+              f"evaluations {evals}")
+    check(launches["nlist_pair/batched_bf16"] == 0,
+          f"router_path: bf16 launches {launches}")
+    # The container's nvidia-smi shows this process's context under
+    # another pid (1 on the card's machine), so the count is the check:
+    # with both workers in this process, a second context is the router's.
+    check(router.pid not in apps and len(apps) <= 1,
+          f"compute contexts {apps}: the router (pid {router.pid}) holds one")
+    registry = fleet["worker_registry"]
+    check(sorted(registry) == ["w1", "w2"]
+          and all(r["alive"] and not r["draining"]
+                  for r in registry.values())
+          and fleet["router"]["placements"] == len(ids),
+          f"fleet-status: {registry}, router {fleet.get('router')}")
+    check("route" in span_names and "round" in span_names,
+          f"trace-export spans {span_names}")
+    bits = {}
+    for label in ("direct", "affinity", "mxu", "nlist", "drained"):
+        config = router_job_config(label)
+        pos, vel = padded_solo_final(config, dev)
+        got = results[label]
+        same = (np.array_equal(np.asarray(got["positions"], np.float32),
+                               pos.cpu().numpy())
+                and np.array_equal(np.asarray(got["velocities"],
+                                              np.float32),
+                                   vel.cpu().numpy()))
+        check(same, f"routed {label}: not the bits of its padded solo run")
+        bits[label] = same
+    rounds = [e for e in events if e.get("event") == "round"]
+    hop = rsnap["registry"]
+    record.update({
+        "jobs": {label: {"job": ids[label], "worker": where[label],
+                         "rule": routed[ids[label]]["rule"]}
+                 for label in ids},
+        "wall_s": serve_s, "bitwise_equal_padded_solo": bits,
+        "affinity_key": aff["rationale"]["compile_key"],
+        "rejection": rejection, "force_evals": evals,
+        "kernel_launches": launches, "compute_app_pids": apps,
+        "router_pid": router.pid,
+        # Whether the listing sees this process's own context: where it
+        # does not, the router's absence from it says nothing.
+        "own_pid_listed": os.getpid() in apps,
+        # libcuda.so comes in with torch's CUDA libraries; a context is
+        # what a torch.cuda call would add, and what nvidia-smi lists.
+        "router_maps_libcuda": router_libcuda,
+        "ms_per_round_by_worker": {
+            wid: [1e3 * e["round_s"] for e in rounds
+                  if e.get("worker") == wid] for wid in workers},
+        "router_hop_s": {
+            "p50": snapshot_quantile(hop, "gravity_router_latency_seconds",
+                                     0.5),
+            "p99": snapshot_quantile(hop, "gravity_router_latency_seconds",
+                                     0.99)},
+        "placements": rsnap["placements"], "routed": rsnap["routed"],
+        "trace_spans": span_names})
+    emit(record)
+    return record
+
+
+def phase_trace_path(device: dict) -> dict:
+    """Solo-run tracing on the card: ``reference-cuda`` cut to 100 steps
+    (blocks of 10, a checkpoint every 50) through ``run`` with and without
+    ``--trace``: the same final bits, the same host syncs, a ``block``
+    span a block, two ``checkpoint`` spans, ``trace-export
+    --trace-file`` coverage above 0.9; ms a step both ways. Then
+    ``--trace`` with ``GRAVITY_TPU_FAULTS=diverge@50``: exit 2 and one
+    flight-recorder dump."""
+    import glob
+    import warnings
+
+    import torch
+
+    from gravity_tpu_torch.telemetry import load_spans
+
+    root = tempfile.mkdtemp(dir=os.path.join(REPO, "gravity_logs_gpu"))
+    runs = {}
+    for name, extra in (("plain", ()), ("traced", ("--trace",)),
+                        ("plain_syncs", ()), ("traced_syncs",
+                                              ("--trace",))):
+        d = os.path.join(root, name)
+        argv = [*TRACE_ARGS, "--checkpoint-every", "50", "--checkpoint-dir",
+                os.path.join(d, "ck"), "--log-dir", d, *extra]
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if name.endswith("_syncs"):
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                p = run_cli(argv)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        check(p.returncode == 0, f"trace_path {name}: {p.stderr[-2000:]}")
+        runs[name] = {"stats": last_json(p.stdout), "dir": d, "syncs": sum(
+            "synchroniz" in str(w.message) for w in caught)}
+    plain, traced = runs["plain"], runs["traced"]
+    same = same_bits(checkpoint_at(os.path.join(plain["dir"], "ck"), 100),
+                     checkpoint_at(os.path.join(traced["dir"], "ck"), 100))
+    check(same, "trace_path: the traced run is not the untraced bits")
+    check(runs["plain_syncs"]["syncs"] == runs["traced_syncs"]["syncs"],
+          f"trace_path: host syncs {runs['plain_syncs']['syncs']} untraced, "
+          f"{runs['traced_syncs']['syncs']} traced")
+    stats = traced["stats"]
+    spans = [s for s in load_spans(stats["trace_path"])
+             if s["trace"] == stats["trace_id"]]
+    names = [s["name"] for s in spans]
+    check(names.count("block") == TRACE_BLOCKS
+          and names.count("checkpoint") == 2,
+          f"trace_path spans {sorted(set(names))}: "
+          f"{names.count('block')} blocks")
+    check(stats["kernel_launches"] == 101,
+          f"trace_path: {stats['kernel_launches']} nbody_direct launches")
+    out = os.path.join(root, "solo.trace.json")
+    p = run_cli(["trace-export", "--trace-file", stats["trace_path"],
+                 "--trace", stats["trace_id"], "--out", out])
+    check(p.returncode == 0, f"trace-export: {p.stderr[-1000:]}")
+    export = last_json(p.stdout)
+    check(export["coverage"] > 0.9, f"trace-export coverage {export}")
+    div = os.path.join(root, "diverge")
+    p = run_cli([*TRACE_ARGS, "--trace", "--log-dir", div],
+                faults=TRACE_DIVERGE)
+    dumps = sorted(glob.glob(os.path.join(div, "flightrec_*.json")))
+    check(p.returncode == 2 and len(dumps) == 1,
+          f"trace_path diverge: rc {p.returncode}, dumps {dumps}")
+    with open(dumps[0]) as f:
+        dump = json.load(f)
+    check(dump["reason"] == "divergence", f"dump reason {dump['reason']}")
+    record = {
+        "phase": "trace_path", "nvidia_smi": device["nvidia_smi"],
+        "ms_per_step": {"untraced": 1e3 * plain["stats"]["avg_step_s"],
+                        "traced": 1e3 * stats["avg_step_s"]},
+        "bitwise_equal_untraced": same,
+        "host_syncs": {"untraced": runs["plain_syncs"]["syncs"],
+                       "traced": runs["traced_syncs"]["syncs"]},
+        "spans": {n: names.count(n) for n in sorted(set(names))},
+        "export": export, "diverge_exit": p.returncode,
+        "dump_entries": len(dump["entries"])}
+    emit(record)
+    return record
+
+
+def phase_sweep_verb_path(device: dict) -> dict:
+    """The ``sweep`` verb on the card through ``run_cli``: sizes 10, 100,
+    500 and 1,000 at the reference's 500 steps of 3,600 s, batched on
+    ``nbody_direct``; its batched launches equal the force evaluations the
+    log reports, each size's final positions (the last trajectory frame)
+    the bits of its padded solo run, and the log holds each size's
+    sections. Printed: the wall time."""
+    import glob
+    import re
+
+    import numpy as np
+
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.utils.trajectory import TrajectoryReader
+
+    log_dir = tempfile.mkdtemp(dir=os.path.join(REPO, "gravity_logs_gpu"))
+    reset_counts()
+    t0 = time.perf_counter()
+    p = run_cli(["sweep", "--sizes", *map(str, SWEEP_VERB_SIZES),
+                 *SWEEP_VERB_ARGS, "--trajectories", "--log-dir", log_dir])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check(p.returncode == 0, f"sweep: rc {p.returncode} {p.stderr[-2000:]}")
+    (log_path,) = glob.glob(os.path.join(log_dir, "simulation_log_*.txt"))
+    text = open(log_path).read()
+    evals = int(re.search(r"(\d+) batched force evaluations", text)[1])
+    check(launches["nbody_direct/batched"] == evals > 0,
+          f"sweep: launches {launches} vs {evals} evaluations")
+    for n in SWEEP_VERB_SIZES:
+        check(f"Starting gravity simulation with {n} particles" in text,
+              f"sweep log: no section for {n}")
+    check(text.count("Final positions:") == len(SWEEP_VERB_SIZES)
+          and text.rstrip().endswith("Simulation completed successfully"),
+          "sweep log sections")
+    steps = int(SWEEP_VERB_ARGS[1])
+    bits = {}
+    for n in SWEEP_VERB_SIZES:
+        (traj,) = glob.glob(os.path.join(log_dir,
+                                         f"trajectories_*_n{n}"))
+        reader = TrajectoryReader(traj)
+        check(reader.steps[-1] == steps, f"sweep n={n}: frames "
+              f"{reader.steps}")
+        config = SimulationConfig(n=n, steps=steps, dt=3600.0,
+                                  force_backend="pallas")
+        pos, _ = padded_solo_final(config, card())
+        bits[n] = bool(np.array_equal(np.asarray(reader.load()[-1]),
+                                      pos.cpu().numpy()))
+        check(bits[n], f"sweep n={n}: not the bits of its padded solo run")
+    record = {"phase": "sweep_verb_path", "nvidia_smi": device["nvidia_smi"],
+              "sizes": list(SWEEP_VERB_SIZES), "steps": steps,
+              "wall_s": wall, "force_evals": evals,
+              "kernel_launches": launches,
+              "bitwise_equal_padded_solo": bits}
+    emit(record)
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -9474,10 +9955,17 @@ def run_phases(torch) -> int:
     pm_periodic = timed(phase_pm_periodic_path, device)
     pm_isolated = timed(phase_pm_isolated_path, device)
     cosmo = timed(phase_cosmo_path, device)
+    # The processes of serve_path, profile_path and router_path start
+    # here, their imports overlapping the phases up to the serve phases.
+    started = {"serve": start_verb("serve", "--slots", str(SERVE_SLOTS),
+                                   "--slice-steps", str(SERVE_SLICE)),
+               "profile": start_verb("serve", "--slots", "4",
+                                     "--slice-steps", "20"),
+               "router": start_verb("route", "--router-id", "rt")}
     periodic_nlist = timed(phase_periodic_nlist_path, device)
     analyze_path = timed(phase_analyze_path, device, analyze)
     serve_kernels = timed(phase_serve_kernels, device)
-    serve_path = timed(phase_serve_path, device)
+    serve_path = timed(phase_serve_path, device, started["serve"])
     serve_parity = timed(phase_serve_parity, device)
     serve_sharded = timed(phase_serve_sharded_path, device)
     backward = timed(phase_backward_path, device)
@@ -9488,7 +9976,7 @@ def run_phases(torch) -> int:
         "nlist_main_path": nlist_path, "mxu_path": mxu_path,
         "tree_path": tree_path, "fmm_path": fmm_path})
     gate = timed(phase_gate_path, device)
-    timed(phase_profile_path, device)
+    timed(phase_profile_path, device, started["profile"])
     timed(phase_small_reference)
     timed(phase_other_entry_points)
     bench_path = timed(phase_bench_path, device)
@@ -9509,6 +9997,9 @@ def run_phases(torch) -> int:
     timed(phase_profile_p3m)
     timed(phase_profile_tree)
     profile_bf16 = timed(phase_profile_tree, bf16=True)
+    routed = timed(phase_router_path, device, started["router"])
+    traced = timed(phase_trace_path, device)
+    sweep_verb = timed(phase_sweep_verb_path, device)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0,
           "phase_s": phase_s,
           "kernel_share_of_main_path_step":
@@ -9666,6 +10157,13 @@ def run_phases(torch) -> int:
           "sweep_watch": [sweep_watch["max_min_sep_gap"],
                           sweep_watch["max_drift_gap"],
                           sweep_watch["watch_events"]],
+          "router": {"ms_per_round_by_worker": {
+              w: statistics.median(v) if v else None for w, v in
+              routed["ms_per_round_by_worker"].items()},
+              "hop_s": routed["router_hop_s"],
+              "rules": {k: v["rule"] for k, v in routed["jobs"].items()}},
+          "trace_ms_per_step": traced["ms_per_step"],
+          "sweep_verb_wall_s": sweep_verb["wall_s"],
           "host_syncs_per_step": syncs["syncs_per_step"],
           "perf_ledger_share_of_fp32_peak": {
               k: [r["share_of_fp32_peak"] for r in v["rows"]]
@@ -9795,6 +10293,14 @@ def run_phases(torch) -> int:
         # The backward: the dense VJP in plain PyTorch, as the JAX
         # package's wrap_with_dense_vjp; no kernel, launches 0.
         "backward_ms": backward["cases"].get(name, {}).get("backward_ms"),
+        # The batched rows' launches on the later serving paths, each
+        # counted from 0 over its phase: the two routed workers, and the
+        # sweep verb.
+        "other_paths_launches": {
+            path: counts[name] for path, counts in (
+                ("router_path", routed["kernel_launches"]),
+                ("sweep_verb_path", sweep_verb["kernel_launches"]))
+            if name in BATCHED_ROWS},
     } for name, replaces, launches, err, t in kernels]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

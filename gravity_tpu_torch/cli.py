@@ -1,7 +1,8 @@
-"""Command-line interface: the ``run``, ``resume``, ``bench`` and ``tune``
-verbs, the cosmology and analysis verbs ``cosmo`` and ``analyze``, and the
-serving verbs ``serve``, ``submit``, ``status``, ``result`` and
-``cancel``.
+"""Command-line interface: the ``run``, ``resume``, ``sweep``, ``bench`` and
+``tune`` verbs, the cosmology and analysis verbs ``cosmo`` and
+``analyze``, the serving verbs ``serve``, ``submit``, ``status``,
+``result`` and ``cancel``, and the fleet verbs ``route``, ``drain``,
+``fleet-status`` and ``trace-export``.
 
 Counterpart of ``gravity_tpu/cli.py`` for this slice, with the JAX CLI's
 flag names. ``run`` writes the reference log and prints one JSON line of
@@ -9,19 +10,29 @@ run statistics on stdout; ``resume`` continues a checkpointed run;
 ``bench`` prints one JSON line of a timed block (``bench.run_benchmark``,
 or with ``--cadence`` a whole run with trajectories and checkpoints);
 ``tune`` fills the autotuner's cache over a size ladder, one JSON line a
-size. ``cosmo`` runs a comoving cosmological box (grf initial conditions,
-the periodic PM solver, the comoving KDK) and prints one JSON growth
-report; ``analyze`` prints a diagnostics report (energy, radii, P(k),
-halos, xi(r)) of a checkpoint or a fresh realization. Each runs on the
-GPU unless ``--device cpu``. ``serve`` starts the
-ensemble daemon (serve/service.py) on the GPU unless ``--device cpu``;
-the client verbs find it through ``--spool-dir``. ``submit --job-type``
+size. ``sweep`` runs the reference's size sweep (``--sizes``, default 10
+100 500 1000) as jobs of an in-process ensemble scheduler, or one run
+after another where the engine cannot serve the config. ``run --trace``
+writes the run's spans to ``<log-dir>/traces.jsonl``; ``--trace`` or
+``--error-budget`` arms a flight recorder that dumps on a divergence, an
+accuracy breach or SIGTERM. ``cosmo`` runs a comoving cosmological box
+(grf initial conditions, the periodic PM solver, the comoving KDK) and
+prints one JSON growth report; ``analyze`` prints a diagnostics report
+(energy, radii, P(k), halos, xi(r)) of a checkpoint or a fresh
+realization. Each runs on the GPU unless ``--device cpu``. ``serve``
+starts the ensemble daemon (serve/service.py) on the GPU unless
+``--device cpu``; the client verbs find it through ``--spool-dir``. ``submit --job-type``
 takes the served classes, ``integrate``, ``fit``, ``sweep``, ``watch`` and
 ``sharded-integrate``, with their payload in ``--params`` (a malformed one
 is the daemon's 400 and exit 2). A
 served ``--force-backend nlist`` job names its ``--nlist-rcut`` and
 ``--nlist-side`` (no state exists at admission to size the grid from;
-``--nlist-cap`` defaults to 64); the daemon refuses it otherwise.
+``--nlist-cap`` defaults to 64); the daemon refuses it otherwise. ``route``
+starts the pod router in front of every worker of a spool (the client
+verbs find it through ``router.json``); ``drain W`` takes worker W out of
+its rotation (``--undrain`` puts it back); ``fleet-status`` prints the
+fleet's health, the registry's capabilities and the router's placements;
+``trace-export`` writes one trace as Chrome/Perfetto JSON.
 
 Under ``--sharding allgather|ring`` (``--mesh-shape P`` or ``S,P/S``)
 ``run`` is one rank of a ``torch.distributed`` world: the launcher's
@@ -89,6 +100,14 @@ Usage:
     python -m gravity_tpu_torch status --spool-dir D
     python -m gravity_tpu_torch result --spool-dir D <job> --out final.npz
     python -m gravity_tpu_torch cancel --spool-dir D <job>
+    python -m gravity_tpu_torch route --spool-dir D &
+    python -m gravity_tpu_torch drain --spool-dir D <worker> [--undrain]
+    python -m gravity_tpu_torch fleet-status --spool-dir D
+    python -m gravity_tpu_torch trace-export --spool-dir D <job>
+    python -m gravity_tpu_torch run --preset reference-cuda --trace
+    python -m gravity_tpu_torch trace-export \
+        --trace-file gravity_logs_gpu/traces.jsonl --trace <id>
+    python -m gravity_tpu_torch sweep --sizes 10 100 500 1000
 """
 
 from __future__ import annotations
@@ -299,6 +318,10 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                    help="capture a torch.profiler trace of the run (host "
                         "ops and the card's kernels, a Chrome trace) into "
                         "<log-dir>/profile_<timestamp>/")
+    p.add_argument("--trace", action="store_true", default=None,
+                   help="emit lifecycle spans (blocks, checkpoints) as "
+                        "JSONL under --log-dir, exportable with "
+                        "`gravity_tpu_torch trace-export`")
     p.add_argument("--debug-check", dest="debug_check", action="store_true",
                    default=None,
                    help="the backend against the plain direct sum on the "
@@ -505,6 +528,7 @@ def cmd_run(args: argparse.Namespace) -> int:
 
         metrics_logger = MetricsLogger(os.path.join(
             config.log_dir, f"metrics_{logger.timestamp}.jsonl"))
+    telemetry = _run_telemetry(config, logger) if lead else None
     sup = None
     if config.auto_recover:
         from .supervisor import RunSupervisor
@@ -518,7 +542,7 @@ def cmd_run(args: argparse.Namespace) -> int:
                             checkpoint_manager=ckpt_mgr,
                             trajectory_writer=writer,
                             metrics_logger=metrics_logger, state=state0,
-                            device=args.device)
+                            device=args.device, telemetry=telemetry)
     def _go():
         if sup is not None:
             return sup.run(), sup.last_sim
@@ -528,7 +552,8 @@ def cmd_run(args: argparse.Namespace) -> int:
                                     metrics_logger=metrics_logger), sim
         return sim.run(logger, trajectory_writer=writer,
                        checkpoint_manager=ckpt_mgr,
-                       metrics_logger=metrics_logger), sim
+                       metrics_logger=metrics_logger,
+                       telemetry=telemetry), sim
 
     try:
         if config.profile and lead:
@@ -567,9 +592,34 @@ def cmd_run(args: argparse.Namespace) -> int:
     if writer is not None:
         stats["trajectory_dir"] = getattr(writer, "out_dir", None) \
             or writer.path
+    _add_trace_path(stats, telemetry)
     if lead:
         print(json.dumps(stats))
     return 0
+
+
+def _run_telemetry(config: SimulationConfig, logger):
+    """The solo run's telemetry bundle, or None: with ``--trace`` or an
+    ``--error-budget`` (a breach's flight-recorder dump needs a recorder
+    holding the run's history). Spans land in ``<log_dir>/traces.jsonl``
+    (shared across runs; ``trace-export`` filters by trace id), dumps in
+    the same directory."""
+    if not (config.trace or config.error_budget > 0.0):
+        return None
+    from .telemetry import Telemetry
+
+    if config.adaptive and logger is not None:
+        logger.log_print("note: --trace spans cover the fixed-dt loop; "
+                         "adaptive runs get flight-recorder triggers only")
+    return Telemetry(out_dir=config.log_dir, worker=f"run-{os.getpid()}")
+
+
+def _add_trace_path(stats: dict, telemetry) -> None:
+    """Name the span file in the stats where the run emitted spans (an
+    adaptive run takes recorder triggers but writes none)."""
+    if telemetry is not None and telemetry.tracer.path \
+            and stats.get("trace_id"):
+        stats["trace_path"] = telemetry.tracer.path
 
 
 def cmd_resume(args: argparse.Namespace) -> int:
@@ -624,6 +674,7 @@ def cmd_resume(args: argparse.Namespace) -> int:
     logger = RunLogger(config.log_dir) if lead else None
     if logger is not None:
         logger.log_print(f"Resuming from checkpoint at step {step}")
+    telemetry = _run_telemetry(config, logger) if lead else None
     try:
         if config.auto_recover:
             from .supervisor import RunSupervisor
@@ -634,7 +685,8 @@ def cmd_resume(args: argparse.Namespace) -> int:
                 if lead else None
             stats = RunSupervisor(config, logger=logger, events=events,
                                   checkpoint_manager=mgr,
-                                  device=args.device, **kwargs).run()
+                                  device=args.device, telemetry=telemetry,
+                                  **kwargs).run()
         else:
             sim = Simulator(config, state=state, device=args.device)
             if config.adaptive:
@@ -644,7 +696,7 @@ def cmd_resume(args: argparse.Namespace) -> int:
                     start_comp=kwargs["start_comp"], start_steps=step)
             else:
                 stats = sim.run(logger, checkpoint_manager=mgr,
-                                start_step=step)
+                                start_step=step, telemetry=telemetry)
     except SimulationPreempted:
         if lead:
             print(json.dumps({"preempted": True, "resumable": True}),
@@ -655,8 +707,126 @@ def cmd_resume(args: argparse.Namespace) -> int:
         return _print_failure_json(e) if lead else EXIT_FAILED
     stats.pop("final_state", None)
     stats["resumed_at"] = step
+    _add_trace_path(stats, telemetry)
     if lead:
         print(json.dumps(stats))
+    return 0
+
+
+def cmd_sweep(args: argparse.Namespace) -> int:
+    """The reference's size sweep (its ``pyspark.py``): every size is a
+    job on an in-process ensemble scheduler, so that the sizes integrate
+    as batched launches of the hand-written kernels instead of one run
+    after another. A config outside the ensemble envelope (the fast
+    solvers, adaptive, merging, ...), which ``batch_key_for`` refuses
+    with its ValueError, takes the solo loop instead. The log keeps the
+    reference's sections for each size."""
+    import time
+
+    from .interop import to_numpy
+    from .serve import EnsembleScheduler, batch_key_for
+    from .utils.logging import RunLogger, ServingEventLogger
+    from .utils.timing import pairs_per_step
+    from .utils.trajectory import TrajectoryWriter
+
+    config = build_config(args)
+    logger = RunLogger(config.log_dir)
+    sizes = args.sizes or [10, 100, 500, 1000]
+    slots = args.slots or 4
+    try:
+        for n in sizes:
+            batch_key_for(dataclasses.replace(config, n=n), slots=slots,
+                          device=args.device)
+    except ValueError as e:
+        logger.log_print(f"(ensemble sweep unavailable for this config: "
+                         f"{e}; running sizes solo)")
+        return _sweep_solo(config, sizes, logger, args.device)
+
+    events = ServingEventLogger(os.path.join(
+        config.log_dir, f"serving_{logger.timestamp}.jsonl"))
+    sched = EnsembleScheduler(
+        slots=slots, slice_steps=max(1, min(config.progress_every,
+                                            config.steps)),
+        events=events, device=args.device)
+    job_ids = {}
+    for n in sizes:
+        _sweep_banner(logger, config, n)
+        job_ids[n] = sched.submit(dataclasses.replace(config, n=n))
+    writers = {}
+    if config.record_trajectories:
+        for n in sizes:
+            writers[n] = TrajectoryWriter(os.path.join(
+                config.log_dir, f"trajectories_{logger.timestamp}_n{n}"),
+                n, every=1)
+    t0 = time.perf_counter()
+    last_frame: dict = {}
+    while sched.has_work():
+        if sched.run_round() is None and not sched.has_work():
+            break
+        for n, w in writers.items():
+            job = sched.jobs[job_ids[n]]
+            state = sched.peek_state(job_ids[n])
+            if (job.status in ("running", "completed") and state is not None
+                    and last_frame.get(n) != job.steps_done):
+                # Round-boundary frames, only where the job advanced.
+                last_frame[n] = job.steps_done
+                w.record(job.steps_done, to_numpy(state.positions))
+    wall = time.perf_counter() - t0
+    for w in writers.values():
+        w.close()
+    failed = []
+    for n in sizes:
+        st = sched.status(job_ids[n])
+        if st["status"] != "completed":
+            failed.append(n)
+            logger.log_print(f"\nSweep job n={n} {st['status']}: "
+                             f"{st.get('error') or 'not completed'}")
+            continue
+        # active_s counts only the rounds this job was resident in.
+        job_s = st["active_s"]
+        logger.performance(job_s, config.steps, pairs_per_sec=(
+            pairs_per_step(n) * config.steps / job_s if job_s > 0 else None))
+        logger.final_positions(sched.result(job_ids[n]).positions.numpy())
+    logger.log_print(
+        f"\nEnsemble sweep: {len(sizes)} jobs in {wall:.2f}s over "
+        f"{sched.rounds_run} rounds ({len(sched.engine.compile_counts)} "
+        f"batch programs built, "
+        f"{sum(sched.engine.force_evals.values())} batched force "
+        f"evaluations); serving events: {events.path}")
+    if failed:
+        return 1
+    logger.completed()
+    return 0
+
+
+def _sweep_banner(logger, config: SimulationConfig, n: int) -> None:
+    logger.log_print(f"\nStarting gravity simulation with {n} particles")
+    logger.log_print("Configuration:")
+    logger.log_print(f"- Number of steps: {config.steps}")
+    logger.log_print(f"- Time step: {config.dt:g} seconds")
+
+
+def _sweep_solo(config: SimulationConfig, sizes, logger, device) -> int:
+    """One Simulator a size, back to back: the sweep of a config the
+    ensemble engine cannot serve."""
+    from .interop import to_numpy
+    from .simulation import Simulator
+    from .utils.trajectory import TrajectoryWriter
+
+    for n in sizes:
+        _sweep_banner(logger, config, n)
+        cfg = dataclasses.replace(config, n=n)
+        sim = Simulator(cfg, device=device)
+        writer = None
+        if cfg.record_trajectories:
+            writer = TrajectoryWriter(os.path.join(
+                cfg.log_dir, f"trajectories_{logger.timestamp}_n{n}"),
+                sim.n_real, every=1)
+        stats = sim.run(trajectory_writer=writer)
+        logger.performance(stats["total_time_s"], cfg.steps,
+                           pairs_per_sec=stats["pairs_per_sec"])
+        logger.final_positions(to_numpy(stats["final_state"].positions))
+    logger.completed()
     return 0
 
 
@@ -1399,6 +1569,182 @@ def cmd_cancel(args: argparse.Namespace) -> int:
     return 0 if resp.get("cancelled") else 1
 
 
+def cmd_trace_export(args: argparse.Namespace) -> int:
+    """Export one trace as Chrome/Perfetto ``trace_event`` JSON. The
+    trace comes from a served job's spool record (``--spool-dir`` and a
+    job id: the trace id, stitched across adoptions and the router's
+    hop) or an explicit ``--trace`` id or ``--trace-file`` (a solo run's
+    ``<log-dir>/traces.jsonl``). Exit 2 when there is no such record,
+    trace id or span."""
+    from .serve.leases import read_json_retry
+    from .telemetry import (
+        TRACES_FILE,
+        chrome_trace,
+        load_spans,
+        span_coverage,
+        trace_ids,
+    )
+
+    trace = args.trace
+    trace_file = args.trace_file
+    if args.job:
+        rec = read_json_retry(
+            os.path.join(args.spool_dir, "jobs", f"{args.job}.json"))
+        if not isinstance(rec, dict):
+            print(f"error: no spool record for job {args.job!r} under "
+                  f"{args.spool_dir!r}", file=sys.stderr)
+            return 2
+        trace = rec.get("trace_id") or None
+        if trace is None:
+            print(f"error: job {args.job!r} has no trace id",
+                  file=sys.stderr)
+            return 2
+    if trace_file is None:
+        trace_file = os.path.join(args.spool_dir, TRACES_FILE)
+    spans = load_spans(trace_file)
+    if not spans:
+        print(f"error: no spans in {trace_file!r}", file=sys.stderr)
+        return 2
+    if trace is None:
+        ids = trace_ids(spans)
+        if len(ids) != 1:
+            print("error: --trace or a job id required; file holds "
+                  f"{len(ids)} traces: {ids[:10]}", file=sys.stderr)
+            return 2
+        trace = ids[0]
+    doc = chrome_trace(spans, trace)
+    if not doc["traceEvents"]:
+        print(f"error: trace {trace!r} not found in {trace_file!r}",
+              file=sys.stderr)
+        return 2
+    out = args.out or f"{trace}.trace.json"
+    with open(out, "w") as f:
+        json.dump(doc, f)
+    cov = span_coverage(spans, trace)
+    print(json.dumps({
+        "trace": trace, "out": out, "spans": cov["spans"],
+        "wall_s": cov["wall_s"], "union_s": cov["union_s"],
+        # The share of the trace's wall clock its top-level spans cover.
+        "coverage": cov["coverage"],
+    }))
+    return 0
+
+
+def cmd_fleet_status(args: argparse.Namespace) -> int:
+    """Fleet-wide serving health: every live worker's snapshot from the
+    shared spool, aggregated (``/metrics?fleet=1``), with the worker
+    registry's capability and drain view and, when a pod router runs,
+    its placement table (routed counts by worker, the decision ring)."""
+    import urllib.request
+
+    from .serve import DaemonUnreachable, request
+    from .serve.leases import entry_alive, read_json_retry
+    from .serve.service import ROUTER_FILE, WORKERS_DIR
+
+    try:
+        resp = request(args.spool_dir, "GET", "/metrics?fleet=1")
+    except DaemonUnreachable as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    # Capability and drain state straight from the registry files:
+    # authoritative with or without a router in front.
+    registry_view = {}
+    workers_dir = os.path.join(args.spool_dir, WORKERS_DIR)
+    try:
+        names = sorted(n for n in os.listdir(workers_dir)
+                       if n.endswith(".json")
+                       and not n.endswith(".metrics.json"))
+    except OSError:
+        names = []
+    for name in names:
+        entry = read_json_retry(os.path.join(workers_dir, name))
+        if not isinstance(entry, dict):
+            continue
+        wid = entry.get("worker_id") or name[:-len(".json")]
+        caps = entry.get("capabilities") or {}
+        registry_view[wid] = {
+            "alive": entry_alive(entry),
+            "draining": bool(entry.get("draining")),
+            # The capabilities the router's sharded and nlist rules read.
+            "sharded_capable": bool(caps.get("sharded_capable")),
+            "nlist_capable": bool(caps.get("nlist_capable")),
+            "capabilities": caps,
+        }
+    resp["worker_registry"] = registry_view
+    if "router" not in resp:
+        # Answered by a worker directly: ask a live router for its
+        # placement table ourselves.
+        rinfo = read_json_retry(os.path.join(args.spool_dir, ROUTER_FILE))
+        if isinstance(rinfo, dict) and entry_alive(rinfo):
+            try:
+                with urllib.request.urlopen(
+                        f"http://{rinfo['host']}:{rinfo['port']}/metrics",
+                        timeout=10.0) as r:
+                    resp["router"] = json.loads(r.read())
+            except Exception:  # noqa: BLE001 — the router view is a bonus
+                pass
+    if not args.full:
+        # The registry dumps are for machines; the default view is the
+        # operator's summary.
+        resp.pop("registry", None)
+        if isinstance(resp.get("router"), dict):
+            resp["router"].pop("registry", None)
+    print(json.dumps(resp, indent=2))
+    return 0
+
+
+def cmd_route(args: argparse.Namespace) -> int:
+    """Start the pod router: a stateless placement tier speaking the
+    worker HTTP/JSON API, placing each submit onto a live worker by
+    measured evidence. Clients find it through the same spool
+    (``router.json``, preferred by ``find_daemon`` while its pid lives).
+    It never touches a device."""
+    from .serve.router import RouterDaemon
+
+    router = RouterDaemon(args.spool_dir, host=args.host, port=args.port,
+                          router_id=args.router_id,
+                          proxy_timeout_s=args.proxy_timeout)
+    host, port = router.start()
+    print(json.dumps({
+        "routing": True, "host": host, "port": port,
+        "spool_dir": args.spool_dir, "pid": os.getpid(),
+        "router_id": router.router_id,
+    }), flush=True)
+    router.serve_blocking()
+    return 0
+
+
+def cmd_drain(args: argparse.Namespace) -> int:
+    """Flip a worker's drain state: a draining worker keeps running its
+    residents and answering every client verb, but the pod router places
+    no new job on it. Exit 2 when the worker is not live or not
+    reachable."""
+    import urllib.error
+    import urllib.request
+
+    from .serve.service import _live_workers
+
+    drain = not args.undrain
+    for info in _live_workers(args.spool_dir):
+        if info.get("worker_id") != args.worker:
+            continue
+        req = urllib.request.Request(
+            f"http://{info['host']}:{info['port']}/drain",
+            data=json.dumps({"drain": drain}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=30.0) as resp:
+                print(json.dumps(json.loads(resp.read())))
+                return 0
+        except (urllib.error.URLError, OSError) as e:
+            print(f"error: worker {args.worker!r} unreachable: {e}",
+                  file=sys.stderr)
+            return 2
+    print(f"error: no live worker {args.worker!r} in the registry under "
+          f"{args.spool_dir!r}", file=sys.stderr)
+    return 2
+
+
 def _add_spool_arg(p: argparse.ArgumentParser) -> None:
     p.add_argument("--spool-dir", dest="spool_dir", default="gravity_spool",
                    help="daemon spool directory (jobs, results, "
@@ -1507,6 +1853,62 @@ def _add_serving_parsers(sub) -> None:
     p.add_argument("job")
     p.set_defaults(func=cmd_cancel)
 
+    p = sub.add_parser("trace-export",
+                       help="export a job's or a run's trace as "
+                            "Chrome/Perfetto trace_event JSON")
+    _add_spool_arg(p)
+    p.add_argument("job", nargs="?", default=None,
+                   help="served job id (its spool record carries the "
+                        "trace id)")
+    p.add_argument("--trace", default=None,
+                   help="explicit trace id (solo runs print it in their "
+                        "stats JSON)")
+    p.add_argument("--trace-file", dest="trace_file", default=None,
+                   help="traces.jsonl to read (default: "
+                        "<spool-dir>/traces.jsonl)")
+    p.add_argument("--out", default=None,
+                   help="output path (default <trace>.trace.json)")
+    p.set_defaults(func=cmd_trace_export)
+
+    p = sub.add_parser("fleet-status",
+                       help="aggregated fleet health across every live "
+                            "worker on the spool, the worker registry's "
+                            "capability and drain view, and the pod "
+                            "router's placement table when one runs")
+    _add_spool_arg(p)
+    p.add_argument("--full", action="store_true",
+                   help="include the merged metric registry dump")
+    p.set_defaults(func=cmd_fleet_status)
+
+    p = sub.add_parser("route",
+                       help="start the pod router: policy-placed submits "
+                            "over every worker sharing the spool, the "
+                            "same HTTP/JSON API as a worker")
+    _add_spool_arg(p)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0,
+                   help="0 = any free port (clients find it through the "
+                        "spool's router.json)")
+    p.add_argument("--router-id", dest="router_id", default=None,
+                   help="stable router identity in the shared event and "
+                        "trace streams (default: router-host-pid-random)")
+    p.add_argument("--proxy-timeout", dest="proxy_timeout", type=float,
+                   default=300.0,
+                   help="a proxied worker call's budget in seconds (must "
+                        "outwait an admission-time autotune probe)")
+    p.set_defaults(func=cmd_route)
+
+    p = sub.add_parser("drain",
+                       help="take a worker out of the router's placement "
+                            "rotation (its residents keep running; "
+                            "--undrain puts it back)")
+    _add_spool_arg(p)
+    p.add_argument("worker", help="worker id from the registry (see "
+                                  "fleet-status)")
+    p.add_argument("--undrain", action="store_true",
+                   help="re-enter the placement rotation")
+    p.set_defaults(func=cmd_drain)
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
@@ -1517,6 +1919,16 @@ def main(argv=None) -> int:
     p_run = sub.add_parser("run", help="run a simulation")
     _add_config_args(p_run)
     p_run.set_defaults(func=cmd_run)
+
+    p_sweep = sub.add_parser(
+        "sweep", help="the reference's size sweep, batched through the "
+                      "ensemble engine")
+    _add_config_args(p_sweep)
+    p_sweep.add_argument("--sizes", type=int, nargs="*", default=None,
+                         help="sizes to run (default 10 100 500 1000)")
+    p_sweep.add_argument("--slots", type=int, default=None,
+                         help="batch slots a bucket (default 4)")
+    p_sweep.set_defaults(func=cmd_sweep)
 
     p_resume = sub.add_parser(
         "resume", help="resume from the latest checkpoint")

@@ -42,8 +42,6 @@ SHARDING_MODES = ("none", "allgather", "ring")
 # single-axis mesh of >= 2 devices).
 NLIST_MESH_MODES = ("auto", "halo", "allgather")
 
-_QUEUE = "ROADMAP.md Queue 1 item"
-
 # P3M takes no bf16 state, as in the JAX package, whose mesh FFT refuses
 # one: nothing is left to port there.
 _BF16_REFUSED_BACKENDS = ("p3m",)
@@ -62,10 +60,8 @@ _UNPORTED_BACKENDS = {
 # Fields of gravity_tpu's SimulationConfig that this package does not
 # carry: (the JAX default, which means "feature off", and the ROADMAP item
 # that ports the feature). A JSON config may name them only at that value.
-_NOT_PORTED = {
-    # The span tracer of the serving stack's telemetry.
-    "trace": (False, f"{_QUEUE} 9"),
-}
+# Every field is carried now.
+_NOT_PORTED: dict = {}
 IO_PIPELINE_MODES = ("auto", "on", "off")
 TRAJECTORY_FORMATS = ("npy", "native")
 ON_DIVERGE = ("halve-dt", "abort")
@@ -231,6 +227,11 @@ class SimulationConfig:
     # Capture a torch.profiler trace of the run (utils/profiling.trace)
     # into <log_dir>/profile_<timestamp>/.
     profile: bool = False
+    # Span tracing: emit the run's lifecycle spans (blocks, checkpoints,
+    # sentinel probes) as JSONL under log_dir — the solo twin of the
+    # serving trace stream, exportable with `gravity_tpu_torch
+    # trace-export`.
+    trace: bool = False
 
     # Self-healing supervision (supervisor.py): divergence rolls back to
     # the last verified checkpoint and retries the bad interval at halved

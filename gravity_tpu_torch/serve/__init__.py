@@ -18,8 +18,11 @@ Fleet resilience: :mod:`.leases` (TTL job leases with fencing tokens and
 heartbeats) and :mod:`.breaker` (per-backend circuit breakers at
 admission). Traffic classes (:mod:`.jobs`): ``integrate``, ``fit``,
 ``sweep``, ``watch`` and ``sharded-integrate``, each under the same
-scheduler, lease and breaker contracts. The pod router and the fleet
-verbs are the rest of ROADMAP.md Queue 1 item 9.
+scheduler, lease and breaker contracts. :mod:`.router` — the pod router
+(``python -m gravity_tpu_torch route``): a stateless placement tier that
+speaks the worker API in front and places each submit onto a worker by
+measured evidence (compile affinity, sharded capability, memory fit,
+per-class latency, load); ``drain`` takes a worker out of its rotation.
 """
 
 from .breaker import BreakerBoard, CircuitBreaker  # noqa: F401
@@ -46,6 +49,12 @@ from .scheduler import (  # noqa: F401
     QueueFull,
     Spool,
     default_worker_id,
+)
+from .router import (  # noqa: F401
+    PlacementError,
+    RouterDaemon,
+    WorkerView,
+    place,
 )
 from .service import (  # noqa: F401
     DaemonUnreachable,

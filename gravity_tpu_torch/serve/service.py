@@ -38,6 +38,8 @@ path        method  body / query
 /cancel     POST    {"job": <id>}
 /metrics    GET     queue depth, latency p50/p95, compile counts,
                     rounds run
+/drain      POST    {"drain": bool}: out of (or back into) the pod
+                    router's placement rotation; residents run on
 /shutdown   POST    graceful stop (drains nothing; jobs respool on
                     the next start)
 ==========  ======  ================================================
@@ -217,9 +219,11 @@ class GravityDaemon:
         self._stop = threading.Event()
         self._server: Optional[ThreadingHTTPServer] = None
         self._threads: list[threading.Thread] = []
-        # The JAX package's drain flag (its pod router's rotation, ROADMAP
-        # item 9): advertised, always False here.
+        # Drain state (POST /drain): a draining worker keeps serving its
+        # residents and every client verb, but advertises itself out of
+        # the pod router's placement rotation through its registry entry.
         self.draining = False
+        self._endpoint: Optional[dict] = None
         # The profiler capture budget of POST /profile: rounds left to
         # trace, and where; zero cost while 0.
         self._profile_rounds = 0
@@ -338,6 +342,7 @@ class GravityDaemon:
         atomic_write_json(
             os.path.join(workers_dir, f"{self.worker_id}.json"), endpoint
         )
+        self._endpoint = endpoint
         self.scheduler.start_lease_heartbeat()
         t_http = threading.Thread(
             target=self._server.serve_forever, daemon=True,
@@ -784,6 +789,26 @@ class GravityDaemon:
             self._profile_rounds = rounds
             return 200, {"profiling_rounds": rounds,
                          "dir": self._profile_dir}
+        if path == "/drain":
+            # Take this worker out of (or back into) the router's
+            # placement rotation WITHOUT touching its residents: flip the
+            # flag in the registry entry the router reads. Direct clients
+            # are unaffected: drain is a placement signal, not an
+            # admission gate.
+            drain = bool(body.get("drain", True))
+            changed = drain != self.draining
+            self.draining = drain
+            if self._endpoint:
+                self._endpoint = {**self._endpoint, "draining": drain}
+                try:
+                    atomic_write_json(os.path.join(
+                        self.spool_dir, WORKERS_DIR,
+                        f"{self.worker_id}.json"), self._endpoint)
+                except OSError as e:
+                    return 500, {"error": f"registry write failed: {e}"}
+            if changed:
+                self.events.event("drained", drain=drain)
+            return 200, {"worker_id": self.worker_id, "draining": drain}
         if path == "/shutdown":
             self._stop.set()
             return 200, {"stopping": True}

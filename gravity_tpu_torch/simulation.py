@@ -1315,12 +1315,15 @@ class Simulator:
 
     @staticmethod
     def _make_host_pipeline(trajectory_writer, checkpoint_manager,
-                            enabled: bool):
+                            enabled: bool, tracer=None,
+                            trace_id: Optional[str] = None):
         """(host_writer, trajectory_writer, submit_save): with ``enabled``
         and any I/O consumer, trajectory records and checkpoint saves go
         through one bounded-queue :class:`~gravity_tpu_torch.utils.hostio.
         HostWriter` (the checksum and the write off the critical path);
-        otherwise ``host_writer`` is None and saves run inline."""
+        otherwise ``host_writer`` is None and saves run inline. With a
+        ``tracer``, every save emits a ``checkpoint`` span, timed where
+        it runs (the writer's thread under the pipeline)."""
         host_writer = None
         if enabled and (trajectory_writer is not None
                         or checkpoint_manager is not None):
@@ -1331,13 +1334,19 @@ class Simulator:
                 trajectory_writer = AsyncTrajectoryWriter(trajectory_writer,
                                                           host_writer)
 
+        def _save(at_step, at_state, extra=None):
+            t0 = time.time()
+            save_checkpoint(checkpoint_manager, at_step, at_state,
+                            extra=extra)
+            if tracer is not None:
+                tracer.emit("checkpoint", trace_id, t0, time.time() - t0,
+                            step=at_step)
+
         def submit_save(at_step, at_state, extra=None):
             if host_writer is not None:
-                host_writer.submit(save_checkpoint, checkpoint_manager,
-                                   at_step, at_state, extra=extra)
+                host_writer.submit(_save, at_step, at_state, extra=extra)
             else:
-                save_checkpoint(checkpoint_manager, at_step, at_state,
-                                extra=extra)
+                _save(at_step, at_state, extra=extra)
 
         return host_writer, trajectory_writer, submit_save
 
@@ -1389,17 +1398,29 @@ class Simulator:
         checkpoint_manager=None,
         metrics_logger=None,
         start_step: int = 0,
+        telemetry=None,
     ) -> dict:
         """Run the configured number of steps (from ``start_step`` on a
         resume); returns a results dict. An adaptive config runs
         :meth:`run_adaptive` instead. SIGTERM raises
         :class:`SimulationPreempted` through the same checkpoint-and-exit
-        path as Ctrl-C, so that a preempted run can be resumed."""
+        path as Ctrl-C, so that a preempted run can be resumed.
+
+        ``telemetry`` (a :class:`~gravity_tpu_torch.telemetry.Telemetry`
+        bundle; CLI ``--trace`` or ``--error-budget``) gives the run a
+        trace id (``stats["trace_id"]``) and the serving stack's span
+        structure: a ``block`` span for each consumed block, timed on the
+        host when the loop has waited for the block's own event (no sync
+        is added), ``checkpoint`` spans from the host writer and
+        ``sentinel`` spans; and flight-recorder records with dumps on
+        divergence, an accuracy breach and SIGTERM. Adaptive runs take
+        none of it."""
         with preemption_guard():
             return self._run_impl(
                 logger, steps=steps, trajectory_writer=trajectory_writer,
                 checkpoint_manager=checkpoint_manager,
                 metrics_logger=metrics_logger, start_step=start_step,
+                telemetry=telemetry,
             )
 
     def _checkpoint_state(self, state: ParticleState, *,
@@ -1451,7 +1472,8 @@ class Simulator:
                 f"checkpoint at step {step} failed on rank 0 of the world")
 
     def _run_impl(self, logger, *, steps, trajectory_writer,
-                  checkpoint_manager, metrics_logger, start_step) -> dict:
+                  checkpoint_manager, metrics_logger, start_step,
+                  telemetry=None) -> dict:
         config = self.config
         if config.adaptive:
             if steps is not None or start_step:
@@ -1483,9 +1505,15 @@ class Simulator:
             block = max(1, block // every) * every
 
         pipelined = self._resolve_io_pipeline()
+        tracer = telemetry.tracer if telemetry is not None else None
+        trace_id = None
+        if telemetry is not None:
+            from .telemetry import new_trace_id
+
+            trace_id = new_trace_id()
         host_writer, trajectory_writer, save_cadence = \
             self._make_host_pipeline(trajectory_writer, checkpoint_manager,
-                                     pipelined)
+                                     pipelined, tracer, trace_id)
         self._banner(logger, total_steps, config.integrator)
         state = self.state
         step_fn = self._step_fn(state.masses)
@@ -1596,9 +1624,22 @@ class Simulator:
                             f"{prev_step}"
                             + (" (checkpoint saved)"
                                if checkpoint_manager is not None else ""))
+                    if telemetry is not None:
+                        telemetry.recorder.record(
+                            "event", event="diverged", step=prev_step,
+                            end_step=end_step)
+                        telemetry.recorder.dump("divergence")
                     raise SimulationDiverged(prev_step)
                 now = time.perf_counter()
                 block_elapsed, block_prev = now - block_prev, now
+                if tracer is not None:
+                    # The solo twin of the serving `round` span: one a
+                    # consumed block (the first carries the kernels'
+                    # loading), on the host clock after the block's event.
+                    tracer.emit("block", trace_id, time.time() - block_elapsed,
+                                block_elapsed, steps_from=prev_step + 1,
+                                steps_to=end_step,
+                                compiled=(prev_step == start_step))
                 self.state, self._last_step = bstate, end_step
                 last_good = bstate
                 drift = None
@@ -1624,6 +1665,16 @@ class Simulator:
                     sent_stats["max_rel_err"] = max(
                         sent_stats["max_rel_err"] or 0.0,
                         sent_summary["max_rel_err"])
+                    if tracer is not None:
+                        # Provenance only: the probe ran inside the block's
+                        # window, so the values are reportable, not an
+                        # extent.
+                        tracer.emit(
+                            "sentinel", trace_id, time.time(), 0.0,
+                            step=end_step, backend=self.backend,
+                            median_rel_err=sent_summary["median_rel_err"],
+                            p90_rel_err=sent_summary["p90_rel_err"],
+                            max_rel_err=sent_summary["max_rel_err"])
                 # Injected preemption: a real SIGTERM to this process.
                 faults.maybe_preempt(prev_step, end_step)
                 if logger is not None:
@@ -1697,6 +1748,13 @@ class Simulator:
                             f"{self.backend} sentinel p90 rel err "
                             f"{sent_summary['p90_rel_err']:.3e} > budget "
                             f"{config.error_budget:.3e}")
+                    if telemetry is not None:
+                        telemetry.recorder.record(
+                            "event", event="accuracy_breach", step=end_step,
+                            backend=self.backend,
+                            p90_rel_err=sent_summary["p90_rel_err"],
+                            budget=config.error_budget)
+                        telemetry.recorder.dump("accuracy_breach")
                     raise AccuracyBreach(end_step, self.backend,
                                          sent_summary["p90_rel_err"],
                                          config.error_budget)
@@ -1707,11 +1765,16 @@ class Simulator:
         except KeyboardInterrupt as e:
             # Ctrl-C or SIGTERM: save the last consumed block so that
             # `resume` works; queued cadence saves land first.
+            preempted = isinstance(e, SimulationPreempted)
+            if telemetry is not None:
+                telemetry.recorder.record(
+                    "event", event="preempted" if preempted
+                    else "interrupted", step=self._last_step)
+                if preempted:
+                    telemetry.recorder.dump("sigterm")
             if checkpoint_manager is not None \
                     and self._last_step > start_step:
-                word = ("Preempted (SIGTERM)"
-                        if isinstance(e, SimulationPreempted)
-                        else "Interrupted")
+                word = "Preempted (SIGTERM)" if preempted else "Interrupted"
                 try:
                     if host_writer is not None:
                         host_writer.barrier()
@@ -1786,6 +1849,20 @@ class Simulator:
                    for k in ("median_rel_err", "p90_rel_err")
                    if sent_stats["last"] is not None},
             }
+        if telemetry is not None:
+            # The run's perf facts in its registry, under the gauge names
+            # a serving worker publishes.
+            from .telemetry import declare_worker_metrics
+
+            reg = declare_worker_metrics(telemetry.registry)
+            if gap.host_gap_frac is not None:
+                reg.gauge("gravity_host_gap_frac").set(gap.host_gap_frac)
+            if total_time > 0:
+                reg.gauge("gravity_steps_per_sec").set(run_steps / total_time)
+            if self.autotune["probe_ms"]:
+                reg.histogram("gravity_autotune_probe_ms").observe(
+                    self.autotune["probe_ms"])
+            stats["trace_id"] = trace_id
         if merging:
             stats["merged_pairs"] = merged_total
         return self._finish(logger, total_time, run_steps, stats)

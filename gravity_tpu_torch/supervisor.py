@@ -185,6 +185,7 @@ class RunSupervisor:
         start_t: float = 0.0,
         start_comp: float = 0.0,
         device: DeviceLike = None,
+        telemetry=None,
     ):
         self.config = config
         self.policy = policy or SupervisorPolicy.from_config(config)
@@ -193,6 +194,10 @@ class RunSupervisor:
         self.writer = trajectory_writer
         self.metrics = metrics_logger
         self.device = resolve_device(device)
+        # Telemetry bundle: recovery events mirror into the flight
+        # recorder's ring, a divergence dumps it, and the main legs emit
+        # block and checkpoint spans.
+        self.telemetry = telemetry
         if checkpoint_manager is None:
             checkpoint_manager = make_checkpoint_manager(
                 config.checkpoint_dir)
@@ -232,6 +237,12 @@ class RunSupervisor:
         if self.logger is not None:
             detail = " ".join(f"{k}={v}" for k, v in fields.items())
             self.logger.log_print(f"[supervisor] {kind}: {detail}")
+        if self.telemetry is not None:
+            self.telemetry.recorder.record("event", event=kind, **fields)
+            if kind == "diverged":
+                # The ring already holds the run-up (retries, rollbacks,
+                # degradations).
+                self.telemetry.recorder.dump("divergence")
 
     def _build(self, config: SimulationConfig, state) -> Simulator:
         """A Simulator, walking the degrade ladder when the fault plan
@@ -364,6 +375,7 @@ class RunSupervisor:
                         start_step=step, trajectory_writer=self.writer,
                         checkpoint_manager=self.mgr,
                         metrics_logger=self.metrics,
+                        telemetry=self.telemetry,
                     )
                     self.last_sim = sim
                     return self._annotate(stats)

@@ -111,9 +111,8 @@ WORKER_METRICS = (
      "slot-units advanced per second summed over residents)"),
     ("gravity_autotune_probe_ms", "histogram",
      "Wall-clock milliseconds per autotune measurement probe"),
-    # Pod router (the JAX package's serve/router/, ROADMAP.md Queue 1
-    # item 9): tabled as in the JAX package, so that a worker's families
-    # and exposition match its.
+    # The pod router's (serve/router/), tabled as in the JAX package, so
+    # that a worker's families and exposition match its.
     ("gravity_router_placements_total", "counter",
      "Router placement decisions that reached a worker, by policy rule"),
     ("gravity_router_rejected_total", "counter",
@@ -125,6 +124,10 @@ WORKER_METRICS = (
      "Wall-clock seconds from router /submit receipt to worker "
      "acceptance (placement + proxy)"),
 )
+
+# The pod router's families (serve/router/): its registry declares only
+# these (declare_router_metrics).
+ROUTER_METRIC_PREFIX = "gravity_router_"
 
 # Millisecond-scale buckets for the autotune probe cost (a probe is
 # 10ms-minutes; the seconds-scale latency buckets would collapse the
@@ -607,4 +610,16 @@ def declare_worker_metrics(registry: MetricsRegistry) -> MetricsRegistry:
         registry.declare(
             name, typ, help_, buckets=WORKER_METRIC_BUCKETS.get(name)
         )
+    return registry
+
+
+def declare_router_metrics(registry: MetricsRegistry) -> MetricsRegistry:
+    """Register the pod router's instrument families (the
+    ``gravity_router_*`` subset of WORKER_METRICS: the router is not a
+    worker, so its registry carries only its own families)."""
+    for name, typ, help_ in WORKER_METRICS:
+        if name.startswith(ROUTER_METRIC_PREFIX):
+            registry.declare(
+                name, typ, help_, buckets=WORKER_METRIC_BUCKETS.get(name)
+            )
     return registry

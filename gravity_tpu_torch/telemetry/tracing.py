@@ -1,8 +1,9 @@
 """End-to-end job tracing: spans over the whole serving lifecycle.
 
 Copied from ``gravity_tpu/telemetry/tracing.py`` (host only; the port keeps
-its own copy). The port emits the serving spans; the solo ``--trace``
-wiring and ``trace-export`` are ROADMAP.md Queue 1 item 9.
+its own copy). The port emits the serving spans, the pod router's
+``route`` span and a solo run's spans (``run --trace``);
+``gravity_tpu_torch trace-export`` renders a trace.
 
 Every job gets a **trace id** at submit; each phase of its life —
 admission (with the autotune probe as a child), queue wait, slot load,

@@ -45,6 +45,9 @@ def _imported_roots(path):
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = _port_files()
     assert len(files) >= 15
+    router = REPO_ROOT / "gravity_tpu_torch" / "serve" / "router"
+    assert {router / f"{m}.py" for m in ("__init__", "policy", "daemon")
+            } <= set(files)
     for path in files:
         bad = set(_imported_roots(path)) & set(FORBIDDEN)
         assert not bad, f"{path.relative_to(REPO_ROOT)} imports {bad}"
@@ -55,7 +58,7 @@ def test_importing_the_package_loads_no_jax():
         "import sys, gravity_tpu_torch, gravity_tpu_torch.cli, "
         "gravity_tpu_torch.simulation, gravity_tpu_torch.interop, "
         "gravity_tpu_torch.ops.p3m, gravity_tpu_torch.ops.pm, "
-        "gravity_tpu_torch.models.disk\n"
+        "gravity_tpu_torch.models.disk, gravity_tpu_torch.serve.router\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"

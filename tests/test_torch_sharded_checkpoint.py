@@ -80,23 +80,29 @@ def _run_plan(plan: list, log) -> list:
     return codes
 
 
-def _rank_main(rank: int, world: int, out_dir: str, plan: list) -> None:
-    with open(os.path.join(out_dir, f"rank{world}_{rank}.log"), "w") as log:
+def _rank_main(rank: int, world: int, out_dir: str, tag: str,
+               plan: list) -> None:
+    with open(os.path.join(out_dir, f"rank{tag}_{rank}.log"), "w") as log:
         os.dup2(log.fileno(), 1)
         os.dup2(log.fileno(), 2)
         torch.set_num_threads(1)
         dist.init_process_group(
             "gloo", store=dist.FileStore(
-                os.path.join(out_dir, f"store{world}"), world),
+                os.path.join(out_dir, f"store{tag}"), world),
             rank=rank, world_size=world)
         codes = _run_plan(plan, log)
         dist.destroy_process_group()
-    with open(os.path.join(out_dir, f"codes{world}_{rank}.json"), "w") as f:
+    with open(os.path.join(out_dir, f"codes{tag}_{rank}.json"), "w") as f:
         json.dump(codes, f)
 
 
-def _spawn(out_dir: str, world: int, plan: list) -> list:
-    ctx = tmp.start_processes(_rank_main, args=(world, out_dir, plan),
+def _spawn(out_dir: str, world: int, plan: list, tag: str) -> list:
+    """Run ``plan`` on ``world`` spawned ranks: each rank's exit codes.
+    ``tag`` names this spawn's store, logs and codes. A FileStore file
+    that outlives its world keeps that world's rank addresses, which a
+    later world on the same file would read and dial: every spawn takes
+    a file of its own."""
+    ctx = tmp.start_processes(_rank_main, args=(world, out_dir, tag, plan),
                               nprocs=world, join=False,
                               start_method="spawn")
     deadline = time.monotonic() + SPAWN_TIMEOUT_S
@@ -105,7 +111,7 @@ def _spawn(out_dir: str, world: int, plan: list) -> list:
             if time.monotonic() > deadline:
                 logs = "\n".join(
                     open(p).read()[-2000:] for p in sorted(glob.glob(
-                        os.path.join(out_dir, f"rank{world}_*.log"))))
+                        os.path.join(out_dir, f"rank{tag}_*.log"))))
                 raise TimeoutError(f"{world} ranks still running after "
                                    f"{SPAWN_TIMEOUT_S} s:\n{logs}")
     finally:
@@ -113,7 +119,7 @@ def _spawn(out_dir: str, world: int, plan: list) -> list:
             if p.is_alive():
                 p.kill()
                 p.join(timeout=10)
-    return [json.load(open(os.path.join(out_dir, f"codes{world}_{r}.json")))
+    return [json.load(open(os.path.join(out_dir, f"codes{tag}_{r}.json")))
             for r in range(world)]
 
 
@@ -132,7 +138,7 @@ def runs(tmp_path_factory):
         (_verb(root, "run", "mesh1", *SHARDED), ""),
         (_verb(root, "run", "mesh1_pre", *SHARDED), "preempt@20"),
     ]
-    got = _spawn(root, 1, plan1)
+    got = _spawn(root, 1, plan1, "w1")
     codes.update(zip(("solo", "solo_pre", "mesh1", "mesh1_pre"), got[0]))
     _copy(root, "solo_pre", "solo_pre_on2")
     _copy(root, "mesh1_pre", "mesh1_pre_on2")
@@ -140,7 +146,7 @@ def runs(tmp_path_factory):
         (_verb(root, "run", "mesh2", *SHARDED), ""),
         (_verb(root, "run", "mesh2_pre", *SHARDED), "preempt@20"),
     ]
-    got = _spawn(root, 2, plan2)
+    got = _spawn(root, 2, plan2, "w2_runs")
     codes.update({f"{k}@{r}": c for r, cs in enumerate(got)
                   for k, c in zip(("mesh2", "mesh2_pre"), cs)})
     for world in (1, 2, 4):
@@ -153,7 +159,7 @@ def runs(tmp_path_factory):
         (_verb(root, "run", "recover2", *SHARDED, "--auto-recover"),
          "diverge@25"),
     ]
-    got = _spawn(root, 2, plan2)
+    got = _spawn(root, 2, plan2, "w2_resumes")
     codes.update({f"{k}@{r}": c for r, cs in enumerate(got)
                   for k, c in zip(("resume_mesh2_on2", "resume_solo_on2",
                                    "resume_mesh1_on2", "recover2"), cs)})
@@ -161,7 +167,7 @@ def runs(tmp_path_factory):
         (_verb(root, "run", "mesh4", *SHARDED), ""),
         (_verb(root, "resume", "mesh2_pre_on4", *SHARDED), ""),
     ]
-    got = _spawn(root, 4, plan4)
+    got = _spawn(root, 4, plan4, "w4")
     codes.update({f"{k}@{r}": c for r, cs in enumerate(got)
                   for k, c in zip(("mesh4", "resume_mesh2_on4"), cs)})
     # Resumed in this process: on a world of one (no launcher) and solo.

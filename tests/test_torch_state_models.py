@@ -159,9 +159,10 @@ def test_unported_features_are_refused(fields, item):
     with the ROADMAP item that ports it. ``profile`` (item 8) and the
     periodic family (item 7: ``periodic_box``, ``pm_assignment``, the
     ``grf`` model, the ``pm`` backend, merging in a box), the rest of
-    item 7 (the P3M slice pass, bf16 FMM states) and item 5's sharded
-    direct sums, halo slab engine and sharded multirate are ported now:
-    such a config loads and carries its fields."""
+    item 7 (the P3M slice pass, bf16 FMM states), item 5's sharded
+    direct sums, halo slab engine and sharded multirate, and item 9's
+    ``trace`` are ported now: such a config loads and carries its
+    fields."""
     data = json.loads(JaxConfig().to_json())
     data.update(fields)
     ported = ({"profile": True}, {"periodic_box": 1e12},
@@ -174,7 +175,9 @@ def test_unported_features_are_refused(fields, item):
               {"force_backend": "sfmm", "dtype": "bfloat16"},
               # Item 5's halo slab engine and sharded multirate.
               {"nlist_mesh": "halo"},
-              {"integrator": "multirate", "sharding": "allgather"})
+              {"integrator": "multirate", "sharding": "allgather"},
+              # Item 9's solo-run span tracing.
+              {"trace": True})
     if fields in ported:
         cfg = SimulationConfig.from_json(json.dumps(data))
         for name, value in fields.items():
