@@ -42,7 +42,10 @@ direct sums on ``torch.distributed``, allgather, the ring and the
 hierarchical ring, with the presets ``baseline-262k`` and
 ``baseline-2m-merger``; the halo slab engine of the cell list and of
 P3M's near field, ``parallel/halo.py``; sharded multirate and adaptive
-steps). ``ops/cuda_build.py`` builds every kernel.
+steps); and the tooling: ``validate.py`` (the ``validate`` verb and its
+card gate), ``utils/gtrj_tool.py`` (``traj``), ``bench --report``,
+``analysis/`` (``lint``), ``utils/units.py`` and ``examples/``.
+``ops/cuda_build.py`` builds every kernel.
 """
 
 from .config import PRESETS, SimulationConfig

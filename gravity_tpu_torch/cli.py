@@ -1,14 +1,16 @@
 """Command-line interface: the ``run``, ``resume``, ``sweep``, ``bench`` and
 ``tune`` verbs, the cosmology and analysis verbs ``cosmo`` and
 ``analyze``, the serving verbs ``serve``, ``submit``, ``status``,
-``result`` and ``cancel``, and the fleet verbs ``route``, ``drain``,
-``fleet-status`` and ``trace-export``.
+``result`` and ``cancel``, the fleet verbs ``route``, ``drain``,
+``fleet-status`` and ``trace-export``, and the tooling verbs
+``validate``, ``traj`` and ``lint``.
 
 Counterpart of ``gravity_tpu/cli.py`` for this slice, with the JAX CLI's
 flag names. ``run`` writes the reference log and prints one JSON line of
 run statistics on stdout; ``resume`` continues a checkpointed run;
 ``bench`` prints one JSON line of a timed block (``bench.run_benchmark``,
-or with ``--cadence`` a whole run with trajectories and checkpoints);
+or with ``--cadence`` a whole run with trajectories and checkpoints;
+``--report`` prints the trend table over the round artifacts instead);
 ``tune`` fills the autotuner's cache over a size ladder, one JSON line a
 size. ``sweep`` runs the reference's size sweep (``--sizes``, default 10
 100 500 1000) as jobs of an in-process ensemble scheduler, or one run
@@ -32,7 +34,12 @@ starts the pod router in front of every worker of a spool (the client
 verbs find it through ``router.json``); ``drain W`` takes worker W out of
 its rotation (``--undrain`` puts it back); ``fleet-status`` prints the
 fleet's health, the registry's capabilities and the router's placements;
-``trace-export`` writes one trace as Chrome/Perfetto JSON.
+``trace-export`` writes one trace as Chrome/Perfetto JSON. ``validate``
+prints the physics self-test battery as one JSON document (``--gpu``
+adds the card gate); ``traj`` inspects a ``.gtrj`` file (``info``,
+``stats``, ``dump``, ``export``); ``lint`` runs the AST invariant
+analyzer over the port. ``traj``, ``lint`` and ``bench --report`` read
+files only and touch no device.
 
 Under ``--sharding allgather|ring`` (``--mesh-shape P`` or ``S,P/S``)
 ``run`` is one rank of a ``torch.distributed`` world: the launcher's
@@ -108,6 +115,11 @@ Usage:
     python -m gravity_tpu_torch trace-export \
         --trace-file gravity_logs_gpu/traces.jsonl --trace <id>
     python -m gravity_tpu_torch sweep --sizes 10 100 500 1000
+    python -m gravity_tpu_torch validate --gpu
+    python -m gravity_tpu_torch validate --device cpu --gpu
+    python -m gravity_tpu_torch traj stats gravity_logs_gpu/t.gtrj
+    python -m gravity_tpu_torch bench --report
+    python -m gravity_tpu_torch lint
 """
 
 from __future__ import annotations
@@ -885,7 +897,6 @@ def cmd_tune(args: argparse.Namespace) -> int:
 
 def cmd_bench(args: argparse.Namespace) -> int:
     from .bench import run_benchmark, run_cadence_benchmark
-    from .config import NotPortedError
 
     if args.gate:
         # The noise-robust perf regression gate on the committed
@@ -900,9 +911,12 @@ def cmd_bench(args: argparse.Namespace) -> int:
             report_path=args.gate_out or None, device=args.device)
         return code
     if args.report:
-        raise NotPortedError(
-            "bench --report (the trend table over round artifacts) is not "
-            "ported to gravity_tpu_torch yet (ROADMAP.md Queue 1 item 10)")
+        # The trend report over the round artifacts: files only, no
+        # device.
+        from .bench import collect_bench_rounds, format_bench_report
+
+        print(format_bench_report(collect_bench_rounds(args.report_dir)))
+        return 0
     config = build_config(args)
     if args.cadence:
         # An end-to-end run with trajectories and checkpoints: the A/B of
@@ -918,6 +932,34 @@ def cmd_bench(args: argparse.Namespace) -> int:
                                device=args.device)
     print(json.dumps(result))
     return 0
+
+
+def cmd_validate(args: argparse.Namespace) -> int:
+    """The physics self-test battery, and with ``--gpu`` the card gate
+    (``validate.py``): one JSON document ``{"ok", "checks"}``, exit 0 or
+    1. On the card unless ``--device cpu``; with no card it raises."""
+    from .validate import run_validate
+
+    report = run_validate(args.device, gpu=args.gpu)
+    print(json.dumps(report, indent=2))
+    return 0 if report["ok"] else 1
+
+
+def cmd_traj(args: argparse.Namespace) -> int:
+    """Inspect or export a ``.gtrj`` trajectory (``utils/gtrj_tool.py``,
+    the JAX package's C++ inspector's output): no device."""
+    from .utils.gtrj_tool import run
+
+    return run(args.traj_command, args.file, frame=args.frame,
+               count=args.count)
+
+
+def cmd_lint(args: argparse.Namespace) -> int:
+    """The AST invariant analyzer over the port (``analysis/``): no
+    device. Its flags are the analysis driver's own."""
+    from .analysis.driver import main as lint_main
+
+    return lint_main(args.lint_args)
 
 
 def _finite_or_none(values) -> list:
@@ -1911,6 +1953,12 @@ def _add_serving_parsers(sub) -> None:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "lint":
+        # Before the parser, as the JAX CLI does: lint owns its flags
+        # (argparse.REMAINDER would refuse a leading option); the
+        # subparser below lists it in --help.
+        return cmd_lint(argparse.Namespace(lint_args=argv[1:]))
     parser = argparse.ArgumentParser(
         prog="gravity_tpu_torch",
         description="N-body gravity on PyTorch and CUDA",
@@ -1961,8 +2009,12 @@ def main(argv=None) -> int:
                               "--io-pipeline on|off A/B): steps_per_sec "
                               "and host_gap_frac")
     p_bench.add_argument("--report", action="store_true",
-                         help="the perf trend table (not ported: ROADMAP.md "
-                              "Queue 1 item 10)")
+                         help="print the perf trend table over the round "
+                              "artifacts (BENCH_r*, MULTICHIP_r*, the nlist "
+                              "ladders, tuning/, the perf ledger, the last "
+                              "gate report) instead of running; no device")
+    p_bench.add_argument("--report-dir", dest="report_dir", default=".",
+                         help="directory holding the round JSON files")
     p_bench.add_argument("--gate", action="store_true",
                          help="run the noise-robust perf regression gate "
                               "against the committed PERF_BASELINE.json "
@@ -1978,6 +2030,38 @@ def main(argv=None) -> int:
                          default="PERF_GATE_LAST_TORCH.json",
                          help="the gate's report ('' writes none)")
     p_bench.set_defaults(func=cmd_bench)
+
+    p_val = sub.add_parser(
+        "validate", help="physics self-test battery on this device")
+    p_val.add_argument("--device", default=None,
+                       help="torch device (default: the GPU; 'cpu' asks "
+                            "for the CPU and its smaller sizes)")
+    p_val.add_argument(
+        "--gpu", action="store_true",
+        help="append the card gate: each kernel, the octree and both "
+             "FMMs against the plain direct sum, the sharded path on a "
+             "world of one, a 5-step bench line and the 2M direct sum")
+    p_val.set_defaults(func=cmd_validate)
+
+    p_traj = sub.add_parser(
+        "traj", help="inspect a native GTRJ trajectory file")
+    p_traj.add_argument("traj_command",
+                        choices=["info", "stats", "dump", "export"])
+    p_traj.add_argument("file")
+    p_traj.add_argument("--frame", type=int, default=0,
+                        help="frame index for dump (negative = from end)")
+    p_traj.add_argument("--count", type=int, default=10,
+                        help="particles to dump")
+    p_traj.set_defaults(func=cmd_traj)
+
+    p_lint = sub.add_parser(
+        "lint",
+        help="AST invariant analyzer over the port: fenced writes, flock "
+             "weight, telemetry and fault drift "
+             "(gravity_tpu_torch/docs/static-analysis.md); exits 1 on "
+             "findings outside the baseline")
+    p_lint.add_argument("lint_args", nargs=argparse.REMAINDER)
+    p_lint.set_defaults(func=cmd_lint)
     _add_analysis_parsers(sub)
     _add_serving_parsers(sub)
     args = parser.parse_args(argv)

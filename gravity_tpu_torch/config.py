@@ -340,7 +340,7 @@ PRESETS = {
         model="plummer", n=16_384, integrator="leapfrog",
         force_backend="pallas", eps=1.0e9,
     ),
-    # Galactic natural units (G = 1, kpc, 1e10 Msun).
+    # Galactic natural units (G = 1, kpc, 1e10 Msun; utils/units.py).
     "baseline-1m": SimulationConfig(
         model="disk", n=1_048_576, integrator="leapfrog",
         force_backend="tree", g=1.0, dt=2.0e-3, eps=0.05,

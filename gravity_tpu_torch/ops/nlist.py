@@ -264,7 +264,7 @@ def _ewald_w(r2, gm, params, *, cutoff, eps, absolute=False):
     return torch.where(valid, gm * w, 0.0)
 
 
-KINDS = ("newton", "ewald")
+PAIR_KINDS = ("newton", "ewald")
 
 
 def _pair_w(kind: str, r2, gm, params, *, cutoff, eps, use_rcut,
@@ -277,7 +277,8 @@ def _pair_w(kind: str, r2, gm, params, *, cutoff, eps, use_rcut,
     if kind == "ewald":
         return _ewald_w(r2, gm, params, cutoff=cutoff, eps=eps,
                         absolute=absolute)
-    raise ValueError(f"unknown nlist pair kind {kind!r}; choose from {KINDS}")
+    raise ValueError(
+        f"unknown nlist pair kind {kind!r}; choose from {PAIR_KINDS}")
 
 
 def _monopole_w(kind: str, r2, w_mass, params, eps_o2):
@@ -798,7 +799,7 @@ LIBRARY = cuda_build.CudaLibrary("nlist_pair", {
 # halo engine (``newton/slab``, ``ewald/slab``, ``newton_bf16/slab``); a
 # run reads its form's count to show its path went through the kernel.
 # Incremented only where the kernel is launched.
-LAUNCHES = {kind: 0 for kind in (*KINDS, "near", "newton_bf16",
+LAUNCHES = {kind: 0 for kind in (*PAIR_KINDS, "near", "newton_bf16",
                                  "near_bf16", "newton/batched",
                                  "newton_bf16/batched", "newton/slab",
                                  "ewald/slab", "newton_bf16/slab")}
@@ -818,7 +819,7 @@ def _check(tcells_pos, t_count, cells_pos, cells_gm, s_count, side, params,
     slab launch's targets (its sources span slab + 2)."""
     if kind not in _KIND_CODE:
         raise ValueError(f"unknown nlist pair kind {kind!r}; choose from "
-                         f"{KINDS}")
+                         f"{PAIR_KINDS}")
     device, dtype = tcells_pos.device, tcells_pos.dtype
     if device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {device}")

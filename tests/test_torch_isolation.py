@@ -113,7 +113,7 @@ def test_new_wrappers_raise_rather_than_falling_back():
     """The cell-list and Gram-form wrappers, like the direct one, refuse a
     tensor that is neither on the CPU nor on a CUDA device."""
     before = (dict(nlist.LAUNCHES), mxu_kernel.LAUNCHES)
-    for kind in nlist.KINDS:
+    for kind in nlist.PAIR_KINDS:
         with pytest.raises(ValueError, match="needs CUDA tensors"):
             nlist.pair_cells_kernel(*_meta_nlist_args(), cutoff=1e-10,
                                     eps=0.0, kind=kind)
