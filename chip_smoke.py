@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-Builds the four CUDA kernel libraries from the checkout (one nvcc each,
-all started together), holds each kernel against its plain PyTorch
-version on the card (the cell-list kernel in both of its pair kinds and
+Builds the four CUDA kernel libraries and the host-native C++ direct sum
+from the checkout (one nvcc each and one g++, all started together),
+holds each kernel against its plain PyTorch version on the card (the cell-list kernel in both of its pair kinds and
 untruncated, in fp32, fp64 and bf16, the direct sum in fp32, fp64 and
 bf16, the bf16 segment sums bit for bit at an octree build's sums and
 their edge cases), and drives each
@@ -43,7 +43,7 @@ set to 0 just before the path and read just after:
   multirate`` (500 two-rung steps, 100 on the 3-rung ladder), the
   star-cluster example at full width in fp64 (30 steps each of
   leapfrog, two rungs and the ladder, then adaptive multirate), the
-  nlist run multirate (cut to 100 steps; ``nlist_pair`` at a ``t_cap``
+  nlist run multirate (cut to 50 steps; ``nlist_pair`` at a ``t_cap``
   below the cap), the Gram-form run multirate (cut to 20 steps),
   ``baseline-16k --adaptive``, ``baseline-16k`` under an external
   Plummer halo, and merging on ``reference-cuda`` (the grid) and
@@ -55,21 +55,21 @@ set to 0 just before the path and read just after:
   forces held to ``nbody_direct`` at 4,096 targets and to the gather
   near field on the same state (fp32 and fp64, each piece of the near
   field also taken out in turn to show the bars catch it); the preset's
-  own gather near field (2 steps, no kernel); and multirate (2 steps);
+  own gather near field (1 step, no kernel); and multirate (1 step);
 - bf16 states through the cell list and the octree, through
   ``nlist_pair``'s bf16 form: the README cell-list run at ``--dtype
   bfloat16`` (cut to 100 steps; multirate cut to 20), its forces against
   fp32 nlist; ``baseline-1m --dtype bfloat16 --tree-near nlist`` (cut to
-  3 steps; its gather near field and multirate, 2 each), its forces
+  3 steps; its gather near field and multirate, 1 each), its forces
   against the fp32 tree and ``nbody_direct`` (bar: 1.5x the JAX
   package's own bf16 figure) and the two near fields against each other;
 - the fast multipole solvers, plain PyTorch (no kernel may launch on
   their paths): ``baseline-1m-fmm`` (the 1M disk, fmm_mode auto, which
   must resolve sparse: depth 9) cut to 2 steps, its stages profiled, its
   forces against ``nbody_direct`` at 4,096 targets; the 1M uniform cube
-  through the dense grid (2 steps); sparse (both far modes) against
-  dense on one overflow-free state; ``baseline-1m-fmm`` multirate (2
-  steps, kicks through the dense grid's rectangular form, one held to
+  through the dense grid (1 step); sparse (both far modes) against
+  dense on one overflow-free state; ``baseline-1m-fmm`` multirate (1
+  step, kicks through the dense grid's rectangular form, one held to
   ``nbody_direct``); ``--debug-check`` on the preset through the CLI;
   ``baseline-1m-fmm`` at bf16 (3 steps, sparse, its cell totals
   through ``segment_sum.cu``), against the fp32 sparse FMM at 4,096
@@ -92,7 +92,7 @@ set to 0 just before the path and read just after:
   ``nbody_direct``; the ``cosmo`` verb at 2,097,152 bodies and grid 256
   (flat LCDM, 40 steps, with and without ``--li-check``), EdS and 2LPT
   at 262,144, a resume from step 20 against the uninterrupted run; the
-  minimum-image cell list (grf at 262,144, rcut box/16, 10 steps)
+  minimum-image cell list (grf at 262,144, rcut box/16, 5 steps)
   against the minimum-image oracle and a merge across a face; and the
   ``analyze`` verb (P(k), friends-of-friends, xi(r)) in a process of its
   own started before the octree phases, its P(k) held to the CPU port's;
@@ -188,7 +188,16 @@ set to 0 just before the path and read just after:
   ``.gtrj`` written on the card and ``bench --report`` over this run's
   bench line (``tooling_path``), and the examples ``solar_system``,
   ``galaxy_merger``, ``star_cluster`` and ``gradient_orbit_fit --solo``
-  at their test sizes (``examples_path``).
+  at their test sizes (``examples_path``);
+- the host-native C++ direct sum (``host_path``): ``run --device cpu
+  --force-backend cpp`` on the random cube at N = 8,192 (leapfrog, 10
+  steps) in float64 and float32, its library built by g++ beside the
+  nvcc builds, one call an evaluation and no card kernel launched; the
+  final state's forces at 4,096 sampled rows against ``nbody_direct`` on
+  the card and the plain version on the CPU within the kernel-vs-plain
+  bars; ``--force-backend cpp`` on the card refused with its ValueError;
+  ms an evaluation and pairs/s beside the host CPU's model, CPUs and
+  bound.
 
 It then times each kernel at its path's shapes beside its bound (the
 direct sum masked at N = 50,000, mask-free at N = 16,384 and 65,536, and
@@ -583,11 +592,14 @@ def issue_floor_ms(pairs, instrs_per_pair, device):
 
 
 def phase_build() -> dict:
-    """All four libraries, one nvcc each, started together."""
+    """All five libraries, one compiler each, started together: the four
+    CUDA libraries with nvcc and the host-native C++ direct sum with g++
+    (its seconds are host_path's build figure)."""
     from gravity_tpu_torch.ops import (
         cells,
         cuda_build,
         direct_kernel,
+        host_kernel,
         mxu_kernel,
         nlist,
     )
@@ -595,7 +607,9 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     libraries = (direct_kernel.LIBRARY, nlist.LIBRARY, mxu_kernel.LIBRARY,
                  cells.LIBRARY)
-    cuda_build.build_all(libraries)
+    cuda_build.build_all((*libraries, host_kernel.LIBRARY))
+    check(host_kernel.host_forces_available(),
+          "the host-native C++ direct sum did not load")
     total = time.perf_counter() - t0
     records = {}
     for lib in libraries:
@@ -609,6 +623,11 @@ def phase_build() -> dict:
             "sass": sass_loops(lib.info["path"]),
         }
         emit(records[lib.name])
+    records["host_forces"] = {
+        "phase": "build", "source": "gravity_tpu_torch/csrc/host_forces.cpp",
+        "gxx_s": host_kernel.BUILD_INFO["seconds"], "total_s": total,
+        "flags": list(host_kernel.LIBRARY.FLAGS)}
+    emit(records["host_forces"])
     return records
 
 
@@ -2386,7 +2405,7 @@ STAR_BINARY_MASS = 5.0e28
 STAR_BINARY_SEP = 2.0e9
 STAR_STEPS = 30
 # Steps kept of each cut path.
-NLIST_MULTIRATE_STEPS = 100
+NLIST_MULTIRATE_STEPS = 50
 MXU_MULTIRATE_STEPS = 20
 LADDER_STEPS = 100
 MERGE_STEPS = 100
@@ -3049,12 +3068,12 @@ def phase_merge_path(device: dict) -> dict:
 
 # The octree run: the baseline-1m preset (the JAX package's 1M disk in
 # galactic units, G = 1, dt 2e-3, eps 0.05, leapfrog, leaf_cap 32, the
-# depth fit to the state) with --tree-near nlist, cut to 5 of its 500
-# steps (50 before the FMM's phases came); with the preset's own gather
-# near field, 3 steps; multirate, 5 (10 before).
+# depth fit to the state) with --tree-near nlist, cut to 3 of its 500
+# steps; with the preset's own gather near field, 1 step; multirate, 1
+# (2 each before the host path came).
 TREE_STEPS = 3
-TREE_GATHER_STEPS = 2
-TREE_MULTIRATE_STEPS = 2
+TREE_GATHER_STEPS = 1
+TREE_MULTIRATE_STEPS = 1
 TREE_SAMPLE = 4096
 # The JAX suite's bars for the tree against the exact sum
 # (tests/test_tree.py:86-87: a 2,048-body disk at depth 5, where the leaf
@@ -3669,11 +3688,11 @@ NLIST_BF16_REASON = ("in units of the row's sum of |terms|: terms rounded to "
 # multirate cut to 20.
 NLIST_BF16_STEPS = 100
 NLIST_BF16_MULTIRATE_STEPS = 20
-# baseline-1m at --dtype bfloat16: --tree-near nlist cut to 10 of 500
-# steps, the gather near field and multirate to 3 each.
+# baseline-1m at --dtype bfloat16: --tree-near nlist cut to 3 of 500
+# steps, the gather near field and multirate to 1 each.
 TREE_BF16_STEPS = 3
-TREE_BF16_GATHER_STEPS = 2
-TREE_BF16_MULTIRATE_STEPS = 2
+TREE_BF16_GATHER_STEPS = 1
+TREE_BF16_MULTIRATE_STEPS = 1
 # bf16 segment-sum launches a level of an octree build: the cell masses
 # and weighted positions in one, the quadrupoles in a second
 # (tree.build_octree through cells.Segments).
@@ -5362,11 +5381,12 @@ def phase_host_syncs(device: dict) -> dict:
 # package's are jnp; no hand-written kernel runs on their paths.
 # ---------------------------------------------------------------------------
 
-# baseline-1m-fmm cut to 3 of its 500 steps (multirate too); the 1M
-# uniform cube through the dense grid, 2 steps.
+# baseline-1m-fmm cut to 2 of its 500 steps, multirate to 1; the 1M
+# uniform cube through the dense grid, 1 step (2 each before the host
+# path came).
 FMM_STEPS = 2
-FMM_DENSE_STEPS = 2
-FMM_MULTIRATE_STEPS = 2
+FMM_DENSE_STEPS = 1
+FMM_MULTIRATE_STEPS = 1
 FMM_SAMPLE = 4096
 FMM_DENSE_N = 1 << 20
 # The sparse FMM's accuracy class at its resolving depth against the exact
@@ -6782,7 +6802,7 @@ COSMO_262K = dict(model="grf", n=262_144, periodic_box=COSMO_BOX,
                   eps=2.0e11, dt=2.0e4)
 COSMO_262K_STEPS = 100
 COSMO_TSC_STEPS = 20
-PERIODIC_NLIST_STEPS = 10
+PERIODIC_NLIST_STEPS = 5
 # The fp32 mesh against fp64 on the same state: the JAX suite's bar
 # (tests/test_periodic.py:199-225): |a32 - a64| <= 2e-3 |a64| + 1e-3 max|a|.
 PM_FP32_RTOL, PM_FP32_ATOL = 2e-3, 1e-3
@@ -7242,9 +7262,9 @@ def face_merge_check() -> dict:
 
 def phase_periodic_nlist_path(device: dict) -> dict:
     """grf at 262,144 in the 1e13 m box through the minimum-image cell
-    list at its default sizing (rcut box/16, 20 leapfrog steps, plain
-    PyTorch: nlist_pair must not launch), its forces against the
-    minimum-image oracle, and a pair merging across a face."""
+    list at its default sizing (rcut box/16, PERIODIC_NLIST_STEPS leapfrog
+    steps, plain PyTorch: nlist_pair must not launch), its forces against
+    the minimum-image oracle, and a pair merging across a face."""
     from gravity_tpu_torch.config import SimulationConfig
     from gravity_tpu_torch.simulation import Simulator
 
@@ -10079,6 +10099,233 @@ def phase_examples_path(device: dict) -> dict:
     return record
 
 
+# The host-native C++ direct sum (force_backend="cpp"): the CPU's fast fp64
+# oracle and mid-N direct sum, run here on the card machine's host (g++ is
+# there, since nvcc needs it). The README's random cube at N = 8,192,
+# leapfrog, 10 steps, in float64 and float32, through the run verb.
+HOST_N = 8192
+HOST_STEPS = 10
+HOST_SAMPLE = 4096
+HOST_REPS = 5
+HOST_RUN = ("run", "--device", "cpu", "--model", "random", "--n",
+            str(HOST_N), "--steps", str(HOST_STEPS), "--integrator",
+            "leapfrog", "--force-backend", "cpp", "--progress-every",
+            str(HOST_STEPS), "--checkpoint-every", str(HOST_STEPS))
+# f64 flops a core issues a clock at its widest fused multiply-add: two FMA
+# units of 8 lanes (AVX-512) or 4 (AVX2 with FMA), each FMA two flops;
+# without them SSE2's 2 lanes of an add and a multiply.
+HOST_F64_FLOPS_PER_CLOCK = (("avx512f", 32), ("fma", 16), ("sse2", 4))
+
+
+def host_cpu() -> dict:
+    """The host: its CPU model (``/proc/cpuinfo``), the CPUs this process
+    may use (its affinity, capped by its cgroup's CPU quota where one is
+    set), the physical cores those stand for, the highest clock
+    ``/proc/cpuinfo`` reads, and its f64 flops a core a clock by ISA."""
+    import re
+
+    with open("/proc/cpuinfo") as f:
+        text = f.read()
+
+    def field(name):
+        found = re.findall(rf"^{name}\s*:\s*(.+)$", text, re.M)
+        value = found[0].strip() if found else "unknown"
+        return None if value == "unknown" else value
+
+    # Where the model name is not given (a virtual machine's /proc/cpuinfo
+    # may read "unknown"), the CPUID vendor, family, model and stepping it
+    # does give name the part.
+    model = field("model name") or " ".join(
+        f"{k} {field(k)}" for k in ("vendor_id", "cpu family", "model",
+                                    "stepping") if field(k))
+    mhz = [float(x) for x in re.findall(r"^cpu MHz\s*:\s*([\d.]+)$", text,
+                                        re.M)]
+    flags = set((re.findall(r"^flags\s*:\s*(.+)$", text, re.M)
+                 or [""])[0].split())
+    per_clock = next((v for k, v in HOST_F64_FLOPS_PER_CLOCK if k in flags),
+                     2)
+    cpus = len(os.sched_getaffinity(0))
+    quota = None
+    try:
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            q, period = f.read().split()
+        if q != "max":
+            quota = float(q) / float(period)
+            cpus = min(cpus, max(1, math.ceil(quota)))
+    except (OSError, ValueError):
+        pass
+    siblings = re.findall(r"^siblings\s*:\s*(\d+)$", text, re.M)
+    cores = re.findall(r"^cpu cores\s*:\s*(\d+)$", text, re.M)
+    smt = (int(siblings[0]) // int(cores[0])
+           if siblings and cores and int(cores[0]) > 0 else 1)
+    return {"model": model or "unknown",
+            "cpus": cpus, "cpu_quota": quota,
+            "os_cpu_count": os.cpu_count(), "threads_per_core": smt,
+            "cores": max(1, cpus // max(1, smt)),
+            "max_mhz": max(mhz) if mhz else None,
+            "f64_flops_per_core_clock": per_clock}
+
+
+def host_bytes_per_s() -> float:
+    """The host's copy rate, bytes read and written over a 512 MiB float64
+    copy (best of 3): the memory rate of the bytes bound."""
+    import torch
+
+    a = torch.ones(1 << 26, dtype=torch.float64)
+    b = torch.empty_like(a)
+    best = math.inf
+    for _ in range(3):
+        t = time.perf_counter()
+        b.copy_(a)
+        best = min(best, time.perf_counter() - t)
+    return 2 * a.numel() * a.element_size() / best
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median ms of ``fn`` on the host clock, after one warm call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t)
+    return 1e3 * statistics.median(times)
+
+
+def phase_host_path(device: dict, build: dict) -> dict:
+    """``run --device cpu --force-backend cpp`` (HOST_RUN) in float64 and
+    float32, with every launch count set to 0 just before each run and
+    read just after: the row sum called once an evaluation, no card kernel
+    launched. The final state's forces at HOST_SAMPLE sampled rows by the
+    row sum against ``nbody_direct`` on the card and against the plain
+    version on the CPU, each within the kernel-vs-plain bars (TOL) of each
+    row's sum of |terms|. ``--force-backend cpp`` without ``--device cpu``
+    (the card, the default) exits non-zero with the ValueError. Timed on
+    the host clock: ms an evaluation at N = 8,192 and pairs/s, the sampled
+    rows' call and the plain version's, beside the bound at the host's CPU
+    count, clock and f64 rate (:func:`host_cpu`) and its copy rate."""
+    import torch
+
+    from gravity_tpu_torch import simulation
+    from gravity_tpu_torch.config import SimulationConfig
+    from gravity_tpu_torch.ops import host_kernel
+    from gravity_tpu_torch.ops.direct_kernel import accelerations_vs_kernel
+    from gravity_tpu_torch.ops.forces import accelerations_vs_chunked
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(dir=os.path.join(REPO, "gravity_logs_gpu"))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("GRAVITY_TPU_FAULTS", None)
+    # The refusal on the card, a process of its own started first, so that
+    # its start overlaps the host runs.
+    refusal = subprocess.Popen(
+        [sys.executable, "-m", "gravity_tpu_torch", "run", "--model",
+         "random", "--n", str(HOST_N), "--steps", "1", "--force-backend",
+         "cpp", "--log-dir", os.path.join(root, "refused")],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        simulation.make_local_kernel(SimulationConfig(force_backend="cpp"),
+                                     "cpp", device="cuda")
+        check(False, "make_local_kernel('cpp') took a card device")
+    except ValueError as e:
+        in_process = str(e)
+    cpu = host_cpu()
+    rate = host_bytes_per_s()
+    peak = (cpu["cores"] * cpu["max_mhz"] * 1e6
+            * cpu["f64_flops_per_core_clock"]) if cpu["max_mhz"] else None
+    gen = torch.Generator().manual_seed(25)
+    idx = torch.randperm(HOST_N, generator=gen)[:HOST_SAMPLE]
+    runs = {}
+    for dtype in ("float64", "float32"):
+        ck = os.path.join(root, f"ck_{dtype}")
+        reset_counts()
+        host_kernel.LAUNCHES = 0
+        p = run_cli([*HOST_RUN, "--dtype", dtype, "--checkpoint-dir", ck,
+                     "--log-dir", os.path.join(root, dtype)])
+        launches, counts = host_kernel.LAUNCHES, read_counts()
+        check(p.returncode == 0, f"host run {dtype}: {p.stderr[-2000:]}")
+        stats = last_json(p.stdout)
+        check(stats["backend"] == "cpp" and stats["device"] == "cpu"
+              and stats["dtype"] == dtype, f"host run {dtype}: {stats}")
+        check(launches == stats["kernel_launches"] == HOST_STEPS + 1,
+              f"host run {dtype}: {launches} calls of the row sum for "
+              f"{HOST_STEPS} leapfrog steps")
+        check(not any(counts.values()),
+              f"host run {dtype} launched card kernels: {counts}")
+        final = checkpoint_at(ck, HOST_STEPS)
+        pos = final.positions.cpu().contiguous()
+        masses = final.masses.cpu().contiguous()
+        check(pos.dtype == getattr(torch, dtype)
+              and bool(torch.isfinite(pos).all()),
+              f"host run {dtype}: final state {pos.dtype}, not finite?")
+        config = SimulationConfig(model="random", n=HOST_N, dtype=dtype)
+        kw = dict(g=config.g, cutoff=config.cutoff, eps=config.eps)
+        targets = pos[idx].contiguous()
+        host = host_kernel.host_accelerations_vs(targets, pos, masses, **kw)
+        dev = torch.device("cuda", 0)
+        card = accelerations_vs_kernel(targets.to(dev), pos.to(dev),
+                                       masses.to(dev), **kw).cpu()
+        t = time.perf_counter()
+        plain = accelerations_vs_chunked(targets, pos, masses, chunk=512,
+                                         **kw)
+        plain_ms = 1e3 * (time.perf_counter() - t)
+        scale = term_scale(targets.to(dev), pos.to(dev), masses.to(dev),
+                           config.eps, g=config.g).cpu()
+        vs_card = compare(f"host_forces/{dtype}/vs_nbody_direct", host,
+                          card, scale, dtype)
+        vs_plain = compare(f"host_forces/{dtype}/vs_plain_cpu", host, plain,
+                           scale, dtype)
+        sample_ms = host_ms(lambda: host_kernel.host_accelerations_vs(
+            targets, pos, masses, **kw), HOST_REPS)
+        eval_ms = host_ms(lambda: host_kernel.host_pairwise_accelerations(
+            pos, masses, **kw), HOST_REPS)
+        m, k = HOST_SAMPLE, HOST_N
+        flops, nbytes, _ = host_kernel.cost_estimate(m, k,
+                                                     pos.element_size())
+        ops_ms = 1e3 * flops / peak if peak else None
+        bytes_ms = 1e3 * nbytes / rate
+        runs[dtype] = {
+            "launches": launches, "card_launches": counts,
+            "ms_per_step": 1e3 * stats["avg_step_s"],
+            "run_pairs_per_s": stats["pairs_per_sec"],
+            "ms_per_eval": eval_ms,
+            "pairs_per_s": HOST_N * (HOST_N - 1) / (eval_ms / 1e3),
+            "threads": host_kernel.threads(HOST_N),
+            "vs_nbody_direct": vs_card, "vs_plain_cpu": vs_plain,
+            "timing": {
+                "shape": [m, k], "ms": sample_ms, "plain_ms": plain_ms,
+                "bound_ms": max(x for x in (ops_ms, bytes_ms) if x),
+                "bound_by": ("operations" if ops_ms and ops_ms >= bytes_ms
+                             else "bytes"),
+                "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+                "library_ms": None,
+                "library_note": "none: no single PyTorch call computes "
+                                "this sum",
+                "route": "host",
+                "source": "gravity_tpu_torch/csrc/host_forces.cpp"},
+        }
+        runs[dtype]["timing"]["share_of_bound"] = (
+            runs[dtype]["timing"]["bound_ms"] / sample_ms)
+    out, err = refusal.communicate(timeout=300)
+    check(refusal.returncode != 0 and "ValueError" in err
+          and "force_backend='cpp'" in err and "--device cpu" in err
+          and '"backend"' not in out,
+          f"cpp on the card: exit {refusal.returncode}, {err[-1500:]}")
+    record = {
+        "phase": "host_path", "nvidia_smi": device["nvidia_smi"],
+        "host_cpu": cpu, "host_copy_bytes_per_s": rate,
+        "host_f64_peak_flops": peak,
+        "build_s": build["host_forces"]["gxx_s"],
+        "runs": runs, "refused_on_card": {
+            "exit": refusal.returncode,
+            "error": err.strip().splitlines()[-1]},
+        "refused_in_process": in_process,
+        "wall_s": time.perf_counter() - t0}
+    emit(record)
+    return record
+
+
 def main() -> int:
     try:
         import torch
@@ -10215,6 +10462,7 @@ def run_phases(torch) -> int:
     validated = timed(phase_validate_path, device)
     tooling = timed(phase_tooling_path, device, bench_path["direct"]["line"])
     examples = timed(phase_examples_path, device)
+    host = timed(phase_host_path, device, build)
     emit({"phase": "done", "wall_s": time.perf_counter() - t0,
           "phase_s": phase_s,
           "kernel_share_of_main_path_step":
@@ -10385,6 +10633,13 @@ def run_phases(torch) -> int:
                        "wall_s": validated["wall_s"]},
           "tooling_wall_s": tooling["wall_s"],
           "examples_wall_s": examples["wall_s"],
+          "host_path": {
+              "cpu": host["host_cpu"]["model"],
+              "cpus": host["host_cpu"]["cpus"], "build_s": host["build_s"],
+              "ms_per_eval": {k: v["ms_per_eval"]
+                              for k, v in host["runs"].items()},
+              "pairs_per_s": {k: v["pairs_per_s"]
+                              for k, v in host["runs"].items()}},
           "host_syncs_per_step": syncs["syncs_per_step"],
           "perf_ledger_share_of_fp32_peak": {
               k: [r["share_of_fp32_peak"] for r in v["rows"]]
@@ -10501,10 +10756,19 @@ def run_phases(torch) -> int:
          "XLA scatter-add, not a Pallas kernel",
          fmm_bf16["launches"], fmm_bf16["segment_sum"]["max_abs_err"],
          fmm_bf16["segment_sum"]),
+        # The host-native C++ direct sum, float64, on the host's CPU: the
+        # JAX package's runtime/ffi_forces.cpp row sum (AccelRows).
+        ("host_forces",
+         "none: runtime/ffi_forces.cpp:35 (AccelRows) is a CPU XLA-FFI row "
+         "sum, not a Pallas kernel",
+         host["runs"]["float64"]["launches"],
+         host["runs"]["float64"]["vs_plain_cpu"]["max_abs_err"],
+         host["runs"]["float64"]["timing"]),
     ]
     emit({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": f"gravity_tpu_torch/csrc/{name.split('/')[0]}.cu",
+        "name": name, "route": t.get("route", "cuda"),
+        "source": t.get("source",
+                        f"gravity_tpu_torch/csrc/{name.split('/')[0]}.cu"),
         "replaces": replaces,
         "launches": launches, "max_abs_err": err,
         "ms": t["ms"], "plain_ms": t["plain_ms"],

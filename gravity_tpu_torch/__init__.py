@@ -44,8 +44,11 @@ hierarchical ring, with the presets ``baseline-262k`` and
 P3M's near field, ``parallel/halo.py``; sharded multirate and adaptive
 steps); and the tooling: ``validate.py`` (the ``validate`` verb and its
 card gate), ``utils/gtrj_tool.py`` (``traj``), ``bench --report``,
-``analysis/`` (``lint``), ``utils/units.py`` and ``examples/``.
-``ops/cuda_build.py`` builds every kernel.
+``analysis/`` (``lint``), ``utils/units.py`` and ``examples/``; and the
+host-native C++ direct sum of the CPU (``--force-backend cpp``:
+``ops/host_kernel.py``, ``csrc/host_forces.cpp``).
+``ops/cuda_build.py`` builds every CUDA kernel, ``ops/host_build.py`` the
+host library.
 """
 
 from .config import PRESETS, SimulationConfig

@@ -110,15 +110,22 @@ def probe_counters() -> dict:
 def versions() -> dict:
     """The facts that invalidate a tuning record: another torch, CUDA or
     nvcc, or another source of one of the candidates' kernels (the
-    digest that also names its built library), can reorder the
-    candidates."""
-    from .ops import cells, cuda_build, direct_kernel, mxu_kernel, nlist
+    digest that also names its built library; the host-native C++ direct
+    sum's too, the CPU's ``cpp`` member), can reorder the candidates."""
+    from .ops import (
+        cells,
+        cuda_build,
+        direct_kernel,
+        host_kernel,
+        mxu_kernel,
+        nlist,
+    )
 
     return {"torch": torch.__version__, "cuda": torch.version.cuda,
             "nvcc": cuda_build.nvcc_version(),
             "kernels": {lib.name: lib.digest() for lib in (
                 direct_kernel.LIBRARY, mxu_kernel.LIBRARY, nlist.LIBRARY,
-                cells.LIBRARY)}}
+                cells.LIBRARY, host_kernel.LIBRARY)}}
 
 
 def _host_positions(positions) -> Optional[np.ndarray]:
@@ -191,8 +198,10 @@ def eligible_candidates(config, on_card: bool) -> tuple[tuple, dict]:
 
     - The exact direct sum contributes the static route's member
       (``simulation._resolve_direct``: ``pallas``, the ``nbody_direct``
-      kernel, on the card) and, beside ``pallas`` on the card, the Gram
-      form ``pallas-mxu`` (``nbody_mxu``), as the JAX package adds the
+      kernel, on the card; on the CPU ``dense``, and above 4,096 bodies
+      ``cpp``, the host-native C++ row sum, where it builds) and, beside
+      ``pallas`` on the card, the Gram form ``pallas-mxu``
+      (``nbody_mxu``), as the JAX package adds the
       MXU form on a TPU; not for a float64 state, which the Gram form
       would compute in float32. A direct sum over the pair budget is
       skipped.

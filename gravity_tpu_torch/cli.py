@@ -172,6 +172,9 @@ def _add_config_args(p: argparse.ArgumentParser) -> None:
                    choices=FORCE_BACKENDS, default=None,
                    help="auto/direct/pallas = the CUDA direct-sum kernel "
                         "on the GPU; pallas-mxu = its Gram-form kernel; "
+                        "cpp = the host-native C++ direct sum (with "
+                        "--device cpu; auto/direct take it on the CPU "
+                        "above 4,096 bodies); "
                         "nlist = the cutoff-radius cell list (needs "
                         "--nlist-rcut); p3m = the P3M solver; tree = "
                         "the octree; fmm = the fast multipole solver "
@@ -472,7 +475,8 @@ def _debug_check(config: SimulationConfig, sim, final, logger) -> dict:
         full_acc = sim.global_self_accel(final.positions, final.masses)
     elif sim.backend not in ("dense", "chunked"):
         kernel = make_local_kernel(config, sim.backend,
-                                   positions=final.positions)
+                                   positions=final.positions,
+                                   device=sim.device)
     check = debug_check_forces(
         final.positions, final.masses, g=config.g, cutoff=config.cutoff,
         eps=config.eps, rcut=rcut, box=config.periodic_box, kernel=kernel,

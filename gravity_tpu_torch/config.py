@@ -22,13 +22,15 @@ TIMESTEP_CRITERIA = ("auto", "accel", "velocity")
 DTYPES = ("float32", "float64", "bfloat16")
 # "pallas" and "pallas-mxu" are the JAX names of the hand-written
 # direct-sum kernels; here they name the CUDA kernels (ops/direct_kernel.py,
-# ops/mxu_kernel.py). "nlist" is the cutoff-radius cell list (ops/nlist.py),
+# ops/mxu_kernel.py). "cpp" is the host-native C++ direct sum of the CPU
+# (ops/host_kernel.py). "nlist" is the cutoff-radius cell list (ops/nlist.py),
 # "p3m" the particle-particle particle-mesh solver (ops/p3m.py), "tree" the
 # octree (ops/tree.py), "fmm" the fast multipole solver (ops/fmm.py, its
 # layout by fmm_mode), "sfmm" its sparse layout (ops/sfmm.py) and "pm" the
 # particle-mesh solver (ops/pm.py isolated, ops/periodic.py in a box).
 FORCE_BACKENDS = ("auto", "direct", "dense", "chunked", "pallas",
-                  "pallas-mxu", "nlist", "p3m", "tree", "fmm", "sfmm", "pm")
+                  "pallas-mxu", "cpp", "nlist", "p3m", "tree", "fmm", "sfmm",
+                  "pm")
 PM_ASSIGNMENTS = ("cic", "tsc")
 P3M_SHORT_MODES = ("auto", "gather", "slice", "nlist")
 FMM_MODES = ("auto", "dense", "sparse")
@@ -50,12 +52,6 @@ _BF16_REFUSED_REASON = (
     "jnp.fft.rfftn at gravity_tpu/ops/pm.py:286, takes float32 or float64 "
     "only (ValueError: RFFT input must be float32 or float64)"
 )
-_UNPORTED_BACKENDS = {
-    "cpp": (
-        "ROADMAP.md Queue 2 (the JAX CPU XLA-FFI kernel has no port; "
-        "use dense or chunked on the CPU)"
-    ),
-}
 
 # Fields of gravity_tpu's SimulationConfig that this package does not
 # carry: (the JAX default, which means "feature off", and the ROADMAP item
@@ -255,12 +251,6 @@ class SimulationConfig:
                 raise ValueError(
                     f"mesh_shape must be (P,) or (S, P/S) of positive "
                     f"sizes, got {self.mesh_shape}")
-        if self.force_backend in _UNPORTED_BACKENDS:
-            raise NotPortedError(
-                f"force_backend={self.force_backend!r} is not ported to "
-                f"gravity_tpu_torch yet "
-                f"({_UNPORTED_BACKENDS[self.force_backend]})"
-            )
         for name, choices in (
             ("model", MODELS), ("integrator", INTEGRATORS),
             ("dtype", DTYPES), ("force_backend", FORCE_BACKENDS),

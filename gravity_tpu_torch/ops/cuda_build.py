@@ -66,34 +66,43 @@ class CudaLibrary:
     ``signatures`` maps each exported C function to its
     ``(argtypes, restype)``. Every launch function returns the
     ``cudaGetLastError()`` of its launch as an int, and the library
-    exports ``<name>_error_string`` to name it."""
+    exports ``<name>_error_string`` to name it. A subclass names another
+    compiler, source suffix and flags (``ops/host_build.HostLibrary``)."""
+
+    SUFFIX = ".cu"
+    FLAGS = NVCC_FLAGS
 
     def __init__(self, name: str, signatures: dict):
         self.name = name
-        self.source = os.path.join(CSRC_DIR, f"{name}.cu")
+        self.source = os.path.join(CSRC_DIR, f"{name}{self.SUFFIX}")
         self.signatures = dict(signatures)
         self.signatures[f"{name}_error_string"] = (
             [ctypes.c_int], ctypes.c_char_p
         )
         # Facts of the build this process loaded: path, seconds spent in
-        # nvcc (0 when the library was already built), and the
-        # compiler's -Xptxas -v report of registers and shared memory.
+        # the compiler (0 when the library was already built), and its
+        # diagnostics (nvcc's -Xptxas -v report of registers and shared
+        # memory).
         self.info: dict = {}
         self._lib = None
+
+    @staticmethod
+    def compiler() -> str:
+        return nvcc()
 
     def digest(self) -> str:
         """A hash of the source and the flags: it names the built library,
         and it keys what was measured with it (``autotune.versions``)."""
         with open(self.source, "rb") as f:
             return hashlib.sha256(
-                f.read() + " ".join(NVCC_FLAGS).encode()
+                f.read() + " ".join(self.FLAGS).encode()
             ).hexdigest()[:16]
 
     def library_path(self) -> str:
         return os.path.join(BUILD_DIR, f"lib{self.name}_{self.digest()}.so")
 
     def _start(self):
-        """Start ``nvcc`` unless the library is built; returns the
+        """Start the compiler unless the library is built; returns the
         pending build or a finished record."""
         out = self.library_path()
         if os.path.exists(out):
@@ -101,24 +110,26 @@ class CudaLibrary:
         os.makedirs(BUILD_DIR, exist_ok=True)
         fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
         os.close(fd)
+        compiler = self.compiler()
         proc = subprocess.Popen(
-            [nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+            [compiler, *self.FLAGS, "-o", tmp, self.source],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
-        return (proc, tmp, out, time.perf_counter())
+        return (proc, tmp, out, time.perf_counter(),
+                os.path.basename(compiler))
 
     @staticmethod
     def _finish(pending) -> dict:
         if isinstance(pending, dict):
             return pending
-        proc, tmp, out, t0 = pending
+        proc, tmp, out, t0, compiler = pending
         _, stderr = proc.communicate()
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(
-                f"nvcc failed on {os.path.basename(out)} with exit code "
-                f"{proc.returncode}:\n{stderr}"
+                f"{compiler} failed on {os.path.basename(out)} with exit "
+                f"code {proc.returncode}:\n{stderr}"
             )
         os.replace(tmp, out)
         return {"path": out, "seconds": seconds, "ptxas": stderr}
@@ -147,7 +158,7 @@ class CudaLibrary:
 
 
 def build_all(libraries) -> None:
-    """Build and load every library, one ``nvcc`` process each, all
+    """Build and load every library, one compiler process each, all
     started together."""
     libraries = [lib for lib in libraries if lib._lib is None]
     pending = [lib._start() for lib in libraries]

@@ -65,6 +65,7 @@ from .ops import (
     diagnostics,
     direct_kernel,
     fmm,
+    host_kernel,
     mxu_kernel,
     nlist,
     p3m,
@@ -148,14 +149,16 @@ DENSE_KICK_BUDGET = 1 << 25
 # the supervisor's degrade ladder use them).
 JAX_NAMES = {KERNEL_BACKEND: "pallas", MXU_BACKEND: "pallas-mxu"}
 # The launch count of each resolved backend's kernel on a state's dtype
-# (p3m's is the cell-list kernel's ewald kind, which its gather pass does
-# not launch; the tree's its untruncated newton form, which its gather near
-# field does not launch; the cell list's bf16 form counts apart; the halo
+# (cpp's the calls of the host-native C++ row sum; p3m's is the cell-list
+# kernel's ewald kind, which its gather pass does not launch; the tree's
+# its untruncated newton form, which its gather near field does not
+# launch; the cell list's bf16 form counts apart; the halo
 # slab engine's launches, cubic for a multirate kick, slab for the full
 # force, count together).
 _LAUNCH_COUNTS = {
     KERNEL_BACKEND: lambda dtype: direct_kernel.LAUNCHES,
     MXU_BACKEND: lambda dtype: mxu_kernel.LAUNCHES,
+    "cpp": lambda dtype: host_kernel.LAUNCHES,
     "nlist": lambda dtype: sum(nlist.LAUNCHES[k + form] for k in (
         nlist.launch_key("newton", True, dtype),) for form in ("", "/slab")),
     "p3m": lambda dtype: nlist.LAUNCHES["ewald"] + nlist.LAUNCHES[
@@ -175,13 +178,23 @@ def _resolve_direct(config: SimulationConfig, on_card: bool) -> str:
     """The exact direct sum of the static route, by its force_backend
     name: with ``nlist_rcut`` > 0 (declared truncated physics) the
     rcut-masked plain sum on any device, dense up to ``DENSE_MAX_N`` and
-    chunked above; otherwise ``pallas``, the CUDA kernel, on the card at
-    every N (the JAX package's n >= 1024 threshold is a TPU measurement
-    and is not adopted), and the plain sum on the CPU."""
+    chunked above (``pallas`` and ``cpp`` compute full gravity and would
+    change the physics); otherwise ``pallas``, the CUDA kernel, on the
+    card at every N (the JAX package's n >= 1024 threshold is a TPU
+    measurement and is not adopted). On the CPU, as in the JAX package:
+    dense up to ``DENSE_MAX_N``, then ``cpp``, the host-native C++ row
+    sum, for a float32 or float64 state wherever its library builds
+    (``ops/host_kernel.host_forces_available``: a g++ build of a second
+    or so at its first use, cached), else chunked."""
     plain = "dense" if config.n <= DENSE_MAX_N else "chunked"
-    if config.nlist_rcut > 0.0 or not on_card:
+    if config.nlist_rcut > 0.0:
         return plain
-    return "pallas"
+    if on_card:
+        return "pallas"
+    if (plain == "chunked" and config.dtype in ("float32", "float64")
+            and host_kernel.host_forces_available()):
+        return "cpp"
+    return plain
 
 
 def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
@@ -193,6 +206,7 @@ def _resolve_backend(config: SimulationConfig, device: torch.device) -> str:
     and ``nlist`` is the cell list. ``pallas`` and ``pallas-mxu`` name the
     CUDA kernels, whose wrappers run the plain version for CPU tensors;
     ``dense`` and ``chunked`` are the plain version on any device;
+    ``cpp`` is the host-native C++ direct sum (the CPU only);
     ``nlist``, ``p3m``, ``tree``, ``fmm`` and ``sfmm`` are themselves (the
     FMM's layout is the Simulator's to resolve). A Simulator's plain
     ``auto`` asks the autotuner first (:func:`_resolve_backend_for_run`),
@@ -385,8 +399,33 @@ def _make_nlist_kernel(config: SimulationConfig, positions=None,
     )
 
 
+def _make_host_kernel(config: SimulationConfig, device: DeviceLike):
+    """The ``cpp`` backend's rectangular kernel (the JAX package's
+    ``make_local_kernel`` cpp branch): a ``ValueError`` off the CPU or for
+    a dtype other than float32/float64, before anything is built, and
+    :class:`~.utils.faults.BackendUnavailable` where the library does not
+    build (the supervisor degrades it to ``chunked``). Never a quiet move
+    of the run to another device or backend."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type != "cpu":
+        raise ValueError(
+            "force_backend='cpp' (the host-native C++ direct sum) runs on "
+            f"the CPU, not on {device}; on the card use 'pallas', or pass "
+            "--device cpu")
+    if config.dtype not in ("float32", "float64"):
+        raise ValueError(
+            f"force_backend='cpp' supports float32/float64, not "
+            f"{config.dtype!r}")
+    if not host_kernel.host_forces_available():
+        raise faults.BackendUnavailable(
+            "cpp", f"g++ build failed: {host_kernel.unavailable_reason()}")
+    return host_kernel.make_host_local_kernel(
+        g=config.g, cutoff=config.cutoff, eps=config.eps)
+
+
 def make_local_kernel(config: SimulationConfig, backend: str,
-                      positions=None, k_targets=None):
+                      positions=None, k_targets=None, *,
+                      device: DeviceLike = None):
     """The rectangular kernel ``(pos_targets (M, 3), pos_sources (K, 3),
     m_sources (K,)) -> (M, 3)`` of a resolved backend: the multirate fast
     kicks' (K, N) force, and a rank's (n_local, N) block on a mesh.
@@ -395,10 +434,13 @@ def make_local_kernel(config: SimulationConfig, backend: str,
     (P3M's on its own binning grid). Differentiable where the JAX
     package's is: the plain sums and the octree, FMM and PM by PyTorch's
     own differentiation, the ``pallas``, ``pallas-mxu`` and isolated
-    ``nlist`` kernels through the dense backward (``ops/forces.py::
-    DenseVJP``); P3M's cell-list near field and the octree's ``nlist``
-    near field raise on the card where a gradient is asked of them, as
-    their ``pallas_call`` has no autodiff rule in JAX."""
+    ``nlist`` kernels and ``cpp`` through the dense backward
+    (``ops/forces.py::DenseVJP``); P3M's cell-list near field and the
+    octree's ``nlist`` near field raise on the card where a gradient is
+    asked of them, as their ``pallas_call`` has no autodiff rule in JAX.
+    ``device`` is the device of the arrays the kernel will take, read by
+    ``cpp`` alone (the CPU's; ``None`` is the default device, the
+    card's)."""
     common = dict(g=config.g, cutoff=config.cutoff, eps=config.eps)
     if backend in ("dense", "chunked"):
         # The rcut-masked sum where truncated physics is declared.
@@ -414,6 +456,8 @@ def make_local_kernel(config: SimulationConfig, backend: str,
         return direct_kernel.make_direct_local_kernel(**common)
     if backend == MXU_BACKEND:
         return mxu_kernel.make_mxu_local_kernel(**common)
+    if backend == "cpp":
+        return _make_host_kernel(config, device)
     if backend == "nlist":
         return _make_nlist_kernel(config, positions, k_targets)
     if backend == "tree":
@@ -720,10 +764,14 @@ class Simulator:
                 "tree/p3m/direct backends are isolated-BC"
             )
         # Injected unbuildable backends (utils/faults.py) fail here, where
-        # the JAX package builds its kernels; nothing else raises
-        # BackendUnavailable.
+        # the JAX package builds its kernels; the host-native C++ direct
+        # sum builds here too, and raises BackendUnavailable where it
+        # cannot (its refusals off the CPU and for bf16 come first).
         faults.check_backend(config.force_backend, self.backend,
                              JAX_NAMES.get(self.backend, self.backend))
+        self._host_kernel = None
+        if self.backend == "cpp":
+            self._host_kernel = _make_host_kernel(config, self.device)
         # As-run cell-list sizing (side, cap, pair-tile slots per force
         # evaluation), for nlist runs: on the slab decomposition its
         # D-divisible side, and the migration buckets' capacity.
@@ -803,7 +851,8 @@ class Simulator:
                 )
             k, _ = self._multirate_plan()
             kick = make_local_kernel(config, self.backend,
-                                     positions=state.positions, k_targets=k)
+                                     positions=state.positions, k_targets=k,
+                                     device=self.device)
             self.kick_sizing = getattr(kick, "sizing", None)
             if self.backend == "p3m":
                 kick = self._with_run_khat(kick)
@@ -898,7 +947,8 @@ class Simulator:
                 self.mesh, depth=self.fmm_depth,
                 leaf_cap=config.tree_leaf_cap, **fmm_kw)
         local = make_local_kernel(config, self.backend,
-                                  positions=state.positions)
+                                  positions=state.positions,
+                                  device=self.device)
         if self.backend == "p3m":
             local = self._with_run_khat(local)
         return parallel.make_sharded_accel2(
@@ -1117,6 +1167,8 @@ class Simulator:
         if self.backend == MXU_BACKEND:
             return accelerations_vs_mxu_kernel(positions, positions, masses,
                                                **common)
+        if self._host_kernel is not None:
+            return self._host_kernel(positions, positions, masses)
         if self.backend == "nlist":
             side, cap, _ = self.nlist_sizing
             return nlist.nlist_accelerations(

@@ -111,7 +111,9 @@ def next_rung(backend: str, ladder: tuple = BACKEND_LADDER, *,
     the kernel. Then the exact-physics ladder: the port's resolved kernel
     names map to the JAX names (``nbody_mxu`` -> ``pallas-mxu``,
     ``nbody_direct`` -> ``pallas``); the cell list's rung is the masked
-    direct sum (``chunked``), its exact reference. ``on_card``: the plain
+    direct sum (``chunked``), its exact reference, and the host-native
+    C++ direct sum's (``cpp``, off the ladder) the plain ``chunked``, its
+    only safe fallback, as in the JAX package. ``on_card``: the plain
     rungs are off the exact-physics ladder, so that no recovery runs card
     tensors through plain PyTorch in place of a kernel."""
     if backend.startswith("sharded/"):
@@ -122,7 +124,7 @@ def next_rung(backend: str, ladder: tuple = BACKEND_LADDER, *,
             return f"sharded/{devices // 2}/{local}"
         return local  # the solo form of the same local kernel
     backend = JAX_NAMES.get(backend, backend)
-    if backend == "nlist":
+    if backend in ("nlist", "cpp"):
         nxt = "chunked"
     elif backend not in ladder:
         return None
@@ -270,9 +272,10 @@ class RunSupervisor:
 
     def _degrade_target(self, config: SimulationConfig) -> Optional[str]:
         """The next rung below the resolved backend (``auto`` on a card
-        that cannot build its chosen kernel degrades too)."""
+        that cannot build its chosen kernel degrades too); ``cpp`` is its
+        own rung, off the ladder, as in the JAX package."""
         backend = config.force_backend
-        if backend not in self.policy.backend_ladder:
+        if backend not in self.policy.backend_ladder and backend != "cpp":
             backend = _resolve_backend(config, self.device)
         return next_rung(backend, self.policy.backend_ladder,
                          on_card=self._on_card)

@@ -140,18 +140,26 @@ def test_occupancy_signature_degrades_to_na():
     (1 << 20, 5e10, None)])
 def test_eligible_candidates_match_jax_on_the_cpu(monkeypatch, n, rcut,
                                                   floor):
-    """The JAX package's candidates on the CPU (its C++ FFI kernel off,
-    which the port does not carry) and the same skipped keys."""
+    """The JAX package's candidates on the CPU and the same skipped keys,
+    with the host-native C++ direct sum built in both packages (``cpp``,
+    the direct member above 4,096 bodies) and unbuildable in both."""
     import gravity_tpu.ops.ffi_forces as ffi
+    from gravity_tpu_torch.ops import host_kernel
 
-    monkeypatch.setattr(ffi, "ffi_forces_available", lambda: False)
     if floor:
         monkeypatch.setenv("GRAVITY_TPU_AUTOTUNE_MIN_N", floor)
     kw = dict(model="plummer", n=n, eps=1e9, nlist_rcut=rcut)
-    cands, skipped = eligible_candidates(SimulationConfig(**kw), False)
-    jcands, jskipped = jat.eligible_candidates(JaxConfig(**kw), False)
-    assert jcands == cands
-    assert set(skipped) == set(jskipped)
+    for available in (False, True):
+        monkeypatch.setattr(ffi, "ffi_forces_available", lambda: available)
+        monkeypatch.setattr(host_kernel, "host_forces_available",
+                            lambda: available)
+        cands, skipped = eligible_candidates(SimulationConfig(**kw), False)
+        jcands, jskipped = jat.eligible_candidates(JaxConfig(**kw), False)
+        assert jcands == cands
+        assert set(skipped) == set(jskipped)
+        assert ("cpp" in cands) == (
+            available and n > 4096 and rcut == 0.0
+            and n * (n - 1) <= at.DIRECT_PROBE_PAIR_BUDGET["cpu"])
 
 
 def test_eligible_on_the_card_adds_the_gram_form_beside_the_kernel():
@@ -199,7 +207,7 @@ def test_versions_name_torch_cuda_and_nvcc():
     assert v["cuda"] == torch.version.cuda
     assert v["nvcc"] == "none" or "release" in v["nvcc"]
     assert set(v["kernels"]) == {"nbody_direct", "nbody_mxu", "nlist_pair",
-                                 "segment_sum"}
+                                 "segment_sum", "host_forces"}
     from gravity_tpu_torch.ops import cells
 
     assert cells.LIBRARY.library_path().endswith(

@@ -26,6 +26,7 @@ from gravity_tpu.state import ParticleState as JaxState
 from gravity_tpu.utils.trajectory import TrajectoryReader as JaxReader
 from gravity_tpu_torch.config import PRESETS, SimulationConfig
 from gravity_tpu_torch.interop import state_from_numpy, state_to_numpy
+from gravity_tpu_torch.ops import host_kernel
 from gravity_tpu_torch.simulation import (
     SimulationDiverged,
     Simulator,
@@ -156,7 +157,10 @@ def test_backend_resolution():
         assert _resolve_backend(cfg, cuda) == "nbody_direct"
     assert _resolve_backend(SimulationConfig(n=64), cuda) == "nbody_direct"
     assert _resolve_backend(SimulationConfig(n=4096), cpu) == "dense"
-    assert _resolve_backend(SimulationConfig(n=4097), cpu) == "chunked"
+    # Above DENSE_MAX_N the CPU takes the host-native C++ direct sum where
+    # it builds, as the JAX package does.
+    assert _resolve_backend(SimulationConfig(n=4097), cpu) == (
+        "cpp" if host_kernel.host_forces_available() else "chunked")
     assert _resolve_backend(
         SimulationConfig(force_backend="pallas"), cpu
     ) == "nbody_direct"
