@@ -21,7 +21,7 @@ set to 0 just before the path and read just after:
   through ``nbody_mxu``;
 - the P3M run of README.md (the ``baseline-1m-p3m`` preset: a 1,048,576-
   body disk, grid 256, cap 64, leapfrog) with ``--p3m-short nlist``, cut
-  to 50 of its 500 steps, through the ``ewald`` kind of ``nlist_pair``;
+  to 25 of its 500 steps, through the ``ewald`` kind of ``nlist_pair``;
 - the ``baseline-16k`` preset (a Plummer sphere, N = 16,384, leapfrog,
   eps = 1e9 m, 500 steps) through ``nbody_direct`` mask-free, with its
   energy drift;
@@ -50,7 +50,7 @@ set to 0 just before the path and read just after:
   ``baseline-16k`` (the chunked scan), each cut to 100 steps; each fast
   kick shape held to its plain version;
 - the octree: ``baseline-1m`` (the 1M disk, G = 1, leaf_cap 32, depth 7
-  fit to the state) with ``--tree-near nlist``, cut to 3 of 500 steps,
+  fit to the state) with ``--tree-near nlist``, cut to 2 of 500 steps,
   through ``nlist_pair``'s untruncated form (``nlist_pair/near``), its
   forces held to ``nbody_direct`` at 4,096 targets and to the gather
   near field on the same state (fp32 and fp64, each piece of the near
@@ -60,12 +60,12 @@ set to 0 just before the path and read just after:
   ``nlist_pair``'s bf16 form: the README cell-list run at ``--dtype
   bfloat16`` (cut to 100 steps; multirate cut to 20), its forces against
   fp32 nlist; ``baseline-1m --dtype bfloat16 --tree-near nlist`` (cut to
-  3 steps; its gather near field and multirate, 1 each), its forces
+  2 steps; its gather near field and multirate, 1 each), its forces
   against the fp32 tree and ``nbody_direct`` (bar: 1.5x the JAX
   package's own bf16 figure) and the two near fields against each other;
 - the fast multipole solvers, plain PyTorch (no kernel may launch on
   their paths): ``baseline-1m-fmm`` (the 1M disk, fmm_mode auto, which
-  must resolve sparse: depth 9) cut to 2 steps, its stages profiled, its
+  must resolve sparse: depth 9) cut to 1 step, its stages profiled, its
   forces against ``nbody_direct`` at 4,096 targets; the 1M uniform cube
   through the dense grid (1 step); sparse (both far modes) against
   dense on one overflow-free state; ``baseline-1m-fmm`` multirate (1
@@ -139,7 +139,7 @@ set to 0 just before the path and read just after:
   preempted and resumed, its gap reported; ``baseline-16k`` with
   ``--auto-recover`` healing ``diverge@300`` (exit 0) and without it
   exiting 2; ``bench --cadence`` on and off on the README cell list;
-  ``baseline-1m --ledger`` (2 steps, the card's large-N potential, the
+  ``baseline-1m --ledger`` (1 step, the card's large-N potential, the
   FMM's, timed against the tree's); the host syncs
   a step of each path; and on the main, nlist, Gram, P3M, multirate and
   merge paths the energy drift by the conservation ledger, outside the
@@ -159,8 +159,15 @@ set to 0 just before the path and read just after:
   (``profile_path``);
 - the rest of the mesh layer, each on an NCCL world of one: the sharded
   FMM forms (``baseline-1m-fmm``'s sparse FMM and the 1M cube's dense one
-  at depth 6, 2 steps each, sharded and unsharded: the same bits, no
-  kernel launch, the as-run ``k_eff`` read by ``--debug-check``);
+  at depth 6, 1 step each, sharded and unsharded: the same bits, no
+  kernel launch, the as-run ``k_eff`` read by ``--debug-check``); the
+  gradient of sum((a / A)^2) through one evaluation of each sharded
+  engine JAX differentiates through (``sharded_grad_path``: the dense
+  FMM on ``baseline-1m-fmm``'s disk at 1,048,576 bodies, the sparse FMM
+  at 262,144, the largest power of two whose graph fits, and the halo
+  engine on the 262,144-body grf box), each against the unsharded VJP,
+  no kernel launch; the isolated halo engine's and the mass scale's
+  refusals;
   ``baseline-16k`` sharded for 200 steps, preempted at 100 and resumed
   sharded and solo to the uninterrupted bits, and ``--auto-recover``
   healing ``diverge@150``; the ``sharded-integrate`` job class through
@@ -309,8 +316,9 @@ MXU_RUN = dict(model="random", n=65_536, integrator="leapfrog",
 # The P3M run: README.md's command for the JAX package (the
 # baseline-1m-p3m preset: a 1,048,576-body disk in galactic units, G = 1,
 # dt 2e-3, eps 0.05, grid 256, cap 64, leapfrog) with --p3m-short nlist.
-# Cut to 100 of its 500 steps, to make room for the periodic phases.
-P3M_STEPS = 50
+# Cut to 25 of its 500 steps, to make room for the periodic phases (50
+# before the sharded-gradient phase came).
+P3M_STEPS = 25
 P3M_RUN = dict(model="disk", n=1_048_576, g=1.0, dt=2e-3, eps=0.05,
                integrator="leapfrog", force_backend="p3m", pm_grid=256,
                p3m_cap=64, p3m_short="nlist", steps=P3M_STEPS)
@@ -3068,10 +3076,11 @@ def phase_merge_path(device: dict) -> dict:
 
 # The octree run: the baseline-1m preset (the JAX package's 1M disk in
 # galactic units, G = 1, dt 2e-3, eps 0.05, leapfrog, leaf_cap 32, the
-# depth fit to the state) with --tree-near nlist, cut to 3 of its 500
-# steps; with the preset's own gather near field, 1 step; multirate, 1
-# (2 each before the host path came).
-TREE_STEPS = 3
+# depth fit to the state) with --tree-near nlist, cut to 2 of its 500
+# steps (3 before the sharded-gradient phase came); with the preset's own
+# gather near field, 1 step; multirate, 1 (2 each before the host path
+# came).
+TREE_STEPS = 2
 TREE_GATHER_STEPS = 1
 TREE_MULTIRATE_STEPS = 1
 TREE_SAMPLE = 4096
@@ -3688,9 +3697,10 @@ NLIST_BF16_REASON = ("in units of the row's sum of |terms|: terms rounded to "
 # multirate cut to 20.
 NLIST_BF16_STEPS = 100
 NLIST_BF16_MULTIRATE_STEPS = 20
-# baseline-1m at --dtype bfloat16: --tree-near nlist cut to 3 of 500
-# steps, the gather near field and multirate to 1 each.
-TREE_BF16_STEPS = 3
+# baseline-1m at --dtype bfloat16: --tree-near nlist cut to 2 of 500
+# steps (3 before the sharded-gradient phase came), the gather near
+# field and multirate to 1 each.
+TREE_BF16_STEPS = 2
 TREE_BF16_GATHER_STEPS = 1
 TREE_BF16_MULTIRATE_STEPS = 1
 # bf16 segment-sum launches a level of an octree build: the cell masses
@@ -4571,7 +4581,7 @@ BENCH_RATE_SLACK = 1.05
 # (BENCH_BACKEND, the counter of its kernel)
 BENCH_BACKENDS = (("direct", "nbody_direct"), ("pallas-mxu", "nbody_mxu"),
                   ("nlist", "nlist_pair"))
-AUTOTUNE_STEPS = 3
+AUTOTUNE_STEPS = 2
 TUNE_SIZES = (16_384,)
 
 
@@ -4833,7 +4843,7 @@ HOST_GAP_CONTRACT = dict(n=2048, steps=150, reps=2, block=25,
 # cadence bench, a checkpoint every 50), so that there are blocks to
 # overlap and a step to resume from.
 NLIST_CUT_STEPS = 100
-LEDGER_TREE_STEPS = 2
+LEDGER_TREE_STEPS = 1
 
 
 def run_cli(args, faults: str = ""):
@@ -5381,10 +5391,10 @@ def phase_host_syncs(device: dict) -> dict:
 # package's are jnp; no hand-written kernel runs on their paths.
 # ---------------------------------------------------------------------------
 
-# baseline-1m-fmm cut to 2 of its 500 steps, multirate to 1; the 1M
-# uniform cube through the dense grid, 1 step (2 each before the host
-# path came).
-FMM_STEPS = 2
+# baseline-1m-fmm cut to 1 of its 500 steps (2 before the
+# sharded-gradient phase came), multirate to 1; the 1M uniform cube
+# through the dense grid, 1 step (2 each before the host path came).
+FMM_STEPS = 1
 FMM_DENSE_STEPS = 1
 FMM_MULTIRATE_STEPS = 1
 FMM_SAMPLE = 4096
@@ -8111,7 +8121,7 @@ HALO_EVAL_BAR = 1e-6
 # its mesh pass), per target in units of the RMS |a|: alpha and rcut are
 # rounded once from the global cube, not through h and sigma.
 HALO_EWALD_BAR = 1e-4
-SHARDED_MODES_STEPS = 100
+SHARDED_MODES_STEPS = 50
 
 
 def cut_slabs(args, devices: int) -> list:
@@ -8452,7 +8462,7 @@ def phase_sharded_modes_path(device: dict) -> dict:
 # The rest of the mesh layer (the sharded FMM forms, checkpoints and
 # resume on a world, the sharded-integrate job class): each its own NCCL
 # world of one, destroyed at the phase's end.
-SHARDED_FMM_STEPS = 2
+SHARDED_FMM_STEPS = 1
 SHARDED_FMM_DENSE_DEPTH = 6
 SHARDED_RESUME_STEPS = 200
 SHARDED_PREEMPT_AT = 100
@@ -8671,6 +8681,188 @@ def phase_sharded_resume_path(device: dict) -> dict:
             out["auto_recover"] = {"fault": f"diverge@{SHARDED_DIVERGE_AT}",
                                    "exit": healed.returncode,
                                    "events": kinds}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    emit(out)
+    return out
+
+
+# sharded_grad_path: the VJP of sum((a / A)^2), A the rms |a| of the
+# unsharded evaluation, through one evaluation of each sharded engine the
+# JAX package differentiates through (the Simulator's mesh accel on the
+# NCCL world of one), held against the unsharded engine's VJP on the same
+# state: baseline-1m-fmm's disk through the dense grid and the sparse FMM,
+# periodic_nlist_path's grf box through the halo engine (rcut box/16 at
+# its default sizing). Body counts are the largest powers of two whose
+# graphs fit the card (PERF.md section 4, with the peak bytes at the size
+# that did not; scripts/sharded_grad_sizes.py): the sparse FMM's graph at
+# 524,288 and 1,048,576 bodies did not. Each part: one VJP's ms and peak
+# bytes, sharded and unsharded, and the gap in fp32 (max |difference|
+# over max |gradient|).
+SHARDED_GRAD_N = {"fmm_dense": 1 << 20, "fmm_sparse": 1 << 18,
+                  "halo_periodic": 262_144}
+SHARDED_GRAD_BAR = 5e-4
+
+
+def sharded_grad_configs(n: dict = None) -> dict:
+    """Each part's unsharded config (the sharded run adds ``sharding``)."""
+    import dataclasses
+
+    from gravity_tpu_torch.config import PRESETS, SimulationConfig
+
+    n = dict(SHARDED_GRAD_N, **(n or {}))
+    disk = PRESETS["baseline-1m-fmm"]
+    return {
+        "fmm_dense": dataclasses.replace(disk, n=n["fmm_dense"],
+                                         fmm_mode="dense"),
+        "fmm_sparse": dataclasses.replace(disk, n=n["fmm_sparse"],
+                                          fmm_mode="sparse"),
+        "halo_periodic": SimulationConfig(
+            model="grf", n=n["halo_periodic"], periodic_box=COSMO_BOX,
+            force_backend="nlist", nlist_rcut=COSMO_BOX / 16,
+            integrator="leapfrog", eps=2.0e11, dt=2.0e4),
+    }
+
+
+def sharded_grad_part(name: str, config) -> dict:
+    """One part of sharded_grad_path: the VJP with respect to the positions
+    (and to the masses, where JAX's form has their rule: not through the
+    halo engine's mass scale) through the sharded accel and the unsharded
+    Simulator's, on the same state; ms and peak bytes of each, the gaps,
+    and no kernel launched. The FMM's is the sharded Simulator's own; the
+    halo engine's, which the Simulator takes on two ranks or more, is
+    built on the world of one at the solo cell list's sizing, as
+    halo_path builds it."""
+    import dataclasses
+
+    import torch
+
+    from gravity_tpu_torch.parallel import (
+        make_halo_nlist_accel,
+        make_particle_mesh,
+    )
+    from gravity_tpu_torch.simulation import Simulator
+
+    masses = not name.startswith("halo")
+    solo = Simulator(config)
+    pos0, m0 = solo.state.positions, solo.state.masses
+    out = {"n": config.n}
+    if name.startswith("halo"):
+        side, cap, _ = solo.nlist_sizing
+        sharded_fn = make_halo_nlist_accel(
+            make_particle_mesh(), side=side, cap=cap, rcut=config.nlist_rcut,
+            box=config.periodic_box, g=config.g, cutoff=config.cutoff,
+            eps=config.eps)
+        out["side_cap"] = [side, cap]
+    else:
+        sharded = Simulator(dataclasses.replace(config, sharding="allgather"))
+        check(sharded.mesh is not None and sharded.mesh.shape == (1,),
+              f"sharded_grad_path {name}: not a world of one")
+        check(sharded.fmm_sparse == (name == "fmm_sparse"),
+              f"sharded_grad_path {name}: sparse={sharded.fmm_sparse}")
+        check(same_bits(sharded.state.positions, pos0)
+              and same_bits(sharded.state.masses, m0),
+              f"sharded_grad_path {name}: the states differ")
+        sharded_fn = sharded._self_accel
+        out["fmm_sparse"] = sharded.fmm_sparse
+    with torch.no_grad():
+        scale = float(solo._self_accel(pos0, m0).double().square()
+                      .sum(-1).mean().sqrt())
+
+    def vjp(fn):
+        p = pos0.detach().clone().requires_grad_(True)
+        m = m0.detach().clone().requires_grad_(masses)
+        inputs = (p, m) if masses else (p,)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        acc = fn(p, m)
+        grads = torch.autograd.grad(((acc / scale) ** 2).sum(), inputs)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t)
+        return grads, ms, torch.cuda.max_memory_allocated()
+
+    reset_counts()
+    got, ms, peak = vjp(sharded_fn)
+    want, solo_ms, solo_peak = vjp(solo._self_accel)
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"sharded_grad_path {name}: a kernel launched: {counts}")
+    gaps = {}
+    for part, g, w in zip(("positions", "masses"), got, want):
+        check(bool(torch.isfinite(g).all()),
+              f"sharded_grad_path {name}: a {part} gradient is not finite")
+        top = float(w.abs().max())
+        check(top > 0, f"sharded_grad_path {name}: zero {part} gradient")
+        gaps[part] = float((g - w).abs().max()) / top
+        check(gaps[part] <= SHARDED_GRAD_BAR,
+              f"sharded_grad_path {name}: {part} gap {gaps[part]}")
+    out.update(a_scale=scale, ms=ms, peak_bytes=peak, unsharded_ms=solo_ms,
+               unsharded_peak_bytes=solo_peak, gap=gaps,
+               launches=sum(counts.values()))
+    del solo, sharded_fn, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_grad_refusals(mesh) -> dict:
+    """(d): where JAX's halo engine has no rule, the card's raises
+    NoBackwardError naming the primitive, before any launch."""
+    import torch
+
+    from gravity_tpu_torch.ops.forces import NoBackwardError
+    from gravity_tpu_torch.parallel import make_halo_nlist_accel
+
+    gen = torch.Generator().manual_seed(26)
+    pos = (torch.rand((4096, 3), generator=gen) * COSMO_BOX).cuda()
+    m = torch.full((4096,), 1e30, device="cuda")
+    cases = {"isolated positions": ("pmin", 0.0, True, False),
+             "periodic masses": ("pmax", COSMO_BOX, False, True)}
+    out = {}
+    reset_counts()
+    for case, (prim, box, wrt_pos, wrt_m) in cases.items():
+        fn = make_halo_nlist_accel(mesh, side=4, cap=64, rcut=COSMO_BOX / 16,
+                                   box=box, eps=2.0e11)
+        try:
+            fn(pos.clone().requires_grad_(wrt_pos),
+               m.clone().requires_grad_(wrt_m))
+        except NoBackwardError as e:
+            check(prim in str(e), f"sharded_grad_path: {case} raised {e}")
+            out[case] = f"raises NoBackwardError ({prim})"
+            continue
+        raise RuntimeError(f"sharded_grad_path: {case} returned a tensor "
+                           "instead of raising")
+    counts = read_counts()
+    check(not any(counts.values()),
+          f"sharded_grad_path: a refusal launched: {counts}")
+    return out
+
+
+def phase_sharded_grad_path(device: dict) -> dict:
+    """The gradients through the sharded engines on the NCCL world of one
+    (SHARDED_GRAD_N above): (a) the dense FMM, (b) the sparse FMM and (c)
+    the periodic halo engine against their unsharded VJPs, (d) the
+    isolated halo engine's and the mass scale's refusals."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from gravity_tpu_torch.parallel import make_particle_mesh
+
+    out = {"phase": "sharded_grad_path", "nvidia_smi": device["nvidia_smi"],
+           "bar": SHARDED_GRAD_BAR, "parts": {}}
+    # The dense FMM's graph at 1M bodies peaks at ~72 GiB: start with
+    # nothing of the earlier phases cached.
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        for name, config in sharded_grad_configs().items():
+            part = sharded_grad_part(name, config)
+            print(json.dumps({"sharded_grad": name, **part}), flush=True)
+            out["parts"][name] = part
+        out["refusals"] = sharded_grad_refusals(make_particle_mesh())
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -8935,14 +9127,15 @@ def backward_case(name, fn, counter, dtype, batch=(), rcut=0.0,
 
 def no_backward_checks() -> dict:
     """Each kernel entry without a backward, on CUDA tensors that require
-    grad: NoBackwardError naming its kernel, before any launch; the halo
-    engine and the sharded FMM forms, forward only on every device, the
-    same before any collective."""
+    grad: NoBackwardError naming its kernel, before any launch; the
+    isolated halo engine, whose positions JAX's ``pmin`` cannot
+    differentiate, the same before any collective (sharded_grad_path
+    holds the sharded engines that differentiate)."""
     import torch
 
     from gravity_tpu_torch.ops import mxu_kernel, nlist
     from gravity_tpu_torch.ops.forces import NoBackwardError
-    from gravity_tpu_torch.parallel import halo, sharded_fmm
+    from gravity_tpu_torch.parallel import halo
     from gravity_tpu_torch.parallel.mesh import ParticleMesh
 
     def t(*shape, dtype=torch.float32):
@@ -8977,10 +9170,6 @@ def no_backward_checks() -> dict:
             t(2, 8, 3), t(2, 8, 3), t(2, 8), **kw),
         "the halo cell list": lambda: halo.make_halo_nlist_accel(
             mesh, side=4, cap=8, rcut=5e10)(pos, m),
-        "the sharded dense-grid FMM": lambda: sharded_fmm
-        .make_sharded_fmm_accel(mesh, depth=2)(pos, m),
-        "the sharded sparse FMM": lambda: sharded_fmm
-        .make_sharded_sfmm_accel(mesh, depth=2)(pos, m),
     }
     out = {}
     reset_counts()
@@ -10388,6 +10577,7 @@ def run_phases(torch) -> int:
     sharded_modes = timed(phase_sharded_modes_path, device)
     sharded_fmm = timed(phase_sharded_fmm_path, device)
     sharded_resume = timed(phase_sharded_resume_path, device)
+    sharded_grad = timed(phase_sharded_grad_path, device)
     bf16_paths = timed(phase_bf16_paths)
     multirate = timed(phase_multirate_path, device, base16k)
     star = timed(phase_star_cluster_path, device)
@@ -10504,6 +10694,9 @@ def run_phases(torch) -> int:
                           for k, v in sharded_fmm["runs"].items()},
           "sharded_resume": {k: v["bitwise_equal_uninterrupted"]
                              for k, v in sharded_resume["resumed"].items()},
+          "sharded_grad": {k: [v["ms"], v["unsharded_ms"], v["peak_bytes"],
+                               v["gap"]["positions"]]
+                           for k, v in sharded_grad["parts"].items()},
           "serve_sharded": {
               "bitwise_equal_solo": {k: v["bitwise_equal_solo"] for k, v in
                                      serve_sharded["jobs"].items()},

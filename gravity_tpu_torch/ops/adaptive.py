@@ -15,16 +15,17 @@ timescale gathered in rank order after the mask), so every rank takes the
 same dt, the unsharded run's on a world of one.
 
 The JAX package runs the steps in a device ``lax.while_loop`` that stops
-at ``t_end``. Here :func:`adaptive_run` takes a block of up to
-``max_steps`` steps with no host read inside it: every step computes its
-dt, time and counters as device scalars, and a step taken once ``t >=
+at ``t_end``. Here :func:`adaptive_run` takes up to ``max_steps`` steps in
+blocks of ``block`` with no host read inside a block: every step computes
+its dt, time and counters as device scalars, and a step taken once ``t >=
 t_end`` is an exact no-op (dt 0; the state, the carried acceleration,
 ``t``, the compensation, ``dt_min``/``dt_max_used`` and the step count
-all kept by ``torch.where``). The caller reads ``(t, steps)`` once a
-block. So the results equal JAX's, and such a tail step costs a force
-evaluation that does nothing: the caller sizes blocks to keep the tail
-short (``simulation.Simulator.run_adaptive``), and the first steps of
-a block that are active whatever dt comes out (:func:`sure_steps`, about
+all kept by ``torch.where``). Between blocks one host read of ``t <
+t_end`` stops the loop, so a call costs at most one block of such tail
+steps past ``t_end`` whatever its ``max_steps``, and the results equal
+JAX's. The Simulator sizes each call as one block to keep the tail short
+(``simulation.Simulator.run_adaptive``), and the first steps of a call
+that are active whatever dt comes out (:func:`sure_steps`, about
 ``(t_end - t0) / dt_max``) skip the gates.
 """
 
@@ -38,6 +39,9 @@ import torch
 from ..state import ParticleState
 from .forces import rounded, tiny
 from .integrators import AccelFn, leapfrog_kdk
+
+# Steps between two host reads of ``t < t_end`` in :func:`adaptive_run`.
+BLOCK = 64
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
@@ -163,6 +167,7 @@ def adaptive_run(
     step_fn: Optional[Callable] = None,
     exclude_fastest: int = 0,
     gather: Optional[Callable] = None,
+    block: int = BLOCK,
 ) -> AdaptiveResult:
     """Up to ``max_steps`` adaptive KDK steps towards ``t_end``.
 
@@ -177,9 +182,10 @@ def adaptive_run(
     every rank (``make_timestep_fn``).
 
     No step reads the device on the host; steps past ``t_end`` are exact
-    no-ops (module docstring). ``t0`` and ``comp0`` may be Python floats
-    or device scalars; a Python ``t0`` lets the block's sure-active
-    prefix (:func:`sure_steps`) skip the gates."""
+    no-ops, and the loop stops after the first block of ``block`` steps
+    that ends at ``t_end`` (module docstring). ``t0`` and ``comp0`` may be
+    Python floats or device scalars; a Python ``t0`` lets the call's
+    sure-active prefix (:func:`sure_steps`) skip the gates."""
     dt_fn = make_timestep_fn(
         criterion, eta=eta, eps=eps, dt_max=dt_max,
         exclude_fastest=exclude_fastest, gather=gather,
@@ -205,6 +211,8 @@ def adaptive_run(
     dmax = torch.zeros((), dtype=dtype, device=device)
     steps = torch.zeros((), dtype=torch.int64, device=device)
     for i in range(max_steps):
+        if i > n_sure and i % block == 0 and not bool(t < t_end_c):
+            break  # the block's one host read: the rest would be no-ops
         dt = torch.minimum(torch.clamp_min(dt_fn(st, acc), dt_floor),
                            t_end_c - t)
         gated = i >= n_sure

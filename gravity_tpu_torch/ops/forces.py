@@ -196,17 +196,20 @@ class NoBackwardError(RuntimeError):
 def require_no_grad(name: str, *tensors) -> None:
     """Raise :class:`NoBackwardError` naming ``name`` when autograd would
     need a gradient through it: grad mode is on and an input requires
-    grad. Every kernel entry without a backward calls it on the card
-    (and the forward-only sharded engines on every device), so that no
-    such call returns a tensor cut from the graph."""
+    grad. Every kernel entry without a backward calls it on the card, so
+    that no such call returns a tensor cut from the graph. (The halo
+    engine raises the same error where JAX's has no differentiation rule,
+    ``parallel/halo.py``.)"""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise NoBackwardError(
             f"{name} has no backward: it is forward only, as the JAX "
             "package's form is, and a gradient through it would be "
             "silently cut; differentiate through a backend that has one "
-            "(dense, chunked, pallas, pallas-mxu, nlist) or call it under "
-            "torch.no_grad()")
+            "(dense, chunked, pallas, pallas-mxu, nlist, tree, fmm, sfmm, "
+            "pm, cpp; on a mesh the sharded direct sums, the sharded FMM "
+            "forms and a periodic halo engine's positions) or call it "
+            "under torch.no_grad()")
 
 
 def backward_rows(m: int, k: int, slots: int = 1) -> int:

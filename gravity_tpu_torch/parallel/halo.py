@@ -43,9 +43,22 @@ every step of it on the rank's device with no host read:
 ``make_halo_nlist_accel`` returns ``accel2(pos_l, m_l)`` with the contract
 of :func:`.sharded.make_sharded_accel2`: a rank's rows in, its rows out,
 masses an argument. Every rank calls it in the same order (collectives).
-It is forward only: where autograd would need a gradient through it, it
-raises on every device (``ops/forces.require_no_grad``) rather than cut
-the graph; no JAX test pins a gradient through the JAX slab engines.
+
+Gradients go where ``jax.grad`` through the JAX form goes. The two
+exchanges carry them as the JAX collectives' transposes do: the
+``all_to_all`` of the migration and of the return sends each block's
+cotangent back to the rank it came from (:class:`AllToAll`), and the halo
+planes' cotangents go back to their senders, which add them into the
+planes they sent (:class:`HaloExchange`, ``ppermute``'s transpose); the
+index gathers and scatters around them, and a box's slab tiles (plain
+PyTorch on every device), are PyTorch's own differentiation. So a periodic
+engine differentiates with respect to the positions, through both kinds.
+The global cube's ``pmin``/``pmax`` and the mass scale's ``pmax`` have no
+differentiation rule in JAX, and the engine raises
+:class:`~gravity_tpu_torch.ops.forces.NoBackwardError` naming them where
+JAX raises: an isolated engine whose positions or masses require grad,
+and any engine whose masses do. The isolated slab tiles'
+``nlist_pair.cu`` entry stays forward only behind that refusal.
 """
 
 from __future__ import annotations
@@ -65,7 +78,7 @@ from ..ops.cells import (
     segment_sum,
     sorted_segment_sum,
 )
-from ..ops.forces import require_no_grad, rounded
+from ..ops.forces import NoBackwardError, rounded
 from ..ops.nlist import (
     _monopole_w,
     _overflow_targets_slab,
@@ -172,13 +185,105 @@ def halo_comm_model(n: int, side: int, cap: int, devices: int, *,
 def _all_to_all(t: torch.Tensor, group, devices: int) -> torch.Tensor:
     """``lax.all_to_all(tiled=True)`` over dim 0 in D equal blocks: block
     j goes to rank j, which puts it at this rank's block. A world of one
-    keeps its rows."""
+    keeps its rows. Differentiable (:class:`AllToAll`) where autograd
+    needs it."""
     if devices == 1:
         return t
+    if torch.is_grad_enabled() and t.requires_grad:
+        return AllToAll.apply(t, group)
+    return _all_to_all_blocks(t, group)
+
+
+def _all_to_all_blocks(t: torch.Tensor, group) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group)
     return out
+
+
+class AllToAll(torch.autograd.Function):
+    """:func:`_all_to_all` with its transpose as the backward: the same
+    exchange of the cotangent, which sends each block back to the rank it
+    came from."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_to_all_blocks(t, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _all_to_all_blocks(ct, ctx.group), None
+
+
+def _halo_exchange(planes: tuple, ranks: tuple, d: int, box: float,
+                   group) -> tuple:
+    """:func:`_exchange`, differentiable (:class:`HaloExchange`) where
+    autograd needs it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for pair in planes
+                                       for t in pair):
+        out = HaloExchange.apply(ranks, d, box, group,
+                                 *(t for pair in planes for t in pair))
+        return list(out[:len(planes)]), list(out[len(planes):])
+    return _exchange(planes, ranks, d, box, group)
+
+
+class HaloExchange(torch.autograd.Function):
+    """:func:`_exchange` of (first, last) plane pairs, flattened, with
+    ``ppermute``'s transpose as the backward: the cotangent of a plane
+    received from the left goes back to the left neighbour, which adds it
+    into the last plane it sent, and one from the right into the right
+    neighbour's first plane (a peer that is this rank, a world of one in a
+    box, adds its own). That is the same exchange with the cotangents of
+    (from the left, from the right) as the (first, last) it sends, so the
+    backward calls :func:`_exchange` again: what it receives from the left
+    is the cotangent of this rank's first plane, from the right of its
+    last. Integer planes (the counts) carry none."""
+
+    @staticmethod
+    def forward(ctx, ranks, d, box, group, *flat):
+        ctx.peers = (ranks, d, box, group)
+        ctx.floating = [t.is_floating_point() for t in flat[0::2]]
+        from_left, from_right = _exchange(
+            tuple(zip(flat[0::2], flat[1::2])), ranks, d, box, group)
+        out = (*from_left, *from_right)
+        ctx.mark_non_differentiable(
+            *(o for o in out if not o.is_floating_point()))
+        return out
+
+    @staticmethod
+    def backward(ctx, *cts):
+        k = len(ctx.floating)
+        live = [i for i in range(k) if ctx.floating[i]]
+        to_first, to_last = _exchange(
+            tuple((cts[i], cts[k + i]) for i in live), *ctx.peers)
+        grads = [None] * (2 * k)
+        for j, i in enumerate(live):
+            grads[2 * i], grads[2 * i + 1] = to_first[j], to_last[j]
+        return (None, None, None, None, *grads)
+
+
+def _refuse_without_rule(pos_l, m_l, box: float) -> None:
+    """Raise :class:`NoBackwardError` where ``jax.grad`` through the JAX
+    form raises: the global cube's ``pmin``/``pmax`` of the positions
+    (isolated) and the mass scale's ``pmax`` (``gravity_tpu/parallel/
+    halo.py:197-198``, ``:204``) have no differentiation rule, on a mesh
+    of any size."""
+    if not torch.is_grad_enabled():
+        return
+    if box <= 0.0 and pos_l.requires_grad:
+        what, prim = "positions of an isolated engine (the global cube)", \
+            "pmin"
+    elif m_l.requires_grad:
+        what, prim = "masses (the global mass scale)", "pmax"
+    else:
+        return
+    raise NoBackwardError(
+        f"the halo cell list (parallel/halo.py) has no backward with "
+        f"respect to the {what}: the JAX form's {prim} has no "
+        f"differentiation rule, so jax.grad raises there too; "
+        f"differentiate a periodic engine with respect to its positions, "
+        f"or call it under torch.no_grad()")
 
 
 def _exchange(planes: tuple, ranks: tuple, d: int, box: float,
@@ -219,9 +324,7 @@ def _exchange(planes: tuple, ranks: tuple, d: int, box: float,
 def _halo_body(pos_l, m_l, *, mesh: ParticleMesh, side: int, cap: int,
                mig_cap: int, rcut: float, g: float, cutoff: float,
                eps: float, box: float, kind: str, ewald_scales):
-    # Forward only, on every device: its collectives and tile launches
-    # carry no gradient (ROADMAP.md Queue 3).
-    require_no_grad("the halo cell list (parallel/halo.py)", pos_l, m_l)
+    _refuse_without_rule(pos_l, m_l, box)
     ranks, group = mesh.inner_ranks, mesh.inner_group
     devices = len(ranks)
     d = ranks.index(mesh.rank)
@@ -327,9 +430,10 @@ def _halo_body(pos_l, m_l, *, mesh: ParticleMesh, side: int, cap: int,
                            over_c.to(dtype)[:, None], cmass_w[:, None], ccom],
                           dim=1).reshape(sx, s * s, 9)
         pcount = t_count.reshape(sx, s * s)
-        (lh_main, lh_chan, lh_count), (rh_main, rh_chan, rh_count) = _exchange(
-            tuple((t[0], t[sx - 1]) for t in (pmain, pchan, pcount)), ranks, d,
-            box, group)
+        (lh_main, lh_chan, lh_count), (rh_main, rh_chan, rh_count) = \
+            _halo_exchange(tuple((t[0], t[sx - 1])
+                                 for t in (pmain, pchan, pcount)),
+                           ranks, d, box, group)
         if box > 0.0:
             # The ring's image shifts, applied on receive (positions' x,
             # rem_com's and ccom's), so the slab engines read minimum-image x.

@@ -22,16 +22,19 @@ slot overflow pattern is the unsharded one, and a sharded evaluation has
 the unsharded evaluation's bits on any world. The functions are
 collectives: every rank calls them in the same order.
 
-Forward only: where autograd would need a gradient through them they
-raise (``ops/forces.require_no_grad``), on every device; no JAX test pins
-a gradient through the JAX forms (ROADMAP.md Queue 3).
+Differentiable where the JAX forms are (``jax.grad`` transposes their
+``all_gather``s): the gathers here are :class:`~.mesh.AllGatherRows`, whose
+backward reduce-scatters the cotangent by rows, the rest is PyTorch's own
+differentiation of the plain cell passes (``cells.SegmentSumRows`` for the
+bf16 sums). A rank's loss is the sum over its own rows, so the world's
+gradient of the summed loss reaches each rank's rows, the unsharded
+gradient's on any world.
 """
 
 from __future__ import annotations
 
 from ..constants import CUTOFF_RADIUS, G
 from ..ops import fmm, sfmm
-from ..ops.forces import require_no_grad
 from .mesh import ParticleMesh, all_gather_rows
 
 
@@ -45,7 +48,6 @@ def make_sharded_fmm_accel(mesh: ParticleMesh, *, depth: int,
     share = fmm.SlabShare(mesh.rank, mesh.size, depth)
 
     def accel(pos_l, m_l):
-        require_no_grad("the sharded dense-grid FMM", pos_l, m_l)
         pos, m = all_gather_rows(pos_l), all_gather_rows(m_l)
         acc = fmm._dense_eval(pos, pos, m, depth=depth, leaf_cap=leaf_cap,
                               t_cap=leaf_cap, ws=ws, g=g, cutoff=cutoff,
@@ -72,7 +74,6 @@ def make_sharded_sfmm_accel(mesh: ParticleMesh, *, depth: int,
     share = fmm.ChunkShare(mesh.rank, mesh.size, local * k_chunk_eff)
 
     def accel(pos_l, m_l):
-        require_no_grad("the sharded sparse FMM", pos_l, m_l)
         pos, m = all_gather_rows(pos_l), all_gather_rows(m_l)
         acc = sfmm.sfmm_accelerations(
             pos, m, depth=depth, leaf_cap=leaf_cap, k_cells=k_eff, ws=ws,

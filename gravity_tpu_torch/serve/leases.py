@@ -192,6 +192,11 @@ class LeaseManager:
         self._suspended_until = 0.0
         self._hb_thread: Optional[threading.Thread] = None
         self._hb_stop = threading.Event()
+        # Callers holding the heartbeat (the daemon for its lifetime, a
+        # result write while its bytes are in flight): it runs while any
+        # does.
+        self._hb_users = 0
+        self._hb_mu = threading.Lock()
 
     def _record(self, op: str, /, **fields) -> None:
         if self.recorder is not None:
@@ -440,28 +445,46 @@ class LeaseManager:
         """Renew held leases every ttl/3 from a dedicated thread, so a
         long compile on the round thread cannot let leases lapse (a
         lapse is never UNSAFE — fencing catches the zombie — but it
-        double-runs work)."""
-        if self._hb_thread is not None:
-            return
-        self._hb_stop.clear()
+        double-runs work). Counted: the thread runs until every
+        ``start_heartbeat`` has had its ``stop_heartbeat``."""
+        with self._hb_mu:
+            self._hb_users += 1
+            if self._hb_thread is not None:
+                return
+            stop = self._hb_stop = threading.Event()
 
-        def _beat() -> None:
-            while not self._hb_stop.wait(self.ttl_s / 3.0):
-                try:
-                    self.renew_all()
-                except Exception:  # noqa: BLE001 — a failed beat must
-                    pass  # not kill the thread; the next one retries
+            def _beat() -> None:
+                while not stop.wait(self.ttl_s / 3.0):
+                    try:
+                        self.renew_all()
+                    except Exception:  # noqa: BLE001 — a failed beat must
+                        pass  # not kill the thread; the next one retries
 
-        self._hb_thread = threading.Thread(
-            target=_beat, daemon=True, name="gravity-lease-heartbeat"
-        )
-        self._hb_thread.start()
+            self._hb_thread = threading.Thread(
+                target=_beat, daemon=True, name="gravity-lease-heartbeat"
+            )
+            self._hb_thread.start()
 
     def stop_heartbeat(self) -> None:
-        if self._hb_thread is not None:
-            self._hb_stop.set()
-            self._hb_thread.join(timeout=5)
+        with self._hb_mu:
+            self._hb_users = max(0, self._hb_users - 1)
+            thread = self._hb_thread
+            if self._hb_users or thread is None:
+                return
             self._hb_thread = None
+            self._hb_stop.set()
+        thread.join(timeout=5)
+
+    @contextmanager
+    def kept(self):
+        """Hold the heartbeat while the body runs: a completed job's
+        result write, which the round thread's renewal does not wait
+        for, cannot outlive the lease it is fenced by."""
+        self.start_heartbeat()
+        try:
+            yield
+        finally:
+            self.stop_heartbeat()
 
     def release_all(self) -> None:
         """Clean-shutdown path: release every held lease so a restarted

@@ -56,6 +56,7 @@ that poisons its bucket (fails its round repeatedly) goes terminal
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -183,6 +184,9 @@ class Job:
     # pill counter behind ``max_requeues``.
     fence: int = 0
     requeues: int = 0
+    # Persisted: the job's ``completed`` event went out. A peer that
+    # re-runs it (its result was lost with its owner) emits none again.
+    announced: bool = False
     # Telemetry (persisted): the job's trace id, minted at submit and
     # carried in the spool record so an adopted job's spans — dead
     # worker's and survivor's — stitch into ONE trace
@@ -317,15 +321,19 @@ class Spool:
         except (TypeError, ValueError):
             return 0
 
-    def write_job(self, job: Job) -> bool:
+    def write_job(self, job: Job, before_write=None) -> bool:
         """Persist the record; returns False when fencing rejected the
         write (a newer claim owns this job — the caller must treat the
-        on-disk record as the truth)."""
+        on-disk record as the truth). ``before_write`` runs after the
+        fence check, just before the record lands."""
         record = job.to_dict()
         record["config"] = json.loads(job.config.to_json())
         record["params"] = job.params
         path = self.job_path(job.id)
         if self.leases is None:
+            if before_write is not None:
+                before_write()
+            record["announced"] = job.announced
             atomic_write_json(path, record)
             return True
         with self.leases.locked():
@@ -333,6 +341,9 @@ class Spool:
                 job.id, job.fence, lambda: self.record_fence(job.id)
             ):
                 return False
+            if before_write is not None:
+                before_write()
+            record["announced"] = job.announced
             atomic_write_json(path, record)
             return True
 
@@ -1342,7 +1353,8 @@ class EnsembleScheduler:
             ).inc()
         return path
 
-    def _persist(self, job: Job, raise_oserr: bool = False) -> bool:
+    def _persist(self, job: Job, raise_oserr: bool = False,
+                 before_write=None) -> bool:
         """Write the job record; False = fencing rejected it (we lost
         ownership to an adopter — local state re-synced from disk).
 
@@ -1360,13 +1372,17 @@ class EnsembleScheduler:
         validation, clobbering the owner's record and emitting a
         duplicate terminal event (the chaos-2 exactly-one-completed
         invariant; surfaced when slower admissions let a fenced
-        admission write land before the resident copy finished)."""
+        admission write land before the resident copy finished).
+
+        ``before_write`` runs once the fence has passed, just before the
+        record lands (a terminal event: no reader of the record sees the
+        job terminal before its event)."""
         if self.spool is None:
             return True
         if not job.owned:
             return False
         try:
-            landed = self.spool.write_job(job)
+            landed = self.spool.write_job(job, before_write=before_write)
         except OSError as e:
             # Disk full (ENOSPC) or any other I/O failure persisting
             # the record: degrade durability for THIS job — typed
@@ -1395,6 +1411,7 @@ class EnsembleScheduler:
             job.error = rec.get("error", job.error)
             job.fence = rec.get("fence", job.fence)
             job.requeues = rec.get("requeues", job.requeues)
+            job.announced = bool(rec.get("announced", job.announced))
             job.finished_ts = rec.get("finished_ts", job.finished_ts)
             job.result_payload = rec.get("result", job.result_payload)
         job.owned = False
@@ -1426,21 +1443,27 @@ class EnsembleScheduler:
             # failed write keeps job.state in memory, so result() still
             # serves it for this process's lifetime; only a restart
             # loses it (and then respools the job).
+            # The lease stays renewed until the bytes land, whatever the
+            # round thread does meanwhile: a peer cannot adopt (and re-run)
+            # a completed job whose result is in flight.
+            kept = (leases.kept() if leases is not None
+                    else contextlib.nullcontext())
             try:
-                # D2H span: fetching the result arrays off the device
-                # is the heavy host half; the spool write is the disk
-                # half — split so the trace shows which one hurt.
-                t_d2h = time.time()
-                fetched = Spool.normalize_result(result)
-                if trace_id:
-                    tracer.emit("d2h", trace_id, t_d2h,
-                                time.time() - t_d2h, job=job.id)
-                t_wr = time.time()
-                path = spool.write_result(job.id, fetched, fence=fence)
-                if trace_id:
-                    tracer.emit("result_write", trace_id, t_wr,
-                                time.time() - t_wr, job=job.id,
-                                fenced=path is None)
+                with kept:
+                    # D2H span: fetching the result arrays off the device
+                    # is the heavy host half; the spool write is the disk
+                    # half — split so the trace shows which one hurt.
+                    t_d2h = time.time()
+                    fetched = Spool.normalize_result(result)
+                    if trace_id:
+                        tracer.emit("d2h", trace_id, t_d2h,
+                                    time.time() - t_d2h, job=job.id)
+                    t_wr = time.time()
+                    path = spool.write_result(job.id, fetched, fence=fence)
+                    if trace_id:
+                        tracer.emit("result_write", trace_id, t_wr,
+                                    time.time() - t_wr, job=job.id,
+                                    fenced=path is None)
             except Exception as e:  # noqa: BLE001
                 try:
                     if events is not None:
@@ -1724,11 +1747,32 @@ class EnsembleScheduler:
             "gravity_job_resume_step",
         ):
             self.telemetry.registry.remove_series(gname, job=job.id)
-        if not self._persist(job):
+        # One terminal event a job: a job whose event went out (a re-run
+        # of a result lost with its owner) ends silently, whether the
+        # re-run completes or is poisoned. The flag rides the record, so
+        # a later adopter sees it too. The event goes out once the fence
+        # has passed and before the record lands, so whoever reads the
+        # job terminal finds its event.
+        announce = not job.announced
+        emitted = []
+
+        def emit() -> None:
+            emitted.append(True)
+            if announce:
+                job.announced = True
+                self._event(
+                    status if status in ServingEventLogger.KINDS
+                    else "failed",
+                    job=job.id, steps_done=job.steps_done, error=error,
+                )
+
+        if not self._persist(job, before_write=emit):
             # Fenced: an adopter owns the outcome — no terminal event
             # from the zombie (exactly one completed/failed per job in
             # the shared stream; _persist already logged `fenced`).
             return
+        if not emitted:  # no spool, or a record the disk refused
+            emit()
         from collections import deque
 
         counts = self._class_terminal.setdefault(
@@ -1751,10 +1795,6 @@ class EnsembleScheduler:
                 "gravity_job_latency_seconds",
                 **{"class": job.job_type},
             ).observe(latency)
-        self._event(
-            status if status in ServingEventLogger.KINDS else "failed",
-            job=job.id, steps_done=job.steps_done, error=error,
-        )
         if self.spool is not None and status != "completed":
             # failed/cancelled: the snapshot is dead weight. A
             # COMPLETED job keeps its progress until the result .npz
@@ -2718,6 +2758,8 @@ class EnsembleScheduler:
             finished_ts=record.get("finished_ts"),
             fence=int(record.get("fence", 0) or 0),
             requeues=int(record.get("requeues", 0) or 0),
+            announced=bool(record.get("announced"))
+            or record.get("status") == "completed",
             job_type=job_type,
             params=params if isinstance(params, dict) else {},
             parent=record.get("parent"),
@@ -2840,6 +2882,10 @@ class EnsembleScheduler:
             if self.leases is not None:
                 self.leases.release(job_id)
             return
+        # A copy cached read-only while the job ran predates its
+        # terminal event: the record says whether that went out.
+        job.announced = (job.announced or bool(record.get("announced"))
+                         or status in TERMINAL)
         self.jobs[job_id] = job
         job.owned = True
         if lease is not None:

@@ -438,6 +438,10 @@ def make_local_kernel(config: SimulationConfig, backend: str,
     (``ops/forces.py::DenseVJP``); P3M's cell-list near field and the
     octree's ``nlist`` near field raise on the card where a gradient is
     asked of them, as their ``pallas_call`` has no autodiff rule in JAX.
+    On a mesh the sharded FMM forms differentiate through their gathers,
+    and the halo engine with a box with respect to its positions; an
+    isolated halo engine and the masses through any halo engine raise, as
+    the JAX form's ``pmin``/``pmax`` have no rule.
     ``device`` is the device of the arrays the kernel will take, read by
     ``cpp`` alone (the CPU's; ``None`` is the default device, the
     card's)."""
@@ -2097,7 +2101,7 @@ class Simulator:
                     eta=config.eta, eps=config.eps, criterion=criterion,
                     max_steps=budget, t0=t, comp0=comp, acc0=acc,
                     step_fn=step_fn, exclude_fastest=exclude_fastest,
-                    gather=gather,
+                    gather=gather, block=budget,
                 )
                 # The block's one host read.
                 t, comp, b_min, b_max, block_steps = torch.stack([

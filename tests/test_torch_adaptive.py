@@ -204,6 +204,41 @@ def test_ungated_prefix_changes_no_bits():
         assert torch.equal(res.state.velocities, host.state.velocities)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_direct_call_at_default_max_steps_stops_near_t_end(x64, dtype):
+    """A direct call at the default max_steps (1e6, JAX's) stops within a
+    block of t_end, as JAX's while_loop does at it: it evaluates forces at
+    most once a step, once for acc0 and once a tail step of its last
+    block; its result has the bits of the masked loop that runs 200 steps
+    past t_end with no host read, and matches JAX's at the bars above."""
+    jax_state, state = _pair(dtype)
+    calls = [0]
+
+    def accel_fn(p):
+        calls[0] += 1
+        return accelerations_vs(p, p, state.masses, eps=EPS)
+
+    kw = dict(t_end=40 * DT_MAX, dt_max=DT_MAX, eta=ETA["accel"], eps=EPS)
+    got = adaptive.adaptive_run(state, accel_fn, **kw)
+    steps = int(got.steps)
+    assert float(got.t) == float(np.asarray(40 * DT_MAX, dtype))
+    assert calls[0] <= 1 + steps + adaptive.BLOCK
+    masked = adaptive.adaptive_run(state, accel_fn, max_steps=steps + 200,
+                                   block=steps + 200, **kw)
+    for name in ("t", "comp", "dt_min", "dt_max_used", "steps", "acc"):
+        assert torch.equal(getattr(got, name), getattr(masked, name))
+    assert torch.equal(got.state.positions, masked.state.positions)
+    assert torch.equal(got.state.velocities, masked.state.velocities)
+    want = jadaptive.adaptive_run(
+        jax_state, lambda p: jax_accel(p, p, jax_state.masses, eps=EPS),
+        **kw)
+    assert steps == int(want.steps)
+    _rows_close(got.state.positions.numpy(), want.state.positions,
+                TOL[dtype])
+    _rows_close(got.state.velocities.numpy(), want.state.velocities,
+                TOL[dtype])
+
+
 def _sims(dtype, **kw):
     jax_state, state = _pair(dtype)
     cfg = dict(n=state.n, dtype=dtype, force_backend="dense", eps=EPS,

@@ -26,10 +26,11 @@ hold the backward to JAX's VJP of the dense sum on the port's own
 cotangent, at the same bars.
 
 Entries without a backward (the ``ewald`` and untruncated pair tiles,
-the batched and slab tiles, the Gram sums, the halo engine, the sharded
-FMM) are held to raising where a gradient is asked of them on the card:
-meta tensors take the card's branch of each wrapper, and the guard must
-fire before the launch's own checks.
+the batched and slab tiles, the Gram sums) are held to raising where a
+gradient is asked of them on the card: meta tensors take the card's branch
+of each wrapper, and the guard must fire before the launch's own checks.
+The halo engine raises where JAX's does (its global cube and mass scale),
+and the sharded FMM forms return a tensor in the graph.
 """
 
 import functools
@@ -39,6 +40,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from gravity_tpu.ops import forces as jax_forces
 from gravity_tpu.ops.pallas_forces import make_pallas_local_kernel
@@ -321,26 +323,42 @@ def _mesh():
                         (0,))
 
 
-@pytest.mark.parametrize("engine", ["halo", "sharded_fmm", "sharded_sfmm"])
+@pytest.mark.parametrize(
+    "engine", ["halo", "halo_masses", "sharded_fmm", "sharded_sfmm"])
 def test_forward_only_sharded_engines_raise(engine):
-    """The halo engine and the sharded FMM forms raise on every device
-    where a gradient is asked of them, before any collective."""
-    from gravity_tpu_torch.parallel import halo, sharded_fmm
+    """Where ``jax.grad`` through the JAX form raises, so does the port,
+    before any collective: the isolated halo engine's positions (the
+    global cube's ``pmin``) and the masses through a periodic one (the
+    mass scale's ``pmax``). The sharded FMM forms, whose JAX gathers
+    transpose, return a tensor in the graph on a world of one."""
+    from gravity_tpu_torch.parallel import halo, make_particle_mesh
+    from gravity_tpu_torch.parallel import sharded_fmm
 
-    mesh = _mesh()
-    if engine == "halo":
-        accel = halo.make_halo_nlist_accel(mesh, side=4, cap=8, rcut=RCUT)
-        match = "halo cell list"
-    elif engine == "sharded_fmm":
-        accel = sharded_fmm.make_sharded_fmm_accel(mesh, depth=2)
-        match = "sharded dense-grid FMM"
-    else:
-        accel = sharded_fmm.make_sharded_sfmm_accel(mesh, depth=2)
-        match = "sharded sparse FMM"
     pos, masses = _system(16, seed=2, dtype=np.float64)
     p = torch.from_numpy(pos).requires_grad_(True)
-    with pytest.raises(forces.NoBackwardError, match=match):
-        accel(p, torch.from_numpy(masses))
+    m = torch.from_numpy(masses)
+    if engine.startswith("halo"):
+        box = 0.0 if engine == "halo" else 1e13
+        accel = halo.make_halo_nlist_accel(_mesh(), side=4, cap=8,
+                                           rcut=RCUT, box=box)
+        if engine == "halo_masses":
+            p, m = p.detach(), m.requires_grad_(True)
+        with pytest.raises(forces.NoBackwardError,
+                           match="pmin" if engine == "halo" else "pmax"):
+            accel(p, m)
+        return
+    created = not dist.is_initialized()
+    mesh = make_particle_mesh(device="cpu")
+    try:
+        make = (sharded_fmm.make_sharded_fmm_accel if engine == "sharded_fmm"
+                else sharded_fmm.make_sharded_sfmm_accel)
+        acc = make(mesh, depth=2)(p, m)
+        assert acc.grad_fn is not None and acc.shape == p.shape
+        (d_p,) = torch.autograd.grad((acc * acc).sum(), p)
+        assert torch.isfinite(d_p).all()
+    finally:
+        if created:
+            dist.destroy_process_group()
 
 
 def test_periodic_nlist_is_plain_differentiable():
